@@ -1,0 +1,94 @@
+// Shared pieces of the Hopper kernels: the static unpack schedule, the
+// validity word, count reduction and the width dispatch.
+//
+// Layout (see shared_simd_scan_tpu_torch/layout.py): tiles are
+// uint32[width][nblocks] with nblocks = B1*128; block b holds 32 values in
+// `width` words at tiles[j*nblocks + b].  Every kernel gives one thread one
+// block, so a warp's loads and stores of one row are 32 consecutive words.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace sss {
+
+constexpr int kBlockValues = 32;
+constexpr int kThreads = 256;
+constexpr int kMaxKeys = 1024;  // keys per launch: bounds the shared counters
+
+// Static schedule of layout.unpack_schedule: value r starts at stream bit
+// r*W, i.e. in word r*W/32 at shift r*W%32, and straddles into the next
+// word when shift + W > 32.  All three fold to constants once the r loop
+// is unrolled and W is a template argument.
+template <int W> __device__ __forceinline__ constexpr int slot_word(int r) { return (r * W) >> 5; }
+template <int W> __device__ __forceinline__ constexpr int slot_shift(int r) { return (r * W) & 31; }
+template <int W> __device__ __forceinline__ constexpr bool slot_straddles(int r) {
+  return slot_shift<W>(r) + W > 32;
+}
+template <int W> __device__ __forceinline__ constexpr uint32_t value_mask() { return (1u << W) - 1u; }
+
+// The block's W words; zeros for a thread past the end of the tiles.
+template <int W>
+__device__ __forceinline__ void load_block(const uint32_t* __restrict__ tiles, long long nblocks,
+                                           long long b, bool active, uint32_t (&w)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) w[j] = active ? __ldg(tiles + (size_t)j * nblocks + b) : 0u;
+}
+
+// Value r (0..31) of the block: (w[k] >> s | w[k+1] << (32-s)) & mask.
+template <int W>
+__device__ __forceinline__ uint32_t unpack_value(const uint32_t (&w)[W], int r) {
+  const int k = slot_word<W>(r), s = slot_shift<W>(r);
+  uint32_t v = w[k] >> s;
+  // (the index guard only keeps non-straddling slots' dead code in bounds)
+  if (slot_straddles<W>(r)) v |= w[k + 1 < W ? k + 1 : k] << (32 - s);
+  return v & value_mask<W>();
+}
+
+// Bits of global block g that hold real values (value index < n), so key 0
+// never matches the zero padding.
+__device__ __forceinline__ uint32_t valid_word(long long g, long long n) {
+  const long long full = n >> 5;
+  const int rem = (int)(n & 31);
+  if (g < full) return 0xFFFFFFFFu;
+  if (g == full && rem) return (1u << rem) - 1u;
+  return 0u;
+}
+
+// Per-CTA hit counters: every warp adds its popcount of a row into shared
+// memory; flush_counts adds each key's CTA total to the int64 counts with
+// one atomic.  Integer sums do not depend on order: the result is exact.
+__device__ __forceinline__ void zero_counts(unsigned* s_cnt, int k) {
+  for (int j = threadIdx.x; j < k; j += blockDim.x) s_cnt[j] = 0u;
+  __syncthreads();
+}
+
+// Store row j of this block and count it.  Must be reached by all 32 lanes
+// of the warp (j is warp-uniform); inactive lanes store nothing.
+__device__ __forceinline__ void store_row(uint32_t* __restrict__ bits, long long nblocks,
+                                          long long b, bool active, int j, uint32_t word,
+                                          unsigned* s_cnt) {
+  if (active) bits[(size_t)j * nblocks + b] = word;
+  const unsigned c = __reduce_add_sync(0xFFFFFFFFu, (unsigned)__popc(word));
+  if ((threadIdx.x & 31) == 0 && c) atomicAdd(s_cnt + j, c);
+}
+
+__device__ __forceinline__ void flush_counts(const unsigned* s_cnt, int k,
+                                             unsigned long long* __restrict__ counts) {
+  __syncthreads();
+  for (int j = threadIdx.x; j < k; j += blockDim.x)
+    if (s_cnt[j]) atomicAdd(counts + j, (unsigned long long)s_cnt[j]);
+}
+
+inline unsigned grid_for(long long nblocks) {
+  return (unsigned)((nblocks + kThreads - 1) / kThreads);
+}
+
+}  // namespace sss
+
+// Expands CASE(W) for every width 1..31 inside a switch on the runtime width.
+#define SSS_FOR_EACH_WIDTH(CASE)                                                        \
+  CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9) CASE(10)      \
+  CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16) CASE(17) CASE(18) CASE(19)      \
+  CASE(20) CASE(21) CASE(22) CASE(23) CASE(24) CASE(25) CASE(26) CASE(27) CASE(28)      \
+  CASE(29) CASE(30) CASE(31)

@@ -1,0 +1,170 @@
+// Interval shared scan (keys lo..lo+k-1, k <= 1024) and the shift canary.
+//
+// Replaces shared_simd_scan_tpu/ops/scan.py: _interval_scan_kernel /
+// _interval_scan_tiles_impl and _shift_canary_kernel / _run_shift_canary,
+// with the reference algorithm:
+//  - one-hot mask m = 1 << (v - lo_c) per value for a 32-key chunk starting
+//    at lo_c; the subtraction is uint32, so v < lo_c wraps to a large amount
+//    and the mask is 0;
+//  - for each 8-key round (byte of the mask), X_t packs the mask bytes of
+//    values {t, t+8, t+16, t+24} into its four bytes, and a 12-SWAPMOVE 8x8
+//    bit transpose turns X_0..X_7 into the 8 keys' bitvector words;
+//  - a last round with fewer than 8 keys writes only its first rows.
+//
+// The one-hot needs 1 << d == 0 for every d >= 32.  PTX shl.b32 clamps the
+// amount (PTX ISA), C++ << leaves it undefined; the canary kernel measures
+// both on the card, and the scan takes the gateless PTX shift only when the
+// canary saw it saturate, else the gated d < 32 ? 1 << (d & 31) : 0.
+//
+// Bound on the H100: device memory bytes (reads W words, writes k words per
+// 32 values) at small k; integer issue (~0.7 ops per value per key plus the
+// unpack) at large k.  Design: one thread per 32-value block; the 32 values
+// stay in registers for every key chunk (the TPU kernel's VMEM scratch);
+// counts as in shared_scan.cu.
+#include "common.cuh"
+
+namespace sss {
+
+__device__ __forceinline__ uint32_t shl_ptx(uint32_t a, uint32_t d) {
+  uint32_t r;
+  asm("shl.b32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(d));
+  return r;
+}
+
+template <bool kGateless>
+__device__ __forceinline__ uint32_t onehot(uint32_t d) {
+  if constexpr (kGateless) return shl_ptx(1u, d);
+  else return d < 32u ? 1u << (d & 31u) : 0u;
+}
+
+// Byte `byte` of mask m, placed at byte position g.
+template <int kByte, int kG>
+__device__ __forceinline__ uint32_t mask_byte(uint32_t m) {
+  constexpr int sh = 8 * (kByte - kG);
+  if constexpr (sh > 0) m >>= sh;
+  if constexpr (sh < 0) m <<= -sh;
+  if constexpr (sh == 24 || sh == -24) return m;  // the shift itself isolated the byte
+  else return m & (0xFFu << (8 * kG));
+}
+
+// Swap bits of a at positions p+s with bits of b at p (p in m).
+__device__ __forceinline__ void swapmove(uint32_t& a, uint32_t& b, uint32_t m, int s) {
+  const uint32_t t = ((a >> s) ^ b) & m;
+  a ^= t << s;
+  b ^= t;
+}
+
+// Bit-slice 8x8 transpose over four independent byte channels: byte g,
+// bit u of x[t] -> byte g, bit t of x[u].
+__device__ __forceinline__ void transpose8x8_bytes(uint32_t (&x)[8]) {
+  swapmove(x[0], x[1], 0x55555555u, 1);
+  swapmove(x[2], x[3], 0x55555555u, 1);
+  swapmove(x[4], x[5], 0x55555555u, 1);
+  swapmove(x[6], x[7], 0x55555555u, 1);
+  swapmove(x[0], x[2], 0x33333333u, 2);
+  swapmove(x[1], x[3], 0x33333333u, 2);
+  swapmove(x[4], x[6], 0x33333333u, 2);
+  swapmove(x[5], x[7], 0x33333333u, 2);
+  swapmove(x[0], x[4], 0x0F0F0F0Fu, 4);
+  swapmove(x[1], x[5], 0x0F0F0F0Fu, 4);
+  swapmove(x[2], x[6], 0x0F0F0F0Fu, 4);
+  swapmove(x[3], x[7], 0x0F0F0F0Fu, 4);
+}
+
+// One 8-key round: rows for keys lo_c + 8*kByte + i, i < min(8, kc - 8*kByte).
+template <int kByte>
+__device__ __forceinline__ void interval_round(const uint32_t (&m)[kBlockValues], int j0, int kc,
+                                               uint32_t* __restrict__ bits, long long nblocks,
+                                               long long b, bool active, uint32_t valid,
+                                               unsigned* s_cnt) {
+  uint32_t x[8];
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+    x[t] = mask_byte<kByte, 0>(m[t]) | mask_byte<kByte, 1>(m[8 + t]) |
+           mask_byte<kByte, 2>(m[16 + t]) | mask_byte<kByte, 3>(m[24 + t]);
+  transpose8x8_bytes(x);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int j = 8 * kByte + i;
+    if (j < kc) store_row(bits, nblocks, b, active, j0 + j, x[i] & valid, s_cnt);
+  }
+}
+
+template <int W, bool kGateless>
+__global__ void __launch_bounds__(kThreads)
+interval_scan_kernel(const uint32_t* __restrict__ tiles, uint32_t lo, int k,
+                     uint32_t* __restrict__ bits, unsigned long long* __restrict__ counts,
+                     long long nblocks, long long n, long long block_offset) {
+  __shared__ unsigned s_cnt[kMaxKeys];
+  zero_counts(s_cnt, k);
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = b < nblocks;
+  uint32_t w[W];
+  load_block<W>(tiles, nblocks, b, active, w);
+  const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
+
+  uint32_t v[kBlockValues];
+#pragma unroll
+  for (int r = 0; r < kBlockValues; ++r) v[r] = unpack_value<W>(w, r);
+
+  for (int j0 = 0; j0 < k; j0 += 32) {  // 32-key chunks
+    const uint32_t lo_c = lo + (uint32_t)j0;
+    const int kc = k - j0 < 32 ? k - j0 : 32;
+    uint32_t m[kBlockValues];
+#pragma unroll
+    for (int r = 0; r < kBlockValues; ++r) m[r] = onehot<kGateless>(v[r] - lo_c);
+    interval_round<0>(m, j0, kc, bits, nblocks, b, active, valid, s_cnt);
+    if (kc > 8) interval_round<1>(m, j0, kc, bits, nblocks, b, active, valid, s_cnt);
+    if (kc > 16) interval_round<2>(m, j0, kc, bits, nblocks, b, active, valid, s_cnt);
+    if (kc > 24) interval_round<3>(m, j0, kc, bits, nblocks, b, active, valid, s_cnt);
+  }
+  flush_counts(s_cnt, k, counts);
+}
+
+// out_ptx[i] = base[i] << amounts[i] through PTX shl.b32; out_cxx[i] the
+// same through C++ << (undefined for amounts >= 32: that is what it shows).
+__global__ void shift_canary_kernel(const uint32_t* __restrict__ base,
+                                    const uint32_t* __restrict__ amounts,
+                                    uint32_t* __restrict__ out_ptx, uint32_t* __restrict__ out_cxx,
+                                    int count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const uint32_t a = base[i], d = amounts[i];
+  out_ptx[i] = shl_ptx(a, d);
+  out_cxx[i] = a << d;
+}
+
+}  // namespace sss
+
+extern "C" int sss_interval_scan(const uint32_t* tiles, uint32_t lo, int k, uint32_t* bits,
+                                 unsigned long long* counts, long long nblocks, int width,
+                                 long long n, long long block_offset, int gateless,
+                                 cudaStream_t stream) {
+  if (k < 1 || k > sss::kMaxKeys) return (int)cudaErrorInvalidValue;
+  if (nblocks <= 0) return (int)cudaSuccess;
+  const unsigned grid = sss::grid_for(nblocks);
+  switch (width) {
+#define SSS_CASE(W)                                                                      \
+  case W:                                                                                \
+    if (gateless)                                                                        \
+      sss::interval_scan_kernel<W, true><<<grid, sss::kThreads, 0, stream>>>(            \
+          tiles, lo, k, bits, counts, nblocks, n, block_offset);                         \
+    else                                                                                 \
+      sss::interval_scan_kernel<W, false><<<grid, sss::kThreads, 0, stream>>>(           \
+          tiles, lo, k, bits, counts, nblocks, n, block_offset);                         \
+    break;
+    SSS_FOR_EACH_WIDTH(SSS_CASE)
+#undef SSS_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sss_shift_canary(const uint32_t* base, const uint32_t* amounts, uint32_t* out_ptx,
+                                uint32_t* out_cxx, int count, cudaStream_t stream) {
+  if (count <= 0) return (int)cudaSuccess;
+  sss::shift_canary_kernel<<<(count + 255) / 256, 256, 0, stream>>>(base, amounts, out_ptx,
+                                                                     out_cxx, count);
+  return (int)cudaGetLastError();
+}

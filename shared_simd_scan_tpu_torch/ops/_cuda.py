@@ -1,0 +1,166 @@
+"""Build, load and launch plumbing for the package's CUDA sources.
+
+The kernels in ``shared_simd_scan_tpu_torch/csrc/*.cu`` are compiled at
+first use with ``nvcc`` for Hopper (``sm_90a``) into one shared library
+with a plain C interface and loaded with ctypes.  Nothing is compiled or
+loaded at import time, so the package imports on machines with no CUDA
+toolkit (its CPU tensors take the plain torch versions).
+
+The library goes into ``shared_simd_scan_tpu_torch/_build/`` under a name
+keyed by a hash of the sources and flags, so an unchanged tree does not
+rebuild.  Builds are serialized by a thread lock and a file lock, and a
+finished library is moved into place atomically.
+"""
+from __future__ import annotations
+
+import concurrent.futures
+import ctypes
+import fcntl
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("unpack.cu", "shared_scan.cu", "interval_scan.cu")
+HEADERS = ("common.cuh",)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_vp = ctypes.c_void_p
+_ll = ctypes.c_longlong
+# C signature of every entry point: (argtypes); all return a cudaError_t.
+_SIGNATURES = {
+    # tiles, vals, nblocks, width, stream
+    "sss_unpack": [_vp, _vp, _ll, ctypes.c_int, _vp],
+    # vals, tiles, nblocks, width, stream
+    "sss_pack": [_vp, _vp, _ll, ctypes.c_int, _vp],
+    # tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream
+    "sss_shared_scan": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
+    # tiles, lo, k, bits, counts, nblocks, width, n, block_offset, gateless, stream
+    "sss_interval_scan": [_vp, ctypes.c_uint32, ctypes.c_int, _vp, _vp, _ll,
+                          ctypes.c_int, _ll, _ll, ctypes.c_int, _vp],
+    # base, amounts, out_ptx, out_cxx, count, stream
+    "sss_shift_canary": [_vp, _vp, _vp, _vp, ctypes.c_int, _vp],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_log = ""  # nvcc's output (ptxas register/spill report) of the last build
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = pathlib.Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
+    return found
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libsss_kernels-{h.hexdigest()[:16]}.so"
+
+
+def _compile(args: list[str]) -> str:
+    proc = subprocess.run(args, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(args)}):\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def build() -> pathlib.Path:
+    """Compile the CUDA sources into the shared library unless it exists."""
+    global build_log
+    lib_path = library_path()
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock_file:
+        fcntl.flock(lock_file, fcntl.LOCK_EX)
+        try:
+            if lib_path.exists():  # another process built it meanwhile
+                return lib_path
+            exe = nvcc()
+            tmp = BUILD_DIR / f"tmp-{os.getpid()}"
+            tmp.mkdir(exist_ok=True)
+            objs = [tmp / (pathlib.Path(s).stem + ".o") for s in SOURCES]
+            # one nvcc per source, in parallel: the templated kernels dominate
+            with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+                logs = list(pool.map(
+                    _compile,
+                    [[exe, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
+                     for s, o in zip(SOURCES, objs)],
+                ))
+            out = tmp / lib_path.name
+            logs.append(_compile([exe, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(out)]))
+            os.replace(out, lib_path)
+            shutil.rmtree(tmp, ignore_errors=True)
+            build_log = "".join(logs)
+        finally:
+            fcntl.flock(lock_file, fcntl.LOCK_UN)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.sss_error_string.argtypes = [ctypes.c_int]
+            handle.sss_error_string.restype = ctypes.c_char_p
+            _lib = handle
+        return _lib
+
+
+def kernel_device(*tensors: torch.Tensor) -> torch.device | None:
+    """None when every tensor lies on the CPU (the plain version runs);
+    the CUDA device when all lie on one CUDA device (the kernel runs).
+    Anything else raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors lie on different devices: {sorted(map(str, devices))}")
+    (device,) = devices
+    if device.type == "cpu":
+        return None
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}: only CUDA tensors launch kernels")
+    return device
+
+
+def check_int32(name: str, t: torch.Tensor, shape: tuple[int, ...]) -> None:
+    """Raise unless ``t`` is a contiguous int32 tensor of ``shape``."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: expected torch.int32 (uint32 bits), got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def launch(fn: str, device: torch.device, *args) -> None:
+    """Call entry point ``fn`` with ``args`` followed by the device's
+    current stream; raise if the launch reported a CUDA error."""
+    handle = lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(handle, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA error {rc}: {handle.sss_error_string(rc).decode()}")
