@@ -13,10 +13,13 @@ from shared_simd_scan_tpu_torch import layout
 from shared_simd_scan_tpu_torch.ops import oracle
 from shared_simd_scan_tpu_torch.ops import scan as scan_ops
 
+
 def synth_modk(n: int, k: int, width: int, *, device=None) -> torch.Tensor:
-    """Shared-scan corpus ``i % k % min(512, 2^width)`` as int32[n]."""
+    """Shared-scan corpus ``i % k % min(512, 2^width)`` as int32[n], on
+    ``device`` (default: the card)."""
     m = min(512, 1 << width)
-    return (torch.arange(n, dtype=torch.int64, device=device) % k % m).to(torch.int32)
+    idx = torch.arange(n, dtype=torch.int64, device=layout.resolve_device(device))
+    return (idx % k % m).to(torch.int32)
 
 
 def values_for(data_size: int, width: int) -> int:
@@ -28,9 +31,11 @@ def check_shared_scan(dev: layout.DeviceColumn, keys, vals: torch.Tensor) -> boo
     """Three-way verification of :func:`shared_scan_device` over the full
     column: counts against a direct compare of ``vals``; every bitvector
     word against the plain compare version (32 keys at a time); and the
-    bitvectors of a 2M-value prefix against the gather oracle."""
-    keys = scan_ops._host_keys(keys)
+    bitvectors of a 2M-value prefix against the gather oracle.  ``keys``
+    go to the dispatcher as given (a CUDA tensor as runtime keys); the
+    checks read them on the host."""
     bits, counts = scan_ops.shared_scan_device(dev, keys)
+    keys = scan_ops._host_keys(keys)
     expect = torch.stack([(vals == int(key)).sum() for key in keys.view("int32")])
     ok = bool((counts.cpu() == expect.cpu()).all())
     for j0 in range(0, keys.shape[0], 32):

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from shared_simd_scan_tpu_torch.layout import i32, u32
+from shared_simd_scan_tpu_torch.layout import i32, resolve_device, u32
 
 
 def popcount_words(bits: torch.Tensor) -> torch.Tensor:
@@ -112,9 +112,10 @@ def to_bytes(bits: torch.Tensor, n: int) -> bytes:
 
 
 def from_bytes(data: bytes, n: int, *, device=None) -> torch.Tensor:
+    """Payload bytes -> bitvector words, on ``device`` (default: the card)."""
     buf = np.zeros((n + 31) // 32, dtype="<u4")
     payload = np.frombuffer(data[: (n + 7) // 8], dtype=np.uint8)
     buf.view(np.uint8)[: payload.shape[0]] = payload
     if n % 32:
         buf[-1] &= np.uint32((1 << (n % 32)) - 1)
-    return torch.from_numpy(buf.astype(np.uint32).view(np.int32)).to(device)
+    return torch.from_numpy(buf.view(np.int32)).to(resolve_device(device))

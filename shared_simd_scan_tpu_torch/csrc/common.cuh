@@ -1,5 +1,6 @@
 // Shared pieces of the Hopper kernels: the static unpack schedule, the
-// validity word, count reduction and the width dispatch.
+// validity word, count reduction, the one-hot mask, the 8x8 byte transpose,
+// the bit-plane butterfly and the width dispatch.
 //
 // Layout (see shared_simd_scan_tpu_torch/layout.py): tiles are
 // uint32[width][nblocks] with nblocks = B1*128; block b holds 32 values in
@@ -45,6 +46,13 @@ __device__ __forceinline__ uint32_t unpack_value(const uint32_t (&w)[W], int r) 
   return v & value_mask<W>();
 }
 
+// All 32 values of the block, in registers.
+template <int W>
+__device__ __forceinline__ void unpack_values(const uint32_t (&w)[W], uint32_t (&v)[kBlockValues]) {
+#pragma unroll
+  for (int r = 0; r < kBlockValues; ++r) v[r] = unpack_value<W>(w, r);
+}
+
 // Bits of global block g that hold real values (value index < n), so key 0
 // never matches the zero padding.
 __device__ __forceinline__ uint32_t valid_word(long long g, long long n) {
@@ -78,6 +86,100 @@ __device__ __forceinline__ void flush_counts(const unsigned* s_cnt, int k,
   __syncthreads();
   for (int j = threadIdx.x; j < k; j += blockDim.x)
     if (s_cnt[j]) atomicAdd(counts + j, (unsigned long long)s_cnt[j]);
+}
+
+// a << d through PTX shl.b32, which gives 0 for d >= 32 (C++ << leaves
+// that undefined); the shift canary checks it on the card.
+__device__ __forceinline__ uint32_t shl_ptx(uint32_t a, uint32_t d) {
+  uint32_t r;
+  asm("shl.b32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(d));
+  return r;
+}
+
+// Match mask 1 << d, 0 for d >= 32: gateless through PTX when the canary
+// saw it saturate, else gated.
+template <bool kGateless>
+__device__ __forceinline__ uint32_t onehot(uint32_t d) {
+  if constexpr (kGateless) return shl_ptx(1u, d);
+  else return d < 32u ? 1u << (d & 31u) : 0u;
+}
+
+// Swap bits of a at positions p+s with bits of b at p (p in m).
+__device__ __forceinline__ void swapmove(uint32_t& a, uint32_t& b, uint32_t m, int s) {
+  const uint32_t t = ((a >> s) ^ b) & m;
+  a ^= t << s;
+  b ^= t;
+}
+
+// Bit-slice 8x8 transpose over four independent byte channels: byte g,
+// bit u of x[t] -> byte g, bit t of x[u].
+__device__ __forceinline__ void transpose8x8_bytes(uint32_t (&x)[8]) {
+  swapmove(x[0], x[1], 0x55555555u, 1);
+  swapmove(x[2], x[3], 0x55555555u, 1);
+  swapmove(x[4], x[5], 0x55555555u, 1);
+  swapmove(x[6], x[7], 0x55555555u, 1);
+  swapmove(x[0], x[2], 0x33333333u, 2);
+  swapmove(x[1], x[3], 0x33333333u, 2);
+  swapmove(x[4], x[6], 0x33333333u, 2);
+  swapmove(x[5], x[7], 0x33333333u, 2);
+  swapmove(x[0], x[4], 0x0F0F0F0Fu, 4);
+  swapmove(x[1], x[5], 0x0F0F0F0Fu, 4);
+  swapmove(x[2], x[6], 0x0F0F0F0Fu, 4);
+  swapmove(x[3], x[7], 0x0F0F0F0Fu, 4);
+}
+
+// Bit-plane butterfly: 32 values -> bit planes (plane p, bit r = bit p of
+// value r) in 5 SWAPMOVE stages of shift 16, 8, 4, 2, 1, pruned to the W
+// live planes as the JAX package's _transpose_bitplanes prunes it: a pair
+// with no live output is skipped, a pair with one takes a one-sided merge.
+// Stage masks and liveness are constants, so the pruning is compile-time.
+constexpr int kStages = 5;
+
+__host__ __device__ constexpr int stage_shift(int s) { return 16 >> s; }
+
+__host__ __device__ constexpr uint32_t stage_mask(int s) {
+  uint32_t m = 0x0000FFFFu;
+  for (int i = 1; i <= s; ++i) m ^= m << stage_shift(i);
+  return m;
+}
+
+// Indices of x live after stage s, when planes 0..W-1 are the outputs.
+template <int W>
+__host__ __device__ constexpr uint32_t live_after(int s) {
+  uint32_t live = (W >= 32) ? 0xFFFFFFFFu : (1u << W) - 1u;
+  for (int t = kStages - 1; t > s; --t) {
+    const int j = stage_shift(t);
+    uint32_t before = 0u;
+    for (int i = 0; i < 32; ++i)
+      if (((live >> (i & ~j)) & 1u) || ((live >> ((i & ~j) | j)) & 1u)) before |= 1u << i;
+    live = before;
+  }
+  return live;
+}
+
+template <int W, int S>
+__device__ __forceinline__ void butterfly_stage(uint32_t (&x)[kBlockValues]) {
+  constexpr int j = stage_shift(S);
+  constexpr uint32_t m = stage_mask(S);
+  constexpr uint32_t live = live_after<W>(S);
+#pragma unroll
+  for (int i = 0; i < kBlockValues; ++i) {
+    if (i & j) continue;
+    const bool a_live = (live >> i) & 1u, b_live = (live >> (i + j)) & 1u;
+    if (a_live && b_live) swapmove(x[i], x[i + j], m, j);
+    else if (a_live) x[i] = (x[i] & ~(m << j)) | ((x[i + j] & m) << j);
+    else if (b_live) x[i + j] = (x[i + j] & ~m) | ((x[i] >> j) & m);
+  }
+}
+
+// In place: x[p] for p < W becomes bit plane p of the 32 values in x.
+template <int W>
+__device__ __forceinline__ void transpose_bitplanes(uint32_t (&x)[kBlockValues]) {
+  butterfly_stage<W, 0>(x);
+  butterfly_stage<W, 1>(x);
+  butterfly_stage<W, 2>(x);
+  butterfly_stage<W, 3>(x);
+  butterfly_stage<W, 4>(x);
 }
 
 inline unsigned grid_for(long long nblocks) {

@@ -25,18 +25,6 @@
 
 namespace sss {
 
-__device__ __forceinline__ uint32_t shl_ptx(uint32_t a, uint32_t d) {
-  uint32_t r;
-  asm("shl.b32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(d));
-  return r;
-}
-
-template <bool kGateless>
-__device__ __forceinline__ uint32_t onehot(uint32_t d) {
-  if constexpr (kGateless) return shl_ptx(1u, d);
-  else return d < 32u ? 1u << (d & 31u) : 0u;
-}
-
 // Byte `byte` of mask m, placed at byte position g.
 template <int kByte, int kG>
 __device__ __forceinline__ uint32_t mask_byte(uint32_t m) {
@@ -45,30 +33,6 @@ __device__ __forceinline__ uint32_t mask_byte(uint32_t m) {
   if constexpr (sh < 0) m <<= -sh;
   if constexpr (sh == 24 || sh == -24) return m;  // the shift itself isolated the byte
   else return m & (0xFFu << (8 * kG));
-}
-
-// Swap bits of a at positions p+s with bits of b at p (p in m).
-__device__ __forceinline__ void swapmove(uint32_t& a, uint32_t& b, uint32_t m, int s) {
-  const uint32_t t = ((a >> s) ^ b) & m;
-  a ^= t << s;
-  b ^= t;
-}
-
-// Bit-slice 8x8 transpose over four independent byte channels: byte g,
-// bit u of x[t] -> byte g, bit t of x[u].
-__device__ __forceinline__ void transpose8x8_bytes(uint32_t (&x)[8]) {
-  swapmove(x[0], x[1], 0x55555555u, 1);
-  swapmove(x[2], x[3], 0x55555555u, 1);
-  swapmove(x[4], x[5], 0x55555555u, 1);
-  swapmove(x[6], x[7], 0x55555555u, 1);
-  swapmove(x[0], x[2], 0x33333333u, 2);
-  swapmove(x[1], x[3], 0x33333333u, 2);
-  swapmove(x[4], x[6], 0x33333333u, 2);
-  swapmove(x[5], x[7], 0x33333333u, 2);
-  swapmove(x[0], x[4], 0x0F0F0F0Fu, 4);
-  swapmove(x[1], x[5], 0x0F0F0F0Fu, 4);
-  swapmove(x[2], x[6], 0x0F0F0F0Fu, 4);
-  swapmove(x[3], x[7], 0x0F0F0F0Fu, 4);
 }
 
 // One 8-key round: rows for keys lo_c + 8*kByte + i, i < min(8, kc - 8*kByte).
@@ -104,8 +68,7 @@ interval_scan_kernel(const uint32_t* __restrict__ tiles, uint32_t lo, int k,
   const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
 
   uint32_t v[kBlockValues];
-#pragma unroll
-  for (int r = 0; r < kBlockValues; ++r) v[r] = unpack_value<W>(w, r);
+  unpack_values<W>(w, v);
 
   for (int j0 = 0; j0 < k; j0 += 32) {  // 32-key chunks
     const uint32_t lo_c = lo + (uint32_t)j0;

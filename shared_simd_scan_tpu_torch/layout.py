@@ -146,13 +146,25 @@ def pack_schedule(width: int) -> list[list[tuple[int, int, bool]]]:
 # ---------------------------------------------------------------------------
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the CUDA card when it is None: entry points given host
+    data run on the card unless the caller asks for the CPU.  Raises when
+    there is no card; nothing falls back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to work on the CPU")
+    return torch.device("cuda")
+
+
 def _values_tensor(values, device=None) -> torch.Tensor:
-    """1-D values (numpy, list or tensor) -> int64 tensor of uint32 values."""
+    """1-D values (numpy, list or tensor) -> int64 tensor of uint32 values,
+    on ``device`` (default: the tensor's own device, the card for host data)."""
     if isinstance(values, torch.Tensor):
         v = values.to(device=device if device is not None else values.device)
         v = v.to(torch.int64)
     else:
-        v = torch.from_numpy(np.asarray(values).astype(np.int64)).to(device)
+        v = torch.from_numpy(np.asarray(values).astype(np.int64)).to(resolve_device(device))
     if v.ndim != 1:
         raise ValueError(f"expected 1-D values, got shape {tuple(v.shape)}")
     return v & _U32
@@ -206,6 +218,7 @@ class PackedColumn:
 
     @classmethod
     def from_bytes(cls, data: bytes, width: int, n: int, *, device=None) -> "PackedColumn":
+        """Payload bytes -> column, on ``device`` (default: the card)."""
         _check_width(width)
         buf = np.zeros(num_blocks(n) * width, dtype="<u4")
         payload = np.frombuffer(data[: packed_nbytes(width, n)], dtype=np.uint8)
@@ -215,13 +228,15 @@ class PackedColumn:
         used_bits = n * width
         if used_bits % 8:
             byte_view[used_bits // 8] &= (1 << (used_bits % 8)) - 1
-        words = torch.from_numpy(buf.astype(np.uint32).view(np.int32)).to(device)
+        words = torch.from_numpy(buf.view(np.int32)).to(resolve_device(device))
         return cls(width=width, n=n, words=words)
 
 
 def pack(values, width: int, *, device=None) -> PackedColumn:
     """Compress 1-D unsigned values into a canonical PackedColumn (plain torch,
-    32 lane-wise OR steps per word; no per-element loop)."""
+    32 lane-wise OR steps per word; no per-element loop).  The column lies
+    on ``device``; by default on a tensor's own device, and on the card for
+    host data (numpy or a list)."""
     _check_width(width)
     v = _values_tensor(values, device)
     n = int(v.shape[0])
@@ -282,7 +297,7 @@ def to_canonical(dev: DeviceColumn) -> PackedColumn:
 
 def pack_device(values, width: int, *, device=None) -> DeviceColumn:
     """Compress straight into tile layout (plain torch, no canonical
-    materialization)."""
+    materialization), placed as :func:`pack` places its column."""
     _check_width(width)
     v = _values_tensor(values, device)
     n = int(v.shape[0])

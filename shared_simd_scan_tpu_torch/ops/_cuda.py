@@ -28,7 +28,7 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("unpack.cu", "shared_scan.cu", "interval_scan.cu")
+SOURCES = ("unpack.cu", "shared_scan.cu", "interval_scan.cu", "bitsliced.cu", "windowed.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,6 +48,15 @@ _SIGNATURES = {
                           ctypes.c_int, _ll, _ll, ctypes.c_int, _vp],
     # base, amounts, out_ptx, out_cxx, count, stream
     "sss_shift_canary": [_vp, _vp, _vp, _vp, ctypes.c_int, _vp],
+    # tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream
+    "sss_bitsliced_scan": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
+    # tiles, prog, nops, k, bits, counts, nblocks, width, n, block_offset,
+    # threads, slots, stream
+    "sss_bitsliced_static_scan": [_vp, _vp, ctypes.c_int, ctypes.c_int, _vp, _vp, _ll,
+                                  ctypes.c_int, _ll, _ll, ctypes.c_int, ctypes.c_int, _vp],
+    # tiles, plan, k, bits, counts, nblocks, width, n, block_offset, gateless, stream
+    "sss_windowed_scan": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll,
+                          ctypes.c_int, _vp],
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,18 @@
-"""Fused shared scans on the tile layout: the compare and interval tiers.
+"""Fused shared scans on the tile layout: every tier of the dispatcher.
 
-PyTorch counterpart of the main-path slice of
-``shared_simd_scan_tpu/ops/scan.py``: the general compare kernel
-(:func:`shared_scan_tiles`), the interval kernel for consecutive keys
-(:func:`interval_scan_tiles`) with its shift canary
-(:func:`shift_saturates`), and the dispatcher
-(:func:`shared_scan_device` / :func:`scan_device`).
+PyTorch counterpart of the shared-scan part of
+``shared_simd_scan_tpu/ops/scan.py``:
+
+- the general compare kernel (:func:`shared_scan_tiles`);
+- the interval kernel for consecutive keys (:func:`interval_scan_tiles`)
+  with its shift canary (:func:`shift_saturates`);
+- the bit-sliced kernel for runtime keys (:func:`shared_scan_bitsliced_tiles`);
+- the static AND-DAG bit-sliced kernel for host keys
+  (:func:`shared_scan_bitsliced_static_tiles`);
+- the windowed kernel for clustered host keys (:func:`windowed_scan_tiles`);
+- their planners, copied from the JAX package (:func:`pick_concrete_tier`
+  and the cost functions it calls), and the dispatcher
+  (:func:`shared_scan_device` / :func:`scan_device`).
 
 Output contract (the JAX package's): ``bits[k, B1, 128]`` holds one
 LSB-first uint32 word per block and key, with bits of values at index
@@ -13,11 +20,13 @@ LSB-first uint32 word per block and key, with bits of values at index
 canonical bitvector; counts are int64 and equal the JAX package's uint32
 counts.
 
-Each kernel wrapper launches its CUDA kernel (``csrc/shared_scan.cu``,
-``csrc/interval_scan.cu``) on CUDA tensors and runs the plain torch
-version beside it on CPU tensors.
+Each kernel wrapper launches its CUDA kernel (``csrc/*.cu``) on CUDA
+tensors and runs the plain torch version beside it on CPU tensors.
 """
 from __future__ import annotations
+
+import functools
+import heapq
 
 import numpy as np
 import torch
@@ -36,6 +45,9 @@ from shared_simd_scan_tpu_torch.ops import _cuda
 from shared_simd_scan_tpu_torch.ops.unpack import _check_tiles, unpack_value_plain
 
 MAX_INTERVAL_KEYS = 1024
+# Key rows per kernel launch: the size of the kernels' per-CTA shared
+# counters (kMaxKeys in csrc/common.cuh).  Wrappers split larger key sets.
+MAX_LAUNCH_KEYS = 1024
 _U32 = 0xFFFFFFFF
 
 
@@ -53,6 +65,36 @@ def _finish(words: torch.Tensor, valid: torch.Tensor) -> tuple[torch.Tensor, tor
     """int64 per-key words [k, B1, 128] -> (int32 bits, int64 counts [k])."""
     bits = i32(words & valid)
     return bits, popcount_words(bits).sum(dim=(1, 2))
+
+
+def _block_values_plain(tiles: torch.Tensor, width: int) -> list[torch.Tensor]:
+    """The 32 values of every block, as int64 tensors [B1, 128]."""
+    w = u32(tiles)
+    return [unpack_value_plain(w, width, r) for r in range(BLOCK_VALUES)]
+
+
+def _check_key_tensor(keys: torch.Tensor) -> None:
+    if keys.ndim != 1 or keys.shape[0] < 1:
+        raise ValueError(f"keys: expected a non-empty 1-D tensor, got shape {tuple(keys.shape)}")
+    _cuda.check_int32("keys", keys, (keys.shape[0],))
+
+
+def _host_keys(keys) -> np.ndarray:
+    """Keys as a host uint32 array (a CUDA tensor is copied to the host)."""
+    if isinstance(keys, torch.Tensor):
+        keys = keys.detach().cpu().numpy()
+    return np.asarray(keys, dtype=np.uint32).reshape(-1)
+
+
+def _concrete_keys(keys, name: str) -> np.ndarray:
+    """Host keys of a tier whose plan is built from the key values."""
+    if isinstance(keys, torch.Tensor) and keys.is_cuda:
+        raise TypeError(f"{name} requires host keys; CUDA-tensor keys take "
+                        "shared_scan_bitsliced_tiles or shared_scan_tiles")
+    arr = _host_keys(keys)
+    if arr.shape[0] < 1:
+        raise ValueError(f"{name} needs at least one key, got 0")
+    return arr
 
 
 # ---------------------------------------------------------------------------
@@ -95,9 +137,7 @@ def shared_scan_tiles(
     Kernel ``sss_shared_scan`` (``csrc/shared_scan.cu``) on CUDA tensors;
     the plain version on CPU tensors."""
     b1 = _check_tiles(tiles, width)
-    if keys.ndim != 1 or keys.shape[0] < 1:
-        raise ValueError(f"keys: expected a non-empty 1-D tensor, got shape {tuple(keys.shape)}")
-    _cuda.check_int32("keys", keys, (keys.shape[0],))
+    _check_key_tensor(keys)
     device = _cuda.kernel_device(tiles, keys)
     if device is None:
         return shared_scan_tiles_plain(tiles, keys, width, n, block_offset)
@@ -177,7 +217,8 @@ run_shift_canary.launches = 0
 def shift_saturates(device) -> bool:
     """True iff the device's shift (PTX ``shl.b32`` on a CUDA device) yields
     0 for every canary amount >= 32.  Measured once per device and cached;
-    the interval kernel takes the gateless one-hot only when this holds."""
+    the interval and windowed kernels take the gateless one-hot only when
+    this holds."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -219,6 +260,24 @@ def _mask_byte(m, byte: int, g: int):
     return m & (0xFF << (8 * g))
 
 
+def _onehot_plain(v: torch.Tensor, lo: int) -> torch.Tensor:
+    """Match mask ``1 << (v - lo)`` (uint32 subtraction; 0 for amounts >= 32)."""
+    d = (v - lo) & _U32
+    return torch.where(d < 32, torch.ones_like(d) << torch.clamp(d, max=31), 0)
+
+
+def _byte_rows(masks: list, byte: int) -> list:
+    """Byte ``byte`` of the 32 values' masks -> the 8 bitvector words of its
+    keys: X_t packs the byte of values {t, t+8, t+16, t+24}, then the 8x8
+    transpose."""
+    x = [
+        _mask_byte(masks[t], byte, 0) | _mask_byte(masks[8 + t], byte, 1)
+        | _mask_byte(masks[16 + t], byte, 2) | _mask_byte(masks[24 + t], byte, 3)
+        for t in range(8)
+    ]
+    return _transpose8x8_bytes(x)
+
+
 def interval_scan_tiles_plain(
     tiles: torch.Tensor, lo: int, k: int, width: int, n: int, block_offset: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -226,24 +285,14 @@ def interval_scan_tiles_plain(
     one-hot ``1 << (v - lo)`` (uint32 subtraction, 0 for amounts >= 32),
     byte packing of slots {t, t+8, t+16, t+24}, 8x8 SWAPMOVE transpose, in
     32-key chunks."""
-    w = u32(tiles)
-    vals = [unpack_value_plain(w, width, r) for r in range(BLOCK_VALUES)]
+    vals = _block_values_plain(tiles, width)
     rows = []
     for j0 in range(0, k, 32):
-        lo_c = (lo + j0) & _U32
-        masks = []
-        for v in vals:
-            d = (v - lo_c) & _U32
-            masks.append(torch.where(d < 32, torch.ones_like(d) << torch.clamp(d, max=31), 0))
+        masks = [_onehot_plain(v, (lo + j0) & _U32) for v in vals]
         kc = min(32, k - j0)
         for byte in range((kc + 7) // 8):
-            x = [
-                _mask_byte(masks[t], byte, 0) | _mask_byte(masks[8 + t], byte, 1)
-                | _mask_byte(masks[16 + t], byte, 2) | _mask_byte(masks[24 + t], byte, 3)
-                for t in range(8)
-            ]
-            rows.extend(_transpose8x8_bytes(x)[: min(8, kc - 8 * byte)])
-    return _finish(torch.stack(rows), _valid_words(w.shape[1], n, block_offset, w.device))
+            rows.extend(_byte_rows(masks, byte)[: min(8, kc - 8 * byte)])
+    return _finish(torch.stack(rows), _valid_words(tiles.shape[1], n, block_offset, tiles.device))
 
 
 def _check_interval(lo: int, k: int) -> None:
@@ -284,6 +333,564 @@ interval_scan_tiles.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Bit-sliced tier: runtime keys through bit planes
+# ---------------------------------------------------------------------------
+#
+# The 32 values of a block are transposed into bit planes (plane p, bit r =
+# bit p of value r) by a 5-stage SWAPMOVE butterfly pruned to the width's
+# live planes; key j then matches where AND_p (plane_p ^ (bit_p(j) - 1)) is
+# set: ~2*width ops per 32 values per key instead of the compare tier's ~3
+# per value.  Nothing reads the key values on the host, so this tier takes
+# the runtime keys.
+
+
+def bitsliced_cost(width: int, k: int) -> int:
+    """Static cost of the bit-sliced kernel in the dispatch's
+    quarter-ops-per-value units: ~48 fixed (unpack + SWAPMOVE transpose +
+    plane stores, amortized over the key chunks of one block tile) plus
+    width/4 per key (2*width ops per 32-value word)."""
+    return 48 + width * k // 4
+
+
+def _bitsliced_wins(width: int, k: int) -> bool:
+    """Bit-sliced vs the general compare kernel (~12 per key + ~4 fixed
+    in quarter-ops-per-value units).  At width 9 this crosses at k=5.
+    The constants come from the JAX package's TPU measurements and are
+    kept for dispatch parity."""
+    return bitsliced_cost(width, k) < 4 + 12 * k
+
+
+def _transpose_stages():
+    """(shift, mask) per SWAPMOVE butterfly stage, in forward order."""
+    stages = []
+    j, m = 16, 0x0000FFFF
+    while j:
+        stages.append((j, m))
+        j >>= 1
+        if j:
+            m = m ^ ((m << j) & 0xFFFFFFFF)
+    return stages
+
+
+def _transpose_bitplanes_plain(vs: list, nplanes: int = BLOCK_VALUES) -> list:
+    """32 int64 tensors of 32-bit values -> the first ``nplanes`` bit-plane
+    words (plane p, bit r = bit p of vs[r]): the 5-stage SWAPMOVE butterfly
+    pruned to the live planes.  Liveness is propagated backward from the
+    ``nplanes`` outputs; pairs with no live output are skipped, pairs with
+    one live output take a one-sided merge."""
+    stages = _transpose_stages()
+    live = set(range(nplanes))
+    live_after: list[set] = [set()] * len(stages)
+    for si in range(len(stages) - 1, -1, -1):
+        live_after[si] = live
+        j = stages[si][0]
+        live = {
+            i for i in range(BLOCK_VALUES)
+            if (i & ~j) in live or ((i & ~j) | j) in live
+        }
+    x = list(vs)
+    for (j, m), out_live in zip(stages, live_after):
+        for i in range(BLOCK_VALUES):
+            if i & j:
+                continue
+            a_live, b_live = i in out_live, (i + j) in out_live
+            if not (a_live or b_live):
+                continue
+            a, b = x[i], x[i + j]
+            if a_live and b_live:
+                x[i], x[i + j] = _swapmove(a, b, m, j)
+            elif a_live:
+                x[i] = (a & (~(m << j) & _U32)) | ((b & m) << j)
+            else:
+                x[i + j] = (b & (~m & _U32)) | ((a >> j) & m)
+    return x[:nplanes]
+
+
+def _bitplanes_plain(tiles: torch.Tensor, width: int) -> list[torch.Tensor]:
+    return _transpose_bitplanes_plain(_block_values_plain(tiles, width), width)
+
+
+def shared_scan_bitsliced_tiles_plain(
+    tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`shared_scan_bitsliced_tiles`, same
+    algorithm: per key ``AND_p(plane_p ^ ((key >> p & 1) - 1))``, killed for
+    keys >= 2^width (which would otherwise alias key mod 2^width)."""
+    planes = _bitplanes_plain(tiles, width)
+    kk = u32(keys)[:, None, None]
+    acc = torch.where(kk < (1 << width), _U32, 0)
+    for p, plane in enumerate(planes):
+        acc = acc & (plane ^ ((((kk >> p) & 1) - 1) & _U32))
+    valid = _valid_words(tiles.shape[1], n, block_offset, tiles.device)
+    return _finish(acc, valid)
+
+
+def shared_scan_bitsliced_tiles(
+    tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Same contract as :func:`shared_scan_tiles` for any k; the key values
+    are never read on the host, so CUDA-tensor keys stay on the card.
+
+    Kernel ``sss_bitsliced_scan`` (``csrc/bitsliced.cu``) on CUDA tensors;
+    the plain version on CPU tensors."""
+    b1 = _check_tiles(tiles, width)
+    _check_key_tensor(keys)
+    device = _cuda.kernel_device(tiles, keys)
+    if device is None:
+        return shared_scan_bitsliced_tiles_plain(tiles, keys, width, n, block_offset)
+    k = int(keys.shape[0])
+    bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
+    counts = torch.zeros(k, dtype=torch.int64, device=device)
+    _cuda.launch(
+        "sss_bitsliced_scan", device, tiles.data_ptr(), keys.data_ptr(), k, bits.data_ptr(),
+        counts.data_ptr(), b1 * LANES, width, n, block_offset,
+    )
+    shared_scan_bitsliced_tiles.launches += 1
+    return bits, counts
+
+
+shared_scan_bitsliced_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Static bit-sliced tier: host keys through a shared AND-DAG
+# ---------------------------------------------------------------------------
+#
+# With the key values known on the host, the per-key plane fold collapses
+# into an AND-DAG over the planes and their negations:
+#     match(key) = AND_p (bit_p(key) ? plane_p : ~plane_p)
+# built as a balanced binary tree over the bit span with every subtree
+# memoized, so keys sharing a sub-span pattern share its subtree.  The
+# cost functions count the exact DAG ops on a stand-in operand, so the
+# dispatch prices each key set's own DAG.
+
+
+def _combo(planes, lo, hi, pattern: int, memo: dict):
+    """Vector with bit r set iff bits [lo, hi) of value r equal ``pattern``.
+
+    ``planes`` are the bit-plane words (any operand with ``&`` and ``~``);
+    subtrees are memoized in ``memo`` (shared across every key of one
+    chunk) so common sub-patterns cost one AND total."""
+    if hi - lo == 1:
+        if pattern:
+            return planes[lo]
+        key = ("~", lo)
+        hit = memo.get(key)
+        if hit is None:
+            hit = memo[key] = ~planes[lo]
+        return hit
+    key = (lo, hi, pattern)
+    hit = memo.get(key)
+    if hit is None:
+        mid = (lo + hi + 1) // 2
+        lob = mid - lo
+        a = _combo(planes, lo, mid, pattern & ((1 << lob) - 1), memo)
+        b = _combo(planes, mid, hi, pattern >> lob, memo)
+        hit = memo[key] = a & b
+    return hit
+
+
+class _CountVec:
+    """Stand-in DAG operand: every AND/NOT bumps a shared counter, so
+    dispatch can price the exact DAG a concrete key set would compile to."""
+
+    __slots__ = ("ctr",)
+
+    def __init__(self, ctr):
+        self.ctr = ctr
+
+    def _op(self, other=None):
+        self.ctr[0] += 1
+        return self
+
+    __and__ = _op
+    __invert__ = _op
+
+
+def _static_dag_ops(width: int, keys) -> int:
+    """Counted vector ops of the match DAG for one key chunk."""
+    ctr = [0]
+    planes = [_CountVec(ctr) for _ in range(width)]
+    memo: dict = {}
+    dom = 1 << width
+    for key in (int(k) for k in keys):
+        if key < dom:
+            _combo(planes, 0, width, key, memo)
+    return ctr[0]
+
+
+# Fixed cost of the bit-sliced tiers in quarter-ops-per-value units:
+# unpack (~80 ops/32 values) + pruned transpose (196 at width 9) + plane
+# handling, /8 to convert ops-per-32-values to quarter-ops-per-value.
+_BITSLICED_FIXED = 40
+
+
+def _static_krows(k: int) -> int:
+    """Keys per memo chunk of the static AND-DAG tier: one exact chunk up
+    to 32 keys, one chunk rounded up to a multiple of 8 up to 48, else 32."""
+    if k <= 32:
+        return k
+    if k <= 48:
+        return ((k + 7) // 8) * 8
+    return 32
+
+
+def _static_group_sizes(k: int) -> list[int]:
+    """The JAX package's per-call key-group sizes of the static tier (at
+    most 8 chunks of 32 per call; exact multiples of 32, the sub-49 tail
+    on its own).  Only the cost function uses them here: the CUDA program
+    has no branch cap."""
+    sizes = []
+    rem = k
+    while rem > 0:
+        if rem >= 256:
+            g = 256
+        elif rem > 48 and rem % 32:
+            g = 32 * (rem // 32)
+        else:
+            g = rem
+        sizes.append(g)
+        rem -= g
+    return sizes
+
+
+def bitsliced_static_cost(width: int, keys) -> int:
+    """Static cost (quarter-ops-per-value) of the concrete-key bit-sliced
+    kernel for THIS key set: fixed unpack+transpose plus the exact counted
+    AND/NOT ops of the shared match DAG, summed over its key chunks
+    (grouped as the JAX package groups them)."""
+    arr = np.asarray(keys, dtype=np.uint32)
+    k = int(arr.shape[0])
+    ops = 0
+    g0 = 0
+    for g in _static_group_sizes(k):
+        sub = arr[g0 : g0 + g]
+        g0 += g
+        ks = int(sub.shape[0])
+        krows = _static_krows(ks)
+        ops += sum(
+            _static_dag_ops(width, sub[c0 : c0 + krows].tolist())
+            for c0 in range(0, ks, krows)
+        )
+    return _BITSLICED_FIXED + -(-ops // 8)
+
+
+def _static_chunks(keys: np.ndarray) -> list[tuple[int, list[int]]]:
+    """(first row, keys) of each memo chunk of one launch's key rows."""
+    krows = _static_krows(int(keys.shape[0]))
+    return [(c0, keys[c0 : c0 + krows].tolist()) for c0 in range(0, keys.shape[0], krows)]
+
+
+# Instruction kinds of the static DAG program (csrc/bitsliced.cu).
+_AND, _OUT, _ZERO = 0, 1, 2
+_NEG = 1 << 15  # operand flag: read the slot's complement
+_MAX_SLOTS = _NEG
+# Dynamic shared memory one static-DAG CTA may use for its node slots
+# (the H100 gives a CTA up to 227 KB; the rest is headroom).
+STATIC_SMEM_BYTES = 200 * 1024
+
+
+class _ProgVec:
+    """Stand-in DAG operand that records the DAG as instructions: each AND
+    appends one; NOT is free (a flag on the operand that reads it)."""
+
+    __slots__ = ("ops", "node", "neg")
+
+    def __init__(self, ops: list, node: int, neg: bool = False):
+        self.ops, self.node, self.neg = ops, node, neg
+
+    def __and__(self, other: "_ProgVec") -> "_ProgVec":
+        node = self.ops[0]
+        self.ops[0] += 1
+        self.ops.append((_AND, node, (self.node, self.neg), (other.node, other.neg)))
+        return _ProgVec(self.ops, node)
+
+    def __invert__(self) -> "_ProgVec":
+        return _ProgVec(self.ops, self.node, not self.neg)
+
+
+@functools.lru_cache(maxsize=64)
+def _static_program(width: int, keys: tuple) -> tuple[np.ndarray, int]:
+    """One launch's key rows (at most MAX_LAUNCH_KEYS) -> (program
+    int32[nops, 2], slots): the memoized ``_combo`` DAG of each chunk as
+    instructions for ``sss_bitsliced_static_scan``.
+
+    Word 0 is ``kind << 30 | target``: AND writes slot ``target``, OUT
+    stores operand a as row ``target``, ZERO stores a zero row (a key >=
+    2^width).  Word 1 holds operands a and b (16 bits each: slot, and
+    ``_NEG`` for the complement).  Planes hold slots 0..width-1; every
+    other node gets a slot freed after its last use, so ``slots`` is
+    width plus the DAG's peak liveness."""
+    ops: list = [width]  # ops[0]: next node id; planes are nodes 0..width-1
+    planes = [_ProgVec(ops, p) for p in range(width)]
+    dom = 1 << width
+    for c0, chunk in _static_chunks(np.asarray(keys, dtype=np.uint32)):
+        memo: dict = {}
+        for j, key in enumerate(chunk):
+            if key < dom:
+                v = _combo(planes, 0, width, key, memo)
+                ops.append((_OUT, c0 + j, (v.node, v.neg), None))
+            else:
+                ops.append((_ZERO, c0 + j, None, None))
+    ops = ops[1:]
+    last = {}
+    for i, (_, _, a, b) in enumerate(ops):
+        for o in (a, b):
+            if o is not None:
+                last[o[0]] = i
+    slot = {p: p for p in range(width)}
+    free: list[int] = []
+    slots = width
+    prog = np.zeros((len(ops), 2), dtype=np.uint32)
+    for i, (kind, target, a, b) in enumerate(ops):
+        word1 = 0
+        for sh, o in ((0, a), (16, b)):
+            if o is not None:
+                word1 |= (slot[o[0]] | (_NEG if o[1] else 0)) << sh
+        for node in {o[0] for o in (a, b) if o is not None}:
+            if node >= width and last[node] == i:
+                heapq.heappush(free, slot.pop(node))
+        if kind == _AND:
+            if free:
+                slot[target] = heapq.heappop(free)
+            else:
+                slot[target] = slots
+                slots += 1
+            target = slot[target]
+        prog[i] = (kind << 30 | target, word1)
+    if slots > _MAX_SLOTS:
+        raise ValueError(f"static AND-DAG needs {slots} live values, more than {_MAX_SLOTS}")
+    return prog.view(np.int32), slots
+
+
+def _static_threads(slots: int) -> int:
+    """Threads per CTA whose node slots fit STATIC_SMEM_BYTES."""
+    for threads in (128, 64, 32):
+        if slots * threads * 4 <= STATIC_SMEM_BYTES:
+            return threads
+    raise ValueError(f"static AND-DAG needs {slots} live values: more than the shared "
+                     f"memory of a 32-thread CTA ({STATIC_SMEM_BYTES} bytes)")
+
+
+@functools.lru_cache(maxsize=64)
+def _static_program_on(width: int, keys: tuple, device: torch.device) -> tuple[torch.Tensor, int]:
+    """:func:`_static_program` with its program copied to ``device``."""
+    prog, slots = _static_program(width, keys)
+    return torch.from_numpy(prog).to(device), slots
+
+
+def shared_scan_bitsliced_static_tiles_plain(
+    tiles: torch.Tensor, keys, width: int, n: int, block_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`shared_scan_bitsliced_static_tiles`,
+    same algorithm: the memoized ``_combo`` DAG of each chunk evaluated on
+    int64 plane tensors; keys >= 2^width give zero rows."""
+    arr = _concrete_keys(keys, "shared_scan_bitsliced_static_tiles")
+    planes = _bitplanes_plain(tiles, width)
+    zero = torch.zeros_like(planes[0])
+    dom = 1 << width
+    rows = []
+    for g0 in range(0, arr.shape[0], MAX_LAUNCH_KEYS):
+        for _, chunk in _static_chunks(arr[g0 : g0 + MAX_LAUNCH_KEYS]):
+            memo: dict = {}
+            rows += [_combo(planes, 0, width, key, memo) if key < dom else zero for key in chunk]
+    valid = _valid_words(tiles.shape[1], n, block_offset, tiles.device)
+    return _finish(torch.stack(rows), valid)
+
+
+def shared_scan_bitsliced_static_tiles(
+    tiles: torch.Tensor, keys, width: int, n: int, block_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Same contract as :func:`shared_scan_tiles` for host keys (a list,
+    numpy array or CPU tensor): the bit-sliced scan with the per-key plane
+    fold replaced by the shared AND-DAG.  Raises on CUDA-tensor keys.
+
+    Kernel ``sss_bitsliced_static_scan`` (``csrc/bitsliced.cu``) on CUDA
+    tiles, interpreting the key set's DAG program (compiled on the host and
+    cached per width and keys); the plain version on CPU tiles."""
+    arr = _concrete_keys(keys, "shared_scan_bitsliced_static_tiles")
+    b1 = _check_tiles(tiles, width)
+    device = _cuda.kernel_device(tiles)
+    if device is None:
+        return shared_scan_bitsliced_static_tiles_plain(tiles, arr, width, n, block_offset)
+    k = int(arr.shape[0])
+    bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
+    counts = torch.zeros(k, dtype=torch.int64, device=device)
+    for g0 in range(0, k, MAX_LAUNCH_KEYS):
+        group = tuple(arr[g0 : g0 + MAX_LAUNCH_KEYS].tolist())
+        prog, slots = _static_program_on(width, group, device)
+        _cuda.launch(
+            "sss_bitsliced_static_scan", device, tiles.data_ptr(), prog.data_ptr(),
+            prog.shape[0], len(group), bits[g0].data_ptr(), counts[g0].data_ptr(), b1 * LANES,
+            width, n, block_offset, _static_threads(slots), slots,
+        )
+        shared_scan_bitsliced_static_tiles.launches += 1
+    return bits, counts
+
+
+shared_scan_bitsliced_static_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Windowed tier: host keys through 32-aligned mask windows
+# ---------------------------------------------------------------------------
+#
+# The interval kernel's one-shot mask generalized to any host key set: keys
+# are grouped into 32-aligned windows of the value domain; one shift per
+# (value, window) gives the 32-bit match mask of every key in the window,
+# and one 8x8 transpose per populated 8-key sub-window gives the bitvector
+# words, stored straight to each key's caller-order row.
+
+
+def _window_plan(arr):
+    """keys (concrete, caller order) -> (bases, plan).
+
+    bases: sorted unique 32-aligned window bases.
+    plan: per base, tuple of (byte, ((j, out_row), ...)) — sub-window byte
+    index, bit j within it, and the caller-order output row."""
+    arr = np.asarray(arr, dtype=np.uint32)
+    by_base: dict[int, dict[int, list[tuple[int, int]]]] = {}
+    for row, key in enumerate(arr.tolist()):
+        base = key // 32 * 32
+        off = key - base
+        by_base.setdefault(base, {}).setdefault(off // 8, []).append((off % 8, row))
+    bases = sorted(by_base)
+    plan = tuple(
+        tuple((byte, tuple(by_base[b][byte])) for byte in sorted(by_base[b]))
+        for b in bases
+    )
+    return bases, plan
+
+
+def _window_chunks(arr, krows: int = 32):
+    """Caller-order key rows in chunks of ``krows`` -> (bases, plans, woffs).
+
+    bases: all chunks' window bases concatenated; plans: per chunk, the
+    :func:`_window_plan` plan with rows relative to the chunk; woffs: per
+    chunk, its first window's index into bases."""
+    arr = np.asarray(arr, dtype=np.uint32)
+    bases_all: list[int] = []
+    plans = []
+    woffs = []
+    for c0 in range(0, arr.shape[0], krows):
+        bases, plan = _window_plan(arr[c0 : c0 + krows])
+        woffs.append(len(bases_all))
+        bases_all.extend(bases)
+        plans.append(plan)
+    return bases_all, tuple(plans), tuple(woffs)
+
+
+def windowed_cost(arr) -> int:
+    """Static vector-op cost estimate (per value, x4) of the windowed
+    kernel for this key set: 8*windows + 20*populated_subwindows, summed
+    over the 32-row chunks the kernel runs for k > 48 (windows shared
+    between chunks are re-masked per chunk and so counted per chunk)."""
+    arr = np.asarray(arr, dtype=np.uint32)
+    if arr.shape[0] <= 48:
+        chunks = [_window_plan(arr)]
+    else:
+        _, plans, _ = _window_chunks(arr)
+        chunks = [(None, p) for p in plans]
+    return sum(8 * len(plan) + 20 * sum(len(p) for p in plan) for _, plan in chunks)
+
+
+def _window_stream(parts) -> np.ndarray:
+    """Window plans -> the int32 stream ``sss_windowed_scan`` reads:
+    ``nwin, then per window: base, nsub, then per sub-window: byte, nent,
+    then per entry: bit, row``.  ``parts`` are (row offset, bases, plan)."""
+    out = [sum(len(plan) for _, _, plan in parts)]
+    for row0, bases, plan in parts:
+        for base, wplan in zip(bases, plan):
+            out += [base, len(wplan)]
+            for byte, jrows in wplan:
+                out += [byte, len(jrows)]
+                for j, row in jrows:
+                    out += [j, row0 + row]
+    return np.asarray(out, dtype=np.uint32).view(np.int32)
+
+
+def _window_launches(keys: tuple) -> list[tuple[int, int, np.ndarray]]:
+    """(first row, rows, plan stream) per kernel launch: the
+    :func:`_window_plan` of all keys for k <= 48, else the 32-row chunks of
+    :func:`_window_chunks`, MAX_LAUNCH_KEYS rows per launch."""
+    arr = np.asarray(keys, dtype=np.uint32)
+    k = int(arr.shape[0])
+    if k <= 48:
+        bases, plan = _window_plan(arr)
+        return [(0, k, _window_stream([(0, bases, plan)]))]
+    bases, plans, woffs = _window_chunks(arr)
+    per = MAX_LAUNCH_KEYS // 32
+    launches = []
+    for c0 in range(0, len(plans), per):
+        parts = [
+            (32 * (c - c0), bases[woffs[c] : woffs[c] + len(plans[c])], plans[c])
+            for c in range(c0, min(c0 + per, len(plans)))
+        ]
+        launches.append((32 * c0, min(k, 32 * (c0 + per)) - 32 * c0, _window_stream(parts)))
+    return launches
+
+
+@functools.lru_cache(maxsize=64)
+def _window_launches_on(keys: tuple, device: torch.device) -> list[tuple[int, int, torch.Tensor]]:
+    """:func:`_window_launches` with the plan streams copied to ``device``."""
+    return [(r0, rows, torch.from_numpy(s).to(device)) for r0, rows, s in _window_launches(keys)]
+
+
+def windowed_scan_tiles_plain(
+    tiles: torch.Tensor, keys, width: int, n: int, block_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`windowed_scan_tiles`, same algorithm:
+    per 32-aligned window the one-hot ``1 << (v - base)``, per populated
+    8-key sub-window the byte packing and 8x8 transpose."""
+    arr = _concrete_keys(keys, "windowed_scan_tiles")
+    vals = _block_values_plain(tiles, width)
+    rows: list = [None] * arr.shape[0]
+    bases, plan = _window_plan(arr)
+    for base, wplan in zip(bases, plan):
+        masks = [_onehot_plain(v, base) for v in vals]
+        for byte, jrows in wplan:
+            y = _byte_rows(masks, byte)
+            for j, row in jrows:
+                rows[row] = y[j]
+    valid = _valid_words(tiles.shape[1], n, block_offset, tiles.device)
+    return _finish(torch.stack(rows), valid)
+
+
+def windowed_scan_tiles(
+    tiles: torch.Tensor, keys, width: int, n: int, block_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shared scan for host keys (a list, numpy array or CPU tensor), any
+    k, through 32-aligned mask windows; same output contract as
+    :func:`shared_scan_tiles`.  k <= 48 runs one window plan; larger k runs
+    32-row chunks, each re-masking its own windows, as the JAX package's
+    chunked kernel does.  Raises on CUDA-tensor keys.
+
+    Kernel ``sss_windowed_scan`` (``csrc/windowed.cu``) on CUDA tiles, with
+    the gateless one-hot iff :func:`shift_saturates`; the plain version on
+    CPU tiles."""
+    arr = _concrete_keys(keys, "windowed_scan_tiles")
+    b1 = _check_tiles(tiles, width)
+    device = _cuda.kernel_device(tiles)
+    if device is None:
+        return windowed_scan_tiles_plain(tiles, arr, width, n, block_offset)
+    gateless = shift_saturates(device)
+    k = int(arr.shape[0])
+    bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
+    counts = torch.zeros(k, dtype=torch.int64, device=device)
+    for r0, rows, plan in _window_launches_on(tuple(arr.tolist()), device):
+        _cuda.launch(
+            "sss_windowed_scan", device, tiles.data_ptr(), plan.data_ptr(), rows,
+            bits[r0].data_ptr(), counts[r0].data_ptr(), b1 * LANES, width, n, block_offset,
+            int(gateless),
+        )
+        windowed_scan_tiles.launches += 1
+    return bits, counts
+
+
+windowed_scan_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Dispatch
 # ---------------------------------------------------------------------------
 
@@ -299,13 +906,6 @@ def popcount_bits(bits: torch.Tensor) -> torch.Tensor:
     return popcount_words(bits).sum(dim=-1)
 
 
-def _host_keys(keys) -> np.ndarray:
-    """Keys as a host uint32 array (a CUDA tensor is copied to the host)."""
-    if isinstance(keys, torch.Tensor):
-        keys = keys.detach().cpu().numpy()
-    return np.asarray(keys, dtype=np.uint32).reshape(-1)
-
-
 def _consecutive_lo(keys) -> int | None:
     """lo if keys are the consecutive run lo..lo+k-1 with 2 <= k <= 1024."""
     arr = _host_keys(keys)
@@ -316,38 +916,78 @@ def _consecutive_lo(keys) -> int | None:
     return lo if (arr == lo + np.arange(k, dtype=arr.dtype)).all() else None
 
 
-def pick_tier(keys) -> tuple[str, int | None]:
-    """(tier, lo) for a concrete key set: ("interval", lo) for a
-    consecutive run of 2..1024 keys, else ("compare", None).
-
-    This is the JAX package's ``pick_concrete_tier`` decision wherever that
-    picks interval or compare (every k=1 key, every consecutive run, spread
-    sets of k <= 3 at width 9).  Sets it sends to its windowed or static
-    AND-DAG tiers go to compare here until those tiers are ported: the
-    results are the same, only the speed differs."""
+def pick_concrete_tier(width: int, keys) -> tuple[str, int | None]:
+    """The dispatch rule for host keys, the JAX package's to the letter ->
+    (tier, lo): tier in {"interval", "windowed", "bitsliced_static",
+    "compare"}; lo is the interval base (None otherwise).  Consecutive runs
+    of 2..1024 keys take the interval tier; other sets the cheapest of
+    windowed, static AND-DAG and compare by counted static cost.  The cost
+    constants come from the JAX package's TPU measurements."""
+    keys = _host_keys(keys)
+    k = int(keys.shape[0])
     lo = _consecutive_lo(keys)
-    return ("interval", lo) if lo is not None else ("compare", None)
+    if lo is not None:
+        return "interval", lo
+    cost_cmp = 4 + 12 * k
+    cost_dag = bitsliced_static_cost(width, keys)
+    cost_win = windowed_cost(keys) if k >= 2 else 1 << 30
+    if cost_win < min(cost_cmp, cost_dag):
+        return "windowed", None
+    if cost_dag < cost_cmp:
+        return "bitsliced_static", None
+    return "compare", None
+
+
+def _runtime_keys(keys: torch.Tensor) -> torch.Tensor:
+    """CUDA-tensor keys as contiguous int32[k] (uint32 bits) on their own
+    device; nothing is copied to or read on the host."""
+    keys = keys.reshape(-1)
+    if keys.dtype != torch.int32:
+        keys = i32(keys.to(torch.int64))
+    return keys.contiguous()
 
 
 def shared_scan_device(dev: DeviceColumn, keys) -> tuple[torch.Tensor, torch.Tensor]:
     """Shared scan on a DeviceColumn -> ((k, W) canonical bitvectors,
-    (k,) int64 counts), dispatched by :func:`pick_tier`.
+    (k,) int64 counts).
 
-    ``keys`` are host values (a list, numpy array or tensor; a CUDA tensor
-    is copied to the host for the dispatch decision)."""
+    Dispatch, as the JAX package's ``shared_scan_device``:
+
+    - host keys (a list, numpy array or CPU tensor) go through
+      :func:`pick_concrete_tier`: a consecutive run to the interval kernel,
+      other sets to the cheapest of the windowed, static AND-DAG and
+      compare kernels;
+    - keys given as a CUDA tensor are runtime keys (the counterpart of the
+      JAX package's traced keys): they are never copied to the host, and
+      take the bit-sliced kernel when :func:`_bitsliced_wins` (k >= 5 at
+      width 9), else the compare kernel."""
+    if isinstance(keys, torch.Tensor) and keys.is_cuda:
+        keys = _runtime_keys(keys)
+        fn = shared_scan_bitsliced_tiles if _bitsliced_wins(dev.width, keys.shape[0]) \
+            else shared_scan_tiles
+        bits, counts = fn(dev.tiles, keys, dev.width, dev.n)
+        return bits_to_canonical(bits, dev.n), counts
     keys = _host_keys(keys)
-    tier, lo = pick_tier(keys)
+    tier, lo = pick_concrete_tier(dev.width, keys)
     if tier == "interval":
         bits, counts = interval_scan_tiles(dev.tiles, lo, keys.shape[0], dev.width, dev.n)
-    else:
+    elif tier == "compare":
         keys_t = torch.from_numpy(keys.view(np.int32).copy()).to(dev.tiles.device)
         bits, counts = shared_scan_tiles(dev.tiles, keys_t, dev.width, dev.n)
+    else:
+        fn = windowed_scan_tiles if tier == "windowed" else shared_scan_bitsliced_static_tiles
+        bits, counts = fn(dev.tiles, keys, dev.width, dev.n)
     return bits_to_canonical(bits, dev.n), counts
 
 
 def scan_device(dev: DeviceColumn, predicate_key) -> tuple[torch.Tensor, torch.Tensor]:
-    """Single-predicate scan -> ((W,) canonical bitvector words, int64 count)."""
-    bits, counts = shared_scan_device(dev, _host_keys(predicate_key).reshape(1))
+    """Single-predicate scan -> ((W,) canonical bitvector words, int64 count).
+    A CUDA-tensor key stays on the card, as in :func:`shared_scan_device`."""
+    if isinstance(predicate_key, torch.Tensor) and predicate_key.is_cuda:
+        keys = predicate_key.reshape(1)
+    else:
+        keys = _host_keys(predicate_key).reshape(1)
+    bits, counts = shared_scan_device(dev, keys)
     return bits[0], counts[0]
 
 

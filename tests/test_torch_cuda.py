@@ -117,6 +117,124 @@ def test_slice_kernels_match_cpu_plain_path(cuda_device):
     assert harness.check_shared_scan(gdev, np.arange(8), vals)
 
 
+def _arbitrary_key_sets(width, values):
+    dom = 1 << width
+    rng = np.random.default_rng(width + 7)
+    spread = sorted(set(rng.integers(0, dom, size=8).tolist()))
+    return [
+        spread,
+        [int(values[2]), int(values[2]), 0, dom - 1],               # duplicate key
+        [dom, 1 << 31, 0xFFFFFFFF, int(values[4])],                 # out of domain
+        [v % dom for v in (0, 2, 4, 6, 1, 3)],                      # clustered
+        rng.integers(0, min(dom, 700), size=33).tolist(),           # one 48-row chunk
+        rng.integers(0, min(dom, 700), size=64).tolist() + [dom],  # 32-row chunks
+    ]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_arbitrary_key_kernels_match_plain(cuda_device, width):
+    values = _values(width, N, width + 40, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    offset = 2  # a shard whose tail block lands two blocks later
+    for keys in _arbitrary_key_sets(width, values.cpu()):
+        kt = _keys(keys, cuda_device)
+        for bo in (0, offset):
+            _same(scan.shared_scan_bitsliced_tiles(tiles, kt, width, N, bo),
+                  scan.shared_scan_bitsliced_tiles_plain(tiles, kt, width, N, bo))
+            _same(scan.shared_scan_bitsliced_static_tiles(tiles, keys, width, N, bo),
+                  scan.shared_scan_bitsliced_static_tiles_plain(tiles, keys, width, N, bo))
+            _same(scan.windowed_scan_tiles(tiles, keys, width, N, bo),
+                  scan.windowed_scan_tiles_plain(tiles, keys, width, N, bo))
+
+
+def test_arbitrary_key_kernels_past_1024_keys(cuda_device):
+    # the runtime kernel chunks keys in C; the static and windowed wrappers
+    # launch one program or plan per 1024 rows
+    width = 11
+    tiles = unpack.pack_device_kernel(_values(width, N, 12, cuda_device), width).tiles
+    keys = ((np.arange(1500) * 7) % 2100).tolist()
+    kt = _keys(keys, cuda_device)
+    ref = scan.shared_scan_tiles_plain(tiles, kt, width, N)
+    _same(scan.shared_scan_bitsliced_tiles(tiles, kt, width, N), ref)
+    _same(scan.shared_scan_bitsliced_static_tiles(tiles, keys, width, N), ref)
+    _same(scan.windowed_scan_tiles(tiles, keys, width, N), ref)
+
+
+def test_static_dag_past_48kb_of_shared_memory(cuda_device):
+    width = 31
+    tiles = unpack.pack_device_kernel(_values(width, N, 31, cuda_device), width).tiles
+    keys = np.random.default_rng(1).integers(0, 1 << 31, size=32).tolist()
+    _, slots = scan._static_program(width, tuple(keys))
+    assert slots * scan._static_threads(slots) * 4 > 48 * 1024
+    _same(scan.shared_scan_bitsliced_static_tiles(tiles, keys, width, N),
+          scan.shared_scan_bitsliced_static_tiles_plain(tiles, keys, width, N))
+
+
+def test_refused_static_launch_raises(cuda_device):
+    width, n = 9, 1000
+    tiles = torch.zeros((width, 8, 128), dtype=torch.int32, device=cuda_device)
+    prog, _ = scan._static_program_on(width, (3, 70), cuda_device)
+    bits = torch.empty((2, 8, 128), dtype=torch.int32, device=cuda_device)
+    counts = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="sss_bitsliced_static_scan"):
+        # 4096 slots x 128 threads: 2 MB of shared memory, more than a CTA has
+        _cuda.launch("sss_bitsliced_static_scan", cuda_device, tiles.data_ptr(),
+                     prog.data_ptr(), prog.shape[0], 2, bits.data_ptr(), counts.data_ptr(),
+                     8 * 128, width, n, 0, 128, 4096)
+
+
+def test_dispatcher_launches_each_tier(cuda_device):
+    width, n = 9, 32_000
+    vals = harness.synth_modk(n, 512, width, device=cuda_device)
+    dev = port.pack_device_kernel(vals, width)
+    spread8 = [3, 70, 141, 200, 262, 333, 400, 511]
+    cases = [
+        (list(range(8)), "interval", scan.interval_scan_tiles),
+        ([0, 2, 4, 6], "windowed", scan.windowed_scan_tiles),
+        (spread8, "bitsliced_static", scan.shared_scan_bitsliced_static_tiles),
+        ([5, 300], "compare", scan.shared_scan_tiles),
+        (torch.tensor(spread8, dtype=torch.int32, device=cuda_device), None,
+         scan.shared_scan_bitsliced_tiles),
+        (torch.tensor([5, 300], dtype=torch.int32, device=cuda_device), None,
+         scan.shared_scan_tiles),
+    ]
+    for keys, tier, fn in cases:
+        if tier is not None:
+            assert scan.pick_concrete_tier(width, keys)[0] == tier
+        before = fn.launches
+        bits, counts = port.shared_scan_device(dev, keys)
+        assert fn.launches == before + 1, (keys, fn.__name__)
+        host = scan._host_keys(keys)
+        assert counts.tolist() == [int((vals == int(key)).sum()) for key in host.view(np.int32)]
+        assert harness.check_shared_scan(dev, keys, vals)
+
+
+def test_cuda_keys_never_reach_the_host(cuda_device, monkeypatch):
+    width, n = 9, 32_000
+    dev = port.pack_device_kernel(_values(width, n, 5, cuda_device), width)
+    keys = torch.tensor([3, 70, 141, 200, 262, 333, 400, 511], dtype=torch.int32,
+                        device=cuda_device)
+    expect = port.shared_scan_device(dev, keys.cpu())
+    before = scan.shared_scan_bitsliced_tiles.launches
+
+    def no_host(_):
+        raise AssertionError("runtime keys were read on the host")
+
+    monkeypatch.setattr(scan, "_host_keys", no_host)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # any device-to-host copy raises
+    try:
+        bits, counts = port.shared_scan_device(dev, keys)
+        bits1, count1 = port.scan_device(dev, keys[3:4])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert scan.shared_scan_bitsliced_tiles.launches == before + 1
+    _same(bits, expect[0])
+    _same(counts, expect[1])
+    _same(bits1, expect[0][3])
+    _same(count1, expect[1][3])
+
+
 def test_wrappers_refuse_mixed_devices(cuda_device):
     tiles = torch.zeros((9, 8, 128), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="different devices"):

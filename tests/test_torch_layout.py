@@ -16,6 +16,7 @@ from shared_simd_scan_tpu import layout as jlayout
 from shared_simd_scan_tpu.ops import oracle as joracle
 from shared_simd_scan_tpu_torch import bitvector as tbv
 from shared_simd_scan_tpu_torch import layout as tlayout
+from shared_simd_scan_tpu_torch.bench import harness as tharness
 from shared_simd_scan_tpu_torch.ops import oracle as toracle
 
 torch.set_num_threads(1)
@@ -41,23 +42,23 @@ def test_pack_and_tiles_match_jax(width):
     n = 4097 + width  # partial block, partial lane tile
     values = _rand(width, n, seed=width)
     jcol = jlayout.pack(values, width)
-    tcol = tlayout.pack(values, width)
+    tcol = tlayout.pack(values, width, device="cpu")
     assert tcol.to_bytes() == jcol.to_bytes()
     np.testing.assert_array_equal(_u32(tcol.words), np.asarray(jcol.words))
     jdev = jlayout.to_device(jcol)
     tdev = tlayout.to_device(tcol)
     np.testing.assert_array_equal(tdev.to_numpy(), np.asarray(jdev.tiles))
-    np.testing.assert_array_equal(tlayout.pack_device(values, width).to_numpy(),
+    np.testing.assert_array_equal(tlayout.pack_device(values, width, device="cpu").to_numpy(),
                                   np.asarray(jdev.tiles))
     np.testing.assert_array_equal(_u32(tlayout.to_canonical(tdev).words), np.asarray(jcol.words))
 
 
 def test_pack_golden_ramp509():
-    assert tlayout.pack(RAMP509, 9).to_bytes() == bytes(GOLDEN["ramp509_packed"])
+    assert tlayout.pack(RAMP509, 9, device="cpu").to_bytes() == bytes(GOLDEN["ramp509_packed"])
 
 
 def test_pack_golden_tiny12():
-    assert tlayout.pack(TINY12, 9).to_bytes() == bytes(GOLDEN["tiny12_packed"])
+    assert tlayout.pack(TINY12, 9, device="cpu").to_bytes() == bytes(GOLDEN["tiny12_packed"])
 
 
 @pytest.mark.parametrize("width", [1, 2, 3, 7, 8, 9, 15, 16, 17, 24, 31])
@@ -65,7 +66,7 @@ def test_from_bytes_matches_jax(width):
     n = 259
     values = _rand(width, n, seed=width + 100)
     data = jlayout.pack(values, width).to_bytes()
-    tcol = tlayout.PackedColumn.from_bytes(data, width, n)
+    tcol = tlayout.PackedColumn.from_bytes(data, width, n, device="cpu")
     jcol = jlayout.PackedColumn.from_bytes(data, width, n)
     np.testing.assert_array_equal(_u32(tcol.words), np.asarray(jcol.words))
     assert tcol.to_bytes() == data
@@ -75,7 +76,7 @@ def test_pack_takes_tensors_and_masks_wide_values():
     values = np.arange(1000, dtype=np.int64) * 977 + (1 << 33)  # bits above 32 and above width
     jcol = jlayout.pack(values.astype(np.uint32), 11)
     for given in (values, torch.from_numpy(values), torch.from_numpy(values.astype(np.uint32).view(np.int32))):
-        assert tlayout.pack(given, 11).to_bytes() == jcol.to_bytes()
+        assert tlayout.pack(given, 11, device="cpu").to_bytes() == jcol.to_bytes()
 
 
 def test_schedules_match_jax():
@@ -105,12 +106,28 @@ def test_main_path_shape():
 
 def test_bad_width_and_length_rejected():
     with pytest.raises(ValueError):
-        tlayout.pack(TINY12, 0)
+        tlayout.pack(TINY12, 0, device="cpu")
     with pytest.raises(ValueError):
-        tlayout.pack(TINY12, 32)
+        tlayout.pack(TINY12, 32, device="cpu")
     with pytest.raises(ValueError, match="MAX_VALUES"):
         tlayout.PackedColumn(width=1, n=1 << 32, words=torch.zeros(1, dtype=torch.int32))
     tlayout.DeviceColumn(width=1, n=(1 << 32) - 1, tiles=torch.zeros((1, 8, 128), dtype=torch.int32))
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the behaviour without a CUDA card")
+def test_host_input_without_a_device_asks_for_the_card():
+    # entry points put host data on the card unless the caller asks for the
+    # CPU; with no card they raise instead of falling back
+    data = tlayout.pack(TINY12, 9, device="cpu").to_bytes()
+    for call in (lambda: tlayout.pack(TINY12, 9), lambda: tlayout.pack_device(TINY12, 9),
+                 lambda: tlayout.pack(TINY12.tolist(), 9),
+                 lambda: tlayout.PackedColumn.from_bytes(data, 9, 12),
+                 lambda: tbv.from_bytes(data, 12),
+                 lambda: tharness.synth_modk(100, 8, 9)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # a tensor stays on its own device
+    assert tlayout.pack(torch.from_numpy(TINY12.astype(np.int64)), 9).words.device.type == "cpu"
 
 
 @pytest.mark.parametrize("width", [1, 9, 17, 31])
@@ -175,7 +192,8 @@ def test_bitvector_ops_match_jax(n):
         assert int(tcnt) == int(jcnt)
     data = tbv.to_bytes(ta, n)
     assert data == jbv.to_bytes(ja, n)
-    np.testing.assert_array_equal(_u32(tbv.from_bytes(data, n)), np.asarray(jbv.from_bytes(data, n)))
+    np.testing.assert_array_equal(_u32(tbv.from_bytes(data, n, device="cpu")),
+                                  np.asarray(jbv.from_bytes(data, n)))
 
 
 def test_popcount_words_all_bit_patterns():
@@ -195,7 +213,7 @@ def test_oracle_matches_jax(width):
     n = 2021
     values = _rand(width, n, seed=width + 400)
     jcol = jlayout.pack(values, width)
-    tcol = tlayout.pack(values, width)
+    tcol = tlayout.pack(values, width, device="cpu")
     np.testing.assert_array_equal(_u32(toracle.unpack(tcol)), np.asarray(joracle.unpack(jcol)))
     keys = np.array([values[3], values[7], 0, (1 << width) - 1], np.uint32)
     tbits, tcounts = toracle.shared_scan(tcol, keys)
@@ -209,11 +227,11 @@ def test_oracle_matches_jax(width):
 
 
 def test_oracle_goldens():
-    col = tlayout.pack(TINY12, 9)
+    col = tlayout.pack(TINY12, 9, device="cpu")
     bits, hits = toracle.scan(col, 3)
     assert int(hits) == GOLDEN["tiny12_scan3_hits"]
     assert tbv.to_bytes(bits, 12) == bytes(GOLDEN["tiny12_scan3_bits"])
-    col = tlayout.pack(RAMP509, 9)
+    col = tlayout.pack(RAMP509, 9, device="cpu")
     bits, hits = toracle.scan(col, 3)
     assert int(hits) == GOLDEN["ramp509_scan3_hits"]
     assert tbv.to_bytes(bits, 509) == bytes(GOLDEN["ramp509_scan3_bits"])

@@ -31,7 +31,7 @@ def _keys_t(keys, device="cpu") -> torch.Tensor:
 def _columns(width, n, seed):
     values = np.random.default_rng(seed).integers(0, 1 << width, size=n, dtype=np.uint64)
     values = values.astype(np.uint32)
-    return values, jlayout.pack_device(values, width), tlayout.pack_device(values, width)
+    return values, jlayout.pack_device(values, width), tlayout.pack_device(values, width, device="cpu")
 
 
 def _assert_same(tout, jout):
@@ -106,7 +106,7 @@ def test_interval_scan_tiles_other_widths_match_jax(width, lo, k):
     values, jdev, tdev = _columns(width, n, seed=width + 500)
     values[: 4 * k] = (lo + np.arange(4 * k)) % (1 << width)  # make sure keys hit
     jdev = jlayout.pack_device(values, width)
-    tdev = tlayout.pack_device(values, width)
+    tdev = tlayout.pack_device(values, width, device="cpu")
     jout = jscan.interval_scan_tiles(jdev.tiles, lo, k, width, n, interpret=True)
     tout = tscan.interval_scan_tiles(tdev.tiles, lo, k, width, n)
     _assert_same(tout, jout)
@@ -185,43 +185,48 @@ def _spread_sets(k, count, seed, width=9):
 
 def test_tier_matches_reference_for_single_keys():
     for key in list(range(0, 512, 7)) + [511, 512, 1 << 31, 0xFFFFFFFF]:
-        ref, _ = jscan.pick_concrete_tier(9, [key])
-        assert ref == "compare"
-        assert tscan.pick_tier([key]) == ("compare", None)
+        assert tscan.pick_concrete_tier(9, [key]) == jscan.pick_concrete_tier(9, [key]) \
+            == ("compare", None)
 
 
 def test_tier_matches_reference_for_consecutive_runs():
     for k in range(2, 1025):
         lo = (k * 37) % 512
         keys = np.arange(lo, lo + k, dtype=np.uint32)
-        assert tscan.pick_tier(keys) == jscan.pick_concrete_tier(9, keys) == ("interval", lo)
+        assert tscan.pick_concrete_tier(9, keys) == jscan.pick_concrete_tier(9, keys) \
+            == ("interval", lo)
     for k in (1025, 2000):  # past the interval tier's limit
         keys = np.arange(k, dtype=np.uint32)
         assert jscan.pick_concrete_tier(9, keys)[0] != "interval"
-        assert tscan.pick_tier(keys) == ("compare", None)
+        assert tscan.pick_concrete_tier(9, keys) == jscan.pick_concrete_tier(9, keys)
 
 
 @pytest.mark.parametrize("k", [2, 3])
 def test_tier_matches_reference_for_spread_sets(k):
     for keys in _spread_sets(k, 200, seed=k):
-        ref, ref_lo = jscan.pick_concrete_tier(9, keys)
-        if ref in ("interval", "compare"):
-            assert tscan.pick_tier(keys) == (ref, ref_lo)
-        else:
-            assert tscan.pick_tier(keys) == ("compare", None)
+        assert tscan.pick_concrete_tier(9, keys) == jscan.pick_concrete_tier(9, keys)
 
 
 @pytest.mark.parametrize("keys", [[0, 2, 4], [1, 100, 300, 450], [5, 6, 7, 9, 200, 201]])
 def test_sets_of_unported_tiers_fall_to_compare_with_same_bits(keys):
+    # sets the reference sends to its windowed and static AND-DAG tiers take
+    # the same tier in the port, with the same bits and counts
     width, n = 9, 4241
     values, jdev, tdev = _columns(width, n, seed=len(keys))
-    ref, _ = jscan.pick_concrete_tier(width, keys)
-    assert ref in ("windowed", "bitsliced_static")
-    assert tscan.pick_tier(keys) == ("compare", None)
+    ref = jscan.pick_concrete_tier(width, keys)
+    assert ref[0] in ("windowed", "bitsliced_static")
+    assert tscan.pick_concrete_tier(width, keys) == ref
+    fn = {"windowed": tscan.windowed_scan_tiles,
+          "bitsliced_static": tscan.shared_scan_bitsliced_static_tiles}[ref[0]]
+    before = fn.launches
     jbits, jcounts = jscan.shared_scan_device(jdev, np.asarray(keys, np.uint32), interpret=True)
     tbits, tcounts = tscan.shared_scan_device(tdev, keys)
+    assert fn.launches == before  # CPU tensors take the plain version
     np.testing.assert_array_equal(_u32(tbits), np.asarray(jbits))
     np.testing.assert_array_equal(tcounts.numpy(), np.asarray(jcounts))
+    pbits, pcounts = fn(tdev.tiles, keys, width, n)
+    np.testing.assert_array_equal(_u32(tscan.bits_to_canonical(pbits, n)), np.asarray(jbits))
+    np.testing.assert_array_equal(pcounts.numpy(), np.asarray(jcounts))
 
 
 def test_consecutive_lo_matches_jax():

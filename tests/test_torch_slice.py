@@ -46,14 +46,14 @@ def _jax_slice(values, width):
 def test_slice_matches_jax(width, n, corpus):
     if corpus == "modk":
         values = np.array(jharness.synth_modk(n, 8, width))
-        np.testing.assert_array_equal(_u32(tharness.synth_modk(n, 8, width)), values)
+        np.testing.assert_array_equal(_u32(tharness.synth_modk(n, 8, width, device="cpu")), values)
     else:
         values = np.random.default_rng(n).integers(0, 1 << width, size=n).astype(np.uint32)
     jdev, jbits8, jcounts8, jbits1, jcount1, jback = _jax_slice(values, width)
 
     tdev = port.pack_device_kernel(torch.from_numpy(values.view(np.int32)), width)
     np.testing.assert_array_equal(tdev.to_numpy(), np.asarray(jdev.tiles))
-    col_dev = port.to_device(port.pack(values, width))
+    col_dev = port.to_device(port.pack(values, width, device="cpu"))
     np.testing.assert_array_equal(col_dev.to_numpy(), np.asarray(jdev.tiles))
     bits8, counts8 = port.shared_scan_device(tdev, list(range(8)))
     bits1, count1 = port.scan_device(tdev, 3)
@@ -96,7 +96,7 @@ def test_port_column_scans_the_same_in_jax():
 def test_scan_device_takes_host_keys_in_every_form():
     width, n = 9, 3000
     values = np.random.default_rng(8).integers(0, 1 << width, size=n).astype(np.uint32)
-    tdev = port.pack_device(values, width)
+    tdev = port.pack_device(values, width, device="cpu")
     want = int(np.sum(values == values[0]))
     for key in (int(values[0]), np.uint32(values[0]), [int(values[0])],
                 torch.tensor(int(values[0])), torch.tensor([int(values[0])], dtype=torch.int32)):

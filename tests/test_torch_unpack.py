@@ -40,7 +40,7 @@ def _raw_value_layout(b1, seed):
 def test_unpack_tiles_matches_jax(width):
     values = _rand(width, N, seed=width)
     jdev = jlayout.pack_device(values, width)
-    tdev = tlayout.pack_device(values, width)
+    tdev = tlayout.pack_device(values, width, device="cpu")
     jvals = junpack.unpack_tiles(jdev.tiles, width, interpret=True)
     tvals = tunpack.unpack_tiles(tdev.tiles, width)
     assert tvals.dtype == torch.int32 and tuple(tvals.shape) == (32, 8, 128)
