@@ -28,10 +28,22 @@ from the sources in the checkout and then:
    counters set to 0 just before and read just after, and checks that each
    tier ``pick_concrete_tier`` names is the kernel that ran, the counts
    against their closed form, and ``check_shared_scan`` for every set;
-6. times each kernel and its plain version at the full-size shapes with
+6. drives the query path at full size — a table of three columns of the
+   main path's n (``price`` 9-bit, ``region`` 5-bit, ``status`` 4-bit, the
+   analytics demo's widths), drawn on the card from a seeded generator:
+   ``query.evaluate`` on four WHERE clauses (fused conjunction, range scan,
+   member window and domain tiers), then ``member_scan_device`` on the
+   ``i % 512`` column with host key sets of every tier
+   ``member_dispatch_tier`` names there and CUDA-tensor keys of every
+   runtime tier (under ``torch.cuda.set_sync_debug_mode("error")``), and
+   the chunked member bodies directly — with the launch counters set to 0
+   just before and read just after; checks each query's words and count
+   against the predicate computed with plain torch on the raw values, and
+   each member set's kernel, closed-form count and words;
+7. times each kernel and its plain version at the full-size shapes with
    CUDA events, beside a ``copy_`` of the packed column, and computes each
    kernel's bound: its bytes over the card's 3.35 TB/s;
-7. prints a JSON line with one entry per kernel, and as its last line
+8. prints a JSON line with one entry per kernel, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check or error exits non-zero and prints no result; so does a
@@ -79,10 +91,34 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "windowed_scan": ("shared_simd_scan_tpu_torch/csrc/windowed.cu",
                       "shared_simd_scan_tpu/ops/scan.py:2980; "
                       "shared_simd_scan_tpu/ops/scan.py:2997"),
+    "range_scan": ("shared_simd_scan_tpu_torch/csrc/range_scan.cu",
+                   "shared_simd_scan_tpu/ops/scan.py:1984"),
+    "conj_range_scan": ("shared_simd_scan_tpu_torch/csrc/conj.cu",
+                        "shared_simd_scan_tpu/ops/conj.py:52"),
+    "member_compare": ("shared_simd_scan_tpu_torch/csrc/member.cu",
+                       "shared_simd_scan_tpu/ops/member.py:89"),
+    "member_chunked_compare": ("shared_simd_scan_tpu_torch/csrc/member.cu",
+                               "shared_simd_scan_tpu/ops/member.py:122"),
+    "member_window": ("shared_simd_scan_tpu_torch/csrc/member.cu",
+                      "shared_simd_scan_tpu/ops/member.py:107"),
+    "member_chunked_window": ("shared_simd_scan_tpu_torch/csrc/member.cu",
+                              "shared_simd_scan_tpu/ops/member.py:146"),
+    "member_domain": ("shared_simd_scan_tpu_torch/csrc/member.cu",
+                      "shared_simd_scan_tpu/ops/member.py:169"),
+    "member_ortree": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
+                      "shared_simd_scan_tpu/ops/member.py:250"),
+    "member_bitsliced": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
+                         "shared_simd_scan_tpu/ops/member.py:321"),
 }
 # the kernels of the arbitrary-key path, and the tier each one serves
 ARBITRARY = {"bitsliced_static_scan": "bitsliced_static", "windowed_scan": "windowed",
              "bitsliced_scan": None}
+# the kernels of the query path
+QUERY = ("range_scan", "conj_range_scan", "member_compare", "member_chunked_compare",
+         "member_window", "member_chunked_window", "member_domain", "member_ortree",
+         "member_bitsliced")
+# the query path's table: the analytics demo's columns and widths
+TABLE = {"price": 9, "region": 5, "status": 4}
 
 
 def s64() -> list[int]:
@@ -93,7 +129,7 @@ def s64() -> list[int]:
 
 def wrappers() -> dict:
     """Kernel name -> the wrapper whose ``launches`` counts its launches."""
-    from shared_simd_scan_tpu_torch.ops import scan, unpack
+    from shared_simd_scan_tpu_torch.ops import conj, member, scan, unpack
 
     return {
         "unpack": unpack.unpack_tiles, "pack": unpack.pack_tiles,
@@ -102,6 +138,8 @@ def wrappers() -> dict:
         "bitsliced_scan": scan.shared_scan_bitsliced_tiles,
         "bitsliced_static_scan": scan.shared_scan_bitsliced_static_tiles,
         "windowed_scan": scan.windowed_scan_tiles,
+        "range_scan": scan.range_scan_tiles, "conj_range_scan": conj.conj_range_scan_tiles,
+        **{name: getattr(member, f"_{name}_tiles") for name in QUERY if name.startswith("member")},
     }
 
 
@@ -285,7 +323,8 @@ def main_path_phase(device) -> tuple[int, object, dict]:
     from shared_simd_scan_tpu_torch.bench import harness
     from shared_simd_scan_tpu_torch.ops import scan
 
-    path = {name: fn for name, fn in wrappers().items() if name not in ARBITRARY}
+    path = {name: fn for name, fn in wrappers().items()
+            if name not in ARBITRARY and name not in QUERY}
     n = harness.values_for(DATA_SIZE, WIDTH)
     vals = harness.synth_modk(n, K, WIDTH, device=device)
     torch.cuda.synchronize()
@@ -492,6 +531,396 @@ def timing_phase(device, n: int, dev, arb, errs: dict) -> dict:
     return results
 
 
+def member_bodies(width: int, n: int, values, rng) -> list:
+    """(kernel name, call) for the seven member bodies on small columns:
+    call(fn, tiles, block_offset) runs the body's wrapper or plain version
+    ``fn`` on duplicate, out-of-domain and zero keys, clustered and
+    out-of-domain windows, a spread OR-tree, the whole domain and an
+    all-out-of-domain set."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch.ops import member
+
+    device = values.device
+    dom = 1 << width
+
+    def t32(a):
+        return torch.from_numpy(np.asarray(a, np.int64).astype(np.uint32).view(np.int32)).to(device)
+
+    v = [int(x) for x in values[:8].tolist()]
+    spread = rng.integers(0, dom, size=12).tolist() + [0, v[3], v[3], dom, 0xFFFFFFFF]
+    keys = t32(spread)
+    padded = member._pad_keys(keys, 32)
+    many = t32(rng.integers(0, 2 * dom, size=70).tolist() + [v[1]])
+    wkeys = [x % dom for x in (0, 2, 4, 6, 31, 40, 77)] + [v[7], dom + 1]
+    wb, wp = member.member_window_plan(np.asarray(wkeys, np.uint32))
+    win = t32(np.stack([wb, wp], axis=1))
+    ckeys = [32 * i + i % 7 for i in range(40)] + [v[5]]  # 40+ windows, some out of domain
+    cb, cp = member.member_window_plan(np.asarray(ckeys, np.uint32))
+    cwin = np.concatenate([np.stack([cb, cp], axis=1), np.zeros(((-len(cb)) % 32, 2), np.int64)])
+    cwin = t32(cwin)
+    bodies = [
+        ("member_compare", lambda fn, t, bo: fn(t, keys, width, n, bo)),
+        ("member_chunked_compare", lambda fn, t, bo: fn(t, padded, width, n, 32, bo)),
+        ("member_chunked_compare", lambda fn, t, bo: fn(
+            t, member._pad_keys(many, 32), width, n, 32, bo)),
+        ("member_window", lambda fn, t, bo: fn(t, win, width, n, bo)),
+        ("member_chunked_window", lambda fn, t, bo: fn(t, cwin, width, n, 32, bo)),
+        ("member_ortree", lambda fn, t, bo: fn(t, width, n, tuple(spread), bo)),
+        ("member_ortree", lambda fn, t, bo: fn(t, width, n, (dom, dom + 5, 1 << 31), bo)),
+        ("member_bitsliced", lambda fn, t, bo: fn(t, padded, width, n, 32, bo)),
+        ("member_bitsliced", lambda fn, t, bo: fn(t, member._pad_keys(many, 32), width, n, 32, bo)),
+    ]
+    if width <= 9:  # the whole domain: an all-ones row, tail masked
+        bodies.append(("member_ortree", lambda fn, t, bo: fn(t, width, n, tuple(range(dom)), bo)))
+    if width <= member.MAX_DOMAIN_WIDTH:
+        bodies.append(("member_domain", lambda fn, t, bo: fn(t, keys, width, n, bo)))
+        bodies.append(("member_domain", lambda fn, t, bo: fn(t, many, width, n, bo)))
+    return bodies
+
+
+def small_query_phase(device, errs: dict) -> None:
+    """The query path's kernels against their plain versions at small
+    ragged sizes: every width, ragged n, a block_offset; wrapped, empty,
+    full and 2^32-ended ranges; mixed-width conjunctions with empty
+    ranges; every member body."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch.ops import conj, member, scan, unpack
+
+    rng = np.random.default_rng(SEED + 1)
+
+    def note(name, a, b):
+        e = max(max_abs_err(a[0], b[0]), int((a[1] - b[1]).abs().max()))
+        errs[name] = max(errs[name], e)
+
+    for n in SMALL_NS:
+        cols = {}
+        for width in SMALL_WIDTHS:
+            vals = torch.from_numpy(rng.integers(0, 1 << width, size=n).astype(np.int32)).to(device)
+            cols[width] = (vals, unpack.pack_device_kernel(vals, width).tiles)
+        for width, (vals, tiles) in cols.items():
+            dom = 1 << width
+            lows = [0, 1, dom - 1, 5, 3, 0xFFFFFFF0, int(vals[0])]
+            highs = [dom, 0, 2, 5, 1 << 31, 0, int(vals[0]) + 1]  # [1, 2^32), wrapped, empty
+            lo = torch.from_numpy(np.asarray(lows, np.uint32).view(np.int32)).to(device)
+            hi = torch.from_numpy(np.asarray(highs, np.uint32).view(np.int32)).to(device)
+            for bo in (0, 2):
+                note("range_scan", scan.range_scan_tiles(tiles, lo, hi, width, n, bo),
+                     scan.range_scan_tiles_plain(tiles, lo, hi, width, n, bo))
+                for name, call in member_bodies(width, n, vals, rng):
+                    note(name, call(getattr(member, f"_{name}_tiles"), tiles, bo),
+                         call(getattr(member, f"_{name}_tiles_plain"), tiles, bo))
+        widths = list(cols)
+        for ws in (widths, widths[::-1][:3], [9], [1, 31], widths + [5, 12][: 8 - len(widths)]):
+            tiles = [cols[w][1] if w in cols else
+                     unpack.pack_device_kernel(cols[9][0] % (1 << w), w).tiles for w in ws]
+            doms = [1 << w for w in ws]
+            for lows, highs in (([d // 4 for d in doms], [d - d // 5 for d in doms]),
+                                ([0] * len(ws), doms),
+                                ([1] + [0] * (len(ws) - 1), [1] + doms[1:]),    # hi == lo
+                                ([3] + [0] * (len(ws) - 1), [2] + doms[1:])):   # hi < lo
+                for bo in (0, 2):
+                    note("conj_range_scan",
+                         conj.conj_range_scan_tiles(tiles, lows, highs, ws, n, bo),
+                         conj.conj_range_scan_tiles_plain(tiles, np.asarray(lows, np.uint32),
+                                                          np.asarray(highs, np.uint32), ws, n,
+                                                          bo))
+    torch.cuda.synchronize()
+    for name in QUERY:
+        check(errs[name] == 0, f"{name} kernel bit-exact against its plain version "
+              f"(widths {SMALL_WIDTHS}, n {SMALL_NS})")
+
+
+def query_trees(q, c) -> dict:
+    """The query phase's WHERE clauses over the table's columns ``c``."""
+    return {
+        # the analytics demo's WHERE: conj m=2 and the member window tier
+        "Q1": q.And(q.Range(c["price"], 100, 400), q.Range(c["region"], 2, 10),
+                    q.Or(q.In(c["status"], [1, 4, 9]), q.Eq(c["status"], 0))),
+        # the range scan at k=3 and the member interval tier (one range)
+        "Q2": q.Or(q.Range(c["price"], 0, 50), q.Range(c["price"], 300, 350),
+                   q.Range(c["price"], 500, 512), q.Eq(c["region"], 7)),
+        # conj m=3 under a complement that re-masks the tail
+        "Q3": q.Not(q.And(q.Eq(c["price"], 3), q.Eq(c["region"], 4), q.Eq(c["status"], 5))),
+        # two windows of a 4-bit column cost more than its table: the domain tier
+        "Q4": q.In(c["status"], [1, 4, 9, 0, 40]),
+    }
+
+
+def query_truth(name: str, r: dict):
+    """The same predicate, computed with plain torch on the raw values."""
+    import torch
+
+    p, g, s = r["price"], r["region"], r["status"]
+    if name == "Q1":
+        st = torch.tensor([1, 4, 9], dtype=s.dtype, device=s.device)
+        return ((p >= 100) & (p < 400) & (g >= 2) & (g < 10)
+                & (torch.isin(s, st) | (s == 0)))
+    if name == "Q2":
+        return (p < 50) | ((p >= 300) & (p < 350)) | (p >= 500) | (g == 7)
+    if name == "Q3":
+        return ~((p == 3) & (g == 4) & (s == 5))
+    st = torch.tensor([1, 4, 9, 0, 40], dtype=s.dtype, device=s.device)
+    return torch.isin(s, st)
+
+
+MEMBER_HOST = {  # name -> (keys, the tier member_dispatch_tier names at width 9)
+    "interval k=64": (list(range(100, 164)), "interval"),
+    "window W4": (W4, "window"),
+    "or-tree S8": (S8, "ortree"),
+    "or-tree S64": (None, "ortree"),
+    "compare [5, 300]": ([5, 300], "compare"),
+}
+MEMBER_RUNTIME = {  # name -> (keys, the runtime rule's kernel at width 9)
+    "CUDA keys k=4": ([5, 77, 300, 411], "member_compare"),
+    "CUDA keys k=16": ([3 + 31 * i for i in range(16)], "member_bitsliced"),
+    "CUDA keys S64": (None, "member_domain"),
+}
+CHUNKED_COMPARE_KEYS = 64
+CHUNKED_WINDOWS = [32 * i + i % 7 for i in range(40)]  # 16 in the 9-bit domain, 24 beyond
+
+
+def query_phase(device, arb) -> tuple[dict, dict]:
+    """The query path at full size, with launch counts taken around it."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch import bitvector, pack_device_kernel, query
+    from shared_simd_scan_tpu_torch.bench import harness
+    from shared_simd_scan_tpu_torch.ops import member
+
+    kernels = wrappers()
+    n = harness.values_for(DATA_SIZE, WIDTH)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    raw = {name: torch.randint(0, 1 << w, (n,), generator=gen, device=device, dtype=torch.int32)
+           for name, w in TABLE.items()}
+    cols = {name: pack_device_kernel(raw[name], w) for name, w in TABLE.items()}
+    torch.cuda.synchronize()
+    packed = sum(c.tiles.numel() * 4 for c in cols.values())
+    print(f"query path: table of {n} rows, columns {TABLE}, {packed} bytes of tiles")
+    trees = query_trees(query, cols)
+    for name, expr in trees.items():
+        print(f"explain {name}:\n{query.explain(expr)}")
+
+    host = {name: (keys if keys is not None else s64(), tier)
+            for name, (keys, tier) in MEMBER_HOST.items()}
+    runtime = {name: (torch.tensor(keys if keys is not None else s64(), dtype=torch.int32,
+                                   device=device), want)
+               for name, (keys, want) in MEMBER_RUNTIME.items()}
+    chunked_keys = member._pad_keys(torch.tensor(s64(), dtype=torch.int32, device=device),
+                                    CHUNKED_COMPARE_KEYS)
+    cb, cp = member.member_window_plan(np.asarray(CHUNKED_WINDOWS, np.uint32))
+    cwin = np.concatenate([np.stack([cb, cp], axis=1), np.zeros(((-len(cb)) % 32, 2), np.int64)])
+    cwin = torch.from_numpy(cwin.astype(np.uint32).view(np.int32)).to(device)
+
+    for fn in kernels.values():
+        fn.launches = 0
+    ran, outs = {}, {}
+
+    def run(name, fn):
+        before = {k: f.launches for k, f in kernels.items()}
+        outs[name] = fn()
+        ran[name] = [k for k, f in kernels.items() if f.launches > before[k]]
+
+    t0 = time.monotonic()
+    for name, expr in trees.items():
+        run(name, lambda expr=expr: query.evaluate(expr))
+    for name, (keys, _) in host.items():
+        run(name, lambda keys=keys: member.member_scan_device(arb, keys))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # runtime keys: any device-to-host copy raises
+    try:
+        for name, (keys, _) in runtime.items():
+            run(name, lambda keys=keys: member.member_scan_device(arb, keys))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    run("chunked compare, 64 keys", lambda: member._member_chunked_compare_tiles(
+        arb.tiles, chunked_keys, WIDTH, n, 32))
+    run("chunked window, 40 windows", lambda: member._member_chunked_window_tiles(
+        arb.tiles, cwin, WIDTH, n, 32))
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"query path ran in {seconds:.3f} s (host clock, first calls); launches "
+          f"{ {k: launches[k] for k in QUERY} }")
+
+    for name in QUERY:
+        check(launches[name] > 0, f"query path launched the {name} kernel ({launches[name]}x)")
+    want_ran = {"Q1": ["conj_range_scan", "member_window"], "Q2": ["range_scan"],
+                "Q3": ["conj_range_scan"], "Q4": ["member_domain"],
+                "chunked compare, 64 keys": ["member_chunked_compare"],
+                "chunked window, 40 windows": ["member_chunked_window"]}
+    tier_kernel = {"interval": "range_scan", "window": "member_window",
+                   "ortree": "member_ortree", "compare": "member_compare"}
+    for name, (keys, tier) in host.items():
+        got = member.member_dispatch_tier(keys, WIDTH)
+        check(got == tier, f"{name}: member_dispatch_tier names {got}")
+        want_ran[name] = [tier_kernel[tier]]
+    for name, (_, want) in runtime.items():
+        want_ran[name] = [want]
+    for name, want in want_ran.items():
+        check(ran[name] == want, f"{name}: ran {ran[name]}, the kernel of its tier")
+
+    for name in trees:
+        truth = query_truth(name, raw)
+        bits, count = outs[name]
+        check(bool((bits == bitvector.from_bool(truth)).all()) and int(count) == int(truth.sum()),
+              f"{name}: every word and the count ({int(count)}) equal the plain-torch predicate "
+              "on the raw values")
+        del truth
+    del raw
+
+    def closed_form(keys):
+        return sum((n - 1 - key) // DOMAIN + 1 for key in set(keys) if key < DOMAIN)
+
+    sets = {name: keys for name, (keys, _) in host.items()}
+    sets.update({name: keys.tolist() for name, (keys, _) in runtime.items()})
+    sets["chunked compare, 64 keys"] = s64()
+    sets["chunked window, 40 windows"] = CHUNKED_WINDOWS
+    for name, keys in sets.items():
+        bits, count = outs[name]
+        check(int(count) == closed_form(keys), f"{name}: count {int(count)} == closed form")
+        kt = torch.tensor(keys, dtype=torch.int32, device=device)
+        pbits, _ = member._member_compare_tiles_plain(arb.tiles, kt, WIDTH, n)
+        if bits.ndim == 2:  # a direct call returns the tile layout
+            bits = bits.reshape(-1)[: pbits.numel()]
+        check(bool((bits == pbits.reshape(-1)[: bits.numel()]).all()),
+              f"{name}: every word equals the plain compare version's")
+    return cols, launches
+
+
+def query_timing_phase(device, cols, arb, errs: dict) -> dict:
+    """Each query-path kernel and its plain version at full size: the
+    conjunctions of Q1 (m=2) and Q3 (m=3) and the range scan of Q2 (k=3) on
+    the table, each member body on the i % 512 column; and Q1's whole
+    ``evaluate``, host included."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch import query
+    from shared_simd_scan_tpu_torch.layout import LANES
+    from shared_simd_scan_tpu_torch.ops import conj, member, scan
+
+    n = cols["price"].n
+    nblocks = arb.tiles.shape[1] * LANES
+    row = nblocks * 4
+
+    def tile_bytes(*ts):
+        return sum(t.numel() * 4 for t in ts)
+
+    def t32(a):
+        return torch.from_numpy(np.asarray(a, np.int64).astype(np.uint32).view(np.int32)).to(device)
+
+    p, g, s = (cols[k].tiles for k in TABLE)
+    at = arb.tiles
+    lo3, hi3 = t32([0, 300, 500]), t32([50, 350, 512])
+    k4, k16, k64 = (t32(MEMBER_RUNTIME[k][0] or s64()) for k in MEMBER_RUNTIME)
+    chunked = member._pad_keys(k64, CHUNKED_COMPARE_KEYS)
+    wb, wp = member.member_window_plan(np.asarray(W4, np.uint32))
+    win = t32(np.stack([wb, wp], axis=1))
+    cb, cp = member.member_window_plan(np.asarray(CHUNKED_WINDOWS, np.uint32))
+    cwin = t32(np.concatenate([np.stack([cb, cp], axis=1),
+                               np.zeros(((-len(cb)) % 32, 2), np.int64)]))
+    s8, s64_ = tuple(S8), tuple(s64())
+    conj_plain = conj.conj_range_scan_tiles_plain
+    pairs = {  # name -> (kernel, plain, bytes it must move)
+        "conj_range_scan m=2": (
+            lambda: conj.conj_range_scan_tiles((p, g), [100, 2], [400, 10], (9, 5), n),
+            lambda: conj_plain((p, g), np.asarray([100, 2], np.uint32),
+                               np.asarray([400, 10], np.uint32), (9, 5), n),
+            tile_bytes(p, g) + row + 8),
+        "conj_range_scan m=3": (
+            lambda: conj.conj_range_scan_tiles((p, g, s), [3, 4, 5], [4, 5, 6], (9, 5, 4), n),
+            lambda: conj_plain((p, g, s), np.asarray([3, 4, 5], np.uint32),
+                               np.asarray([4, 5, 6], np.uint32), (9, 5, 4), n),
+            tile_bytes(p, g, s) + row + 8),
+        "range_scan k=3": (
+            lambda: scan.range_scan_tiles(p, lo3, hi3, 9, n),
+            lambda: scan.range_scan_tiles_plain(p, lo3, hi3, 9, n),
+            tile_bytes(p) + 3 * (row + 8 + 8)),
+        "member_compare k=4": (
+            lambda: member._member_compare_tiles(at, k4, WIDTH, n),
+            lambda: member._member_compare_tiles_plain(at, k4, WIDTH, n),
+            tile_bytes(at) + row + 8 + 4 * 4),
+        "member_chunked_compare k=64": (
+            lambda: member._member_chunked_compare_tiles(at, chunked, WIDTH, n, 32),
+            lambda: member._member_chunked_compare_tiles_plain(at, chunked, WIDTH, n, 32),
+            tile_bytes(at) + row + 8 + 64 * 4),
+        "member_window W4": (
+            lambda: member._member_window_tiles(at, win, WIDTH, n),
+            lambda: member._member_window_tiles_plain(at, win, WIDTH, n),
+            tile_bytes(at) + row + 8 + 8),
+        "member_chunked_window 40 windows": (
+            lambda: member._member_chunked_window_tiles(at, cwin, WIDTH, n, 32),
+            lambda: member._member_chunked_window_tiles_plain(at, cwin, WIDTH, n, 32),
+            tile_bytes(at) + row + 8 + 64 * 8),
+        "member_domain k=64": (
+            lambda: member._member_domain_tiles(at, k64, WIDTH, n),
+            lambda: member._member_domain_tiles_plain(at, k64, WIDTH, n),
+            tile_bytes(at) + row + 8 + 64 * 4),
+        "member_ortree S8": (
+            lambda: member._member_ortree_tiles(at, WIDTH, n, s8),
+            lambda: member._member_ortree_tiles_plain(at, WIDTH, n, s8),
+            tile_bytes(at) + row + 8),
+        "member_ortree S64": (
+            lambda: member._member_ortree_tiles(at, WIDTH, n, s64_),
+            lambda: member._member_ortree_tiles_plain(at, WIDTH, n, s64_),
+            tile_bytes(at) + row + 8),
+        "member_bitsliced k=16": (
+            lambda: member._member_bitsliced_tiles(at, k16, WIDTH, n, 16),
+            lambda: member._member_bitsliced_tiles_plain(at, k16, WIDTH, n, 16),
+            tile_bytes(at) + row + 8 + 16 * 4),
+    }
+    for name, (kern, plain, _) in pairs.items():
+        kernel = name.split()[0]
+        a, b = kern(), plain()
+        errs[kernel] = max(errs[kernel], max_abs_err(a[0], b[0]),
+                           int((a[1] - b[1]).abs().max()))
+        del a, b
+        check(errs[kernel] == 0, f"{name} kernel bit-exact against its plain version at full size")
+
+    results = {}
+    copy_dst = torch.empty_like(at)
+    copy_ms = time_ms(lambda: copy_dst.copy_(at), batches=5, calls=10)
+    copy_rate = 2 * tile_bytes(at) / (copy_ms * 1e-3)
+    print(f"copy_ of the i % 512 column ({tile_bytes(at)} bytes): {copy_ms:.6f} ms, "
+          f"{copy_rate:.6e} bytes/s")
+    for name, (kern, plain, nbytes) in pairs.items():
+        ms = time_ms(kern, batches=5, calls=10)
+        plain_ms = time_ms(plain, batches=3, calls=2)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rate = nbytes / (ms * 1e-3)
+        results[name] = (ms, plain_ms, bound_ms)
+        print(f"time {name}: kernel {ms:.6f} ms ({rate:.6e} bytes/s, {rate / copy_rate:.4f} of "
+              f"copy, bound {bound_ms:.6f} ms for {nbytes} bytes); plain {plain_ms:.6f} ms")
+    # Q1's conjunction composed from single-column passes instead: two
+    # range scans, each writing its row, then a word-wise AND
+    lo_p, hi_p, lo_g, hi_g = t32([100]), t32([400]), t32([2]), t32([10])
+
+    def composed():
+        a, _ = scan.range_scan_tiles(p, lo_p, hi_p, 9, n)
+        b, _ = scan.range_scan_tiles(g, lo_g, hi_g, 5, n)
+        return a[0] & b[0]
+
+    fused = pairs["conj_range_scan m=2"][0]()[0]
+    check(bool((composed() == fused).all()), "Q1's conjunction composed == fused, every word")
+    del fused
+    ms = time_ms(composed, batches=5, calls=10)
+    print(f"time Q1 conjunction composed (2 range scans + AND): {ms:.6f} ms, against "
+          f"{results['conj_range_scan m=2'][0]:.6f} ms fused")
+    q1 = query_trees(query, cols)["Q1"]
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        query.evaluate(q1)
+        torch.cuda.synchronize()
+        walls.append((time.monotonic() - t0) * 1e3)
+    print(f"time Q1 evaluate (host clock, host included): median {statistics.median(walls[1:]):.6f}"
+          f" ms of {len(walls) - 1} after a warm-up")
+    return results
+
+
 def main() -> int:
     root = pathlib.Path(__file__).resolve().parent
     if not (root / "shared_simd_scan_tpu_torch" / "__init__.py").is_file():
@@ -517,15 +946,20 @@ def main() -> int:
     build_phase()
     canary_phase(device, errs)
     small_phase(device, errs)
+    small_query_phase(device, errs)
     n, dev, launches = main_path_phase(device)
     arb, arb_launches = arbitrary_key_phase(device)
     launches.update({name: arb_launches[name] for name in ARBITRARY})
+    cols, query_launches = query_phase(device, arb)
+    launches.update({name: query_launches[name] for name in QUERY})
     times = timing_phase(device, n, dev, arb, errs)
+    times.update(query_timing_phase(device, cols, arb, errs))
     check("jax" not in sys.modules, "no jax module was imported")
 
     def entry(name, src, rep):
-        # the arbitrary-key kernels report k=8 (S8) and, beside it, k=64 (S64)
-        key = name if name in times else f"{name} k=8"
+        # the arbitrary-key kernels report k=8 (S8) and, beside it, k=64
+        # (S64); each query-path kernel its own set, the OR-tree S8 and S64
+        key = name if name in times else next(k for k in times if k.split()[0] == name)
         ms, plain_ms, bound_ms = times[key]
         e = {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
@@ -534,6 +968,10 @@ def main() -> int:
         if name in ARBITRARY:
             e["k"] = 8
             e["ms_k64"], e["plain_ms_k64"], e["bound_ms_k64"] = times[f"{name} k=64"]
+        elif " " in key:
+            e["set"] = key.split(" ", 1)[1]
+        if name == "member_ortree":
+            e["ms_s64"], e["plain_ms_s64"], e["bound_ms_s64"] = times["member_ortree S64"]
         return e
 
     print(f"nvidia-smi: {smi}")

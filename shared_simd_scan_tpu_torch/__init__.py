@@ -1,11 +1,12 @@
 """shared_simd_scan_tpu_torch — the shared scan on PyTorch and CUDA.
 
 The port of ``shared_simd_scan_tpu`` (JAX/Pallas) to PyTorch with
-hand-written CUDA kernels for Hopper (sm_90a).  This slice covers the
-library's main path: pack a column into the tile layout, run the k-key
-shared scan (interval tier for consecutive keys, compare tier otherwise)
-and the single-key scan, and decompress.  Module names mirror the JAX
-package; the port imports torch and numpy and never jax.
+hand-written CUDA kernels for Hopper (sm_90a).  It covers packing a
+column into the tile layout and decompressing it, every tier of the k-key
+shared scan and the single-key scan, the range scan, the fused
+multi-column conjunction, the IN-list member scan and the predicate-tree
+query layer (``query.evaluate``).  Module names mirror the JAX package;
+the port imports torch and numpy and never jax.
 """
 
 from shared_simd_scan_tpu_torch.layout import (  # noqa: F401
@@ -20,10 +21,19 @@ from shared_simd_scan_tpu_torch.layout import (  # noqa: F401
     unpack_schedule,
 )
 from shared_simd_scan_tpu_torch import bitvector  # noqa: F401
+from shared_simd_scan_tpu_torch import query  # noqa: F401
 from shared_simd_scan_tpu_torch.ops.scan import (  # noqa: F401
     scan_device,
     shared_scan_device,
     interval_scan_device,
+    range_scan_device,
+)
+from shared_simd_scan_tpu_torch.ops.member import (  # noqa: F401
+    member_scan_device,
+)
+from shared_simd_scan_tpu_torch.ops.conj import (  # noqa: F401
+    conj_range_scan_device,
+    conj_eq_scan_device,
 )
 from shared_simd_scan_tpu_torch.ops.unpack import (  # noqa: F401
     pack_device_kernel,

@@ -1,5 +1,5 @@
 // Bit-sliced shared scans: runtime keys (plane fold) and host keys (a
-// static AND-DAG program).
+// static AND-DAG program); and their member (IN-list) forms, one row.
 //
 // Replaces shared_simd_scan_tpu/ops/scan.py:
 //  - _shared_scan_bitsliced_kernel / shared_scan_bitsliced_tiles: keys read
@@ -12,9 +12,17 @@
 //    (ops/scan.py _static_program) that this kernel interprets:
 //      word 0 = kind << 30 | target, word 1 = operand a | operand b << 16,
 //      operand = slot | 0x8000 for the complement;
-//      AND: slot[target] = a & b;  OUT: row target = a;  ZERO: row target = 0.
+//      AND: slot[target] = a & b;  OR: slot[target] = a | b;
+//      OUT: row target = a;  ZERO: row target = 0.
 //    Planes hold slots 0..W-1; the host gives every other node a slot freed
 //    after its last use, so the slots are W plus the DAG's peak liveness.
+//  - ops/member.py _member_ortree_kernel: the member set's Shannon-factored
+//    OR-tree (scan.py _member_or_tree), compiled by the host
+//    (ops/scan.py _member_program) into a one-row program with OR
+//    instructions and run by the same interpreter;
+//  - ops/member.py _member_bitsliced_kernel: the runtime plane fold with
+//    the key rows ORed into one row (sss_member_bitsliced, the kMember
+//    form of the runtime kernel).
 //
 // Bound on the H100: device memory bytes (reads W words, writes k words per
 // 32 values) while k is small; the integer instruction rate beyond: the runtime fold costs
@@ -33,16 +41,17 @@
 namespace sss {
 
 constexpr int kStaticThreadsMax = 128;
-constexpr uint32_t kAnd = 0u, kOut = 1u;
+constexpr uint32_t kAnd = 0u, kOut = 1u, kOr = 3u;
 constexpr uint32_t kNeg = 0x8000u;
 
-template <int W>
+// kMember: OR the k key rows into row 0 (one count) instead of storing k.
+template <int W, bool kMember>
 __global__ void __launch_bounds__(kThreads)
 bitsliced_scan_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __restrict__ keys, int k,
                       uint32_t* __restrict__ bits, unsigned long long* __restrict__ counts,
                       long long nblocks, long long n, long long block_offset) {
-  __shared__ unsigned s_cnt[kMaxKeys];
-  zero_counts(s_cnt, k);
+  __shared__ unsigned s_cnt[kMember ? 1 : kMaxKeys];
+  zero_counts(s_cnt, kMember ? 1 : k);
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = b < nblocks;
   uint32_t w[W];
@@ -53,15 +62,18 @@ bitsliced_scan_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __rest
   unpack_values<W>(w, x);
   transpose_bitplanes<W>(x);
 
+  uint32_t any = 0u;
 #pragma unroll 1
   for (int j = 0; j < k; ++j) {
     const uint32_t key = __ldg(keys + j);
     uint32_t acc = key <= value_mask<W>() ? 0xFFFFFFFFu : 0u;
 #pragma unroll
     for (int p = 0; p < W; ++p) acc &= x[p] ^ (((key >> p) & 1u) - 1u);
-    store_row(bits, nblocks, b, active, j, acc & valid, s_cnt);
+    if constexpr (kMember) any |= acc;
+    else store_row(bits, nblocks, b, active, j, acc & valid, s_cnt);
   }
-  flush_counts(s_cnt, k, counts);
+  if constexpr (kMember) store_row(bits, nblocks, b, active, 0, any & valid, s_cnt);
+  flush_counts(s_cnt, kMember ? 1 : k, counts);
 }
 
 __device__ __forceinline__ uint32_t dag_operand(const uint32_t* s_val, uint32_t op, int stride) {
@@ -95,9 +107,10 @@ bitsliced_static_kernel(const uint32_t* __restrict__ tiles, const uint2* __restr
     const uint2 op = __ldg(prog + i);
     const uint32_t kind = op.x >> 30, target = op.x & 0x3FFFFFFFu;
     const uint32_t a = dag_operand(s_val, op.y & 0xFFFFu, stride);
-    if (kind == kAnd)
-      s_val[target * stride + threadIdx.x] = a & dag_operand(s_val, op.y >> 16, stride);
-    else
+    if (kind == kAnd || kind == kOr) {
+      const uint32_t c = dag_operand(s_val, op.y >> 16, stride);
+      s_val[target * stride + threadIdx.x] = kind == kAnd ? a & c : a | c;
+    } else
       store_row(bits, nblocks, b, active, (int)target, kind == kOut ? a & valid : 0u, s_cnt);
   }
   flush_counts(s_cnt, k, counts);
@@ -119,7 +132,7 @@ extern "C" int sss_bitsliced_scan(const uint32_t* tiles, const uint32_t* keys, i
     switch (width) {
 #define SSS_CASE(W)                                                               \
   case W:                                                                         \
-    sss::bitsliced_scan_kernel<W><<<grid, sss::kThreads, 0, stream>>>(            \
+    sss::bitsliced_scan_kernel<W, false><<<grid, sss::kThreads, 0, stream>>>(     \
         tiles, keys + j0, kc, bits_c, counts + j0, nblocks, n, block_offset);     \
     break;
       SSS_FOR_EACH_WIDTH(SSS_CASE)
@@ -131,6 +144,28 @@ extern "C" int sss_bitsliced_scan(const uint32_t* tiles, const uint32_t* keys, i
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+// The member form: all k keys OR into one row and one count (any k).
+extern "C" int sss_member_bitsliced(const uint32_t* tiles, const uint32_t* keys, int k,
+                                    uint32_t* bits, unsigned long long* counts, long long nblocks,
+                                    int width, long long n, long long block_offset,
+                                    cudaStream_t stream) {
+  if (k < 1) return (int)cudaErrorInvalidValue;
+  if (nblocks <= 0) return (int)cudaSuccess;
+  const unsigned grid = sss::grid_for(nblocks);
+  switch (width) {
+#define SSS_CASE(W)                                                               \
+  case W:                                                                         \
+    sss::bitsliced_scan_kernel<W, true><<<grid, sss::kThreads, 0, stream>>>(      \
+        tiles, keys, k, bits, counts, nblocks, n, block_offset);                  \
+    break;
+    SSS_FOR_EACH_WIDTH(SSS_CASE)
+#undef SSS_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 // One launch runs one program of k <= kMaxKeys rows with `threads` threads

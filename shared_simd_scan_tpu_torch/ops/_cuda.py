@@ -28,7 +28,8 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("unpack.cu", "shared_scan.cu", "interval_scan.cu", "bitsliced.cu", "windowed.cu")
+SOURCES = ("unpack.cu", "shared_scan.cu", "interval_scan.cu", "bitsliced.cu", "windowed.cu",
+           "range_scan.cu", "conj.cu", "member.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -57,6 +58,20 @@ _SIGNATURES = {
     # tiles, plan, k, bits, counts, nblocks, width, n, block_offset, gateless, stream
     "sss_windowed_scan": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll,
                           ctypes.c_int, _vp],
+    # tiles, lows, highs, k, bits, counts, nblocks, width, n, block_offset, stream
+    "sss_range_scan": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
+    # tile_ptrs, widths, lows, highs (host arrays of m), m, bits, counts, nblocks, n,
+    # block_offset, stream
+    "sss_conj_range_scan": [_vp, _vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, _ll, _ll, _vp],
+    # tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream
+    "sss_member_compare": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
+    # tiles, win, nwin, bits, counts, nblocks, width, n, block_offset, gateless, stream
+    "sss_member_window": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll,
+                          ctypes.c_int, _vp],
+    # tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream
+    "sss_member_domain": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
+    # tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream
+    "sss_member_bitsliced": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
 }
 
 _lock = threading.Lock()

@@ -10,9 +10,13 @@ PyTorch counterpart of the shared-scan part of
 - the static AND-DAG bit-sliced kernel for host keys
   (:func:`shared_scan_bitsliced_static_tiles`);
 - the windowed kernel for clustered host keys (:func:`windowed_scan_tiles`);
+- the range scan, k half-open ranges in one pass (:func:`range_scan_tiles`);
 - their planners, copied from the JAX package (:func:`pick_concrete_tier`
   and the cost functions it calls), and the dispatcher
-  (:func:`shared_scan_device` / :func:`scan_device`).
+  (:func:`shared_scan_device` / :func:`scan_device`);
+- the member OR-tree DAG (:func:`_member_or_tree`), its cost and liveness
+  counters and its one-row program (:func:`_member_program`), which
+  ``ops/member.py`` dispatches and launches.
 
 Output contract (the JAX package's): ``bits[k, B1, 128]`` holds one
 LSB-first uint32 word per block and key, with bits of values at index
@@ -490,8 +494,39 @@ def _combo(planes, lo, hi, pattern: int, memo: dict):
     return hit
 
 
+def _member_or_tree(planes, lo, hi, patterns, memo: dict):
+    """Vector with bit r set iff bits [lo, hi) of value r are in
+    ``patterns``: the OR across keys factored Shannon-style.  Patterns are
+    grouped by their high-span projection; each group pays one high-span
+    combo and one recursive low-span OR-tree.  Returns None when every
+    pattern of the span is present (all-match; callers drop the AND)."""
+    span = hi - lo
+    pats = sorted(set(patterns))
+    if len(pats) == (1 << span):
+        return None
+    if len(pats) == 1:
+        return _combo(planes, lo, hi, pats[0], memo)
+    key = ("or", lo, hi, tuple(pats))
+    hit = memo.get(key)
+    if hit is not None:
+        return hit
+    mid = (lo + hi + 1) // 2
+    lob = mid - lo
+    groups: dict[int, list[int]] = {}
+    for p in pats:
+        groups.setdefault(p >> lob, []).append(p & ((1 << lob) - 1))
+    acc = None
+    for hp in sorted(groups):
+        lo_t = _member_or_tree(planes, lo, mid, groups[hp], memo)
+        hi_t = _combo(planes, mid, hi, hp, memo)
+        term = hi_t if lo_t is None else hi_t & lo_t
+        acc = term if acc is None else acc | term
+    memo[key] = acc
+    return acc
+
+
 class _CountVec:
-    """Stand-in DAG operand: every AND/NOT bumps a shared counter, so
+    """Stand-in DAG operand: every AND/OR/NOT bumps a shared counter, so
     dispatch can price the exact DAG a concrete key set would compile to."""
 
     __slots__ = ("ctr",)
@@ -504,19 +539,93 @@ class _CountVec:
         return self
 
     __and__ = _op
+    __or__ = _op
     __invert__ = _op
 
 
-def _static_dag_ops(width: int, keys) -> int:
-    """Counted vector ops of the match DAG for one key chunk."""
-    ctr = [0]
-    planes = [_CountVec(ctr) for _ in range(width)]
+def _build_dag(width: int, keys, member: bool, operand) -> list:
+    """Build the match DAG of ``keys`` on ``width`` stand-in planes made by
+    ``operand()``: the member OR-tree of the in-domain keys, or one
+    ``_combo`` per in-domain key.  Returns the planes."""
+    planes = [operand() for _ in range(width)]
     memo: dict = {}
     dom = 1 << width
-    for key in (int(k) for k in keys):
-        if key < dom:
+    in_dom = [int(k) for k in keys if int(k) < dom]
+    if member:
+        if in_dom:
+            _member_or_tree(planes, 0, width, in_dom, memo)
+    else:
+        for key in in_dom:
             _combo(planes, 0, width, key, memo)
+    return planes
+
+
+def _static_dag_ops(width: int, keys, member: bool = False) -> int:
+    """Counted vector ops of the match DAG for one kernel body (one key
+    chunk, or the whole set for the member OR-tree)."""
+    ctr = [0]
+    _build_dag(width, keys, member, lambda: _CountVec(ctr))
     return ctr[0]
+
+
+class _LiveVec:
+    """Stand-in DAG operand that records creation and last-use times, so a
+    DAG's peak liveness is measured, not guessed."""
+
+    __slots__ = ("env", "id")
+
+    def __init__(self, env):
+        self.env = env
+        self.id = env.create()
+
+    def _op(self, other=None):
+        self.env.use(self.id)
+        if isinstance(other, _LiveVec):
+            self.env.use(other.id)
+        return _LiveVec(self.env)
+
+    __and__ = _op
+    __or__ = _op
+    __invert__ = _op
+
+
+class _LiveEnv:
+    __slots__ = ("t", "born", "last")
+
+    def __init__(self):
+        self.t = 0
+        self.born: list[int] = []
+        self.last: list[int] = []
+
+    def create(self) -> int:
+        self.t += 1
+        self.born.append(self.t)
+        self.last.append(self.t)
+        return len(self.born) - 1
+
+    def use(self, i: int) -> None:
+        self.t += 1
+        self.last[i] = self.t
+
+    def peak(self) -> int:
+        events = sorted([(b, 1) for b in self.born] + [(e + 1, -1) for e in self.last])
+        cur = peak = 0
+        for _, d in events:
+            cur += d
+            peak = max(peak, cur)
+        return peak
+
+
+def _static_dag_liveness(width: int, keys, member: bool = False) -> int:
+    """Peak number of simultaneously live vectors of the match DAG, planes
+    included (they are read throughout).  The member tier's cost rule
+    prices out DAGs past ``member._ORTREE_MAX_LIVE`` with it."""
+    env = _LiveEnv()
+    planes = _build_dag(width, keys, member, lambda: _LiveVec(env))
+    # planes stay live to the end (the kernel holds them across chunks)
+    for p in planes:
+        env.use(p.id)
+    return env.peak()
 
 
 # Fixed cost of the bit-sliced tiers in quarter-ops-per-value units:
@@ -582,7 +691,7 @@ def _static_chunks(keys: np.ndarray) -> list[tuple[int, list[int]]]:
 
 
 # Instruction kinds of the static DAG program (csrc/bitsliced.cu).
-_AND, _OUT, _ZERO = 0, 1, 2
+_AND, _OUT, _ZERO, _OR = 0, 1, 2, 3
 _NEG = 1 << 15  # operand flag: read the slot's complement
 _MAX_SLOTS = _NEG
 # Dynamic shared memory one static-DAG CTA may use for its node slots
@@ -592,21 +701,31 @@ STATIC_SMEM_BYTES = 200 * 1024
 
 class _ProgVec:
     """Stand-in DAG operand that records the DAG as instructions: each AND
-    appends one; NOT is free (a flag on the operand that reads it)."""
+    or OR appends one; NOT is free (a flag on the operand that reads it)."""
 
     __slots__ = ("ops", "node", "neg")
 
     def __init__(self, ops: list, node: int, neg: bool = False):
         self.ops, self.node, self.neg = ops, node, neg
 
-    def __and__(self, other: "_ProgVec") -> "_ProgVec":
+    def _binary(self, kind: int, other: "_ProgVec") -> "_ProgVec":
         node = self.ops[0]
         self.ops[0] += 1
-        self.ops.append((_AND, node, (self.node, self.neg), (other.node, other.neg)))
+        self.ops.append((kind, node, (self.node, self.neg), (other.node, other.neg)))
         return _ProgVec(self.ops, node)
+
+    def __and__(self, other: "_ProgVec") -> "_ProgVec":
+        return self._binary(_AND, other)
+
+    def __or__(self, other: "_ProgVec") -> "_ProgVec":
+        return self._binary(_OR, other)
 
     def __invert__(self) -> "_ProgVec":
         return _ProgVec(self.ops, self.node, not self.neg)
+
+    def out(self, row: int) -> None:
+        """Store this node as output row ``row``."""
+        self.ops.append((_OUT, row, (self.node, self.neg), None))
 
 
 @functools.lru_cache(maxsize=64)
@@ -615,9 +734,9 @@ def _static_program(width: int, keys: tuple) -> tuple[np.ndarray, int]:
     int32[nops, 2], slots): the memoized ``_combo`` DAG of each chunk as
     instructions for ``sss_bitsliced_static_scan``.
 
-    Word 0 is ``kind << 30 | target``: AND writes slot ``target``, OUT
-    stores operand a as row ``target``, ZERO stores a zero row (a key >=
-    2^width).  Word 1 holds operands a and b (16 bits each: slot, and
+    Word 0 is ``kind << 30 | target``: AND (OR) writes slot ``target``,
+    OUT stores operand a as row ``target``, ZERO stores a zero row (a key
+    >= 2^width).  Word 1 holds operands a and b (16 bits each: slot, and
     ``_NEG`` for the complement).  Planes hold slots 0..width-1; every
     other node gets a slot freed after its last use, so ``slots`` is
     width plus the DAG's peak liveness."""
@@ -628,11 +747,32 @@ def _static_program(width: int, keys: tuple) -> tuple[np.ndarray, int]:
         memo: dict = {}
         for j, key in enumerate(chunk):
             if key < dom:
-                v = _combo(planes, 0, width, key, memo)
-                ops.append((_OUT, c0 + j, (v.node, v.neg), None))
+                _combo(planes, 0, width, key, memo).out(c0 + j)
             else:
                 ops.append((_ZERO, c0 + j, None, None))
-    ops = ops[1:]
+    return _assign_slots(width, ops[1:])
+
+
+@functools.lru_cache(maxsize=64)
+def _member_program(width: int, patterns: tuple) -> tuple[np.ndarray, int]:
+    """The member OR-tree of ``patterns`` (in-domain keys) as a one-row
+    program for ``sss_bitsliced_static_scan``, in the format of
+    :func:`_static_program`: ``_member_or_tree`` with OR instructions.  A
+    set holding the whole domain stores ``plane0 | ~plane0`` (all ones);
+    an empty set stores a zero row."""
+    ops: list = [width]
+    planes = [_ProgVec(ops, p) for p in range(width)]
+    if not patterns:
+        ops.append((_ZERO, 0, None, None))
+    else:
+        row = _member_or_tree(planes, 0, width, list(patterns), {})
+        (planes[0] | ~planes[0] if row is None else row).out(0)
+    return _assign_slots(width, ops[1:])
+
+
+def _assign_slots(width: int, ops: list) -> tuple[np.ndarray, int]:
+    """Instructions (kind, node or row, operand a, operand b) -> (program
+    int32[nops, 2], slots), each node in a slot freed after its last use."""
     last = {}
     for i, (_, _, a, b) in enumerate(ops):
         for o in (a, b):
@@ -650,7 +790,7 @@ def _static_program(width: int, keys: tuple) -> tuple[np.ndarray, int]:
         for node in {o[0] for o in (a, b) if o is not None}:
             if node >= width and last[node] == i:
                 heapq.heappush(free, slot.pop(node))
-        if kind == _AND:
+        if kind in (_AND, _OR):
             if free:
                 slot[target] = heapq.heappop(free)
             else:
@@ -888,6 +1028,85 @@ def windowed_scan_tiles(
 
 
 windowed_scan_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Range-predicate shared scan: k predicates lo_j <= v < hi_j
+# ---------------------------------------------------------------------------
+#
+# One unsigned compare per (value, range): (v - lo) mod 2^32 < (hi - lo) mod
+# 2^32.  hi < lo is a wrapped, non-empty span, exactly as in the JAX
+# package; hi = 2^32 (a run ending at 0xFFFFFFFF) wraps to 0 and gives the
+# span 2^32 - lo, the half-open range [lo, 2^32).
+
+
+def _bounds_tensor(values, device) -> torch.Tensor:
+    """Range bounds in [0, 2^32] -> int32[k] (uint32 bits, 2^32 wrapped to
+    0) on ``device``.  A CUDA tensor stays on its device and is not read."""
+    if isinstance(values, torch.Tensor) and values.is_cuda:
+        return i32(values.reshape(-1).to(torch.int64))
+    arr = np.asarray(values.cpu() if isinstance(values, torch.Tensor) else values,
+                     dtype=np.int64).reshape(-1)
+    if arr.size and (arr.min() < 0 or arr.max() > 1 << 32):
+        raise ValueError("range bounds must lie in [0, 2^32]")
+    return torch.from_numpy((arr & _U32).astype(np.uint32).view(np.int32)).to(device)
+
+
+def range_scan_tiles_plain(
+    tiles: torch.Tensor, lows: torch.Tensor, highs: torch.Tensor, width: int, n: int,
+    block_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`range_scan_tiles`, same algorithm:
+    per value and range ``(v - lo) < (hi - lo)`` in uint32 arithmetic
+    (int64 masked to 32 bits)."""
+    lo = u32(lows)[:, None, None]
+    span = (u32(highs)[:, None, None] - lo) & _U32
+    acc = torch.zeros((lo.shape[0],) + tuple(tiles.shape[1:]), dtype=torch.int64,
+                      device=tiles.device)
+    for r, v in enumerate(_block_values_plain(tiles, width)):
+        acc |= (((v[None] - lo) & _U32) < span).to(torch.int64) << r
+    return _finish(acc, _valid_words(tiles.shape[1], n, block_offset, tiles.device))
+
+
+def range_scan_tiles(
+    tiles: torch.Tensor, lows: torch.Tensor, highs: torch.Tensor, width: int, n: int,
+    block_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """k half-open range predicates [lo_j, hi_j) in one fused pass: lows
+    and highs int32[k] (uint32 bits) on the tiles' device -> (bits
+    int32[k, B1, 128], counts int64[k]), the contract of
+    :func:`shared_scan_tiles`.
+
+    Kernel ``sss_range_scan`` (``csrc/range_scan.cu``) on CUDA tensors;
+    the plain version on CPU tensors."""
+    b1 = _check_tiles(tiles, width)
+    _check_key_tensor(lows)
+    _cuda.check_int32("highs", highs, tuple(lows.shape))
+    device = _cuda.kernel_device(tiles, lows, highs)
+    if device is None:
+        return range_scan_tiles_plain(tiles, lows, highs, width, n, block_offset)
+    k = int(lows.shape[0])
+    bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
+    counts = torch.zeros(k, dtype=torch.int64, device=device)
+    _cuda.launch(
+        "sss_range_scan", device, tiles.data_ptr(), lows.data_ptr(), highs.data_ptr(), k,
+        bits.data_ptr(), counts.data_ptr(), b1 * LANES, width, n, block_offset,
+    )
+    range_scan_tiles.launches += 1
+    return bits, counts
+
+
+range_scan_tiles.launches = 0
+
+
+def range_scan_device(dev: DeviceColumn, lows, highs) -> tuple[torch.Tensor, torch.Tensor]:
+    """k range predicates on a DeviceColumn -> ((k, W) canonical
+    bitvectors, (k,) int64 counts).  Bounds are host values in [0, 2^32]
+    or a CUDA tensor (read on the card only)."""
+    device = dev.tiles.device
+    bits, counts = range_scan_tiles(dev.tiles, _bounds_tensor(lows, device),
+                                    _bounds_tensor(highs, device), dev.width, dev.n)
+    return bits_to_canonical(bits, dev.n), counts
 
 
 # ---------------------------------------------------------------------------

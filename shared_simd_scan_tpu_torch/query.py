@@ -1,0 +1,296 @@
+"""Predicate-tree query layer: compose column predicates, evaluate fused.
+
+PyTorch counterpart of ``shared_simd_scan_tpu/query.py`` (its unsharded
+part).  A small algebra of predicates over same-table packed columns:
+
+    Eq(col, key)        column == key
+    Range(col, lo, hi)  lo <= column < hi        (half-open)
+    In(col, keys)       column IN keys
+    And(*terms) / Or(*terms) / Not(term)
+
+``evaluate(expr)`` plans the tree onto the kernel tiers instead of
+evaluating it leaf by leaf:
+
+- every Range/Eq conjunct of an And is merged per column (intersected
+  bounds) and each group of up to 8 columns runs as one fused pass
+  (:mod:`ops.conj`), reading each column once and writing one bitvector;
+- the Eq and In disjuncts of an Or on one column merge into one member
+  scan (:mod:`ops.member`), and its multi-value ranges share one k-range
+  pass (:func:`ops.scan.range_scan_tiles`, 32 ranges per call);
+- the remaining boolean structure composes the bitvectors word-wise
+  (:mod:`bitvector`).
+
+Predicate constants are host values, which is what lets the planner pick
+tiers statically; columns are DeviceColumns of the same n.  Returns
+(canonical bitvector words int32[ceil(n/32)], int64 count) with bits at
+i >= n zero.  Zone-map pruning and the sharded evaluation of the JAX
+package are not in the port yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from shared_simd_scan_tpu_torch import bitvector
+from shared_simd_scan_tpu_torch.layout import DeviceColumn
+from shared_simd_scan_tpu_torch.ops import conj as conj_ops
+from shared_simd_scan_tpu_torch.ops import member as member_ops
+from shared_simd_scan_tpu_torch.ops import scan as scan_ops
+
+
+@dataclasses.dataclass(frozen=True)
+class Range:
+    """lo <= col < hi (half-open, unsigned)."""
+
+    col: DeviceColumn
+    lo: int
+    hi: int
+
+
+def Eq(col: DeviceColumn, key: int) -> Range:
+    """col == key: the degenerate range [key, key+1)."""
+    return Range(col, int(key), int(key) + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class In:
+    """col IN keys (a concrete key set: a list, numpy array or CPU tensor).
+    A CUDA tensor raises TypeError: the planner reads the keys on the
+    host, and it does not copy them there unasked."""
+
+    col: DeviceColumn
+    keys: tuple
+
+    def __init__(self, col: DeviceColumn, keys: Sequence[int]):
+        if isinstance(keys, torch.Tensor):
+            if keys.is_cuda:
+                raise TypeError("In takes concrete keys; copy a CUDA tensor of keys to the host "
+                                "first, or scan it with ops.member.member_scan_device")
+            keys = keys.numpy()
+        object.__setattr__(self, "col", col)
+        object.__setattr__(self, "keys", tuple(int(k) for k in np.asarray(keys).ravel()))
+
+
+@dataclasses.dataclass(frozen=True)
+class And:
+    terms: tuple
+
+    def __init__(self, *terms):
+        object.__setattr__(self, "terms", tuple(terms))
+
+
+@dataclasses.dataclass(frozen=True)
+class Or:
+    terms: tuple
+
+    def __init__(self, *terms):
+        object.__setattr__(self, "terms", tuple(terms))
+
+
+@dataclasses.dataclass(frozen=True)
+class Not:
+    term: object
+
+
+def _columns(expr) -> list[DeviceColumn]:
+    if isinstance(expr, (Range, In)):
+        return [expr.col]
+    if isinstance(expr, (And, Or)):
+        return [c for t in expr.terms for c in _columns(t)]
+    if isinstance(expr, Not):
+        return _columns(expr.term)
+    raise TypeError(f"not a query expression: {expr!r}")
+
+
+def _group_or_terms(terms):
+    """Plan an Or's children: per column, (multi-value spans) and (merged
+    member keys from In terms and single-value Eq spans); plus the
+    residual non-leaf terms.  Statically empty disjuncts are dropped."""
+    spans_by_col: dict[int, tuple[DeviceColumn, list]] = {}
+    keys_by_col: dict[int, tuple[DeviceColumn, list]] = {}
+    others = []
+    for t in terms:
+        if isinstance(t, Range) and t.hi == t.lo + 1:
+            keys_by_col.setdefault(id(t.col), (t.col, []))[1].append(t.lo)
+        elif isinstance(t, Range) and t.lo < t.hi:
+            spans_by_col.setdefault(id(t.col), (t.col, []))[1].append((t.lo, t.hi))
+        elif isinstance(t, Range):
+            pass  # statically empty disjunct
+        elif isinstance(t, In):
+            if t.keys:
+                keys_by_col.setdefault(id(t.col), (t.col, []))[1].extend(t.keys)
+        else:
+            others.append(t)
+    # dedupe merged keys, preserving order for determinism
+    for cid, (col, keys) in list(keys_by_col.items()):
+        keys_by_col[cid] = (col, list(dict.fromkeys(keys)))
+    return spans_by_col, keys_by_col, others
+
+
+def _group_and_terms(terms):
+    """Plan an And's children: per-column intersected range bounds
+    (chunked into conj-kernel groups of MAX_COLUMNS) plus the residual
+    terms.  Returns (groups, others, empty); empty is True when some
+    column's intersection is statically empty."""
+    bounds: dict[int, tuple[DeviceColumn, int, int]] = {}
+    others = []
+    for t in terms:
+        if isinstance(t, Range):
+            key = id(t.col)
+            if key in bounds:
+                col, lo, hi = bounds[key]
+                bounds[key] = (col, max(lo, t.lo), min(hi, t.hi))
+            else:
+                bounds[key] = (t.col, t.lo, t.hi)
+        else:
+            others.append(t)
+    groups = list(bounds.values())
+    empty = any(hi <= lo for _, lo, hi in groups)
+    chunks = [groups[at : at + conj_ops.MAX_COLUMNS]
+              for at in range(0, len(groups), conj_ops.MAX_COLUMNS)]
+    return chunks, others, empty
+
+
+def _eval(expr, n: int, device) -> torch.Tensor:
+    """-> canonical bitvector words of the subtree."""
+
+    def zeros():
+        return torch.zeros((n + 31) // 32, dtype=torch.int32, device=device)
+
+    if isinstance(expr, Range):
+        return _eval(And(expr), n, device)
+    if isinstance(expr, In):
+        if not expr.keys:
+            return zeros()
+        bits, _ = member_ops.member_scan_device(expr.col, np.asarray(expr.keys, np.uint32))
+        return bits
+    if isinstance(expr, Not):
+        return bitvector.logical_not(_eval(expr.term, n, device), n)
+    if isinstance(expr, Or):
+        if not expr.terms:
+            return zeros()
+        # Eq and In disjuncts of one column merge into one member scan (the
+        # union is the member semantics); its multi-value ranges share one
+        # k-range pass per 32 ranges
+        spans_by_col, keys_by_col, others = _group_or_terms(expr.terms)
+        rows = [_eval(t, n, device) for t in others]
+        for col, keys in keys_by_col.values():
+            rows.append(_eval(In(col, keys), n, device))
+        for col, spans in spans_by_col.values():
+            if len(spans) == 1:
+                # a single range: the conj kernel writes the one fused row
+                rows.append(_eval(Range(col, *spans[0]), n, device))
+                continue
+            for at in range(0, len(spans), 32):
+                g = spans[at : at + 32]
+                kbits, _ = scan_ops.range_scan_device(
+                    col, np.asarray([lo for lo, _ in g], np.uint32),
+                    np.asarray([hi for _, hi in g], np.uint32))
+                rows.append(bitvector.logical_or(*kbits))
+        if not rows:
+            return zeros()
+        return bitvector.logical_or(*rows)
+    if isinstance(expr, And):
+        if not expr.terms:
+            return bitvector.logical_not(zeros(), n)
+        # every Range conjunct merges per column: intersected bounds, one
+        # fused multi-column pass per group
+        chunks, others, empty = _group_and_terms(expr.terms)
+        if empty:
+            return zeros()
+        rows = []
+        for g in chunks:
+            bits, _ = conj_ops.conj_range_scan_device(
+                [c for c, _, _ in g],
+                np.asarray([lo for _, lo, _ in g], np.uint32),
+                np.asarray([hi for _, _, hi in g], np.uint32),
+            )
+            rows.append(bits)
+        rows.extend(_eval(t, n, device) for t in others)
+        return bitvector.logical_and(*rows)
+    raise TypeError(f"not a query expression: {expr!r}")
+
+
+def evaluate(expr, zonemaps: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Evaluate a predicate tree -> (canonical bitvector words, int64
+    count).  Zone-map pruning (``zonemaps``) is not in the port yet
+    (ROADMAP Queue 1 item 11): given zone maps, this raises."""
+    if zonemaps:
+        raise NotImplementedError("zone-map pruning is not ported yet (ROADMAP Queue 1 item 11); "
+                                  "call evaluate without zonemaps")
+    cols = _columns(expr)
+    if not cols:
+        raise ValueError("query references no columns")
+    n = cols[0].n
+    for c in cols:
+        if c.n != n:
+            raise ValueError(f"query columns must share n, got {c.n} != {n}")
+    bits = _eval(expr, n, cols[0].tiles.device)
+    return bits, bitvector.popcount(bits)
+
+
+def _member_tier_name(keys: tuple, width: int) -> str:
+    """The tier :func:`ops.member.member_scan_tiles` dispatches, from the
+    dispatcher's own cost rule (:func:`ops.member.member_dispatch_tier`)."""
+    arr = np.asarray(keys, np.uint32)
+    tier = member_ops.member_dispatch_tier(arr, width)
+    if tier == "interval":
+        return "member:interval(range-compare)"
+    if tier == "window":
+        bases, _ = member_ops.member_window_plan(arr)
+        return f"member:window-popmask({len(bases)} windows)"
+    if tier == "domain":
+        return f"member:domain-bitmap({max(1, (1 << width) // 32)} words)"
+    if tier == "ortree":
+        ops = scan_ops._static_dag_ops(width, arr.tolist(), member=True)
+        return f"member:or-tree({ops} DAG ops)"
+    return f"member:{'bit-sliced' if tier == 'bitsliced' else 'compare'}"
+
+
+def explain(expr, indent: str = "") -> str:
+    """Human-readable evaluation plan: which kernel tier each leaf or group
+    dispatches to and where bitvectors are combined.  Purely static:
+    nothing runs.  The same text as the JAX package's ``explain``."""
+    if isinstance(expr, Range):
+        return explain(And(expr), indent)
+    if isinstance(expr, In):
+        if not expr.keys:
+            return f"{indent}constant: empty IN -> zeros"
+        return (f"{indent}{_member_tier_name(expr.keys, expr.col.width)} "
+                f"k={len(expr.keys)} [one pass, one bitvector]")
+    if isinstance(expr, Not):
+        return (f"{indent}NOT (word-wise complement, tail re-masked)\n"
+                + explain(expr.term, indent + "  "))
+    if isinstance(expr, (And, Or)):
+        op = "AND" if isinstance(expr, And) else "OR"
+        lines = [f"{indent}{op} (word-wise combine)"]
+        if isinstance(expr, And):
+            chunks, others, empty = _group_and_terms(expr.terms)
+            if empty:
+                return f"{indent}constant: statically empty range intersection -> zeros"
+            for g in chunks:
+                spans = ", ".join(f"[{lo},{hi})" for _, lo, hi in g)
+                lines.append(f"{indent}  conj:fused-range m={len(g)} {spans} "
+                             "[one pass over all columns, one bitvector]")
+            lines.extend(explain(t, indent + "  ") for t in others)
+        else:
+            spans_by_col, keys_by_col, others = _group_or_terms(expr.terms)
+            for col, keys in keys_by_col.values():
+                lines.append(f"{indent}  {_member_tier_name(tuple(keys), col.width)} "
+                             f"k={len(keys)} [merged In/Eq disjuncts, one pass]")
+            for col, spans in spans_by_col.values():
+                if len(spans) == 1:
+                    lines.append(f"{indent}  conj:fused-range m=1 "
+                                 f"[{spans[0][0]},{spans[0][1]}) [one pass]")
+                else:
+                    lines.append(f"{indent}  range-scan k={len(spans)} ranges on one "
+                                 "column [one pass, rows OR'd]")
+            lines.extend(explain(t, indent + "  ") for t in others)
+        return "\n".join(lines)
+    raise TypeError(f"not a query expression: {expr!r}")
+
+
+__all__ = ["Eq", "Range", "In", "And", "Or", "Not", "evaluate", "explain"]

@@ -14,8 +14,9 @@ import pytest
 import torch
 
 import shared_simd_scan_tpu_torch as port
+from shared_simd_scan_tpu_torch import bitvector, query
 from shared_simd_scan_tpu_torch.bench import harness
-from shared_simd_scan_tpu_torch.ops import _cuda, scan, unpack
+from shared_simd_scan_tpu_torch.ops import _cuda, conj, member, scan, unpack
 
 torch.set_num_threads(1)
 
@@ -239,6 +240,208 @@ def test_wrappers_refuse_mixed_devices(cuda_device):
     tiles = torch.zeros((9, 8, 128), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="different devices"):
         scan.shared_scan_tiles(tiles, torch.zeros(1, dtype=torch.int32), 9, 100)
+
+
+# ---------------------------------------------------------------------------
+# the query path: range scan, conjunction, member scan
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_range_scan_kernel_matches_plain(cuda_device, width):
+    values = _values(width, N, width + 60, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    dom = 1 << width
+    lows = [0, 1, dom - 1, 5, 3, 0xFFFFFFF0]
+    highs = [dom, 0, 2, 5, 1 << 31, 0]  # [1, 2^32), a wrapped span, empty, hi = 2^32
+    lo_t, hi_t = _keys(lows, cuda_device), _keys(highs, cuda_device)
+    for bo in (0, 2):
+        _same(scan.range_scan_tiles(tiles, lo_t, hi_t, width, N, bo),
+              scan.range_scan_tiles_plain(tiles, lo_t, hi_t, width, N, bo))
+    ref = ((values.to(torch.int64) & 0xFFFFFFFF) >= 1)
+    assert int(scan.range_scan_tiles(tiles, lo_t, hi_t, width, N)[1][1]) == int(ref.sum())
+
+
+CONJ_WIDTHS = [(9,), (1, 31), (2, 16, 17), (1, 2, 9, 16, 17, 31, 5, 12)]
+
+
+@pytest.mark.parametrize("widths", CONJ_WIDTHS)
+def test_conj_kernel_matches_plain(cuda_device, widths):
+    # 8 columns of 8 different widths in the last case; hi <= lo is empty
+    tiles, lows, highs = [], [], []
+    for i, width in enumerate(widths):
+        values = _values(width, N, 70 + i, cuda_device)
+        tiles.append(unpack.pack_device_kernel(values, width).tiles)
+        dom = 1 << width
+        lows.append(dom // 4 if i % 3 else 0)
+        highs.append(dom - dom // 5 if i % 3 else dom)
+    for lo, hi, bo in ((lows, highs, 0), (lows, highs, 2), ([1] + lows[1:], [1] + highs[1:], 0),
+                       ([3] + lows[1:], [2] + highs[1:], 0)):
+        _same(conj.conj_range_scan_tiles(tiles, lo, hi, widths, N, bo),
+              conj.conj_range_scan_tiles_plain(tiles, np.asarray(lo, np.uint32),
+                                               np.asarray(hi, np.uint32), widths, N, bo))
+
+
+def _member_cases(width, values):
+    """(body name, call) for every member body: call(fn, tiles, bo) runs the
+    body's wrapper or plain version ``fn``."""
+    dom = 1 << width
+    rng = np.random.default_rng(width + 90)
+    v3 = int(values[3])
+    spread = rng.integers(0, dom, size=12).tolist() + [0, v3, v3, dom]
+    keys = _keys(spread, values.device)
+    padded = member._pad_keys(keys, 32)
+    bases, pops = member.member_window_plan(
+        np.asarray([v % dom for v in (0, 2, 4, 6, 31, 40, 77)] + [int(values[7]), dom + 1],
+                   np.uint32))
+    win = _keys(np.stack([bases, pops], axis=1), values.device)
+    clustered = np.concatenate([np.arange(0, dom, 64)[:40] + 3, [int(values[5]), dom]])
+    cb, cp = member.member_window_plan(clustered.astype(np.uint32))
+    cwin = np.stack([cb, cp], axis=1)
+    cwin = np.concatenate([cwin, np.zeros(((-len(cb)) % 32, 2), np.int64)])
+    cwin = _keys(cwin, values.device)
+    cases = [
+        ("compare", lambda fn, t, bo: fn(t, keys, width, N, bo)),
+        ("chunked_compare", lambda fn, t, bo: fn(t, padded, width, N, 32, bo)),
+        ("window", lambda fn, t, bo: fn(t, win, width, N, bo)),
+        ("chunked_window", lambda fn, t, bo: fn(t, cwin, width, N, 32, bo)),
+        ("ortree", lambda fn, t, bo: fn(t, width, N, tuple(spread), bo)),
+        ("bitsliced", lambda fn, t, bo: fn(t, padded, width, N, 32, bo)),
+    ]
+    if width <= member.MAX_DOMAIN_WIDTH:
+        cases.append(("domain", lambda fn, t, bo: fn(t, keys, width, N, bo)))
+    return cases
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_member_kernels_match_plain(cuda_device, width):
+    values = _values(width, N, width + 80, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    for name, call in _member_cases(width, values):
+        wrapper = getattr(member, f"_member_{name}_tiles")
+        plain = getattr(member, f"_member_{name}_tiles_plain")
+        for bo in (0, 2):
+            before = wrapper.launches
+            _same(call(wrapper, tiles, bo), call(plain, tiles, bo))
+            assert wrapper.launches == before + 1, name
+
+
+def test_member_ortree_whole_domain_and_out_of_domain(cuda_device):
+    width = 8
+    values = _values(width, N, 3, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    bits, count = member._member_ortree_tiles(tiles, width, N, tuple(range(256)))
+    _same(bits, member._member_ortree_tiles_plain(tiles, width, N, tuple(range(256)))[0])
+    assert int(count) == N
+    bits, count = member._member_ortree_tiles(tiles, width, N, (256, 300, 0xFFFFFFFF))
+    assert int(count) == 0 and not bits.any()
+
+
+def test_member_ortree_past_48kb_of_shared_memory(cuda_device):
+    width = 31
+    values = _values(width, N, 31, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    pats = tuple(sorted(set(values[:60].tolist())))
+    _, slots = scan._member_program(width, pats)
+    assert slots * scan._static_threads(slots) * 4 > 48 * 1024
+    _same(member._member_ortree_tiles(tiles, width, N, pats),
+          member._member_ortree_tiles_plain(tiles, width, N, pats))
+
+
+def test_member_runtime_tiers_never_reach_the_host(cuda_device, monkeypatch):
+    width, n = 9, 32_000
+    vals = harness.synth_modk(n, 512, width, device=cuda_device)
+    dev = port.pack_device_kernel(vals, width)
+    cases = [(4, member._member_compare_tiles), (16, member._member_bitsliced_tiles),
+             (64, member._member_domain_tiles)]
+    keys = {k: torch.tensor((np.arange(k) * 37 + 11) % 600, dtype=torch.int32, device=cuda_device)
+            for k, _ in cases}
+    expect = {k: member.member_scan_device(dev, keys[k].cpu()) for k, _ in cases}
+
+    def no_host(_):
+        raise AssertionError("runtime keys were read on the host")
+
+    monkeypatch.setattr(member, "_host_keys", no_host)
+    before = {fn: fn.launches for _, fn in cases}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # any device-to-host copy raises
+    try:
+        got = {k: member.member_scan_device(dev, keys[k]) for k, _ in cases}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for k, fn in cases:
+        assert fn.launches == before[fn] + 1, fn.__name__
+        _same(got[k][0], expect[k][0])
+        assert int(got[k][1]) == int(expect[k][1]) == int(torch.isin(
+            vals.to(torch.int64), keys[k].to(torch.int64)).sum())
+
+
+def test_member_dispatcher_launches_each_host_tier(cuda_device):
+    width, n = 9, 32_000
+    vals = harness.synth_modk(n, 512, width, device=cuda_device)
+    dev = port.pack_device_kernel(vals, width)
+    cases = [
+        (list(range(100, 164)), "interval", scan.range_scan_tiles),
+        ([0, 2, 4, 6], "window", member._member_window_tiles),
+        ([3, 70, 141, 200, 262, 333, 400, 511], "ortree", member._member_ortree_tiles),
+        ([5, 300], "compare", member._member_compare_tiles),
+    ]
+    for keys, tier, fn in cases:
+        assert member.member_dispatch_tier(keys, width) == tier
+        before = fn.launches
+        bits, count = port.member_scan_device(dev, keys)
+        assert fn.launches == before + 1, tier
+        expect = torch.isin(vals.to(torch.int64), torch.tensor(keys, device=cuda_device))
+        _same(bits, bitvector.from_bool(expect))
+        assert int(count) == int(expect.sum())
+
+
+def test_query_on_the_card_equals_the_plain_path(cuda_device):
+    rng = np.random.default_rng(7)
+    n = 40_000
+    host = {name: rng.integers(0, 1 << w, n).astype(np.uint32)
+            for name, w in (("price", 9), ("region", 5), ("status", 4))}
+    widths = {"price": 9, "region": 5, "status": 4}
+    gcols = {k: port.pack_device_kernel(torch.from_numpy(v.view(np.int32)).to(cuda_device),
+                                        widths[k]) for k, v in host.items()}
+    ccols = {k: port.layout.pack_device(v, widths[k], device="cpu") for k, v in host.items()}
+
+    def trees(c):
+        return [
+            query.And(query.Range(c["price"], 100, 400), query.Range(c["region"], 2, 10),
+                      query.Or(query.In(c["status"], [1, 4, 9]), query.Eq(c["status"], 0))),
+            query.Or(query.Range(c["price"], 0, 50), query.Range(c["price"], 300, 350),
+                     query.Range(c["price"], 500, 512), query.Eq(c["region"], 7)),
+            query.Not(query.And(query.Eq(c["price"], 3), query.Eq(c["region"], 4),
+                                query.Eq(c["status"], 5))),
+            query.In(c["status"], [1, 4, 9, 0, 40]),
+        ]
+
+    for g, c in zip(trees(gcols), trees(ccols)):
+        gbits, gcount = query.evaluate(g)
+        cbits, ccount = query.evaluate(c)
+        _same(gbits.cpu(), cbits)
+        assert int(gcount) == int(ccount)
+    with pytest.raises(TypeError):
+        query.In(gcols["status"], torch.tensor([1, 2], device=cuda_device))
+
+
+def test_refused_query_path_launches_raise(cuda_device):
+    tiles = torch.zeros((9, 8, 128), dtype=torch.int32, device=cuda_device)
+    keys = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    bits = torch.empty((8, 128), dtype=torch.int32, device=cuda_device)
+    counts = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="sss_member_domain"):
+        # width 20: a table past the kernel's 16-bit cap
+        _cuda.launch("sss_member_domain", cuda_device, tiles.data_ptr(), keys.data_ptr(), 4,
+                     bits.data_ptr(), counts.data_ptr(), 8 * 128, 20, 100, 0)
+    ptrs = np.full(9, tiles.data_ptr(), np.int64)
+    w = np.full(9, 9, np.int32)
+    lo = np.zeros(9, np.uint32)
+    with pytest.raises(RuntimeError, match="sss_conj_range_scan"):
+        _cuda.launch("sss_conj_range_scan", cuda_device, ptrs.ctypes.data, w.ctypes.data,
+                     lo.ctypes.data, lo.ctypes.data, 9, bits.data_ptr(), counts.data_ptr(),
+                     8 * 128, 100, 0)
 
 
 def test_build_is_cached(cuda_device):

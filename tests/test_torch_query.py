@@ -1,0 +1,177 @@
+"""The port's predicate-tree query layer against the JAX package and numpy.
+
+The same table (three columns of the analytics demo's widths, from a numpy
+seed) goes to both packages, the JAX one in interpret mode; the columns
+cross with ``layout.from_jax_numpy``.  ``evaluate`` must give the same
+words and count in both and equal the numpy predicate (tolerance 0);
+``explain`` must give the same text.
+"""
+import numpy as np
+import pytest
+import torch
+
+from shared_simd_scan_tpu import layout as jlayout
+from shared_simd_scan_tpu import query as jq
+from shared_simd_scan_tpu_torch import bitvector as tbitvector
+from shared_simd_scan_tpu_torch import layout as tlayout
+from shared_simd_scan_tpu_torch import query as tq
+from shared_simd_scan_tpu_torch.ops import member as tmember
+
+torch.set_num_threads(1)
+
+N = 5000  # ragged: the last block holds 8 values
+WIDTHS = {"price": 9, "region": 5, "status": 4}
+
+
+@pytest.fixture(scope="module")
+def table():
+    rng = np.random.default_rng(7)
+    values, jcols, tcols = {}, {}, {}
+    for name, width in WIDTHS.items():
+        values[name] = rng.integers(0, 1 << width, N, dtype=np.uint64).astype(np.uint32)
+        jcols[name] = jlayout.pack_device(values[name], width)
+        tcols[name] = tlayout.from_jax_numpy(width, N, np.asarray(jcols[name].tiles), "cpu")
+    return values, jcols, tcols
+
+
+def _both(build, table):
+    """The same tree over the JAX columns and over the port's."""
+    _, jcols, tcols = table
+    return build(jq, jcols), build(tq, tcols)
+
+
+def _check(build, table, expect=None):
+    jexpr, texpr = _both(build, table)
+    jbits, jcount = jq.evaluate(jexpr, interpret=True)
+    tbits, tcount = tq.evaluate(texpr)
+    np.testing.assert_array_equal(tbits.numpy().view(np.uint32), np.asarray(jbits))
+    assert int(tcount) == int(jcount)
+    if expect is not None:
+        np.testing.assert_array_equal(tbitvector.to_bool(tbits, N).numpy(), expect)
+        assert int(tcount) == int(expect.sum())
+    assert tq.explain(texpr) == jq.explain(jexpr)
+    return tbits
+
+
+def _demo(q, c):
+    return q.And(q.Range(c["price"], 100, 400), q.Range(c["region"], 2, 10),
+                 q.Or(q.In(c["status"], [1, 4, 9]), q.Eq(c["status"], 0)))
+
+
+def test_demo_where_clause(table):
+    v = table[0]
+    expect = ((v["price"] >= 100) & (v["price"] < 400) & (v["region"] >= 2) & (v["region"] < 10)
+              & (np.isin(v["status"], [1, 4, 9]) | (v["status"] == 0)))
+    _check(_demo, table, expect)
+    assert "member:window-popmask(1 windows)" in tq.explain(_both(_demo, table)[1])
+
+
+def test_or_of_ranges_and_eq(table):
+    v = table[0]
+
+    def build(q, c):
+        return q.Or(q.Range(c["price"], 0, 50), q.Range(c["price"], 300, 350),
+                    q.Range(c["price"], 500, 512), q.Eq(c["region"], 7), q.Range(c["status"], 9, 3))
+
+    expect = ((v["price"] < 50) | ((v["price"] >= 300) & (v["price"] < 350))
+              | (v["price"] >= 500) | (v["region"] == 7))
+    _check(build, table, expect)
+
+
+def test_not_of_a_three_column_conjunction(table):
+    v = table[0]
+
+    def build(q, c):
+        return q.Not(q.And(q.Eq(c["price"], 3), q.Eq(c["region"], 4), q.Eq(c["status"], 5)))
+
+    expect = ~((v["price"] == 3) & (v["region"] == 4) & (v["status"] == 5))
+    bits = _check(build, table, expect)
+    # the complement keeps the tail past n zero
+    assert int(tbitvector.popcount(bits)) == int(expect.sum())
+
+
+def test_or_past_32_ranges(table):
+    v = table[0]
+    spans = [(7 * i, 7 * i + 3) for i in range(40)]
+
+    def build(q, c):
+        return q.Or(*[q.Range(c["price"], lo, hi) for lo, hi in spans])
+
+    expect = np.zeros(N, bool)
+    for lo, hi in spans:
+        expect |= (v["price"] >= lo) & (v["price"] < hi)
+    _check(build, table, expect)
+
+
+def test_more_than_max_columns_ranges():
+    rng = np.random.default_rng(3)
+    widths = [3, 4, 5, 6, 7, 8, 9, 10, 11, 12]
+    values = [rng.integers(0, 1 << w, N, dtype=np.uint64).astype(np.uint32) for w in widths]
+    jcols = [jlayout.pack_device(v, w) for v, w in zip(values, widths)]
+    tcols = [tlayout.from_jax_numpy(w, N, np.asarray(j.tiles), "cpu") for j, w in zip(jcols, widths)]
+    bounds = [(0, (1 << w) - 1) for w in widths]
+    jexpr = jq.And(*[jq.Range(c, lo, hi) for c, (lo, hi) in zip(jcols, bounds)])
+    texpr = tq.And(*[tq.Range(c, lo, hi) for c, (lo, hi) in zip(tcols, bounds)])
+    jbits, jcount = jq.evaluate(jexpr, interpret=True)
+    tbits, tcount = tq.evaluate(texpr)
+    np.testing.assert_array_equal(tbits.numpy().view(np.uint32), np.asarray(jbits))
+    expect = np.ones(N, bool)
+    for v, (lo, hi) in zip(values, bounds):
+        expect &= (v >= lo) & (v < hi)
+    assert int(tcount) == int(jcount) == int(expect.sum())
+    assert tq.explain(texpr) == jq.explain(jexpr)
+    assert tq.explain(texpr).count("conj:fused-range") == 2  # groups of 8 and 2
+
+
+def test_empty_in_and_or(table):
+    v = table[0]
+
+    def build(q, c):
+        return q.Or(q.In(c["price"], []), q.And(), q.Or(), q.Not(q.In(c["region"], [])))
+
+    _check(build, table, np.ones(N, bool))
+    _check(lambda q, c: q.Or(q.Or(), q.In(c["status"], [])), table, np.zeros(N, bool))
+    _check(lambda q, c: q.And(q.In(c["status"], [2, 3]), q.Range(c["price"], 1, 500)), table,
+           np.isin(v["status"], [2, 3]) & (v["price"] >= 1) & (v["price"] < 500))
+
+
+def test_statically_empty_intersection(table):
+    def build(q, c):
+        return q.And(q.Range(c["price"], 10, 200), q.Range(c["price"], 300, 400),
+                     q.Eq(c["region"], 3))
+
+    _check(build, table, np.zeros(N, bool))
+    assert tq.explain(_both(build, table)[1]) \
+        == "constant: statically empty range intersection -> zeros"
+
+
+def test_explain_names_every_member_tier(table):
+    _, jcols, tcols = table
+    sets = [([5, 6, 7, 8], "interval"), ([0, 2, 4, 6], "window"),
+            ([3, 70, 141, 200, 262, 333, 400, 511], "or-tree"), ([7, 450], "compare")]
+    for keys, tier in sets:
+        text = tq.explain(tq.In(tcols["price"], keys))
+        assert text == jq.explain(jq.In(jcols["price"], keys)) and tier in text
+    text = tq.explain(tq.In(tcols["status"], [1, 4, 9, 0, 40]))
+    assert text == jq.explain(jq.In(jcols["status"], [1, 4, 9, 0, 40]))
+    assert "domain-bitmap(1 words)" in text
+
+
+def test_refusals(table):
+    _, _, tcols = table
+    other = tlayout.pack_device(np.zeros(100, np.uint32), 9, device="cpu")
+    with pytest.raises(ValueError, match="share n"):
+        tq.evaluate(tq.And(tq.Eq(tcols["price"], 1), tq.Eq(other, 1)))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        tq.evaluate(tq.Eq(tcols["price"], 1), zonemaps={id(tcols["price"]): object()})
+    with pytest.raises(TypeError):
+        tq.evaluate("price < 3")
+    # In copies nothing to the host behind the caller's back; a CPU tensor is fine
+    assert tq.In(tcols["price"], torch.tensor([1, 2])).keys == (1, 2)
+
+
+def test_query_launches_nothing_on_the_cpu(table):
+    fns = [tmember._member_window_tiles, tmember._member_ortree_tiles]
+    before = [f.launches for f in fns]
+    _check(_demo, table)
+    assert [f.launches for f in fns] == before
