@@ -12,7 +12,9 @@ from the sources in the checkout and then:
    with amounts >= 32;
 3. holds every kernel bit-exact against its plain torch version on the card
    at small ragged sizes (widths 1-31, padding, spread, clustered,
-   duplicate and out-of-domain keys, k up to 1024);
+   duplicate and out-of-domain keys, k up to 1024; for the aggregates
+   pairs of predicate and measure widths, k = 1, 2, 4 and 32, and sums
+   past 2^32);
 4. drives the main path at full size — a 9-bit column of 512 MiB packed:
    ``pack_device_kernel`` -> ``shared_scan_device`` keys 0..7 (interval
    kernel) -> ``scan_device(3)`` (compare kernel) -> ``unpack_device`` —
@@ -40,10 +42,20 @@ from the sources in the checkout and then:
    just before and read just after; checks each query's words and count
    against the predicate computed with plain torch on the raw values, and
    each member set's kernel, closed-form count and words;
-7. times each kernel and its plain version at the full-size shapes with
+7. drives the aggregate path at full size — the query phase's table plus
+   the analytics demo's 20-bit ``revenue`` column, drawn on the card from
+   the same seed: ``masked_aggregate_device`` over ``query.evaluate`` of
+   the demo's WHERE clause, ``aggregate_scan_device`` with host keys
+   (static bit-plane and compare tiers) and CUDA-tensor keys (runtime
+   bit-plane and compare tiers, under ``set_sync_debug_mode("error")``) and
+   ``minmax_scan_device`` — with the launch counters set to 0 just before
+   and read just after; checks that each call ran the kernel its tier
+   names and that every result equals plain torch on the raw values
+   (``scatter_add_``, ``bincount``, ``scatter_reduce_``, the masked sum);
+8. times each kernel and its plain version at the full-size shapes with
    CUDA events, beside a ``copy_`` of the packed column, and computes each
    kernel's bound: its bytes over the card's 3.35 TB/s;
-8. prints a JSON line with one entry per kernel, and as its last line
+9. prints a JSON line with one entry per kernel, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check or error exits non-zero and prints no result; so does a
@@ -109,6 +121,16 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                       "shared_simd_scan_tpu/ops/member.py:250"),
     "member_bitsliced": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
                          "shared_simd_scan_tpu/ops/member.py:321"),
+    "aggregate_scan": ("shared_simd_scan_tpu_torch/csrc/aggregate.cu",
+                       "shared_simd_scan_tpu/ops/aggregate.py:55"),
+    "aggregate_bitplane_static": ("shared_simd_scan_tpu_torch/csrc/agg_bitplane.cu",
+                                  "shared_simd_scan_tpu/ops/aggregate.py:233"),
+    "aggregate_bitplane": ("shared_simd_scan_tpu_torch/csrc/agg_bitplane.cu",
+                           "shared_simd_scan_tpu/ops/aggregate.py:258"),
+    "minmax_scan": ("shared_simd_scan_tpu_torch/csrc/aggregate.cu",
+                    "shared_simd_scan_tpu/ops/aggregate.py:480"),
+    "masked_aggregate": ("shared_simd_scan_tpu_torch/csrc/aggregate.cu",
+                         "shared_simd_scan_tpu/ops/aggregate.py:671"),
 }
 # the kernels of the arbitrary-key path, and the tier each one serves
 ARBITRARY = {"bitsliced_static_scan": "bitsliced_static", "windowed_scan": "windowed",
@@ -119,6 +141,14 @@ QUERY = ("range_scan", "conj_range_scan", "member_compare", "member_chunked_comp
          "member_bitsliced")
 # the query path's table: the analytics demo's columns and widths
 TABLE = {"price": 9, "region": 5, "status": 4}
+# the kernels of the aggregate path, and the set each one reports
+AGGREGATE = {"masked_aggregate": "A1", "aggregate_bitplane_static": "A2",
+             "aggregate_scan": "A3", "aggregate_bitplane": "A4", "minmax_scan": "A6"}
+# the aggregate path's measure: the analytics demo's revenue column
+REVENUE_WIDTH = 20
+# (predicate, measure) widths of the small aggregate phase: wm <= 16,
+# wm > 16, wm = 31, wp = 1 and wp = 31, and the full-size pairs
+AGG_PAIRS = ((1, 16), (2, 17), (9, 31), (16, 1), (17, 2), (31, 9), (9, 20), (5, 20))
 
 
 def s64() -> list[int]:
@@ -129,7 +159,7 @@ def s64() -> list[int]:
 
 def wrappers() -> dict:
     """Kernel name -> the wrapper whose ``launches`` counts its launches."""
-    from shared_simd_scan_tpu_torch.ops import conj, member, scan, unpack
+    from shared_simd_scan_tpu_torch.ops import aggregate, conj, member, scan, unpack
 
     return {
         "unpack": unpack.unpack_tiles, "pack": unpack.pack_tiles,
@@ -140,6 +170,11 @@ def wrappers() -> dict:
         "windowed_scan": scan.windowed_scan_tiles,
         "range_scan": scan.range_scan_tiles, "conj_range_scan": conj.conj_range_scan_tiles,
         **{name: getattr(member, f"_{name}_tiles") for name in QUERY if name.startswith("member")},
+        "aggregate_scan": aggregate.aggregate_scan_tiles,
+        "aggregate_bitplane_static": aggregate.aggregate_bitplane_static_tiles,
+        "aggregate_bitplane": aggregate.aggregate_bitplane_tiles,
+        "minmax_scan": aggregate.minmax_scan_tiles,
+        "masked_aggregate": aggregate.masked_aggregate_tiles,
     }
 
 
@@ -201,15 +236,15 @@ def build_phase() -> float:
     print(f"build: {seconds:.1f} s ({_cuda.library_path().name})")
     log_path = _cuda.BUILD_DIR / "ptxas.log"
     log_path.write_text(_cuda.build_log)
-    # registers and spills of the width-9 kernels (the main path's width)
+    # registers and spills of the width-9 kernels (the main path's width),
+    # and of the aggregate kernels (one body for every width)
     entry = None
     for line in _cuda.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
-        elif entry and ("ILi9E" in entry or "ILi31E" in entry or "canary" in entry) and (
-            "Used" in line or "spill" in line
-        ):
+        elif entry and ("ILi9E" in entry or "ILi31E" in entry or "canary" in entry
+                        or "agg" in entry) and ("Used" in line or "spill" in line):
             print(f"  ptxas {entry}: {line.split(':', 1)[-1].strip()}")
     return seconds
 
@@ -324,7 +359,7 @@ def main_path_phase(device) -> tuple[int, object, dict]:
     from shared_simd_scan_tpu_torch.ops import scan
 
     path = {name: fn for name, fn in wrappers().items()
-            if name not in ARBITRARY and name not in QUERY}
+            if name not in ARBITRARY and name not in QUERY and name not in AGGREGATE}
     n = harness.values_for(DATA_SIZE, WIDTH)
     vals = harness.synth_modk(n, K, WIDTH, device=device)
     torch.cuda.synchronize()
@@ -632,6 +667,18 @@ def small_query_phase(device, errs: dict) -> None:
               f"(widths {SMALL_WIDTHS}, n {SMALL_NS})")
 
 
+def draw_columns(device, n: int, widths: dict) -> dict:
+    """Uniform int32 columns of n values below 2^width, drawn on the card in
+    the order of ``widths`` from one generator seeded with SEED (so the
+    query phase's table is the aggregate phase's, with revenue after it)."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    return {name: torch.randint(0, 1 << w, (n,), generator=gen, device=device, dtype=torch.int32)
+            for name, w in widths.items()}
+
+
 def query_trees(q, c) -> dict:
     """The query phase's WHERE clauses over the table's columns ``c``."""
     return {
@@ -691,10 +738,7 @@ def query_phase(device, arb) -> tuple[dict, dict]:
 
     kernels = wrappers()
     n = harness.values_for(DATA_SIZE, WIDTH)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(SEED)
-    raw = {name: torch.randint(0, 1 << w, (n,), generator=gen, device=device, dtype=torch.int32)
-           for name, w in TABLE.items()}
+    raw = draw_columns(device, n, TABLE)
     cols = {name: pack_device_kernel(raw[name], w) for name, w in TABLE.items()}
     torch.cuda.synchronize()
     packed = sum(c.tiles.numel() * 4 for c in cols.values())
@@ -921,6 +965,286 @@ def query_timing_phase(device, cols, arb, errs: dict) -> dict:
     return results
 
 
+def max_err(a, b) -> int:
+    """Largest |a - b| over the int64 tensors of two results (0 = exact)."""
+    if isinstance(a, tuple):
+        return max(max_err(x, y) for x, y in zip(a, b))
+    if a.shape != b.shape:
+        raise CheckFailed(f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
+    return int((a - b).abs().max()) if a.numel() else 0
+
+
+def small_aggregate_phase(device, errs: dict) -> None:
+    """The aggregate kernels against their plain versions at small ragged
+    sizes: pairs of widths, k = 1, 2, 4 and 32 with key 0 over the
+    padding, duplicates, keys >= 2^wp and 0xFFFFFFFF, a block_offset, a
+    masked bitvector; and sums past 2^32 (wm = 31, every value 2^31 - 1,
+    every row matching)."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch import bitvector
+    from shared_simd_scan_tpu_torch.ops import aggregate as agg
+    from shared_simd_scan_tpu_torch.ops import unpack
+
+    rng = np.random.default_rng(SEED + 2)
+
+    def note(name, kern, plain):
+        errs[name] = max(errs[name], max_err(kern(), plain()))
+
+    def t32(a):
+        return torch.from_numpy(np.asarray(a, np.int64).astype(np.uint32).view(np.int32)).to(device)
+
+    for n in SMALL_NS:
+        for wp, wm in AGG_PAIRS:
+            pv = t32(rng.integers(0, 1 << wp, size=n))
+            mv = t32(rng.integers(0, 1 << wm, size=n))
+            pt, mt = unpack.pack_device_kernel(pv, wp).tiles, unpack.pack_device_kernel(mv, wm).tiles
+            dom, v = 1 << wp, [int(x) for x in pv[:4].tolist()]
+            bo = (n % 3) * 2  # a shard whose tail lies further on, for some n
+            for keys in ([v[0]], [0, dom], [v[1], v[1], 0xFFFFFFFF, 0],
+                         rng.integers(0, min(dom, 64), size=30).tolist() + [dom, 0xFFFFFFFF]):
+                kt = t32(keys)
+                for name in ("aggregate_scan", "aggregate_bitplane", "minmax_scan"):
+                    fn = getattr(agg, f"{name}_tiles")
+                    plain = getattr(agg, f"{name}_tiles_plain")
+                    note(name, lambda: fn(pt, mt, kt, wp, wm, n, bo),
+                         lambda: plain(pt, mt, kt, wp, wm, n, bo))
+                note("aggregate_bitplane_static",
+                     lambda: agg.aggregate_bitplane_static_tiles(pt, mt, keys, wp, wm, n, bo),
+                     lambda: agg.aggregate_bitplane_static_tiles_plain(pt, mt, keys, wp, wm, n, bo))
+            mask = torch.from_numpy(rng.random(n) < 0.3).to(device)
+            row = agg.bits_from_canonical(bitvector.from_bool(mask), pt.shape[1])
+            note("masked_aggregate", lambda: agg.masked_aggregate_tiles(mt, row, wm, n),
+                 lambda: agg.masked_aggregate_tiles_plain(mt, row, wm, n))
+    # headroom: every value 2^31 - 1 and every row matching key 5
+    n, top = SMALL_NS[-1], (1 << 31) - 1
+    pt = unpack.pack_device_kernel(t32(np.full(n, 5)), 3).tiles
+    mt = unpack.pack_device_kernel(t32(np.full(n, top)), 31).tiles
+    kt = t32([5, 0])
+    row = agg.bits_from_canonical(bitvector.from_bool(torch.ones(n, dtype=torch.bool,
+                                                                 device=device)), pt.shape[1])
+    sums = {
+        "aggregate_scan": agg.aggregate_scan_tiles(pt, mt, kt, 3, 31, n)[1][0],
+        "aggregate_bitplane": agg.aggregate_bitplane_tiles(pt, mt, kt, 3, 31, n)[1][0],
+        "aggregate_bitplane_static": agg.aggregate_bitplane_static_tiles(pt, mt, [5, 0], 3, 31,
+                                                                         n)[1][0],
+        "masked_aggregate": agg.masked_aggregate_tiles(mt, row, 31, n)[1],
+    }
+    torch.cuda.synchronize()
+    for name, total in sums.items():
+        check(int(total) == n * top, f"{name}: all-max wm=31 sum {int(total)} == {n} x (2^31 - 1)"
+              " (past 2^32)")
+    _, mins, maxs = agg.minmax_scan_tiles(pt, mt, kt, 3, 31, n)
+    check(mins.tolist() == [top, 1 << 31] and maxs.tolist() == [top, 0],
+          "minmax_scan: all-max wm=31 min and max, and the empty group's 2^31 and 0")
+    for name in AGGREGATE:
+        check(errs[name] == 0, f"{name} kernel exact against its plain version "
+              f"(width pairs {AGG_PAIRS}, n {SMALL_NS})")
+
+
+# the aggregate phase's sets: name -> (what, the tier pick_aggregate_tier must name)
+AGG_SETS = {
+    "A1": ("masked_aggregate_device(revenue, evaluate(Q1))", None),
+    "A2": ("aggregate_scan_device(region, revenue, 0..31), host keys", "bitplane"),
+    "A3": ("aggregate_scan_device(price, revenue, [3]), host keys", "compare"),
+    "A4": ("aggregate_scan_device(region, revenue, CUDA keys 0..7)", "bitplane"),
+    "A5": ("aggregate_scan_device(price, revenue, CUDA keys [3, 70])", "compare"),
+    "A6": ("minmax_scan_device(region, revenue, 0..7)", None),
+}
+AGG_KEYS = {"A2": list(range(32)), "A3": [3], "A4": list(range(8)), "A5": [3, 70],
+            "A6": list(range(8))}
+
+
+def aggregate_phase(device, cols) -> tuple[dict, dict]:
+    """The aggregate path at full size, with launch counts taken around it."""
+    import torch
+    from shared_simd_scan_tpu_torch import aggregate_scan_device, masked_aggregate_device
+    from shared_simd_scan_tpu_torch import minmax_scan_device, pack_device_kernel, query
+    from shared_simd_scan_tpu_torch.ops import aggregate
+
+    kernels = {name: fn for name, fn in wrappers().items() if name in AGGREGATE}
+    n = cols["price"].n
+    raw = draw_columns(device, n, {**TABLE, "revenue": REVENUE_WIDTH})
+    rev = pack_device_kernel(raw["revenue"], REVENUE_WIDTH)
+    price, region = cols["price"], cols["region"]
+    torch.cuda.synchronize()
+    print(f"aggregate path: measure revenue {REVENUE_WIDTH}-bit, n {n}, tiles "
+          f"{tuple(rev.tiles.shape)} ({rev.tiles.numel() * 4} bytes)")
+    q1 = query_trees(query, cols)["Q1"]
+    runtime = {name: torch.tensor(AGG_KEYS[name], dtype=torch.int32, device=device)
+               for name in ("A4", "A5")}
+    calls = {
+        "A1": lambda: masked_aggregate_device(rev, query.evaluate(q1)[0]),
+        "A2": lambda: aggregate_scan_device(region, rev, AGG_KEYS["A2"]),
+        "A3": lambda: aggregate_scan_device(price, rev, AGG_KEYS["A3"]),
+        "A4": lambda: aggregate_scan_device(region, rev, runtime["A4"]),
+        "A5": lambda: aggregate_scan_device(price, rev, runtime["A5"]),
+        "A6": lambda: minmax_scan_device(region, rev, AGG_KEYS["A6"]),
+    }
+    for fn in kernels.values():
+        fn.launches = 0
+    ran, outs = {}, {}
+    t0 = time.monotonic()
+    for name, call in calls.items():
+        before = {k: f.launches for k, f in kernels.items()}
+        if name in runtime:  # runtime keys: any device-to-host copy raises
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs[name] = call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ran[name] = [k for k, f in kernels.items() if f.launches > before[k]]
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"aggregate path ran in {seconds:.3f} s (host clock, first calls); launches {launches}")
+
+    for name in AGGREGATE:
+        check(launches[name] > 0, f"aggregate path launched the {name} kernel ({launches[name]}x)")
+    columns = {"A2": region, "A3": price, "A4": region, "A5": price}
+    tier_kernel = {("bitplane", False): "aggregate_bitplane_static", ("compare", False):
+                   "aggregate_scan", ("bitplane", True): "aggregate_bitplane",
+                   ("compare", True): "aggregate_scan"}
+    want = {"A1": "masked_aggregate", "A6": "minmax_scan"}
+    for name, col in columns.items():
+        keys = runtime.get(name, AGG_KEYS[name])
+        tier = aggregate.pick_aggregate_tier(col.width, REVENUE_WIDTH, keys)
+        check(tier == AGG_SETS[name][1], f"{name}: pick_aggregate_tier names {tier}")
+        want[name] = tier_kernel[(tier, name in runtime)]
+    for name, (what, _) in AGG_SETS.items():
+        check(ran[name] == [want[name]], f"{name} {what}: ran {ran[name]}, the kernel of its tier")
+
+    # the same aggregates with plain torch on the raw values
+    r64 = raw["revenue"].to(torch.int64)
+    truth = {}
+    for cname, dom in (("region", 1 << TABLE["region"]), ("price", 1 << TABLE["price"])):
+        g = raw[cname].to(torch.int64)
+        truth[cname] = (torch.zeros(dom, dtype=torch.int64, device=device).scatter_add_(0, g, r64),
+                        torch.bincount(g, minlength=dom))
+        if cname == "region":
+            mins = torch.full((dom,), (1 << 31) - 1, dtype=torch.int32, device=device)
+            maxs = torch.full((dom,), -1, dtype=torch.int32, device=device)
+            mins.scatter_reduce_(0, g, raw["revenue"], "amin")
+            maxs.scatter_reduce_(0, g, raw["revenue"], "amax")
+            truth["minmax"] = (mins, maxs)
+        del g
+    mask = query_truth("Q1", raw)
+    total, count = outs["A1"]
+    want_total = int(torch.where(mask, r64, 0).sum())
+    check(int(count) == int(mask.sum()) and int(total) == want_total,
+          f"A1: SUM(revenue) {int(total)} and COUNT {int(count)} over Q1 == the masked plain-torch "
+          "sum and count on the raw values")
+    for name, col in columns.items():
+        sums, counts = outs[name]
+        keys = torch.tensor(AGG_KEYS[name], device=device)
+        tsums, tcounts = truth["region" if col is region else "price"]
+        check(torch.equal(sums, tsums[keys]) and torch.equal(counts, tcounts[keys]),
+              f"{name}: every sum and count equals scatter_add_ / bincount on the raw values")
+    mins, maxs, counts = outs["A6"]
+    keys = torch.tensor(AGG_KEYS["A6"], device=device)
+    check(torch.equal(counts, truth["region"][1][keys])
+          and torch.equal(mins, truth["minmax"][0][keys].to(torch.int64))
+          and torch.equal(maxs, truth["minmax"][1][keys].to(torch.int64)),
+          "A6: every count, min and max equals bincount / scatter_reduce_ (amin, amax) on the raw "
+          "values")
+    print(f"A1: SUM(revenue) {int(total)}, COUNT {int(count)}; A2 sums[:4] "
+          f"{outs['A2'][0][:4].tolist()}; A6 mins {mins.tolist()}, maxs {maxs.tolist()}")
+    row = aggregate.bits_from_canonical(query.evaluate(q1)[0], rev.tiles.shape[1])
+    del raw, r64, mask, truth
+    return {"rev": rev, "row": row, "runtime": runtime}, launches
+
+
+def aggregate_timing_phase(device, cols, agg_data, errs: dict) -> dict:
+    """Each aggregate kernel and its plain version at full size on the sets
+    of the aggregate phase (A1 the masked aggregate over Q1's bitvector);
+    beside them, without plain versions, the other keyed tiers on each
+    keyed set, for the tier comparison; and A1 end to end, ``evaluate``
+    included."""
+    import torch
+    from shared_simd_scan_tpu_torch import masked_aggregate_device, query
+    from shared_simd_scan_tpu_torch.ops import aggregate as agg
+
+    n = cols["price"].n
+    rev, row, runtime = agg_data["rev"], agg_data["row"], agg_data["runtime"]
+    mt = rev.tiles
+    pt = {"A2": cols["region"].tiles, "A3": cols["price"].tiles, "A4": cols["region"].tiles,
+          "A5": cols["price"].tiles, "A6": cols["region"].tiles}
+    wp = {"A2": TABLE["region"], "A3": TABLE["price"], "A4": TABLE["region"],
+          "A5": TABLE["price"], "A6": TABLE["region"]}
+    ktens = {name: runtime.get(name, torch.tensor(AGG_KEYS[name], dtype=torch.int32,
+                                                  device=device)) for name in AGG_KEYS}
+    wm = REVENUE_WIDTH
+
+    def nbytes(name, outputs):  # each input read once, each output written once
+        tiles = mt.numel() * 4 + (row.numel() * 4 if name == "A1" else pt[name].numel() * 4)
+        k = 1 if name == "A1" else len(AGG_KEYS[name])
+        return tiles + (0 if name == "A1" else 4 * k) + 8 * outputs * k
+
+    pairs = {  # "kernel set" -> (kernel, plain or None, bytes it must move)
+        "masked_aggregate A1": (lambda: agg.masked_aggregate_tiles(mt, row, wm, n),
+                                lambda: agg.masked_aggregate_tiles_plain(mt, row, wm, n),
+                                nbytes("A1", 2)),
+        "minmax_scan A6": (lambda: agg.minmax_scan_tiles(pt["A6"], mt, ktens["A6"], 5, wm, n),
+                           lambda: agg.minmax_scan_tiles_plain(pt["A6"], mt, ktens["A6"], 5, wm,
+                                                               n),
+                           nbytes("A6", 3)),
+    }
+    for name in ("A2", "A3", "A4", "A5"):
+        p, w, kt, keys = pt[name], wp[name], ktens[name], AGG_KEYS[name]
+        calls = {
+            "aggregate_scan": (lambda p=p, w=w, kt=kt: agg.aggregate_scan_tiles(p, mt, kt, w, wm, n),
+                               lambda p=p, w=w, kt=kt: agg.aggregate_scan_tiles_plain(
+                                   p, mt, kt, w, wm, n)),
+            "aggregate_bitplane_static": (
+                lambda p=p, w=w, keys=keys: agg.aggregate_bitplane_static_tiles(
+                    p, mt, keys, w, wm, n),
+                lambda p=p, w=w, keys=keys: agg.aggregate_bitplane_static_tiles_plain(
+                    p, mt, keys, w, wm, n)),
+            "aggregate_bitplane": (
+                lambda p=p, w=w, kt=kt: agg.aggregate_bitplane_tiles(p, mt, kt, w, wm, n),
+                lambda p=p, w=w, kt=kt: agg.aggregate_bitplane_tiles_plain(p, mt, kt, w, wm, n)),
+        }
+        for kernel, (kern, plain) in calls.items():
+            # the plain version where the set's tier runs this kernel
+            checked = AGGREGATE[kernel] == name or (kernel, name) == ("aggregate_scan", "A5")
+            pairs[f"{kernel} {name}"] = (kern, plain if checked else None, nbytes(name, 2))
+    for name, (kern, plain, _) in pairs.items():
+        if plain is None:
+            continue
+        kernel = name.split()[0]
+        errs[kernel] = max(errs[kernel], max_err(kern(), plain()))
+        check(errs[kernel] == 0, f"{name} kernel exact against its plain version at full size")
+
+    results = {}
+    copy_dst = torch.empty_like(mt)
+    copy_ms = time_ms(lambda: copy_dst.copy_(mt), batches=5, calls=10)
+    copy_rate = 2 * mt.numel() * 4 / (copy_ms * 1e-3)
+    print(f"copy_ of the revenue column ({mt.numel() * 4} bytes): {copy_ms:.6f} ms, "
+          f"{copy_rate:.6e} bytes/s")
+    for name, (kern, plain, nb) in pairs.items():
+        ms = time_ms(kern, batches=5, calls=10)
+        plain_ms = time_ms(plain, batches=3, calls=2) if plain is not None else None
+        bound_ms = nb / HBM_BYTES_PER_S * 1e3
+        rate = nb / (ms * 1e-3)
+        results[name] = (ms, plain_ms, bound_ms)
+        print(f"time {name}: kernel {ms:.6f} ms ({rate:.6e} bytes/s, {rate / copy_rate:.4f} of copy"
+              f", bound {bound_ms:.6f} ms for {nb} bytes)"
+              + (f"; plain {plain_ms:.6f} ms" if plain_ms is not None else ""))
+    print("library: no PyTorch call aggregates a bit-packed column, so library_ms is null")
+    q1 = query_trees(query, cols)["Q1"]
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        masked_aggregate_device(rev, query.evaluate(q1)[0])
+        torch.cuda.synchronize()
+        walls.append((time.monotonic() - t0) * 1e3)
+    print(f"time A1 SELECT SUM(revenue), COUNT(*) WHERE Q1 (host clock, host included): median "
+          f"{statistics.median(walls[1:]):.6f} ms of {len(walls) - 1} after a warm-up")
+    return results
+
+
 def main() -> int:
     root = pathlib.Path(__file__).resolve().parent
     if not (root / "shared_simd_scan_tpu_torch" / "__init__.py").is_file():
@@ -952,14 +1276,23 @@ def main() -> int:
     launches.update({name: arb_launches[name] for name in ARBITRARY})
     cols, query_launches = query_phase(device, arb)
     launches.update({name: query_launches[name] for name in QUERY})
+    small_aggregate_phase(device, errs)
+    agg_data, agg_launches = aggregate_phase(device, cols)
+    launches.update(agg_launches)
     times = timing_phase(device, n, dev, arb, errs)
     times.update(query_timing_phase(device, cols, arb, errs))
+    times.update(aggregate_timing_phase(device, cols, agg_data, errs))
     check("jax" not in sys.modules, "no jax module was imported")
 
     def entry(name, src, rep):
         # the arbitrary-key kernels report k=8 (S8) and, beside it, k=64
-        # (S64); each query-path kernel its own set, the OR-tree S8 and S64
-        key = name if name in times else next(k for k in times if k.split()[0] == name)
+        # (S64); each query-path kernel its own set, the OR-tree S8 and S64;
+        # each aggregate kernel its set of the aggregate phase and, beside
+        # it, its times on the other keyed sets
+        if name in AGGREGATE:
+            key = f"{name} {AGGREGATE[name]}"
+        else:
+            key = name if name in times else next(k for k in times if k.split()[0] == name)
         ms, plain_ms, bound_ms = times[key]
         e = {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
@@ -972,6 +1305,12 @@ def main() -> int:
             e["set"] = key.split(" ", 1)[1]
         if name == "member_ortree":
             e["ms_s64"], e["plain_ms_s64"], e["bound_ms_s64"] = times["member_ortree S64"]
+        if name in AGGREGATE:
+            for other, (ms_o, plain_o, bound_o) in times.items():
+                kernel, _, label = other.partition(" ")
+                if kernel == name and other != key:
+                    e[f"ms_{label}"], e[f"plain_ms_{label}"], e[f"bound_ms_{label}"] = \
+                        ms_o, plain_o, bound_o
         return e
 
     print(f"nvidia-smi: {smi}")

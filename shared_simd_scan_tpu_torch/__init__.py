@@ -4,9 +4,10 @@ The port of ``shared_simd_scan_tpu`` (JAX/Pallas) to PyTorch with
 hand-written CUDA kernels for Hopper (sm_90a).  It covers packing a
 column into the tile layout and decompressing it, every tier of the k-key
 shared scan and the single-key scan, the range scan, the fused
-multi-column conjunction, the IN-list member scan and the predicate-tree
-query layer (``query.evaluate``).  Module names mirror the JAX package;
-the port imports torch and numpy and never jax.
+multi-column conjunction, the IN-list member scan, the predicate-tree
+query layer (``query.evaluate``) and the aggregates: keyed SUM/COUNT and
+MIN/MAX, and SUM/COUNT under a bitvector.  Module names mirror the JAX
+package; the port imports torch and numpy and never jax.
 """
 
 from shared_simd_scan_tpu_torch.layout import (  # noqa: F401
@@ -34,6 +35,11 @@ from shared_simd_scan_tpu_torch.ops.member import (  # noqa: F401
 from shared_simd_scan_tpu_torch.ops.conj import (  # noqa: F401
     conj_range_scan_device,
     conj_eq_scan_device,
+)
+from shared_simd_scan_tpu_torch.ops.aggregate import (  # noqa: F401
+    aggregate_scan_device,
+    minmax_scan_device,
+    masked_aggregate_device,
 )
 from shared_simd_scan_tpu_torch.ops.unpack import (  # noqa: F401
     pack_device_kernel,

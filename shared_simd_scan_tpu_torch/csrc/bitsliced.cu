@@ -40,10 +40,6 @@
 
 namespace sss {
 
-constexpr int kStaticThreadsMax = 128;
-constexpr uint32_t kAnd = 0u, kOut = 1u, kOr = 3u;
-constexpr uint32_t kNeg = 0x8000u;
-
 // kMember: OR the k key rows into row 0 (one count) instead of storing k.
 template <int W, bool kMember>
 __global__ void __launch_bounds__(kThreads)
@@ -74,11 +70,6 @@ bitsliced_scan_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __rest
   }
   if constexpr (kMember) store_row(bits, nblocks, b, active, 0, any & valid, s_cnt);
   flush_counts(s_cnt, kMember ? 1 : k, counts);
-}
-
-__device__ __forceinline__ uint32_t dag_operand(const uint32_t* s_val, uint32_t op, int stride) {
-  const uint32_t v = s_val[(op & (kNeg - 1u)) * stride + threadIdx.x];
-  return (op & kNeg) ? ~v : v;
 }
 
 template <int W>

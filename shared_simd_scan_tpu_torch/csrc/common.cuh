@@ -1,6 +1,7 @@
 // Shared pieces of the Hopper kernels: the static unpack schedule, the
-// validity word, count reduction, the one-hot mask, the 8x8 byte transpose,
-// the bit-plane butterfly and the width dispatch.
+// validity word, count and exact-sum reduction, the one-hot mask, the 8x8
+// byte transpose, the bit-plane butterfly, the DAG program format and the
+// width dispatch.
 //
 // Layout (see shared_simd_scan_tpu_torch/layout.py): tiles are
 // uint32[width][nblocks] with nblocks = B1*128; block b holds 32 values in
@@ -16,6 +17,7 @@ namespace sss {
 constexpr int kBlockValues = 32;
 constexpr int kThreads = 256;
 constexpr int kMaxKeys = 1024;  // keys per launch: bounds the shared counters
+constexpr int kMaxAggKeys = 32;  // keys of one aggregate launch
 
 // Static schedule of layout.unpack_schedule: value r starts at stream bit
 // r*W, i.e. in word r*W/32 at shift r*W%32, and straddles into the next
@@ -71,14 +73,20 @@ __device__ __forceinline__ void zero_counts(unsigned* s_cnt, int k) {
   __syncthreads();
 }
 
-// Store row j of this block and count it.  Must be reached by all 32 lanes
-// of the warp (j is warp-uniform); inactive lanes store nothing.
+// Count the set bits of row j of this block.  Must be reached by all 32
+// lanes of the warp (j is warp-uniform).
+__device__ __forceinline__ void count_row(int j, uint32_t word, unsigned* s_cnt) {
+  const unsigned c = __reduce_add_sync(0xFFFFFFFFu, (unsigned)__popc(word));
+  if ((threadIdx.x & 31) == 0 && c) atomicAdd(s_cnt + j, c);
+}
+
+// Store row j of this block and count it, as count_row; inactive lanes
+// store nothing.
 __device__ __forceinline__ void store_row(uint32_t* __restrict__ bits, long long nblocks,
                                           long long b, bool active, int j, uint32_t word,
                                           unsigned* s_cnt) {
   if (active) bits[(size_t)j * nblocks + b] = word;
-  const unsigned c = __reduce_add_sync(0xFFFFFFFFu, (unsigned)__popc(word));
-  if ((threadIdx.x & 31) == 0 && c) atomicAdd(s_cnt + j, c);
+  count_row(j, word, s_cnt);
 }
 
 __device__ __forceinline__ void flush_counts(const unsigned* s_cnt, int k,
@@ -186,6 +194,54 @@ inline unsigned grid_for(long long nblocks) {
   return (unsigned)((nblocks + kThreads - 1) / kThreads);
 }
 
+inline bool width_ok(int width) { return width >= 1 && width <= 31; }
+
+// Host-compiled DAG programs (ops/scan.py _static_program): 8-byte
+// instructions, word 0 = kind << 30 | target, word 1 = operand a | operand
+// b << 16, operand = node slot | kNeg for its complement.  Node values
+// live in dynamic shared memory laid out [slot][threadIdx.x].
+constexpr int kStaticThreadsMax = 128;
+constexpr uint32_t kAnd = 0u, kOut = 1u, kOr = 3u;
+constexpr uint32_t kNeg = 0x8000u;
+
+__device__ __forceinline__ uint32_t dag_operand(const uint32_t* s_val, uint32_t op, int stride) {
+  const uint32_t v = s_val[(op & (kNeg - 1u)) * stride + threadIdx.x];
+  return (op & kNeg) ? ~v : v;
+}
+
+// Exact per-CTA sums in 32-bit shared counters.  A thread adds lo < 2^21
+// and hi < 2^21 (its sum split as hi * 2^16 + lo); a warp's
+// __reduce_add_sync gives < 2^26 each, a CTA of at most kThreads = 256
+// threads (8 warps) < 2^29, so the unsigned counters never wrap.
+// flush_sums adds hi * 2^16 + lo, in 64 bits, to the int64 total with one
+// atomic per key per CTA.  Must be reached by all 32 lanes of the warp.
+__device__ __forceinline__ void add_split_sum(unsigned* s_lo, unsigned* s_hi, int j, unsigned lo,
+                                              unsigned hi) {
+  lo = __reduce_add_sync(0xFFFFFFFFu, lo);
+  hi = __reduce_add_sync(0xFFFFFFFFu, hi);
+  if ((threadIdx.x & 31) == 0) {
+    if (lo) atomicAdd(s_lo + j, lo);
+    if (hi) atomicAdd(s_hi + j, hi);
+  }
+}
+
+__device__ __forceinline__ void zero_sums(unsigned* s_cnt, unsigned* s_lo, unsigned* s_hi, int k) {
+  for (int j = threadIdx.x; j < k; j += blockDim.x) s_cnt[j] = s_lo[j] = s_hi[j] = 0u;
+  __syncthreads();
+}
+
+__device__ __forceinline__ void flush_sums(const unsigned* s_cnt, const unsigned* s_lo,
+                                           const unsigned* s_hi, int k,
+                                           unsigned long long* __restrict__ counts,
+                                           unsigned long long* __restrict__ sums) {
+  __syncthreads();
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    if (s_cnt[j]) atomicAdd(counts + j, (unsigned long long)s_cnt[j]);
+    const unsigned long long s = ((unsigned long long)s_hi[j] << 16) + s_lo[j];
+    if (s) atomicAdd(sums + j, s);
+  }
+}
+
 }  // namespace sss
 
 // Expands CASE(W) for every width 1..31 inside a switch on the runtime width.
@@ -194,3 +250,30 @@ inline unsigned grid_for(long long nblocks) {
   CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16) CASE(17) CASE(18) CASE(19)      \
   CASE(20) CASE(21) CASE(22) CASE(23) CASE(24) CASE(25) CASE(26) CASE(27) CASE(28)      \
   CASE(29) CASE(30) CASE(31)
+
+namespace sss {
+
+// The 32 values of block b of a column whose width is known only at run
+// time: a switch on the width (uniform across the grid) over the
+// template<int W> unpack, so each schedule stays constant.  A kernel that
+// reads two columns of different widths calls it once per column instead
+// of being templated on both (31 x 31 bodies).
+__device__ __forceinline__ void unpack_block_any(int width, const uint32_t* __restrict__ tiles,
+                                                 long long nblocks, long long b, bool active,
+                                                 uint32_t (&v)[kBlockValues]) {
+  switch (width) {
+#define SSS_CASE(W)                                 \
+  case W: {                                         \
+    uint32_t w[W];                                  \
+    load_block<W>(tiles, nblocks, b, active, w);    \
+    unpack_values<W>(w, v);                         \
+    return;                                         \
+  }
+    SSS_FOR_EACH_WIDTH(SSS_CASE)
+#undef SSS_CASE
+  }
+#pragma unroll
+  for (int r = 0; r < kBlockValues; ++r) v[r] = 0u;  // not reached: entry points check widths
+}
+
+}  // namespace sss

@@ -29,7 +29,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("unpack.cu", "shared_scan.cu", "interval_scan.cu", "bitsliced.cu", "windowed.cu",
-           "range_scan.cu", "conj.cu", "member.cu")
+           "range_scan.cu", "conj.cu", "member.cu", "aggregate.cu", "agg_bitplane.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -72,6 +72,19 @@ _SIGNATURES = {
     "sss_member_domain": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
     # tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream
     "sss_member_bitsliced": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
+    # ptiles, mtiles, keys, k, counts, a, b, nblocks, wp, wm, n, block_offset, minmax, stream
+    "sss_agg_compare": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _vp, _ll, ctypes.c_int,
+                        ctypes.c_int, _ll, _ll, ctypes.c_int, _vp],
+    # mtiles, bits, count, sum, nblocks, wm, stream
+    "sss_masked_agg": [_vp, _vp, _vp, _vp, _ll, ctypes.c_int, _vp],
+    # ptiles, mtiles, keys, k, counts, sums, nblocks, wp, wm, n, block_offset, stream
+    "sss_agg_bitplane": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, ctypes.c_int,
+                         _ll, _ll, _vp],
+    # ptiles, mtiles, prog, nops, k, counts, sums, nblocks, wp, wm, n, block_offset,
+    # threads, slots, stream
+    "sss_agg_bitplane_static": [_vp, _vp, _vp, ctypes.c_int, ctypes.c_int, _vp, _vp, _ll,
+                                ctypes.c_int, ctypes.c_int, _ll, _ll, ctypes.c_int, ctypes.c_int,
+                                _vp],
 }
 
 _lock = threading.Lock()

@@ -69,3 +69,17 @@ def shared_scan_words(
 
 def shared_scan(col: PackedColumn, predicate_keys) -> tuple[torch.Tensor, torch.Tensor]:
     return shared_scan_words(col.words, predicate_keys, col.width, col.n)
+
+
+def aggregate_scan(
+    pcol: PackedColumn, mcol: PackedColumn, predicate_keys
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ground truth for ops.aggregate: per-key exact SUM and COUNT of the
+    measure column where the predicate column equals the key -> ((k,)
+    int64 sums, (k,) int64 counts)."""
+    p = u32(unpack(pcol))
+    m = u32(unpack(mcol))
+    keys = _keys_int64(predicate_keys, p.device)
+    sums = torch.stack([torch.where(p == key, m, 0).sum() for key in keys])
+    counts = torch.stack([(p == key).sum() for key in keys])
+    return sums, counts

@@ -526,8 +526,9 @@ def _member_or_tree(planes, lo, hi, patterns, memo: dict):
 
 
 class _CountVec:
-    """Stand-in DAG operand: every AND/OR/NOT bumps a shared counter, so
-    dispatch can price the exact DAG a concrete key set would compile to."""
+    """Stand-in vector operand: every AND/OR/NOT/XOR/shift bumps a shared
+    counter, so dispatch can price the exact DAG a concrete key set would
+    compile to, and the bit-plane transpose (``ops/aggregate.py``)."""
 
     __slots__ = ("ctr",)
 
@@ -540,6 +541,9 @@ class _CountVec:
 
     __and__ = _op
     __or__ = _op
+    __xor__ = _op
+    __lshift__ = _op
+    __rshift__ = _op
     __invert__ = _op
 
 

@@ -16,7 +16,7 @@ import torch
 import shared_simd_scan_tpu_torch as port
 from shared_simd_scan_tpu_torch import bitvector, query
 from shared_simd_scan_tpu_torch.bench import harness
-from shared_simd_scan_tpu_torch.ops import _cuda, conj, member, scan, unpack
+from shared_simd_scan_tpu_torch.ops import _cuda, aggregate, conj, member, scan, unpack
 
 torch.set_num_threads(1)
 
@@ -442,6 +442,180 @@ def test_refused_query_path_launches_raise(cuda_device):
         _cuda.launch("sss_conj_range_scan", cuda_device, ptrs.ctypes.data, w.ctypes.data,
                      lo.ctypes.data, lo.ctypes.data, 9, bits.data_ptr(), counts.data_ptr(),
                      8 * 128, 100, 0)
+
+
+# ---------------------------------------------------------------------------
+# the aggregate path: select-accumulate, bit planes, MIN/MAX, masked
+# ---------------------------------------------------------------------------
+
+AGG_PAIRS = [(9, 9), (9, 16), (5, 17), (9, 31), (31, 12), (1, 20)]
+
+
+def _agg_cases(wp, pvals):
+    """Key sets: k = 1, 2, 4 and 32; key 0 over the padding, duplicates,
+    keys >= 2^wp and 0xFFFFFFFF."""
+    dom = 1 << wp
+    v = [int(x) for x in pvals[:8].tolist()]
+    rng = np.random.default_rng(wp)
+    return [[v[0]], [0, dom], [v[1], v[1], 0xFFFFFFFF, 0],
+            rng.integers(0, min(dom, 64), size=30).tolist() + [dom, v[2]]]
+
+
+@pytest.mark.parametrize("wp,wm", AGG_PAIRS)
+def test_aggregate_kernels_match_plain(cuda_device, wp, wm):
+    pvals = _values(wp, N, wp + 100, cuda_device)
+    ptiles = unpack.pack_device_kernel(pvals, wp).tiles
+    mtiles = unpack.pack_device_kernel(_values(wm, N, wm + 101, cuda_device), wm).tiles
+    for keys in _agg_cases(wp, pvals.cpu()):
+        kt = _keys(keys, cuda_device)
+        for bo in (0, 2):
+            for fn in (aggregate.aggregate_scan_tiles, aggregate.aggregate_bitplane_tiles,
+                       aggregate.minmax_scan_tiles):
+                before = fn.launches
+                _same(fn(ptiles, mtiles, kt, wp, wm, N, bo),
+                      getattr(aggregate, f"{fn.__name__}_plain")(ptiles, mtiles, kt, wp, wm, N, bo))
+                assert fn.launches == before + 1, fn.__name__
+            _same(aggregate.aggregate_bitplane_static_tiles(ptiles, mtiles, keys, wp, wm, N, bo),
+                  aggregate.aggregate_bitplane_static_tiles_plain(ptiles, mtiles, keys, wp, wm, N,
+                                                                  bo))
+    mask = (pvals.to(torch.int64) & 0xFFFFFFFF) % 3 == 1
+    row = aggregate.bits_from_canonical(bitvector.from_bool(mask), ptiles.shape[1])
+    _same(aggregate.masked_aggregate_tiles(mtiles, row, wm, N),
+          aggregate.masked_aggregate_tiles_plain(mtiles, row, wm, N))
+
+
+def test_aggregate_sums_past_32_bits(cuda_device):
+    # wm = 31, every value 2^31 - 1 and every row matching: per thread 32
+    # values, per CTA 8192, in all ~4.3e14 (past 2^32 and 2^48)
+    wp, wm, n = 3, 31, 200_000
+    top = (1 << 31) - 1
+    ptiles = unpack.pack_device_kernel(torch.full((n,), 5, dtype=torch.int32,
+                                                  device=cuda_device), wp).tiles
+    mtiles = unpack.pack_device_kernel(torch.full((n,), top, dtype=torch.int32,
+                                                  device=cuda_device), wm).tiles
+    kt = _keys([5, 0], cuda_device)
+    want = [n * top, 0]
+    for fn in (aggregate.aggregate_scan_tiles, aggregate.aggregate_bitplane_tiles):
+        counts, sums = fn(ptiles, mtiles, kt, wp, wm, n)
+        assert sums.tolist() == want and counts.tolist() == [n, 0]
+    counts, sums = aggregate.aggregate_bitplane_static_tiles(ptiles, mtiles, [5, 0], wp, wm, n)
+    assert sums.tolist() == want and counts.tolist() == [n, 0]
+    counts, mins, maxs = aggregate.minmax_scan_tiles(ptiles, mtiles, kt, wp, wm, n)
+    assert mins.tolist() == [top, 1 << 31] and maxs.tolist() == [top, 0]
+    row = aggregate.bits_from_canonical(bitvector.from_bool(
+        torch.ones(n, dtype=torch.bool, device=cuda_device)), ptiles.shape[1])
+    count, total = aggregate.masked_aggregate_tiles(mtiles, row, wm, n)
+    assert int(count) == n and int(total) == want[0]
+
+
+def test_agg_bitplane_static_past_48kb_of_shared_memory(cuda_device):
+    wp, wm = 31, 20
+    ptiles = unpack.pack_device_kernel(_values(wp, N, 131, cuda_device), wp).tiles
+    mtiles = unpack.pack_device_kernel(_values(wm, N, 132, cuda_device), wm).tiles
+    keys = np.random.default_rng(2).integers(0, 1 << 31, size=32).tolist()
+    _, slots = scan._static_program(wp, tuple(keys))
+    assert (slots + 32) * scan._static_threads(slots + 32) * 4 > 48 * 1024
+    _same(aggregate.aggregate_bitplane_static_tiles(ptiles, mtiles, keys, wp, wm, N),
+          aggregate.aggregate_bitplane_static_tiles_plain(ptiles, mtiles, keys, wp, wm, N))
+
+
+def test_refused_aggregate_launches_raise(cuda_device):
+    wp, wm, n = 9, 20, 1000
+    ptiles = torch.zeros((wp, 8, 128), dtype=torch.int32, device=cuda_device)
+    mtiles = torch.zeros((wm, 8, 128), dtype=torch.int32, device=cuda_device)
+    prog, _ = scan._static_program_on(wp, (3, 70), cuda_device)
+    out = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="sss_agg_bitplane_static"):
+        # 4096 slots x 128 threads: 2 MB of shared memory, more than a CTA has
+        _cuda.launch("sss_agg_bitplane_static", cuda_device, ptiles.data_ptr(), mtiles.data_ptr(),
+                     prog.data_ptr(), prog.shape[0], 2, out.data_ptr(), out.data_ptr(), 8 * 128,
+                     wp, wm, n, 0, 128, 4096)
+    keys = torch.zeros(33, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="sss_agg_compare"):
+        # 33 keys: more than the kernel's shared counters hold
+        _cuda.launch("sss_agg_compare", cuda_device, ptiles.data_ptr(), mtiles.data_ptr(),
+                     keys.data_ptr(), 33, out.data_ptr(), out.data_ptr(), out.data_ptr(),
+                     8 * 128, wp, wm, n, 0, 0)
+
+
+def test_aggregate_dispatch_launches_each_tier(cuda_device):
+    wp, wm, n = 5, 20, 40_000
+    pv = _values(wp, n, 7, cuda_device)
+    mv = _values(wm, n, 8, cuda_device)
+    pdev, mdev = port.pack_device_kernel(pv, wp), port.pack_device_kernel(mv, wm)
+    cpdev = port.layout.pack_device(pv.cpu(), wp)
+    cmdev = port.layout.pack_device(mv.cpu(), wm)
+    cases = [
+        (list(range(32)), aggregate.aggregate_bitplane_static_tiles),
+        ([3], aggregate.aggregate_scan_tiles),
+        (torch.arange(8, dtype=torch.int32, device=cuda_device), aggregate.aggregate_bitplane_tiles),
+        (torch.tensor([3, 7], dtype=torch.int32, device=cuda_device), aggregate.aggregate_scan_tiles),
+    ]
+    p64, m64 = pv.to(torch.int64), mv.to(torch.int64)
+    for keys, fn in cases:
+        before = fn.launches
+        sums, counts = port.aggregate_scan_device(pdev, mdev, keys)
+        assert fn.launches == before + 1, fn.__name__
+        host = keys.cpu() if isinstance(keys, torch.Tensor) else torch.tensor(keys)
+        csums, ccounts = port.aggregate_scan_device(cpdev, cmdev, host)
+        _same(sums.cpu(), csums)
+        _same(counts.cpu(), ccounts)
+        assert counts.tolist() == [int((p64 == int(key)).sum()) for key in host]
+        assert sums.tolist() == [int(m64[p64 == int(key)].sum()) for key in host]
+    before = aggregate.minmax_scan_tiles.launches
+    mins, maxs, counts = port.minmax_scan_device(pdev, mdev, list(range(8)))
+    assert aggregate.minmax_scan_tiles.launches == before + 1
+    for key in range(8):
+        sel = m64[p64 == key]
+        assert int(mins[key]) == int(sel.min()) and int(maxs[key]) == int(sel.max())
+
+
+def test_aggregate_cuda_keys_never_reach_the_host(cuda_device, monkeypatch):
+    wp, wm, n = 9, 20, 40_000
+    pdev = port.pack_device_kernel(_values(wp, n, 9, cuda_device), wp)
+    mdev = port.pack_device_kernel(_values(wm, n, 10, cuda_device), wm)
+    sets = [torch.arange(8, dtype=torch.int32, device=cuda_device),
+            torch.tensor([3, 70], dtype=torch.int32, device=cuda_device)]
+    expect = [port.aggregate_scan_device(pdev, mdev, keys.cpu()) for keys in sets]
+    expect_mm = port.minmax_scan_device(pdev, mdev, sets[1].cpu())
+
+    def no_host(_):
+        raise AssertionError("runtime keys were read on the host")
+
+    monkeypatch.setattr(aggregate, "_host_keys", no_host)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # any device-to-host copy raises
+    try:
+        got = [port.aggregate_scan_device(pdev, mdev, keys) for keys in sets]
+        got_mm = port.minmax_scan_device(pdev, mdev, sets[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, e in zip(got, expect):
+        _same(g[0], e[0])
+        _same(g[1], e[1])
+    for g, e in zip(got_mm, expect_mm):
+        _same(g, e)
+
+
+def test_masked_aggregate_over_query_on_the_card(cuda_device):
+    rng = np.random.default_rng(7)
+    n = 40_000
+    widths = {"price": 9, "region": 5, "status": 4, "revenue": 20}
+    host = {name: rng.integers(0, 1 << w, n).astype(np.uint32) for name, w in widths.items()}
+    gcols = {k: port.pack_device_kernel(torch.from_numpy(v.view(np.int32)).to(cuda_device),
+                                        widths[k]) for k, v in host.items()}
+    where = query.And(query.Range(gcols["price"], 100, 400), query.Range(gcols["region"], 2, 10),
+                      query.Or(query.In(gcols["status"], [1, 4, 9]),
+                               query.Eq(gcols["status"], 0)))
+    bits, count = query.evaluate(where)
+    before = aggregate.masked_aggregate_tiles.launches
+    total, count2 = port.masked_aggregate_device(gcols["revenue"], bits)
+    assert aggregate.masked_aggregate_tiles.launches == before + 1
+    v = host
+    expect = ((v["price"] >= 100) & (v["price"] < 400) & (v["region"] >= 2) & (v["region"] < 10)
+              & (np.isin(v["status"], [1, 4, 9]) | (v["status"] == 0)))
+    assert int(count2) == int(count) == int(expect.sum())
+    assert int(total) == int(v["revenue"][expect].astype(np.int64).sum())
 
 
 def test_build_is_cached(cuda_device):
