@@ -52,11 +52,25 @@ from the sources in the checkout and then:
    and read just after; checks that each call ran the kernel its tier
    names and that every result equals plain torch on the raw values
    (``scatter_add_``, ``bincount``, ``scatter_reduce_``, the masked sum);
-8. times each kernel and its plain version at the full-size shapes with
+8. holds the histogram and zone-map kernels against their plain versions
+   at small ragged sizes (widths 1-31, k 1-4096, key 0 over padding, keys
+   past the domain, a runtime lo wrapping past 2^32, a ``block_offset``, a
+   padded flag-0 step), then drives the statistics path at full size —
+   ``histogram_device`` on the ``i % 512`` column with a host lo (span and
+   chunked AND-DAG kernels) and a CUDA-tensor lo (bins kernel, under
+   ``set_sync_debug_mode("error")``), ``stats`` on ``price`` and on the
+   20-bit ``revenue`` (256 windows) — and the zone-map path on three columns
+   of the same n (clustered, clustered at both ends, uniform ``price``):
+   ``build_zonemap``, pruned and zoned equality scans and ``evaluate`` with
+   zone maps, with the launch counters set to 0 just before and read just
+   after each call; checks that each call ran the kernel its rule names and
+   equals plain torch on the raw values (``bincount``, per-zone
+   ``amin``/``amax``, the full range scan, ``evaluate`` without zone maps);
+9. times each kernel and its plain version at the full-size shapes with
    CUDA events, beside a ``copy_`` of the packed column, and computes each
    kernel's bound: its bytes over the card's 3.35 TB/s;
-9. prints a JSON line with one entry per kernel, and as its last line
-   ``{"ok": true, "device": {...}}``.
+10. prints a JSON line with one entry per kernel, and as its last line
+    ``{"ok": true, "device": {...}}``.
 
 Any failed check or error exits non-zero and prints no result; so does a
 machine with no CUDA card, and a directory without the package.
@@ -131,6 +145,14 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                     "shared_simd_scan_tpu/ops/aggregate.py:480"),
     "masked_aggregate": ("shared_simd_scan_tpu_torch/csrc/aggregate.cu",
                          "shared_simd_scan_tpu/ops/aggregate.py:671"),
+    "histogram": ("shared_simd_scan_tpu_torch/csrc/histogram.cu",
+                  "shared_simd_scan_tpu/ops/scan.py:1553"),
+    "histogram_dag": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
+                      "shared_simd_scan_tpu/ops/scan.py:1716"),
+    "histogram_span": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
+                       "shared_simd_scan_tpu/ops/scan.py:1816"),
+    "zoned_range_scan": ("shared_simd_scan_tpu_torch/csrc/zoned.cu",
+                         "shared_simd_scan_tpu/zonemap.py:298"),
 }
 # the kernels of the arbitrary-key path, and the tier each one serves
 ARBITRARY = {"bitsliced_static_scan": "bitsliced_static", "windowed_scan": "windowed",
@@ -149,6 +171,14 @@ REVENUE_WIDTH = 20
 # (predicate, measure) widths of the small aggregate phase: wm <= 16,
 # wm > 16, wm = 31, wp = 1 and wp = 31, and the full-size pairs
 AGG_PAIRS = ((1, 16), (2, 17), (9, 31), (16, 1), (17, 2), (31, 9), (9, 20), (5, 20))
+# the statistics path's kernels, and the set each one reports
+HISTOGRAM = {"histogram_span": "H1", "histogram_dag": "H2", "histogram": "H3"}
+# the zone-map path's kernel, and the set it reports
+ZONED = {"zoned_range_scan": "Z3"}
+HIST_WIDTHS = (1, 2, 9, 12, 16, 17, 31)
+HIST_KS = (1, 5, 32, 48, 49, 64, 512, 4096)
+ZONE_B1 = 64
+QS = [0.0, 0.25, 0.5, 0.9, 1.0]
 
 
 def s64() -> list[int]:
@@ -159,6 +189,7 @@ def s64() -> list[int]:
 
 def wrappers() -> dict:
     """Kernel name -> the wrapper whose ``launches`` counts its launches."""
+    from shared_simd_scan_tpu_torch import zonemap
     from shared_simd_scan_tpu_torch.ops import aggregate, conj, member, scan, unpack
 
     return {
@@ -175,6 +206,9 @@ def wrappers() -> dict:
         "aggregate_bitplane": aggregate.aggregate_bitplane_tiles,
         "minmax_scan": aggregate.minmax_scan_tiles,
         "masked_aggregate": aggregate.masked_aggregate_tiles,
+        "histogram": scan.histogram_tiles, "histogram_dag": scan._histogram_chunked_tiles,
+        "histogram_span": scan._histogram_span_tiles,
+        "zoned_range_scan": zonemap.zoned_range_tiles,
     }
 
 
@@ -359,7 +393,7 @@ def main_path_phase(device) -> tuple[int, object, dict]:
     from shared_simd_scan_tpu_torch.ops import scan
 
     path = {name: fn for name, fn in wrappers().items()
-            if name not in ARBITRARY and name not in QUERY and name not in AGGREGATE}
+            if name not in (*ARBITRARY, *QUERY, *AGGREGATE, *HISTOGRAM, *ZONED)}
     n = harness.values_for(DATA_SIZE, WIDTH)
     vals = harness.synth_modk(n, K, WIDTH, device=device)
     torch.cuda.synchronize()
@@ -1245,6 +1279,366 @@ def aggregate_timing_phase(device, cols, agg_data, errs: dict) -> dict:
     return results
 
 
+def small_stats_phase(device, errs: dict) -> None:
+    """The histogram and zone-map kernels against their plain versions at
+    small ragged sizes: widths 1-31, n 100, 4241 and 32768, k 1-4096 with
+    key 0 over the padding, windows past the domain, a runtime lo within k
+    of 2^32 (the wrap) and a ``block_offset``; the zoned kernel with a
+    padded flag-0 step, on the small columns (one step of 8 rows) and on a
+    ragged column of 9 steps; the range kernel on an in-place row span."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch.layout import LANES
+    from shared_simd_scan_tpu_torch import zonemap
+    from shared_simd_scan_tpu_torch.ops import scan, unpack
+
+    rng = np.random.default_rng(SEED + 3)
+
+    def t32(a):
+        return torch.from_numpy(np.asarray(a, np.int64).astype(np.uint32).view(np.int32)).to(device)
+
+    def note(name, a, b):
+        if isinstance(a, tuple):  # (bits, counts)
+            e = max(max_abs_err(a[0], b[0]), int((a[1] - b[1]).abs().max()))
+        else:
+            e = max_err(a, b)
+        errs[name] = max(errs[name], e)
+
+    n_steps = 9 * 8 * LANES * 32 - 77  # b1 = 72: nine steps of 8 rows, the tail in the last
+    for width in HIST_WIDTHS:
+        dom = 1 << width
+        for n in (*SMALL_NS, n_steps):
+            vals = rng.integers(0, dom, size=n)
+            tiles = unpack.pack_device_kernel(t32(vals), width).tiles
+            v0 = int(vals[0])
+            lows, highs = t32([0, 1, dom - 1, 0xFFFFFFF0, v0]), t32([dom, 0, 2, 0, v0 + 1])
+            if n == n_steps:  # steps 0, 4 and the ragged last, then a flag-0 repeat
+                idx, flag = t32([0, 4, 8, 8]), t32([1, 1, 1, 0])
+                note("zoned_range_scan",
+                     zonemap.zoned_range_tiles(tiles, idx, flag, lows, highs, width, n, 8),
+                     zonemap.zoned_range_tiles_plain(tiles, idx, flag, lows, highs, width, n, 8))
+                note("range_scan", scan.range_scan_tiles(tiles, lows, highs, width, n, rows=(16, 24)),
+                     scan.range_scan_tiles_plain(tiles, lows, highs, width, n, rows=(16, 24)))
+                continue
+            idx, flag = t32([0, 0]), t32([1, 0])
+            note("zoned_range_scan",
+                 zonemap.zoned_range_tiles(tiles, idx, flag, lows, highs, width, n, 8),
+                 zonemap.zoned_range_tiles_plain(tiles, idx, flag, lows, highs, width, n, 8))
+            runtime = [(0, k) for k in HIST_KS] + [(v0, 64), (dom, 32), ((1 << 32) - 3, 40)]
+            chunked = [(0, k) for k in HIST_KS if k <= 48] + [(max(dom - 3, 0), 40), (dom, 8),
+                                                             (0, 64)]
+            span = [(0, k) for k in HIST_KS if 48 < k <= 512] + [(max(dom - 20, 0), 64), (0, 5)]
+            if n == SMALL_NS[2] and width in (12, 16):  # the statistics' k = 4096 programs
+                chunked.append((0, 4096))
+                span.append((0, 4096))
+            for bo in ((0, 2) if n == SMALL_NS[1] else (0,)):
+                for lo, k in runtime:
+                    note("histogram", scan.histogram_tiles(tiles, t32([lo]), k, width, n, bo),
+                         scan.histogram_tiles_plain(tiles, lo, k, width, n, bo))
+                for lo, k in chunked:
+                    note("histogram_dag", scan._histogram_chunked_tiles(tiles, lo, k, width, n, bo),
+                         scan._histogram_chunked_tiles_plain(tiles, lo, k, width, n, bo))
+                for lo, k in span:
+                    note("histogram_span", scan._histogram_span_tiles(tiles, lo, k, width, n, bo),
+                         scan._histogram_span_tiles_plain(tiles, lo, k, width, n, bo))
+    torch.cuda.synchronize()
+    for name in (*HISTOGRAM, *ZONED, "range_scan"):
+        check(errs[name] == 0, f"{name} kernel exact against its plain version (widths "
+              f"{HIST_WIDTHS}, n {SMALL_NS} and {n_steps}, k {HIST_KS})")
+
+
+def stats_phase(device, arb, cols, rev) -> dict:
+    """The statistics path at full size, with launch counts taken around
+    each call: H1-H3 ``histogram_device`` on the i % 512 column, H4
+    ``stats`` on ``price``, H5 ``stats.histogram_full`` on ``revenue``."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch import histogram_device, stats
+
+    kernels = {name: fn for name, fn in wrappers().items() if name in HISTOGRAM}
+    n = arb.n
+    raw = draw_columns(device, n, {**TABLE, "revenue": REVENUE_WIDTH})
+    price_raw, rev_raw = raw["price"], raw["revenue"]
+    del raw
+    price = cols["price"]
+    lo_t = torch.zeros(1, dtype=torch.int32, device=device)  # made before the sync-debug mode
+    torch.cuda.synchronize()
+    print(f"statistics path: i % {DOMAIN} column and price (9-bit), revenue ({REVENUE_WIDTH}-bit), "
+          f"n {n}")
+    for fn in kernels.values():
+        fn.launches = 0
+    ran, outs, walls = {}, {}, {}
+
+    def run(name, fn, strict=False):
+        before = {k: f.launches for k, f in kernels.items()}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        if strict:  # a CUDA-tensor lo: any device-to-host copy raises
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs[name] = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        walls[name] = (time.monotonic() - t0) * 1e3
+        ran[name] = {k: f.launches - before[k] for k, f in kernels.items() if f.launches > before[k]}
+
+    run("H1", lambda: histogram_device(arb))
+    run("H2", lambda: histogram_device(arb, 100, 40))
+    run("H3", lambda: histogram_device(arb, lo_t), strict=True)
+    run("H4", lambda: (stats.describe(price), stats.quantiles(price, QS), stats.topk_values(price, 5)))
+    run("H5", lambda: stats.histogram_full(rev))
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"statistics path launches {launches}; host clock per set (first calls, ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+
+    want = {"H1": {"histogram_span": 1}, "H2": {"histogram_dag": 1}, "H3": {"histogram": 1},
+            "H4": {"histogram_span": 3}, "H5": {"histogram": 1 << (REVENUE_WIDTH - 12)}}
+    for name, w in want.items():
+        check(ran[name] == w, f"{name}: ran {ran[name]}, the kernel its rule names")
+    expect = torch.tensor([(n - 1 - j) // DOMAIN + 1 for j in range(DOMAIN)], device=device)
+    check(torch.equal(outs["H1"], expect), "H1: full-domain counts == closed form (n - 1 - j) // 512 + 1")
+    check(torch.equal(outs["H2"], expect[100:140]), "H2: keys 100..139 == closed form")
+    check(torch.equal(outs["H3"], expect), "H3: runtime-lo counts == closed form")
+    truth = torch.bincount(price_raw.to(torch.int64), minlength=1 << TABLE["price"])
+    check(np.array_equal(stats.histogram_full(price), truth.cpu().numpy()),
+          "H4: histogram_full(price) == torch.bincount on the raw values")
+    described, qs, (top, top_counts) = outs["H4"]
+    vals = torch.arange(truth.shape[0], device=device)
+    cum = torch.cumsum(truth, 0)
+    total = int(cum[-1])
+    nz = torch.nonzero(truth).flatten()
+    want_d = {"n": total, "min": int(nz[0]), "max": int(nz[-1]),
+              "mean": int((vals * truth).sum()) / total,
+              "median": int(torch.searchsorted(cum, (total + 1) // 2)), "distinct": int(nz.numel())}
+    check(described == want_d, f"H4: describe(price) {described} == bincount's")
+    ranks = torch.tensor([max(1, int(np.ceil(q * total))) for q in QS], device=device)
+    check(qs.tolist() == torch.searchsorted(cum, ranks).tolist(),
+          f"H4: quantiles(price, {QS}) {qs.tolist()} == bincount's")
+    order = torch.sort(truth, descending=True, stable=True).indices[:5]
+    check(top.tolist() == order.tolist() and top_counts.tolist() == truth[order].tolist(),
+          f"H4: topk_values(price, 5) {top.tolist()} == bincount's")
+    rtruth = torch.bincount(rev_raw.to(torch.int64), minlength=1 << REVENUE_WIDTH)
+    check(np.array_equal(outs["H5"], rtruth.cpu().numpy()),
+          f"H5: histogram_full(revenue), 2^{REVENUE_WIDTH} counts == torch.bincount on the raw "
+          "values")
+    print(f"H5 histogram_full(revenue): {walls['H5']:.3f} ms host clock, first call")
+    return launches
+
+
+def zone_columns(device, n: int, price) -> tuple[dict, dict]:
+    """The zone-map phase's columns: (raw int32 values, DeviceColumns)."""
+    import torch
+    from shared_simd_scan_tpu_torch.layout import LANES
+    from shared_simd_scan_tpu_torch import pack_device_kernel
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 5)
+    ends = torch.randint(100, 200, (n,), generator=gen, device=device, dtype=torch.int32)
+    edge = 64 * LANES * 32  # 64 block rows
+    ends[:edge] = 7
+    ends[-edge:] = 7
+    raw = {"clustered": ((torch.arange(n, device=device) * DOMAIN) // n).to(torch.int32),
+           "ends": ends, "price": draw_columns(device, n, {"price": TABLE["price"]})["price"]}
+    zcols = {"clustered": pack_device_kernel(raw["clustered"], WIDTH),
+             "ends": pack_device_kernel(raw["ends"], WIDTH), "price": price}
+    return raw, zcols
+
+
+def zone_phase(device, cols) -> tuple[dict, dict]:
+    """The zone-map path at full size, with launch counts taken around each
+    call: Z1 ``build_zonemap`` of three columns, Z2 a pruned and Z3/Z4
+    zoned equality scans, Z5 ``evaluate`` with zone maps."""
+    import torch
+    from shared_simd_scan_tpu_torch.layout import LANES
+    from shared_simd_scan_tpu_torch import bitvector, query, zonemap
+    from shared_simd_scan_tpu_torch.ops import scan
+
+    kernels = {name: fn for name, fn in wrappers().items()
+               if name in ("unpack", "range_scan", "conj_range_scan", *ZONED)}
+    n = cols["price"].n
+    raw, zcols = zone_columns(device, n, cols["price"])
+    torch.cuda.synchronize()
+    b1 = zcols["price"].tiles.shape[1]
+    print(f"zone-map path: columns clustered (i * 512) // n, ends (7 in the first and last 64 block "
+          f"rows, else 100..199), price; n {n}, zone_b1 {ZONE_B1} ({b1 // ZONE_B1} zones)")
+    for fn in kernels.values():
+        fn.launches = 0
+    ran, outs = {}, {}
+
+    def run(name, fn):
+        before = {k: f.launches for k, f in kernels.items()}
+        outs[name] = fn()
+        ran[name] = {k: f.launches - before[k] for k, f in kernels.items() if f.launches > before[k]}
+
+    for name, col in zcols.items():
+        run(f"Z1 {name}", lambda col=col: zonemap.build_zonemap(col, zone_b1=ZONE_B1))
+    zmaps = {name: outs[f"Z1 {name}"] for name in zcols}
+    run("Z2", lambda: zonemap.pruned_eq_scan(zcols["clustered"], zmaps["clustered"], 100))
+    run("Z3", lambda: zonemap.zoned_eq_scan(zcols["ends"], zmaps["ends"], 7))
+    run("Z4", lambda: zonemap.zoned_eq_scan(zcols["price"], zmaps["price"], 7))
+    z5 = query.And(query.Range(zcols["clustered"], 100, 120),
+                   query.Not(query.Eq(zcols["price"], 7)))
+    run("Z5", lambda: query.evaluate(z5, zonemaps={id(zcols["clustered"]): zmaps["clustered"]}))
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"zone-map path launches {launches}")
+
+    per = ZONE_B1 * LANES * 32
+    nz = b1 // ZONE_B1
+    for name, col in zcols.items():
+        check(ran[f"Z1 {name}"].get("unpack", 0) > 0 and set(ran[f"Z1 {name}"]) == {"unpack"},
+              f"Z1 {name}: build_zonemap ran the unpack kernel ({ran[f'Z1 {name}']})")
+        v = raw[name].to(torch.int64)
+        lo_pad = torch.full((nz * per,), 0xFFFFFFFF, dtype=torch.int64, device=device)
+        hi_pad = torch.zeros(nz * per, dtype=torch.int64, device=device)
+        lo_pad[:n] = v
+        hi_pad[:n] = v
+        zmin, zmax = lo_pad.view(nz, per).amin(1), hi_pad.view(nz, per).amax(1)
+        zm = zmaps[name]
+        check(zm.zmin.tolist() == zmin.tolist() and zm.zmax.tolist() == zmax.tolist(),
+              f"Z1 {name}: {nz} zone minima and maxima == amin / amax on the raw values")
+        del v, lo_pad, hi_pad
+    spans = {"Z2": zonemap.prune_span(zmaps["clustered"], 100, 101)}
+    live = zonemap.zone_step_mask(zmaps["ends"], 7, 8, zonemap._pick_tb(b1, 256))
+    check(spans["Z2"] is not None and spans["Z2"][1] <= 1024,
+          f"Z2: prune_span(clustered, [100, 101)) = {spans['Z2']}, at most 1024 rows")
+    check(0 < int(live.sum()) <= 3 and live.shape[0] == 456,
+          f"Z3: {int(live.sum())} of {live.shape[0]} steps of 256 rows live (steps "
+          f"{live.nonzero()[0].tolist()})")
+    want = {"Z2": {"range_scan": 1}, "Z3": {"zoned_range_scan": 1}, "Z4": {"range_scan": 1},
+            "Z5": {"range_scan": 1, "conj_range_scan": 1}}
+    for name, w in want.items():
+        check(ran[name] == w, f"{name}: ran {ran[name]}, the kernel its rule names")
+    for name, col, key in (("Z2", "clustered", 100), ("Z3", "ends", 7), ("Z4", "price", 7)):
+        bits, count = outs[name]
+        fbits, fcount = scan.range_scan_device(zcols[col], [key], [key + 1])
+        truth = raw[col] == key
+        check(torch.equal(bits, fbits[0]) and int(count) == int(fcount[0]) == int(truth.sum())
+              and torch.equal(bits, bitvector.from_bool(truth)),
+              f"{name}: every word and the count ({int(count)}) equal the full range scan's and "
+              f"the raw values' {col} == {key}")
+    bits, count = outs["Z5"]
+    pbits, pcount = query.evaluate(z5)
+    check(torch.equal(bits, pbits) and int(count) == int(pcount),
+          f"Z5: evaluate with zone maps == without, every word and the count ({int(count)})")
+    del raw
+    return {"zcols": zcols, "zmaps": zmaps, "spans": spans, "live": live}, launches
+
+
+def stats_timing_phase(device, arb, rev, zdata, errs: dict) -> dict:
+    """The statistics and zone-map kernels and their plain versions at full
+    size (H1-H3 on the i % 512 column, Z3 on the ends column); beside them
+    the two histogram algorithms, unpack + ``torch.bincount``, one H5
+    window and H5's wall time, and Z2/Z3 against the full-column range
+    scan."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch.layout import LANES
+    from shared_simd_scan_tpu_torch import stats, zonemap
+    from shared_simd_scan_tpu_torch.ops import scan, unpack
+
+    tiles, n = arb.tiles, arb.n
+    tile_bytes = tiles.numel() * 4
+    lo_t = torch.zeros(1, dtype=torch.int32, device=device)
+    zcols, zmaps = zdata["zcols"], zdata["zmaps"]
+    et, ct = zcols["ends"].tiles, zcols["clustered"].tiles
+    tb = zonemap._pick_tb(et.shape[1], 256)
+    live = zdata["live"]
+    idx = torch.from_numpy(np.nonzero(live)[0].astype(np.int32)).to(device)
+    flag = torch.ones_like(idx)
+    lo7, hi8 = scan._bounds_tensor([7], device), scan._bounds_tensor([8], device)
+    lo100, hi101 = scan._bounds_tensor([100], device), scan._bounds_tensor([101], device)
+    live_rows = int(live.sum()) * tb
+    start, span = zdata["spans"]["Z2"]
+
+    def rows_bytes(rows):  # the rows' words read, their bitvector words written, the count
+        return rows * LANES * (WIDTH + 1) * 4 + 8
+
+    pairs = {  # "kernel set" -> (kernel, plain, bytes it must move)
+        "histogram_span H1": (lambda: scan._histogram_span_tiles(tiles, 0, DOMAIN, WIDTH, n),
+                              lambda: scan._histogram_span_tiles_plain(tiles, 0, DOMAIN, WIDTH, n),
+                              tile_bytes + DOMAIN * 8),
+        "histogram_dag H2": (lambda: scan._histogram_chunked_tiles(tiles, 100, 40, WIDTH, n),
+                             lambda: scan._histogram_chunked_tiles_plain(tiles, 100, 40, WIDTH, n),
+                             tile_bytes + 40 * 8),
+        "histogram H3": (lambda: scan.histogram_tiles(tiles, lo_t, DOMAIN, WIDTH, n),
+                         lambda: scan.histogram_tiles_plain(tiles, lo_t, DOMAIN, WIDTH, n),
+                         tile_bytes + 4 + DOMAIN * 8),
+        "zoned_range_scan Z3": (
+            lambda: zonemap.zoned_range_tiles(et, idx, flag, lo7, hi8, WIDTH, n, tb),
+            lambda: zonemap.zoned_range_tiles_plain(et, idx, flag, lo7, hi8, WIDTH, n, tb),
+            rows_bytes(live_rows) + 8 * idx.numel() + 8),
+    }
+    for name, (kern, plain, _) in pairs.items():
+        kernel = name.split()[0]
+        a, b = kern(), plain()
+        if isinstance(a, tuple):
+            e = max(max_abs_err(a[0], b[0]), int((a[1] - b[1]).abs().max()))
+        else:
+            e = max_err(a, b)
+        errs[kernel] = max(errs[kernel], e)
+        del a, b
+        check(errs[kernel] == 0, f"{name} kernel exact against its plain version at full size")
+
+    results = {}
+    copy_dst = torch.empty_like(tiles)
+    copy_ms = time_ms(lambda: copy_dst.copy_(tiles), batches=5, calls=10)
+    copy_rate = 2 * tile_bytes / (copy_ms * 1e-3)
+    print(f"copy_ of the i % 512 column ({tile_bytes} bytes): {copy_ms:.6f} ms, "
+          f"{copy_rate:.6e} bytes/s")
+    for name, (kern, plain, nbytes) in pairs.items():
+        ms = time_ms(kern, batches=5, calls=10)
+        plain_ms = time_ms(plain, batches=3, calls=2)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rate = nbytes / (ms * 1e-3)
+        results[name] = (ms, plain_ms, bound_ms)
+        print(f"time {name}: kernel {ms:.6f} ms ({rate:.6e} bytes/s, {rate / copy_rate:.4f} of "
+              f"copy, bound {bound_ms:.6f} ms for {nbytes} bytes); plain {plain_ms:.6f} ms")
+    print("library: no PyTorch call counts the values of a bit-packed column, so library_ms is "
+          "null")
+    print(f"time H1 full-domain histogram, two algorithms: span AND-DAG program "
+          f"{results['histogram_span H1'][0]:.6f} ms, bins kernel (H3) "
+          f"{results['histogram H3'][0]:.6f} ms")
+
+    def unpack_bincount():  # the padding's zero values leave bin 0
+        vals = unpack.unpack_tiles(tiles, WIDTH)
+        counts = torch.bincount(vals.view(-1), minlength=DOMAIN)
+        counts[0] -= vals.numel() - n
+        return counts
+
+    check(torch.equal(unpack_bincount(), pairs["histogram H3"][0]()),
+          "unpack + torch.bincount == the bins kernel's counts")
+    ms = time_ms(unpack_bincount, batches=3, calls=3)
+    print(f"time H1 composed (unpack kernel + torch.bincount): {ms:.6f} ms")
+    ms = time_ms(lambda: scan.histogram_tiles(rev.tiles, lo_t, 4096, REVENUE_WIDTH, n),
+                 batches=5, calls=5)
+    bound = rev.tiles.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"time H5 one window (bins kernel, revenue, k=4096): {ms:.6f} ms, bound {bound:.6f} ms; "
+          f"256 windows: {256 * ms:.3f} ms of kernel, bound {256 * bound:.3f} ms")
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        stats.histogram_full(rev)
+        walls.append((time.monotonic() - t0) * 1e3)
+    print(f"time H5 stats.histogram_full(revenue) (host clock, host and copy included): median "
+          f"{statistics.median(walls[1:]):.6f} ms of {len(walls) - 1} after a warm-up")
+    z2 = time_ms(lambda: scan.range_scan_tiles(ct, lo100, hi101, WIDTH, n, rows=(start, span)),
+                 batches=5, calls=10)
+    full = time_ms(lambda: scan.range_scan_tiles(ct, lo100, hi101, WIDTH, n), batches=5, calls=10)
+    zero = time_ms(lambda: torch.zeros((1,) + tuple(ct.shape[1:]), dtype=torch.int32,
+                                       device=device), batches=5, calls=10)
+    print(f"time Z2 pruned span ({span} of {ct.shape[1]} rows, in place): {z2:.6f} ms (bound "
+          f"{rows_bytes(span) / HBM_BYTES_PER_S * 1e3:.6f} ms), full-column range scan "
+          f"{full:.6f} ms; the zeroed full-length row alone {zero:.6f} ms")
+    full = time_ms(lambda: scan.range_scan_tiles(et, lo7, hi8, WIDTH, n), batches=5, calls=10)
+    print(f"time Z3 zoned ({int(live.sum())} of {live.shape[0]} steps): "
+          f"{results['zoned_range_scan Z3'][0]:.6f} ms, full-column range scan {full:.6f} ms")
+    del copy_dst
+    return results
+
+
 def main() -> int:
     root = pathlib.Path(__file__).resolve().parent
     if not (root / "shared_simd_scan_tpu_torch" / "__init__.py").is_file():
@@ -1279,18 +1673,25 @@ def main() -> int:
     small_aggregate_phase(device, errs)
     agg_data, agg_launches = aggregate_phase(device, cols)
     launches.update(agg_launches)
+    small_stats_phase(device, errs)
+    launches.update(stats_phase(device, arb, cols, agg_data["rev"]))
+    zdata, zone_launches = zone_phase(device, cols)
+    launches.update({name: zone_launches[name] for name in ZONED})
     times = timing_phase(device, n, dev, arb, errs)
     times.update(query_timing_phase(device, cols, arb, errs))
     times.update(aggregate_timing_phase(device, cols, agg_data, errs))
+    times.update(stats_timing_phase(device, arb, agg_data["rev"], zdata, errs))
     check("jax" not in sys.modules, "no jax module was imported")
 
     def entry(name, src, rep):
         # the arbitrary-key kernels report k=8 (S8) and, beside it, k=64
         # (S64); each query-path kernel its own set, the OR-tree S8 and S64;
         # each aggregate kernel its set of the aggregate phase and, beside
-        # it, its times on the other keyed sets
-        if name in AGGREGATE:
-            key = f"{name} {AGGREGATE[name]}"
+        # it, its times on the other keyed sets; the histogram and zoned
+        # kernels their H and Z sets
+        sets = {**AGGREGATE, **HISTOGRAM, **ZONED}
+        if name in sets:
+            key = f"{name} {sets[name]}"
         else:
             key = name if name in times else next(k for k in times if k.split()[0] == name)
         ms, plain_ms, bound_ms = times[key]

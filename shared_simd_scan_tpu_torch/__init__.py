@@ -5,9 +5,11 @@ hand-written CUDA kernels for Hopper (sm_90a).  It covers packing a
 column into the tile layout and decompressing it, every tier of the k-key
 shared scan and the single-key scan, the range scan, the fused
 multi-column conjunction, the IN-list member scan, the predicate-tree
-query layer (``query.evaluate``) and the aggregates: keyed SUM/COUNT and
-MIN/MAX, and SUM/COUNT under a bitvector.  Module names mirror the JAX
-package; the port imports torch and numpy and never jax.
+query layer (``query.evaluate``, with zone-map pruning), the aggregates:
+keyed SUM/COUNT and MIN/MAX, and SUM/COUNT under a bitvector; the value
+histogram and the statistics drawn from it (``stats``), and zone maps
+(``zonemap``).  Module names mirror the JAX package; the port imports
+torch and numpy and never jax.
 """
 
 from shared_simd_scan_tpu_torch.layout import (  # noqa: F401
@@ -23,11 +25,14 @@ from shared_simd_scan_tpu_torch.layout import (  # noqa: F401
 )
 from shared_simd_scan_tpu_torch import bitvector  # noqa: F401
 from shared_simd_scan_tpu_torch import query  # noqa: F401
+from shared_simd_scan_tpu_torch import stats  # noqa: F401
+from shared_simd_scan_tpu_torch import zonemap  # noqa: F401
 from shared_simd_scan_tpu_torch.ops.scan import (  # noqa: F401
     scan_device,
     shared_scan_device,
     interval_scan_device,
     range_scan_device,
+    histogram_device,
 )
 from shared_simd_scan_tpu_torch.ops.member import (  # noqa: F401
     member_scan_device,

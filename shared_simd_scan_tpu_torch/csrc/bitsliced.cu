@@ -22,7 +22,13 @@
 //    instructions and run by the same interpreter;
 //  - ops/member.py _member_bitsliced_kernel: the runtime plane fold with
 //    the key rows ORed into one row (sss_member_bitsliced, the kMember
-//    form of the runtime kernel).
+//    form of the runtime kernel);
+//  - _histogram_dag_kernel / _histogram_dag_tiles_impl and
+//    _histogram_span_kernel / _histogram_span_tiles_impl: histogram counts
+//    of consecutive keys, no bitvector (sss_histogram_dag, the counts-only
+//    form of the static kernel).  The chunked form runs _static_program's
+//    per-chunk memos, the span form one memo over all k keys
+//    (ops/scan.py _span_program); both are the same instruction format.
 //
 // Bound on the H100: device memory bytes (reads W words, writes k words per
 // 32 values) while k is small; the integer instruction rate beyond: the runtime fold costs
@@ -72,18 +78,20 @@ bitsliced_scan_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __rest
   flush_counts(s_cnt, kMember ? 1 : k, counts);
 }
 
-template <int W>
-__global__ void __launch_bounds__(kStaticThreadsMax)
-bitsliced_static_kernel(const uint32_t* __restrict__ tiles, const uint2* __restrict__ prog,
-                        int nops, int k, uint32_t* __restrict__ bits,
-                        unsigned long long* __restrict__ counts, long long nblocks, long long n,
-                        long long block_offset) {
-  extern __shared__ uint32_t s_val[];  // [slot][threadIdx.x]
-  __shared__ unsigned s_cnt[kMaxKeys];
-  zero_counts(s_cnt, k);
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = b < nblocks;
+// One tile of the static kernel: thread threadIdx.x takes block
+// t * blockDim.x + threadIdx.x, unpacks and transposes it into planes in
+// its slots, and runs the program.  kCounts: the histogram's counts-only
+// form (rows 10 and 11 of the TPU kernel table): OUT adds popc(a & valid)
+// to its row's shared counter and stores nothing, ZERO adds nothing.
+template <int W, bool kCounts>
+__device__ __forceinline__ void static_tile(const uint32_t* __restrict__ tiles,
+                                            const uint2* __restrict__ prog, int nops,
+                                            uint32_t* __restrict__ bits, long long nblocks,
+                                            long long n, long long block_offset, long long t,
+                                            uint32_t* s_val, unsigned* s_cnt) {
   const int stride = blockDim.x;
+  const long long b = t * stride + threadIdx.x;
+  const bool active = b < nblocks;
   uint32_t w[W];
   load_block<W>(tiles, nblocks, b, active, w);
   const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
@@ -101,10 +109,78 @@ bitsliced_static_kernel(const uint32_t* __restrict__ tiles, const uint2* __restr
     if (kind == kAnd || kind == kOr) {
       const uint32_t c = dag_operand(s_val, op.y >> 16, stride);
       s_val[target * stride + threadIdx.x] = kind == kAnd ? a & c : a | c;
-    } else
+    } else if constexpr (kCounts) {
+      if (kind == kOut) count_row((int)target, a & valid, s_cnt);
+    } else {
       store_row(bits, nblocks, b, active, (int)target, kind == kOut ? a & valid : 0u, s_cnt);
+    }
+  }
+}
+
+// The bitvector form runs one tile per CTA.  The counts-only form runs
+// resident CTAs looping over the tiles, so each flushes its counters once.
+template <int W, bool kCounts>
+__global__ void __launch_bounds__(kStaticThreadsMax)
+bitsliced_static_kernel(const uint32_t* __restrict__ tiles, const uint2* __restrict__ prog,
+                        int nops, int k, uint32_t* __restrict__ bits,
+                        unsigned long long* __restrict__ counts, long long nblocks, long long n,
+                        long long block_offset) {
+  extern __shared__ uint32_t s_val[];  // [slot][threadIdx.x]
+  __shared__ unsigned s_cnt[kCounts ? kMaxHistKeys : kMaxKeys];
+  zero_counts(s_cnt, k);
+  if constexpr (kCounts) {
+    const long long ntiles = (nblocks + blockDim.x - 1) / blockDim.x;
+    for (long long t = blockIdx.x; t < ntiles; t += gridDim.x)  // CTA-uniform trip count
+      static_tile<W, true>(tiles, prog, nops, bits, nblocks, n, block_offset, t, s_val, s_cnt);
+  } else {
+    static_tile<W, false>(tiles, prog, nops, bits, nblocks, n, block_offset, blockIdx.x, s_val,
+                          s_cnt);
   }
   flush_counts(s_cnt, k, counts);
+}
+
+// One launch of a program of k rows with `threads` threads per CTA and
+// smem bytes of node slots; a launch that is refused returns its error.
+template <int W, bool kCounts>
+cudaError_t launch_static(const uint32_t* tiles, const uint2* prog, int nops, int k,
+                          uint32_t* bits, unsigned long long* counts, long long nblocks,
+                          long long n, long long block_offset, int threads, size_t smem,
+                          cudaStream_t stream) {
+  const auto kernel = bitsliced_static_kernel<W, kCounts>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const long long ntiles = (nblocks + threads - 1) / threads;
+  unsigned grid = (unsigned)ntiles;
+  if (err == cudaSuccess && kCounts) err = resident_grid(kernel, threads, smem, ntiles, &grid);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so the next launch does not report it
+    return err;
+  }
+  bitsliced_static_kernel<W, kCounts><<<grid, threads, smem, stream>>>(
+      tiles, prog, nops, k, bits, counts, nblocks, n, block_offset);
+  return cudaGetLastError();
+}
+
+template <bool kCounts>
+int static_scan(const uint32_t* tiles, const int* prog, int nops, int k, uint32_t* bits,
+                unsigned long long* counts, long long nblocks, int width, long long n,
+                long long block_offset, int threads, int slots, cudaStream_t stream) {
+  if (k < 1 || k > (kCounts ? kMaxHistKeys : kMaxKeys) || threads < 32 ||
+      threads > kStaticThreadsMax || threads % 32 || slots < width)
+    return (int)cudaErrorInvalidValue;
+  if (nblocks <= 0) return (int)cudaSuccess;
+  const size_t smem = (size_t)slots * threads * sizeof(uint32_t);
+  const uint2* p = reinterpret_cast<const uint2*>(prog);
+  switch (width) {
+#define SSS_CASE(W)                                                                         \
+  case W:                                                                                   \
+    return (int)launch_static<W, kCounts>(tiles, p, nops, k, bits, counts, nblocks, n,      \
+                                          block_offset, threads, smem, stream);
+    SSS_FOR_EACH_WIDTH(SSS_CASE)
+#undef SSS_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace sss
@@ -166,30 +242,16 @@ extern "C" int sss_bitsliced_static_scan(const uint32_t* tiles, const int* prog,
                                          long long nblocks, int width, long long n,
                                          long long block_offset, int threads, int slots,
                                          cudaStream_t stream) {
-  if (k < 1 || k > sss::kMaxKeys || threads < 32 || threads > sss::kStaticThreadsMax ||
-      threads % 32 || slots < width)
-    return (int)cudaErrorInvalidValue;
-  if (nblocks <= 0) return (int)cudaSuccess;
-  const unsigned grid = (unsigned)((nblocks + threads - 1) / threads);
-  const size_t smem = (size_t)slots * threads * sizeof(uint32_t);
-  const uint2* p = reinterpret_cast<const uint2*>(prog);
-  cudaError_t err = cudaSuccess;
-  switch (width) {
-#define SSS_CASE(W)                                                                      \
-  case W:                                                                                \
-    err = cudaFuncSetAttribute(sss::bitsliced_static_kernel<W>,                         \
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);  \
-    if (err != cudaSuccess) {                                                            \
-      cudaGetLastError(); /* clear it, so the next launch does not report it */          \
-      return (int)err;                                                                   \
-    }                                                                                    \
-    sss::bitsliced_static_kernel<W><<<grid, threads, smem, stream>>>(                    \
-        tiles, p, nops, k, bits, counts, nblocks, n, block_offset);                      \
-    break;
-    SSS_FOR_EACH_WIDTH(SSS_CASE)
-#undef SSS_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return sss::static_scan<false>(tiles, prog, nops, k, bits, counts, nblocks, width, n,
+                                 block_offset, threads, slots, stream);
+}
+
+// The counts-only form: k <= kMaxHistKeys rows, counts only (int64[k],
+// zeroed by the caller).
+extern "C" int sss_histogram_dag(const uint32_t* tiles, const int* prog, int nops, int k,
+                                 unsigned long long* counts, long long nblocks, int width,
+                                 long long n, long long block_offset, int threads, int slots,
+                                 cudaStream_t stream) {
+  return sss::static_scan<true>(tiles, prog, nops, k, nullptr, counts, nblocks, width, n,
+                                block_offset, threads, slots, stream);
 }

@@ -1,7 +1,7 @@
 // Shared pieces of the Hopper kernels: the static unpack schedule, the
 // validity word, count and exact-sum reduction, the one-hot mask, the 8x8
-// byte transpose, the bit-plane butterfly, the DAG program format and the
-// width dispatch.
+// byte transpose, the bit-plane butterfly, the range match word, the grid
+// of resident CTAs, the DAG program format and the width dispatch.
 //
 // Layout (see shared_simd_scan_tpu_torch/layout.py): tiles are
 // uint32[width][nblocks] with nblocks = B1*128; block b holds 32 values in
@@ -18,6 +18,7 @@ constexpr int kBlockValues = 32;
 constexpr int kThreads = 256;
 constexpr int kMaxKeys = 1024;  // keys per launch: bounds the shared counters
 constexpr int kMaxAggKeys = 32;  // keys of one aggregate launch
+constexpr int kMaxHistKeys = 4096;  // bins of one histogram launch (16 KB of counters)
 
 // Static schedule of layout.unpack_schedule: value r starts at stream bit
 // r*W, i.e. in word r*W/32 at shift r*W%32, and straddles into the next
@@ -192,6 +193,34 @@ __device__ __forceinline__ void transpose_bitplanes(uint32_t (&x)[kBlockValues])
 
 inline unsigned grid_for(long long nblocks) {
   return (unsigned)((nblocks + kThreads - 1) / kThreads);
+}
+
+// Grid of a kernel whose CTAs loop over its `ntiles` tiles of blockDim.x
+// blocks (tile t, t + gridDim.x, ...): as many CTAs as the card holds at
+// once, fewer when there are fewer tiles.  Each CTA then flushes its shared
+// counters once, not once per tile.
+template <typename Kernel>
+inline cudaError_t resident_grid(Kernel kernel, int threads, size_t smem, long long ntiles,
+                                 unsigned* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  *grid = (unsigned)(ntiles < cap ? ntiles : cap);
+  return cudaSuccess;
+}
+
+// Range match word of one block: bit r set iff (v[r] - lo) mod 2^32 < span
+// (span = hi - lo mod 2^32), the JAX package's unsigned range compare.
+__device__ __forceinline__ uint32_t range_word(const uint32_t (&v)[kBlockValues], uint32_t lo,
+                                               uint32_t span) {
+  uint32_t acc = 0u;
+#pragma unroll
+  for (int r = 0; r < kBlockValues; ++r) acc |= (uint32_t)(v[r] - lo < span) << r;
+  return acc;
 }
 
 inline bool width_ok(int width) { return width >= 1 && width <= 31; }

@@ -29,7 +29,8 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("unpack.cu", "shared_scan.cu", "interval_scan.cu", "bitsliced.cu", "windowed.cu",
-           "range_scan.cu", "conj.cu", "member.cu", "aggregate.cu", "agg_bitplane.cu")
+           "range_scan.cu", "conj.cu", "member.cu", "aggregate.cu", "agg_bitplane.cu",
+           "histogram.cu", "zoned.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -58,8 +59,17 @@ _SIGNATURES = {
     # tiles, plan, k, bits, counts, nblocks, width, n, block_offset, gateless, stream
     "sss_windowed_scan": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll,
                           ctypes.c_int, _vp],
-    # tiles, lows, highs, k, bits, counts, nblocks, width, n, block_offset, stream
-    "sss_range_scan": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
+    # tiles, lows, highs, k, bits, counts, nblocks, ld, width, n, block_offset, stream
+    "sss_range_scan": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, _ll, ctypes.c_int, _ll, _ll,
+                       _vp],
+    # tiles, idx, flag, g, lows, highs, k, bits, counts, nblocks, step_blocks, width, n, stream
+    "sss_zoned_range_scan": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, ctypes.c_int, _vp, _vp, _ll,
+                             _ll, ctypes.c_int, _ll, _vp],
+    # tiles, lo (device pointer), k, counts, nblocks, width, n, block_offset, stream
+    "sss_histogram": [_vp, _vp, ctypes.c_int, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
+    # tiles, prog, nops, k, counts, nblocks, width, n, block_offset, threads, slots, stream
+    "sss_histogram_dag": [_vp, _vp, ctypes.c_int, ctypes.c_int, _vp, _ll, ctypes.c_int, _ll, _ll,
+                          ctypes.c_int, ctypes.c_int, _vp],
     # tile_ptrs, widths, lows, highs (host arrays of m), m, bits, counts, nblocks, n,
     # block_offset, stream
     "sss_conj_range_scan": [_vp, _vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, _ll, _ll, _vp],

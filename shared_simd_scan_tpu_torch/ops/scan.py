@@ -16,7 +16,11 @@ PyTorch counterpart of the shared-scan part of
   (:func:`shared_scan_device` / :func:`scan_device`);
 - the member OR-tree DAG (:func:`_member_or_tree`), its cost and liveness
   counters and its one-row program (:func:`_member_program`), which
-  ``ops/member.py`` dispatches and launches.
+  ``ops/member.py`` dispatches and launches;
+- the value histogram without bitvectors: the runtime-lo bins kernel
+  (:func:`histogram_tiles`), the static AND-DAG in its counts-only form on
+  chunked or span programs (:func:`histogram_dag_tiles`), and their
+  dispatcher :func:`histogram_device`.
 
 Output contract (the JAX package's): ``bits[k, B1, 128]`` holds one
 LSB-first uint32 word per block and key, with bits of values at index
@@ -1056,13 +1060,28 @@ def _bounds_tensor(values, device) -> torch.Tensor:
     return torch.from_numpy((arr & _U32).astype(np.uint32).view(np.int32)).to(device)
 
 
+def _check_rows(rows, b1: int) -> tuple[int, int]:
+    start, count = (int(x) for x in rows)
+    if not (0 <= start and 1 <= count and start + count <= b1):
+        raise ValueError(f"rows {rows}: expected (start, count) within the {b1} block rows")
+    return start, count
+
+
 def range_scan_tiles_plain(
     tiles: torch.Tensor, lows: torch.Tensor, highs: torch.Tensor, width: int, n: int,
-    block_offset: int = 0,
+    block_offset: int = 0, rows: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of :func:`range_scan_tiles`, same algorithm:
     per value and range ``(v - lo) < (hi - lo)`` in uint32 arithmetic
     (int64 masked to 32 bits)."""
+    if rows is not None:
+        start, count = _check_rows(rows, tiles.shape[1])
+        sub, counts = range_scan_tiles_plain(tiles[:, start : start + count], lows, highs, width,
+                                             n, block_offset + start * LANES)
+        bits = torch.zeros((sub.shape[0],) + tuple(tiles.shape[1:]), dtype=torch.int32,
+                           device=tiles.device)
+        bits[:, start : start + count] = sub
+        return bits, counts
     lo = u32(lows)[:, None, None]
     span = (u32(highs)[:, None, None] - lo) & _U32
     acc = torch.zeros((lo.shape[0],) + tuple(tiles.shape[1:]), dtype=torch.int64,
@@ -1074,27 +1093,36 @@ def range_scan_tiles_plain(
 
 def range_scan_tiles(
     tiles: torch.Tensor, lows: torch.Tensor, highs: torch.Tensor, width: int, n: int,
-    block_offset: int = 0,
+    block_offset: int = 0, rows: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """k half-open range predicates [lo_j, hi_j) in one fused pass: lows
     and highs int32[k] (uint32 bits) on the tiles' device -> (bits
     int32[k, B1, 128], counts int64[k]), the contract of
     :func:`shared_scan_tiles`.
 
+    ``rows=(start, count)`` scans block rows start..start+count-1 only (a
+    zone map's pruned span): the JAX package's scan of the span sliced out
+    with ``block_offset + start * 128``, its bits placed at their rows of
+    otherwise zero full-length rows.  The kernel reads the span in place.
+
     Kernel ``sss_range_scan`` (``csrc/range_scan.cu``) on CUDA tensors;
     the plain version on CPU tensors."""
     b1 = _check_tiles(tiles, width)
     _check_key_tensor(lows)
     _cuda.check_int32("highs", highs, tuple(lows.shape))
+    start, count = (0, b1) if rows is None else _check_rows(rows, b1)
     device = _cuda.kernel_device(tiles, lows, highs)
     if device is None:
-        return range_scan_tiles_plain(tiles, lows, highs, width, n, block_offset)
+        return range_scan_tiles_plain(tiles, lows, highs, width, n, block_offset, rows)
     k = int(lows.shape[0])
-    bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
+    alloc = torch.empty if rows is None else torch.zeros
+    bits = alloc((k, b1, LANES), dtype=torch.int32, device=device)
     counts = torch.zeros(k, dtype=torch.int64, device=device)
+    skip = start * LANES * 4  # bytes before the first scanned block of a row
     _cuda.launch(
-        "sss_range_scan", device, tiles.data_ptr(), lows.data_ptr(), highs.data_ptr(), k,
-        bits.data_ptr(), counts.data_ptr(), b1 * LANES, width, n, block_offset,
+        "sss_range_scan", device, tiles.data_ptr() + skip, lows.data_ptr(), highs.data_ptr(), k,
+        bits.data_ptr() + skip, counts.data_ptr(), count * LANES, b1 * LANES, width, n,
+        block_offset + start * LANES,
     )
     range_scan_tiles.launches += 1
     return bits, counts
@@ -1219,3 +1247,254 @@ def interval_scan_device(dev: DeviceColumn, lo: int, k: int) -> tuple[torch.Tens
     (k,) int64 counts)."""
     bits, counts = interval_scan_tiles(dev.tiles, lo, k, dev.width, dev.n)
     return bits_to_canonical(bits, dev.n), counts
+
+
+# ---------------------------------------------------------------------------
+# Histogram: counts of consecutive keys, no bitvector
+# ---------------------------------------------------------------------------
+#
+# A full value histogram (counts of keys lo..lo+k-1, k up to 4096) cannot go
+# through the bitvector kernels: k=512 bitvectors of a 512 MiB column would
+# be 30 GB.  Three kernels count without them, as the JAX package's three:
+# the runtime-lo kernel (histogram_tiles) and, for a host lo, the static
+# AND-DAG interpreter in its counts-only form, on the chunked programs
+# (k <= 48 or k > 512) or on one program whose memo spans all k keys
+# (48 < k <= 512).
+
+MAX_HISTOGRAM_KEYS = 4096
+
+
+def _check_histogram_k(k: int) -> None:
+    if not (1 <= k <= MAX_HISTOGRAM_KEYS):
+        raise ValueError(f"histogram supports 1 <= k <= {MAX_HISTOGRAM_KEYS}, got {k}")
+
+
+def _check_lo(lo: int) -> int:
+    lo = int(lo)
+    if not (0 <= lo <= _U32):
+        raise ValueError(f"lo must be a uint32 value, got {lo}")
+    return lo
+
+
+def _lo_tensor(lo, device) -> torch.Tensor:
+    """The histogram's low key as int32[1] (uint32 bits).  A tensor stays
+    on its own device and is never read on the host; an int is placed on
+    ``device``."""
+    if isinstance(lo, torch.Tensor):
+        if lo.numel() != 1:
+            raise ValueError(f"lo: expected one value, got shape {tuple(lo.shape)}")
+        return _runtime_keys(lo)
+    arr = np.asarray([_check_lo(lo)], dtype=np.uint32).view(np.int32)
+    return torch.from_numpy(arr).to(device)
+
+
+def histogram_tiles_plain(
+    tiles: torch.Tensor, lo, k: int, width: int, n: int, block_offset: int = 0
+) -> torch.Tensor:
+    """Plain torch version of :func:`histogram_tiles`: count j is the
+    number of real values v with ``(v - lo) mod 2^32 == j``."""
+    lo_t = u32(_lo_tensor(lo, tiles.device))
+    vals = torch.stack(_block_values_plain(tiles, width))
+    valid = _valid_words(tiles.shape[1], n, block_offset, tiles.device)
+    r = torch.arange(BLOCK_VALUES, dtype=torch.int64, device=tiles.device)[:, None, None]
+    d = (vals - lo_t) & _U32
+    keep = (((valid[None] >> r) & 1) == 1) & (d < k)
+    return torch.bincount(d[keep], minlength=k)
+
+
+def histogram_tiles(
+    tiles: torch.Tensor, lo, k: int, width: int, n: int, block_offset: int = 0
+) -> torch.Tensor:
+    """Counts of the k consecutive keys lo..lo+k-1 (1 <= k <= 4096) without
+    bitvectors -> int64[k] on the tiles' device, the JAX package's uint32
+    counts.  ``lo`` is an int or a one-element tensor on the tiles' device,
+    the port's counterpart of the JAX package's traced lo: a CUDA tensor is
+    never read on the host.  ``lo + j`` wraps mod 2^32, as the reference's
+    uint32 window does.
+
+    Kernel ``sss_histogram`` (``csrc/histogram.cu``) on CUDA tensors; the
+    plain version on CPU tensors."""
+    k = int(k)
+    _check_histogram_k(k)
+    b1 = _check_tiles(tiles, width)
+    lo_t = _lo_tensor(lo, tiles.device)
+    device = _cuda.kernel_device(tiles, lo_t)
+    if device is None:
+        return histogram_tiles_plain(tiles, lo_t, k, width, n, block_offset)
+    counts = torch.zeros(k, dtype=torch.int64, device=device)
+    _cuda.launch("sss_histogram", device, tiles.data_ptr(), lo_t.data_ptr(), k, counts.data_ptr(),
+                 b1 * LANES, width, n, block_offset)
+    histogram_tiles.launches += 1
+    return counts
+
+
+histogram_tiles.launches = 0
+
+
+def _histogram_keys(lo: int, k: int) -> tuple:
+    """Keys lo..lo+k-1 as uint32 program keys.  The JAX package's
+    concrete-lo kernels count a key past 2^32 - 1 as 0 (it is >= 2^width);
+    it becomes 0xFFFFFFFF, outside every domain too."""
+    return tuple(min(lo + j, _U32) for j in range(k))
+
+
+@functools.lru_cache(maxsize=64)
+def _span_program(width: int, lo: int, k: int) -> tuple[np.ndarray, int]:
+    """The JAX package's ``_histogram_span_kernel`` as a program for
+    ``sss_histogram_dag``: row j counts key lo+j, in ascending order, every
+    ``_combo`` subtree under ONE memo over the whole span; keys >= 2^width
+    give ZERO rows.  Format and slots as :func:`_static_program`."""
+    ops: list = [width]
+    planes = [_ProgVec(ops, p) for p in range(width)]
+    dom = 1 << width
+    memo: dict = {}
+    for j in range(k):
+        if lo + j < dom:
+            _combo(planes, 0, width, lo + j, memo).out(j)
+        else:
+            ops.append((_ZERO, j, None, None))
+    return _assign_slots(width, ops[1:])
+
+
+@functools.lru_cache(maxsize=64)
+def _span_program_on(width: int, lo: int, k: int, device: torch.device) -> tuple[torch.Tensor, int]:
+    """:func:`_span_program` with its program copied to ``device``."""
+    prog, slots = _span_program(width, lo, k)
+    return torch.from_numpy(prog).to(device), slots
+
+
+def _row_count(row: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    return popcount_words(i32(row & valid)).sum()
+
+
+def _histogram_chunked_tiles_plain(
+    tiles: torch.Tensor, lo: int, k: int, width: int, n: int, block_offset: int = 0
+) -> torch.Tensor:
+    """Plain torch version of :func:`_histogram_chunked_tiles`: per
+    ``_static_group_sizes`` group the memoized ``_combo`` rows of each
+    chunk, popcounted under the validity word."""
+    planes = _bitplanes_plain(tiles, width)
+    valid = _valid_words(tiles.shape[1], n, block_offset, tiles.device)
+    zero = torch.zeros((), dtype=torch.int64, device=tiles.device)
+    dom = 1 << width
+    counts, g0 = [], 0
+    for g in _static_group_sizes(k):
+        keys = np.asarray(_histogram_keys(lo + g0, g), dtype=np.uint32)
+        for _, chunk in _static_chunks(keys):
+            memo: dict = {}
+            counts += [_row_count(_combo(planes, 0, width, key, memo), valid) if key < dom
+                       else zero for key in chunk]
+        g0 += g
+    return torch.stack(counts)
+
+
+def _histogram_chunked_tiles(
+    tiles: torch.Tensor, lo: int, k: int, width: int, n: int, block_offset: int = 0
+) -> torch.Tensor:
+    """Counts of keys lo..lo+k-1 (host lo) through the static AND-DAG in
+    ``_static_krows`` chunks -> int64[k]: one counts-only launch per
+    ``_static_group_sizes`` group, as the JAX package runs one
+    ``_histogram_dag_tiles_impl`` per group.
+
+    Kernel ``sss_histogram_dag`` (``csrc/bitsliced.cu``) on the group's
+    :func:`_static_program` for CUDA tiles; the plain version on CPU tiles."""
+    b1 = _check_tiles(tiles, width)
+    device = _cuda.kernel_device(tiles)
+    if device is None:
+        return _histogram_chunked_tiles_plain(tiles, lo, k, width, n, block_offset)
+    counts = torch.zeros(k, dtype=torch.int64, device=device)
+    g0 = 0
+    for g in _static_group_sizes(k):
+        prog, slots = _static_program_on(width, _histogram_keys(lo + g0, g), device)
+        _cuda.launch(
+            "sss_histogram_dag", device, tiles.data_ptr(), prog.data_ptr(), prog.shape[0], g,
+            counts[g0].data_ptr(), b1 * LANES, width, n, block_offset, _static_threads(slots),
+            slots,
+        )
+        _histogram_chunked_tiles.launches += 1
+        g0 += g
+    return counts
+
+
+_histogram_chunked_tiles.launches = 0
+
+
+def _histogram_span_tiles_plain(
+    tiles: torch.Tensor, lo: int, k: int, width: int, n: int, block_offset: int = 0
+) -> torch.Tensor:
+    """Plain torch version of :func:`_histogram_span_tiles`: the rows of
+    keys lo..lo+k-1 under one memo, each popcounted as it is made."""
+    planes = _bitplanes_plain(tiles, width)
+    valid = _valid_words(tiles.shape[1], n, block_offset, tiles.device)
+    zero = torch.zeros((), dtype=torch.int64, device=tiles.device)
+    dom = 1 << width
+    memo: dict = {}
+    counts = []
+    for key in range(lo, lo + k):
+        if key < dom:
+            counts.append(_row_count(_combo(planes, 0, width, key, memo), valid))
+            memo.pop((0, width, key), None)  # a root is never shared: keep the subtrees only
+        else:
+            counts.append(zero)
+    return torch.stack(counts)
+
+
+def _histogram_span_tiles(
+    tiles: torch.Tensor, lo: int, k: int, width: int, n: int, block_offset: int = 0
+) -> torch.Tensor:
+    """Counts of keys lo..lo+k-1 (host lo) in one pass whose DAG shares
+    every subtree across the whole span -> int64[k].
+
+    Kernel ``sss_histogram_dag`` (``csrc/bitsliced.cu``) on
+    :func:`_span_program` for CUDA tiles; the plain version on CPU tiles."""
+    b1 = _check_tiles(tiles, width)
+    device = _cuda.kernel_device(tiles)
+    if device is None:
+        return _histogram_span_tiles_plain(tiles, lo, k, width, n, block_offset)
+    prog, slots = _span_program_on(width, lo, k, device)
+    counts = torch.zeros(k, dtype=torch.int64, device=device)
+    _cuda.launch(
+        "sss_histogram_dag", device, tiles.data_ptr(), prog.data_ptr(), prog.shape[0], k,
+        counts.data_ptr(), b1 * LANES, width, n, block_offset, _static_threads(slots), slots,
+    )
+    _histogram_span_tiles.launches += 1
+    return counts
+
+
+_histogram_span_tiles.launches = 0
+
+
+def histogram_dag_tiles(
+    tiles: torch.Tensor, lo: int, k: int, width: int, n: int, block_offset: int = 0,
+    single_pass: bool | None = None,
+) -> torch.Tensor:
+    """Histogram of keys lo..lo+k-1 for a host ``lo`` through the shared
+    AND-DAG -> int64[k]; keys >= 2^width count 0 (no wrap past 2^32).
+
+    As the JAX package's ``histogram_dag_tiles``: 48 < k <= 512 takes the
+    single-pass span program (:func:`_histogram_span_tiles`), other k the
+    chunked programs (:func:`_histogram_chunked_tiles`); ``single_pass``
+    forces either."""
+    k = int(k)
+    _check_histogram_k(k)
+    lo = _check_lo(lo)
+    if single_pass is None:
+        single_pass = 48 < k <= 512
+    fn = _histogram_span_tiles if single_pass else _histogram_chunked_tiles
+    return fn(tiles, lo, k, width, n, block_offset)
+
+
+def histogram_device(dev: DeviceColumn, lo=0, k: int | None = None) -> torch.Tensor:
+    """Value histogram of a packed column -> int64 counts (k,), by default
+    the full domain (k = 2^width, capped at 4096).  One pass over the
+    packed words; no bitvector exists.
+
+    Dispatch, as the JAX package's: a host ``lo`` (an int) goes to
+    :func:`histogram_dag_tiles`; a ``lo`` given as a tensor is the port's
+    traced lo and goes to :func:`histogram_tiles`, which never reads a
+    CUDA tensor on the host."""
+    if k is None:
+        k = min(1 << dev.width, MAX_HISTOGRAM_KEYS)
+    if isinstance(lo, torch.Tensor):
+        return histogram_tiles(dev.tiles, lo, k, dev.width, dev.n)
+    return histogram_dag_tiles(dev.tiles, lo, k, dev.width, dev.n)

@@ -18,13 +18,16 @@ evaluating it leaf by leaf:
   scan (:mod:`ops.member`), and its multi-value ranges share one k-range
   pass (:func:`ops.scan.range_scan_tiles`, 32 ranges per call);
 - the remaining boolean structure composes the bitvectors word-wise
-  (:mod:`bitvector`).
+  (:mod:`bitvector`);
+- with ``zonemaps``, a Range/Eq on a mapped column scans only the blocks
+  its zones allow (:func:`zonemap.pruned_range_scan`), and an And's mapped
+  columns leave its fused conjunction for that scan.
 
 Predicate constants are host values, which is what lets the planner pick
 tiers statically; columns are DeviceColumns of the same n.  Returns
 (canonical bitvector words int32[ceil(n/32)], int64 count) with bits at
-i >= n zero.  Zone-map pruning and the sharded evaluation of the JAX
-package are not in the port yet.
+i >= n zero.  The sharded evaluation of the JAX package is not in the
+port yet.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from shared_simd_scan_tpu_torch import bitvector
+from shared_simd_scan_tpu_torch import bitvector, zonemap
 from shared_simd_scan_tpu_torch.layout import DeviceColumn
 from shared_simd_scan_tpu_torch.ops import conj as conj_ops
 from shared_simd_scan_tpu_torch.ops import member as member_ops
@@ -154,13 +157,22 @@ def _group_and_terms(terms):
     return chunks, others, empty
 
 
-def _eval(expr, n: int, device) -> torch.Tensor:
-    """-> canonical bitvector words of the subtree."""
+def _eval(expr, n: int, device, zonemaps: dict | None = None) -> torch.Tensor:
+    """-> canonical bitvector words of the subtree.
+
+    ``zonemaps`` maps ``id(col)`` -> :class:`zonemap.ZoneMap`: a Range/Eq
+    on a mapped column scans only its pruned block span.  An And's Range
+    conjuncts merge per column first; a mapped column's merged range is
+    pruned on its own, the other columns stay in the fused conjunction."""
 
     def zeros():
         return torch.zeros((n + 31) // 32, dtype=torch.int32, device=device)
 
     if isinstance(expr, Range):
+        zm = (zonemaps or {}).get(id(expr.col))
+        if zm is not None:
+            bits, _ = zonemap.pruned_range_scan(expr.col, zm, int(expr.lo), int(expr.hi))
+            return bits
         return _eval(And(expr), n, device)
     if isinstance(expr, In):
         if not expr.keys:
@@ -168,7 +180,7 @@ def _eval(expr, n: int, device) -> torch.Tensor:
         bits, _ = member_ops.member_scan_device(expr.col, np.asarray(expr.keys, np.uint32))
         return bits
     if isinstance(expr, Not):
-        return bitvector.logical_not(_eval(expr.term, n, device), n)
+        return bitvector.logical_not(_eval(expr.term, n, device, zonemaps), n)
     if isinstance(expr, Or):
         if not expr.terms:
             return zeros()
@@ -176,13 +188,13 @@ def _eval(expr, n: int, device) -> torch.Tensor:
         # union is the member semantics); its multi-value ranges share one
         # k-range pass per 32 ranges
         spans_by_col, keys_by_col, others = _group_or_terms(expr.terms)
-        rows = [_eval(t, n, device) for t in others]
+        rows = [_eval(t, n, device, zonemaps) for t in others]
         for col, keys in keys_by_col.values():
-            rows.append(_eval(In(col, keys), n, device))
+            rows.append(_eval(In(col, keys), n, device, zonemaps))
         for col, spans in spans_by_col.values():
             if len(spans) == 1:
                 # a single range: the conj kernel writes the one fused row
-                rows.append(_eval(Range(col, *spans[0]), n, device))
+                rows.append(_eval(Range(col, *spans[0]), n, device, zonemaps))
                 continue
             for at in range(0, len(spans), 32):
                 g = spans[at : at + 32]
@@ -202,6 +214,27 @@ def _eval(expr, n: int, device) -> torch.Tensor:
         if empty:
             return zeros()
         rows = []
+        if zonemaps:
+            # mapped columns take their pruned scan; the rest of each group
+            # stays one fused pass
+            pruned = []
+            for g in chunks:
+                keep = []
+                for col, lo, hi in g:
+                    if id(col) in zonemaps:
+                        pruned.append(_eval(Range(col, lo, hi), n, device, zonemaps))
+                    else:
+                        keep.append((col, lo, hi))
+                if keep:
+                    bits, _ = conj_ops.conj_range_scan_device(
+                        [c for c, _, _ in keep],
+                        np.asarray([lo for _, lo, _ in keep], np.uint32),
+                        np.asarray([hi for _, _, hi in keep], np.uint32),
+                    )
+                    pruned.append(bits)
+            rows.extend(pruned)
+            rows.extend(_eval(t, n, device, zonemaps) for t in others)
+            return bitvector.logical_and(*rows) if rows else _eval(And(), n, device)
         for g in chunks:
             bits, _ = conj_ops.conj_range_scan_device(
                 [c for c, _, _ in g],
@@ -209,18 +242,18 @@ def _eval(expr, n: int, device) -> torch.Tensor:
                 np.asarray([hi for _, _, hi in g], np.uint32),
             )
             rows.append(bits)
-        rows.extend(_eval(t, n, device) for t in others)
+        rows.extend(_eval(t, n, device, zonemaps) for t in others)
         return bitvector.logical_and(*rows)
     raise TypeError(f"not a query expression: {expr!r}")
 
 
 def evaluate(expr, zonemaps: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Evaluate a predicate tree -> (canonical bitvector words, int64
-    count).  Zone-map pruning (``zonemaps``) is not in the port yet
-    (ROADMAP Queue 1 item 11): given zone maps, this raises."""
-    if zonemaps:
-        raise NotImplementedError("zone-map pruning is not ported yet (ROADMAP Queue 1 item 11); "
-                                  "call evaluate without zonemaps")
+    count).
+
+    ``zonemaps``: optional ``{id(col): zonemap.ZoneMap}`` (built by either
+    package): Range/Eq leaves on mapped columns scan only the pruned block
+    span.  Build with ``{id(col): zonemap.build_zonemap(col)}``."""
     cols = _columns(expr)
     if not cols:
         raise ValueError("query references no columns")
@@ -228,7 +261,7 @@ def evaluate(expr, zonemaps: dict | None = None) -> tuple[torch.Tensor, torch.Te
     for c in cols:
         if c.n != n:
             raise ValueError(f"query columns must share n, got {c.n} != {n}")
-    bits = _eval(expr, n, cols[0].tiles.device)
+    bits = _eval(expr, n, cols[0].tiles.device, zonemaps)
     return bits, bitvector.popcount(bits)
 
 

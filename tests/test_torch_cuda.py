@@ -622,3 +622,169 @@ def test_build_is_cached(cuda_device):
     path = _cuda.build()
     assert path == _cuda.library_path() and path.exists()
     assert _cuda.build() == path
+
+
+# ---------------------------------------------------------------------------
+# the histogram, the statistics and the zone maps
+# ---------------------------------------------------------------------------
+
+
+def _lo(lo, device):
+    return _keys([lo], device)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_histogram_kernels_match_plain(cuda_device, width):
+    values = _values(width, N, width + 150, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    dom = 1 << width
+    v0 = int(values[0])
+    # the full domain, windows at 0 and at a value, past the domain and
+    # wrapping past 2^32 (runtime lo only)
+    cases = [(0, min(dom, 4096)), (v0, 5), (0, 49), (max(dom - 20, 0), 64), (dom, 32),
+             ((1 << 32) - 3, 40)]
+    for lo, k in cases:
+        for bo in (0, 2):
+            before = scan.histogram_tiles.launches
+            _same(scan.histogram_tiles(tiles, _lo(lo, cuda_device), k, width, N, bo),
+                  scan.histogram_tiles_plain(tiles, lo, k, width, N, bo))
+            assert scan.histogram_tiles.launches == before + 1
+            for fn in (scan._histogram_chunked_tiles, scan._histogram_span_tiles):
+                before = fn.launches
+                _same(fn(tiles, lo, k, width, N, bo),
+                      getattr(scan, f"{fn.__name__}_plain")(tiles, lo, k, width, N, bo))
+                assert fn.launches > before, fn.__name__
+
+
+def test_histogram_kernels_count_every_value(cuda_device):
+    # a clustered column (every lane of a warp on one bin) and a uniform
+    # one; k = 4096 on both DAG forms
+    width, n = 12, 200_000
+    for values in (torch.arange(n, device=cuda_device, dtype=torch.int32) // 4096,
+                   _values(width, n, 5, cuda_device)):
+        tiles = unpack.pack_device_kernel(values, width).tiles
+        expect = torch.bincount(values.to(torch.int64), minlength=4096)
+        _same(scan.histogram_tiles(tiles, _lo(0, cuda_device), 4096, width, n), expect)
+        _same(scan._histogram_chunked_tiles(tiles, 0, 4096, width, n), expect)
+        _same(scan._histogram_span_tiles(tiles, 0, 4096, width, n), expect)
+
+
+def test_histogram_dispatch_launches_each_kernel(cuda_device):
+    width, n = 9, 40_000
+    vals = harness.synth_modk(n, 512, width, device=cuda_device)
+    dev = port.pack_device_kernel(vals, width)
+    expect = torch.bincount(vals.to(torch.int64), minlength=512)
+    lo = _lo(100, cuda_device)
+    cases = [((0, None), scan._histogram_span_tiles, expect),
+             ((100, 40), scan._histogram_chunked_tiles, expect[100:140]),
+             ((lo, 40), scan.histogram_tiles, expect[100:140])]
+    for (lo_, k), fn, want in cases:
+        before = fn.launches
+        torch.cuda.synchronize()
+        if isinstance(lo_, torch.Tensor):  # runtime lo: nothing is read on the host
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = port.histogram_device(dev, lo_, k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert fn.launches == before + 1, fn.__name__
+        _same(got, want)
+
+
+def test_stats_on_the_card_equal_the_cpu(cuda_device):
+    for width, n in ((9, 30_000), (13, 50_000)):
+        host = np.random.default_rng(width).integers(0, 1 << width, n).astype(np.uint32)
+        gdev = port.pack_device_kernel(torch.from_numpy(host.view(np.int32)).to(cuda_device), width)
+        cdev = port.layout.pack_device(host, width, device="cpu")
+        counts = port.stats.histogram_full(gdev)
+        np.testing.assert_array_equal(counts, np.bincount(host, minlength=1 << width))
+        np.testing.assert_array_equal(counts, port.stats.histogram_full(cdev))
+        assert port.stats.describe(gdev) == port.stats.describe(cdev)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_zoned_kernel_matches_plain(cuda_device, width):
+    n = 9 * 8 * 128 * 32 - 77  # b1 = 72, ragged tail
+    values = _values(width, n, width + 170, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    dom = 1 << width
+    lo_t = _keys([0, 1, dom - 1, 0xFFFFFFF0], cuda_device)
+    hi_t = _keys([dom, 0, 2, 0], cuda_device)
+    # live steps 0, 4 and the last (the ragged one), then a flag-0 repeat
+    idx = torch.tensor([0, 4, 8, 8], dtype=torch.int32, device=cuda_device)
+    flag = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=cuda_device)
+    for tb in (8, 72):
+        i, f = (idx, flag) if tb == 8 else (idx[:1], flag[:1])
+        before = port.zonemap.zoned_range_tiles.launches
+        _same(port.zonemap.zoned_range_tiles(tiles, i, f, lo_t, hi_t, width, n, tb),
+              port.zonemap.zoned_range_tiles_plain(tiles, i, f, lo_t, hi_t, width, n, tb))
+        assert port.zonemap.zoned_range_tiles.launches == before + 1
+
+
+def test_zone_maps_on_the_card_equal_the_cpu(cuda_device):
+    zm_mod = port.zonemap
+    width, n = 9, 9 * 8 * 128 * 32
+    rng = np.random.default_rng(5)
+    host = rng.integers(100, 200, size=n).astype(np.uint32)
+    host[: 4096 * 8] = 7
+    host[-4096 * 8:] = 7
+    srt = np.sort(rng.integers(0, 512, size=n).astype(np.uint32))
+    for vals in (host, srt):
+        gdev = port.pack_device_kernel(torch.from_numpy(vals.view(np.int32)).to(cuda_device), width)
+        cdev = port.layout.pack_device(vals, width, device="cpu")
+        gz, cz = zm_mod.build_zonemap(gdev, zone_b1=8), zm_mod.build_zonemap(cdev, zone_b1=8)
+        np.testing.assert_array_equal(gz.zmin, cz.zmin)
+        np.testing.assert_array_equal(gz.zmax, cz.zmax)
+        for lo, hi in ((7, 8), (100, 102), (150, 160), (300, 400)):
+            for fn in (zm_mod.pruned_range_scan, zm_mod.zoned_range_scan):
+                gbits, gcount = fn(gdev, gz, lo, hi)
+                cbits, ccount = fn(cdev, cz, lo, hi)
+                _same(gbits.cpu(), cbits)
+                mask = (vals >= lo) & (vals < hi)
+                assert int(gcount) == int(ccount) == int(mask.sum()), (fn.__name__, lo, hi)
+    # the end clusters of `host` take the zoned kernel on 2 of 9 steps
+    gdev = port.pack_device_kernel(torch.from_numpy(host.view(np.int32)).to(cuda_device), width)
+    gz = zm_mod.build_zonemap(gdev, zone_b1=8)
+    before = zm_mod.zoned_range_tiles.launches
+    bits, count = zm_mod.zoned_eq_scan(gdev, gz, 7, tb=8)
+    assert zm_mod.zoned_range_tiles.launches == before + 1
+    _same(bits, bitvector.from_bool(torch.from_numpy(host == 7).to(cuda_device)))
+
+
+def test_query_with_zone_maps_on_the_card(cuda_device):
+    width, n = 9, 40_000
+    rng = np.random.default_rng(7)
+    a_vals = np.sort(rng.integers(0, 1 << width, size=n).astype(np.uint32))
+    b_vals = rng.integers(0, 1 << width, size=n).astype(np.uint32)
+    a, b = (port.pack_device_kernel(torch.from_numpy(v.view(np.int32)).to(cuda_device), width)
+            for v in (a_vals, b_vals))
+    zmaps = {id(a): port.zonemap.build_zonemap(a, zone_b1=8)}
+    expr = query.And(query.Range(a, 100, 120), query.Not(query.Eq(b, 7)))
+    before = scan.range_scan_tiles.launches
+    bits, count = query.evaluate(expr, zonemaps=zmaps)
+    assert scan.range_scan_tiles.launches == before + 1
+    plain_bits, plain_count = query.evaluate(expr)
+    _same(bits, plain_bits)
+    assert int(count) == int(plain_count) == int(
+        ((a_vals >= 100) & (a_vals < 120) & (b_vals != 7)).sum())
+
+
+def test_refused_histogram_and_zoned_launches_raise(cuda_device):
+    tiles = torch.zeros((9, 8, 128), dtype=torch.int32, device=cuda_device)
+    lo = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    counts = torch.zeros(4097, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="sss_histogram"):
+        # 4097 bins: more than the kernel's shared counters hold
+        _cuda.launch("sss_histogram", cuda_device, tiles.data_ptr(), lo.data_ptr(), 4097,
+                     counts.data_ptr(), 8 * 128, 9, 100, 0)
+    prog, _ = scan._span_program_on(9, 0, 64, cuda_device)
+    with pytest.raises(RuntimeError, match="sss_histogram_dag"):
+        _cuda.launch("sss_histogram_dag", cuda_device, tiles.data_ptr(), prog.data_ptr(),
+                     prog.shape[0], 4097, counts.data_ptr(), 8 * 128, 9, 100, 0, 128, 64)
+    idx = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    bits = torch.zeros((1, 8, 128), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="sss_zoned_range_scan"):
+        # a step of 0 blocks
+        _cuda.launch("sss_zoned_range_scan", cuda_device, tiles.data_ptr(), idx.data_ptr(),
+                     idx.data_ptr(), 1, lo.data_ptr(), lo.data_ptr(), 1, bits.data_ptr(),
+                     counts.data_ptr(), 8 * 128, 0, 9, 100)

@@ -15,6 +15,7 @@ from shared_simd_scan_tpu import query as jq
 from shared_simd_scan_tpu_torch import bitvector as tbitvector
 from shared_simd_scan_tpu_torch import layout as tlayout
 from shared_simd_scan_tpu_torch import query as tq
+from shared_simd_scan_tpu_torch import zonemap as tzonemap
 from shared_simd_scan_tpu_torch.ops import member as tmember
 
 torch.set_num_threads(1)
@@ -162,8 +163,13 @@ def test_refusals(table):
     other = tlayout.pack_device(np.zeros(100, np.uint32), 9, device="cpu")
     with pytest.raises(ValueError, match="share n"):
         tq.evaluate(tq.And(tq.Eq(tcols["price"], 1), tq.Eq(other, 1)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tq.evaluate(tq.Eq(tcols["price"], 1), zonemaps={id(tcols["price"]): object()})
+    # zone maps prune the scan; the result is the one without them
+    price = tcols["price"]
+    zmaps = {id(price): tzonemap.build_zonemap(price, zone_b1=8)}
+    for expr in (tq.Eq(price, 1), tq.And(tq.Range(price, 3, 90), tq.Eq(tcols["region"], 4))):
+        bits, count = tq.evaluate(expr, zonemaps=zmaps)
+        plain_bits, plain_count = tq.evaluate(expr)
+        assert torch.equal(bits, plain_bits) and int(count) == int(plain_count)
     with pytest.raises(TypeError):
         tq.evaluate("price < 3")
     # In copies nothing to the host behind the caller's back; a CPU tensor is fine
