@@ -66,10 +66,27 @@ from the sources in the checkout and then:
    after each call; checks that each call ran the kernel its rule names and
    equals plain torch on the raw values (``bincount``, per-zone
    ``amin``/``amax``, the full range scan, ``evaluate`` without zone maps);
-9. times each kernel and its plain version at the full-size shapes with
-   CUDA events, beside a ``copy_`` of the packed column, and computes each
-   kernel's bound: its bytes over the card's 3.35 TB/s;
-10. prints a JSON line with one entry per kernel, and as its last line
+9. holds the linear export's kernels against their plain versions at small
+   ragged sizes (the interleave at k 1-1024 and the stream interleave with
+   ragged M; the fused interval, static and runtime-key kernels at every k
+   their tiers admit, widths 1-31, a ``block_offset``, keys past the
+   domain, 0xFFFFFFFF and duplicates), then drives the linear export at
+   full size on the main path's column and the ``i % 512`` column: L1-L4
+   ``shared_scan_linear_words_device`` (keys 0..7; S8 as host keys and as
+   CUDA keys under ``set_sync_debug_mode("error")``; S64 both ways), L5
+   ``shared_scan_linear_device`` (keys 0..5, uint8) and L6 (S64 as eight
+   fused groups of 8 joined by ``interleave_streams_words``), with the
+   launch counters set to 0 just before each call and read just after;
+   checks that each set ran the kernel its rule names, its counts against
+   their closed form, every word against the plain twin and the linear
+   bytes, de-interleaved, against ``shared_scan_device``'s bits;
+10. times each kernel and its plain version at the full-size shapes with
+    CUDA events, beside a ``copy_`` of the packed column, and computes each
+    kernel's bound: its bytes over the card's 3.35 TB/s; each fused linear
+    kernel also beside its two-pass composition (scan kernel, then the
+    interleave kernel), the interleave beside the PyTorch call that gives
+    the same bytes (``.t().contiguous()``);
+11. prints a JSON line with one entry per kernel, and as its last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check or error exits non-zero and prints no result; so does a
@@ -153,6 +170,16 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                        "shared_simd_scan_tpu/ops/scan.py:1816"),
     "zoned_range_scan": ("shared_simd_scan_tpu_torch/csrc/zoned.cu",
                          "shared_simd_scan_tpu/zonemap.py:298"),
+    "interval_scan_linear": ("shared_simd_scan_tpu_torch/csrc/interval_scan.cu",
+                             "shared_simd_scan_tpu/ops/scan.py:618"),
+    "static_scan_linear": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
+                           "shared_simd_scan_tpu/ops/scan.py:854"),
+    "bitsliced_scan_linear": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
+                              "shared_simd_scan_tpu/ops/scan.py:1025"),
+    "interleave": ("shared_simd_scan_tpu_torch/csrc/linear.cu",
+                   "shared_simd_scan_tpu/ops/linear.py:339"),
+    "interleave_streams": ("shared_simd_scan_tpu_torch/csrc/linear.cu",
+                           "shared_simd_scan_tpu/ops/linear.py:201"),
 }
 # the kernels of the arbitrary-key path, and the tier each one serves
 ARBITRARY = {"bitsliced_static_scan": "bitsliced_static", "windowed_scan": "windowed",
@@ -175,6 +202,15 @@ AGG_PAIRS = ((1, 16), (2, 17), (9, 31), (16, 1), (17, 2), (31, 9), (9, 20), (5, 
 HISTOGRAM = {"histogram_span": "H1", "histogram_dag": "H2", "histogram": "H3"}
 # the zone-map path's kernel, and the set it reports
 ZONED = {"zoned_range_scan": "Z3"}
+# the linear export's kernels, and the shape each one reports (L sets of
+# the linear phase; the interleave at k = 8 on the main path's bits)
+LINEAR = {"interval_scan_linear": "L1", "static_scan_linear": "L2",
+          "bitsliced_scan_linear": "L3", "interleave": "k=8", "interleave_streams": "L6"}
+LINEAR_WIDTHS = (1, 2, 9, 17, 31)
+# every k of the fused tiers (linear._mxu_supported, linear._mxu_large_supported)
+FUSED_KS = tuple(k for k in range(4, 129, 4) if k <= 64 or k % 8 == 0)
+INTERLEAVE_KS = (1, 3, 4, 6, 8, 12, 16, 24, 33, 64, 1024)
+STREAM_CASES = ((4, 2), (3, 2), (8, 2), (4, 128))
 HIST_WIDTHS = (1, 2, 9, 12, 16, 17, 31)
 HIST_KS = (1, 5, 32, 48, 49, 64, 512, 4096)
 ZONE_B1 = 64
@@ -190,7 +226,7 @@ def s64() -> list[int]:
 def wrappers() -> dict:
     """Kernel name -> the wrapper whose ``launches`` counts its launches."""
     from shared_simd_scan_tpu_torch import zonemap
-    from shared_simd_scan_tpu_torch.ops import aggregate, conj, member, scan, unpack
+    from shared_simd_scan_tpu_torch.ops import aggregate, conj, linear, member, scan, unpack
 
     return {
         "unpack": unpack.unpack_tiles, "pack": unpack.pack_tiles,
@@ -209,6 +245,11 @@ def wrappers() -> dict:
         "histogram": scan.histogram_tiles, "histogram_dag": scan._histogram_chunked_tiles,
         "histogram_span": scan._histogram_span_tiles,
         "zoned_range_scan": zonemap.zoned_range_tiles,
+        "interval_scan_linear": scan._interval_linear_tiles_impl,
+        "static_scan_linear": scan._static_linear_tiles_impl,
+        "bitsliced_scan_linear": scan._bitsliced_linear_tiles_impl,
+        "interleave": linear.interleave_words,
+        "interleave_streams": linear.interleave_streams_words,
     }
 
 
@@ -393,7 +434,7 @@ def main_path_phase(device) -> tuple[int, object, dict]:
     from shared_simd_scan_tpu_torch.ops import scan
 
     path = {name: fn for name, fn in wrappers().items()
-            if name not in (*ARBITRARY, *QUERY, *AGGREGATE, *HISTOGRAM, *ZONED)}
+            if name not in (*ARBITRARY, *QUERY, *AGGREGATE, *HISTOGRAM, *ZONED, *LINEAR)}
     n = harness.values_for(DATA_SIZE, WIDTH)
     vals = harness.synth_modk(n, K, WIDTH, device=device)
     torch.cuda.synchronize()
@@ -1639,6 +1680,302 @@ def stats_timing_phase(device, arb, rev, zdata, errs: dict) -> dict:
     return results
 
 
+def small_linear_phase(device, errs: dict) -> None:
+    """The linear export's kernels against their plain versions at small
+    ragged sizes: the interleave at k 1-1024 on random words (ragged byte
+    counts, rows of a wider buffer) and the stream interleave with ragged
+    M; the fused kernels at every k their tiers admit, widths 1-31, with a
+    ``block_offset``, keys past the domain, 0xFFFFFFFF and duplicates."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch.ops import linear, scan, unpack
+
+    rng = np.random.default_rng(SEED + 6)
+
+    def words(shape):
+        w = rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
+        return torch.from_numpy(w.view(np.int32)).to(device)
+
+    def note(name, a, b):
+        e = max(max_abs_err(a[0], b[0]), int((a[1] - b[1]).abs().max())) \
+            if isinstance(a, tuple) else max_abs_err(a, b)
+        errs[name] = max(errs[name], e)
+
+    for k in INTERLEAVE_KS:
+        for w in (1, 257, 9000):
+            bits = words((k, w))
+            for nwords in (w * k, -(-(4 * w - 3) * k // 4)):
+                note("interleave", linear.interleave_words(bits, nwords),
+                     linear.interleave_words_plain(bits, nwords))
+            wide = torch.zeros((k, w + 77), dtype=torch.int32, device=device)
+            wide[:, :w] = bits
+            note("interleave", linear.interleave_words(wide[:, :w], w * k),
+                 linear.interleave_words_plain(bits, w * k))
+    for m, g in STREAM_CASES:
+        for big_m in (1, 1000, 4099):
+            streams = words((m, big_m))
+            for nwords in (m * big_m - 5, m * big_m + 37):
+                if nwords > 0:
+                    note("interleave_streams", linear.interleave_streams_words(streams, g, nwords),
+                         linear.interleave_streams_words_plain(streams, g, nwords))
+    for width in LINEAR_WIDTHS:
+        dom = 1 << width
+        for n in SMALL_NS:
+            vals = torch.from_numpy(rng.integers(0, dom, size=n).astype(np.int32)).to(device)
+            tiles = unpack.pack_device_kernel(vals, width).tiles
+            for k in FUSED_KS:
+                keys = rng.integers(0, dom, size=k).astype(np.uint32)
+                keys[1], keys[2], keys[3] = keys[0], min(dom, 0xFFFFFFFF), 0xFFFFFFFF
+                kt = torch.from_numpy(keys.view(np.int32)).to(device)
+                for bo in ((0, 2) if n == SMALL_NS[1] else (0,)):
+                    for lo in (0, max(dom - 5, 0), 0xFFFFFFFF - 2):
+                        note("interval_scan_linear",
+                             scan._interval_linear_tiles_impl(tiles, lo, k, width, n, bo),
+                             scan._interval_linear_tiles_plain(tiles, lo, k, width, n, bo))
+                    note("static_scan_linear", scan._static_linear_tiles_impl(tiles, keys, width, n, bo),
+                         scan._static_linear_tiles_plain(tiles, keys, width, n, bo))
+                    note("bitsliced_scan_linear",
+                         scan._bitsliced_linear_tiles_impl(tiles, kt, width, n, bo),
+                         scan._bitsliced_linear_tiles_plain(tiles, kt, width, n, bo))
+    torch.cuda.synchronize()
+    for name in LINEAR:
+        check(errs[name] == 0, f"{name} kernel bit-exact against its plain version (widths "
+              f"{LINEAR_WIDTHS}, n {SMALL_NS}, fused k {FUSED_KS[0]}-{FUSED_KS[-1]}, interleave k "
+              f"{INTERLEAVE_KS}, streams {STREAM_CASES})")
+
+
+def deinterleave(lin, k: int, nbytes: int):
+    """Linear bytes (uint8, or int32 words) -> uint8 [k, nbytes], row j the
+    bitvector bytes of key j."""
+    import torch
+
+    return lin.view(torch.uint8)[: nbytes * k].view(nbytes, k).t()
+
+
+def linear_phase(device, dev, arb) -> dict:
+    """The linear export at full size, with the launch counters set to 0
+    just before each call and read just after: L1-L4
+    ``shared_scan_linear_words_device`` (keys 0..7 on the main path's
+    column; S8 host keys, S8 as CUDA keys under
+    ``set_sync_debug_mode("error")``, S64 both ways on the i % 512 column),
+    L5 ``shared_scan_linear_device`` (keys 0..5, uint8), L6 S64 as eight
+    fused groups of 8 joined by ``interleave_streams_words(g=2)``."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch import shared_scan_device, shared_scan_linear_device
+    from shared_simd_scan_tpu_torch.ops import linear, scan
+
+    kernels = {name: fn for name, fn in wrappers().items() if name in LINEAR}
+    others = {name: fn for name, fn in wrappers().items() if name not in LINEAR}
+    n = dev.n
+    nbytes = (n + 7) // 8
+    s64_keys = s64()
+    main_keys, k6 = list(range(K)), list(range(6))
+    cuda_s8 = torch.tensor(S8, dtype=torch.int32, device=device)
+    cuda_s64 = torch.tensor(s64_keys, dtype=torch.int32, device=device)
+    torch.cuda.synchronize()
+    print(f"linear phase: the main path's column (i % {K}) and the i % {DOMAIN} column, n {n}, "
+          f"nbytes {nbytes}")
+    sets = {  # name -> (call, keys, column, the kernel its rule names, runtime keys)
+        "L1": (lambda: scan.shared_scan_linear_words_device(dev, main_keys), main_keys, dev,
+               "interval_scan_linear", False),
+        "L2": (lambda: scan.shared_scan_linear_words_device(arb, S8), S8, arb,
+               "static_scan_linear", False),
+        "L3": (lambda: scan.shared_scan_linear_words_device(arb, cuda_s8), S8, arb,
+               "bitsliced_scan_linear", True),
+        "L4 host": (lambda: scan.shared_scan_linear_words_device(arb, s64_keys), s64_keys, arb,
+                    "static_scan_linear", False),
+        "L4 CUDA": (lambda: scan.shared_scan_linear_words_device(arb, cuda_s64), s64_keys, arb,
+                    "bitsliced_scan_linear", True),
+        "L5": (lambda: shared_scan_linear_device(dev, k6), k6, dev, None, False),
+        "L6": (lambda: linear.interleave_streams_words(torch.stack([
+            scan.static_scan_linear_words_tiles(arb.tiles, s64_keys[8 * g: 8 * g + 8], WIDTH, n,
+                                                flat=False)[0].reshape(-1) for g in range(8)]),
+            2, nbytes * 64 // 4), s64_keys, arb, None, False),
+    }
+    launches = {name: 0 for name in LINEAR}
+    for name, (call, keys, col, want, runtime) in sets.items():
+        for fn in (*kernels.values(), *others.values()):
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        if runtime:  # CUDA-tensor keys: any device-to-host copy raises
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+        ran = {k: fn.launches for k, fn in {**kernels, **others}.items() if fn.launches}
+        for k_name in LINEAR:
+            launches[k_name] += kernels[k_name].launches
+        print(f"{name}: k={len(keys)}, {out.numel() * out.element_size()} bytes, ran {ran}, "
+              f"{wall:.3f} ms host clock (first call)")
+        if want is not None:
+            check(ran == {want: 1}, f"{name}: ran {ran}, the kernel its rule names ({want})")
+        elif name == "L5":
+            check(ran == {"interval_scan": 1, "interleave": 1},
+                  f"L5: ran {ran}: k=6 takes the interval kernel, then the interleave kernel")
+        else:
+            check(ran == {"static_scan_linear": 8, "interleave_streams": 1},
+                  f"L6: ran {ran}: eight fused static groups, then the stream interleave")
+        k = len(keys)
+        # the counts against their closed form, and the words against the plain twin
+        modulus = K if col is dev else DOMAIN
+        expect = [(n - 1 - key) // modulus + 1 if key < modulus else 0 for key in keys]
+        host = np.asarray(keys, np.uint32)
+        if name == "L5":
+            bits, counts = shared_scan_device(dev, k6)
+            plain, _ = scan.interval_scan_tiles_plain(dev.tiles, 0, 6, WIDTH, n)
+            plain = linear.interleave_words_plain(plain.reshape(6, -1), -(-nbytes * 6 // 4))
+            plain = plain.view(torch.uint8)[: nbytes * 6]
+        else:
+            if name == "L1":
+                tier = scan.interval_scan_linear_words_tiles(dev.tiles, 0, K, WIDTH, n)
+                plain = scan._interval_linear_tiles_plain(dev.tiles, 0, K, WIDTH, n)
+            elif runtime:
+                kt = cuda_s8 if k == 8 else cuda_s64
+                tier = (scan.bitsliced_scan_linear_words_tiles(arb.tiles, kt, WIDTH, n) if k == 8
+                        else scan.bitsliced_scan_linear_words_large(arb.tiles, kt, k, WIDTH, n))
+                plain = scan._bitsliced_linear_tiles_plain(arb.tiles, kt, WIDTH, n)
+            else:
+                tier = (scan.static_scan_linear_words_tiles(arb.tiles, keys, WIDTH, n) if k == 8
+                        else scan.static_scan_linear_words_large(arb.tiles, keys, WIDTH, n))
+                plain = scan._static_linear_tiles_plain(arb.tiles, host, WIDTH, n)
+            counts = tier[1]
+            check(torch.equal(tier[0], out), f"{name}: the tier function's words == the dispatcher's")
+            plain = plain[0].reshape(-1)[: out.numel()]
+            del tier
+            bits, _ = shared_scan_device(col, keys)
+        check(counts.tolist() == expect, f"{name}: counts == closed form")
+        check(torch.equal(out, plain), f"{name}: every word equals the plain twin's")
+        del plain
+        check(torch.equal(deinterleave(out, k, nbytes), bits.view(torch.uint8)[:, :nbytes]),
+              f"{name}: the linear bytes de-interleaved == shared_scan_device's bits for the same "
+              f"keys")
+        del bits
+        if name == "L4 host":
+            l4 = out
+        elif name in ("L4 CUDA", "L6"):
+            check(torch.equal(out, l4), f"{name}: every word == L4's (host keys)")
+        del out
+    del l4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"linear phase launches {launches}")
+    return launches
+
+
+def linear_timing_phase(device, dev, arb, errs: dict) -> tuple[dict, dict]:
+    """Each linear kernel and its plain twin at full size, beside a
+    ``copy_`` of the packed column; each fused kernel also beside its scan
+    body alone (the bits-form kernel) and the two-pass composition (that
+    kernel, then the interleave kernel); the interleave beside the one
+    PyTorch call that computes the same bytes (the uint8 view's
+    ``.t().contiguous()``), the stream interleave beside
+    ``transpose(0, 1).contiguous()``.  Returns (times, extras)."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch.layout import LANES
+    from shared_simd_scan_tpu_torch.ops import linear, scan
+
+    n = dev.n
+    tiles, atiles = dev.tiles, arb.tiles
+    nblocks = tiles.shape[1] * LANES
+    tile_bytes = tiles.numel() * 4
+    s64_keys = s64()
+    kt = {8: torch.tensor(S8, dtype=torch.int32, device=device),
+          64: torch.tensor(s64_keys, dtype=torch.int32, device=device)}
+    hk = {8: S8, 64: s64_keys}
+
+    def fused_bytes(k, keys_array):  # tiles read, k words per block written, counts, keys
+        return tile_bytes + nblocks * k * 4 + k * 8 + (4 * k if keys_array else 0)
+
+    def two_pass(scan_fn, k):  # (the two-pass composition, the scan body alone)
+        def run():
+            bits, _ = scan_fn()
+            return linear.interleave_words(bits.reshape(k, -1), nblocks * k)
+        return run, scan_fn
+
+    bits8, _ = scan.interval_scan_tiles(tiles, 0, K, WIDTH, n)
+    bits8 = bits8.reshape(K, -1)
+    bits6 = scan.interval_scan_tiles(tiles, 0, 6, WIDTH, n)[0].reshape(6, -1)
+    streams = torch.stack([scan._static_linear_tiles_impl(
+        atiles, np.asarray(s64_keys[8 * g: 8 * g + 8], np.uint32), WIDTH, n)[0].reshape(-1)
+        for g in range(8)])
+    nw_streams = streams.numel()
+    cases = {  # name -> (kernel, plain, bytes, two-pass or library call)
+        "interval_scan_linear L1": (
+            lambda: scan._interval_linear_tiles_impl(tiles, 0, K, WIDTH, n),
+            lambda: scan._interval_linear_tiles_plain(tiles, 0, K, WIDTH, n),
+            fused_bytes(K, False), two_pass(lambda: scan.interval_scan_tiles(tiles, 0, K, WIDTH, n), K)),
+        "interleave k=8": (
+            lambda: linear.interleave_words(bits8, nblocks * K),
+            lambda: linear.interleave_words_plain(bits8, nblocks * K),
+            2 * bits8.numel() * 4, (lambda: bits8.view(torch.uint8).t().contiguous(), None)),
+        "interleave k=6": (
+            lambda: linear.interleave_words(bits6, nblocks * 6),
+            lambda: linear.interleave_words_plain(bits6, nblocks * 6),
+            2 * bits6.numel() * 4, (lambda: bits6.view(torch.uint8).t().contiguous(), None)),
+        "interleave_streams L6": (
+            lambda: linear.interleave_streams_words(streams, 2, nw_streams),
+            lambda: linear.interleave_streams_words_plain(streams, 2, nw_streams),
+            2 * nw_streams * 4,
+            (lambda: streams.view(8, -1, 2).transpose(0, 1).contiguous(), None)),
+    }
+    for k, label in ((8, "L2"), (64, "L4")):
+        keys_np = np.asarray(hk[k], np.uint32)
+        cases[f"static_scan_linear {label}"] = (
+            lambda keys_np=keys_np: scan._static_linear_tiles_impl(atiles, keys_np, WIDTH, n),
+            lambda keys_np=keys_np: scan._static_linear_tiles_plain(atiles, keys_np, WIDTH, n),
+            fused_bytes(k, False), two_pass(lambda k=k: scan.shared_scan_bitsliced_static_tiles(
+                atiles, hk[k], WIDTH, n), k))
+        cases[f"bitsliced_scan_linear {'L3' if k == 8 else 'L4'}"] = (
+            lambda k=k: scan._bitsliced_linear_tiles_impl(atiles, kt[k], WIDTH, n),
+            lambda k=k: scan._bitsliced_linear_tiles_plain(atiles, kt[k], WIDTH, n),
+            fused_bytes(k, True), two_pass(lambda k=k: scan.shared_scan_bitsliced_tiles(
+                atiles, kt[k], WIDTH, n), k))
+    for name, (kern, plain, _, (other, _)) in cases.items():
+        kernel = name.split()[0]
+        a, b = kern(), plain()
+        e = max(max_abs_err(a[0], b[0]), int((a[1] - b[1]).abs().max())) \
+            if isinstance(a, tuple) else max_abs_err(a, b)
+        errs[kernel] = max(errs[kernel], e)
+        if kernel == "interleave" or kernel == "interleave_streams":
+            lib = other().reshape(-1)
+            check(torch.equal(lib.view(torch.int32) if lib.dtype == torch.uint8 else lib, a),
+                  f"{name}: the library call gives the kernel's words")
+        else:
+            check(torch.equal(other(), a[0].reshape(-1)), f"{name}: the two-pass composition "
+                  "gives the fused kernel's words")
+        del a, b
+        check(errs[kernel] == 0, f"{name} kernel bit-exact against its plain twin at full size")
+
+    copy_dst = torch.empty_like(tiles)
+    copy_ms = time_ms(lambda: copy_dst.copy_(tiles), batches=5, calls=10)
+    print(f"copy_ of the packed column ({tile_bytes} bytes): {copy_ms:.6f} ms")
+    del copy_dst
+    times, extras = {}, {}
+    for name, (kern, plain, nbytes, (other, body)) in cases.items():
+        ms = time_ms(kern, batches=5, calls=10)
+        plain_ms = time_ms(plain, batches=3, calls=2)
+        other_ms = time_ms(other, batches=5, calls=5)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        times[name] = (ms, plain_ms, bound_ms)
+        kind = "library" if body is None else "two_pass"
+        extras[name] = {f"{kind}_ms": other_ms}
+        if body is not None:
+            extras[name]["body_ms"] = time_ms(body, batches=5, calls=10)
+        print(f"time {name}: kernel {ms:.6f} ms (bound {bound_ms:.6f} ms for {nbytes} bytes, "
+              f"{bound_ms / ms:.4f} of it); plain {plain_ms:.6f} ms; {kind.replace('_', '-')} "
+              f"{other_ms:.6f} ms" + ("" if body is None else
+                                     f"; scan body alone {extras[name]['body_ms']:.6f} ms"))
+    del bits8, bits6, streams
+    torch.cuda.empty_cache()
+    return times, extras
+
+
 def main() -> int:
     root = pathlib.Path(__file__).resolve().parent
     if not (root / "shared_simd_scan_tpu_torch" / "__init__.py").is_file():
@@ -1677,10 +2014,14 @@ def main() -> int:
     launches.update(stats_phase(device, arb, cols, agg_data["rev"]))
     zdata, zone_launches = zone_phase(device, cols)
     launches.update({name: zone_launches[name] for name in ZONED})
+    small_linear_phase(device, errs)
+    launches.update(linear_phase(device, dev, arb))
     times = timing_phase(device, n, dev, arb, errs)
     times.update(query_timing_phase(device, cols, arb, errs))
     times.update(aggregate_timing_phase(device, cols, agg_data, errs))
     times.update(stats_timing_phase(device, arb, agg_data["rev"], zdata, errs))
+    linear_times, extras = linear_timing_phase(device, dev, arb, errs)
+    times.update(linear_times)
     check("jax" not in sys.modules, "no jax module was imported")
 
     def entry(name, src, rep):
@@ -1688,8 +2029,9 @@ def main() -> int:
         # (S64); each query-path kernel its own set, the OR-tree S8 and S64;
         # each aggregate kernel its set of the aggregate phase and, beside
         # it, its times on the other keyed sets; the histogram and zoned
-        # kernels their H and Z sets
-        sets = {**AGGREGATE, **HISTOGRAM, **ZONED}
+        # kernels their H and Z sets; the linear kernels their L set (the
+        # interleave k=8), with the two-pass or library time beside it
+        sets = {**AGGREGATE, **HISTOGRAM, **ZONED, **LINEAR}
         if name in sets:
             key = f"{name} {sets[name]}"
         else:
@@ -1704,6 +2046,14 @@ def main() -> int:
             e["ms_k64"], e["plain_ms_k64"], e["bound_ms_k64"] = times[f"{name} k=64"]
         elif " " in key:
             e["set"] = key.split(" ", 1)[1]
+        if name in LINEAR:
+            e.update(extras[key])
+            other = {"static_scan_linear": "L4", "bitsliced_scan_linear": "L4",
+                     "interleave": "k=6"}.get(name)
+            if other:
+                e[f"ms_{other}"], e[f"plain_ms_{other}"], e[f"bound_ms_{other}"] = \
+                    times[f"{name} {other}"]
+                e.update({f"{k}_{other}": v for k, v in extras[f"{name} {other}"].items()})
         if name == "member_ortree":
             e["ms_s64"], e["plain_ms_s64"], e["bound_ms_s64"] = times["member_ortree S64"]
         if name in AGGREGATE:

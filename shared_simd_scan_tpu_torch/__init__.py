@@ -5,7 +5,8 @@ hand-written CUDA kernels for Hopper (sm_90a).  It covers packing a
 column into the tile layout and decompressing it, every tier of the k-key
 shared scan and the single-key scan, the range scan, the fused
 multi-column conjunction, the IN-list member scan, the predicate-tree
-query layer (``query.evaluate``, with zone-map pruning), the aggregates:
+query layer (``query.evaluate``, with zone-map pruning), the linear
+(interleaved) export (``shared_scan_linear_device``), the aggregates:
 keyed SUM/COUNT and MIN/MAX, and SUM/COUNT under a bitvector; the value
 histogram and the statistics drawn from it (``stats``), and zone maps
 (``zonemap``).  Module names mirror the JAX package; the port imports
@@ -30,6 +31,7 @@ from shared_simd_scan_tpu_torch import zonemap  # noqa: F401
 from shared_simd_scan_tpu_torch.ops.scan import (  # noqa: F401
     scan_device,
     shared_scan_device,
+    shared_scan_linear_device,
     interval_scan_device,
     range_scan_device,
     histogram_device,

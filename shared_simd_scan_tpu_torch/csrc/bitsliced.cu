@@ -28,7 +28,14 @@
 //    of consecutive keys, no bitvector (sss_histogram_dag, the counts-only
 //    form of the static kernel).  The chunked form runs _static_program's
 //    per-chunk memos, the span form one memo over all k keys
-//    (ops/scan.py _span_program); both are the same instruction format.
+//    (ops/scan.py _span_program); both are the same instruction format;
+//  - _bitsliced_linear_kernel / _bitsliced_linear_tiles_impl (scan.py:1025)
+//    and _static_linear_kernel / _static_linear_tiles_impl (scan.py:854):
+//    the runtime fold and the static program with their rows staged as
+//    linear bytes (sss_bitsliced_scan_linear, the linear form of the static
+//    kernel: sss_bitsliced_static_scan_linear), as interval_scan.cu's fused
+//    form does.  The stage sits beside the node slots, so the host sizes
+//    the static form's CTA for both (ops/scan.py _static_linear_threads).
 //
 // Bound on the H100: device memory bytes (reads W words, writes k words per
 // 32 values) while k is small; the integer instruction rate beyond: the runtime fold costs
@@ -45,6 +52,16 @@
 #include "common.cuh"
 
 namespace sss {
+
+// Row of one key from the bit planes x[0..W-1]: AND_p (plane_p ^
+// (bit_p(key) - 1)), zero for a key >= 2^W.
+template <int W>
+__device__ __forceinline__ uint32_t key_row(const uint32_t (&x)[kBlockValues], uint32_t key) {
+  uint32_t acc = key <= value_mask<W>() ? 0xFFFFFFFFu : 0u;
+#pragma unroll
+  for (int p = 0; p < W; ++p) acc &= x[p] ^ (((key >> p) & 1u) - 1u);
+  return acc;
+}
 
 // kMember: OR the k key rows into row 0 (one count) instead of storing k.
 template <int W, bool kMember>
@@ -67,10 +84,7 @@ bitsliced_scan_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __rest
   uint32_t any = 0u;
 #pragma unroll 1
   for (int j = 0; j < k; ++j) {
-    const uint32_t key = __ldg(keys + j);
-    uint32_t acc = key <= value_mask<W>() ? 0xFFFFFFFFu : 0u;
-#pragma unroll
-    for (int p = 0; p < W; ++p) acc &= x[p] ^ (((key >> p) & 1u) - 1u);
+    const uint32_t acc = key_row<W>(x, __ldg(keys + j));
     if constexpr (kMember) any |= acc;
     else store_row(bits, nblocks, b, active, j, acc & valid, s_cnt);
   }
@@ -78,17 +92,78 @@ bitsliced_scan_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __rest
   flush_counts(s_cnt, kMember ? 1 : k, counts);
 }
 
+// The fused linear form of the runtime kernel (TPU kernel
+// _bitsliced_linear_kernel): each key's row staged as linear bytes, the
+// CTA's span stored at once; resident CTAs loop over tiles of blockDim.x
+// blocks and flush their counts once.
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+bitsliced_scan_linear_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __restrict__ keys,
+                             int k, uint32_t* __restrict__ out,
+                             unsigned long long* __restrict__ counts, long long nblocks,
+                             long long n, long long block_offset) {
+  extern __shared__ uint32_t s_stage[];  // [threadIdx.x][k + 1] words
+  __shared__ unsigned s_cnt[kMaxLinearKeys];
+  zero_counts(s_cnt, k);
+  const LinearSink sink{reinterpret_cast<uint8_t*>(s_stage), k, s_cnt};
+  const long long ntiles = (nblocks + blockDim.x - 1) / blockDim.x;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {  // CTA-uniform trip count
+    const long long first = t * blockDim.x;
+    const long long b = first + threadIdx.x;
+    const bool active = b < nblocks;
+    uint32_t w[W];
+    load_block<W>(tiles, nblocks, b, active, w);
+    const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
+    uint32_t x[kBlockValues];
+    unpack_values<W>(w, x);
+    transpose_bitplanes<W>(x);
+#pragma unroll 1
+    for (int j = 0; j < k; j += 4)  // k % 4 == 0
+      sink.quad(j, key_row<W>(x, __ldg(keys + j)) & valid,
+                key_row<W>(x, __ldg(keys + j + 1)) & valid,
+                key_row<W>(x, __ldg(keys + j + 2)) & valid,
+                key_row<W>(x, __ldg(keys + j + 3)) & valid);
+    const long long left = nblocks - first;
+    flush_linear(s_stage, k, out, first, left < blockDim.x ? (int)left : (int)blockDim.x);
+  }
+  flush_counts(s_cnt, k, counts);
+}
+
+template <int W>
+cudaError_t launch_bitsliced_linear(const uint32_t* tiles, const uint32_t* keys, int k,
+                                    uint32_t* out, unsigned long long* counts, long long nblocks,
+                                    long long n, long long block_offset, cudaStream_t stream) {
+  const auto kernel = bitsliced_scan_linear_kernel<W>;
+  const int threads = linear_threads(k);
+  const size_t smem = linear_stage_bytes(k, threads);
+  unsigned grid = 0;
+  const cudaError_t err =
+      resident_grid(kernel, threads, smem, (nblocks + threads - 1) / threads, &grid);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so the next launch does not report it
+    return err;
+  }
+  kernel<<<grid, threads, smem, stream>>>(tiles, keys, k, out, counts, nblocks, n, block_offset);
+  return cudaGetLastError();
+}
+
+// Forms of the static kernel: the (k, nblocks) bits; counts only (the
+// histogram's, rows 10 and 11 of the TPU kernel table); the linear bytes
+// (the fused form, TPU kernel _static_linear_kernel).
+constexpr int kFormBits = 0, kFormCounts = 1, kFormLinear = 2;
+
 // One tile of the static kernel: thread threadIdx.x takes block
 // t * blockDim.x + threadIdx.x, unpacks and transposes it into planes in
-// its slots, and runs the program.  kCounts: the histogram's counts-only
-// form (rows 10 and 11 of the TPU kernel table): OUT adds popc(a & valid)
-// to its row's shared counter and stores nothing, ZERO adds nothing.
-template <int W, bool kCounts>
+// its slots, and runs the program.  OUT and ZERO by form: the bits form
+// stores row target (a & valid, or 0) and counts it; the counts form adds
+// popc(a & valid) to its row's shared counter for OUT and nothing for
+// ZERO; the linear form stages the row as LinearSink does.
+template <int W, int kForm>
 __device__ __forceinline__ void static_tile(const uint32_t* __restrict__ tiles,
-                                            const uint2* __restrict__ prog, int nops,
+                                            const uint2* __restrict__ prog, int nops, int k,
                                             uint32_t* __restrict__ bits, long long nblocks,
                                             long long n, long long block_offset, long long t,
-                                            uint32_t* s_val, unsigned* s_cnt) {
+                                            uint32_t* s_val, unsigned* s_cnt, uint8_t* stage) {
   const int stride = blockDim.x;
   const long long b = t * stride + threadIdx.x;
   const bool active = b < nblocks;
@@ -109,73 +184,89 @@ __device__ __forceinline__ void static_tile(const uint32_t* __restrict__ tiles,
     if (kind == kAnd || kind == kOr) {
       const uint32_t c = dag_operand(s_val, op.y >> 16, stride);
       s_val[target * stride + threadIdx.x] = kind == kAnd ? a & c : a | c;
-    } else if constexpr (kCounts) {
+    } else if constexpr (kForm == kFormCounts) {
       if (kind == kOut) count_row((int)target, a & valid, s_cnt);
+    } else if constexpr (kForm == kFormLinear) {
+      LinearSink{stage, k, s_cnt}((int)target, kind == kOut ? a & valid : 0u);
     } else {
       store_row(bits, nblocks, b, active, (int)target, kind == kOut ? a & valid : 0u, s_cnt);
     }
   }
 }
 
-// The bitvector form runs one tile per CTA.  The counts-only form runs
-// resident CTAs looping over the tiles, so each flushes its counters once.
-template <int W, bool kCounts>
+// The bitvector form runs one tile per CTA.  The counts-only and linear
+// forms run resident CTAs looping over the tiles, so each flushes its
+// counters once; the linear form's stage follows the node slots in dynamic
+// shared memory.
+template <int W, int kForm>
 __global__ void __launch_bounds__(kStaticThreadsMax)
 bitsliced_static_kernel(const uint32_t* __restrict__ tiles, const uint2* __restrict__ prog,
                         int nops, int k, uint32_t* __restrict__ bits,
                         unsigned long long* __restrict__ counts, long long nblocks, long long n,
-                        long long block_offset) {
-  extern __shared__ uint32_t s_val[];  // [slot][threadIdx.x]
-  __shared__ unsigned s_cnt[kCounts ? kMaxHistKeys : kMaxKeys];
+                        long long block_offset, int slots) {
+  extern __shared__ uint32_t s_val[];  // [slot][threadIdx.x], then the linear stage
+  __shared__ unsigned s_cnt[kForm == kFormCounts ? kMaxHistKeys : kMaxKeys];
   zero_counts(s_cnt, k);
-  if constexpr (kCounts) {
-    const long long ntiles = (nblocks + blockDim.x - 1) / blockDim.x;
-    for (long long t = blockIdx.x; t < ntiles; t += gridDim.x)  // CTA-uniform trip count
-      static_tile<W, true>(tiles, prog, nops, bits, nblocks, n, block_offset, t, s_val, s_cnt);
+  if constexpr (kForm == kFormBits) {
+    static_tile<W, kForm>(tiles, prog, nops, k, bits, nblocks, n, block_offset, blockIdx.x, s_val,
+                          s_cnt, nullptr);
   } else {
-    static_tile<W, false>(tiles, prog, nops, bits, nblocks, n, block_offset, blockIdx.x, s_val,
-                          s_cnt);
+    uint32_t* stage = s_val + (size_t)slots * blockDim.x;
+    const long long ntiles = (nblocks + blockDim.x - 1) / blockDim.x;
+    for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {  // CTA-uniform trip count
+      static_tile<W, kForm>(tiles, prog, nops, k, bits, nblocks, n, block_offset, t, s_val, s_cnt,
+                            reinterpret_cast<uint8_t*>(stage));
+      if constexpr (kForm == kFormLinear) {
+        const long long first = t * blockDim.x, left = nblocks - first;
+        flush_linear(stage, k, bits, first, left < blockDim.x ? (int)left : (int)blockDim.x);
+      }
+    }
   }
   flush_counts(s_cnt, k, counts);
 }
 
 // One launch of a program of k rows with `threads` threads per CTA and
-// smem bytes of node slots; a launch that is refused returns its error.
-template <int W, bool kCounts>
+// smem bytes of dynamic shared memory; a launch that is refused returns
+// its error.
+template <int W, int kForm>
 cudaError_t launch_static(const uint32_t* tiles, const uint2* prog, int nops, int k,
                           uint32_t* bits, unsigned long long* counts, long long nblocks,
-                          long long n, long long block_offset, int threads, size_t smem,
+                          long long n, long long block_offset, int threads, int slots, size_t smem,
                           cudaStream_t stream) {
-  const auto kernel = bitsliced_static_kernel<W, kCounts>;
+  const auto kernel = bitsliced_static_kernel<W, kForm>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const long long ntiles = (nblocks + threads - 1) / threads;
   unsigned grid = (unsigned)ntiles;
-  if (err == cudaSuccess && kCounts) err = resident_grid(kernel, threads, smem, ntiles, &grid);
+  if (err == cudaSuccess && kForm != kFormBits)
+    err = resident_grid(kernel, threads, smem, ntiles, &grid);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch does not report it
     return err;
   }
-  bitsliced_static_kernel<W, kCounts><<<grid, threads, smem, stream>>>(
-      tiles, prog, nops, k, bits, counts, nblocks, n, block_offset);
+  kernel<<<grid, threads, smem, stream>>>(tiles, prog, nops, k, bits, counts, nblocks, n,
+                                          block_offset, slots);
   return cudaGetLastError();
 }
 
-template <bool kCounts>
+template <int kForm>
 int static_scan(const uint32_t* tiles, const int* prog, int nops, int k, uint32_t* bits,
                 unsigned long long* counts, long long nblocks, int width, long long n,
                 long long block_offset, int threads, int slots, cudaStream_t stream) {
-  if (k < 1 || k > (kCounts ? kMaxHistKeys : kMaxKeys) || threads < 32 ||
-      threads > kStaticThreadsMax || threads % 32 || slots < width)
+  const bool k_ok = kForm == kFormCounts ? k >= 1 && k <= kMaxHistKeys
+                    : kForm == kFormLinear ? linear_k_ok(k)
+                                           : k >= 1 && k <= kMaxKeys;
+  if (!k_ok || threads < 32 || threads > kStaticThreadsMax || threads % 32 || slots < width)
     return (int)cudaErrorInvalidValue;
   if (nblocks <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)slots * threads * sizeof(uint32_t);
+  size_t smem = (size_t)slots * threads * sizeof(uint32_t);
+  if (kForm == kFormLinear) smem += linear_stage_bytes(k, threads);
   const uint2* p = reinterpret_cast<const uint2*>(prog);
   switch (width) {
 #define SSS_CASE(W)                                                                         \
   case W:                                                                                   \
-    return (int)launch_static<W, kCounts>(tiles, p, nops, k, bits, counts, nblocks, n,      \
-                                          block_offset, threads, smem, stream);
+    return (int)launch_static<W, kForm>(tiles, p, nops, k, bits, counts, nblocks, n,        \
+                                        block_offset, threads, slots, smem, stream);
     SSS_FOR_EACH_WIDTH(SSS_CASE)
 #undef SSS_CASE
     default:
@@ -242,8 +333,8 @@ extern "C" int sss_bitsliced_static_scan(const uint32_t* tiles, const int* prog,
                                          long long nblocks, int width, long long n,
                                          long long block_offset, int threads, int slots,
                                          cudaStream_t stream) {
-  return sss::static_scan<false>(tiles, prog, nops, k, bits, counts, nblocks, width, n,
-                                 block_offset, threads, slots, stream);
+  return sss::static_scan<sss::kFormBits>(tiles, prog, nops, k, bits, counts, nblocks, width,
+                                          n, block_offset, threads, slots, stream);
 }
 
 // The counts-only form: k <= kMaxHistKeys rows, counts only (int64[k],
@@ -252,6 +343,38 @@ extern "C" int sss_histogram_dag(const uint32_t* tiles, const int* prog, int nop
                                  unsigned long long* counts, long long nblocks, int width,
                                  long long n, long long block_offset, int threads, int slots,
                                  cudaStream_t stream) {
-  return sss::static_scan<true>(tiles, prog, nops, k, nullptr, counts, nblocks, width, n,
-                                block_offset, threads, slots, stream);
+  return sss::static_scan<sss::kFormCounts>(tiles, prog, nops, k, nullptr, counts, nblocks,
+                                            width, n, block_offset, threads, slots, stream);
+}
+
+// The fused linear form of the runtime kernel: out is uint32[nblocks * k],
+// block b's linear bytes at [4bk, 4bk + 4k); k % 4 == 0, 4 <= k <= 128.
+extern "C" int sss_bitsliced_scan_linear(const uint32_t* tiles, const uint32_t* keys, int k,
+                                         uint32_t* out, unsigned long long* counts,
+                                         long long nblocks, int width, long long n,
+                                         long long block_offset, cudaStream_t stream) {
+  if (!sss::linear_k_ok(k)) return (int)cudaErrorInvalidValue;
+  if (nblocks <= 0) return (int)cudaSuccess;
+  switch (width) {
+#define SSS_CASE(W)                                                                          \
+  case W:                                                                                    \
+    return (int)sss::launch_bitsliced_linear<W>(tiles, keys, k, out, counts, nblocks, n,     \
+                                                block_offset, stream);
+    SSS_FOR_EACH_WIDTH(SSS_CASE)
+#undef SSS_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The fused linear form of the static kernel: one program of k rows
+// (k % 4 == 0, 4 <= k <= 128), out as in sss_bitsliced_scan_linear;
+// dynamic shared memory holds slots * threads node words and the stage.
+extern "C" int sss_bitsliced_static_scan_linear(const uint32_t* tiles, const int* prog, int nops,
+                                                int k, uint32_t* out, unsigned long long* counts,
+                                                long long nblocks, int width, long long n,
+                                                long long block_offset, int threads, int slots,
+                                                cudaStream_t stream) {
+  return sss::static_scan<sss::kFormLinear>(tiles, prog, nops, k, out, counts, nblocks, width, n,
+                                            block_offset, threads, slots, stream);
 }

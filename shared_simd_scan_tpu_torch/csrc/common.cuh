@@ -238,6 +238,114 @@ __device__ __forceinline__ uint32_t dag_operand(const uint32_t* s_val, uint32_t 
   return (op & kNeg) ? ~v : v;
 }
 
+// Linear (interleaved) output, the byte order of the reference's
+// shared_scan_128_linear_standard: the k rows of block b (one word each)
+// become bytes [4bk, 4bk + 4k) of the output, byte q*k + j = byte q of row
+// j.  A fused kernel stages its CTA's rows in shared memory, thread t's 4k
+// bytes at word t*(k+1): the stride is odd for k % 4 == 0, so the 32 lanes'
+// stores of one row (or one quad) fall in 32 banks.  flush_linear then
+// stores the CTA's blockDim.x * k words as one contiguous span (coalesced).
+constexpr int kMaxLinearKeys = 128;  // the fused kernels' k: 4..128, k % 4 == 0
+constexpr int kLinearStageBytes = 40 * 1024;
+
+inline bool linear_k_ok(int k) { return k >= 4 && k <= kMaxLinearKeys && k % 4 == 0; }
+
+// Threads per CTA of a fused kernel: the most (256, 128, 64) whose staging
+// fits kLinearStageBytes (256 up to k = 36, 128 up to k = 76, else 64).
+inline int linear_threads(int k) {
+  for (int threads = kThreads; threads > 64; threads /= 2)
+    if ((size_t)threads * (k + 1) * 4 <= (size_t)kLinearStageBytes) return threads;
+  return 64;
+}
+
+inline size_t linear_stage_bytes(int k, int threads) { return (size_t)threads * (k + 1) * 4; }
+
+__device__ __forceinline__ void stage_linear_row(uint8_t* stage, int k, int j, uint32_t word) {
+  uint8_t* p = stage + (size_t)threadIdx.x * (k + 1) * 4 + j;
+  p[0] = (uint8_t)word;
+  p[k] = (uint8_t)(word >> 8);
+  p[2 * k] = (uint8_t)(word >> 16);
+  p[3 * k] = (uint8_t)(word >> 24);
+}
+
+// Once every thread staged its rows: store blocks first_block ..
+// first_block + nactive - 1 (k words each) to out, then sync so the stage
+// can be refilled.  Word g of the span is word g % k of thread g / k,
+// tracked without a division per word.
+__device__ __forceinline__ void flush_linear(const uint32_t* stage, int k,
+                                             uint32_t* __restrict__ out, long long first_block,
+                                             int nactive) {
+  __syncthreads();
+  const int total = nactive * k;
+  const int dt = blockDim.x / k, di = blockDim.x % k;
+  int t = threadIdx.x / k, i = threadIdx.x % k;
+  uint32_t* dst = out + (size_t)first_block * k;
+  for (int g = threadIdx.x; g < total; g += blockDim.x) {
+    dst[g] = stage[t * (k + 1) + i];
+    t += dt;
+    i += di;
+    if (i >= k) {
+      i -= k;
+      ++t;
+    }
+  }
+  __syncthreads();
+}
+
+// Output sinks of a row-producing body: store row j of block b into the
+// (k, nblocks) bits, or stage it in the CTA's linear span; both count it.
+// Must be reached by all 32 lanes of the warp (j is warp-uniform).
+// rows8 hands over rows j..j+count-1 (count <= 8) from x[0..7], each
+// ANDed with the validity word.
+struct BitsSink {
+  uint32_t* bits;
+  long long nblocks, b;
+  bool active;
+  unsigned* s_cnt;
+  __device__ __forceinline__ void operator()(int j, uint32_t word) const {
+    store_row(bits, nblocks, b, active, j, word, s_cnt);
+  }
+  __device__ __forceinline__ void rows8(int j, const uint32_t (&x)[8], uint32_t valid,
+                                        int count) const {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (i < count) (*this)(j + i, x[i] & valid);
+  }
+};
+
+struct LinearSink {
+  uint8_t* stage;
+  int k;
+  unsigned* s_cnt;
+  __device__ __forceinline__ void operator()(int j, uint32_t word) const {
+    count_row(j, word, s_cnt);
+    stage_linear_row(stage, k, j, word);
+  }
+  // Rows j..j+3 (j % 4 == 0): output word q*(k/4) + j/4 of the block is
+  // byte q of the four rows, so four word stores stage them.
+  __device__ __forceinline__ void quad(int j, uint32_t a, uint32_t b, uint32_t c,
+                                       uint32_t d) const {
+    count_row(j, a, s_cnt);
+    count_row(j + 1, b, s_cnt);
+    count_row(j + 2, c, s_cnt);
+    count_row(j + 3, d, s_cnt);
+    const uint32_t ab01 = __byte_perm(a, b, 0x5140), cd01 = __byte_perm(c, d, 0x5140);
+    const uint32_t ab23 = __byte_perm(a, b, 0x7362), cd23 = __byte_perm(c, d, 0x7362);
+    uint32_t* w = reinterpret_cast<uint32_t*>(stage) + threadIdx.x * (k + 1) + j / 4;
+    const int c4 = k / 4;
+    w[0] = __byte_perm(ab01, cd01, 0x5410);
+    w[c4] = __byte_perm(ab01, cd01, 0x7632);
+    w[2 * c4] = __byte_perm(ab23, cd23, 0x5410);
+    w[3 * c4] = __byte_perm(ab23, cd23, 0x7632);
+  }
+  // count is 4 or at least 8 here: the fused kernels take k % 4 == 0.
+  __device__ __forceinline__ void rows8(int j, const uint32_t (&x)[8], uint32_t valid,
+                                        int count) const {
+    quad(j, x[0] & valid, x[1] & valid, x[2] & valid, x[3] & valid);
+    if (count > 4) quad(j + 4, x[4] & valid, x[5] & valid, x[6] & valid, x[7] & valid);
+  }
+};
+
 // Exact per-CTA sums in 32-bit shared counters.  A thread adds lo < 2^21
 // and hi < 2^21 (its sum split as hi * 2^16 + lo); a warp's
 // __reduce_add_sync gives < 2^26 each, a CTA of at most kThreads = 256

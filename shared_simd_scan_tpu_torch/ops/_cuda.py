@@ -30,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("unpack.cu", "shared_scan.cu", "interval_scan.cu", "bitsliced.cu", "windowed.cu",
            "range_scan.cu", "conj.cu", "member.cu", "aggregate.cu", "agg_bitplane.cu",
-           "histogram.cu", "zoned.cu")
+           "histogram.cu", "zoned.cu", "linear.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,6 +48,9 @@ _SIGNATURES = {
     # tiles, lo, k, bits, counts, nblocks, width, n, block_offset, gateless, stream
     "sss_interval_scan": [_vp, ctypes.c_uint32, ctypes.c_int, _vp, _vp, _ll,
                           ctypes.c_int, _ll, _ll, ctypes.c_int, _vp],
+    # the fused linear form: out (uint32[nblocks * k]) in place of bits
+    "sss_interval_scan_linear": [_vp, ctypes.c_uint32, ctypes.c_int, _vp, _vp, _ll,
+                                 ctypes.c_int, _ll, _ll, ctypes.c_int, _vp],
     # base, amounts, out_ptx, out_cxx, count, stream
     "sss_shift_canary": [_vp, _vp, _vp, _vp, ctypes.c_int, _vp],
     # tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream
@@ -56,6 +59,13 @@ _SIGNATURES = {
     # threads, slots, stream
     "sss_bitsliced_static_scan": [_vp, _vp, ctypes.c_int, ctypes.c_int, _vp, _vp, _ll,
                                   ctypes.c_int, _ll, _ll, ctypes.c_int, ctypes.c_int, _vp],
+    # the fused linear forms: out (uint32[nblocks * k]) in place of bits
+    "sss_bitsliced_scan_linear": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll,
+                                  _vp],
+    "sss_bitsliced_static_scan_linear": [_vp, _vp, ctypes.c_int, ctypes.c_int, _vp, _vp, _ll,
+                                         ctypes.c_int, _ll, _ll, ctypes.c_int, ctypes.c_int, _vp],
+    # in, ld, in_len, m, granule bytes, seg, out, out_len, stream
+    "sss_interleave": [_vp, _ll, _ll, ctypes.c_int, ctypes.c_int, ctypes.c_int, _vp, _ll, _vp],
     # tiles, plan, k, bits, counts, nblocks, width, n, block_offset, gateless, stream
     "sss_windowed_scan": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll,
                           ctypes.c_int, _vp],

@@ -71,6 +71,24 @@ def shared_scan(col: PackedColumn, predicate_keys) -> tuple[torch.Tensor, torch.
     return shared_scan_words(col.words, predicate_keys, col.width, col.n)
 
 
+def member_scan_words(
+    words: torch.Tensor, predicate_keys, width: int, n: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """IN-list membership scan -> (one bitvector's words, int64 hit count).
+
+    Ground truth for ops.member: bit i is set iff value i is in the key
+    set; a duplicate key counts once (the bitvector is an OR), and a key
+    outside the width's domain matches nothing."""
+    vals = u32(unpack_words(words, width, n))
+    keys = _keys_int64(predicate_keys, words.device)
+    bits = bitvector.from_bool(torch.isin(vals, keys))
+    return bits, bitvector.popcount_words(bits).sum()
+
+
+def member_scan(col: PackedColumn, predicate_keys) -> tuple[torch.Tensor, torch.Tensor]:
+    return member_scan_words(col.words, predicate_keys, col.width, col.n)
+
+
 def aggregate_scan(
     pcol: PackedColumn, mcol: PackedColumn, predicate_keys
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -83,3 +101,14 @@ def aggregate_scan(
     sums = torch.stack([torch.where(p == key, m, 0).sum() for key in keys])
     counts = torch.stack([(p == key).sum() for key in keys])
     return sums, counts
+
+
+def shared_scan_linear(col: PackedColumn, predicate_keys) -> torch.Tensor:
+    """Linear (interleaved) shared scan -> uint8[nbytes * k], nbytes =
+    ceil(n / 8): byte ``g*k + j`` is byte g of key j's bitvector (the
+    reference's ``shared_scan_128_linear_standard`` byte order)."""
+    bits, _ = shared_scan(col, predicate_keys)  # (k, words) int32
+    k = bits.shape[0]
+    nbytes = (col.n + 7) // 8
+    b = bits.contiguous().view(torch.uint8).reshape(k, -1)[:, :nbytes]  # little-endian bytes
+    return b.t().reshape(-1)

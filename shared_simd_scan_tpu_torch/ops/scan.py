@@ -21,6 +21,13 @@ PyTorch counterpart of the shared-scan part of
   (:func:`histogram_tiles`), the static AND-DAG in its counts-only form on
   chunked or span programs (:func:`histogram_dag_tiles`), and their
   dispatcher :func:`histogram_device`.
+- the linear export: the interval, static and runtime-key scans fused
+  with the byte interleave (:func:`interval_scan_linear_words_tiles`,
+  :func:`static_scan_linear_words_tiles`,
+  :func:`bitsliced_scan_linear_words_tiles` and their ``_large`` forms) and
+  the dispatchers :func:`shared_scan_linear_words_device` and
+  :func:`shared_scan_linear_device` (the interleave itself is in
+  ``ops/linear.py``).
 
 Output contract (the JAX package's): ``bits[k, B1, 128]`` holds one
 LSB-first uint32 word per block and key, with bits of values at index
@@ -1498,3 +1505,345 @@ def histogram_device(dev: DeviceColumn, lo=0, k: int | None = None) -> torch.Ten
     if isinstance(lo, torch.Tensor):
         return histogram_tiles(dev.tiles, lo, k, dev.width, dev.n)
     return histogram_dag_tiles(dev.tiles, lo, k, dev.width, dev.n)
+
+
+# ---------------------------------------------------------------------------
+# Linear export: the scan fused with the byte interleave
+# ---------------------------------------------------------------------------
+#
+# The linear layout (ops/linear.py) stores block b's k rows as bytes
+# [4bk, 4bk + 4k): byte q*k + j = byte q of row j.  The fused kernels build
+# the rows as their bits-form siblings do and write these bytes instead,
+# so the (k, W) bits never reach device memory; the padded output
+# int32[B1, 128k] is the JAX package's (B1, 128k) tile form, and flat
+# output its first nbytes*k/4 words.  They serve the k the JAX package's
+# fused tiers serve (linear._mxu_supported, linear._mxu_large_supported);
+# every other k takes a scan kernel and then the interleave kernel.
+
+
+def _linear_rows_plain(bits: torch.Tensor) -> torch.Tensor:
+    """Bits int32[k, B1, 128] -> their linear words int32[B1, 128k]."""
+    from shared_simd_scan_tpu_torch.ops.linear import interleave_words_plain
+
+    k, b1, _ = bits.shape
+    return interleave_words_plain(bits.reshape(k, -1), b1 * LANES * k).reshape(b1, LANES * k)
+
+
+def _linear_out(out: torch.Tensor, counts: torch.Tensor, n: int, flat: bool):
+    """(padded words [B1, 128k], counts) -> flat words [nbytes*k/4] unless
+    ``flat`` is False."""
+    if not flat:
+        return out, counts
+    k = out.shape[1] // LANES
+    return out.reshape(-1)[: (n + 7) // 8 * k // 4], counts
+
+
+def _interval_linear_tiles_plain(
+    tiles: torch.Tensor, lo: int, k: int, width: int, n: int, block_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`_interval_linear_tiles_impl`: the
+    interval scan's plain version, then the plain interleave."""
+    bits, counts = interval_scan_tiles_plain(tiles, lo, k, width, n, block_offset)
+    return _linear_rows_plain(bits), counts
+
+
+def _interval_linear_tiles_impl(
+    tiles: torch.Tensor, lo: int, k: int, width: int, n: int, block_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Keys lo..lo+k-1 (k % 4 == 0, 4 <= k <= 128) -> (words int32[B1,
+    128k], counts int64[k]).
+
+    Kernel ``sss_interval_scan_linear`` (``csrc/interval_scan.cu``) on CUDA
+    tiles, with the gateless one-hot iff :func:`shift_saturates`; the plain
+    version on CPU tiles."""
+    _check_interval(lo, k)
+    b1 = _check_tiles(tiles, width)
+    device = _cuda.kernel_device(tiles)
+    if device is None:
+        return _interval_linear_tiles_plain(tiles, lo, k, width, n, block_offset)
+    gateless = shift_saturates(device)
+    out = torch.empty((b1, LANES * k), dtype=torch.int32, device=device)
+    counts = torch.zeros(k, dtype=torch.int64, device=device)
+    _cuda.launch(
+        "sss_interval_scan_linear", device, tiles.data_ptr(), lo, k, out.data_ptr(),
+        counts.data_ptr(), b1 * LANES, width, n, block_offset, int(gateless),
+    )
+    _interval_linear_tiles_impl.launches += 1
+    return out, counts
+
+
+_interval_linear_tiles_impl.launches = 0
+
+
+def interval_scan_linear_words_tiles(
+    tiles: torch.Tensor, lo: int, k: int, width: int, n: int, block_offset: int = 0,
+    flat: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused interval shared scan -> (int32[nbytes*k/4] linear words, int64
+    counts [k]) for the consecutive keys lo..lo+k-1, k in 4/8/12/16.
+    ``flat=False`` returns the padded tile form int32[B1, 128k], the
+    shard-local shape a sharded export stitches along the block axis."""
+    from shared_simd_scan_tpu_torch.ops.linear import _mxu_supported
+
+    lo, k = int(lo), int(k)
+    if not _mxu_supported(k):
+        raise ValueError(f"fused linear interval scan needs k in 4/8/12/16, got {k}")
+    out, counts = _interval_linear_tiles_impl(tiles, lo, k, width, n, block_offset)
+    return _linear_out(out, counts, n, flat)
+
+
+def interval_scan_linear_words_large(
+    tiles: torch.Tensor, lo: int, k: int, width: int, n: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused interval export for the k of the JAX package's two-level
+    tier (linear._mxu_large_supported): the same kernel in one pass."""
+    from shared_simd_scan_tpu_torch.ops.linear import _mxu_large_supported
+
+    lo, k = int(lo), int(k)
+    if not _mxu_large_supported(k):
+        raise ValueError(f"fused two-level linear interval scan needs k % 8 == 0 in 24..128 or "
+                         f"k % 4 == 0 in 20..64, got {k}")
+    out, counts = _interval_linear_tiles_impl(tiles, lo, k, width, n)
+    return _linear_out(out, counts, n, True)
+
+
+def _linear_concrete_keys(keys, name: str) -> np.ndarray:
+    """Host keys of a static linear tier; CUDA-tensor keys are refused with
+    the JAX package's message for traced keys."""
+    if isinstance(keys, torch.Tensor) and keys.is_cuda:
+        raise TypeError(f"{name} requires concrete keys")
+    return _host_keys(keys)
+
+
+def _static_linear_threads(slots: int, k: int) -> int:
+    """Threads per CTA of the static linear kernel whose node slots and
+    linear stage (k + 1 words per thread) fit STATIC_SMEM_BYTES."""
+    for threads in (128, 64, 32):
+        if (slots + k + 1) * threads * 4 <= STATIC_SMEM_BYTES:
+            return threads
+    raise ValueError(f"static linear export needs {slots} live values and {k + 1} staged words "
+                     f"per thread: more than the shared memory of a 32-thread CTA "
+                     f"({STATIC_SMEM_BYTES} bytes)")
+
+
+def _static_linear_tiles_plain(
+    tiles: torch.Tensor, keys, width: int, n: int, block_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`_static_linear_tiles_impl`: the static
+    tier's plain version, then the plain interleave."""
+    bits, counts = shared_scan_bitsliced_static_tiles_plain(tiles, keys, width, n, block_offset)
+    return _linear_rows_plain(bits), counts
+
+
+def _static_linear_tiles_impl(
+    tiles: torch.Tensor, keys: np.ndarray, width: int, n: int, block_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Host keys (k % 4 == 0, 4 <= k <= 128) through the static AND-DAG ->
+    (words int32[B1, 128k], counts int64[k]); keys >= 2^width give zero
+    rows.
+
+    Kernel ``sss_bitsliced_static_scan_linear`` (``csrc/bitsliced.cu``) on
+    the key set's :func:`_static_program` (one launch: k is far below
+    MAX_LAUNCH_KEYS) for CUDA tiles; the plain version on CPU tiles."""
+    b1 = _check_tiles(tiles, width)
+    device = _cuda.kernel_device(tiles)
+    if device is None:
+        return _static_linear_tiles_plain(tiles, keys, width, n, block_offset)
+    k = int(keys.shape[0])
+    prog, slots = _static_program_on(width, tuple(keys.tolist()), device)
+    out = torch.empty((b1, LANES * k), dtype=torch.int32, device=device)
+    counts = torch.zeros(k, dtype=torch.int64, device=device)
+    _cuda.launch(
+        "sss_bitsliced_static_scan_linear", device, tiles.data_ptr(), prog.data_ptr(),
+        prog.shape[0], k, out.data_ptr(), counts.data_ptr(), b1 * LANES, width, n, block_offset,
+        _static_linear_threads(slots, k), slots,
+    )
+    _static_linear_tiles_impl.launches += 1
+    return out, counts
+
+
+_static_linear_tiles_impl.launches = 0
+
+
+def static_scan_linear_words_tiles(
+    tiles: torch.Tensor, keys, width: int, n: int, block_offset: int = 0, flat: bool = True
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused static shared scan -> (int32[nbytes*k/4] linear words, int64
+    counts [k]) for any host key set (a list, numpy array or CPU tensor) of
+    k in 4/8/12/16; ``flat`` as in :func:`interval_scan_linear_words_tiles`.
+    The key-agnostic sibling of the interval form; raises on CUDA-tensor
+    keys."""
+    from shared_simd_scan_tpu_torch.ops.linear import _mxu_supported
+
+    arr = _linear_concrete_keys(keys, "static_scan_linear_words_tiles")
+    k = int(arr.shape[0])
+    if not _mxu_supported(k):
+        raise ValueError(f"fused linear static scan needs k in 4/8/12/16, got {k}")
+    out, counts = _static_linear_tiles_impl(tiles, arr, width, n, block_offset)
+    return _linear_out(out, counts, n, flat)
+
+
+def static_scan_linear_words_large(
+    tiles: torch.Tensor, keys, width: int, n: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused static export for the k of the JAX package's two-level
+    tier, caller order kept (the byte contract is order-sensitive): the
+    same kernel in one pass."""
+    from shared_simd_scan_tpu_torch.ops.linear import _mxu_large_supported
+
+    arr = _linear_concrete_keys(keys, "static_scan_linear_words_large")
+    k = int(arr.shape[0])
+    if not _mxu_large_supported(k):
+        raise ValueError(f"fused two-level linear static scan needs k % 8 == 0 in 24..128 or "
+                         f"k % 4 == 0 in 20..64, got {k}")
+    out, counts = _static_linear_tiles_impl(tiles, arr, width, n)
+    return _linear_out(out, counts, n, True)
+
+
+def _bitsliced_linear_tiles_plain(
+    tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`_bitsliced_linear_tiles_impl`: the
+    runtime tier's plain version, then the plain interleave."""
+    bits, counts = shared_scan_bitsliced_tiles_plain(tiles, keys, width, n, block_offset)
+    return _linear_rows_plain(bits), counts
+
+
+def _bitsliced_linear_tiles_impl(
+    tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Keys int32[k] on the tiles' device (k % 4 == 0, 4 <= k <= 128),
+    never read on the host -> (words int32[B1, 128k], counts int64[k]).
+
+    Kernel ``sss_bitsliced_scan_linear`` (``csrc/bitsliced.cu``) on CUDA
+    tensors; the plain version on CPU tensors."""
+    b1 = _check_tiles(tiles, width)
+    _check_key_tensor(keys)
+    device = _cuda.kernel_device(tiles, keys)
+    if device is None:
+        return _bitsliced_linear_tiles_plain(tiles, keys, width, n, block_offset)
+    k = int(keys.shape[0])
+    out = torch.empty((b1, LANES * k), dtype=torch.int32, device=device)
+    counts = torch.zeros(k, dtype=torch.int64, device=device)
+    _cuda.launch(
+        "sss_bitsliced_scan_linear", device, tiles.data_ptr(), keys.data_ptr(), k,
+        out.data_ptr(), counts.data_ptr(), b1 * LANES, width, n, block_offset,
+    )
+    _bitsliced_linear_tiles_impl.launches += 1
+    return out, counts
+
+
+_bitsliced_linear_tiles_impl.launches = 0
+
+
+def _is_runtime_keys(keys) -> bool:
+    """Keys given as a CUDA tensor: runtime keys, never read on the host."""
+    return isinstance(keys, torch.Tensor) and keys.is_cuda
+
+
+def _key_tensor(keys, device) -> torch.Tensor:
+    """Keys as int32[k] (uint32 bits) on ``device``: a CUDA tensor stays
+    where it is and is not read on the host; host keys are placed there."""
+    if _is_runtime_keys(keys):
+        return _runtime_keys(keys)
+    return torch.from_numpy(_host_keys(keys).view(np.int32).copy()).to(device)
+
+
+def bitsliced_scan_linear_words_tiles(
+    tiles: torch.Tensor, keys, width: int, n: int, block_offset: int = 0, flat: bool = True
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused runtime-key shared scan -> (int32[nbytes*k/4] linear words,
+    int64 counts [k]) for k in 4/8/12/16; ``flat`` as in
+    :func:`interval_scan_linear_words_tiles`.  Keys given as a CUDA tensor
+    are never read on the host (the JAX package's traced keys)."""
+    from shared_simd_scan_tpu_torch.ops.linear import _mxu_supported
+
+    keys = _key_tensor(keys, tiles.device)
+    k = int(keys.shape[0])
+    if not _mxu_supported(k):
+        raise ValueError(f"fused linear traced scan needs k in 4/8/12/16, got {k}")
+    out, counts = _bitsliced_linear_tiles_impl(tiles, keys, width, n, block_offset)
+    return _linear_out(out, counts, n, flat)
+
+
+def bitsliced_scan_linear_words_large(
+    tiles: torch.Tensor, keys, k: int, width: int, n: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused runtime-key export for the k of the JAX package's
+    two-level tier: the same kernel in one pass."""
+    from shared_simd_scan_tpu_torch.ops.linear import _mxu_large_supported
+
+    keys = _key_tensor(keys, tiles.device)
+    k = int(k)
+    if not _mxu_large_supported(k) or keys.shape[0] != k:
+        raise ValueError(f"fused two-level linear traced scan needs k % 8 == 0 in 24..128 or "
+                         f"k % 4 == 0 in 20..64 keys, got k={k} and {keys.shape[0]} keys")
+    out, counts = _bitsliced_linear_tiles_impl(tiles, keys, width, n)
+    return _linear_out(out, counts, n, True)
+
+
+def shared_scan_linear_words_device(dev: DeviceColumn, keys) -> torch.Tensor:
+    """Linear shared scan -> int32[nbytes*k/4]: the linear bytes of
+    :func:`shared_scan_linear_device` read as little-endian words, the
+    form device-side consumers should use.  Requires k % 4 == 0.
+
+    Dispatch, as the JAX package's: host keys with a fused k
+    (linear._mxu_supported or linear._mxu_large_supported) take the fused
+    interval kernel when :func:`_consecutive_lo` finds a run, else the fused
+    static kernel; CUDA-tensor keys with a fused k take the fused runtime
+    kernel; every other k takes :func:`shared_scan_device` and then
+    linear.interleave_words."""
+    from shared_simd_scan_tpu_torch.ops.linear import (
+        _mxu_large_supported,
+        _mxu_supported,
+        interleave_words,
+    )
+
+    runtime = _is_runtime_keys(keys)
+    keys = _runtime_keys(keys) if runtime else _host_keys(keys)
+    k = int(keys.shape[0])
+    if k % 4:
+        raise ValueError("words view needs k % 4 == 0; use the uint8 form")
+    single, large = _mxu_supported(k), _mxu_large_supported(k)
+    if (single or large) and not runtime:
+        lo = _consecutive_lo(keys)
+        if lo is not None:
+            fn = interval_scan_linear_words_tiles if single else interval_scan_linear_words_large
+            out, _ = fn(dev.tiles, lo, k, dev.width, dev.n)
+        else:
+            fn = static_scan_linear_words_tiles if single else static_scan_linear_words_large
+            out, _ = fn(dev.tiles, keys, dev.width, dev.n)
+        return out
+    if single:
+        out, _ = bitsliced_scan_linear_words_tiles(dev.tiles, keys, dev.width, dev.n)
+        return out
+    if large:
+        out, _ = bitsliced_scan_linear_words_large(dev.tiles, keys, k, dev.width, dev.n)
+        return out
+    bits, _ = shared_scan_device(dev, keys)
+    return interleave_words(bits, (dev.n + 7) // 8 * k // 4)
+
+
+def shared_scan_linear_device(dev: DeviceColumn, keys) -> torch.Tensor:
+    """Linear (interleaved) shared scan -> uint8[nbytes*k], nbytes =
+    ceil(n / 8): byte ``g*k + j`` is byte g of key j's bitvector, the
+    reference's ``shared_scan_128_linear_standard`` byte order; any k.
+
+    Dispatch, as the JAX package's: a fused k goes through
+    :func:`shared_scan_linear_words_device` and views its words as bytes;
+    every other k takes :func:`shared_scan_device` and then
+    linear.interleave_device."""
+    from shared_simd_scan_tpu_torch.ops.linear import (
+        _mxu_large_supported,
+        _mxu_supported,
+        interleave_device,
+    )
+
+    keys = _runtime_keys(keys) if _is_runtime_keys(keys) else _host_keys(keys)
+    k = int(keys.shape[0])
+    nbytes = (dev.n + 7) // 8
+    if _mxu_supported(k) or _mxu_large_supported(k):
+        words = shared_scan_linear_words_device(dev, keys)
+        return words.view(torch.uint8)[: nbytes * k]
+    bits, _ = shared_scan_device(dev, keys)
+    return interleave_device(bits, nbytes)

@@ -16,7 +16,7 @@ import torch
 import shared_simd_scan_tpu_torch as port
 from shared_simd_scan_tpu_torch import bitvector, query
 from shared_simd_scan_tpu_torch.bench import harness
-from shared_simd_scan_tpu_torch.ops import _cuda, aggregate, conj, member, scan, unpack
+from shared_simd_scan_tpu_torch.ops import _cuda, aggregate, conj, linear, member, oracle, scan, unpack
 
 torch.set_num_threads(1)
 
@@ -788,3 +788,109 @@ def test_refused_histogram_and_zoned_launches_raise(cuda_device):
         _cuda.launch("sss_zoned_range_scan", cuda_device, tiles.data_ptr(), idx.data_ptr(),
                      idx.data_ptr(), 1, lo.data_ptr(), lo.data_ptr(), 1, bits.data_ptr(),
                      counts.data_ptr(), 8 * 128, 0, 9, 100)
+
+
+LINEAR_KS = (4, 8, 12, 16, 20, 24, 28, 32, 64, 128)
+
+
+def _rand_words(shape, seed, device):
+    w = np.random.default_rng(seed).integers(0, 1 << 32, size=shape, dtype=np.uint64)
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 6, 8, 12, 16, 24, 33, 64, 1024])
+def test_interleave_kernel_matches_plain(cuda_device, k):
+    for w in (1, 257, 9000):
+        bits = _rand_words((k, w), k + w, cuda_device)
+        for nwords in (w * k, -(-(4 * w - 3) * k // 4)):
+            before = linear.interleave_words.launches
+            _same(linear.interleave_words(bits, nwords), linear.interleave_words_plain(bits, nwords))
+            assert linear.interleave_words.launches == before + 1
+        wide = torch.zeros((k, w + 77), dtype=torch.int32, device=cuda_device)
+        wide[:, :w] = bits
+        _same(linear.interleave_words(wide[:, :w], w * k), linear.interleave_words_plain(bits, w * k))
+
+
+@pytest.mark.parametrize("m,g", [(4, 2), (3, 2), (8, 2), (4, 128), (5, 3)])
+def test_interleave_streams_kernel_matches_plain(cuda_device, m, g):
+    for M in (1, 1000, 4096):
+        streams = _rand_words((m, M), m * g + M, cuda_device)
+        for nwords in (m * M - 5, m * M, m * M + 37):
+            if nwords > 0:
+                _same(linear.interleave_streams_words(streams, g, nwords),
+                      linear.interleave_streams_words_plain(streams, g, nwords))
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_fused_linear_kernels_match_plain(cuda_device, width):
+    values = _values(width, N, width + 200, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    dom = 1 << width
+    rng = np.random.default_rng(width)
+    for k in LINEAR_KS:
+        keys = rng.integers(0, dom, size=k).astype(np.uint32)
+        keys[1], keys[2], keys[3] = keys[0], min(dom, 0xFFFFFFFF), 0xFFFFFFFF
+        kt = _keys(keys, cuda_device)
+        for bo in (0, 2):
+            for lo in (0, max(dom - 5, 0)):
+                _same(scan._interval_linear_tiles_impl(tiles, lo, k, width, N, bo),
+                      scan._interval_linear_tiles_plain(tiles, lo, k, width, N, bo))
+            _same(scan._static_linear_tiles_impl(tiles, keys, width, N, bo),
+                  scan._static_linear_tiles_plain(tiles, keys, width, N, bo))
+            _same(scan._bitsliced_linear_tiles_impl(tiles, kt, width, N, bo),
+                  scan._bitsliced_linear_tiles_plain(tiles, kt, width, N, bo))
+
+
+def test_linear_dispatch_launches_each_kernel(cuda_device):
+    width, n = 9, 300_001
+    vals = harness.synth_modk(n, 512, width, device=cuda_device)
+    col = port.layout.pack(vals, width)
+    dev = port.layout.to_device(col)
+    spread = [3, 70, 141, 200, 262, 333, 400, 511]
+    cases = [  # keys, on the card, the wrapper that must launch once
+        (list(range(8)), False, scan._interval_linear_tiles_impl),
+        (list(range(100, 164)), False, scan._interval_linear_tiles_impl),
+        (spread, False, scan._static_linear_tiles_impl),
+        (spread * 3, False, scan._static_linear_tiles_impl),
+        (spread, True, scan._bitsliced_linear_tiles_impl),
+        (spread * 8, True, scan._bitsliced_linear_tiles_impl),
+        (list(range(132)), False, linear.interleave_words),
+        (list(range(6)), False, linear.interleave_words),
+        (spread[:6], True, linear.interleave_words),
+    ]
+    for keys, on_card, fn in cases:
+        want = oracle.shared_scan_linear(col, keys)
+        kt = _keys(keys, cuda_device) if on_card else keys
+        before = fn.launches
+        torch.cuda.synchronize()
+        if on_card:  # runtime keys: nothing is read on the host
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = port.shared_scan_linear_device(dev, kt)
+            words = scan.shared_scan_linear_words_device(dev, kt) if len(keys) % 4 == 0 else None
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert fn.launches == before + (1 if words is None else 2), (len(keys), fn.__name__)
+        _same(got, want)
+        if words is not None:
+            _same(words.view(torch.uint8), want)
+
+
+def test_refused_linear_launches_raise(cuda_device):
+    tiles = torch.zeros((9, 8, 128), dtype=torch.int32, device=cuda_device)
+    out = torch.zeros(8 * 128 * 132, dtype=torch.int32, device=cuda_device)
+    counts = torch.zeros(132, dtype=torch.int64, device=cuda_device)
+    for k in (3, 132):  # k % 4 != 0, and k past the stage
+        with pytest.raises(RuntimeError, match="sss_interval_scan_linear"):
+            _cuda.launch("sss_interval_scan_linear", cuda_device, tiles.data_ptr(), 0, k,
+                         out.data_ptr(), counts.data_ptr(), 8 * 128, 9, 100, 0, 1)
+        with pytest.raises(RuntimeError, match="sss_bitsliced_scan_linear"):
+            _cuda.launch("sss_bitsliced_scan_linear", cuda_device, tiles.data_ptr(),
+                         out.data_ptr(), k, out.data_ptr(), counts.data_ptr(), 8 * 128, 9, 100, 0)
+    with pytest.raises(RuntimeError, match="sss_interleave"):
+        # a granule of 2 bytes
+        _cuda.launch("sss_interleave", cuda_device, out.data_ptr(), 512, 512, 2, 2, 4,
+                     out.data_ptr(), 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        linear.interleave_streams_words(torch.zeros((64, 8192), dtype=torch.int32,
+                                                    device=cuda_device), 1024, 100)

@@ -17,9 +17,11 @@ import torch
 
 from shared_simd_scan_tpu import layout as jlayout
 from shared_simd_scan_tpu.ops import member as jmember
+from shared_simd_scan_tpu.ops import oracle as joracle
 from shared_simd_scan_tpu.ops import scan as jscan
 from shared_simd_scan_tpu_torch import layout as tlayout
 from shared_simd_scan_tpu_torch.ops import member as tmember
+from shared_simd_scan_tpu_torch.ops import oracle as toracle
 from shared_simd_scan_tpu_torch.ops import scan as tscan
 
 torch.set_num_threads(1)
@@ -426,3 +428,22 @@ def test_cpu_wrappers_launch_nothing():
     for k in (4, 16, 64):
         tmember._member_keys_tiles(tdev.tiles, _t32(np.arange(k) * 7 % 512), 9, 1000)
     assert [f.launches for f in fns] == before
+
+
+@pytest.mark.parametrize("width", [1, 9, 31])
+def test_member_oracle_matches_jax(width):
+    # the ground truth of the member scan: duplicates count once, keys past
+    # the domain match nothing
+    values = np.random.default_rng(width).integers(0, 1 << width, size=N, dtype=np.uint64)
+    values = values.astype(np.uint32)
+    jcol = jlayout.pack(values, width)
+    tcol = tlayout.pack(values, width, device="cpu")
+    dom = 1 << width
+    for keys in (_keys(width, 6, width, (dom, 0xFFFFFFFF)), [int(values[7])] * 3,
+                 [dom + 1, 1 << 31], list(range(min(dom, 40)))):
+        tbits, tcount = toracle.member_scan(tcol, keys)
+        jbits, jcount = joracle.member_scan(jcol, np.asarray(keys, np.uint32))
+        np.testing.assert_array_equal(_u32(tbits), np.asarray(jbits))
+        assert int(tcount) == int(jcount) == _expect_count(values, keys)
+        wbits, wcount = toracle.member_scan_words(tcol.words, keys, width, N)
+        assert torch.equal(wbits, tbits) and int(wcount) == int(tcount)

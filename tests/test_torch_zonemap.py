@@ -202,3 +202,35 @@ def test_evaluate_with_jax_zone_maps_matches_jax():
         assert int(tcount) == int(jcount) == int(mask.sum())
         plain_bits, plain_count = tq.evaluate(build(tq, ta, tb))
         assert torch.equal(tbits, plain_bits) and int(plain_count) == int(tcount)
+
+
+def test_eq_scan_at_the_top_of_uint32_is_a_standing_difference(monkeypatch):
+    # key 0xFFFFFFFF: the JAX package builds hi = 2^32 as a uint32 array and
+    # raises; the port prunes first, finds no zone that can hold the key and
+    # returns a zero row and count 0 without a launch.  A range ending at
+    # 2^32 that reaches a zone is read as [lo, 2^32).
+    values = _sorted(70_000, 1)
+    jdev, tdev = _column(values)
+    zmap = jzm.build_zonemap(jdev, zone_b1=8, interpret=True)
+    for jscan_fn in (jzm.pruned_eq_scan, jzm.zoned_eq_scan):
+        with pytest.raises(OverflowError):
+            jscan_fn(jdev, zmap, 0xFFFFFFFF, interpret=True)
+
+    def no_launch(*args, **kwargs):
+        raise AssertionError("a kernel ran for key 0xFFFFFFFF")
+
+    monkeypatch.setattr(tzm, "range_scan_tiles", no_launch)
+    monkeypatch.setattr(tzm, "zoned_range_tiles", no_launch)
+    for tscan_fn in (tzm.pruned_eq_scan, tzm.zoned_eq_scan):
+        bits, count = tscan_fn(tdev, zmap, 0xFFFFFFFF)
+        assert int(count) == 0 and bits.shape == (tlayout.bitvector_words(values.size),)
+        assert not bits.any()
+    monkeypatch.undo()
+    calls = _Calls(monkeypatch)
+    mask = values >= 500
+    for scan_fn, path in ((tzm.pruned_range_scan, ("span", 16, 8)),
+                          (lambda *a: tzm.zoned_range_scan(*a, tb=8), ("zoned", (2,), (1,)))):
+        bits, count = scan_fn(tdev, zmap, 500, 1 << 32)
+        assert calls.take() == [path]
+        assert int(count) == int(mask.sum()) > 0
+        np.testing.assert_array_equal(tbitvector.to_bool(bits, values.size).numpy(), mask)
