@@ -86,7 +86,24 @@ from the sources in the checkout and then:
     kernel also beside its two-pass composition (scan kernel, then the
     interleave kernel), the interleave beside the PyTorch call that gives
     the same bytes (``.t().contiguous()``);
-11. prints a JSON line with one entry per kernel, and as its last line
+11. holds the benchmark's kernels against their plain versions at small
+    ragged sizes (``memcpy`` at byte counts that are not multiples of 16;
+    the chunked and dynamic compares at widths 1-31, k 1-1025, keys past
+    the domain and 0xFFFFFFFF, a ``block_offset``);
+12. times the memcpy kernel beside its plain version and ``copy_`` on 512
+    MiB (random words, and zeros), and the chunked, dynamic and general
+    compare kernels on S64 and a 256-key set of the ``i % 512`` column,
+    each checked against its plain twin and the closed-form counts; then
+    drives the benchmark CLI in process, ``cli.main`` with 3 reps: the
+    default suite with ``all`` (memory with the memcpy and ``copy_`` rows,
+    decompression, scan, sharedscan at data_size/8, pack), sharedscan k=64
+    at 512 MiB (the chunked and dynamic compares at full size), and
+    linear, member, conj, aggregate and histogram at 64 MiB, with the
+    launch counters set to 0 just before and read just after; checks that
+    every run returns 0, every verification reads ok, every row parses with
+    the sweep script's regexes and none is above 105% of the card's
+    data-sheet memory rate;
+13. prints a JSON line with one entry per kernel, and as its last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check or error exits non-zero and prints no result; so does a
@@ -94,6 +111,9 @@ machine with no CUDA card, and a directory without the package.
 """
 from __future__ import annotations
 
+import contextlib
+import importlib.util
+import io
 import json
 import pathlib
 import re
@@ -180,6 +200,12 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                    "shared_simd_scan_tpu/ops/linear.py:339"),
     "interleave_streams": ("shared_simd_scan_tpu_torch/csrc/linear.cu",
                            "shared_simd_scan_tpu/ops/linear.py:201"),
+    "memcpy": ("shared_simd_scan_tpu_torch/csrc/copy.cu",
+               "shared_simd_scan_tpu/bench/harness.py:170"),
+    "shared_scan_chunked": ("shared_simd_scan_tpu_torch/csrc/shared_scan.cu",
+                            "shared_simd_scan_tpu/ops/scan.py:2192"),
+    "shared_scan_dynamic": ("shared_simd_scan_tpu_torch/csrc/shared_scan.cu",
+                            "shared_simd_scan_tpu/ops/scan.py:2089"),
 }
 # the kernels of the arbitrary-key path, and the tier each one serves
 ARBITRARY = {"bitsliced_static_scan": "bitsliced_static", "windowed_scan": "windowed",
@@ -215,6 +241,19 @@ HIST_WIDTHS = (1, 2, 9, 12, 16, 17, 31)
 HIST_KS = (1, 5, 32, 48, 49, 64, 512, 4096)
 ZONE_B1 = 64
 QS = [0.0, 0.25, 0.5, 0.9, 1.0]
+# the benchmark's kernels; their small phase's widths, key counts and copy sizes
+BENCH = ("memcpy", "shared_scan_chunked", "shared_scan_dynamic")
+BENCH_WIDTHS = (1, 2, 9, 17, 31)
+BENCH_KS = (1, 8, 33, 40, 64, 1025)
+COPY_BYTES = (1, 15, 17, 4097, 65_539, 1_000_003)
+# the CLI runs of the bench phase, and the verification lines each prints
+CLI_RUNS = ((["_", "3", "all"], 4), (["512m", "3", "sharedscan", "64"], 1),
+            (["64m", "3", "linear"], 1), (["64m", "3", "member"], 1), (["64m", "3", "conj"], 1),
+            (["64m", "3", "aggregate"], 1), (["64m", "3", "histogram"], 1))
+PEAK_SHARE = 1.05  # no CLI row may claim more than this share of the data-sheet rate
+# compare kernels whose JSON entry carries these key sets beside its own
+EXTRA_SETS = {"shared_scan": ("S64", "S256"), "shared_scan_chunked": ("S256",),
+              "shared_scan_dynamic": ("S256",)}
 
 
 def s64() -> list[int]:
@@ -223,9 +262,16 @@ def s64() -> list[int]:
     return sorted(np.random.default_rng(3).choice(DOMAIN, 64, replace=False).tolist())
 
 
+def s256() -> list[int]:
+    import numpy as np
+
+    return sorted(np.random.default_rng(4).choice(DOMAIN, 256, replace=False).tolist())
+
+
 def wrappers() -> dict:
     """Kernel name -> the wrapper whose ``launches`` counts its launches."""
     from shared_simd_scan_tpu_torch import zonemap
+    from shared_simd_scan_tpu_torch.bench import harness
     from shared_simd_scan_tpu_torch.ops import aggregate, conj, linear, member, scan, unpack
 
     return {
@@ -250,6 +296,8 @@ def wrappers() -> dict:
         "bitsliced_scan_linear": scan._bitsliced_linear_tiles_impl,
         "interleave": linear.interleave_words,
         "interleave_streams": linear.interleave_streams_words,
+        "memcpy": harness.memcpy, "shared_scan_chunked": scan.shared_scan_chunked_tiles,
+        "shared_scan_dynamic": scan.shared_scan_dynamic_tiles,
     }
 
 
@@ -312,14 +360,16 @@ def build_phase() -> float:
     log_path = _cuda.BUILD_DIR / "ptxas.log"
     log_path.write_text(_cuda.build_log)
     # registers and spills of the width-9 kernels (the main path's width),
-    # and of the aggregate kernels (one body for every width)
+    # and of the kernels with one body for every width (aggregates, the
+    # chunked and dynamic compares) and the copy
     entry = None
     for line in _cuda.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
         elif entry and ("ILi9E" in entry or "ILi31E" in entry or "canary" in entry
-                        or "agg" in entry) and ("Used" in line or "spill" in line):
+                        or "agg" in entry or "chunked" in entry or "dynamic" in entry
+                        or "copy" in entry) and ("Used" in line or "spill" in line):
             print(f"  ptxas {entry}: {line.split(':', 1)[-1].strip()}")
     return seconds
 
@@ -434,7 +484,7 @@ def main_path_phase(device) -> tuple[int, object, dict]:
     from shared_simd_scan_tpu_torch.ops import scan
 
     path = {name: fn for name, fn in wrappers().items()
-            if name not in (*ARBITRARY, *QUERY, *AGGREGATE, *HISTOGRAM, *ZONED, *LINEAR)}
+            if name not in (*ARBITRARY, *QUERY, *AGGREGATE, *HISTOGRAM, *ZONED, *LINEAR, *BENCH)}
     n = harness.values_for(DATA_SIZE, WIDTH)
     vals = harness.synth_modk(n, K, WIDTH, device=device)
     torch.cuda.synchronize()
@@ -1950,6 +2000,7 @@ def linear_timing_phase(device, dev, arb, errs: dict) -> tuple[dict, dict]:
             check(torch.equal(other(), a[0].reshape(-1)), f"{name}: the two-pass composition "
                   "gives the fused kernel's words")
         del a, b
+        torch.cuda.empty_cache()  # the k=64 plain twins take GB-sized blocks in turn
         check(errs[kernel] == 0, f"{name} kernel bit-exact against its plain twin at full size")
 
     copy_dst = torch.empty_like(tiles)
@@ -1974,6 +2025,183 @@ def linear_timing_phase(device, dev, arb, errs: dict) -> tuple[dict, dict]:
     del bits8, bits6, streams
     torch.cuda.empty_cache()
     return times, extras
+
+
+def small_bench_phase(device, errs: dict) -> None:
+    """The benchmark's kernels against their plain versions at small ragged
+    sizes: ``memcpy`` at byte counts that are not multiples of 16; the
+    chunked and dynamic compares at every width of BENCH_WIDTHS and k of
+    BENCH_KS, with key 0 over the padding, keys past the domain,
+    0xFFFFFFFF and a duplicate, and a ``block_offset``."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch.bench import harness
+    from shared_simd_scan_tpu_torch.ops import scan, unpack
+
+    rng = np.random.default_rng(SEED + 7)
+    for nbytes in COPY_BYTES:
+        src = torch.from_numpy(rng.integers(0, 256, size=nbytes, dtype=np.uint8)).to(device)
+        a = harness.memcpy(src, torch.zeros_like(src))
+        p = harness.memcpy_plain(src, torch.zeros_like(src))
+        e = int((a.to(torch.int16) - p.to(torch.int16)).abs().max())
+        errs["memcpy"] = max(errs["memcpy"], e)
+    for width in BENCH_WIDTHS:
+        dom = 1 << width
+        for n in SMALL_NS:
+            vals = torch.from_numpy(rng.integers(0, dom, size=n).astype(np.int32)).to(device)
+            tiles = unpack.pack_device_kernel(vals, width).tiles
+            for k in BENCH_KS:
+                keys = rng.integers(0, dom, size=k).astype(np.uint32)
+                keys[0] = 0
+                if k >= 8:
+                    keys[1], keys[2], keys[3] = min(dom, 0xFFFFFFFF), 0xFFFFFFFF, keys[4]
+                kt = torch.from_numpy(keys.view(np.int32)).to(device)
+                for bo in ((0, 2) if n == SMALL_NS[1] else (0,)):
+                    for name in BENCH[1:]:
+                        a = getattr(scan, f"{name}_tiles")(tiles, kt, width, n, bo)
+                        p = getattr(scan, f"{name}_tiles_plain")(tiles, kt, width, n, bo)
+                        errs[name] = max(errs[name], max_abs_err(a[0], p[0]),
+                                         int((a[1] - p[1]).abs().max()))
+    torch.cuda.synchronize()
+    check(errs["memcpy"] == 0, f"memcpy kernel byte-exact against its plain version (bytes "
+          f"{COPY_BYTES})")
+    for name in BENCH[1:]:
+        check(errs[name] == 0, f"{name} kernel bit-exact against its plain version (widths "
+              f"{BENCH_WIDTHS}, n {SMALL_NS}, k {BENCH_KS})")
+
+
+def sweep_regexes():
+    """LINE_RE and GBS_RE of scripts/prepare_shared_scan_results.py, the
+    sweep script that parses the CLI's rows."""
+    path = pathlib.Path(__file__).resolve().parent / "scripts" / "prepare_shared_scan_results.py"
+    spec = importlib.util.spec_from_file_location("prepare_shared_scan_results", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.LINE_RE, mod.GBS_RE
+
+
+def cli_phase(device) -> dict:
+    """The benchmark CLI in process (CLI_RUNS), with the launch counters set
+    to 0 just before and read just after; checks its output."""
+    import torch
+    from shared_simd_scan_tpu_torch.bench import cli, harness
+
+    line_re, gbs_re = sweep_regexes()
+    roof = harness.hbm_peak_bytes_per_s()
+    check(roof is not None, f"the card's data-sheet memory rate is known ({roof} bytes/s)")
+    kernels = wrappers()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    runs = []
+    for argv, verifications in CLI_RUNS:
+        buf = io.StringIO()
+        t1 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        print(f"cli.main({argv}) -> {rc} in {time.monotonic() - t1:.1f} s:")
+        print(buf.getvalue(), end="")
+        runs.append((argv, rc, buf.getvalue(), verifications))
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    torch.cuda.empty_cache()
+    print(f"CLI phase ran in {time.monotonic() - t0:.1f} s; launches "
+          f"{ {k: launches[k] for k in BENCH} }")
+
+    for name in BENCH:
+        check(launches[name] > 0, f"the CLI launched the {name} kernel ({launches[name]}x)")
+    for argv, rc, out, verifications in runs:
+        check(rc == 0, f"cli.main({argv}) returned 0")
+        lines = out.splitlines()
+        verdicts = [line.split("verification:", 1)[1].strip() for line in lines
+                    if "verification:" in line]
+        check(verdicts == ["ok"] * verifications, f"{argv}: every verification reads ok "
+              f"({len(verdicts)} of {verifications})")
+        rows = [i for i, line in enumerate(lines) if line.startswith("* ")]
+        check(len(rows) > 0 and all(line_re.match(lines[i]) and i + 1 < len(lines)
+                                    and gbs_re.match(lines[i + 1]) for i in rows),
+              f"{argv}: all {len(rows)} rows parse with the sweep script's LINE_RE and GBS_RE")
+        top = max(float(gbs_re.match(lines[i + 1])["gbs"]) * 1e9 for i in rows)
+        check(top <= PEAK_SHARE * roof, f"{argv}: no row above {PEAK_SHARE:.0%} of {roof:.4g} "
+              f"bytes/s (the highest {top:.4g})")
+    return launches
+
+
+def bench_timing_phase(device, arb, errs: dict) -> tuple[dict, dict]:
+    """The memcpy kernel, its plain version and ``copy_`` on 512 MiB; the
+    chunked, dynamic and general compare kernels on S64 and S256 of the
+    i % 512 column, each checked against its plain twin (32 keys at a time)
+    and the closed-form counts, timed beside its plain twin (S64 and S256
+    for the chunked and dynamic kernels); the runtime bit-sliced kernel
+    timed beside them on the same keys.  Returns (times, library times)."""
+    import torch
+    from shared_simd_scan_tpu_torch.bench import harness
+    from shared_simd_scan_tpu_torch.layout import LANES
+    from shared_simd_scan_tpu_torch.ops import scan
+
+    t0 = time.monotonic()
+    times, library = {}, {}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    src = torch.randint(0, 1 << 31, (DATA_SIZE // 4,), generator=gen, device=device,
+                        dtype=torch.int32)
+    dst = torch.empty_like(src)
+    harness.memcpy(src, dst)
+    errs["memcpy"] = max(errs["memcpy"], max_abs_err(dst, src))
+    check(errs["memcpy"] == 0, f"memcpy of {DATA_SIZE} bytes gives back every byte")
+    ms = time_ms(lambda: harness.memcpy(src, dst), batches=5, calls=10)
+    plain_ms = time_ms(lambda: harness.memcpy_plain(src, dst), batches=5, calls=10)
+    library["memcpy"] = time_ms(lambda: dst.copy_(src), batches=5, calls=10)
+    times["memcpy 512MiB"] = (ms, plain_ms, 2 * DATA_SIZE / HBM_BYTES_PER_S * 1e3)
+    src.zero_()
+    zeros = (time_ms(lambda: harness.memcpy(src, dst), batches=5, calls=10),
+             time_ms(lambda: dst.copy_(src), batches=5, calls=10))
+    print(f"time memcpy 512 MiB of random words: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+          f"copy_ {library['memcpy']:.6f} ms, bound {times['memcpy 512MiB'][2]:.6f} ms; of zeros: "
+          f"kernel {zeros[0]:.6f} ms, copy_ {zeros[1]:.6f} ms")
+    del src, dst
+
+    tiles, n = arb.tiles, arb.n
+    nblocks = tiles.shape[1] * LANES
+    for label, keys in (("S64", s64()), ("S256", s256())):
+        kt = torch.tensor(keys, dtype=torch.int32, device=device)
+        expect = [(n - 1 - key) // DOMAIN + 1 for key in keys]
+        nbytes = tiles.numel() * 4 + len(keys) * (nblocks * 4 + 8 + 4)
+        for name in ("shared_scan_chunked", "shared_scan_dynamic", "shared_scan"):
+            kern = getattr(scan, f"{name}_tiles")
+            plain = getattr(scan, f"{name}_tiles_plain")
+            bits, counts = kern(tiles, kt, WIDTH, n)
+            check(counts.tolist() == expect, f"{name} {label}: counts == closed form")
+            e = 0
+            for j0 in range(0, len(keys), 32):
+                pbits, pcounts = plain(tiles, kt[j0: j0 + 32], WIDTH, n)
+                e = max(e, max_abs_err(bits[j0: j0 + 32], pbits),
+                        int((counts[j0: j0 + 32] - pcounts).abs().max()))
+                del pbits
+            del bits
+            errs[name] = max(errs[name], e)
+            check(errs[name] == 0, f"{name} {label} kernel bit-exact against its plain twin at "
+                  f"full size")
+            ms = time_ms(lambda: kern(tiles, kt, WIDTH, n), batches=5, calls=10)
+            plain_ms = None
+            if name != "shared_scan":  # its plain version holds int64 words of every key
+                plain_ms = time_ms(lambda: plain(tiles, kt, WIDTH, n), batches=1 if len(keys) > 64
+                                   else 2, calls=1)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            times[f"{name} {label}"] = (ms, plain_ms, bound_ms)
+            print(f"time {name} {label} (k={len(keys)}): kernel {ms:.6f} ms (bound "
+                  f"{bound_ms:.6f} ms for {nbytes} bytes)"
+                  + (f"; plain {plain_ms:.6f} ms" if plain_ms is not None else ""))
+            torch.cuda.empty_cache()
+        _, counts = scan.shared_scan_bitsliced_tiles(tiles, kt, WIDTH, n)
+        check(counts.tolist() == expect, f"shared_scan_bitsliced {label}: counts == closed form")
+        ms = time_ms(lambda: scan.shared_scan_bitsliced_tiles(tiles, kt, WIDTH, n), batches=5,
+                     calls=10)
+        print(f"time shared_scan_bitsliced {label} (k={len(keys)}, beside the compares): kernel "
+              f"{ms:.6f} ms")
+        torch.cuda.empty_cache()
+    print(f"bench timing phase ran in {time.monotonic() - t0:.1f} s")
+    return times, library
 
 
 def main() -> int:
@@ -2020,8 +2248,21 @@ def main() -> int:
     times.update(query_timing_phase(device, cols, arb, errs))
     times.update(aggregate_timing_phase(device, cols, agg_data, errs))
     times.update(stats_timing_phase(device, arb, agg_data["rev"], zdata, errs))
+    # the linear timing phase's plain twins hold int64 words of 64 keys
+    # (7.1 GiB): free the query, aggregate and zone-map data before it
+    del cols, agg_data, zdata
+    torch.cuda.empty_cache()
+    print(f"before the linear timing phase: {torch.cuda.memory_allocated()} bytes allocated, "
+          f"{torch.cuda.memory_reserved()} reserved")
     linear_times, extras = linear_timing_phase(device, dev, arb, errs)
     times.update(linear_times)
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    small_bench_phase(device, errs)
+    bench_times, library = bench_timing_phase(device, arb, errs)
+    times.update(bench_times)
+    launches.update({k: c for k, c in cli_phase(device).items() if k in BENCH})
+    print(f"bench phases ran in {time.monotonic() - t0:.1f} s")
     check("jax" not in sys.modules, "no jax module was imported")
 
     def entry(name, src, rep):
@@ -2030,8 +2271,10 @@ def main() -> int:
         # each aggregate kernel its set of the aggregate phase and, beside
         # it, its times on the other keyed sets; the histogram and zoned
         # kernels their H and Z sets; the linear kernels their L set (the
-        # interleave k=8), with the two-pass or library time beside it
-        sets = {**AGGREGATE, **HISTOGRAM, **ZONED, **LINEAR}
+        # interleave k=8), with the two-pass or library time beside it; the
+        # chunked and dynamic compares S64 and, beside it, S256; memcpy its
+        # 512 MiB copy with copy_ as its library time
+        sets = {**AGGREGATE, **HISTOGRAM, **ZONED, **LINEAR, "memcpy": "512MiB"}
         if name in sets:
             key = f"{name} {sets[name]}"
         else:
@@ -2040,7 +2283,7 @@ def main() -> int:
         e = {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-             "library_ms": None}
+             "library_ms": library.get(name)}
         if name in ARBITRARY:
             e["k"] = 8
             e["ms_k64"], e["plain_ms_k64"], e["bound_ms_k64"] = times[f"{name} k=64"]
@@ -2054,6 +2297,9 @@ def main() -> int:
                 e[f"ms_{other}"], e[f"plain_ms_{other}"], e[f"bound_ms_{other}"] = \
                     times[f"{name} {other}"]
                 e.update({f"{k}_{other}": v for k, v in extras[f"{name} {other}"].items()})
+        for label in EXTRA_SETS.get(name, ()):
+            e[f"ms_{label}"], e[f"plain_ms_{label}"], e[f"bound_ms_{label}"] = \
+                times[f"{name} {label}"]
         if name == "member_ortree":
             e["ms_s64"], e["plain_ms_s64"], e["bound_ms_s64"] = times["member_ortree S64"]
         if name in AGGREGATE:

@@ -30,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("unpack.cu", "shared_scan.cu", "interval_scan.cu", "bitsliced.cu", "windowed.cu",
            "range_scan.cu", "conj.cu", "member.cu", "aggregate.cu", "agg_bitplane.cu",
-           "histogram.cu", "zoned.cu", "linear.cu")
+           "histogram.cu", "zoned.cu", "linear.cu", "copy.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,6 +45,11 @@ _SIGNATURES = {
     "sss_pack": [_vp, _vp, _ll, ctypes.c_int, _vp],
     # tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream
     "sss_shared_scan": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
+    # tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream
+    "sss_shared_scan_chunked": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll,
+                                _vp],
+    "sss_shared_scan_dynamic": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll,
+                                _vp],
     # tiles, lo, k, bits, counts, nblocks, width, n, block_offset, gateless, stream
     "sss_interval_scan": [_vp, ctypes.c_uint32, ctypes.c_int, _vp, _vp, _ll,
                           ctypes.c_int, _ll, _ll, ctypes.c_int, _vp],
@@ -105,6 +110,8 @@ _SIGNATURES = {
     "sss_agg_bitplane_static": [_vp, _vp, _vp, ctypes.c_int, ctypes.c_int, _vp, _vp, _ll,
                                 ctypes.c_int, ctypes.c_int, _ll, _ll, ctypes.c_int, ctypes.c_int,
                                 _vp],
+    # src, dst, nbytes, stream
+    "sss_copy": [_vp, _vp, _ll, _vp],
 }
 
 _lock = threading.Lock()

@@ -4,6 +4,9 @@ PyTorch counterpart of the shared-scan part of
 ``shared_simd_scan_tpu/ops/scan.py``:
 
 - the general compare kernel (:func:`shared_scan_tiles`);
+- the chunked and dynamic compares for any k, which only the benchmark
+  drivers run (:func:`shared_scan_chunked_tiles`,
+  :func:`shared_scan_dynamic_tiles`);
 - the interval kernel for consecutive keys (:func:`interval_scan_tiles`)
   with its shift canary (:func:`shift_saturates`);
 - the bit-sliced kernel for runtime keys (:func:`shared_scan_bitsliced_tiles`);
@@ -149,8 +152,9 @@ def shared_scan_tiles(
     ``block_offset`` is the global index of the tiles' first block, for a
     shard of a longer column of ``n`` values.
 
-    Kernel ``sss_shared_scan`` (``csrc/shared_scan.cu``) on CUDA tensors;
-    the plain version on CPU tensors."""
+    Kernel ``sss_shared_scan`` (``csrc/shared_scan.cu``) on CUDA tensors,
+    in launches of MAX_LAUNCH_KEYS keys (each counted); the plain version
+    on CPU tensors."""
     b1 = _check_tiles(tiles, width)
     _check_key_tensor(keys)
     device = _cuda.kernel_device(tiles, keys)
@@ -163,11 +167,122 @@ def shared_scan_tiles(
         "sss_shared_scan", device, tiles.data_ptr(), keys.data_ptr(), k, bits.data_ptr(),
         counts.data_ptr(), b1 * LANES, width, n, block_offset,
     )
-    shared_scan_tiles.launches += 1
+    shared_scan_tiles.launches += -(-k // MAX_LAUNCH_KEYS)
     return bits, counts
 
 
 shared_scan_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Chunked and dynamic compare tiers: every key against the normalized values
+# ---------------------------------------------------------------------------
+#
+# Both compare each key with the 32 values of a block unpacked once (a
+# value is below 2^width, so keys >= 2^width, 0xFFFFFFFF included, match
+# nothing).  The JAX package's benchmark drivers run them for k > 32; no
+# dispatcher does.
+
+# Keys per chunk of the chunked kernel, which keeps a chunk's keys in
+# registers (kChunkKeys in csrc/shared_scan.cu).
+CHUNK_KEYS = 16
+
+
+def _normalized_compare_plain(
+    tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int, rows: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every key against the block's 32 normalized values, ``rows`` keys at
+    a time (which bounds the int64 words held at once) -> (bits int32[k,
+    B1, 128], counts int64[k])."""
+    vals = _block_values_plain(tiles, width)
+    kk = u32(keys)
+    valid = _valid_words(tiles.shape[1], n, block_offset, tiles.device)
+    bits = torch.empty((kk.shape[0],) + tuple(tiles.shape[1:]), dtype=torch.int32,
+                       device=tiles.device)
+    counts = torch.empty(kk.shape[0], dtype=torch.int64, device=tiles.device)
+    for j0 in range(0, kk.shape[0], rows):
+        chunk = kk[j0 : j0 + rows, None, None]
+        acc = torch.zeros((chunk.shape[0],) + tuple(tiles.shape[1:]), dtype=torch.int64,
+                          device=tiles.device)
+        for r, v in enumerate(vals):
+            acc |= (v[None] == chunk).to(torch.int64) << r
+        bits[j0 : j0 + rows], counts[j0 : j0 + rows] = _finish(acc, valid)
+    return bits, counts
+
+
+def shared_scan_chunked_tiles_plain(
+    tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`shared_scan_chunked_tiles`, same
+    algorithm: the keys in chunks of CHUNK_KEYS, each chunk compared with
+    the normalized values."""
+    return _normalized_compare_plain(tiles, keys, width, n, block_offset, CHUNK_KEYS)
+
+
+def shared_scan_chunked_tiles(
+    tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Same contract as :func:`shared_scan_tiles` for any k (arbitrary keys,
+    a CUDA tensor never read on the host): the keys in chunks of
+    CHUNK_KEYS, each chunk a fixed unrolled compare block.
+
+    Kernel ``sss_shared_scan_chunked`` (``csrc/shared_scan.cu``) on CUDA
+    tensors, one launch for any k; the plain version on CPU tensors."""
+    b1 = _check_tiles(tiles, width)
+    _check_key_tensor(keys)
+    device = _cuda.kernel_device(tiles, keys)
+    if device is None:
+        return shared_scan_chunked_tiles_plain(tiles, keys, width, n, block_offset)
+    k = int(keys.shape[0])
+    bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
+    counts = torch.zeros(k, dtype=torch.int64, device=device)
+    _cuda.launch(
+        "sss_shared_scan_chunked", device, tiles.data_ptr(), keys.data_ptr(), k, bits.data_ptr(),
+        counts.data_ptr(), b1 * LANES, width, n, block_offset,
+    )
+    shared_scan_chunked_tiles.launches += 1
+    return bits, counts
+
+
+shared_scan_chunked_tiles.launches = 0
+
+
+def shared_scan_dynamic_tiles_plain(
+    tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`shared_scan_dynamic_tiles`, same
+    algorithm: the values unpacked once, then the keys against them (32
+    keys at a time)."""
+    return _normalized_compare_plain(tiles, keys, width, n, block_offset, 32)
+
+
+def shared_scan_dynamic_tiles(
+    tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Same contract as :func:`shared_scan_tiles` for any k (arbitrary keys,
+    a CUDA tensor never read on the host): the values unpacked once into
+    shared memory, then a runtime loop over the keys.
+
+    Kernel ``sss_shared_scan_dynamic`` (``csrc/shared_scan.cu``) on CUDA
+    tensors, in launches of MAX_LAUNCH_KEYS keys (each counted); the plain
+    version on CPU tensors."""
+    b1 = _check_tiles(tiles, width)
+    _check_key_tensor(keys)
+    device = _cuda.kernel_device(tiles, keys)
+    if device is None:
+        return shared_scan_dynamic_tiles_plain(tiles, keys, width, n, block_offset)
+    k = int(keys.shape[0])
+    bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
+    counts = torch.zeros(k, dtype=torch.int64, device=device)
+    _cuda.launch(
+        "sss_shared_scan_dynamic", device, tiles.data_ptr(), keys.data_ptr(), k, bits.data_ptr(),
+        counts.data_ptr(), b1 * LANES, width, n, block_offset,
+    )
+    shared_scan_dynamic_tiles.launches += -(-k // MAX_LAUNCH_KEYS)
+    return bits, counts
+
+
+shared_scan_dynamic_tiles.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1486,9 +1601,21 @@ def histogram_dag_tiles(
     _check_histogram_k(k)
     lo = _check_lo(lo)
     if single_pass is None:
-        single_pass = 48 < k <= 512
+        single_pass = _histogram_single_pass(k)
     fn = _histogram_span_tiles if single_pass else _histogram_chunked_tiles
     return fn(tiles, lo, k, width, n, block_offset)
+
+
+def _histogram_single_pass(k: int) -> bool:
+    """Whether :func:`histogram_dag_tiles` takes the span program for k keys."""
+    return 48 < k <= 512
+
+
+def histogram_dag_passes(k: int) -> int:
+    """Passes over the packed column of :func:`histogram_dag_tiles`'s
+    default dispatch for k keys: one for the span program, else one per
+    static group of the chunked programs."""
+    return 1 if _histogram_single_pass(k) else len(_static_group_sizes(k))
 
 
 def histogram_device(dev: DeviceColumn, lo=0, k: int | None = None) -> torch.Tensor:

@@ -84,12 +84,14 @@ def test_block_offset_matches_plain(cuda_device):
 
 
 def test_compare_kernel_past_1024_keys(cuda_device):
-    # the C entry point launches keys in chunks of 1024
+    # the C entry point launches keys in chunks of 1024, each counted
     width = 11
     tiles = unpack.pack_device_kernel(_values(width, N, 11, cuda_device), width).tiles
     kt = _keys((np.arange(1500) * 7) % 2048, cuda_device)
+    before = scan.shared_scan_tiles.launches
     _same(scan.shared_scan_tiles(tiles, kt, width, N),
           scan.shared_scan_tiles_plain(tiles, kt, width, N))
+    assert scan.shared_scan_tiles.launches == before + 2
 
 
 def test_shift_canary_matches_plain(cuda_device):
@@ -894,3 +896,70 @@ def test_refused_linear_launches_raise(cuda_device):
     with pytest.raises(ValueError, match="shared memory"):
         linear.interleave_streams_words(torch.zeros((64, 8192), dtype=torch.int32,
                                                     device=cuda_device), 1024, 100)
+
+
+@pytest.mark.parametrize("nbytes", [1, 15, 16, 17, 4097, 32768 + 5, 1_000_003])
+def test_copy_kernel_matches_plain(cuda_device, nbytes):
+    rng = np.random.default_rng(nbytes)
+    src = torch.from_numpy(rng.integers(0, 256, size=nbytes, dtype=np.uint8)).to(cuda_device)
+    dst = torch.zeros_like(src)
+    before = harness.memcpy.launches
+    harness.memcpy(src, dst)
+    assert harness.memcpy.launches == before + 1
+    _same(dst, harness.memcpy_plain(src, torch.zeros_like(src)))
+
+
+def test_copy_kernel_refuses_misaligned_and_overlapping(cuda_device):
+    buf = torch.zeros(4096, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        harness.memcpy(buf[1:1025], buf[2048:3072])
+    with pytest.raises(ValueError, match="overlap"):
+        harness.memcpy(buf[:1024], buf[512:1536])
+    with pytest.raises(RuntimeError, match="sss_copy"):
+        _cuda.launch("sss_copy", cuda_device, buf.data_ptr() + 4, buf.data_ptr() + 2048, 64)
+
+
+@pytest.mark.parametrize("width", [1, 2, 9, 17, 31])
+def test_chunked_and_dynamic_kernels_match_plain(cuda_device, width):
+    dom = 1 << width
+    values = _values(width, N, width + 90, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    rng = np.random.default_rng(width)
+    for k in (1, 8, 9, 17, 33, 40, 64):
+        keys = rng.integers(0, dom, size=k).astype(np.int64)
+        keys[: min(k, 4)] = [0, 0xFFFFFFFF, dom, int(values[3])][: min(k, 4)]
+        kt = _keys(keys, cuda_device)
+        for bo in (0, 2):
+            _same(scan.shared_scan_chunked_tiles(tiles, kt, width, N, bo),
+                  scan.shared_scan_chunked_tiles_plain(tiles, kt, width, N, bo))
+            _same(scan.shared_scan_dynamic_tiles(tiles, kt, width, N, bo),
+                  scan.shared_scan_dynamic_tiles_plain(tiles, kt, width, N, bo))
+
+
+def test_chunked_and_dynamic_kernels_past_1024_keys(cuda_device):
+    # the dynamic entry point launches keys in chunks of 1024, each counted;
+    # the chunked kernel takes any k in one launch
+    width = 11
+    tiles = unpack.pack_device_kernel(_values(width, N, 13, cuda_device), width).tiles
+    kt = _keys(((np.arange(1500) * 7) % 2100).tolist() + [0xFFFFFFFF], cuda_device)
+    ref = scan.shared_scan_tiles_plain(tiles, kt, width, N)
+    for fn, launches in ((scan.shared_scan_chunked_tiles, 1), (scan.shared_scan_dynamic_tiles, 2)):
+        before = fn.launches
+        _same(fn(tiles, kt, width, N), ref)
+        assert fn.launches == before + launches
+
+
+def test_chunked_and_dynamic_keys_never_reach_the_host(cuda_device):
+    width, n = 9, 32_000
+    dev = port.pack_device_kernel(harness.synth_modk(n, 512, width, device=cuda_device), width)
+    kt = torch.arange(40, dtype=torch.int32, device=cuda_device) * 11
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [fn(dev.tiles, kt, width, n) for fn in (scan.shared_scan_chunked_tiles,
+                                                       scan.shared_scan_dynamic_tiles)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    expect = [(n - 1 - key) // 512 + 1 if key < 512 else 0 for key in kt.tolist()]
+    for _, counts in outs:
+        assert counts.tolist() == expect

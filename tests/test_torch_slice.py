@@ -126,7 +126,7 @@ def test_port_never_imports_jax():
         "import shared_simd_scan_tpu_torch\n"
         "from shared_simd_scan_tpu_torch import bitvector, layout\n"
         "from shared_simd_scan_tpu_torch.ops import _cuda, oracle, scan, unpack\n"
-        "from shared_simd_scan_tpu_torch.bench import harness\n"
+        "from shared_simd_scan_tpu_torch.bench import cli, harness, timing\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'shared_simd_scan_tpu' not in sys.modules\n"
         "print('ok')\n"
