@@ -87,13 +87,18 @@ from the sources in the checkout and then:
     interleave kernel), the interleave beside the PyTorch call that gives
     the same bytes (``.t().contiguous()``);
 11. holds the benchmark's kernels against their plain versions at small
-    ragged sizes (``memcpy`` at byte counts that are not multiples of 16;
-    the chunked and dynamic compares at widths 1-31, k 1-1025, keys past
-    the domain and 0xFFFFFFFF, a ``block_offset``);
+    ragged sizes (``memcpy`` at byte counts that are not multiples of 16,
+    one stage of its ring +- 16 bytes, several stages plus a 7-byte tail,
+    and enough stages to wrap every CTA's ring; the chunked scan and the
+    dynamic compare at widths 1-31, the last width of the chunked kernel's
+    direct table and the first of its search among them, k 1-1025 and
+    around one chunk, keys past the domain and 0xFFFFFFFF, a key repeated
+    across the chunk boundary, a chunk of equal keys, a ``block_offset``);
 12. times the memcpy kernel beside its plain version and ``copy_`` on 512
     MiB (random words, and zeros), and the chunked, dynamic and general
     compare kernels on S64 and a 256-key set of the ``i % 512`` column,
-    each checked against its plain twin and the closed-form counts; then
+    each checked against its plain twin and the closed-form counts, with
+    the copy and chunked kernels' registers and shared memory; then
     drives the benchmark CLI in process, ``cli.main`` with 3 reps: the
     default suite with ``all`` (memory with the memcpy and ``copy_`` rows,
     decompression, scan, sharedscan at data_size/8, pack), sharedscan k=64
@@ -243,9 +248,10 @@ ZONE_B1 = 64
 QS = [0.0, 0.25, 0.5, 0.9, 1.0]
 # the benchmark's kernels; their small phase's widths, key counts and copy sizes
 BENCH = ("memcpy", "shared_scan_chunked", "shared_scan_dynamic")
-BENCH_WIDTHS = (1, 2, 9, 17, 31)
-BENCH_KS = (1, 8, 33, 40, 64, 1025)
-COPY_BYTES = (1, 15, 17, 4097, 65_539, 1_000_003)
+# (12 and 13: the chunked kernel's last width on its direct table, its first on the search)
+BENCH_WIDTHS = (1, 2, 9, 12, 13, 17, 31)
+BENCH_KS = (1, 8, 33, 40, 64, 1025)  # and CHUNK_KEYS - 1, CHUNK_KEYS, CHUNK_KEYS + 1
+COPY_BYTES = (1, 15, 17, 4097, 65_539, 1_000_003)  # and sizes around the copy's stages
 # the CLI runs of the bench phase, and the verification lines each prints
 CLI_RUNS = ((["_", "3", "all"], 4), (["512m", "3", "sharedscan", "64"], 1),
             (["64m", "3", "linear"], 1), (["64m", "3", "member"], 1), (["64m", "3", "conj"], 1),
@@ -362,16 +368,23 @@ def build_phase() -> float:
     # registers and spills of the width-9 kernels (the main path's width),
     # and of the kernels with one body for every width (aggregates, the
     # chunked and dynamic compares) and the copy
+    for entry, line in ptxas_lines(_cuda.build_log):
+        if ("ILi9E" in entry or "ILi31E" in entry or "canary" in entry or "agg" in entry
+                or "chunked" in entry or "dynamic" in entry or "copy" in entry) and (
+                "Used" in line or "spill" in line):
+            print(f"  ptxas {entry}: {line}")
+    return seconds
+
+
+def ptxas_lines(log: str):
+    """(kernel, report) for each line ptxas's -v output gives a kernel."""
     entry = None
-    for line in _cuda.build_log.splitlines():
+    for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
-        elif entry and ("ILi9E" in entry or "ILi31E" in entry or "canary" in entry
-                        or "agg" in entry or "chunked" in entry or "dynamic" in entry
-                        or "copy" in entry) and ("Used" in line or "spill" in line):
-            print(f"  ptxas {entry}: {line.split(':', 1)[-1].strip()}")
-    return seconds
+        elif entry:
+            yield entry, line.split(":", 1)[-1].strip()
 
 
 def canary_phase(device, errs: dict) -> bool:
@@ -2029,32 +2042,45 @@ def linear_timing_phase(device, dev, arb, errs: dict) -> tuple[dict, dict]:
 
 def small_bench_phase(device, errs: dict) -> None:
     """The benchmark's kernels against their plain versions at small ragged
-    sizes: ``memcpy`` at byte counts that are not multiples of 16; the
-    chunked and dynamic compares at every width of BENCH_WIDTHS and k of
-    BENCH_KS, with key 0 over the padding, keys past the domain,
-    0xFFFFFFFF and a duplicate, and a ``block_offset``."""
+    sizes: ``memcpy`` at byte counts that are not multiples of 16 and
+    around the stages of its ring; the chunked scan and the dynamic compare
+    at every width of BENCH_WIDTHS and k of BENCH_KS and around one chunk,
+    with key 0 over the padding, keys past the domain, 0xFFFFFFFF, a
+    duplicate (across the chunk boundary past one chunk), a chunk of equal
+    keys, and a ``block_offset``."""
     import numpy as np
     import torch
     from shared_simd_scan_tpu_torch.bench import harness
     from shared_simd_scan_tpu_torch.ops import scan, unpack
 
     rng = np.random.default_rng(SEED + 7)
-    for nbytes in COPY_BYTES:
-        src = torch.from_numpy(rng.integers(0, 256, size=nbytes, dtype=np.uint8)).to(device)
+    stage = harness.COPY_STAGE_BYTES
+    # one stage +- 16 bytes; several stages and a 7-byte tail; past every ring's depth
+    copy_bytes = COPY_BYTES + (stage - 16, stage + 16, 5 * stage + 7, 3072 * stage + 7)
+    for nbytes in copy_bytes:
+        src = torch.randint(0, 256, (nbytes,), dtype=torch.uint8, device=device)
         a = harness.memcpy(src, torch.zeros_like(src))
         p = harness.memcpy_plain(src, torch.zeros_like(src))
         e = int((a.to(torch.int16) - p.to(torch.int16)).abs().max())
         errs["memcpy"] = max(errs["memcpy"], e)
+    c = scan.CHUNK_KEYS
+    ks = sorted(set(BENCH_KS) | {c - 1, c, c + 1})
     for width in BENCH_WIDTHS:
         dom = 1 << width
         for n in SMALL_NS:
             vals = torch.from_numpy(rng.integers(0, dom, size=n).astype(np.int32)).to(device)
             tiles = unpack.pack_device_kernel(vals, width).tiles
-            for k in BENCH_KS:
+            key_sets = []
+            for k in ks:
                 keys = rng.integers(0, dom, size=k).astype(np.uint32)
                 keys[0] = 0
                 if k >= 8:
                     keys[1], keys[2], keys[3] = min(dom, 0xFFFFFFFF), 0xFFFFFFFF, keys[4]
+                if k > c:
+                    keys[c - 1] = keys[c] = keys[4]
+                key_sets.append(keys)
+            key_sets.append(np.full(c, rng.integers(0, dom), dtype=np.uint32))
+            for keys in key_sets:
                 kt = torch.from_numpy(keys.view(np.int32)).to(device)
                 for bo in ((0, 2) if n == SMALL_NS[1] else (0,)):
                     for name in BENCH[1:]:
@@ -2064,10 +2090,22 @@ def small_bench_phase(device, errs: dict) -> None:
                                          int((a[1] - p[1]).abs().max()))
     torch.cuda.synchronize()
     check(errs["memcpy"] == 0, f"memcpy kernel byte-exact against its plain version (bytes "
-          f"{COPY_BYTES})")
+          f"{copy_bytes})")
     for name in BENCH[1:]:
         check(errs[name] == 0, f"{name} kernel bit-exact against its plain version (widths "
-              f"{BENCH_WIDTHS}, n {SMALL_NS}, k {BENCH_KS})")
+              f"{BENCH_WIDTHS}, n {SMALL_NS}, k {ks} and {c} equal keys)")
+
+
+def ptxas_usage(fragment: str) -> str:
+    """ptxas's registers and static shared memory of each kernel whose
+    mangled name holds ``fragment``, from the build's log."""
+    from shared_simd_scan_tpu_torch.ops import _cuda
+
+    log_path = _cuda.BUILD_DIR / "ptxas.log"
+    log = log_path.read_text() if log_path.exists() else ""
+    found = [f"{entry}: {line}" for entry, line in ptxas_lines(log)
+             if fragment in entry and "Used" in line]
+    return "; ".join(found) or "not in the build log"
 
 
 def sweep_regexes():
@@ -2137,7 +2175,7 @@ def bench_timing_phase(device, arb, errs: dict) -> tuple[dict, dict]:
     import torch
     from shared_simd_scan_tpu_torch.bench import harness
     from shared_simd_scan_tpu_torch.layout import LANES
-    from shared_simd_scan_tpu_torch.ops import scan
+    from shared_simd_scan_tpu_torch.ops import _cuda, scan
 
     t0 = time.monotonic()
     times, library = {}, {}
@@ -2159,6 +2197,8 @@ def bench_timing_phase(device, arb, errs: dict) -> tuple[dict, dict]:
     print(f"time memcpy 512 MiB of random words: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
           f"copy_ {library['memcpy']:.6f} ms, bound {times['memcpy 512MiB'][2]:.6f} ms; of zeros: "
           f"kernel {zeros[0]:.6f} ms, copy_ {zeros[1]:.6f} ms")
+    print(f"  memcpy kernel: {ptxas_usage('copy_ring_kernel')}; dynamic shared memory "
+          f"{_cuda.lib().sss_copy_smem()} bytes a CTA")
     del src, dst
 
     tiles, n = arb.tiles, arb.n
@@ -2192,6 +2232,10 @@ def bench_timing_phase(device, arb, errs: dict) -> tuple[dict, dict]:
             print(f"time {name} {label} (k={len(keys)}): kernel {ms:.6f} ms (bound "
                   f"{bound_ms:.6f} ms for {nbytes} bytes)"
                   + (f"; plain {plain_ms:.6f} ms" if plain_ms is not None else ""))
+            if name == "shared_scan_chunked":
+                print(f"  {name} kernel: {ptxas_usage('shared_scan_chunked_kernel')}; dynamic "
+                      f"shared memory {_cuda.lib().sss_shared_scan_chunked_smem(WIDTH)} bytes "
+                      f"a CTA at width {WIDTH}")
             torch.cuda.empty_cache()
         _, counts = scan.shared_scan_bitsliced_tiles(tiles, kt, WIDTH, n)
         check(counts.tolist() == expect, f"shared_scan_bitsliced {label}: counts == closed form")

@@ -173,6 +173,10 @@ def synth_modk_packed_sliced(n: int, k: int, width: int, nslices: int = 8, *,
 # The bandwidth yardstick: kernel 29
 # ---------------------------------------------------------------------------
 
+# Bytes of one stage of the copy kernel's ring, one bulk load and one bulk
+# store (kCopyStageBytes in csrc/copy.cu).
+COPY_STAGE_BYTES = 32 * 1024
+
 
 def memcpy_plain(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """Plain torch version of :func:`memcpy`."""
@@ -183,9 +187,10 @@ def memcpy(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """Copy every byte of ``src`` into ``dst`` (contiguous, the same dtype
     and size, one device, not overlapping) and return ``dst``.
 
-    Kernel ``sss_copy`` (``csrc/copy.cu``) on CUDA tensors, which must start
-    at 16-byte aligned addresses (a misaligned one raises); the plain
-    version on CPU tensors."""
+    Kernel ``sss_copy`` (``csrc/copy.cu``, a ring of bulk copies through
+    shared memory) on CUDA tensors, which must start at 16-byte aligned
+    addresses (a misaligned one raises); the plain version on CPU
+    tensors."""
     if src.dtype != dst.dtype or src.shape != dst.shape:
         raise ValueError(f"memcpy: {src.dtype}{tuple(src.shape)} into "
                          f"{dst.dtype}{tuple(dst.shape)}")

@@ -190,6 +190,11 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             handle.sss_error_string.argtypes = [ctypes.c_int]
             handle.sss_error_string.restype = ctypes.c_char_p
+            # dynamic shared memory a CTA of the copy / the chunked scan takes
+            handle.sss_copy_smem.argtypes = []
+            handle.sss_copy_smem.restype = ctypes.c_longlong
+            handle.sss_shared_scan_chunked_smem.argtypes = [ctypes.c_int]
+            handle.sss_shared_scan_chunked_smem.restype = ctypes.c_longlong
             _lib = handle
         return _lib
 

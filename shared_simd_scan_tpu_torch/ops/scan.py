@@ -4,9 +4,9 @@ PyTorch counterpart of the shared-scan part of
 ``shared_simd_scan_tpu/ops/scan.py``:
 
 - the general compare kernel (:func:`shared_scan_tiles`);
-- the chunked and dynamic compares for any k, which only the benchmark
-  drivers run (:func:`shared_scan_chunked_tiles`,
-  :func:`shared_scan_dynamic_tiles`);
+- the chunked scan (a key lookup per value) and the dynamic compare for
+  any k, which only the benchmark drivers run
+  (:func:`shared_scan_chunked_tiles`, :func:`shared_scan_dynamic_tiles`);
 - the interval kernel for consecutive keys (:func:`interval_scan_tiles`)
   with its shift canary (:func:`shift_saturates`);
 - the bit-sliced kernel for runtime keys (:func:`shared_scan_bitsliced_tiles`);
@@ -175,17 +175,18 @@ shared_scan_tiles.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Chunked and dynamic compare tiers: every key against the normalized values
+# Chunked and dynamic tiers: any k of arbitrary keys
 # ---------------------------------------------------------------------------
 #
-# Both compare each key with the 32 values of a block unpacked once (a
-# value is below 2^width, so keys >= 2^width, 0xFFFFFFFF included, match
-# nothing).  The JAX package's benchmark drivers run them for k > 32; no
-# dispatcher does.
+# Both take the 32 values of a block unpacked once (a value is below
+# 2^width, so keys >= 2^width, 0xFFFFFFFF included, match nothing).  The
+# chunked tier looks each value up among a chunk's keys; the dynamic tier
+# compares each key with the values.  The JAX package's benchmark drivers
+# run them for k > 32; no dispatcher does.
 
-# Keys per chunk of the chunked kernel, which keeps a chunk's keys in
-# registers (kChunkKeys in csrc/shared_scan.cu).
-CHUNK_KEYS = 16
+# Keys per chunk of the chunked kernel, one CTA's rows in shared memory
+# (kChunkKeys in csrc/shared_scan.cu).
+CHUNK_KEYS = 64
 
 
 def _normalized_compare_plain(
@@ -214,9 +215,34 @@ def shared_scan_chunked_tiles_plain(
     tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of :func:`shared_scan_chunked_tiles`, same
-    algorithm: the keys in chunks of CHUNK_KEYS, each chunk compared with
-    the normalized values."""
-    return _normalized_compare_plain(tiles, keys, width, n, block_offset, CHUNK_KEYS)
+    algorithm: for each chunk of CHUNK_KEYS keys, ``rep[j]`` (the first
+    index of the chunk holding key j), every value searched among the
+    chunk's sorted distinct keys below 2^width, one scatter of its bit into
+    the row of the key it hit, and row j read as row ``rep[j]``."""
+    vals = _block_values_plain(tiles, width)
+    kk = u32(keys)
+    k, device = kk.shape[0], tiles.device
+    valid = _valid_words(tiles.shape[1], n, block_offset, device)
+    bits = torch.empty((k,) + tuple(tiles.shape[1:]), dtype=torch.int32, device=device)
+    counts = torch.empty(k, dtype=torch.int64, device=device)
+    for j0 in range(0, k, CHUNK_KEYS):
+        chunk = kk[j0 : j0 + CHUNK_KEYS]
+        c = chunk.shape[0]
+        local = torch.arange(c, device=device)
+        rep = (chunk[:, None] == chunk[None, :]).to(torch.int8).argmax(dim=1)
+        enters = (rep == local) & (chunk < (1 << width))
+        order = torch.argsort(chunk[enters])
+        sorted_keys, sorted_idx = chunk[enters][order], local[enters][order]
+        # row c collects the values that hit no key
+        rows = torch.zeros((c + 1,) + tuple(tiles.shape[1:]), dtype=torch.int64, device=device)
+        if sorted_keys.numel():
+            last = sorted_keys.numel() - 1
+            for r, v in enumerate(vals):
+                pos = torch.searchsorted(sorted_keys, v).clamp_(max=last)
+                idx = torch.where(sorted_keys[pos] == v, sorted_idx[pos], c)
+                rows.scatter_add_(0, idx[None], torch.full_like(idx[None], 1 << r))
+        bits[j0 : j0 + c], counts[j0 : j0 + c] = _finish(rows[rep], valid)
+    return bits, counts
 
 
 def shared_scan_chunked_tiles(
@@ -224,7 +250,7 @@ def shared_scan_chunked_tiles(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Same contract as :func:`shared_scan_tiles` for any k (arbitrary keys,
     a CUDA tensor never read on the host): the keys in chunks of
-    CHUNK_KEYS, each chunk a fixed unrolled compare block.
+    CHUNK_KEYS, each value looked up once among a chunk's keys.
 
     Kernel ``sss_shared_scan_chunked`` (``csrc/shared_scan.cu``) on CUDA
     tensors, one launch for any k; the plain version on CPU tensors."""

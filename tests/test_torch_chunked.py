@@ -1,8 +1,9 @@
-"""The port's chunked and dynamic compare tiers against the JAX package.
+"""The port's chunked and dynamic tiers against the JAX package.
 
 ``shared_scan_chunked_tiles`` and ``shared_scan_dynamic_tiles`` run their
-plain versions on CPU tensors; the JAX kernels run in interpret mode on the
-same seeded numpy inputs (b1 = 8 shapes).  Integer results, tolerance 0.
+plain versions on CPU tensors; the JAX kernels run in interpret mode, and
+the JAX oracle as it is, on the same seeded numpy inputs (b1 = 8 shapes).
+Integer results, tolerance 0.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from shared_simd_scan_tpu import layout as jlayout
+from shared_simd_scan_tpu.ops import oracle as joracle
 from shared_simd_scan_tpu.ops import scan as jscan
 import shared_simd_scan_tpu_torch as port
 from shared_simd_scan_tpu_torch.ops import oracle, scan
@@ -119,3 +121,36 @@ def test_wrappers_refuse_bad_keys(tier):
         fn(tdev.tiles, torch.zeros(3, dtype=torch.int64), WIDTH, 100)
     with pytest.raises(ValueError):
         fn(tdev.tiles, torch.zeros((2, 2), dtype=torch.int32), WIDTH, 100)
+
+
+# The chunked tier's lookup at its edges, against the JAX oracle: widths 1
+# and 31, 12 (the kernel's last width on its direct table) and 13 (its
+# first on the search); a chunk of equal keys; k around one chunk; keys
+# past the domain and 0xFFFFFFFF; a key repeated across the chunk boundary.
+EDGE_SETS = ["equal", "ragged", "one chunk", "across"]
+
+
+def _edge_keys(case: str, width: int, values: np.ndarray) -> np.ndarray:
+    c = scan.CHUNK_KEYS
+    if case == "equal":
+        return np.full(c, values[3], np.uint32)
+    k = {"ragged": c - 1, "one chunk": c, "across": c + 1}[case]
+    rng = np.random.default_rng(width * 10 + k)
+    keys = rng.integers(0, 1 << width, size=k, dtype=np.uint64).astype(np.uint32)
+    keys[:5] = [0, 0xFFFFFFFF, 1 << width, (1 << 32) - 2, values[0]]
+    keys[c - 2] = values[-1]
+    if case == "across":
+        keys[c - 1] = keys[c] = values[5]
+    return keys
+
+
+@pytest.mark.parametrize("case", EDGE_SETS)
+@pytest.mark.parametrize("width", [1, 12, 13, 31])
+def test_chunked_edges_match_the_jax_oracle(width, case):
+    n = 2000
+    values, tdev = _column(width, n, seed=width + 7)
+    keys = _edge_keys(case, width, values)
+    jbits, jcounts = joracle.shared_scan(jlayout.pack(values, width), keys)
+    bits, counts = scan.shared_scan_chunked_tiles(tdev.tiles, _torch_keys(keys), width, n)
+    np.testing.assert_array_equal(_u32(scan.bits_to_canonical(bits, n)), np.asarray(jbits))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))

@@ -898,7 +898,11 @@ def test_refused_linear_launches_raise(cuda_device):
                                                     device=cuda_device), 1024, 100)
 
 
-@pytest.mark.parametrize("nbytes", [1, 15, 16, 17, 4097, 32768 + 5, 1_000_003])
+STAGE = harness.COPY_STAGE_BYTES
+
+
+@pytest.mark.parametrize("nbytes", [1, 15, 16, 17, 4097, 32768 + 5, 1_000_003, STAGE - 16,
+                                    STAGE + 16, 5 * STAGE + 7, 3072 * STAGE + 7])
 def test_copy_kernel_matches_plain(cuda_device, nbytes):
     rng = np.random.default_rng(nbytes)
     src = torch.from_numpy(rng.integers(0, 256, size=nbytes, dtype=np.uint8)).to(cuda_device)
@@ -919,15 +923,25 @@ def test_copy_kernel_refuses_misaligned_and_overlapping(cuda_device):
         _cuda.launch("sss_copy", cuda_device, buf.data_ptr() + 4, buf.data_ptr() + 2048, 64)
 
 
-@pytest.mark.parametrize("width", [1, 2, 9, 17, 31])
+@pytest.mark.parametrize("width", [1, 2, 9, 12, 13, 17, 31])
 def test_chunked_and_dynamic_kernels_match_plain(cuda_device, width):
+    # widths 12 and 13: the last on the chunked kernel's direct table, the
+    # first on its search; k around one chunk; a chunk of equal keys; a
+    # key repeated across the chunk boundary
     dom = 1 << width
     values = _values(width, N, width + 90, cuda_device)
     tiles = unpack.pack_device_kernel(values, width).tiles
     rng = np.random.default_rng(width)
-    for k in (1, 8, 9, 17, 33, 40, 64):
+    c = scan.CHUNK_KEYS
+    key_sets = []
+    for k in (1, 8, 9, 17, 33, 40, c - 1, c, c + 1):
         keys = rng.integers(0, dom, size=k).astype(np.int64)
         keys[: min(k, 4)] = [0, 0xFFFFFFFF, dom, int(values[3])][: min(k, 4)]
+        if k > c:
+            keys[c - 1] = keys[c] = keys[3]
+        key_sets.append(keys)
+    key_sets.append(np.full(c, int(values[7])))
+    for keys in key_sets:
         kt = _keys(keys, cuda_device)
         for bo in (0, 2):
             _same(scan.shared_scan_chunked_tiles(tiles, kt, width, N, bo),
