@@ -54,18 +54,20 @@ from the sources in the checkout and then:
    (``scatter_add_``, ``bincount``, ``scatter_reduce_``, the masked sum);
 8. holds the histogram and zone-map kernels against their plain versions
    at small ragged sizes (widths 1-31, k 1-4096, key 0 over padding, keys
-   past the domain, a runtime lo wrapping past 2^32, a ``block_offset``, a
-   padded flag-0 step), then drives the statistics path at full size —
-   ``histogram_device`` on the ``i % 512`` column with a host lo (span and
-   chunked AND-DAG kernels) and a CUDA-tensor lo (bins kernel, under
-   ``set_sync_debug_mode("error")``), ``stats`` on ``price`` and on the
-   20-bit ``revenue`` (256 windows) — and the zone-map path on three columns
-   of the same n (clustered, clustered at both ends, uniform ``price``):
-   ``build_zonemap``, pruned and zoned equality scans and ``evaluate`` with
-   zone maps, with the launch counters set to 0 just before and read just
-   after each call; checks that each call ran the kernel its rule names and
-   equals plain torch on the raw values (``bincount``, per-zone
-   ``amin``/``amax``, the full range scan, ``evaluate`` without zone maps);
+   past the domain, a lo within k of 2^32 -- wrapping for a runtime lo,
+   counting nothing for the span tier --, a ``block_offset``, a padded
+   flag-0 step), then drives the statistics path at full size —
+   ``histogram_device`` on the ``i % 512`` column with a host lo (the bins
+   kernel's span form, the chunked AND-DAG kernel) and a CUDA-tensor lo
+   (bins kernel, under ``set_sync_debug_mode("error")``), ``stats`` on
+   ``price`` and on the 20-bit ``revenue`` (256 windows) — and the zone-map
+   path on three columns of the same n (clustered, clustered at both ends,
+   uniform ``price``): ``build_zonemap``, pruned and zoned equality scans
+   and ``evaluate`` with zone maps, with the launch counters set to 0 just
+   before and read just after each call; checks that each call ran the
+   kernel its rule names and equals plain torch on the raw values
+   (``bincount``, per-zone ``amin``/``amax``, the full range scan,
+   ``evaluate`` without zone maps);
 9. holds the linear export's kernels against their plain versions at small
    ragged sizes (the interleave at k 1-1024 and the stream interleave with
    ragged M; the fused interval, static and runtime-key kernels at every k
@@ -89,20 +91,23 @@ from the sources in the checkout and then:
 11. holds the benchmark's kernels against their plain versions at small
     ragged sizes (``memcpy`` at byte counts that are not multiples of 16,
     one stage of its ring +- 16 bytes, several stages plus a 7-byte tail,
-    and enough stages to wrap every CTA's ring; the chunked scan and the
-    dynamic compare at widths 1-31, the last width of the chunked kernel's
-    direct table and the first of its search among them, k 1-1025 and
-    around one chunk, keys past the domain and 0xFFFFFFFF, a key repeated
-    across the chunk boundary, a chunk of equal keys, a ``block_offset``);
+    and enough stages to wrap every CTA's ring; the chunked and dynamic
+    scans at widths 1-31, the last width of their direct tables and the
+    first of their search among them, k 1-1025 and around one chunk, keys
+    past the domain and 0xFFFFFFFF, a key repeated across the chunk
+    boundary, across groups of rows and across the dynamic kernel's launch
+    boundary, a chunk of equal keys, keys all past the domain, a
+    ``block_offset``);
 12. times the memcpy kernel beside its plain version and ``copy_`` on 512
-    MiB (random words, and zeros), and the chunked, dynamic and general
-    compare kernels on S64 and a 256-key set of the ``i % 512`` column,
-    each checked against its plain twin and the closed-form counts, with
-    the copy and chunked kernels' registers and shared memory; then
+    MiB (random words, and zeros), and the chunked and dynamic scans and
+    the general compare kernel on S64 and a 256-key set of the ``i % 512``
+    column, each checked against its plain twin and the closed-form
+    counts, with the copy, chunked and dynamic kernels' registers and
+    shared memory; then
     drives the benchmark CLI in process, ``cli.main`` with 3 reps: the
     default suite with ``all`` (memory with the memcpy and ``copy_`` rows,
     decompression, scan, sharedscan at data_size/8, pack), sharedscan k=64
-    at 512 MiB (the chunked and dynamic compares at full size), and
+    at 512 MiB (the chunked and dynamic scans at full size), and
     linear, member, conj, aggregate and histogram at 64 MiB, with the
     launch counters set to 0 just before and read just after; checks that
     every run returns 0, every verification reads ok, every row parses with
@@ -191,7 +196,7 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                   "shared_simd_scan_tpu/ops/scan.py:1553"),
     "histogram_dag": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
                       "shared_simd_scan_tpu/ops/scan.py:1716"),
-    "histogram_span": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
+    "histogram_span": ("shared_simd_scan_tpu_torch/csrc/histogram.cu",
                        "shared_simd_scan_tpu/ops/scan.py:1816"),
     "zoned_range_scan": ("shared_simd_scan_tpu_torch/csrc/zoned.cu",
                          "shared_simd_scan_tpu/zonemap.py:298"),
@@ -248,9 +253,12 @@ ZONE_B1 = 64
 QS = [0.0, 0.25, 0.5, 0.9, 1.0]
 # the benchmark's kernels; their small phase's widths, key counts and copy sizes
 BENCH = ("memcpy", "shared_scan_chunked", "shared_scan_dynamic")
-# (12 and 13: the chunked kernel's last width on its direct table, its first on the search)
+# (12 and 13: the chunked and dynamic kernels' last width on their direct
+# tables, their first on the search)
 BENCH_WIDTHS = (1, 2, 9, 12, 13, 17, 31)
-BENCH_KS = (1, 8, 33, 40, 64, 1025)  # and CHUNK_KEYS - 1, CHUNK_KEYS, CHUNK_KEYS + 1
+# and CHUNK_KEYS - 1, CHUNK_KEYS, CHUNK_KEYS + 1; 130: three groups of the
+# dynamic kernel's rows; 1025: past one dynamic launch
+BENCH_KS = (1, 8, 33, 40, 64, 130, 1025)
 COPY_BYTES = (1, 15, 17, 4097, 65_539, 1_000_003)  # and sizes around the copy's stages
 # the CLI runs of the bench phase, and the verification lines each prints
 CLI_RUNS = ((["_", "3", "all"], 4), (["512m", "3", "sharedscan", "64"], 1),
@@ -367,7 +375,7 @@ def build_phase() -> float:
     log_path.write_text(_cuda.build_log)
     # registers and spills of the width-9 kernels (the main path's width),
     # and of the kernels with one body for every width (aggregates, the
-    # chunked and dynamic compares) and the copy
+    # chunked and dynamic scans) and the copy
     for entry, line in ptxas_lines(_cuda.build_log):
         if ("ILi9E" in entry or "ILi31E" in entry or "canary" in entry or "agg" in entry
                 or "chunked" in entry or "dynamic" in entry or "copy" in entry) and (
@@ -1386,8 +1394,9 @@ def aggregate_timing_phase(device, cols, agg_data, errs: dict) -> dict:
 def small_stats_phase(device, errs: dict) -> None:
     """The histogram and zone-map kernels against their plain versions at
     small ragged sizes: widths 1-31, n 100, 4241 and 32768, k 1-4096 with
-    key 0 over the padding, windows past the domain, a runtime lo within k
-    of 2^32 (the wrap) and a ``block_offset``; the zoned kernel with a
+    key 0 over the padding, windows past the domain, a lo within k of 2^32
+    (the runtime lo wraps, the span tier counts nothing) and a
+    ``block_offset``; the zoned kernel with a
     padded flag-0 step, on the small columns (one step of 8 rows) and on a
     ragged column of 9 steps; the range kernel on an in-place row span."""
     import numpy as np
@@ -1431,7 +1440,8 @@ def small_stats_phase(device, errs: dict) -> None:
             runtime = [(0, k) for k in HIST_KS] + [(v0, 64), (dom, 32), ((1 << 32) - 3, 40)]
             chunked = [(0, k) for k in HIST_KS if k <= 48] + [(max(dom - 3, 0), 40), (dom, 8),
                                                              (0, 64)]
-            span = [(0, k) for k in HIST_KS if 48 < k <= 512] + [(max(dom - 20, 0), 64), (0, 5)]
+            span = [(0, k) for k in HIST_KS if 48 < k <= 512] + [(max(dom - 20, 0), 64), (0, 5),
+                                                                ((1 << 32) - 3, 40)]
             if n == SMALL_NS[2] and width in (12, 16):  # the statistics' k = 4096 programs
                 chunked.append((0, 4096))
                 span.append((0, 4096))
@@ -1701,8 +1711,8 @@ def stats_timing_phase(device, arb, rev, zdata, errs: dict) -> dict:
               f"copy, bound {bound_ms:.6f} ms for {nbytes} bytes); plain {plain_ms:.6f} ms")
     print("library: no PyTorch call counts the values of a bit-packed column, so library_ms is "
           "null")
-    print(f"time H1 full-domain histogram, two algorithms: span AND-DAG program "
-          f"{results['histogram_span H1'][0]:.6f} ms, bins kernel (H3) "
+    print(f"time H1 full-domain histogram, the two forms of the bins kernel: span (host lo) "
+          f"{results['histogram_span H1'][0]:.6f} ms, runtime lo (H3) "
           f"{results['histogram H3'][0]:.6f} ms")
 
     def unpack_bincount():  # the padding's zero values leave bin 0
@@ -2043,11 +2053,12 @@ def linear_timing_phase(device, dev, arb, errs: dict) -> tuple[dict, dict]:
 def small_bench_phase(device, errs: dict) -> None:
     """The benchmark's kernels against their plain versions at small ragged
     sizes: ``memcpy`` at byte counts that are not multiples of 16 and
-    around the stages of its ring; the chunked scan and the dynamic compare
-    at every width of BENCH_WIDTHS and k of BENCH_KS and around one chunk,
-    with key 0 over the padding, keys past the domain, 0xFFFFFFFF, a
-    duplicate (across the chunk boundary past one chunk), a chunk of equal
-    keys, and a ``block_offset``."""
+    around the stages of its ring; the chunked and dynamic scans at every
+    width of BENCH_WIDTHS and k of BENCH_KS and around one chunk, with key 0
+    over the padding, keys past the domain, 0xFFFFFFFF, duplicates (across
+    the chunk boundary, across groups of rows, and across the dynamic
+    launch boundary past 1024 keys), a chunk of equal keys, a set of keys
+    all past the domain, and a ``block_offset``."""
     import numpy as np
     import torch
     from shared_simd_scan_tpu_torch.bench import harness
@@ -2063,7 +2074,7 @@ def small_bench_phase(device, errs: dict) -> None:
         p = harness.memcpy_plain(src, torch.zeros_like(src))
         e = int((a.to(torch.int16) - p.to(torch.int16)).abs().max())
         errs["memcpy"] = max(errs["memcpy"], e)
-    c = scan.CHUNK_KEYS
+    c, launch = scan.CHUNK_KEYS, scan.MAX_LAUNCH_KEYS
     ks = sorted(set(BENCH_KS) | {c - 1, c, c + 1})
     for width in BENCH_WIDTHS:
         dom = 1 << width
@@ -2078,8 +2089,12 @@ def small_bench_phase(device, errs: dict) -> None:
                     keys[1], keys[2], keys[3] = min(dom, 0xFFFFFFFF), 0xFFFFFFFF, keys[4]
                 if k > c:
                     keys[c - 1] = keys[c] = keys[4]
+                    keys[k - 1] = keys[5]
+                if k > launch:
+                    keys[launch - 1] = keys[launch] = keys[6]
                 key_sets.append(keys)
             key_sets.append(np.full(c, rng.integers(0, dom), dtype=np.uint32))
+            key_sets.append(np.array([dom, 0xFFFFFFFF, dom + 1, 0xFFFFFFFF], dtype=np.uint32))
             for keys in key_sets:
                 kt = torch.from_numpy(keys.view(np.int32)).to(device)
                 for bo in ((0, 2) if n == SMALL_NS[1] else (0,)):
@@ -2093,7 +2108,7 @@ def small_bench_phase(device, errs: dict) -> None:
           f"{copy_bytes})")
     for name in BENCH[1:]:
         check(errs[name] == 0, f"{name} kernel bit-exact against its plain version (widths "
-              f"{BENCH_WIDTHS}, n {SMALL_NS}, k {ks} and {c} equal keys)")
+              f"{BENCH_WIDTHS}, n {SMALL_NS}, k {ks}, {c} equal keys and 4 past the domain)")
 
 
 def ptxas_usage(fragment: str) -> str:
@@ -2232,10 +2247,10 @@ def bench_timing_phase(device, arb, errs: dict) -> tuple[dict, dict]:
             print(f"time {name} {label} (k={len(keys)}): kernel {ms:.6f} ms (bound "
                   f"{bound_ms:.6f} ms for {nbytes} bytes)"
                   + (f"; plain {plain_ms:.6f} ms" if plain_ms is not None else ""))
-            if name == "shared_scan_chunked":
-                print(f"  {name} kernel: {ptxas_usage('shared_scan_chunked_kernel')}; dynamic "
-                      f"shared memory {_cuda.lib().sss_shared_scan_chunked_smem(WIDTH)} bytes "
-                      f"a CTA at width {WIDTH}")
+            if name != "shared_scan":
+                print(f"  {name} kernel: {ptxas_usage(f'{name}_kernel')}; dynamic shared memory "
+                      f"{getattr(_cuda.lib(), f'sss_{name}_smem')(WIDTH)} bytes a CTA at width "
+                      f"{WIDTH}")
             torch.cuda.empty_cache()
         _, counts = scan.shared_scan_bitsliced_tiles(tiles, kt, WIDTH, n)
         check(counts.tolist() == expect, f"shared_scan_bitsliced {label}: counts == closed form")
@@ -2316,7 +2331,7 @@ def main() -> int:
         # it, its times on the other keyed sets; the histogram and zoned
         # kernels their H and Z sets; the linear kernels their L set (the
         # interleave k=8), with the two-pass or library time beside it; the
-        # chunked and dynamic compares S64 and, beside it, S256; memcpy its
+        # chunked and dynamic scans S64 and, beside it, S256; memcpy its
         # 512 MiB copy with copy_ as its library time
         sets = {**AGGREGATE, **HISTOGRAM, **ZONED, **LINEAR, "memcpy": "512MiB"}
         if name in sets:

@@ -405,8 +405,9 @@ def chain_histogram(tiles, k, *, width, n, kk):
 
 
 def chain_histogram_dag(tiles, k, *, width, n, kk, sp=None):
-    """Shared-AND-DAG histogram (the host-lo dispatch path); ``sp`` forces
-    the single-pass span program (True) or the chunked programs (False)."""
+    """Host-lo histogram (the dispatch path of ``histogram_dag_tiles``);
+    ``sp`` forces the single-pass span tier (True) or the chunked AND-DAG
+    programs (False)."""
     return _last(k, lambda: scan_ops.histogram_dag_tiles(
         tiles, 0, kk, width, n, single_pass=sp)).sum()
 
@@ -743,7 +744,8 @@ def bench_histogram(
     device=None,
 ):
     """Counts-only value histogram, no bitvector output: the host-lo
-    AND-DAG dispatch path and the runtime-lo bins kernel.  Default k = the
+    dispatch path (the span tier, or the chunked AND-DAG programs; its row
+    keeps the JAX CLI's name) and the runtime-lo bins kernel.  Default k = the
     full domain (2^width, capped at 4096).  Bytes: the packed column read
     once per pass (one per static group for the chunked programs) and k
     int64 counts."""

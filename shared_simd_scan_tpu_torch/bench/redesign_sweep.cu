@@ -1,9 +1,11 @@
-// The copy and chunked-scan designs side by side, for bench/redesign_sweep.py
-// to time on the card.  Not part of the kernel library: it includes the
-// library's copy.cu and shared_scan.cu for their templates (the bulk-copy
-// ring at any stage size, depth and run of chunks a CTA, or on the resident
-// grid; the key-lookup chunked scan at any chunk and CTA size) and adds the
-// designs the library does not use:
+// The copy, chunked-scan and dynamic-scan designs side by side, for
+// bench/redesign_sweep.py to time on the card.  Not part of the kernel
+// library: it includes the library's copy.cu and shared_scan.cu for their
+// templates (the bulk-copy ring at any stage size, depth and run of chunks
+// a CTA, or on the resident grid; the key-lookup chunked scan at any chunk
+// and CTA size; the dynamic scan at any group of rows and CTA size, and
+// without its lookups or its row stores) and adds the designs the library
+// does not use:
 //   - the per-thread batch copy: one CTA per 2048 16-byte vectors, each
 //     thread eight streaming loads, then its eight stores;
 //   - the persistent grid-stride copy, software-pipelined: the loads of the
@@ -16,7 +18,9 @@
 //     word) and a warp's count of row j in lane j % 32's register, flushed
 //     once per CTA, instead of a shared atomic per row and warp;
 //   - the library's chunked kernel with its lookups, its counts or its row
-//     stores taken out, to time each part.
+//     stores taken out, to time each part;
+//   - the dynamic compare, which the library's dynamic scan replaced:
+//     the values of a tile in shared memory, read back for every key.
 #include "../csrc/copy.cu"
 #include "../csrc/shared_scan.cu"
 
@@ -125,7 +129,8 @@ chunked_register_counts_kernel(const uint32_t* __restrict__ tiles,
 }
 
 // The library's chunked kernel with one part taken out, to time the parts:
-// kMode 1 skips the lookups (every row stays zero), 2 stores the rows
+// kMode 1 skips the lookups (each value marks the row of its own value, so
+// the values and the tile loads stay live), 2 stores the rows
 // without counting them, 3 counts the rows without storing them.  Its bits
 // or counts are wrong by design; the sweep only times it.
 template <int C, int T, bool kDirect, int kMode>
@@ -148,6 +153,7 @@ chunked_ablation_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __re
     unpack_block_any(width, tiles, nblocks, b, active, v);
     for (int i = 0; i < kc; ++i) col[i * T] = 0u;
     if (kMode != 1) chunk_mark_rows<C, T, kDirect>(s, col, v);
+    else mark_rows<T, C>(col, v, 0u);  // each value marks the row of its own value
     const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
     chunk_store_rows<C, T, kMode != 3, kMode != 2>(s, col, rows + b, nblocks, active, kc,
                                                     valid);
@@ -239,6 +245,65 @@ chunked_compare_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __res
   flush_counts(s_cnt, kc, counts + j0);
 }
 
+// The dynamic compare: the values of a tile unpacked once into shared
+// memory, 32 words a thread laid out [slot][thread], read back for every
+// key of a runtime loop; the launch's keys staged in shared memory; CTAs
+// resident, walking the tiles.
+__global__ void __launch_bounds__(kThreads)
+dynamic_compare_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __restrict__ keys,
+                       int k, uint32_t* __restrict__ bits, unsigned long long* __restrict__ counts,
+                       long long nblocks, int width, long long n, long long block_offset,
+                       long long ntiles) {
+  __shared__ uint32_t s_val[kBlockValues * kThreads];
+  __shared__ uint32_t s_key[kMaxKeys];
+  __shared__ unsigned s_cnt[kMaxKeys];
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    s_key[j] = __ldg(keys + j);
+    s_cnt[j] = 0u;
+  }
+  __syncthreads();
+  // volatile: every key reads the values from shared memory again
+  volatile uint32_t* mine = s_val + threadIdx.x;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long b = tile * blockDim.x + threadIdx.x;
+    const bool active = b < nblocks;
+    uint32_t v[kBlockValues];
+    unpack_block_any(width, tiles, nblocks, b, active, v);
+#pragma unroll
+    for (int r = 0; r < kBlockValues; ++r) mine[r * kThreads] = v[r];
+    const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
+    for (int j = 0; j < k; ++j) {
+      const uint32_t key = s_key[j];
+      uint32_t acc = 0u;
+#pragma unroll
+      for (int r = 0; r < kBlockValues; ++r) acc |= (uint32_t)(mine[r * kThreads] == key) << r;
+      store_row(bits, nblocks, b, active, j, acc & valid, s_cnt);
+    }
+  }
+  flush_counts(s_cnt, k, counts);
+}
+
+cudaError_t dynamic_compare_launch(const uint32_t* tiles, const uint32_t* keys, int k,
+                                   uint32_t* bits, unsigned long long* counts, long long nblocks,
+                                   int width, long long n, long long block_offset,
+                                   cudaStream_t stream) {
+  if (!width_ok(width)) return cudaErrorInvalidValue;
+  if (nblocks <= 0 || k <= 0) return cudaSuccess;
+  const long long ntiles = (nblocks + kThreads - 1) / kThreads;
+  unsigned grid = 0;
+  cudaError_t err = resident_grid(dynamic_compare_kernel, kThreads, 0, ntiles, &grid);
+  if (err != cudaSuccess) return err;
+  for (int j0 = 0; j0 < k; j0 += kMaxKeys) {
+    const int kc = k - j0 < kMaxKeys ? k - j0 : kMaxKeys;
+    dynamic_compare_kernel<<<grid, kThreads, 0, stream>>>(
+        tiles, keys + j0, kc, bits + (size_t)j0 * nblocks, counts + j0, nblocks, width, n,
+        block_offset, ntiles);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace sss
 
 // Copy variant: 0 the per-thread batch; 1-2 the pipelined grid-stride loop
@@ -326,4 +391,79 @@ extern "C" int sweep_chunked(int variant, const uint32_t* tiles, const uint32_t*
 #undef SWEEP_ABLATION
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic variant: 0 the dynamic compare; 1-4 the library's dynamic scan
+// at (G, threads) = (32, 128), (32, 256), (64, 128), (64, 256); 5-6 the
+// library's dynamic scan at its own (G, threads) without its lookups (each
+// value marks the row of its own value) or without its row stores (timing
+// only).
+extern "C" int sweep_dynamic(int variant, const uint32_t* tiles, const uint32_t* keys, int k,
+                             uint32_t* bits, unsigned long long* counts, long long nblocks,
+                             int width, long long n, long long block_offset,
+                             cudaStream_t stream) {
+  using namespace sss;
+  constexpr int G = kDynGroup, T = kDynThreads;
+  switch (variant) {
+    case 0:
+      return (int)dynamic_compare_launch(tiles, keys, k, bits, counts, nblocks, width, n,
+                                         block_offset, stream);
+#define SWEEP_CASE(V, G_, T_)                                                              \
+  case V:                                                                                  \
+    return (int)dynamic_launch<G_, T_>(tiles, keys, k, bits, counts, nblocks, width, n,    \
+                                       block_offset, stream);
+    SWEEP_CASE(1, 32, 128)
+    SWEEP_CASE(2, 32, 256)
+    SWEEP_CASE(3, 64, 128)
+    SWEEP_CASE(4, 64, 256)
+#undef SWEEP_CASE
+    case 5:
+      return (int)dynamic_launch_with<G, T>(
+          shared_scan_dynamic_kernel<G, T, true, false>,
+          shared_scan_dynamic_kernel<G, T, false, false>, tiles, keys, k, bits, counts, nblocks,
+          width, n, block_offset, stream);
+    case 6:
+      return (int)dynamic_launch_with<G, T>(
+          shared_scan_dynamic_kernel<G, T, true, true, false>,
+          shared_scan_dynamic_kernel<G, T, false, true, false>, tiles, keys, k, bits, counts,
+          nblocks, width, n, block_offset, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+namespace sss {
+
+template <typename Kernel>
+int ctas_per_sm(Kernel direct, Kernel search, int width, int threads, size_t smem) {
+  const Kernel kernel = width <= kDirectBits ? direct : search;
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem))
+    return -1;
+  return n;
+}
+
+}  // namespace sss
+
+// CTAs an SM of dynamic variants 1-4 at this width (0: the library's
+// chunked kernel), as the occupancy calculator gives them; -1 on an error.
+extern "C" int sweep_dynamic_ctas(int variant, int width) {
+  using namespace sss;
+  switch (variant) {
+    case 0:
+      return ctas_per_sm(shared_scan_chunked_kernel<kChunkKeys, kChunkThreads, true>,
+                         shared_scan_chunked_kernel<kChunkKeys, kChunkThreads, false>, width,
+                         kChunkThreads, chunked_smem<kChunkKeys, kChunkThreads>(width));
+#define SWEEP_CASE(V, G_, T_)                                                                  \
+  case V:                                                                                      \
+    return ctas_per_sm(shared_scan_dynamic_kernel<G_, T_, true>,                               \
+                       shared_scan_dynamic_kernel<G_, T_, false>, width, T_,                   \
+                       dynamic_smem<G_, T_>(width));
+    SWEEP_CASE(1, 32, 128)
+    SWEEP_CASE(2, 32, 256)
+    SWEEP_CASE(3, 64, 128)
+    SWEEP_CASE(4, 64, 256)
+#undef SWEEP_CASE
+  }
+  return -1;
 }

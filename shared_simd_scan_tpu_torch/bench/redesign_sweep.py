@@ -1,4 +1,4 @@
-"""Time the copy and chunked-scan designs side by side on the card.
+"""Time the copy, chunked-scan and dynamic-scan designs side by side on the card.
 
     python -m shared_simd_scan_tpu_torch.bench.redesign_sweep
 
@@ -22,7 +22,16 @@ twice, in one order and then in the reverse one):
   S256 (the key sets of ``chip_smoke.py``); every variant bit-exact against
   the register compare and its counts equal to the closed form first.
   Beside them, timed only, the package's kernel without its lookups, its
-  counts or its row stores.
+  counts or its row stores;
+- the dynamic scan on the same column and key sets: the dynamic compare
+  it replaced (values in shared memory, read back for every key) against
+  the lookup of each value among a launch's keys at groups of G in {32,
+  64} rows and 128 or 256 threads a CTA, the package's
+  ``shared_scan_dynamic_tiles`` and ``shared_scan_chunked_tiles``; every
+  variant bit-exact against the dynamic compare and its counts equal to
+  the closed form first.  Beside them, timed only, the package's dynamic
+  kernel without its lookups or its row stores, and the CTAs an SM of
+  each dynamic variant and of the chunked kernel.
 
 Needs a CUDA card; prints the card's name and power limit first.  Not on
 any path of the package.
@@ -59,6 +68,10 @@ CHUNKED_NAMES = {0: "compare C=16 T=256", 1: "lookup C=32 T=128", 2: "lookup C=3
 # the library's kernel with a part taken out: timed, its results not checked
 ABLATION_NAMES = {9: "C=64 T=256 without lookups", 10: "C=64 T=256 without counts",
                   11: "C=64 T=256 without row stores"}
+DYNAMIC_NAMES = {0: "dynamic compare", 1: "lookup G=32 T=128", 2: "lookup G=32 T=256",
+                 3: "lookup G=64 T=128", 4: "lookup G=64 T=256"}
+DYNAMIC_ABLATIONS = {5: "the package's dynamic kernel without lookups",
+                     6: "the package's dynamic kernel without row stores"}
 WIDTH, DOMAIN = 9, 512
 HBM_BYTES_PER_S = 3.35e12
 
@@ -72,17 +85,20 @@ def _library() -> tuple[ctypes.CDLL, str]:
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.sweep_copy.argtypes = [i, vp, vp, ll, vp]
     lib.sweep_chunked.argtypes = [i, vp, vp, i, vp, vp, ll, i, ll, ll, vp]
+    lib.sweep_dynamic.argtypes = [i, vp, vp, i, vp, vp, ll, i, ll, ll, vp]
+    lib.sweep_dynamic_ctas.argtypes = [i, i]
     return lib, proc.stdout + proc.stderr
 
 
 def _resources(log: str) -> list[str]:
-    """ptxas's registers and shared memory of the copy and chunked kernels."""
+    """ptxas's registers and shared memory of the copy, chunked and dynamic
+    kernels."""
     lines, entry = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
-        elif entry and "Used" in line and ("copy" in entry or "chunked" in entry):
+        elif entry and "Used" in line and any(w in entry for w in ("copy", "chunked", "dynamic")):
             lines.append(f"  {entry}: {line.split(':', 1)[-1].strip()}")
     return lines
 
@@ -162,10 +178,14 @@ def copy_sweep(lib, device) -> None:
     _report("copy 512 MiB, back and forth (the CLI's memory rows)", _in_turns(calls), bound)
 
 
-def chunked_sweep(lib, device) -> None:
+def scan_sweep(title: str, entry, names: dict, ablations: dict, packaged: dict, tiles,
+               n: int) -> None:
+    """Time the variants of one sweep entry point (``entry(variant, ...)``)
+    and the package's wrappers in ``packaged`` on S64 and S256 of the
+    ``i % 512`` column: each checked first against variant 0's bits and the
+    closed-form counts; the ablations timed only."""
+    device = tiles.device
     stream = torch.cuda.current_stream().cuda_stream
-    n = harness.values_for(512 * 1024 * 1024, WIDTH)
-    tiles = pack_device_kernel(harness.synth_modk(n, DOMAIN, WIDTH, device=device), WIDTH).tiles
     nblocks = tiles.shape[1] * LANES
     sets = {"S64": np.random.default_rng(3).choice(DOMAIN, 64, replace=False),
             "S256": np.random.default_rng(4).choice(DOMAIN, 256, replace=False)}
@@ -179,31 +199,32 @@ def chunked_sweep(lib, device) -> None:
 
         def variant(v):
             counts.zero_()
-            rc = lib.sweep_chunked(v, tiles.data_ptr(), kt.data_ptr(), k, bits.data_ptr(),
-                                   counts.data_ptr(), nblocks, WIDTH, n, 0, stream)
+            rc = entry(v, tiles.data_ptr(), kt.data_ptr(), k, bits.data_ptr(), counts.data_ptr(),
+                       nblocks, WIDTH, n, 0, stream)
             if rc:
-                raise RuntimeError(f"chunked variant {v}: CUDA error {rc}")
+                raise RuntimeError(f"{title} variant {v}: CUDA error {rc}")
 
         variant(0)
         ref = bits.clone()
-        _check(torch.equal(counts, expect), f"{label}: the register compare's counts")
-        for v in list(CHUNKED_NAMES)[1:]:
+        _check(torch.equal(counts, expect), f"{label}: {names[0]}'s counts")
+        for v in list(names)[1:]:
             bits.zero_()
             variant(v)
             _check(torch.equal(bits, ref) and torch.equal(counts, expect),
-                   f"{label}: {CHUNKED_NAMES[v]} differs from the register compare")
-        got = scan.shared_scan_chunked_tiles(tiles, kt, WIDTH, n)
-        _check(torch.equal(got[0], ref) and torch.equal(got[1], expect),
-               f"{label}: shared_scan_chunked_tiles differs from the register compare")
-        del ref, got
-        calls = {name: (lambda v=v: variant(v)) for v, name in CHUNKED_NAMES.items()}
-        calls["shared_scan_chunked_tiles"] = lambda: scan.shared_scan_chunked_tiles(
-            tiles, kt, WIDTH, n)
+                   f"{label}: {names[v]} differs from {names[0]}")
+        for name, fn in packaged.items():
+            got = fn(tiles, kt, WIDTH, n)
+            _check(torch.equal(got[0], ref) and torch.equal(got[1], expect),
+                   f"{label}: {name} differs from {names[0]}")
+            del got
+        del ref
+        calls = {name: (lambda v=v: variant(v)) for v, name in names.items()}
+        calls.update({name: (lambda fn=fn: fn(tiles, kt, WIDTH, n))
+                      for name, fn in packaged.items()})
         calls.update({f"ablation: {name}": (lambda v=v: variant(v))
-                      for v, name in ABLATION_NAMES.items()})
+                      for v, name in ablations.items()})
         nbytes = tiles.numel() * 4 + k * (nblocks * 4 + 8 + 4)
-        _report(f"chunked scan {label} (k={k})", _in_turns(calls),
-                nbytes / HBM_BYTES_PER_S * 1e3)
+        _report(f"{title} {label} (k={k})", _in_turns(calls), nbytes / HBM_BYTES_PER_S * 1e3)
         del bits
         torch.cuda.empty_cache()
 
@@ -219,8 +240,17 @@ def main() -> None:
     lib, log = _library()
     print("ptxas:")
     print("\n".join(_resources(log)))
+    ctas = {name: lib.sweep_dynamic_ctas(v, WIDTH) for v, name in DYNAMIC_NAMES.items() if v}
+    ctas["the package's chunked kernel"] = lib.sweep_dynamic_ctas(0, WIDTH)
+    print(f"CTAs an SM at width {WIDTH} (occupancy calculator): {ctas}")
     copy_sweep(lib, device)
-    chunked_sweep(lib, device)
+    n = harness.values_for(512 * 1024 * 1024, WIDTH)
+    tiles = pack_device_kernel(harness.synth_modk(n, DOMAIN, WIDTH, device=device), WIDTH).tiles
+    scan_sweep("chunked scan", lib.sweep_chunked, CHUNKED_NAMES, ABLATION_NAMES,
+               {"shared_scan_chunked_tiles": scan.shared_scan_chunked_tiles}, tiles, n)
+    scan_sweep("dynamic scan", lib.sweep_dynamic, DYNAMIC_NAMES, DYNAMIC_ABLATIONS,
+               {"shared_scan_dynamic_tiles": scan.shared_scan_dynamic_tiles,
+                "shared_scan_chunked_tiles": scan.shared_scan_chunked_tiles}, tiles, n)
 
 
 if __name__ == "__main__":

@@ -1,15 +1,19 @@
-"""Time the bits-form scan kernels of one checkout on the card.
+"""Time the scan and histogram kernels of one checkout on the card.
 
     python3 shared_simd_scan_tpu_torch/bench/scan_times.py [ROOT]
 
 Imports ``shared_simd_scan_tpu_torch`` from ROOT (default: the checkout
 holding this file), builds its kernels, and times with CUDA events the
 interval kernel (keys 0..7 on ``i % 8``), the runtime bit-sliced and static
-AND-DAG kernels (S8 and S64 on ``i % 512``) and the chunked histogram
-program (lo 100, k 40) at the reference benchmark's n = 477,218,588.  Run
-it on two checkouts in turns (parent, change, change, parent) within one
-call to compare them on one card.  Needs a CUDA card; prints the card's
-name and power limit and one line of medians.
+AND-DAG kernels (S8 and S64 on ``i % 512``), the chunked and dynamic scans
+(S64 and S256 as CUDA keys), the chunked histogram program (lo 100, k 40)
+and the host-lo span tier (lo 0, k 512, as ``histogram_device`` sends a
+9-bit column) at the reference benchmark's n = 477,218,588; and, on the
+host clock, ``stats.describe``, ``quantiles`` and ``topk_values`` of the
+``i % 512`` column together (three span histograms; the median of five).
+Run it on two checkouts in turns (parent, change, change, parent) within
+one call to compare them on one card.  Needs a CUDA card; prints the
+card's name and power limit and one line of medians.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ def main(root: pathlib.Path) -> None:
     import numpy as np
     import torch
 
+    from shared_simd_scan_tpu_torch import layout, stats
     from shared_simd_scan_tpu_torch.bench import harness
     from shared_simd_scan_tpu_torch.ops import _cuda, scan, unpack
 
@@ -62,7 +67,9 @@ def main(root: pathlib.Path) -> None:
     tiles = unpack.pack_device_kernel(harness.synth_modk(n, 8, 9, device=device), 9).tiles
     atiles = unpack.pack_device_kernel(harness.synth_modk(n, 512, 9, device=device), 9).tiles
     s64 = sorted(np.random.default_rng(3).choice(512, 64, replace=False).tolist())
-    host = {8: np.asarray(S8, np.uint32), 64: np.asarray(s64, np.uint32)}
+    s256 = sorted(np.random.default_rng(4).choice(512, 256, replace=False).tolist())
+    host = {8: np.asarray(S8, np.uint32), 64: np.asarray(s64, np.uint32),
+            256: np.asarray(s256, np.uint32)}
     cuda = {k: torch.from_numpy(v.view(np.int32).copy()).to(device) for k, v in host.items()}
     cases = {
         "interval k=8": lambda: scan.interval_scan_tiles(tiles, 0, 8, 9, n),
@@ -70,10 +77,24 @@ def main(root: pathlib.Path) -> None:
         "bitsliced S64": lambda: scan.shared_scan_bitsliced_tiles(atiles, cuda[64], 9, n),
         "static S8": lambda: scan.shared_scan_bitsliced_static_tiles(atiles, host[8], 9, n),
         "static S64": lambda: scan.shared_scan_bitsliced_static_tiles(atiles, host[64], 9, n),
+        "chunked S64": lambda: scan.shared_scan_chunked_tiles(atiles, cuda[64], 9, n),
+        "chunked S256": lambda: scan.shared_scan_chunked_tiles(atiles, cuda[256], 9, n),
+        "dynamic S64": lambda: scan.shared_scan_dynamic_tiles(atiles, cuda[64], 9, n),
+        "dynamic S256": lambda: scan.shared_scan_dynamic_tiles(atiles, cuda[256], 9, n),
         "histogram_dag H2": lambda: scan._histogram_chunked_tiles(atiles, 100, 40, 9, n),
+        "histogram span H1": lambda: scan.histogram_dag_tiles(atiles, 0, 512, 9, n),
     }
+    times = {name: time_ms(fn) for name, fn in cases.items()}
+    col = layout.DeviceColumn(9, n, atiles)
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        stats.describe(col), stats.quantiles(col, [0.5, 0.9]), stats.topk_values(col, 5)
+        walls.append((time.monotonic() - t1) * 1e3)
     print(f"{smi}; {root}: build {build:.1f} s; "
-          + "; ".join(f"{name} {time_ms(fn):.6f} ms" for name, fn in cases.items()), flush=True)
+          + "; ".join(f"{name} {ms:.6f} ms" for name, ms in times.items())
+          + f"; stats trio (host clock) {statistics.median(walls[1:]):.6f} ms", flush=True)
 
 
 if __name__ == "__main__":

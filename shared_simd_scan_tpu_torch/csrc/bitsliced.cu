@@ -23,12 +23,11 @@
 //  - ops/member.py _member_bitsliced_kernel: the runtime plane fold with
 //    the key rows ORed into one row (sss_member_bitsliced, the kMember
 //    form of the runtime kernel);
-//  - _histogram_dag_kernel / _histogram_dag_tiles_impl and
-//    _histogram_span_kernel / _histogram_span_tiles_impl: histogram counts
+//  - _histogram_dag_kernel / _histogram_dag_tiles_impl: histogram counts
 //    of consecutive keys, no bitvector (sss_histogram_dag, the counts-only
-//    form of the static kernel).  The chunked form runs _static_program's
-//    per-chunk memos, the span form one memo over all k keys
-//    (ops/scan.py _span_program); both are the same instruction format;
+//    form of the static kernel), on _static_program's per-chunk memos.
+//    The span form (_histogram_span_kernel) is not here: on this card it
+//    is the bins kernel with lo by value (histogram.cu sss_histogram_span);
 //  - _bitsliced_linear_kernel / _bitsliced_linear_tiles_impl (scan.py:1025)
 //    and _static_linear_kernel / _static_linear_tiles_impl (scan.py:854):
 //    the runtime fold and the static program with their rows staged as

@@ -1,6 +1,7 @@
 // Shared scans of k arbitrary equality keys in one pass, in three forms --
-// the general compare kernel, the chunked scan (a key lookup per value) and
-// the dynamic compare (the last two below the first).
+// the general compare kernel, the chunked scan (a key lookup per value
+// among 64 keys) and the dynamic scan (a key lookup per value among a
+// launch's 1024), the last two below the first.
 //
 // The general compare kernel replaces shared_simd_scan_tpu/ops/scan.py:
 // _shared_scan_kernel / shared_scan_tiles, with its semantics:
@@ -88,7 +89,7 @@ extern "C" int sss_shared_scan(const uint32_t* tiles, const uint32_t* keys, int 
   return (int)cudaSuccess;
 }
 
-// The chunked scan and the dynamic compare take the 32 normalized values of
+// The chunked scan and the dynamic scan take the 32 normalized values of
 // a block (unpacked once, as unpack_values gives them) through
 // unpack_block_any, a switch on the runtime width, so one body serves every
 // width.  A value is below 2^W, so a key >= 2^W (0xFFFFFFFF included)
@@ -207,6 +208,24 @@ __device__ __forceinline__ uint32_t chunk_lookup(const ChunkSmem<C, T>& s, uint3
   return s.sorted[pos] == v ? (uint32_t)s.sidx[pos] : kNoKey;
 }
 
+// Set bit r of row idx[r] - g0 of this thread's column of rows (a row every
+// T words) for each of its block's 32 values whose index lies in [g0, g0 +
+// G); an index outside (kNoKey, another group's) sets nothing.  kClear
+// zeroes those rows instead, so a column is clean again once its rows are
+// stored, at a store per value rather than one per row.
+template <int T, int G, bool kClear = false>
+__device__ __forceinline__ void mark_rows(uint32_t* col, const uint32_t (&idx)[kBlockValues],
+                                          uint32_t g0) {
+#pragma unroll
+  for (int r = 0; r < kBlockValues; ++r) {
+    const uint32_t slot = idx[r] - g0;
+    if (slot < (uint32_t)G) {
+      if (kClear) col[slot * T] = 0u;
+      else col[slot * T] |= 1u << r;
+    }
+  }
+}
+
 // Set bit r of row lookup(v[r]) in this thread's column of rows, for the 32
 // values of its block.  All 32 lookups are issued before the first update:
 // the table loads are independent, while an update may alias an earlier one.
@@ -215,29 +234,29 @@ __device__ __forceinline__ void chunk_mark_rows(const ChunkSmem<C, T>& s, uint32
                                                 uint32_t (&v)[kBlockValues]) {
 #pragma unroll
   for (int r = 0; r < kBlockValues; ++r) v[r] = chunk_lookup<C, T, kDirect>(s, v[r]);
-#pragma unroll
-  for (int r = 0; r < kBlockValues; ++r)
-    if (v[r] != kNoKey) col[v[r] * T] |= 1u << r;
+  mark_rows<T, C>(col, v, 0u);
 }
 
-// Store rows 0..kc-1 of block b (row j is col[rep[j]] & valid) at out, the
-// block's word of row 0, a row every nblocks words; inactive lanes store
-// nothing.  The rows go 32 at a time: lane l keeps the warp's count of row
-// g + l of the group (one __reduce_add_sync a row), and the group's counts
-// reach the CTA's counters in one atomic a lane -- not one a row, whose
-// branch and aggregation code cost more than the row itself.  kStore and
-// kCount (both on in the kernel) let the sweep time the parts.
-template <int C, int T, bool kStore = true, bool kCount = true>
-__device__ __forceinline__ void chunk_store_rows(const ChunkSmem<C, T>& s, const uint32_t* col,
-                                                 uint32_t* out, long long nblocks, bool active,
-                                                 int kc, uint32_t valid) {
+// Store rows j0..j1-1 of one block, in order from out (row j0's word of
+// the block, a row every nblocks words): word_of(j) gives row j's word
+// before the validity word; inactive lanes store nothing.  The rows go 32 at a time: lane l keeps
+// the warp's count of row g + l (one __reduce_add_sync a row), and the 32
+// counts reach the CTA's counters cnt[j] in one atomic a lane -- not one a
+// row, whose branch and aggregation code cost more than the row itself.
+// The address steps by nblocks a row: an offset j * nblocks a row would be
+// hoisted out of the tile loop as 32 64-bit constants and cost occupancy.
+// kStore and kCount (both on in the kernels) let the sweep time the parts.
+template <bool kStore = true, bool kCount = true, typename WordOf>
+__device__ __forceinline__ void store_rows(WordOf word_of, unsigned* cnt, int j0, int j1,
+                                           uint32_t* out, long long nblocks, bool active,
+                                           uint32_t valid) {
   const int lane = threadIdx.x & 31;
-  for (int g = 0; g < kc; g += 32) {
+  for (int g = j0; g < j1; g += 32) {
     unsigned mine = 0u;
 #pragma unroll
     for (int l = 0; l < 32; ++l) {
-      if (g + l < kc) {  // uniform across the CTA
-        const uint32_t word = col[s.rep[g + l] * T] & valid;
+      if (g + l < j1) {  // uniform across the CTA
+        const uint32_t word = word_of(g + l) & valid;
         if (kStore && active) *out = word;
         out += nblocks;
         if (kCount) {
@@ -246,8 +265,17 @@ __device__ __forceinline__ void chunk_store_rows(const ChunkSmem<C, T>& s, const
         }
       }
     }
-    if (kCount && g + lane < kc && mine) atomicAdd(s.cnt + g + lane, mine);
+    if (kCount && g + lane < j1 && mine) atomicAdd(cnt + g + lane, mine);
   }
+}
+
+// Store rows 0..kc-1 of block b: row j is col[rep[j]] & valid.
+template <int C, int T, bool kStore = true, bool kCount = true>
+__device__ __forceinline__ void chunk_store_rows(const ChunkSmem<C, T>& s, const uint32_t* col,
+                                                 uint32_t* out, long long nblocks, bool active,
+                                                 int kc, uint32_t valid) {
+  store_rows<kStore, kCount>([&](int j) { return col[s.rep[j] * T]; }, s.cnt, 0, kc, out,
+                             nblocks, active, valid);
 }
 
 template <int C, int T, bool kDirect>
@@ -314,47 +342,262 @@ cudaError_t chunked_launch(const uint32_t* tiles, const uint32_t* keys, int k, u
                                    counts, nblocks, width, n, block_offset, stream);
 }
 
-// Dynamic compare.  Replaces shared_simd_scan_tpu/ops/scan.py:
-// _shared_scan_dynamic_kernel / shared_scan_dynamic_tiles: the values of a
-// tile unpacked once into a scratch, then a runtime loop over the keys with
-// the slot loop unrolled.  Here the scratch is shared memory, 32 words a
-// thread laid out [slot][thread] (the 32 lanes of a warp read 32 banks),
-// read back for every key, so registers hold no compare operands; the
-// launch's keys are staged in shared memory.  CTAs are resident and walk
-// tiles blockIdx.x, blockIdx.x + gridDim.x, ..., so keys are staged and
-// counters flushed once per CTA.
-__global__ void __launch_bounds__(kThreads)
-shared_scan_dynamic_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __restrict__ keys,
-                           int k, uint32_t* __restrict__ bits,
-                           unsigned long long* __restrict__ counts, long long nblocks, int width,
-                           long long n, long long block_offset, long long ntiles) {
-  __shared__ uint32_t s_val[kBlockValues * kThreads];
-  __shared__ uint32_t s_key[kMaxKeys];
-  __shared__ unsigned s_cnt[kMaxKeys];
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    s_key[j] = __ldg(keys + j);
-    s_cnt[j] = 0u;
+// Dynamic scan.  Replaces shared_simd_scan_tpu/ops/scan.py:
+// _shared_scan_dynamic_kernel / shared_scan_dynamic_tiles: any k, keys read
+// from device memory at run time.  On the TPU the values of a tile are
+// unpacked once into a scratch, then a runtime loop compares every key
+// with them.
+//
+// Bound on the H100: device memory bytes (W words read, k words written per
+// 32 values); the k row stores are the bytes.  A compare of every key with
+// every value is O(k) integer work per value: the compare form of this
+// kernel (values in shared memory, read back for every key) ran at 4.5x
+// its bound.  The chunked scan above looks a value up once per chunk of 64
+// keys, so at k = 256 it reads each tile and redoes its 32 lookups four
+// times.  Here a value is looked up once per launch (kMaxKeys keys), and
+// only the row stores, the bytes that bound the kernel, are O(k) a block.
+// Measured, the lookups hide under the row stores: taken out, the kernel
+// is no faster, and the stores run at about 0.7 of the bytes' bound, as
+// the chunked scan's do (bench/redesign_sweep.py).
+//
+// Once per CTA (dynamic_setup): rep[j] is the first index of the launch
+// holding key j, kNoRow for a key past the domain; the lookup maps a value
+// to the first index holding it, or kNoRow -- a uint16 table of 2^W
+// entries for W <= kDirectBits (filled by atomicMin of the indices: O(k +
+// 2^W)), else the distinct keys sorted, with their first indices, for a
+// branch-free binary search (ranked by comparing every pair of keys: O(k^2)
+// a CTA, small beside a pass over the column).  Per tile, each thread
+// unpacks its block once and looks its 32 values up once, keeping the
+// indices in registers.  Then, for each group of G rows g0..g0+G-1, last
+// group first, it sets bit r of row index - g0 in its column of rows[G +
+// 1][T] in shared memory (mark_rows), stores the group's rows in order as
+// the chunked scan does (row j is col[min(rep[j] - g0, G)], row G being
+// zero: a key past the domain, or a duplicate whose first occurrence lies
+// in an earlier group, stores zeros, branch-free), stores the later rows
+// whose first occurrence lies in this group over those zeros (a list per
+// group, built in the setup), and clears the bits it set.  A duplicate's
+// count is its first occurrence's, added to its total at the flush.
+constexpr int kDynGroup = 64;     // G: rows per group
+constexpr int kDynThreads = 256;  // T
+constexpr uint32_t kNoRow = 0xFFFFu;  // a lookup of a value no key holds; rep past the domain
+
+// Words of the groups' list offsets: kMaxKeys / G + 1, in whole 16 bytes.
+template <int G>
+__host__ __device__ constexpr int dyn_group_words() {
+  return (kMaxKeys / G + 1 + 3) & ~3;
+}
+
+// A dynamic CTA's dynamic shared memory: rows [G + 1][T] (the setup's
+// scratch until it ends; row G stays zero); cnt [kMaxKeys], the counts by row; dstart, the offsets of
+// each group's list in dlist; rep [kMaxKeys] and dlist [kMaxKeys] (uint16);
+// then the lookup -- the table [2^W] (uint16) for W <= kDirectBits, else
+// the sorted distinct keys [kMaxKeys] and their first indices [kMaxKeys]
+// (uint16).
+template <int G, int T>
+struct DynSmem {
+  uint32_t* rows;
+  unsigned* cnt;
+  int* dstart;
+  uint16_t* rep;
+  uint16_t* dlist;
+  uint16_t* table;
+  uint32_t* sorted;
+  uint16_t* sidx;
+  __device__ explicit DynSmem(uint32_t* base)
+      : rows(base), cnt(base + (G + 1) * T), dstart(reinterpret_cast<int*>(cnt + kMaxKeys)),
+        rep(reinterpret_cast<uint16_t*>(dstart + dyn_group_words<G>())), dlist(rep + kMaxKeys),
+        table(dlist + kMaxKeys), sorted(reinterpret_cast<uint32_t*>(table)),
+        sidx(reinterpret_cast<uint16_t*>(sorted + kMaxKeys)) {}
+};
+
+template <int G, int T>
+inline size_t dynamic_smem(int width) {
+  const size_t lookup =
+      width <= kDirectBits ? (((size_t)2 << width) + 15) / 16 * 16 : (size_t)kMaxKeys * 6;
+  return ((size_t)(G + 1) * T + kMaxKeys + dyn_group_words<G>()) * 4 + (size_t)kMaxKeys * 4 +
+         lookup;
+}
+
+// Once per CTA: rep, the lookup and the groups' lists of later duplicates
+// for the launch's kc keys; rows and cnt zeroed.  Returns the size of the
+// search (a power of two >= kc).
+template <int G, int T, bool kDirect>
+__device__ __forceinline__ int dynamic_setup(const DynSmem<G, T>& s,
+                                             const uint32_t* __restrict__ keys, int kc,
+                                             uint32_t vmask) {
+  static_assert(G * T >= 4096 && G % 32 == 0, "rows: the table's scratch (2^kDirectBits words)");
+  int span = 1;
+  while (span < kc) span <<= 1;
+  if (kDirect) {
+    uint32_t* first = s.rows;  // per value: the first index holding it
+    for (uint32_t v = threadIdx.x; v <= vmask; v += T) first[v] = 0xFFFFFFFFu;
+    __syncthreads();
+    for (int j = threadIdx.x; j < kc; j += T) {
+      const uint32_t key = __ldg(keys + j);
+      if (key <= vmask) atomicMin(first + key, (uint32_t)j);
+    }
+    __syncthreads();
+    for (uint32_t v = threadIdx.x; v <= vmask; v += T)
+      s.table[v] = (uint16_t)(first[v] < kNoRow ? first[v] : kNoRow);
+    for (int j = threadIdx.x; j < kc; j += T) {
+      const uint32_t key = __ldg(keys + j);
+      s.rep[j] = (uint16_t)(key <= vmask ? first[key] : kNoRow);
+    }
+  } else {
+    uint32_t* key = s.rows;  // the keys, staged
+    for (int j = threadIdx.x; j < span; j += T) {
+      if (j < kc) key[j] = __ldg(keys + j);
+      s.sorted[j] = 0xFFFFFFFFu;  // above every value: pads the search
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < kc; j += T) {
+      const uint32_t x = key[j];
+      uint32_t r = kNoRow;
+      if (x <= vmask) {
+        r = (uint32_t)j;
+        for (int i = 0; i < j; ++i)
+          if (key[i] == x) {
+            r = (uint32_t)i;
+            break;
+          }
+      }
+      s.rep[j] = (uint16_t)r;
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < kc; j += T) {
+      if (s.rep[j] != j) continue;  // a duplicate, or past the domain
+      int rank = 0;                 // distinct keys of the domain below this one
+      for (int i = 0; i < kc; ++i) rank += s.rep[i] == i && key[i] < key[j];
+      s.sorted[rank] = key[j];
+      s.sidx[rank] = (uint16_t)j;
+    }
+  }
+  // The lists of later duplicates, by the group of their first occurrence;
+  // cnt counts and then places them before it is zeroed.
+  const int ngroups = (kc + G - 1) / G;
+  __syncthreads();
+  for (int g = threadIdx.x; g < ngroups; g += T) s.cnt[g] = 0u;
+  __syncthreads();
+  for (int j = threadIdx.x; j < kc; j += T) {
+    const uint32_t r = s.rep[j];
+    if (r != kNoRow && r / G != (uint32_t)j / G) atomicAdd(s.cnt + r / G, 1u);
   }
   __syncthreads();
-  // volatile: every key reads the values from shared memory again
-  volatile uint32_t* mine = s_val + threadIdx.x;
+  if (threadIdx.x == 0) {
+    int at = 0;
+    for (int g = 0; g < ngroups; ++g) {
+      s.dstart[g] = at;
+      at += (int)s.cnt[g];
+      s.cnt[g] = (unsigned)s.dstart[g];
+    }
+    s.dstart[ngroups] = at;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < kc; j += T) {
+    const uint32_t r = s.rep[j];
+    if (r != kNoRow && r / G != (uint32_t)j / G) s.dlist[atomicAdd(s.cnt + r / G, 1u)] = j;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < (G + 1) * T; i += T) s.rows[i] = 0u;
+  for (int j = threadIdx.x; j < kc; j += T) s.cnt[j] = 0u;
+  __syncthreads();
+  return span;
+}
+
+// The first index of the launch holding v, or kNoRow.
+template <int G, int T, bool kDirect>
+__device__ __forceinline__ uint32_t dynamic_lookup(const DynSmem<G, T>& s, uint32_t v, int span) {
+  if (kDirect) return s.table[v];
+  int pos = 0;
+#pragma unroll
+  for (int half = kMaxKeys / 2; half > 0; half >>= 1)
+    if (half < span && s.sorted[pos + half - 1] < v) pos += half;
+  return s.sorted[pos] == v ? (uint32_t)s.sidx[pos] : kNoRow;
+}
+
+// kLookup and kStore (both on in the library) let the sweep time the parts.
+// At most 80 registers a thread (768 threads an SM): uncapped, the table
+// lookup took 86 and left two CTAs of 256 threads an SM, not three.
+template <int G, int T, bool kDirect, bool kLookup = true, bool kStore = true>
+__global__ void __launch_bounds__(T, 768 / T)
+shared_scan_dynamic_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __restrict__ keys,
+                           int kc, uint32_t* __restrict__ bits,
+                           unsigned long long* __restrict__ counts, long long nblocks, int width,
+                           long long n, long long block_offset, long long ntiles) {
+  extern __shared__ __align__(16) uint32_t s_mem[];
+  const DynSmem<G, T> s(s_mem);
+  const int span = dynamic_setup<G, T, kDirect>(s, keys, kc, (1u << width) - 1u);
+  uint32_t* col = s.rows + threadIdx.x;
   for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long long b = tile * blockDim.x + threadIdx.x;
+    const long long b = tile * T + threadIdx.x;
     const bool active = b < nblocks;
     uint32_t v[kBlockValues];
     unpack_block_any(width, tiles, nblocks, b, active, v);
+    if (kLookup) {
 #pragma unroll
-    for (int r = 0; r < kBlockValues; ++r) mine[r * kThreads] = v[r];
+      for (int r = 0; r < kBlockValues; ++r) v[r] = dynamic_lookup<G, T, kDirect>(s, v[r], span);
+    }
     const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
-    for (int j = 0; j < k; ++j) {
-      const uint32_t key = s_key[j];
-      uint32_t acc = 0u;
-#pragma unroll
-      for (int r = 0; r < kBlockValues; ++r) acc |= (uint32_t)(mine[r * kThreads] == key) << r;
-      store_row(bits, nblocks, b, active, j, acc & valid, s_cnt);
+    for (int g0 = (kc - 1) / G * G; g0 >= 0; g0 -= G) {
+      mark_rows<T, G>(col, v, (uint32_t)g0);
+      store_rows<kStore>(
+          [&](int j) {
+            const uint32_t slot = s.rep[j] - (uint32_t)g0;
+            return col[(slot < (uint32_t)G ? slot : (uint32_t)G) * T];
+          },
+          s.cnt, g0, g0 + G < kc ? g0 + G : kc, bits + (size_t)g0 * nblocks + b, nblocks,
+          active, valid);
+      const int gi = g0 / G;
+      for (int i = s.dstart[gi]; i < s.dstart[gi + 1]; ++i) {
+        const int j = s.dlist[i];
+        if (kStore && active) bits[(size_t)j * nblocks + b] = col[(s.rep[j] - g0) * T] & valid;
+      }
+      mark_rows<T, G, true>(col, v, (uint32_t)g0);
     }
   }
-  flush_counts(s_cnt, k, counts);
+  __syncthreads();
+  for (int j = threadIdx.x; j < kc; j += T) {
+    const uint32_t r = s.rep[j];
+    if (r != kNoRow && s.cnt[r]) atomicAdd(counts + j, (unsigned long long)s.cnt[r]);
+  }
+}
+
+// Launches of kMaxKeys keys (each with its own rep), each on the resident
+// grid at the CTA's shared memory (whose limit is raised first: the rows
+// pass the 48 KB default).  `direct` and `search` are the two lookups.
+template <int G, int T, typename Kernel>
+cudaError_t dynamic_launch_with(Kernel direct, Kernel search, const uint32_t* tiles,
+                                const uint32_t* keys, int k, uint32_t* bits,
+                                unsigned long long* counts, long long nblocks, int width,
+                                long long n, long long block_offset, cudaStream_t stream) {
+  if (!width_ok(width)) return cudaErrorInvalidValue;
+  if (nblocks <= 0 || k <= 0) return cudaSuccess;
+  const long long ntiles = (nblocks + T - 1) / T;
+  const size_t smem = dynamic_smem<G, T>(width);
+  const Kernel kernel = width <= kDirectBits ? direct : search;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  unsigned grid = 0;
+  err = resident_grid(kernel, T, smem, ntiles, &grid);
+  if (err != cudaSuccess) return err;
+  for (int j0 = 0; j0 < k; j0 += kMaxKeys) {
+    const int kc = k - j0 < kMaxKeys ? k - j0 : kMaxKeys;
+    kernel<<<grid, T, smem, stream>>>(tiles, keys + j0, kc, bits + (size_t)j0 * nblocks,
+                                      counts + j0, nblocks, width, n, block_offset, ntiles);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <int G, int T>
+cudaError_t dynamic_launch(const uint32_t* tiles, const uint32_t* keys, int k, uint32_t* bits,
+                           unsigned long long* counts, long long nblocks, int width, long long n,
+                           long long block_offset, cudaStream_t stream) {
+  return dynamic_launch_with<G, T>(shared_scan_dynamic_kernel<G, T, true>,
+                                   shared_scan_dynamic_kernel<G, T, false>, tiles, keys, k, bits,
+                                   counts, nblocks, width, n, block_offset, stream);
 }
 
 }  // namespace sss
@@ -373,26 +616,17 @@ extern "C" long long sss_shared_scan_chunked_smem(int width) {
   return (long long)sss::chunked_smem<sss::kChunkKeys, sss::kChunkThreads>(width);
 }
 
-// Keys are launched in chunks of kMaxKeys (the staged keys and shared
-// counters' size); each chunk writes its own rows of bits and counts.
+// Keys are launched in chunks of kMaxKeys (the size of rep and the
+// counters); each chunk writes its own rows of bits and counts.
 extern "C" int sss_shared_scan_dynamic(const uint32_t* tiles, const uint32_t* keys, int k,
                                        uint32_t* bits, unsigned long long* counts,
                                        long long nblocks, int width, long long n,
                                        long long block_offset, cudaStream_t stream) {
-  if (!sss::width_ok(width)) return (int)cudaErrorInvalidValue;
-  if (nblocks <= 0 || k <= 0) return (int)cudaSuccess;
-  const long long ntiles = (nblocks + sss::kThreads - 1) / sss::kThreads;
-  unsigned grid = 0;
-  cudaError_t err = sss::resident_grid(sss::shared_scan_dynamic_kernel, sss::kThreads, 0, ntiles,
-                                       &grid);
-  if (err != cudaSuccess) return (int)err;
-  for (int j0 = 0; j0 < k; j0 += sss::kMaxKeys) {
-    const int kc = k - j0 < sss::kMaxKeys ? k - j0 : sss::kMaxKeys;
-    sss::shared_scan_dynamic_kernel<<<grid, sss::kThreads, 0, stream>>>(
-        tiles, keys + j0, kc, bits + (size_t)j0 * nblocks, counts + j0, nblocks, width, n,
-        block_offset, ntiles);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+  return (int)sss::dynamic_launch<sss::kDynGroup, sss::kDynThreads>(
+      tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream);
+}
+
+// Dynamic shared memory of one CTA of the dynamic scan at this width.
+extern "C" long long sss_shared_scan_dynamic_smem(int width) {
+  return (long long)sss::dynamic_smem<sss::kDynGroup, sss::kDynThreads>(width);
 }

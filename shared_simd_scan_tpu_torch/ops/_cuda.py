@@ -82,6 +82,9 @@ _SIGNATURES = {
                              _ll, ctypes.c_int, _ll, _vp],
     # tiles, lo (device pointer), k, counts, nblocks, width, n, block_offset, stream
     "sss_histogram": [_vp, _vp, ctypes.c_int, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
+    # tiles, lo (host value), k, counts, nblocks, width, n, block_offset, stream
+    "sss_histogram_span": [_vp, ctypes.c_uint32, ctypes.c_int, _vp, _ll, ctypes.c_int, _ll, _ll,
+                           _vp],
     # tiles, prog, nops, k, counts, nblocks, width, n, block_offset, threads, slots, stream
     "sss_histogram_dag": [_vp, _vp, ctypes.c_int, ctypes.c_int, _vp, _ll, ctypes.c_int, _ll, _ll,
                           ctypes.c_int, ctypes.c_int, _vp],
@@ -190,11 +193,13 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             handle.sss_error_string.argtypes = [ctypes.c_int]
             handle.sss_error_string.restype = ctypes.c_char_p
-            # dynamic shared memory a CTA of the copy / the chunked scan takes
+            # dynamic shared memory a CTA of the copy / the chunked / the
+            # dynamic scan takes
             handle.sss_copy_smem.argtypes = []
             handle.sss_copy_smem.restype = ctypes.c_longlong
-            handle.sss_shared_scan_chunked_smem.argtypes = [ctypes.c_int]
-            handle.sss_shared_scan_chunked_smem.restype = ctypes.c_longlong
+            for name in ("sss_shared_scan_chunked_smem", "sss_shared_scan_dynamic_smem"):
+                getattr(handle, name).argtypes = [ctypes.c_int]
+                getattr(handle, name).restype = ctypes.c_longlong
             _lib = handle
         return _lib
 

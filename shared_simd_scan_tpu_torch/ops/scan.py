@@ -21,9 +21,10 @@ PyTorch counterpart of the shared-scan part of
   counters and its one-row program (:func:`_member_program`), which
   ``ops/member.py`` dispatches and launches;
 - the value histogram without bitvectors: the runtime-lo bins kernel
-  (:func:`histogram_tiles`), the static AND-DAG in its counts-only form on
-  chunked or span programs (:func:`histogram_dag_tiles`), and their
-  dispatcher :func:`histogram_device`.
+  (:func:`histogram_tiles`); for a host lo the static AND-DAG in its
+  counts-only form on chunked programs, or the bins kernel's span form
+  (:func:`histogram_dag_tiles`); and their dispatcher
+  :func:`histogram_device`.
 - the linear export: the interval, static and runtime-key scans fused
   with the byte interleave (:func:`interval_scan_linear_words_tiles`,
   :func:`static_scan_linear_words_tiles`,
@@ -181,33 +182,59 @@ shared_scan_tiles.launches = 0
 # Both take the 32 values of a block unpacked once (a value is below
 # 2^width, so keys >= 2^width, 0xFFFFFFFF included, match nothing).  The
 # chunked tier looks each value up among a chunk's keys; the dynamic tier
-# compares each key with the values.  The JAX package's benchmark drivers
-# run them for k > 32; no dispatcher does.
+# among all the keys of a launch (MAX_LAUNCH_KEYS).  The JAX package's
+# benchmark runs them for k > 32; no dispatcher does.
 
 # Keys per chunk of the chunked kernel, one CTA's rows in shared memory
 # (kChunkKeys in csrc/shared_scan.cu).
 CHUNK_KEYS = 64
 
 
-def _normalized_compare_plain(
-    tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int, rows: int
+def _lookup_rows_plain(
+    vals: list[torch.Tensor], keys: torch.Tensor, width: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Every key against the block's 32 normalized values, ``rows`` keys at
-    a time (which bounds the int64 words held at once) -> (bits int32[k,
-    B1, 128], counts int64[k])."""
+    """The rows of ``keys`` (int64, uint32 values) by one search per value
+    slot -> (rows int32 [k + 1, B1, 128], rep int64 [k]): ``rep[j]`` is the
+    first index holding key j; each value is searched among the keys'
+    sorted distinct values below 2^width and its bit scattered into the row
+    of the first index holding the key it hit (row k: no key); key j's row
+    is ``rows[rep[j]]``.  A word gets each bit once, so the int32 sums are
+    its bits (bit 31 added as -2^31)."""
+    k, device = keys.shape[0], vals[0].device
+    local = torch.arange(k, device=device)
+    rep = (keys[:, None] == keys[None, :]).to(torch.int8).argmax(dim=1)
+    enters = (rep == local) & (keys < (1 << width))
+    order = torch.argsort(keys[enters])
+    sorted_keys, sorted_idx = keys[enters][order], local[enters][order]
+    rows = torch.zeros((k + 1,) + tuple(vals[0].shape), dtype=torch.int32, device=device)
+    if sorted_keys.numel():
+        last = sorted_keys.numel() - 1
+        for r, v in enumerate(vals):
+            pos = torch.searchsorted(sorted_keys, v).clamp_(max=last)
+            idx = torch.where(sorted_keys[pos] == v, sorted_idx[pos], k)
+            bit = 1 << r if r < 31 else -(1 << 31)
+            rows.scatter_add_(0, idx[None], torch.full(idx[None].shape, bit, dtype=torch.int32,
+                                                       device=device))
+    return rows, rep
+
+
+def _rows_plain(
+    tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int, group: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(bits int32[k, B1, 128], counts int64[k]) of :func:`_lookup_rows_plain`
+    over each run of ``group`` keys, its rows finished 32 at a time (which
+    bounds the int64 words held at once)."""
     vals = _block_values_plain(tiles, width)
     kk = u32(keys)
-    valid = _valid_words(tiles.shape[1], n, block_offset, tiles.device)
-    bits = torch.empty((kk.shape[0],) + tuple(tiles.shape[1:]), dtype=torch.int32,
-                       device=tiles.device)
-    counts = torch.empty(kk.shape[0], dtype=torch.int64, device=tiles.device)
-    for j0 in range(0, kk.shape[0], rows):
-        chunk = kk[j0 : j0 + rows, None, None]
-        acc = torch.zeros((chunk.shape[0],) + tuple(tiles.shape[1:]), dtype=torch.int64,
-                          device=tiles.device)
-        for r, v in enumerate(vals):
-            acc |= (v[None] == chunk).to(torch.int64) << r
-        bits[j0 : j0 + rows], counts[j0 : j0 + rows] = _finish(acc, valid)
+    k, device = kk.shape[0], tiles.device
+    valid = _valid_words(tiles.shape[1], n, block_offset, device)
+    bits = torch.empty((k,) + tuple(tiles.shape[1:]), dtype=torch.int32, device=device)
+    counts = torch.empty(k, dtype=torch.int64, device=device)
+    for g0 in range(0, k, group):
+        rows, rep = _lookup_rows_plain(vals, kk[g0 : g0 + group], width)
+        for j0 in range(0, rep.shape[0], 32):
+            sl = slice(g0 + j0, g0 + j0 + 32)
+            bits[sl], counts[sl] = _finish(rows[rep[j0 : j0 + 32]], valid)
     return bits, counts
 
 
@@ -219,30 +246,7 @@ def shared_scan_chunked_tiles_plain(
     index of the chunk holding key j), every value searched among the
     chunk's sorted distinct keys below 2^width, one scatter of its bit into
     the row of the key it hit, and row j read as row ``rep[j]``."""
-    vals = _block_values_plain(tiles, width)
-    kk = u32(keys)
-    k, device = kk.shape[0], tiles.device
-    valid = _valid_words(tiles.shape[1], n, block_offset, device)
-    bits = torch.empty((k,) + tuple(tiles.shape[1:]), dtype=torch.int32, device=device)
-    counts = torch.empty(k, dtype=torch.int64, device=device)
-    for j0 in range(0, k, CHUNK_KEYS):
-        chunk = kk[j0 : j0 + CHUNK_KEYS]
-        c = chunk.shape[0]
-        local = torch.arange(c, device=device)
-        rep = (chunk[:, None] == chunk[None, :]).to(torch.int8).argmax(dim=1)
-        enters = (rep == local) & (chunk < (1 << width))
-        order = torch.argsort(chunk[enters])
-        sorted_keys, sorted_idx = chunk[enters][order], local[enters][order]
-        # row c collects the values that hit no key
-        rows = torch.zeros((c + 1,) + tuple(tiles.shape[1:]), dtype=torch.int64, device=device)
-        if sorted_keys.numel():
-            last = sorted_keys.numel() - 1
-            for r, v in enumerate(vals):
-                pos = torch.searchsorted(sorted_keys, v).clamp_(max=last)
-                idx = torch.where(sorted_keys[pos] == v, sorted_idx[pos], c)
-                rows.scatter_add_(0, idx[None], torch.full_like(idx[None], 1 << r))
-        bits[j0 : j0 + c], counts[j0 : j0 + c] = _finish(rows[rep], valid)
-    return bits, counts
+    return _rows_plain(tiles, keys, width, n, block_offset, CHUNK_KEYS)
 
 
 def shared_scan_chunked_tiles(
@@ -276,18 +280,21 @@ shared_scan_chunked_tiles.launches = 0
 def shared_scan_dynamic_tiles_plain(
     tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch version of :func:`shared_scan_dynamic_tiles`, same
-    algorithm: the values unpacked once, then the keys against them (32
-    keys at a time)."""
-    return _normalized_compare_plain(tiles, keys, width, n, block_offset, 32)
+    """Plain torch version of :func:`shared_scan_dynamic_tiles`, the
+    kernel's algorithm over the whole key tensor at once: ``rep[j]`` (the
+    first index holding key j), every value searched among the sorted
+    distinct keys below 2^width, one scatter of its bit into the row of the
+    key it hit, and row j read as row ``rep[j]``."""
+    return _rows_plain(tiles, keys, width, n, block_offset, max(int(keys.shape[0]), 1))
 
 
 def shared_scan_dynamic_tiles(
     tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Same contract as :func:`shared_scan_tiles` for any k (arbitrary keys,
-    a CUDA tensor never read on the host): the values unpacked once into
-    shared memory, then a runtime loop over the keys.
+    a CUDA tensor never read on the host): each value looked up once among
+    the keys of a launch (the first index holding it), its bit set in that
+    row, and the rows stored in groups of 64.
 
     Kernel ``sss_shared_scan_dynamic`` (``csrc/shared_scan.cu``) on CUDA
     tensors, in launches of MAX_LAUNCH_KEYS keys (each counted); the plain
@@ -1403,11 +1410,13 @@ def interval_scan_device(dev: DeviceColumn, lo: int, k: int) -> tuple[torch.Tens
 #
 # A full value histogram (counts of keys lo..lo+k-1, k up to 4096) cannot go
 # through the bitvector kernels: k=512 bitvectors of a 512 MiB column would
-# be 30 GB.  Three kernels count without them, as the JAX package's three:
+# be 30 GB.  Three tiers count without them, as the JAX package's three:
 # the runtime-lo kernel (histogram_tiles) and, for a host lo, the static
-# AND-DAG interpreter in its counts-only form, on the chunked programs
-# (k <= 48 or k > 512) or on one program whose memo spans all k keys
-# (48 < k <= 512).
+# AND-DAG interpreter in its counts-only form on the chunked programs (k <=
+# 48 or k > 512), or the span tier (48 < k <= 512).  The JAX span kernel
+# runs one memoized AND-DAG over all k keys because Mosaic has no scatter;
+# here the span tier is the runtime-lo kernel's bins with lo passed by
+# value and no wrap.
 
 MAX_HISTOGRAM_KEYS = 4096
 
@@ -1436,18 +1445,26 @@ def _lo_tensor(lo, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+def _real_values_plain(
+    tiles: torch.Tensor, width: int, n: int, block_offset: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 32 values of every block, int64 [32, B1, 128], and whether each
+    is real (index < n)."""
+    vals = torch.stack(_block_values_plain(tiles, width))
+    valid = _valid_words(tiles.shape[1], n, block_offset, tiles.device)
+    r = torch.arange(BLOCK_VALUES, dtype=torch.int64, device=tiles.device)[:, None, None]
+    return vals, ((valid[None] >> r) & 1) == 1
+
+
 def histogram_tiles_plain(
     tiles: torch.Tensor, lo, k: int, width: int, n: int, block_offset: int = 0
 ) -> torch.Tensor:
     """Plain torch version of :func:`histogram_tiles`: count j is the
     number of real values v with ``(v - lo) mod 2^32 == j``."""
     lo_t = u32(_lo_tensor(lo, tiles.device))
-    vals = torch.stack(_block_values_plain(tiles, width))
-    valid = _valid_words(tiles.shape[1], n, block_offset, tiles.device)
-    r = torch.arange(BLOCK_VALUES, dtype=torch.int64, device=tiles.device)[:, None, None]
+    vals, real = _real_values_plain(tiles, width, n, block_offset)
     d = (vals - lo_t) & _U32
-    keep = (((valid[None] >> r) & 1) == 1) & (d < k)
-    return torch.bincount(d[keep], minlength=k)
+    return torch.bincount(d[real & (d < k)], minlength=k)
 
 
 def histogram_tiles(
@@ -1484,31 +1501,6 @@ def _histogram_keys(lo: int, k: int) -> tuple:
     concrete-lo kernels count a key past 2^32 - 1 as 0 (it is >= 2^width);
     it becomes 0xFFFFFFFF, outside every domain too."""
     return tuple(min(lo + j, _U32) for j in range(k))
-
-
-@functools.lru_cache(maxsize=64)
-def _span_program(width: int, lo: int, k: int) -> tuple[np.ndarray, int]:
-    """The JAX package's ``_histogram_span_kernel`` as a program for
-    ``sss_histogram_dag``: row j counts key lo+j, in ascending order, every
-    ``_combo`` subtree under ONE memo over the whole span; keys >= 2^width
-    give ZERO rows.  Format and slots as :func:`_static_program`."""
-    ops: list = [width]
-    planes = [_ProgVec(ops, p) for p in range(width)]
-    dom = 1 << width
-    memo: dict = {}
-    for j in range(k):
-        if lo + j < dom:
-            _combo(planes, 0, width, lo + j, memo).out(j)
-        else:
-            ops.append((_ZERO, j, None, None))
-    return _assign_slots(width, ops[1:])
-
-
-@functools.lru_cache(maxsize=64)
-def _span_program_on(width: int, lo: int, k: int, device: torch.device) -> tuple[torch.Tensor, int]:
-    """:func:`_span_program` with its program copied to ``device``."""
-    prog, slots = _span_program(width, lo, k)
-    return torch.from_numpy(prog).to(device), slots
 
 
 def _row_count(row: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -1570,41 +1562,29 @@ _histogram_chunked_tiles.launches = 0
 def _histogram_span_tiles_plain(
     tiles: torch.Tensor, lo: int, k: int, width: int, n: int, block_offset: int = 0
 ) -> torch.Tensor:
-    """Plain torch version of :func:`_histogram_span_tiles`: the rows of
-    keys lo..lo+k-1 under one memo, each popcounted as it is made."""
-    planes = _bitplanes_plain(tiles, width)
-    valid = _valid_words(tiles.shape[1], n, block_offset, tiles.device)
-    zero = torch.zeros((), dtype=torch.int64, device=tiles.device)
-    dom = 1 << width
-    memo: dict = {}
-    counts = []
-    for key in range(lo, lo + k):
-        if key < dom:
-            counts.append(_row_count(_combo(planes, 0, width, key, memo), valid))
-            memo.pop((0, width, key), None)  # a root is never shared: keep the subtrees only
-        else:
-            counts.append(zero)
-    return torch.stack(counts)
+    """Plain torch version of :func:`_histogram_span_tiles`: the real
+    values in [lo, lo + k), counted by ``bincount``."""
+    vals, real = _real_values_plain(tiles, width, n, block_offset)
+    d = vals - lo
+    return torch.bincount(d[real & (d >= 0) & (d < k)], minlength=k)
 
 
 def _histogram_span_tiles(
     tiles: torch.Tensor, lo: int, k: int, width: int, n: int, block_offset: int = 0
 ) -> torch.Tensor:
-    """Counts of keys lo..lo+k-1 (host lo) in one pass whose DAG shares
-    every subtree across the whole span -> int64[k].
+    """Counts of keys lo..lo+k-1 (host lo) in one pass -> int64[k]: each
+    real value in [lo, lo + k) adds one to its bin, so a key past 2^width
+    or past 2^32 - 1 counts 0 (no wrap).
 
-    Kernel ``sss_histogram_dag`` (``csrc/bitsliced.cu``) on
-    :func:`_span_program` for CUDA tiles; the plain version on CPU tiles."""
+    Kernel ``sss_histogram_span`` (``csrc/histogram.cu``, the span form of
+    the bins kernel) for CUDA tiles; the plain version on CPU tiles."""
     b1 = _check_tiles(tiles, width)
     device = _cuda.kernel_device(tiles)
     if device is None:
         return _histogram_span_tiles_plain(tiles, lo, k, width, n, block_offset)
-    prog, slots = _span_program_on(width, lo, k, device)
     counts = torch.zeros(k, dtype=torch.int64, device=device)
-    _cuda.launch(
-        "sss_histogram_dag", device, tiles.data_ptr(), prog.data_ptr(), prog.shape[0], k,
-        counts.data_ptr(), b1 * LANES, width, n, block_offset, _static_threads(slots), slots,
-    )
+    _cuda.launch("sss_histogram_span", device, tiles.data_ptr(), lo, k, counts.data_ptr(),
+                 b1 * LANES, width, n, block_offset)
     _histogram_span_tiles.launches += 1
     return counts
 
@@ -1616,13 +1596,13 @@ def histogram_dag_tiles(
     tiles: torch.Tensor, lo: int, k: int, width: int, n: int, block_offset: int = 0,
     single_pass: bool | None = None,
 ) -> torch.Tensor:
-    """Histogram of keys lo..lo+k-1 for a host ``lo`` through the shared
-    AND-DAG -> int64[k]; keys >= 2^width count 0 (no wrap past 2^32).
+    """Histogram of keys lo..lo+k-1 for a host ``lo`` -> int64[k]; keys >=
+    2^width count 0 (no wrap past 2^32).
 
     As the JAX package's ``histogram_dag_tiles``: 48 < k <= 512 takes the
-    single-pass span program (:func:`_histogram_span_tiles`), other k the
-    chunked programs (:func:`_histogram_chunked_tiles`); ``single_pass``
-    forces either."""
+    single-pass span tier (:func:`_histogram_span_tiles`, shared-memory
+    bins), other k the chunked AND-DAG programs
+    (:func:`_histogram_chunked_tiles`); ``single_pass`` forces either."""
     k = int(k)
     _check_histogram_k(k)
     lo = _check_lo(lo)
@@ -1633,13 +1613,13 @@ def histogram_dag_tiles(
 
 
 def _histogram_single_pass(k: int) -> bool:
-    """Whether :func:`histogram_dag_tiles` takes the span program for k keys."""
+    """Whether :func:`histogram_dag_tiles` takes the span tier for k keys."""
     return 48 < k <= 512
 
 
 def histogram_dag_passes(k: int) -> int:
     """Passes over the packed column of :func:`histogram_dag_tiles`'s
-    default dispatch for k keys: one for the span program, else one per
+    default dispatch for k keys: one for the span tier, else one per
     static group of the chunked programs."""
     return 1 if _histogram_single_pass(k) else len(_static_group_sizes(k))
 

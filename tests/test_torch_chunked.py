@@ -154,3 +154,39 @@ def test_chunked_edges_match_the_jax_oracle(width, case):
     bits, counts = scan.shared_scan_chunked_tiles(tdev.tiles, _torch_keys(keys), width, n)
     np.testing.assert_array_equal(_u32(scan.bits_to_canonical(bits, n)), np.asarray(jbits))
     np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+
+
+# The dynamic tier's edges, against the JAX oracle: widths 1 and 31, 12 (the
+# kernel's last width on its direct table) and 13 (its first on the search);
+# k = 63, 64, 65 around one group of 64 rows, with a duplicate across it; k
+# = MAX_LAUNCH_KEYS + 1 with a duplicate across the launch boundary; keys
+# all past the domain (0xFFFFFFFF among them); a group of equal keys.
+DYNAMIC_SETS = ["63", "64", "65", "1025", "past the domain", "equal"]
+
+
+def _dynamic_keys(case: str, width: int, values: np.ndarray) -> np.ndarray:
+    dom = 1 << width
+    if case == "equal":
+        return np.full(64, values[3], np.uint32)
+    if case == "past the domain":
+        return np.array([dom, 0xFFFFFFFF, dom + 1, 0xFFFFFFFF, (1 << 32) - 2, dom], np.uint32)
+    k = int(case)
+    rng = np.random.default_rng(width * 10 + k)
+    keys = rng.integers(0, dom, size=k, dtype=np.uint64).astype(np.uint32)
+    keys[:5] = [0, 0xFFFFFFFF, dom, (1 << 32) - 2, values[0]]
+    keys[k - 1] = keys[5]
+    if k > scan.MAX_LAUNCH_KEYS:
+        keys[scan.MAX_LAUNCH_KEYS - 1] = keys[scan.MAX_LAUNCH_KEYS] = values[-1]
+    return keys
+
+
+@pytest.mark.parametrize("case", DYNAMIC_SETS)
+@pytest.mark.parametrize("width", [1, 12, 13, 31])
+def test_dynamic_edges_match_the_jax_oracle(width, case):
+    n = 2000
+    values, tdev = _column(width, n, seed=width + 11)
+    keys = _dynamic_keys(case, width, values)
+    jbits, jcounts = joracle.shared_scan(jlayout.pack(values, width), keys)
+    bits, counts = scan.shared_scan_dynamic_tiles(tdev.tiles, _torch_keys(keys), width, n)
+    np.testing.assert_array_equal(_u32(scan.bits_to_canonical(bits, n)), np.asarray(jbits))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))

@@ -660,8 +660,10 @@ def test_histogram_kernels_match_plain(cuda_device, width):
 
 def test_histogram_kernels_count_every_value(cuda_device):
     # a clustered column (every lane of a warp on one bin) and a uniform
-    # one; k = 4096 on both DAG forms
+    # one; k = 4096 on the chunked programs and the span tier; a window at
+    # 2^32 - 3, which the span tier counts as empty and a runtime lo wraps
     width, n = 12, 200_000
+    top = (1 << 32) - 3
     for values in (torch.arange(n, device=cuda_device, dtype=torch.int32) // 4096,
                    _values(width, n, 5, cuda_device)):
         tiles = unpack.pack_device_kernel(values, width).tiles
@@ -669,6 +671,9 @@ def test_histogram_kernels_count_every_value(cuda_device):
         _same(scan.histogram_tiles(tiles, _lo(0, cuda_device), 4096, width, n), expect)
         _same(scan._histogram_chunked_tiles(tiles, 0, 4096, width, n), expect)
         _same(scan._histogram_span_tiles(tiles, 0, 4096, width, n), expect)
+        _same(scan._histogram_span_tiles(tiles, top, 40, width, n),
+              torch.zeros(40, dtype=torch.int64, device=cuda_device))
+        _same(scan.histogram_tiles(tiles, _lo(top, cuda_device), 40, width, n)[3:], expect[:37])
 
 
 def test_histogram_dispatch_launches_each_kernel(cuda_device):
@@ -779,7 +784,10 @@ def test_refused_histogram_and_zoned_launches_raise(cuda_device):
         # 4097 bins: more than the kernel's shared counters hold
         _cuda.launch("sss_histogram", cuda_device, tiles.data_ptr(), lo.data_ptr(), 4097,
                      counts.data_ptr(), 8 * 128, 9, 100, 0)
-    prog, _ = scan._span_program_on(9, 0, 64, cuda_device)
+    with pytest.raises(RuntimeError, match="sss_histogram_span"):
+        _cuda.launch("sss_histogram_span", cuda_device, tiles.data_ptr(), 0, 4097,
+                     counts.data_ptr(), 8 * 128, 9, 100, 0)
+    prog, _ = scan._static_program_on(9, (3, 70), cuda_device)
     with pytest.raises(RuntimeError, match="sss_histogram_dag"):
         _cuda.launch("sss_histogram_dag", cuda_device, tiles.data_ptr(), prog.data_ptr(),
                      prog.shape[0], 4097, counts.data_ptr(), 8 * 128, 9, 100, 0, 128, 64)
@@ -925,22 +933,28 @@ def test_copy_kernel_refuses_misaligned_and_overlapping(cuda_device):
 
 @pytest.mark.parametrize("width", [1, 2, 9, 12, 13, 17, 31])
 def test_chunked_and_dynamic_kernels_match_plain(cuda_device, width):
-    # widths 12 and 13: the last on the chunked kernel's direct table, the
-    # first on its search; k around one chunk; a chunk of equal keys; a
-    # key repeated across the chunk boundary
+    # widths 12 and 13: the last on the kernels' direct tables, the first on
+    # their search; k around one chunk and one group of 64 rows; a chunk of
+    # equal keys; a key repeated across the chunk boundary, across groups
+    # of rows (k = 130) and across the dynamic kernel's launch boundary (k =
+    # 1025); keys all past the domain
     dom = 1 << width
     values = _values(width, N, width + 90, cuda_device)
     tiles = unpack.pack_device_kernel(values, width).tiles
     rng = np.random.default_rng(width)
-    c = scan.CHUNK_KEYS
+    c, launch = scan.CHUNK_KEYS, scan.MAX_LAUNCH_KEYS
     key_sets = []
-    for k in (1, 8, 9, 17, 33, 40, c - 1, c, c + 1):
+    for k in (1, 8, 9, 17, 33, 40, c - 1, c, c + 1, 130, launch + 1):
         keys = rng.integers(0, dom, size=k).astype(np.int64)
         keys[: min(k, 4)] = [0, 0xFFFFFFFF, dom, int(values[3])][: min(k, 4)]
         if k > c:
             keys[c - 1] = keys[c] = keys[3]
+            keys[k - 1] = keys[5]
+        if k > launch:
+            keys[launch - 1] = keys[launch] = int(values[9])
         key_sets.append(keys)
     key_sets.append(np.full(c, int(values[7])))
+    key_sets.append(np.array([dom, 0xFFFFFFFF, dom + 1, 0xFFFFFFFF]))
     for keys in key_sets:
         kt = _keys(keys, cuda_device)
         for bo in (0, 2):

@@ -116,8 +116,7 @@ def test_wide_domain_is_capped_at_4096():
 
 
 def test_programs_and_dispatch():
-    # 48 < k <= 512 takes the span program, other k the chunked ones; the
-    # span program holds one memo over the span, so no subtree repeats
+    # 48 < k <= 512 takes the span tier, other k the chunked programs
     calls = []
     real = {fn: getattr(tscan, fn) for fn in ("_histogram_span_tiles", "_histogram_chunked_tiles")}
     width, n = 9, 3000
@@ -132,10 +131,12 @@ def test_programs_and_dispatch():
             setattr(tscan, name, fn)
     assert calls == ["_histogram_chunked_tiles", "_histogram_span_tiles",
                      "_histogram_span_tiles", "_histogram_chunked_tiles"]
-    span_prog, _ = tscan._span_program(width, 0, 64)
-    chunk_ops = sum(tscan._static_program(width, keys)[0].shape[0]
-                    for keys in (tuple(range(32)), tuple(range(32, 64))))
-    assert span_prog.shape[0] < chunk_ops
+    # the span tier against the JAX span kernel: a window running past the
+    # domain, and one past 2^32 - 1, which counts nothing (no wrap)
+    values, jdev, tdev = _column(7, seed=14)
+    for lo, k in ((128 - 20, 64), ((1 << 32) - 3, 40)):
+        jcounts = jscan._histogram_span_tiles_impl(jdev.tiles, lo, k, 7, N, None, True, 0)
+        _same(tscan._histogram_span_tiles(tdev.tiles, lo, k, 7, N), jcounts, values, lo)
     # on CPU tensors no kernel launches
     before = [tscan.histogram_tiles.launches, tscan._histogram_span_tiles.launches,
               tscan._histogram_chunked_tiles.launches]
