@@ -56,11 +56,15 @@ from the sources in the checkout and then:
    at small ragged sizes (widths 1-31, k 1-4096, key 0 over padding, keys
    past the domain, a lo within k of 2^32 -- wrapping for a runtime lo,
    counting nothing for the span tier --, a ``block_offset``, a padded
-   flag-0 step), then drives the statistics path at full size —
-   ``histogram_device`` on the ``i % 512`` column with a host lo (the bins
-   kernel's span form, the chunked AND-DAG kernel) and a CUDA-tensor lo
-   (bins kernel, under ``set_sync_debug_mode("error")``), ``stats`` on
-   ``price`` and on the 20-bit ``revenue`` (256 windows) — and the zone-map
+   flag-0 step; at every width 1-31 on a column whose last tile is
+   partial, the bins kernel's whole-domain window, one key short of it,
+   and lo = 2^32 - 3; the domain histogram at widths 13, 16 and 20 with
+   ragged n, constant and skewed columns), then drives the statistics path
+   at full size — ``histogram_device`` on the ``i % 512`` column with a
+   host lo (the bins kernel's span form, the chunked AND-DAG kernel) and a
+   CUDA-tensor lo (bins kernel, under ``set_sync_debug_mode("error")``),
+   ``stats`` on ``price`` and on the 20-bit ``revenue`` (one pass of the
+   domain histogram) — and the zone-map
    path on three columns of the same n (clustered, clustered at both ends,
    uniform ``price``): ``build_zonemap``, pruned and zoned equality scans
    and ``evaluate`` with zone maps, with the launch counters set to 0 just
@@ -71,8 +75,9 @@ from the sources in the checkout and then:
 9. holds the linear export's kernels against their plain versions at small
    ragged sizes (the interleave at k 1-1024 and the stream interleave with
    ragged M; the fused interval, static and runtime-key kernels at every k
-   their tiers admit, widths 1-31, a ``block_offset``, keys past the
-   domain, 0xFFFFFFFF and duplicates), then drives the linear export at
+   their tiers admit, widths 1-31 (the static fold at every one of them), a
+   ``block_offset``, keys past the domain, 0xFFFFFFFF and duplicates), then
+   drives the linear export at
    full size on the main path's column and the ``i % 512`` column: L1-L4
    ``shared_scan_linear_words_device`` (keys 0..7; S8 as host keys and as
    CUDA keys under ``set_sync_debug_mode("error")``; S64 both ways), L5
@@ -87,7 +92,9 @@ from the sources in the checkout and then:
     kernel's bound: its bytes over the card's 3.35 TB/s; each fused linear
     kernel also beside its two-pass composition (scan kernel, then the
     interleave kernel), the interleave beside the PyTorch call that gives
-    the same bytes (``.t().contiguous()``);
+    the same bytes (``.t().contiguous()``); and prints the registers,
+    shared memory and SASS instructions per value or per row (``cuobjdump
+    -sass``) of the bins kernel, the domain histogram and the static fold;
 11. holds the benchmark's kernels against their plain versions at small
     ragged sizes (``memcpy`` at byte counts that are not multiples of 16,
     one stage of its ring +- 16 bytes, several stages plus a 7-byte tail,
@@ -198,6 +205,9 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                       "shared_simd_scan_tpu/ops/scan.py:1716"),
     "histogram_span": ("shared_simd_scan_tpu_torch/csrc/histogram.cu",
                        "shared_simd_scan_tpu/ops/scan.py:1816"),
+    # stats.histogram_full's windows of _histogram_tiles_impl (stats.py:67)
+    "histogram_domain": ("shared_simd_scan_tpu_torch/csrc/histogram.cu",
+                         "shared_simd_scan_tpu/ops/scan.py:1667"),
     "zoned_range_scan": ("shared_simd_scan_tpu_torch/csrc/zoned.cu",
                          "shared_simd_scan_tpu/zonemap.py:298"),
     "interval_scan_linear": ("shared_simd_scan_tpu_torch/csrc/interval_scan.cu",
@@ -235,7 +245,8 @@ REVENUE_WIDTH = 20
 # wm > 16, wm = 31, wp = 1 and wp = 31, and the full-size pairs
 AGG_PAIRS = ((1, 16), (2, 17), (9, 31), (16, 1), (17, 2), (31, 9), (9, 20), (5, 20))
 # the statistics path's kernels, and the set each one reports
-HISTOGRAM = {"histogram_span": "H1", "histogram_dag": "H2", "histogram": "H3"}
+HISTOGRAM = {"histogram_span": "H1", "histogram_dag": "H2", "histogram": "H3",
+             "histogram_domain": "H5"}
 # the zone-map path's kernel, and the set it reports
 ZONED = {"zoned_range_scan": "Z3"}
 # the linear export's kernels, and the shape each one reports (L sets of
@@ -304,6 +315,7 @@ def wrappers() -> dict:
         "masked_aggregate": aggregate.masked_aggregate_tiles,
         "histogram": scan.histogram_tiles, "histogram_dag": scan._histogram_chunked_tiles,
         "histogram_span": scan._histogram_span_tiles,
+        "histogram_domain": scan._histogram_domain_tiles,
         "zoned_range_scan": zonemap.zoned_range_tiles,
         "interval_scan_linear": scan._interval_linear_tiles_impl,
         "static_scan_linear": scan._static_linear_tiles_impl,
@@ -1455,10 +1467,38 @@ def small_stats_phase(device, errs: dict) -> None:
                 for lo, k in span:
                     note("histogram_span", scan._histogram_span_tiles(tiles, lo, k, width, n, bo),
                          scan._histogram_span_tiles_plain(tiles, lo, k, width, n, bo))
+    # every width on the nine-step column (its last tile partial): the
+    # whole-domain window, one key short of it, and lo = 2^32 - 3
+    for width in range(1, 32):
+        dom = 1 << width
+        vals = rng.integers(0, dom, size=n_steps)
+        tiles = unpack.pack_device_kernel(t32(vals), width).tiles
+        for lo, k in ((0, min(dom, 4096)), (0, min(dom, 4097) - 1), ((1 << 32) - 3, 40)):
+            for bo in (0, 2):
+                note("histogram", scan.histogram_tiles(tiles, t32([lo]), k, width, n_steps, bo),
+                     scan.histogram_tiles_plain(tiles, lo, k, width, n_steps, bo))
+                note("histogram_span", scan._histogram_span_tiles(tiles, lo, k, width, n_steps, bo),
+                     scan._histogram_span_tiles_plain(tiles, lo, k, width, n_steps, bo))
+    # the domain histogram: ragged n, a constant column (a warp's hot value)
+    # and a skewed one (lanes of one value merged), a block_offset
+    for width in (13, 16, 20):
+        dom = 1 << width
+        columns = [rng.integers(0, dom, size=n) for n in (*SMALL_NS, n_steps)]
+        columns.append(np.full(n_steps, dom // 3))
+        skewed = rng.integers(0, dom, size=n_steps)
+        columns.append(np.where(skewed % 8 < 6, 5, skewed))
+        for vals in columns:
+            vals[-1] = dom - 1
+            tiles = unpack.pack_device_kernel(t32(vals), width).tiles
+            for bo in (0, 2):
+                note("histogram_domain",
+                     scan._histogram_domain_tiles(tiles, width, vals.size, bo),
+                     scan._histogram_domain_tiles_plain(tiles, width, vals.size, bo))
     torch.cuda.synchronize()
     for name in (*HISTOGRAM, *ZONED, "range_scan"):
         check(errs[name] == 0, f"{name} kernel exact against its plain version (widths "
-              f"{HIST_WIDTHS}, n {SMALL_NS} and {n_steps}, k {HIST_KS})")
+              f"{HIST_WIDTHS}, n {SMALL_NS} and {n_steps}, k {HIST_KS}; widths 1-31 at n "
+              f"{n_steps}; the domain histogram at widths 13, 16 and 20)")
 
 
 def stats_phase(device, arb, cols, rev) -> dict:
@@ -1507,7 +1547,7 @@ def stats_phase(device, arb, cols, rev) -> dict:
           + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
 
     want = {"H1": {"histogram_span": 1}, "H2": {"histogram_dag": 1}, "H3": {"histogram": 1},
-            "H4": {"histogram_span": 3}, "H5": {"histogram": 1 << (REVENUE_WIDTH - 12)}}
+            "H4": {"histogram_span": 3}, "H5": {"histogram_domain": 1}}
     for name, w in want.items():
         check(ran[name] == w, f"{name}: ran {ran[name]}, the kernel its rule names")
     expect = torch.tensor([(n - 1 - j) // DOMAIN + 1 for j in range(DOMAIN)], device=device)
@@ -1679,6 +1719,10 @@ def stats_timing_phase(device, arb, rev, zdata, errs: dict) -> dict:
         "histogram H3": (lambda: scan.histogram_tiles(tiles, lo_t, DOMAIN, WIDTH, n),
                          lambda: scan.histogram_tiles_plain(tiles, lo_t, DOMAIN, WIDTH, n),
                          tile_bytes + 4 + DOMAIN * 8),
+        "histogram_domain H5": (
+            lambda: scan._histogram_domain_tiles(rev.tiles, REVENUE_WIDTH, n),
+            lambda: scan._histogram_domain_tiles_plain(rev.tiles, REVENUE_WIDTH, n),
+            rev.tiles.numel() * 4 + (8 << REVENUE_WIDTH)),
         "zoned_range_scan Z3": (
             lambda: zonemap.zoned_range_tiles(et, idx, flag, lo7, hi8, WIDTH, n, tb),
             lambda: zonemap.zoned_range_tiles_plain(et, idx, flag, lo7, hi8, WIDTH, n, tb),
@@ -1714,6 +1758,9 @@ def stats_timing_phase(device, arb, rev, zdata, errs: dict) -> dict:
     print(f"time H1 full-domain histogram, the two forms of the bins kernel: span (host lo) "
           f"{results['histogram_span H1'][0]:.6f} ms, runtime lo (H3) "
           f"{results['histogram H3'][0]:.6f} ms")
+    print("the bins kernel (width 9) and the domain histogram (width 20):")
+    kernel_report({"histogram_kernelILi9ELb1ELb1E": "bins kernel, width 9",
+                   "histogram_domain_kernelILi20EyLb1E": "domain histogram, width 20"})
 
     def unpack_bincount():  # the padding's zero values leave bin 0
         vals = unpack.unpack_tiles(tiles, WIDTH)
@@ -1728,8 +1775,10 @@ def stats_timing_phase(device, arb, rev, zdata, errs: dict) -> dict:
     ms = time_ms(lambda: scan.histogram_tiles(rev.tiles, lo_t, 4096, REVENUE_WIDTH, n),
                  batches=5, calls=5)
     bound = rev.tiles.numel() * 4 / HBM_BYTES_PER_S * 1e3
-    print(f"time H5 one window (bins kernel, revenue, k=4096): {ms:.6f} ms, bound {bound:.6f} ms; "
-          f"256 windows: {256 * ms:.3f} ms of kernel, bound {256 * bound:.3f} ms")
+    print(f"time H5 one 4096-value window of the bins kernel (revenue): {ms:.6f} ms, bound "
+          f"{bound:.6f} ms; 256 such windows, the statistics' launches before the domain "
+          f"histogram: {256 * ms:.3f} ms of kernel; the domain histogram "
+          f"{results['histogram_domain H5'][0]:.6f} ms in one launch")
     walls = []
     for _ in range(4):
         torch.cuda.synchronize()
@@ -1810,11 +1859,22 @@ def small_linear_phase(device, errs: dict) -> None:
                     note("bitsliced_scan_linear",
                          scan._bitsliced_linear_tiles_impl(tiles, kt, width, n, bo),
                          scan._bitsliced_linear_tiles_plain(tiles, kt, width, n, bo))
+    n = SMALL_NS[1]
+    for width in sorted(set(range(1, 32)) - set(LINEAR_WIDTHS)):  # the static fold, every width
+        dom = 1 << width
+        vals = torch.from_numpy(rng.integers(0, dom, size=n).astype(np.int32)).to(device)
+        tiles = unpack.pack_device_kernel(vals, width).tiles
+        for k in FUSED_KS:
+            keys = rng.integers(0, dom, size=k).astype(np.uint32)
+            keys[1], keys[2], keys[-1] = keys[0], min(dom, 0xFFFFFFFF), 0xFFFFFFFF
+            for bo in (0, 2):
+                note("static_scan_linear", scan._static_linear_tiles_impl(tiles, keys, width, n, bo),
+                     scan._static_linear_tiles_plain(tiles, keys, width, n, bo))
     torch.cuda.synchronize()
     for name in LINEAR:
         check(errs[name] == 0, f"{name} kernel bit-exact against its plain version (widths "
               f"{LINEAR_WIDTHS}, n {SMALL_NS}, fused k {FUSED_KS[0]}-{FUSED_KS[-1]}, interleave k "
-              f"{INTERLEAVE_KS}, streams {STREAM_CASES})")
+              f"{INTERLEAVE_KS}, streams {STREAM_CASES}; the static fold at widths 1-31)")
 
 
 def deinterleave(lin, k: int, nbytes: int):
@@ -2045,6 +2105,8 @@ def linear_timing_phase(device, dev, arb, errs: dict) -> tuple[dict, dict]:
               f"{bound_ms / ms:.4f} of it); plain {plain_ms:.6f} ms; {kind.replace('_', '-')} "
               f"{other_ms:.6f} ms" + ("" if body is None else
                                      f"; scan body alone {extras[name]['body_ms']:.6f} ms"))
+    print("the static fold (width 9):")
+    kernel_report({"static_fold_linear_kernelILi9E": "static fold, width 9"})
     del bits8, bits6, streams
     torch.cuda.empty_cache()
     return times, extras
@@ -2121,6 +2183,25 @@ def ptxas_usage(fragment: str) -> str:
     found = [f"{entry}: {line}" for entry, line in ptxas_lines(log)
              if fragment in entry and "Used" in line]
     return "; ".join(found) or "not in the build log"
+
+
+def kernel_report(fragments: dict) -> None:
+    """ptxas's registers and shared memory, and the SASS report of
+    bench/redesign_sweep.py (instructions per atomic of the blocks that
+    hold eight or more, the loops that stage rows), of the package's
+    kernels whose mangled names hold ``fragments`` (fragment -> label)."""
+    from shared_simd_scan_tpu_torch.bench.redesign_sweep import sass_report
+    from shared_simd_scan_tpu_torch.ops import _cuda
+
+    log_path = _cuda.BUILD_DIR / "ptxas.log"
+    log = log_path.read_text() if log_path.exists() else ""
+    names = sorted({entry for entry, _ in ptxas_lines(log) if any(f in entry for f in fragments)})
+    for fragment, label in fragments.items():
+        print(f"  {label}: {ptxas_usage(fragment)}")
+    if names:
+        sass_report(_cuda.library_path(), fragments, names)
+    else:
+        print("  sass: the kernels are not in the build log")
 
 
 def sweep_regexes():

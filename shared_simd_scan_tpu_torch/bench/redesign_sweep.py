@@ -1,48 +1,84 @@
-"""Time the copy, chunked-scan and dynamic-scan designs side by side on the card.
+"""Time the redesigned kernels' designs side by side on the card.
 
-    python -m shared_simd_scan_tpu_torch.bench.redesign_sweep
+    python -m shared_simd_scan_tpu_torch.bench.redesign_sweep [SECTION ...]
 
-Builds ``redesign_sweep.cu`` (beside this file) with nvcc into the package's
-``_build/`` and prints its registers and shared memory per kernel.  Then,
-with CUDA events (the median of 5 batches of 10 calls, each variant timed
-twice, in one order and then in the reverse one):
+SECTION is any of copy, chunked, dynamic, bins, domain, fold (default:
+all).  Builds ``redesign_sweep.cu`` (copy, chunked, dynamic) and
+``redesign_sweep_bins_fold.cu`` (bins, domain, fold), beside this file,
+with nvcc into the package's ``_build/`` (the two in parallel) and prints
+its registers and shared memory per kernel.  Then, with CUDA events (the
+median of 5 batches of 10 calls, each variant timed twice, in one order
+and then in the reverse one):
 
-- the copy on 512 MiB: the per-thread batch kernel, the pipelined
+- copy: the copy on 512 MiB: the per-thread batch kernel, the pipelined
   grid-stride loop at 4 and 8 vectors a thread, the bulk-copy ring on the
   resident grid at three stage sizes and with a CTA for every run of 2-32
   consecutive chunks, the package's ``harness.memcpy`` and ``copy_``, on
   random words, on zeros, and as the CLI's ``memory`` rows run it (back and
   forth between two buffers of zeros); every variant byte-exact first;
-- the chunked scan on the reference benchmark's column (9-bit ``i % 512``,
-  512 MiB packed): the register compare (16 keys a CTA) against the key
-  lookup at C in {32, 64, 128} keys and 128 or 256 threads a CTA, two other
-  forms of it at 64 and 256 (a shared atomic per row and warp for the
-  counts, each row update right after its lookup; rep and the counts in
-  registers) and the package's ``shared_scan_chunked_tiles``, on S64 and
-  S256 (the key sets of ``chip_smoke.py``); every variant bit-exact against
-  the register compare and its counts equal to the closed form first.
-  Beside them, timed only, the package's kernel without its lookups, its
-  counts or its row stores;
-- the dynamic scan on the same column and key sets: the dynamic compare
-  it replaced (values in shared memory, read back for every key) against
-  the lookup of each value among a launch's keys at groups of G in {32,
-  64} rows and 128 or 256 threads a CTA, the package's
+- chunked: the chunked scan on the reference benchmark's column (9-bit
+  ``i % 512``, 512 MiB packed): the register compare (16 keys a CTA)
+  against the key lookup at C in {32, 64, 128} keys and 128 or 256 threads
+  a CTA, two other forms of it at 64 and 256 (a shared atomic per row and
+  warp for the counts, each row update right after its lookup; rep and the
+  counts in registers) and the package's ``shared_scan_chunked_tiles``, on
+  S64 and S256 (the key sets of ``chip_smoke.py``); every variant
+  bit-exact against the register compare and its counts equal to the
+  closed form first.  Beside them, timed only, the package's kernel without
+  its lookups, its counts or its row stores;
+- dynamic: the dynamic scan on the same column and key sets: the dynamic
+  compare it replaced (values in shared memory, read back for every key)
+  against the lookup of each value among a launch's keys at groups of G in
+  {32, 64} rows and 128 or 256 threads a CTA, the package's
   ``shared_scan_dynamic_tiles`` and ``shared_scan_chunked_tiles``; every
   variant bit-exact against the dynamic compare and its counts equal to
   the closed form first.  Beside them, timed only, the package's dynamic
-  kernel without its lookups or its row stores, and the CTAs an SM of
-  each dynamic variant and of the chunked kernel.
+  kernel without its lookups or its row stores, and the CTAs an SM of each
+  dynamic variant and of the chunked kernel;
+- bins: the single-window histogram at the reference benchmark's n on the
+  ``i % 512`` column and a uniform 9-bit one: the bins kernel before its
+  redesign against the package's kernel with and without its bank swizzle
+  on the whole domain (lo 0, k 512), and on a window (lo 100, k 256) with
+  its spare counter or a branch for the values outside it;
+  the package's ``histogram_tiles`` and span tier; every count equal to
+  ``torch.bincount`` first;
+- domain: the full-domain histogram of a uniform 20-bit column, one whose
+  values are 0 nine times in ten and a constant one, at the same n: 256
+  launches of 4096-value windows (the bins kernel before its redesign, and
+  the package's), against one pass with int64 counters in device memory
+  (the package's: a warp's hot value counted in registers and the lanes of
+  one value merged; and without the merging), with 32-bit counters, and G
+  in {4, 13} windows a CTA in shared memory, and the package's
+  ``_histogram_domain_tiles``; every count equal to ``torch.bincount``
+  first;
+- fold: the static linear export on the ``i % 512`` column at k = 8 (S8),
+  64 (S64) and 128: the DAG interpreter it replaced against the package's
+  entry, its plane masks in shared memory at 256 and 128 threads a CTA,
+  and the fold with its masks computed from the keys in the loop (keys as
+  kernel parameters at 256 and 128 threads, in constant memory, read from
+  device memory), and the package's ``_static_linear_tiles_impl`` and
+  runtime-key ``_bitsliced_linear_tiles_impl``; every variant's words
+  equal to the interpreter's and its counts to the closed form first.
+
+The bins and fold sections also print, from ``cuobjdump -sass`` of the
+sweep's library, the instructions of each width-9 kernel's basic blocks
+that hold eight or more shared atomics (bins: instructions per value) and
+of each loop that stages rows (fold: instructions per four rows), with
+their atomics, three-input logic ops and shared loads and stores.
 
 Needs a CUDA card; prints the card's name and power limit first.  Not on
 any path of the package.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import pathlib
 import re
 import statistics
 import subprocess
+import sys
+import time
 
 import numpy as np
 import torch
@@ -53,6 +89,8 @@ from shared_simd_scan_tpu_torch.ops import _cuda, scan
 from shared_simd_scan_tpu_torch.ops.unpack import pack_device_kernel
 
 SOURCE = pathlib.Path(__file__).with_name("redesign_sweep.cu")
+BINS_FOLD_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_bins_fold.cu")
+SECTIONS = ("copy", "chunked", "dynamic", "bins", "domain", "fold")
 COPY_BYTES = 512 * 1024 * 1024
 COPY_NAMES = {0: "batch (8 loads, then 8 stores)", 1: "pipelined 4", 2: "pipelined 8",
               3: "ring 16 KB x 4, resident grid", 4: "ring 32 KB x 4, resident grid",
@@ -72,40 +110,78 @@ DYNAMIC_NAMES = {0: "dynamic compare", 1: "lookup G=32 T=128", 2: "lookup G=32 T
                  3: "lookup G=64 T=128", 4: "lookup G=64 T=256"}
 DYNAMIC_ABLATIONS = {5: "the package's dynamic kernel without lookups",
                      6: "the package's dynamic kernel without row stores"}
+# mangled-name fragment -> label of the kernels the SASS report reads
+SASS_KERNELS = {"bins_baseline_kernelILi9E": "bins before the redesign",
+                "histogram_kernelILi9ELb1ELb1E": "bins, the package's",
+                "histogram_kernelILi9ELb0ELb1E": "bins without the swizzle",
+                "histogram_kernelILi9ELb1ELb0E": "bins, a branch around the atomic",
+                "histogram_domain_kernelILi20EyLb1E": "domain (width 20), the package's",
+                "histogram_domain_kernelILi20EyLb0E": "domain (width 20) without merging",
+                "static_linear_baseline_kernelILi9E": "fold before the redesign",
+                "static_fold_linear_kernelILi9E": "fold, the package's",
+                "fold_linear_kernelILi9ENS_10LinearKeys": "fold, parameter keys",
+                "fold_linear_kernelILi9ENS_10DeviceKeys": "fold, device keys",
+                "fold_linear_kernelILi9ENS_9ConstKeys": "fold, constant-memory keys",
+}
 WIDTH, DOMAIN = 9, 512
 HBM_BYTES_PER_S = 3.35e12
 
 
-def _library() -> tuple[ctypes.CDLL, str]:
-    out = _cuda.BUILD_DIR / "libsss_redesign_sweep.so"
+def _build(source: pathlib.Path) -> tuple[pathlib.Path, str]:
+    out = _cuda.BUILD_DIR / f"lib{source.stem}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_cuda.nvcc(), *_cuda.NVCC_FLAGS, "-shared", str(SOURCE), "-o", str(out)],
+    proc = subprocess.run([_cuda.nvcc(), *_cuda.NVCC_FLAGS, "-shared", str(source), "-o", str(out)],
                           check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
+    return out, proc.stdout + proc.stderr
+
+
+def _libraries(sources: list) -> dict:
+    """source -> (loaded library, its path, nvcc's log), built in parallel."""
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        built = dict(zip(sources, pool.map(_build, sources)))
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.sweep_copy.argtypes = [i, vp, vp, ll, vp]
-    lib.sweep_chunked.argtypes = [i, vp, vp, i, vp, vp, ll, i, ll, ll, vp]
-    lib.sweep_dynamic.argtypes = [i, vp, vp, i, vp, vp, ll, i, ll, ll, vp]
-    lib.sweep_dynamic_ctas.argtypes = [i, i]
-    return lib, proc.stdout + proc.stderr
+    signatures = {
+        SOURCE: {"sweep_copy": [i, vp, vp, ll, vp],
+                 "sweep_chunked": [i, vp, vp, i, vp, vp, ll, i, ll, ll, vp],
+                 "sweep_dynamic": [i, vp, vp, i, vp, vp, ll, i, ll, ll, vp],
+                 "sweep_dynamic_ctas": [i, i]},
+        BINS_FOLD_SOURCE: {"sweep_bins": [i, vp, vp, i, vp, ll, i, ll, vp],
+                           "sweep_domain": [i, vp, vp, ll, i, ll, vp],
+                           "sweep_fold": [i, vp, vp, vp, vp, i, i, i, i, vp, vp, ll, i, ll, vp]},
+    }
+    libs = {}
+    for source, (path, log) in built.items():
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in signatures[source].items():
+            getattr(lib, name).argtypes = argtypes
+        libs[source] = (lib, path, log)
+    return libs
 
 
 def _resources(log: str) -> list[str]:
-    """ptxas's registers and shared memory of the copy, chunked and dynamic
-    kernels."""
+    """ptxas's registers and shared memory of the swept kernels."""
     lines, entry = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
-        elif entry and "Used" in line and any(w in entry for w in ("copy", "chunked", "dynamic")):
+        elif entry and "Used" in line and any(
+                w in entry for w in ("copy", "chunked", "dynamic", "bins", "histogram", "domain",
+                                     "fold", "static_linear")):
             lines.append(f"  {entry}: {line.split(':', 1)[-1].strip()}")
     return lines
 
 
 def _time_ms(fn, batches: int = 5, calls: int = 10) -> float:
+    """Median over ``batches`` of ``calls`` calls' CUDA-event time, per
+    call; 3 batches of one call where one call takes over 20 ms."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fn()
+    torch.cuda.synchronize()
+    if time.monotonic() - t0 > 0.02:
+        batches, calls = 3, 1
     times = []
     for _ in range(batches):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -229,7 +305,270 @@ def scan_sweep(title: str, entry, names: dict, ablations: dict, packaged: dict, 
         torch.cuda.empty_cache()
 
 
-def main() -> None:
+def _sass(path: pathlib.Path, names=None) -> dict:
+    """Function name -> its instructions [(address, opcode, text)], from
+    ``cuobjdump -sass`` of the library at ``path`` (of the functions
+    ``names`` only, where given)."""
+    exe = pathlib.Path(_cuda.nvcc()).with_name("cuobjdump")
+    args = [str(exe), "-sass", str(path)]
+    if names:
+        args[2:2] = ["-fun", ",".join(names)]
+    out = subprocess.run(args, check=True, capture_output=True, text=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if name and m:
+            text = m.group(2).strip()
+            op = re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+            funcs[name].append((int(m.group(1), 16), op, text))
+    return funcs
+
+
+# opcodes the SASS report counts (by prefix: REDG is a RED, REDUX is not)
+_COUNTED = ("ATOMS", "REDG", "LOP3", "LDS", "STS", "REDUX", "LDC", "PRMT", "MATCH")
+
+
+def _tally(instrs) -> str:
+    ops = [op.split(".")[0] for _, op, _ in instrs]
+    return f"{len(instrs)} instructions, " + ", ".join(
+        f"{ops.count(name)} {name}" for name in _COUNTED)
+
+
+def _blocks(instrs) -> list:
+    """The function's basic blocks: split after each branch or exit and at
+    each branch target."""
+    targets = set()
+    for _, op, text in instrs:
+        if op.startswith("BRA") or op.startswith("BRX"):
+            m = re.search(r"0x([0-9a-f]+)", text.split(None, 1)[-1])
+            if m:
+                targets.add(int(m.group(1), 16))
+    blocks, cur = [], []
+    for addr, op, text in instrs:
+        if addr in targets and cur:
+            blocks.append(cur)
+            cur = []
+        cur.append((addr, op, text))
+        if op.startswith(("BRA", "EXIT", "RET", "BRX", "BSYNC", "WARPSYNC")):
+            blocks.append(cur)
+            cur = []
+    if cur:
+        blocks.append(cur)
+    return blocks
+
+
+def _loops(instrs) -> list:
+    """(start, end, instructions) of each backward branch's loop."""
+    loops = []
+    for i, (addr, op, text) in enumerate(instrs):
+        if op.startswith("BRA"):
+            m = re.search(r"0x([0-9a-f]+)", text.split(None, 1)[-1])
+            if m and int(m.group(1), 16) <= addr:
+                start = int(m.group(1), 16)
+                loops.append((start, addr, [x for x in instrs if start <= x[0] <= addr]))
+    return loops
+
+
+def sass_report(path: pathlib.Path, fragments: dict, names=None) -> None:
+    """For each kernel whose mangled name holds one of ``fragments``
+    (fragment -> label): its basic blocks with eight or more atomics
+    (shared ATOMS or device-memory REDG; instructions per atomic), and its
+    innermost loops that store to shared memory or reduce.  ``names``: the
+    kernels' full mangled names, to disassemble only those."""
+    funcs = _sass(path, names)
+    for fragment, label in fragments.items():
+        names = [f for f in funcs if fragment in f]
+        if not names:
+            print(f"  sass {label}: not found ({fragment})")
+            continue
+        instrs = funcs[names[0]]
+        print(f"  sass {label} ({names[0]}): {_tally(instrs)}")
+        for block in _blocks(instrs):
+            atoms = sum(op.split(".")[0] in ("ATOMS", "REDG") for _, op, _ in block)
+            if atoms >= 8:
+                print(f"    block {block[0][0]:#06x}-{block[-1][0]:#06x}: {_tally(block)}; "
+                      f"{len(block) / atoms:.2f} instructions an atomic")
+        inner = [lp for lp in _loops(instrs)
+                 if not any(o[0] > lp[0] and o[1] < lp[1] for o in _loops(instrs))]
+        for start, end, body in inner:
+            if any(op.split(".")[0] in ("STS", "ATOMS", "REDG") for _, op, _ in body):
+                print(f"    loop {start:#06x}-{end:#06x}: {_tally(body)}")
+
+
+def bins_sweep(lib, device, n: int) -> None:
+    """The single-window bins kernel on the i % 512 and a uniform 9-bit
+    column, whole domain (lo 0, k 512) and a window (lo 100, k 256)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    columns = {"i % 512": harness.synth_modk(n, DOMAIN, WIDTH, device=device),
+               "uniform 9-bit": torch.randint(0, DOMAIN, (n,), generator=gen, device=device,
+                                              dtype=torch.int32)}
+    names = {0: "before the redesign", 1: "the package's kernel", 2: "without the bank swizzle",
+             3: "a branch around the atomic, no spare counter"}
+    for label, vals in columns.items():
+        tiles = pack_device_kernel(vals, WIDTH).tiles
+        truth = torch.bincount(vals.to(torch.int64), minlength=DOMAIN)
+        del vals
+        nblocks = tiles.shape[1] * LANES
+        for lo, k, variants in ((0, DOMAIN, (0, 1, 2)), (100, 256, (0, 1, 3))):
+            lo_t = torch.tensor([lo], dtype=torch.int32, device=device)
+            counts = torch.zeros(k, dtype=torch.int64, device=device)
+
+            def variant(v):
+                counts.zero_()
+                rc = lib.sweep_bins(v, tiles.data_ptr(), lo_t.data_ptr(), k, counts.data_ptr(),
+                                    nblocks, WIDTH, n, stream)
+                if rc:
+                    raise RuntimeError(f"bins variant {v}: CUDA error {rc}")
+
+            want = truth[lo: lo + k]
+            for v in variants:
+                variant(v)
+                _check(torch.equal(counts, want), f"bins {label} lo {lo} k {k}: {names[v]}")
+            packaged = {"histogram_tiles": lambda: scan.histogram_tiles(tiles, lo_t, k, WIDTH, n),
+                        "span tier": lambda: scan._histogram_span_tiles(tiles, lo, k, WIDTH, n)}
+            for name, fn in packaged.items():
+                _check(torch.equal(fn(), want), f"bins {label} lo {lo} k {k}: {name}")
+            calls = {names[v]: (lambda v=v: variant(v)) for v in variants}
+            calls.update(packaged)
+            bound = (tiles.numel() * 4 + 4 + k * 8) / HBM_BYTES_PER_S * 1e3
+            _report(f"bins {label} (lo {lo}, k {k})", _in_turns(calls), bound)
+        del tiles
+        torch.cuda.empty_cache()
+
+
+def domain_sweep(lib, device, n: int) -> None:
+    """The full-domain histogram of a uniform 20-bit column and a skewed one."""
+    width = 20
+    dom = 1 << width
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    uniform = torch.randint(0, dom, (n,), generator=gen, device=device, dtype=torch.int32)
+    skewed = torch.where(torch.rand(n, generator=gen, device=device) < 0.9, 0, uniform)
+    constant = torch.full((n,), 12345, dtype=torch.int32, device=device)
+    names = {0: "the package's: one pass, int64 counters, merged", 1: "without merging",
+             2: "32-bit counters, merged", 4: "G = 4 windows a CTA in shared memory",
+             13: "G = 13 windows a CTA"}
+    columns = (("uniform 20-bit", uniform), ("0 nine times in ten", skewed),
+               ("constant", constant))
+    for label, vals in columns:
+        tiles = pack_device_kernel(vals, width).tiles
+        truth = torch.bincount(vals.to(torch.int64), minlength=dom)
+        nblocks = tiles.shape[1] * LANES
+        counts = torch.zeros(dom, dtype=torch.int64, device=device)
+        los = torch.arange(0, dom, 4096, dtype=torch.int32, device=device)
+
+        def variant(v):
+            counts.zero_()
+            rc = lib.sweep_domain(v, tiles.data_ptr(), counts.data_ptr(), nblocks, width, n, stream)
+            if rc:
+                raise RuntimeError(f"domain variant {v}: CUDA error {rc}")
+
+        def windows(v):  # 256 launches of the single-window kernel v
+            out = torch.zeros((dom // 4096, 4096), dtype=torch.int64, device=device)
+            for w in range(dom // 4096):
+                rc = lib.sweep_bins(v, tiles.data_ptr(), los[w:].data_ptr(), 4096, out[w].data_ptr(),
+                                    nblocks, width, n, stream)
+                if rc:
+                    raise RuntimeError(f"bins variant {v}: CUDA error {rc}")
+            return out.reshape(-1)
+
+        for v in names:
+            variant(v)
+            # (the 32-bit counters fill the first half of the buffer)
+            got = counts.view(torch.int32)[:dom].to(torch.int64) if v == 2 else counts
+            _check(torch.equal(got, truth), f"domain {label}: {names[v]}")
+        _check(torch.equal(windows(0), truth), f"domain {label}: 256 windows before the redesign")
+        _check(torch.equal(windows(1), truth), f"domain {label}: 256 windows of the package's")
+        _check(torch.equal(scan._histogram_domain_tiles(tiles, width, n), truth),
+               f"domain {label}: _histogram_domain_tiles")
+        calls = {names[v]: (lambda v=v: variant(v)) for v in names}
+        calls["_histogram_domain_tiles"] = lambda: scan._histogram_domain_tiles(tiles, width, n)
+        times = _in_turns(calls)
+        slow = {"256 windows, the bins kernel before the redesign": lambda: windows(0),
+                "256 windows, the package's bins kernel": lambda: windows(1)}
+        times.update({name: (_time_ms(fn, 3, 2), _time_ms(fn, 3, 2)) for name, fn in slow.items()})
+        bound = (tiles.numel() * 4 + dom * 8) / HBM_BYTES_PER_S * 1e3
+        _report(f"domain {label} (n {n})", times, bound)
+        del tiles, truth, counts
+        torch.cuda.empty_cache()
+
+
+def _old_static_linear_threads(slots: int, k: int) -> int:
+    """Threads a CTA of the interpreter's linear form: its node slots and
+    its stage (k + 1 words a thread) within 200 KB."""
+    return next(t for t in (128, 64, 32) if (slots + k + 1) * t * 4 <= 200 * 1024)
+
+
+def fold_sweep(lib, device, tiles, n: int) -> None:
+    """The static linear export at k = 8, 64 and 128 on the i % 512 column."""
+    stream = torch.cuda.current_stream().cuda_stream
+    nblocks = tiles.shape[1] * LANES
+    sets = {"S8": [3, 70, 141, 200, 262, 333, 400, 511],
+            "S64": sorted(np.random.default_rng(3).choice(DOMAIN, 64, replace=False).tolist()),
+            "k=128": sorted(np.random.default_rng(5).choice(DOMAIN, 128, replace=False).tolist())}
+    names = {0: "the DAG interpreter before the redesign", 1: "the package's entry",
+             2: "masks in shared memory, 256 threads", 3: "masks in shared memory, 128 threads",
+             4: "parameter keys, 256 threads", 5: "parameter keys, 128 threads",
+             6: "constant-memory keys", 7: "keys read from device memory"}
+    for label, keys in sets.items():
+        k = len(keys)
+        host = np.asarray(keys, np.uint32)
+        kt = torch.from_numpy(host.view(np.int32).copy()).to(device)
+        prog_np, slots = scan._static_program(WIDTH, tuple(keys))
+        prog = torch.from_numpy(prog_np).to(device)
+        threads = _old_static_linear_threads(slots, k)
+        out = torch.empty(nblocks * k, dtype=torch.int32, device=device)
+        counts = torch.zeros(k, dtype=torch.int64, device=device)
+        expect = torch.tensor([(n - 1 - key) // DOMAIN + 1 for key in keys], device=device)
+
+        def variant(v):
+            counts.zero_()
+            rc = lib.sweep_fold(v, tiles.data_ptr(), host.ctypes.data, kt.data_ptr(),
+                                prog.data_ptr(), prog.shape[0], slots, threads, k, out.data_ptr(),
+                                counts.data_ptr(), nblocks, WIDTH, n, stream)
+            if rc:
+                raise RuntimeError(f"fold variant {v}: CUDA error {rc}")
+
+        variant(0)
+        ref = out.clone()
+        _check(torch.equal(counts, expect), f"fold {label}: {names[0]}'s counts")
+        for v in list(names)[1:]:
+            out.zero_()
+            variant(v)
+            _check(torch.equal(out, ref) and torch.equal(counts, expect),
+                   f"fold {label}: {names[v]} differs from {names[0]}")
+        packaged = {
+            "_static_linear_tiles_impl": lambda: scan._static_linear_tiles_impl(tiles, host, WIDTH, n),
+            "_bitsliced_linear_tiles_impl (runtime keys)":
+                lambda: scan._bitsliced_linear_tiles_impl(tiles, kt, WIDTH, n)}
+        for name, fn in packaged.items():
+            got = fn()
+            _check(torch.equal(got[0].reshape(-1), ref) and torch.equal(got[1], expect),
+                   f"fold {label}: {name} differs from {names[0]}")
+            del got
+        del ref
+        print(f"fold {label}: the interpreter's program has {prog.shape[0]} instructions "
+              f"({prog.shape[0] / k:.2f} a row), {slots} slots, {threads} threads a CTA")
+        calls = {names[v]: (lambda v=v: variant(v)) for v in names}
+        calls.update(packaged)
+        bound = (tiles.numel() * 4 + nblocks * k * 4 + k * 8) / HBM_BYTES_PER_S * 1e3
+        _report(f"fold {label} (k={k})", _in_turns(calls), bound)
+        del out
+        torch.cuda.empty_cache()
+
+
+def main(sections) -> None:
+    unknown = set(sections) - set(SECTIONS)
+    if unknown:
+        raise SystemExit(f"redesign_sweep: unknown sections {sorted(unknown)}; choose from {SECTIONS}")
     if not torch.cuda.is_available():
         raise SystemExit("redesign_sweep: no CUDA device")
     device = torch.device("cuda")
@@ -237,21 +576,45 @@ def main() -> None:
                          capture_output=True, text=True).stdout.strip()
     print(f"nvidia-smi: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    lib, log = _library()
+    sources = [src for src, names in ((SOURCE, ("copy", "chunked", "dynamic")),
+                                      (BINS_FOLD_SOURCE, ("bins", "domain", "fold")))
+               if set(names) & set(sections)]
+    libs = _libraries(sources)
     print("ptxas:")
-    print("\n".join(_resources(log)))
-    ctas = {name: lib.sweep_dynamic_ctas(v, WIDTH) for v, name in DYNAMIC_NAMES.items() if v}
-    ctas["the package's chunked kernel"] = lib.sweep_dynamic_ctas(0, WIDTH)
-    print(f"CTAs an SM at width {WIDTH} (occupancy calculator): {ctas}")
-    copy_sweep(lib, device)
+    for _, _, log in libs.values():
+        print("\n".join(_resources(log)))
     n = harness.values_for(512 * 1024 * 1024, WIDTH)
-    tiles = pack_device_kernel(harness.synth_modk(n, DOMAIN, WIDTH, device=device), WIDTH).tiles
-    scan_sweep("chunked scan", lib.sweep_chunked, CHUNKED_NAMES, ABLATION_NAMES,
-               {"shared_scan_chunked_tiles": scan.shared_scan_chunked_tiles}, tiles, n)
-    scan_sweep("dynamic scan", lib.sweep_dynamic, DYNAMIC_NAMES, DYNAMIC_ABLATIONS,
-               {"shared_scan_dynamic_tiles": scan.shared_scan_dynamic_tiles,
-                "shared_scan_chunked_tiles": scan.shared_scan_chunked_tiles}, tiles, n)
+    if SOURCE in libs:
+        lib = libs[SOURCE][0]
+        ctas = {name: lib.sweep_dynamic_ctas(v, WIDTH) for v, name in DYNAMIC_NAMES.items() if v}
+        ctas["the package's chunked kernel"] = lib.sweep_dynamic_ctas(0, WIDTH)
+        print(f"CTAs an SM at width {WIDTH} (occupancy calculator): {ctas}")
+    if "copy" in sections:
+        copy_sweep(libs[SOURCE][0], device)
+    if {"chunked", "dynamic", "fold"} & set(sections):
+        tiles = pack_device_kernel(harness.synth_modk(n, DOMAIN, WIDTH, device=device),
+                                   WIDTH).tiles
+    if "chunked" in sections:
+        scan_sweep("chunked scan", libs[SOURCE][0].sweep_chunked, CHUNKED_NAMES, ABLATION_NAMES,
+                   {"shared_scan_chunked_tiles": scan.shared_scan_chunked_tiles}, tiles, n)
+    if "dynamic" in sections:
+        scan_sweep("dynamic scan", libs[SOURCE][0].sweep_dynamic, DYNAMIC_NAMES, DYNAMIC_ABLATIONS,
+                   {"shared_scan_dynamic_tiles": scan.shared_scan_dynamic_tiles,
+                    "shared_scan_chunked_tiles": scan.shared_scan_chunked_tiles}, tiles, n)
+    if BINS_FOLD_SOURCE in libs:
+        lib, path, _ = libs[BINS_FOLD_SOURCE]
+        print("sass of the width-9 kernels (cuobjdump -sass):")
+        sass_report(path, SASS_KERNELS)
+        if "bins" in sections:
+            bins_sweep(lib, device, n)
+        if "fold" in sections:
+            fold_sweep(lib, device, tiles, n)
+        if "domain" in sections:
+            if {"chunked", "dynamic", "fold"} & set(sections):
+                del tiles
+                torch.cuda.empty_cache()
+            domain_sweep(lib, device, n)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:] or SECTIONS)

@@ -6,14 +6,20 @@ Imports ``shared_simd_scan_tpu_torch`` from ROOT (default: the checkout
 holding this file), builds its kernels, and times with CUDA events the
 interval kernel (keys 0..7 on ``i % 8``), the runtime bit-sliced and static
 AND-DAG kernels (S8 and S64 on ``i % 512``), the chunked and dynamic scans
-(S64 and S256 as CUDA keys), the chunked histogram program (lo 100, k 40)
-and the host-lo span tier (lo 0, k 512, as ``histogram_device`` sends a
-9-bit column) at the reference benchmark's n = 477,218,588; and, on the
-host clock, ``stats.describe``, ``quantiles`` and ``topk_values`` of the
-``i % 512`` column together (three span histograms; the median of five).
-Run it on two checkouts in turns (parent, change, change, parent) within
-one call to compare them on one card.  Needs a CUDA card; prints the
-card's name and power limit and one line of medians.
+(S64 and S256 as CUDA keys), the chunked histogram program (lo 100, k 40),
+the host-lo span tier (H1: lo 0, k 512, as ``histogram_device`` sends a
+9-bit column), the runtime-lo bins kernel (H3: lo 0, k 512; and lo 100, k
+256), the full-domain histogram of a uniform 20-bit column (H5: one pass
+of ``_histogram_domain_tiles`` where the checkout has it, else the 256
+windows of ``histogram_tiles`` that ``stats.histogram_full`` launched), and
+the static linear export (L2: S8, L4: S64, L6: S64 as eight groups of 8)
+at the reference benchmark's n = 477,218,588; and, on the host clock,
+``stats.describe``, ``quantiles`` and ``topk_values`` of the ``i % 512``
+column together (three span histograms) and ``stats.histogram_full`` of
+the 20-bit column (H5 wall; medians of five).  Run it on two checkouts in
+turns (parent, change, change, parent) within one call to compare them on
+one card.  Needs a CUDA card; prints the card's name and power limit and
+one line of medians.
 """
 from __future__ import annotations
 
@@ -71,6 +77,18 @@ def main(root: pathlib.Path) -> None:
     host = {8: np.asarray(S8, np.uint32), 64: np.asarray(s64, np.uint32),
             256: np.asarray(s256, np.uint32)}
     cuda = {k: torch.from_numpy(v.view(np.int32).copy()).to(device) for k, v in host.items()}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    rtiles = unpack.pack_device_kernel(torch.randint(0, 1 << 20, (n,), generator=gen, device=device,
+                                                     dtype=torch.int32), 20).tiles
+    los = torch.arange(0, 1 << 20, 4096, dtype=torch.int32, device=device)
+    lo100 = torch.tensor([100], dtype=torch.int32, device=device)
+    if hasattr(scan, "_histogram_domain_tiles"):
+        def h5():
+            return scan._histogram_domain_tiles(rtiles, 20, n)
+    else:
+        def h5():
+            return [scan.histogram_tiles(rtiles, los[w: w + 1], 4096, 20, n) for w in range(256)]
     cases = {
         "interval k=8": lambda: scan.interval_scan_tiles(tiles, 0, 8, 9, n),
         "bitsliced S8": lambda: scan.shared_scan_bitsliced_tiles(atiles, cuda[8], 9, n),
@@ -83,6 +101,13 @@ def main(root: pathlib.Path) -> None:
         "dynamic S256": lambda: scan.shared_scan_dynamic_tiles(atiles, cuda[256], 9, n),
         "histogram_dag H2": lambda: scan._histogram_chunked_tiles(atiles, 100, 40, 9, n),
         "histogram span H1": lambda: scan.histogram_dag_tiles(atiles, 0, 512, 9, n),
+        "bins H3": lambda: scan.histogram_tiles(atiles, los[:1], 512, 9, n),
+        "bins lo 100 k 256": lambda: scan.histogram_tiles(atiles, lo100, 256, 9, n),
+        "H5 kernel": h5,
+        "static linear L2": lambda: scan._static_linear_tiles_impl(atiles, host[8], 9, n),
+        "static linear L4": lambda: scan._static_linear_tiles_impl(atiles, host[64], 9, n),
+        "static linear L6": lambda: [scan._static_linear_tiles_impl(atiles, host[64][8 * g: 8 * g + 8],
+                                                                    9, n) for g in range(8)],
     }
     times = {name: time_ms(fn) for name, fn in cases.items()}
     col = layout.DeviceColumn(9, n, atiles)
@@ -92,9 +117,17 @@ def main(root: pathlib.Path) -> None:
         t1 = time.monotonic()
         stats.describe(col), stats.quantiles(col, [0.5, 0.9]), stats.topk_values(col, 5)
         walls.append((time.monotonic() - t1) * 1e3)
+    col20 = layout.DeviceColumn(20, n, rtiles)
+    walls20 = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        stats.histogram_full(col20)
+        walls20.append((time.monotonic() - t1) * 1e3)
     print(f"{smi}; {root}: build {build:.1f} s; "
           + "; ".join(f"{name} {ms:.6f} ms" for name, ms in times.items())
-          + f"; stats trio (host clock) {statistics.median(walls[1:]):.6f} ms", flush=True)
+          + f"; stats trio (host clock) {statistics.median(walls[1:]):.6f} ms"
+          + f"; H5 histogram_full (host clock) {statistics.median(walls20[1:]):.6f} ms", flush=True)
 
 
 if __name__ == "__main__":

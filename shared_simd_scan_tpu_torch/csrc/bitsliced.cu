@@ -30,16 +30,20 @@
 //    is the bins kernel with lo by value (histogram.cu sss_histogram_span);
 //  - _bitsliced_linear_kernel / _bitsliced_linear_tiles_impl (scan.py:1025)
 //    and _static_linear_kernel / _static_linear_tiles_impl (scan.py:854):
-//    the runtime fold and the static program with their rows staged as
-//    linear bytes (sss_bitsliced_scan_linear, the linear form of the static
-//    kernel: sss_bitsliced_static_scan_linear), as interval_scan.cu's fused
-//    form does.  The stage sits beside the node slots, so the host sizes
-//    the static form's CTA for both (ops/scan.py _static_linear_threads).
+//    the plane fold with its rows staged as linear bytes, as
+//    interval_scan.cu's fused form does, for keys read from device memory
+//    (sss_bitsliced_scan_linear) and for host keys passed by value in the
+//    kernel's parameters (sss_bitsliced_static_scan_linear).  The TPU
+//    traces the host keys' AND-DAG into the kernel; here each CTA turns the
+//    keys into plane masks in shared memory once, read back as
+//    broadcasts, so a row costs one three-input AND/XOR per plane with no
+//    program and no node slots, and the stage has the CTA's shared memory.
 //
 // Bound on the H100: device memory bytes (reads W words, writes k words per
 // 32 values) while k is small; the integer instruction rate beyond: the runtime fold costs
-// ~3 ops per plane per key, the static DAG one shared-memory AND per node
-// (~57 nodes for 8 spread keys at W=9, ~113 for 32).  Design: one thread per
+// ~3 ops per plane per key (one with the masks in shared memory), the
+// static DAG one shared-memory AND per node (~57 nodes for 8 spread keys
+// at W=9, ~113 for 32).  Design: one thread per
 // 32-value block; the 32 values are unpacked and transposed into planes in
 // registers by the pruned butterfly (common.cuh).  The runtime kernel keeps
 // the planes in registers and does not unroll its key loop.  The static
@@ -91,16 +95,29 @@ bitsliced_scan_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __rest
   flush_counts(s_cnt, kMember ? 1 : k, counts);
 }
 
-// The fused linear form of the runtime kernel (TPU kernel
-// _bitsliced_linear_kernel): each key's row staged as linear bytes, the
-// CTA's span stored at once; resident CTAs loop over tiles of blockDim.x
-// blocks and flush their counts once.
-template <int W>
+// Keys of the fused linear fold: read from device memory (the runtime
+// keys), or the host's keys by value in the kernel's parameters (512
+// bytes at most; __grid_constant__ keeps them in the parameter space,
+// and bench/redesign_sweep.py times the fold on them).
+struct DeviceKeys {
+  const uint32_t* p;
+  __device__ __forceinline__ uint32_t operator[](int j) const { return __ldg(p + j); }
+};
+
+struct LinearKeys {
+  uint32_t key[kMaxLinearKeys];
+  __device__ __forceinline__ uint32_t operator[](int j) const { return key[j]; }
+};
+
+// The fused linear fold of the runtime keys (TPU kernel
+// _bitsliced_linear_kernel): each key's row staged as linear bytes, four
+// rows at a time, the CTA's span stored at once; resident CTAs loop over
+// tiles of blockDim.x blocks and flush their counts once.
+template <int W, typename Keys>
 __global__ void __launch_bounds__(kThreads)
-bitsliced_scan_linear_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __restrict__ keys,
-                             int k, uint32_t* __restrict__ out,
-                             unsigned long long* __restrict__ counts, long long nblocks,
-                             long long n, long long block_offset) {
+fold_linear_kernel(const uint32_t* __restrict__ tiles, const __grid_constant__ Keys keys, int k,
+                   uint32_t* __restrict__ out, unsigned long long* __restrict__ counts,
+                   long long nblocks, long long n, long long block_offset) {
   extern __shared__ uint32_t s_stage[];  // [threadIdx.x][k + 1] words
   __shared__ unsigned s_cnt[kMaxLinearKeys];
   zero_counts(s_cnt, k);
@@ -118,26 +135,28 @@ bitsliced_scan_linear_kernel(const uint32_t* __restrict__ tiles, const uint32_t*
     transpose_bitplanes<W>(x);
 #pragma unroll 1
     for (int j = 0; j < k; j += 4)  // k % 4 == 0
-      sink.quad(j, key_row<W>(x, __ldg(keys + j)) & valid,
-                key_row<W>(x, __ldg(keys + j + 1)) & valid,
-                key_row<W>(x, __ldg(keys + j + 2)) & valid,
-                key_row<W>(x, __ldg(keys + j + 3)) & valid);
+      sink.quad(j, key_row<W>(x, keys[j]) & valid, key_row<W>(x, keys[j + 1]) & valid,
+                key_row<W>(x, keys[j + 2]) & valid, key_row<W>(x, keys[j + 3]) & valid);
     const long long left = nblocks - first;
     flush_linear(s_stage, k, out, first, left < blockDim.x ? (int)left : (int)blockDim.x);
   }
   flush_counts(s_cnt, k, counts);
 }
 
-template <int W>
-cudaError_t launch_bitsliced_linear(const uint32_t* tiles, const uint32_t* keys, int k,
-                                    uint32_t* out, unsigned long long* counts, long long nblocks,
-                                    long long n, long long block_offset, cudaStream_t stream) {
-  const auto kernel = bitsliced_scan_linear_kernel<W>;
-  const int threads = linear_threads(k);
+// One launch of the fold at `threads` threads a CTA (the stage: threads *
+// (k + 1) words of dynamic shared memory); a launch that is refused
+// returns its error.
+template <int W, typename Keys>
+cudaError_t launch_fold_linear(const uint32_t* tiles, const Keys& keys, int k, uint32_t* out,
+                               unsigned long long* counts, long long nblocks, long long n,
+                               long long block_offset, int threads, cudaStream_t stream) {
+  const auto kernel = fold_linear_kernel<W, Keys>;
   const size_t smem = linear_stage_bytes(k, threads);
   unsigned grid = 0;
-  const cudaError_t err =
-      resident_grid(kernel, threads, smem, (nblocks + threads - 1) / threads, &grid);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = resident_grid(kernel, threads, smem, (nblocks + threads - 1) / threads, &grid);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch does not report it
     return err;
@@ -146,23 +165,111 @@ cudaError_t launch_bitsliced_linear(const uint32_t* tiles, const uint32_t* keys,
   return cudaGetLastError();
 }
 
+// The fused linear fold for host keys (TPU kernel _static_linear_kernel).
+// The keys come by value in the kernel's parameters; each CTA first turns
+// them into plane masks in shared memory, per quad of keys W + 1 uint4:
+// plane p's masks ((key >> p) & 1) - 1 of the four keys, then the four
+// keys' in-domain words.  Every lane reads the same uint4 (a broadcast),
+// so a quad of rows costs one shared load a plane and a row one LOP3 a
+// plane; with the masks computed from the keys in the loop, each thread
+// spent about three more instructions a plane on them.
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+static_fold_linear_kernel(const uint32_t* __restrict__ tiles,
+                          const __grid_constant__ LinearKeys keys, int k,
+                          uint32_t* __restrict__ out, unsigned long long* __restrict__ counts,
+                          long long nblocks, long long n, long long block_offset) {
+  extern __shared__ uint4 s_mask[];  // [k / 4][W + 1], then the stage
+  uint32_t* s_stage = reinterpret_cast<uint32_t*>(s_mask + (k / 4) * (W + 1));
+  __shared__ unsigned s_cnt[kMaxLinearKeys];
+  for (int i = threadIdx.x; i < (k / 4) * (W + 1); i += blockDim.x) {
+    const int q = i / (W + 1), p = i % (W + 1);
+    uint32_t m[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const uint32_t key = keys[4 * q + u];
+      m[u] = p < W ? ((key >> p) & 1u) - 1u : (key <= value_mask<W>() ? 0xFFFFFFFFu : 0u);
+    }
+    s_mask[i] = make_uint4(m[0], m[1], m[2], m[3]);
+  }
+  zero_counts(s_cnt, k);  // (its barrier also publishes the masks)
+  const LinearSink sink{reinterpret_cast<uint8_t*>(s_stage), k, s_cnt};
+  const long long ntiles = (nblocks + blockDim.x - 1) / blockDim.x;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {  // CTA-uniform trip count
+    const long long first = t * blockDim.x;
+    const long long b = first + threadIdx.x;
+    const bool active = b < nblocks;
+    uint32_t w[W];
+    load_block<W>(tiles, nblocks, b, active, w);
+    const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
+    uint32_t x[kBlockValues];
+    unpack_values<W>(w, x);
+    transpose_bitplanes<W>(x);
+#pragma unroll 1
+    for (int q = 0; q < k / 4; ++q) {
+      const uint4* m = s_mask + q * (W + 1);
+      const uint4 alive = m[W];
+      uint32_t r0 = alive.x, r1 = alive.y, r2 = alive.z, r3 = alive.w;
+#pragma unroll
+      for (int p = 0; p < W; ++p) {
+        const uint4 mp = m[p];
+        r0 &= x[p] ^ mp.x;
+        r1 &= x[p] ^ mp.y;
+        r2 &= x[p] ^ mp.z;
+        r3 &= x[p] ^ mp.w;
+      }
+      sink.quad(4 * q, r0 & valid, r1 & valid, r2 & valid, r3 & valid);
+    }
+    const long long left = nblocks - first;
+    flush_linear(s_stage, k, out, first, left < blockDim.x ? (int)left : (int)blockDim.x);
+  }
+  flush_counts(s_cnt, k, counts);
+}
+
+inline size_t static_fold_smem(int width, int k, int threads) {
+  return (size_t)(k / 4) * (width + 1) * sizeof(uint4) + linear_stage_bytes(k, threads);
+}
+
+template <int W>
+cudaError_t launch_static_fold(const uint32_t* tiles, const LinearKeys& keys, int k, uint32_t* out,
+                               unsigned long long* counts, long long nblocks, long long n,
+                               long long block_offset, int threads, cudaStream_t stream) {
+  const auto kernel = static_fold_linear_kernel<W>;
+  const size_t smem = static_fold_smem(W, k, threads);
+  unsigned grid = 0;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = resident_grid(kernel, threads, smem, (nblocks + threads - 1) / threads, &grid);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so the next launch does not report it
+    return err;
+  }
+  kernel<<<grid, threads, smem, stream>>>(tiles, keys, k, out, counts, nblocks, n, block_offset);
+  return cudaGetLastError();
+}
+
+// Threads a CTA of the static fold: 128 tied 256 at k = 8 and 64 and won
+// at k = 128, where 256 threads' stage (132 KB) leaves one CTA an SM
+// (bench/redesign_sweep.py).
+constexpr int kStaticFoldThreads = 128;
+
 // Forms of the static kernel: the (k, nblocks) bits; counts only (the
-// histogram's, rows 10 and 11 of the TPU kernel table); the linear bytes
-// (the fused form, TPU kernel _static_linear_kernel).
-constexpr int kFormBits = 0, kFormCounts = 1, kFormLinear = 2;
+// histogram's, row 10 of the TPU kernel table).
+constexpr int kFormBits = 0, kFormCounts = 1;
 
 // One tile of the static kernel: thread threadIdx.x takes block
 // t * blockDim.x + threadIdx.x, unpacks and transposes it into planes in
 // its slots, and runs the program.  OUT and ZERO by form: the bits form
 // stores row target (a & valid, or 0) and counts it; the counts form adds
 // popc(a & valid) to its row's shared counter for OUT and nothing for
-// ZERO; the linear form stages the row as LinearSink does.
+// ZERO.
 template <int W, int kForm>
 __device__ __forceinline__ void static_tile(const uint32_t* __restrict__ tiles,
                                             const uint2* __restrict__ prog, int nops, int k,
                                             uint32_t* __restrict__ bits, long long nblocks,
                                             long long n, long long block_offset, long long t,
-                                            uint32_t* s_val, unsigned* s_cnt, uint8_t* stage) {
+                                            uint32_t* s_val, unsigned* s_cnt) {
   const int stride = blockDim.x;
   const long long b = t * stride + threadIdx.x;
   const bool active = b < nblocks;
@@ -185,41 +292,30 @@ __device__ __forceinline__ void static_tile(const uint32_t* __restrict__ tiles,
       s_val[target * stride + threadIdx.x] = kind == kAnd ? a & c : a | c;
     } else if constexpr (kForm == kFormCounts) {
       if (kind == kOut) count_row((int)target, a & valid, s_cnt);
-    } else if constexpr (kForm == kFormLinear) {
-      LinearSink{stage, k, s_cnt}((int)target, kind == kOut ? a & valid : 0u);
     } else {
       store_row(bits, nblocks, b, active, (int)target, kind == kOut ? a & valid : 0u, s_cnt);
     }
   }
 }
 
-// The bitvector form runs one tile per CTA.  The counts-only and linear
-// forms run resident CTAs looping over the tiles, so each flushes its
-// counters once; the linear form's stage follows the node slots in dynamic
-// shared memory.
+// The bitvector form runs one tile per CTA.  The counts-only form runs
+// resident CTAs looping over the tiles, so each flushes its counters once.
 template <int W, int kForm>
 __global__ void __launch_bounds__(kStaticThreadsMax)
 bitsliced_static_kernel(const uint32_t* __restrict__ tiles, const uint2* __restrict__ prog,
                         int nops, int k, uint32_t* __restrict__ bits,
                         unsigned long long* __restrict__ counts, long long nblocks, long long n,
                         long long block_offset, int slots) {
-  extern __shared__ uint32_t s_val[];  // [slot][threadIdx.x], then the linear stage
+  extern __shared__ uint32_t s_val[];  // [slot][threadIdx.x]
   __shared__ unsigned s_cnt[kForm == kFormCounts ? kMaxHistKeys : kMaxKeys];
   zero_counts(s_cnt, k);
   if constexpr (kForm == kFormBits) {
     static_tile<W, kForm>(tiles, prog, nops, k, bits, nblocks, n, block_offset, blockIdx.x, s_val,
-                          s_cnt, nullptr);
+                          s_cnt);
   } else {
-    uint32_t* stage = s_val + (size_t)slots * blockDim.x;
     const long long ntiles = (nblocks + blockDim.x - 1) / blockDim.x;
-    for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {  // CTA-uniform trip count
-      static_tile<W, kForm>(tiles, prog, nops, k, bits, nblocks, n, block_offset, t, s_val, s_cnt,
-                            reinterpret_cast<uint8_t*>(stage));
-      if constexpr (kForm == kFormLinear) {
-        const long long first = t * blockDim.x, left = nblocks - first;
-        flush_linear(stage, k, bits, first, left < blockDim.x ? (int)left : (int)blockDim.x);
-      }
-    }
+    for (long long t = blockIdx.x; t < ntiles; t += gridDim.x)  // CTA-uniform trip count
+      static_tile<W, kForm>(tiles, prog, nops, k, bits, nblocks, n, block_offset, t, s_val, s_cnt);
   }
   flush_counts(s_cnt, k, counts);
 }
@@ -252,14 +348,11 @@ template <int kForm>
 int static_scan(const uint32_t* tiles, const int* prog, int nops, int k, uint32_t* bits,
                 unsigned long long* counts, long long nblocks, int width, long long n,
                 long long block_offset, int threads, int slots, cudaStream_t stream) {
-  const bool k_ok = kForm == kFormCounts ? k >= 1 && k <= kMaxHistKeys
-                    : kForm == kFormLinear ? linear_k_ok(k)
-                                           : k >= 1 && k <= kMaxKeys;
+  const bool k_ok = kForm == kFormCounts ? k >= 1 && k <= kMaxHistKeys : k >= 1 && k <= kMaxKeys;
   if (!k_ok || threads < 32 || threads > kStaticThreadsMax || threads % 32 || slots < width)
     return (int)cudaErrorInvalidValue;
   if (nblocks <= 0) return (int)cudaSuccess;
-  size_t smem = (size_t)slots * threads * sizeof(uint32_t);
-  if (kForm == kFormLinear) smem += linear_stage_bytes(k, threads);
+  const size_t smem = (size_t)slots * threads * sizeof(uint32_t);
   const uint2* p = reinterpret_cast<const uint2*>(prog);
   switch (width) {
 #define SSS_CASE(W)                                                                         \
@@ -346,19 +439,21 @@ extern "C" int sss_histogram_dag(const uint32_t* tiles, const int* prog, int nop
                                             width, n, block_offset, threads, slots, stream);
 }
 
-// The fused linear form of the runtime kernel: out is uint32[nblocks * k],
-// block b's linear bytes at [4bk, 4bk + 4k); k % 4 == 0, 4 <= k <= 128.
+// The fused linear fold for keys in device memory: out is uint32[nblocks *
+// k], block b's linear bytes at [4bk, 4bk + 4k); k % 4 == 0, 4 <= k <= 128.
 extern "C" int sss_bitsliced_scan_linear(const uint32_t* tiles, const uint32_t* keys, int k,
                                          uint32_t* out, unsigned long long* counts,
                                          long long nblocks, int width, long long n,
                                          long long block_offset, cudaStream_t stream) {
   if (!sss::linear_k_ok(k)) return (int)cudaErrorInvalidValue;
   if (nblocks <= 0) return (int)cudaSuccess;
+  const sss::DeviceKeys dk{keys};
+  const int threads = sss::linear_threads(k);
   switch (width) {
 #define SSS_CASE(W)                                                                          \
   case W:                                                                                    \
-    return (int)sss::launch_bitsliced_linear<W>(tiles, keys, k, out, counts, nblocks, n,     \
-                                                block_offset, stream);
+    return (int)sss::launch_fold_linear<W>(tiles, dk, k, out, counts, nblocks, n,            \
+                                           block_offset, threads, stream);
     SSS_FOR_EACH_WIDTH(SSS_CASE)
 #undef SSS_CASE
     default:
@@ -366,14 +461,26 @@ extern "C" int sss_bitsliced_scan_linear(const uint32_t* tiles, const uint32_t* 
   }
 }
 
-// The fused linear form of the static kernel: one program of k rows
-// (k % 4 == 0, 4 <= k <= 128), out as in sss_bitsliced_scan_linear;
-// dynamic shared memory holds slots * threads node words and the stage.
-extern "C" int sss_bitsliced_static_scan_linear(const uint32_t* tiles, const int* prog, int nops,
-                                                int k, uint32_t* out, unsigned long long* counts,
+// The fused linear fold for host keys (k % 4 == 0, 4 <= k <= 128), passed
+// by value in the kernel's parameters: keys is a host array of k uint32;
+// out as in sss_bitsliced_scan_linear.  kStaticFoldThreads threads a CTA;
+// shared memory holds the plane masks and the stage.
+extern "C" int sss_bitsliced_static_scan_linear(const uint32_t* tiles, const uint32_t* keys, int k,
+                                                uint32_t* out, unsigned long long* counts,
                                                 long long nblocks, int width, long long n,
-                                                long long block_offset, int threads, int slots,
-                                                cudaStream_t stream) {
-  return sss::static_scan<sss::kFormLinear>(tiles, prog, nops, k, out, counts, nblocks, width, n,
-                                            block_offset, threads, slots, stream);
+                                                long long block_offset, cudaStream_t stream) {
+  if (!sss::linear_k_ok(k)) return (int)cudaErrorInvalidValue;
+  if (nblocks <= 0) return (int)cudaSuccess;
+  sss::LinearKeys hk{};
+  for (int j = 0; j < k; ++j) hk.key[j] = keys[j];
+  switch (width) {
+#define SSS_CASE(W)                                                                          \
+  case W:                                                                                    \
+    return (int)sss::launch_static_fold<W>(tiles, hk, k, out, counts, nblocks, n,            \
+                                           block_offset, sss::kStaticFoldThreads, stream);
+    SSS_FOR_EACH_WIDTH(SSS_CASE)
+#undef SSS_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -243,7 +243,7 @@ __device__ __forceinline__ uint32_t dag_operand(const uint32_t* s_val, uint32_t 
 // become bytes [4bk, 4bk + 4k) of the output, byte q*k + j = byte q of row
 // j.  A fused kernel stages its CTA's rows in shared memory, thread t's 4k
 // bytes at word t*(k+1): the stride is odd for k % 4 == 0, so the 32 lanes'
-// stores of one row (or one quad) fall in 32 banks.  flush_linear then
+// word stores of one quad of rows fall in 32 banks.  flush_linear then
 // stores the CTA's blockDim.x * k words as one contiguous span (coalesced).
 constexpr int kMaxLinearKeys = 128;  // the fused kernels' k: 4..128, k % 4 == 0
 constexpr int kLinearStageBytes = 40 * 1024;
@@ -259,14 +259,6 @@ inline int linear_threads(int k) {
 }
 
 inline size_t linear_stage_bytes(int k, int threads) { return (size_t)threads * (k + 1) * 4; }
-
-__device__ __forceinline__ void stage_linear_row(uint8_t* stage, int k, int j, uint32_t word) {
-  uint8_t* p = stage + (size_t)threadIdx.x * (k + 1) * 4 + j;
-  p[0] = (uint8_t)word;
-  p[k] = (uint8_t)(word >> 8);
-  p[2 * k] = (uint8_t)(word >> 16);
-  p[3 * k] = (uint8_t)(word >> 24);
-}
 
 // Once every thread staged its rows: store blocks first_block ..
 // first_block + nactive - 1 (k words each) to out, then sync so the stage
@@ -292,11 +284,11 @@ __device__ __forceinline__ void flush_linear(const uint32_t* stage, int k,
   __syncthreads();
 }
 
-// Output sinks of a row-producing body: store row j of block b into the
-// (k, nblocks) bits, or stage it in the CTA's linear span; both count it.
-// Must be reached by all 32 lanes of the warp (j is warp-uniform).
-// rows8 hands over rows j..j+count-1 (count <= 8) from x[0..7], each
-// ANDed with the validity word.
+// Output sinks of a row-producing body: store rows of block b into the
+// (k, nblocks) bits, or stage them in the CTA's linear span, four at a
+// time; both count them.  Must be reached by all 32 lanes of the warp (j
+// is warp-uniform).  rows8 hands over rows j..j+count-1 (count <= 8) from
+// x[0..7], each ANDed with the validity word.
 struct BitsSink {
   uint32_t* bits;
   long long nblocks, b;
@@ -317,10 +309,6 @@ struct LinearSink {
   uint8_t* stage;
   int k;
   unsigned* s_cnt;
-  __device__ __forceinline__ void operator()(int j, uint32_t word) const {
-    count_row(j, word, s_cnt);
-    stage_linear_row(stage, k, j, word);
-  }
   // Rows j..j+3 (j % 4 == 0): output word q*(k/4) + j/4 of the block is
   // byte q of the four rows, so four word stores stage them.
   __device__ __forceinline__ void quad(int j, uint32_t a, uint32_t b, uint32_t c,

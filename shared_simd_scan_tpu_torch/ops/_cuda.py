@@ -64,11 +64,12 @@ _SIGNATURES = {
     # threads, slots, stream
     "sss_bitsliced_static_scan": [_vp, _vp, ctypes.c_int, ctypes.c_int, _vp, _vp, _ll,
                                   ctypes.c_int, _ll, _ll, ctypes.c_int, ctypes.c_int, _vp],
-    # the fused linear forms: out (uint32[nblocks * k]) in place of bits
+    # the fused linear forms: out (uint32[nblocks * k]) in place of bits;
+    # keys in device memory, or a host array of k uint32 passed by value
     "sss_bitsliced_scan_linear": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll,
                                   _vp],
-    "sss_bitsliced_static_scan_linear": [_vp, _vp, ctypes.c_int, ctypes.c_int, _vp, _vp, _ll,
-                                         ctypes.c_int, _ll, _ll, ctypes.c_int, ctypes.c_int, _vp],
+    "sss_bitsliced_static_scan_linear": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll,
+                                         _ll, _vp],
     # in, ld, in_len, m, granule bytes, seg, out, out_len, stream
     "sss_interleave": [_vp, _ll, _ll, ctypes.c_int, ctypes.c_int, ctypes.c_int, _vp, _ll, _vp],
     # tiles, plan, k, bits, counts, nblocks, width, n, block_offset, gateless, stream
@@ -85,6 +86,8 @@ _SIGNATURES = {
     # tiles, lo (host value), k, counts, nblocks, width, n, block_offset, stream
     "sss_histogram_span": [_vp, ctypes.c_uint32, ctypes.c_int, _vp, _ll, ctypes.c_int, _ll, _ll,
                            _vp],
+    # tiles, counts (int64[2^width]), nblocks, width, n, block_offset, stream
+    "sss_histogram_domain": [_vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
     # tiles, prog, nops, k, counts, nblocks, width, n, block_offset, threads, slots, stream
     "sss_histogram_dag": [_vp, _vp, ctypes.c_int, ctypes.c_int, _vp, _ll, ctypes.c_int, _ll, _ll,
                           ctypes.c_int, ctypes.c_int, _vp],

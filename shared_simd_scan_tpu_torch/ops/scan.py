@@ -1495,6 +1495,47 @@ def histogram_tiles(
 
 histogram_tiles.launches = 0
 
+# Widths whose full-domain histogram takes one domain pass: past one
+# 4096-value window, up to the statistics' cap.
+DOMAIN_WIDTHS = range(13, 21)
+
+
+def _histogram_domain_tiles_plain(
+    tiles: torch.Tensor, width: int, n: int, block_offset: int = 0
+) -> torch.Tensor:
+    """Plain torch version of :func:`_histogram_domain_tiles`: the real
+    values counted by ``bincount``."""
+    vals, real = _real_values_plain(tiles, width, n, block_offset)
+    return torch.bincount(vals[real], minlength=1 << width)
+
+
+def _histogram_domain_tiles(
+    tiles: torch.Tensor, width: int, n: int, block_offset: int = 0
+) -> torch.Tensor:
+    """Counts of every value of the domain of a column of width 13..20 in
+    one pass -> int64[2^width] on the tiles' device: the counts of
+    :func:`histogram_tiles` over the 4096-value windows lo = 0, 4096, ...,
+    laid end to end.
+
+    Kernel ``sss_histogram_domain`` (``csrc/histogram.cu``: each real
+    value adds one to its int64 counter in device memory) on CUDA tiles;
+    the plain version on CPU tiles."""
+    if width not in DOMAIN_WIDTHS:
+        raise ValueError(f"the domain histogram takes widths {DOMAIN_WIDTHS.start}.."
+                         f"{DOMAIN_WIDTHS.stop - 1}, got {width}")
+    b1 = _check_tiles(tiles, width)
+    device = _cuda.kernel_device(tiles)
+    if device is None:
+        return _histogram_domain_tiles_plain(tiles, width, n, block_offset)
+    counts = torch.zeros(1 << width, dtype=torch.int64, device=device)
+    _cuda.launch("sss_histogram_domain", device, tiles.data_ptr(), counts.data_ptr(), b1 * LANES,
+                 width, n, block_offset)
+    _histogram_domain_tiles.launches += 1
+    return counts
+
+
+_histogram_domain_tiles.launches = 0
+
 
 def _histogram_keys(lo: int, k: int) -> tuple:
     """Keys lo..lo+k-1 as uint32 program keys.  The JAX package's
@@ -1748,48 +1789,37 @@ def _linear_concrete_keys(keys, name: str) -> np.ndarray:
     return _host_keys(keys)
 
 
-def _static_linear_threads(slots: int, k: int) -> int:
-    """Threads per CTA of the static linear kernel whose node slots and
-    linear stage (k + 1 words per thread) fit STATIC_SMEM_BYTES."""
-    for threads in (128, 64, 32):
-        if (slots + k + 1) * threads * 4 <= STATIC_SMEM_BYTES:
-            return threads
-    raise ValueError(f"static linear export needs {slots} live values and {k + 1} staged words "
-                     f"per thread: more than the shared memory of a 32-thread CTA "
-                     f"({STATIC_SMEM_BYTES} bytes)")
-
-
 def _static_linear_tiles_plain(
     tiles: torch.Tensor, keys, width: int, n: int, block_offset: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch version of :func:`_static_linear_tiles_impl`: the static
-    tier's plain version, then the plain interleave."""
-    bits, counts = shared_scan_bitsliced_static_tiles_plain(tiles, keys, width, n, block_offset)
-    return _linear_rows_plain(bits), counts
+    """Plain torch version of :func:`_static_linear_tiles_impl`, same
+    algorithm: the plane fold over the host keys (placed on the tiles'
+    device), then the plain interleave."""
+    return _bitsliced_linear_tiles_plain(tiles, _key_tensor(keys, tiles.device), width, n,
+                                         block_offset)
 
 
 def _static_linear_tiles_impl(
     tiles: torch.Tensor, keys: np.ndarray, width: int, n: int, block_offset: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Host keys (k % 4 == 0, 4 <= k <= 128) through the static AND-DAG ->
-    (words int32[B1, 128k], counts int64[k]); keys >= 2^width give zero
-    rows.
+    """Host keys (k % 4 == 0, 4 <= k <= 128) -> (words int32[B1, 128k],
+    counts int64[k]); keys >= 2^width give zero rows.
 
-    Kernel ``sss_bitsliced_static_scan_linear`` (``csrc/bitsliced.cu``) on
-    the key set's :func:`_static_program` (one launch: k is far below
-    MAX_LAUNCH_KEYS) for CUDA tiles; the plain version on CPU tiles."""
+    Kernel ``sss_bitsliced_static_scan_linear`` (``csrc/bitsliced.cu``: the
+    plane fold, the keys passed by value in the kernel's parameters and
+    turned into plane masks in shared memory) for CUDA tiles; the plain
+    version on CPU tiles."""
     b1 = _check_tiles(tiles, width)
     device = _cuda.kernel_device(tiles)
     if device is None:
         return _static_linear_tiles_plain(tiles, keys, width, n, block_offset)
-    k = int(keys.shape[0])
-    prog, slots = _static_program_on(width, tuple(keys.tolist()), device)
+    host = np.ascontiguousarray(keys, dtype=np.uint32)
+    k = int(host.shape[0])
     out = torch.empty((b1, LANES * k), dtype=torch.int32, device=device)
     counts = torch.zeros(k, dtype=torch.int64, device=device)
     _cuda.launch(
-        "sss_bitsliced_static_scan_linear", device, tiles.data_ptr(), prog.data_ptr(),
-        prog.shape[0], k, out.data_ptr(), counts.data_ptr(), b1 * LANES, width, n, block_offset,
-        _static_linear_threads(slots, k), slots,
+        "sss_bitsliced_static_scan_linear", device, tiles.data_ptr(), host.ctypes.data, k,
+        out.data_ptr(), counts.data_ptr(), b1 * LANES, width, n, block_offset,
     )
     _static_linear_tiles_impl.launches += 1
     return out, counts

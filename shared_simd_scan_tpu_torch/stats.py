@@ -6,28 +6,26 @@ statistics over billions of rows reduce to one histogram pass plus
 O(domain) numpy on the host: no sort, no second pass over n.
 
 A domain of at most 4096 values is one pass of
-:func:`ops.scan.histogram_dag_tiles`; a wider one is one pass of
-:func:`ops.scan.histogram_tiles` per 4096-value window, with the window's
-low key as a tensor on the column's device (the JAX package's
-``jnp.uint32(lo)``).  Every window is launched before the counts are copied
-to the host, once.  Results are the JAX package's: uint64 counts and
-uint32 values, as numpy arrays.
+:func:`ops.scan.histogram_dag_tiles`.  A wider one (widths 13-20) is one
+pass of the domain histogram, whose counts are those of the JAX package's
+one ``histogram_tiles`` pass per 4096-value window laid end to end.  The
+counts are copied to the host once.  Results are the JAX package's: uint64
+counts and uint32 values, as numpy arrays.
 """
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from shared_simd_scan_tpu_torch.layout import DeviceColumn, i32
-from shared_simd_scan_tpu_torch.ops.scan import histogram_dag_tiles, histogram_tiles
+from shared_simd_scan_tpu_torch.layout import DeviceColumn
+from shared_simd_scan_tpu_torch.ops.scan import _histogram_domain_tiles, histogram_dag_tiles
 
 _WINDOW = 4096
 
 
 def histogram_full(dev: DeviceColumn, mesh=None) -> np.ndarray:
     """Exact counts over the FULL domain (2^width,) as host numpy uint64,
-    one kernel pass per 4096-value window.  ``mesh`` (the JAX package's
-    sharded statistics) is not ported yet: given one, this raises."""
+    in one kernel pass.  ``mesh`` (the JAX package's sharded statistics) is
+    not ported yet: given one, this raises."""
     if dev.width > 20:
         raise ValueError(
             f"histogram statistics need 2^width buckets; width {dev.width} "
@@ -41,10 +39,7 @@ def histogram_full(dev: DeviceColumn, mesh=None) -> np.ndarray:
     if dom <= _WINDOW:
         counts = histogram_dag_tiles(dev.tiles, 0, dom, dev.width, dev.n)
     else:
-        # one low-key tensor per window, all made in one step on the device
-        los = i32(torch.arange(0, dom, _WINDOW, dtype=torch.int64, device=dev.tiles.device))
-        counts = torch.cat([histogram_tiles(dev.tiles, los[w : w + 1], _WINDOW, dev.width, dev.n)
-                            for w in range(los.shape[0])])
+        counts = _histogram_domain_tiles(dev.tiles, dev.width, dev.n)
     return counts.cpu().numpy().astype(np.uint64)
 
 

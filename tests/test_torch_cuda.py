@@ -676,6 +676,53 @@ def test_histogram_kernels_count_every_value(cuda_device):
         _same(scan.histogram_tiles(tiles, _lo(top, cuda_device), 40, width, n)[3:], expect[:37])
 
 
+@pytest.mark.parametrize("width", range(1, 32))
+def test_histogram_whole_window_and_masked_paths(cuda_device, width):
+    # five tiles of 256 blocks, the last one partial: full tiles take the
+    # unmasked paths, the last the masked one; a window over the whole
+    # domain (widths <= 12) takes the path without subtract and compare,
+    # one key short of it the window path; lo = 2^32 - 3 wraps (runtime lo)
+    # or counts nothing (span tier); a block_offset moves the partial tile
+    n = 4 * 256 * 32 + 5000
+    values = _values(width, n, width + 300, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    dom = 1 << width
+    cases = [(0, min(dom, 4096)), (0, min(dom, 4097) - 1), (0, 4096), (int(values[7]), 5),
+             ((1 << 32) - 3, 40)]
+    for lo, k in cases:
+        for bo in (0, 2, 1024):
+            _same(scan.histogram_tiles(tiles, _lo(lo, cuda_device), k, width, n, bo),
+                  scan.histogram_tiles_plain(tiles, lo, k, width, n, bo))
+            _same(scan._histogram_span_tiles(tiles, lo, k, width, n, bo),
+                  scan._histogram_span_tiles_plain(tiles, lo, k, width, n, bo))
+
+
+@pytest.mark.parametrize("width", [13, 16, 20])
+def test_domain_histogram_matches_plain(cuda_device, width):
+    # ragged n (one value, a partial block, a partial tile), a value in
+    # the last window, and a block_offset; a constant column (every value
+    # a warp's hot value) and a skewed one (lanes of one value merged)
+    dom = 1 << width
+    big = 4 * 256 * 32 + 5017
+    columns = [_values(width, n, width + n, cuda_device) for n in (1, 100, big)]
+    columns.append(torch.full((big,), dom // 3, dtype=torch.int32, device=cuda_device))
+    skewed = _values(width, big, width, cuda_device)
+    columns.append(torch.where(skewed % 8 < 6, 5, skewed))
+    for values in columns:
+        n = values.shape[0]
+        values[-1] = dom - 1
+        tiles = unpack.pack_device_kernel(values, width).tiles
+        expect = torch.bincount(values.to(torch.int64), minlength=dom)
+        before = scan._histogram_domain_tiles.launches
+        _same(scan._histogram_domain_tiles(tiles, width, n), expect)
+        assert scan._histogram_domain_tiles.launches == before + 1
+        for bo in (2, 1024):
+            _same(scan._histogram_domain_tiles(tiles, width, n, bo),
+                  scan._histogram_domain_tiles_plain(tiles, width, n, bo))
+    with pytest.raises(ValueError, match="widths 13..20"):
+        scan._histogram_domain_tiles(tiles, 12, 100)
+
+
 def test_histogram_dispatch_launches_each_kernel(cuda_device):
     width, n = 9, 40_000
     vals = harness.synth_modk(n, 512, width, device=cuda_device)
@@ -699,11 +746,13 @@ def test_histogram_dispatch_launches_each_kernel(cuda_device):
 
 
 def test_stats_on_the_card_equal_the_cpu(cuda_device):
-    for width, n in ((9, 30_000), (13, 50_000)):
+    for width, n in ((9, 30_000), (13, 50_000), (20, 70_001)):
         host = np.random.default_rng(width).integers(0, 1 << width, n).astype(np.uint32)
         gdev = port.pack_device_kernel(torch.from_numpy(host.view(np.int32)).to(cuda_device), width)
         cdev = port.layout.pack_device(host, width, device="cpu")
+        before = scan._histogram_domain_tiles.launches
         counts = port.stats.histogram_full(gdev)
+        assert scan._histogram_domain_tiles.launches == before + (width > 12)
         np.testing.assert_array_equal(counts, np.bincount(host, minlength=1 << width))
         np.testing.assert_array_equal(counts, port.stats.histogram_full(cdev))
         assert port.stats.describe(gdev) == port.stats.describe(cdev)
@@ -787,6 +836,10 @@ def test_refused_histogram_and_zoned_launches_raise(cuda_device):
     with pytest.raises(RuntimeError, match="sss_histogram_span"):
         _cuda.launch("sss_histogram_span", cuda_device, tiles.data_ptr(), 0, 4097,
                      counts.data_ptr(), 8 * 128, 9, 100, 0)
+    with pytest.raises(RuntimeError, match="sss_histogram_domain"):
+        # width 12: a domain of one window
+        _cuda.launch("sss_histogram_domain", cuda_device, tiles.data_ptr(), counts.data_ptr(),
+                     8 * 128, 12, 100, 0)
     prog, _ = scan._static_program_on(9, (3, 70), cuda_device)
     with pytest.raises(RuntimeError, match="sss_histogram_dag"):
         _cuda.launch("sss_histogram_dag", cuda_device, tiles.data_ptr(), prog.data_ptr(),
@@ -851,6 +904,27 @@ def test_fused_linear_kernels_match_plain(cuda_device, width):
                   scan._bitsliced_linear_tiles_plain(tiles, kt, width, N, bo))
 
 
+FUSED_KS = tuple(k for k in range(4, 129, 4) if k <= 64 or k % 8 == 0)
+
+
+@pytest.mark.parametrize("width", range(1, 32))
+def test_static_linear_fold_every_fused_k(cuda_device, width):
+    # the host keys by value at every fused k: duplicates, a key at 2^W,
+    # 0xFFFFFFFF, under a block_offset; counts against their own bits
+    values = _values(width, N, width + 400, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    dom = 1 << width
+    rng = np.random.default_rng(width + 400)
+    for k in FUSED_KS:
+        keys = rng.integers(0, dom, size=k).astype(np.uint32)
+        keys[1], keys[2], keys[-1] = keys[0], min(dom, 0xFFFFFFFF), 0xFFFFFFFF
+        for bo in (0, 2):
+            before = scan._static_linear_tiles_impl.launches
+            got = scan._static_linear_tiles_impl(tiles, keys, width, N, bo)
+            assert scan._static_linear_tiles_impl.launches == before + 1
+            _same(got, scan._static_linear_tiles_plain(tiles, keys, width, N, bo))
+
+
 def test_linear_dispatch_launches_each_kernel(cuda_device):
     width, n = 9, 300_001
     vals = harness.synth_modk(n, 512, width, device=cuda_device)
@@ -897,6 +971,11 @@ def test_refused_linear_launches_raise(cuda_device):
         with pytest.raises(RuntimeError, match="sss_bitsliced_scan_linear"):
             _cuda.launch("sss_bitsliced_scan_linear", cuda_device, tiles.data_ptr(),
                          out.data_ptr(), k, out.data_ptr(), counts.data_ptr(), 8 * 128, 9, 100, 0)
+    keys = np.arange(132, dtype=np.uint32)
+    for k in (3, 132):
+        with pytest.raises(RuntimeError, match="sss_bitsliced_static_scan_linear"):
+            _cuda.launch("sss_bitsliced_static_scan_linear", cuda_device, tiles.data_ptr(),
+                         keys.ctypes.data, k, out.data_ptr(), counts.data_ptr(), 8 * 128, 9, 100, 0)
     with pytest.raises(RuntimeError, match="sss_interleave"):
         # a granule of 2 bytes
         _cuda.launch("sss_interleave", cuda_device, out.data_ptr(), 512, 512, 2, 2, 4,

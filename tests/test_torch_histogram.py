@@ -96,6 +96,25 @@ def test_top_of_uint32_differs_by_tier_as_in_jax():
     assert tdag.tolist() == [0] * k
 
 
+@pytest.mark.parametrize("width", [1, 9, 12])
+def test_whole_domain_window_and_one_key_short(width):
+    # k = 2^W with lo 0 is the bins kernel's whole-domain path on the card;
+    # k = 2^W - 1 its window path.  Both plain versions (runtime and host
+    # lo) against numpy, and at width 12 against the JAX runtime-lo kernel
+    # (one interpret-mode call; k = 4095 is its prefix)
+    values, jdev, tdev = _column(width, seed=20 + width)
+    dom = 1 << width
+    expect = np.bincount(values, minlength=dom)
+    jcounts = (np.asarray(jscan.histogram_tiles(jdev.tiles, jnp.uint32(0), dom, width, N,
+                                                interpret=True)) if width == 12 else expect)
+    for k in (dom, dom - 1):
+        if k == 0:
+            continue
+        for got in (tscan.histogram_tiles(tdev.tiles, _lo(0), k, width, N),
+                    tscan._histogram_span_tiles(tdev.tiles, 0, k, width, N)):
+            _same(got, jcounts[:k], values)
+
+
 def test_wide_domain_is_capped_at_4096():
     width, n = 16, 8000
     values = np.random.default_rng(6).integers(0, 1 << width, size=n).astype(np.uint32)

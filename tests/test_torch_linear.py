@@ -227,6 +227,30 @@ def test_uint8_export_k6_and_words_refusal_match_jax():
     assert str(terr.value) == str(jerr.value) == "words view needs k % 4 == 0; use the uint8 form"
 
 
+@pytest.mark.parametrize("width", [1, 9, 31])
+def test_static_fold_plain_matches_jax_oracle(width):
+    # the plain version of the static fold (keys by value) at k = 4, 16,
+    # 20, 64 and 128: a key at 2^W, 0xFFFFFFFF and duplicates; its bytes
+    # against the JAX oracle's linear export and numpy's interleave
+    n = 5003  # ragged: nbytes = 626, the last byte half full
+    values, jdev, tdev = _column(width, n, 50 + width)
+    jcol = jlayout.pack(values, width)
+    rng = np.random.default_rng(width)
+    nbytes = (n + 7) // 8
+    for k in (4, 16, 20, 64, 128):
+        keys = rng.integers(0, 1 << width, size=k).astype(np.uint32)
+        keys[0] = values[0]
+        keys[1] = keys[0]
+        keys[2] = np.uint32(min(1 << width, 0xFFFFFFFF))
+        keys[-1] = 0xFFFFFFFF
+        words, counts = tscan._static_linear_tiles_plain(tdev.tiles, keys, width, n)
+        got = words.reshape(-1).numpy().view(np.uint8)[: nbytes * k]
+        np.testing.assert_array_equal(got, np.asarray(joracle.shared_scan_linear(jcol, keys)))
+        np.testing.assert_array_equal(got, _linear_bytes(values, keys, width))
+        dom = 1 << width
+        assert counts.tolist() == [int((values == key).sum()) if key < dom else 0 for key in keys]
+
+
 def test_fused_refusals_match_jax():
     _, jdev, tdev = _column(9, 1000, 43)
     for k in (3, 20, 24):

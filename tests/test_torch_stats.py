@@ -3,9 +3,11 @@
 The same column (from a numpy seed) goes to both packages, the JAX one in
 interpret mode; ``histogram_full``, ``quantiles``, ``topk_values`` and
 ``describe`` must return the same numpy results (uint64 counts, uint32
-values; tolerance 0).  Wider domains (several 4096-value windows) and the
-width cap are checked against numpy only: the JAX interpret-mode
-histogram at k = 4096 costs minutes.
+values; tolerance 0).  A domain wider than 4096 values is one pass of the
+port's domain histogram: held against the JAX package's 4096-value windows
+at width 13 on a small column (one interpret-mode call), and against
+numpy at widths 13-20 and in ``describe``; the width cap against the JAX
+package's message.
 """
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ from shared_simd_scan_tpu import layout as jlayout
 from shared_simd_scan_tpu import stats as jstats
 from shared_simd_scan_tpu_torch import layout as tlayout
 from shared_simd_scan_tpu_torch import stats as tstats
+from shared_simd_scan_tpu_torch.ops import scan as tscan
 
 torch.set_num_threads(1)
 
@@ -58,6 +61,37 @@ def test_two_windows_at_width_13():
     assert (d["n"], d["min"], d["max"], d["distinct"]) == (
         values.size, int(values.min()), int(values.max()), int(np.unique(values).size))
     assert d["median"] == int(np.sort(values)[(values.size + 1) // 2 - 1])
+
+
+def test_domain_pass_matches_jax_at_width_13():
+    # one pass of the domain histogram against the JAX package's two
+    # 4096-value windows (interpret mode)
+    values = np.random.default_rng(13).integers(0, 1 << 13, size=3001).astype(np.uint32)
+    values[-1] = (1 << 13) - 1
+    jdev, tdev = _column(13, values)
+    counts = tscan._histogram_domain_tiles(tdev.tiles, 13, values.size)
+    assert counts.dtype == torch.int64
+    np.testing.assert_array_equal(counts.numpy().astype(np.uint64),
+                                  jstats.histogram_full(jdev, interpret=True))
+    np.testing.assert_array_equal(tstats.histogram_full(tdev), counts.numpy().astype(np.uint64))
+
+
+@pytest.mark.parametrize("width", [14, 16, 20])
+def test_domain_pass_matches_numpy(width):
+    # small ragged n (padding in the last block and tile), a value in the
+    # last window, a block_offset that moves n's tail
+    dom = 1 << width
+    for n in (1, 777, 8192 + 45):
+        values = np.random.default_rng(width + n).integers(0, dom, size=n).astype(np.uint32)
+        values[-1] = dom - 1
+        tdev = tlayout.pack_device(values, width, device="cpu")
+        counts = tscan._histogram_domain_tiles(tdev.tiles, width, n)
+        np.testing.assert_array_equal(counts.numpy(), np.bincount(values, minlength=dom))
+        np.testing.assert_array_equal(tstats.histogram_full(tdev), counts.numpy())
+    shifted = tscan._histogram_domain_tiles(tdev.tiles, width, n + 32 * 200, 200)
+    np.testing.assert_array_equal(shifted.numpy(), np.bincount(values, minlength=dom))
+    with pytest.raises(ValueError, match="widths 13..20"):
+        tscan._histogram_domain_tiles(tdev.tiles, 12, n)
 
 
 def test_refusals_match_jax():
