@@ -24,7 +24,7 @@ from the sources in the checkout and then:
    the unpacked values against the input;
 5. drives the arbitrary-key path at full size — a second 9-bit column of
    512 MiB packed with values ``i % 512``: ``shared_scan_device`` on spread
-   sets (static AND-DAG kernel), clustered sets (windowed kernel) and the
+   sets (static tier: the plane fold), clustered sets (windowed kernel) and the
    spread sets as CUDA tensors (runtime bit-sliced kernel), then
    ``windowed_scan_tiles`` on 64 keys (its chunked plan) — with the launch
    counters set to 0 just before and read just after, and checks that each
@@ -92,9 +92,13 @@ from the sources in the checkout and then:
     kernel's bound: its bytes over the card's 3.35 TB/s; each fused linear
     kernel also beside its two-pass composition (scan kernel, then the
     interleave kernel), the interleave beside the PyTorch call that gives
-    the same bytes (``.t().contiguous()``); and prints the registers,
-    shared memory and SASS instructions per value or per row (``cuobjdump
-    -sass``) of the bins kernel, the domain histogram and the static fold;
+    the same bytes (``.t().contiguous()``); the static tier and the member
+    OR-tree tier also on S64 of a 20-bit ``i % 512`` column of 512 MiB
+    packed (each held against its plain version and the closed-form
+    counts); and prints the registers, shared memory and SASS instructions
+    per value or per row (``cuobjdump -sass``) of the bins kernel, the
+    domain histogram, the static fold (linear and in tile order) and the
+    member lookup (bitmap and search);
 11. holds the benchmark's kernels against their plain versions at small
     ragged sizes (``memcpy`` at byte counts that are not multiples of 16,
     one stage of its ring +- 16 bytes, several stages plus a 7-byte tail,
@@ -153,80 +157,85 @@ S8 = [3, 70, 141, 200, 262, 333, 400, 511]
 W4 = [0, 2, 4, 6]
 W8 = [7, 6, 5, 4, 3, 2, 1, 0]
 
-KERNELS = {  # name -> (source, TPU kernel it replaces)
-    "unpack": ("shared_simd_scan_tpu_torch/csrc/unpack.cu",
+KERNELS = {  # name -> (source, its C entry point, TPU kernel it replaces)
+    "unpack": ("shared_simd_scan_tpu_torch/csrc/unpack.cu", "sss_unpack",
                "shared_simd_scan_tpu/ops/unpack.py:79"),
-    "pack": ("shared_simd_scan_tpu_torch/csrc/unpack.cu",
+    "pack": ("shared_simd_scan_tpu_torch/csrc/unpack.cu", "sss_pack",
              "shared_simd_scan_tpu/ops/unpack.py:139"),
-    "shared_scan": ("shared_simd_scan_tpu_torch/csrc/shared_scan.cu",
+    "shared_scan": ("shared_simd_scan_tpu_torch/csrc/shared_scan.cu", "sss_shared_scan",
                     "shared_simd_scan_tpu/ops/scan.py:70"),
-    "interval_scan": ("shared_simd_scan_tpu_torch/csrc/interval_scan.cu",
+    "interval_scan": ("shared_simd_scan_tpu_torch/csrc/interval_scan.cu", "sss_interval_scan",
                       "shared_simd_scan_tpu/ops/scan.py:1266"),
-    "shift_canary": ("shared_simd_scan_tpu_torch/csrc/interval_scan.cu",
+    "shift_canary": ("shared_simd_scan_tpu_torch/csrc/interval_scan.cu", "sss_shift_canary",
                      "shared_simd_scan_tpu/ops/scan.py:1336"),
-    "bitsliced_scan": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
+    "bitsliced_scan": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu", "sss_bitsliced_scan",
                        "shared_simd_scan_tpu/ops/scan.py:2357"),
     "bitsliced_static_scan": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
-                              "shared_simd_scan_tpu/ops/scan.py:2715"),
-    "windowed_scan": ("shared_simd_scan_tpu_torch/csrc/windowed.cu",
+                              "sss_bitsliced_static_fold", "shared_simd_scan_tpu/ops/scan.py:2715"),
+    "windowed_scan": ("shared_simd_scan_tpu_torch/csrc/windowed.cu", "sss_windowed_scan",
                       "shared_simd_scan_tpu/ops/scan.py:2980; "
                       "shared_simd_scan_tpu/ops/scan.py:2997"),
-    "range_scan": ("shared_simd_scan_tpu_torch/csrc/range_scan.cu",
+    "range_scan": ("shared_simd_scan_tpu_torch/csrc/range_scan.cu", "sss_range_scan",
                    "shared_simd_scan_tpu/ops/scan.py:1984"),
-    "conj_range_scan": ("shared_simd_scan_tpu_torch/csrc/conj.cu",
+    "conj_range_scan": ("shared_simd_scan_tpu_torch/csrc/conj.cu", "sss_conj_range_scan",
                         "shared_simd_scan_tpu/ops/conj.py:52"),
-    "member_compare": ("shared_simd_scan_tpu_torch/csrc/member.cu",
+    "member_compare": ("shared_simd_scan_tpu_torch/csrc/member.cu", "sss_member_compare",
                        "shared_simd_scan_tpu/ops/member.py:89"),
-    "member_chunked_compare": ("shared_simd_scan_tpu_torch/csrc/member.cu",
+    "member_chunked_compare": ("shared_simd_scan_tpu_torch/csrc/member.cu", "sss_member_compare",
                                "shared_simd_scan_tpu/ops/member.py:122"),
-    "member_window": ("shared_simd_scan_tpu_torch/csrc/member.cu",
+    "member_window": ("shared_simd_scan_tpu_torch/csrc/member.cu", "sss_member_window",
                       "shared_simd_scan_tpu/ops/member.py:107"),
-    "member_chunked_window": ("shared_simd_scan_tpu_torch/csrc/member.cu",
+    "member_chunked_window": ("shared_simd_scan_tpu_torch/csrc/member.cu", "sss_member_window",
                               "shared_simd_scan_tpu/ops/member.py:146"),
-    "member_domain": ("shared_simd_scan_tpu_torch/csrc/member.cu",
+    "member_domain": ("shared_simd_scan_tpu_torch/csrc/member.cu", "sss_member_domain",
                       "shared_simd_scan_tpu/ops/member.py:169"),
-    "member_ortree": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
+    "member_ortree": ("shared_simd_scan_tpu_torch/csrc/member.cu", "sss_member_lookup",
                       "shared_simd_scan_tpu/ops/member.py:250"),
-    "member_bitsliced": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
+    "member_bitsliced": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu", "sss_member_bitsliced",
                          "shared_simd_scan_tpu/ops/member.py:321"),
-    "aggregate_scan": ("shared_simd_scan_tpu_torch/csrc/aggregate.cu",
+    "aggregate_scan": ("shared_simd_scan_tpu_torch/csrc/aggregate.cu", "sss_agg_compare",
                        "shared_simd_scan_tpu/ops/aggregate.py:55"),
     "aggregate_bitplane_static": ("shared_simd_scan_tpu_torch/csrc/agg_bitplane.cu",
+                                  "sss_agg_bitplane_static",
                                   "shared_simd_scan_tpu/ops/aggregate.py:233"),
-    "aggregate_bitplane": ("shared_simd_scan_tpu_torch/csrc/agg_bitplane.cu",
+    "aggregate_bitplane": ("shared_simd_scan_tpu_torch/csrc/agg_bitplane.cu", "sss_agg_bitplane",
                            "shared_simd_scan_tpu/ops/aggregate.py:258"),
-    "minmax_scan": ("shared_simd_scan_tpu_torch/csrc/aggregate.cu",
+    "minmax_scan": ("shared_simd_scan_tpu_torch/csrc/aggregate.cu", "sss_agg_compare",
                     "shared_simd_scan_tpu/ops/aggregate.py:480"),
-    "masked_aggregate": ("shared_simd_scan_tpu_torch/csrc/aggregate.cu",
+    "masked_aggregate": ("shared_simd_scan_tpu_torch/csrc/aggregate.cu", "sss_masked_agg",
                          "shared_simd_scan_tpu/ops/aggregate.py:671"),
-    "histogram": ("shared_simd_scan_tpu_torch/csrc/histogram.cu",
+    "histogram": ("shared_simd_scan_tpu_torch/csrc/histogram.cu", "sss_histogram",
                   "shared_simd_scan_tpu/ops/scan.py:1553"),
-    "histogram_dag": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
+    "histogram_dag": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu", "sss_histogram_dag",
                       "shared_simd_scan_tpu/ops/scan.py:1716"),
-    "histogram_span": ("shared_simd_scan_tpu_torch/csrc/histogram.cu",
+    "histogram_span": ("shared_simd_scan_tpu_torch/csrc/histogram.cu", "sss_histogram_span",
                        "shared_simd_scan_tpu/ops/scan.py:1816"),
     # stats.histogram_full's windows of _histogram_tiles_impl (stats.py:67)
-    "histogram_domain": ("shared_simd_scan_tpu_torch/csrc/histogram.cu",
+    "histogram_domain": ("shared_simd_scan_tpu_torch/csrc/histogram.cu", "sss_histogram_domain",
                          "shared_simd_scan_tpu/ops/scan.py:1667"),
-    "zoned_range_scan": ("shared_simd_scan_tpu_torch/csrc/zoned.cu",
+    "zoned_range_scan": ("shared_simd_scan_tpu_torch/csrc/zoned.cu", "sss_zoned_range_scan",
                          "shared_simd_scan_tpu/zonemap.py:298"),
     "interval_scan_linear": ("shared_simd_scan_tpu_torch/csrc/interval_scan.cu",
-                             "shared_simd_scan_tpu/ops/scan.py:618"),
+                             "sss_interval_scan_linear", "shared_simd_scan_tpu/ops/scan.py:618"),
     "static_scan_linear": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
+                           "sss_bitsliced_static_scan_linear",
                            "shared_simd_scan_tpu/ops/scan.py:854"),
     "bitsliced_scan_linear": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
-                              "shared_simd_scan_tpu/ops/scan.py:1025"),
-    "interleave": ("shared_simd_scan_tpu_torch/csrc/linear.cu",
+                              "sss_bitsliced_scan_linear", "shared_simd_scan_tpu/ops/scan.py:1025"),
+    "interleave": ("shared_simd_scan_tpu_torch/csrc/linear.cu", "sss_interleave",
                    "shared_simd_scan_tpu/ops/linear.py:339"),
-    "interleave_streams": ("shared_simd_scan_tpu_torch/csrc/linear.cu",
+    "interleave_streams": ("shared_simd_scan_tpu_torch/csrc/linear.cu", "sss_interleave",
                            "shared_simd_scan_tpu/ops/linear.py:201"),
-    "memcpy": ("shared_simd_scan_tpu_torch/csrc/copy.cu",
+    "memcpy": ("shared_simd_scan_tpu_torch/csrc/copy.cu", "sss_copy",
                "shared_simd_scan_tpu/bench/harness.py:170"),
     "shared_scan_chunked": ("shared_simd_scan_tpu_torch/csrc/shared_scan.cu",
-                            "shared_simd_scan_tpu/ops/scan.py:2192"),
+                            "sss_shared_scan_chunked", "shared_simd_scan_tpu/ops/scan.py:2192"),
     "shared_scan_dynamic": ("shared_simd_scan_tpu_torch/csrc/shared_scan.cu",
-                            "shared_simd_scan_tpu/ops/scan.py:2089"),
+                            "sss_shared_scan_dynamic", "shared_simd_scan_tpu/ops/scan.py:2089"),
 }
+# the kernels also timed on S64 of a 20-bit i % 512 column (the lookup's
+# search past width 16; the static fold's 20 planes)
+WIDTH20 = ("bitsliced_static_scan", "member_ortree")
 # the kernels of the arbitrary-key path, and the tier each one serves
 ARBITRARY = {"bitsliced_static_scan": "bitsliced_static", "windowed_scan": "windowed",
              "bitsliced_scan": None}
@@ -383,6 +392,8 @@ def build_phase() -> float:
     _cuda.lib()
     seconds = time.monotonic() - t0
     print(f"build: {seconds:.1f} s ({_cuda.library_path().name})")
+    for name, (_, c_entry, _) in KERNELS.items():
+        check(c_entry in _cuda._SIGNATURES, f"{name}: its entry point {c_entry} is in the library")
     log_path = _cuda.BUILD_DIR / "ptxas.log"
     log_path.write_text(_cuda.build_log)
     # registers and spills of the width-9 kernels (the main path's width),
@@ -618,7 +629,7 @@ def arbitrary_key_phase(device) -> tuple[object, dict]:
     bits_s64 = outs["S64"][0]
     check(bool((scan.bits_to_canonical(chunked[0], n) == bits_s64).all())
           and bool((chunked[1] == outs["S64"][1]).all()),
-          "chunked windowed S64 == static AND-DAG S64, every word")
+          "chunked windowed S64 == static fold S64, every word")
     del outs, chunked, bits_s64
     for name, keys in sets:
         check(harness.check_shared_scan(dev, keys, vals),
@@ -721,6 +732,58 @@ def timing_phase(device, n: int, dev, arb, errs: dict) -> dict:
               f", bound {bound_ms:.6f} ms for {traffic[name]} bytes)"
               + (f"; plain {plain_ms:.6f} ms" if plain_ms is not None else ""))
     print("library: no PyTorch call scans a bit-packed column, so library_ms is null")
+    kernel_report({"static_fold_kernelILi9ENS_10DeviceKeysELi1E": "static fold, width 9"})
+    return results
+
+
+def width20_phase(device, errs: dict) -> dict:
+    """S64 on a 20-bit ``i % 512`` column of 512 MiB packed: the static
+    tier (the fold over 20 planes) and the member OR-tree tier (the
+    lookup's search, past the bitmap's 16 bits), each held against its
+    plain version and the closed-form counts, then timed."""
+    import torch
+    from shared_simd_scan_tpu_torch.bench import harness
+    from shared_simd_scan_tpu_torch.layout import LANES
+    from shared_simd_scan_tpu_torch.ops import member, scan, unpack
+
+    width = 20
+    n = harness.values_for(DATA_SIZE, width)
+    tiles = unpack.pack_device_kernel(harness.synth_modk(n, DOMAIN, width, device=device),
+                                      width).tiles
+    keys = s64()
+    nblocks = tiles.shape[1] * LANES
+    tile_bytes = tiles.numel() * 4
+    expect = [(n - 1 - key) // DOMAIN + 1 for key in keys]
+    pairs = {  # name -> (kernel, plain, bytes it must move, closed-form counts)
+        "bitsliced_static_scan w20 S64": (
+            lambda: scan.shared_scan_bitsliced_static_tiles(tiles, keys, width, n),
+            lambda: scan.shared_scan_bitsliced_static_tiles_plain(tiles, keys, width, n),
+            tile_bytes + len(keys) * (nblocks * 4 + 8 + 4), expect),
+        "member_ortree w20 S64": (
+            lambda: member._member_ortree_tiles(tiles, width, n, tuple(keys)),
+            lambda: member._member_ortree_tiles_plain(tiles, width, n, tuple(keys)),
+            tile_bytes + nblocks * 4 + 8, [sum(expect)]),
+    }
+    print(f"width-20 phase: n {n}, values i % {DOMAIN}, S64")
+    results = {}
+    for name, (kern, plain, nbytes, counts) in pairs.items():
+        kernel = name.split()[0]
+        a, p = kern(), plain()
+        errs[kernel] = max(errs[kernel], max_err(a, p))
+        check(a[1].reshape(-1).tolist() == counts, f"{name}: counts == closed form")
+        del a, p
+        check(errs[kernel] == 0, f"{name} kernel bit-exact against its plain version at full size")
+        ms = time_ms(kern, batches=5, calls=10)
+        plain_ms = time_ms(plain, batches=3, calls=2)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        results[name] = (ms, plain_ms, bound_ms)
+        print(f"time {name}: kernel {ms:.6f} ms (bound {bound_ms:.6f} ms for {nbytes} bytes, "
+              f"{bound_ms / ms:.4f} of it); plain {plain_ms:.6f} ms")
+    kernel_report({"static_fold_kernelILi20ENS_10DeviceKeysELi1E": "static fold, width 20",
+                   "member_lookup_kernelILi20ELi1E": "member lookup, search in shared memory, "
+                                                     "width 20"})
+    del tiles
+    torch.cuda.empty_cache()
     return results
 
 
@@ -728,8 +791,10 @@ def member_bodies(width: int, n: int, values, rng) -> list:
     """(kernel name, call) for the seven member bodies on small columns:
     call(fn, tiles, block_offset) runs the body's wrapper or plain version
     ``fn`` on duplicate, out-of-domain and zero keys, clustered and
-    out-of-domain windows, a spread OR-tree, the whole domain and an
-    all-out-of-domain set."""
+    out-of-domain windows, a spread OR-tree set (the lookup's bitmap up
+    to width 16, its search past it), the whole domain, an
+    all-out-of-domain set and, past width 17, a set of 4097 windows (the
+    search table read from device memory)."""
     import numpy as np
     import torch
     from shared_simd_scan_tpu_torch.ops import member
@@ -766,6 +831,9 @@ def member_bodies(width: int, n: int, values, rng) -> list:
     ]
     if width <= 9:  # the whole domain: an all-ones row, tail masked
         bodies.append(("member_ortree", lambda fn, t, bo: fn(t, width, n, tuple(range(dom)), bo)))
+    if width > 17:  # 4097 windows: the lookup's search table read from device memory
+        wide = tuple(range(0, 32 * 4097, 32)) + (v[2],)
+        bodies.append(("member_ortree", lambda fn, t, bo: fn(t, width, n, wide, bo)))
     if width <= member.MAX_DOMAIN_WIDTH:
         bodies.append(("member_domain", lambda fn, t, bo: fn(t, keys, width, n, bo)))
         bodies.append(("member_domain", lambda fn, t, bo: fn(t, many, width, n, bo)))
@@ -1110,6 +1178,7 @@ def query_timing_phase(device, cols, arb, errs: dict) -> dict:
     ms = time_ms(composed, batches=5, calls=10)
     print(f"time Q1 conjunction composed (2 range scans + AND): {ms:.6f} ms, against "
           f"{results['conj_range_scan m=2'][0]:.6f} ms fused")
+    kernel_report({"member_lookup_kernelILi9ELi0E": "member lookup, bitmap, width 9"})
     q1 = query_trees(query, cols)["Q1"]
     walls = []
     for _ in range(6):
@@ -2106,7 +2175,7 @@ def linear_timing_phase(device, dev, arb, errs: dict) -> tuple[dict, dict]:
               f"{other_ms:.6f} ms" + ("" if body is None else
                                      f"; scan body alone {extras[name]['body_ms']:.6f} ms"))
     print("the static fold (width 9):")
-    kernel_report({"static_fold_linear_kernelILi9E": "static fold, width 9"})
+    kernel_report({"static_fold_kernelILi9ENS_10LinearKeysELi0E": "static linear fold, width 9"})
     del bits8, bits6, streams
     torch.cuda.empty_cache()
     return times, extras
@@ -2392,6 +2461,7 @@ def main() -> int:
     # (7.1 GiB): free the query, aggregate and zone-map data before it
     del cols, agg_data, zdata
     torch.cuda.empty_cache()
+    times.update(width20_phase(device, errs))
     print(f"before the linear timing phase: {torch.cuda.memory_allocated()} bytes allocated, "
           f"{torch.cuda.memory_reserved()} reserved")
     linear_times, extras = linear_timing_phase(device, dev, arb, errs)
@@ -2405,7 +2475,7 @@ def main() -> int:
     print(f"bench phases ran in {time.monotonic() - t0:.1f} s")
     check("jax" not in sys.modules, "no jax module was imported")
 
-    def entry(name, src, rep):
+    def entry(name, src, c_entry, rep):
         # the arbitrary-key kernels report k=8 (S8) and, beside it, k=64
         # (S64); each query-path kernel its own set, the OR-tree S8 and S64;
         # each aggregate kernel its set of the aggregate phase and, beside
@@ -2420,7 +2490,7 @@ def main() -> int:
         else:
             key = name if name in times else next(k for k in times if k.split()[0] == name)
         ms, plain_ms, bound_ms = times[key]
-        e = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+        e = {"name": name, "route": "cuda", "source": src, "kernel": c_entry, "replaces": rep,
              "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
              "library_ms": library.get(name)}
@@ -2442,6 +2512,9 @@ def main() -> int:
                 times[f"{name} {label}"]
         if name == "member_ortree":
             e["ms_s64"], e["plain_ms_s64"], e["bound_ms_s64"] = times["member_ortree S64"]
+        if name in WIDTH20:
+            e["ms_w20_s64"], e["plain_ms_w20_s64"], e["bound_ms_w20_s64"] = \
+                times[f"{name} w20 S64"]
         if name in AGGREGATE:
             for other, (ms_o, plain_o, bound_o) in times.items():
                 kernel, _, label = other.partition(" ")
@@ -2451,7 +2524,7 @@ def main() -> int:
         return e
 
     print(f"nvidia-smi: {smi}")
-    print(json.dumps({"kernels": [entry(name, src, rep) for name, (src, rep) in KERNELS.items()]}))
+    print(json.dumps({"kernels": [entry(name, *spec) for name, spec in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

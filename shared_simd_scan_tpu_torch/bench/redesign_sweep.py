@@ -2,11 +2,12 @@
 
     python -m shared_simd_scan_tpu_torch.bench.redesign_sweep [SECTION ...]
 
-SECTION is any of copy, chunked, dynamic, bins, domain, fold (default:
-all).  Builds ``redesign_sweep.cu`` (copy, chunked, dynamic) and
-``redesign_sweep_bins_fold.cu`` (bins, domain, fold), beside this file,
-with nvcc into the package's ``_build/`` (the two in parallel) and prints
-its registers and shared memory per kernel.  Then, with CUDA events (the
+SECTION is any of copy, chunked, dynamic, bins, domain, fold, static,
+ortree (default: all).  Builds ``redesign_sweep.cu`` (copy, chunked,
+dynamic), ``redesign_sweep_bins_fold.cu`` (bins, domain, fold) and
+``redesign_sweep_static_member.cu`` (static, ortree), beside this file,
+with nvcc into the package's ``_build/`` (in parallel) and prints their
+registers and shared memory per kernel.  Then, with CUDA events (the
 median of 5 batches of 10 calls, each variant timed twice, in one order
 and then in the reverse one):
 
@@ -58,7 +59,29 @@ and then in the reverse one):
   kernel parameters at 256 and 128 threads, in constant memory, read from
   device memory), and the package's ``_static_linear_tiles_impl`` and
   runtime-key ``_bitsliced_linear_tiles_impl``; every variant's words
-  equal to the interpreter's and its counts to the closed form first.
+  equal to the interpreter's and its counts to the closed form first;
+- static: the static tier (one row per host key, in tile order) on
+  ``i % 512`` columns of 512 MiB packed at widths 9 (S8, 16 and 32 keys,
+  S64, S256), 20 (S8, S64) and 31 (S8, S64, and 1024 keys of 0..511 with
+  duplicates): the DAG
+  interpreter it replaced against the plane fold with its masks in shared
+  memory at 128 and 256 threads a CTA (at 1024 keys and width 31 also with
+  its masks staged in chunks of 16, 32, 64 KB or all at once), the
+  package's ``shared_scan_bitsliced_static_tiles``, row 14's lookup
+  ``shared_scan_chunked_tiles`` and row 15's runtime fold
+  ``shared_scan_bitsliced_tiles`` on the same keys as a CUDA tensor; every
+  variant's bits equal to the interpreter's and its counts to the closed
+  form first;
+- ortree: the member OR-tree tier's one row on the same columns: at width
+  9 S8, S64, S256 and the whole domain, at width 20 S64 and the OR-tree
+  tier's largest set of a sweep of host key sets (widths 9-31, k 33-3000,
+  spread and clustered, through ``member_dispatch_tier``; its tiers and
+  largest sets printed): the DAG interpreter on the OR-tree program it
+  replaced, the set as a plane fold (masks in shared memory, rows ORed) at
+  128 and 256 threads, the package's ``_member_ortree_tiles`` (the lookup:
+  the bitmap, or the search in shared memory), the search read from device
+  memory, and ``_member_domain_tiles`` (width 9); every variant's words
+  equal to the interpreter's and its count to the closed form first.
 
 The bins and fold sections also print, from ``cuobjdump -sass`` of the
 sweep's library, the instructions of each width-9 kernel's basic blocks
@@ -90,7 +113,8 @@ from shared_simd_scan_tpu_torch.ops.unpack import pack_device_kernel
 
 SOURCE = pathlib.Path(__file__).with_name("redesign_sweep.cu")
 BINS_FOLD_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_bins_fold.cu")
-SECTIONS = ("copy", "chunked", "dynamic", "bins", "domain", "fold")
+STATIC_MEMBER_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_static_member.cu")
+SECTIONS = ("copy", "chunked", "dynamic", "bins", "domain", "fold", "static", "ortree")
 COPY_BYTES = 512 * 1024 * 1024
 COPY_NAMES = {0: "batch (8 loads, then 8 stores)", 1: "pipelined 4", 2: "pipelined 8",
               3: "ring 16 KB x 4, resident grid", 4: "ring 32 KB x 4, resident grid",
@@ -118,10 +142,31 @@ SASS_KERNELS = {"bins_baseline_kernelILi9E": "bins before the redesign",
                 "histogram_domain_kernelILi20EyLb1E": "domain (width 20), the package's",
                 "histogram_domain_kernelILi20EyLb0E": "domain (width 20) without merging",
                 "static_linear_baseline_kernelILi9E": "fold before the redesign",
-                "static_fold_linear_kernelILi9E": "fold, the package's",
+                "static_fold_kernelILi9ENS_10LinearKeysELi0E": "fold, the package's",
                 "fold_linear_kernelILi9ENS_10LinearKeys": "fold, parameter keys",
                 "fold_linear_kernelILi9ENS_10DeviceKeys": "fold, device keys",
                 "fold_linear_kernelILi9ENS_9ConstKeys": "fold, constant-memory keys",
+}
+STATIC_NAMES = {0: "the DAG interpreter before the redesign",
+                1: "fold, 128 threads, masks up to 48 KB (the package's)",
+                2: "fold, 256 threads, masks up to 48 KB"}
+CHUNK_NAMES = {3: "fold, 128 threads, masks in chunks of 16 KB",
+               4: "fold, 128 threads, masks in chunks of 32 KB",
+               5: "fold, 128 threads, masks in chunks of 64 KB",
+               6: "fold, 128 threads, all masks at once (128 KB)",
+               7: "fold, 256 threads, masks in chunks of 16 KB",
+               8: "fold, 256 threads, masks in chunks of 32 KB",
+               9: "fold, 256 threads, masks in chunks of 64 KB",
+               10: "fold, 256 threads, all masks at once (128 KB)"}
+MEMBER_NAMES = {0: "the DAG interpreter on the OR-tree program, before the redesign",
+                1: "the set as a plane fold, 128 threads", 2: "the set as a plane fold, 256 threads",
+                3: "the lookup, its search table in device memory"}
+STATIC_MEMBER_SASS = {
+    "static_fold_kernelILi9ENS_10DeviceKeysELi1E": "static fold in tile order (width 9)",
+    "interpreter_baseline_kernelILi9E": "the interpreter before the redesign (width 9)",
+    "member_lookup_kernelILi9ELi0E": "member lookup, bitmap (width 9)",
+    "member_lookup_kernelILi20ELi1E": "member lookup, search in shared memory (width 20)",
+    "member_fold_kernelILi9E": "member as a plane fold (width 9)",
 }
 WIDTH, DOMAIN = 9, 512
 HBM_BYTES_PER_S = 3.35e12
@@ -148,6 +193,9 @@ def _libraries(sources: list) -> dict:
         BINS_FOLD_SOURCE: {"sweep_bins": [i, vp, vp, i, vp, ll, i, ll, vp],
                            "sweep_domain": [i, vp, vp, ll, i, ll, vp],
                            "sweep_fold": [i, vp, vp, vp, vp, i, i, i, i, vp, vp, ll, i, ll, vp]},
+        STATIC_MEMBER_SOURCE: {"sweep_static": [i, i, vp, vp, i, vp, i, i, vp, vp, ll, ll, vp],
+                               "sweep_member": [i, i, vp, vp, i, vp, i, i, vp, i, vp, vp, ll, ll,
+                                                vp]},
     }
     libs = {}
     for source, (path, log) in built.items():
@@ -167,7 +215,7 @@ def _resources(log: str) -> list[str]:
             entry = m.group(1)
         elif entry and "Used" in line and any(
                 w in entry for w in ("copy", "chunked", "dynamic", "bins", "histogram", "domain",
-                                     "fold", "static_linear")):
+                                     "fold", "static_linear", "interpreter", "lookup")):
             lines.append(f"  {entry}: {line.split(':', 1)[-1].strip()}")
     return lines
 
@@ -565,6 +613,173 @@ def fold_sweep(lib, device, tiles, n: int) -> None:
         torch.cuda.empty_cache()
 
 
+def _column(device, width: int) -> tuple:
+    """(tiles, n) of the ``i % 512`` column of 512 MiB packed at ``width``."""
+    n = harness.values_for(512 * 1024 * 1024, width)
+    return pack_device_kernel(harness.synth_modk(n, DOMAIN, width, device=device), width).tiles, n
+
+
+def _closed_counts(keys, n: int) -> list:
+    """Each key's count on the ``i % 512`` column of n values."""
+    return [(n - 1 - key) // DOMAIN + 1 if key < DOMAIN else 0 for key in keys]
+
+
+def static_sweep(lib, device, columns: dict) -> None:
+    """The static tier's designs on the i % 512 columns of ``columns``
+    (width -> (tiles, n))."""
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(11)
+    s8 = [3, 70, 141, 200, 262, 333, 400, 511]
+    s64 = sorted(np.random.default_rng(3).choice(DOMAIN, 64, replace=False).tolist())
+    sets = [(9, "S8", s8), (9, "S16", sorted(rng.choice(DOMAIN, 16, replace=False).tolist())),
+            (9, "S32", sorted(rng.choice(DOMAIN, 32, replace=False).tolist())), (9, "S64", s64),
+            (9, "S256", sorted(np.random.default_rng(4).choice(DOMAIN, 256, replace=False).tolist())),
+            (20, "S8", s8), (20, "S64", s64), (31, "S8", s8), (31, "S64", s64),
+            (31, "k=1024", rng.integers(0, DOMAIN, 1024).tolist())]
+    for width, label, keys in sets:
+        tiles, n = columns[width]
+        nblocks = tiles.shape[1] * LANES
+        k = len(keys)
+        kt = torch.tensor(keys, dtype=torch.int32, device=device)
+        prog_np, slots = scan._static_program(width, tuple(keys))
+        prog = torch.from_numpy(prog_np).to(device)
+        expect = torch.tensor(_closed_counts(keys, n), device=device)
+        bits = torch.empty((k, tiles.shape[1], LANES), dtype=torch.int32, device=device)
+        counts = torch.zeros(k, dtype=torch.int64, device=device)
+        names = {**STATIC_NAMES, **(CHUNK_NAMES if k > 256 else {})}
+
+        def variant(v):
+            counts.zero_()
+            rc = lib.sweep_static(v, width, tiles.data_ptr(), kt.data_ptr(), k, prog.data_ptr(),
+                                  prog.shape[0], slots, bits.data_ptr(), counts.data_ptr(), nblocks,
+                                  n, stream)
+            if rc:
+                raise RuntimeError(f"static variant {v}: CUDA error {rc}")
+
+        variant(0)
+        ref = bits.clone()
+        _check(torch.equal(counts, expect), f"static {label} w={width}: {names[0]}'s counts")
+        for v in list(names)[1:]:
+            bits.zero_()
+            variant(v)
+            _check(torch.equal(bits, ref) and torch.equal(counts, expect),
+                   f"static {label} w={width}: {names[v]} differs from {names[0]}")
+        packaged = {
+            "shared_scan_bitsliced_static_tiles": lambda: scan.shared_scan_bitsliced_static_tiles(
+                tiles, keys, width, n),
+            "row 14: shared_scan_chunked_tiles (CUDA keys)":
+                lambda: scan.shared_scan_chunked_tiles(tiles, kt, width, n),
+            "row 15: shared_scan_bitsliced_tiles (CUDA keys)":
+                lambda: scan.shared_scan_bitsliced_tiles(tiles, kt, width, n)}
+        for name, fn in packaged.items():
+            got = fn()
+            _check(torch.equal(got[0], ref) and torch.equal(got[1], expect),
+                   f"static {label} w={width}: {name} differs from {names[0]}")
+            del got
+        del ref
+        print(f"static {label} at width {width}: the interpreter's program has {prog.shape[0]} "
+              f"instructions ({prog.shape[0] / k:.2f} a row), {slots} slots")
+        calls = {names[v]: (lambda v=v: variant(v)) for v in names}
+        calls.update(packaged)
+        bound = (tiles.numel() * 4 + k * (nblocks * 4 + 8 + 4)) / HBM_BYTES_PER_S * 1e3
+        _report(f"static {label} at width {width} (k={k})", _in_turns(calls), bound)
+        del bits
+        torch.cuda.empty_cache()
+
+
+def ortree_edge() -> dict:
+    """The member dispatcher's tiers over a sweep of host key sets (widths
+    9-31, k 33-3000, spread and clustered in 32-aligned windows); prints
+    the tiers and returns width -> (windows, keys) of the OR-tree tier's
+    largest set at each width past MAX_DOMAIN_WIDTH."""
+    from shared_simd_scan_tpu_torch.ops import member
+
+    tiers: dict = {}
+    largest: dict = {}
+    for width in (9, 13, 17, 20, 24, 28, 31):
+        for k in (33, 64, 128, 256, 512, 1000, 2000, 3000):
+            if k > 1 << width:
+                continue
+            rng = np.random.default_rng(width * 7 + k)
+            nwin = min(max(1, k // 8), 1 << (width - 5))
+            bases = rng.choice(1 << (width - 5), nwin, replace=False)
+            sets = {"spread": rng.choice(1 << width, k, replace=False),
+                    "clustered": bases[rng.integers(0, nwin, k)] * 32 + rng.integers(0, 32, k)}
+            for kind, keys in sets.items():
+                keys = np.asarray(keys, np.uint32)
+                tier = member.member_dispatch_tier(keys, width)
+                tiers[tier] = tiers.get(tier, 0) + 1
+                wins = len(member.member_window_plan(keys)[0])
+                if tier == "ortree" and width > member.MAX_DOMAIN_WIDTH and \
+                        wins > largest.get(width, (0,))[0]:
+                    largest[width] = (wins, keys.tolist())
+    print(f"ortree edge: tiers of {sum(tiers.values())} host key sets: {tiers}; the OR-tree "
+          f"tier's largest set past width {member.MAX_DOMAIN_WIDTH}: "
+          + ", ".join(f"width {w}: {wins} windows ({len(keys)} keys)"
+                      for w, (wins, keys) in sorted(largest.items())))
+    return largest
+
+
+def ortree_sweep(lib, device, columns: dict) -> None:
+    """The member OR-tree body's designs on the i % 512 columns of
+    ``columns`` (width -> (tiles, n))."""
+    from shared_simd_scan_tpu_torch.ops import member
+
+    stream = torch.cuda.current_stream().cuda_stream
+    largest = ortree_edge()
+    s64 = sorted(np.random.default_rng(3).choice(DOMAIN, 64, replace=False).tolist())
+    sets = [(9, "S8", [3, 70, 141, 200, 262, 333, 400, 511]), (9, "S64", s64),
+            (9, "S256", sorted(np.random.default_rng(4).choice(DOMAIN, 256, replace=False).tolist())),
+            (9, "whole domain", list(range(DOMAIN))), (20, "S64", s64),
+            (20, f"the largest OR-tree set ({largest[20][0]} windows)", largest[20][1])]
+    for width, label, keys in sets:
+        tiles, n = columns[width]
+        nblocks = tiles.shape[1] * LANES
+        pats = tuple(sorted(set(keys)))
+        kt = torch.tensor(pats, dtype=torch.int32, device=device)
+        prog_np, slots = scan._member_program(width, pats)
+        prog = torch.from_numpy(prog_np).to(device)
+        table = member.member_set_table(width, pats).to(device)
+        expect = sum(_closed_counts(pats, n))
+        bits = torch.empty((1, tiles.shape[1], LANES), dtype=torch.int32, device=device)
+        counts = torch.zeros(1, dtype=torch.int64, device=device)
+        names = {v: name for v, name in MEMBER_NAMES.items() if v != 3 or width > 16}
+
+        def variant(v):
+            counts.zero_()
+            rc = lib.sweep_member(v, width, tiles.data_ptr(), kt.data_ptr(), len(pats),
+                                  prog.data_ptr(), prog.shape[0], slots, table.data_ptr(),
+                                  table.shape[-1], bits.data_ptr(), counts.data_ptr(), nblocks, n,
+                                  stream)
+            if rc:
+                raise RuntimeError(f"member variant {v}: CUDA error {rc}")
+
+        variant(0)
+        ref = bits[0].clone()
+        _check(int(counts[0]) == expect, f"ortree {label} w={width}: {names[0]}'s count")
+        for v in list(names)[1:]:
+            bits.zero_()
+            variant(v)
+            _check(torch.equal(bits[0], ref) and int(counts[0]) == expect,
+                   f"ortree {label} w={width}: {names[v]} differs from {names[0]}")
+        packaged = {"_member_ortree_tiles (the lookup)":
+                    lambda: member._member_ortree_tiles(tiles, width, n, pats)}
+        if width <= member.MAX_DOMAIN_WIDTH:
+            packaged["_member_domain_tiles"] = lambda: member._member_domain_tiles(
+                tiles, kt, width, n)
+        for name, fn in packaged.items():
+            got = fn()
+            _check(torch.equal(got[0], ref) and int(got[1]) == expect,
+                   f"ortree {label} w={width}: {name} differs from {names[0]}")
+        print(f"ortree {label} at width {width}: the interpreter's program has "
+              f"{prog.shape[0]} instructions, {slots} slots; the lookup's table "
+              f"{tuple(table.shape)}")
+        calls = {names[v]: (lambda v=v: variant(v)) for v in names}
+        calls.update(packaged)
+        bound = (tiles.numel() * 4 + nblocks * 4 + 8) / HBM_BYTES_PER_S * 1e3
+        _report(f"ortree {label} at width {width} (k={len(pats)})", _in_turns(calls), bound)
+
+
 def main(sections) -> None:
     unknown = set(sections) - set(SECTIONS)
     if unknown:
@@ -577,7 +792,8 @@ def main(sections) -> None:
     print(f"nvidia-smi: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     sources = [src for src, names in ((SOURCE, ("copy", "chunked", "dynamic")),
-                                      (BINS_FOLD_SOURCE, ("bins", "domain", "fold")))
+                                      (BINS_FOLD_SOURCE, ("bins", "domain", "fold")),
+                                      (STATIC_MEMBER_SOURCE, ("static", "ortree")))
                if set(names) & set(sections)]
     libs = _libraries(sources)
     print("ptxas:")
@@ -591,9 +807,21 @@ def main(sections) -> None:
         print(f"CTAs an SM at width {WIDTH} (occupancy calculator): {ctas}")
     if "copy" in sections:
         copy_sweep(libs[SOURCE][0], device)
-    if {"chunked", "dynamic", "fold"} & set(sections):
+    if {"chunked", "dynamic", "fold", "static", "ortree"} & set(sections):
         tiles = pack_device_kernel(harness.synth_modk(n, DOMAIN, WIDTH, device=device),
                                    WIDTH).tiles
+    if STATIC_MEMBER_SOURCE in libs:
+        lib, path, _ = libs[STATIC_MEMBER_SOURCE]
+        print("sass of the static and member kernels (cuobjdump -sass):")
+        sass_report(path, STATIC_MEMBER_SASS)
+        columns = {9: (tiles, n), 20: _column(device, 20)}
+        if "static" in sections:
+            columns[31] = _column(device, 31)
+            static_sweep(lib, device, columns)
+        if "ortree" in sections:
+            ortree_sweep(lib, device, columns)
+        del columns
+        torch.cuda.empty_cache()
     if "chunked" in sections:
         scan_sweep("chunked scan", libs[SOURCE][0].sweep_chunked, CHUNKED_NAMES, ABLATION_NAMES,
                    {"shared_scan_chunked_tiles": scan.shared_scan_chunked_tiles}, tiles, n)
@@ -610,7 +838,7 @@ def main(sections) -> None:
         if "fold" in sections:
             fold_sweep(lib, device, tiles, n)
         if "domain" in sections:
-            if {"chunked", "dynamic", "fold"} & set(sections):
+            if {"chunked", "dynamic", "fold", "static", "ortree"} & set(sections):
                 del tiles
                 torch.cuda.empty_cache()
             domain_sweep(lib, device, n)

@@ -279,8 +279,8 @@ extern "C" int sweep_fold(int variant, const uint32_t* tiles, const uint32_t* ke
                                               stream);
     case 2:
     case 3:
-      return (int)sss::launch_static_fold<9>(tiles, hk, k, out, counts, nblocks, n, 0,
-                                             variant == 2 ? 256 : 128, stream);
+      return (int)sss::launch_static_fold<9, sss::LinearKeys, sss::kFoldLinear>(
+          tiles, hk, k, k, out, counts, nblocks, n, 0, variant == 2 ? 256 : 128, stream);
     case 4:
     case 5:
       return (int)sss::launch_fold_linear<9>(tiles, hk, k, out, counts, nblocks, n, 0,

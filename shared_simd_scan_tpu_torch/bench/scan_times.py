@@ -4,15 +4,17 @@
 
 Imports ``shared_simd_scan_tpu_torch`` from ROOT (default: the checkout
 holding this file), builds its kernels, and times with CUDA events the
-interval kernel (keys 0..7 on ``i % 8``), the runtime bit-sliced and static
-AND-DAG kernels (S8 and S64 on ``i % 512``), the chunked and dynamic scans
-(S64 and S256 as CUDA keys), the chunked histogram program (lo 100, k 40),
-the host-lo span tier (H1: lo 0, k 512, as ``histogram_device`` sends a
-9-bit column), the runtime-lo bins kernel (H3: lo 0, k 512; and lo 100, k
-256), the full-domain histogram of a uniform 20-bit column (H5: one pass
+interval kernel (keys 0..7 on ``i % 8``), the runtime bit-sliced kernel and
+the static tier (S8 and S64 on ``i % 512``), the member OR-tree tier
+(``_member_ortree_tiles``, S8 and S64 on ``i % 512``), the chunked and
+dynamic scans (S64 and S256 as CUDA keys), the chunked histogram program
+(lo 100, k 40), the host-lo span tier (H1: lo 0, k 512, as
+``histogram_device`` sends a 9-bit column), the runtime-lo bins kernel
+(H3: lo 0, k 512; and lo 100, k 256), the full-domain histogram of a uniform 20-bit column (H5: one pass
 of ``_histogram_domain_tiles`` where the checkout has it, else the 256
 windows of ``histogram_tiles`` that ``stats.histogram_full`` launched), and
-the static linear export (L2: S8, L4: S64, L6: S64 as eight groups of 8)
+the linear export (L1: keys 0..7 on ``i % 8``; L2: S8, L4: S64 and L6:
+S64 as eight groups of 8, host keys; L3: S8 as CUDA keys)
 at the reference benchmark's n = 477,218,588; and, on the host clock,
 ``stats.describe``, ``quantiles`` and ``topk_values`` of the ``i % 512``
 column together (three span histograms) and ``stats.histogram_full`` of
@@ -59,7 +61,7 @@ def main(root: pathlib.Path) -> None:
 
     from shared_simd_scan_tpu_torch import layout, stats
     from shared_simd_scan_tpu_torch.bench import harness
-    from shared_simd_scan_tpu_torch.ops import _cuda, scan, unpack
+    from shared_simd_scan_tpu_torch.ops import _cuda, member, scan, unpack
 
     if not pathlib.Path(_cuda.__file__).resolve().is_relative_to(root):
         raise SystemExit(f"imported {_cuda.__file__}, not the checkout at {root}")
@@ -95,6 +97,8 @@ def main(root: pathlib.Path) -> None:
         "bitsliced S64": lambda: scan.shared_scan_bitsliced_tiles(atiles, cuda[64], 9, n),
         "static S8": lambda: scan.shared_scan_bitsliced_static_tiles(atiles, host[8], 9, n),
         "static S64": lambda: scan.shared_scan_bitsliced_static_tiles(atiles, host[64], 9, n),
+        "ortree S8": lambda: member._member_ortree_tiles(atiles, 9, n, tuple(S8)),
+        "ortree S64": lambda: member._member_ortree_tiles(atiles, 9, n, tuple(s64)),
         "chunked S64": lambda: scan.shared_scan_chunked_tiles(atiles, cuda[64], 9, n),
         "chunked S256": lambda: scan.shared_scan_chunked_tiles(atiles, cuda[256], 9, n),
         "dynamic S64": lambda: scan.shared_scan_dynamic_tiles(atiles, cuda[64], 9, n),
@@ -104,7 +108,9 @@ def main(root: pathlib.Path) -> None:
         "bins H3": lambda: scan.histogram_tiles(atiles, los[:1], 512, 9, n),
         "bins lo 100 k 256": lambda: scan.histogram_tiles(atiles, lo100, 256, 9, n),
         "H5 kernel": h5,
+        "interval linear L1": lambda: scan._interval_linear_tiles_impl(tiles, 0, 8, 9, n),
         "static linear L2": lambda: scan._static_linear_tiles_impl(atiles, host[8], 9, n),
+        "bitsliced linear L3": lambda: scan._bitsliced_linear_tiles_impl(atiles, cuda[8], 9, n),
         "static linear L4": lambda: scan._static_linear_tiles_impl(atiles, host[64], 9, n),
         "static linear L6": lambda: [scan._static_linear_tiles_impl(atiles, host[64][8 * g: 8 * g + 8],
                                                                     9, n) for g in range(8)],

@@ -1,57 +1,48 @@
-// Bit-sliced shared scans: runtime keys (plane fold) and host keys (a
-// static AND-DAG program); and their member (IN-list) forms, one row.
+// Bit-sliced shared scans: runtime keys and host keys by the plane fold;
+// their member (IN-list) form for runtime keys, one row; and the static
+// AND-DAG interpreter of the histogram's programs.
 //
 // Replaces shared_simd_scan_tpu/ops/scan.py:
 //  - _shared_scan_bitsliced_kernel / shared_scan_bitsliced_tiles: keys read
 //    from device memory, any k; per key match = AND_p (plane_p ^
 //    (bit_p(key) - 1)), killed for keys >= 2^W;
 //  - _shared_scan_bitsliced_static_kernel / _bitsliced_static_tiles_impl:
-//    the key set's memoized _combo AND-DAG over the planes and their
-//    complements.  On the TPU the DAG is traced into the kernel; nvcc cannot
-//    specialize per key set, so the host compiles the DAG into a program
-//    (ops/scan.py _static_program) that this kernel interprets:
-//      word 0 = kind << 30 | target, word 1 = operand a | operand b << 16,
-//      operand = slot | 0x8000 for the complement;
-//      AND: slot[target] = a & b;  OR: slot[target] = a | b;
-//      OUT: row target = a;  ZERO: row target = 0.
-//    Planes hold slots 0..W-1; the host gives every other node a slot freed
-//    after its last use, so the slots are W plus the DAG's peak liveness.
-//  - ops/member.py _member_ortree_kernel: the member set's Shannon-factored
-//    OR-tree (scan.py _member_or_tree), compiled by the host
-//    (ops/scan.py _member_program) into a one-row program with OR
-//    instructions and run by the same interpreter;
+//    host keys.  The TPU traces the key set's memoized _combo AND-DAG over
+//    the planes into the kernel; nvcc cannot specialize per key set.  Here
+//    the same plane fold as the runtime keys, with each CTA turning the
+//    keys (read once from device memory) into plane masks in shared
+//    memory, read back as broadcasts, so a row costs one three-input
+//    AND/XOR per plane with no program (sss_bitsliced_static_fold, rows in
+//    tile order);
 //  - ops/member.py _member_bitsliced_kernel: the runtime plane fold with
 //    the key rows ORed into one row (sss_member_bitsliced, the kMember
-//    form of the runtime kernel);
+//    form of the runtime kernel).  The member OR-tree body is not here: on
+//    this card it is a set lookup per value (member.cu sss_member_lookup);
 //  - _histogram_dag_kernel / _histogram_dag_tiles_impl: histogram counts
-//    of consecutive keys, no bitvector (sss_histogram_dag, the counts-only
-//    form of the static kernel), on _static_program's per-chunk memos.
-//    The span form (_histogram_span_kernel) is not here: on this card it
-//    is the bins kernel with lo by value (histogram.cu sss_histogram_span);
+//    of consecutive keys, no bitvector (sss_histogram_dag), on the host's
+//    AND-DAG program (ops/scan.py _static_program, format in common.cuh)
+//    of each chunk, interpreted: per node an instruction read through the
+//    read-only cache, two shared loads, an op and a shared store, node
+//    values in dynamic shared memory laid out [slot][thread].  The span
+//    form (_histogram_span_kernel) is not here: on this card it is the
+//    bins kernel with lo by value (histogram.cu sss_histogram_span);
 //  - _bitsliced_linear_kernel / _bitsliced_linear_tiles_impl (scan.py:1025)
 //    and _static_linear_kernel / _static_linear_tiles_impl (scan.py:854):
 //    the plane fold with its rows staged as linear bytes, as
 //    interval_scan.cu's fused form does, for keys read from device memory
 //    (sss_bitsliced_scan_linear) and for host keys passed by value in the
-//    kernel's parameters (sss_bitsliced_static_scan_linear).  The TPU
-//    traces the host keys' AND-DAG into the kernel; here each CTA turns the
-//    keys into plane masks in shared memory once, read back as
-//    broadcasts, so a row costs one three-input AND/XOR per plane with no
-//    program and no node slots, and the stage has the CTA's shared memory.
+//    kernel's parameters (sss_bitsliced_static_scan_linear, the static
+//    fold's body with the linear stage).
 //
 // Bound on the H100: device memory bytes (reads W words, writes k words per
-// 32 values) while k is small; the integer instruction rate beyond: the runtime fold costs
-// ~3 ops per plane per key (one with the masks in shared memory), the
-// static DAG one shared-memory AND per node (~57 nodes for 8 spread keys
-// at W=9, ~113 for 32).  Design: one thread per
-// 32-value block; the 32 values are unpacked and transposed into planes in
-// registers by the pruned butterfly (common.cuh).  The runtime kernel keeps
-// the planes in registers and does not unroll its key loop.  The static
-// kernel keeps node values in dynamic shared memory laid out [slot][thread]
-// (neighbouring threads, neighbouring banks: no conflicts), reads each
-// warp-uniform instruction through the read-only cache, and asks for more
-// than 48 KB of shared memory when the DAG needs it; a launch that is
-// refused returns its error.  Counts as in shared_scan.cu.
+// 32 values) while k is small; the integer instruction rate beyond: the
+// runtime fold costs ~3 ops per plane per key, the static fold one (the
+// masks in shared memory), the interpreter one shared-memory AND per DAG
+// node.  Design: one thread per 32-value block; the 32 values are unpacked
+// and transposed into planes in registers by the pruned butterfly
+// (common.cuh).  The runtime kernel keeps the planes in registers and does
+// not unroll its key loop.  A launch that asks for more shared memory than
+// a CTA has is refused and returns its error.  Counts as in shared_scan.cu.
 #include "common.cuh"
 
 namespace sss {
@@ -95,10 +86,11 @@ bitsliced_scan_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __rest
   flush_counts(s_cnt, kMember ? 1 : k, counts);
 }
 
-// Keys of the fused linear fold: read from device memory (the runtime
-// keys), or the host's keys by value in the kernel's parameters (512
-// bytes at most; __grid_constant__ keeps them in the parameter space,
-// and bench/redesign_sweep.py times the fold on them).
+// Keys of the folds: read from device memory (the runtime keys, and the
+// tile-order static fold's up to kMaxKeys host keys, copied once), or the
+// host's keys by value in the kernel's parameters (the linear static
+// fold's 512 bytes at most; __grid_constant__ keeps them in the parameter
+// space, and bench/redesign_sweep.py times the fold on them).
 struct DeviceKeys {
   const uint32_t* p;
   __device__ __forceinline__ uint32_t operator[](int j) const { return __ldg(p + j); }
@@ -165,33 +157,111 @@ cudaError_t launch_fold_linear(const uint32_t* tiles, const Keys& keys, int k, u
   return cudaGetLastError();
 }
 
-// The fused linear fold for host keys (TPU kernel _static_linear_kernel).
-// The keys come by value in the kernel's parameters; each CTA first turns
-// them into plane masks in shared memory, per quad of keys W + 1 uint4:
-// plane p's masks ((key >> p) & 1) - 1 of the four keys, then the four
-// keys' in-domain words.  Every lane reads the same uint4 (a broadcast),
-// so a quad of rows costs one shared load a plane and a row one LOP3 a
-// plane; with the masks computed from the keys in the loop, each thread
-// spent about three more instructions a plane on them.
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-static_fold_linear_kernel(const uint32_t* __restrict__ tiles,
-                          const __grid_constant__ LinearKeys keys, int k,
-                          uint32_t* __restrict__ out, unsigned long long* __restrict__ counts,
-                          long long nblocks, long long n, long long block_offset) {
-  extern __shared__ uint4 s_mask[];  // [k / 4][W + 1], then the stage
-  uint32_t* s_stage = reinterpret_cast<uint32_t*>(s_mask + (k / 4) * (W + 1));
-  __shared__ unsigned s_cnt[kMaxLinearKeys];
-  for (int i = threadIdx.x; i < (k / 4) * (W + 1); i += blockDim.x) {
+// Where the static fold's rows go: staged as linear bytes (TPU kernel
+// _static_linear_kernel), or stored in tile order to (k, nblocks) bits
+// (TPU kernel _shared_scan_bitsliced_static_kernel).
+constexpr int kFoldLinear = 0, kFoldRows = 1;
+
+// Plane masks of keys j0 .. j0 + 4 * nq - 1 in shared memory, per quad of
+// keys W + 1 uint4: plane p's masks ((key >> p) & 1) - 1 of the four
+// keys, then the four keys' in-domain words.  A slot past the k keys gets
+// the key 0xFFFFFFFF, whose row is zero and is never stored.
+template <int W, typename Keys>
+__device__ __forceinline__ void stage_fold_masks(uint4* s_mask, const Keys& keys, int j0, int k,
+                                                 int nq) {
+  for (int i = threadIdx.x; i < nq * (W + 1); i += blockDim.x) {
     const int q = i / (W + 1), p = i % (W + 1);
     uint32_t m[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const uint32_t key = keys[4 * q + u];
+      const int j = j0 + 4 * q + u;
+      const uint32_t key = j < k ? keys[j] : 0xFFFFFFFFu;
       m[u] = p < W ? ((key >> p) & 1u) - 1u : (key <= value_mask<W>() ? 0xFFFFFFFFu : 0u);
     }
     s_mask[i] = make_uint4(m[0], m[1], m[2], m[3]);
   }
+}
+
+// Rows j..j+3 of block b stored at [row, b] and counted; rows at k and
+// past are not stored (j and k are warp-uniform).  The launch's last quad
+// when k % 4 != 0.
+__device__ __forceinline__ void store_quad(uint32_t* __restrict__ bits, long long nblocks,
+                                           long long b, bool active, int j, int k, uint32_t r0,
+                                           uint32_t r1, uint32_t r2, uint32_t r3,
+                                           unsigned* s_cnt) {
+  store_row(bits, nblocks, b, active, j, r0, s_cnt);
+  if (j + 1 < k) store_row(bits, nblocks, b, active, j + 1, r1, s_cnt);
+  if (j + 2 < k) store_row(bits, nblocks, b, active, j + 2, r2, s_cnt);
+  if (j + 3 < k) store_row(bits, nblocks, b, active, j + 3, r3, s_cnt);
+}
+
+// Rows j0 .. j0 + 4 nq - 1 of this thread's block from their plane masks
+// in s_mask (quad q at s_mask + q (W + 1)): staged as linear bytes
+// (kFoldLinear), or stored to row j at out[j * nblocks + b] (kFoldRows),
+// coalesced across the warp.  Every lane reads the same uint4 (a
+// broadcast), so a quad of rows costs one shared load a plane and a row
+// one LOP3 a plane.
+template <int W, int kOut>
+__device__ __forceinline__ void fold_chunk(const uint32_t (&x)[kBlockValues],
+                                           const uint4* s_mask, int j0, int nq, int k,
+                                           uint32_t valid, const LinearSink& sink,
+                                           uint32_t* __restrict__ out, long long nblocks,
+                                           long long b, bool active, unsigned* s_cnt) {
+  uint32_t* row = out + (size_t)j0 * nblocks + b;  // (kFoldRows) row j0 of block b
+#pragma unroll 1
+  for (int q = 0; q < nq; ++q, row += 4 * nblocks) {
+    const uint4* m = s_mask + q * (W + 1);
+    const uint4 alive = m[W];
+    uint32_t r0 = alive.x, r1 = alive.y, r2 = alive.z, r3 = alive.w;
+#pragma unroll
+    for (int p = 0; p < W; ++p) {
+      const uint4 mp = m[p];
+      r0 &= x[p] ^ mp.x;
+      r1 &= x[p] ^ mp.y;
+      r2 &= x[p] ^ mp.z;
+      r3 &= x[p] ^ mp.w;
+    }
+    const int j = j0 + 4 * q;
+    r0 &= valid;
+    r1 &= valid;
+    r2 &= valid;
+    r3 &= valid;
+    if constexpr (kOut == kFoldLinear) {
+      sink.quad(j, r0, r1, r2, r3);
+    } else if (j + 4 <= k) {
+      count_quad(j, r0, r1, r2, r3, s_cnt);
+      if (active) {
+        row[0] = r0;
+        row[nblocks] = r1;
+        row[2 * nblocks] = r2;
+        row[3 * nblocks] = r3;
+      }
+    } else {
+      store_quad(out, nblocks, b, active, j, k, r0, r1, r2, r3, s_cnt);
+    }
+  }
+}
+
+// The plane fold for host keys, one body for both outputs.  Each CTA
+// turns the keys into plane masks in shared memory (stage_fold_masks) and
+// folds every row from them (fold_chunk); with the masks computed from
+// the keys in the loop, each thread spent about three more instructions
+// a plane on them.  Resident CTAs loop over tiles of blockDim.x blocks
+// and flush their counts once.  kFoldLinear (k % 4 == 0, k <= 128) stages
+// all k keys' masks once and each tile's rows as linear bytes, and stores
+// the CTA's span at once.  kFoldRows (k <= kMaxKeys) stages the masks of
+// up to `chunk` keys (chunk % 4 == 0) once; more keys are staged a chunk
+// at a time in every tile, between two barriers.
+template <int W, typename Keys, int kOut>
+__global__ void __launch_bounds__(kThreads)
+static_fold_kernel(const uint32_t* __restrict__ tiles, const __grid_constant__ Keys keys, int k,
+                   int chunk, uint32_t* __restrict__ out, unsigned long long* __restrict__ counts,
+                   long long nblocks, long long n, long long block_offset) {
+  extern __shared__ uint4 s_mask[];  // [chunk / 4][W + 1], then the linear stage
+  __shared__ unsigned s_cnt[kOut == kFoldLinear ? kMaxLinearKeys : kMaxKeys];
+  uint32_t* s_stage = reinterpret_cast<uint32_t*>(s_mask + (chunk / 4) * (W + 1));
+  const bool restage = kOut == kFoldRows && k > chunk;
+  if (!restage) stage_fold_masks<W>(s_mask, keys, 0, k, (k + 3) / 4);
   zero_counts(s_cnt, k);  // (its barrier also publishes the masks)
   const LinearSink sink{reinterpret_cast<uint8_t*>(s_stage), k, s_cnt};
   const long long ntiles = (nblocks + blockDim.x - 1) / blockDim.x;
@@ -205,37 +275,41 @@ static_fold_linear_kernel(const uint32_t* __restrict__ tiles,
     uint32_t x[kBlockValues];
     unpack_values<W>(w, x);
     transpose_bitplanes<W>(x);
-#pragma unroll 1
-    for (int q = 0; q < k / 4; ++q) {
-      const uint4* m = s_mask + q * (W + 1);
-      const uint4 alive = m[W];
-      uint32_t r0 = alive.x, r1 = alive.y, r2 = alive.z, r3 = alive.w;
-#pragma unroll
-      for (int p = 0; p < W; ++p) {
-        const uint4 mp = m[p];
-        r0 &= x[p] ^ mp.x;
-        r1 &= x[p] ^ mp.y;
-        r2 &= x[p] ^ mp.z;
-        r3 &= x[p] ^ mp.w;
+    if constexpr (kOut == kFoldLinear) {
+      fold_chunk<W, kOut>(x, s_mask, 0, k / 4, k, valid, sink, out, nblocks, b, active, s_cnt);
+      const long long left = nblocks - first;
+      flush_linear(s_stage, k, out, first, left < blockDim.x ? (int)left : (int)blockDim.x);
+    } else {
+      for (int j0 = 0; j0 < k; j0 += chunk) {
+        const int nq = ((k - j0 < chunk ? k - j0 : chunk) + 3) / 4;
+        if (restage) {
+          __syncthreads();  // every warp is done with the last chunk's masks
+          stage_fold_masks<W>(s_mask, keys, j0, k, nq);
+          __syncthreads();
+        }
+        fold_chunk<W, kOut>(x, s_mask, j0, nq, k, valid, sink, out, nblocks, b, active, s_cnt);
       }
-      sink.quad(4 * q, r0 & valid, r1 & valid, r2 & valid, r3 & valid);
     }
-    const long long left = nblocks - first;
-    flush_linear(s_stage, k, out, first, left < blockDim.x ? (int)left : (int)blockDim.x);
   }
   flush_counts(s_cnt, k, counts);
 }
 
-inline size_t static_fold_smem(int width, int k, int threads) {
-  return (size_t)(k / 4) * (width + 1) * sizeof(uint4) + linear_stage_bytes(k, threads);
+// Dynamic shared memory of the fold: the masks of a chunk, and the linear
+// form's stage.
+inline size_t static_fold_smem(int width, int k, int chunk, int out_form, int threads) {
+  return (size_t)(chunk / 4) * (width + 1) * sizeof(uint4) +
+         (out_form == kFoldLinear ? linear_stage_bytes(k, threads) : 0);
 }
 
-template <int W>
-cudaError_t launch_static_fold(const uint32_t* tiles, const LinearKeys& keys, int k, uint32_t* out,
-                               unsigned long long* counts, long long nblocks, long long n,
-                               long long block_offset, int threads, cudaStream_t stream) {
-  const auto kernel = static_fold_linear_kernel<W>;
-  const size_t smem = static_fold_smem(W, k, threads);
+// One launch of the fold at `threads` threads a CTA; a launch that is
+// refused returns its error.
+template <int W, typename Keys, int kOut>
+cudaError_t launch_static_fold(const uint32_t* tiles, const Keys& keys, int k, int chunk,
+                               uint32_t* out, unsigned long long* counts, long long nblocks,
+                               long long n, long long block_offset, int threads,
+                               cudaStream_t stream) {
+  const auto kernel = static_fold_kernel<W, Keys, kOut>;
+  const size_t smem = static_fold_smem(W, k, chunk, kOut, threads);
   unsigned grid = 0;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -245,125 +319,91 @@ cudaError_t launch_static_fold(const uint32_t* tiles, const LinearKeys& keys, in
     cudaGetLastError();  // clear it, so the next launch does not report it
     return err;
   }
-  kernel<<<grid, threads, smem, stream>>>(tiles, keys, k, out, counts, nblocks, n, block_offset);
+  kernel<<<grid, threads, smem, stream>>>(tiles, keys, k, chunk, out, counts, nblocks, n,
+                                          block_offset);
   return cudaGetLastError();
 }
 
-// Threads a CTA of the static fold: 128 tied 256 at k = 8 and 64 and won
-// at k = 128, where 256 threads' stage (132 KB) leaves one CTA an SM
-// (bench/redesign_sweep.py).
+// Threads a CTA of the static fold: for the linear form, 128 tied 256 at
+// k = 8 and 64 and won at k = 128, where 256 threads' stage (132 KB)
+// leaves one CTA an SM (bench/redesign_sweep.py fold).
 constexpr int kStaticFoldThreads = 128;
+// The tile-order form: its threads a CTA, and the shared memory its masks
+// may take (up to kFoldMaskBytes / (16 (W + 1)) quads of keys at once;
+// more keys are staged a chunk at a time).  256 threads beat 128 by 2-4%
+// at 8 to 256 keys and by 13% at 1024 keys of width 31, where chunks of
+// 16 to 64 KB tied and all 128 KB at once (one CTA an SM) ran 1.65x
+// slower (bench/redesign_sweep.py static, NVIDIA H100 80GB HBM3, 700 W).
+constexpr int kStaticRowsThreads = 256;
+constexpr int kFoldMaskBytes = 48 * 1024;
 
-// Forms of the static kernel: the (k, nblocks) bits; counts only (the
-// histogram's, row 10 of the TPU kernel table).
-constexpr int kFormBits = 0, kFormCounts = 1;
-
-// One tile of the static kernel: thread threadIdx.x takes block
-// t * blockDim.x + threadIdx.x, unpacks and transposes it into planes in
-// its slots, and runs the program.  OUT and ZERO by form: the bits form
-// stores row target (a & valid, or 0) and counts it; the counts form adds
-// popc(a & valid) to its row's shared counter for OUT and nothing for
-// ZERO.
-template <int W, int kForm>
-__device__ __forceinline__ void static_tile(const uint32_t* __restrict__ tiles,
-                                            const uint2* __restrict__ prog, int nops, int k,
-                                            uint32_t* __restrict__ bits, long long nblocks,
-                                            long long n, long long block_offset, long long t,
-                                            uint32_t* s_val, unsigned* s_cnt) {
-  const int stride = blockDim.x;
-  const long long b = t * stride + threadIdx.x;
-  const bool active = b < nblocks;
-  uint32_t w[W];
-  load_block<W>(tiles, nblocks, b, active, w);
-  const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
-
-  uint32_t x[kBlockValues];
-  unpack_values<W>(w, x);
-  transpose_bitplanes<W>(x);
-#pragma unroll
-  for (int p = 0; p < W; ++p) s_val[p * stride + threadIdx.x] = x[p];
-
-  for (int i = 0; i < nops; ++i) {
-    const uint2 op = __ldg(prog + i);
-    const uint32_t kind = op.x >> 30, target = op.x & 0x3FFFFFFFu;
-    const uint32_t a = dag_operand(s_val, op.y & 0xFFFFu, stride);
-    if (kind == kAnd || kind == kOr) {
-      const uint32_t c = dag_operand(s_val, op.y >> 16, stride);
-      s_val[target * stride + threadIdx.x] = kind == kAnd ? a & c : a | c;
-    } else if constexpr (kForm == kFormCounts) {
-      if (kind == kOut) count_row((int)target, a & valid, s_cnt);
-    } else {
-      store_row(bits, nblocks, b, active, (int)target, kind == kOut ? a & valid : 0u, s_cnt);
-    }
-  }
+// Keys of a chunk of the tile-order fold at width w: all k when their
+// masks fit kFoldMaskBytes, else the most whole quads that fit.
+inline int static_rows_chunk(int width, int k) {
+  const int fit = kFoldMaskBytes / (16 * (width + 1)) * 4;
+  const int all = (k + 3) / 4 * 4;
+  return all < fit ? all : fit;
 }
 
-// The bitvector form runs one tile per CTA.  The counts-only form runs
-// resident CTAs looping over the tiles, so each flushes its counters once.
-template <int W, int kForm>
+// The static DAG interpreter, counts only (the histogram's programs, row
+// 10 of the TPU kernel table).  Thread threadIdx.x takes block t *
+// blockDim.x + threadIdx.x, unpacks and transposes it into planes in its
+// slots, and runs the program: OUT adds popc(a & valid) to its row's
+// shared counter, ZERO adds nothing.  Resident CTAs loop over the tiles,
+// so each flushes its counters once.
+template <int W>
 __global__ void __launch_bounds__(kStaticThreadsMax)
-bitsliced_static_kernel(const uint32_t* __restrict__ tiles, const uint2* __restrict__ prog,
-                        int nops, int k, uint32_t* __restrict__ bits,
-                        unsigned long long* __restrict__ counts, long long nblocks, long long n,
-                        long long block_offset, int slots) {
+histogram_dag_kernel(const uint32_t* __restrict__ tiles, const uint2* __restrict__ prog, int nops,
+                     int k, unsigned long long* __restrict__ counts, long long nblocks,
+                     long long n, long long block_offset) {
   extern __shared__ uint32_t s_val[];  // [slot][threadIdx.x]
-  __shared__ unsigned s_cnt[kForm == kFormCounts ? kMaxHistKeys : kMaxKeys];
+  __shared__ unsigned s_cnt[kMaxHistKeys];
   zero_counts(s_cnt, k);
-  if constexpr (kForm == kFormBits) {
-    static_tile<W, kForm>(tiles, prog, nops, k, bits, nblocks, n, block_offset, blockIdx.x, s_val,
-                          s_cnt);
-  } else {
-    const long long ntiles = (nblocks + blockDim.x - 1) / blockDim.x;
-    for (long long t = blockIdx.x; t < ntiles; t += gridDim.x)  // CTA-uniform trip count
-      static_tile<W, kForm>(tiles, prog, nops, k, bits, nblocks, n, block_offset, t, s_val, s_cnt);
+  const int stride = blockDim.x;
+  const long long ntiles = (nblocks + stride - 1) / stride;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {  // CTA-uniform trip count
+    const long long b = t * stride + threadIdx.x;
+    const bool active = b < nblocks;
+    uint32_t w[W];
+    load_block<W>(tiles, nblocks, b, active, w);
+    const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
+    uint32_t x[kBlockValues];
+    unpack_values<W>(w, x);
+    transpose_bitplanes<W>(x);
+#pragma unroll
+    for (int p = 0; p < W; ++p) s_val[p * stride + threadIdx.x] = x[p];
+    for (int i = 0; i < nops; ++i) {
+      const uint2 op = __ldg(prog + i);
+      const uint32_t kind = op.x >> 30, target = op.x & 0x3FFFFFFFu;
+      const uint32_t a = dag_operand(s_val, op.y & 0xFFFFu, stride);
+      if (kind == kAnd || kind == kOr) {
+        const uint32_t c = dag_operand(s_val, op.y >> 16, stride);
+        s_val[target * stride + threadIdx.x] = kind == kAnd ? a & c : a | c;
+      } else if (kind == kOut) {
+        count_row((int)target, a & valid, s_cnt);
+      }
+    }
   }
   flush_counts(s_cnt, k, counts);
 }
 
-// One launch of a program of k rows with `threads` threads per CTA and
-// smem bytes of dynamic shared memory; a launch that is refused returns
-// its error.
-template <int W, int kForm>
-cudaError_t launch_static(const uint32_t* tiles, const uint2* prog, int nops, int k,
-                          uint32_t* bits, unsigned long long* counts, long long nblocks,
-                          long long n, long long block_offset, int threads, int slots, size_t smem,
-                          cudaStream_t stream) {
-  const auto kernel = bitsliced_static_kernel<W, kForm>;
+template <int W>
+cudaError_t launch_histogram_dag(const uint32_t* tiles, const uint2* prog, int nops, int k,
+                                 unsigned long long* counts, long long nblocks, long long n,
+                                 long long block_offset, int threads, size_t smem,
+                                 cudaStream_t stream) {
+  const auto kernel = histogram_dag_kernel<W>;
+  unsigned grid = 0;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  const long long ntiles = (nblocks + threads - 1) / threads;
-  unsigned grid = (unsigned)ntiles;
-  if (err == cudaSuccess && kForm != kFormBits)
-    err = resident_grid(kernel, threads, smem, ntiles, &grid);
+  if (err == cudaSuccess)
+    err = resident_grid(kernel, threads, smem, (nblocks + threads - 1) / threads, &grid);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch does not report it
     return err;
   }
-  kernel<<<grid, threads, smem, stream>>>(tiles, prog, nops, k, bits, counts, nblocks, n,
-                                          block_offset, slots);
+  kernel<<<grid, threads, smem, stream>>>(tiles, prog, nops, k, counts, nblocks, n, block_offset);
   return cudaGetLastError();
-}
-
-template <int kForm>
-int static_scan(const uint32_t* tiles, const int* prog, int nops, int k, uint32_t* bits,
-                unsigned long long* counts, long long nblocks, int width, long long n,
-                long long block_offset, int threads, int slots, cudaStream_t stream) {
-  const bool k_ok = kForm == kFormCounts ? k >= 1 && k <= kMaxHistKeys : k >= 1 && k <= kMaxKeys;
-  if (!k_ok || threads < 32 || threads > kStaticThreadsMax || threads % 32 || slots < width)
-    return (int)cudaErrorInvalidValue;
-  if (nblocks <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)slots * threads * sizeof(uint32_t);
-  const uint2* p = reinterpret_cast<const uint2*>(prog);
-  switch (width) {
-#define SSS_CASE(W)                                                                         \
-  case W:                                                                                   \
-    return (int)launch_static<W, kForm>(tiles, p, nops, k, bits, counts, nblocks, n,        \
-                                        block_offset, threads, slots, smem, stream);
-    SSS_FOR_EACH_WIDTH(SSS_CASE)
-#undef SSS_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace sss
@@ -418,25 +458,53 @@ extern "C" int sss_member_bitsliced(const uint32_t* tiles, const uint32_t* keys,
   return (int)cudaGetLastError();
 }
 
-// One launch runs one program of k <= kMaxKeys rows with `threads` threads
-// per CTA and slots * threads words of dynamic shared memory.
-extern "C" int sss_bitsliced_static_scan(const uint32_t* tiles, const int* prog, int nops, int k,
+// The static fold in tile order: keys is a device array of k <= kMaxKeys
+// uint32 (host keys, copied once by the caller); bits (k, nblocks) and
+// counts int64[k] (zeroed by the caller) as in sss_bitsliced_scan.
+extern "C" int sss_bitsliced_static_fold(const uint32_t* tiles, const uint32_t* keys, int k,
                                          uint32_t* bits, unsigned long long* counts,
                                          long long nblocks, int width, long long n,
-                                         long long block_offset, int threads, int slots,
-                                         cudaStream_t stream) {
-  return sss::static_scan<sss::kFormBits>(tiles, prog, nops, k, bits, counts, nblocks, width,
-                                          n, block_offset, threads, slots, stream);
+                                         long long block_offset, cudaStream_t stream) {
+  if (k < 1 || k > sss::kMaxKeys || !sss::width_ok(width)) return (int)cudaErrorInvalidValue;
+  if (nblocks <= 0) return (int)cudaSuccess;
+  const sss::DeviceKeys dk{keys};
+  const int chunk = sss::static_rows_chunk(width, k);
+  switch (width) {
+#define SSS_CASE(W)                                                                          \
+  case W:                                                                                    \
+    return (int)sss::launch_static_fold<W, sss::DeviceKeys, sss::kFoldRows>(                 \
+        tiles, dk, k, chunk, bits, counts, nblocks, n, block_offset,                         \
+        sss::kStaticRowsThreads, stream);
+    SSS_FOR_EACH_WIDTH(SSS_CASE)
+#undef SSS_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-// The counts-only form: k <= kMaxHistKeys rows, counts only (int64[k],
-// zeroed by the caller).
+// The static DAG program's counts (no bitvector): k <= kMaxHistKeys rows,
+// counts int64[k] (zeroed by the caller), `threads` threads a CTA and
+// slots * threads words of dynamic shared memory.
 extern "C" int sss_histogram_dag(const uint32_t* tiles, const int* prog, int nops, int k,
                                  unsigned long long* counts, long long nblocks, int width,
                                  long long n, long long block_offset, int threads, int slots,
                                  cudaStream_t stream) {
-  return sss::static_scan<sss::kFormCounts>(tiles, prog, nops, k, nullptr, counts, nblocks,
-                                            width, n, block_offset, threads, slots, stream);
+  if (k < 1 || k > sss::kMaxHistKeys || threads < 32 || threads > sss::kStaticThreadsMax ||
+      threads % 32 || slots < width)
+    return (int)cudaErrorInvalidValue;
+  if (nblocks <= 0) return (int)cudaSuccess;
+  const size_t smem = (size_t)slots * threads * sizeof(uint32_t);
+  const uint2* p = reinterpret_cast<const uint2*>(prog);
+  switch (width) {
+#define SSS_CASE(W)                                                                          \
+  case W:                                                                                    \
+    return (int)sss::launch_histogram_dag<W>(tiles, p, nops, k, counts, nblocks, n,          \
+                                             block_offset, threads, smem, stream);
+    SSS_FOR_EACH_WIDTH(SSS_CASE)
+#undef SSS_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The fused linear fold for keys in device memory: out is uint32[nblocks *
@@ -476,8 +544,9 @@ extern "C" int sss_bitsliced_static_scan_linear(const uint32_t* tiles, const uin
   switch (width) {
 #define SSS_CASE(W)                                                                          \
   case W:                                                                                    \
-    return (int)sss::launch_static_fold<W>(tiles, hk, k, out, counts, nblocks, n,            \
-                                           block_offset, sss::kStaticFoldThreads, stream);
+    return (int)sss::launch_static_fold<W, sss::LinearKeys, sss::kFoldLinear>(               \
+        tiles, hk, k, k, out, counts, nblocks, n, block_offset, sss::kStaticFoldThreads,     \
+        stream);
     SSS_FOR_EACH_WIDTH(SSS_CASE)
 #undef SSS_CASE
     default:

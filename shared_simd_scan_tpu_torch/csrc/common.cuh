@@ -90,6 +90,21 @@ __device__ __forceinline__ void store_row(uint32_t* __restrict__ bits, long long
   count_row(j, word, s_cnt);
 }
 
+// Count rows j..j+3 of this block as count_row does, two rows to a warp
+// reduce: a row's warp total is at most 1024, so two fit the halves of one
+// word.  Must be reached by all 32 lanes of the warp (j is warp-uniform).
+__device__ __forceinline__ void count_quad(int j, uint32_t r0, uint32_t r1, uint32_t r2,
+                                           uint32_t r3, unsigned* s_cnt) {
+  const unsigned c01 = __reduce_add_sync(0xFFFFFFFFu, __popc(r0) | __popc(r1) << 16);
+  const unsigned c23 = __reduce_add_sync(0xFFFFFFFFu, __popc(r2) | __popc(r3) << 16);
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(s_cnt + j, c01 & 0xFFFFu);
+    atomicAdd(s_cnt + j + 1, c01 >> 16);
+    atomicAdd(s_cnt + j + 2, c23 & 0xFFFFu);
+    atomicAdd(s_cnt + j + 3, c23 >> 16);
+  }
+}
+
 __device__ __forceinline__ void flush_counts(const unsigned* s_cnt, int k,
                                              unsigned long long* __restrict__ counts) {
   __syncthreads();
@@ -313,10 +328,7 @@ struct LinearSink {
   // byte q of the four rows, so four word stores stage them.
   __device__ __forceinline__ void quad(int j, uint32_t a, uint32_t b, uint32_t c,
                                        uint32_t d) const {
-    count_row(j, a, s_cnt);
-    count_row(j + 1, b, s_cnt);
-    count_row(j + 2, c, s_cnt);
-    count_row(j + 3, d, s_cnt);
+    count_quad(j, a, b, c, d, s_cnt);
     const uint32_t ab01 = __byte_perm(a, b, 0x5140), cd01 = __byte_perm(c, d, 0x5140);
     const uint32_t ab23 = __byte_perm(a, b, 0x7362), cd23 = __byte_perm(c, d, 0x7362);
     uint32_t* w = reinterpret_cast<uint32_t*>(stage) + threadIdx.x * (k + 1) + j / 4;

@@ -60,10 +60,10 @@ _SIGNATURES = {
     "sss_shift_canary": [_vp, _vp, _vp, _vp, ctypes.c_int, _vp],
     # tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream
     "sss_bitsliced_scan": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
-    # tiles, prog, nops, k, bits, counts, nblocks, width, n, block_offset,
-    # threads, slots, stream
-    "sss_bitsliced_static_scan": [_vp, _vp, ctypes.c_int, ctypes.c_int, _vp, _vp, _ll,
-                                  ctypes.c_int, _ll, _ll, ctypes.c_int, ctypes.c_int, _vp],
+    # tiles, keys (device, the host keys copied once), k, bits, counts, nblocks, width, n,
+    # block_offset, stream
+    "sss_bitsliced_static_fold": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll,
+                                  _vp],
     # the fused linear forms: out (uint32[nblocks * k]) in place of bits;
     # keys in device memory, or a host array of k uint32 passed by value
     "sss_bitsliced_scan_linear": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll,
@@ -101,6 +101,8 @@ _SIGNATURES = {
                           ctypes.c_int, _vp],
     # tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream
     "sss_member_domain": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
+    # tiles, table, size, bits, counts, nblocks, width, n, block_offset, stream
+    "sss_member_lookup": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
     # tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream
     "sss_member_bitsliced": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
     # ptiles, mtiles, keys, k, counts, a, b, nblocks, wp, wm, n, block_offset, minmax, stream

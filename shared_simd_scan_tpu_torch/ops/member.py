@@ -10,8 +10,9 @@ Dispatch (:func:`member_scan_tiles`), the JAX package's to the letter:
   :func:`member_dispatch_tier`: a consecutive run takes one range compare
   (:func:`ops.scan.range_scan_tiles` with [lo, lo+K)); clustered keys the
   window popmasks (chunked past 32 windows); spread keys the static
-  OR-tree; the flat-cost domain bitmap where it is cheapest.  Any other
-  tier falls through to the keys path below;
+  OR-tree tier (on this card one lookup a value in the set's table,
+  :func:`member_set_table`); the flat-cost domain bitmap where it is
+  cheapest.  Any other tier falls through to the keys path below;
 - keys given as a CUDA tensor are runtime keys (the JAX package's traced
   keys) and are never read on the host.  They take the domain bitmap, the
   bit-sliced fold, the compare or the chunked compare by the same cost
@@ -29,9 +30,8 @@ wrapper (its ``launches``)         CUDA kernel
 ``_member_window_tiles``           ``sss_member_window`` (``csrc/member.cu``)
 ``_member_chunked_window_tiles``   ``sss_member_window``
 ``_member_domain_tiles``           ``sss_member_domain`` (``csrc/member.cu``)
-``_member_ortree_tiles``           ``sss_bitsliced_static_scan``
-                                   (``csrc/bitsliced.cu``) on the OR-tree
-                                   program
+``_member_ortree_tiles``           ``sss_member_lookup``
+                                   (``csrc/member.cu``) on the set's table
 ``_member_bitsliced_tiles``        ``sss_member_bitsliced``
                                    (``csrc/bitsliced.cu``)
 =================================  ===========================================
@@ -55,13 +55,10 @@ from shared_simd_scan_tpu_torch.ops.scan import (
     _bounds_tensor,
     _block_values_plain,
     _host_keys,
-    _member_or_tree,
-    _member_program,
     _onehot_plain,
     _runtime_keys,
     _static_dag_liveness,
     _static_dag_ops,
-    _static_threads,
     _valid_words,
     bits_to_canonical,
     range_scan_tiles,
@@ -75,7 +72,9 @@ from shared_simd_scan_tpu_torch.ops.unpack import _check_tiles
 _MAX_COMPARE_KEYS = 32
 _MAX_WINDOWS = 32
 # Widest column the domain kernel takes: its 2^w-bit table fills 8 KB of
-# shared memory per CTA.  The dispatcher sends it widths <= 12 only.
+# shared memory per CTA.  The dispatcher sends it widths <= 12 only.  The
+# OR-tree tier's lookup takes the same bitmap up to this width, and
+# searches the set's windows past it.
 MAX_DOMAIN_WIDTH = 16
 
 
@@ -109,6 +108,25 @@ def domain_table(keys, width: int) -> torch.Tensor:
     hit.index_fill_(0, slot, 1)
     shifts = torch.arange(32, dtype=torch.int64, device=kk.device)
     return i32((hit[:-1].reshape(nwords, 32) << shifts).sum(dim=1)).reshape(nwords, 1)
+
+
+def member_set_table(width: int, patterns) -> torch.Tensor:
+    """In-domain keys -> the table ``sss_member_lookup`` reads (int32 on
+    the CPU, uint32 bits).  Up to MAX_DOMAIN_WIDTH: the 2^width-bit
+    bitmap of :func:`domain_table`, int32[max(1, 2^width/32)].  Past it:
+    int32[2, P], the sorted window bases of :func:`member_window_plan`
+    padded with 0xFFFFFFFF (above every 32-aligned value) to P, the least
+    power of two at or above their count, then their popmasks (0 past the
+    windows).  An empty set gives a table that matches nothing."""
+    if width <= MAX_DOMAIN_WIDTH:
+        return domain_table(list(patterns), width).reshape(-1)
+    bases, pops = member_window_plan(list(patterns))
+    p = 1 << max(0, len(bases) - 1).bit_length()
+    tab = np.zeros((2, p), dtype=np.uint32)
+    tab[0] = 0xFFFFFFFF
+    tab[0, : len(bases)] = bases
+    tab[1, : len(pops)] = pops
+    return torch.from_numpy(tab.view(np.int32))
 
 
 def _domain_member_cost(width: int) -> int:
@@ -357,14 +375,21 @@ def _member_chunked_window_tiles(tiles, win, width, n, wrows, block_offset=0):
 _member_chunked_window_tiles.launches = 0
 
 
+def _bitmap_row_plain(vals, table: torch.Tensor) -> torch.Tensor:
+    """Bit ``v & 31`` of word ``v >> 5`` of the bitmap, bit r for value r
+    (the domain body, and the lookup's bitmap)."""
+    tab = u32(table).reshape(-1)
+    acc = torch.zeros_like(vals[0])
+    for r, v in enumerate(vals):
+        acc |= ((tab[v >> 5] >> (v & 31)) & 1) << r
+    return acc
+
+
 def _member_domain_tiles_plain(tiles, keys, width, n, block_offset=0):
     """Plain version of :func:`_member_domain_tiles`: the
     :func:`domain_table` of the keys, then per value bit ``v & 31`` of
     word ``v >> 5``."""
-    tab = u32(domain_table(keys, width)).reshape(-1)
-    acc = torch.zeros(tuple(tiles.shape[1:]), dtype=torch.int64, device=tiles.device)
-    for r, v in enumerate(_block_values_plain(tiles, width)):
-        acc |= ((tab[v >> 5] >> (v & 31)) & 1) << r
+    acc = _bitmap_row_plain(_block_values_plain(tiles, width), domain_table(keys, width))
     return _member_finish(acc, n, block_offset)
 
 
@@ -393,26 +418,33 @@ def _ortree_patterns(width: int, patterns) -> tuple:
     return tuple(sorted({int(p) for p in patterns if int(p) < dom}))
 
 
+def _search_row_plain(vals, table: torch.Tensor) -> torch.Tensor:
+    """The search table's lookup, bit r for value r: the last window base
+    at or below ``v & ~31``; bit ``v & 31`` of its popmask if it equals it."""
+    tab = u32(table)
+    bases, pops = tab[0].contiguous(), tab[1]
+    acc = torch.zeros_like(vals[0])
+    for r, v in enumerate(vals):
+        key = v & ~31
+        pos = (torch.searchsorted(bases, key, right=True) - 1).clamp(min=0)
+        hit = (bases[pos] == key) & (((pops[pos] >> (v & 31)) & 1) == 1)
+        acc |= hit.to(torch.int64) << r
+    return acc
+
+
 def _member_ortree_tiles_plain(tiles, width, n, patterns, block_offset=0):
-    """Plain version of :func:`_member_ortree_tiles`: the OR-tree evaluated
-    on int64 plane tensors."""
-    pats = _ortree_patterns(width, patterns)
-    planes = _bitplanes_plain(tiles, width)
-    if not pats:
-        acc = torch.zeros_like(planes[0])
-    else:
-        acc = _member_or_tree(planes, 0, width, list(pats), {})
-        if acc is None:  # every domain value is in the set
-            acc = torch.full_like(planes[0], _U32)
-    return _member_finish(acc, n, block_offset)
+    """Plain version of :func:`_member_ortree_tiles`, same algorithm: one
+    lookup a value in the set's :func:`member_set_table`."""
+    table = member_set_table(width, _ortree_patterns(width, patterns)).to(tiles.device)
+    vals = _block_values_plain(tiles, width)
+    row = _bitmap_row_plain if width <= MAX_DOMAIN_WIDTH else _search_row_plain
+    return _member_finish(row(vals, table), n, block_offset)
 
 
 @functools.lru_cache(maxsize=64)
-def _member_program_on(width: int, patterns: tuple, device: torch.device):
-    """:func:`ops.scan._member_program` with its program copied to
-    ``device``."""
-    prog, slots = _member_program(width, patterns)
-    return torch.from_numpy(prog).to(device), slots
+def _member_set_table_on(width: int, patterns: tuple, device: torch.device) -> torch.Tensor:
+    """:func:`member_set_table` copied to ``device``, once per set."""
+    return member_set_table(width, patterns).to(device)
 
 
 def _member_ortree_tiles(tiles, width, n, patterns, block_offset=0):
@@ -420,24 +452,19 @@ def _member_ortree_tiles(tiles, width, n, patterns, block_offset=0):
     are dropped, duplicates merge) -> (bits int32[B1, 128], count int64).
     The whole domain gives an all-ones row, an empty set a zero row.
 
-    Kernel ``sss_bitsliced_static_scan`` (``csrc/bitsliced.cu``) on the
-    set's one-row OR-tree program, compiled on the host and cached per
-    width and set."""
-    b1 = _check_tiles(tiles, width)
+    Kernel ``sss_member_lookup`` (``csrc/member.cu``): one lookup a value
+    in the set's :func:`member_set_table`, built on the host and cached
+    on the card per width and set."""
+    _check_tiles(tiles, width)
     pats = _ortree_patterns(width, patterns)
     device = _cuda.kernel_device(tiles)
     if device is None:
         return _member_ortree_tiles_plain(tiles, width, n, pats, block_offset)
-    prog, slots = _member_program_on(width, pats, device)
-    bits = torch.empty((b1, LANES), dtype=torch.int32, device=device)
-    counts = torch.zeros(1, dtype=torch.int64, device=device)
-    _cuda.launch(
-        "sss_bitsliced_static_scan", device, tiles.data_ptr(), prog.data_ptr(), prog.shape[0], 1,
-        bits.data_ptr(), counts.data_ptr(), b1 * LANES, width, n, block_offset,
-        _static_threads(slots), slots,
-    )
+    table = _member_set_table_on(width, pats, device)
+    out = _launch_one_row("sss_member_lookup", tiles, table, table.shape[-1], width, n,
+                          block_offset)
     _member_ortree_tiles.launches += 1
-    return bits, counts[0]
+    return out
 
 
 _member_ortree_tiles.launches = 0

@@ -10,16 +10,19 @@ PyTorch counterpart of the shared-scan part of
 - the interval kernel for consecutive keys (:func:`interval_scan_tiles`)
   with its shift canary (:func:`shift_saturates`);
 - the bit-sliced kernel for runtime keys (:func:`shared_scan_bitsliced_tiles`);
-- the static AND-DAG bit-sliced kernel for host keys
-  (:func:`shared_scan_bitsliced_static_tiles`);
+- the static bit-sliced tier for host keys, on this card the plane fold
+  with the keys' plane masks in shared memory
+  (:func:`shared_scan_bitsliced_static_tiles`; its AND-DAG stays for the
+  cost rule and the histogram's programs);
 - the windowed kernel for clustered host keys (:func:`windowed_scan_tiles`);
 - the range scan, k half-open ranges in one pass (:func:`range_scan_tiles`);
 - their planners, copied from the JAX package (:func:`pick_concrete_tier`
   and the cost functions it calls), and the dispatcher
   (:func:`shared_scan_device` / :func:`scan_device`);
 - the member OR-tree DAG (:func:`_member_or_tree`), its cost and liveness
-  counters and its one-row program (:func:`_member_program`), which
-  ``ops/member.py`` dispatches and launches;
+  counters, which ``ops/member.py`` dispatches on, and its one-row program
+  (:func:`_member_program`), which no kernel of the package runs since the
+  OR-tree body became a set lookup (``bench/redesign_sweep.py`` times it);
 - the value histogram without bitvectors: the runtime-lo bins kernel
   (:func:`histogram_tiles`); for a host lo the static AND-DAG in its
   counts-only form on chunked programs, or the bins kernel's span form
@@ -986,31 +989,31 @@ def shared_scan_bitsliced_static_tiles_plain(
     tiles: torch.Tensor, keys, width: int, n: int, block_offset: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of :func:`shared_scan_bitsliced_static_tiles`,
-    same algorithm: the memoized ``_combo`` DAG of each chunk evaluated on
-    int64 plane tensors; keys >= 2^width give zero rows."""
+    same algorithm: the plane fold over the host keys (placed on the tiles'
+    device); keys >= 2^width give zero rows."""
     arr = _concrete_keys(keys, "shared_scan_bitsliced_static_tiles")
-    planes = _bitplanes_plain(tiles, width)
-    zero = torch.zeros_like(planes[0])
-    dom = 1 << width
-    rows = []
-    for g0 in range(0, arr.shape[0], MAX_LAUNCH_KEYS):
-        for _, chunk in _static_chunks(arr[g0 : g0 + MAX_LAUNCH_KEYS]):
-            memo: dict = {}
-            rows += [_combo(planes, 0, width, key, memo) if key < dom else zero for key in chunk]
-    valid = _valid_words(tiles.shape[1], n, block_offset, tiles.device)
-    return _finish(torch.stack(rows), valid)
+    return shared_scan_bitsliced_tiles_plain(tiles, _key_tensor(arr, tiles.device), width, n,
+                                             block_offset)
+
+
+@functools.lru_cache(maxsize=64)
+def _static_keys_on(keys: tuple, device: torch.device) -> torch.Tensor:
+    """One launch's host keys as int32 on ``device``, copied once per set."""
+    return _key_tensor(np.asarray(keys, dtype=np.uint32), device)
 
 
 def shared_scan_bitsliced_static_tiles(
     tiles: torch.Tensor, keys, width: int, n: int, block_offset: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Same contract as :func:`shared_scan_tiles` for host keys (a list,
-    numpy array or CPU tensor): the bit-sliced scan with the per-key plane
-    fold replaced by the shared AND-DAG.  Raises on CUDA-tensor keys.
+    numpy array or CPU tensor), one row per caller-order key, duplicates
+    included.  Raises on CUDA-tensor keys.
 
-    Kernel ``sss_bitsliced_static_scan`` (``csrc/bitsliced.cu``) on CUDA
-    tiles, interpreting the key set's DAG program (compiled on the host and
-    cached per width and keys); the plain version on CPU tiles."""
+    Kernel ``sss_bitsliced_static_fold`` (``csrc/bitsliced.cu``: the plane
+    fold, the keys turned into plane masks in shared memory once a CTA,
+    rows stored in tile order) on CUDA tiles, one launch per
+    MAX_LAUNCH_KEYS keys, each launch's keys copied to the card once and
+    cached; the plain version on CPU tiles."""
     arr = _concrete_keys(keys, "shared_scan_bitsliced_static_tiles")
     b1 = _check_tiles(tiles, width)
     device = _cuda.kernel_device(tiles)
@@ -1020,12 +1023,11 @@ def shared_scan_bitsliced_static_tiles(
     bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
     counts = torch.zeros(k, dtype=torch.int64, device=device)
     for g0 in range(0, k, MAX_LAUNCH_KEYS):
-        group = tuple(arr[g0 : g0 + MAX_LAUNCH_KEYS].tolist())
-        prog, slots = _static_program_on(width, group, device)
+        group = _static_keys_on(tuple(arr[g0 : g0 + MAX_LAUNCH_KEYS].tolist()), device)
         _cuda.launch(
-            "sss_bitsliced_static_scan", device, tiles.data_ptr(), prog.data_ptr(),
-            prog.shape[0], len(group), bits[g0].data_ptr(), counts[g0].data_ptr(), b1 * LANES,
-            width, n, block_offset, _static_threads(slots), slots,
+            "sss_bitsliced_static_fold", device, tiles.data_ptr(), group.data_ptr(),
+            group.shape[0], bits[g0].data_ptr(), counts[g0].data_ptr(), b1 * LANES, width, n,
+            block_offset,
         )
         shared_scan_bitsliced_static_tiles.launches += 1
     return bits, counts

@@ -210,6 +210,26 @@ def test_bitsliced_static_300_keys_matches_jax_oracle():
     np.testing.assert_array_equal(counts.numpy(), np.asarray(ocounts))
 
 
+@pytest.mark.parametrize("k", [8, 64, 300, 1030])
+@pytest.mark.parametrize("width", [1, 9, 16, 17, 20, 31])
+def test_static_fold_matches_jax_oracle(width, k):
+    # the fold's rows in caller order: duplicates (one across the launch
+    # boundary at 1024 keys), keys past the domain and 0xFFFFFFFF give
+    # their own rows; held against the JAX package's gather oracle
+    n = 4241
+    values = np.random.default_rng(width).integers(0, 1 << width, size=n).astype(np.uint32)
+    rng = np.random.default_rng(k + width)
+    keys = rng.integers(0, 2 << width, size=k).astype(np.uint32)
+    keys[:4] = [values[0], values[0], 0xFFFFFFFF, 1 << width]
+    if k > tscan.MAX_LAUNCH_KEYS:
+        keys[tscan.MAX_LAUNCH_KEYS] = keys[5]
+    tdev = tlayout.pack_device(values, width, device="cpu")
+    bits, counts = tscan.shared_scan_bitsliced_static_tiles(tdev.tiles, keys, width, n)
+    obits, ocounts = joracle.shared_scan(jlayout.pack(values, width), keys)
+    np.testing.assert_array_equal(_u32(tscan.bits_to_canonical(bits, n)), np.asarray(obits))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(ocounts))
+
+
 def _run_program(planes, prog, k):
     """What sss_bitsliced_static_scan does with a program, in torch."""
     slots = {}

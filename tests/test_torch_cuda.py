@@ -163,12 +163,30 @@ def test_arbitrary_key_kernels_past_1024_keys(cuda_device):
     _same(scan.windowed_scan_tiles(tiles, keys, width, N), ref)
 
 
-def test_static_dag_past_48kb_of_shared_memory(cuda_device):
-    width = 31
+@pytest.mark.parametrize("k", [1, 4, 5, 128, 129, 1024])
+def test_static_fold_edges_match_plain(cuda_device, k):
+    # a partial quad of keys (k = 1, 5, 129), whole quads (4, 128), a full
+    # launch (1024); duplicates, keys past the domain, a block_offset
+    for width in WIDTHS:
+        values = _values(width, N, width + k, cuda_device)
+        tiles = unpack.pack_device_kernel(values, width).tiles
+        keys = np.random.default_rng(k + width).integers(0, 2 << width, size=k).tolist()
+        keys[: min(k, 4)] = [int(values[3]), int(values[3]), 0xFFFFFFFF, 1 << width][: min(k, 4)]
+        for bo in (0, 2):
+            before = scan.shared_scan_bitsliced_static_tiles.launches
+            _same(scan.shared_scan_bitsliced_static_tiles(tiles, keys, width, N, bo),
+                  scan.shared_scan_bitsliced_static_tiles_plain(tiles, keys, width, N, bo))
+            assert scan.shared_scan_bitsliced_static_tiles.launches == before + 1
+
+
+@pytest.mark.parametrize("width", [9, 31])
+def test_static_fold_masks_past_48kb_of_shared_memory(cuda_device, width):
+    # 1024 keys' plane masks take (width + 1) * 4 KB: 40 KB at width 9 (one
+    # stage a CTA), 128 KB at width 31 (staged a chunk at a time)
     tiles = unpack.pack_device_kernel(_values(width, N, 31, cuda_device), width).tiles
-    keys = np.random.default_rng(1).integers(0, 1 << 31, size=32).tolist()
-    _, slots = scan._static_program(width, tuple(keys))
-    assert slots * scan._static_threads(slots) * 4 > 48 * 1024
+    keys = np.random.default_rng(1).integers(0, 1 << width, size=1024).tolist()
+    if width == 31:
+        assert len(keys) * (width + 1) * 4 > 48 * 1024
     _same(scan.shared_scan_bitsliced_static_tiles(tiles, keys, width, N),
           scan.shared_scan_bitsliced_static_tiles_plain(tiles, keys, width, N))
 
@@ -176,14 +194,15 @@ def test_static_dag_past_48kb_of_shared_memory(cuda_device):
 def test_refused_static_launch_raises(cuda_device):
     width, n = 9, 1000
     tiles = torch.zeros((width, 8, 128), dtype=torch.int32, device=cuda_device)
-    prog, _ = scan._static_program_on(width, (3, 70), cuda_device)
-    bits = torch.empty((2, 8, 128), dtype=torch.int32, device=cuda_device)
-    counts = torch.zeros(2, dtype=torch.int64, device=cuda_device)
-    with pytest.raises(RuntimeError, match="sss_bitsliced_static_scan"):
-        # 4096 slots x 128 threads: 2 MB of shared memory, more than a CTA has
-        _cuda.launch("sss_bitsliced_static_scan", cuda_device, tiles.data_ptr(),
-                     prog.data_ptr(), prog.shape[0], 2, bits.data_ptr(), counts.data_ptr(),
-                     8 * 128, width, n, 0, 128, 4096)
+    keys = torch.zeros(1025, dtype=torch.int32, device=cuda_device)
+    bits = torch.empty((1025, 8, 128), dtype=torch.int32, device=cuda_device)
+    counts = torch.zeros(1025, dtype=torch.int64, device=cuda_device)
+    for k, w in ((1025, width), (0, width), (8, 32)):
+        # more keys than a launch's counters hold, none, a width past 31
+        with pytest.raises(RuntimeError, match="sss_bitsliced_static_fold"):
+            _cuda.launch("sss_bitsliced_static_fold", cuda_device, tiles.data_ptr(),
+                         keys.data_ptr(), k, bits.data_ptr(), counts.data_ptr(), 8 * 128, w, n,
+                         0)
 
 
 def test_dispatcher_launches_each_tier(cuda_device):
@@ -339,15 +358,56 @@ def test_member_ortree_whole_domain_and_out_of_domain(cuda_device):
     assert int(count) == 0 and not bits.any()
 
 
-def test_member_ortree_past_48kb_of_shared_memory(cuda_device):
-    width = 31
-    values = _values(width, N, 31, cuda_device)
+@pytest.mark.parametrize("width", [15, 16, 17, 18])
+def test_member_lookup_width_switch(cuda_device, width):
+    # the bitmap up to width 16, the search from 17: spread sets with a
+    # duplicate and keys past the domain, one window, a block_offset
+    values = _values(width, N, width + 90, cuda_device)
     tiles = unpack.pack_device_kernel(values, width).tiles
-    pats = tuple(sorted(set(values[:60].tolist())))
-    _, slots = scan._member_program(width, pats)
-    assert slots * scan._static_threads(slots) * 4 > 48 * 1024
-    _same(member._member_ortree_tiles(tiles, width, N, pats),
-          member._member_ortree_tiles_plain(tiles, width, N, pats))
+    v = values.cpu().numpy().view(np.uint32)
+    rng = np.random.default_rng(width)
+    spread = rng.integers(0, 1 << width, size=200).tolist() + v[:40].tolist()
+    for keys in (spread + [v[0], 1 << width, 0xFFFFFFFF], [int(v[7])], [int(v[7]) | 31]):
+        for bo in (0, 2):
+            before = member._member_ortree_tiles.launches
+            bits, count = member._member_ortree_tiles(tiles, width, N, keys, bo)
+            _same((bits, count), member._member_ortree_tiles_plain(tiles, width, N, keys, bo))
+            assert member._member_ortree_tiles.launches == before + 1
+            if bo == 0:
+                assert int(count) == int(np.isin(v, np.asarray(keys, np.uint32)).sum())
+
+
+def _keys_in_windows(v, nwin: int) -> list:
+    """2000 of the column's values, then one key in each of the lowest
+    windows they miss, to nwin 32-aligned windows in all."""
+    keys = v[:2000].tolist()
+    wins = {key >> 5 for key in keys}
+    w = 0
+    while len(wins) < nwin:
+        if w not in wins:
+            wins.add(w)
+            keys.append(32 * w + w % 32)
+        w += 1
+    return keys
+
+
+@pytest.mark.parametrize("width", [17, 20, 31])
+def test_member_lookup_search_table_past_shared_memory(cuda_device, width):
+    # the search table in shared memory up to 4096 windows, in device
+    # memory past it: 4095, 4096 and 4097 windows (P = 4096, 4096, 8192;
+    # width 17 has 4096 windows in all), far past the OR-tree tier's
+    # largest set in the redesign sweep
+    values = _values(width, N, width + 91, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    v = values.cpu().numpy().view(np.uint32)
+    for nwin in (4095, 4096, 4097)[: 2 if width == 17 else 3]:
+        keys = _keys_in_windows(v, nwin)
+        assert len(member.member_window_plan(keys)[0]) == nwin
+        table = member.member_set_table(width, member._ortree_patterns(width, keys))
+        assert table.shape[1] == (4096 if nwin <= 4096 else 8192)
+        bits, count = member._member_ortree_tiles(tiles, width, N, keys)
+        _same((bits, count), member._member_ortree_tiles_plain(tiles, width, N, keys))
+        assert int(count) == int(np.isin(v, np.asarray(keys, np.uint32)).sum())
 
 
 def test_member_runtime_tiers_never_reach_the_host(cuda_device, monkeypatch):

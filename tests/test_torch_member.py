@@ -179,28 +179,79 @@ ORTREE_CASES = [
     # width, keys
     (1, [1]),
     (8, list(range(1, 256, 2)) + list(range(0, 256, 2))),  # the whole domain: all ones
+    (9, list(range(512))),                                 # the whole domain at width 9
     (9, [3, 70, 141, 200, 262, 333, 400, 511, 0]),         # key 0 over padding
+    (16, "random40"),                                      # the widest bitmap
+    (17, "random40"),                                      # the narrowest search
+    (20, "random64"),
     (31, "random60"),
 ]
 
 
 @pytest.mark.parametrize("width,keys", ORTREE_CASES)
 def test_member_ortree_tiles_matches_jax(width, keys):
+    # the port's wrapper also gets a duplicate and keys past the domain,
+    # which it drops; the JAX body takes the in-domain set, sorted
     values, jdev, tdev = _column(width, N, seed=width + 5)
-    if keys == "random60":
-        keys = values[np.random.default_rng(6).integers(0, N, size=60)].tolist()
+    if isinstance(keys, str):
+        k = int(keys[len("random"):])
+        keys = values[np.random.default_rng(6).integers(0, N, size=k)].tolist()
     pats = tuple(sorted(set(keys)))
     jout = jmember._member_ortree_tiles(jdev.tiles, width, N, None, True, pats, 0)
-    tout = tmember._member_ortree_tiles(tdev.tiles, width, N, pats)
+    tout = tmember._member_ortree_tiles(tdev.tiles, width, N,
+                                        keys + [keys[0], 1 << width, 0xFFFFFFFF])
     _assert_same(tout, jout)
     assert int(tout[1]) == _expect_count(values, keys)
 
 
-def test_member_ortree_tiles_out_of_domain_and_empty():
-    values, _, tdev = _column(6, N, seed=11)
-    bits, count = tmember._member_ortree_tiles(tdev.tiles, 6, N, (64, 100, 0xFFFFFFFF))
-    assert int(count) == 0 and not bits.any()
-    bits, count = tmember._member_ortree_tiles(tdev.tiles, 6, N, (5, 64))
+SET_TABLE_CASES = [
+    # width, keys (drawn: half of them past the domain, one duplicate)
+    (1, [1, 1, 2, 0xFFFFFFFF]),
+    (9, list(range(512))),                        # the whole domain
+    (9, [3, 70, 70, 141, 511, 512, 1 << 20]),
+    (16, "random300"),
+    (17, "random300"),
+    (20, "random64"),
+    (20, []),
+    (31, "random300"),
+]
+
+
+@pytest.mark.parametrize("width,keys", SET_TABLE_CASES)
+def test_member_set_table_matches_jax(width, keys):
+    # the lookup's table against the JAX package's domain bitmap (widths
+    # up to 16) or its window plan (past 16), with the search table's
+    # padding to a power of two
+    if isinstance(keys, str):
+        rng = np.random.default_rng(width)
+        keys = rng.integers(0, 2 << width, size=int(keys[len("random"):])).tolist()
+        keys[1] = keys[0]
+    pats = tmember._ortree_patterns(width, keys)
+    assert list(pats) == sorted({k for k in keys if k < 1 << width})
+    table = _u32(tmember.member_set_table(width, pats))
+    if width <= tmember.MAX_DOMAIN_WIDTH:
+        want = np.asarray(jmember.domain_table(np.asarray(pats, np.uint32), width)).reshape(-1)
+        np.testing.assert_array_equal(table, want)
+        return
+    bases, pops = jmember.member_window_plan(np.asarray(pats, np.uint32))
+    p = table.shape[1]
+    assert table.shape == (2, p) and p & (p - 1) == 0 and max(1, len(bases)) <= p
+    assert p == 1 or p < 2 * len(bases)
+    assert table[0, : len(bases)].tolist() == bases and table[1, : len(pops)].tolist() == pops
+    assert (table[0, len(bases):] == 0xFFFFFFFF).all() and not table[1, len(bases):].any()
+
+
+@pytest.mark.parametrize("width", [6, 20])
+def test_member_ortree_tiles_out_of_domain_and_empty(width):
+    # the bitmap (width 6) and the search table (width 20): a set wholly
+    # past the domain, or empty, matches nothing (the JAX body reads an
+    # empty set as the whole domain: a standing difference)
+    values, _, tdev = _column(width, N, seed=11)
+    dom = 1 << width
+    for keys in ((dom, dom + 36, 0xFFFFFFFF), ()):
+        bits, count = tmember._member_ortree_tiles(tdev.tiles, width, N, keys)
+        assert int(count) == 0 and not bits.any()
+    bits, count = tmember._member_ortree_tiles(tdev.tiles, width, N, (5, dom))
     assert int(count) == _expect_count(values, [5])
 
 
