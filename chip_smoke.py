@@ -48,10 +48,15 @@ from the sources in the checkout and then:
    the demo's WHERE clause, ``aggregate_scan_device`` with host keys
    (static bit-plane and compare tiers) and CUDA-tensor keys (runtime
    bit-plane and compare tiers, under ``set_sync_debug_mode("error")``) and
-   ``minmax_scan_device`` — with the launch counters set to 0 just before
+   ``minmax_scan_device``, and A7, ``aggregate_scan_device`` with the
+   20-bit revenue as the predicate of 16 spread host keys (the key lookup
+   past its byte table) — with the launch counters set to 0 just before
    and read just after; checks that each call ran the kernel its tier
    names and that every result equals plain torch on the raw values
    (``scatter_add_``, ``bincount``, ``scatter_reduce_``, the masked sum);
+   before it, the key lookup aggregate's edges at small ragged sizes
+   (constant, 90%-skewed and uniform predicates, duplicates, keys past the
+   domain, a block_offset, one CTA's sum past 2^32);
 8. holds the histogram and zone-map kernels against their plain versions
    at small ragged sizes (widths 1-31, k 1-4096, key 0 over padding, keys
    past the domain, a lo within k of 2^32 -- wrapping for a runtime lo,
@@ -61,10 +66,12 @@ from the sources in the checkout and then:
    and lo = 2^32 - 3; the domain histogram at widths 13, 16 and 20 with
    ragged n, constant and skewed columns), then drives the statistics path
    at full size — ``histogram_device`` on the ``i % 512`` column with a
-   host lo (the bins kernel's span form, the chunked AND-DAG kernel) and a
+   host lo (the bins kernel's span form, and as the chunked tier) and a
    CUDA-tensor lo (bins kernel, under ``set_sync_debug_mode("error")``),
-   ``stats`` on ``price`` and on the 20-bit ``revenue`` (one pass of the
-   domain histogram) — and the zone-map
+   ``stats`` on ``price``, on the 20-bit ``revenue`` (one pass of the
+   domain histogram), and H6-H8: ``stats.histogram_full`` of a uniform
+   12-bit column of 512 MiB packed, of ``status`` and of a 1-bit flag
+   column, each one launch of the chunked tier — and the zone-map
    path on three columns of the same n (clustered, clustered at both ends,
    uniform ``price``): ``build_zonemap``, pruned and zoned equality scans
    and ``evaluate`` with zone maps, with the launch counters set to 0 just
@@ -195,9 +202,8 @@ KERNELS = {  # name -> (source, its C entry point, TPU kernel it replaces)
                          "shared_simd_scan_tpu/ops/member.py:321"),
     "aggregate_scan": ("shared_simd_scan_tpu_torch/csrc/aggregate.cu", "sss_agg_compare",
                        "shared_simd_scan_tpu/ops/aggregate.py:55"),
-    "aggregate_bitplane_static": ("shared_simd_scan_tpu_torch/csrc/agg_bitplane.cu",
-                                  "sss_agg_bitplane_static",
-                                  "shared_simd_scan_tpu/ops/aggregate.py:233"),
+    "aggregate_bitplane_static": ("shared_simd_scan_tpu_torch/csrc/agg_lookup.cu",
+                                  "sss_agg_lookup", "shared_simd_scan_tpu/ops/aggregate.py:233"),
     "aggregate_bitplane": ("shared_simd_scan_tpu_torch/csrc/agg_bitplane.cu", "sss_agg_bitplane",
                            "shared_simd_scan_tpu/ops/aggregate.py:258"),
     "minmax_scan": ("shared_simd_scan_tpu_torch/csrc/aggregate.cu", "sss_agg_compare",
@@ -206,7 +212,9 @@ KERNELS = {  # name -> (source, its C entry point, TPU kernel it replaces)
                          "shared_simd_scan_tpu/ops/aggregate.py:671"),
     "histogram": ("shared_simd_scan_tpu_torch/csrc/histogram.cu", "sss_histogram",
                   "shared_simd_scan_tpu/ops/scan.py:1553"),
-    "histogram_dag": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu", "sss_histogram_dag",
+    # the bins kernel with lo by value; at the narrowest widths the static
+    # fold's counts form (FOLD_KERNEL), as _histogram_chunked_tiles picks
+    "histogram_dag": ("shared_simd_scan_tpu_torch/csrc/histogram.cu", "sss_histogram_span",
                       "shared_simd_scan_tpu/ops/scan.py:1716"),
     "histogram_span": ("shared_simd_scan_tpu_torch/csrc/histogram.cu", "sss_histogram_span",
                        "shared_simd_scan_tpu/ops/scan.py:1816"),
@@ -233,6 +241,8 @@ KERNELS = {  # name -> (source, its C entry point, TPU kernel it replaces)
     "shared_scan_dynamic": ("shared_simd_scan_tpu_torch/csrc/shared_scan.cu",
                             "sss_shared_scan_dynamic", "shared_simd_scan_tpu/ops/scan.py:2089"),
 }
+# the other kernel of the histogram_dag entry: (source, C entry point)
+FOLD_KERNEL = ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu", "sss_histogram_fold")
 # the kernels also timed on S64 of a 20-bit i % 512 column (the lookup's
 # search past width 16; the static fold's 20 planes)
 WIDTH20 = ("bitsliced_static_scan", "member_ortree")
@@ -256,6 +266,11 @@ AGG_PAIRS = ((1, 16), (2, 17), (9, 31), (16, 1), (17, 2), (31, 9), (9, 20), (5, 
 # the statistics path's kernels, and the set each one reports
 HISTOGRAM = {"histogram_span": "H1", "histogram_dag": "H2", "histogram": "H3",
              "histogram_domain": "H5"}
+# H6's column: 12 bits, 512 MiB packed (a full-domain histogram of 4096 keys
+# in one launch of the chunked tier); H8's: a 1-bit flag column of the
+# table's n (the fold's counts form)
+H6_WIDTH = 12
+H8_WIDTH = 1
 # the zone-map path's kernel, and the set it reports
 ZONED = {"zoned_range_scan": "Z3"}
 # the linear export's kernels, and the shape each one reports (L sets of
@@ -394,6 +409,7 @@ def build_phase() -> float:
     print(f"build: {seconds:.1f} s ({_cuda.library_path().name})")
     for name, (_, c_entry, _) in KERNELS.items():
         check(c_entry in _cuda._SIGNATURES, f"{name}: its entry point {c_entry} is in the library")
+    check(FOLD_KERNEL[1] in _cuda._SIGNATURES, f"histogram_dag: {FOLD_KERNEL[1]} is in the library")
     log_path = _cuda.BUILD_DIR / "ptxas.log"
     log_path.write_text(_cuda.build_log)
     # registers and spills of the width-9 kernels (the main path's width),
@@ -1269,6 +1285,73 @@ def small_aggregate_phase(device, errs: dict) -> None:
               f"(width pairs {AGG_PAIRS}, n {SMALL_NS})")
 
 
+def small_lookup_phase(device, errs: dict) -> None:
+    """The edges of the two one-pass kernels of the tiers the JAX package
+    runs as AND-DAG programs, against their plain versions: the key lookup
+    aggregate on constant, 90%-skewed and uniform predicates at the byte
+    table's widths and the search's, with key 0 over the padding of a
+    ragged n, a duplicate, keys >= 2^wp and 0xFFFFFFFF, a block_offset,
+    and a sum past 2^32 within one CTA (8192 values of 2^31 - 1, one
+    tile); the chunked histogram tier (the fold's counts form and the bins
+    kernel) on the same kinds of columns at widths 1-12 and 31, keys from
+    2^32 - 3 (k = 40 and 1000: all zeros) and a block_offset."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch.ops import aggregate as agg
+    from shared_simd_scan_tpu_torch.ops import scan, unpack
+
+    rng = np.random.default_rng(SEED + 7)
+
+    def t32(a):
+        return torch.from_numpy(np.asarray(a, np.int64).astype(np.uint32).view(np.int32)).to(device)
+
+    def columns(width, n):
+        dom = 1 << width
+        uniform = rng.integers(0, dom, size=n)
+        return {"uniform": uniform, "constant": np.full(n, dom // 3),
+                "skewed": np.where(rng.random(n) < 0.9, dom - 1, uniform)}
+
+    n = SMALL_NS[1]  # not a multiple of 32: the last block holds padding
+    for wp in (1, 5, 16, 17, 20, 31):
+        dom = 1 << wp
+        for label, pv in columns(wp, n).items():
+            pt = unpack.pack_device_kernel(t32(pv), wp).tiles
+            keys = [0, int(pv[1]), int(pv[1]), dom, 0xFFFFFFFF, dom // 3, dom - 1]
+            for wm in (1, 31):
+                mt = unpack.pack_device_kernel(t32(rng.integers(0, 1 << wm, size=n)), wm).tiles
+                for bo in (0, 3):
+                    errs["aggregate_bitplane_static"] = max(
+                        errs["aggregate_bitplane_static"],
+                        max_err(agg.aggregate_bitplane_static_tiles(pt, mt, keys, wp, wm, n, bo),
+                                agg.aggregate_bitplane_static_tiles_plain(pt, mt, keys, wp, wm, n,
+                                                                          bo)))
+    top = (1 << 31) - 1
+    pt = unpack.pack_device_kernel(t32(np.full(8192, 5)), 3).tiles
+    mt = unpack.pack_device_kernel(t32(np.full(8192, top)), 31).tiles
+    counts, sums = agg.aggregate_bitplane_static_tiles(pt, mt, [5, 0, 5], 3, 31, 8192)
+    check(counts.tolist() == [8192, 0, 8192] and sums.tolist() == [8192 * top, 0, 8192 * top],
+          f"aggregate_bitplane_static: one CTA's sum {sums.tolist()[0]} of 8192 values 2^31 - 1 "
+          "(past 2^32), a duplicate key and an absent one")
+    for width in (*range(1, 13), 31):
+        dom = 1 << width
+        for label, vals in columns(width, n).items():
+            tiles = unpack.pack_device_kernel(t32(vals), width).tiles
+            for lo, k in ((0, min(dom, 4096)), (0, 1), (0, 2), (dom // 3, 8), (0, 40),
+                          ((1 << 32) - 3, 40), ((1 << 32) - 3, 1000)):
+                for bo in (0, 3):
+                    errs["histogram_dag"] = max(
+                        errs["histogram_dag"],
+                        max_err(scan._histogram_chunked_tiles(tiles, lo, k, width, n, bo),
+                                scan._histogram_chunked_tiles_plain(tiles, lo, k, width, n, bo)))
+            zero = scan._histogram_chunked_tiles(tiles, (1 << 32) - 3, 1000, width, n)
+            check(int(zero.abs().sum()) == 0, f"histogram_dag: keys from 2^32 - 3 count nothing "
+                  f"(width {width}, {label})")
+    torch.cuda.synchronize()
+    for name in ("aggregate_bitplane_static", "histogram_dag"):
+        check(errs[name] == 0, f"{name} kernel exact against its plain version on constant, "
+              f"skewed and uniform columns (n {n}, block_offset 0 and 3)")
+
+
 # the aggregate phase's sets: name -> (what, the tier pick_aggregate_tier must name)
 AGG_SETS = {
     "A1": ("masked_aggregate_device(revenue, evaluate(Q1))", None),
@@ -1277,9 +1360,13 @@ AGG_SETS = {
     "A4": ("aggregate_scan_device(region, revenue, CUDA keys 0..7)", "bitplane"),
     "A5": ("aggregate_scan_device(price, revenue, CUDA keys [3, 70])", "compare"),
     "A6": ("minmax_scan_device(region, revenue, 0..7)", None),
+    "A7": ("aggregate_scan_device(revenue, price, 16 spread host keys)", "bitplane"),
 }
+# A7's keys: 16 values spread over revenue's 20-bit domain
+A7_KEYS = [5521, 58228, 236145, 298913, 314745, 524063, 606377, 655451, 717405, 813357, 861120,
+           874138, 915983, 940786, 956952, 990790]
 AGG_KEYS = {"A2": list(range(32)), "A3": [3], "A4": list(range(8)), "A5": [3, 70],
-            "A6": list(range(8))}
+            "A6": list(range(8)), "A7": A7_KEYS}
 
 
 def aggregate_phase(device, cols) -> tuple[dict, dict]:
@@ -1307,6 +1394,7 @@ def aggregate_phase(device, cols) -> tuple[dict, dict]:
         "A4": lambda: aggregate_scan_device(region, rev, runtime["A4"]),
         "A5": lambda: aggregate_scan_device(price, rev, runtime["A5"]),
         "A6": lambda: minmax_scan_device(region, rev, AGG_KEYS["A6"]),
+        "A7": lambda: aggregate_scan_device(rev, price, AGG_KEYS["A7"]),
     }
     for fn in kernels.values():
         fn.launches = 0
@@ -1329,14 +1417,17 @@ def aggregate_phase(device, cols) -> tuple[dict, dict]:
 
     for name in AGGREGATE:
         check(launches[name] > 0, f"aggregate path launched the {name} kernel ({launches[name]}x)")
-    columns = {"A2": region, "A3": price, "A4": region, "A5": price}
+    # set -> (predicate, measure, the predicate's name) of its keyed aggregate
+    columns = {"A2": (region, rev, "region"), "A3": (price, rev, "price"),
+               "A4": (region, rev, "region"), "A5": (price, rev, "price"),
+               "A7": (rev, price, "revenue")}
     tier_kernel = {("bitplane", False): "aggregate_bitplane_static", ("compare", False):
                    "aggregate_scan", ("bitplane", True): "aggregate_bitplane",
                    ("compare", True): "aggregate_scan"}
     want = {"A1": "masked_aggregate", "A6": "minmax_scan"}
-    for name, col in columns.items():
+    for name, (pcol, mcol, _) in columns.items():
         keys = runtime.get(name, AGG_KEYS[name])
-        tier = aggregate.pick_aggregate_tier(col.width, REVENUE_WIDTH, keys)
+        tier = aggregate.pick_aggregate_tier(pcol.width, mcol.width, keys)
         check(tier == AGG_SETS[name][1], f"{name}: pick_aggregate_tier names {tier}")
         want[name] = tier_kernel[(tier, name in runtime)]
     for name, (what, _) in AGG_SETS.items():
@@ -1356,16 +1447,21 @@ def aggregate_phase(device, cols) -> tuple[dict, dict]:
             maxs.scatter_reduce_(0, g, raw["revenue"], "amax")
             truth["minmax"] = (mins, maxs)
         del g
+    g = raw["revenue"].to(torch.int64)
+    truth["revenue"] = (torch.zeros(1 << REVENUE_WIDTH, dtype=torch.int64, device=device)
+                        .scatter_add_(0, g, raw["price"].to(torch.int64)),
+                        torch.bincount(g, minlength=1 << REVENUE_WIDTH))
+    del g
     mask = query_truth("Q1", raw)
     total, count = outs["A1"]
     want_total = int(torch.where(mask, r64, 0).sum())
     check(int(count) == int(mask.sum()) and int(total) == want_total,
           f"A1: SUM(revenue) {int(total)} and COUNT {int(count)} over Q1 == the masked plain-torch "
           "sum and count on the raw values")
-    for name, col in columns.items():
+    for name, (_, _, pname) in columns.items():
         sums, counts = outs[name]
         keys = torch.tensor(AGG_KEYS[name], device=device)
-        tsums, tcounts = truth["region" if col is region else "price"]
+        tsums, tcounts = truth[pname]
         check(torch.equal(sums, tsums[keys]) and torch.equal(counts, tcounts[keys]),
               f"{name}: every sum and count equals scatter_add_ / bincount on the raw values")
     mins, maxs, counts = outs["A6"]
@@ -1376,7 +1472,8 @@ def aggregate_phase(device, cols) -> tuple[dict, dict]:
           "A6: every count, min and max equals bincount / scatter_reduce_ (amin, amax) on the raw "
           "values")
     print(f"A1: SUM(revenue) {int(total)}, COUNT {int(count)}; A2 sums[:4] "
-          f"{outs['A2'][0][:4].tolist()}; A6 mins {mins.tolist()}, maxs {maxs.tolist()}")
+          f"{outs['A2'][0][:4].tolist()}; A6 mins {mins.tolist()}, maxs {maxs.tolist()}; A7 "
+          f"counts {outs['A7'][1].tolist()}")
     row = aggregate.bits_from_canonical(query.evaluate(q1)[0], rev.tiles.shape[1])
     del raw, r64, mask, truth
     return {"rev": rev, "row": row, "runtime": runtime}, launches
@@ -1436,6 +1533,14 @@ def aggregate_timing_phase(device, cols, agg_data, errs: dict) -> dict:
             # the plain version where the set's tier runs this kernel
             checked = AGGREGATE[kernel] == name or (kernel, name) == ("aggregate_scan", "A5")
             pairs[f"{kernel} {name}"] = (kern, plain if checked else None, nbytes(name, 2))
+    # A7: the 20-bit revenue as the predicate, price as the measure
+    ptile = cols["price"].tiles
+    pairs["aggregate_bitplane_static A7"] = (
+        lambda: agg.aggregate_bitplane_static_tiles(mt, ptile, AGG_KEYS["A7"], wm, TABLE["price"],
+                                                    n),
+        lambda: agg.aggregate_bitplane_static_tiles_plain(mt, ptile, AGG_KEYS["A7"], wm,
+                                                          TABLE["price"], n),
+        mt.numel() * 4 + ptile.numel() * 4 + 4 * len(A7_KEYS) + 16 * len(A7_KEYS))
     for name, (kern, plain, _) in pairs.items():
         if plain is None:
             continue
@@ -1459,6 +1564,10 @@ def aggregate_timing_phase(device, cols, agg_data, errs: dict) -> dict:
               f", bound {bound_ms:.6f} ms for {nb} bytes)"
               + (f"; plain {plain_ms:.6f} ms" if plain_ms is not None else ""))
     print("library: no PyTorch call aggregates a bit-packed column, so library_ms is null")
+    print("the key lookup aggregate (the static bit-plane tier):")
+    kernel_report({"agg_lookup_kernelILi0E": "key lookup, byte table (wp <= 16)",
+                   "agg_lookup_kernelILi1E": "key lookup, 16-bit window (wp > 16, A7)",
+                   "agg_lookup_kernelILi2E": "key lookup, search (wp > 16)"})
     q1 = query_trees(query, cols)["Q1"]
     walls = []
     for _ in range(6):
@@ -1570,19 +1679,30 @@ def small_stats_phase(device, errs: dict) -> None:
               f"{n_steps}; the domain histogram at widths 13, 16 and 20)")
 
 
-def stats_phase(device, arb, cols, rev) -> dict:
+def stats_phase(device, arb, cols, rev) -> tuple[dict, dict]:
     """The statistics path at full size, with launch counts taken around
     each call: H1-H3 ``histogram_device`` on the i % 512 column, H4
-    ``stats`` on ``price``, H5 ``stats.histogram_full`` on ``revenue``."""
+    ``stats`` on ``price``, H5 ``stats.histogram_full`` on ``revenue``, H6
+    on a uniform 12-bit column of 512 MiB packed, H7 on ``status`` and H8
+    on a 1-bit flag column.  Returns the launches and H6's and H8's
+    columns."""
     import numpy as np
     import torch
-    from shared_simd_scan_tpu_torch import histogram_device, stats
+    from shared_simd_scan_tpu_torch import histogram_device, pack_device_kernel, stats
+    from shared_simd_scan_tpu_torch.bench.harness import values_for
 
     kernels = {name: fn for name, fn in wrappers().items() if name in HISTOGRAM}
     n = arb.n
     raw = draw_columns(device, n, {**TABLE, "revenue": REVENUE_WIDTH})
-    price_raw, rev_raw = raw["price"], raw["revenue"]
+    price_raw, rev_raw, status_raw = raw["price"], raw["revenue"], raw["status"]
     del raw
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 6)
+    h6_raw = torch.randint(0, 1 << H6_WIDTH, (values_for(DATA_SIZE, H6_WIDTH),), generator=gen,
+                           device=device, dtype=torch.int32)
+    h6 = pack_device_kernel(h6_raw, H6_WIDTH)
+    flags_raw = (torch.rand(n, generator=gen, device=device) < 0.3).to(torch.int32)
+    flags = pack_device_kernel(flags_raw, H8_WIDTH)
     price = cols["price"]
     lo_t = torch.zeros(1, dtype=torch.int32, device=device)  # made before the sync-debug mode
     torch.cuda.synchronize()
@@ -1611,12 +1731,16 @@ def stats_phase(device, arb, cols, rev) -> dict:
     run("H3", lambda: histogram_device(arb, lo_t), strict=True)
     run("H4", lambda: (stats.describe(price), stats.quantiles(price, QS), stats.topk_values(price, 5)))
     run("H5", lambda: stats.histogram_full(rev))
+    run("H6", lambda: stats.histogram_full(h6))
+    run("H7", lambda: stats.histogram_full(cols["status"]))
+    run("H8", lambda: stats.histogram_full(flags))
     launches = {name: fn.launches for name, fn in kernels.items()}
     print(f"statistics path launches {launches}; host clock per set (first calls, ms): "
           + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
 
     want = {"H1": {"histogram_span": 1}, "H2": {"histogram_dag": 1}, "H3": {"histogram": 1},
-            "H4": {"histogram_span": 3}, "H5": {"histogram_domain": 1}}
+            "H4": {"histogram_span": 3}, "H5": {"histogram_domain": 1},
+            "H6": {"histogram_dag": 1}, "H7": {"histogram_dag": 1}, "H8": {"histogram_dag": 1}}
     for name, w in want.items():
         check(ran[name] == w, f"{name}: ran {ran[name]}, the kernel its rule names")
     expect = torch.tensor([(n - 1 - j) // DOMAIN + 1 for j in range(DOMAIN)], device=device)
@@ -1646,7 +1770,14 @@ def stats_phase(device, arb, cols, rev) -> dict:
           f"H5: histogram_full(revenue), 2^{REVENUE_WIDTH} counts == torch.bincount on the raw "
           "values")
     print(f"H5 histogram_full(revenue): {walls['H5']:.3f} ms host clock, first call")
-    return launches
+    for name, raw, width in (("H6", h6_raw, H6_WIDTH), ("H7", status_raw, TABLE["status"]),
+                             ("H8", flags_raw, H8_WIDTH)):
+        truth = torch.bincount(raw.to(torch.int64), minlength=1 << width)
+        check(np.array_equal(outs[name], truth.cpu().numpy()),
+              f"{name}: histogram_full of a {width}-bit column of {raw.numel()} values, "
+              f"2^{width} counts == torch.bincount on the raw values")
+    del h6_raw, flags_raw
+    return launches, {"h6": h6, "flags": flags}
 
 
 def zone_columns(device, n: int, price) -> tuple[dict, dict]:
@@ -1749,9 +1880,11 @@ def zone_phase(device, cols) -> tuple[dict, dict]:
     return {"zcols": zcols, "zmaps": zmaps, "spans": spans, "live": live}, launches
 
 
-def stats_timing_phase(device, arb, rev, zdata, errs: dict) -> dict:
+def stats_timing_phase(device, arb, rev, zdata, stats_cols, cols, errs: dict) -> dict:
     """The statistics and zone-map kernels and their plain versions at full
-    size (H1-H3 on the i % 512 column, Z3 on the ends column); beside them
+    size (H1-H3 on the i % 512 column, H6-H8 the chunked tier on the
+    statistics phase's 12-bit, status and flag columns, Z3 on the ends
+    column); beside them
     the two histogram algorithms, unpack + ``torch.bincount``, one H5
     window and H5's wall time, and Z2/Z3 against the full-column range
     scan."""
@@ -1785,6 +1918,13 @@ def stats_timing_phase(device, arb, rev, zdata, errs: dict) -> dict:
         "histogram_dag H2": (lambda: scan._histogram_chunked_tiles(tiles, 100, 40, WIDTH, n),
                              lambda: scan._histogram_chunked_tiles_plain(tiles, 100, 40, WIDTH, n),
                              tile_bytes + 40 * 8),
+        **{f"histogram_dag {name}": (
+            lambda c=c: scan._histogram_chunked_tiles(c.tiles, 0, 1 << c.width, c.width, c.n),
+            lambda c=c: scan._histogram_chunked_tiles_plain(c.tiles, 0, 1 << c.width, c.width,
+                                                            c.n),
+            c.tiles.numel() * 4 + (8 << c.width))
+           for name, c in (("H6", stats_cols["h6"]), ("H7", cols["status"]),
+                           ("H8", stats_cols["flags"]))},
         "histogram H3": (lambda: scan.histogram_tiles(tiles, lo_t, DOMAIN, WIDTH, n),
                          lambda: scan.histogram_tiles_plain(tiles, lo_t, DOMAIN, WIDTH, n),
                          tile_bytes + 4 + DOMAIN * 8),
@@ -1827,9 +1967,11 @@ def stats_timing_phase(device, arb, rev, zdata, errs: dict) -> dict:
     print(f"time H1 full-domain histogram, the two forms of the bins kernel: span (host lo) "
           f"{results['histogram_span H1'][0]:.6f} ms, runtime lo (H3) "
           f"{results['histogram H3'][0]:.6f} ms")
-    print("the bins kernel (width 9) and the domain histogram (width 20):")
+    print("the bins kernel (width 9), the domain histogram (width 20) and the fold's counts "
+          "form (width 1):")
     kernel_report({"histogram_kernelILi9ELb1ELb1E": "bins kernel, width 9",
-                   "histogram_domain_kernelILi20EyLb1E": "domain histogram, width 20"})
+                   "histogram_domain_kernelILi20EyLb1E": "domain histogram, width 20",
+                   "static_fold_kernelILi1ENS_8SpanKeysELi2E": "fold's counts form, width 1"})
 
     def unpack_bincount():  # the padding's zero values leave bin 0
         vals = unpack.unpack_tiles(tiles, WIDTH)
@@ -2445,10 +2587,12 @@ def main() -> int:
     cols, query_launches = query_phase(device, arb)
     launches.update({name: query_launches[name] for name in QUERY})
     small_aggregate_phase(device, errs)
+    small_lookup_phase(device, errs)
     agg_data, agg_launches = aggregate_phase(device, cols)
     launches.update(agg_launches)
     small_stats_phase(device, errs)
-    launches.update(stats_phase(device, arb, cols, agg_data["rev"]))
+    stats_launches, stats_cols = stats_phase(device, arb, cols, agg_data["rev"])
+    launches.update(stats_launches)
     zdata, zone_launches = zone_phase(device, cols)
     launches.update({name: zone_launches[name] for name in ZONED})
     small_linear_phase(device, errs)
@@ -2456,10 +2600,10 @@ def main() -> int:
     times = timing_phase(device, n, dev, arb, errs)
     times.update(query_timing_phase(device, cols, arb, errs))
     times.update(aggregate_timing_phase(device, cols, agg_data, errs))
-    times.update(stats_timing_phase(device, arb, agg_data["rev"], zdata, errs))
+    times.update(stats_timing_phase(device, arb, agg_data["rev"], zdata, stats_cols, cols, errs))
     # the linear timing phase's plain twins hold int64 words of 64 keys
     # (7.1 GiB): free the query, aggregate and zone-map data before it
-    del cols, agg_data, zdata
+    del cols, agg_data, zdata, stats_cols
     torch.cuda.empty_cache()
     times.update(width20_phase(device, errs))
     print(f"before the linear timing phase: {torch.cuda.memory_allocated()} bytes allocated, "
@@ -2515,7 +2659,9 @@ def main() -> int:
         if name in WIDTH20:
             e["ms_w20_s64"], e["plain_ms_w20_s64"], e["bound_ms_w20_s64"] = \
                 times[f"{name} w20 S64"]
-        if name in AGGREGATE:
+        if name == "histogram_dag":  # H8 runs the fold's counts form
+            e["fold_kernel"], e["fold_source"] = FOLD_KERNEL[1], FOLD_KERNEL[0]
+        if name in AGGREGATE or name == "histogram_dag":
             for other, (ms_o, plain_o, bound_o) in times.items():
                 kernel, _, label = other.partition(" ")
                 if kernel == name and other != key:

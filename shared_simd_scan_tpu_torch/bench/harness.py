@@ -406,8 +406,8 @@ def chain_histogram(tiles, k, *, width, n, kk):
 
 def chain_histogram_dag(tiles, k, *, width, n, kk, sp=None):
     """Host-lo histogram (the dispatch path of ``histogram_dag_tiles``);
-    ``sp`` forces the single-pass span tier (True) or the chunked AND-DAG
-    programs (False)."""
+    ``sp`` forces the single-pass span tier (True) or the chunked tier
+    (False)."""
     return _last(k, lambda: scan_ops.histogram_dag_tiles(
         tiles, 0, kk, width, n, single_pass=sp)).sum()
 
@@ -744,11 +744,11 @@ def bench_histogram(
     device=None,
 ):
     """Counts-only value histogram, no bitvector output: the host-lo
-    dispatch path (the span tier, or the chunked AND-DAG programs; its row
-    keeps the JAX CLI's name) and the runtime-lo bins kernel.  Default k = the
+    dispatch path (the span tier, or the chunked tier; its row keeps the
+    JAX CLI's name) and the runtime-lo bins kernel.  Default k = the
     full domain (2^width, capped at 4096).  Bytes: the packed column read
-    once per pass (one per static group for the chunked programs) and k
-    int64 counts."""
+    once per pass (``histogram_dag_passes``: one for every k in the port)
+    and k int64 counts."""
     device = layout.resolve_device(device)
     n = values_for(data_size, width)
     vals = synth_ramp(n, width, device=device)  # uniform coverage of the whole domain

@@ -3,9 +3,10 @@
     python -m shared_simd_scan_tpu_torch.bench.redesign_sweep [SECTION ...]
 
 SECTION is any of copy, chunked, dynamic, bins, domain, fold, static,
-ortree (default: all).  Builds ``redesign_sweep.cu`` (copy, chunked,
-dynamic), ``redesign_sweep_bins_fold.cu`` (bins, domain, fold) and
-``redesign_sweep_static_member.cu`` (static, ortree), beside this file,
+ortree, histdag, aggstatic (default: all).  Builds ``redesign_sweep.cu``
+(copy, chunked, dynamic), ``redesign_sweep_bins_fold.cu`` (bins, domain,
+fold), ``redesign_sweep_static_member.cu`` (static, ortree) and
+``redesign_sweep_hist_agg.cu`` (histdag, aggstatic), beside this file,
 with nvcc into the package's ``_build/`` (in parallel) and prints their
 registers and shared memory per kernel.  Then, with CUDA events (the
 median of 5 batches of 10 calls, each variant timed twice, in one order
@@ -81,7 +82,32 @@ and then in the reverse one):
   128 and 256 threads, the package's ``_member_ortree_tiles`` (the lookup:
   the bitmap, or the search in shared memory), the search read from device
   memory, and ``_member_domain_tiles`` (width 9); every variant's words
-  equal to the interpreter's and its count to the closed form first.
+  equal to the interpreter's and its count to the closed form first;
+- histdag: the host-lo histogram of keys lo..lo+k-1 (the tier of the
+  JAX package's chunked AND-DAG programs) on uniform columns of 512 MiB
+  packed at widths 1-6, 8, 9 and 12 (k from 1 to 4096: the whole domain and
+  windows at lo 0, and 1000 keys at lo 100 at width 12) and on the
+  ``i % 512`` column (H2: lo 100, k 40; and lo 0, k 40): the DAG
+  interpreter it replaced (one launch per ``_static_group_sizes`` group)
+  against (a) the bins kernel with lo by value and one spare counter, (b)
+  with a spare counter a lane, (c) the static fold's counts form at 256
+  and 128 threads a CTA (k <= 64), and the package's
+  ``_histogram_chunked_tiles``; every count equal to the interpreter's
+  (and on ``i % 512`` to the closed form) first;
+- aggstatic: the static bit-plane aggregate (host keys) at the query
+  table's n (477,218,588): A2 (a uniform 5-bit predicate, a 20-bit
+  measure, keys 0..31), A7 (a uniform 20-bit predicate, a 9-bit measure,
+  16 spread keys), a constant predicate and one 90% on a single key, and
+  A2's predicate with 8- and 31-bit measures: the DAG interpreter it
+  replaced against the key lookup (past 16 bits a byte table on a 16-bit
+  window of the value, or the binary search) with its sums as a 32-bit
+  word and its carries, with 64-bit shared atomics, with counters per
+  warp, with the lanes of one slot merged, with a warp's hot slot summed
+  in registers (always, or for the tiles where half a warp shares it),
+  with values that have no slot skipped and carries checked after eight
+  atomics, and the package's
+  ``aggregate_bitplane_static_tiles``; every count and sum equal to the
+  interpreter's first.
 
 The bins and fold sections also print, from ``cuobjdump -sass`` of the
 sweep's library, the instructions of each width-9 kernel's basic blocks
@@ -96,6 +122,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import functools
 import pathlib
 import re
 import statistics
@@ -108,13 +135,15 @@ import torch
 
 from shared_simd_scan_tpu_torch.bench import harness
 from shared_simd_scan_tpu_torch.layout import LANES
-from shared_simd_scan_tpu_torch.ops import _cuda, scan
+from shared_simd_scan_tpu_torch.ops import _cuda, aggregate, scan
 from shared_simd_scan_tpu_torch.ops.unpack import pack_device_kernel
 
 SOURCE = pathlib.Path(__file__).with_name("redesign_sweep.cu")
+HIST_AGG_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_hist_agg.cu")
 BINS_FOLD_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_bins_fold.cu")
 STATIC_MEMBER_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_static_member.cu")
-SECTIONS = ("copy", "chunked", "dynamic", "bins", "domain", "fold", "static", "ortree")
+SECTIONS = ("copy", "chunked", "dynamic", "bins", "domain", "fold", "static", "ortree",
+            "histdag", "aggstatic")
 COPY_BYTES = 512 * 1024 * 1024
 COPY_NAMES = {0: "batch (8 loads, then 8 stores)", 1: "pipelined 4", 2: "pipelined 8",
               3: "ring 16 KB x 4, resident grid", 4: "ring 32 KB x 4, resident grid",
@@ -168,6 +197,28 @@ STATIC_MEMBER_SASS = {
     "member_lookup_kernelILi20ELi1E": "member lookup, search in shared memory (width 20)",
     "member_fold_kernelILi9E": "member as a plane fold (width 9)",
 }
+HIST_NAMES = {1: "(a) the bins kernel, one spare counter",
+              2: "(b) the bins kernel, a spare counter a lane",
+              3: "(c) the fold's counts form, 256 threads",
+              4: "(c) the fold's counts form, 128 threads"}
+AGG_NAMES = {0: "the DAG interpreter before the redesign",
+             1: "the package's entry (the warp's choice per tile; the window past 16 bits)",
+             2: "lookup, 64-bit shared atomics", 3: "lookup, carries, counters per warp",
+             4: "lookup, the lanes of one slot merged", 5: "lookup, a warp's hot slot in registers",
+             6: "lookup, the sum's word and its carries", 7: "lookup, no-slot values skipped, "
+             "carries checked after eight atomics", 8: "the same, with a warp's hot slot in "
+             "registers", 9: "lookup, carries, the binary search past 16 bits",
+             10: "the package's form with the binary search past 16 bits"}
+HIST_AGG_SASS = {
+    "histogram_kernelILi9ELb1ELb1ELb0E": "bins, one spare counter (width 9)",
+    "histogram_kernelILi9ELb1ELb1ELb1E": "bins, a spare counter a lane (width 9)",
+    "static_fold_kernelILi1ENS_8SpanKeysELi2E": "the fold's counts form (width 1)",
+    "static_fold_kernelILi4ENS_8SpanKeysELi2E": "the fold's counts form (width 4)",
+    "agg_lookup_kernelILi0ELi6ELb0E": "aggregate lookup, table, the package's",
+    "agg_lookup_kernelILi1ELi6ELb0E": "aggregate lookup, window, the package's",
+    "agg_lookup_kernelILi2ELi6ELb0E": "aggregate lookup, search, the package's",
+    "agg_lookup_kernelILi0ELi0ELb0E": "aggregate lookup, table, carries",
+}
 WIDTH, DOMAIN = 9, 512
 HBM_BYTES_PER_S = 3.35e12
 
@@ -196,6 +247,9 @@ def _libraries(sources: list) -> dict:
         STATIC_MEMBER_SOURCE: {"sweep_static": [i, i, vp, vp, i, vp, i, i, vp, vp, ll, ll, vp],
                                "sweep_member": [i, i, vp, vp, i, vp, i, i, vp, i, vp, vp, ll, ll,
                                                 vp]},
+        HIST_AGG_SOURCE: {"sweep_hist_dag": [i, vp, vp, i, i, vp, ll, ll, i, i, vp],
+                          "sweep_hist": [i, i, vp, ctypes.c_uint32, i, vp, ll, ll, vp],
+                          "sweep_agg": [i, vp, vp, vp, i, vp, i, i, i, vp, vp, ll, i, i, ll, vp]},
     }
     libs = {}
     for source, (path, log) in built.items():
@@ -687,6 +741,164 @@ def static_sweep(lib, device, columns: dict) -> None:
         torch.cuda.empty_cache()
 
 
+@functools.lru_cache(maxsize=64)
+def _static_program_on(width: int, keys: tuple, device: torch.device) -> tuple[torch.Tensor, int]:
+    """``scan._static_program`` with its program copied to ``device``."""
+    prog, slots = scan._static_program(width, keys)
+    return torch.from_numpy(prog).to(device), slots
+
+
+def _random_tiles(device, width: int, b1: int, seed: int) -> torch.Tensor:
+    """Random packed words: a column of uniform ``width``-bit values."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.randint(-(1 << 31), 1 << 31, (width, b1, LANES), generator=gen, device=device,
+                         dtype=torch.int32)
+
+
+def histdag_sweep(lib, device) -> None:
+    """The host-lo histogram's designs on uniform columns of 512 MiB packed
+    at widths 1, 4, 9 and 12, and on the i % 512 column."""
+    stream = torch.cuda.current_stream().cuda_stream
+    u32 = (1 << 32) - 1
+    cases = {1: [(0, 2), (0, 1)], 2: [(0, 4), (0, 1), (0, 2)], 3: [(0, 8), (0, 2), (0, 4)],
+             4: [(0, 16), (0, 2), (0, 8), (0, 32)], 5: [(0, 32), (0, 2), (0, 8)],
+             6: [(0, 64), (0, 2), (0, 8)], 8: [(0, 256), (0, 2)],
+             9: [(0, 2), (0, 8), (0, 32), (0, 48), (0, 64), (0, 512), (0, 4096)],
+             12: [(0, 2), (0, 48), (100, 1000), (0, 4096)]}
+    columns = [(f"uniform {w}-bit", w, None) for w in cases]
+    columns.append(("i % 512", WIDTH, [(100, 40), (0, 40)]))
+    for label, width, sets in columns:
+        if sets is None:
+            b1 = COPY_BYTES // (width * LANES * 4)
+            tiles, n = _random_tiles(device, width, b1, width), b1 * LANES * 32
+            sets = cases[width]
+        else:
+            n = harness.values_for(COPY_BYTES, width)
+            tiles = pack_device_kernel(harness.synth_modk(n, DOMAIN, width, device=device),
+                                       width).tiles
+        nblocks = tiles.shape[1] * LANES
+        for lo, k in sets:
+            counts = torch.zeros(k, dtype=torch.int64, device=device)
+
+            def before():
+                counts.zero_()
+                g0 = 0
+                for g in scan._static_group_sizes(k):
+                    keys = tuple(min(lo + g0 + j, u32) for j in range(g))
+                    prog, slots = _static_program_on(width, keys, device)
+                    rc = lib.sweep_hist_dag(width, tiles.data_ptr(), prog.data_ptr(),
+                                            prog.shape[0], g, counts[g0:].data_ptr(), nblocks, n,
+                                            scan._static_threads(slots), slots, stream)
+                    if rc:
+                        raise RuntimeError(f"histogram interpreter: CUDA error {rc}")
+                    g0 += g
+
+            def variant(v):
+                counts.zero_()
+                rc = lib.sweep_hist(v, width, tiles.data_ptr(), lo, k, counts.data_ptr(), nblocks,
+                                    n, stream)
+                if rc:
+                    raise RuntimeError(f"histogram variant {v}: CUDA error {rc}")
+
+            before()
+            ref = counts.clone()
+            if label == "i % 512":
+                _check(ref.tolist() == _closed_counts(range(lo, lo + k), n),
+                       f"histdag {label} lo {lo} k {k}: the interpreter's counts")
+            elif lo == 0 and k >= 1 << width:
+                _check(int(ref.sum()) == n, f"histdag {label}: the interpreter's counts sum to n")
+            names = {v: name for v, name in HIST_NAMES.items() if v < 3 or k <= 64}
+            for v in names:
+                variant(v)
+                _check(torch.equal(counts, ref),
+                       f"histdag {label} lo {lo} k {k}: {names[v]} differs from the interpreter")
+            _check(torch.equal(scan._histogram_chunked_tiles(tiles, lo, k, width, n), ref),
+                   f"histdag {label} lo {lo} k {k}: _histogram_chunked_tiles differs")
+            calls = {"the DAG interpreter before the redesign": before}
+            calls.update({name: (lambda v=v: variant(v)) for v, name in names.items()})
+            calls["_histogram_chunked_tiles"] = lambda: scan._histogram_chunked_tiles(
+                tiles, lo, k, width, n)
+            bound = (tiles.numel() * 4 + k * 8) / HBM_BYTES_PER_S * 1e3
+            _report(f"histdag {label} (n {n}) lo {lo} k {k} ({len(scan._static_group_sizes(k))} "
+                    "interpreter launches)", _in_turns(calls), bound)
+        del tiles
+        torch.cuda.empty_cache()
+
+
+def aggstatic_sweep(lib, device) -> None:
+    """The static bit-plane aggregate's designs at the query table's n."""
+    from shared_simd_scan_tpu_torch import layout
+
+    stream = torch.cuda.current_stream().cuda_stream
+    n = harness.values_for(COPY_BYTES, WIDTH)
+    b1 = layout.padded_blocks(n) // LANES
+    nblocks = b1 * LANES
+    gen = torch.Generator(device=device)
+    gen.manual_seed(12)
+    skewed = torch.where(torch.rand(n, generator=gen, device=device) < 0.9, 3,
+                         torch.randint(0, 32, (n,), generator=gen, device=device,
+                                       dtype=torch.int32))
+    cols = {"region": (5, _random_tiles(device, 5, b1, 5)),
+            "revenue": (20, _random_tiles(device, 20, b1, 20)),
+            "price": (9, _random_tiles(device, 9, b1, 9)),
+            "constant": (5, pack_device_kernel(torch.full((n,), 3, dtype=torch.int32,
+                                                          device=device), 5).tiles),
+            "skewed": (5, pack_device_kernel(skewed, 5).tiles),
+            "m8": (8, _random_tiles(device, 8, b1, 8)),
+            "m31": (31, _random_tiles(device, 31, b1, 31))}
+    del skewed
+    keys32 = list(range(32))
+    spread16 = sorted(np.random.default_rng(16).choice(1 << 20, 16, replace=False).tolist())
+    cases = [("A2: uniform 5-bit predicate, 20-bit measure, keys 0..31", "region", "revenue",
+              keys32),
+             ("A7: uniform 20-bit predicate, 9-bit measure, 16 spread keys", "revenue", "price",
+              spread16),
+             ("constant predicate (every row key 3), 20-bit measure, keys 0..31", "constant",
+              "revenue", keys32),
+             ("predicate 90% key 3, 20-bit measure, keys 0..31", "skewed", "revenue", keys32),
+             ("A2's predicate, 8-bit measure", "region", "m8", keys32),
+             ("A2's predicate, 31-bit measure", "region", "m31", keys32)]
+    for label, pname, mname, keys in cases:
+        (wp, pt), (wm, mt) = cols[pname], cols[mname]
+        k = len(keys)
+        host = np.asarray(keys, np.uint32)
+        prog, slots = _static_program_on(wp, tuple(keys), device)
+        threads = scan._static_threads(slots + k)
+        counts = torch.zeros(k, dtype=torch.int64, device=device)
+        sums = torch.zeros(k, dtype=torch.int64, device=device)
+
+        def variant(v):
+            counts.zero_()
+            sums.zero_()
+            rc = lib.sweep_agg(v, pt.data_ptr(), mt.data_ptr(), host.ctypes.data, k,
+                               prog.data_ptr(), prog.shape[0], slots, threads, counts.data_ptr(),
+                               sums.data_ptr(), nblocks, wp, wm, n, stream)
+            if rc:
+                raise RuntimeError(f"aggregate variant {v}: CUDA error {rc}")
+
+        variant(0)
+        ref = (counts.clone(), sums.clone())
+        if k == 32 and wp == 5:
+            _check(int(ref[0].sum()) == n, f"aggstatic {label}: the interpreter's counts sum to n")
+        for v in list(AGG_NAMES)[1:]:
+            variant(v)
+            _check(torch.equal(counts, ref[0]) and torch.equal(sums, ref[1]),
+                   f"aggstatic {label}: {AGG_NAMES[v]} differs from the interpreter")
+        got = aggregate.aggregate_bitplane_static_tiles(pt, mt, keys, wp, wm, n)
+        _check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+               f"aggstatic {label}: aggregate_bitplane_static_tiles differs")
+        calls = {name: (lambda v=v: variant(v)) for v, name in AGG_NAMES.items()}
+        calls["aggregate_bitplane_static_tiles"] = (
+            lambda: aggregate.aggregate_bitplane_static_tiles(pt, mt, keys, wp, wm, n))
+        bound = (pt.numel() * 4 + mt.numel() * 4 + 4 * k + 16 * k) / HBM_BYTES_PER_S * 1e3
+        print(f"aggstatic {label}: sums[:4] {ref[1][:4].tolist()}; the interpreter's program has "
+              f"{prog.shape[0]} instructions, {slots} slots, {threads} threads a CTA")
+        _report(f"aggstatic {label} (n {n}, wp {wp}, wm {wm}, k {k})", _in_turns(calls), bound)
+    del cols
+    torch.cuda.empty_cache()
+
+
 def ortree_edge() -> dict:
     """The member dispatcher's tiers over a sweep of host key sets (widths
     9-31, k 33-3000, spread and clustered in 32-aligned windows); prints
@@ -793,7 +1005,8 @@ def main(sections) -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     sources = [src for src, names in ((SOURCE, ("copy", "chunked", "dynamic")),
                                       (BINS_FOLD_SOURCE, ("bins", "domain", "fold")),
-                                      (STATIC_MEMBER_SOURCE, ("static", "ortree")))
+                                      (STATIC_MEMBER_SOURCE, ("static", "ortree")),
+                                      (HIST_AGG_SOURCE, ("histdag", "aggstatic")))
                if set(names) & set(sections)]
     libs = _libraries(sources)
     print("ptxas:")
@@ -805,6 +1018,14 @@ def main(sections) -> None:
         ctas = {name: lib.sweep_dynamic_ctas(v, WIDTH) for v, name in DYNAMIC_NAMES.items() if v}
         ctas["the package's chunked kernel"] = lib.sweep_dynamic_ctas(0, WIDTH)
         print(f"CTAs an SM at width {WIDTH} (occupancy calculator): {ctas}")
+    if HIST_AGG_SOURCE in libs:
+        lib, path, _ = libs[HIST_AGG_SOURCE]
+        print("sass of the histogram and aggregate kernels (cuobjdump -sass):")
+        sass_report(path, HIST_AGG_SASS)
+        if "histdag" in sections:
+            histdag_sweep(lib, device)
+        if "aggstatic" in sections:
+            aggstatic_sweep(lib, device)
     if "copy" in sections:
         copy_sweep(libs[SOURCE][0], device)
     if {"chunked", "dynamic", "fold", "static", "ortree"} & set(sections):

@@ -17,6 +17,7 @@
 //     host-compiled AND-DAG program interpreted over node slots in shared
 //     memory, each row staged a byte at a time beside the slots;
 //   - the linear fold with its keys in constant memory.
+#include "dag_program.cuh"
 #include "../csrc/histogram.cu"
 #include "../csrc/bitsliced.cu"
 

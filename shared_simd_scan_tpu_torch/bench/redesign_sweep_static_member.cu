@@ -12,6 +12,7 @@
 //   - the IN-list as a plane fold: the set's plane masks staged in shared
 //     memory as the static fold stages them, every key's row ORed into
 //     one.
+#include "dag_program.cuh"
 #include "../csrc/bitsliced.cu"
 #include "../csrc/member.cu"
 

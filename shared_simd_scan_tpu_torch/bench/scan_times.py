@@ -14,11 +14,16 @@ dynamic scans (S64 and S256 as CUDA keys), the chunked histogram program
 of ``_histogram_domain_tiles`` where the checkout has it, else the 256
 windows of ``histogram_tiles`` that ``stats.histogram_full`` launched), and
 the linear export (L1: keys 0..7 on ``i % 8``; L2: S8, L4: S64 and L6:
-S64 as eight groups of 8, host keys; L3: S8 as CUDA keys)
-at the reference benchmark's n = 477,218,588; and, on the host clock,
-``stats.describe``, ``quantiles`` and ``topk_values`` of the ``i % 512``
-column together (three span histograms) and ``stats.histogram_full`` of
-the 20-bit column (H5 wall; medians of five).  Run it on two checkouts in
+S64 as eight groups of 8, host keys; L3: S8 as CUDA keys), the chunked
+histogram tier on full domains (H6: a uniform 12-bit column of 512 MiB
+packed, 4096 keys; H7: a uniform 4-bit column, 16 keys) and the static
+bit-plane aggregate (A2: a uniform 5-bit predicate, a 20-bit measure,
+host keys 0..31; A7: the 20-bit column as the predicate, a 9-bit measure,
+16 spread host keys), at the reference benchmark's n = 477,218,588
+(H6: 357,913,941); and, on the host clock, ``stats.describe``,
+``quantiles`` and ``topk_values`` of the ``i % 512`` column together
+(three span histograms), ``stats.histogram_full`` of the 20-bit column
+(H5 wall) and of H6's and H7's columns (medians of five).  Run it on two checkouts in
 turns (parent, change, change, parent) within one call to compare them on
 one card.  Needs a CUDA card; prints the card's name and power limit and
 one line of medians.
@@ -33,6 +38,8 @@ import time
 
 N_BYTES = 512 * 1024 * 1024
 S8 = [3, 70, 141, 200, 262, 333, 400, 511]
+A7_KEYS = [5521, 58228, 236145, 298913, 314745, 524063, 606377, 655451, 717405, 813357, 861120,
+           874138, 915983, 940786, 956952, 990790]
 
 
 def time_ms(fn, batches: int = 7, calls: int = 10) -> float:
@@ -61,7 +68,7 @@ def main(root: pathlib.Path) -> None:
 
     from shared_simd_scan_tpu_torch import layout, stats
     from shared_simd_scan_tpu_torch.bench import harness
-    from shared_simd_scan_tpu_torch.ops import _cuda, member, scan, unpack
+    from shared_simd_scan_tpu_torch.ops import _cuda, aggregate, member, scan, unpack
 
     if not pathlib.Path(_cuda.__file__).resolve().is_relative_to(root):
         raise SystemExit(f"imported {_cuda.__file__}, not the checkout at {root}")
@@ -84,6 +91,12 @@ def main(root: pathlib.Path) -> None:
     rtiles = unpack.pack_device_kernel(torch.randint(0, 1 << 20, (n,), generator=gen, device=device,
                                                      dtype=torch.int32), 20).tiles
     los = torch.arange(0, 1 << 20, 4096, dtype=torch.int32, device=device)
+    n12 = harness.values_for(N_BYTES, 12)
+    t12 = unpack.pack_device_kernel(torch.randint(0, 1 << 12, (n12,), generator=gen, device=device,
+                                                  dtype=torch.int32), 12).tiles
+    t4, t5, t9 = (unpack.pack_device_kernel(torch.randint(0, 1 << w, (n,), generator=gen,
+                                                          device=device, dtype=torch.int32),
+                                            w).tiles for w in (4, 5, 9))
     lo100 = torch.tensor([100], dtype=torch.int32, device=device)
     if hasattr(scan, "_histogram_domain_tiles"):
         def h5():
@@ -114,6 +127,12 @@ def main(root: pathlib.Path) -> None:
         "static linear L4": lambda: scan._static_linear_tiles_impl(atiles, host[64], 9, n),
         "static linear L6": lambda: [scan._static_linear_tiles_impl(atiles, host[64][8 * g: 8 * g + 8],
                                                                     9, n) for g in range(8)],
+        "histogram_dag H6": lambda: scan._histogram_chunked_tiles(t12, 0, 4096, 12, n12),
+        "histogram_dag H7": lambda: scan._histogram_chunked_tiles(t4, 0, 16, 4, n),
+        "aggregate static A2": lambda: aggregate.aggregate_bitplane_static_tiles(
+            t5, rtiles, list(range(32)), 5, 20, n),
+        "aggregate static A7": lambda: aggregate.aggregate_bitplane_static_tiles(
+            rtiles, t9, A7_KEYS, 20, 9, n),
     }
     times = {name: time_ms(fn) for name, fn in cases.items()}
     col = layout.DeviceColumn(9, n, atiles)
@@ -130,10 +149,21 @@ def main(root: pathlib.Path) -> None:
         t1 = time.monotonic()
         stats.histogram_full(col20)
         walls20.append((time.monotonic() - t1) * 1e3)
+    walls_full = {}
+    for name, col in (("H6", layout.DeviceColumn(12, n12, t12)),
+                      ("H7", layout.DeviceColumn(4, n, t4))):
+        walls_full[name] = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            stats.histogram_full(col)
+            walls_full[name].append((time.monotonic() - t1) * 1e3)
     print(f"{smi}; {root}: build {build:.1f} s; "
           + "; ".join(f"{name} {ms:.6f} ms" for name, ms in times.items())
           + f"; stats trio (host clock) {statistics.median(walls[1:]):.6f} ms"
-          + f"; H5 histogram_full (host clock) {statistics.median(walls20[1:]):.6f} ms", flush=True)
+          + f"; H5 histogram_full (host clock) {statistics.median(walls20[1:]):.6f} ms"
+          + "".join(f"; {name} histogram_full (host clock) {statistics.median(w[1:]):.6f} ms"
+                    for name, w in walls_full.items()), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,38 +1,30 @@
-// Keyed SUM and COUNT through bit planes: SUM_j = sum_p 2^p * popcount(
-// match_j & mplane_p), for runtime keys (XOR plane fold) and host keys (a
-// static AND-DAG program).
+// Keyed SUM and COUNT through bit planes for runtime keys: SUM_j = sum_p
+// 2^p * popcount(match_j & mplane_p), match_j from the XOR plane fold.
 //
-// Replaces shared_simd_scan_tpu/ops/aggregate.py:
-//  - _agg_bitplane_kernel / aggregate_bitplane_tiles: keys read from device
-//    memory; per key match = AND_p (pplane_p ^ (bit_p(key) - 1)), killed
-//    for keys >= 2^wp;
-//  - _agg_bitplane_static_kernel / _agg_bitplane_static_impl: the key set's
-//    memoized _combo AND-DAG over the predicate planes, compiled by the host
-//    into a program (ops/scan.py _static_program, the format of
-//    csrc/bitsliced.cu) that this kernel interprets; an OUT instruction
-//    gives key row j its match word, a ZERO instruction (key >= 2^wp) none.
-// Every match word is ANDed with the block's validity word, as in the
-// reference, so padding matches no key.
+// Replaces shared_simd_scan_tpu/ops/aggregate.py _agg_bitplane_kernel /
+// aggregate_bitplane_tiles: keys read from device memory; per key match =
+// AND_p (pplane_p ^ (bit_p(key) - 1)), killed for keys >= 2^wp.  Every
+// match word is ANDed with the block's validity word, as in the
+// reference, so padding matches no key.  (Host keys take agg_lookup.cu:
+// one key lookup and scatter-add per value.)
 //
-// Bound on the H100: the integer instruction rate, not bytes, from a few keys on: per
-// block a fixed unpack and bit-plane transpose of both columns, then per
-// key ~4 ops per measure plane (AND, popcount, shift, add) on 32 values at
-// once.  Design: one thread per 32-value block, in two stages so that no
-// kernel is templated on both widths (31 x 31 bodies):
+// Bound on the H100: the integer instruction rate, not bytes, from a few
+// keys on: per block a fixed unpack and bit-plane transpose of both
+// columns, then per key ~4 ops per measure plane (AND, popcount, shift,
+// add) on 32 values at once.  Design: one thread per 32-value block, in
+// two stages so that no kernel is templated on both widths (31 x 31
+// bodies):
 //  1. match words (a switch on wp over template<int WP> bodies): the
 //     predicate block unpacked and transposed into planes by the pruned
-//     butterfly (common.cuh), then the fold per key, or the planes stored
-//     to shared memory for the program interpreter; the k match words go to
-//     shared memory laid out [key][thread] (no bank conflicts, no sync:
+//     butterfly (common.cuh), then the fold per key; the k match words go
+//     to shared memory laid out [key][thread] (no bank conflicts, no sync:
 //     a thread reads only its own);
 //  2. accumulate (a switch on wm over template<int WM> bodies): the
 //     measure block's planes in registers, then per key the count and the
 //     sum parts lo = sum_{p<16} popc << p and hi = sum_{p>=16} popc <<
 //     (p-16), each < 32 * 2^16 = 2^21, reduced exactly by add_split_sum.
 // Dynamic shared memory: k words per thread (32 KB at k = 32 and 256
-// threads), plus the program's node slots in the static form; a launch
-// past 48 KB asks for the attribute, and a refused launch returns its
-// error.
+// threads).
 #include "common.cuh"
 
 namespace sss {
@@ -65,32 +57,6 @@ __device__ void runtime_match_words_any(int wp, const uint32_t* __restrict__ pti
 #define SSS_CASE(W)                                                                     \
   case W:                                                                               \
     runtime_match_words<W>(ptiles, keys, k, nblocks, b, active, valid, s_mw, stride);   \
-    return;
-    SSS_FOR_EACH_WIDTH(SSS_CASE)
-#undef SSS_CASE
-  }
-}
-
-template <int WP>
-__device__ __forceinline__ void planes_to_shared(const uint32_t* __restrict__ ptiles,
-                                                 long long nblocks, long long b, bool active,
-                                                 uint32_t* s_val, int stride) {
-  uint32_t w[WP];
-  load_block<WP>(ptiles, nblocks, b, active, w);
-  uint32_t x[kBlockValues];
-  unpack_values<WP>(w, x);
-  transpose_bitplanes<WP>(x);
-#pragma unroll
-  for (int p = 0; p < WP; ++p) s_val[p * stride + threadIdx.x] = x[p];
-}
-
-__device__ void planes_to_shared_any(int wp, const uint32_t* __restrict__ ptiles,
-                                     long long nblocks, long long b, bool active,
-                                     uint32_t* s_val, int stride) {
-  switch (wp) {
-#define SSS_CASE(W)                                                 \
-  case W:                                                           \
-    planes_to_shared<W>(ptiles, nblocks, b, active, s_val, stride); \
     return;
     SSS_FOR_EACH_WIDTH(SSS_CASE)
 #undef SSS_CASE
@@ -135,40 +101,20 @@ __device__ void accumulate_any(int wm, const uint32_t* __restrict__ mtiles, long
   }
 }
 
-// kStatic: match words from the program `prog` over node slots [0, slots)
-// of dynamic shared memory; else from the runtime fold over `keys`.
-template <bool kStatic>
 __global__ void __launch_bounds__(kThreads)
 agg_bitplane_kernel(const uint32_t* __restrict__ ptiles, const uint32_t* __restrict__ mtiles,
-                    const uint32_t* __restrict__ keys, const uint2* __restrict__ prog, int nops,
-                    int slots, int k, int wp, int wm, unsigned long long* __restrict__ counts,
+                    const uint32_t* __restrict__ keys, int k, int wp, int wm,
+                    unsigned long long* __restrict__ counts,
                     unsigned long long* __restrict__ sums, long long nblocks, long long n,
                     long long block_offset) {
-  extern __shared__ uint32_t smem[];  // [slots][thread] node values, then [k][thread] match words
+  extern __shared__ uint32_t s_mw[];  // [k][thread] match words
   __shared__ unsigned s_cnt[kMaxAggKeys], s_lo[kMaxAggKeys], s_hi[kMaxAggKeys];
   zero_sums(s_cnt, s_lo, s_hi, k);
   const int stride = blockDim.x;
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = b < nblocks;
   const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
-  uint32_t* s_mw = smem + (kStatic ? slots * stride : 0);
-
-  if constexpr (kStatic) {
-    planes_to_shared_any(wp, ptiles, nblocks, b, active, smem, stride);
-    for (int i = 0; i < nops; ++i) {
-      const uint2 op = __ldg(prog + i);
-      const uint32_t kind = op.x >> 30, target = op.x & 0x3FFFFFFFu;
-      const uint32_t a = dag_operand(smem, op.y & 0xFFFFu, stride);
-      if (kind == kAnd || kind == kOr) {
-        const uint32_t c = dag_operand(smem, op.y >> 16, stride);
-        smem[target * stride + threadIdx.x] = kind == kAnd ? a & c : a | c;
-      } else {
-        s_mw[target * stride + threadIdx.x] = kind == kOut ? a & valid : 0u;
-      }
-    }
-  } else {
-    runtime_match_words_any(wp, ptiles, keys, k, nblocks, b, active, valid, s_mw, stride);
-  }
+  runtime_match_words_any(wp, ptiles, keys, k, nblocks, b, active, valid, s_mw, stride);
   accumulate_any(wm, mtiles, nblocks, b, active, s_mw, stride, k, s_cnt, s_lo, s_hi);
   flush_sums(s_cnt, s_lo, s_hi, k, counts, sums);
 }
@@ -187,34 +133,8 @@ extern "C" int sss_agg_bitplane(const uint32_t* ptiles, const uint32_t* mtiles,
   if (!sss::args_ok(k, wp, wm)) return (int)cudaErrorInvalidValue;
   if (nblocks <= 0) return (int)cudaSuccess;
   const size_t smem = (size_t)k * sss::kThreads * sizeof(uint32_t);  // <= 32 KB
-  sss::agg_bitplane_kernel<false><<<sss::grid_for(nblocks), sss::kThreads, smem, stream>>>(
-      ptiles, mtiles, keys, nullptr, 0, 0, k, wp, wm,
-      reinterpret_cast<unsigned long long*>(counts), reinterpret_cast<unsigned long long*>(sums),
-      nblocks, n, block_offset);
-  return (int)cudaGetLastError();
-}
-
-// One launch runs one program of k rows with `threads` threads per CTA and
-// (slots + k) * threads words of dynamic shared memory.
-extern "C" int sss_agg_bitplane_static(const uint32_t* ptiles, const uint32_t* mtiles,
-                                       const int* prog, int nops, int k, long long* counts,
-                                       long long* sums, long long nblocks, int wp, int wm,
-                                       long long n, long long block_offset, int threads,
-                                       int slots, cudaStream_t stream) {
-  if (!sss::args_ok(k, wp, wm) || threads < 32 || threads > sss::kStaticThreadsMax ||
-      threads % 32 || slots < wp)
-    return (int)cudaErrorInvalidValue;
-  if (nblocks <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)(slots + k) * threads * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(sss::agg_bitplane_kernel<true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so the next launch does not report it
-    return (int)err;
-  }
-  const unsigned grid = (unsigned)((nblocks + threads - 1) / threads);
-  sss::agg_bitplane_kernel<true><<<grid, threads, smem, stream>>>(
-      ptiles, mtiles, nullptr, reinterpret_cast<const uint2*>(prog), nops, slots, k, wp, wm,
+  sss::agg_bitplane_kernel<<<sss::grid_for(nblocks), sss::kThreads, smem, stream>>>(
+      ptiles, mtiles, keys, k, wp, wm,
       reinterpret_cast<unsigned long long*>(counts), reinterpret_cast<unsigned long long*>(sums),
       nblocks, n, block_offset);
   return (int)cudaGetLastError();

@@ -19,13 +19,15 @@
 //    form of the runtime kernel).  The member OR-tree body is not here: on
 //    this card it is a set lookup per value (member.cu sss_member_lookup);
 //  - _histogram_dag_kernel / _histogram_dag_tiles_impl: histogram counts
-//    of consecutive keys, no bitvector (sss_histogram_dag), on the host's
-//    AND-DAG program (ops/scan.py _static_program, format in common.cuh)
-//    of each chunk, interpreted: per node an instruction read through the
-//    read-only cache, two shared loads, an op and a shared store, node
-//    values in dynamic shared memory laid out [slot][thread].  The span
-//    form (_histogram_span_kernel) is not here: on this card it is the
-//    bins kernel with lo by value (histogram.cu sss_histogram_span);
+//    of consecutive host keys, no bitvector.  The TPU interprets each
+//    chunk's AND-DAG, one launch a group of keys; here one launch counts
+//    all k.  At width 1, and for a few keys of a narrow column, the static
+//    fold counts the keys lo..lo+k-1 from their plane masks, every row
+//    popcounted and never stored (sss_histogram_fold, the kFoldCounts
+//    form: at width 1 a block's counts are two popcounts, where the bins
+//    kernel takes 32 shared atomics on two addresses); elsewhere the bins
+//    kernel with lo by value (histogram.cu sss_histogram_span), which is
+//    also the span form (_histogram_span_kernel);
 //  - _bitsliced_linear_kernel / _bitsliced_linear_tiles_impl (scan.py:1025)
 //    and _static_linear_kernel / _static_linear_tiles_impl (scan.py:854):
 //    the plane fold with its rows staged as linear bytes, as
@@ -37,12 +39,12 @@
 // Bound on the H100: device memory bytes (reads W words, writes k words per
 // 32 values) while k is small; the integer instruction rate beyond: the
 // runtime fold costs ~3 ops per plane per key, the static fold one (the
-// masks in shared memory), the interpreter one shared-memory AND per DAG
-// node.  Design: one thread per 32-value block; the 32 values are unpacked
-// and transposed into planes in registers by the pruned butterfly
-// (common.cuh).  The runtime kernel keeps the planes in registers and does
-// not unroll its key loop.  A launch that asks for more shared memory than
-// a CTA has is refused and returns its error.  Counts as in shared_scan.cu.
+// masks in shared memory).  Design: one thread per 32-value block; the 32
+// values are unpacked and transposed into planes in registers by the
+// pruned butterfly (common.cuh).  The runtime kernel keeps the planes in
+// registers and does not unroll its key loop.  A launch that asks for more
+// shared memory than a CTA has is refused and returns its error.  Counts
+// as in shared_scan.cu.
 #include "common.cuh"
 
 namespace sss {
@@ -99,6 +101,16 @@ struct DeviceKeys {
 struct LinearKeys {
   uint32_t key[kMaxLinearKeys];
   __device__ __forceinline__ uint32_t operator[](int j) const { return key[j]; }
+};
+
+// The histogram's keys lo, lo + 1, ...: a key past 2^32 - 1 becomes
+// 0xFFFFFFFF, outside every domain, so it counts 0 and nothing wraps.
+struct SpanKeys {
+  uint32_t lo;
+  __device__ __forceinline__ uint32_t operator[](int j) const {
+    const unsigned long long key = (unsigned long long)lo + (unsigned)j;
+    return key > 0xFFFFFFFFull ? 0xFFFFFFFFu : (uint32_t)key;
+  }
 };
 
 // The fused linear fold of the runtime keys (TPU kernel
@@ -158,9 +170,10 @@ cudaError_t launch_fold_linear(const uint32_t* tiles, const Keys& keys, int k, u
 }
 
 // Where the static fold's rows go: staged as linear bytes (TPU kernel
-// _static_linear_kernel), or stored in tile order to (k, nblocks) bits
-// (TPU kernel _shared_scan_bitsliced_static_kernel).
-constexpr int kFoldLinear = 0, kFoldRows = 1;
+// _static_linear_kernel), stored in tile order to (k, nblocks) bits
+// (TPU kernel _shared_scan_bitsliced_static_kernel), or only counted (TPU
+// kernel _histogram_dag_kernel).
+constexpr int kFoldLinear = 0, kFoldRows = 1, kFoldCounts = 2;
 
 // Plane masks of keys j0 .. j0 + 4 * nq - 1 in shared memory, per quad of
 // keys W + 1 uint4: plane p's masks ((key >> p) & 1) - 1 of the four
@@ -197,8 +210,9 @@ __device__ __forceinline__ void store_quad(uint32_t* __restrict__ bits, long lon
 
 // Rows j0 .. j0 + 4 nq - 1 of this thread's block from their plane masks
 // in s_mask (quad q at s_mask + q (W + 1)): staged as linear bytes
-// (kFoldLinear), or stored to row j at out[j * nblocks + b] (kFoldRows),
-// coalesced across the warp.  Every lane reads the same uint4 (a
+// (kFoldLinear), stored to row j at out[j * nblocks + b] (kFoldRows),
+// coalesced across the warp, or counted alone (kFoldCounts; a row past k
+// is zero and adds 0 to its counter).  Every lane reads the same uint4 (a
 // broadcast), so a quad of rows costs one shared load a plane and a row
 // one LOP3 a plane.
 template <int W, int kOut>
@@ -228,6 +242,8 @@ __device__ __forceinline__ void fold_chunk(const uint32_t (&x)[kBlockValues],
     r3 &= valid;
     if constexpr (kOut == kFoldLinear) {
       sink.quad(j, r0, r1, r2, r3);
+    } else if constexpr (kOut == kFoldCounts) {
+      count_quad(j, r0, r1, r2, r3, s_cnt);
     } else if (j + 4 <= k) {
       count_quad(j, r0, r1, r2, r3, s_cnt);
       if (active) {
@@ -249,9 +265,9 @@ __device__ __forceinline__ void fold_chunk(const uint32_t (&x)[kBlockValues],
 // a plane on them.  Resident CTAs loop over tiles of blockDim.x blocks
 // and flush their counts once.  kFoldLinear (k % 4 == 0, k <= 128) stages
 // all k keys' masks once and each tile's rows as linear bytes, and stores
-// the CTA's span at once.  kFoldRows (k <= kMaxKeys) stages the masks of
-// up to `chunk` keys (chunk % 4 == 0) once; more keys are staged a chunk
-// at a time in every tile, between two barriers.
+// the CTA's span at once.  kFoldRows and kFoldCounts (k <= kMaxKeys) stage
+// the masks of up to `chunk` keys (chunk % 4 == 0) once; more keys are
+// staged a chunk at a time in every tile, between two barriers.
 template <int W, typename Keys, int kOut>
 __global__ void __launch_bounds__(kThreads)
 static_fold_kernel(const uint32_t* __restrict__ tiles, const __grid_constant__ Keys keys, int k,
@@ -260,7 +276,7 @@ static_fold_kernel(const uint32_t* __restrict__ tiles, const __grid_constant__ K
   extern __shared__ uint4 s_mask[];  // [chunk / 4][W + 1], then the linear stage
   __shared__ unsigned s_cnt[kOut == kFoldLinear ? kMaxLinearKeys : kMaxKeys];
   uint32_t* s_stage = reinterpret_cast<uint32_t*>(s_mask + (chunk / 4) * (W + 1));
-  const bool restage = kOut == kFoldRows && k > chunk;
+  const bool restage = kOut != kFoldLinear && k > chunk;
   if (!restage) stage_fold_masks<W>(s_mask, keys, 0, k, (k + 3) / 4);
   zero_counts(s_cnt, k);  // (its barrier also publishes the masks)
   const LinearSink sink{reinterpret_cast<uint8_t*>(s_stage), k, s_cnt};
@@ -310,15 +326,17 @@ cudaError_t launch_static_fold(const uint32_t* tiles, const Keys& keys, int k, i
                                cudaStream_t stream) {
   const auto kernel = static_fold_kernel<W, Keys, kOut>;
   const size_t smem = static_fold_smem(W, k, chunk, kOut, threads);
+  const long long ntiles = (nblocks + threads - 1) / threads;
   unsigned grid = 0;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess)
-    err = resident_grid(kernel, threads, smem, (nblocks + threads - 1) / threads, &grid);
+  if (err == cudaSuccess) err = resident_grid(kernel, threads, smem, ntiles, &grid);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch does not report it
     return err;
   }
+  const long long least = least_ctas(ntiles, threads);
+  if (grid < least) grid = (unsigned)least;
   kernel<<<grid, threads, smem, stream>>>(tiles, keys, k, chunk, out, counts, nblocks, n,
                                           block_offset);
   return cudaGetLastError();
@@ -343,67 +361,6 @@ inline int static_rows_chunk(int width, int k) {
   const int fit = kFoldMaskBytes / (16 * (width + 1)) * 4;
   const int all = (k + 3) / 4 * 4;
   return all < fit ? all : fit;
-}
-
-// The static DAG interpreter, counts only (the histogram's programs, row
-// 10 of the TPU kernel table).  Thread threadIdx.x takes block t *
-// blockDim.x + threadIdx.x, unpacks and transposes it into planes in its
-// slots, and runs the program: OUT adds popc(a & valid) to its row's
-// shared counter, ZERO adds nothing.  Resident CTAs loop over the tiles,
-// so each flushes its counters once.
-template <int W>
-__global__ void __launch_bounds__(kStaticThreadsMax)
-histogram_dag_kernel(const uint32_t* __restrict__ tiles, const uint2* __restrict__ prog, int nops,
-                     int k, unsigned long long* __restrict__ counts, long long nblocks,
-                     long long n, long long block_offset) {
-  extern __shared__ uint32_t s_val[];  // [slot][threadIdx.x]
-  __shared__ unsigned s_cnt[kMaxHistKeys];
-  zero_counts(s_cnt, k);
-  const int stride = blockDim.x;
-  const long long ntiles = (nblocks + stride - 1) / stride;
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {  // CTA-uniform trip count
-    const long long b = t * stride + threadIdx.x;
-    const bool active = b < nblocks;
-    uint32_t w[W];
-    load_block<W>(tiles, nblocks, b, active, w);
-    const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
-    uint32_t x[kBlockValues];
-    unpack_values<W>(w, x);
-    transpose_bitplanes<W>(x);
-#pragma unroll
-    for (int p = 0; p < W; ++p) s_val[p * stride + threadIdx.x] = x[p];
-    for (int i = 0; i < nops; ++i) {
-      const uint2 op = __ldg(prog + i);
-      const uint32_t kind = op.x >> 30, target = op.x & 0x3FFFFFFFu;
-      const uint32_t a = dag_operand(s_val, op.y & 0xFFFFu, stride);
-      if (kind == kAnd || kind == kOr) {
-        const uint32_t c = dag_operand(s_val, op.y >> 16, stride);
-        s_val[target * stride + threadIdx.x] = kind == kAnd ? a & c : a | c;
-      } else if (kind == kOut) {
-        count_row((int)target, a & valid, s_cnt);
-      }
-    }
-  }
-  flush_counts(s_cnt, k, counts);
-}
-
-template <int W>
-cudaError_t launch_histogram_dag(const uint32_t* tiles, const uint2* prog, int nops, int k,
-                                 unsigned long long* counts, long long nblocks, long long n,
-                                 long long block_offset, int threads, size_t smem,
-                                 cudaStream_t stream) {
-  const auto kernel = histogram_dag_kernel<W>;
-  unsigned grid = 0;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess)
-    err = resident_grid(kernel, threads, smem, (nblocks + threads - 1) / threads, &grid);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so the next launch does not report it
-    return err;
-  }
-  kernel<<<grid, threads, smem, stream>>>(tiles, prog, nops, k, counts, nblocks, n, block_offset);
-  return cudaGetLastError();
 }
 
 }  // namespace sss
@@ -482,25 +439,26 @@ extern "C" int sss_bitsliced_static_fold(const uint32_t* tiles, const uint32_t* 
   }
 }
 
-// The static DAG program's counts (no bitvector): k <= kMaxHistKeys rows,
-// counts int64[k] (zeroed by the caller), `threads` threads a CTA and
-// slots * threads words of dynamic shared memory.
-extern "C" int sss_histogram_dag(const uint32_t* tiles, const int* prog, int nops, int k,
-                                 unsigned long long* counts, long long nblocks, int width,
-                                 long long n, long long block_offset, int threads, int slots,
-                                 cudaStream_t stream) {
-  if (k < 1 || k > sss::kMaxHistKeys || threads < 32 || threads > sss::kStaticThreadsMax ||
-      threads % 32 || slots < width)
+// The counts of keys lo..lo+k-1 (1 <= k <= kMaxKeys; keys past 2^32 - 1
+// count 0) by the fold, no bitvector: counts int64[k], zeroed by the
+// caller.  Widths 1-8, the narrow columns where it can beat the bins
+// kernel (ops/scan.py _histogram_fold_keys).
+extern "C" int sss_histogram_fold(const uint32_t* tiles, uint32_t lo, int k,
+                                  unsigned long long* counts, long long nblocks, int width,
+                                  long long n, long long block_offset, cudaStream_t stream) {
+  if (k < 1 || k > sss::kMaxKeys || width < 1 || width > 8)
     return (int)cudaErrorInvalidValue;
   if (nblocks <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)slots * threads * sizeof(uint32_t);
-  const uint2* p = reinterpret_cast<const uint2*>(prog);
+  const sss::SpanKeys keys{lo};
+  const int chunk = sss::static_rows_chunk(width, k);
   switch (width) {
 #define SSS_CASE(W)                                                                          \
   case W:                                                                                    \
-    return (int)sss::launch_histogram_dag<W>(tiles, p, nops, k, counts, nblocks, n,          \
-                                             block_offset, threads, smem, stream);
-    SSS_FOR_EACH_WIDTH(SSS_CASE)
+    return (int)sss::launch_static_fold<W, sss::SpanKeys, sss::kFoldCounts>(                 \
+        tiles, keys, k, chunk, nullptr, counts, nblocks, n, block_offset,                    \
+        sss::kStaticRowsThreads, stream);
+    SSS_CASE(1) SSS_CASE(2) SSS_CASE(3) SSS_CASE(4) SSS_CASE(5) SSS_CASE(6) SSS_CASE(7)
+    SSS_CASE(8)
 #undef SSS_CASE
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,7 +1,7 @@
 // Shared pieces of the Hopper kernels: the static unpack schedule, the
 // validity word, count and exact-sum reduction, the one-hot mask, the 8x8
 // byte transpose, the bit-plane butterfly, the range match word, the grid
-// of resident CTAs, the DAG program format and the width dispatch.
+// of resident CTAs and the width dispatch.
 //
 // Layout (see shared_simd_scan_tpu_torch/layout.py): tiles are
 // uint32[width][nblocks] with nblocks = B1*128; block b holds 32 values in
@@ -228,6 +228,21 @@ inline cudaError_t resident_grid(Kernel kernel, int threads, size_t smem, long l
   return cudaSuccess;
 }
 
+// The fewest CTAs of `threads` threads that take `ntiles` tiles with fewer
+// than 2^32 values each, so a CTA's unsigned shared counters cannot wrap.
+inline long long least_ctas(long long ntiles, int threads) {
+  const long long tiles_per_cta = (1LL << 32) / ((long long)threads * kBlockValues) - 1;
+  return (ntiles + tiles_per_cta - 1) / tiles_per_cta;
+}
+
+// Whether every block of the tile [first, first + blockDim.x) lies in the
+// tiles and holds 32 real values (CTA-uniform).
+__device__ __forceinline__ bool full_tile(long long first, long long nblocks, long long n,
+                                          long long block_offset) {
+  const long long end = first + blockDim.x;
+  return end <= nblocks && block_offset + end <= (n >> 5);
+}
+
 // Range match word of one block: bit r set iff (v[r] - lo) mod 2^32 < span
 // (span = hi - lo mod 2^32), the JAX package's unsigned range compare.
 __device__ __forceinline__ uint32_t range_word(const uint32_t (&v)[kBlockValues], uint32_t lo,
@@ -239,19 +254,6 @@ __device__ __forceinline__ uint32_t range_word(const uint32_t (&v)[kBlockValues]
 }
 
 inline bool width_ok(int width) { return width >= 1 && width <= 31; }
-
-// Host-compiled DAG programs (ops/scan.py _static_program): 8-byte
-// instructions, word 0 = kind << 30 | target, word 1 = operand a | operand
-// b << 16, operand = node slot | kNeg for its complement.  Node values
-// live in dynamic shared memory laid out [slot][threadIdx.x].
-constexpr int kStaticThreadsMax = 128;
-constexpr uint32_t kAnd = 0u, kOut = 1u, kOr = 3u;
-constexpr uint32_t kNeg = 0x8000u;
-
-__device__ __forceinline__ uint32_t dag_operand(const uint32_t* s_val, uint32_t op, int stride) {
-  const uint32_t v = s_val[(op & (kNeg - 1u)) * stride + threadIdx.x];
-  return (op & kNeg) ? ~v : v;
-}
 
 // Linear (interleaved) output, the byte order of the reference's
 // shared_scan_128_linear_standard: the k rows of block b (one word each)

@@ -13,7 +13,11 @@
 //
 // The span form (sss_histogram_span) replaces _histogram_span_kernel /
 // _histogram_span_tiles_impl, the concrete-lo tier of histogram_dag_tiles
-// for 48 < k <= 512: lo is a host value; count j is the number of real
+// for 48 < k <= 512, and _histogram_dag_kernel / _histogram_dag_tiles_impl,
+// its tier for other k (one launch for all k, where the TPU launches one
+// AND-DAG program a group of keys; at width 1 and for a few keys of a
+// narrow column the static fold's counts form is faster, bitsliced.cu
+// sss_histogram_fold): lo is a host value; count j is the number of real
 // values equal to lo + j, and a key past 2^W or past 2^32 - 1 counts 0 --
 // no wrap: the entry point clips k to 2^32 - lo, and then (v - lo) mod
 // 2^32 < k holds only for lo <= v < lo + k.  The reference interprets the
@@ -84,9 +88,10 @@ __device__ __forceinline__ uint32_t value_at(const uint32_t (&w)[W], int r) {
 // real values.  A value outside the window or past n adds one to the
 // spare counter s_bin[spare], read by no one: every value takes the same
 // unconditional atomic (lanes on the spare counter merge in it), where a
-// branch around the atomic (kSpare false) took 22% longer on the card.
+// branch around the atomic (kSpare false) took 22% longer on the card,
+// and a spare counter a lane (histogram_kernel's kLaneSpare) was no faster.
 // kSwizzle: bin d at slot bin_slot(d), else at slot d.  (kSwizzle and
-// kSpare false are ablations for bench/redesign_sweep.py.)
+// kSpare false, and kLaneSpare, are ablations for bench/redesign_sweep.py.)
 template <int W, bool kWhole, bool kMasked, bool kSwizzle = true, bool kSpare = true>
 __device__ __forceinline__ void count_block(const uint32_t (&w)[W], uint32_t valid, uint32_t lo,
                                             uint32_t k, unsigned* s_bin, uint32_t spare) {
@@ -107,23 +112,18 @@ __device__ __forceinline__ void count_block(const uint32_t (&w)[W], uint32_t val
   }
 }
 
-// Whether every block of the tile [first, first + blockDim.x) lies in the
-// tiles and holds 32 real values (CTA-uniform).
-__device__ __forceinline__ bool full_tile(long long first, long long nblocks, long long n,
-                                          long long block_offset) {
-  const long long end = first + blockDim.x;
-  return end <= nblocks && block_offset + end <= (n >> 5);
-}
-
 // lo is read at lo_ptr, or is lo_value where lo_ptr is null; once per CTA.
-template <int W, bool kSwizzle = true, bool kSpare = true>
+// kLaneSpare: each lane has a spare counter of its own (kMaxHistKeys +
+// lane, in its own bank), else all share kMaxHistKeys.
+template <int W, bool kSwizzle = true, bool kSpare = true, bool kLaneSpare = false>
 __global__ void __launch_bounds__(kThreads)
 histogram_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __restrict__ lo_ptr,
                  uint32_t lo_value, int k, unsigned long long* __restrict__ counts,
                  long long nblocks, long long n, long long block_offset) {
-  __shared__ unsigned s_bin[kMaxHistKeys + 1];  // and the spare counter
+  __shared__ unsigned s_bin[kMaxHistKeys + 32];  // and the spare counters
   const int slots = (k + 31) & ~31;  // bin_slot(d) < slots for every d < k
   zero_counts(s_bin, slots);
+  const uint32_t spare = kMaxHistKeys + (kLaneSpare ? threadIdx.x & 31u : 0u);
   const uint32_t lo = lo_ptr ? __ldg(lo_ptr) : lo_value;
   // (k <= 4096: only W <= 12 has a whole-domain window)
   const bool whole = W <= 12 && lo == 0u && (uint32_t)k >= (1u << W);
@@ -141,12 +141,10 @@ histogram_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __restrict_
           continue;
         }
       }
-      count_block<W, false, false, kSwizzle, kSpare>(w, 0u, lo, (uint32_t)k, s_bin,
-                                                    kMaxHistKeys);
+      count_block<W, false, false, kSwizzle, kSpare>(w, 0u, lo, (uint32_t)k, s_bin, spare);
     } else {
       const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
-      count_block<W, false, true, kSwizzle, kSpare>(w, valid, lo, (uint32_t)k, s_bin,
-                                                   kMaxHistKeys);
+      count_block<W, false, true, kSwizzle, kSpare>(w, valid, lo, (uint32_t)k, s_bin, spare);
     }
   }
   __syncthreads();
@@ -220,8 +218,7 @@ template <typename Kernel>
 cudaError_t histogram_grid(Kernel kernel, long long nblocks, unsigned* grid) {
   const long long ntiles = (nblocks + kThreads - 1) / kThreads;
   const cudaError_t err = resident_grid(kernel, kThreads, 0, ntiles, grid);
-  const long long tiles_per_cta = (1LL << 32) / ((long long)kThreads * kBlockValues) - 1;
-  const long long least = (ntiles + tiles_per_cta - 1) / tiles_per_cta;
+  const long long least = least_ctas(ntiles, kThreads);
   if (*grid < least) *grid = (unsigned)least;
   return err;
 }

@@ -30,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("unpack.cu", "shared_scan.cu", "interval_scan.cu", "bitsliced.cu", "windowed.cu",
            "range_scan.cu", "conj.cu", "member.cu", "aggregate.cu", "agg_bitplane.cu",
-           "histogram.cu", "zoned.cu", "linear.cu", "copy.cu")
+           "agg_lookup.cu", "histogram.cu", "zoned.cu", "linear.cu", "copy.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -88,9 +88,9 @@ _SIGNATURES = {
                            _vp],
     # tiles, counts (int64[2^width]), nblocks, width, n, block_offset, stream
     "sss_histogram_domain": [_vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
-    # tiles, prog, nops, k, counts, nblocks, width, n, block_offset, threads, slots, stream
-    "sss_histogram_dag": [_vp, _vp, ctypes.c_int, ctypes.c_int, _vp, _ll, ctypes.c_int, _ll, _ll,
-                          ctypes.c_int, ctypes.c_int, _vp],
+    # tiles, lo (host value), k, counts, nblocks, width, n, block_offset, stream
+    "sss_histogram_fold": [_vp, ctypes.c_uint32, ctypes.c_int, _vp, _ll, ctypes.c_int, _ll, _ll,
+                           _vp],
     # tile_ptrs, widths, lows, highs (host arrays of m), m, bits, counts, nblocks, n,
     # block_offset, stream
     "sss_conj_range_scan": [_vp, _vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, _ll, _ll, _vp],
@@ -113,11 +113,10 @@ _SIGNATURES = {
     # ptiles, mtiles, keys, k, counts, sums, nblocks, wp, wm, n, block_offset, stream
     "sss_agg_bitplane": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, ctypes.c_int,
                          _ll, _ll, _vp],
-    # ptiles, mtiles, prog, nops, k, counts, sums, nblocks, wp, wm, n, block_offset,
-    # threads, slots, stream
-    "sss_agg_bitplane_static": [_vp, _vp, _vp, ctypes.c_int, ctypes.c_int, _vp, _vp, _ll,
-                                ctypes.c_int, ctypes.c_int, _ll, _ll, ctypes.c_int, ctypes.c_int,
-                                _vp],
+    # ptiles, mtiles, keys (a host array of k uint32, passed by value), k, counts, sums,
+    # nblocks, wp, wm, n, block_offset, stream
+    "sss_agg_lookup": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, ctypes.c_int,
+                       _ll, _ll, _vp],
     # src, dst, nbytes, stream
     "sss_copy": [_vp, _vp, _ll, _vp],
 }

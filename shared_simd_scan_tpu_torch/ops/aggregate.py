@@ -19,8 +19,8 @@ wrapper (its ``launches``)           CUDA kernel
 ``minmax_scan_tiles``                ``sss_agg_compare``, MIN/MAX form
 ``aggregate_bitplane_tiles``         ``sss_agg_bitplane``
                                      (``csrc/agg_bitplane.cu``)
-``aggregate_bitplane_static_tiles``  ``sss_agg_bitplane_static``, on the key
-                                     set's AND-DAG program
+``aggregate_bitplane_static_tiles``  ``sss_agg_lookup`` (``csrc/agg_lookup.cu``):
+                                     a key lookup and scatter-add a value
 ``masked_aggregate_tiles``           ``sss_masked_agg`` (``csrc/aggregate.cu``)
 ===================================  ===========================================
 
@@ -62,12 +62,10 @@ from shared_simd_scan_tpu_torch.ops.scan import (
     _CountVec,
     _bitplanes_plain,
     _bounds_tensor,
-    _combo,
     _host_keys,
+    _real_values_plain,
     _runtime_keys,
     _static_dag_ops,
-    _static_program_on,
-    _static_threads,
     _transpose_bitplanes_plain,
     _valid_words,
 )
@@ -292,9 +290,12 @@ minmax_scan_tiles.launches = 0
 #
 # A block pays a fixed unpack and SWAPMOVE transpose of both columns,
 # shared by every key, then ~4 ops per key per measure plane on 32 values
-# at once.  Match words come from the memoized AND-DAG of the static
-# bit-sliced scan (scan._combo) for host keys and from the XOR plane fold
-# for runtime keys.
+# at once.  On the TPU the match words come from the memoized AND-DAG of
+# the static bit-sliced scan (scan._combo) for host keys and from the XOR
+# plane fold for runtime keys.  The port keeps the runtime keys' fold; its
+# host-key tier is one key lookup and scatter-add per value (the card has
+# the gather and scatter that Mosaic lacks), with the tier's contract and
+# dispatch price unchanged.
 
 
 def _bitplane_sums_plain(mws: list, mplanes: list) -> tuple[torch.Tensor, torch.Tensor]:
@@ -367,44 +368,57 @@ def aggregate_bitplane_static_tiles_plain(
     block_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of :func:`aggregate_bitplane_static_tiles`, same
-    algorithm: the key set's memoized ``_combo`` DAG over the predicate
-    planes (keys >= 2^wp give zero words), masked by the validity word,
-    then the per-plane popcounts."""
+    algorithm: each real predicate value's slot among the key set's
+    distinct keys by ``searchsorted`` (slot ``len(distinct)`` for the
+    rest), its count by ``bincount`` and its measure added to the slot by
+    ``index_add_`` in int64 (exact); each key reads its slot's totals, a
+    key >= 2^wp none."""
     arr = _static_keys(keys)
-    pplanes = _bitplanes_plain(ptiles, wp)
-    valid = _valid_words(ptiles.shape[1], n, block_offset, ptiles.device)
-    zero = torch.zeros_like(valid)
-    memo: dict = {}
-    mws = [_combo(pplanes, 0, wp, key, memo) & valid if key < 1 << wp else zero
-           for key in arr.tolist()]
-    return _bitplane_sums_plain(mws, _bitplanes_plain(mtiles, wm))
+    device = ptiles.device
+    pvals, real = _real_values_plain(ptiles, wp, n, block_offset)
+    mvals, _ = _real_values_plain(mtiles, wm, n, block_offset)
+    distinct = np.unique(arr[arr < (1 << wp)])
+    none = distinct.size
+    table = torch.from_numpy(distinct.astype(np.int64)).to(device)
+    slot = torch.full_like(pvals, none)
+    if none:
+        pos = torch.searchsorted(table, pvals).clamp_(max=none - 1)
+        slot = torch.where(real & (table[pos] == pvals), pos, slot)
+        del pos
+    slot = slot.flatten()
+    counts = torch.bincount(slot, minlength=none + 1)
+    sums = torch.zeros(none + 1, dtype=torch.int64, device=device).index_add_(0, slot,
+                                                                              mvals.flatten())
+    counts[none] = sums[none] = 0  # what no key holds: a key >= 2^wp reads these zeros
+    idx = torch.from_numpy(np.where(arr < (1 << wp), np.searchsorted(distinct, arr),
+                                    none).astype(np.int64)).to(device)
+    return counts[idx], sums[idx]
 
 
 def aggregate_bitplane_static_tiles(
     ptiles: torch.Tensor, mtiles: torch.Tensor, keys, wp: int, wm: int, n: int,
     block_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The bit-plane aggregate for host keys (a list, numpy array or CPU
-    tensor; a CUDA tensor raises): the contract of
-    :func:`aggregate_scan_tiles`, with match words from the key set's
-    shared AND-DAG.
+    """The bit-plane tier's aggregate for host keys (a list, numpy array or
+    CPU tensor; a CUDA tensor raises): the contract of
+    :func:`aggregate_scan_tiles`.
 
-    Kernel ``sss_agg_bitplane_static`` (``csrc/agg_bitplane.cu``) on CUDA
-    tiles, interpreting the DAG program (compiled on the host and cached
-    per width and keys); the plain version on CPU tiles."""
+    Kernel ``sss_agg_lookup`` (``csrc/agg_lookup.cu``: the keys passed by
+    value, each real value looked up among them and its count and measure
+    added to its key's shared counters) on CUDA tiles; the plain version on
+    CPU tiles."""
     arr = _static_keys(keys)
     b1 = _check_pair(ptiles, mtiles, wp, wm)
     device = _cuda.kernel_device(ptiles, mtiles)
     if device is None:
         return aggregate_bitplane_static_tiles_plain(ptiles, mtiles, arr, wp, wm, n, block_offset)
-    k = int(arr.shape[0])
-    prog, slots = _static_program_on(wp, tuple(arr.tolist()), device)
+    host = np.ascontiguousarray(arr, dtype=np.uint32)
+    k = int(host.shape[0])
     counts = torch.zeros(k, dtype=torch.int64, device=device)
     sums = torch.zeros(k, dtype=torch.int64, device=device)
     _cuda.launch(
-        "sss_agg_bitplane_static", device, ptiles.data_ptr(), mtiles.data_ptr(),
-        prog.data_ptr(), prog.shape[0], k, counts.data_ptr(), sums.data_ptr(), b1 * LANES, wp,
-        wm, n, block_offset, _static_threads(slots + k), slots,
+        "sss_agg_lookup", device, ptiles.data_ptr(), mtiles.data_ptr(), host.ctypes.data, k,
+        counts.data_ptr(), sums.data_ptr(), b1 * LANES, wp, wm, n, block_offset,
     )
     aggregate_bitplane_static_tiles.launches += 1
     return counts, sums

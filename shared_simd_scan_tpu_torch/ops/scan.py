@@ -978,13 +978,6 @@ def _static_threads(slots: int) -> int:
                      f"memory of a 32-thread CTA ({STATIC_SMEM_BYTES} bytes)")
 
 
-@functools.lru_cache(maxsize=64)
-def _static_program_on(width: int, keys: tuple, device: torch.device) -> tuple[torch.Tensor, int]:
-    """:func:`_static_program` with its program copied to ``device``."""
-    prog, slots = _static_program(width, keys)
-    return torch.from_numpy(prog).to(device), slots
-
-
 def shared_scan_bitsliced_static_tiles_plain(
     tiles: torch.Tensor, keys, width: int, n: int, block_offset: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1539,77 +1532,71 @@ def _histogram_domain_tiles(
 _histogram_domain_tiles.launches = 0
 
 
-def _histogram_keys(lo: int, k: int) -> tuple:
-    """Keys lo..lo+k-1 as uint32 program keys.  The JAX package's
-    concrete-lo kernels count a key past 2^32 - 1 as 0 (it is >= 2^width);
-    it becomes 0xFFFFFFFF, outside every domain too."""
-    return tuple(min(lo + j, _U32) for j in range(k))
-
-
-def _row_count(row: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    return popcount_words(i32(row & valid)).sum()
-
-
-def _histogram_chunked_tiles_plain(
+def _histogram_span_tiles_plain(
     tiles: torch.Tensor, lo: int, k: int, width: int, n: int, block_offset: int = 0
 ) -> torch.Tensor:
-    """Plain torch version of :func:`_histogram_chunked_tiles`: per
-    ``_static_group_sizes`` group the memoized ``_combo`` rows of each
-    chunk, popcounted under the validity word."""
-    planes = _bitplanes_plain(tiles, width)
-    valid = _valid_words(tiles.shape[1], n, block_offset, tiles.device)
-    zero = torch.zeros((), dtype=torch.int64, device=tiles.device)
+    """Plain torch version of :func:`_histogram_span_tiles` and
+    :func:`_histogram_chunked_tiles`: the real values in [lo, lo + k),
+    counted by ``bincount``."""
+    vals, real = _real_values_plain(tiles, width, n, block_offset)
+    d = vals - lo
+    return torch.bincount(d[real & (d >= 0) & (d < k)], minlength=k)
+
+
+_histogram_chunked_tiles_plain = _histogram_span_tiles_plain
+
+def _histogram_fold_keys(width: int, lo: int, k: int) -> int:
+    """How many keys :func:`_histogram_chunked_tiles` counts with the
+    static fold's counts form: the keys of lo..lo+k-1 inside the domain
+    (the rest count 0), where the committed sweep (``bench/redesign_sweep.py
+    histdag``, uniform columns of 512 MiB packed at widths 1-6, 8, 9, 12;
+    NVIDIA H100 80GB HBM3, 700 W) found the fold faster than the bins
+    kernel by more than 10%; else 0, and the bins kernel counts all k.
+    That is every window at width 1 (0.30-0.84 of the bins kernel's time:
+    2^32 values on two bins), and windows short of the whole domain with
+    at most 8 keys inside it up to width 4 (0.62-0.84) or 2 up to width 8
+    (0.82-0.89).  A whole domain (lo 0, k >= 2^W) past width 1 takes the
+    bins kernel's whole-domain path (0.19-0.60 of the fold's time), and so
+    does every other window (the fold took 0.99-4.1x the bins kernel's
+    time: 8 keys at widths 5 and 6, 2-64 at widths 9 and 12)."""
     dom = 1 << width
-    counts, g0 = [], 0
-    for g in _static_group_sizes(k):
-        keys = np.asarray(_histogram_keys(lo + g0, g), dtype=np.uint32)
-        for _, chunk in _static_chunks(keys):
-            memo: dict = {}
-            counts += [_row_count(_combo(planes, 0, width, key, memo), valid) if key < dom
-                       else zero for key in chunk]
-        g0 += g
-    return torch.stack(counts)
+    inside = min(k, dom - lo) if lo < dom else 0
+    if width == 1 or inside == 0:
+        return inside
+    whole = lo == 0 and k >= dom
+    return inside if not whole and width <= 8 and inside <= (8 if width <= 4 else 2) else 0
 
 
 def _histogram_chunked_tiles(
     tiles: torch.Tensor, lo: int, k: int, width: int, n: int, block_offset: int = 0
 ) -> torch.Tensor:
-    """Counts of keys lo..lo+k-1 (host lo) through the static AND-DAG in
-    ``_static_krows`` chunks -> int64[k]: one counts-only launch per
-    ``_static_group_sizes`` group, as the JAX package runs one
-    ``_histogram_dag_tiles_impl`` per group.
+    """Counts of keys lo..lo+k-1 (host lo, any 1 <= k <= 4096) in one pass
+    -> int64[k]: count j is the number of real values equal to lo + j, so
+    a key past 2^width or past 2^32 - 1 counts 0 (no wrap).  The JAX
+    package runs one ``_histogram_dag_tiles_impl`` per
+    ``_static_group_sizes`` group, each reading the whole column; here one
+    launch counts all k.
 
-    Kernel ``sss_histogram_dag`` (``csrc/bitsliced.cu``) on the group's
-    :func:`_static_program` for CUDA tiles; the plain version on CPU tiles."""
+    On CUDA tiles, by the committed sweep (:func:`_histogram_fold_keys`):
+    at width 1 and for a few keys of a narrow column, kernel
+    ``sss_histogram_fold`` (``csrc/bitsliced.cu``: the static fold's
+    counts form on the keys inside the domain, each key's row popcounted
+    and never stored); elsewhere kernel ``sss_histogram_span``
+    (``csrc/histogram.cu``: the bins kernel with lo by value).  The plain
+    version (the span tier's) on CPU tiles."""
     b1 = _check_tiles(tiles, width)
     device = _cuda.kernel_device(tiles)
     if device is None:
         return _histogram_chunked_tiles_plain(tiles, lo, k, width, n, block_offset)
     counts = torch.zeros(k, dtype=torch.int64, device=device)
-    g0 = 0
-    for g in _static_group_sizes(k):
-        prog, slots = _static_program_on(width, _histogram_keys(lo + g0, g), device)
-        _cuda.launch(
-            "sss_histogram_dag", device, tiles.data_ptr(), prog.data_ptr(), prog.shape[0], g,
-            counts[g0].data_ptr(), b1 * LANES, width, n, block_offset, _static_threads(slots),
-            slots,
-        )
-        _histogram_chunked_tiles.launches += 1
-        g0 += g
+    fold = _histogram_fold_keys(width, lo, k)
+    _cuda.launch("sss_histogram_fold" if fold else "sss_histogram_span", device, tiles.data_ptr(),
+                 lo, fold or k, counts.data_ptr(), b1 * LANES, width, n, block_offset)
+    _histogram_chunked_tiles.launches += 1
     return counts
 
 
 _histogram_chunked_tiles.launches = 0
-
-
-def _histogram_span_tiles_plain(
-    tiles: torch.Tensor, lo: int, k: int, width: int, n: int, block_offset: int = 0
-) -> torch.Tensor:
-    """Plain torch version of :func:`_histogram_span_tiles`: the real
-    values in [lo, lo + k), counted by ``bincount``."""
-    vals, real = _real_values_plain(tiles, width, n, block_offset)
-    d = vals - lo
-    return torch.bincount(d[real & (d >= 0) & (d < k)], minlength=k)
 
 
 def _histogram_span_tiles(
@@ -1644,8 +1631,9 @@ def histogram_dag_tiles(
 
     As the JAX package's ``histogram_dag_tiles``: 48 < k <= 512 takes the
     single-pass span tier (:func:`_histogram_span_tiles`, shared-memory
-    bins), other k the chunked AND-DAG programs
-    (:func:`_histogram_chunked_tiles`); ``single_pass`` forces either."""
+    bins), other k the tier of the JAX package's chunked AND-DAG programs
+    (:func:`_histogram_chunked_tiles`, one pass here too); ``single_pass``
+    forces either."""
     k = int(k)
     _check_histogram_k(k)
     lo = _check_lo(lo)
@@ -1662,9 +1650,11 @@ def _histogram_single_pass(k: int) -> bool:
 
 def histogram_dag_passes(k: int) -> int:
     """Passes over the packed column of :func:`histogram_dag_tiles`'s
-    default dispatch for k keys: one for the span tier, else one per
-    static group of the chunked programs."""
-    return 1 if _histogram_single_pass(k) else len(_static_group_sizes(k))
+    default dispatch for k keys, as the port makes them: one for every k
+    (both tiers count all k keys in one launch; the JAX package's chunked
+    tier makes one pass per static group)."""
+    _check_histogram_k(k)
+    return 1
 
 
 def histogram_device(dev: DeviceColumn, lo=0, k: int | None = None) -> torch.Tensor:

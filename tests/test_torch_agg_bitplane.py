@@ -29,10 +29,11 @@ def _keys_t(keys) -> torch.Tensor:
     return torch.from_numpy(np.asarray(keys, np.uint32).view(np.int32).copy())
 
 
-def _table(wp, wm, seed):
-    """Two columns of one ragged n (B1 = 8), packed by both packages."""
+def _table(wp, wm, seed, n=None):
+    """Two columns of one ragged n (B1 = 8 by default), packed by both
+    packages."""
     rng = np.random.default_rng(seed)
-    n = 20_000 + 37 * wp + wm
+    n = n or 20_000 + 37 * wp + wm
     p = rng.integers(0, 1 << wp, n, dtype=np.uint64).astype(np.uint32)
     m = rng.integers(0, 1 << wm, n, dtype=np.uint64).astype(np.uint32)
     jcols = (jlayout.pack_device(p, wp), jlayout.pack_device(m, wm))
@@ -79,6 +80,23 @@ def test_aggregate_bitplane_static_tiles_matches_jax(wp, wm):
                                                 interpret=True)
     tout = tagg.aggregate_bitplane_static_tiles(tp.tiles, tm.tiles, keys, wp, wm, n)
     _assert_sums(tout, *jout, p, m, keys)
+
+
+@pytest.mark.parametrize("wm", [1, 20, 31])
+@pytest.mark.parametrize("wp", [1, 5, 16, 17, 20, 31])
+def test_static_tier_matches_jax_across_widths(wp, wm):
+    # the port's key lookup (its plain version) against the JAX AND-DAG
+    # tier in interpret mode: the byte table's widths (1, 5, 16) and the
+    # search's (17, 20, 31); key 0 over the padding of a ragged n, a
+    # duplicate, keys >= 2^wp and 0xFFFFFFFF; a block_offset that drops
+    # the last two blocks
+    n, p, m, (jp, jm), (tp, tm) = _table(wp, wm, 40 * wp + wm, n=3001 + wp)
+    keys = np.asarray([0, p[5], p[5], 1 << wp, TOP, p[7]], np.uint32)
+    jout = jagg.aggregate_bitplane_static_tiles(jp.tiles, jm.tiles, keys, wp, wm, n,
+                                                interpret=True, block_offset=2)
+    tout = tagg.aggregate_bitplane_static_tiles(tp.tiles, tm.tiles, keys, wp, wm, n, 2)
+    cut = n - 2 * 32
+    _assert_sums(tout, *jout, p[:cut], m[:cut], keys)
 
 
 def test_block_offset_matches_jax():

@@ -570,28 +570,80 @@ def test_aggregate_sums_past_32_bits(cuda_device):
     assert int(count) == n and int(total) == want[0]
 
 
-def test_agg_bitplane_static_past_48kb_of_shared_memory(cuda_device):
-    wp, wm = 31, 20
-    ptiles = unpack.pack_device_kernel(_values(wp, N, 131, cuda_device), wp).tiles
-    mtiles = unpack.pack_device_kernel(_values(wm, N, 132, cuda_device), wm).tiles
-    keys = np.random.default_rng(2).integers(0, 1 << 31, size=32).tolist()
-    _, slots = scan._static_program(wp, tuple(keys))
-    assert (slots + 32) * scan._static_threads(slots + 32) * 4 > 48 * 1024
-    _same(aggregate.aggregate_bitplane_static_tiles(ptiles, mtiles, keys, wp, wm, N),
-          aggregate.aggregate_bitplane_static_tiles_plain(ptiles, mtiles, keys, wp, wm, N))
+def test_agg_lookup_largest_table(cuda_device):
+    # wp = 16: the byte table's 64 KB of shared memory, past the 48 KB
+    # default; keys at both ends of the domain, a duplicate and one past it;
+    # wp = 17, the first width of the search
+    for wp in (16, 17):
+        dom = 1 << wp
+        pvals = _values(wp, N, 131 + wp, cuda_device)
+        pvals[:40] = dom - 1
+        ptiles = unpack.pack_device_kernel(pvals, wp).tiles
+        mtiles = unpack.pack_device_kernel(_values(20, N, 132, cuda_device), 20).tiles
+        keys = [0, dom - 1, int(pvals[50]), int(pvals[50]), dom] + np.random.default_rng(
+            wp).integers(0, dom, size=27).tolist()
+        for bo in (0, 2):
+            _same(aggregate.aggregate_bitplane_static_tiles(ptiles, mtiles, keys, wp, 20, N, bo),
+                  aggregate.aggregate_bitplane_static_tiles_plain(ptiles, mtiles, keys, wp, 20, N,
+                                                                  bo))
+
+
+@pytest.mark.parametrize("wp", range(1, 32))
+def test_agg_lookup_every_width_matches_plain(cuda_device, wp):
+    # keys spread over the domain, key 0 over the padding, a duplicate, keys
+    # >= 2^wp and 0xFFFFFFFF; measures of 1, 20 and 31 bits; a block_offset
+    n = 4 * 256 * 32 + 5017  # full tiles, then a partial one
+    dom = 1 << wp
+    pvals = _values(wp, n, wp + 400, cuda_device)
+    ptiles = unpack.pack_device_kernel(pvals, wp).tiles
+    v = [int(x) for x in pvals[:3].tolist()]
+    keys = [0, v[0], v[1], v[1], dom, 0xFFFFFFFF] + np.random.default_rng(wp).integers(
+        0, dom, size=26).tolist()
+    for wm in (1, 20, 31):
+        mtiles = unpack.pack_device_kernel(_values(wm, n, wm + 401, cuda_device), wm).tiles
+        for ks in (keys[:1], keys[:6], keys):
+            for bo in (0, 2):
+                before = aggregate.aggregate_bitplane_static_tiles.launches
+                _same(aggregate.aggregate_bitplane_static_tiles(ptiles, mtiles, ks, wp, wm, n, bo),
+                      aggregate.aggregate_bitplane_static_tiles_plain(ptiles, mtiles, ks, wp, wm,
+                                                                      n, bo))
+                assert aggregate.aggregate_bitplane_static_tiles.launches == before + 1
+
+
+def test_agg_lookup_contention_columns(cuda_device):
+    # every row on one key, 90% on one key, sorted runs: many lanes of a
+    # warp on one slot's counters; sums past 2^32 within one CTA (wm = 31)
+    n = 8 * 256 * 32 + 77
+    rng = np.random.default_rng(9)
+    uniform = rng.integers(0, 32, n)
+    columns = {"constant": np.full(n, 3), "skewed": np.where(rng.random(n) < 0.9, 3, uniform),
+               "sorted": np.sort(uniform)}
+    for wm in (20, 31):
+        m = torch.from_numpy(rng.integers(0, 1 << wm, n).astype(np.uint32).view(np.int32))
+        mtiles = unpack.pack_device_kernel(m.to(cuda_device), wm).tiles
+        m64 = m.to(torch.int64) & 0xFFFFFFFF
+        for label, p in columns.items():
+            ptiles = unpack.pack_device_kernel(_keys(p, cuda_device), 5).tiles
+            counts, sums = aggregate.aggregate_bitplane_static_tiles(ptiles, mtiles,
+                                                                     list(range(32)), 5, wm, n)
+            g = torch.from_numpy(p)
+            assert counts.tolist() == torch.bincount(g, minlength=32).tolist(), label
+            want = torch.zeros(32, dtype=torch.int64).scatter_add_(0, g, m64)
+            assert sums.tolist() == want.tolist(), label
 
 
 def test_refused_aggregate_launches_raise(cuda_device):
     wp, wm, n = 9, 20, 1000
     ptiles = torch.zeros((wp, 8, 128), dtype=torch.int32, device=cuda_device)
     mtiles = torch.zeros((wm, 8, 128), dtype=torch.int32, device=cuda_device)
-    prog, _ = scan._static_program_on(wp, (3, 70), cuda_device)
-    out = torch.zeros(2, dtype=torch.int64, device=cuda_device)
-    with pytest.raises(RuntimeError, match="sss_agg_bitplane_static"):
-        # 4096 slots x 128 threads: 2 MB of shared memory, more than a CTA has
-        _cuda.launch("sss_agg_bitplane_static", cuda_device, ptiles.data_ptr(), mtiles.data_ptr(),
-                     prog.data_ptr(), prog.shape[0], 2, out.data_ptr(), out.data_ptr(), 8 * 128,
-                     wp, wm, n, 0, 128, 4096)
+    out = torch.zeros(33, dtype=torch.int64, device=cuda_device)
+    host = np.zeros(33, np.uint32)
+    for k, w in ((33, wp), (0, wp), (2, 32)):
+        with pytest.raises(RuntimeError, match="sss_agg_lookup"):
+            # 33 keys: more than the kernel's slots; no keys; width 32
+            _cuda.launch("sss_agg_lookup", cuda_device, ptiles.data_ptr(), mtiles.data_ptr(),
+                         host.ctypes.data, k, out.data_ptr(), out.data_ptr(), 8 * 128, w, wm, n,
+                         0)
     keys = torch.zeros(33, dtype=torch.int32, device=cuda_device)
     with pytest.raises(RuntimeError, match="sss_agg_compare"):
         # 33 keys: more than the kernel's shared counters hold
@@ -755,6 +807,31 @@ def test_histogram_whole_window_and_masked_paths(cuda_device, width):
                   scan.histogram_tiles_plain(tiles, lo, k, width, n, bo))
             _same(scan._histogram_span_tiles(tiles, lo, k, width, n, bo),
                   scan._histogram_span_tiles_plain(tiles, lo, k, width, n, bo))
+            _same(scan._histogram_chunked_tiles(tiles, lo, k, width, n, bo),
+                  scan._histogram_chunked_tiles_plain(tiles, lo, k, width, n, bo))
+
+
+@pytest.mark.parametrize("width", range(1, 32))
+def test_chunked_histogram_one_launch_every_width(cuda_device, width):
+    # the chunked tier's k (1-48, and past 512) in one launch: the whole
+    # domain, windows, keys from 2^32 - 3 (all zeros), on a uniform, a
+    # constant and a 90%-skewed column (many lanes of a warp on one bin or
+    # one key's row), with and without a block_offset
+    n = 4 * 256 * 32 + 5017
+    dom = 1 << width
+    uniform = _values(width, n, width + 500, cuda_device)
+    columns = [uniform, torch.full_like(uniform, dom // 3),
+               torch.where(uniform % 10 < 9, dom - 1, uniform)]
+    cases = [(0, min(dom, 48)), (0, 1), (0, 2), (dom // 2, 40), (0, 4096), (max(dom - 3, 0), 8),
+             ((1 << 32) - 3, 40), ((1 << 32) - 3, 1000)]
+    for values in columns:
+        tiles = unpack.pack_device_kernel(values, width).tiles
+        for lo, k in cases:
+            for bo in (0, 2):
+                before = scan._histogram_chunked_tiles.launches
+                _same(scan._histogram_chunked_tiles(tiles, lo, k, width, n, bo),
+                      scan._histogram_chunked_tiles_plain(tiles, lo, k, width, n, bo))
+                assert scan._histogram_chunked_tiles.launches == before + 1
 
 
 @pytest.mark.parametrize("width", [13, 16, 20])
@@ -900,10 +977,11 @@ def test_refused_histogram_and_zoned_launches_raise(cuda_device):
         # width 12: a domain of one window
         _cuda.launch("sss_histogram_domain", cuda_device, tiles.data_ptr(), counts.data_ptr(),
                      8 * 128, 12, 100, 0)
-    prog, _ = scan._static_program_on(9, (3, 70), cuda_device)
-    with pytest.raises(RuntimeError, match="sss_histogram_dag"):
-        _cuda.launch("sss_histogram_dag", cuda_device, tiles.data_ptr(), prog.data_ptr(),
-                     prog.shape[0], 4097, counts.data_ptr(), 8 * 128, 9, 100, 0, 128, 64)
+    for k, width in ((4097, 4), (1025, 4), (0, 4), (8, 9), (8, 32), (8, 0)):
+        with pytest.raises(RuntimeError, match="sss_histogram_fold"):
+            # more keys than its shared counters; no keys; no such width
+            _cuda.launch("sss_histogram_fold", cuda_device, tiles.data_ptr(), 0, k,
+                         counts.data_ptr(), 8 * 128, width, 100, 0)
     idx = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     bits = torch.zeros((1, 8, 128), dtype=torch.int32, device=cuda_device)
     with pytest.raises(RuntimeError, match="sss_zoned_range_scan"):

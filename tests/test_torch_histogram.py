@@ -163,3 +163,49 @@ def test_programs_and_dispatch():
     histogram_device(tlayout.DeviceColumn(width, n, tiles), _lo(0), 40)
     assert [tscan.histogram_tiles.launches, tscan._histogram_span_tiles.launches,
             tscan._histogram_chunked_tiles.launches] == before
+
+
+@pytest.mark.parametrize("width,lo,k", [(1, 0, 2), (4, 0, 16), (7, (1 << 32) - 3, 40)])
+def test_chunked_tier_matches_jax_chunked_programs(width, lo, k):
+    # the port counts all k keys in one launch, the JAX package runs its
+    # AND-DAG programs (interpret mode): the full domain at widths 1 and 4,
+    # and keys from 2^32 - 3, which count 0 (no wrap)
+    values, jdev, tdev = _column(width, seed=30 + width)
+    jcounts = jscan.histogram_dag_tiles(jdev.tiles, lo, k, width, N, interpret=True,
+                                        single_pass=False)
+    _same(tscan._histogram_chunked_tiles(tdev.tiles, lo, k, width, N), jcounts, values, lo)
+    _same(tscan._histogram_chunked_tiles(tdev.tiles, lo, k, width, N, 2),
+          jscan.histogram_dag_tiles(jdev.tiles, lo, k, width, N, interpret=True,
+                                    single_pass=False, block_offset=2))
+
+
+def test_chunked_tier_against_numpy_at_widths_10_and_12():
+    # the full domain at width 10 (k = 1024, four of the JAX package's
+    # static groups: its interpret mode takes ~50 s, so numpy stands in),
+    # a 1000-key window at width 12 and one running past its domain
+    for width, lo, k in ((10, 0, 1024), (12, 100, 1000), (12, 4000, 1000)):
+        values, _, tdev = _column(width, seed=40 + width)
+        expect = np.bincount(values, minlength=lo + k)[lo: lo + k]
+        np.testing.assert_array_equal(
+            tscan._histogram_chunked_tiles(tdev.tiles, lo, k, width, N).numpy(), expect)
+
+
+def test_histogram_dag_passes_is_one_for_every_k():
+    # both tiers count every k in one pass over the packed column
+    assert [tscan.histogram_dag_passes(k) for k in (1, 40, 48, 49, 512, 513, 1024, 4096)] == [1] * 8
+    with pytest.raises(ValueError, match="histogram supports"):
+        tscan.histogram_dag_passes(4097)
+
+
+def test_fold_counts_rule_follows_the_committed_sweep():
+    # the chunked tier's choice between the static fold's counts form (on
+    # the keys inside the domain) and the bins kernel (0), as
+    # bench/redesign_sweep.py histdag fixed it: every window at width 1;
+    # windows short of the whole domain with at most 8 keys inside it up to
+    # width 4 and 2 up to width 8; nothing else
+    cases = {(1, 0, 2): 2, (1, 0, 4096): 2, (1, 1, 1): 1, (1, 2, 40): 0, (2, 0, 2): 2,
+             (4, 0, 8): 8, (4, 3, 8): 8, (4, 12, 40): 4, (5, 0, 2): 2, (8, 7, 2): 2,
+             (2, 0, 4): 0, (4, 0, 16): 0, (4, 0, 9): 0, (5, 0, 3): 0, (8, 0, 256): 0,
+             (9, 0, 2): 0, (9, 100, 40): 0, (12, 0, 4096): 0, (4, 0, 4096): 0,
+             (4, (1 << 32) - 3, 40): 0}
+    assert {case: tscan._histogram_fold_keys(*case) for case in cases} == cases

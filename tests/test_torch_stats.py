@@ -52,6 +52,18 @@ def test_stats_match_jax(width):
     assert tstats.describe(tdev) == jstats.describe(jdev, interpret=True)
 
 
+@pytest.mark.parametrize("width", [1, 4, 10, 12])
+def test_histogram_full_one_pass_matches_numpy(width):
+    # a domain of 2-4096 values: one launch of the port's chunked or span
+    # tier, on a ragged column with a skewed value
+    values = np.random.default_rng(50 + width).integers(0, 1 << width, size=7001).astype(np.uint32)
+    values[::3] = (1 << width) - 1
+    tdev = tlayout.pack_device(values, width, device="cpu")
+    counts = tstats.histogram_full(tdev)
+    assert counts.dtype == np.uint64
+    np.testing.assert_array_equal(counts, np.bincount(values, minlength=1 << width))
+
+
 def test_two_windows_at_width_13():
     values = np.random.default_rng(2).integers(0, 1 << 13, size=50_000).astype(np.uint32)
     tdev = tlayout.pack_device(values, 13, device="cpu")
