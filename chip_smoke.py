@@ -48,15 +48,19 @@ from the sources in the checkout and then:
    the demo's WHERE clause, ``aggregate_scan_device`` with host keys
    (static bit-plane and compare tiers) and CUDA-tensor keys (runtime
    bit-plane and compare tiers, under ``set_sync_debug_mode("error")``) and
-   ``minmax_scan_device``, and A7, ``aggregate_scan_device`` with the
+   ``minmax_scan_device``, A7, ``aggregate_scan_device`` with the
    20-bit revenue as the predicate of 16 spread host keys (the key lookup
-   past its byte table) — with the launch counters set to 0 just before
-   and read just after; checks that each call ran the kernel its tier
-   names and that every result equals plain torch on the raw values
+   past its byte table), and A8, ``minmax_scan_device`` with the same
+   predicate and keys as a CUDA tensor (the MIN/MAX lookup's window, found
+   by each CTA) — with the launch counters set to 0 just before and read
+   just after; checks that each call ran the kernel its tier names and
+   that every result equals plain torch on the raw values
    (``scatter_add_``, ``bincount``, ``scatter_reduce_``, the masked sum);
-   before it, the key lookup aggregate's edges at small ragged sizes
-   (constant, 90%-skewed and uniform predicates, duplicates, keys past the
-   domain, a block_offset, one CTA's sum past 2^32);
+   before it, the two key lookup aggregates' edges at small ragged sizes
+   (constant, 90%-skewed, sorted and uniform predicates at widths 1-31, a
+   measure that falls with the row index, duplicates, keys past the
+   domain, keys in device memory whose 16-bit windows meet at every
+   shift, a block_offset, one CTA's sum past 2^32);
 8. holds the histogram and zone-map kernels against their plain versions
    at small ragged sizes (widths 1-31, k 1-4096, key 0 over padding, keys
    past the domain, a lo within k of 2^32 -- wrapping for a runtime lo,
@@ -82,8 +86,9 @@ from the sources in the checkout and then:
 9. holds the linear export's kernels against their plain versions at small
    ragged sizes (the interleave at k 1-1024 and the stream interleave with
    ragged M; the fused interval, static and runtime-key kernels at every k
-   their tiers admit, widths 1-31 (the static fold at every one of them), a
-   ``block_offset``, keys past the domain, 0xFFFFFFFF and duplicates), then
+   their tiers admit, widths 1-31 (the static and runtime-key folds at
+   every one of them), a ``block_offset``, keys past the domain, 0xFFFFFFFF
+   and duplicates), then
    drives the linear export at
    full size on the main path's column and the ``i % 512`` column: L1-L4
    ``shared_scan_linear_words_device`` (keys 0..7; S8 as host keys and as
@@ -206,7 +211,7 @@ KERNELS = {  # name -> (source, its C entry point, TPU kernel it replaces)
                                   "sss_agg_lookup", "shared_simd_scan_tpu/ops/aggregate.py:233"),
     "aggregate_bitplane": ("shared_simd_scan_tpu_torch/csrc/agg_bitplane.cu", "sss_agg_bitplane",
                            "shared_simd_scan_tpu/ops/aggregate.py:258"),
-    "minmax_scan": ("shared_simd_scan_tpu_torch/csrc/aggregate.cu", "sss_agg_compare",
+    "minmax_scan": ("shared_simd_scan_tpu_torch/csrc/agg_lookup.cu", "sss_minmax_lookup",
                     "shared_simd_scan_tpu/ops/aggregate.py:480"),
     "masked_aggregate": ("shared_simd_scan_tpu_torch/csrc/aggregate.cu", "sss_masked_agg",
                          "shared_simd_scan_tpu/ops/aggregate.py:671"),
@@ -1286,15 +1291,19 @@ def small_aggregate_phase(device, errs: dict) -> None:
 
 
 def small_lookup_phase(device, errs: dict) -> None:
-    """The edges of the two one-pass kernels of the tiers the JAX package
-    runs as AND-DAG programs, against their plain versions: the key lookup
-    aggregate on constant, 90%-skewed and uniform predicates at the byte
-    table's widths and the search's, with key 0 over the padding of a
-    ragged n, a duplicate, keys >= 2^wp and 0xFFFFFFFF, a block_offset,
-    and a sum past 2^32 within one CTA (8192 values of 2^31 - 1, one
-    tile); the chunked histogram tier (the fold's counts form and the bins
-    kernel) on the same kinds of columns at widths 1-12 and 31, keys from
-    2^32 - 3 (k = 40 and 1000: all zeros) and a block_offset."""
+    """The edges of the one-pass kernels that replaced per-key work,
+    against their plain versions: the key lookup aggregate on constant,
+    90%-skewed and uniform predicates at the byte table's widths and the
+    search's, with key 0 over the padding of a ragged n, a duplicate, keys
+    >= 2^wp and 0xFFFFFFFF, a block_offset, and a sum past 2^32 within one
+    CTA (8192 values of 2^31 - 1, one tile); the MIN/MAX lookup on the same
+    columns and a sorted one, the same keys in device memory (past 16 bits
+    also keys whose 16-bit windows meet at every shift, which leave each
+    CTA the binary search), a measure that falls with the row index (every
+    value a new minimum) and a uniform 31-bit one; the chunked histogram
+    tier (the fold's counts form and the bins kernel) on the same kinds of
+    columns at widths 1-12 and 31, keys from 2^32 - 3 (k = 40 and 1000: all
+    zeros) and a block_offset."""
     import numpy as np
     import torch
     from shared_simd_scan_tpu_torch.ops import aggregate as agg
@@ -1312,9 +1321,10 @@ def small_lookup_phase(device, errs: dict) -> None:
                 "skewed": np.where(rng.random(n) < 0.9, dom - 1, uniform)}
 
     n = SMALL_NS[1]  # not a multiple of 32: the last block holds padding
+    falling = unpack.pack_device_kernel(t32(((1 << 20) - 1 - np.arange(n)) % (1 << 20)), 20).tiles
     for wp in (1, 5, 16, 17, 20, 31):
         dom = 1 << wp
-        for label, pv in columns(wp, n).items():
+        for label, pv in {**columns(wp, n), "sorted": np.sort(rng.integers(0, dom, n))}.items():
             pt = unpack.pack_device_kernel(t32(pv), wp).tiles
             keys = [0, int(pv[1]), int(pv[1]), dom, 0xFFFFFFFF, dom // 3, dom - 1]
             for wm in (1, 31):
@@ -1325,6 +1335,17 @@ def small_lookup_phase(device, errs: dict) -> None:
                         max_err(agg.aggregate_bitplane_static_tiles(pt, mt, keys, wp, wm, n, bo),
                                 agg.aggregate_bitplane_static_tiles_plain(pt, mt, keys, wp, wm, n,
                                                                           bo)))
+                    for kt, m, w in ((t32(keys), mt, wm), (t32(keys), falling, 20)):
+                        errs["minmax_scan"] = max(
+                            errs["minmax_scan"],
+                            max_err(agg.minmax_scan_tiles(pt, m, kt, wp, w, n, bo),
+                                    agg.minmax_scan_tiles_plain(pt, m, kt, wp, w, n, bo)))
+            if wp > 16:  # windows that meet at every shift: the search
+                clash = t32([0, 1 << (wp - 1), 4, 5, int(pv[1]), dom, 4])
+                errs["minmax_scan"] = max(
+                    errs["minmax_scan"],
+                    max_err(agg.minmax_scan_tiles(pt, falling, clash, wp, 20, n, 3),
+                            agg.minmax_scan_tiles_plain(pt, falling, clash, wp, 20, n, 3)))
     top = (1 << 31) - 1
     pt = unpack.pack_device_kernel(t32(np.full(8192, 5)), 3).tiles
     mt = unpack.pack_device_kernel(t32(np.full(8192, top)), 31).tiles
@@ -1347,7 +1368,7 @@ def small_lookup_phase(device, errs: dict) -> None:
             check(int(zero.abs().sum()) == 0, f"histogram_dag: keys from 2^32 - 3 count nothing "
                   f"(width {width}, {label})")
     torch.cuda.synchronize()
-    for name in ("aggregate_bitplane_static", "histogram_dag"):
+    for name in ("aggregate_bitplane_static", "minmax_scan", "histogram_dag"):
         check(errs[name] == 0, f"{name} kernel exact against its plain version on constant, "
               f"skewed and uniform columns (n {n}, block_offset 0 and 3)")
 
@@ -1361,12 +1382,13 @@ AGG_SETS = {
     "A5": ("aggregate_scan_device(price, revenue, CUDA keys [3, 70])", "compare"),
     "A6": ("minmax_scan_device(region, revenue, 0..7)", None),
     "A7": ("aggregate_scan_device(revenue, price, 16 spread host keys)", "bitplane"),
+    "A8": ("minmax_scan_device(revenue, price, A7's keys as a CUDA tensor)", None),
 }
 # A7's keys: 16 values spread over revenue's 20-bit domain
 A7_KEYS = [5521, 58228, 236145, 298913, 314745, 524063, 606377, 655451, 717405, 813357, 861120,
            874138, 915983, 940786, 956952, 990790]
 AGG_KEYS = {"A2": list(range(32)), "A3": [3], "A4": list(range(8)), "A5": [3, 70],
-            "A6": list(range(8)), "A7": A7_KEYS}
+            "A6": list(range(8)), "A7": A7_KEYS, "A8": A7_KEYS}
 
 
 def aggregate_phase(device, cols) -> tuple[dict, dict]:
@@ -1386,7 +1408,7 @@ def aggregate_phase(device, cols) -> tuple[dict, dict]:
           f"{tuple(rev.tiles.shape)} ({rev.tiles.numel() * 4} bytes)")
     q1 = query_trees(query, cols)["Q1"]
     runtime = {name: torch.tensor(AGG_KEYS[name], dtype=torch.int32, device=device)
-               for name in ("A4", "A5")}
+               for name in ("A4", "A5", "A8")}
     calls = {
         "A1": lambda: masked_aggregate_device(rev, query.evaluate(q1)[0]),
         "A2": lambda: aggregate_scan_device(region, rev, AGG_KEYS["A2"]),
@@ -1395,6 +1417,7 @@ def aggregate_phase(device, cols) -> tuple[dict, dict]:
         "A5": lambda: aggregate_scan_device(price, rev, runtime["A5"]),
         "A6": lambda: minmax_scan_device(region, rev, AGG_KEYS["A6"]),
         "A7": lambda: aggregate_scan_device(rev, price, AGG_KEYS["A7"]),
+        "A8": lambda: minmax_scan_device(rev, price, runtime["A8"]),
     }
     for fn in kernels.values():
         fn.launches = 0
@@ -1424,7 +1447,7 @@ def aggregate_phase(device, cols) -> tuple[dict, dict]:
     tier_kernel = {("bitplane", False): "aggregate_bitplane_static", ("compare", False):
                    "aggregate_scan", ("bitplane", True): "aggregate_bitplane",
                    ("compare", True): "aggregate_scan"}
-    want = {"A1": "masked_aggregate", "A6": "minmax_scan"}
+    want = {"A1": "masked_aggregate", "A6": "minmax_scan", "A8": "minmax_scan"}
     for name, (pcol, mcol, _) in columns.items():
         keys = runtime.get(name, AGG_KEYS[name])
         tier = aggregate.pick_aggregate_tier(pcol.width, mcol.width, keys)
@@ -1451,6 +1474,12 @@ def aggregate_phase(device, cols) -> tuple[dict, dict]:
     truth["revenue"] = (torch.zeros(1 << REVENUE_WIDTH, dtype=torch.int64, device=device)
                         .scatter_add_(0, g, raw["price"].to(torch.int64)),
                         torch.bincount(g, minlength=1 << REVENUE_WIDTH))
+    dom = 1 << REVENUE_WIDTH
+    truth["minmax_revenue"] = (
+        torch.full((dom,), (1 << 31) - 1, dtype=torch.int32, device=device).scatter_reduce_(
+            0, g, raw["price"], "amin"),
+        torch.full((dom,), -1, dtype=torch.int32, device=device).scatter_reduce_(
+            0, g, raw["price"], "amax"))
     del g
     mask = query_truth("Q1", raw)
     total, count = outs["A1"]
@@ -1471,9 +1500,19 @@ def aggregate_phase(device, cols) -> tuple[dict, dict]:
           and torch.equal(maxs, truth["minmax"][1][keys].to(torch.int64)),
           "A6: every count, min and max equals bincount / scatter_reduce_ (amin, amax) on the raw "
           "values")
+    mins8, maxs8, counts8 = outs["A8"]
+    keys = torch.tensor(AGG_KEYS["A8"], device=device)
+    empty = truth["revenue"][1][keys] == 0
+    check(torch.equal(counts8, truth["revenue"][1][keys])
+          and torch.equal(mins8, torch.where(empty, 1 << TABLE["price"],
+                                             truth["minmax_revenue"][0][keys].to(torch.int64)))
+          and torch.equal(maxs8, torch.where(empty, 0,
+                                             truth["minmax_revenue"][1][keys].to(torch.int64))),
+          "A8: every count, min and max equals bincount / scatter_reduce_ (amin, amax) on the raw "
+          "values (20-bit predicate, keys as a CUDA tensor)")
     print(f"A1: SUM(revenue) {int(total)}, COUNT {int(count)}; A2 sums[:4] "
           f"{outs['A2'][0][:4].tolist()}; A6 mins {mins.tolist()}, maxs {maxs.tolist()}; A7 "
-          f"counts {outs['A7'][1].tolist()}")
+          f"counts {outs['A7'][1].tolist()}; A8 mins {mins8.tolist()}, maxs {maxs8.tolist()}")
     row = aggregate.bits_from_canonical(query.evaluate(q1)[0], rev.tiles.shape[1])
     del raw, r64, mask, truth
     return {"rev": rev, "row": row, "runtime": runtime}, launches
@@ -1541,6 +1580,11 @@ def aggregate_timing_phase(device, cols, agg_data, errs: dict) -> dict:
         lambda: agg.aggregate_bitplane_static_tiles_plain(mt, ptile, AGG_KEYS["A7"], wm,
                                                           TABLE["price"], n),
         mt.numel() * 4 + ptile.numel() * 4 + 4 * len(A7_KEYS) + 16 * len(A7_KEYS))
+    # A8: MIN/MAX of price by the 20-bit revenue, A7's keys in device memory
+    pairs["minmax_scan A8"] = (
+        lambda: agg.minmax_scan_tiles(mt, ptile, ktens["A8"], wm, TABLE["price"], n),
+        lambda: agg.minmax_scan_tiles_plain(mt, ptile, ktens["A8"], wm, TABLE["price"], n),
+        mt.numel() * 4 + ptile.numel() * 4 + 4 * len(A7_KEYS) + 24 * len(A7_KEYS))
     for name, (kern, plain, _) in pairs.items():
         if plain is None:
             continue
@@ -1568,6 +1612,10 @@ def aggregate_timing_phase(device, cols, agg_data, errs: dict) -> dict:
     kernel_report({"agg_lookup_kernelILi0E": "key lookup, byte table (wp <= 16)",
                    "agg_lookup_kernelILi1E": "key lookup, 16-bit window (wp > 16, A7)",
                    "agg_lookup_kernelILi2E": "key lookup, search (wp > 16)"})
+    print("the MIN/MAX key lookup (keys in device memory):")
+    kernel_report({"minmax_lookup_kernelILi0E": "MIN/MAX lookup, byte table (wp <= 16, A6)",
+                   "minmax_lookup_kernelILi3E": "MIN/MAX lookup, the CTA's window or search "
+                                                "(wp > 16, A8)"})
     q1 = query_trees(query, cols)["Q1"]
     walls = []
     for _ in range(6):
@@ -2071,21 +2119,27 @@ def small_linear_phase(device, errs: dict) -> None:
                          scan._bitsliced_linear_tiles_impl(tiles, kt, width, n, bo),
                          scan._bitsliced_linear_tiles_plain(tiles, kt, width, n, bo))
     n = SMALL_NS[1]
-    for width in sorted(set(range(1, 32)) - set(LINEAR_WIDTHS)):  # the static fold, every width
+    # the fold body (host keys by value, and keys in device memory), every width
+    for width in sorted(set(range(1, 32)) - set(LINEAR_WIDTHS)):
         dom = 1 << width
         vals = torch.from_numpy(rng.integers(0, dom, size=n).astype(np.int32)).to(device)
         tiles = unpack.pack_device_kernel(vals, width).tiles
         for k in FUSED_KS:
             keys = rng.integers(0, dom, size=k).astype(np.uint32)
             keys[1], keys[2], keys[-1] = keys[0], min(dom, 0xFFFFFFFF), 0xFFFFFFFF
+            kt = torch.from_numpy(keys.view(np.int32)).to(device)
             for bo in (0, 2):
                 note("static_scan_linear", scan._static_linear_tiles_impl(tiles, keys, width, n, bo),
                      scan._static_linear_tiles_plain(tiles, keys, width, n, bo))
+                note("bitsliced_scan_linear",
+                     scan._bitsliced_linear_tiles_impl(tiles, kt, width, n, bo),
+                     scan._bitsliced_linear_tiles_plain(tiles, kt, width, n, bo))
     torch.cuda.synchronize()
     for name in LINEAR:
         check(errs[name] == 0, f"{name} kernel bit-exact against its plain version (widths "
               f"{LINEAR_WIDTHS}, n {SMALL_NS}, fused k {FUSED_KS[0]}-{FUSED_KS[-1]}, interleave k "
-              f"{INTERLEAVE_KS}, streams {STREAM_CASES}; the static fold at widths 1-31)")
+              f"{INTERLEAVE_KS}, streams {STREAM_CASES}; the static and runtime-key folds at "
+              "widths 1-31)")
 
 
 def deinterleave(lin, k: int, nbytes: int):
@@ -2317,7 +2371,9 @@ def linear_timing_phase(device, dev, arb, errs: dict) -> tuple[dict, dict]:
               f"{other_ms:.6f} ms" + ("" if body is None else
                                      f"; scan body alone {extras[name]['body_ms']:.6f} ms"))
     print("the static fold (width 9):")
-    kernel_report({"static_fold_kernelILi9ENS_10LinearKeysELi0E": "static linear fold, width 9"})
+    kernel_report({"static_fold_kernelILi9ENS_10LinearKeysELi0E": "static linear fold, width 9",
+                   "static_fold_kernelILi9ENS_10DeviceKeysELi0E":
+                       "runtime-key linear fold (keys in device memory), width 9"})
     del bits8, bits6, streams
     torch.cuda.empty_cache()
     return times, extras

@@ -3,10 +3,11 @@
     python -m shared_simd_scan_tpu_torch.bench.redesign_sweep [SECTION ...]
 
 SECTION is any of copy, chunked, dynamic, bins, domain, fold, static,
-ortree, histdag, aggstatic (default: all).  Builds ``redesign_sweep.cu``
-(copy, chunked, dynamic), ``redesign_sweep_bins_fold.cu`` (bins, domain,
-fold), ``redesign_sweep_static_member.cu`` (static, ortree) and
-``redesign_sweep_hist_agg.cu`` (histdag, aggstatic), beside this file,
+ortree, histdag, aggstatic, minmax (default: all).  Builds
+``redesign_sweep.cu`` (copy, chunked, dynamic),
+``redesign_sweep_bins_fold.cu`` (bins, domain, fold),
+``redesign_sweep_static_member.cu`` (static, ortree) and
+``redesign_sweep_hist_agg.cu`` (histdag, aggstatic, minmax), beside this file,
 with nvcc into the package's ``_build/`` (in parallel) and prints their
 registers and shared memory per kernel.  Then, with CUDA events (the
 median of 5 batches of 10 calls, each variant timed twice, in one order
@@ -53,14 +54,17 @@ and then in the reverse one):
   in {4, 13} windows a CTA in shared memory, and the package's
   ``_histogram_domain_tiles``; every count equal to ``torch.bincount``
   first;
-- fold: the static linear export on the ``i % 512`` column at k = 8 (S8),
-  64 (S64) and 128: the DAG interpreter it replaced against the package's
-  entry, its plane masks in shared memory at 256 and 128 threads a CTA,
-  and the fold with its masks computed from the keys in the loop (keys as
-  kernel parameters at 256 and 128 threads, in constant memory, read from
-  device memory), and the package's ``_static_linear_tiles_impl`` and
-  runtime-key ``_bitsliced_linear_tiles_impl``; every variant's words
-  equal to the interpreter's and its counts to the closed form first;
+- fold: the linear export on the ``i % 512`` column at k = 8 (S8), 64
+  (S64) and 128: the static DAG interpreter it replaced against the
+  package's static entry, its plane masks in shared memory at 256 and 128
+  threads a CTA, the fold with its masks computed from the keys in the
+  loop (keys as kernel parameters at 256 and 128 threads, in constant
+  memory, read from device memory: the runtime entry before its
+  redesign), the package's runtime entry and the masks of keys in device
+  memory staged in shared memory at 256 and 128 threads, and the
+  package's ``_static_linear_tiles_impl`` and runtime-key
+  ``_bitsliced_linear_tiles_impl``; every variant's words equal to the
+  interpreter's and its counts to the closed form first;
 - static: the static tier (one row per host key, in tile order) on
   ``i % 512`` columns of 512 MiB packed at widths 9 (S8, 16 and 32 keys,
   S64, S256), 20 (S8, S64) and 31 (S8, S64, and 1024 keys of 0..511 with
@@ -107,7 +111,20 @@ and then in the reverse one):
   with values that have no slot skipped and carries checked after eight
   atomics, and the package's
   ``aggregate_bitplane_static_tiles``; every count and sum equal to the
-  interpreter's first.
+  interpreter's first;
+- minmax: keyed MIN/MAX (keys in device memory) at the query table's n: A6
+  (a uniform 5-bit predicate, a 20-bit measure, keys 0..7), A8 (a uniform
+  20-bit predicate, a 9-bit measure, A7's 16 spread keys), a constant
+  predicate and one 90% on a single key, and A6's predicate with a
+  measure that falls with the row index (every value a new minimum): the
+  compare kernel it replaced against the key lookup with an atomicMin
+  and an atomicMax every value, with each counter read first and its
+  atomic only where the value improves on it, each with and without a
+  warp's hot slot in registers (lane 0's first slot, or the slot most of
+  the warp's first values share), the package's form with the binary search
+  at every width and (past 16 bits) with the CTA's own 16-bit window, and
+  the package's ``minmax_scan_tiles``; every count, min and max equal to
+  the compare kernel's first.
 
 The bins and fold sections also print, from ``cuobjdump -sass`` of the
 sweep's library, the instructions of each width-9 kernel's basic blocks
@@ -143,7 +160,7 @@ HIST_AGG_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_hist_agg.cu")
 BINS_FOLD_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_bins_fold.cu")
 STATIC_MEMBER_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_static_member.cu")
 SECTIONS = ("copy", "chunked", "dynamic", "bins", "domain", "fold", "static", "ortree",
-            "histdag", "aggstatic")
+            "histdag", "aggstatic", "minmax")
 COPY_BYTES = 512 * 1024 * 1024
 COPY_NAMES = {0: "batch (8 loads, then 8 stores)", 1: "pipelined 4", 2: "pipelined 8",
               3: "ring 16 KB x 4, resident grid", 4: "ring 32 KB x 4, resident grid",
@@ -173,7 +190,8 @@ SASS_KERNELS = {"bins_baseline_kernelILi9E": "bins before the redesign",
                 "static_linear_baseline_kernelILi9E": "fold before the redesign",
                 "static_fold_kernelILi9ENS_10LinearKeysELi0E": "fold, the package's",
                 "fold_linear_kernelILi9ENS_10LinearKeys": "fold, parameter keys",
-                "fold_linear_kernelILi9ENS_10DeviceKeys": "fold, device keys",
+                "fold_linear_kernelILi9ENS_10DeviceKeys": "fold, device keys, before the redesign",
+                "static_fold_kernelILi9ENS_10DeviceKeysELi0E": "fold, device keys, the package's",
                 "fold_linear_kernelILi9ENS_9ConstKeys": "fold, constant-memory keys",
 }
 STATIC_NAMES = {0: "the DAG interpreter before the redesign",
@@ -209,6 +227,14 @@ AGG_NAMES = {0: "the DAG interpreter before the redesign",
              "carries checked after eight atomics", 8: "the same, with a warp's hot slot in "
              "registers", 9: "lookup, carries, the binary search past 16 bits",
              10: "the package's form with the binary search past 16 bits"}
+MINMAX_NAMES = {0: "the compare kernel before the redesign", 1: "the package's entry",
+                2: "lookup, atomicMin and atomicMax every value",
+                3: "lookup, each counter read first, its atomic where the value improves on it",
+                4: "lookup, atomics every value, a warp's hot slot in registers",
+                5: "lookup, counters read first, a warp's hot slot in registers",
+                8: "lookup, atomics every value, the warp's most shared slot in registers",
+                6: "the package's form, the binary search at every width",
+                7: "the package's form, the CTA's 16-bit window (else the search)"}
 HIST_AGG_SASS = {
     "histogram_kernelILi9ELb1ELb1ELb0E": "bins, one spare counter (width 9)",
     "histogram_kernelILi9ELb1ELb1ELb1E": "bins, a spare counter a lane (width 9)",
@@ -218,6 +244,15 @@ HIST_AGG_SASS = {
     "agg_lookup_kernelILi1ELi6ELb0E": "aggregate lookup, window, the package's",
     "agg_lookup_kernelILi2ELi6ELb0E": "aggregate lookup, search, the package's",
     "agg_lookup_kernelILi0ELi0ELb0E": "aggregate lookup, table, carries",
+    "minmax_compare_kernel": "MIN/MAX compare before the redesign",
+    "minmax_lookup_kernelILi0ELi0E": "MIN/MAX lookup, table, atomics",
+    "minmax_lookup_kernelILi0ELi1E": "MIN/MAX lookup, table, read first",
+    "minmax_lookup_kernelILi0ELi2E": "MIN/MAX lookup, table, atomics, hot slot",
+    "minmax_lookup_kernelILi0ELi3E": "MIN/MAX lookup, table, read first, hot slot",
+    "minmax_lookup_kernelILi0ELi4E": "MIN/MAX lookup, table, atomics, most shared slot (the "
+                                     "package's form)",
+    "minmax_lookup_kernelILi3ELi4E": "MIN/MAX lookup, the CTA's window or search (the package's "
+                                     "form)",
 }
 WIDTH, DOMAIN = 9, 512
 HBM_BYTES_PER_S = 3.35e12
@@ -249,7 +284,8 @@ def _libraries(sources: list) -> dict:
                                                 vp]},
         HIST_AGG_SOURCE: {"sweep_hist_dag": [i, vp, vp, i, i, vp, ll, ll, i, i, vp],
                           "sweep_hist": [i, i, vp, ctypes.c_uint32, i, vp, ll, ll, vp],
-                          "sweep_agg": [i, vp, vp, vp, i, vp, i, i, i, vp, vp, ll, i, i, ll, vp]},
+                          "sweep_agg": [i, vp, vp, vp, i, vp, i, i, i, vp, vp, ll, i, i, ll, vp],
+                          "sweep_minmax": [i, vp, vp, vp, i, vp, vp, vp, ll, i, i, ll, vp]},
     }
     libs = {}
     for source, (path, log) in built.items():
@@ -616,10 +652,14 @@ def fold_sweep(lib, device, tiles, n: int) -> None:
     sets = {"S8": [3, 70, 141, 200, 262, 333, 400, 511],
             "S64": sorted(np.random.default_rng(3).choice(DOMAIN, 64, replace=False).tolist()),
             "k=128": sorted(np.random.default_rng(5).choice(DOMAIN, 128, replace=False).tolist())}
-    names = {0: "the DAG interpreter before the redesign", 1: "the package's entry",
+    names = {0: "the DAG interpreter before the redesign", 1: "the package's static entry",
              2: "masks in shared memory, 256 threads", 3: "masks in shared memory, 128 threads",
              4: "parameter keys, 256 threads", 5: "parameter keys, 128 threads",
-             6: "constant-memory keys", 7: "keys read from device memory"}
+             6: "constant-memory keys",
+             7: "keys read from device memory (the runtime entry before its redesign)",
+             8: "the package's runtime entry",
+             9: "device keys, masks in shared memory, 256 threads",
+             10: "device keys, masks in shared memory, 128 threads"}
     for label, keys in sets.items():
         k = len(keys)
         host = np.asarray(keys, np.uint32)
@@ -899,6 +939,79 @@ def aggstatic_sweep(lib, device) -> None:
     torch.cuda.empty_cache()
 
 
+def minmax_sweep(lib, device) -> None:
+    """Keyed MIN/MAX's designs at the query table's n, keys in device
+    memory."""
+    from shared_simd_scan_tpu_torch import layout
+
+    stream = torch.cuda.current_stream().cuda_stream
+    n = harness.values_for(COPY_BYTES, WIDTH)
+    b1 = layout.padded_blocks(n) // LANES
+    nblocks = b1 * LANES
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    skewed = torch.where(torch.rand(n, generator=gen, device=device) < 0.9, 3,
+                         torch.randint(0, 32, (n,), generator=gen, device=device,
+                                       dtype=torch.int32))
+    falling = ((1 << 20) - 1 - torch.arange(n, device=device, dtype=torch.int64)) % (1 << 20)
+    cols = {"region": (5, _random_tiles(device, 5, b1, 5)),
+            "revenue": (20, _random_tiles(device, 20, b1, 20)),
+            "price": (9, _random_tiles(device, 9, b1, 9)),
+            "constant": (5, pack_device_kernel(torch.full((n,), 3, dtype=torch.int32,
+                                                          device=device), 5).tiles),
+            "skewed": (5, pack_device_kernel(skewed, 5).tiles),
+            "falling": (20, pack_device_kernel(falling.to(torch.int32), 20).tiles)}
+    del skewed, falling
+    a7 = [5521, 58228, 236145, 298913, 314745, 524063, 606377, 655451, 717405, 813357, 861120,
+          874138, 915983, 940786, 956952, 990790]
+    cases = [("A6: uniform 5-bit predicate, 20-bit measure, keys 0..7", "region", "revenue",
+              list(range(8))),
+             ("A8: uniform 20-bit predicate, 9-bit measure, A7's 16 spread keys", "revenue",
+              "price", a7),
+             ("constant predicate (every row key 3), 20-bit measure, keys 0..7", "constant",
+              "revenue", list(range(8))),
+             ("predicate 90% key 3, 20-bit measure, keys 0..7", "skewed", "revenue",
+              list(range(8))),
+             ("A6's predicate, a measure that falls with the row index", "region", "falling",
+              list(range(8)))]
+    for label, pname, mname, keys in cases:
+        (wp, pt), (wm, mt) = cols[pname], cols[mname]
+        k = len(keys)
+        kt = torch.tensor(keys, dtype=torch.int32, device=device)
+        out = torch.empty((3, k), dtype=torch.int64, device=device)
+        variants = [v for v in MINMAX_NAMES if v != 7 or wp > 16]
+
+        def variant(v):
+            out[0].zero_()
+            out[1].fill_(0x7FFFFFFF)
+            out[2].fill_(-1)
+            rc = lib.sweep_minmax(v, pt.data_ptr(), mt.data_ptr(), kt.data_ptr(), k,
+                                  out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), nblocks,
+                                  wp, wm, n, stream)
+            if rc:
+                raise RuntimeError(f"minmax variant {v}: CUDA error {rc}")
+
+        variant(0)
+        ref = out.clone()
+        _check(int(ref[0].sum()) > 0, f"minmax {label}: the compare kernel counts rows")
+        for v in variants[1:]:
+            variant(v)
+            _check(torch.equal(out, ref), f"minmax {label}: {MINMAX_NAMES[v]} differs from the "
+                   "compare kernel")
+        got = aggregate.minmax_scan_tiles(pt, mt, kt, wp, wm, n)
+        want = (ref[0], *aggregate._empty_groups(ref[0], ref[1], ref[2], wm))
+        _check(all(torch.equal(g, w) for g, w in zip(got, want)),
+               f"minmax {label}: minmax_scan_tiles differs")
+        calls = {MINMAX_NAMES[v]: (lambda v=v: variant(v)) for v in variants}
+        calls["minmax_scan_tiles"] = lambda: aggregate.minmax_scan_tiles(pt, mt, kt, wp, wm, n)
+        bound = (pt.numel() * 4 + mt.numel() * 4 + 4 * k + 24 * k) / HBM_BYTES_PER_S * 1e3
+        print(f"minmax {label}: counts[:4] {ref[0][:4].tolist()}, mins[:4] {ref[1][:4].tolist()}, "
+              f"maxs[:4] {ref[2][:4].tolist()}")
+        _report(f"minmax {label} (n {n}, wp {wp}, wm {wm}, k {k})", _in_turns(calls), bound)
+    del cols
+    torch.cuda.empty_cache()
+
+
 def ortree_edge() -> dict:
     """The member dispatcher's tiers over a sweep of host key sets (widths
     9-31, k 33-3000, spread and clustered in 32-aligned windows); prints
@@ -1006,7 +1119,7 @@ def main(sections) -> None:
     sources = [src for src, names in ((SOURCE, ("copy", "chunked", "dynamic")),
                                       (BINS_FOLD_SOURCE, ("bins", "domain", "fold")),
                                       (STATIC_MEMBER_SOURCE, ("static", "ortree")),
-                                      (HIST_AGG_SOURCE, ("histdag", "aggstatic")))
+                                      (HIST_AGG_SOURCE, ("histdag", "aggstatic", "minmax")))
                if set(names) & set(sections)]
     libs = _libraries(sources)
     print("ptxas:")
@@ -1026,6 +1139,8 @@ def main(sections) -> None:
             histdag_sweep(lib, device)
         if "aggstatic" in sections:
             aggstatic_sweep(lib, device)
+        if "minmax" in sections:
+            minmax_sweep(lib, device)
     if "copy" in sections:
         copy_sweep(libs[SOURCE][0], device)
     if {"chunked", "dynamic", "fold", "static", "ortree"} & set(sections):

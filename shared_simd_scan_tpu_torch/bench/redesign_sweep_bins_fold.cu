@@ -3,9 +3,10 @@
 // of the kernel library: it includes the library's histogram.cu and
 // bitsliced.cu for their templates (the bins kernel with or without its
 // bank swizzle and its spare counter; the domain histogram with
-// 64- or 32-bit counters, with or without its merging; the linear fold on
-// any kind of keys and at any CTA size) and adds the designs the
-// library does not use, at the widths the sweep times (9 and 20):
+// 64- or 32-bit counters, with or without its merging; the static fold
+// with its plane masks in shared memory, on any kind of keys and at any
+// CTA size) and adds the designs the library does not use, at the widths
+// the sweep times (9 and 20):
 //   - the bins kernel as it was before its redesign: every value unpacked
 //     by a shift and an OR, its lo subtracted, its validity bit and its
 //     window tested, then one shared atomic at its swizzled slot;
@@ -16,7 +17,11 @@
 //   - the static linear export as it was before its redesign: the
 //     host-compiled AND-DAG program interpreted over node slots in shared
 //     memory, each row staged a byte at a time beside the slots;
-//   - the linear fold with its keys in constant memory.
+//   - the runtime keys' linear fold as it was before its redesign (the
+//     library's sss_bitsliced_scan_linear until then): each key's masks
+//     computed from the key in the loop, about three instructions a plane
+//     a key, on keys read from device memory, passed by value or in
+//     constant memory.
 #include "dag_program.cuh"
 #include "../csrc/histogram.cu"
 #include "../csrc/bitsliced.cu"
@@ -183,6 +188,60 @@ static_linear_baseline_kernel(const uint32_t* __restrict__ tiles, const uint2* _
   flush_counts(s_cnt, k, counts);
 }
 
+// --- the runtime keys' linear fold before its redesign ---------------------
+
+// Each key's row staged as linear bytes, four rows at a time, the CTA's
+// span stored at once; resident CTAs loop over tiles of blockDim.x blocks
+// and flush their counts once.
+template <int W, typename Keys>
+__global__ void __launch_bounds__(kThreads)
+fold_linear_kernel(const uint32_t* __restrict__ tiles, const __grid_constant__ Keys keys, int k,
+                   uint32_t* __restrict__ out, unsigned long long* __restrict__ counts,
+                   long long nblocks, long long n, long long block_offset) {
+  extern __shared__ uint32_t s_stage[];  // [threadIdx.x][k + 1] words
+  __shared__ unsigned s_cnt[kMaxLinearKeys];
+  zero_counts(s_cnt, k);
+  const LinearSink sink{reinterpret_cast<uint8_t*>(s_stage), k, s_cnt};
+  const long long ntiles = (nblocks + blockDim.x - 1) / blockDim.x;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {  // CTA-uniform trip count
+    const long long first = t * blockDim.x;
+    const long long b = first + threadIdx.x;
+    const bool active = b < nblocks;
+    uint32_t w[W];
+    load_block<W>(tiles, nblocks, b, active, w);
+    const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
+    uint32_t x[kBlockValues];
+    unpack_values<W>(w, x);
+    transpose_bitplanes<W>(x);
+#pragma unroll 1
+    for (int j = 0; j < k; j += 4)  // k % 4 == 0
+      sink.quad(j, key_row<W>(x, keys[j]) & valid, key_row<W>(x, keys[j + 1]) & valid,
+                key_row<W>(x, keys[j + 2]) & valid, key_row<W>(x, keys[j + 3]) & valid);
+    const long long left = nblocks - first;
+    flush_linear(s_stage, k, out, first, left < blockDim.x ? (int)left : (int)blockDim.x);
+  }
+  flush_counts(s_cnt, k, counts);
+}
+
+template <int W, typename Keys>
+cudaError_t launch_fold_linear(const uint32_t* tiles, const Keys& keys, int k, uint32_t* out,
+                               unsigned long long* counts, long long nblocks, long long n,
+                               long long block_offset, int threads, cudaStream_t stream) {
+  const auto kernel = fold_linear_kernel<W, Keys>;
+  const size_t smem = linear_stage_bytes(k, threads);
+  unsigned grid = 0;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = resident_grid(kernel, threads, smem, (nblocks + threads - 1) / threads, &grid);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  kernel<<<grid, threads, smem, stream>>>(tiles, keys, k, out, counts, nblocks, n, block_offset);
+  return cudaGetLastError();
+}
+
 // --- the linear fold with its keys in constant memory ----------------------
 
 __constant__ uint32_t c_fold_keys[kMaxLinearKeys];
@@ -242,15 +301,17 @@ extern "C" int sweep_domain(int variant, const uint32_t* tiles, void* counts, lo
   return (int)sss::launch_domain_windows<20>(tiles, variant, c64, nblocks, n, stream);
 }
 
-// Variants of the static linear export at width 9 (keys a host array of k
-// uint32, dev_keys the same keys in device memory, prog / nops / slots the
-// key set's program for variant 0; out uint32[nblocks * k], counts
-// int64[k] zeroed by the caller): 0 the kernel before its redesign
-// (`threads` threads a CTA), 1 the library's entry, its plane masks in
-// shared memory at 2 256 and 3 128 threads a CTA, and the fold with its
+// Variants of the linear export at width 9 (keys a host array of k uint32,
+// dev_keys the same keys in device memory, prog / nops / slots the key
+// set's program for variant 0; out uint32[nblocks * k], counts int64[k]
+// zeroed by the caller): 0 the static kernel before its redesign
+// (`threads` threads a CTA), 1 the library's static entry, its plane masks
+// in shared memory at 2 256 and 3 128 threads a CTA, and the fold with its
 // masks computed from the keys in the loop: 4 keys as kernel parameters at
 // 256 and 5 at 128 threads, 6 keys in constant memory, 7 keys read from
-// device memory.
+// device memory at linear_threads(k) threads (the runtime entry before its
+// redesign); 8 the library's runtime entry, and the masks of the keys in
+// device memory staged in shared memory at 9 256 and 10 128 threads.
 extern "C" int sweep_fold(int variant, const uint32_t* tiles, const uint32_t* keys,
                           const uint32_t* dev_keys, const int* prog, int nops, int slots,
                           int threads, int k, uint32_t* out, unsigned long long* counts,
@@ -295,7 +356,14 @@ extern "C" int sweep_fold(int variant, const uint32_t* tiles, const uint32_t* ke
     }
     case 7:
       return (int)sss::launch_fold_linear<9>(tiles, sss::DeviceKeys{dev_keys}, k, out, counts,
-                                             nblocks, n, 0, 256, stream);
+                                             nblocks, n, 0, sss::linear_threads(k), stream);
+    case 8:
+      return sss_bitsliced_scan_linear(tiles, dev_keys, k, out, counts, nblocks, 9, n, 0, stream);
+    case 9:
+    case 10:
+      return (int)sss::launch_static_fold<9, sss::DeviceKeys, sss::kFoldLinear>(
+          tiles, sss::DeviceKeys{dev_keys}, k, k, out, counts, nblocks, n, 0,
+          variant == 9 ? 256 : 128, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,17 +1,21 @@
-// The host-lo histogram's and the static bit-plane aggregate's designs side
-// by side, for bench/redesign_sweep.py (sections histdag and aggstatic) to
-// time on the card.  Not part of the kernel library: it includes the
-// library's histogram.cu, bitsliced.cu, agg_bitplane.cu and agg_lookup.cu
-// for their templates (the bins kernel with one spare counter or one a
-// lane; the static fold's counts-only form; the key lookup aggregate in
-// each of its update forms) and adds, as they were before the redesign:
+// The host-lo histogram's, the static bit-plane aggregate's and keyed
+// MIN/MAX's designs side by side, for bench/redesign_sweep.py (sections
+// histdag, aggstatic and minmax) to time on the card.  Not part of the
+// kernel library: it includes the library's histogram.cu, bitsliced.cu,
+// agg_bitplane.cu and agg_lookup.cu for their templates (the bins kernel
+// with one spare counter or one a lane; the static fold's counts-only
+// form; the key lookup aggregates in each of their update forms and
+// lookups) and adds, as they were before the redesign:
 //   - the histogram's DAG interpreter: the host-compiled AND-DAG program
 //     of one group of keys (ops/scan.py _static_program) run over node
 //     slots in shared memory, each OUT row popcounted into its counter;
 //     one launch per _static_group_sizes group;
 //   - the static bit-plane aggregate: the key set's program interpreted
 //     into match words, then per key per measure plane a popcount
-//     (agg_bitplane.cu's accumulate stage).
+//     (agg_bitplane.cu's accumulate stage);
+//   - keyed MIN/MAX (aggregate.cu's sss_agg_compare, MIN/MAX form): per
+//     key a match word of 32 compares, two selects a value, two warp
+//     reduces and two shared atomics.
 #include "dag_program.cuh"
 #include "../csrc/histogram.cu"
 #include "../csrc/bitsliced.cu"
@@ -147,6 +151,58 @@ agg_interpreter_kernel(const uint32_t* __restrict__ ptiles, const uint32_t* __re
   flush_sums(s_cnt, s_lo, s_hi, k, counts, sums);
 }
 
+// --- keyed MIN/MAX before the redesign ------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+minmax_compare_kernel(const uint32_t* __restrict__ ptiles, const uint32_t* __restrict__ mtiles,
+                      const uint32_t* __restrict__ keys, int k, int wp, int wm,
+                      unsigned long long* __restrict__ counts, long long* __restrict__ mins,
+                      long long* __restrict__ maxs, long long nblocks, long long n) {
+  __shared__ unsigned s_cnt[kMaxAggKeys];
+  __shared__ int s_mn[kMaxAggKeys], s_mx[kMaxAggKeys];
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    s_cnt[j] = 0u;
+    s_mn[j] = kMinIdentity;
+    s_mx[j] = kMaxIdentity;
+  }
+  __syncthreads();
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = b < nblocks;
+  const uint32_t valid = active ? valid_word(b, n) : 0u;
+  uint32_t vp[kBlockValues], vm[kBlockValues];
+  unpack_block_any(wp, ptiles, nblocks, b, active, vp);
+  unpack_block_any(wm, mtiles, nblocks, b, active, vm);
+#pragma unroll 1
+  for (int j = 0; j < k; ++j) {
+    const uint32_t key = __ldg(keys + j);
+    uint32_t mw = 0u;
+#pragma unroll
+    for (int r = 0; r < kBlockValues; ++r) mw |= (uint32_t)(vp[r] == key) << r;
+    mw &= valid;
+    count_row(j, mw, s_cnt);
+    int mn = kMinIdentity, mx = kMaxIdentity;
+#pragma unroll
+    for (int r = 0; r < kBlockValues; ++r) {
+      const bool hit = (mw >> r) & 1u;
+      mn = min(mn, hit ? (int)vm[r] : kMinIdentity);
+      mx = max(mx, hit ? (int)vm[r] : kMaxIdentity);
+    }
+    mn = __reduce_min_sync(0xFFFFFFFFu, mn);
+    mx = __reduce_max_sync(0xFFFFFFFFu, mx);
+    if ((threadIdx.x & 31) == 0) {
+      atomicMin(s_mn + j, mn);
+      atomicMax(s_mx + j, mx);
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    if (!s_cnt[j]) continue;
+    atomicAdd(counts + j, (unsigned long long)s_cnt[j]);
+    atomicMin(mins + j, (long long)s_mn[j]);
+    atomicMax(maxs + j, (long long)s_mx[j]);
+  }
+}
+
 }  // namespace sss
 
 // The interpreter's counts of one group's program (ops/scan.py
@@ -271,6 +327,59 @@ extern "C" int sweep_agg(int variant, const uint32_t* ptiles, const uint32_t* mt
                  : (int)sss::launch_agg_lookup(ptiles, mtiles, hk, k, wp, wm, forced, shift,
                                                counts, sums, nblocks, n, 0, stream);
     }
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Variants of keyed MIN/MAX (keys k uint32 in device memory; counts, mins
+// and maxs int64[k] set by the caller to 0, 0x7FFFFFFF and -1): 0 the
+// compare kernel before the redesign, 1 the library's entry, the lookup
+// with 2 kMmAtomic, 3 kMmLoad, 4 kMmAtomicHot, 5 kMmLoadHot and 8
+// kMmAtomicVote (the library's lookup), and the library's form with 6 the
+// search at every width and 7 kCtaPlan past kLookupTableBits (its window
+// where one separates the keys).
+extern "C" int sweep_minmax(int variant, const uint32_t* ptiles, const uint32_t* mtiles,
+                            const uint32_t* keys, int k, long long* counts, long long* mins,
+                            long long* maxs, long long nblocks, int wp, int wm, long long n,
+                            cudaStream_t stream) {
+  if (!sss::agg_lookup_args_ok(k, wp, wm) || nblocks <= 0) return (int)cudaErrorInvalidValue;
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+  const int lookup = wp <= sss::kLookupTableBits ? sss::kByteTable : sss::kMinMaxWideLookup;
+  switch (variant) {
+    case 0:
+      sss::minmax_compare_kernel<<<sss::grid_for(nblocks), sss::kThreads, 0, stream>>>(
+          ptiles, mtiles, keys, k, wp, wm, c, mins, maxs, nblocks, n);
+      return (int)cudaGetLastError();
+    case 1:
+      return sss_minmax_lookup(ptiles, mtiles, keys, k, counts, mins, maxs, nblocks, wp, wm, n, 0,
+                               stream);
+    case 2:
+      return (int)sss::launch_minmax_lookup<sss::kMmAtomic>(ptiles, mtiles, keys, k, wp, wm,
+                                                            lookup, c, mins, maxs, nblocks, n, 0,
+                                                            stream);
+    case 3:
+      return (int)sss::launch_minmax_lookup<sss::kMmLoad>(ptiles, mtiles, keys, k, wp, wm, lookup,
+                                                          c, mins, maxs, nblocks, n, 0, stream);
+    case 4:
+      return (int)sss::launch_minmax_lookup<sss::kMmAtomicHot>(ptiles, mtiles, keys, k, wp, wm,
+                                                               lookup, c, mins, maxs, nblocks, n,
+                                                               0, stream);
+    case 5:
+      return (int)sss::launch_minmax_lookup<sss::kMmLoadHot>(ptiles, mtiles, keys, k, wp, wm,
+                                                             lookup, c, mins, maxs, nblocks, n, 0,
+                                                             stream);
+    case 8:
+      return (int)sss::launch_minmax_lookup<sss::kMmAtomicVote>(ptiles, mtiles, keys, k, wp, wm,
+                                                                lookup, c, mins, maxs, nblocks, n,
+                                                                0, stream);
+    case 6:
+      return (int)sss::launch_minmax_lookup(ptiles, mtiles, keys, k, wp, wm, sss::kSearch, c,
+                                            mins, maxs, nblocks, n, 0, stream);
+    case 7:
+      if (wp <= sss::kLookupTableBits) return (int)cudaErrorInvalidValue;
+      return (int)sss::launch_minmax_lookup(ptiles, mtiles, keys, k, wp, wm, sss::kCtaPlan, c,
+                                            mins, maxs, nblocks, n, 0, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

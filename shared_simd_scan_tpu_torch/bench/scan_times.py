@@ -14,12 +14,16 @@ dynamic scans (S64 and S256 as CUDA keys), the chunked histogram program
 of ``_histogram_domain_tiles`` where the checkout has it, else the 256
 windows of ``histogram_tiles`` that ``stats.histogram_full`` launched), and
 the linear export (L1: keys 0..7 on ``i % 8``; L2: S8, L4: S64 and L6:
-S64 as eight groups of 8, host keys; L3: S8 as CUDA keys), the chunked
+S64 as eight groups of 8, host keys; L3: S8 and L4 CUDA: S64 as CUDA
+keys), the chunked
 histogram tier on full domains (H6: a uniform 12-bit column of 512 MiB
 packed, 4096 keys; H7: a uniform 4-bit column, 16 keys) and the static
 bit-plane aggregate (A2: a uniform 5-bit predicate, a 20-bit measure,
 host keys 0..31; A7: the 20-bit column as the predicate, a 9-bit measure,
-16 spread host keys), at the reference benchmark's n = 477,218,588
+16 spread host keys) and keyed MIN/MAX (A6: the 5-bit predicate, the
+20-bit measure, CUDA keys 0..7; A8: the 20-bit predicate, the 9-bit
+measure, A7's keys as a CUDA tensor), at the reference benchmark's n =
+477,218,588
 (H6: 357,913,941); and, on the host clock, ``stats.describe``,
 ``quantiles`` and ``topk_values`` of the ``i % 512`` column together
 (three span histograms), ``stats.histogram_full`` of the 20-bit column
@@ -98,6 +102,8 @@ def main(root: pathlib.Path) -> None:
                                                           device=device, dtype=torch.int32),
                                             w).tiles for w in (4, 5, 9))
     lo100 = torch.tensor([100], dtype=torch.int32, device=device)
+    k8 = torch.arange(8, dtype=torch.int32, device=device)
+    a7 = torch.tensor(A7_KEYS, dtype=torch.int32, device=device)
     if hasattr(scan, "_histogram_domain_tiles"):
         def h5():
             return scan._histogram_domain_tiles(rtiles, 20, n)
@@ -124,6 +130,8 @@ def main(root: pathlib.Path) -> None:
         "interval linear L1": lambda: scan._interval_linear_tiles_impl(tiles, 0, 8, 9, n),
         "static linear L2": lambda: scan._static_linear_tiles_impl(atiles, host[8], 9, n),
         "bitsliced linear L3": lambda: scan._bitsliced_linear_tiles_impl(atiles, cuda[8], 9, n),
+        "bitsliced linear L4 CUDA": lambda: scan._bitsliced_linear_tiles_impl(atiles, cuda[64], 9,
+                                                                             n),
         "static linear L4": lambda: scan._static_linear_tiles_impl(atiles, host[64], 9, n),
         "static linear L6": lambda: [scan._static_linear_tiles_impl(atiles, host[64][8 * g: 8 * g + 8],
                                                                     9, n) for g in range(8)],
@@ -133,6 +141,8 @@ def main(root: pathlib.Path) -> None:
             t5, rtiles, list(range(32)), 5, 20, n),
         "aggregate static A7": lambda: aggregate.aggregate_bitplane_static_tiles(
             rtiles, t9, A7_KEYS, 20, 9, n),
+        "minmax A6": lambda: aggregate.minmax_scan_tiles(t5, rtiles, k8, 5, 20, n),
+        "minmax A8": lambda: aggregate.minmax_scan_tiles(rtiles, t9, a7, 20, 9, n),
     }
     times = {name: time_ms(fn) for name, fn in cases.items()}
     col = layout.DeviceColumn(9, n, atiles)

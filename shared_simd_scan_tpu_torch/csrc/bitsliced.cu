@@ -1,11 +1,12 @@
 // Bit-sliced shared scans: runtime keys and host keys by the plane fold;
-// their member (IN-list) form for runtime keys, one row; and the static
-// AND-DAG interpreter of the histogram's programs.
+// their member (IN-list) form for runtime keys, one row; the histogram's
+// counts of consecutive host keys; and the fused linear export.
 //
 // Replaces shared_simd_scan_tpu/ops/scan.py:
 //  - _shared_scan_bitsliced_kernel / shared_scan_bitsliced_tiles: keys read
 //    from device memory, any k; per key match = AND_p (plane_p ^
-//    (bit_p(key) - 1)), killed for keys >= 2^W;
+//    (bit_p(key) - 1)), killed for keys >= 2^W, the masks computed from
+//    each key in the loop (sss_bitsliced_scan);
 //  - _shared_scan_bitsliced_static_kernel / _bitsliced_static_tiles_impl:
 //    host keys.  The TPU traces the key set's memoized _combo AND-DAG over
 //    the planes into the kernel; nvcc cannot specialize per key set.  Here
@@ -30,18 +31,19 @@
 //    also the span form (_histogram_span_kernel);
 //  - _bitsliced_linear_kernel / _bitsliced_linear_tiles_impl (scan.py:1025)
 //    and _static_linear_kernel / _static_linear_tiles_impl (scan.py:854):
-//    the plane fold with its rows staged as linear bytes, as
+//    the static fold's body with its rows staged as linear bytes, as
 //    interval_scan.cu's fused form does, for keys read from device memory
-//    (sss_bitsliced_scan_linear) and for host keys passed by value in the
-//    kernel's parameters (sss_bitsliced_static_scan_linear, the static
-//    fold's body with the linear stage).
+//    (sss_bitsliced_scan_linear: each CTA stages the runtime keys' plane
+//    masks once, as it does host keys') and for host keys passed by value
+//    in the kernel's parameters (sss_bitsliced_static_scan_linear).
 //
 // Bound on the H100: device memory bytes (reads W words, writes k words per
-// 32 values) while k is small; the integer instruction rate beyond: the
-// runtime fold costs ~3 ops per plane per key, the static fold one (the
-// masks in shared memory).  Design: one thread per 32-value block; the 32
-// values are unpacked and transposed into planes in registers by the
-// pruned butterfly (common.cuh).  The runtime kernel keeps the planes in
+// 32 values) while k is small; the integer instruction rate beyond: every
+// fold whose masks are staged in shared memory pays one LOP3 per plane per
+// key, the runtime tile-order kernel (masks computed from each key in its
+// loop) about three.  Design: one thread per 32-value block; the 32 values
+// are unpacked and transposed into planes in registers by the pruned
+// butterfly (common.cuh).  The runtime kernel keeps the planes in
 // registers and does not unroll its key loop.  A launch that asks for more
 // shared memory than a CTA has is refused and returns its error.  Counts
 // as in shared_scan.cu.
@@ -88,16 +90,11 @@ bitsliced_scan_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __rest
   flush_counts(s_cnt, kMember ? 1 : k, counts);
 }
 
-// Keys of the folds: read from device memory (the runtime keys, and the
-// tile-order static fold's up to kMaxKeys host keys, copied once), or the
-// host's keys by value in the kernel's parameters (the linear static
-// fold's 512 bytes at most; __grid_constant__ keeps them in the parameter
-// space, and bench/redesign_sweep.py times the fold on them).
-struct DeviceKeys {
-  const uint32_t* p;
-  __device__ __forceinline__ uint32_t operator[](int j) const { return __ldg(p + j); }
-};
-
+// Keys of the folds: read from device memory (DeviceKeys, common.cuh: the
+// runtime keys, and the tile-order static fold's up to kMaxKeys host keys,
+// copied once), or the host's keys by value in the kernel's parameters (the
+// linear static fold's 512 bytes at most; __grid_constant__ keeps them in
+// the parameter space, and bench/redesign_sweep.py times the fold on them).
 struct LinearKeys {
   uint32_t key[kMaxLinearKeys];
   __device__ __forceinline__ uint32_t operator[](int j) const { return key[j]; }
@@ -112,62 +109,6 @@ struct SpanKeys {
     return key > 0xFFFFFFFFull ? 0xFFFFFFFFu : (uint32_t)key;
   }
 };
-
-// The fused linear fold of the runtime keys (TPU kernel
-// _bitsliced_linear_kernel): each key's row staged as linear bytes, four
-// rows at a time, the CTA's span stored at once; resident CTAs loop over
-// tiles of blockDim.x blocks and flush their counts once.
-template <int W, typename Keys>
-__global__ void __launch_bounds__(kThreads)
-fold_linear_kernel(const uint32_t* __restrict__ tiles, const __grid_constant__ Keys keys, int k,
-                   uint32_t* __restrict__ out, unsigned long long* __restrict__ counts,
-                   long long nblocks, long long n, long long block_offset) {
-  extern __shared__ uint32_t s_stage[];  // [threadIdx.x][k + 1] words
-  __shared__ unsigned s_cnt[kMaxLinearKeys];
-  zero_counts(s_cnt, k);
-  const LinearSink sink{reinterpret_cast<uint8_t*>(s_stage), k, s_cnt};
-  const long long ntiles = (nblocks + blockDim.x - 1) / blockDim.x;
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {  // CTA-uniform trip count
-    const long long first = t * blockDim.x;
-    const long long b = first + threadIdx.x;
-    const bool active = b < nblocks;
-    uint32_t w[W];
-    load_block<W>(tiles, nblocks, b, active, w);
-    const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
-    uint32_t x[kBlockValues];
-    unpack_values<W>(w, x);
-    transpose_bitplanes<W>(x);
-#pragma unroll 1
-    for (int j = 0; j < k; j += 4)  // k % 4 == 0
-      sink.quad(j, key_row<W>(x, keys[j]) & valid, key_row<W>(x, keys[j + 1]) & valid,
-                key_row<W>(x, keys[j + 2]) & valid, key_row<W>(x, keys[j + 3]) & valid);
-    const long long left = nblocks - first;
-    flush_linear(s_stage, k, out, first, left < blockDim.x ? (int)left : (int)blockDim.x);
-  }
-  flush_counts(s_cnt, k, counts);
-}
-
-// One launch of the fold at `threads` threads a CTA (the stage: threads *
-// (k + 1) words of dynamic shared memory); a launch that is refused
-// returns its error.
-template <int W, typename Keys>
-cudaError_t launch_fold_linear(const uint32_t* tiles, const Keys& keys, int k, uint32_t* out,
-                               unsigned long long* counts, long long nblocks, long long n,
-                               long long block_offset, int threads, cudaStream_t stream) {
-  const auto kernel = fold_linear_kernel<W, Keys>;
-  const size_t smem = linear_stage_bytes(k, threads);
-  unsigned grid = 0;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess)
-    err = resident_grid(kernel, threads, smem, (nblocks + threads - 1) / threads, &grid);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so the next launch does not report it
-    return err;
-  }
-  kernel<<<grid, threads, smem, stream>>>(tiles, keys, k, out, counts, nblocks, n, block_offset);
-  return cudaGetLastError();
-}
 
 // Where the static fold's rows go: staged as linear bytes (TPU kernel
 // _static_linear_kernel), stored in tile order to (k, nblocks) bits
@@ -258,11 +199,11 @@ __device__ __forceinline__ void fold_chunk(const uint32_t (&x)[kBlockValues],
   }
 }
 
-// The plane fold for host keys, one body for both outputs.  Each CTA
-// turns the keys into plane masks in shared memory (stage_fold_masks) and
-// folds every row from them (fold_chunk); with the masks computed from
-// the keys in the loop, each thread spent about three more instructions
-// a plane on them.  Resident CTAs loop over tiles of blockDim.x blocks
+// The plane fold for a key set, one body for every output: host keys, and
+// the runtime keys of the linear export.  Each CTA turns the keys into
+// plane masks in shared memory (stage_fold_masks) and folds every row
+// from them (fold_chunk); with the masks computed from the keys in the
+// loop, each thread spent about three more instructions a plane on them.  Resident CTAs loop over tiles of blockDim.x blocks
 // and flush their counts once.  kFoldLinear (k % 4 == 0, k <= 128) stages
 // all k keys' masks once and each tile's rows as linear bytes, and stores
 // the CTA's span at once.  kFoldRows and kFoldCounts (k <= kMaxKeys) stage
@@ -465,8 +406,13 @@ extern "C" int sss_histogram_fold(const uint32_t* tiles, uint32_t lo, int k,
   }
 }
 
-// The fused linear fold for keys in device memory: out is uint32[nblocks *
-// k], block b's linear bytes at [4bk, 4bk + 4k); k % 4 == 0, 4 <= k <= 128.
+// The fused linear fold for keys in device memory (never read on the host):
+// out is uint32[nblocks * k], block b's linear bytes at [4bk, 4bk + 4k); k
+// % 4 == 0, 4 <= k <= 128.  The static fold's body on the keys through
+// DeviceKeys: each CTA stages their plane masks once (a key >= 2^W, and
+// 0xFFFFFFFF, gets a zero in-domain word, so its row is zero), then the
+// stage of kStaticFoldThreads blocks' rows (at k = 128, 66 KB and 16 KB of
+// masks at width 31).
 extern "C" int sss_bitsliced_scan_linear(const uint32_t* tiles, const uint32_t* keys, int k,
                                          uint32_t* out, unsigned long long* counts,
                                          long long nblocks, int width, long long n,
@@ -474,12 +420,12 @@ extern "C" int sss_bitsliced_scan_linear(const uint32_t* tiles, const uint32_t* 
   if (!sss::linear_k_ok(k)) return (int)cudaErrorInvalidValue;
   if (nblocks <= 0) return (int)cudaSuccess;
   const sss::DeviceKeys dk{keys};
-  const int threads = sss::linear_threads(k);
   switch (width) {
 #define SSS_CASE(W)                                                                          \
   case W:                                                                                    \
-    return (int)sss::launch_fold_linear<W>(tiles, dk, k, out, counts, nblocks, n,            \
-                                           block_offset, threads, stream);
+    return (int)sss::launch_static_fold<W, sss::DeviceKeys, sss::kFoldLinear>(               \
+        tiles, dk, k, k, out, counts, nblocks, n, block_offset, sss::kStaticFoldThreads,     \
+        stream);
     SSS_FOR_EACH_WIDTH(SSS_CASE)
 #undef SSS_CASE
     default:

@@ -255,6 +255,13 @@ __device__ __forceinline__ uint32_t range_word(const uint32_t (&v)[kBlockValues]
 
 inline bool width_ok(int width) { return width >= 1 && width <= 31; }
 
+// Keys read from device memory: the runtime keys, and host keys copied
+// there once (the folds of bitsliced.cu, the key lookup of agg_lookup.cu).
+struct DeviceKeys {
+  const uint32_t* p;
+  __device__ __forceinline__ uint32_t operator[](int j) const { return __ldg(p + j); }
+};
+
 // Linear (interleaved) output, the byte order of the reference's
 // shared_scan_128_linear_standard: the k rows of block b (one word each)
 // become bytes [4bk, 4bk + 4k) of the output, byte q*k + j = byte q of row

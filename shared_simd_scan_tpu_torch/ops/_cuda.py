@@ -105,9 +105,9 @@ _SIGNATURES = {
     "sss_member_lookup": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
     # tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream
     "sss_member_bitsliced": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
-    # ptiles, mtiles, keys, k, counts, a, b, nblocks, wp, wm, n, block_offset, minmax, stream
-    "sss_agg_compare": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _vp, _ll, ctypes.c_int,
-                        ctypes.c_int, _ll, _ll, ctypes.c_int, _vp],
+    # ptiles, mtiles, keys, k, counts, sums, nblocks, wp, wm, n, block_offset, stream
+    "sss_agg_compare": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, ctypes.c_int,
+                        _ll, _ll, _vp],
     # mtiles, bits, count, sum, nblocks, wm, stream
     "sss_masked_agg": [_vp, _vp, _vp, _vp, _ll, ctypes.c_int, _vp],
     # ptiles, mtiles, keys, k, counts, sums, nblocks, wp, wm, n, block_offset, stream
@@ -117,6 +117,10 @@ _SIGNATURES = {
     # nblocks, wp, wm, n, block_offset, stream
     "sss_agg_lookup": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, ctypes.c_int,
                        _ll, _ll, _vp],
+    # ptiles, mtiles, keys (device), k, counts, mins, maxs, nblocks, wp, wm, n, block_offset,
+    # stream
+    "sss_minmax_lookup": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _vp, _ll, ctypes.c_int,
+                          ctypes.c_int, _ll, _ll, _vp],
     # src, dst, nbytes, stream
     "sss_copy": [_vp, _vp, _ll, _vp],
 }

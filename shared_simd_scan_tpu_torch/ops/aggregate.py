@@ -16,7 +16,9 @@ runs its plain torch version on CPU tiles:
 wrapper (its ``launches``)           CUDA kernel
 ===================================  ===========================================
 ``aggregate_scan_tiles``             ``sss_agg_compare`` (``csrc/aggregate.cu``)
-``minmax_scan_tiles``                ``sss_agg_compare``, MIN/MAX form
+``minmax_scan_tiles``                ``sss_minmax_lookup`` (``csrc/agg_lookup.cu``):
+                                     a key lookup and three shared updates
+                                     a value
 ``aggregate_bitplane_tiles``         ``sss_agg_bitplane``
                                      (``csrc/agg_bitplane.cu``)
 ``aggregate_bitplane_static_tiles``  ``sss_agg_lookup`` (``csrc/agg_lookup.cu``):
@@ -168,7 +170,7 @@ def pick_aggregate_tier(wp: int, wm: int, keys) -> str:
 
 
 # ---------------------------------------------------------------------------
-# Select-accumulate tier: SUM/COUNT and MIN/MAX
+# Select-accumulate tier: SUM/COUNT; MIN/MAX by key lookup
 # ---------------------------------------------------------------------------
 
 
@@ -222,8 +224,7 @@ def aggregate_scan_tiles(
     sums = torch.zeros(k, dtype=torch.int64, device=device)
     _cuda.launch(
         "sss_agg_compare", device, ptiles.data_ptr(), mtiles.data_ptr(), keys.data_ptr(), k,
-        counts.data_ptr(), sums.data_ptr(), sums.data_ptr(), b1 * LANES, wp, wm, n,
-        block_offset, 0,
+        counts.data_ptr(), sums.data_ptr(), b1 * LANES, wp, wm, n, block_offset,
     )
     aggregate_scan_tiles.launches += 1
     return counts, sums
@@ -237,16 +238,28 @@ def minmax_scan_tiles_plain(
     block_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain torch version of :func:`minmax_scan_tiles`, same algorithm:
-    select-min and select-max with the identities 0x7FFFFFFF and -1, then
-    the empty-group rule."""
+    each real predicate value's slot, the first index of its key among the
+    sorted keys (``searchsorted``; slot k for a value that no key holds),
+    its count by ``bincount`` and its MIN and MAX by ``scatter_reduce_``
+    (``amin``, ``amax`` in int64) into counters that start at the
+    identities 0x7FFFFFFF and -1; each key reads its slot's, then the
+    empty-group rule.  The keys are not read on the host."""
     k = keys.shape[0]
-    counts = torch.zeros(k, dtype=torch.int64, device=ptiles.device)
-    mins = torch.full((k,), _MIN_ID, dtype=torch.int64, device=ptiles.device)
-    maxs = torch.full((k,), _MAX_ID, dtype=torch.int64, device=ptiles.device)
-    for hit, m in _select_matches(ptiles, mtiles, keys, wp, wm, n, block_offset):
-        counts += hit.sum(dim=(1, 2))
-        mins = torch.minimum(mins, torch.where(hit, m[None], _MIN_ID).amin(dim=(1, 2)))
-        maxs = torch.maximum(maxs, torch.where(hit, m[None], _MAX_ID).amax(dim=(1, 2)))
+    device = ptiles.device
+    pvals, real = _real_values_plain(ptiles, wp, n, block_offset)
+    mvals, _ = _real_values_plain(mtiles, wm, n, block_offset)
+    table = torch.sort(u32(keys)).values
+    pos = torch.searchsorted(table, pvals).clamp_(max=k - 1)
+    slot = torch.where(real & (table[pos] == pvals), pos, k).flatten()
+    del pos, pvals, real
+    mvals = mvals.flatten()
+    counts = torch.bincount(slot, minlength=k + 1)
+    mins = torch.full((k + 1,), _MIN_ID, dtype=torch.int64, device=device)
+    maxs = torch.full((k + 1,), _MAX_ID, dtype=torch.int64, device=device)
+    mins.scatter_reduce_(0, slot, mvals, "amin")
+    maxs.scatter_reduce_(0, slot, mvals, "amax")
+    idx = torch.searchsorted(table, u32(keys))  # a key's first index, its slot
+    counts, mins, maxs = counts[idx], mins[idx], maxs[idx]
     return (counts, *_empty_groups(counts, mins, maxs, wm))
 
 
@@ -256,9 +269,12 @@ def minmax_scan_tiles(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-key COUNT, MIN and MAX of the measure column, the arguments of
     :func:`aggregate_scan_tiles` -> (counts, mins, maxs), int64[k] each;
-    an empty group has min 2^wm and max 0.
+    an empty group has min 2^wm and max 0.  The key values are never read
+    on the host, so CUDA-tensor keys stay on the card.
 
-    Kernel ``sss_agg_compare`` (``csrc/aggregate.cu``, MIN/MAX form) on
+    Kernel ``sss_minmax_lookup`` (``csrc/agg_lookup.cu``: each CTA builds
+    a lookup of the keys in shared memory, each real value is looked up
+    and its count, MIN and MAX folded into its key's shared counters) on
     CUDA tensors; the plain version on CPU tensors."""
     b1 = _check_pair(ptiles, mtiles, wp, wm)
     k = _check_keys(keys)
@@ -269,9 +285,8 @@ def minmax_scan_tiles(
     mins = torch.full((k,), _MIN_ID, dtype=torch.int64, device=device)
     maxs = torch.full((k,), _MAX_ID, dtype=torch.int64, device=device)
     _cuda.launch(
-        "sss_agg_compare", device, ptiles.data_ptr(), mtiles.data_ptr(), keys.data_ptr(), k,
-        counts.data_ptr(), mins.data_ptr(), maxs.data_ptr(), b1 * LANES, wp, wm, n,
-        block_offset, 1,
+        "sss_minmax_lookup", device, ptiles.data_ptr(), mtiles.data_ptr(), keys.data_ptr(), k,
+        counts.data_ptr(), mins.data_ptr(), maxs.data_ptr(), b1 * LANES, wp, wm, n, block_offset,
     )
     minmax_scan_tiles.launches += 1
     return (counts, *_empty_groups(counts, mins, maxs, wm))

@@ -1870,8 +1870,9 @@ def _bitsliced_linear_tiles_impl(
     """Keys int32[k] on the tiles' device (k % 4 == 0, 4 <= k <= 128),
     never read on the host -> (words int32[B1, 128k], counts int64[k]).
 
-    Kernel ``sss_bitsliced_scan_linear`` (``csrc/bitsliced.cu``) on CUDA
-    tensors; the plain version on CPU tensors."""
+    Kernel ``sss_bitsliced_scan_linear`` (``csrc/bitsliced.cu``: the
+    static fold's body, each CTA staging the keys' plane masks in shared
+    memory once) on CUDA tensors; the plain version on CPU tensors."""
     b1 = _check_tiles(tiles, width)
     _check_key_tensor(keys)
     device = _cuda.kernel_device(tiles, keys)

@@ -101,6 +101,98 @@ def test_minmax_scan_tiles_matches_jax(wp, wm):
         assert int(tmx[j]) == (int(sel.max()) if sel.size else 0)
 
 
+# MIN/MAX's key lookup across predicate and measure widths (the byte table
+# up to wp 16, the window or search past it on the card)
+MINMAX_WP = [1, 5, 16, 17, 20, 31]
+MINMAX_WM = [1, 20, 31]
+
+
+def _minmax_case(wp, wm, seed):
+    """Two ragged columns (B1 = 8) on the CPU, a wm = 31 value equal to
+    0x7FFFFFFF, and keys: 0 (over the padding), a duplicated present key,
+    the key of that 0x7FFFFFFF value, an absent in-domain key where one
+    exists (an empty group), 2^wp and 0xFFFFFFFF, then present keys up to
+    32."""
+    rng = np.random.default_rng(seed)
+    n = 20_000 + 37 * wp + wm
+    p = rng.integers(0, 1 << wp, n, dtype=np.uint64).astype(np.uint32)
+    m = rng.integers(0, 1 << wm, n, dtype=np.uint64).astype(np.uint32)
+    m[7] = (1 << wm) - 1
+    absent = np.setdiff1d(np.arange(min(1 << wp, 1 << 16), dtype=np.uint32), p)[:1]
+    keys = np.concatenate([[0, p[5], p[5], p[7]], absent, [1 << wp, TOP],
+                           p[rng.integers(0, n, 32)]])[:32].astype(np.uint32)
+    return n, p, m, keys
+
+
+def _minmax_truth(p, m, keys, wm):
+    counts, mins, maxs = [], [], []
+    for key in keys:
+        sel = m[p == key].astype(np.int64)
+        counts.append(sel.size)
+        mins.append(int(sel.min()) if sel.size else 1 << wm)
+        maxs.append(int(sel.max()) if sel.size else 0)
+    return counts, mins, maxs
+
+
+@pytest.mark.parametrize("wm", MINMAX_WM)
+@pytest.mark.parametrize("wp", MINMAX_WP)
+def test_minmax_plain_matches_numpy_across_widths(wp, wm):
+    # the whole key set (k 32 with its edges) at block_offset 0 and 3: the
+    # last three blocks' values, and the padding, drop out
+    n, p, m, keys = _minmax_case(wp, wm, 90 * wp + wm)
+    tp = tlayout.pack_device(p, wp, device="cpu")
+    tm = tlayout.pack_device(m, wm, device="cpu")
+    for off in (0, 3):
+        cut = n - 32 * off
+        got = tagg.minmax_scan_tiles(tp.tiles, tm.tiles, _keys_t(keys), wp, wm, n, off)
+        want = _minmax_truth(p[:cut], m[:cut], keys, wm)
+        for g, w in zip(got, want):
+            assert g.tolist() == w, (off, keys.tolist())
+    if wm == 31:
+        assert int(got[0][3]) > 0 and int(got[2][3]) == 0x7FFFFFFF
+
+
+@pytest.mark.parametrize("wp,wm,off", [(1, 31, 0), (17, 20, 3), (31, 1, 2)])
+def test_minmax_plain_matches_jax_across_widths(wp, wm, off):
+    # the edge keys of _minmax_case (k 6, 0xFFFFFFFF left out: the JAX
+    # kernel counts padding there), against the JAX kernel in interpret mode
+    n, p, m, keys = _minmax_case(wp, wm, 90 * wp + wm)
+    keys = keys[:7][keys[:7] != TOP]
+    jp, jm = jlayout.pack_device(p, wp), jlayout.pack_device(m, wm)
+    tp = tlayout.pack_device(p, wp, device="cpu")
+    tm = tlayout.pack_device(m, wm, device="cpu")
+    jcounts, jmins, jmaxs = jagg.minmax_scan_tiles(jp.tiles, jm.tiles, jnp.asarray(keys), wp, wm,
+                                                   n, interpret=True, block_offset=off)
+    jmn, jmx = jagg.finalize_minmax(jmins, jmaxs, jcounts, wm)
+    tcounts, tmn, tmx = tagg.minmax_scan_tiles(tp.tiles, tm.tiles, _keys_t(keys), wp, wm, n, off)
+    np.testing.assert_array_equal(tcounts.numpy(), np.asarray(jcounts).astype(np.int64))
+    np.testing.assert_array_equal(tmn.numpy(), jmn.astype(np.int64))
+    np.testing.assert_array_equal(tmx.numpy(), jmx.astype(np.int64))
+    cut = n - 32 * off
+    assert [t.tolist() for t in (tcounts, tmn, tmx)] == list(_minmax_truth(p[:cut], m[:cut], keys,
+                                                                           wm))
+
+
+def test_minmax_plain_on_contention_columns():
+    # every row on one key, 90% on one key, sorted runs (the card's warp
+    # hot slot), and a measure that falls with the row index (every value
+    # a new minimum)
+    n = 8 * 1024 + 77
+    rng = np.random.default_rng(11)
+    uniform = rng.integers(0, 32, n).astype(np.uint32)
+    columns = {"constant": np.full(n, 3, np.uint32),
+               "skewed": np.where(rng.random(n) < 0.9, 3, uniform).astype(np.uint32),
+               "sorted": np.sort(uniform)}
+    m = ((1 << 20) - 1 - np.arange(n)).astype(np.uint32)
+    tm = tlayout.pack_device(m, 20, device="cpu")
+    keys = np.arange(32, dtype=np.uint32)
+    for label, p in columns.items():
+        tp = tlayout.pack_device(p, 5, device="cpu")
+        got = tagg.minmax_scan_tiles(tp.tiles, tm.tiles, _keys_t(keys), 5, 20, n)
+        for g, w in zip(got, _minmax_truth(p, m, keys, 20)):
+            assert g.tolist() == w, label
+
+
 @pytest.mark.parametrize("wp,wm", PAIRS)
 def test_masked_aggregate_tiles_matches_jax(wp, wm):
     n, p, m, (_, jm), (_, tm) = _table(wp, wm, 50 * wp + wm)

@@ -632,6 +632,76 @@ def test_agg_lookup_contention_columns(cuda_device):
             assert sums.tolist() == want.tolist(), label
 
 
+def _minmax_columns(wp, n, rng):
+    """Predicate columns of n values at width wp: uniform, constant, 90% on
+    one value, and sorted."""
+    dom = 1 << wp
+    uniform = rng.integers(0, dom, n).astype(np.uint32)
+    return {"uniform": uniform, "constant": np.full(n, dom // 3, np.uint32),
+            "skewed": np.where(rng.random(n) < 0.9, dom - 1, uniform).astype(np.uint32),
+            "sorted": np.sort(uniform)}
+
+
+@pytest.mark.parametrize("wp", range(1, 32))
+def test_minmax_lookup_every_width_matches_plain(cuda_device, wp):
+    # keys in device memory: key 0 over the padding, a duplicate, keys >=
+    # 2^wp and 0xFFFFFFFF, the skewed column's hot value; uniform, constant,
+    # 90%-skewed and sorted predicates; a measure that falls with the row
+    # index (every value a new minimum: the load-first form's worst case)
+    # and a uniform 31-bit one; a block_offset
+    n = 4 * 256 * 32 + 5017  # full tiles, then a partial one
+    dom = 1 << wp
+    rng = np.random.default_rng(wp + 500)
+    measures = {20: ((1 << 20) - 1 - np.arange(n) % (1 << 20)).astype(np.uint32),
+                31: rng.integers(0, 1 << 31, n).astype(np.uint32)}
+    mtiles = {wm: unpack.pack_device_kernel(_keys(m, cuda_device), wm).tiles
+              for wm, m in measures.items()}
+    for label, p in _minmax_columns(wp, n, rng).items():
+        ptiles = unpack.pack_device_kernel(_keys(p, cuda_device), wp).tiles
+        keys = [0, int(p[1]), int(p[1]), dom, 0xFFFFFFFF, dom - 1, dom // 3] + rng.integers(
+            0, dom, size=25).tolist()
+        for ks in (keys[:1], keys[:7], keys):
+            kt = _keys(ks, cuda_device)
+            for wm, mt in mtiles.items():
+                for bo in (0, 2):
+                    before = aggregate.minmax_scan_tiles.launches
+                    got = aggregate.minmax_scan_tiles(ptiles, mt, kt, wp, wm, n, bo)
+                    assert aggregate.minmax_scan_tiles.launches == before + 1
+                    _same(got, aggregate.minmax_scan_tiles_plain(ptiles, mt, kt, wp, wm, n, bo))
+        # the whole column against numpy (wm 20, every key)
+        counts, mins, maxs = aggregate.minmax_scan_tiles(ptiles, mtiles[20], _keys(keys,
+                                                                                   cuda_device),
+                                                         wp, 20, n)
+        m = measures[20].astype(np.int64)
+        for j, key in enumerate(keys):
+            sel = m[p == key]
+            assert int(counts[j]) == sel.size, (label, key)
+            assert int(mins[j]) == (int(sel.min()) if sel.size else 1 << 20), (label, key)
+            assert int(maxs[j]) == (int(sel.max()) if sel.size else 0), (label, key)
+
+
+@pytest.mark.parametrize("wp", [17, 20, 31])
+def test_minmax_lookup_window_and_search_past_16_bits(cuda_device, wp):
+    # keys in device memory past the byte table: spread keys (a 16-bit
+    # window separates them), and keys whose windows meet at every shift
+    # (0 and 2^(wp-1) at shifts below wp - 16, 4 and 5 at every shift
+    # above 0), which leave each CTA the binary search
+    n = 2 * 256 * 32 + 999
+    dom = 1 << wp
+    rng = np.random.default_rng(wp + 600)
+    p = rng.integers(0, dom, n).astype(np.uint32)
+    p[:64] = [0, 1 << (wp - 1), 4, 5] * 16
+    ptiles = unpack.pack_device_kernel(_keys(p, cuda_device), wp).tiles
+    mtiles = unpack.pack_device_kernel(_values(20, n, wp + 601, cuda_device), 20).tiles
+    spread = [int(x) for x in np.sort(rng.choice(dom, 16, replace=False))] + [int(p[100])]
+    clash = [0, 1 << (wp - 1), 4, 5, int(p[100]), dom, 0xFFFFFFFF, 4]
+    for keys in (spread, clash, clash + spread[:24]):
+        kt = _keys(keys, cuda_device)
+        for bo in (0, 2):
+            _same(aggregate.minmax_scan_tiles(ptiles, mtiles, kt, wp, 20, n, bo),
+                  aggregate.minmax_scan_tiles_plain(ptiles, mtiles, kt, wp, 20, n, bo))
+
+
 def test_refused_aggregate_launches_raise(cuda_device):
     wp, wm, n = 9, 20, 1000
     ptiles = torch.zeros((wp, 8, 128), dtype=torch.int32, device=cuda_device)
@@ -648,8 +718,13 @@ def test_refused_aggregate_launches_raise(cuda_device):
     with pytest.raises(RuntimeError, match="sss_agg_compare"):
         # 33 keys: more than the kernel's shared counters hold
         _cuda.launch("sss_agg_compare", cuda_device, ptiles.data_ptr(), mtiles.data_ptr(),
-                     keys.data_ptr(), 33, out.data_ptr(), out.data_ptr(), out.data_ptr(),
-                     8 * 128, wp, wm, n, 0, 0)
+                     keys.data_ptr(), 33, out.data_ptr(), out.data_ptr(), 8 * 128, wp, wm, n, 0)
+    for k, w, v in ((33, wp, wm), (0, wp, wm), (2, 32, wm), (2, wp, 32)):
+        with pytest.raises(RuntimeError, match="sss_minmax_lookup"):
+            # more keys than the lookup's slots; no keys; a predicate or measure of 32 bits
+            _cuda.launch("sss_minmax_lookup", cuda_device, ptiles.data_ptr(), mtiles.data_ptr(),
+                         keys.data_ptr(), k, out.data_ptr(), out.data_ptr(), out.data_ptr(),
+                         8 * 128, w, v, n, 0)
 
 
 def test_aggregate_dispatch_launches_each_tier(cuda_device):
@@ -1063,6 +1138,27 @@ def test_static_linear_fold_every_fused_k(cuda_device, width):
             _same(got, scan._static_linear_tiles_plain(tiles, keys, width, N, bo))
 
 
+@pytest.mark.parametrize("width", range(1, 32))
+def test_runtime_linear_fold_every_fused_k(cuda_device, width):
+    # the keys in device memory at every fused k, through the static fold's
+    # staged masks: duplicates, a key at 2^W, 0xFFFFFFFF, under a
+    # block_offset
+    values = _values(width, N, width + 700, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    dom = 1 << width
+    rng = np.random.default_rng(width + 700)
+    for k in FUSED_KS:
+        keys = rng.integers(0, dom, size=k).astype(np.uint32)
+        keys[1], keys[2], keys[-1] = keys[0], min(dom, 0xFFFFFFFF), 0xFFFFFFFF
+        kt = _keys(keys, cuda_device)
+        for bo in (0, 2):
+            before = scan._bitsliced_linear_tiles_impl.launches
+            got = scan._bitsliced_linear_tiles_impl(tiles, kt, width, N, bo)
+            assert scan._bitsliced_linear_tiles_impl.launches == before + 1
+            _same(got, scan._bitsliced_linear_tiles_plain(tiles, kt, width, N, bo))
+            _same(got, scan._static_linear_tiles_impl(tiles, keys, width, N, bo))
+
+
 def test_linear_dispatch_launches_each_kernel(cuda_device):
     width, n = 9, 300_001
     vals = harness.synth_modk(n, 512, width, device=cuda_device)
@@ -1109,6 +1205,11 @@ def test_refused_linear_launches_raise(cuda_device):
         with pytest.raises(RuntimeError, match="sss_bitsliced_scan_linear"):
             _cuda.launch("sss_bitsliced_scan_linear", cuda_device, tiles.data_ptr(),
                          out.data_ptr(), k, out.data_ptr(), counts.data_ptr(), 8 * 128, 9, 100, 0)
+    for width in (0, 32):  # no fold body of that width
+        with pytest.raises(RuntimeError, match="sss_bitsliced_scan_linear"):
+            _cuda.launch("sss_bitsliced_scan_linear", cuda_device, tiles.data_ptr(),
+                         out.data_ptr(), 8, out.data_ptr(), counts.data_ptr(), 8 * 128, width,
+                         100, 0)
     keys = np.arange(132, dtype=np.uint32)
     for k in (3, 132):
         with pytest.raises(RuntimeError, match="sss_bitsliced_static_scan_linear"):
