@@ -24,12 +24,24 @@ from the sources in the checkout and then:
    the unpacked values against the input;
 5. drives the arbitrary-key path at full size — a second 9-bit column of
    512 MiB packed with values ``i % 512``: ``shared_scan_device`` on spread
-   sets (static tier: the plane fold), clustered sets (windowed kernel) and the
-   spread sets as CUDA tensors (runtime bit-sliced kernel), then
-   ``windowed_scan_tiles`` on 64 keys (its chunked plan) — with the launch
-   counters set to 0 just before and read just after, and checks that each
-   tier ``pick_concrete_tier`` names is the kernel that ran, the counts
-   against their closed form, and ``check_shared_scan`` for every set;
+   sets (static tier: the plane fold), clustered sets (windowed tier: the
+   plane fold below 64 keys, else a window lookup a value) and the spread
+   sets as CUDA tensors (runtime tier: the plane fold on the key tensor),
+   then ``windowed_scan_tiles`` on 64 keys (one launch of the window
+   lookup) — with the launch counters set to 0 just before and
+   read just after (each wrapper counts in its launch loop: the windowed
+   tier's fold under the static tier's counter, the runtime tier's lookup
+   under the dynamic scan's), and checks that each tier
+   ``pick_concrete_tier`` names is the kernel that ran, the counts against their closed form, and
+   ``check_shared_scan`` for every set; before it, the windowed and runtime
+   tiers' edges at small ragged sizes (the window lookup at widths 1, 5,
+   12, 13, 17, 18 and 31, each side of its direct table and its search, k
+   = 1, 8, 64, 65, 1024 and 1025, keys in one window, a window each --
+   1024 windows from 15 bits --, in the top windows of the domain and drawn
+   from the column; the runtime tier at every width 1-31, k = 5, 8, 64,
+   128 and 1025, and 1024 at width 31, where the fold stages its masks in
+   chunks; every set with a duplicate across passes of 64 rows and
+   launches of 1024, keys past the domain and 0xFFFFFFFF, a block_offset);
 6. drives the query path at full size — a table of three columns of the
    main path's n (``price`` 9-bit, ``region`` 5-bit, ``status`` 4-bit, the
    analytics demo's widths), drawn on the card from a seeded generator:
@@ -107,7 +119,11 @@ from the sources in the checkout and then:
     the same bytes (``.t().contiguous()``); the static tier and the member
     OR-tree tier also on S64 of a 20-bit ``i % 512`` column of 512 MiB
     packed (each held against its plain version and the closed-form
-    counts); and prints the registers, shared memory and SASS instructions
+    counts); on a 31-bit one, where the lookups win, the runtime tier on
+    S256 as CUDA keys (the dynamic scan's lookup, held against its plain
+    version) and the windowed tier on 1024 keys a window each (the window
+    lookup, held against the static fold, every word), each beside the
+    fold on the same keys; and prints the registers, shared memory and SASS instructions
     per value or per row (``cuobjdump -sass``) of the bins kernel, the
     domain histogram, the static fold (linear and in tile order) and the
     member lookup (bitmap and search);
@@ -180,11 +196,13 @@ KERNELS = {  # name -> (source, its C entry point, TPU kernel it replaces)
                       "shared_simd_scan_tpu/ops/scan.py:1266"),
     "shift_canary": ("shared_simd_scan_tpu_torch/csrc/interval_scan.cu", "sss_shift_canary",
                      "shared_simd_scan_tpu/ops/scan.py:1336"),
-    "bitsliced_scan": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu", "sss_bitsliced_scan",
+    # the runtime keys through the static fold's body (RUNTIME_LOOKUP where
+    # scan._runtime_lookup_wins picks it)
+    "bitsliced_scan": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu", "sss_bitsliced_static_fold",
                        "shared_simd_scan_tpu/ops/scan.py:2357"),
     "bitsliced_static_scan": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
                               "sss_bitsliced_static_fold", "shared_simd_scan_tpu/ops/scan.py:2715"),
-    "windowed_scan": ("shared_simd_scan_tpu_torch/csrc/windowed.cu", "sss_windowed_scan",
+    "windowed_scan": ("shared_simd_scan_tpu_torch/csrc/shared_scan.cu", "sss_windowed_lookup",
                       "shared_simd_scan_tpu/ops/scan.py:2980; "
                       "shared_simd_scan_tpu/ops/scan.py:2997"),
     "range_scan": ("shared_simd_scan_tpu_torch/csrc/range_scan.cu", "sss_range_scan",
@@ -248,12 +266,24 @@ KERNELS = {  # name -> (source, its C entry point, TPU kernel it replaces)
 }
 # the other kernel of the histogram_dag entry: (source, C entry point)
 FOLD_KERNEL = ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu", "sss_histogram_fold")
+# the kernel the runtime tier launches where scan._runtime_lookup_wins says so
+# (counted by the shared_scan_dynamic entry), and the one the windowed tier
+# runs below scan.WINDOW_LOOKUP_KEYS host keys (counted by the
+# bitsliced_static_scan entry): (source, C entry point)
+RUNTIME_LOOKUP = ("shared_simd_scan_tpu_torch/csrc/shared_scan.cu", "sss_shared_scan_dynamic")
+WINDOW_FOLD = ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu", "sss_bitsliced_static_fold")
 # the kernels also timed on S64 of a 20-bit i % 512 column (the lookup's
 # search past width 16; the static fold's 20 planes)
 WIDTH20 = ("bitsliced_static_scan", "member_ortree")
 # the kernels of the arbitrary-key path, and the tier each one serves
 ARBITRARY = {"bitsliced_static_scan": "bitsliced_static", "windowed_scan": "windowed",
              "bitsliced_scan": None}
+# the edges of the window lookup (its direct window table up to width 17, the
+# search past it; k around a pass of 64 rows and a launch of 1024 rows) and
+# of the runtime tier
+WINDOW_EDGE_WIDTHS = (1, 5, 12, 13, 17, 18, 31)
+WINDOW_EDGE_KS = (1, 8, 64, 65, 1024, 1025)
+RUNTIME_EDGE_KS = (5, 8, 64, 128, 1025)
 # the kernels of the query path
 QUERY = ("range_scan", "conj_range_scan", "member_compare", "member_chunked_compare",
          "member_window", "member_chunked_window", "member_domain", "member_ortree",
@@ -414,15 +444,17 @@ def build_phase() -> float:
     print(f"build: {seconds:.1f} s ({_cuda.library_path().name})")
     for name, (_, c_entry, _) in KERNELS.items():
         check(c_entry in _cuda._SIGNATURES, f"{name}: its entry point {c_entry} is in the library")
-    check(FOLD_KERNEL[1] in _cuda._SIGNATURES, f"histogram_dag: {FOLD_KERNEL[1]} is in the library")
+    for other in (FOLD_KERNEL, RUNTIME_LOOKUP, WINDOW_FOLD):
+        check(other[1] in _cuda._SIGNATURES, f"{other[1]} is in the library")
     log_path = _cuda.BUILD_DIR / "ptxas.log"
     log_path.write_text(_cuda.build_log)
     # registers and spills of the width-9 kernels (the main path's width),
     # and of the kernels with one body for every width (aggregates, the
-    # chunked and dynamic scans) and the copy
+    # chunked, dynamic and windowed scans) and the copy
     for entry, line in ptxas_lines(_cuda.build_log):
         if ("ILi9E" in entry or "ILi31E" in entry or "canary" in entry or "agg" in entry
-                or "chunked" in entry or "dynamic" in entry or "copy" in entry) and (
+                or "chunked" in entry or "dynamic" in entry or "windowed" in entry
+                or "copy" in entry) and (
                 "Used" in line or "spill" in line):
             print(f"  ptxas {entry}: {line}")
     return seconds
@@ -540,6 +572,96 @@ def small_phase(device, errs: dict) -> None:
               f"(widths {SMALL_WIDTHS}, n {SMALL_NS})")
 
 
+def with_edges(keys, width: int) -> list[int]:
+    """keys with a duplicate of the first across passes of 64 rows and
+    launches of 1024, keys past the domain (2^w, 0xFFFFFFFF) and a key of
+    the domain's top window."""
+    keys, dom = [int(x) for x in keys], 1 << width
+    k = len(keys)
+    for at, key in ((k - 1, keys[0]), (k // 2, keys[0]), (1, dom), (2, 0xFFFFFFFF), (3, dom - 1)):
+        if at < k:
+            keys[at] = key
+    return keys
+
+
+def small_window_phase(device, errs: dict) -> None:
+    """The window lookup and the runtime tier against their plain versions
+    at their edges, small ragged sizes."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch.ops import scan, unpack
+
+    n = 33 * 128 + 17
+    t0 = time.monotonic()
+    fns = (scan.windowed_scan_tiles, scan.shared_scan_bitsliced_static_tiles)
+    for width in WINDOW_EDGE_WIDTHS:
+        dom = 1 << width
+        rng = np.random.default_rng(width)
+        values = rng.integers(0, dom, size=n).astype(np.uint32)
+        tiles = unpack.pack_device_kernel(torch.from_numpy(values.view(np.int32)).to(device),
+                                          width).tiles
+        for k in WINDOW_EDGE_KS:
+            base = int(values[5]) // 32 * 32
+            layouts = {
+                "one window": (base + rng.integers(0, min(32, dom), size=k)) % dom,
+                "a window each": (32 * np.arange(k) + np.arange(k) % 32) % dom,
+                "top windows": dom - 1 - rng.integers(0, min(64, dom), size=k),
+                "drawn": values[rng.integers(0, n, size=k)],
+            }
+            for layout, keys in layouts.items():
+                keys = with_edges(keys, width)
+                kt = torch.from_numpy(np.asarray(keys, np.uint32).view(np.int32)).to(device)
+                arr = np.asarray(keys, np.uint32)
+                for bo in (0, 3):
+                    p = scan.shared_scan_tiles_plain(tiles, kt, width, n, bo)
+                    # the window lookup at every k, and the tier (the fold below
+                    # WINDOW_LOOKUP_KEYS keys); each wrapper counts in its launch loop
+                    before = [f.launches for f in fns]
+                    a = scan._window_lookup(tiles, arr, width, n, bo, device)
+                    mid = [f.launches for f in fns]
+                    t = scan.windowed_scan_tiles(tiles, keys, width, n, bo)
+                    tier = (-(-k // 1024), 0) if k >= scan.WINDOW_LOOKUP_KEYS else (0, 1)
+                    if [m - b for m, b in zip(mid, before)] != [-(-k // 1024), 0] or \
+                            tuple(f.launches - m for f, m in zip(fns, mid)) != tier:
+                        check(False, f"windowed w={width} k={k} {layout}: one launch of the "
+                              f"lookup per 1024 rows, or one of the fold below "
+                              f"{scan.WINDOW_LOOKUP_KEYS} keys")
+                    errs["windowed_scan"] = max(errs["windowed_scan"], max_abs_err(a[0], p[0]),
+                                                int((a[1] - p[1]).abs().max()),
+                                                max_abs_err(t[0], p[0]),
+                                                int((t[1] - p[1]).abs().max()))
+    torch.cuda.synchronize()
+    check(errs["windowed_scan"] == 0, f"windowed_scan (the window lookup, and the tier) bit-exact "
+          f"against the plain compare at widths {WINDOW_EDGE_WIDTHS}, k {WINDOW_EDGE_KS}, four key "
+          f"layouts, every set with duplicates across passes and launches and keys past the "
+          f"domain")
+    for width in range(1, 32):
+        rng = np.random.default_rng(width + 100)
+        values = rng.integers(0, 1 << width, size=n).astype(np.uint32)
+        tiles = unpack.pack_device_kernel(torch.from_numpy(values.view(np.int32)).to(device),
+                                          width).tiles
+        for k in RUNTIME_EDGE_KS + ((1024,) if width == 31 else ()):
+            keys = with_edges(values[rng.integers(0, n, size=k)], width)
+            kt = torch.from_numpy(np.asarray(keys, np.uint32).view(np.int32)).to(device)
+            rfns = (scan.shared_scan_bitsliced_tiles, scan.shared_scan_dynamic_tiles)
+            before = [f.launches for f in rfns]
+            a = scan.shared_scan_bitsliced_tiles(tiles, kt, width, n, 2)
+            lookups = sum(scan._runtime_lookup_wins(width, min(k - g0, 1024))
+                          for g0 in range(0, k, 1024))
+            if [f.launches - b for f, b in zip(rfns, before)] != [-(-k // 1024) - lookups,
+                                                                   lookups]:
+                check(False, f"runtime tier w={width} k={k}: one launch per 1024 keys, of the "
+                      f"lookup where scan._runtime_lookup_wins says so, else of the fold")
+            p = scan.shared_scan_bitsliced_tiles_plain(tiles, kt, width, n, 2)
+            errs["bitsliced_scan"] = max(errs["bitsliced_scan"], max_abs_err(a[0], p[0]),
+                                         int((a[1] - p[1]).abs().max()))
+    torch.cuda.synchronize()
+    check(errs["bitsliced_scan"] == 0, f"bitsliced_scan (runtime tier) bit-exact against its plain "
+          f"version at widths 1-31, k {RUNTIME_EDGE_KS} and 1024 at width 31 (the masks staged "
+          f"in chunks), duplicates and keys past the domain")
+    print(f"window and runtime edge phase ran in {time.monotonic() - t0:.1f} s")
+
+
 def main_path_phase(device) -> tuple[int, object, dict]:
     """The main path at full size, with launch counts taken around it."""
     import torch
@@ -618,7 +740,7 @@ def arbitrary_key_phase(device) -> tuple[object, dict]:
         outs[name] = shared_scan_device(dev, keys)
         ran[name] = [k for k, fn in kernels.items() if fn.launches > before[k]]
     before = kernels["windowed_scan"].launches
-    chunked = scan.windowed_scan_tiles(dev.tiles, s64(), WIDTH, n)
+    chunked = scan.windowed_scan_tiles(dev.tiles, s64(), WIDTH, n)  # (JAX: its chunked plan)
     chunked_launches = kernels["windowed_scan"].launches - before
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
@@ -639,9 +761,12 @@ def arbitrary_key_phase(device) -> tuple[object, dict]:
         else:
             tier, _ = scan.pick_concrete_tier(WIDTH, keys)
             want, why = tier_kernel[tier], f"pick_concrete_tier: {tier}"
+            if tier == "windowed" and len(keys) < scan.WINDOW_LOOKUP_KEYS:
+                want, why = "bitsliced_static_scan", f"{why}, the fold below " \
+                    f"{scan.WINDOW_LOOKUP_KEYS} keys"
         check(ran[name] == [want], f"{name}: ran {ran[name]}, the kernel of its tier ({why})")
-    check(len(s64()) > 48 and chunked_launches == 1,
-          "windowed_scan_tiles(S64) launched the windowed kernel on its chunked plan")
+    check(chunked_launches == 1 and len(s64()) >= scan.WINDOW_LOOKUP_KEYS,
+          "windowed_scan_tiles(S64): one launch of the window lookup for 64 keys")
 
     for name, keys in sets:
         host = scan._host_keys(keys)
@@ -663,7 +788,8 @@ def timing_phase(device, n: int, dev, arb, errs: dict) -> dict:
     """Each kernel and its plain version at the full-size shapes: the main
     path's column ``dev``, and for the arbitrary-key kernels the i % 512
     column ``arb`` at k=8 (S8) and k=64 (S64); all four arbitrary-key tiers
-    also on the clustered W8, without their plain versions."""
+    also on the clustered W8, the windowed tier on W4 and on keys 0..7 of
+    ``dev`` (beside the interval kernel), without their plain versions."""
     import torch
     from shared_simd_scan_tpu_torch.layout import LANES
     from shared_simd_scan_tpu_torch.ops import scan, unpack
@@ -712,6 +838,12 @@ def timing_phase(device, n: int, dev, arb, errs: dict) -> dict:
             lambda kt=kt: scan.shared_scan_tiles(atiles, kt, WIDTH, n), None)
         for kernel in ("bitsliced_scan", "bitsliced_static_scan", "windowed_scan", "shared_scan"):
             nkeys[f"{kernel} {label}"] = len(keys)
+    # the windowed tier on W4, and on keys 0..7 of the main path's column
+    # beside the interval kernel
+    for label, cols, keys in (("W4", atiles, W4), ("keys 0..7", tiles, list(range(K)))):
+        pairs[f"windowed_scan {label}"] = (
+            lambda cols=cols, keys=keys: scan.windowed_scan_tiles(cols, keys, WIDTH, n), None)
+        nkeys[f"windowed_scan {label}"] = len(keys)
     for name, (kern, plain) in pairs.items():
         if plain is None:
             continue
@@ -752,8 +884,13 @@ def timing_phase(device, n: int, dev, arb, errs: dict) -> dict:
         print(f"time {name}: kernel {ms:.6f} ms ({rate:.6e} bytes/s, {rate / copy_rate:.4f} of copy"
               f", bound {bound_ms:.6f} ms for {traffic[name]} bytes)"
               + (f"; plain {plain_ms:.6f} ms" if plain_ms is not None else ""))
+    print(f"keys 0..7 of the main path: the windowed tier (the plane fold below "
+          f"{scan.WINDOW_LOOKUP_KEYS} keys) {results['windowed_scan keys 0..7'][0]:.6f} ms beside "
+          f"the interval kernel's {results['interval_scan'][0]:.6f} ms")
     print("library: no PyTorch call scans a bit-packed column, so library_ms is null")
-    kernel_report({"static_fold_kernelILi9ENS_10DeviceKeysELi1E": "static fold, width 9"})
+    kernel_report({"static_fold_kernelILi9ENS_10DeviceKeysELi1E": "static fold, width 9",
+                   "windowed_lookup_kernelILb1E": "window lookup, direct table",
+                   "windowed_lookup_kernelILb0E": "window lookup, search"})
     return results
 
 
@@ -803,6 +940,92 @@ def width20_phase(device, errs: dict) -> dict:
     kernel_report({"static_fold_kernelILi20ENS_10DeviceKeysELi1E": "static fold, width 20",
                    "member_lookup_kernelILi20ELi1E": "member lookup, search in shared memory, "
                                                      "width 20"})
+    del tiles
+    torch.cuda.empty_cache()
+    return results
+
+
+def width31_phase(device, errs: dict) -> dict:
+    """A 31-bit ``i % 512`` column of 512 MiB packed, where the lookups win:
+    the runtime tier on S256 as CUDA keys (the dynamic scan's lookup where
+    ``scan._runtime_lookup_wins`` says so) held against its plain version,
+    and the windowed tier on 1024 keys, a window each (one launch of the
+    window lookup) held against the static fold, every word; both timed
+    beside the fold on the same keys."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch.bench import harness
+    from shared_simd_scan_tpu_torch.layout import LANES
+    from shared_simd_scan_tpu_torch.ops import scan, unpack
+
+    width = 31
+    n = harness.values_for(DATA_SIZE, width)
+    tiles = unpack.pack_device_kernel(harness.synth_modk(n, DOMAIN, width, device=device),
+                                      width).tiles
+    nblocks = tiles.shape[1] * LANES
+    print(f"width-31 phase: n {n}, values i % {DOMAIN}")
+
+    def nbytes(k):
+        return tiles.numel() * 4 + k * (nblocks * 4 + 8 + 4)
+
+    def closed(keys):
+        return [(n - 1 - key) // DOMAIN + 1 if key < DOMAIN else 0 for key in keys]
+
+    results = {}
+    keys = s256()
+    kt = torch.tensor(keys, dtype=torch.int32, device=device)
+    fns = (scan.shared_scan_bitsliced_tiles, scan.shared_scan_dynamic_tiles)
+    before = [f.launches for f in fns]
+    a = scan.shared_scan_bitsliced_tiles(tiles, kt, width, n)
+    ran = [f.launches - b for f, b in zip(fns, before)]
+    kernel = RUNTIME_LOOKUP[1] if ran == [0, 1] else KERNELS["bitsliced_scan"][1]
+    check(ran == ([0, 1] if scan._runtime_lookup_wins(width, 256) else [1, 0]),
+          f"runtime tier w31 S256: one launch, the kernel scan._runtime_lookup_wins picks ({ran})")
+    check(a[1].tolist() == closed(keys), "runtime tier w31 S256: counts == closed form")
+    p = scan.shared_scan_bitsliced_tiles_plain(tiles, kt, width, n)
+    errs["bitsliced_scan"] = max(errs["bitsliced_scan"], max_err(a, p))
+    del a, p
+    check(errs["bitsliced_scan"] == 0,
+          "runtime tier w31 S256 bit-exact against its plain version at full size")
+    fold = (lambda: scan._static_fold(tiles, np.asarray(keys, np.uint32), width, n, 0, device))
+    times = {"tier": time_ms(lambda: scan.shared_scan_bitsliced_tiles(tiles, kt, width, n),
+                             batches=5, calls=10),
+             "plain": time_ms(lambda: scan.shared_scan_bitsliced_tiles_plain(
+                 tiles, kt, width, n), batches=3, calls=2),
+             "fold": time_ms(fold, batches=5, calls=10)}
+    bound_ms = nbytes(256) / HBM_BYTES_PER_S * 1e3
+    results["bitsliced_scan w31 S256"] = (times["tier"], times["plain"], bound_ms, kernel,
+                                          times["fold"])
+    print(f"time bitsliced_scan w31 S256 as CUDA keys ({kernel}): {times['tier']:.6f} ms (bound "
+          f"{bound_ms:.6f} ms, {bound_ms / times['tier']:.4f} of it); the fold on the same keys "
+          f"{times['fold']:.6f} ms; plain {times['plain']:.6f} ms")
+
+    keys = [32 * i + i % 32 for i in range(1024)]
+    arr = np.asarray(keys, np.uint32)
+    fns = (scan.windowed_scan_tiles, scan.shared_scan_bitsliced_static_tiles)
+    before = [f.launches for f in fns]
+    a = scan.windowed_scan_tiles(tiles, keys, width, n)
+    ran = [f.launches - b for f, b in zip(fns, before)]
+    check(ran == [1, 0], f"windowed tier w31, 1024 windows: one launch of the lookup ({ran})")
+    check(a[1].tolist() == closed(keys), "windowed tier w31, 1024 windows: counts == closed form")
+    f = scan._static_fold(tiles, arr, width, n, 0, device)
+    for r0 in range(0, 1024, 64):  # rows of 17 MB: compare 64 at a time
+        errs["windowed_scan"] = max(errs["windowed_scan"],
+                                    max_abs_err(a[0][r0 : r0 + 64], f[0][r0 : r0 + 64]))
+    errs["windowed_scan"] = max(errs["windowed_scan"], int((a[1] - f[1]).abs().max()))
+    del a, f
+    torch.cuda.empty_cache()
+    check(errs["windowed_scan"] == 0,
+          "windowed tier w31, 1024 windows == the static fold, every word and count")
+    ms = time_ms(lambda: scan.windowed_scan_tiles(tiles, keys, width, n), batches=5, calls=10)
+    fold_ms = time_ms(lambda: scan._static_fold(tiles, arr, width, n, 0, device),
+                      batches=5, calls=10)
+    bound_ms = nbytes(1024) / HBM_BYTES_PER_S * 1e3
+    results["windowed_scan w31 k=1024"] = (ms, None, bound_ms, KERNELS["windowed_scan"][1],
+                                           fold_ms)
+    print(f"time windowed_scan w31, 1024 keys a window each (the window lookup, search): "
+          f"{ms:.6f} ms (bound {bound_ms:.6f} ms, {bound_ms / ms:.4f} of it); the static fold "
+          f"on the same keys {fold_ms:.6f} ms")
     del tiles
     torch.cuda.empty_cache()
     return results
@@ -2636,6 +2859,7 @@ def main() -> int:
     build_phase()
     canary_phase(device, errs)
     small_phase(device, errs)
+    small_window_phase(device, errs)
     small_query_phase(device, errs)
     n, dev, launches = main_path_phase(device)
     arb, arb_launches = arbitrary_key_phase(device)
@@ -2662,6 +2886,7 @@ def main() -> int:
     del cols, agg_data, zdata, stats_cols
     torch.cuda.empty_cache()
     times.update(width20_phase(device, errs))
+    wide = width31_phase(device, errs)
     print(f"before the linear timing phase: {torch.cuda.memory_allocated()} bytes allocated, "
           f"{torch.cuda.memory_reserved()} reserved")
     linear_times, extras = linear_timing_phase(device, dev, arb, errs)
@@ -2694,9 +2919,24 @@ def main() -> int:
              "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
              "library_ms": library.get(name)}
-        if name in ARBITRARY:
+        if name == "windowed_scan":  # k = 8 and its W4, keys 0..7: the plane fold
+            e["k"] = 64
+            e["ms"], e["plain_ms"], e["bound_ms"] = times[f"{name} k=64"]
+            e["ms_k8"], e["plain_ms_k8"], e["bound_ms_k8"] = times[f"{name} k=8"]
+            for label in ("W4", "keys 0..7"):
+                e[f"ms_{label}"], _, e[f"bound_ms_{label}"] = times[f"{name} {label}"]
+            e["fold_kernel"], e["fold_source"] = WINDOW_FOLD[1], WINDOW_FOLD[0]
+            ms_o, _, bound_o, _, fold_o = wide["windowed_scan w31 k=1024"]
+            e.update({"ms_w31_k1024": ms_o, "bound_ms_w31_k1024": bound_o,
+                      "fold_ms_w31_k1024": fold_o})
+        elif name in ARBITRARY:
             e["k"] = 8
             e["ms_k64"], e["plain_ms_k64"], e["bound_ms_k64"] = times[f"{name} k=64"]
+            if name == "bitsliced_scan":  # S256 of a 31-bit column, and the fold on it
+                ms_o, plain_o, bound_o, kernel_o, fold_o = wide["bitsliced_scan w31 S256"]
+                e.update({"ms_w31_S256": ms_o, "plain_ms_w31_S256": plain_o,
+                          "bound_ms_w31_S256": bound_o, "kernel_w31_S256": kernel_o,
+                          "fold_ms_w31_S256": fold_o})
         elif " " in key:
             e["set"] = key.split(" ", 1)[1]
         if name in LINEAR:

@@ -3,11 +3,13 @@
     python -m shared_simd_scan_tpu_torch.bench.redesign_sweep [SECTION ...]
 
 SECTION is any of copy, chunked, dynamic, bins, domain, fold, static,
-ortree, histdag, aggstatic, minmax (default: all).  Builds
+ortree, histdag, aggstatic, minmax, windowed, runtime (default: all).
+Builds
 ``redesign_sweep.cu`` (copy, chunked, dynamic),
 ``redesign_sweep_bins_fold.cu`` (bins, domain, fold),
 ``redesign_sweep_static_member.cu`` (static, ortree) and
-``redesign_sweep_hist_agg.cu`` (histdag, aggstatic, minmax), beside this file,
+``redesign_sweep_hist_agg.cu`` (histdag, aggstatic, minmax) and
+``redesign_sweep_windowed.cu`` (windowed) beside this file
 with nvcc into the package's ``_build/`` (in parallel) and prints their
 registers and shared memory per kernel.  Then, with CUDA events (the
 median of 5 batches of 10 calls, each variant timed twice, in one order
@@ -124,7 +126,31 @@ and then in the reverse one):
   the warp's first values share), the package's form with the binary search
   at every width and (past 16 bits) with the CTA's own 16-bit window, and
   the package's ``minmax_scan_tiles``; every count, min and max equal to
-  the compare kernel's first.
+  the compare kernel's first;
+- windowed: the windowed tier's host keys on ``i % 512`` columns of 512
+  MiB packed at widths 9, 17, 20 and 31 (W4, W8, S8, S16, S32, S64, 64
+  keys in two windows; and on columns of 64 MiB, 1024 keys in a window
+  each): the window lookup (``sss_windowed_lookup``: one lookup a value in
+  the keys' window tables, rows by the first caller row holding each key)
+  against the same lookup with its rows by key index (one table load a
+  value), the static tier's fold (``shared_scan_bitsliced_static_tiles``),
+  rows 13 and 14's lookups (``shared_scan_dynamic_tiles``,
+  ``shared_scan_chunked_tiles``) on the keys copied to the card once, and
+  the package's ``windowed_scan_tiles`` (the fold below
+  ``WINDOW_LOOKUP_KEYS`` keys); every result equal to the window lookup's
+  and its counts to the closed form first; then the largest ratio of the
+  dynamic scan's time to the window lookup's, and the fold's time over the
+  window lookup's at every shape;
+- runtime: CUDA-tensor keys on ``i % 512`` columns of 128 MiB packed at
+  every width 9-31, k = 8, 64, 128, 192, 256, 384, 512, 768 and 1024 (up
+  to 512 distinct keys of 0..511; past 512 all of them and keys drawn
+  past 511, duplicates at width 9): the plane fold in tile order on the
+  key tensor (``sss_bitsliced_static_fold``) against row 13's lookup
+  (``shared_scan_dynamic_tiles``, one launch); every result, the
+  package's ``shared_scan_bitsliced_tiles``' too, equal to the fold's and
+  its counts to the closed form first; then, per shape, the lookup's gain
+  over the fold, and per width the k where it exceeds 5% (the table of
+  ``scan._RUNTIME_LOOKUP_KS``).
 
 The bins and fold sections also print, from ``cuobjdump -sass`` of the
 sweep's library, the instructions of each width-9 kernel's basic blocks
@@ -159,8 +185,9 @@ SOURCE = pathlib.Path(__file__).with_name("redesign_sweep.cu")
 HIST_AGG_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_hist_agg.cu")
 BINS_FOLD_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_bins_fold.cu")
 STATIC_MEMBER_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_static_member.cu")
+WINDOWED_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_windowed.cu")
 SECTIONS = ("copy", "chunked", "dynamic", "bins", "domain", "fold", "static", "ortree",
-            "histdag", "aggstatic", "minmax")
+            "histdag", "aggstatic", "minmax", "windowed", "runtime")
 COPY_BYTES = 512 * 1024 * 1024
 COPY_NAMES = {0: "batch (8 loads, then 8 stores)", 1: "pipelined 4", 2: "pipelined 8",
               3: "ring 16 KB x 4, resident grid", 4: "ring 32 KB x 4, resident grid",
@@ -286,6 +313,7 @@ def _libraries(sources: list) -> dict:
                           "sweep_hist": [i, i, vp, ctypes.c_uint32, i, vp, ll, ll, vp],
                           "sweep_agg": [i, vp, vp, vp, i, vp, i, i, i, vp, vp, ll, i, i, ll, vp],
                           "sweep_minmax": [i, vp, vp, vp, i, vp, vp, vp, ll, i, i, ll, vp]},
+        WINDOWED_SOURCE: {"sweep_window_key_index": [vp, vp, i, i, i, vp, vp, ll, i, ll, vp]},
     }
     libs = {}
     for source, (path, log) in built.items():
@@ -305,7 +333,7 @@ def _resources(log: str) -> list[str]:
             entry = m.group(1)
         elif entry and "Used" in line and any(
                 w in entry for w in ("copy", "chunked", "dynamic", "bins", "histogram", "domain",
-                                     "fold", "static_linear", "interpreter", "lookup")):
+                                     "fold", "static_linear", "interpreter", "lookup", "window")):
             lines.append(f"  {entry}: {line.split(':', 1)[-1].strip()}")
     return lines
 
@@ -1105,6 +1133,170 @@ def ortree_sweep(lib, device, columns: dict) -> None:
         _report(f"ortree {label} at width {width} (k={len(pats)})", _in_turns(calls), bound)
 
 
+def _window_sets() -> dict:
+    """The windowed section's key sets: label -> (keys, packed bytes of
+    their column)."""
+    s64 = sorted(np.random.default_rng(3).choice(DOMAIN, 64, replace=False).tolist())
+    big, small = 512 * 1024 * 1024, 64 * 1024 * 1024
+    s16, s32 = (sorted(np.random.default_rng(seed).choice(DOMAIN, k, replace=False).tolist())
+                for seed, k in ((6, 16), (7, 32)))
+    return {"W4": ([0, 2, 4, 6], big), "W8": (list(range(7, -1, -1)), big),
+            "S8": ([3, 70, 141, 200, 262, 333, 400, 511], big), "S16": (s16, big),
+            "S32": (s32, big), "S64": (s64, big),
+            "64 keys in two windows": (list(range(32)) + list(range(256, 288)), big),
+            "1024 keys, a window each": ([32 * i + i % 32 for i in range(1024)], small)}
+
+
+def _key_index_tables(keys: np.ndarray, width: int) -> tuple[torch.Tensor, int, int]:
+    """The key-index form's tables of one launch (redesign_sweep_windowed.cu):
+    windows and masks as the package's, first the key index (in key order
+    of the nd distinct keys below 2^width) of each window's smallest key,
+    pos (each row's key index, 0xFFFF past the domain), order (the rows in
+    caller order within each group of 64 key indices, rows past the domain
+    with the last) and gstart (each group's start in order)."""
+    keys = np.asarray(keys, dtype=np.uint32)
+    k = keys.shape[0]
+    inside = keys.astype(np.int64) < (1 << width)
+    distinct = np.unique(keys[inside])
+    pos = np.full(k, 0xFFFF, dtype=np.int64)
+    pos[inside] = np.searchsorted(distinct, keys[inside])
+    windows, first = np.unique(distinct >> 5, return_index=True)
+    bit = np.left_shift(np.uint32(1), distinct & np.uint32(31))
+    masks = np.bitwise_or.reduceat(bit, first) if distinct.size else bit
+    ngroups = max(-(-distinct.size // 64), 1)
+    group = np.minimum(pos // 64, ngroups - 1)
+    order = np.argsort(group, kind="stable")
+    gstart = np.concatenate([[0], np.cumsum(np.bincount(group, minlength=ngroups))])
+    plan = np.concatenate([np.asarray(a, dtype=np.int64)
+                           for a in (windows, masks, first, pos, order, gstart)])
+    return torch.from_numpy(plan.astype(np.uint32).view(np.int32)), len(windows), len(distinct)
+
+
+def windowed_sweep(lib, device, column) -> None:
+    """The windowed tier's designs on the same keys; ``column(width,
+    nbytes)`` gives (tiles, n) of an ``i % 512`` column."""
+    stream = torch.cuda.current_stream().cuda_stream
+    worst, fold_over = 0.0, {}
+    for width in (9, 17, 20, 31):
+        for label, (keys, nbytes) in _window_sets().items():
+            tiles, n = column(width, nbytes)
+            nblocks = tiles.shape[1] * LANES
+            k = len(keys)
+            kt = torch.tensor(keys, dtype=torch.int32, device=device)
+            expect = torch.tensor(_closed_counts(keys, n), device=device)
+            arr = np.asarray(keys, np.uint32)
+            kplan, nwin, knd = _key_index_tables(arr, width)
+            kplan = kplan.to(device)
+
+            def key_index():
+                bits = torch.empty((k, tiles.shape[1], LANES), dtype=torch.int32, device=device)
+                counts = torch.zeros(k, dtype=torch.int64, device=device)
+                rc = lib.sweep_window_key_index(tiles.data_ptr(), kplan.data_ptr(), k, nwin, knd,
+                                                bits.data_ptr(), counts.data_ptr(), nblocks,
+                                                width, n, stream)
+                if rc:
+                    raise RuntimeError(f"sweep_window_key_index: CUDA error {rc}")
+                return bits, counts
+
+            calls = {
+                "the window lookup (sss_windowed_lookup)":
+                    lambda: scan._window_lookup(tiles, arr, width, n, 0, device),
+                "row 13: shared_scan_dynamic_tiles (keys copied once)":
+                    lambda: scan.shared_scan_dynamic_tiles(tiles, kt, width, n),
+                "row 14: shared_scan_chunked_tiles (keys copied once)":
+                    lambda: scan.shared_scan_chunked_tiles(tiles, kt, width, n),
+                "rows by key index (one table load a value)": key_index,
+                "row 16: the static fold (shared_scan_bitsliced_static_tiles)":
+                    lambda: scan.shared_scan_bitsliced_static_tiles(tiles, keys, width, n),
+                "the package's windowed_scan_tiles":
+                    lambda: scan.windowed_scan_tiles(tiles, keys, width, n)}
+            ref = None
+            for name, fn in calls.items():
+                got = fn()
+                _check(torch.equal(got[1], expect), f"windowed {label} w={width}: {name}'s counts")
+                if ref is None:
+                    ref = got[0]
+                else:
+                    _check(torch.equal(got[0], ref), f"windowed {label} w={width}: {name} differs")
+                del got
+            del ref
+            torch.cuda.empty_cache()
+            report = _in_turns(calls)
+            times = {name: sum(t) / 2 for name, t in report.items()}
+            window = times["the window lookup (sss_windowed_lookup)"]
+            worst = max(worst, times["row 13: shared_scan_dynamic_tiles (keys copied once)"] / window)
+            fold_over[(width, label)] = (
+                times["row 16: the static fold (shared_scan_bitsliced_static_tiles)"] / window)
+            bound = (tiles.numel() * 4 + k * (nblocks * 4 + 8 + 4)) / HBM_BYTES_PER_S * 1e3
+            _report(f"windowed {label} at width {width} (k={k}, {nwin} windows, "
+                    f"{nbytes >> 20} MiB packed)", report, bound)
+    print(f"windowed: the dynamic scan's time over the window lookup's, largest over the shapes: "
+          f"{worst:.4f}")
+    print("windowed: the static fold's time over the window lookup's: "
+          + "; ".join(f"w{w} {label} {r:.4f}" for (w, label), r in fold_over.items()))
+
+
+RUNTIME_KS = (8, 64, 128, 192, 256, 384, 512, 768, 1024)
+
+
+def _runtime_keys(k: int, width: int) -> list:
+    """k keys of the runtime section: distinct keys of 0..511 up to 512,
+    past it all of them and k - 512 keys drawn past 511 (of 0..511 at
+    width 9, duplicates)."""
+    rng = np.random.default_rng(k)
+    if k <= DOMAIN:
+        return sorted(rng.choice(DOMAIN, k, replace=False).tolist())
+    extra = (rng.choice(DOMAIN, k - DOMAIN).tolist() if width == 9 else
+             (DOMAIN + rng.choice((1 << width) - DOMAIN, k - DOMAIN, replace=False)).tolist())
+    return list(range(DOMAIN)) + extra
+
+
+def runtime_sweep(device, column) -> None:
+    """CUDA keys: the plane fold on the key tensor against row 13's lookup."""
+    gains = {}
+    for width in range(9, 32):
+        tiles, n = column(width, 128 * 1024 * 1024)
+        nblocks = tiles.shape[1] * LANES
+        for k in RUNTIME_KS:
+            keys = _runtime_keys(k, width)
+            kt = torch.tensor(np.asarray(keys, np.uint32).view(np.int32), device=device)
+            expect = torch.tensor(_closed_counts(keys, n), device=device)
+
+            def fold():
+                bits = torch.empty((k, tiles.shape[1], LANES), dtype=torch.int32, device=device)
+                counts = torch.zeros(k, dtype=torch.int64, device=device)
+                _cuda.launch("sss_bitsliced_static_fold", device, tiles.data_ptr(), kt.data_ptr(),
+                             k, bits.data_ptr(), counts.data_ptr(), nblocks, width, n, 0)
+                return bits, counts
+
+            calls = {"the plane fold on the key tensor": fold,
+                     "row 13: shared_scan_dynamic_tiles":
+                         lambda: scan.shared_scan_dynamic_tiles(tiles, kt, width, n)}
+            ref = None
+            checked = {**calls, "the package's shared_scan_bitsliced_tiles":
+                       lambda: scan.shared_scan_bitsliced_tiles(tiles, kt, width, n)}
+            for name, fn in checked.items():
+                got = fn()
+                _check(torch.equal(got[1], expect), f"runtime k={k} w={width}: {name}'s counts")
+                if ref is None:
+                    ref = got[0]
+                else:
+                    _check(torch.equal(got[0], ref), f"runtime k={k} w={width}: {name} differs")
+                del got
+            del ref
+            torch.cuda.empty_cache()
+            times = _in_turns(calls)
+            fold_ms, lookup_ms = (sum(t) / 2 for t in times.values())
+            gains[(width, k)] = fold_ms / lookup_ms - 1
+            bound = (tiles.numel() * 4 + k * (nblocks * 4 + 8 + 4)) / HBM_BYTES_PER_S * 1e3
+            _report(f"runtime k={k} at width {width}", times, bound)
+    print("runtime: the lookup's gain over the fold (fold / lookup - 1): "
+          + "; ".join(f"w{w} k{k} {g:+.4f}" for (w, k), g in gains.items()))
+    wins = {w: tuple(k for k in RUNTIME_KS if gains[(w, k)] > 0.05) for w in range(9, 32)}
+    print(f"runtime: k where the lookup is more than 5% faster, by width: "
+          f"{ {w: ks for w, ks in wins.items() if ks} }")
+
+
 def main(sections) -> None:
     unknown = set(sections) - set(SECTIONS)
     if unknown:
@@ -1119,9 +1311,10 @@ def main(sections) -> None:
     sources = [src for src, names in ((SOURCE, ("copy", "chunked", "dynamic")),
                                       (BINS_FOLD_SOURCE, ("bins", "domain", "fold")),
                                       (STATIC_MEMBER_SOURCE, ("static", "ortree")),
-                                      (HIST_AGG_SOURCE, ("histdag", "aggstatic", "minmax")))
+                                      (HIST_AGG_SOURCE, ("histdag", "aggstatic", "minmax")),
+                                      (WINDOWED_SOURCE, ("windowed",)))
                if set(names) & set(sections)]
-    libs = _libraries(sources)
+    libs = _libraries(sources) if sources else {}
     print("ptxas:")
     for _, _, log in libs.values():
         print("\n".join(_resources(log)))
@@ -1141,6 +1334,24 @@ def main(sections) -> None:
             aggstatic_sweep(lib, device)
         if "minmax" in sections:
             minmax_sweep(lib, device)
+    if {"windowed", "runtime"} & set(sections):
+        cache = {}
+
+        def column(width, nbytes):
+            if (width, nbytes) not in cache:
+                m = harness.values_for(nbytes, width)
+                cache[width, nbytes] = (pack_device_kernel(
+                    harness.synth_modk(m, DOMAIN, width, device=device), width).tiles, m)
+            return cache[width, nbytes]
+
+        if "windowed" in sections:
+            windowed_sweep(libs[WINDOWED_SOURCE][0], device, column)
+        if "runtime" in sections:
+            cache.clear()
+            torch.cuda.empty_cache()
+            runtime_sweep(device, column)
+        del cache
+        torch.cuda.empty_cache()
     if "copy" in sections:
         copy_sweep(libs[SOURCE][0], device)
     if {"chunked", "dynamic", "fold", "static", "ortree"} & set(sections):

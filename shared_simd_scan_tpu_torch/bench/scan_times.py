@@ -4,8 +4,10 @@
 
 Imports ``shared_simd_scan_tpu_torch`` from ROOT (default: the checkout
 holding this file), builds its kernels, and times with CUDA events the
-interval kernel (keys 0..7 on ``i % 8``), the runtime bit-sliced kernel and
-the static tier (S8 and S64 on ``i % 512``), the member OR-tree tier
+interval kernel (keys 0..7 on ``i % 8``, and the same keys through the
+windowed tier), the runtime bit-sliced tier and the static tier (S8 and S64
+on ``i % 512``), the windowed tier (W4, W8, S8 and S64 on ``i % 512``), the
+member OR-tree tier
 (``_member_ortree_tiles``, S8 and S64 on ``i % 512``), the chunked and
 dynamic scans (S64 and S256 as CUDA keys), the chunked histogram program
 (lo 100, k 40), the host-lo span tier (H1: lo 0, k 512, as
@@ -116,6 +118,11 @@ def main(root: pathlib.Path) -> None:
         "bitsliced S64": lambda: scan.shared_scan_bitsliced_tiles(atiles, cuda[64], 9, n),
         "static S8": lambda: scan.shared_scan_bitsliced_static_tiles(atiles, host[8], 9, n),
         "static S64": lambda: scan.shared_scan_bitsliced_static_tiles(atiles, host[64], 9, n),
+        "windowed W4": lambda: scan.windowed_scan_tiles(atiles, [0, 2, 4, 6], 9, n),
+        "windowed W8": lambda: scan.windowed_scan_tiles(atiles, list(range(7, -1, -1)), 9, n),
+        "windowed S8": lambda: scan.windowed_scan_tiles(atiles, host[8], 9, n),
+        "windowed S64": lambda: scan.windowed_scan_tiles(atiles, host[64], 9, n),
+        "windowed keys 0..7": lambda: scan.windowed_scan_tiles(tiles, list(range(8)), 9, n),
         "ortree S8": lambda: member._member_ortree_tiles(atiles, 9, n, tuple(S8)),
         "ortree S64": lambda: member._member_ortree_tiles(atiles, 9, n, tuple(s64)),
         "chunked S64": lambda: scan.shared_scan_chunked_tiles(atiles, cuda[64], 9, n),

@@ -5,19 +5,21 @@
 // Replaces shared_simd_scan_tpu/ops/scan.py:
 //  - _shared_scan_bitsliced_kernel / shared_scan_bitsliced_tiles: keys read
 //    from device memory, any k; per key match = AND_p (plane_p ^
-//    (bit_p(key) - 1)), killed for keys >= 2^W, the masks computed from
-//    each key in the loop (sss_bitsliced_scan);
+//    (bit_p(key) - 1)), killed for keys >= 2^W.  Here the fold in tile order
+//    below on the key tensor (sss_bitsliced_static_fold, one launch per
+//    kMaxKeys keys): each CTA stages the keys' plane masks in shared memory
+//    once, so a row costs one three-input AND/XOR a plane, where the masks
+//    computed from each key in the key loop cost about three instructions
+//    (ops/scan.py _runtime_lookup_wins sends some widths and k to the
+//    dynamic scan's key lookup instead);
 //  - _shared_scan_bitsliced_static_kernel / _bitsliced_static_tiles_impl:
 //    host keys.  The TPU traces the key set's memoized _combo AND-DAG over
 //    the planes into the kernel; nvcc cannot specialize per key set.  Here
-//    the same plane fold as the runtime keys, with each CTA turning the
-//    keys (read once from device memory) into plane masks in shared
-//    memory, read back as broadcasts, so a row costs one three-input
-//    AND/XOR per plane with no program (sss_bitsliced_static_fold, rows in
-//    tile order);
-//  - ops/member.py _member_bitsliced_kernel: the runtime plane fold with
-//    the key rows ORed into one row (sss_member_bitsliced, the kMember
-//    form of the runtime kernel).  The member OR-tree body is not here: on
+//    the same fold, the keys copied to device memory once a key set
+//    (sss_bitsliced_static_fold, rows in tile order);
+//  - ops/member.py _member_bitsliced_kernel: the plane fold with the key
+//    rows ORed into one row, the masks computed from each key in its loop
+//    (sss_member_bitsliced).  The member OR-tree body is not here: on
 //    this card it is a set lookup per value (member.cu sss_member_lookup);
 //  - _histogram_dag_kernel / _histogram_dag_tiles_impl: histogram counts
 //    of consecutive host keys, no bitvector.  The TPU interprets each
@@ -40,13 +42,13 @@
 // Bound on the H100: device memory bytes (reads W words, writes k words per
 // 32 values) while k is small; the integer instruction rate beyond: every
 // fold whose masks are staged in shared memory pays one LOP3 per plane per
-// key, the runtime tile-order kernel (masks computed from each key in its
-// loop) about three.  Design: one thread per 32-value block; the 32 values
-// are unpacked and transposed into planes in registers by the pruned
-// butterfly (common.cuh).  The runtime kernel keeps the planes in
-// registers and does not unroll its key loop.  A launch that asks for more
-// shared memory than a CTA has is refused and returns its error.  Counts
-// as in shared_scan.cu.
+// key, the member form (masks computed from each key in its loop) about
+// three.  Design: one thread per 32-value block; the 32 values are
+// unpacked and transposed into planes in registers by the pruned
+// butterfly (common.cuh).  The member form keeps the planes in registers
+// and does not unroll its key loop.  A launch that asks for more shared
+// memory than a CTA has is refused and returns its error.  Counts as in
+// shared_scan.cu.
 #include "common.cuh"
 
 namespace sss {
@@ -61,14 +63,15 @@ __device__ __forceinline__ uint32_t key_row(const uint32_t (&x)[kBlockValues], u
   return acc;
 }
 
-// kMember: OR the k key rows into row 0 (one count) instead of storing k.
-template <int W, bool kMember>
+// The member form: the k key rows ORed into row 0, one count (any k).
+template <int W>
 __global__ void __launch_bounds__(kThreads)
-bitsliced_scan_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __restrict__ keys, int k,
-                      uint32_t* __restrict__ bits, unsigned long long* __restrict__ counts,
-                      long long nblocks, long long n, long long block_offset) {
-  __shared__ unsigned s_cnt[kMember ? 1 : kMaxKeys];
-  zero_counts(s_cnt, kMember ? 1 : k);
+member_bitsliced_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __restrict__ keys,
+                        int k, uint32_t* __restrict__ bits,
+                        unsigned long long* __restrict__ counts, long long nblocks, long long n,
+                        long long block_offset) {
+  __shared__ unsigned s_cnt[1];
+  zero_counts(s_cnt, 1);
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = b < nblocks;
   uint32_t w[W];
@@ -81,13 +84,9 @@ bitsliced_scan_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __rest
 
   uint32_t any = 0u;
 #pragma unroll 1
-  for (int j = 0; j < k; ++j) {
-    const uint32_t acc = key_row<W>(x, __ldg(keys + j));
-    if constexpr (kMember) any |= acc;
-    else store_row(bits, nblocks, b, active, j, acc & valid, s_cnt);
-  }
-  if constexpr (kMember) store_row(bits, nblocks, b, active, 0, any & valid, s_cnt);
-  flush_counts(s_cnt, kMember ? 1 : k, counts);
+  for (int j = 0; j < k; ++j) any |= key_row<W>(x, __ldg(keys + j));
+  store_row(bits, nblocks, b, active, 0, any & valid, s_cnt);
+  flush_counts(s_cnt, 1, counts);
 }
 
 // Keys of the folds: read from device memory (DeviceKeys, common.cuh: the
@@ -200,11 +199,12 @@ __device__ __forceinline__ void fold_chunk(const uint32_t (&x)[kBlockValues],
 }
 
 // The plane fold for a key set, one body for every output: host keys, and
-// the runtime keys of the linear export.  Each CTA turns the keys into
-// plane masks in shared memory (stage_fold_masks) and folds every row
-// from them (fold_chunk); with the masks computed from the keys in the
-// loop, each thread spent about three more instructions a plane on them.  Resident CTAs loop over tiles of blockDim.x blocks
-// and flush their counts once.  kFoldLinear (k % 4 == 0, k <= 128) stages
+// runtime keys (in tile order, and the linear export's).  Each CTA turns
+// the keys into plane masks in shared memory (stage_fold_masks) and folds
+// every row from them (fold_chunk); with the masks computed from the keys
+// in the loop, each thread spent about three more instructions a plane on
+// them.  Resident CTAs loop over tiles of blockDim.x blocks and flush their
+// counts once.  kFoldLinear (k % 4 == 0, k <= 128) stages
 // all k keys' masks once and each tile's rows as linear bytes, and stores
 // the CTA's span at once.  kFoldRows and kFoldCounts (k <= kMaxKeys) stage
 // the masks of up to `chunk` keys (chunk % 4 == 0) once; more keys are
@@ -306,34 +306,6 @@ inline int static_rows_chunk(int width, int k) {
 
 }  // namespace sss
 
-// Keys are launched in chunks of kMaxKeys (the shared counters' size); each
-// chunk writes its own rows of bits and counts.
-extern "C" int sss_bitsliced_scan(const uint32_t* tiles, const uint32_t* keys, int k,
-                                  uint32_t* bits, unsigned long long* counts, long long nblocks,
-                                  int width, long long n, long long block_offset,
-                                  cudaStream_t stream) {
-  if (nblocks <= 0 || k <= 0) return (int)cudaSuccess;
-  const unsigned grid = sss::grid_for(nblocks);
-  for (int j0 = 0; j0 < k; j0 += sss::kMaxKeys) {
-    const int kc = k - j0 < sss::kMaxKeys ? k - j0 : sss::kMaxKeys;
-    uint32_t* bits_c = bits + (size_t)j0 * nblocks;
-    switch (width) {
-#define SSS_CASE(W)                                                               \
-  case W:                                                                         \
-    sss::bitsliced_scan_kernel<W, false><<<grid, sss::kThreads, 0, stream>>>(     \
-        tiles, keys + j0, kc, bits_c, counts + j0, nblocks, n, block_offset);     \
-    break;
-      SSS_FOR_EACH_WIDTH(SSS_CASE)
-#undef SSS_CASE
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
-}
-
 // The member form: all k keys OR into one row and one count (any k).
 extern "C" int sss_member_bitsliced(const uint32_t* tiles, const uint32_t* keys, int k,
                                     uint32_t* bits, unsigned long long* counts, long long nblocks,
@@ -345,7 +317,7 @@ extern "C" int sss_member_bitsliced(const uint32_t* tiles, const uint32_t* keys,
   switch (width) {
 #define SSS_CASE(W)                                                               \
   case W:                                                                         \
-    sss::bitsliced_scan_kernel<W, true><<<grid, sss::kThreads, 0, stream>>>(      \
+    sss::member_bitsliced_kernel<W><<<grid, sss::kThreads, 0, stream>>>(          \
         tiles, keys, k, bits, counts, nblocks, n, block_offset);                  \
     break;
     SSS_FOR_EACH_WIDTH(SSS_CASE)
@@ -356,9 +328,10 @@ extern "C" int sss_member_bitsliced(const uint32_t* tiles, const uint32_t* keys,
   return (int)cudaGetLastError();
 }
 
-// The static fold in tile order: keys is a device array of k <= kMaxKeys
-// uint32 (host keys, copied once by the caller); bits (k, nblocks) and
-// counts int64[k] (zeroed by the caller) as in sss_bitsliced_scan.
+// The fold in tile order: keys is a device array of k <= kMaxKeys uint32
+// (the runtime keys, or host keys copied once by the caller); bits (k,
+// nblocks) and counts int64[k] (zeroed by the caller), row j at bits[j *
+// nblocks + b].
 extern "C" int sss_bitsliced_static_fold(const uint32_t* tiles, const uint32_t* keys, int k,
                                          uint32_t* bits, unsigned long long* counts,
                                          long long nblocks, int width, long long n,

@@ -1,7 +1,8 @@
-// Shared scans of k arbitrary equality keys in one pass, in three forms --
+// Shared scans of k arbitrary equality keys in one pass, in four forms --
 // the general compare kernel, the chunked scan (a key lookup per value
-// among 64 keys) and the dynamic scan (a key lookup per value among a
-// launch's 1024), the last two below the first.
+// among 64 keys), the dynamic scan (a key lookup per value among a
+// launch's 1024) and the windowed scan (a window lookup per value in the
+// host's tables of a launch's keys), the last three below the first.
 //
 // The general compare kernel replaces shared_simd_scan_tpu/ops/scan.py:
 // _shared_scan_kernel / shared_scan_tiles, with its semantics:
@@ -368,15 +369,11 @@ cudaError_t chunked_launch(const uint32_t* tiles, const uint32_t* keys, int k, u
 // branch-free binary search (ranked by comparing every pair of keys: O(k^2)
 // a CTA, small beside a pass over the column).  Per tile, each thread
 // unpacks its block once and looks its 32 values up once, keeping the
-// indices in registers.  Then, for each group of G rows g0..g0+G-1, last
-// group first, it sets bit r of row index - g0 in its column of rows[G +
-// 1][T] in shared memory (mark_rows), stores the group's rows in order as
-// the chunked scan does (row j is col[min(rep[j] - g0, G)], row G being
-// zero: a key past the domain, or a duplicate whose first occurrence lies
-// in an earlier group, stores zeros, branch-free), stores the later rows
-// whose first occurrence lies in this group over those zeros (a list per
-// group, built in the setup), and clears the bits it set.  A duplicate's
-// count is its first occurrence's, added to its total at the flush.
+// indices in registers, and stores the rows a group of G at a time through
+// its column of rows[G + 1][T] in shared memory (store_groups, below; the
+// groups' lists of later duplicates are built in the setup).  A
+// duplicate's count is its first occurrence's, added to its total at the
+// flush.
 constexpr int kDynGroup = 64;     // G: rows per group
 constexpr int kDynThreads = 256;  // T
 constexpr uint32_t kNoRow = 0xFFFFu;  // a lookup of a value no key holds; rep past the domain
@@ -504,6 +501,39 @@ __device__ __forceinline__ int dynamic_setup(const DynSmem<G, T>& s,
   return span;
 }
 
+// Rows 0..kc-1 of block b from idx[r], the first row holding each of its 32
+// values (kNoRow: none), a group of G rows g0..g0+G-1 at a time, last group
+// first: set bit r of row idx[r] - g0 in this thread's column of rows
+// (mark_rows), store the group's rows in order as the chunked scan does (row
+// j is col[min(rep[j] - g0, zr)], row zr being zero: a key past the domain,
+// or a duplicate whose first occurrence lies in an earlier group, stores
+// zeros, branch-free), store the later rows whose first occurrence lies in
+// this group over those zeros (dlist[dstart[g] .. dstart[g + 1])), and clear
+// the bits it set.  A row's count goes to cnt of its own index.
+template <int G, int T, bool kStore = true>
+__device__ __forceinline__ void store_groups(uint32_t* col, const uint32_t (&idx)[kBlockValues],
+                                             uint32_t zr, const uint16_t* rep, const int* dstart,
+                                             const uint16_t* dlist, unsigned* cnt, int kc,
+                                             uint32_t* bits, long long nblocks, long long b,
+                                             bool active, uint32_t valid) {
+  for (int g0 = (kc - 1) / G * G; g0 >= 0; g0 -= G) {
+    mark_rows<T, G>(col, idx, (uint32_t)g0);
+    store_rows<kStore>(
+        [&](int j) {
+          const uint32_t slot = rep[j] - (uint32_t)g0;
+          return col[(slot < zr ? slot : zr) * T];
+        },
+        cnt, g0, g0 + G < kc ? g0 + G : kc, bits + (size_t)g0 * nblocks + b, nblocks, active,
+        valid);
+    const int gi = g0 / G;
+    for (int i = dstart[gi]; i < dstart[gi + 1]; ++i) {
+      const int j = dlist[i];
+      if (kStore && active) bits[(size_t)j * nblocks + b] = col[(rep[j] - g0) * T] & valid;
+    }
+    mark_rows<T, G, true>(col, idx, (uint32_t)g0);
+  }
+}
+
 // The first index of the launch holding v, or kNoRow.
 template <int G, int T, bool kDirect>
 __device__ __forceinline__ uint32_t dynamic_lookup(const DynSmem<G, T>& s, uint32_t v, int span) {
@@ -538,22 +568,8 @@ shared_scan_dynamic_kernel(const uint32_t* __restrict__ tiles, const uint32_t* _
       for (int r = 0; r < kBlockValues; ++r) v[r] = dynamic_lookup<G, T, kDirect>(s, v[r], span);
     }
     const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
-    for (int g0 = (kc - 1) / G * G; g0 >= 0; g0 -= G) {
-      mark_rows<T, G>(col, v, (uint32_t)g0);
-      store_rows<kStore>(
-          [&](int j) {
-            const uint32_t slot = s.rep[j] - (uint32_t)g0;
-            return col[(slot < (uint32_t)G ? slot : (uint32_t)G) * T];
-          },
-          s.cnt, g0, g0 + G < kc ? g0 + G : kc, bits + (size_t)g0 * nblocks + b, nblocks,
-          active, valid);
-      const int gi = g0 / G;
-      for (int i = s.dstart[gi]; i < s.dstart[gi + 1]; ++i) {
-        const int j = s.dlist[i];
-        if (kStore && active) bits[(size_t)j * nblocks + b] = col[(s.rep[j] - g0) * T] & valid;
-      }
-      mark_rows<T, G, true>(col, v, (uint32_t)g0);
-    }
+    store_groups<G, T, kStore>(col, v, (uint32_t)G, s.rep, s.dstart, s.dlist, s.cnt, kc, bits,
+                               nblocks, b, active, valid);
   }
   __syncthreads();
   for (int j = threadIdx.x; j < kc; j += T) {
@@ -600,6 +616,180 @@ cudaError_t dynamic_launch(const uint32_t* tiles, const uint32_t* keys, int k, u
                                    counts, nblocks, width, n, block_offset, stream);
 }
 
+// Windowed scan.  Replaces shared_simd_scan_tpu/ops/scan.py:
+// _windowed_scan_kernel / _windowed_scan_tiles_impl (k <= 48, one window
+// plan) and _windowed_chunked_kernel / _windowed_chunked_tiles_impl (k > 48,
+// 32-row chunks that each re-mask their own windows).  On the TPU a value
+// costs a one-hot per 32-aligned window of the keys, and every populated
+// 8-key sub-window an 8x8 transpose: work that grows with the windows, and
+// with k past 48, where each chunk of 32 rows re-masks its own.
+//
+// Bound on the H100: device memory bytes (W words read, k words written per
+// 32 values), as the dynamic scan, for many keys; the instructions a value
+// for a few (ops/scan.py WINDOW_LOOKUP_KEYS sends those to the static
+// fold).  Here a value costs one window lookup, whatever the windows, and
+// the rows are the dynamic scan's (store_groups): the same first-row index
+// per value, any k in passes of kDynGroup rows over each tile.  The host
+// knows the keys and builds, per launch of at most kMaxKeys rows (ops/scan.py
+// _window_tables), the sorted distinct windows v >> 5 of its keys below
+// 2^W, per window a 32-bit mask of its keys and the index of its first key
+// in a window-ordered list, that list (each distinct key's first row), rep
+// and the groups' lists of later duplicates.  Each CTA stages them in shared
+// memory.  A value's window slot comes from a direct table of the 2^(W-5)
+// windows up to kWinDirectBits (4096 entries), else from a binary search of
+// the sorted windows, log2 of the launch's windows steps (0 for one window):
+// a trip count fixed for the launch, so no divergence.  With o = v & 31, the
+// value hits where bit o of the window's mask is set, and its row is
+// list[first + popc(mask & ((1 << o) - 1))].  A slot past the windows
+// (nwin) holds the mask 0.
+constexpr int kWinDirectBits = 17;
+
+__host__ __device__ constexpr uint32_t win_table_size(int width) {
+  return width > 5 ? 1u << (width - 5) : 1u;
+}
+
+// Byte offsets of a windowed CTA's dynamic shared memory: rows [zr + 1][T]
+// (zr = min(kc, G) rows, then a zero row), the window slots' (mask, first)
+// [nwin + 1], the sorted windows [span] (search only), cnt [kc], dstart
+// [groups + 1], then rep [kc], dlist [ndup], list [nd] and the direct table
+// (uint16).
+struct WinLayout {
+  int zr, span, ngroups;
+  size_t wm, win, cnt, dstart, rep, dlist, list, table, bytes;
+  __host__ __device__ WinLayout(int width, int kc, int nwin, int nd, int ndup) {
+    zr = kc < kDynGroup ? kc : kDynGroup;
+    span = 1;
+    while (span < nwin) span <<= 1;
+    ngroups = (kc + kDynGroup - 1) / kDynGroup;
+    const bool direct = width <= kWinDirectBits;
+    size_t at = (size_t)(zr + 1) * kDynThreads * 4;
+    wm = at;
+    at += (size_t)(nwin + 1) * 8;
+    win = at;
+    at += direct ? 0 : (size_t)span * 4;
+    cnt = at;
+    at += (size_t)kc * 4;
+    dstart = at;
+    at += (size_t)(ngroups + 1) * 4;
+    rep = at;
+    at += (size_t)kc * 2;
+    dlist = at;
+    at += (size_t)ndup * 2;
+    list = at;
+    at += (size_t)nd * 2;
+    table = at;
+    at += direct ? (size_t)win_table_size(width) * 2 : 0;
+    bytes = (at + 15) / 16 * 16;
+  }
+};
+
+// The first row holding each of the 32 values (kNoRow: none), eight values
+// at a time: their window slots (the table, or the search's steps, each
+// step for the eight at once), then each slot's mask and first index.
+template <bool kDirect>
+__device__ __forceinline__ void window_lookup(const uint2* wm, const uint32_t* win,
+                                              const uint16_t* table, const uint16_t* list,
+                                              uint32_t nwin, int span,
+                                              uint32_t (&v)[kBlockValues]) {
+#pragma unroll
+  for (int q = 0; q < kBlockValues; q += 8) {
+    uint32_t slot[8];
+    if (kDirect) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) slot[r] = table[v[q + r] >> 5];
+    } else {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) slot[r] = 0u;
+      for (int half = span >> 1; half > 0; half >>= 1) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          if (win[slot[r] + half - 1] < (v[q + r] >> 5)) slot[r] += half;
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) slot[r] = win[slot[r]] == (v[q + r] >> 5) ? slot[r] : nwin;
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const uint2 m = wm[slot[r]];
+      const uint32_t o = v[q + r] & 31u;
+      v[q + r] = (m.x >> o) & 1u ? (uint32_t)list[m.y + __popc(m.x & ((1u << o) - 1u))] : kNoRow;
+    }
+  }
+}
+
+// The plan (int32, device memory): windows [nwin], masks [nwin], first
+// [nwin], list [nd], rep [kc], dstart [groups + 1], dlist [ndup].  At most
+// 80 registers a thread (3 CTAs an SM), as the dynamic scan.
+template <bool kDirect>
+__global__ void __launch_bounds__(kDynThreads, 768 / kDynThreads)
+windowed_lookup_kernel(const uint32_t* __restrict__ tiles, const int* __restrict__ plan, int kc,
+                       int nwin, int nd, int ndup, uint32_t* __restrict__ bits,
+                       unsigned long long* __restrict__ counts, long long nblocks, int width,
+                       long long n, long long block_offset, long long ntiles) {
+  constexpr int G = kDynGroup, T = kDynThreads;
+  extern __shared__ __align__(16) uint8_t s_wplan[];
+  const WinLayout L(width, kc, nwin, nd, ndup);
+  uint32_t* rows = reinterpret_cast<uint32_t*>(s_wplan);
+  uint2* wm = reinterpret_cast<uint2*>(s_wplan + L.wm);
+  uint32_t* win = reinterpret_cast<uint32_t*>(s_wplan + L.win);
+  unsigned* cnt = reinterpret_cast<unsigned*>(s_wplan + L.cnt);
+  int* dstart = reinterpret_cast<int*>(s_wplan + L.dstart);
+  uint16_t* rep = reinterpret_cast<uint16_t*>(s_wplan + L.rep);
+  uint16_t* dlist = reinterpret_cast<uint16_t*>(s_wplan + L.dlist);
+  uint16_t* list = reinterpret_cast<uint16_t*>(s_wplan + L.list);
+  uint16_t* table = reinterpret_cast<uint16_t*>(s_wplan + L.table);
+  const int* p_win = plan;
+  const int* p_mask = p_win + nwin;
+  const int* p_first = p_mask + nwin;
+  const int* p_list = p_first + nwin;
+  const int* p_rep = p_list + nd;
+  const int* p_dstart = p_rep + kc;
+  const int* p_dlist = p_dstart + L.ngroups + 1;
+  for (int i = threadIdx.x; i <= nwin; i += T)
+    wm[i] = i < nwin ? make_uint2((uint32_t)__ldg(p_mask + i), (uint32_t)__ldg(p_first + i))
+                     : make_uint2(0u, 0u);
+  if (kDirect) {
+    for (uint32_t i = threadIdx.x; i < win_table_size(width); i += T) table[i] = (uint16_t)nwin;
+  } else {
+    for (int i = threadIdx.x; i < L.span; i += T)
+      win[i] = i < nwin ? (uint32_t)__ldg(p_win + i) : 0xFFFFFFFFu;  // pads the search
+  }
+  for (int j = threadIdx.x; j < kc; j += T) {
+    cnt[j] = 0u;
+    rep[j] = (uint16_t)__ldg(p_rep + j);
+  }
+  for (int i = threadIdx.x; i <= L.ngroups; i += T) dstart[i] = __ldg(p_dstart + i);
+  for (int i = threadIdx.x; i < ndup; i += T) dlist[i] = (uint16_t)__ldg(p_dlist + i);
+  for (int i = threadIdx.x; i < nd; i += T) list[i] = (uint16_t)__ldg(p_list + i);
+  for (int i = threadIdx.x; i < (L.zr + 1) * T; i += T) rows[i] = 0u;
+  __syncthreads();
+  if (kDirect) {
+    for (int i = threadIdx.x; i < nwin; i += T) table[__ldg(p_win + i)] = (uint16_t)i;
+    __syncthreads();
+  }
+  uint32_t* col = rows + threadIdx.x;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long b = tile * T + threadIdx.x;
+    const bool active = b < nblocks;
+    uint32_t v[kBlockValues];
+    unpack_block_any(width, tiles, nblocks, b, active, v);
+    window_lookup<kDirect>(wm, win, table, list, (uint32_t)nwin, L.span, v);
+    const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
+    store_groups<G, T>(col, v, (uint32_t)L.zr, rep, dstart, dlist, cnt, kc, bits, nblocks, b,
+                       active, valid);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < kc; j += T) {
+    const uint32_t r = rep[j];
+    if (r != kNoRow && cnt[r]) atomicAdd(counts + j, (unsigned long long)cnt[r]);
+  }
+}
+
+inline bool window_plan_ok(int width, int k, int nwin, int nd, int ndup) {
+  return width_ok(width) && k >= 1 && k <= kMaxKeys && nwin >= 0 && nd >= nwin && nd <= k &&
+         ndup >= 0 && ndup <= k;
+}
+
 }  // namespace sss
 
 // kChunkKeys keys per CTA; any k in one launch.
@@ -629,4 +819,29 @@ extern "C" int sss_shared_scan_dynamic(const uint32_t* tiles, const uint32_t* ke
 // Dynamic shared memory of one CTA of the dynamic scan at this width.
 extern "C" long long sss_shared_scan_dynamic_smem(int width) {
   return (long long)sss::dynamic_smem<sss::kDynGroup, sss::kDynThreads>(width);
+}
+
+// The windowed scan of one launch's k <= kMaxKeys rows: plan is the host's
+// tables (int32, device memory; layout at windowed_lookup_kernel), nwin
+// windows, nd distinct keys below 2^width, ndup later duplicates in other
+// groups; bits (k, nblocks) and counts int64[k] (zeroed by the caller).
+extern "C" int sss_windowed_lookup(const uint32_t* tiles, const int* plan, int k, int nwin, int nd,
+                                   int ndup, uint32_t* bits, unsigned long long* counts,
+                                   long long nblocks, int width, long long n,
+                                   long long block_offset, cudaStream_t stream) {
+  if (!sss::window_plan_ok(width, k, nwin, nd, ndup)) return (int)cudaErrorInvalidValue;
+  if (nblocks <= 0) return (int)cudaSuccess;
+  constexpr int T = sss::kDynThreads;
+  const long long ntiles = (nblocks + T - 1) / T;
+  const sss::WinLayout layout(width, k, nwin, nd, ndup);
+  const auto kernel = width <= sss::kWinDirectBits ? sss::windowed_lookup_kernel<true>
+                                                   : sss::windowed_lookup_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)layout.bytes);
+  unsigned grid = 0;
+  if (err == cudaSuccess) err = sss::resident_grid(kernel, T, layout.bytes, ntiles, &grid);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, T, layout.bytes, stream>>>(tiles, plan, k, nwin, nd, ndup, bits, counts, nblocks,
+                                            width, n, block_offset, ntiles);
+  return (int)cudaGetLastError();
 }

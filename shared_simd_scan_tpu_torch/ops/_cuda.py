@@ -28,9 +28,9 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("unpack.cu", "shared_scan.cu", "interval_scan.cu", "bitsliced.cu", "windowed.cu",
-           "range_scan.cu", "conj.cu", "member.cu", "aggregate.cu", "agg_bitplane.cu",
-           "agg_lookup.cu", "histogram.cu", "zoned.cu", "linear.cu", "copy.cu")
+SOURCES = ("unpack.cu", "shared_scan.cu", "interval_scan.cu", "bitsliced.cu", "range_scan.cu",
+           "conj.cu", "member.cu", "aggregate.cu", "agg_bitplane.cu", "agg_lookup.cu",
+           "histogram.cu", "zoned.cu", "linear.cu", "copy.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,6 +50,9 @@ _SIGNATURES = {
                                 _vp],
     "sss_shared_scan_dynamic": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll,
                                 _vp],
+    # tiles, plan, k, nwin, nd, ndup, bits, counts, nblocks, width, n, block_offset, stream
+    "sss_windowed_lookup": [_vp, _vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _vp,
+                            _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
     # tiles, lo, k, bits, counts, nblocks, width, n, block_offset, gateless, stream
     "sss_interval_scan": [_vp, ctypes.c_uint32, ctypes.c_int, _vp, _vp, _ll,
                           ctypes.c_int, _ll, _ll, ctypes.c_int, _vp],
@@ -58,10 +61,8 @@ _SIGNATURES = {
                                  ctypes.c_int, _ll, _ll, ctypes.c_int, _vp],
     # base, amounts, out_ptx, out_cxx, count, stream
     "sss_shift_canary": [_vp, _vp, _vp, _vp, ctypes.c_int, _vp],
-    # tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream
-    "sss_bitsliced_scan": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
-    # tiles, keys (device, the host keys copied once), k, bits, counts, nblocks, width, n,
-    # block_offset, stream
+    # tiles, keys (device: the runtime keys, or the host keys copied once), k, bits, counts,
+    # nblocks, width, n, block_offset, stream
     "sss_bitsliced_static_fold": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll,
                                   _vp],
     # the fused linear forms: out (uint32[nblocks * k]) in place of bits;
@@ -72,9 +73,6 @@ _SIGNATURES = {
                                          _ll, _vp],
     # in, ld, in_len, m, granule bytes, seg, out, out_len, stream
     "sss_interleave": [_vp, _ll, _ll, ctypes.c_int, ctypes.c_int, ctypes.c_int, _vp, _ll, _vp],
-    # tiles, plan, k, bits, counts, nblocks, width, n, block_offset, gateless, stream
-    "sss_windowed_scan": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll,
-                          ctypes.c_int, _vp],
     # tiles, lows, highs, k, bits, counts, nblocks, ld, width, n, block_offset, stream
     "sss_range_scan": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, _ll, ctypes.c_int, _ll, _ll,
                        _vp],

@@ -9,12 +9,15 @@ PyTorch counterpart of the shared-scan part of
   (:func:`shared_scan_chunked_tiles`, :func:`shared_scan_dynamic_tiles`);
 - the interval kernel for consecutive keys (:func:`interval_scan_tiles`)
   with its shift canary (:func:`shift_saturates`);
-- the bit-sliced kernel for runtime keys (:func:`shared_scan_bitsliced_tiles`);
+- the bit-sliced tier for runtime keys, on this card the plane fold in tile
+  order on the key tensor (:func:`shared_scan_bitsliced_tiles`);
 - the static bit-sliced tier for host keys, on this card the plane fold
   with the keys' plane masks in shared memory
   (:func:`shared_scan_bitsliced_static_tiles`; its AND-DAG stays for the
   cost rule and the histogram's programs);
-- the windowed kernel for clustered host keys (:func:`windowed_scan_tiles`);
+- the windowed tier for clustered host keys, on this card one lookup a
+  value in the keys' window tables, the plane fold for a few keys
+  (:func:`windowed_scan_tiles`);
 - the range scan, k half-open ranges in one pass (:func:`range_scan_tiles`);
 - their planners, copied from the JAX package (:func:`pick_concrete_tier`
   and the cost functions it calls), and the dispatcher
@@ -591,14 +594,45 @@ def shared_scan_bitsliced_tiles_plain(
     return _finish(acc, valid)
 
 
+# The k of one launch that ``bench/redesign_sweep.py runtime`` timed (CUDA
+# keys, i % 512 columns of 128 MiB packed, widths 9-31; NVIDIA H100 80GB
+# HBM3, 700 W), and by width those where the dynamic scan's key lookup ran
+# more than 5% faster than the plane fold; at no other width did it.
+_RUNTIME_SWEEP_KS = (8, 64, 128, 192, 256, 384, 512, 768, 1024)
+_RUNTIME_LOOKUP_KS = {
+    10: (256, 384, 512, 768, 1024), 11: (192, 256, 384, 512, 768, 1024),
+    12: (192, 256, 384, 512, 768, 1024), 20: (384, 768, 1024), 21: (1024,),
+    22: (384, 768, 1024), 23: (384, 768, 1024), 24: (256, 384, 768, 1024),
+    25: (192, 256, 384, 768, 1024), 26: (192, 256, 384, 512, 768, 1024),
+    **{w: (128, 192, 256, 384, 512, 768, 1024) for w in range(27, 32)},
+}
+
+
+def _runtime_lookup_wins(width: int, k: int) -> bool:
+    """Whether one launch of k runtime keys of a ``width``-bit column takes
+    the dynamic scan's key lookup in place of the plane fold: where the
+    sweep measured it more than 5% faster at k, or at both measured k
+    around it.  The fold's work grows with k x width; past 12 bits the
+    lookup is a search."""
+    wins = _RUNTIME_LOOKUP_KS.get(width, ())
+    below = [m for m in _RUNTIME_SWEEP_KS if m <= k]
+    above = [m for m in _RUNTIME_SWEEP_KS if m >= k]
+    return bool(below and above) and below[-1] in wins and above[0] in wins
+
+
 def shared_scan_bitsliced_tiles(
     tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Same contract as :func:`shared_scan_tiles` for any k; the key values
     are never read on the host, so CUDA-tensor keys stay on the card.
 
-    Kernel ``sss_bitsliced_scan`` (``csrc/bitsliced.cu``) on CUDA tensors;
-    the plain version on CPU tensors."""
+    On CUDA tensors, one launch per MAX_LAUNCH_KEYS keys of the plane fold
+    in tile order (``sss_bitsliced_static_fold``, ``csrc/bitsliced.cu``:
+    each CTA stages the keys' plane masks in shared memory once), counted
+    here, or where :func:`_runtime_lookup_wins` the dynamic scan's key
+    lookup (``sss_shared_scan_dynamic``, ``csrc/shared_scan.cu``), counted
+    by :func:`shared_scan_dynamic_tiles`; the plain version on CPU
+    tensors."""
     b1 = _check_tiles(tiles, width)
     _check_key_tensor(keys)
     device = _cuda.kernel_device(tiles, keys)
@@ -607,11 +641,18 @@ def shared_scan_bitsliced_tiles(
     k = int(keys.shape[0])
     bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
     counts = torch.zeros(k, dtype=torch.int64, device=device)
-    _cuda.launch(
-        "sss_bitsliced_scan", device, tiles.data_ptr(), keys.data_ptr(), k, bits.data_ptr(),
-        counts.data_ptr(), b1 * LANES, width, n, block_offset,
-    )
-    shared_scan_bitsliced_tiles.launches += 1
+    for g0 in range(0, k, MAX_LAUNCH_KEYS):
+        rows = min(k - g0, MAX_LAUNCH_KEYS)
+        lookup = _runtime_lookup_wins(width, rows)
+        _cuda.launch(
+            "sss_shared_scan_dynamic" if lookup else "sss_bitsliced_static_fold", device,
+            tiles.data_ptr(), keys[g0].data_ptr(), rows, bits[g0].data_ptr(),
+            counts[g0].data_ptr(), b1 * LANES, width, n, block_offset,
+        )
+        if lookup:
+            shared_scan_dynamic_tiles.launches += 1
+        else:
+            shared_scan_bitsliced_tiles.launches += 1
     return bits, counts
 
 
@@ -995,24 +1036,15 @@ def _static_keys_on(keys: tuple, device: torch.device) -> torch.Tensor:
     return _key_tensor(np.asarray(keys, dtype=np.uint32), device)
 
 
-def shared_scan_bitsliced_static_tiles(
-    tiles: torch.Tensor, keys, width: int, n: int, block_offset: int = 0
+def _static_fold(
+    tiles: torch.Tensor, arr: np.ndarray, width: int, n: int, block_offset: int,
+    device: torch.device
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Same contract as :func:`shared_scan_tiles` for host keys (a list,
-    numpy array or CPU tensor), one row per caller-order key, duplicates
-    included.  Raises on CUDA-tensor keys.
-
-    Kernel ``sss_bitsliced_static_fold`` (``csrc/bitsliced.cu``: the plane
-    fold, the keys turned into plane masks in shared memory once a CTA,
-    rows stored in tile order) on CUDA tiles, one launch per
-    MAX_LAUNCH_KEYS keys, each launch's keys copied to the card once and
-    cached; the plain version on CPU tiles."""
-    arr = _concrete_keys(keys, "shared_scan_bitsliced_static_tiles")
-    b1 = _check_tiles(tiles, width)
-    device = _cuda.kernel_device(tiles)
-    if device is None:
-        return shared_scan_bitsliced_static_tiles_plain(tiles, arr, width, n, block_offset)
-    k = int(arr.shape[0])
+    """``sss_bitsliced_static_fold`` on host keys, one launch per
+    MAX_LAUNCH_KEYS keys, each counted by
+    :func:`shared_scan_bitsliced_static_tiles` and its keys copied to the
+    card once and cached -> (bits, counts)."""
+    k, b1 = int(arr.shape[0]), tiles.shape[1]
     bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
     counts = torch.zeros(k, dtype=torch.int64, device=device)
     for g0 in range(0, k, MAX_LAUNCH_KEYS):
@@ -1026,6 +1058,27 @@ def shared_scan_bitsliced_static_tiles(
     return bits, counts
 
 
+def shared_scan_bitsliced_static_tiles(
+    tiles: torch.Tensor, keys, width: int, n: int, block_offset: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Same contract as :func:`shared_scan_tiles` for host keys (a list,
+    numpy array or CPU tensor), one row per caller-order key, duplicates
+    included.  Raises on CUDA-tensor keys.
+
+    Kernel ``sss_bitsliced_static_fold`` (``csrc/bitsliced.cu``: the plane
+    fold, the keys turned into plane masks in shared memory once a CTA,
+    rows stored in tile order) on CUDA tiles, one launch per
+    MAX_LAUNCH_KEYS keys (:func:`_static_fold`, each launch counted here),
+    each launch's keys copied to the card once and cached; the plain
+    version on CPU tiles."""
+    arr = _concrete_keys(keys, "shared_scan_bitsliced_static_tiles")
+    _check_tiles(tiles, width)
+    device = _cuda.kernel_device(tiles)
+    if device is None:
+        return shared_scan_bitsliced_static_tiles_plain(tiles, arr, width, n, block_offset)
+    return _static_fold(tiles, arr, width, n, block_offset, device)
+
+
 shared_scan_bitsliced_static_tiles.launches = 0
 
 
@@ -1033,11 +1086,15 @@ shared_scan_bitsliced_static_tiles.launches = 0
 # Windowed tier: host keys through 32-aligned mask windows
 # ---------------------------------------------------------------------------
 #
-# The interval kernel's one-shot mask generalized to any host key set: keys
-# are grouped into 32-aligned windows of the value domain; one shift per
-# (value, window) gives the 32-bit match mask of every key in the window,
-# and one 8x8 transpose per populated 8-key sub-window gives the bitvector
-# words, stored straight to each key's caller-order row.
+# The JAX package's kernel (and the plain version here) is the interval
+# kernel's one-shot mask generalized to any host key set: keys are grouped
+# into 32-aligned windows of the value domain; one shift per (value, window)
+# gives the 32-bit match mask of every key in the window, and one 8x8
+# transpose per populated 8-key sub-window gives the bitvector words, stored
+# straight to each key's caller-order row.  Its planners stay for the
+# dispatch's cost.  On the card a value costs one lookup in the host's window
+# tables (:func:`_window_tables`) instead, whatever the windows; below
+# WINDOW_LOOKUP_KEYS keys the tier runs the static fold.
 
 
 def _window_plan(arr):
@@ -1092,46 +1149,55 @@ def windowed_cost(arr) -> int:
     return sum(8 * len(plan) + 20 * sum(len(p) for p in plan) for _, plan in chunks)
 
 
-def _window_stream(parts) -> np.ndarray:
-    """Window plans -> the int32 stream ``sss_windowed_scan`` reads:
-    ``nwin, then per window: base, nsub, then per sub-window: byte, nent,
-    then per entry: bit, row``.  ``parts`` are (row offset, bases, plan)."""
-    out = [sum(len(plan) for _, _, plan in parts)]
-    for row0, bases, plan in parts:
-        for base, wplan in zip(bases, plan):
-            out += [base, len(wplan)]
-            for byte, jrows in wplan:
-                out += [byte, len(jrows)]
-                for j, row in jrows:
-                    out += [j, row0 + row]
-    return np.asarray(out, dtype=np.uint32).view(np.int32)
+# Rows of one pass over a tile of the windowed and dynamic kernels
+# (kDynGroup in csrc/shared_scan.cu), and the row index of no row.
+_ROW_GROUP = 64
+_NO_ROW = 0xFFFF
 
 
-def _window_launches(keys: tuple) -> list[tuple[int, int, np.ndarray]]:
-    """(first row, rows, plan stream) per kernel launch: the
-    :func:`_window_plan` of all keys for k <= 48, else the 32-row chunks of
-    :func:`_window_chunks`, MAX_LAUNCH_KEYS rows per launch."""
-    arr = np.asarray(keys, dtype=np.uint32)
-    k = int(arr.shape[0])
-    if k <= 48:
-        bases, plan = _window_plan(arr)
-        return [(0, k, _window_stream([(0, bases, plan)]))]
-    bases, plans, woffs = _window_chunks(arr)
-    per = MAX_LAUNCH_KEYS // 32
-    launches = []
-    for c0 in range(0, len(plans), per):
-        parts = [
-            (32 * (c - c0), bases[woffs[c] : woffs[c] + len(plans[c])], plans[c])
-            for c in range(c0, min(c0 + per, len(plans)))
-        ]
-        launches.append((32 * c0, min(k, 32 * (c0 + per)) - 32 * c0, _window_stream(parts)))
-    return launches
+def _window_tables(keys: np.ndarray, width: int) -> tuple[np.ndarray, int, int, int]:
+    """One launch's keys (at most MAX_LAUNCH_KEYS, caller order) -> (plan,
+    nwin, nd, ndup), the tables ``sss_windowed_lookup`` stages: plan is
+    int32 ``windows[nwin], masks[nwin], first[nwin], list[nd], rep[k],
+    dstart[groups + 1], dlist[ndup]``.  The windows are the sorted distinct
+    ``key >> 5`` of the nd distinct keys below 2^width; a window's mask has
+    bit ``key & 31`` of each of its keys, and ``first`` the index in
+    ``list`` of its smallest key; ``list`` gives each distinct key, in key
+    order, the first row holding it.  ``rep[j]`` is the first row holding
+    key j (_NO_ROW past the domain); ``dlist`` are the rows whose first
+    occurrence lies in another group of _ROW_GROUP rows, by that group
+    (``dlist[dstart[g]:dstart[g + 1]]``)."""
+    keys = np.asarray(keys, dtype=np.uint32)
+    k = keys.shape[0]
+    inside = np.nonzero(keys.astype(np.int64) < (1 << width))[0]
+    distinct, first_at = np.unique(keys[inside], return_index=True)
+    first_rows = inside[first_at]
+    rep = np.full(k, _NO_ROW, dtype=np.int64)
+    rep[inside] = first_rows[np.searchsorted(distinct, keys[inside])]
+    windows, first = np.unique(distinct >> 5, return_index=True)
+    bit = np.left_shift(np.uint32(1), distinct & np.uint32(31))
+    masks = np.bitwise_or.reduceat(bit, first) if distinct.size else bit
+    rows = np.arange(k)
+    later = np.nonzero((rep != _NO_ROW) & (rep // _ROW_GROUP != rows // _ROW_GROUP))[0]
+    group = rep[later] // _ROW_GROUP
+    dlist = later[np.argsort(group, kind="stable")]
+    dstart = np.concatenate([[0], np.cumsum(np.bincount(group, minlength=-(-k // _ROW_GROUP)))])
+    parts = [windows, masks, first, first_rows, rep, dstart, dlist]
+    plan = np.concatenate([np.asarray(a, dtype=np.int64) for a in parts])
+    return plan.astype(np.uint32).view(np.int32), len(windows), len(distinct), len(dlist)
 
 
 @functools.lru_cache(maxsize=64)
-def _window_launches_on(keys: tuple, device: torch.device) -> list[tuple[int, int, torch.Tensor]]:
-    """:func:`_window_launches` with the plan streams copied to ``device``."""
-    return [(r0, rows, torch.from_numpy(s).to(device)) for r0, rows, s in _window_launches(keys)]
+def _window_tables_on(keys: tuple, width: int, device: torch.device) -> list[tuple]:
+    """(first row, rows, plan on ``device``, nwin, nd, ndup) per launch of
+    MAX_LAUNCH_KEYS rows: :func:`_window_tables`, copied once per key set."""
+    arr = np.asarray(keys, dtype=np.uint32)
+    launches = []
+    for r0 in range(0, arr.shape[0], MAX_LAUNCH_KEYS):
+        part = arr[r0 : r0 + MAX_LAUNCH_KEYS]
+        plan, nwin, nd, ndup = _window_tables(part, width)
+        launches.append((r0, part.shape[0], torch.from_numpy(plan).to(device), nwin, nd, ndup))
+    return launches
 
 
 def windowed_scan_tiles_plain(
@@ -1154,35 +1220,54 @@ def windowed_scan_tiles_plain(
     return _finish(torch.stack(rows), valid)
 
 
+# The fewest keys for which the windowed tier's window lookup ties or beats
+# the static tier's plane fold, whose work grows with k x width, at widths
+# 9-31 (bench/redesign_sweep.py windowed, NVIDIA H100 80GB HBM3, 700 W);
+# fewer keys take the fold.
+WINDOW_LOOKUP_KEYS = 64
+
+
+def _window_lookup(
+    tiles: torch.Tensor, arr: np.ndarray, width: int, n: int, block_offset: int,
+    device: torch.device
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``sss_windowed_lookup`` on host keys, one launch per MAX_LAUNCH_KEYS
+    keys, each counted by :func:`windowed_scan_tiles` and its tables built
+    and copied to the card once per key set and width -> (bits, counts)."""
+    k, b1 = int(arr.shape[0]), tiles.shape[1]
+    bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
+    counts = torch.zeros(k, dtype=torch.int64, device=device)
+    launches = _window_tables_on(tuple(arr.tolist()), width, device)
+    for r0, rows, plan, nwin, nd, ndup in launches:
+        _cuda.launch(
+            "sss_windowed_lookup", device, tiles.data_ptr(), plan.data_ptr(), rows, nwin, nd,
+            ndup, bits[r0].data_ptr(), counts[r0].data_ptr(), b1 * LANES, width, n, block_offset,
+        )
+        windowed_scan_tiles.launches += 1
+    return bits, counts
+
+
 def windowed_scan_tiles(
     tiles: torch.Tensor, keys, width: int, n: int, block_offset: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Shared scan for host keys (a list, numpy array or CPU tensor), any
-    k, through 32-aligned mask windows; same output contract as
-    :func:`shared_scan_tiles`.  k <= 48 runs one window plan; larger k runs
-    32-row chunks, each re-masking its own windows, as the JAX package's
-    chunked kernel does.  Raises on CUDA-tensor keys.
+    k, one row per caller-order key, duplicates included; same output
+    contract as :func:`shared_scan_tiles`.  Raises on CUDA-tensor keys.
 
-    Kernel ``sss_windowed_scan`` (``csrc/windowed.cu``) on CUDA tiles, with
-    the gateless one-hot iff :func:`shift_saturates`; the plain version on
-    CPU tiles."""
+    On CUDA tiles, ``sss_windowed_lookup`` (``csrc/shared_scan.cu``: one
+    lookup a value in the keys' window tables, the rows in passes of 64;
+    :func:`_window_lookup`, each launch counted here), or below
+    WINDOW_LOOKUP_KEYS keys the static tier's plane fold
+    (``sss_bitsliced_static_fold``, :func:`_static_fold`, counted by
+    :func:`shared_scan_bitsliced_static_tiles`).  The plain version (the
+    JAX package's one-hot windows) on CPU tiles."""
     arr = _concrete_keys(keys, "windowed_scan_tiles")
-    b1 = _check_tiles(tiles, width)
+    _check_tiles(tiles, width)
     device = _cuda.kernel_device(tiles)
     if device is None:
         return windowed_scan_tiles_plain(tiles, arr, width, n, block_offset)
-    gateless = shift_saturates(device)
-    k = int(arr.shape[0])
-    bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
-    counts = torch.zeros(k, dtype=torch.int64, device=device)
-    for r0, rows, plan in _window_launches_on(tuple(arr.tolist()), device):
-        _cuda.launch(
-            "sss_windowed_scan", device, tiles.data_ptr(), plan.data_ptr(), rows,
-            bits[r0].data_ptr(), counts[r0].data_ptr(), b1 * LANES, width, n, block_offset,
-            int(gateless),
-        )
-        windowed_scan_tiles.launches += 1
-    return bits, counts
+    run = _window_lookup if arr.shape[0] >= WINDOW_LOOKUP_KEYS else _static_fold
+    return run(tiles, arr, width, n, block_offset, device)
 
 
 windowed_scan_tiles.launches = 0

@@ -144,6 +144,7 @@ RUNTIME_CASES = [
     (9, 4241, SPREAD8 + [70, 512, 1 << 31, 0xFFFFFFFF], 0),  # duplicate, out of domain
     (17, 4241, "random20", 100),                             # a shard holding the column's end
     (3, 4241, "random300", 0),                               # several 32-key chunks
+    (31, 4241, "dup12", 0),                                  # duplicates, out of domain
 ]
 
 
@@ -152,6 +153,9 @@ def _named_keys(keys, width, values, rng):
         return [int(v) for v in values[rng.integers(0, values.shape[0], size=20)]]
     if keys == "random300":
         return rng.integers(0, 2 << width, size=300).tolist()
+    if keys == "dup12":
+        drawn = [int(v) for v in values[rng.integers(0, values.shape[0], size=8)]]
+        return drawn + [drawn[0], drawn[5], 1 << 31, 0xFFFFFFFF]
     return keys
 
 
@@ -298,6 +302,22 @@ def test_static_and_windowed_tiers_refuse_no_keys():
         tscan.shared_scan_bitsliced_tiles(tiles, torch.zeros((0,), dtype=torch.int32), 9, 100)
     with pytest.raises(TypeError):
         tscan.shared_scan_bitsliced_tiles(tiles, torch.zeros(2, dtype=torch.int64), 9, 100)
+
+
+def test_runtime_lookup_rule_takes_only_measured_wins():
+    # the lookup at a k the sweep timed only where it won there, between two
+    # timed k only where it won at both, never below 128 keys or at widths
+    # where it never won
+    timed = tscan._RUNTIME_SWEEP_KS
+    for width in range(1, 32):
+        wins = tscan._RUNTIME_LOOKUP_KS.get(width, ())
+        assert set(wins) <= set(timed)
+        for k in range(1, tscan.MAX_LAUNCH_KEYS + 1):
+            lo = max((m for m in timed if m <= k), default=None)
+            hi = min(m for m in timed if m >= k)
+            assert tscan._runtime_lookup_wins(width, k) == (lo in wins and hi in wins), (width, k)
+            if k < 128 or width <= 9 or 13 <= width <= 19:
+                assert not tscan._runtime_lookup_wins(width, k), (width, k)
 
 
 def test_cpu_wrappers_launch_nothing():

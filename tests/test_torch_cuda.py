@@ -151,8 +151,7 @@ def test_arbitrary_key_kernels_match_plain(cuda_device, width):
 
 
 def test_arbitrary_key_kernels_past_1024_keys(cuda_device):
-    # the runtime kernel chunks keys in C; the static and windowed wrappers
-    # launch one program or plan per 1024 rows
+    # every wrapper launches once per 1024 rows
     width = 11
     tiles = unpack.pack_device_kernel(_values(width, N, 12, cuda_device), width).tiles
     keys = ((np.arange(1500) * 7) % 2100).tolist()
@@ -161,6 +160,75 @@ def test_arbitrary_key_kernels_past_1024_keys(cuda_device):
     _same(scan.shared_scan_bitsliced_tiles(tiles, kt, width, N), ref)
     _same(scan.shared_scan_bitsliced_static_tiles(tiles, keys, width, N), ref)
     _same(scan.windowed_scan_tiles(tiles, keys, width, N), ref)
+
+
+def _with_edges(keys, width):
+    """keys with a duplicate of the first across passes of 64 rows and
+    launches of 1024, keys past the domain and a key of its top window."""
+    keys, dom = [int(x) for x in keys], 1 << width
+    k = len(keys)
+    for at, key in ((k - 1, keys[0]), (k // 2, keys[0]), (1, dom), (2, 0xFFFFFFFF), (3, dom - 1)):
+        if at < k:
+            keys[at] = key
+    return keys
+
+
+def _window_edge_sets(width, values, k):
+    dom = 1 << width
+    rng = np.random.default_rng(width * 4099 + k)
+    base = int(values[5]) // 32 * 32
+    return {
+        "one window": (base + rng.integers(0, min(32, dom), size=k)) % dom,
+        "a window each": (32 * np.arange(k) + np.arange(k) % 32) % dom,  # 1024 windows from 15 bits
+        "top windows": dom - 1 - rng.integers(0, min(64, dom), size=k),
+        "drawn": values[rng.integers(0, len(values), size=k)],
+    }
+
+
+@pytest.mark.parametrize("width", [1, 5, 12, 13, 17, 18, 31])
+def test_windowed_lookup_edges_match_plain(cuda_device, width):
+    # each side of the direct window table (17) and the search (18), k around
+    # a pass of 64 rows and a launch of 1024, a nonzero block_offset
+    values = _values(width, N, width + 90, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    for k in (1, 8, 64, 65, 1024, 1025):
+        for name, keys in _window_edge_sets(width, values.cpu().numpy().view(np.uint32), k).items():
+            keys = _with_edges(keys, width)
+            kt = _keys(keys, cuda_device)
+            arr = np.asarray(keys, np.uint32)
+            for bo in (0, 3):
+                want = scan.shared_scan_tiles_plain(tiles, kt, width, N, bo)
+                before = scan.windowed_scan_tiles.launches
+                _same(scan._window_lookup(tiles, arr, width, N, bo, cuda_device), want)
+                assert scan.windowed_scan_tiles.launches == before + -(-k // 1024), (k, name)
+                # the tier: the lookup from WINDOW_LOOKUP_KEYS keys, else the fold
+                fns = (scan.windowed_scan_tiles, scan.shared_scan_bitsliced_static_tiles)
+                before = [f.launches for f in fns]
+                _same(scan.windowed_scan_tiles(tiles, keys, width, N, bo), want)
+                ran = -(-k // 1024) if k >= scan.WINDOW_LOOKUP_KEYS else 0
+                assert [f.launches - b for f, b in zip(fns, before)] == [ran, 1 - min(ran, 1)], \
+                    (k, name)
+
+
+@pytest.mark.parametrize("width", range(1, 32))
+def test_runtime_key_tier_edges_match_plain(cuda_device, width):
+    # CUDA keys through the fold (or the lookup where the rule sends them):
+    # duplicates, keys past the domain, k around a launch
+    values = _values(width, N, width + 60, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    rng = np.random.default_rng(width)
+    host = values.cpu().numpy().view(np.uint32)
+    for k in (5, 8, 64, 128, 1025) + ((1024,) if width == 31 else ()):
+        keys = _with_edges(host[rng.integers(0, N, size=k)], width)
+        kt = _keys(keys, cuda_device)
+        fns = (scan.shared_scan_bitsliced_tiles, scan.shared_scan_dynamic_tiles)
+        before = [f.launches for f in fns]
+        got = scan.shared_scan_bitsliced_tiles(tiles, kt, width, N, 2)
+        lookups = sum(scan._runtime_lookup_wins(width, min(k - g0, 1024))
+                      for g0 in range(0, k, 1024))
+        assert [f.launches - b for f, b in zip(fns, before)] == [-(-k // 1024) - lookups,
+                                                                  lookups], k
+        _same(got, scan.shared_scan_bitsliced_tiles_plain(tiles, kt, width, N, 2))
 
 
 @pytest.mark.parametrize("k", [1, 4, 5, 128, 129, 1024])
@@ -205,6 +273,21 @@ def test_refused_static_launch_raises(cuda_device):
                          0)
 
 
+def test_refused_windowed_launch_raises(cuda_device):
+    width, n = 9, 1000
+    tiles = torch.zeros((width, 8, 128), dtype=torch.int32, device=cuda_device)
+    plan = torch.zeros(8192, dtype=torch.int32, device=cuda_device)
+    bits = torch.empty((1025, 8, 128), dtype=torch.int32, device=cuda_device)
+    counts = torch.zeros(1025, dtype=torch.int64, device=cuda_device)
+    for k, nwin, nd, ndup, w in ((1025, 1, 1, 0, width), (0, 0, 0, 0, width),
+                                 (8, 1, 1, 0, 32), (8, 2, 1, 0, width), (8, 1, 9, 0, width)):
+        # more rows than a launch's counters hold, none, a width past 31,
+        # fewer distinct keys than windows, more than rows
+        with pytest.raises(RuntimeError, match="sss_windowed_lookup"):
+            _cuda.launch("sss_windowed_lookup", cuda_device, tiles.data_ptr(), plan.data_ptr(), k,
+                         nwin, nd, ndup, bits.data_ptr(), counts.data_ptr(), 8 * 128, w, n, 0)
+
+
 def test_dispatcher_launches_each_tier(cuda_device):
     width, n = 9, 32_000
     vals = harness.synth_modk(n, 512, width, device=cuda_device)
@@ -212,7 +295,8 @@ def test_dispatcher_launches_each_tier(cuda_device):
     spread8 = [3, 70, 141, 200, 262, 333, 400, 511]
     cases = [
         (list(range(8)), "interval", scan.interval_scan_tiles),
-        ([0, 2, 4, 6], "windowed", scan.windowed_scan_tiles),
+        # the windowed tier below WINDOW_LOOKUP_KEYS keys: the static fold
+        ([0, 2, 4, 6], "windowed", scan.shared_scan_bitsliced_static_tiles),
         (spread8, "bitsliced_static", scan.shared_scan_bitsliced_static_tiles),
         ([5, 300], "compare", scan.shared_scan_tiles),
         (torch.tensor(spread8, dtype=torch.int32, device=cuda_device), None,

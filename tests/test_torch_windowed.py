@@ -60,45 +60,94 @@ def test_window_planners_match_jax():
         assert tscan.windowed_cost(keys) == jscan.windowed_cost(keys)
 
 
-def _walk_plan(vals, stream, k):
-    """What sss_windowed_scan does with a plan stream, in torch."""
-    s = stream.view(np.uint32).tolist()
-    rows = [None] * k
-    p = 1
-    for _ in range(s[0]):
-        base, nsub = s[p], s[p + 1]
-        p += 2
-        masks = [tscan._onehot_plain(v, base) for v in vals]
-        for _ in range(nsub):
-            byte, nent = s[p], s[p + 1]
-            p += 2
-            y = tscan._byte_rows(masks, byte)
-            for _ in range(nent):
-                rows[s[p + 1]] = y[s[p]]
-                p += 2
-    assert p == len(s)
-    return rows
+def _walk_tables(vals, valid, plan, k, nwin, nd, ndup, width):
+    """What sss_windowed_lookup does with one launch's tables, in torch:
+    each value's window slot (the direct table up to width 17, else the
+    fixed-trip binary search of the padded windows) and from the slot's
+    mask and first index the first row holding its key; then the rows a
+    group of 64 at a time, last group first: row j is the row of rep[j]
+    while that lies in the group (else zero), and the group's list of later
+    duplicates stores theirs; each row counted, a duplicate by its first."""
+    p = torch.from_numpy(plan.view(np.uint32).astype(np.int64))
+    ngroups = -(-k // 64)
+    win, mask, first = p[:nwin], p[nwin : 2 * nwin], p[2 * nwin : 3 * nwin]
+    lst = p[3 * nwin : 3 * nwin + nd]
+    rep = p[3 * nwin + nd : 3 * nwin + nd + k]
+    dstart = p[3 * nwin + nd + k : 3 * nwin + nd + k + ngroups + 1]
+    dlist = p[3 * nwin + nd + k + ngroups + 1 :]
+    assert dlist.shape[0] == ndup
+    wm_mask = torch.cat([mask, torch.zeros(1, dtype=torch.int64)])  # slot nwin: no window
+    wm_first = torch.cat([first, torch.zeros(1, dtype=torch.int64)])
+    if width <= 17:
+        table = torch.full((max(1 << max(width - 5, 0), 1),), nwin, dtype=torch.int64)
+        table[win] = torch.arange(nwin)
+    else:
+        span = 1
+        while span < nwin:
+            span <<= 1
+        padded = torch.cat([win, torch.full((span - nwin,), 0xFFFFFFFF, dtype=torch.int64)])
+    zr = min(k, 64)
+    rows = torch.zeros((k + 1,) + tuple(vals[0].shape), dtype=torch.int64)  # row k: no key
+    for r, v in enumerate(vals):
+        w = v >> 5
+        if width <= 17:
+            slot = table[w]
+        else:
+            slot = torch.zeros_like(w)
+            half = span >> 1
+            while half:
+                slot += half * (padded[slot + half - 1] < w)
+                half >>= 1
+            slot = torch.where(padded[slot] == w, slot, nwin)
+        o = v & 31
+        m = wm_mask[slot]
+        below = m & ((1 << o) - 1)
+        pop = sum((below >> i) & 1 for i in range(32))
+        at = (wm_first[slot] + pop).clamp(max=max(nd - 1, 0))
+        idx = torch.where((m >> o) & 1 == 1, lst[at] if nd else torch.zeros_like(v), k)
+        rows.scatter_add_(0, idx[None], torch.full(idx[None].shape, 1 << r, dtype=torch.int64))
+    out, cnt = [None] * k, [0] * k
+    for g0 in range((k - 1) // 64 * 64, -1, -64):
+        for j in range(g0, min(g0 + 64, k)):
+            slot = int(rep[j]) - g0
+            word = rows[int(rep[j])] if 0 <= slot < zr else torch.zeros_like(rows[0])
+            out[j] = word & valid
+            cnt[j] = int(tscan.popcount_words(out[j]).sum())
+        gi = g0 // 64
+        for i in range(int(dstart[gi]), int(dstart[gi + 1])):
+            j = int(dlist[i])
+            out[j] = rows[int(rep[j])] & valid
+    counts = [cnt[int(r)] if int(r) != tscan._NO_ROW else 0 for r in rep]
+    return torch.stack(out), counts
 
 
-@pytest.mark.parametrize("width,k", [(9, 4), (9, 48), (9, 49), (3, 300), (17, 2100)])
-def test_plan_stream_computes_the_plain_rows(width, k):
-    # the single plan (k <= 48) and the chunked plan (k > 48, 1024 rows per
-    # launch), walked as the kernel walks them, give the plain version's words
+@pytest.mark.parametrize("width,k", [(3, 4), (9, 48), (17, 65), (18, 300), (31, 2100)])
+def test_window_tables_compute_the_plain_rows(width, k):
+    # each launch's tables, walked as the kernel walks them, give the plain
+    # version's words and counts: the direct table (widths 3-17) and the
+    # search (18, 31), one pass (k <= 64) and passes of 64 rows, launches of
+    # 1024; every case holds duplicates (across passes and launches) and
+    # keys >= 2^width
     n = 4241
     values, _, tdev = _columns(width, n, seed=k)
     rng = np.random.default_rng(k)
-    keys = ((int(values[0]) + rng.integers(0, 150, size=k)) % (2 << width)).tolist()
+    near = (int(values[0]) + rng.integers(0, min(1 << width, 3000), size=k)) % (1 << width)
+    keys = np.where(rng.random(k) < 0.5, values[rng.integers(0, n, size=k)], near).tolist()
+    keys[k // 2] = keys[-1] = keys[0]  # across passes of 64 rows, and launches
+    keys[1] = 1 << width
+    keys[2] = 0xFFFFFFFF
     vals = tscan._block_values_plain(tdev.tiles, width)
-    launches = tscan._window_launches(tuple(keys))
-    assert len(launches) == -(-k // tscan.MAX_LAUNCH_KEYS)
-    rows = []
-    for r0, nrows, stream in launches:
-        assert r0 == len(rows) and nrows <= tscan.MAX_LAUNCH_KEYS
-        rows += _walk_plan(vals, stream, nrows)
     valid = tscan._valid_words(tdev.tiles.shape[1], n, 0, "cpu")
-    got = tscan._finish(torch.stack(rows), valid)
+    launches = tscan._window_tables_on(tuple(keys), width, torch.device("cpu"))
+    assert [r0 for r0, *_ in launches] == list(range(0, k, tscan.MAX_LAUNCH_KEYS))
+    words, counts = [], []
+    for r0, rows, plan, nwin, nd, ndup in launches:
+        got_w, got_c = _walk_tables(vals, valid, plan.numpy(), rows, nwin, nd, ndup, width)
+        words.append(got_w)
+        counts += got_c
     want = tscan.windowed_scan_tiles_plain(tdev.tiles, keys, width, n)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    np.testing.assert_array_equal(_u32(tlayout.i32(torch.cat(words))), _u32(want[0]))
+    assert counts == want[1].tolist()
 
 
 WINDOWED_CASES = [
@@ -108,6 +157,8 @@ WINDOWED_CASES = [
     (3, 4241, [1, 1, 5, 8, 9, 1 << 31, 0xFFFFFFFF], 0),       # duplicates, out of domain
     (17, 4241, "clustered20", 0),
     (9, 4241, "clustered64", 0),                                # k > 48: the chunked kernel
+    (17, 4241, "clustered50", 0),     # the card's direct window table; k > 48 in JAX
+    (31, 4241, "clustered40", 0),     # the card's search of the sorted windows
 ]
 
 
