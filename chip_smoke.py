@@ -14,7 +14,10 @@ from the sources in the checkout and then:
    at small ragged sizes (widths 1-31, padding, spread, clustered,
    duplicate and out-of-domain keys, k up to 1024; for the aggregates
    pairs of predicate and measure widths, k = 1, 2, 4 and 32, and sums
-   past 2^32);
+   past 2^32; the member compare and window kernels' tables, built on the
+   card from 1 to 9000 keys or windows at widths 1-31 -- unsorted,
+   unaligned, straddling 2^width, wrapping past 2^32, repeated and empty
+   windows --, bit-exact against the plain build);
 4. drives the main path at full size — a 9-bit column of 512 MiB packed:
    ``pack_device_kernel`` -> ``shared_scan_device`` keys 0..7 (interval
    kernel) -> ``scan_device(3)`` (compare kernel) -> ``unpack_device`` —
@@ -49,11 +52,14 @@ from the sources in the checkout and then:
    member window and domain tiers), then ``member_scan_device`` on the
    ``i % 512`` column with host key sets of every tier
    ``member_dispatch_tier`` names there and CUDA-tensor keys of every
-   runtime tier (under ``torch.cuda.set_sync_debug_mode("error")``), and
-   the chunked member bodies directly — with the launch counters set to 0
-   just before and read just after; checks each query's words and count
-   against the predicate computed with plain torch on the raw values, and
-   each member set's kernel, closed-form count and words;
+   runtime tier (under ``torch.cuda.set_sync_debug_mode("error")``), the
+   chunked member bodies directly, and ``member_scan_device`` on ``i %
+   512`` columns of 512 MiB packed at width 31 (3205 keys in 205 windows:
+   the chunked window body) and width 20 (S8 as CUDA keys: the compare
+   body) — with the launch counters set to 0 just before and read just
+   after; checks each query's words and count against the predicate
+   computed with plain torch on the raw values, and each member set's
+   kernel, closed-form count and words;
 7. drives the aggregate path at full size — the query phase's table plus
    the analytics demo's 20-bit ``revenue`` column, drawn on the card from
    the same seed: ``masked_aggregate_device`` over ``query.evaluate`` of
@@ -118,7 +124,8 @@ from the sources in the checkout and then:
     interleave kernel), the interleave beside the PyTorch call that gives
     the same bytes (``.t().contiguous()``); the static tier and the member
     OR-tree tier also on S64 of a 20-bit ``i % 512`` column of 512 MiB
-    packed (each held against its plain version and the closed-form
+    packed, the member compare and chunked window kernels on the query
+    phase's 20- and 31-bit member sets (each held against its plain version and the closed-form
     counts); on a 31-bit one, where the lookups win, the runtime tier on
     S256 as CUDA keys (the dynamic scan's lookup, held against its plain
     version) and the windowed tier on 1024 keys a window each (the window
@@ -337,7 +344,8 @@ CLI_RUNS = ((["_", "3", "all"], 4), (["512m", "3", "sharedscan", "64"], 1),
 PEAK_SHARE = 1.05  # no CLI row may claim more than this share of the data-sheet rate
 # compare kernels whose JSON entry carries these key sets beside its own
 EXTRA_SETS = {"shared_scan": ("S64", "S256"), "shared_scan_chunked": ("S256",),
-              "shared_scan_dynamic": ("S256",)}
+              "shared_scan_dynamic": ("S256",), "member_compare": ("w20_k8",),
+              "member_chunked_window": ("w31_list",)}
 
 
 def s64() -> list[int]:
@@ -1034,8 +1042,9 @@ def width31_phase(device, errs: dict) -> dict:
 def member_bodies(width: int, n: int, values, rng) -> list:
     """(kernel name, call) for the seven member bodies on small columns:
     call(fn, tiles, block_offset) runs the body's wrapper or plain version
-    ``fn`` on duplicate, out-of-domain and zero keys, clustered and
-    out-of-domain windows, a spread OR-tree set (the lookup's bitmap up
+    ``fn`` on duplicate, out-of-domain and zero keys, one key, clustered and
+    out-of-domain windows, unsorted, unaligned, straddling, wrapping,
+    repeated and empty windows, a spread OR-tree set (the lookup's bitmap up
     to width 16, its search past it), the whole domain, an
     all-out-of-domain set and, past width 17, a set of 4097 windows (the
     search table read from device memory)."""
@@ -1061,8 +1070,18 @@ def member_bodies(width: int, n: int, values, rng) -> list:
     cb, cp = member.member_window_plan(np.asarray(ckeys, np.uint32))
     cwin = np.concatenate([np.stack([cb, cp], axis=1), np.zeros(((-len(cb)) % 32, 2), np.int64)])
     cwin = t32(cwin)
+    # the table build's edges: unsorted and unaligned windows, one
+    # straddling 2^width, one past 2^32 - 32 (its popmask wraps to value
+    # 4), a base repeated across two chunks of 4, zero-popmask padding
+    edge = [(v[1], 0b1011), (max(v[2] - 5, 0), 0xF0F0F0F1), ((dom - 7) % (1 << 32), 0xFFFF),
+            (0xFFFFFFF0, (1 << 20) | (1 << 3)), (dom + 64, 0xFFFFFFFF), (v[1], 1 << 4),
+            (v[6] & ~31, 1 << (v[6] & 31)), (0, 0)]
+    ewin, echunked = t32(edge), t32(edge + edge[:2] + [(0, 0)] * 2)
     bodies = [
         ("member_compare", lambda fn, t, bo: fn(t, keys, width, n, bo)),
+        ("member_compare", lambda fn, t, bo: fn(t, keys[:1], width, n, bo)),
+        ("member_window", lambda fn, t, bo: fn(t, ewin, width, n, bo)),
+        ("member_chunked_window", lambda fn, t, bo: fn(t, echunked, width, n, 4, bo)),
         ("member_chunked_compare", lambda fn, t, bo: fn(t, padded, width, n, 32, bo)),
         ("member_chunked_compare", lambda fn, t, bo: fn(
             t, member._pad_keys(many, 32), width, n, 32, bo)),
@@ -1137,6 +1156,76 @@ def small_query_phase(device, errs: dict) -> None:
               f"(widths {SMALL_WIDTHS}, n {SMALL_NS})")
 
 
+MEMBER_TABLE_WIDTHS = (1, 5, 9, 16, 17, 20, 31)
+# rows of the compare and window tables: one, around the fused bitmap's
+# limit (MEMBER_FUSED_ROWS: 256 keys, 128 windows) and one CTA's sort, and
+# past it; a small search
+# table before a chunked one (a launch must not cap the next one's shared
+# memory)
+MEMBER_TABLE_ROWS = (1, 4, 128, 129, 256, 257, 1025, 4097, 4096, 9000)
+
+
+def member_table_operand(width: int, kind: str, rows: int, v) -> list:
+    """Keys (spread over twice the domain, duplicates, a column value) or
+    windows (any base below 2^width + 64, any popmask, some empty,
+    duplicate bases, one at a column value) of ``rows`` rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(rows + width)
+    if kind == "keys":
+        keys = rng.integers(0, 2 << width, size=rows)
+        keys[rows // 2:: 97] = keys[0]
+        keys[-1] = v[9]
+        return keys
+    bases = rng.integers(0, (1 << width) + 64, size=rows)
+    bases[rows // 2:: 89] = bases[0]
+    pops = rng.integers(0, 1 << 32, size=rows)
+    pops[:: 13] = 0
+    bases[-1], pops[-1] = max(int(v[4]) - 2, 0), 0b100
+    return np.stack([bases, pops], axis=1)
+
+
+def small_member_table_phase(device, errs: dict) -> None:
+    """The compare and window kernels' tables, built on the card from keys
+    or windows of 1 to 9000 rows at widths 1-31, bit-exact against the
+    plain build; the kernels' rows (fused bitmap or not) against the plain
+    table's lookup, with a block_offset."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch.ops import member, scan, unpack
+
+    n = SMALL_NS[1]
+    rng = np.random.default_rng(SEED + 5)
+    for width in MEMBER_TABLE_WIDTHS:
+        vals = torch.from_numpy(rng.integers(0, 1 << width, size=n).astype(np.int32)).to(device)
+        tiles = unpack.pack_device_kernel(vals, width).tiles
+        v = vals.cpu().numpy()
+        block_vals = scan._block_values_plain(tiles, width)
+        lookup = (member._bitmap_row_plain if width <= member.MAX_DOMAIN_WIDTH
+                  else member._search_row_plain)
+        for kind, name in (("keys", "member_compare"), ("windows", "member_window")):
+            for rows in MEMBER_TABLE_ROWS:
+                a = member_table_operand(width, kind, rows, v)
+                a = torch.from_numpy(np.asarray(a, np.int64).astype(np.uint32).view(np.int32))
+                arg = {"keys": a} if kind == "keys" else {"win": a.reshape(-1, 2)}
+                plain = member.member_operand_table_plain(width, **arg)
+                arg = {k: t.to(device) for k, t in arg.items()}
+                errs[name] = max(errs[name], max_abs_err(member.member_operand_table(width, **arg),
+                                                         plain.to(device)))
+                for bo in (0, 2):
+                    want = member._member_finish(lookup(block_vals, plain.to(device)), n, bo)
+                    got = (member._member_compare_tiles(tiles, arg["keys"], width, n, bo)
+                           if kind == "keys" else
+                           member._member_window_tiles(tiles, arg["win"], width, n, bo))
+                    errs[name] = max(errs[name], max_abs_err(got[0], want[0]),
+                                     int((got[1] - want[1]).abs().max()))
+    torch.cuda.synchronize()
+    for name in ("member_compare", "member_window"):
+        check(errs[name] == 0, f"{name}: the table built on the card bit-exact against the plain "
+              f"build, and the rows against its lookup (widths {MEMBER_TABLE_WIDTHS}, rows "
+              f"{MEMBER_TABLE_ROWS})")
+
+
 def draw_columns(device, n: int, widths: dict) -> dict:
     """Uniform int32 columns of n values below 2^width, drawn on the card in
     the order of ``widths`` from one generator seeded with SEED (so the
@@ -1196,6 +1285,31 @@ MEMBER_RUNTIME = {  # name -> (keys, the runtime rule's kernel at width 9)
 }
 CHUNKED_COMPARE_KEYS = 64
 CHUNKED_WINDOWS = [32 * i + i % 7 for i in range(40)]  # 16 in the 9-bit domain, 24 beyond
+# member sets on wider i % 512 columns of 512 MiB packed: name -> (width,
+# keys (None: w31_window_list()), CUDA keys, the kernel its tier runs)
+MEMBER_WIDE = {"w31_list": (31, None, False, "member_chunked_window"),
+               "w20_k8": (20, S8, True, "member_compare")}
+
+
+def w31_window_list() -> list[int]:
+    """200 windows of 16 keys spread over 31 bits and five values of the
+    column: the window tier past 32 windows (the OR-tree priced out by its
+    liveness), 205 windows in chunks of 32."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    bases = rng.choice(1 << 26, 200, replace=False) * 32
+    keys = np.concatenate([b + rng.choice(32, 16, replace=False) for b in bases])
+    return np.concatenate([keys, [3, 70, 141, 200, 262]]).tolist()
+
+
+def wide_member_column(device, width: int):
+    """(values, DeviceColumn) of an i % 512 column of 512 MiB packed."""
+    from shared_simd_scan_tpu_torch import pack_device_kernel
+    from shared_simd_scan_tpu_torch.bench import harness
+
+    vals = harness.synth_modk(harness.values_for(DATA_SIZE, width), DOMAIN, width, device=device)
+    return vals, pack_device_kernel(vals, width)
 
 
 def query_phase(device, arb) -> tuple[dict, dict]:
@@ -1228,6 +1342,12 @@ def query_phase(device, arb) -> tuple[dict, dict]:
     cwin = np.concatenate([np.stack([cb, cp], axis=1), np.zeros(((-len(cb)) % 32, 2), np.int64)])
     cwin = torch.from_numpy(cwin.astype(np.uint32).view(np.int32)).to(device)
 
+    wide = {}
+    for name, (width, keys, on_card, _) in MEMBER_WIDE.items():
+        keys = keys if keys is not None else w31_window_list()
+        wide[name] = (*wide_member_column(device, width), keys,
+                      torch.tensor(keys, dtype=torch.int32, device=device) if on_card else keys)
+    torch.cuda.synchronize()
     for fn in kernels.values():
         fn.launches = 0
     ran, outs = {}, {}
@@ -1242,11 +1362,18 @@ def query_phase(device, arb) -> tuple[dict, dict]:
         run(name, lambda expr=expr: query.evaluate(expr))
     for name, (keys, _) in host.items():
         run(name, lambda keys=keys: member.member_scan_device(arb, keys))
+    on_card = {name for name, spec in MEMBER_WIDE.items() if spec[2]}
+    for name, (_, col, _, keys) in wide.items():
+        if name not in on_card:
+            run(name, lambda col=col, keys=keys: member.member_scan_device(col, keys))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")  # runtime keys: any device-to-host copy raises
     try:
         for name, (keys, _) in runtime.items():
             run(name, lambda keys=keys: member.member_scan_device(arb, keys))
+        for name in on_card:
+            _, col, _, keys = wide[name]
+            run(name, lambda col=col, keys=keys: member.member_scan_device(col, keys))
     finally:
         torch.cuda.set_sync_debug_mode("default")
     run("chunked compare, 64 keys", lambda: member._member_chunked_compare_tiles(
@@ -1273,6 +1400,21 @@ def query_phase(device, arb) -> tuple[dict, dict]:
         want_ran[name] = [tier_kernel[tier]]
     for name, (_, want) in runtime.items():
         want_ran[name] = [want]
+    for name, (_, _, _, want) in MEMBER_WIDE.items():
+        want_ran[name] = [want]
+    keys31 = wide["w31_list"][2]
+    check(member.member_dispatch_tier(keys31, 31) == "window"
+          and len(member.member_window_plan(keys31)[0]) > member._MAX_WINDOWS,
+          "w31_list: member_dispatch_tier names the window tier, past 32 windows")
+    for name, (vals, col, keys, _) in wide.items():
+        bits, count = outs[name]
+        expect = sum((col.n - 1 - key) // DOMAIN + 1 for key in set(keys) if key < DOMAIN)
+        truth = torch.isin(vals, torch.tensor(keys, dtype=torch.int32, device=device))
+        check(int(count) == expect and bool((bits == bitvector.from_bool(truth)).all()),
+              f"{name} (width {col.width}, {len(keys)} keys): count {int(count)} == closed form "
+              f"{expect}, every word equals torch.isin on the raw values")
+        del truth
+    del wide
     for name, want in want_ran.items():
         check(ran[name] == want, f"{name}: ran {ran[name]}, the kernel of its tier")
 
@@ -1385,6 +1527,21 @@ def query_timing_phase(device, cols, arb, errs: dict) -> dict:
             lambda: member._member_bitsliced_tiles_plain(at, k16, WIDTH, n, 16),
             tile_bytes(at) + row + 8 + 16 * 4),
     }
+    # the wide sets' bodies as member_scan_device dispatches them
+    _, c31 = wide_member_column(device, 31)
+    wb31, wp31 = member.member_window_plan(np.asarray(w31_window_list(), np.uint32))
+    w31 = t32(np.concatenate([np.stack([wb31, wp31], axis=1),
+                              np.zeros(((-len(wb31)) % 32, 2), np.int64)]))
+    _, c20 = wide_member_column(device, 20)
+    k8 = t32(MEMBER_WIDE["w20_k8"][1])
+    pairs["member_chunked_window w31_list"] = (
+        lambda: member._member_chunked_window_tiles(c31.tiles, w31, 31, c31.n, 32),
+        lambda: member._member_chunked_window_tiles_plain(c31.tiles, w31, 31, c31.n, 32),
+        tile_bytes(c31.tiles) + c31.tiles.shape[1] * LANES * 4 + 8 + w31.numel() * 4)
+    pairs["member_compare w20_k8"] = (
+        lambda: member._member_compare_tiles(c20.tiles, k8, 20, c20.n),
+        lambda: member._member_compare_tiles_plain(c20.tiles, k8, 20, c20.n),
+        tile_bytes(c20.tiles) + c20.tiles.shape[1] * LANES * 4 + 8 + k8.numel() * 4)
     for name, (kern, plain, _) in pairs.items():
         kernel = name.split()[0]
         a, b = kern(), plain()
@@ -1422,7 +1579,9 @@ def query_timing_phase(device, cols, arb, errs: dict) -> dict:
     ms = time_ms(composed, batches=5, calls=10)
     print(f"time Q1 conjunction composed (2 range scans + AND): {ms:.6f} ms, against "
           f"{results['conj_range_scan m=2'][0]:.6f} ms fused")
-    kernel_report({"member_lookup_kernelILi9ELi0E": "member lookup, bitmap, width 9"})
+    kernel_report({"member_lookup_kernelILi9ELi0E": "member lookup, bitmap, width 9",
+                   "member_lookup_kernelILi9ELi3ENS_7KeyRows": "member compare, the bitmap each "
+                   "CTA builds from the keys, width 9"})
     q1 = query_trees(query, cols)["Q1"]
     walls = []
     for _ in range(6):
@@ -2087,6 +2246,12 @@ def zone_phase(device, cols) -> tuple[dict, dict]:
     b1 = zcols["price"].tiles.shape[1]
     print(f"zone-map path: columns clustered (i * 512) // n, ends (7 in the first and last 64 block "
           f"rows, else 100..199), price; n {n}, zone_b1 {ZONE_B1} ({b1 // ZONE_B1} zones)")
+    wide = {}
+    for name, (width, keys, on_card, _) in MEMBER_WIDE.items():
+        keys = keys if keys is not None else w31_window_list()
+        wide[name] = (*wide_member_column(device, width), keys,
+                      torch.tensor(keys, dtype=torch.int32, device=device) if on_card else keys)
+    torch.cuda.synchronize()
     for fn in kernels.values():
         fn.launches = 0
     ran, outs = {}, {}
@@ -2861,6 +3026,7 @@ def main() -> int:
     small_phase(device, errs)
     small_window_phase(device, errs)
     small_query_phase(device, errs)
+    small_member_table_phase(device, errs)
     n, dev, launches = main_path_phase(device)
     arb, arb_launches = arbitrary_key_phase(device)
     launches.update({name: arb_launches[name] for name in ARBITRARY})

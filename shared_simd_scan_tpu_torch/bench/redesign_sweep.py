@@ -3,7 +3,8 @@
     python -m shared_simd_scan_tpu_torch.bench.redesign_sweep [SECTION ...]
 
 SECTION is any of copy, chunked, dynamic, bins, domain, fold, static,
-ortree, histdag, aggstatic, minmax, windowed, runtime (default: all).
+ortree, histdag, aggstatic, minmax, windowed, runtime, member (default:
+all).
 Builds
 ``redesign_sweep.cu`` (copy, chunked, dynamic),
 ``redesign_sweep_bins_fold.cu`` (bins, domain, fold),
@@ -150,7 +151,19 @@ and then in the reverse one):
   package's ``shared_scan_bitsliced_tiles``' too, equal to the fold's and
   its counts to the closed form first; then, per shape, the lookup's gain
   over the fold, and per width the k where it exceeds 5% (the table of
-  ``scan._RUNTIME_LOOKUP_KS``).
+  ``scan._RUNTIME_LOOKUP_KS``);
+- member: the member compare and window kernels (``sss_member_compare``,
+  ``sss_member_window``) on ``i % 512`` columns of 512 MiB packed at widths
+  9, 16, 17, 20 and 31, k keys or windows 1, 4, 8, 32, 64, 200, 4096 and
+  4097 (distinct keys of 0..511, then keys spread over the domain; windows
+  with random popmasks, the first 16 in 0..511): the table's two layouts
+  (up to width 16 the bitmap each resident CTA builds in the scan's launch,
+  against one build launch and then the lookup) and, beside them, the
+  lookup alone on the same table built once (``sss_member_lookup``) and
+  the package's wrappers; every result equal to the first's and its count
+  to the closed form first; then, per width up to 16, the row counts
+  where the fused layout is faster (the rule of
+  ``member.MEMBER_FUSED_ROWS``).
 
 The bins and fold sections also print, from ``cuobjdump -sass`` of the
 sweep's library, the instructions of each width-9 kernel's basic blocks
@@ -178,7 +191,7 @@ import torch
 
 from shared_simd_scan_tpu_torch.bench import harness
 from shared_simd_scan_tpu_torch.layout import LANES
-from shared_simd_scan_tpu_torch.ops import _cuda, aggregate, scan
+from shared_simd_scan_tpu_torch.ops import _cuda, aggregate, member, scan
 from shared_simd_scan_tpu_torch.ops.unpack import pack_device_kernel
 
 SOURCE = pathlib.Path(__file__).with_name("redesign_sweep.cu")
@@ -187,7 +200,7 @@ BINS_FOLD_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_bins_fold.cu
 STATIC_MEMBER_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_static_member.cu")
 WINDOWED_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_windowed.cu")
 SECTIONS = ("copy", "chunked", "dynamic", "bins", "domain", "fold", "static", "ortree",
-            "histdag", "aggstatic", "minmax", "windowed", "runtime")
+            "histdag", "aggstatic", "minmax", "windowed", "runtime", "member")
 COPY_BYTES = 512 * 1024 * 1024
 COPY_NAMES = {0: "batch (8 loads, then 8 stores)", 1: "pipelined 4", 2: "pipelined 8",
               3: "ring 16 KB x 4, resident grid", 4: "ring 32 KB x 4, resident grid",
@@ -1297,6 +1310,99 @@ def runtime_sweep(device, column) -> None:
           f"{ {w: ks for w, ks in wins.items() if ks} }")
 
 
+MEMBER_WIDTHS = (9, 16, 17, 20, 31)
+MEMBER_COUNTS = (1, 4, 8, 32, 64, 200, 4096, 4097)
+
+
+def _member_operand(kind: str, count: int, width: int) -> np.ndarray:
+    """``count`` keys (distinct of 0..511, then spread over the domain) or
+    windows (random nonzero popmasks; aligned bases, the first 16 in
+    0..511, then spread) of the member section."""
+    rng = np.random.default_rng(count + width)
+    if kind == "keys":
+        low = rng.choice(DOMAIN, min(count, DOMAIN), replace=False)
+        return np.concatenate([low, rng.integers(0, 1 << width, count - low.size)])
+    nwin = 1 << max(0, width - 5)
+    bases = rng.choice(nwin, min(count, nwin), replace=False)
+    bases = np.concatenate([np.arange(min(count, 16)), bases[bases >= 16],
+                            rng.integers(0, nwin, count)])[:count] * 32
+    return np.stack([bases, rng.integers(1, 1 << 32, count)], axis=1)
+
+
+def _member_matched(kind: str, operand: np.ndarray) -> list:
+    """The values below 512 the operand matches."""
+    if kind == "keys":
+        return sorted({int(k) for k in operand if k < DOMAIN})
+    return sorted({int(b) + j for b, p in operand.tolist() for j in range(32)
+                   if p >> j & 1 and int(b) + j < DOMAIN})
+
+
+def member_sweep(device) -> None:
+    """The member compare and window kernels: the table's layouts."""
+    wins = {}
+    for width in MEMBER_WIDTHS:
+        tiles, n = _column(device, width)
+        nblocks = tiles.shape[1] * LANES
+        for kind, fn in (("keys", "sss_member_compare"), ("windows", "sss_member_window")):
+            for count in MEMBER_COUNTS:
+                arr = _member_operand(kind, count, width)
+                a = torch.from_numpy(arr.astype(np.int64).astype(np.uint32).view(np.int32)).to(
+                    device)
+                nrows = member._operand_rows(a)
+                expect = sum(_closed_counts(_member_matched(kind, arr), n))
+
+                def launch(fused):
+                    table, scratch, size = member._operand_table_buffers(width, a, device)
+                    bits = torch.empty((tiles.shape[1], LANES), dtype=torch.int32, device=device)
+                    counts = torch.zeros(1, dtype=torch.int64, device=device)
+                    _cuda.launch(fn, device, tiles.data_ptr(), a.data_ptr(), count,
+                                 table.data_ptr(), size, scratch.data_ptr(), bits.data_ptr(),
+                                 counts.data_ptr(), nblocks, width, n, 0, fused)
+                    return bits, counts[0]
+
+                if kind == "keys":
+                    built = member.member_operand_table(width, keys=a)
+                    wrapper = lambda: member._member_compare_tiles(tiles, a, width, n)  # noqa: E731
+                else:
+                    built = member.member_operand_table(width, win=a)
+                    wrapper = lambda: member._member_window_tiles(tiles, a, width, n)  # noqa: E731
+                calls = {"build launch, then the lookup": lambda: launch(0)}
+                if width <= member.MAX_DOMAIN_WIDTH:
+                    calls["the bitmap built in each CTA (fused)"] = lambda: launch(1)
+                calls["the lookup alone, its table built once (sss_member_lookup)"] = (
+                    lambda: member._launch_one_row("sss_member_lookup", tiles, built,
+                                                   built.shape[-1], width, n, 0))
+                calls["the package's wrapper"] = wrapper
+                ref = None
+                for name, call in calls.items():
+                    got = call()
+                    _check(int(got[1]) == expect,
+                           f"member {kind} {count} w={width}: {name}'s count {int(got[1])} "
+                           f"!= {expect}")
+                    if ref is None:
+                        ref = got[0]
+                    else:
+                        _check(torch.equal(got[0], ref),
+                               f"member {kind} {count} w={width}: {name} differs")
+                    del got
+                del ref
+                report = _in_turns(calls)
+                if width <= member.MAX_DOMAIN_WIDTH:
+                    fused, two = (sum(report[k]) / 2 for k in (
+                        "the bitmap built in each CTA (fused)", "build launch, then the lookup"))
+                    wins[(width, kind, nrows)] = two / fused - 1
+                nbytes = tiles.numel() * 4 + nblocks * 4 + 8 + a.numel() * 4
+                _report(f"member {kind} k={count} at width {width} ({nrows} rows)", report,
+                        nbytes / HBM_BYTES_PER_S * 1e3)
+        del tiles
+        torch.cuda.empty_cache()
+    print("member: the fused bitmap's gain over the build launch (two / fused - 1): "
+          + "; ".join(f"w{w} {kind} {r} rows {g:+.4f}" for (w, kind, r), g in wins.items()))
+    print(f"member: rows where the fused bitmap is faster: "
+          f"{sorted({r for (_, _, r), g in wins.items() if g > 0})}; slower: "
+          f"{sorted({r for (_, _, r), g in wins.items() if g <= 0})}")
+
+
 def main(sections) -> None:
     unknown = set(sections) - set(SECTIONS)
     if unknown:
@@ -1352,6 +1458,8 @@ def main(sections) -> None:
             runtime_sweep(device, column)
         del cache
         torch.cuda.empty_cache()
+    if "member" in sections:
+        member_sweep(device)
     if "copy" in sections:
         copy_sweep(libs[SOURCE][0], device)
     if {"chunked", "dynamic", "fold", "static", "ortree"} & set(sections):

@@ -24,9 +24,17 @@ bit-plane aggregate (A2: a uniform 5-bit predicate, a 20-bit measure,
 host keys 0..31; A7: the 20-bit column as the predicate, a 9-bit measure,
 16 spread host keys) and keyed MIN/MAX (A6: the 5-bit predicate, the
 20-bit measure, CUDA keys 0..7; A8: the 20-bit predicate, the 9-bit
-measure, A7's keys as a CUDA tensor), at the reference benchmark's n =
-477,218,588
-(H6: 357,913,941); and, on the host clock, ``stats.describe``,
+measure, A7's keys as a CUDA tensor), the member compare and window
+bodies on ``i % 512`` (compare: keys 5, 77, 300, 411 as a CUDA tensor;
+chunked compare: S64 as CUDA keys in chunks of 32; window: W4's window;
+chunked window: the 40 windows of keys 32 i + i % 7 in chunks of 32) and
+two member sets on ``i % 512`` columns of 512 MiB packed: at width 31 the
+3205 keys of 200 spread windows of 16 and five column values, which
+``member_scan_device`` sends to the chunked window body (that body timed
+as dispatched, and the whole call on the host clock), and at width 20
+``member_scan_device`` with S8 as CUDA keys (the compare body), at the
+reference benchmark's n = 477,218,588
+(H6: 357,913,941; the member sets 138,547,332 and 214,748,364); and, on the host clock, ``stats.describe``,
 ``quantiles`` and ``topk_values`` of the ``i % 512`` column together
 (three span histograms), ``stats.histogram_full`` of the 20-bit column
 (H5 wall) and of H6's and H7's columns (medians of five).  Run it on two checkouts in
@@ -44,6 +52,8 @@ import time
 
 N_BYTES = 512 * 1024 * 1024
 S8 = [3, 70, 141, 200, 262, 333, 400, 511]
+MEMBER_K4 = [5, 77, 300, 411]
+CHUNKED_WINDOWS = [32 * i + i % 7 for i in range(40)]
 A7_KEYS = [5521, 58228, 236145, 298913, 314745, 524063, 606377, 655451, 717405, 813357, 861120,
            874138, 915983, 940786, 956952, 990790]
 
@@ -106,6 +116,26 @@ def main(root: pathlib.Path) -> None:
     lo100 = torch.tensor([100], dtype=torch.int32, device=device)
     k8 = torch.arange(8, dtype=torch.int32, device=device)
     a7 = torch.tensor(A7_KEYS, dtype=torch.int32, device=device)
+    def t32(a):
+        return torch.from_numpy(np.asarray(a, np.int64).astype(np.uint32).view(np.int32)).to(device)
+
+    def windows(keys, chunk=None):
+        bases, pops = member.member_window_plan(np.asarray(keys, np.uint32))
+        win = np.stack([bases, pops], axis=1)
+        pad = (-len(bases)) % chunk if chunk else 0
+        return t32(np.concatenate([win, np.zeros((pad, 2), np.int64)]))
+
+    rng = np.random.default_rng(1)
+    bases = rng.choice(1 << 26, 200, replace=False) * 32
+    w31_list = np.concatenate([np.concatenate([b + rng.choice(32, 16, replace=False)
+                                               for b in bases]), [3, 70, 141, 200, 262]])
+    n31, n20 = harness.values_for(N_BYTES, 31), harness.values_for(N_BYTES, 20)
+    col31 = layout.DeviceColumn(31, n31, unpack.pack_device_kernel(
+        harness.synth_modk(n31, 512, 31, device=device), 31).tiles)
+    col20 = layout.DeviceColumn(20, n20, unpack.pack_device_kernel(
+        harness.synth_modk(n20, 512, 20, device=device), 20).tiles)
+    k4, w4, cw40, w31 = t32(MEMBER_K4), windows([0, 2, 4, 6]), windows(CHUNKED_WINDOWS, 32), \
+        windows(w31_list, 32)
     if hasattr(scan, "_histogram_domain_tiles"):
         def h5():
             return scan._histogram_domain_tiles(rtiles, 20, n)
@@ -150,6 +180,16 @@ def main(root: pathlib.Path) -> None:
             rtiles, t9, A7_KEYS, 20, 9, n),
         "minmax A6": lambda: aggregate.minmax_scan_tiles(t5, rtiles, k8, 5, 20, n),
         "minmax A8": lambda: aggregate.minmax_scan_tiles(rtiles, t9, a7, 20, 9, n),
+        "member compare k=4": lambda: member._member_compare_tiles(atiles, k4, 9, n),
+        "member chunked compare k=64": lambda: member._member_chunked_compare_tiles(
+            atiles, cuda[64], 9, n, 32),
+        "member window W4": lambda: member._member_window_tiles(atiles, w4, 9, n),
+        "member chunked window 40 windows": lambda: member._member_chunked_window_tiles(
+            atiles, cw40, 9, n, 32),
+        "member w31 list (chunked window body)": lambda: member._member_chunked_window_tiles(
+            col31.tiles, w31, 31, n31, 32),
+        "member_scan_device w20 S8 CUDA keys": lambda: member.member_scan_device(
+            col20, cuda[8]),
     }
     times = {name: time_ms(fn) for name, fn in cases.items()}
     col = layout.DeviceColumn(9, n, atiles)
@@ -175,12 +215,21 @@ def main(root: pathlib.Path) -> None:
             t1 = time.monotonic()
             stats.histogram_full(col)
             walls_full[name].append((time.monotonic() - t1) * 1e3)
+    walls31 = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        member.member_scan_device(col31, w31_list)
+        torch.cuda.synchronize()
+        walls31.append((time.monotonic() - t1) * 1e3)
     print(f"{smi}; {root}: build {build:.1f} s; "
           + "; ".join(f"{name} {ms:.6f} ms" for name, ms in times.items())
           + f"; stats trio (host clock) {statistics.median(walls[1:]):.6f} ms"
           + f"; H5 histogram_full (host clock) {statistics.median(walls20[1:]):.6f} ms"
           + "".join(f"; {name} histogram_full (host clock) {statistics.median(w[1:]):.6f} ms"
-                    for name, w in walls_full.items()), flush=True)
+                    for name, w in walls_full.items())
+          + f"; member_scan_device w31 list (host clock) {statistics.median(walls31[1:]):.6f} ms",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -92,11 +92,15 @@ _SIGNATURES = {
     # tile_ptrs, widths, lows, highs (host arrays of m), m, bits, counts, nblocks, n,
     # block_offset, stream
     "sss_conj_range_scan": [_vp, _vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, _ll, _ll, _vp],
-    # tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream
-    "sss_member_compare": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
-    # tiles, win, nwin, bits, counts, nblocks, width, n, block_offset, gateless, stream
-    "sss_member_window": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll,
-                          ctypes.c_int, _vp],
+    # tiles, keys (or win), k (or nwin), table, size, scratch, bits, counts, nblocks, width, n,
+    # block_offset, fused, stream
+    "sss_member_compare": [_vp, _vp, ctypes.c_int, _vp, ctypes.c_int, _vp, _vp, _vp, _ll,
+                           ctypes.c_int, _ll, _ll, ctypes.c_int, _vp],
+    "sss_member_window": [_vp, _vp, ctypes.c_int, _vp, ctypes.c_int, _vp, _vp, _vp, _ll,
+                          ctypes.c_int, _ll, _ll, ctypes.c_int, _vp],
+    # operand, count, window, width, table, size, scratch, stream
+    "sss_member_table": [_vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, _vp, ctypes.c_int, _vp,
+                         _vp],
     # tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream
     "sss_member_domain": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
     # tiles, table, size, bits, counts, nblocks, width, n, block_offset, stream

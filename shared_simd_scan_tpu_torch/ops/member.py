@@ -25,9 +25,13 @@ launches a CUDA kernel on CUDA tiles, counts the launch in its own
 =================================  ===========================================
 wrapper (its ``launches``)         CUDA kernel
 =================================  ===========================================
-``_member_compare_tiles``          ``sss_member_compare`` (``csrc/member.cu``)
+``_member_compare_tiles``          ``sss_member_compare`` (``csrc/member.cu``):
+                                   one lookup a value in the keys' table,
+                                   built on the card
+                                   (:func:`member_operand_table`)
 ``_member_chunked_compare_tiles``  ``sss_member_compare``
-``_member_window_tiles``           ``sss_member_window`` (``csrc/member.cu``)
+``_member_window_tiles``           ``sss_member_window`` (``csrc/member.cu``):
+                                   the same, from the windows
 ``_member_chunked_window_tiles``   ``sss_member_window``
 ``_member_domain_tiles``           ``sss_member_domain`` (``csrc/member.cu``)
 ``_member_ortree_tiles``           ``sss_member_lookup``
@@ -62,7 +66,6 @@ from shared_simd_scan_tpu_torch.ops.scan import (
     _valid_words,
     bits_to_canonical,
     range_scan_tiles,
-    shift_saturates,
 )
 from shared_simd_scan_tpu_torch.ops.unpack import _check_tiles
 
@@ -127,6 +130,114 @@ def member_set_table(width: int, patterns) -> torch.Tensor:
     tab[0, : len(bases)] = bases
     tab[1, : len(pops)] = pops
     return torch.from_numpy(tab.view(np.int32))
+
+
+def _operand_rows_plain(width: int, keys=None, win=None):
+    """The rows of a compare or window operand (CPU int32 tensors), as
+    ``csrc/member.cu`` reads them -> (word bases, bits), int64: a key gives
+    ``(key & ~31, 1 << (key & 31))``; a window (base, popmask) gives
+    ``popmask << (base & 31)`` at ``base & ~31`` and the rest of an
+    unaligned popmask at the next word (wrapping past 2^32).  Bits of
+    values at or past 2^width are cleared."""
+    if keys is not None:
+        kk = u32(keys.reshape(-1))
+        bases, bits = kk & ~31, 1 << (kk & 31)
+    else:
+        ww = u32(win.reshape(-1, 2))
+        shift, pops = ww[:, 0] & 31, ww[:, 1]
+        low = ww[:, 0] & ~31
+        bases = torch.stack([low, (low + 32) & _U32], dim=1).reshape(-1)
+        bits = torch.stack([(pops << shift) & _U32, pops >> (32 - shift)], dim=1).reshape(-1)
+    bits = torch.where(bases < (1 << width), bits, 0)
+    if width < 5:
+        bits = bits & ((1 << (1 << width)) - 1)
+    return bases, bits
+
+
+def _operand_table_size(width: int, nrows: int) -> int:
+    """Words of an operand's table: the bitmap's up to MAX_DOMAIN_WIDTH,
+    else P, the least power of two at or above the row count (the table
+    then 2 x P words)."""
+    if width <= MAX_DOMAIN_WIDTH:
+        return max(1, (1 << width) // 32)
+    return 1 << max(0, nrows - 1).bit_length()
+
+
+def member_operand_table_plain(width: int, keys=None, win=None) -> torch.Tensor:
+    """Plain version of :func:`member_operand_table`: the table of keys
+    int32[k] or windows int32[nwin, 2] (base, popmask) on the CPU, in
+    :func:`member_set_table`'s layout.  Up to MAX_DOMAIN_WIDTH the same
+    bitmap.  Past it int32[2, P], P from the row count alone (k, or two
+    rows a window): the rows' bases sorted ascending and padded with
+    0xFFFFFFFF, a run of equal bases holding its OR of popmasks in its last
+    entry (where the search lands) and 0 in the others; rows that match
+    nothing are padding."""
+    bases, bits = _operand_rows_plain(width, keys, win)
+    shifts = torch.arange(32, dtype=torch.int64)
+    size = _operand_table_size(width, bases.shape[0])
+    if width <= MAX_DOMAIN_WIDTH:
+        hit = ((bits[:, None] >> shifts) & 1).bool()
+        slot = torch.where(hit, (bases >> 5)[:, None] * 32 + shifts, size * 32).reshape(-1)
+        flat = torch.zeros(size * 32 + 1, dtype=torch.int64)
+        flat.index_fill_(0, slot, 1)  # the extra slot takes the bits a row does not set
+        return i32((flat[:-1].reshape(size, 32) << shifts).sum(dim=1))
+    pad = size - bases.shape[0]
+    key = torch.cat([torch.where(bits != 0, bases, _U32), torch.full((pad,), _U32)])
+    bits = torch.cat([bits, torch.zeros(pad, dtype=torch.int64)])
+    key, order = torch.sort(key, stable=True)
+    _, run, counts = torch.unique_consecutive(key, return_inverse=True, return_counts=True)
+    ors = torch.zeros((counts.shape[0], 32), dtype=torch.int64)
+    ors.index_add_(0, run, (bits[order][:, None] >> shifts) & 1)
+    pops = torch.zeros(size, dtype=torch.int64)
+    pops[torch.cumsum(counts, 0) - 1] = ((ors > 0).to(torch.int64) << shifts).sum(dim=1)
+    return i32(torch.stack([key, pops]))
+
+
+def member_operand_table(width: int, keys=None, win=None) -> torch.Tensor:
+    """The table ``sss_member_compare`` (keys int32[k]) or
+    ``sss_member_window`` (win int32[nwin, 2]) builds on the card from
+    its operand before its lookups, in :func:`member_set_table`'s layout
+    (see :func:`member_operand_table_plain`); the operand is never read on
+    the host.  Kernel ``sss_member_table``; a CPU operand takes the plain
+    version."""
+    operand = keys if keys is not None else win
+    if keys is not None:
+        _check_keys(keys)
+    else:
+        _check_win(win)
+    device = _cuda.kernel_device(operand)
+    if device is None:
+        return member_operand_table_plain(width, keys, win)
+    table, scratch, size = _operand_table_buffers(width, operand, device)
+    _cuda.launch("sss_member_table", device, operand.data_ptr(), operand.shape[0],
+                 int(keys is None), width, table.data_ptr(), size, scratch.data_ptr())
+    return table
+
+
+# Rows up to which the compare and window kernels build their bitmap in
+# each CTA of the scan's own launch (widths up to MAX_DOMAIN_WIDTH), rather
+# than in one CTA before it: redesign_sweep.py member on the H100 timed
+# the fused form 2.9-5.3% faster at width 9 up to 400 rows and within
+# 1.4% at width 16 up to 200; past them at most 1.6% faster at width 9
+# and 1.7-4.8% slower at 16.
+MEMBER_FUSED_ROWS = 256
+
+
+def _operand_rows(operand: torch.Tensor) -> int:
+    """Rows of a compare (int32[k]) or window (int32[nwin, 2]) operand."""
+    return operand.shape[0] * (2 if operand.ndim == 2 else 1)
+
+
+def _operand_table_buffers(width: int, operand: torch.Tensor, device):
+    """(table, scratch, size) for the operand's table on ``device``, from
+    its shape alone: the bitmap, or the search table int32[2, P] and the
+    sort's scratch of 2 x P uint64 keys (read past 4096 rows)."""
+    size = _operand_table_size(width, _operand_rows(operand))
+    if width <= MAX_DOMAIN_WIDTH:
+        return (torch.empty(size, dtype=torch.int32, device=device),
+                torch.empty(1, dtype=torch.int64, device=device), size)
+    return (torch.empty((2, size), dtype=torch.int32, device=device),
+            torch.empty(2 * size, dtype=torch.int64, device=device), size)
 
 
 def _domain_member_cost(width: int) -> int:
@@ -241,14 +352,30 @@ def _window_row_plain(vals, win: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _launch_one_row(fn_name, tiles, operand, count, width, n, block_offset, *extra):
+def _launch_one_row(fn_name, tiles, operand, count, width, n, block_offset):
     """Launch a member kernel that writes one row and one count."""
     b1 = tiles.shape[1]
     device = tiles.device
     bits = torch.empty((b1, LANES), dtype=torch.int32, device=device)
     counts = torch.zeros(1, dtype=torch.int64, device=device)
     _cuda.launch(fn_name, device, tiles.data_ptr(), operand.data_ptr(), count, bits.data_ptr(),
-                 counts.data_ptr(), b1 * LANES, width, n, block_offset, *extra)
+                 counts.data_ptr(), b1 * LANES, width, n, block_offset)
+    return bits, counts[0]
+
+
+def _launch_operand_scan(fn_name, tiles, operand, width, n, block_offset):
+    """Launch the compare or window kernel: the operand's table (from its
+    shape alone; the bitmap in each CTA up to MEMBER_FUSED_ROWS rows at
+    widths up to MAX_DOMAIN_WIDTH), then one lookup a value."""
+    b1 = tiles.shape[1]
+    device = tiles.device
+    fused = width <= MAX_DOMAIN_WIDTH and _operand_rows(operand) <= MEMBER_FUSED_ROWS
+    table, scratch, size = _operand_table_buffers(width, operand, device)
+    bits = torch.empty((b1, LANES), dtype=torch.int32, device=device)
+    counts = torch.zeros(1, dtype=torch.int64, device=device)
+    _cuda.launch(fn_name, device, tiles.data_ptr(), operand.data_ptr(), operand.shape[0],
+                 table.data_ptr(), size, scratch.data_ptr(), bits.data_ptr(), counts.data_ptr(),
+                 b1 * LANES, width, n, block_offset, int(fused))
     return bits, counts[0]
 
 
@@ -277,14 +404,14 @@ def _member_compare_tiles_plain(tiles, keys, width, n, block_offset=0):
 
 def _member_compare_tiles(tiles, keys, width, n, block_offset=0):
     """OR of equality compares against ``keys`` (int32[k], on the tiles'
-    device) -> (bits int32[B1, 128], count int64).  Kernel
-    ``sss_member_compare``."""
+    device; never read on the host) -> (bits int32[B1, 128], count int64).
+    Kernel ``sss_member_compare``: the keys' table built on the card
+    (:func:`member_operand_table`), then one lookup a value."""
     _check_tiles(tiles, width)
     _check_keys(keys)
     if _cuda.kernel_device(tiles, keys) is None:
         return _member_compare_tiles_plain(tiles, keys, width, n, block_offset)
-    out = _launch_one_row("sss_member_compare", tiles, keys, keys.shape[0], width, n,
-                          block_offset)
+    out = _launch_operand_scan("sss_member_compare", tiles, keys, width, n, block_offset)
     _member_compare_tiles.launches += 1
     return out
 
@@ -304,15 +431,14 @@ def _member_chunked_compare_tiles_plain(tiles, keys, width, n, krows, block_offs
 def _member_chunked_compare_tiles(tiles, keys, width, n, krows, block_offset=0):
     """:func:`_member_compare_tiles` for a key set of whole chunks of
     ``krows`` keys (padded with 0xFFFFFFFF, which no value equals), as the
-    JAX package's chunked compare body takes it.  The kernel walks all the
-    keys in one pass: ``sss_member_compare``."""
+    JAX package's chunked compare body takes it.  One table of all the
+    chunks' keys, one lookup a value: ``sss_member_compare``."""
     _check_tiles(tiles, width)
     _check_keys(keys)
     _check_chunks(keys.shape[0], krows, "keys")
     if _cuda.kernel_device(tiles, keys) is None:
         return _member_chunked_compare_tiles_plain(tiles, keys, width, n, krows, block_offset)
-    out = _launch_one_row("sss_member_compare", tiles, keys, keys.shape[0], width, n,
-                          block_offset)
+    out = _launch_operand_scan("sss_member_compare", tiles, keys, width, n, block_offset)
     _member_chunked_compare_tiles.launches += 1
     return out
 
@@ -328,16 +454,15 @@ def _member_window_tiles_plain(tiles, win, width, n, block_offset=0):
 
 def _member_window_tiles(tiles, win, width, n, block_offset=0):
     """Window popmask membership: ``win`` int32[nwin, 2] rows (base,
-    popmask), on the tiles' device -> (bits int32[B1, 128], count int64).
-    Kernel ``sss_member_window``, with the gateless one-hot iff
-    :func:`ops.scan.shift_saturates`."""
+    popmask; any base, aligned or not), on the tiles' device -> (bits
+    int32[B1, 128], count int64).  Kernel ``sss_member_window``: the
+    windows' table built on the card (:func:`member_operand_table`), then
+    one lookup a value."""
     _check_tiles(tiles, width)
     _check_win(win)
-    device = _cuda.kernel_device(tiles, win)
-    if device is None:
+    if _cuda.kernel_device(tiles, win) is None:
         return _member_window_tiles_plain(tiles, win, width, n, block_offset)
-    out = _launch_one_row("sss_member_window", tiles, win, win.shape[0], width, n, block_offset,
-                          int(shift_saturates(device)))
+    out = _launch_operand_scan("sss_member_window", tiles, win, width, n, block_offset)
     _member_window_tiles.launches += 1
     return out
 
@@ -358,16 +483,14 @@ def _member_chunked_window_tiles_plain(tiles, win, width, n, wrows, block_offset
 def _member_chunked_window_tiles(tiles, win, width, n, wrows, block_offset=0):
     """:func:`_member_window_tiles` for whole chunks of ``wrows`` windows
     (padded with empty popmasks, which match nothing), as the JAX
-    package's chunked window body takes them.  The kernel walks all the
-    windows in one pass: ``sss_member_window``."""
+    package's chunked window body takes them.  One table of all the
+    chunks' windows, one lookup a value: ``sss_member_window``."""
     _check_tiles(tiles, width)
     _check_win(win)
     _check_chunks(win.shape[0], wrows, "windows")
-    device = _cuda.kernel_device(tiles, win)
-    if device is None:
+    if _cuda.kernel_device(tiles, win) is None:
         return _member_chunked_window_tiles_plain(tiles, win, width, n, wrows, block_offset)
-    out = _launch_one_row("sss_member_window", tiles, win, win.shape[0], width, n, block_offset,
-                          int(shift_saturates(device)))
+    out = _launch_operand_scan("sss_member_window", tiles, win, width, n, block_offset)
     _member_chunked_window_tiles.launches += 1
     return out
 
@@ -600,5 +723,8 @@ __all__ = [
     "member_scan_device",
     "member_window_plan",
     "domain_table",
+    "member_set_table",
+    "member_operand_table",
+    "member_operand_table_plain",
     "member_dispatch_tier",
 ]

@@ -405,11 +405,23 @@ def _member_cases(width, values):
     cwin = np.stack([cb, cp], axis=1)
     cwin = np.concatenate([cwin, np.zeros(((-len(cb)) % 32, 2), np.int64)])
     cwin = _keys(cwin, values.device)
+    # the table build's edges: unsorted and unaligned windows, one
+    # straddling 2^width, one past 2^32 - 32 (its popmask wraps to value
+    # 4), a base repeated across two chunks of 4, zero-popmask padding
+    v = [int(x) for x in values[:8].tolist()]
+    edge = [(v[1], 0b1011), (max(v[2] - 5, 0), 0xF0F0F0F1), ((dom - 7) % (1 << 32), 0xFFFF),
+            (0xFFFFFFF0, (1 << 20) | (1 << 3)), (dom + 64, 0xFFFFFFFF), (v[1], 1 << 4),
+            (v[6] & ~31, 1 << (v[6] & 31)), (0, 0)]
+    ewin = _keys(edge, values.device)
+    echunked = _keys(edge + edge[:2] + [(0, 0)] * 2, values.device)
     cases = [
         ("compare", lambda fn, t, bo: fn(t, keys, width, N, bo)),
         ("chunked_compare", lambda fn, t, bo: fn(t, padded, width, N, 32, bo)),
         ("window", lambda fn, t, bo: fn(t, win, width, N, bo)),
         ("chunked_window", lambda fn, t, bo: fn(t, cwin, width, N, 32, bo)),
+        ("window", lambda fn, t, bo: fn(t, ewin, width, N, bo)),
+        ("chunked_window", lambda fn, t, bo: fn(t, echunked, width, N, 4, bo)),
+        ("compare", lambda fn, t, bo: fn(t, keys[:1], width, N, bo)),
         ("ortree", lambda fn, t, bo: fn(t, width, N, tuple(spread), bo)),
         ("bitsliced", lambda fn, t, bo: fn(t, padded, width, N, 32, bo)),
     ]
@@ -429,6 +441,56 @@ def test_member_kernels_match_plain(cuda_device, width):
             before = wrapper.launches
             _same(call(wrapper, tiles, bo), call(plain, tiles, bo))
             assert wrapper.launches == before + 1, name
+
+
+def _operand_rows(width, kind, rows, v):
+    """Keys (spread over twice the domain, duplicates, a column value) or
+    windows (any base below 2^width + 64, any popmask, some empty,
+    duplicate bases) of ``rows`` rows."""
+    rng = np.random.default_rng(rows + width)
+    if kind == "keys":
+        keys = rng.integers(0, 2 << width, size=rows)
+        keys[rows // 2:: 97] = keys[0]
+        keys[-1] = v[9]
+        return keys
+    bases = rng.integers(0, (1 << width) + 64, size=rows)
+    bases[rows // 2:: 89] = bases[0]
+    pops = rng.integers(0, 1 << 32, size=rows)
+    pops[:: 13] = 0
+    bases[-1], pops[-1] = max(int(v[4]) - 2, 0), 0b100
+    return np.stack([bases, pops], axis=1)
+
+
+@pytest.mark.parametrize("width", [1, 5, 9, 16, 17, 20, 31])
+def test_member_operand_tables_match_plain(cuda_device, width):
+    # the table the compare and window kernels build on the card, bit for
+    # bit the plain build's (one CTA's bitmap, one CTA's sort up to 4096
+    # rows, chunks and merge passes past it); the kernels' rows equal the
+    # plain table's lookup, fused bitmap (up to MEMBER_FUSED_ROWS rows) or
+    # not
+    values = _values(width, N, width + 95, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    v = values.cpu().numpy().view(np.uint32)
+    for kind in ("keys", "windows"):
+        # around MEMBER_FUSED_ROWS (256 rows: 256 keys, 128 windows); 1025
+        # keys before 4097: a small search table's launch must not cap the
+        # chunked sort's shared memory
+        for rows in (1, 4, 128, 129, 256, 257, 1025, 4097, 4096, 9000):
+            a = _keys(_operand_rows(width, kind, rows, v), cuda_device)
+            arg = {"keys": a} if kind == "keys" else {"win": a.reshape(-1, 2)}
+            table = member.member_operand_table(width, **arg)
+            plain = member.member_operand_table_plain(width, **{k: t.cpu() for k, t in arg.items()})
+            _same(table.cpu(), plain)
+            lookup = (member._bitmap_row_plain if width <= member.MAX_DOMAIN_WIDTH
+                      else member._search_row_plain)
+            for bo in (0, 2):
+                want = member._member_finish(
+                    lookup(scan._block_values_plain(tiles, width), plain.to(cuda_device)), N, bo)
+                if kind == "keys":
+                    got = member._member_compare_tiles(tiles, a, width, N, bo)
+                else:
+                    got = member._member_window_tiles(tiles, a.reshape(-1, 2), width, N, bo)
+                _same(got, want)
 
 
 def test_member_ortree_whole_domain_and_out_of_domain(cuda_device):
