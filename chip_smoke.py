@@ -55,9 +55,11 @@ from the sources in the checkout and then:
    runtime tier (under ``torch.cuda.set_sync_debug_mode("error")``), the
    chunked member bodies directly, and ``member_scan_device`` on ``i %
    512`` columns of 512 MiB packed at width 31 (3205 keys in 205 windows:
-   the chunked window body) and width 20 (S8 as CUDA keys: the compare
-   body) — with the launch counters set to 0 just before and read just
-   after; checks each query's words and count against the predicate
+   the chunked window body; S256 as CUDA keys: the bit-sliced body, on
+   this card the compare kernel's table and lookup) and width 20 (S8 as
+   CUDA keys: the compare body) — with the launch counters set to 0 just
+   before and read just after; checks each query's words and count
+   against the predicate
    computed with plain torch on the raw values, and each member set's
    kernel, closed-form count and words;
 7. drives the aggregate path at full size — the query phase's table plus
@@ -70,15 +72,18 @@ from the sources in the checkout and then:
    20-bit revenue as the predicate of 16 spread host keys (the key lookup
    past its byte table), and A8, ``minmax_scan_device`` with the same
    predicate and keys as a CUDA tensor (the MIN/MAX lookup's window, found
-   by each CTA) — with the launch counters set to 0 just before and read
-   just after; checks that each call ran the kernel its tier names and
-   that every result equals plain torch on the raw values
+   by each CTA), and A9, ``aggregate_scan_device`` with the same predicate
+   and keys as a CUDA tensor (the runtime bit-plane tier: the SUM lookup's
+   window, found by each CTA) — with the launch counters set to 0 just
+   before and read just after; checks that each call ran the kernel its
+   tier names and that every result equals plain torch on the raw values
    (``scatter_add_``, ``bincount``, ``scatter_reduce_``, the masked sum);
    before it, the two key lookup aggregates' edges at small ragged sizes
    (constant, 90%-skewed, sorted and uniform predicates at widths 1-31, a
    measure that falls with the row index, duplicates, keys past the
-   domain, keys in device memory whose 16-bit windows meet at every
-   shift, a block_offset, one CTA's sum past 2^32);
+   domain, host keys and keys in device memory, k = 1 to 32, keys whose
+   16-bit windows meet at every shift, a block_offset, one CTA's sum past
+   2^32);
 8. holds the histogram and zone-map kernels against their plain versions
    at small ragged sizes (widths 1-31, k 1-4096, key 0 over padding, keys
    past the domain, a lo within k of 2^32 -- wrapping for a runtime lo,
@@ -125,7 +130,8 @@ from the sources in the checkout and then:
     the same bytes (``.t().contiguous()``); the static tier and the member
     OR-tree tier also on S64 of a 20-bit ``i % 512`` column of 512 MiB
     packed, the member compare and chunked window kernels on the query
-    phase's 20- and 31-bit member sets (each held against its plain version and the closed-form
+    phase's 20- and 31-bit member sets and the bit-sliced body on its
+    w31_S256 (each held against its plain version and the closed-form
     counts); on a 31-bit one, where the lookups win, the runtime tier on
     S256 as CUDA keys (the dynamic scan's lookup, held against its plain
     version) and the windowed tier on 1024 keys a window each (the window
@@ -228,14 +234,15 @@ KERNELS = {  # name -> (source, its C entry point, TPU kernel it replaces)
                       "shared_simd_scan_tpu/ops/member.py:169"),
     "member_ortree": ("shared_simd_scan_tpu_torch/csrc/member.cu", "sss_member_lookup",
                       "shared_simd_scan_tpu/ops/member.py:250"),
-    "member_bitsliced": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu", "sss_member_bitsliced",
+    # the keys' table and one lookup a value, as the compare bodies
+    "member_bitsliced": ("shared_simd_scan_tpu_torch/csrc/member.cu", "sss_member_compare",
                          "shared_simd_scan_tpu/ops/member.py:321"),
     "aggregate_scan": ("shared_simd_scan_tpu_torch/csrc/aggregate.cu", "sss_agg_compare",
                        "shared_simd_scan_tpu/ops/aggregate.py:55"),
     "aggregate_bitplane_static": ("shared_simd_scan_tpu_torch/csrc/agg_lookup.cu",
                                   "sss_agg_lookup", "shared_simd_scan_tpu/ops/aggregate.py:233"),
-    "aggregate_bitplane": ("shared_simd_scan_tpu_torch/csrc/agg_bitplane.cu", "sss_agg_bitplane",
-                           "shared_simd_scan_tpu/ops/aggregate.py:258"),
+    "aggregate_bitplane": ("shared_simd_scan_tpu_torch/csrc/agg_lookup.cu",
+                           "sss_agg_device_lookup", "shared_simd_scan_tpu/ops/aggregate.py:258"),
     "minmax_scan": ("shared_simd_scan_tpu_torch/csrc/agg_lookup.cu", "sss_minmax_lookup",
                     "shared_simd_scan_tpu/ops/aggregate.py:480"),
     "masked_aggregate": ("shared_simd_scan_tpu_torch/csrc/aggregate.cu", "sss_masked_agg",
@@ -345,7 +352,7 @@ PEAK_SHARE = 1.05  # no CLI row may claim more than this share of the data-sheet
 # compare kernels whose JSON entry carries these key sets beside its own
 EXTRA_SETS = {"shared_scan": ("S64", "S256"), "shared_scan_chunked": ("S256",),
               "shared_scan_dynamic": ("S256",), "member_compare": ("w20_k8",),
-              "member_chunked_window": ("w31_list",)}
+              "member_chunked_window": ("w31_list",), "member_bitsliced": ("w31_S256",)}
 
 
 def s64() -> list[int]:
@@ -1063,6 +1070,9 @@ def member_bodies(width: int, n: int, values, rng) -> list:
     keys = t32(spread)
     padded = member._pad_keys(keys, 32)
     many = t32(rng.integers(0, 2 * dom, size=70).tolist() + [v[1]])
+    # around a chunk of 32 keys: 31 in one chunk, 33 in two (31 pads)
+    k31 = t32(rng.integers(0, 2 * dom, size=29).tolist() + [v[4], 0xFFFFFFFF])
+    k33 = member._pad_keys(t32(rng.integers(0, 2 * dom, size=31).tolist() + [v[4], v[4]]), 32)
     wkeys = [x % dom for x in (0, 2, 4, 6, 31, 40, 77)] + [v[7], dom + 1]
     wb, wp = member.member_window_plan(np.asarray(wkeys, np.uint32))
     win = t32(np.stack([wb, wp], axis=1))
@@ -1091,6 +1101,8 @@ def member_bodies(width: int, n: int, values, rng) -> list:
         ("member_ortree", lambda fn, t, bo: fn(t, width, n, (dom, dom + 5, 1 << 31), bo)),
         ("member_bitsliced", lambda fn, t, bo: fn(t, padded, width, n, 32, bo)),
         ("member_bitsliced", lambda fn, t, bo: fn(t, member._pad_keys(many, 32), width, n, 32, bo)),
+        ("member_bitsliced", lambda fn, t, bo: fn(t, k31, width, n, 31, bo)),
+        ("member_bitsliced", lambda fn, t, bo: fn(t, k33, width, n, 32, bo)),
     ]
     if width <= 9:  # the whole domain: an all-ones row, tail masked
         bodies.append(("member_ortree", lambda fn, t, bo: fn(t, width, n, tuple(range(dom)), bo)))
@@ -1285,12 +1297,6 @@ MEMBER_RUNTIME = {  # name -> (keys, the runtime rule's kernel at width 9)
 }
 CHUNKED_COMPARE_KEYS = 64
 CHUNKED_WINDOWS = [32 * i + i % 7 for i in range(40)]  # 16 in the 9-bit domain, 24 beyond
-# member sets on wider i % 512 columns of 512 MiB packed: name -> (width,
-# keys (None: w31_window_list()), CUDA keys, the kernel its tier runs)
-MEMBER_WIDE = {"w31_list": (31, None, False, "member_chunked_window"),
-               "w20_k8": (20, S8, True, "member_compare")}
-
-
 def w31_window_list() -> list[int]:
     """200 windows of 16 keys spread over 31 bits and five values of the
     column: the window tier past 32 windows (the OR-tree priced out by its
@@ -1301,6 +1307,14 @@ def w31_window_list() -> list[int]:
     bases = rng.choice(1 << 26, 200, replace=False) * 32
     keys = np.concatenate([b + rng.choice(32, 16, replace=False) for b in bases])
     return np.concatenate([keys, [3, 70, 141, 200, 262]]).tolist()
+
+
+# member sets on wider i % 512 columns of 512 MiB packed: name -> (width,
+# its keys, CUDA keys, the kernel its tier runs); w31_S256 takes the
+# runtime rule's bit-sliced body (256 keys in chunks of 32)
+MEMBER_WIDE = {"w31_list": (31, w31_window_list, False, "member_chunked_window"),
+               "w20_k8": (20, lambda: S8, True, "member_compare"),
+               "w31_S256": (31, s256, True, "member_bitsliced")}
 
 
 def wide_member_column(device, width: int):
@@ -1344,7 +1358,7 @@ def query_phase(device, arb) -> tuple[dict, dict]:
 
     wide = {}
     for name, (width, keys, on_card, _) in MEMBER_WIDE.items():
-        keys = keys if keys is not None else w31_window_list()
+        keys = keys()
         wide[name] = (*wide_member_column(device, width), keys,
                       torch.tensor(keys, dtype=torch.int32, device=device) if on_card else keys)
     torch.cuda.synchronize()
@@ -1533,7 +1547,8 @@ def query_timing_phase(device, cols, arb, errs: dict) -> dict:
     w31 = t32(np.concatenate([np.stack([wb31, wp31], axis=1),
                               np.zeros(((-len(wb31)) % 32, 2), np.int64)]))
     _, c20 = wide_member_column(device, 20)
-    k8 = t32(MEMBER_WIDE["w20_k8"][1])
+    k8 = t32(MEMBER_WIDE["w20_k8"][1]())
+    k256 = member._pad_keys(t32(MEMBER_WIDE["w31_S256"][1]()), 32)
     pairs["member_chunked_window w31_list"] = (
         lambda: member._member_chunked_window_tiles(c31.tiles, w31, 31, c31.n, 32),
         lambda: member._member_chunked_window_tiles_plain(c31.tiles, w31, 31, c31.n, 32),
@@ -1542,6 +1557,10 @@ def query_timing_phase(device, cols, arb, errs: dict) -> dict:
         lambda: member._member_compare_tiles(c20.tiles, k8, 20, c20.n),
         lambda: member._member_compare_tiles_plain(c20.tiles, k8, 20, c20.n),
         tile_bytes(c20.tiles) + c20.tiles.shape[1] * LANES * 4 + 8 + k8.numel() * 4)
+    pairs["member_bitsliced w31_S256"] = (
+        lambda: member._member_bitsliced_tiles(c31.tiles, k256, 31, c31.n, 32),
+        lambda: member._member_bitsliced_tiles_plain(c31.tiles, k256, 31, c31.n, 32),
+        tile_bytes(c31.tiles) + c31.tiles.shape[1] * LANES * 4 + 8 + 256 * 4)
     for name, (kern, plain, _) in pairs.items():
         kernel = name.split()[0]
         a, b = kern(), plain()
@@ -1678,11 +1697,12 @@ def small_lookup_phase(device, errs: dict) -> None:
     90%-skewed and uniform predicates at the byte table's widths and the
     search's, with key 0 over the padding of a ragged n, a duplicate, keys
     >= 2^wp and 0xFFFFFFFF, a block_offset, and a sum past 2^32 within one
-    CTA (8192 values of 2^31 - 1, one tile); the MIN/MAX lookup on the same
-    columns and a sorted one, the same keys in device memory (past 16 bits
-    also keys whose 16-bit windows meet at every shift, which leave each
-    CTA the binary search), a measure that falls with the row index (every
-    value a new minimum) and a uniform 31-bit one; the chunked histogram
+    CTA (8192 values of 2^31 - 1, one tile); the same SUM for keys in
+    device memory (k = 1, 7 and 32) and the MIN/MAX lookup, on the same
+    columns and a sorted one (past 16 bits also keys whose 16-bit windows
+    meet at every shift, which leave each CTA the binary search, where
+    spread keys take its window), a measure that falls with the row index
+    (every value a new minimum) and a uniform 31-bit one; the chunked histogram
     tier (the fold's counts form and the bins kernel) on the same kinds of
     columns at widths 1-12 and 31, keys from 2^32 - 3 (k = 40 and 1000: all
     zeros) and a block_offset."""
@@ -1709,6 +1729,7 @@ def small_lookup_phase(device, errs: dict) -> None:
         for label, pv in {**columns(wp, n), "sorted": np.sort(rng.integers(0, dom, n))}.items():
             pt = unpack.pack_device_kernel(t32(pv), wp).tiles
             keys = [0, int(pv[1]), int(pv[1]), dom, 0xFFFFFFFF, dom // 3, dom - 1]
+            wide = keys + rng.integers(0, dom, size=25).tolist()  # k = 32
             for wm in (1, 31):
                 mt = unpack.pack_device_kernel(t32(rng.integers(0, 1 << wm, size=n)), wm).tiles
                 for bo in (0, 3):
@@ -1717,6 +1738,11 @@ def small_lookup_phase(device, errs: dict) -> None:
                         max_err(agg.aggregate_bitplane_static_tiles(pt, mt, keys, wp, wm, n, bo),
                                 agg.aggregate_bitplane_static_tiles_plain(pt, mt, keys, wp, wm, n,
                                                                           bo)))
+                    for kt in (t32(keys[:1]), t32(keys), t32(wide)):  # keys in device memory
+                        errs["aggregate_bitplane"] = max(
+                            errs["aggregate_bitplane"],
+                            max_err(agg.aggregate_bitplane_tiles(pt, mt, kt, wp, wm, n, bo),
+                                    agg.aggregate_bitplane_tiles_plain(pt, mt, kt, wp, wm, n, bo)))
                     for kt, m, w in ((t32(keys), mt, wm), (t32(keys), falling, 20)):
                         errs["minmax_scan"] = max(
                             errs["minmax_scan"],
@@ -1728,13 +1754,19 @@ def small_lookup_phase(device, errs: dict) -> None:
                     errs["minmax_scan"],
                     max_err(agg.minmax_scan_tiles(pt, falling, clash, wp, 20, n, 3),
                             agg.minmax_scan_tiles_plain(pt, falling, clash, wp, 20, n, 3)))
+                errs["aggregate_bitplane"] = max(
+                    errs["aggregate_bitplane"],
+                    max_err(agg.aggregate_bitplane_tiles(pt, falling, clash, wp, 20, n, 3),
+                            agg.aggregate_bitplane_tiles_plain(pt, falling, clash, wp, 20, n, 3)))
     top = (1 << 31) - 1
     pt = unpack.pack_device_kernel(t32(np.full(8192, 5)), 3).tiles
     mt = unpack.pack_device_kernel(t32(np.full(8192, top)), 31).tiles
-    counts, sums = agg.aggregate_bitplane_static_tiles(pt, mt, [5, 0, 5], 3, 31, 8192)
-    check(counts.tolist() == [8192, 0, 8192] and sums.tolist() == [8192 * top, 0, 8192 * top],
-          f"aggregate_bitplane_static: one CTA's sum {sums.tolist()[0]} of 8192 values 2^31 - 1 "
-          "(past 2^32), a duplicate key and an absent one")
+    for name, keys in (("aggregate_bitplane_static", [5, 0, 5]),
+                       ("aggregate_bitplane", t32([5, 0, 5]))):
+        counts, sums = getattr(agg, f"{name}_tiles")(pt, mt, keys, 3, 31, 8192)
+        check(counts.tolist() == [8192, 0, 8192] and sums.tolist() == [8192 * top, 0, 8192 * top],
+              f"{name}: one CTA's sum {sums.tolist()[0]} of 8192 values 2^31 - 1 (past 2^32), "
+              "a duplicate key and an absent one")
     for width in (*range(1, 13), 31):
         dom = 1 << width
         for label, vals in columns(width, n).items():
@@ -1750,7 +1782,8 @@ def small_lookup_phase(device, errs: dict) -> None:
             check(int(zero.abs().sum()) == 0, f"histogram_dag: keys from 2^32 - 3 count nothing "
                   f"(width {width}, {label})")
     torch.cuda.synchronize()
-    for name in ("aggregate_bitplane_static", "minmax_scan", "histogram_dag"):
+    for name in ("aggregate_bitplane_static", "aggregate_bitplane", "minmax_scan",
+                 "histogram_dag"):
         check(errs[name] == 0, f"{name} kernel exact against its plain version on constant, "
               f"skewed and uniform columns (n {n}, block_offset 0 and 3)")
 
@@ -1765,12 +1798,13 @@ AGG_SETS = {
     "A6": ("minmax_scan_device(region, revenue, 0..7)", None),
     "A7": ("aggregate_scan_device(revenue, price, 16 spread host keys)", "bitplane"),
     "A8": ("minmax_scan_device(revenue, price, A7's keys as a CUDA tensor)", None),
+    "A9": ("aggregate_scan_device(revenue, price, A7's keys as a CUDA tensor)", "bitplane"),
 }
 # A7's keys: 16 values spread over revenue's 20-bit domain
 A7_KEYS = [5521, 58228, 236145, 298913, 314745, 524063, 606377, 655451, 717405, 813357, 861120,
            874138, 915983, 940786, 956952, 990790]
 AGG_KEYS = {"A2": list(range(32)), "A3": [3], "A4": list(range(8)), "A5": [3, 70],
-            "A6": list(range(8)), "A7": A7_KEYS, "A8": A7_KEYS}
+            "A6": list(range(8)), "A7": A7_KEYS, "A8": A7_KEYS, "A9": A7_KEYS}
 
 
 def aggregate_phase(device, cols) -> tuple[dict, dict]:
@@ -1790,7 +1824,7 @@ def aggregate_phase(device, cols) -> tuple[dict, dict]:
           f"{tuple(rev.tiles.shape)} ({rev.tiles.numel() * 4} bytes)")
     q1 = query_trees(query, cols)["Q1"]
     runtime = {name: torch.tensor(AGG_KEYS[name], dtype=torch.int32, device=device)
-               for name in ("A4", "A5", "A8")}
+               for name in ("A4", "A5", "A8", "A9")}
     calls = {
         "A1": lambda: masked_aggregate_device(rev, query.evaluate(q1)[0]),
         "A2": lambda: aggregate_scan_device(region, rev, AGG_KEYS["A2"]),
@@ -1800,6 +1834,7 @@ def aggregate_phase(device, cols) -> tuple[dict, dict]:
         "A6": lambda: minmax_scan_device(region, rev, AGG_KEYS["A6"]),
         "A7": lambda: aggregate_scan_device(rev, price, AGG_KEYS["A7"]),
         "A8": lambda: minmax_scan_device(rev, price, runtime["A8"]),
+        "A9": lambda: aggregate_scan_device(rev, price, runtime["A9"]),
     }
     for fn in kernels.values():
         fn.launches = 0
@@ -1825,7 +1860,7 @@ def aggregate_phase(device, cols) -> tuple[dict, dict]:
     # set -> (predicate, measure, the predicate's name) of its keyed aggregate
     columns = {"A2": (region, rev, "region"), "A3": (price, rev, "price"),
                "A4": (region, rev, "region"), "A5": (price, rev, "price"),
-               "A7": (rev, price, "revenue")}
+               "A7": (rev, price, "revenue"), "A9": (rev, price, "revenue")}
     tier_kernel = {("bitplane", False): "aggregate_bitplane_static", ("compare", False):
                    "aggregate_scan", ("bitplane", True): "aggregate_bitplane",
                    ("compare", True): "aggregate_scan"}
@@ -1962,6 +1997,12 @@ def aggregate_timing_phase(device, cols, agg_data, errs: dict) -> dict:
         lambda: agg.aggregate_bitplane_static_tiles_plain(mt, ptile, AGG_KEYS["A7"], wm,
                                                           TABLE["price"], n),
         mt.numel() * 4 + ptile.numel() * 4 + 4 * len(A7_KEYS) + 16 * len(A7_KEYS))
+    # A9: SUM of price by the 20-bit revenue, A7's keys in device memory
+    # (the device-key lookup's CTA plan)
+    pairs["aggregate_bitplane A9"] = (
+        lambda: agg.aggregate_bitplane_tiles(mt, ptile, ktens["A9"], wm, TABLE["price"], n),
+        lambda: agg.aggregate_bitplane_tiles_plain(mt, ptile, ktens["A9"], wm, TABLE["price"], n),
+        mt.numel() * 4 + ptile.numel() * 4 + 4 * len(A7_KEYS) + 16 * len(A7_KEYS))
     # A8: MIN/MAX of price by the 20-bit revenue, A7's keys in device memory
     pairs["minmax_scan A8"] = (
         lambda: agg.minmax_scan_tiles(mt, ptile, ktens["A8"], wm, TABLE["price"], n),
@@ -1991,9 +2032,15 @@ def aggregate_timing_phase(device, cols, agg_data, errs: dict) -> dict:
               + (f"; plain {plain_ms:.6f} ms" if plain_ms is not None else ""))
     print("library: no PyTorch call aggregates a bit-packed column, so library_ms is null")
     print("the key lookup aggregate (the static bit-plane tier):")
-    kernel_report({"agg_lookup_kernelILi0E": "key lookup, byte table (wp <= 16)",
+    kernel_report({"agg_lookup_kernelILi0ELi6ELb0ENS_7AggKeys": "key lookup, byte table "
+                                                               "(wp <= 16)",
                    "agg_lookup_kernelILi1E": "key lookup, 16-bit window (wp > 16, A7)",
                    "agg_lookup_kernelILi2E": "key lookup, search (wp > 16)"})
+    print("the key lookup aggregate for keys in device memory (the runtime bit-plane tier):")
+    kernel_report({"agg_lookup_kernelILi0ELi6ELb0ENS_10DeviceKeys": "device-key lookup, byte "
+                                                                   "table (wp <= 16, A4)",
+                   "agg_lookup_kernelILi3E": "device-key lookup, the CTA's window or search "
+                                             "(wp > 16, A9)"})
     print("the MIN/MAX key lookup (keys in device memory):")
     kernel_report({"minmax_lookup_kernelILi0E": "MIN/MAX lookup, byte table (wp <= 16, A6)",
                    "minmax_lookup_kernelILi3E": "MIN/MAX lookup, the CTA's window or search "
@@ -2246,12 +2293,6 @@ def zone_phase(device, cols) -> tuple[dict, dict]:
     b1 = zcols["price"].tiles.shape[1]
     print(f"zone-map path: columns clustered (i * 512) // n, ends (7 in the first and last 64 block "
           f"rows, else 100..199), price; n {n}, zone_b1 {ZONE_B1} ({b1 // ZONE_B1} zones)")
-    wide = {}
-    for name, (width, keys, on_card, _) in MEMBER_WIDE.items():
-        keys = keys if keys is not None else w31_window_list()
-        wide[name] = (*wide_member_column(device, width), keys,
-                      torch.tensor(keys, dtype=torch.int32, device=device) if on_card else keys)
-    torch.cuda.synchronize()
     for fn in kernels.values():
         fn.launches = 0
     ran, outs = {}, {}

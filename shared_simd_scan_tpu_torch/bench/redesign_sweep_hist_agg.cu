@@ -1,25 +1,26 @@
 // The host-lo histogram's, the static bit-plane aggregate's and keyed
 // MIN/MAX's designs side by side, for bench/redesign_sweep.py (sections
 // histdag, aggstatic and minmax) to time on the card.  Not part of the
-// kernel library: it includes the library's histogram.cu, bitsliced.cu,
-// agg_bitplane.cu and agg_lookup.cu for their templates (the bins kernel
-// with one spare counter or one a lane; the static fold's counts-only
-// form; the key lookup aggregates in each of their update forms and
-// lookups) and adds, as they were before the redesign:
+// kernel library: it includes the library's histogram.cu, bitsliced.cu
+// and agg_lookup.cu for their templates (the bins kernel with one spare
+// counter or one a lane; the static fold's counts-only form; the key
+// lookup aggregates in each of their update forms and lookups) and adds,
+// as they were before the redesign:
 //   - the histogram's DAG interpreter: the host-compiled AND-DAG program
 //     of one group of keys (ops/scan.py _static_program) run over node
 //     slots in shared memory, each OUT row popcounted into its counter;
 //     one launch per _static_group_sizes group;
 //   - the static bit-plane aggregate: the key set's program interpreted
 //     into match words, then per key per measure plane a popcount
-//     (agg_bitplane.cu's accumulate stage);
+//     (agg_accumulate.cuh, the accumulate stage of the runtime-key
+//     bit-plane aggregate before its redesign);
 //   - keyed MIN/MAX (aggregate.cu's sss_agg_compare, MIN/MAX form): per
 //     key a match word of 32 compares, two selects a value, two warp
 //     reduces and two shared atomics.
+#include "agg_accumulate.cuh"
 #include "dag_program.cuh"
 #include "../csrc/histogram.cu"
 #include "../csrc/bitsliced.cu"
-#include "../csrc/agg_bitplane.cu"
 #include "../csrc/agg_lookup.cu"
 
 namespace sss {

@@ -22,17 +22,21 @@ histogram tier on full domains (H6: a uniform 12-bit column of 512 MiB
 packed, 4096 keys; H7: a uniform 4-bit column, 16 keys) and the static
 bit-plane aggregate (A2: a uniform 5-bit predicate, a 20-bit measure,
 host keys 0..31; A7: the 20-bit column as the predicate, a 9-bit measure,
-16 spread host keys) and keyed MIN/MAX (A6: the 5-bit predicate, the
-20-bit measure, CUDA keys 0..7; A8: the 20-bit predicate, the 9-bit
-measure, A7's keys as a CUDA tensor), the member compare and window
-bodies on ``i % 512`` (compare: keys 5, 77, 300, 411 as a CUDA tensor;
-chunked compare: S64 as CUDA keys in chunks of 32; window: W4's window;
-chunked window: the 40 windows of keys 32 i + i % 7 in chunks of 32) and
-two member sets on ``i % 512`` columns of 512 MiB packed: at width 31 the
+16 spread host keys), the runtime bit-plane aggregate (A4: A6's columns
+and keys; A9: A7's columns, A7's keys as a CUDA tensor) and keyed MIN/MAX
+(A6: the 5-bit predicate, the 20-bit measure, CUDA keys 0..7; A8: the
+20-bit predicate, the 9-bit measure, A7's keys as a CUDA tensor), the
+member compare, window and bit-sliced bodies on ``i % 512`` (compare:
+keys 5, 77, 300, 411 as a CUDA tensor; chunked compare: S64 as CUDA keys
+in chunks of 32; window: W4's window; chunked window: the 40 windows of
+keys 32 i + i % 7 in chunks of 32; bit-sliced: the 16 CUDA keys 3 + 31 i)
+and member sets on ``i % 512`` columns of 512 MiB packed: at width 31 the
 3205 keys of 200 spread windows of 16 and five column values, which
 ``member_scan_device`` sends to the chunked window body (that body timed
-as dispatched, and the whole call on the host clock), and at width 20
-``member_scan_device`` with S8 as CUDA keys (the compare body), at the
+as dispatched, and the whole call on the host clock), and S256 as CUDA
+keys, which it sends to the bit-sliced body in chunks of 32 (the call and
+the body), and at width 20 ``member_scan_device`` with S8 as CUDA keys
+(the compare body), at the
 reference benchmark's n = 477,218,588
 (H6: 357,913,941; the member sets 138,547,332 and 214,748,364); and, on the host clock, ``stats.describe``,
 ``quantiles`` and ``topk_values`` of the ``i % 512`` column together
@@ -136,6 +140,8 @@ def main(root: pathlib.Path) -> None:
         harness.synth_modk(n20, 512, 20, device=device), 20).tiles)
     k4, w4, cw40, w31 = t32(MEMBER_K4), windows([0, 2, 4, 6]), windows(CHUNKED_WINDOWS, 32), \
         windows(w31_list, 32)
+    k16 = t32([3 + 31 * i for i in range(16)])
+    k256 = member._pad_keys(cuda[256], 32)
     if hasattr(scan, "_histogram_domain_tiles"):
         def h5():
             return scan._histogram_domain_tiles(rtiles, 20, n)
@@ -178,6 +184,10 @@ def main(root: pathlib.Path) -> None:
             t5, rtiles, list(range(32)), 5, 20, n),
         "aggregate static A7": lambda: aggregate.aggregate_bitplane_static_tiles(
             rtiles, t9, A7_KEYS, 20, 9, n),
+        "aggregate runtime A4": lambda: aggregate.aggregate_bitplane_tiles(t5, rtiles, k8, 5, 20,
+                                                                           n),
+        "aggregate runtime A9": lambda: aggregate.aggregate_bitplane_tiles(rtiles, t9, a7, 20, 9,
+                                                                           n),
         "minmax A6": lambda: aggregate.minmax_scan_tiles(t5, rtiles, k8, 5, 20, n),
         "minmax A8": lambda: aggregate.minmax_scan_tiles(rtiles, t9, a7, 20, 9, n),
         "member compare k=4": lambda: member._member_compare_tiles(atiles, k4, 9, n),
@@ -190,6 +200,11 @@ def main(root: pathlib.Path) -> None:
             col31.tiles, w31, 31, n31, 32),
         "member_scan_device w20 S8 CUDA keys": lambda: member.member_scan_device(
             col20, cuda[8]),
+        "member bitsliced k=16": lambda: member._member_bitsliced_tiles(atiles, k16, 9, n, 16),
+        "member bitsliced w31_S256 (body)": lambda: member._member_bitsliced_tiles(
+            col31.tiles, k256, 31, n31, 32),
+        "member_scan_device w31_S256 CUDA keys": lambda: member.member_scan_device(
+            col31, cuda[256]),
     }
     times = {name: time_ms(fn) for name, fn in cases.items()}
     col = layout.DeviceColumn(9, n, atiles)

@@ -1,6 +1,6 @@
-// Keyed aggregates by one key lookup per value: SUM and COUNT for host
-// keys, one scatter-add per value; MIN, MAX and COUNT for keys in device
-// memory, three shared updates per value.
+// Keyed aggregates by one key lookup per value: SUM and COUNT, one
+// scatter-add per value, for host keys and for keys in device memory; MIN,
+// MAX and COUNT for keys in device memory, three shared updates per value.
 //
 // Replaces shared_simd_scan_tpu/ops/aggregate.py:
 //  - _agg_bitplane_static_kernel / _agg_bitplane_static_impl
@@ -11,12 +11,17 @@
 //    neither gather nor scatter: k * wm popcounts per 32 values (640 at k =
 //    32, wm = 20).  This card has both, so here the work per value depends
 //    on neither k nor wm (sss_agg_lookup);
-//  - _minmax_kernel / minmax_scan_tiles: keys in device memory (the host
-//    never reads them), 1 <= k <= 32; count j, min j and max j of the
-//    measure over the real rows whose predicate equals key j.  The TPU
-//    compares every value with every key and selects into per-key minima
-//    and maxima; here each value's slot takes its count, MIN and MAX
-//    (sss_minmax_lookup).
+//  - _agg_bitplane_kernel / aggregate_bitplane_tiles: the same for keys in
+//    device memory (the host never reads them).  The TPU folds each key
+//    over the predicate's planes into a match word (2 wp ops a key), then
+//    the same popcounts; here the same lookup and scatter-add as host keys,
+//    the lookup built by each CTA from the key tensor
+//    (sss_agg_device_lookup);
+//  - _minmax_kernel / minmax_scan_tiles: keys in device memory, 1 <= k <=
+//    32; count j, min j and max j of the measure over the real rows whose
+//    predicate equals key j.  The TPU compares every value with every key
+//    and selects into per-key minima and maxima; here each value's slot
+//    takes its count, MIN and MAX (sss_minmax_lookup).
 // A key >= 2^wp gives 0 (and an empty group), a duplicate its first
 // occurrence's totals; padding slots and indices >= n match no key, key 0
 // and 0xFFFFFFFF included (the reference's compare and MIN/MAX kernels
@@ -30,10 +35,11 @@
 // = 16); past it a byte table on a 16-bit window of the value, (v >> shift)
 // & 0xFFFF, at the highest shift where the keys' windows are distinct (the
 // host picks it for host keys; for keys in device memory each CTA tests
-// the shifts itself, one pair of keys a thread), then one compare with the
-// slot's key; if no window separates the keys, a branch-free binary search
-// of the sorted keys in five steps (as the lookup scans search,
-// shared_scan.cu) -- where a key's slot is the first index holding it.
+// the shifts itself, one pair of keys a thread: kCtaPlan), then one
+// compare with the slot's key; if no window separates the keys, a
+// branch-free binary search of the sorted keys in five steps (as the
+// lookup scans search, shared_scan.cu) -- where a key's slot is the first
+// index holding it.
 // Resident CTAs loop over tiles of kThreads blocks; each thread unpacks
 // its block of both columns (a switch on each width, so no kernel is
 // templated on both) and looks up its 32 predicates.  Per tile each warp
@@ -57,6 +63,8 @@
 // kBatchHot, kPerWarp counters; for MIN/MAX the atomics with or without a
 // load first, with or without the warp's hot slot) are measured against
 // the library's by bench/redesign_sweep.py aggstatic and minmax (PERF.md).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace sss {
@@ -294,28 +302,17 @@ __device__ __forceinline__ void flush_hot(AggCounters<kW, kCopies>& c, int copy,
   }
 }
 
-// kLookup: kByteTable (wp <= kLookupTableBits), kWindow (`shift`) or
-// kSearch.
-template <int kLookup, int kForm = kAdaptive, bool kPerWarp = false>
-__global__ void __launch_bounds__(kThreads, kAggCtasPerSm)
-agg_lookup_kernel(const uint32_t* __restrict__ ptiles, const uint32_t* __restrict__ mtiles,
-                  const __grid_constant__ AggKeys keys, int k, int wp, int wm, int shift,
-                  unsigned long long* __restrict__ counts, unsigned long long* __restrict__ sums,
-                  long long nblocks, long long n, long long block_offset) {
-  constexpr int kCopies = kPerWarp ? kThreads / 32 : 1;
-  extern __shared__ uint32_t s_table[];  // the byte table: 2^wp or 2^16 slots
-  __shared__ AggCounters<kForm == kWide, kCopies> c;
-  __shared__ AggLookup L;
-  const uint8_t* table = reinterpret_cast<const uint8_t*>(s_table);
-
-  for (int i = threadIdx.x; i < kCopies * kSlots; i += blockDim.x) {
-    (&c.cnt[0][0])[i] = (&c.lo[0][0])[i] = (&c.hi[0][0])[i] = 0u;
-    if constexpr (kForm == kWide) (&c.wide[0][0])[i] = 0ull;
-  }
-  build_agg_lookup<kLookup>(keys, k, wp, shift, s_table, L);
-
+// The CTA's tiles: each block's 32 predicates looked up (kLookup:
+// kByteTable, kWindow at `shift`, or kSearch), its 32 measures added to
+// their slots' counters in update form kForm.
+template <int kLookup, int kForm, bool kW, int kCopies>
+__device__ __forceinline__ void agg_tiles(const uint32_t* __restrict__ ptiles,
+                                          const uint32_t* __restrict__ mtiles, int wp, int wm,
+                                          const uint8_t* table, const AggLookup& L, int shift,
+                                          AggCounters<kW, kCopies>& c, long long nblocks,
+                                          long long n, long long block_offset) {
   const uint32_t spare = kMaxAggKeys + (threadIdx.x & 31u);
-  const int copy = kPerWarp ? (int)(threadIdx.x >> 5) : 0;
+  const int copy = kCopies > 1 ? (int)(threadIdx.x >> 5) : 0;
   uint32_t hot = kNoSlot;  // kHot: the warp's hot counter, lane 0's first
   unsigned hot_cnt = 0u;
   unsigned long long hot_sum = 0ull;
@@ -357,6 +354,40 @@ agg_lookup_kernel(const uint32_t* __restrict__ ptiles, const uint32_t* __restric
   if constexpr (kForm == kHot || kForm == kBatchHot) {
     if (hot != kNoSlot) flush_hot(c, copy, hot, hot_cnt, hot_sum);
   }
+}
+
+// kLookup: kByteTable (wp <= kLookupTableBits), kWindow (`shift`), kSearch,
+// or kCtaPlan (the CTA's own window or search).  Keys: AggKeys, the host's
+// by value in the kernel's parameters, or DeviceKeys, keys in device
+// memory (never read on the host; kByteTable or kCtaPlan).
+template <int kLookup, int kForm = kAdaptive, bool kPerWarp = false, typename Keys = AggKeys>
+__global__ void __launch_bounds__(kThreads, kAggCtasPerSm)
+agg_lookup_kernel(const uint32_t* __restrict__ ptiles, const uint32_t* __restrict__ mtiles,
+                  const __grid_constant__ Keys keys, int k, int wp, int wm, int shift,
+                  unsigned long long* __restrict__ counts, unsigned long long* __restrict__ sums,
+                  long long nblocks, long long n, long long block_offset) {
+  constexpr int kCopies = kPerWarp ? kThreads / 32 : 1;
+  extern __shared__ uint32_t s_table[];  // the byte table: 2^wp or 2^16 slots
+  __shared__ AggCounters<kForm == kWide, kCopies> c;
+  __shared__ AggLookup L;
+  const uint8_t* table = reinterpret_cast<const uint8_t*>(s_table);
+
+  for (int i = threadIdx.x; i < kCopies * kSlots; i += blockDim.x) {
+    (&c.cnt[0][0])[i] = (&c.lo[0][0])[i] = (&c.hi[0][0])[i] = 0u;
+    if constexpr (kForm == kWide) (&c.wide[0][0])[i] = 0ull;
+  }
+  const int lookup = build_agg_lookup<kLookup>(keys, k, wp, shift, s_table, L);
+  if constexpr (kLookup == kCtaPlan) {
+    if (lookup == kWindow)
+      agg_tiles<kWindow, kForm>(ptiles, mtiles, wp, wm, table, L, shift, c, nblocks, n,
+                                block_offset);
+    else
+      agg_tiles<kSearch, kForm>(ptiles, mtiles, wp, wm, table, L, shift, c, nblocks, n,
+                                block_offset);
+  } else {
+    agg_tiles<kLookup, kForm>(ptiles, mtiles, wp, wm, table, L, shift, c, nblocks, n,
+                              block_offset);
+  }
   __syncthreads();
   for (int j = threadIdx.x; j < k; j += blockDim.x) {
     const uint32_t r = L.rep[j];
@@ -395,20 +426,31 @@ inline int agg_lookup_plan(const AggKeys& keys, int k, int wp, int* shift) {
   return kSearch;
 }
 
+// The kernel of `lookup`: for host keys kByteTable, kWindow or kSearch; for
+// keys in device memory kByteTable or kCtaPlan.
+template <int kForm, bool kPerWarp, typename Keys>
+auto agg_lookup_entry(int lookup) {
+  if constexpr (std::is_same<Keys, DeviceKeys>::value)
+    return lookup == kByteTable ? agg_lookup_kernel<kByteTable, kForm, kPerWarp, Keys>
+                                : agg_lookup_kernel<kCtaPlan, kForm, kPerWarp, Keys>;
+  else
+    return lookup == kByteTable ? agg_lookup_kernel<kByteTable, kForm, kPerWarp, Keys>
+           : lookup == kWindow  ? agg_lookup_kernel<kWindow, kForm, kPerWarp, Keys>
+                                : agg_lookup_kernel<kSearch, kForm, kPerWarp, Keys>;
+}
+
 // One launch on a resident grid (at least least_ctas CTAs); a launch that
 // is refused returns its error.
-template <int kForm = kAdaptive, bool kPerWarp = false>
-cudaError_t launch_agg_lookup(const uint32_t* ptiles, const uint32_t* mtiles, const AggKeys& keys,
+template <int kForm = kAdaptive, bool kPerWarp = false, typename Keys>
+cudaError_t launch_agg_lookup(const uint32_t* ptiles, const uint32_t* mtiles, const Keys& keys,
                               int k, int wp, int wm, int lookup, int shift,
                               unsigned long long* counts, unsigned long long* sums,
                               long long nblocks, long long n, long long block_offset,
                               cudaStream_t stream) {
-  const auto kernel = lookup == kByteTable ? agg_lookup_kernel<kByteTable, kForm, kPerWarp>
-                      : lookup == kWindow  ? agg_lookup_kernel<kWindow, kForm, kPerWarp>
-                                           : agg_lookup_kernel<kSearch, kForm, kPerWarp>;
+  const auto kernel = agg_lookup_entry<kForm, kPerWarp, Keys>(lookup);
   const size_t smem = lookup == kByteTable ? (((size_t)1 << wp) + 15) / 16 * 16
-                      : lookup == kWindow  ? (size_t)1 << 16
-                                           : 0;
+                      : lookup == kSearch  ? 0
+                                           : (size_t)1 << 16;  // kWindow, kCtaPlan
   const long long ntiles = (nblocks + kThreads - 1) / kThreads;
   unsigned grid = 0;
   cudaError_t err =
@@ -647,4 +689,20 @@ extern "C" int sss_minmax_lookup(const uint32_t* ptiles, const uint32_t* mtiles,
   return (int)sss::launch_minmax_lookup(ptiles, mtiles, keys, k, wp, wm, lookup,
                                         reinterpret_cast<unsigned long long*>(counts), mins, maxs,
                                         nblocks, n, block_offset, stream);
+}
+
+// keys: k uint32 in device memory, never read on the host; counts and sums
+// int64[k], zeroed by the caller.  The byte table up to kLookupTableBits,
+// past it kCtaPlan.
+extern "C" int sss_agg_device_lookup(const uint32_t* ptiles, const uint32_t* mtiles,
+                                     const uint32_t* keys, int k, long long* counts,
+                                     long long* sums, long long nblocks, int wp, int wm,
+                                     long long n, long long block_offset, cudaStream_t stream) {
+  if (!sss::agg_lookup_args_ok(k, wp, wm)) return (int)cudaErrorInvalidValue;
+  if (nblocks <= 0) return (int)cudaSuccess;
+  const int lookup = wp <= sss::kLookupTableBits ? sss::kByteTable : sss::kCtaPlan;
+  return (int)sss::launch_agg_lookup(ptiles, mtiles, sss::DeviceKeys{keys}, k, wp, wm, lookup, 0,
+                                     reinterpret_cast<unsigned long long*>(counts),
+                                     reinterpret_cast<unsigned long long*>(sums), nblocks, n,
+                                     block_offset, stream);
 }

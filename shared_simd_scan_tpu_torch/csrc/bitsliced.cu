@@ -1,6 +1,6 @@
 // Bit-sliced shared scans: runtime keys and host keys by the plane fold;
-// their member (IN-list) form for runtime keys, one row; the histogram's
-// counts of consecutive host keys; and the fused linear export.
+// the histogram's counts of consecutive host keys; and the fused linear
+// export.
 //
 // Replaces shared_simd_scan_tpu/ops/scan.py:
 //  - _shared_scan_bitsliced_kernel / shared_scan_bitsliced_tiles: keys read
@@ -17,10 +17,11 @@
 //    the planes into the kernel; nvcc cannot specialize per key set.  Here
 //    the same fold, the keys copied to device memory once a key set
 //    (sss_bitsliced_static_fold, rows in tile order);
-//  - ops/member.py _member_bitsliced_kernel: the plane fold with the key
-//    rows ORed into one row, the masks computed from each key in its loop
-//    (sss_member_bitsliced).  The member OR-tree body is not here: on
-//    this card it is a set lookup per value (member.cu sss_member_lookup);
+//  - the member (IN-list) bodies are not here: ops/member.py
+//    _member_bitsliced_kernel, the plane fold with the key rows ORed into
+//    one row, is on this card one lookup a value in the keys' table built
+//    on the card (member.cu sss_member_compare), and the OR-tree body a
+//    set lookup per value (member.cu sss_member_lookup);
 //  - _histogram_dag_kernel / _histogram_dag_tiles_impl: histogram counts
 //    of consecutive host keys, no bitvector.  The TPU interprets each
 //    chunk's AND-DAG, one launch a group of keys; here one launch counts
@@ -41,52 +42,25 @@
 //
 // Bound on the H100: device memory bytes (reads W words, writes k words per
 // 32 values) while k is small; the integer instruction rate beyond: every
-// fold whose masks are staged in shared memory pays one LOP3 per plane per
-// key, the member form (masks computed from each key in its loop) about
-// three.  Design: one thread per 32-value block; the 32 values are
-// unpacked and transposed into planes in registers by the pruned
-// butterfly (common.cuh).  The member form keeps the planes in registers
-// and does not unroll its key loop.  A launch that asks for more shared
-// memory than a CTA has is refused and returns its error.  Counts as in
-// shared_scan.cu.
+// fold stages its masks in shared memory and pays one LOP3 per plane per
+// key (masks computed from each key in its loop cost about three).
+// Design: one thread per 32-value block; the 32 values are unpacked and
+// transposed into planes in registers by the pruned butterfly
+// (common.cuh).  A launch that asks for more shared memory than a CTA has
+// is refused and returns its error.  Counts as in shared_scan.cu.
 #include "common.cuh"
 
 namespace sss {
 
 // Row of one key from the bit planes x[0..W-1]: AND_p (plane_p ^
-// (bit_p(key) - 1)), zero for a key >= 2^W.
+// (bit_p(key) - 1)), zero for a key >= 2^W; its masks computed from the key
+// (bench/redesign_sweep_bins_fold.cu times it beside the staged masks).
 template <int W>
 __device__ __forceinline__ uint32_t key_row(const uint32_t (&x)[kBlockValues], uint32_t key) {
   uint32_t acc = key <= value_mask<W>() ? 0xFFFFFFFFu : 0u;
 #pragma unroll
   for (int p = 0; p < W; ++p) acc &= x[p] ^ (((key >> p) & 1u) - 1u);
   return acc;
-}
-
-// The member form: the k key rows ORed into row 0, one count (any k).
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-member_bitsliced_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __restrict__ keys,
-                        int k, uint32_t* __restrict__ bits,
-                        unsigned long long* __restrict__ counts, long long nblocks, long long n,
-                        long long block_offset) {
-  __shared__ unsigned s_cnt[1];
-  zero_counts(s_cnt, 1);
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = b < nblocks;
-  uint32_t w[W];
-  load_block<W>(tiles, nblocks, b, active, w);
-  const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
-
-  uint32_t x[kBlockValues];
-  unpack_values<W>(w, x);
-  transpose_bitplanes<W>(x);
-
-  uint32_t any = 0u;
-#pragma unroll 1
-  for (int j = 0; j < k; ++j) any |= key_row<W>(x, __ldg(keys + j));
-  store_row(bits, nblocks, b, active, 0, any & valid, s_cnt);
-  flush_counts(s_cnt, 1, counts);
 }
 
 // Keys of the folds: read from device memory (DeviceKeys, common.cuh: the
@@ -305,28 +279,6 @@ inline int static_rows_chunk(int width, int k) {
 }
 
 }  // namespace sss
-
-// The member form: all k keys OR into one row and one count (any k).
-extern "C" int sss_member_bitsliced(const uint32_t* tiles, const uint32_t* keys, int k,
-                                    uint32_t* bits, unsigned long long* counts, long long nblocks,
-                                    int width, long long n, long long block_offset,
-                                    cudaStream_t stream) {
-  if (k < 1) return (int)cudaErrorInvalidValue;
-  if (nblocks <= 0) return (int)cudaSuccess;
-  const unsigned grid = sss::grid_for(nblocks);
-  switch (width) {
-#define SSS_CASE(W)                                                               \
-  case W:                                                                         \
-    sss::member_bitsliced_kernel<W><<<grid, sss::kThreads, 0, stream>>>(          \
-        tiles, keys, k, bits, counts, nblocks, n, block_offset);                  \
-    break;
-    SSS_FOR_EACH_WIDTH(SSS_CASE)
-#undef SSS_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
 
 // The fold in tile order: keys is a device array of k <= kMaxKeys uint32
 // (the runtime keys, or host keys copied once by the caller); bits (k,

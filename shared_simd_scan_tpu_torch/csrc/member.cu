@@ -44,7 +44,10 @@
 //    then bit v & 31 of the popmask found.  Each CTA copies the table into
 //    shared memory once (the bitmap, or up to kLookupSharedWindows
 //    windows); a larger search table is read through the read-only cache.
-// The bit-sliced body runs in bitsliced.cu (sss_member_bitsliced).
+// The bit-sliced body (_member_bitsliced_kernel: a plane fold a key, its
+// key rows ORed into one row) computes the compare body's row from the
+// same key tensor, so on this card it is sss_member_compare too: its
+// 0xFFFFFFFF chunk padding lies past 2^W and is dropped from the table.
 //
 // Bound on the H100: device memory bytes (reads W words, writes one word
 // per 32 values): the lookup is ~6 integer ops a value flat in k, where

@@ -29,8 +29,8 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("unpack.cu", "shared_scan.cu", "interval_scan.cu", "bitsliced.cu", "range_scan.cu",
-           "conj.cu", "member.cu", "aggregate.cu", "agg_bitplane.cu", "agg_lookup.cu",
-           "histogram.cu", "zoned.cu", "linear.cu", "copy.cu")
+           "conj.cu", "member.cu", "aggregate.cu", "agg_lookup.cu", "histogram.cu", "zoned.cu",
+           "linear.cu", "copy.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -105,20 +105,18 @@ _SIGNATURES = {
     "sss_member_domain": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
     # tiles, table, size, bits, counts, nblocks, width, n, block_offset, stream
     "sss_member_lookup": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
-    # tiles, keys, k, bits, counts, nblocks, width, n, block_offset, stream
-    "sss_member_bitsliced": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll, _vp],
     # ptiles, mtiles, keys, k, counts, sums, nblocks, wp, wm, n, block_offset, stream
     "sss_agg_compare": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, ctypes.c_int,
                         _ll, _ll, _vp],
     # mtiles, bits, count, sum, nblocks, wm, stream
     "sss_masked_agg": [_vp, _vp, _vp, _vp, _ll, ctypes.c_int, _vp],
-    # ptiles, mtiles, keys, k, counts, sums, nblocks, wp, wm, n, block_offset, stream
-    "sss_agg_bitplane": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, ctypes.c_int,
-                         _ll, _ll, _vp],
     # ptiles, mtiles, keys (a host array of k uint32, passed by value), k, counts, sums,
     # nblocks, wp, wm, n, block_offset, stream
     "sss_agg_lookup": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, ctypes.c_int,
                        _ll, _ll, _vp],
+    # ptiles, mtiles, keys (device), k, counts, sums, nblocks, wp, wm, n, block_offset, stream
+    "sss_agg_device_lookup": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int,
+                              ctypes.c_int, _ll, _ll, _vp],
     # ptiles, mtiles, keys (device), k, counts, mins, maxs, nblocks, wp, wm, n, block_offset,
     # stream
     "sss_minmax_lookup": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _vp, _ll, ctypes.c_int,

@@ -19,8 +19,9 @@ wrapper (its ``launches``)           CUDA kernel
 ``minmax_scan_tiles``                ``sss_minmax_lookup`` (``csrc/agg_lookup.cu``):
                                      a key lookup and three shared updates
                                      a value
-``aggregate_bitplane_tiles``         ``sss_agg_bitplane``
-                                     (``csrc/agg_bitplane.cu``)
+``aggregate_bitplane_tiles``         ``sss_agg_device_lookup``
+                                     (``csrc/agg_lookup.cu``): the same
+                                     for keys in device memory
 ``aggregate_bitplane_static_tiles``  ``sss_agg_lookup`` (``csrc/agg_lookup.cu``):
                                      a key lookup and scatter-add a value
 ``masked_aggregate_tiles``           ``sss_masked_agg`` (``csrc/aggregate.cu``)
@@ -60,9 +61,7 @@ from shared_simd_scan_tpu_torch.bitvector import popcount_words
 from shared_simd_scan_tpu_torch.layout import BLOCK_VALUES, LANES, DeviceColumn, i32, u32
 from shared_simd_scan_tpu_torch.ops import _cuda
 from shared_simd_scan_tpu_torch.ops.scan import (
-    _U32,
     _CountVec,
-    _bitplanes_plain,
     _bounds_tensor,
     _host_keys,
     _real_values_plain,
@@ -233,32 +232,41 @@ def aggregate_scan_tiles(
 aggregate_scan_tiles.launches = 0
 
 
-def minmax_scan_tiles_plain(
-    ptiles: torch.Tensor, mtiles: torch.Tensor, keys: torch.Tensor, wp: int, wm: int, n: int,
-    block_offset: int = 0,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain torch version of :func:`minmax_scan_tiles`, same algorithm:
-    each real predicate value's slot, the first index of its key among the
-    sorted keys (``searchsorted``; slot k for a value that no key holds),
-    its count by ``bincount`` and its MIN and MAX by ``scatter_reduce_``
-    (``amin``, ``amax`` in int64) into counters that start at the
-    identities 0x7FFFFFFF and -1; each key reads its slot's, then the
-    empty-group rule.  The keys are not read on the host."""
+def _key_slots_plain(ptiles, mtiles, keys, wp, wm, n, block_offset):
+    """The key lookup of the kernels on keys in device memory, in torch:
+    (slot, measure values, key slots), int64.  A real predicate value's
+    slot is the first index of its key among the sorted keys
+    (``searchsorted``), slot k for a value that no key holds (padding,
+    indices past n); key j's slot is the first index of its value, so a
+    duplicate shares its first occurrence's.  The keys are not read on the
+    host."""
     k = keys.shape[0]
-    device = ptiles.device
     pvals, real = _real_values_plain(ptiles, wp, n, block_offset)
     mvals, _ = _real_values_plain(mtiles, wm, n, block_offset)
     table = torch.sort(u32(keys)).values
     pos = torch.searchsorted(table, pvals).clamp_(max=k - 1)
     slot = torch.where(real & (table[pos] == pvals), pos, k).flatten()
-    del pos, pvals, real
-    mvals = mvals.flatten()
+    return slot, mvals.flatten(), torch.searchsorted(table, u32(keys))
+
+
+def minmax_scan_tiles_plain(
+    ptiles: torch.Tensor, mtiles: torch.Tensor, keys: torch.Tensor, wp: int, wm: int, n: int,
+    block_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`minmax_scan_tiles`, same algorithm:
+    each real value's slot (:func:`_key_slots_plain`), its count by
+    ``bincount`` and its MIN and MAX by ``scatter_reduce_`` (``amin``,
+    ``amax`` in int64) into counters that start at the identities
+    0x7FFFFFFF and -1; each key reads its slot's, then the empty-group
+    rule.  The keys are not read on the host."""
+    k = keys.shape[0]
+    device = ptiles.device
+    slot, mvals, idx = _key_slots_plain(ptiles, mtiles, keys, wp, wm, n, block_offset)
     counts = torch.bincount(slot, minlength=k + 1)
     mins = torch.full((k + 1,), _MIN_ID, dtype=torch.int64, device=device)
     maxs = torch.full((k + 1,), _MAX_ID, dtype=torch.int64, device=device)
     mins.scatter_reduce_(0, slot, mvals, "amin")
     maxs.scatter_reduce_(0, slot, mvals, "amax")
-    idx = torch.searchsorted(table, u32(keys))  # a key's first index, its slot
     counts, mins, maxs = counts[idx], mins[idx], maxs[idx]
     return (counts, *_empty_groups(counts, mins, maxs, wm))
 
@@ -307,21 +315,10 @@ minmax_scan_tiles.launches = 0
 # shared by every key, then ~4 ops per key per measure plane on 32 values
 # at once.  On the TPU the match words come from the memoized AND-DAG of
 # the static bit-sliced scan (scan._combo) for host keys and from the XOR
-# plane fold for runtime keys.  The port keeps the runtime keys' fold; its
-# host-key tier is one key lookup and scatter-add per value (the card has
-# the gather and scatter that Mosaic lacks), with the tier's contract and
-# dispatch price unchanged.
-
-
-def _bitplane_sums_plain(mws: list, mplanes: list) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per match word: (count, sum) as popcount(mw) and
-    sum_p popcount(mw & mplane_p) << p, int64[k] each."""
-    counts = torch.stack([popcount_words(mw).sum() for mw in mws])
-    sums = torch.stack([
-        sum(popcount_words(mw & plane).sum() << p for p, plane in enumerate(mplanes))
-        for mw in mws
-    ])
-    return counts, sums
+# plane fold for runtime keys.  On this card both tiers are one key lookup
+# and scatter-add per value (the card has the gather and scatter that
+# Mosaic lacks), for host keys and for keys in device memory, with the
+# tiers' contract and dispatch price unchanged.
 
 
 def aggregate_bitplane_tiles_plain(
@@ -329,16 +326,16 @@ def aggregate_bitplane_tiles_plain(
     block_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of :func:`aggregate_bitplane_tiles`, same
-    algorithm: per key ``AND_p(pplane_p ^ ((key >> p & 1) - 1))``, killed
-    for keys >= 2^wp and masked by the validity word, then the per-plane
-    popcounts."""
-    pplanes = _bitplanes_plain(ptiles, wp)
-    kk = u32(keys)[:, None, None]
-    acc = torch.where(kk < (1 << wp), _U32, 0)
-    for p, plane in enumerate(pplanes):
-        acc = acc & (plane ^ ((((kk >> p) & 1) - 1) & _U32))
-    acc = acc & _valid_words(ptiles.shape[1], n, block_offset, ptiles.device)
-    return _bitplane_sums_plain(list(acc), _bitplanes_plain(mtiles, wm))
+    algorithm: each real value's slot (:func:`_key_slots_plain`), its
+    count by ``bincount`` and its measure added to the slot by
+    ``index_add_`` in int64 (exact); each key reads its slot's totals (a
+    key >= 2^wp, which no value equals, zeros).  The keys are not read on
+    the host."""
+    k = keys.shape[0]
+    slot, mvals, idx = _key_slots_plain(ptiles, mtiles, keys, wp, wm, n, block_offset)
+    counts = torch.bincount(slot, minlength=k + 1)
+    sums = torch.zeros(k + 1, dtype=torch.int64, device=ptiles.device).index_add_(0, slot, mvals)
+    return counts[idx], sums[idx]
 
 
 def aggregate_bitplane_tiles(
@@ -349,8 +346,10 @@ def aggregate_bitplane_tiles(
     :func:`aggregate_scan_tiles`; the key values are never read on the
     host, so CUDA-tensor keys stay on the card.
 
-    Kernel ``sss_agg_bitplane`` (``csrc/agg_bitplane.cu``) on CUDA tensors;
-    the plain version on CPU tensors."""
+    Kernel ``sss_agg_device_lookup`` (``csrc/agg_lookup.cu``: each CTA
+    builds a lookup of the keys in shared memory, each real value is
+    looked up and its count and measure added to its key's shared
+    counters) on CUDA tensors; the plain version on CPU tensors."""
     b1 = _check_pair(ptiles, mtiles, wp, wm)
     k = _check_keys(keys)
     device = _cuda.kernel_device(ptiles, mtiles, keys)
@@ -359,8 +358,8 @@ def aggregate_bitplane_tiles(
     counts = torch.zeros(k, dtype=torch.int64, device=device)
     sums = torch.zeros(k, dtype=torch.int64, device=device)
     _cuda.launch(
-        "sss_agg_bitplane", device, ptiles.data_ptr(), mtiles.data_ptr(), keys.data_ptr(), k,
-        counts.data_ptr(), sums.data_ptr(), b1 * LANES, wp, wm, n, block_offset,
+        "sss_agg_device_lookup", device, ptiles.data_ptr(), mtiles.data_ptr(), keys.data_ptr(),
+        k, counts.data_ptr(), sums.data_ptr(), b1 * LANES, wp, wm, n, block_offset,
     )
     aggregate_bitplane_tiles.launches += 1
     return counts, sums

@@ -15,8 +15,9 @@ Dispatch (:func:`member_scan_tiles`), the JAX package's to the letter:
   cheapest.  Any other tier falls through to the keys path below;
 - keys given as a CUDA tensor are runtime keys (the JAX package's traced
   keys) and are never read on the host.  They take the domain bitmap, the
-  bit-sliced fold, the compare or the chunked compare by the same cost
-  rules (:func:`_member_keys_tiles`).
+  bit-sliced body, the compare or the chunked compare by the same cost
+  rules (:func:`_member_keys_tiles`); on this card the bit-sliced body and
+  both compare bodies are one kernel.
 
 Each of the JAX package's seven kernel bodies has a wrapper here that
 launches a CUDA kernel on CUDA tiles, counts the launch in its own
@@ -36,8 +37,8 @@ wrapper (its ``launches``)         CUDA kernel
 ``_member_domain_tiles``           ``sss_member_domain`` (``csrc/member.cu``)
 ``_member_ortree_tiles``           ``sss_member_lookup``
                                    (``csrc/member.cu``) on the set's table
-``_member_bitsliced_tiles``        ``sss_member_bitsliced``
-                                   (``csrc/bitsliced.cu``)
+``_member_bitsliced_tiles``        ``sss_member_compare``: its keys'
+                                   table and one lookup a value
 =================================  ===========================================
 
 The TPU tile budgets (``_member_tb``, ``tb_cap``) are not ported: one
@@ -614,16 +615,18 @@ def _member_bitsliced_tiles_plain(tiles, keys, width, n, krows, block_offset=0):
 
 def _member_bitsliced_tiles(tiles, keys, width, n, krows, block_offset=0):
     """Bit-sliced membership for ``keys`` (int32[k], whole chunks of
-    ``krows``, on the tiles' device; never read on the host) -> (bits
-    int32[B1, 128], count int64).  The kernel ORs every key's fold into
-    one row in one pass: ``sss_member_bitsliced``."""
+    ``krows`` padded with 0xFFFFFFFF, on the tiles' device; never read on
+    the host) -> (bits int32[B1, 128], count int64).  The JAX body ORs
+    every key's plane fold into one row; that row is the compare body's,
+    so on this card it is ``sss_member_compare``: the keys' table built
+    on the card (:func:`member_operand_table`, which drops the padding past
+    2^width), then one lookup a value."""
     _check_tiles(tiles, width)
     _check_keys(keys)
     _check_chunks(keys.shape[0], krows, "keys")
     if _cuda.kernel_device(tiles, keys) is None:
         return _member_bitsliced_tiles_plain(tiles, keys, width, n, krows, block_offset)
-    out = _launch_one_row("sss_member_bitsliced", tiles, keys, keys.shape[0], width, n,
-                          block_offset)
+    out = _launch_operand_scan("sss_member_compare", tiles, keys, width, n, block_offset)
     _member_bitsliced_tiles.launches += 1
     return out
 
@@ -648,8 +651,10 @@ def _member_keys_tiles(tiles, keys: torch.Tensor, width: int, n: int, block_offs
     """The keys path of :func:`member_scan_tiles` (the JAX package's
     traced-key rule): ``keys`` int32[k] on the tiles' device, never read on
     the host, take the domain bitmap when its flat cost is below both the
-    compare and the bit-sliced cost, else the bit-sliced fold when it
-    wins, else the compare kernel (chunked past 32 keys)."""
+    compare and the bit-sliced cost, else the bit-sliced body when it
+    wins, else the compare body (chunked past 32 keys).  The bodies keep
+    the JAX package's operands and wrappers; on this card the last three
+    launch one kernel, ``sss_member_compare``."""
     k = int(keys.shape[0])
     if _domain_member_cost(width) < min(10 * k, 48 + (2 * width + 1) * k // 8):
         return _member_domain_tiles(tiles, keys, width, n, block_offset)

@@ -1,6 +1,7 @@
-"""The port's bit-plane aggregate tiers (runtime keys through the XOR plane
-fold, host keys through the static AND-DAG), the block offset and the
-aggregate dispatch against the JAX package.
+"""The port's bit-plane aggregate tiers (on the card one key lookup and
+scatter-add a value, for keys in device memory and for host keys; in the
+JAX package the XOR plane fold and the static AND-DAG), the block offset
+and the aggregate dispatch against the JAX package.
 
 As in test_torch_aggregate.py: the port's plain versions on CPU tensors,
 the JAX package's Pallas kernels in interpret mode with its partials
@@ -95,6 +96,24 @@ def test_static_tier_matches_jax_across_widths(wp, wm):
     jout = jagg.aggregate_bitplane_static_tiles(jp.tiles, jm.tiles, keys, wp, wm, n,
                                                 interpret=True, block_offset=2)
     tout = tagg.aggregate_bitplane_static_tiles(tp.tiles, tm.tiles, keys, wp, wm, n, 2)
+    cut = n - 2 * 32
+    _assert_sums(tout, *jout, p[:cut], m[:cut], keys)
+
+
+@pytest.mark.parametrize("wm", [1, 31])
+@pytest.mark.parametrize("wp", [1, 5, 16, 17, 20, 31])
+def test_runtime_tier_matches_jax_across_widths(wp, wm):
+    # the port's device-key lookup (its plain version: sorted keys,
+    # searchsorted, bincount and index_add_) against the JAX runtime
+    # bit-plane tier in interpret mode: the byte table's widths (1, 5, 16)
+    # and the CTA plan's (17, 20, 31); key 0 over the padding of a ragged
+    # n, a duplicate, 2^wp and 0xFFFFFFFF; a block_offset that drops the
+    # last two blocks
+    n, p, m, (jp, jm), (tp, tm) = _table(wp, wm, 50 * wp + wm, n=3001 + wp)
+    keys = np.asarray([0, p[5], p[5], 1 << wp, TOP], np.uint32)
+    jout = jagg.aggregate_bitplane_tiles(jp.tiles, jm.tiles, jnp.asarray(keys), wp, wm, n,
+                                         interpret=True, block_offset=2)
+    tout = tagg.aggregate_bitplane_tiles(tp.tiles, tm.tiles, _keys_t(keys), wp, wm, n, 2)
     cut = n - 2 * 32
     _assert_sums(tout, *jout, p[:cut], m[:cut], keys)
 

@@ -297,6 +297,8 @@ def test_reference_key_sets_take_the_expected_tiers():
     assert tagg.pick_aggregate_tier(9, 20, [3]) == "compare"
     assert tagg.aggregate_bitplane_cost(5, 20, 8) < tagg._agg_compare_cost(5, 20, 8)
     assert tagg.aggregate_bitplane_cost(9, 20, 2) > tagg._agg_compare_cost(9, 20, 2)
+    # A9: 16 CUDA keys of the 20-bit predicate take the runtime bit-plane tier
+    assert tagg.aggregate_bitplane_cost(20, 9, 16) < tagg._agg_compare_cost(20, 9, 16)
     assert tagg.pick_aggregate_tier(9, 16, [1]) == jagg.pick_aggregate_tier(9, 16, [1]) == "compare"
 
 

@@ -556,6 +556,35 @@ def test_member_lookup_search_table_past_shared_memory(cuda_device, width):
         assert int(count) == int(np.isin(v, np.asarray(keys, np.uint32)).sum())
 
 
+@pytest.mark.parametrize("width", [1, 9, 17, 31])
+def test_member_bitsliced_body_is_the_keys_lookup(cuda_device, width):
+    # the bit-sliced body launches the compare kernel's table and lookup
+    # (one launch, counted by the bit-sliced wrapper): k around a chunk of
+    # 32 (31, 32, 33 and 64 keys, padded with 0xFFFFFFFF), whole chunks of
+    # 8, duplicates, keys past the domain, 0xFFFFFFFF; past width 16 the
+    # search, its P counting the padding
+    values = _values(width, N, width + 97, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    v = values.cpu().numpy().view(np.uint32)
+    dom = 1 << width
+    rng = np.random.default_rng(width)
+    for k in (31, 32, 33, 64):
+        keys = rng.integers(0, 2 * dom, size=k - 4).tolist() + [int(v[3]), int(v[3]), dom,
+                                                                 0xFFFFFFFF]
+        for krows in (min(k, 32), 8):
+            padded = member._pad_keys(_keys(keys, cuda_device), krows)
+            for bo in (0, 2):
+                before = (member._member_bitsliced_tiles.launches,
+                          member._member_compare_tiles.launches)
+                got = member._member_bitsliced_tiles(tiles, padded, width, N, krows, bo)
+                assert (member._member_bitsliced_tiles.launches,
+                        member._member_compare_tiles.launches) == (before[0] + 1, before[1])
+                _same(got, member._member_bitsliced_tiles_plain(tiles, padded, width, N, krows,
+                                                                bo))
+        got = member._member_bitsliced_tiles(tiles, padded, width, N, krows)
+        assert int(got[1]) == int(np.isin(v, np.asarray(keys, np.uint32)).sum())
+
+
 def test_member_runtime_tiers_never_reach_the_host(cuda_device, monkeypatch):
     width, n = 9, 32_000
     vals = harness.synth_modk(n, 512, width, device=cuda_device)
@@ -758,7 +787,8 @@ def test_agg_lookup_every_width_matches_plain(cuda_device, wp):
 
 def test_agg_lookup_contention_columns(cuda_device):
     # every row on one key, 90% on one key, sorted runs: many lanes of a
-    # warp on one slot's counters; sums past 2^32 within one CTA (wm = 31)
+    # warp on one slot's counters; sums past 2^32 within one CTA (wm = 31);
+    # host keys and the same keys in device memory
     n = 8 * 256 * 32 + 77
     rng = np.random.default_rng(9)
     uniform = rng.integers(0, 32, n)
@@ -770,12 +800,79 @@ def test_agg_lookup_contention_columns(cuda_device):
         m64 = m.to(torch.int64) & 0xFFFFFFFF
         for label, p in columns.items():
             ptiles = unpack.pack_device_kernel(_keys(p, cuda_device), 5).tiles
-            counts, sums = aggregate.aggregate_bitplane_static_tiles(ptiles, mtiles,
-                                                                     list(range(32)), 5, wm, n)
             g = torch.from_numpy(p)
-            assert counts.tolist() == torch.bincount(g, minlength=32).tolist(), label
             want = torch.zeros(32, dtype=torch.int64).scatter_add_(0, g, m64)
-            assert sums.tolist() == want.tolist(), label
+            for keys in (list(range(32)), torch.arange(32, dtype=torch.int32, device=cuda_device)):
+                fn = (aggregate.aggregate_bitplane_tiles if isinstance(keys, torch.Tensor)
+                      else aggregate.aggregate_bitplane_static_tiles)
+                counts, sums = fn(ptiles, mtiles, keys, 5, wm, n)
+                assert counts.tolist() == torch.bincount(g, minlength=32).tolist(), label
+                assert sums.tolist() == want.tolist(), label
+
+
+@pytest.mark.parametrize("wp", range(1, 32))
+def test_agg_device_lookup_every_width_matches_plain(cuda_device, wp):
+    # the bit-plane tier for keys in device memory: the byte table up to 16
+    # bits, each CTA's window or search past it; key 0 over the padding, a
+    # duplicate, keys >= 2^wp and 0xFFFFFFFF, k = 1, 6 and 32; uniform,
+    # constant, 90%-skewed and sorted predicates; measures of 1, 20 and 31
+    # bits; a block_offset
+    n = 4 * 256 * 32 + 5017  # full tiles, then a partial one
+    dom = 1 << wp
+    rng = np.random.default_rng(wp + 700)
+    mtiles = {wm: unpack.pack_device_kernel(_values(wm, n, wm + 701, cuda_device), wm).tiles
+              for wm in (1, 20, 31)}
+    for label, p in _minmax_columns(wp, n, rng).items():
+        ptiles = unpack.pack_device_kernel(_keys(p, cuda_device), wp).tiles
+        keys = [0, int(p[1]), int(p[1]), dom, 0xFFFFFFFF, dom - 1] + rng.integers(
+            0, dom, size=26).tolist()
+        for ks in (keys[:1], keys[:6], keys):
+            kt = _keys(ks, cuda_device)
+            for wm, mt in mtiles.items():
+                for bo in (0, 2):
+                    before = aggregate.aggregate_bitplane_tiles.launches
+                    got = aggregate.aggregate_bitplane_tiles(ptiles, mt, kt, wp, wm, n, bo)
+                    assert aggregate.aggregate_bitplane_tiles.launches == before + 1
+                    _same(got, aggregate.aggregate_bitplane_tiles_plain(ptiles, mt, kt, wp, wm,
+                                                                        n, bo))
+                    _same(got, aggregate.aggregate_bitplane_static_tiles(ptiles, mt, ks, wp, wm,
+                                                                         n, bo))
+
+
+@pytest.mark.parametrize("wp", [17, 20, 31])
+def test_agg_device_lookup_window_and_search_past_16_bits(cuda_device, wp):
+    # keys in device memory past the byte table: spread keys (a 16-bit
+    # window separates them), keys whose windows meet at every shift (0 and
+    # 2^(wp-1) below wp - 16, 4 and 5 above 0: each CTA's search), and both
+    # at once; a sum past 2^32 within one CTA (wm = 31)
+    n = 2 * 256 * 32 + 999
+    dom = 1 << wp
+    rng = np.random.default_rng(wp + 800)
+    p = rng.integers(0, dom, n).astype(np.uint32)
+    p[:64] = [0, 1 << (wp - 1), 4, 5] * 16
+    ptiles = unpack.pack_device_kernel(_keys(p, cuda_device), wp).tiles
+    spread = [int(x) for x in np.sort(rng.choice(dom, 16, replace=False))] + [int(p[100])]
+    clash = [0, 1 << (wp - 1), 4, 5, int(p[100]), dom, 0xFFFFFFFF, 4]
+    for wm in (20, 31):
+        m = rng.integers(0, 1 << wm, n).astype(np.uint32)
+        m[:64] = (1 << wm) - 1
+        mtiles = unpack.pack_device_kernel(_keys(m, cuda_device), wm).tiles
+        for keys in (spread, clash, clash + spread[:24]):
+            kt = _keys(keys, cuda_device)
+            for bo in (0, 2):
+                _same(aggregate.aggregate_bitplane_tiles(ptiles, mtiles, kt, wp, wm, n, bo),
+                      aggregate.aggregate_bitplane_tiles_plain(ptiles, mtiles, kt, wp, wm, n, bo))
+    # every value of one CTA's tile on key 5, each 2^31 - 1
+    top = (1 << 31) - 1
+    ptiles = unpack.pack_device_kernel(torch.full((8192,), 5, dtype=torch.int32,
+                                                  device=cuda_device), wp).tiles
+    mtiles = unpack.pack_device_kernel(torch.full((8192,), top, dtype=torch.int32,
+                                                  device=cuda_device), 31).tiles
+    counts, sums = aggregate.aggregate_bitplane_tiles(ptiles, mtiles, _keys([5, 0, 5, dom],
+                                                                          cuda_device),
+                                                      wp, 31, 8192)
+    assert counts.tolist() == [8192, 0, 8192, 0]
+    assert sums.tolist() == [8192 * top, 0, 8192 * top, 0]
 
 
 def _minmax_columns(wp, n, rng):
@@ -861,6 +958,12 @@ def test_refused_aggregate_launches_raise(cuda_device):
                          host.ctypes.data, k, out.data_ptr(), out.data_ptr(), 8 * 128, w, wm, n,
                          0)
     keys = torch.zeros(33, dtype=torch.int32, device=cuda_device)
+    for k, w, v in ((33, wp, wm), (0, wp, wm), (2, 32, wm), (2, wp, 32)):
+        with pytest.raises(RuntimeError, match="sss_agg_device_lookup"):
+            # more keys than the lookup's slots; no keys; a predicate or measure of 32 bits
+            _cuda.launch("sss_agg_device_lookup", cuda_device, ptiles.data_ptr(),
+                         mtiles.data_ptr(), keys.data_ptr(), k, out.data_ptr(), out.data_ptr(),
+                         8 * 128, w, v, n, 0)
     with pytest.raises(RuntimeError, match="sss_agg_compare"):
         # 33 keys: more than the kernel's shared counters hold
         _cuda.launch("sss_agg_compare", cuda_device, ptiles.data_ptr(), mtiles.data_ptr(),

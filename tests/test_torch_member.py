@@ -255,7 +255,8 @@ def test_member_ortree_tiles_out_of_domain_and_empty(width):
     assert int(count) == _expect_count(values, [5])
 
 
-@pytest.mark.parametrize("width,k,krows", [(1, 5, 5), (9, 40, 32), (31, 8, 8)])
+@pytest.mark.parametrize("width,k,krows", [(1, 5, 5), (9, 40, 32), (31, 8, 8), (17, 26, 8),
+                                           (20, 30, 8), (31, 25, 8)])
 def test_member_bitsliced_tiles_matches_jax(width, k, krows):
     values, jdev, tdev = _column(width, N, seed=width + 6)
     keys = _keys(width, k - 2, width + 6, (1 << width, 0xFFFFFFFF))
@@ -265,6 +266,51 @@ def test_member_bitsliced_tiles_matches_jax(width, k, krows):
     tout = tmember._member_bitsliced_tiles(tdev.tiles, _t32(keys), width, N, krows)
     _assert_same(tout, jout)
     assert int(tout[1]) == _expect_count(values, [v for v in keys if v < 1 << width])
+    # the card's algorithm for this body: one lookup a value in the keys'
+    # table (the chunk padding lies past 2^width and is dropped)
+    table = tmember.member_operand_table_plain(width, keys=_t32(keys))
+    row = tmember._bitmap_row_plain if width <= tmember.MAX_DOMAIN_WIDTH else \
+        tmember._search_row_plain
+    _assert_same(tmember._member_finish(row(tscan._block_values_plain(tdev.tiles, width), table),
+                                        N, 0), jout)
+
+
+# the bodies the traced-key rule can name, and the argument after ``n``
+# (krows) of those that take one
+_KEY_BODIES = ("domain", "bitsliced", "compare", "chunked_compare")
+
+
+@pytest.mark.parametrize("width", [1, 5, 9, 12, 13, 16, 17, 20, 31])
+def test_member_keys_tiles_picks_the_jax_traced_body(width, monkeypatch):
+    # the port's keys path and the JAX traced-key rule name the same body
+    # with the same padded key rows and chunk, for every k of the sweep;
+    # the JAX side is traced abstractly with its bodies stubbed
+    calls = {"jax": [], "port": []}
+
+    def stub(side, name):
+        def body(tiles, operand, width, n, *rest):
+            rows = None if name == "domain" else int(operand.shape[0])
+            krows = rest[-2] if name in ("bitsliced", "chunked_compare") else None
+            calls[side].append((name, rows, krows))
+            if side == "jax":
+                return jnp.zeros(tiles.shape[1:], jnp.uint32), jnp.uint32(0)
+            return torch.zeros(tuple(tiles.shape[1:]), dtype=torch.int32), torch.zeros(())
+        return body
+
+    for name in _KEY_BODIES:
+        monkeypatch.setattr(jmember, f"_member_{name}_tiles", stub("jax", name))
+        monkeypatch.setattr(tmember, f"_member_{name}_tiles", stub("port", name))
+    tiles = torch.zeros((width, 8, 128), dtype=torch.int32)
+    jtiles = jax.ShapeDtypeStruct((width, 8, 128), jnp.uint32)
+    for k in (*range(1, 11), 16, 22, 23, 24, 31, 32, 33, 39, 40, 41, 64, 100, 256, 1025):
+        keys = np.arange(k, dtype=np.uint32) * 37 % (1 << width)
+        jax.eval_shape(lambda t, ks: jmember.member_scan_tiles(t, ks, width, N), jtiles,
+                       jax.ShapeDtypeStruct((k,), jnp.uint32))
+        tmember._member_keys_tiles(tiles, _t32(keys), width, N)
+        assert len(calls["jax"]) == len(calls["port"]) == 1 and calls["jax"] == calls["port"], \
+            (width, k, calls)
+        calls["jax"].clear()
+        calls["port"].clear()
 
 
 def test_member_wrappers_refuse_what_the_kernels_cannot_take():
