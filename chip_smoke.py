@@ -18,6 +18,13 @@ from the sources in the checkout and then:
    card from 1 to 9000 keys or windows at widths 1-31 -- unsorted,
    unaligned, straddling 2^width, wrapping past 2^32, repeated and empty
    windows --, bit-exact against the plain build);
+   then the interval and compare kernels at every width 1-31 on a ragged
+   column of two and a half tiles (the interval kernel gateless and gated
+   at k 1-1024 with lo 0, 2^w - 4 and 2^32 - 3; the compare wrapper at k
+   1-1025 with key 0 over the padding, duplicates, 2^w, 2^31 and
+   0xFFFFFFFF, and on both sides of ``scan._compare_fold_wins`` the
+   compare kernel and the bit-sliced tier's launch; block_offset 0 and 3;
+   the wrapper's launches by kernel);
 4. drives the main path at full size — a 9-bit column of 512 MiB packed:
    ``pack_device_kernel`` -> ``shared_scan_device`` keys 0..7 (interval
    kernel) -> ``scan_device(3)`` (compare kernel) -> ``unpack_device`` —
@@ -165,7 +172,14 @@ from the sources in the checkout and then:
     every run returns 0, every verification reads ok, every row parses with
     the sweep script's regexes and none is above 105% of the card's
     data-sheet memory rate;
-13. prints a JSON line with one entry per kernel, and as its last line
+13. times the compare wrapper on k = 1 and on S8, S64 and S256 of the
+    ``i % 512`` column as CUDA keys (the compare kernel, or from
+    ``scan._compare_fold_wins`` the bit-sliced tier's launch) and the
+    interval kernel on keys 0..63 and 0..1023 of the main path's column,
+    each with its launches by kernel, its counts against the closed form
+    and its bits against the plain version, beside its bound and the
+    staged fold on the same keys, with both kernels' registers and spills;
+14. prints a JSON line with one entry per kernel, and as its last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check or error exits non-zero and prints no result; so does a
@@ -349,8 +363,22 @@ CLI_RUNS = ((["_", "3", "all"], 4), (["512m", "3", "sharedscan", "64"], 1),
             (["64m", "3", "linear"], 1), (["64m", "3", "member"], 1), (["64m", "3", "conj"], 1),
             (["64m", "3", "aggregate"], 1), (["64m", "3", "histogram"], 1))
 PEAK_SHARE = 1.05  # no CLI row may claim more than this share of the data-sheet rate
+# the edges of the interval and compare kernels at every width 1-31 (the
+# card tests' sets): k around a round of 8 keys and a chunk of 32, and
+# around a launch of 1024; lo 0, near the top of the domain and wrapping
+# past 2^32 - 1
+SCAN_EDGE_N = 5 * 128 * 32 - 7  # two and a half tiles of 256 blocks
+INTERVAL_EDGE_KS = (1, 7, 8, 9, 31, 32, 33, 1024)
+COMPARE_EDGE_KS = (1, 2, 3, 4, 5, 8, 32, 33, 64, 1024, 1025)
+# the timing of the two scan kernels: the compare wrapper on CUDA keys of
+# the i % 512 column (the compare kernel, or from scan._compare_fold_wins
+# the bit-sliced tier's launch, COMPARE_ROUTE), the interval kernel on keys
+# 0..k-1 of the main path's column; each beside the staged fold
+COMPARE_TIMED = ("S8", "S64", "S256")
+INTERVAL_TIMED = (64, 1024)
+COMPARE_ROUTE = ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu", "sss_bitsliced_static_fold")
 # compare kernels whose JSON entry carries these key sets beside its own
-EXTRA_SETS = {"shared_scan": ("S64", "S256"), "shared_scan_chunked": ("S256",),
+EXTRA_SETS = {"shared_scan": COMPARE_TIMED, "shared_scan_chunked": ("S256",),
               "shared_scan_dynamic": ("S256",), "member_compare": ("w20_k8",),
               "member_chunked_window": ("w31_list",), "member_bitsliced": ("w31_S256",)}
 
@@ -459,7 +487,7 @@ def build_phase() -> float:
     print(f"build: {seconds:.1f} s ({_cuda.library_path().name})")
     for name, (_, c_entry, _) in KERNELS.items():
         check(c_entry in _cuda._SIGNATURES, f"{name}: its entry point {c_entry} is in the library")
-    for other in (FOLD_KERNEL, RUNTIME_LOOKUP, WINDOW_FOLD):
+    for other in (FOLD_KERNEL, RUNTIME_LOOKUP, WINDOW_FOLD, COMPARE_ROUTE):
         check(other[1] in _cuda._SIGNATURES, f"{other[1]} is in the library")
     log_path = _cuda.BUILD_DIR / "ptxas.log"
     log_path.write_text(_cuda.build_log)
@@ -585,6 +613,100 @@ def small_phase(device, errs: dict) -> None:
     for name in ("pack", "unpack", "shared_scan", "interval_scan", *ARBITRARY):
         check(errs[name] == 0, f"{name} kernel bit-exact against its plain version "
               f"(widths {SMALL_WIDTHS}, n {SMALL_NS})")
+
+
+def compare_launches(width: int, k: int) -> dict:
+    """The launches of ``shared_scan_tiles`` on k keys, by kernel entry: one
+    a group of 1024 keys, the compare kernel where scan._compare_fold_wins
+    keeps it, else the bit-sliced tier's launch (the fold under
+    bitsliced_scan, the dynamic scan's lookup under shared_scan_dynamic)."""
+    from shared_simd_scan_tpu_torch.ops import scan
+
+    out = {}
+    for g0 in range(0, k, scan.MAX_LAUNCH_KEYS):
+        rows = min(k - g0, scan.MAX_LAUNCH_KEYS)
+        name = ("shared_scan" if not scan._compare_fold_wins(width, rows) else
+                "shared_scan_dynamic" if scan._runtime_lookup_wins(width, rows) else
+                "bitsliced_scan")
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def ran_kernels(before: dict) -> dict:
+    """Kernel name -> launches since ``before`` (name -> launches), the
+    kernels that ran."""
+    return {name: fn.launches - before[name] for name, fn in wrappers().items()
+            if fn.launches != before[name]}
+
+
+def small_scan_edge_phase(device, errs: dict) -> None:
+    """The interval and compare kernels against their plain versions at
+    every width 1-31 on a ragged column of two and a half tiles: the
+    interval kernel (its C entry, gateless and gated, and the wrapper) at k
+    INTERVAL_EDGE_KS with lo 0, 2^w - 4 and 2^32 - 3; the compare wrapper
+    at k COMPARE_EDGE_KS with key 0 over the padding, a duplicate, 2^w,
+    2^31 and 0xFFFFFFFF, and on both sides of scan._compare_fold_wins the
+    compare kernel's C entry and the bit-sliced tier's launch; each with
+    block_offset 0 and 3, and the wrapper's launches by kernel."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch.layout import LANES
+    from shared_simd_scan_tpu_torch.ops import _cuda, scan, unpack
+
+    t0 = time.monotonic()
+    n = SCAN_EDGE_N
+
+    def entry(name, tiles, first, k, width, bo, *extra):
+        b1 = tiles.shape[1]
+        bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
+        counts = torch.zeros(k, dtype=torch.int64, device=device)
+        _cuda.launch(name, device, tiles.data_ptr(), first, k, bits.data_ptr(), counts.data_ptr(),
+                     b1 * LANES, width, n, bo, *extra)
+        return bits, counts
+
+    def err(a, p):
+        return max(max_abs_err(a[0], p[0]), int((a[1] - p[1]).abs().max()))
+
+    for width in range(1, 32):
+        dom = 1 << width
+        rng = np.random.default_rng(width + 700)
+        values = rng.integers(0, dom, size=n).astype(np.uint32)
+        tiles = unpack.pack_device_kernel(torch.from_numpy(values.view(np.int32)).to(device),
+                                          width).tiles
+        for k in INTERVAL_EDGE_KS:
+            for lo in (0, max(dom - 4, 0), (1 << 32) - 3):
+                for bo in (0, 3):
+                    p = scan.interval_scan_tiles_plain(tiles, lo, k, width, n, bo)
+                    e = max(err(entry("sss_interval_scan", tiles, lo, k, width, bo, g), p)
+                            for g in (1, 0))
+                    e = max(e, err(scan.interval_scan_tiles(tiles, lo, k, width, n, bo), p))
+                    errs["interval_scan"] = max(errs["interval_scan"], e)
+        for k in COMPARE_EDGE_KS:
+            keys = values[rng.integers(0, n, size=k)].astype(np.uint64)
+            for at, key in ((0, 0), (1, int(keys[0])), (2, dom), (3, 1 << 31), (4, 0xFFFFFFFF)):
+                if at < k:
+                    keys[at] = key
+            kt = torch.from_numpy(keys.astype(np.uint32).view(np.int32)).to(device)
+            for bo in (0, 3):
+                p = scan.shared_scan_tiles_plain(tiles, kt, width, n, bo)
+                before = {name: fn.launches for name, fn in wrappers().items()}
+                a = scan.shared_scan_tiles(tiles, kt, width, n, bo)
+                if ran_kernels(before) != compare_launches(width, k):
+                    check(False, f"compare w={width} k={k}: ran {ran_kernels(before)}, not "
+                          f"{compare_launches(width, k)} as scan._compare_fold_wins names")
+                e = max(err(a, p), err(entry("sss_shared_scan", tiles, kt.data_ptr(), k, width, bo),
+                                       p),
+                        err(scan.shared_scan_bitsliced_tiles(tiles, kt, width, n, bo), p))
+                errs["shared_scan"] = max(errs["shared_scan"], e)
+    torch.cuda.synchronize()
+    check(errs["interval_scan"] == 0, f"interval_scan bit-exact against its plain version at "
+          f"widths 1-31, k {INTERVAL_EDGE_KS}, lo 0, 2^w - 4 and 2^32 - 3, gateless and gated, "
+          f"n {n}, block_offset 0 and 3")
+    check(errs["shared_scan"] == 0, f"shared_scan (the wrapper, the compare kernel and the "
+          f"bit-sliced launch) bit-exact against the plain compare at widths 1-31, k "
+          f"{COMPARE_EDGE_KS}, key 0 over padding, duplicates, 2^w, 2^31, 0xFFFFFFFF, "
+          f"block_offset 0 and 3; each launch the kernel scan._compare_fold_wins names")
+    print(f"interval and compare edge phase ran in {time.monotonic() - t0:.1f} s")
 
 
 def with_edges(keys, width: int) -> list[int]:
@@ -2869,15 +2991,16 @@ def small_bench_phase(device, errs: dict) -> None:
               f"{BENCH_WIDTHS}, n {SMALL_NS}, k {ks}, {c} equal keys and 4 past the domain)")
 
 
-def ptxas_usage(fragment: str) -> str:
-    """ptxas's registers and static shared memory of each kernel whose
-    mangled name holds ``fragment``, from the build's log."""
+def ptxas_usage(fragment: str, spills: bool = False) -> str:
+    """ptxas's registers and static shared memory (and with ``spills`` its
+    stack and spill bytes) of each kernel whose mangled name holds
+    ``fragment``, from the build's log."""
     from shared_simd_scan_tpu_torch.ops import _cuda
 
     log_path = _cuda.BUILD_DIR / "ptxas.log"
     log = log_path.read_text() if log_path.exists() else ""
     found = [f"{entry}: {line}" for entry, line in ptxas_lines(log)
-             if fragment in entry and "Used" in line]
+             if fragment in entry and ("Used" in line or (spills and "spill" in line))]
     return "; ".join(found) or "not in the build log"
 
 
@@ -2959,11 +3082,11 @@ def cli_phase(device) -> dict:
 
 def bench_timing_phase(device, arb, errs: dict) -> tuple[dict, dict]:
     """The memcpy kernel, its plain version and ``copy_`` on 512 MiB; the
-    chunked, dynamic and general compare kernels on S64 and S256 of the
-    i % 512 column, each checked against its plain twin (32 keys at a time)
-    and the closed-form counts, timed beside its plain twin (S64 and S256
-    for the chunked and dynamic kernels); the runtime bit-sliced kernel
-    timed beside them on the same keys.  Returns (times, library times)."""
+    chunked and dynamic kernels on S64 and S256 of the i % 512 column, each
+    checked against its plain twin (32 keys at a time) and the closed-form
+    counts, timed beside its plain twin; the runtime bit-sliced kernel
+    timed beside them on the same keys (the compare wrapper on them:
+    scan_timing_phase).  Returns (times, library times)."""
     import torch
     from shared_simd_scan_tpu_torch.bench import harness
     from shared_simd_scan_tpu_torch.layout import LANES
@@ -2999,7 +3122,7 @@ def bench_timing_phase(device, arb, errs: dict) -> tuple[dict, dict]:
         kt = torch.tensor(keys, dtype=torch.int32, device=device)
         expect = [(n - 1 - key) // DOMAIN + 1 for key in keys]
         nbytes = tiles.numel() * 4 + len(keys) * (nblocks * 4 + 8 + 4)
-        for name in ("shared_scan_chunked", "shared_scan_dynamic", "shared_scan"):
+        for name in ("shared_scan_chunked", "shared_scan_dynamic"):
             kern = getattr(scan, f"{name}_tiles")
             plain = getattr(scan, f"{name}_tiles_plain")
             bits, counts = kern(tiles, kt, WIDTH, n)
@@ -3015,19 +3138,16 @@ def bench_timing_phase(device, arb, errs: dict) -> tuple[dict, dict]:
             check(errs[name] == 0, f"{name} {label} kernel bit-exact against its plain twin at "
                   f"full size")
             ms = time_ms(lambda: kern(tiles, kt, WIDTH, n), batches=5, calls=10)
-            plain_ms = None
-            if name != "shared_scan":  # its plain version holds int64 words of every key
-                plain_ms = time_ms(lambda: plain(tiles, kt, WIDTH, n), batches=1 if len(keys) > 64
-                                   else 2, calls=1)
+            plain_ms = time_ms(lambda: plain(tiles, kt, WIDTH, n), batches=1 if len(keys) > 64
+                               else 2, calls=1)
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
             times[f"{name} {label}"] = (ms, plain_ms, bound_ms)
             print(f"time {name} {label} (k={len(keys)}): kernel {ms:.6f} ms (bound "
                   f"{bound_ms:.6f} ms for {nbytes} bytes)"
                   + (f"; plain {plain_ms:.6f} ms" if plain_ms is not None else ""))
-            if name != "shared_scan":
-                print(f"  {name} kernel: {ptxas_usage(f'{name}_kernel')}; dynamic shared memory "
-                      f"{getattr(_cuda.lib(), f'sss_{name}_smem')(WIDTH)} bytes a CTA at width "
-                      f"{WIDTH}")
+            print(f"  {name} kernel: {ptxas_usage(f'{name}_kernel')}; dynamic shared memory "
+                  f"{getattr(_cuda.lib(), f'sss_{name}_smem')(WIDTH)} bytes a CTA at width "
+                  f"{WIDTH}")
             torch.cuda.empty_cache()
         _, counts = scan.shared_scan_bitsliced_tiles(tiles, kt, WIDTH, n)
         check(counts.tolist() == expect, f"shared_scan_bitsliced {label}: counts == closed form")
@@ -3038,6 +3158,107 @@ def bench_timing_phase(device, arb, errs: dict) -> tuple[dict, dict]:
         torch.cuda.empty_cache()
     print(f"bench timing phase ran in {time.monotonic() - t0:.1f} s")
     return times, library
+
+
+def scan_timing_phase(device, n: int, dev, arb, errs: dict) -> tuple[dict, dict]:
+    """The compare wrapper on k = 1 (key 3 of the main path's column) and on
+    S8, S64 and S256 of the i % 512 column as CUDA keys, and the interval
+    kernel on keys 0..k-1 of the main path's column for k = 64 and 1024,
+    each checked -- the launches by kernel (the compare kernel, or from
+    scan._compare_fold_wins the bit-sliced tier's), the counts against the
+    closed form, the bits against the plain version (32 keys at a time; k =
+    1024 on three slices of the column with their block_offset) -- and
+    timed beside its bound and the staged fold on the same keys (the
+    runtime tier's fold for CUDA keys, the static tier's for the interval's
+    host keys).  Returns (times, the folds' times)."""
+    import torch
+    from shared_simd_scan_tpu_torch.layout import LANES
+    from shared_simd_scan_tpu_torch.ops import scan
+
+    t0 = time.monotonic()
+    times, folds = {}, {}
+    torch.cuda.empty_cache()
+    sets = [("k=1", dev.tiles, [SCAN_KEY], K), ("S8", arb.tiles, S8, DOMAIN),
+            ("S64", arb.tiles, s64(), DOMAIN), ("S256", arb.tiles, s256(), DOMAIN)]
+    for label, tiles, keys, modk in sets:
+        nblocks = tiles.shape[1] * LANES
+        kt = torch.tensor(keys, dtype=torch.int32, device=device)
+        expect = [(n - 1 - key) // modk + 1 if key < modk else 0 for key in keys]
+        before = {name: fn.launches for name, fn in wrappers().items()}
+        bits, counts = scan.shared_scan_tiles(tiles, kt, WIDTH, n)
+        torch.cuda.synchronize()
+        check(ran_kernels(before) == compare_launches(WIDTH, len(keys)),
+              f"shared_scan {label}: ran {ran_kernels(before)}, the kernels "
+              f"scan._compare_fold_wins({WIDTH}, {len(keys)}) names")
+        check(counts.tolist() == expect, f"shared_scan {label}: counts == closed form")
+        e = 0
+        for j0 in range(0, len(keys), 32):
+            pbits, pcounts = scan.shared_scan_tiles_plain(tiles, kt[j0: j0 + 32], WIDTH, n)
+            e = max(e, max_abs_err(bits[j0: j0 + 32], pbits),
+                    int((counts[j0: j0 + 32] - pcounts).abs().max()))
+            del pbits
+        del bits
+        errs["shared_scan"] = max(errs["shared_scan"], e)
+        check(errs["shared_scan"] == 0, f"shared_scan {label} bit-exact against its plain "
+              f"version at full size")
+        nbytes = tiles.numel() * 4 + len(keys) * (nblocks * 4 + 8 + 4)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = time_ms(lambda: scan.shared_scan_tiles(tiles, kt, WIDTH, n), batches=5, calls=10)
+        fold_ms = time_ms(lambda: scan.shared_scan_bitsliced_tiles(tiles, kt, WIDTH, n),
+                          batches=5, calls=10)
+        plain_ms = (time_ms(lambda: scan.shared_scan_tiles_plain(tiles, kt, WIDTH, n), batches=2,
+                            calls=1) if len(keys) <= 8 else None)
+        times[f"shared_scan {label}"] = (ms, plain_ms, bound_ms)
+        folds[f"shared_scan {label}"] = fold_ms
+        print(f"time shared_scan {label} (k={len(keys)}, CUDA keys; ran "
+              f"{compare_launches(WIDTH, len(keys))}): {ms:.6f} ms, bound {bound_ms:.6f} ms for "
+              f"{nbytes} bytes ({bound_ms / ms:.4f} of it); the fold on the key tensor "
+              f"{fold_ms:.6f} ms" + (f"; plain {plain_ms:.6f} ms" if plain_ms is not None else ""))
+        torch.cuda.empty_cache()
+    tiles = dev.tiles
+    nblocks = tiles.shape[1] * LANES
+    b1 = tiles.shape[1]
+    for k in INTERVAL_TIMED:
+        expect = [(n - 1 - j) // K + 1 if j < K else 0 for j in range(k)]
+        before = {name: fn.launches for name, fn in wrappers().items()}
+        bits, counts = scan.interval_scan_tiles(tiles, 0, k, WIDTH, n)
+        torch.cuda.synchronize()
+        check(ran_kernels(before) == {"interval_scan": 1},
+              f"interval k={k}: ran {ran_kernels(before)}, one launch of the interval kernel")
+        check(counts.tolist() == expect, f"interval k={k}: counts == closed form")
+        if k <= 64:
+            p = scan.interval_scan_tiles_plain(tiles, 0, k, WIDTH, n)
+            e = max(max_abs_err(bits, p[0]), int((counts - p[1]).abs().max()))
+            del p
+        else:  # the plain version's int64 words of 1024 keys would not fit: slices of 64 rows
+            e = 0
+            for a in (0, b1 // 2 - 17, b1 - 64):
+                sl = tiles[:, a: a + 64].contiguous()
+                p = scan.interval_scan_tiles_plain(sl, 0, k, WIDTH, n, a * LANES)
+                e = max(e, max_abs_err(bits[:, a: a + 64].contiguous(), p[0]))
+                del p
+        del bits, counts
+        errs["interval_scan"] = max(errs["interval_scan"], e)
+        check(errs["interval_scan"] == 0, f"interval k={k} bit-exact against its plain version "
+              f"at full size" + (" (three slices of 64 rows of blocks)" if k > 64 else ""))
+        torch.cuda.empty_cache()
+        nbytes = tiles.numel() * 4 + k * (nblocks * 4 + 8)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = time_ms(lambda: scan.interval_scan_tiles(tiles, 0, k, WIDTH, n), batches=5, calls=10)
+        torch.cuda.empty_cache()
+        fold_ms = time_ms(lambda: scan.shared_scan_bitsliced_static_tiles(
+            tiles, list(range(k)), WIDTH, n), batches=5 if k <= 64 else 3, calls=10 if k <= 64
+            else 2)
+        torch.cuda.empty_cache()
+        times[f"interval_scan k={k}"] = (ms, None, bound_ms)
+        folds[f"interval_scan k={k}"] = fold_ms
+        print(f"time interval_scan k={k}: {ms:.6f} ms, bound {bound_ms:.6f} ms for {nbytes} bytes "
+              f"({bound_ms / ms:.4f} of it); the static fold on keys 0..{k - 1} {fold_ms:.6f} ms")
+    for fragment in ("interval_scan_kernelILi9E", "shared_scan_kernelILi9E",
+                     "interval_scan_kernelILi31E", "shared_scan_kernelILi31E"):
+        print(f"  ptxas {ptxas_usage(fragment, spills=True)}")
+    print(f"scan timing phase ran in {time.monotonic() - t0:.1f} s")
+    return times, folds
 
 
 def main() -> int:
@@ -3065,6 +3286,7 @@ def main() -> int:
     build_phase()
     canary_phase(device, errs)
     small_phase(device, errs)
+    small_scan_edge_phase(device, errs)
     small_window_phase(device, errs)
     small_query_phase(device, errs)
     small_member_table_phase(device, errs)
@@ -3105,6 +3327,8 @@ def main() -> int:
     times.update(bench_times)
     launches.update({k: c for k, c in cli_phase(device).items() if k in BENCH})
     print(f"bench phases ran in {time.monotonic() - t0:.1f} s")
+    scan_times, folds = scan_timing_phase(device, n, dev, arb, errs)
+    times.update(scan_times)
     check("jax" not in sys.modules, "no jax module was imported")
 
     def entry(name, src, c_entry, rep):
@@ -3157,6 +3381,18 @@ def main() -> int:
         for label in EXTRA_SETS.get(name, ()):
             e[f"ms_{label}"], e[f"plain_ms_{label}"], e[f"bound_ms_{label}"] = \
                 times[f"{name} {label}"]
+        if name == "shared_scan":  # from scan._compare_fold_wins: the bit-sliced tier's launch
+            e["route_kernel"], e["route_source"] = COMPARE_ROUTE[1], COMPARE_ROUTE[0]
+            e["route_rule"] = "shared_simd_scan_tpu_torch/ops/scan.py _compare_fold_wins"
+            e["fold_ms"] = folds["shared_scan k=1"]
+            for label in COMPARE_TIMED:
+                e[f"fold_ms_{label}"] = folds[f"shared_scan {label}"]
+        if name == "interval_scan":  # k = 8 and beside it k = 64 and 1024, and the static fold
+            e["k"] = K
+            e["fold_ms"] = times["windowed_scan keys 0..7"][0]
+            for k in INTERVAL_TIMED:
+                e[f"ms_k{k}"], _, e[f"bound_ms_k{k}"] = times[f"interval_scan k={k}"]
+                e[f"fold_ms_k{k}"] = folds[f"interval_scan k={k}"]
         if name == "member_ortree":
             e["ms_s64"], e["plain_ms_s64"], e["bound_ms_s64"] = times["member_ortree S64"]
         if name in WIDTH20:

@@ -3,10 +3,11 @@
     python -m shared_simd_scan_tpu_torch.bench.redesign_sweep [SECTION ...]
 
 SECTION is any of copy, chunked, dynamic, bins, domain, fold, static,
-ortree, histdag, aggstatic, minmax, windowed, runtime, member (default:
-all).
+ortree, histdag, aggstatic, minmax, windowed, runtime, member, interval,
+compare (default: all).
 Builds
 ``redesign_sweep.cu`` (copy, chunked, dynamic),
+``redesign_sweep_scan.cu`` (interval, compare),
 ``redesign_sweep_bins_fold.cu`` (bins, domain, fold),
 ``redesign_sweep_static_member.cu`` (static, ortree) and
 ``redesign_sweep_hist_agg.cu`` (histdag, aggstatic, minmax) and
@@ -165,6 +166,29 @@ and then in the reverse one):
   where the fused layout is faster (the rule of
   ``member.MEMBER_FUSED_ROWS``).
 
+- interval: the interval kernel on ``i % 8`` (width 9, 512 MiB packed:
+  keys 0..k-1 for k 1, 8, 33, 64; 64 MiB: k 1024) and ``i % 512`` (widths
+  17, 25 and 31: k 8): before its redesign (a CTA a tile, the masks held across
+  rounds) against the redesigned body on resident CTAs loading their own
+  blocks and on a grid of a CTA a tile so loading, on a ring of bulk
+  copies at 128 and 256 threads and 2 and 3 stages, and on a ring filled
+  by a 2-D TMA tensor map (256 threads, 2 stages; also 3 stages, and 128
+  threads) on the resident grid or with a CTA a run of 1-16 tiles (the
+  package's: ``common.cuh`` ``staged_run`` tiles), beside the
+  package's ``interval_scan_tiles`` and the static fold on the same keys;
+  every result equal to the first's and its counts to the closed form;
+- compare: the compare kernel's same designs (before its redesign: the
+  32 shifted operands built for every key of every block) on ``i % 512``
+  at width 9 (k 1, 2, 4, 8), 17 and 25 (k 1, 4) and 31 (k 1, 4, 10)
+  beside the package's
+  ``shared_scan_tiles`` and the bit-sliced tier's launch; then the
+  compare kernel (``sss_shared_scan``) against the bit-sliced tier's
+  launch (``shared_scan_bitsliced_tiles``, one launch) at widths 1, 5, 9,
+  12, 16, 17, 20, 25 and 31 and k 1-1024 on ``i % min(2^w, 512)`` columns
+  of 256 MiB packed (less where the k rows would pass 16 GiB), and the
+  table of ``scan._COMPARE_FOLD_KS``: by width, the k where the launch is
+  more than 5% faster.
+
 The bins and fold sections also print, from ``cuobjdump -sass`` of the
 sweep's library, the instructions of each width-9 kernel's basic blocks
 that hold eight or more shared atomics (bins: instructions per value) and
@@ -199,8 +223,10 @@ HIST_AGG_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_hist_agg.cu")
 BINS_FOLD_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_bins_fold.cu")
 STATIC_MEMBER_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_static_member.cu")
 WINDOWED_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_windowed.cu")
+SCAN_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_scan.cu")
 SECTIONS = ("copy", "chunked", "dynamic", "bins", "domain", "fold", "static", "ortree",
-            "histdag", "aggstatic", "minmax", "windowed", "runtime", "member")
+            "histdag", "aggstatic", "minmax", "windowed", "runtime", "member", "interval",
+            "compare")
 COPY_BYTES = 512 * 1024 * 1024
 COPY_NAMES = {0: "batch (8 loads, then 8 stores)", 1: "pipelined 4", 2: "pipelined 8",
               3: "ring 16 KB x 4, resident grid", 4: "ring 32 KB x 4, resident grid",
@@ -296,6 +322,8 @@ HIST_AGG_SASS = {
 }
 WIDTH, DOMAIN = 9, 512
 HBM_BYTES_PER_S = 3.35e12
+N_BYTES_FULL = 512 * 1024 * 1024  # the reference benchmark's packed column
+N_BYTES_SWEEP = 256 * 1024 * 1024  # the compare rule's columns
 
 
 def _build(source: pathlib.Path) -> tuple[pathlib.Path, str]:
@@ -327,6 +355,7 @@ def _libraries(sources: list) -> dict:
                           "sweep_agg": [i, vp, vp, vp, i, vp, i, i, i, vp, vp, ll, i, i, ll, vp],
                           "sweep_minmax": [i, vp, vp, vp, i, vp, vp, vp, ll, i, i, ll, vp]},
         WINDOWED_SOURCE: {"sweep_window_key_index": [vp, vp, i, i, i, vp, vp, ll, i, ll, vp]},
+        SCAN_SOURCE: {"sweep_scan": [i, i, vp, vp, ctypes.c_uint32, i, vp, vp, ll, i, ll, vp]},
     }
     libs = {}
     for source, (path, log) in built.items():
@@ -338,15 +367,16 @@ def _libraries(sources: list) -> dict:
 
 
 def _resources(log: str) -> list[str]:
-    """ptxas's registers and shared memory of the swept kernels."""
+    """ptxas's registers, shared memory and spills of the swept kernels."""
     lines, entry = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
-        elif entry and "Used" in line and any(
+        elif entry and ("Used" in line or "spill" in line) and any(
                 w in entry for w in ("copy", "chunked", "dynamic", "bins", "histogram", "domain",
-                                     "fold", "static_linear", "interpreter", "lookup", "window")):
+                                     "fold", "static_linear", "interpreter", "lookup", "window",
+                                     "interval", "compare", "shared_scan_kernel")):
             lines.append(f"  {entry}: {line.split(':', 1)[-1].strip()}")
     return lines
 
@@ -1310,6 +1340,183 @@ def runtime_sweep(device, column) -> None:
           f"{ {w: ks for w, ks in wins.items() if ks} }")
 
 
+SCAN_NAMES = {0: "before the redesign (a CTA a tile of 256 blocks)",
+              1: "resident CTAs, each thread loading its block (256 threads)",
+              2: "ring of bulk copies, 128 threads, 2 stages",
+              3: "ring of bulk copies, 128 threads, 3 stages",
+              4: "ring of bulk copies, 256 threads, 2 stages",
+              5: "ring of bulk copies, 256 threads, 3 stages",
+              6: "ring by a TMA map, 256 threads, 2 stages, resident grid",
+              7: "ring by a TMA map, 256 threads, 3 stages",
+              8: "ring by a TMA map, 128 threads, 3 stages",
+              9: "ring by a TMA map, 128 threads, 2 stages",
+              10: "a CTA a tile, the redesigned body (each thread loading its block)",
+              **{11 + i: f"ring by a TMA map, 256 threads, 2 stages, a CTA a run of {r} tiles"
+                 for i, r in enumerate((1, 2, 4, 8, 16))}}
+SCAN_SASS = {"interval_parent_kernelILi9E": "interval before the redesign (width 9)",
+             "interval_scan_kernelILi9ELb1ELi256ELi2E": "interval, the package's (width 9)",
+             "compare_parent_kernelILi9E": "compare before the redesign (width 9)",
+             "shared_scan_kernelILi9ELi256ELi2E": "compare, the package's (width 9)"}
+
+
+def _modk_counts(keys, n: int, m: int) -> list:
+    """Each key's count on an ``i % m`` column of n values."""
+    return [(n - 1 - key) // m + 1 if key < m else 0 for key in keys]
+
+
+def _scan_variants(lib, device, interval: bool, tiles, width: int, n: int, keys) -> dict:
+    """name -> call of each sweep_scan variant (interval: keys lo..lo+k-1
+    from keys[0]; else the CUDA key tensor ``keys``)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    nblocks = tiles.shape[1] * LANES
+    k = int(keys.shape[0])
+    lo = int(keys[0]) if interval else 0
+
+    def variant(v):
+        bits = torch.empty((k, tiles.shape[1], LANES), dtype=torch.int32, device=device)
+        counts = torch.zeros(k, dtype=torch.int64, device=device)
+        rc = lib.sweep_scan(int(interval), v, tiles.data_ptr(), keys.data_ptr(), lo, k,
+                            bits.data_ptr(), counts.data_ptr(), nblocks, width, n, stream)
+        if rc:
+            raise RuntimeError(f"sweep_scan variant {v}: CUDA error {rc}")
+        return bits, counts
+
+    return {name: functools.partial(variant, v) for v, name in SCAN_NAMES.items()}
+
+
+def _checked_turns(title: str, calls: dict, expect: list, bound_ms: float) -> dict:
+    """Every call's counts equal to ``expect`` and its bits to the first
+    call's, then the calls timed in turns and reported."""
+    ref = None
+    for name, fn in calls.items():
+        bits, counts = fn()
+        _check(counts.tolist() == expect, f"{title}: {name}'s counts")
+        if ref is None:
+            ref = bits
+        else:
+            _check(torch.equal(bits, ref), f"{title}: {name}'s bits differ")
+        del bits
+    del ref
+    torch.cuda.empty_cache()
+    times = _in_turns(calls)
+    _report(title, times, bound_ms)
+    return times
+
+
+def interval_sweep(lib, device) -> None:
+    """The interval kernel's designs on i % 8 (width 9, 512 MiB packed: k
+    1, 8, 33, 64; 64 MiB: k 1024) and i % 512 (widths 17, 25 and 31: k 8),
+    beside the package's wrapper and the static fold on the same keys."""
+    shapes = ((9, 8, N_BYTES_FULL, (1, 8, 33, 64)), (9, 8, 64 * 1024 * 1024, (1024,)),
+              (17, DOMAIN, N_BYTES_FULL, (8,)), (25, DOMAIN, N_BYTES_FULL, (8,)),
+              (31, DOMAIN, N_BYTES_FULL, (8,)))
+    for width, m, nbytes, ks in shapes:
+        n = harness.values_for(nbytes, width)
+        tiles = pack_device_kernel(harness.synth_modk(n, m, width, device=device), width).tiles
+        nblocks = tiles.shape[1] * LANES
+        for k in ks:
+            keys = torch.arange(k, dtype=torch.int32, device=device)
+            calls = _scan_variants(lib, device, True, tiles, width, n, keys)
+            calls["the package's interval_scan_tiles"] = (
+                lambda: scan.interval_scan_tiles(tiles, 0, k, width, n))
+            calls["the static fold on keys 0..k-1 (shared_scan_bitsliced_static_tiles)"] = (
+                lambda: scan.shared_scan_bitsliced_static_tiles(tiles, list(range(k)), width, n))
+            bound = ((width + k) * nblocks * 4 + 8 * k) / HBM_BYTES_PER_S * 1e3
+            _checked_turns(f"interval k={k} at width {width}, i % {m}, n {n}", calls,
+                           _modk_counts(range(k), n, m), bound)
+        del tiles
+        torch.cuda.empty_cache()
+
+
+COMPARE_WIDTHS = scan._COMPARE_SWEEP_WIDTHS
+COMPARE_KS = scan._COMPARE_SWEEP_KS
+COMPARE_ROW_BYTES = 16 << 30  # the most the k rows of one launch may take
+
+
+def _compare_keys(k: int, width: int) -> list:
+    """k keys of the compare section: distinct keys of the column's values
+    (0 .. min(2^width, 512) - 1) while there are enough, then keys drawn
+    from the whole domain."""
+    rng = np.random.default_rng(1000 * width + k)
+    m = min(1 << width, DOMAIN)
+    first = rng.choice(m, min(k, m), replace=False).tolist()
+    return first + rng.integers(0, 1 << width, k - len(first)).tolist()
+
+
+def compare_sweep(lib, device) -> None:
+    """The compare kernel's designs at width 9 (i % 512, 512 MiB packed, k
+    1, 2, 4, 8), 17 and 25 (k 1, 4) and 31 (k 1, 4, 10), beside the
+    package's wrapper and the
+    bit-sliced tier's launch; then the compare kernel against that launch
+    (``shared_scan_bitsliced_tiles``, one launch) at every swept width and
+    k, and the table of ``scan._COMPARE_FOLD_KS``."""
+    for width, ks in ((9, (1, 2, 4, 8)), (17, (1, 4)), (25, (1, 4)), (31, (1, 4, 10))):
+        n = harness.values_for(N_BYTES_FULL, width)
+        tiles = pack_device_kernel(harness.synth_modk(n, DOMAIN, width, device=device),
+                                   width).tiles
+        nblocks = tiles.shape[1] * LANES
+        for k in ks:
+            keys = _compare_keys(k, 9)
+            kt = torch.tensor(keys, dtype=torch.int32, device=device)
+            calls = _scan_variants(lib, device, False, tiles, width, n, kt)
+            calls["the package's shared_scan_tiles"] = (
+                lambda: scan.shared_scan_tiles(tiles, kt, width, n))
+            calls["the bit-sliced tier's launch (shared_scan_bitsliced_tiles)"] = (
+                lambda: scan.shared_scan_bitsliced_tiles(tiles, kt, width, n))
+            bound = (width * nblocks * 4 + k * (nblocks * 4 + 12)) / HBM_BYTES_PER_S * 1e3
+            _checked_turns(f"compare k={k} at width {width}, i % {DOMAIN}, n {n}", calls,
+                           _modk_counts(keys, n, DOMAIN), bound)
+        del tiles
+        torch.cuda.empty_cache()
+    compare_rule_sweep(device)
+
+
+def compare_rule_sweep(device) -> None:
+    """The compare kernel against the bit-sliced tier's launch at every
+    swept width and k, and the table of ``scan._COMPARE_FOLD_KS``."""
+    gains = {}
+    for width in COMPARE_WIDTHS:
+        m = min(1 << width, DOMAIN)
+        cache = {}
+        for k in COMPARE_KS:
+            nbytes = min(N_BYTES_SWEEP, COMPARE_ROW_BYTES * width // k // 32 * 32)
+            if nbytes not in cache:
+                cache.clear()
+                torch.cuda.empty_cache()
+                n = harness.values_for(nbytes, width)
+                cache[nbytes] = (pack_device_kernel(
+                    harness.synth_modk(n, m, width, device=device), width).tiles, n)
+            tiles, n = cache[nbytes]
+            nblocks = tiles.shape[1] * LANES
+            keys = _compare_keys(k, width)
+            kt = torch.tensor(np.asarray(keys, np.uint32).view(np.int32), device=device)
+
+            def compare(tiles=tiles, kt=kt, n=n, k=k):
+                bits = torch.empty((k, tiles.shape[1], LANES), dtype=torch.int32, device=device)
+                counts = torch.zeros(k, dtype=torch.int64, device=device)
+                _cuda.launch("sss_shared_scan", device, tiles.data_ptr(), kt.data_ptr(), k,
+                             bits.data_ptr(), counts.data_ptr(), tiles.shape[1] * LANES, width,
+                             n, 0)
+                return bits, counts
+
+            calls = {"the compare kernel": compare,
+                     "the bit-sliced tier's launch":
+                         lambda tiles=tiles, kt=kt, n=n: scan.shared_scan_bitsliced_tiles(
+                             tiles, kt, width, n)}
+            bound = (width * nblocks * 4 + k * (nblocks * 4 + 12)) / HBM_BYTES_PER_S * 1e3
+            times = _checked_turns(f"compare k={k} at width {width}, i % {m}, n {n}", calls,
+                                   _modk_counts(keys, n, m), bound)
+            compare_ms, route_ms = (sum(t) / 2 for t in times.values())
+            gains[(width, k)] = compare_ms / route_ms - 1
+        del cache
+        torch.cuda.empty_cache()
+    print("compare: the bit-sliced launch's gain over the compare kernel (compare / launch - 1): "
+          + "; ".join(f"w{w} k{k} {g:+.4f}" for (w, k), g in gains.items()))
+    wins = {w: tuple(k for k in COMPARE_KS if gains[(w, k)] > 0.05) for w in COMPARE_WIDTHS}
+    print(f"compare: k where the bit-sliced launch is more than 5% faster, by width "
+          f"(scan._COMPARE_FOLD_KS): { {w: ks for w, ks in wins.items() if ks} }")
+
+
 MEMBER_WIDTHS = (9, 16, 17, 20, 31)
 MEMBER_COUNTS = (1, 4, 8, 32, 64, 200, 4096, 4097)
 
@@ -1418,7 +1625,8 @@ def main(sections) -> None:
                                       (BINS_FOLD_SOURCE, ("bins", "domain", "fold")),
                                       (STATIC_MEMBER_SOURCE, ("static", "ortree")),
                                       (HIST_AGG_SOURCE, ("histdag", "aggstatic", "minmax")),
-                                      (WINDOWED_SOURCE, ("windowed",)))
+                                      (WINDOWED_SOURCE, ("windowed",)),
+                                      (SCAN_SOURCE, ("interval", "compare")))
                if set(names) & set(sections)]
     libs = _libraries(sources) if sources else {}
     print("ptxas:")
@@ -1460,6 +1668,14 @@ def main(sections) -> None:
         torch.cuda.empty_cache()
     if "member" in sections:
         member_sweep(device)
+    if SCAN_SOURCE in libs:
+        lib, path, _ = libs[SCAN_SOURCE]
+        print("sass of the interval and compare kernels (cuobjdump -sass):")
+        sass_report(path, SCAN_SASS)
+        if "interval" in sections:
+            interval_sweep(lib, device)
+        if "compare" in sections:
+            compare_sweep(lib, device)
     if "copy" in sections:
         copy_sweep(libs[SOURCE][0], device)
     if {"chunked", "dynamic", "fold", "static", "ortree"} & set(sections):

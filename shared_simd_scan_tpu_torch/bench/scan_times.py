@@ -9,7 +9,11 @@ windowed tier), the runtime bit-sliced tier and the static tier (S8 and S64
 on ``i % 512``), the windowed tier (W4, W8, S8 and S64 on ``i % 512``), the
 member OR-tree tier
 (``_member_ortree_tiles``, S8 and S64 on ``i % 512``), the chunked and
-dynamic scans (S64 and S256 as CUDA keys), the chunked histogram program
+dynamic scans (S64 and S256 as CUDA keys), the compare tier's wrapper
+``shared_scan_tiles`` on CUDA keys (k = 1, 2, 4, S8, 32, S64 and S256 on
+``i % 512``; k = 4 and 10 on the 31-bit member column), the interval
+kernel at k = 1, 33, 64 and 1024 (keys 0..k-1 on ``i % 8``; k = 1024
+timed last, alone: its rows take 61 GB), the chunked histogram program
 (lo 100, k 40), the host-lo span tier (H1: lo 0, k 512, as
 ``histogram_device`` sends a 9-bit column), the runtime-lo bins kernel
 (H3: lo 0, k 512; and lo 100, k 256), the full-domain histogram of a uniform 20-bit column (H5: one pass
@@ -206,7 +210,27 @@ def main(root: pathlib.Path) -> None:
         "member_scan_device w31_S256 CUDA keys": lambda: member.member_scan_device(
             col31, cuda[256]),
     }
+    # the compare tier as CUDA keys (the compare kernel, or where the
+    # checkout's rule routes it the bit-sliced tier's launch), and the
+    # interval kernel beside its k = 8
+    k32 = sorted(np.random.default_rng(5).choice(512, 32, replace=False).tolist())
+    compare_sets = {"k=1": [3], "k=2": [3, 70], "k=4": MEMBER_K4, "S8": S8, "k=32": k32,
+                    "S64": s64, "S256": s256}
+    for label, keys in compare_sets.items():
+        kt = t32(keys)
+        cases[f"compare {label} CUDA keys"] = lambda kt=kt: scan.shared_scan_tiles(atiles, kt, 9, n)
+    for label, keys in (("k=4", MEMBER_K4), ("k=10", [3 + 50 * i for i in range(10)])):
+        kt = t32(keys)
+        cases[f"compare w31 {label} CUDA keys"] = (
+            lambda kt=kt: scan.shared_scan_tiles(col31.tiles, kt, 31, n31))
+    for k in (1, 33, 64):
+        cases[f"interval k={k}"] = lambda k=k: scan.interval_scan_tiles(tiles, 0, k, 9, n)
     times = {name: time_ms(fn) for name, fn in cases.items()}
+    # last, alone: its 1024 rows take 61 GB
+    torch.cuda.empty_cache()
+    times["interval k=1024"] = time_ms(lambda: scan.interval_scan_tiles(tiles, 0, 1024, 9, n),
+                                       batches=5, calls=4)
+    torch.cuda.empty_cache()
     col = layout.DeviceColumn(9, n, atiles)
     walls = []
     for _ in range(6):

@@ -1,7 +1,8 @@
 // Shared pieces of the Hopper kernels: the static unpack schedule, the
 // validity word, count and exact-sum reduction, the one-hot mask, the 8x8
 // byte transpose, the bit-plane butterfly, the range match word, the grid
-// of resident CTAs and the width dispatch.
+// of resident CTAs, bulk and TMA copies with their mbarriers, the staged
+// tile loop, and the width dispatch.
 //
 // Layout (see shared_simd_scan_tpu_torch/layout.py): tiles are
 // uint32[width][nblocks] with nblocks = B1*128; block b holds 32 values in
@@ -10,6 +11,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 namespace sss {
@@ -233,6 +235,235 @@ inline cudaError_t resident_grid(Kernel kernel, int threads, size_t smem, long l
 inline long long least_ctas(long long ntiles, int threads) {
   const long long tiles_per_cta = (1LL << 32) / ((long long)threads * kBlockValues) - 1;
   return (ntiles + tiles_per_cta - 1) / tiles_per_cta;
+}
+
+// Bulk copies (cp.async.bulk, the TMA's non-tensor form) and the mbarriers
+// that report them and the TMA's tensor copies: the copy's ring (copy.cu)
+// and the staged tile loop below.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// Make the barriers' initialization visible to the async proxy (the bulk
+// copies) before any copy signals them.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Arrive once and add `bytes` to the transactions the current phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the barrier's phase of parity `parity` has completed.  A
+// phase that never completes is a fault: trap (the launch fails) rather
+// than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0u;
+  for (uint32_t spins = 0; !done; ++spins) {
+    if (spins == (1u << 26)) __trap();
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Global -> shared, completion reported to `bar` as transaction bytes.
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(smem)), "l"(gmem), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Shared -> global, as one bulk group.
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(gmem),
+               "r"(smem_u32(smem)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Wait until at most N bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// Wait until every bulk group has completed (its writes done).
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// The staged tile loop of a scan that gives one thread one block: CTAs of
+// T threads walk tiles of T consecutive blocks -- a run of consecutive
+// tiles each, or on a resident grid tile t, t + gridDim.x, ... -- and each
+// tile's W rows reach shared memory ahead of use.  The tiles [W][nblocks]
+// are a 2-D TMA tensor map with a box of [W rows, T blocks] (tile_map
+// below): thread 0 fills a stage of the ring with one tensor copy that
+// signals the stage's mbarrier, so kStages - 1 tiles
+// are on their way while the CTA computes on one, and the ragged last
+// tile's blocks past nblocks arrive as zeros.  Each thread reads its
+// block's W words from the stage (a warp's 32 lanes on 32 banks), the CTA
+// syncs, the stage is refilled with the tile kStages on, and `body(w, b,
+// active)` runs on the words in registers (a thread past nblocks: active
+// false).  Every tile issued is waited for, so no copy is in flight when
+// the loop returns.  Shared memory: kStages * W * T words (the ring, from
+// tile_ring_bytes) and kStages barriers, both the caller's.  W bulk copies
+// of a tile's rows (cp.async.bulk, 4T bytes each) ran 2-6% slower at width
+// 9 (bench/redesign_sweep.py interval and compare).
+__device__ __forceinline__ void tile_map_load(uint32_t* stage, const CUtensorMap* map,
+                                              long long first, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(stage)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"((int)first), "r"(0), "r"(smem_u32(bar))
+      : "memory");
+}
+
+template <int W, int T, int kStages, typename Body>
+__device__ __forceinline__ void staged_tiles(const CUtensorMap* map, long long nblocks,
+                                             long long run, uint32_t* s_ring, uint64_t* s_full,
+                                             Body&& body) {
+  const long long ntiles = (nblocks + T - 1) / T;
+  // run > 0: this CTA's tiles are the run blockIdx.x * run, ... (in address
+  // order, as the CTAs are dispatched); run 0: tiles blockIdx.x, blockIdx.x
+  // + gridDim.x, ... on a resident grid
+  const long long base = run ? (long long)blockIdx.x * run : (long long)blockIdx.x;
+  const long long step = run ? 1 : (long long)gridDim.x;
+  long long count = base < ntiles ? (ntiles - 1 - base) / step + 1 : 0;
+  if (run && count > run) count = run;
+  auto issue = [&](long long tile, int s) {
+    mbar_expect_tx(&s_full[s], W * T * 4);  // the whole box, zeros past nblocks included
+    tile_map_load(s_ring + s * W * T, map, tile * T, &s_full[s]);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&s_full[s], 1u);
+    mbar_init_fence();
+    for (int s = 0; s < kStages && s < count; ++s) issue(base + s * step, s);
+  }
+  __syncthreads();  // the barriers are initialized
+#pragma unroll 1
+  for (long long i = 0; i < count; ++i) {  // CTA-uniform trip count
+    const int s = (int)(i % kStages);
+    const long long tile = base + i * step;
+    const long long b = tile * T + threadIdx.x;
+    mbar_wait(&s_full[s], (uint32_t)((i / kStages) & 1));
+    const uint32_t* st = s_ring + s * W * T + threadIdx.x;
+    uint32_t w[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) w[j] = st[j * T];
+    __syncthreads();  // every thread has read the stage
+    if (threadIdx.x == 0 && i + kStages < count) {
+      // order the reads above before the async proxy's writes into the stage
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      issue(tile + kStages * step, s);
+    }
+    body(w, b, b < nblocks);
+  }
+}
+
+// Dynamic shared memory of the staged tile loop's ring.
+inline size_t tile_ring_bytes(int width, int threads, int stages) {
+  return (size_t)stages * width * threads * 4;
+}
+
+// The tensor map of tiles uint32[width][nblocks] with a box of [width,
+// threads], built by libcuda's cuTensorMapEncodeTiled (its entry point
+// found once through the runtime, so the library needs no -lcuda).  The TMA wants the
+// tiles 16-byte aligned (row strides, 4 nblocks bytes, are multiples of
+// 512) and coordinates below 2^31; anything else is refused.
+inline cudaError_t tile_map(CUtensorMap* map, const uint32_t* tiles, int width, long long nblocks,
+                            int threads) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<Encode>(fn)
+               : nullptr;
+  }();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(tiles) % 16) return cudaErrorMisalignedAddress;
+  if (nblocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)nblocks, (cuuint64_t)width};
+  const cuuint64_t strides[1] = {(cuuint64_t)nblocks * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)threads, (cuuint32_t)width};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 2, const_cast<uint32_t*>(tiles),
+                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The run of tiles a CTA of a staged scan takes: about kRunBytes of device
+// memory, each tile reading `width` and writing `rows` rows of 4 * threads
+// bytes, between 1 and kMaxRun tiles.  CTAs dispatched in address order
+// keep the bytes in flight in one compact window (the copy kernel's
+// finding, copy.cu); a longer run amortizes a CTA's start and its counts'
+// flush, a shorter one keeps the rows' stores of the CTAs at work close
+// together.  Runs of 1-16 tiles against the resident grid at widths 9-31
+// and k 1-1024 (bench/redesign_sweep.py interval and compare; NVIDIA H100
+// 80GB HBM3, 700 W): 4-8 tiles ran best at width 9 and k <= 8, 1-2 past
+// width 24 or at k = 1024; this rule's run came within 2% of the best run
+// for the interval kernel and within 5% for the compare kernel; against
+// it the resident grid ran 0.5-15% slower for the interval kernel, from
+// 1.5% faster to 5.5% slower for the compare kernel.
+constexpr long long kRunBytes = 96 * 1024;
+constexpr long long kMaxRun = 8;
+
+inline long long staged_run(int width, int rows, int threads) {
+  const long long run = kRunBytes / (4LL * threads * (width + rows));
+  return run < 1 ? 1 : run > kMaxRun ? kMaxRun : run;
+}
+
+// Grid of a staged kernel: with run > 0 a CTA for every run of `run`
+// tiles, else resident CTAs, at least least_ctas of them (a run of tiles
+// holds fewer than 2^32 values, so its CTA's unsigned counters cannot
+// wrap).  The ring's shared memory limit is raised first; a refusal returns
+// its error (cleared, so the next launch does not report it).
+template <typename Kernel>
+inline cudaError_t staged_grid(Kernel kernel, int threads, size_t smem, long long nblocks,
+                               long long run, unsigned* grid) {
+  const long long ntiles = (nblocks + threads - 1) / threads;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && run) {
+    const long long runs = (ntiles + run - 1) / run;
+    if (runs > 0x7FFFFFFFLL || run * threads * kBlockValues >= (1LL << 32))
+      err = cudaErrorInvalidValue;
+    else
+      *grid = (unsigned)runs;
+  } else if (err == cudaSuccess) {
+    err = resident_grid(kernel, threads, smem, ntiles, grid);
+    const long long least = least_ctas(ntiles, threads);
+    if (err == cudaSuccess && *grid < least) *grid = (unsigned)least;
+  }
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
 }
 
 // Whether every block of the tile [first, first + blockDim.x) lies in the

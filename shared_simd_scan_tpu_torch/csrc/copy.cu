@@ -25,7 +25,8 @@
 // apart and spread the bytes in flight over the buffer.  The last chunk is
 // ragged (a multiple of 16 bytes); the bytes past the last whole vector are
 // copied one by one by the lanes of CTA 0.  Both pointers must be 16-byte
-// aligned, the bulk copies' rule.
+// aligned, the bulk copies' rule.  The bulk-copy and mbarrier helpers are
+// in common.cuh: the scans' staged tile loop shares them.
 #include "common.cuh"
 
 namespace sss {
@@ -34,67 +35,6 @@ constexpr int kCopyStageBytes = 32 * 1024;  // COPY_STAGE_BYTES in bench/harness
 constexpr int kCopyStages = 4;
 constexpr int kCopyRun = 4;  // chunks a CTA copies (see copy_ring_kernel)
 constexpr int kCopyThreads = 32;  // one warp: lane 0 drives the ring, lanes < 16 copy the tail
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-// Arrive once and add `bytes` to the transactions the current phase waits for.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Spin until the barrier's phase of parity `parity` has completed.  A
-// phase that never completes is a fault: trap (the launch fails) rather
-// than hang the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0u;
-  for (uint32_t spins = 0; !done; ++spins) {
-    if (spins == (1u << 26)) __trap();
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// Global -> shared, completion reported to `bar` as transaction bytes.
-__device__ __forceinline__ void bulk_load(void* smem, const void* gmem, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_u32(smem)), "l"(gmem), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Shared -> global, as one bulk group.
-__device__ __forceinline__ void bulk_store(void* gmem, const void* smem, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(gmem),
-               "r"(smem_u32(smem)), "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// Wait until at most N bulk groups still read shared memory.
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
-}
-
-// Wait until every bulk group has completed (its writes done).
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
 
 // kRun 0: the resident grid, CTA g taking chunks g, g + gridDim.x, ...;
 // kRun > 0: a CTA for every kRun consecutive chunks.
@@ -112,7 +52,7 @@ copy_ring_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, lon
   long long count = first < nchunks ? (nchunks - 1 - first) / step + 1 : 0;
   if (kRun && count > kRun) count = kRun;
   for (int s = 0; s < kStages; ++s) mbar_init(&s_full[s], 1u);
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  mbar_init_fence();
 
   // Chunk i of this CTA: offset and bytes (the last chunk of the buffer is ragged).
   auto offset = [&](long long i) { return (first + i * step) * kStageBytes; };

@@ -2,10 +2,10 @@
 //
 // Replaces shared_simd_scan_tpu/ops/scan.py: _interval_scan_kernel /
 // _interval_scan_tiles_impl and _shift_canary_kernel / _run_shift_canary,
-// with the reference algorithm:
-//  - one-hot mask m = 1 << (v - lo_c) per value for a 32-key chunk starting
-//    at lo_c; the subtraction is uint32, so v < lo_c wraps to a large amount
-//    and the mask is 0;
+// with the reference algorithm's results:
+//  - one-hot mask m = 1 << (v - lo_c) per value for keys from lo_c; the
+//    subtraction is uint32 (lo + j wraps past 2^32 - 1 as it does there),
+//    so v < lo_c wraps to a large amount and the mask is 0;
 //  - for each 8-key round (byte of the mask), X_t packs the mask bytes of
 //    values {t, t+8, t+16, t+24} into its four bytes, and a 12-SWAPMOVE 8x8
 //    bit transpose turns X_0..X_7 into the 8 keys' bitvector words;
@@ -17,10 +17,18 @@
 // canary saw it saturate, else the gated d < 32 ? 1 << (d & 31) : 0.
 //
 // Bound on the H100: device memory bytes (reads W words, writes k words per
-// 32 values) at small k; integer issue (~0.7 ops per value per key plus the
-// unpack) at large k.  Design: one thread per 32-value block; the 32 values
-// stay in registers for every key chunk (the TPU kernel's VMEM scratch);
-// counts as in shared_scan.cu.
+// 32 values); the arithmetic is ~3 integer ops per value per round of 8
+// keys.  Design: one thread per 32-value block, CTAs of kIntervalThreads
+// threads on the staged tile loop (common.cuh staged_tiles: each tile's W
+// rows one TMA tensor copy into a ring of kIntervalStages stages in shared
+// memory, the next tile in flight while the CTA computes on one; a CTA for
+// every run of staged_run tiles, dispatched in address order), counts
+// flushed once a CTA.  Before it, a CTA a tile of 256 blocks (58,368 CTAs
+// at 512 MiB) zeroed and flushed its counters, and each thread's nine
+// loads were in flight only while it waited on them.  A round builds X_t
+// straight from the four values' shift amounts: byte g of X_t is byte g of
+// 1 << (v - lo_c - 8 round + 8 g), the bijection of amounts that moves the
+// round's byte to byte g, so no thread holds the 32 masks across rounds.
 //
 // The fused linear form (sss_interval_scan_linear) replaces
 // _interval_linear_kernel / _interval_linear_tiles_impl (scan.py:618): the
@@ -35,64 +43,74 @@
 
 namespace sss {
 
-// Byte `byte` of mask m, placed at byte position g.
-template <int kByte, int kG>
-__device__ __forceinline__ uint32_t mask_byte(uint32_t m) {
-  constexpr int sh = 8 * (kByte - kG);
-  if constexpr (sh > 0) m >>= sh;
-  if constexpr (sh < 0) m <<= -sh;
-  if constexpr (sh == 24 || sh == -24) return m;  // the shift itself isolated the byte
-  else return m & (0xFFu << (8 * kG));
+// Threads (blocks of a tile) and ring stages of the interval kernel
+// (bench/redesign_sweep.py interval).
+constexpr int kIntervalThreads = 256;
+constexpr int kIntervalStages = 2;
+
+// Byte g of X_t in the round of keys key..key+7 (neg_key = -key, uint32):
+// the one-hot of v - key + 8g kept to byte g, which is bit v - key of byte
+// g when v - key < 8, else 0 (v - key + 8g lies in [8g, 8g + 8) only then).
+template <bool kGateless, int kG>
+__device__ __forceinline__ uint32_t onehot_byte(uint32_t v, uint32_t neg_key) {
+  return onehot<kGateless>(v + neg_key + 8u * kG) & (0xFFu << (8 * kG));
 }
 
-// One 8-key round: rows for keys lo_c + 8*kByte + i, i < min(8, kc - 8*kByte),
-// handed to the sink as rows j0 + 8*kByte + i.
-template <int kByte, typename Sink>
-__device__ __forceinline__ void interval_round(const uint32_t (&m)[kBlockValues], int j0, int kc,
-                                               uint32_t valid, const Sink& sink) {
-  uint32_t x[8];
-#pragma unroll
-  for (int t = 0; t < 8; ++t)
-    x[t] = mask_byte<kByte, 0>(m[t]) | mask_byte<kByte, 1>(m[8 + t]) |
-           mask_byte<kByte, 2>(m[16 + t]) | mask_byte<kByte, 3>(m[24 + t]);
-  transpose8x8_bytes(x);
-  sink.rows8(j0 + 8 * kByte, x, valid, kc - 8 * kByte);
-}
-
-// The k rows of one block from its 32 values, in 32-key chunks.
+// The k rows of one block from its 32 values, in rounds of 8 keys: row j
+// is key lo + j (uint32), handed to the sink as row j.
 template <bool kGateless, typename Sink>
 __device__ __forceinline__ void interval_block(const uint32_t (&v)[kBlockValues], uint32_t lo,
                                                int k, uint32_t valid, const Sink& sink) {
-  for (int j0 = 0; j0 < k; j0 += 32) {  // 32-key chunks
-    const uint32_t lo_c = lo + (uint32_t)j0;
-    const int kc = k - j0 < 32 ? k - j0 : 32;
-    uint32_t m[kBlockValues];
+#pragma unroll 1
+  for (int j = 0; j < k; j += 8) {
+    const uint32_t neg_key = 0u - (lo + (uint32_t)j);
+    uint32_t x[8];
 #pragma unroll
-    for (int r = 0; r < kBlockValues; ++r) m[r] = onehot<kGateless>(v[r] - lo_c);
-    interval_round<0>(m, j0, kc, valid, sink);
-    if (kc > 8) interval_round<1>(m, j0, kc, valid, sink);
-    if (kc > 16) interval_round<2>(m, j0, kc, valid, sink);
-    if (kc > 24) interval_round<3>(m, j0, kc, valid, sink);
+    for (int t = 0; t < 8; ++t)
+      x[t] = onehot_byte<kGateless, 0>(v[t], neg_key) |
+             onehot_byte<kGateless, 1>(v[8 + t], neg_key) |
+             onehot_byte<kGateless, 2>(v[16 + t], neg_key) |
+             onehot_byte<kGateless, 3>(v[24 + t], neg_key);
+    transpose8x8_bytes(x);
+    sink.rows8(j, x, valid, k - j);
   }
 }
 
-template <int W, bool kGateless>
-__global__ void __launch_bounds__(kThreads)
-interval_scan_kernel(const uint32_t* __restrict__ tiles, uint32_t lo, int k,
+template <int W, bool kGateless, int T, int kStages>
+__global__ void __launch_bounds__(T)
+interval_scan_kernel(const __grid_constant__ CUtensorMap map, uint32_t lo, int k,
                      uint32_t* __restrict__ bits, unsigned long long* __restrict__ counts,
-                     long long nblocks, long long n, long long block_offset) {
+                     long long nblocks, long long n, long long block_offset, long long run) {
+  extern __shared__ __align__(128) uint32_t s_ring[];
+  __shared__ __align__(8) uint64_t s_full[kStages];
   __shared__ unsigned s_cnt[kMaxKeys];
   zero_counts(s_cnt, k);
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = b < nblocks;
-  uint32_t w[W];
-  load_block<W>(tiles, nblocks, b, active, w);
-  const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
-
-  uint32_t v[kBlockValues];
-  unpack_values<W>(w, v);
-  interval_block<kGateless>(v, lo, k, valid, BitsSink{bits, nblocks, b, active, s_cnt});
+  staged_tiles<W, T, kStages>(
+      &map, nblocks, run, s_ring, s_full,
+      [&](const uint32_t (&w)[W], long long b, bool active) {
+        const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
+        uint32_t v[kBlockValues];
+        unpack_values<W>(w, v);
+        interval_block<kGateless>(v, lo, k, valid, BitsSink{bits, nblocks, b, active, s_cnt});
+      });
   flush_counts(s_cnt, k, counts);
+}
+
+// One launch of the staged interval kernel: a CTA for every `run` tiles
+// (0: the resident grid).
+template <int W, bool kGateless, int T, int kStages>
+cudaError_t launch_interval(const uint32_t* tiles, uint32_t lo, int k, uint32_t* bits,
+                            unsigned long long* counts, long long nblocks, long long n,
+                            long long block_offset, long long run, cudaStream_t stream) {
+  const auto kernel = interval_scan_kernel<W, kGateless, T, kStages>;
+  const size_t smem = tile_ring_bytes(W, T, kStages);
+  CUtensorMap map;
+  unsigned grid = 0;
+  cudaError_t err = tile_map(&map, tiles, W, nblocks, T);
+  if (err == cudaSuccess) err = staged_grid(kernel, T, smem, nblocks, run, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, T, smem, stream>>>(map, lo, k, bits, counts, nblocks, n, block_offset, run);
+  return cudaGetLastError();
 }
 
 // The fused form (TPU kernel _interval_linear_kernel): the same rows staged
@@ -161,25 +179,25 @@ extern "C" int sss_interval_scan(const uint32_t* tiles, uint32_t lo, int k, uint
                                  unsigned long long* counts, long long nblocks, int width,
                                  long long n, long long block_offset, int gateless,
                                  cudaStream_t stream) {
-  if (k < 1 || k > sss::kMaxKeys) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > sss::kMaxKeys || !sss::width_ok(width)) return (int)cudaErrorInvalidValue;
   if (nblocks <= 0) return (int)cudaSuccess;
-  const unsigned grid = sss::grid_for(nblocks);
+  const long long run = sss::staged_run(width, k, sss::kIntervalThreads);
   switch (width) {
 #define SSS_CASE(W)                                                                      \
   case W:                                                                                \
-    if (gateless)                                                                        \
-      sss::interval_scan_kernel<W, true><<<grid, sss::kThreads, 0, stream>>>(            \
-          tiles, lo, k, bits, counts, nblocks, n, block_offset);                         \
-    else                                                                                 \
-      sss::interval_scan_kernel<W, false><<<grid, sss::kThreads, 0, stream>>>(           \
-          tiles, lo, k, bits, counts, nblocks, n, block_offset);                         \
-    break;
+    return (int)(gateless ? sss::launch_interval<W, true, sss::kIntervalThreads,         \
+                                                 sss::kIntervalStages>(                  \
+                                tiles, lo, k, bits, counts, nblocks, n, block_offset,    \
+                                run, stream)                                             \
+                          : sss::launch_interval<W, false, sss::kIntervalThreads,        \
+                                                 sss::kIntervalStages>(                  \
+                                tiles, lo, k, bits, counts, nblocks, n, block_offset,    \
+                                run, stream));
     SSS_FOR_EACH_WIDTH(SSS_CASE)
 #undef SSS_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // The fused linear form: out is uint32[nblocks * k], block b's linear bytes

@@ -5,60 +5,87 @@
 // host's tables of a launch's keys), the last three below the first.
 //
 // The general compare kernel replaces shared_simd_scan_tpu/ops/scan.py:
-// _shared_scan_kernel / shared_scan_tiles, with its semantics:
-//  - a slot that does not straddle a word boundary compares the word ANDed
-//    with the clean mask (mask << s, value left in place) against key << s;
-//    a straddling slot compares the normalized value against the key;
-//  - a key >= 2^W is replaced by 0xFFFFFFFF for the clean compare, which no
-//    cleaned word can equal (its bits outside [s, s+W) are zero);
+// _shared_scan_kernel / shared_scan_tiles, with its results:
+//  - the TPU kernel compares a slot that does not straddle a word boundary
+//    as the word ANDed with the clean mask (mask << s) against key << s, a
+//    straddling slot as the normalized value against the key, and turns a
+//    key >= 2^W into 0xFFFFFFFF for the clean compare, which no cleaned
+//    word can equal: bit r of row j is set iff value r equals key j;
 //  - the validity word of the global block block_offset + b clears bits of
 //    values at index >= n, so key 0 never matches the zero padding.
 //
 // Bound on the H100: device memory bytes for small k (reads W words, writes
-// k words per 32 values); integer issue for large k (~3 ops per slot per
-// key).  Design: one thread per 32-value block; the 32 compare operands are
-// built once per block in registers and reused by every key; keys are read
-// through the read-only cache (every lane reads the same key).  Hit counts
-// are reduced per warp (__reduce_add_sync), per CTA in shared memory, and
-// added to the int64 totals with one atomic per key per CTA.
+// k words per 32 values); integer issue for large k (~3 ops a value a key:
+// a compare and a bit set).  Design: one thread per 32-value block on the
+// staged tile loop (common.cuh staged_tiles: CTAs of kCompareThreads
+// threads, each tile's W rows one TMA tensor copy into a ring of
+// kCompareStages stages ahead of use, a CTA for every run of staged_run
+// tiles in address order, counts flushed once a CTA).
+// The 32 values are unpacked once a block and compared whole with each key,
+// which a CTA reads once into shared memory: a value is below 2^W, so a key
+// >= 2^W matches nothing with no sentinel, and no key's 32 shifted operands
+// are built per block (the kernel before built them for every key of every
+// block, one thread a block on a grid of a CTA a tile).  Hit counts are
+// reduced per warp (__reduce_add_sync), per CTA in shared memory, and added
+// to the int64 totals with one atomic per key per CTA.  From the k where
+// the plane fold runs faster (ops/scan.py _compare_fold_wins, the sweep's
+// table), shared_scan_tiles launches the fold on the key tensor instead.
 #include "common.cuh"
 
 namespace sss {
 
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-shared_scan_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __restrict__ keys, int k,
-                   uint32_t* __restrict__ bits, unsigned long long* __restrict__ counts,
-                   long long nblocks, long long n, long long block_offset) {
+// Threads (blocks of a tile) and ring stages of the compare kernel
+// (bench/redesign_sweep.py compare).
+constexpr int kCompareThreads = 256;
+constexpr int kCompareStages = 2;
+
+// Row of one key over the block's 32 normalized values.
+__device__ __forceinline__ uint32_t compare_row(const uint32_t (&v)[kBlockValues], uint32_t key) {
+  uint32_t acc = 0u;
+#pragma unroll
+  for (int r = 0; r < kBlockValues; ++r) acc |= (uint32_t)(v[r] == key) << r;
+  return acc;
+}
+
+template <int W, int T, int kStages>
+__global__ void __launch_bounds__(T)
+shared_scan_kernel(const __grid_constant__ CUtensorMap map, const uint32_t* __restrict__ keys,
+                   int k, uint32_t* __restrict__ bits, unsigned long long* __restrict__ counts,
+                   long long nblocks, long long n, long long block_offset, long long run) {
+  extern __shared__ __align__(128) uint32_t s_ring[];
+  __shared__ __align__(8) uint64_t s_full[kStages];
   __shared__ unsigned s_cnt[kMaxKeys];
-  zero_counts(s_cnt, k);
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = b < nblocks;
-  uint32_t w[W];
-  load_block<W>(tiles, nblocks, b, active, w);
-  const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
-
-  // Compare operand per slot: the cleaned word, or the normalized value.
-  uint32_t x[kBlockValues];
-#pragma unroll
-  for (int r = 0; r < kBlockValues; ++r)
-    x[r] = slot_straddles<W>(r) ? unpack_value<W>(w, r)
-                                : w[slot_word<W>(r)] & (value_mask<W>() << slot_shift<W>(r));
-
-  for (int j = 0; j < k; ++j) {
-    const uint32_t key = __ldg(keys + j);
-    const bool in_domain = key <= value_mask<W>();
-    uint32_t acc = 0u;
-#pragma unroll
-    for (int r = 0; r < kBlockValues; ++r) {
-      const uint32_t want = slot_straddles<W>(r)
-                                ? key
-                                : (in_domain ? key << slot_shift<W>(r) : 0xFFFFFFFFu);
-      acc |= (uint32_t)(x[r] == want) << r;
-    }
-    store_row(bits, nblocks, b, active, j, acc & valid, s_cnt);
-  }
+  __shared__ uint32_t s_key[kMaxKeys];
+  for (int j = threadIdx.x; j < k; j += blockDim.x) s_key[j] = __ldg(keys + j);
+  zero_counts(s_cnt, k);  // (its barrier also publishes the keys)
+  staged_tiles<W, T, kStages>(
+      &map, nblocks, run, s_ring, s_full,
+      [&](const uint32_t (&w)[W], long long b, bool active) {
+        const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
+        uint32_t v[kBlockValues];
+        unpack_values<W>(w, v);
+#pragma unroll 1
+        for (int j = 0; j < k; ++j)
+          store_row(bits, nblocks, b, active, j, compare_row(v, s_key[j]) & valid, s_cnt);
+      });
   flush_counts(s_cnt, k, counts);
+}
+
+// One launch of the compare kernel (k <= kMaxKeys): a CTA for every `run`
+// tiles (0: the resident grid).
+template <int W, int T, int kStages>
+cudaError_t launch_compare(const uint32_t* tiles, const uint32_t* keys, int k, uint32_t* bits,
+                           unsigned long long* counts, long long nblocks, long long n,
+                           long long block_offset, long long run, cudaStream_t stream) {
+  const auto kernel = shared_scan_kernel<W, T, kStages>;
+  const size_t smem = tile_ring_bytes(W, T, kStages);
+  CUtensorMap map;
+  unsigned grid = 0;
+  cudaError_t err = tile_map(&map, tiles, W, nblocks, T);
+  if (err == cudaSuccess) err = staged_grid(kernel, T, smem, nblocks, run, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, T, smem, stream>>>(map, keys, k, bits, counts, nblocks, n, block_offset, run);
+  return cudaGetLastError();
 }
 
 }  // namespace sss
@@ -68,23 +95,22 @@ shared_scan_kernel(const uint32_t* __restrict__ tiles, const uint32_t* __restric
 extern "C" int sss_shared_scan(const uint32_t* tiles, const uint32_t* keys, int k, uint32_t* bits,
                                unsigned long long* counts, long long nblocks, int width,
                                long long n, long long block_offset, cudaStream_t stream) {
+  if (!sss::width_ok(width)) return (int)cudaErrorInvalidValue;
   if (nblocks <= 0 || k <= 0) return (int)cudaSuccess;
-  const unsigned grid = sss::grid_for(nblocks);
   for (int j0 = 0; j0 < k; j0 += sss::kMaxKeys) {
     const int kc = k - j0 < sss::kMaxKeys ? k - j0 : sss::kMaxKeys;
     uint32_t* bits_c = bits + (size_t)j0 * nblocks;
+    cudaError_t err = cudaErrorInvalidValue;
     switch (width) {
-#define SSS_CASE(W)                                                               \
-  case W:                                                                         \
-    sss::shared_scan_kernel<W><<<grid, sss::kThreads, 0, stream>>>(               \
-        tiles, keys + j0, kc, bits_c, counts + j0, nblocks, n, block_offset);     \
+#define SSS_CASE(W)                                                                         \
+  case W:                                                                                   \
+    err = sss::launch_compare<W, sss::kCompareThreads, sss::kCompareStages>(                \
+        tiles, keys + j0, kc, bits_c, counts + j0, nblocks, n, block_offset,                \
+        sss::staged_run(W, kc, sss::kCompareThreads), stream);                              \
     break;
       SSS_FOR_EACH_WIDTH(SSS_CASE)
 #undef SSS_CASE
-      default:
-        return (int)cudaErrorInvalidValue;
     }
-    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;

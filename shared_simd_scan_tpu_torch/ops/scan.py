@@ -159,9 +159,12 @@ def shared_scan_tiles(
     ``block_offset`` is the global index of the tiles' first block, for a
     shard of a longer column of ``n`` values.
 
-    Kernel ``sss_shared_scan`` (``csrc/shared_scan.cu``) on CUDA tensors,
-    in launches of MAX_LAUNCH_KEYS keys (each counted); the plain version
-    on CPU tensors."""
+    On CUDA tensors, in launches of MAX_LAUNCH_KEYS keys: kernel
+    ``sss_shared_scan`` (``csrc/shared_scan.cu``), counted here, or where
+    :func:`_compare_fold_wins` the bit-sliced tier's launch on the same
+    keys (:func:`_fold_route_launch`: the plane fold, or the dynamic scan's
+    lookup), counted by the wrapper of the kernel that ran; the keys are
+    never read on the host.  The plain version on CPU tensors."""
     b1 = _check_tiles(tiles, width)
     _check_key_tensor(keys)
     device = _cuda.kernel_device(tiles, keys)
@@ -170,11 +173,17 @@ def shared_scan_tiles(
     k = int(keys.shape[0])
     bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
     counts = torch.zeros(k, dtype=torch.int64, device=device)
-    _cuda.launch(
-        "sss_shared_scan", device, tiles.data_ptr(), keys.data_ptr(), k, bits.data_ptr(),
-        counts.data_ptr(), b1 * LANES, width, n, block_offset,
-    )
-    shared_scan_tiles.launches += -(-k // MAX_LAUNCH_KEYS)
+    for g0 in range(0, k, MAX_LAUNCH_KEYS):
+        rows = min(k - g0, MAX_LAUNCH_KEYS)
+        if _compare_fold_wins(width, rows):
+            _fold_route_launch(tiles, keys, g0, rows, bits, counts, width, n, block_offset, device)
+            continue
+        _cuda.launch(
+            "sss_shared_scan", device, tiles.data_ptr(), keys.data_ptr() + 4 * g0, rows,
+            bits.data_ptr() + 4 * g0 * b1 * LANES, counts.data_ptr() + 8 * g0, b1 * LANES, width,
+            n, block_offset,
+        )
+        shared_scan_tiles.launches += 1
     return bits, counts
 
 
@@ -620,6 +629,70 @@ def _runtime_lookup_wins(width: int, k: int) -> bool:
     return bool(below and above) and below[-1] in wins and above[0] in wins
 
 
+# The widths and k of one launch that ``bench/redesign_sweep.py compare``
+# timed (CUDA keys on ``i % 2^min(width, 9)`` columns of 256 MiB packed,
+# less where the k rows would pass 16 GiB; NVIDIA H100 80GB HBM3, 700 W),
+# and by width the k where the bit-sliced tier's launch on the key tensor
+# (:func:`_fold_route_launch`) ran more than 5% faster than the compare
+# kernel.  The compare kernel's work grows with k alone, the fold's with k
+# x width, so the crossover moves from k = 1 at width 1 to 16 at width 31.
+_COMPARE_SWEEP_WIDTHS = (1, 5, 9, 12, 16, 17, 20, 25, 31)
+_COMPARE_SWEEP_KS = (1, 2, 3, 4, 5, 8, 16, 32, 64, 256, 1024)
+_COMPARE_FOLD_KS = {
+    1: (1, 2, 3, 4, 5, 8, 16, 32, 64, 256, 1024), 5: (2, 3, 4, 5, 8, 16, 32, 64, 256, 1024),
+    **{w: (4, 5, 8, 16, 32, 64, 256, 1024) for w in (9, 12)},
+    **{w: (8, 16, 32, 64, 256, 1024) for w in (16, 17, 20)},
+    **{w: (16, 32, 64, 256, 1024) for w in (25, 31)},
+}
+
+
+def _around(grid: tuple, x: int) -> tuple[int, int] | None:
+    """The measured points of ``grid`` at or around x (both x where x is
+    one), or None outside the grid."""
+    below = [m for m in grid if m <= x]
+    above = [m for m in grid if m >= x]
+    return (below[-1], above[0]) if below and above else None
+
+
+@functools.lru_cache(maxsize=None)
+def _compare_fold_wins(width: int, k: int) -> bool:
+    """Whether one launch of k keys of a ``width``-bit column in
+    :func:`shared_scan_tiles` takes the bit-sliced tier's launch in place
+    of the compare kernel: where the sweep measured it more than 5%
+    faster, or where every measured point around (width, k) -- the swept
+    widths and k at or on each side -- did.  Same results either way: both
+    set bit r of row j iff value r equals key j."""
+    widths, ks = _around(_COMPARE_SWEEP_WIDTHS, width), _around(_COMPARE_SWEEP_KS, k)
+    if widths is None or ks is None:
+        return False
+    return all(m in _COMPARE_FOLD_KS.get(w, ()) for w in widths for m in ks)
+
+
+def _fold_route_launch(
+    tiles: torch.Tensor, keys: torch.Tensor, g0: int, rows: int, bits: torch.Tensor,
+    counts: torch.Tensor, width: int, n: int, block_offset: int, device: torch.device,
+) -> None:
+    """One launch of the bit-sliced tier on keys ``g0 .. g0 + rows - 1``
+    (rows <= MAX_LAUNCH_KEYS, in device memory), into the same rows of
+    ``bits`` and ``counts``: the plane fold in tile order
+    (``sss_bitsliced_static_fold``), counted by
+    :func:`shared_scan_bitsliced_tiles`, or where
+    :func:`_runtime_lookup_wins` the dynamic scan's key lookup
+    (``sss_shared_scan_dynamic``), counted by
+    :func:`shared_scan_dynamic_tiles`."""
+    lookup = _runtime_lookup_wins(width, rows)
+    nblocks = tiles.shape[1] * LANES
+    _cuda.launch(
+        "sss_shared_scan_dynamic" if lookup else "sss_bitsliced_static_fold", device,
+        tiles.data_ptr(), keys.data_ptr() + 4 * g0, rows, bits.data_ptr() + 4 * g0 * nblocks,
+        counts.data_ptr() + 8 * g0, nblocks, width, n, block_offset,
+    )
+    if lookup:
+        shared_scan_dynamic_tiles.launches += 1
+    else:
+        shared_scan_bitsliced_tiles.launches += 1
+
+
 def shared_scan_bitsliced_tiles(
     tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -642,17 +715,8 @@ def shared_scan_bitsliced_tiles(
     bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
     counts = torch.zeros(k, dtype=torch.int64, device=device)
     for g0 in range(0, k, MAX_LAUNCH_KEYS):
-        rows = min(k - g0, MAX_LAUNCH_KEYS)
-        lookup = _runtime_lookup_wins(width, rows)
-        _cuda.launch(
-            "sss_shared_scan_dynamic" if lookup else "sss_bitsliced_static_fold", device,
-            tiles.data_ptr(), keys[g0].data_ptr(), rows, bits[g0].data_ptr(),
-            counts[g0].data_ptr(), b1 * LANES, width, n, block_offset,
-        )
-        if lookup:
-            shared_scan_dynamic_tiles.launches += 1
-        else:
-            shared_scan_bitsliced_tiles.launches += 1
+        _fold_route_launch(tiles, keys, g0, min(k - g0, MAX_LAUNCH_KEYS), bits, counts, width, n,
+                           block_offset, device)
     return bits, counts
 
 

@@ -84,14 +84,167 @@ def test_block_offset_matches_plain(cuda_device):
 
 
 def test_compare_kernel_past_1024_keys(cuda_device):
-    # the C entry point launches keys in chunks of 1024, each counted
+    # the wrapper launches keys in chunks of 1024, each counted under the
+    # kernel that ran: the compare kernel, or where _compare_fold_wins the
+    # bit-sliced tier's launch (the fold, or the dynamic scan's lookup)
     width = 11
     tiles = unpack.pack_device_kernel(_values(width, N, 11, cuda_device), width).tiles
     kt = _keys((np.arange(1500) * 7) % 2048, cuda_device)
-    before = scan.shared_scan_tiles.launches
+    fns = (scan.shared_scan_tiles, scan.shared_scan_bitsliced_tiles,
+           scan.shared_scan_dynamic_tiles)
+    before = [fn.launches for fn in fns]
     _same(scan.shared_scan_tiles(tiles, kt, width, N),
           scan.shared_scan_tiles_plain(tiles, kt, width, N))
-    assert scan.shared_scan_tiles.launches == before + 2
+    assert [fn.launches - b for fn, b in zip(fns, before)] == _compare_launches(width, 1500)
+
+
+def _compare_launches(width, k):
+    """Launches of shared_scan_tiles on k keys, by wrapper: the compare
+    kernel, the fold, the dynamic scan."""
+    out = [0, 0, 0]
+    for g0 in range(0, k, scan.MAX_LAUNCH_KEYS):
+        rows = min(k - g0, scan.MAX_LAUNCH_KEYS)
+        if not scan._compare_fold_wins(width, rows):
+            out[0] += 1
+        elif scan._runtime_lookup_wins(width, rows):
+            out[2] += 1
+        else:
+            out[1] += 1
+    return out
+
+
+# ragged n: one tile of 256 blocks, and two and a half (a last tile of 128)
+SCAN_NS = (N, 5 * 128 * 32 - 7)
+INTERVAL_KS = (1, 7, 8, 9, 31, 32, 33, 1024)
+
+
+def _interval_launch(tiles, lo, k, width, n, bo, gateless):
+    """sss_interval_scan with the one-hot form chosen here, not by the canary."""
+    b1 = tiles.shape[1]
+    bits = torch.empty((k, b1, 128), dtype=torch.int32, device=tiles.device)
+    counts = torch.zeros(k, dtype=torch.int64, device=tiles.device)
+    _cuda.launch("sss_interval_scan", tiles.device, tiles.data_ptr(), lo, k, bits.data_ptr(),
+                 counts.data_ptr(), b1 * 128, width, n, bo, int(gateless))
+    return bits, counts
+
+
+@pytest.mark.parametrize("width", range(1, 32))
+def test_interval_kernel_every_width_matches_plain(cuda_device, width):
+    # k around a round of 8 and a chunk of 32, lo 0, near the top of the
+    # domain and wrapping past 2^32 - 1, gateless and gated, ragged n and a
+    # block_offset; the wrapper (the canary's form) too
+    dom = 1 << width
+    for n in SCAN_NS:
+        tiles = unpack.pack_device_kernel(_values(width, n, width + 300, cuda_device), width).tiles
+        for k in INTERVAL_KS:
+            for lo in (0, max(dom - 4, 0), (1 << 32) - 3):
+                for bo in (0, 3):
+                    want = scan.interval_scan_tiles_plain(tiles, lo, k, width, n, bo)
+                    for gateless in (True, False):
+                        _same(_interval_launch(tiles, lo, k, width, n, bo, gateless), want)
+                    if k in (8, 33):
+                        _same(scan.interval_scan_tiles(tiles, lo, k, width, n, bo), want)
+
+
+@pytest.mark.parametrize("width", range(1, 32))
+def test_interval_linear_kernel_every_width_matches_plain(cuda_device, width):
+    # row 6 shares the interval kernel's body
+    dom = 1 << width
+    tiles = unpack.pack_device_kernel(_values(width, N, width + 400, cuda_device), width).tiles
+    for k in (4, 8, 12, 32, 36, 64, 128):
+        for lo in (0, max(dom - 5, 0), (1 << 32) - 3):
+            for bo in (0, 2):
+                _same(scan._interval_linear_tiles_impl(tiles, lo, k, width, N, bo),
+                      scan._interval_linear_tiles_plain(tiles, lo, k, width, N, bo))
+
+
+COMPARE_KS = (1, 2, 3, 4, 5, 8, 32, 33, 64, 1024, 1025)
+
+
+def _compare_edge_keys(k, width, values, rng):
+    """k keys drawn from the column with key 0 (over the padding of a
+    ragged n), a duplicate, 2^width, 2^31 and 0xFFFFFFFF among them."""
+    keys = values[rng.integers(0, values.shape[0], size=k)].astype(np.uint64)
+    for at, key in ((0, 0), (1, int(keys[0])), (2, 1 << width), (3, 1 << 31), (4, 0xFFFFFFFF)):
+        if at < k:
+            keys[at] = key
+    return keys
+
+
+def _compare_launch(tiles, kt, width, n, bo):
+    """sss_shared_scan itself, whatever the rule says."""
+    k, b1 = kt.shape[0], tiles.shape[1]
+    bits = torch.empty((k, b1, 128), dtype=torch.int32, device=tiles.device)
+    counts = torch.zeros(k, dtype=torch.int64, device=tiles.device)
+    _cuda.launch("sss_shared_scan", tiles.device, tiles.data_ptr(), kt.data_ptr(), k,
+                 bits.data_ptr(), counts.data_ptr(), b1 * 128, width, n, bo)
+    return bits, counts
+
+
+@pytest.mark.parametrize("width", range(1, 32))
+def test_compare_wrapper_every_width_both_sides_of_the_rule(cuda_device, width):
+    # the wrapper (the compare kernel, or the bit-sliced tier's launch where
+    # _compare_fold_wins), the compare kernel itself and the bit-sliced
+    # tier's launch itself, each against the plain compare
+    rng = np.random.default_rng(width + 500)
+    fns = (scan.shared_scan_tiles, scan.shared_scan_bitsliced_tiles,
+           scan.shared_scan_dynamic_tiles)
+    for n in SCAN_NS:
+        values = rng.integers(0, 1 << width, size=n).astype(np.uint32)
+        tiles = unpack.pack_device_kernel(
+            torch.from_numpy(values.view(np.int32)).to(cuda_device), width).tiles
+        for k in COMPARE_KS:
+            kt = _keys(_compare_edge_keys(k, width, values, rng), cuda_device)
+            for bo in (0, 3):
+                want = scan.shared_scan_tiles_plain(tiles, kt, width, n, bo)
+                before = [fn.launches for fn in fns]
+                _same(scan.shared_scan_tiles(tiles, kt, width, n, bo), want)
+                assert [fn.launches - b for fn, b in zip(fns, before)] == \
+                    _compare_launches(width, k), (width, k)
+                _same(_compare_launch(tiles, kt, width, n, bo), want)
+                _same(scan.shared_scan_bitsliced_tiles(tiles, kt, width, n, bo), want)
+
+
+@pytest.mark.parametrize("width", [9, 31])
+def test_staged_kernels_walk_many_tiles_a_cta(cuda_device, width):
+    # many runs of tiles, each CTA's run (3-8 tiles here) turning its ring
+    # of stages more than once
+    n = {9: 40_000_003, 31: 10_000_019}[width]
+    values = _values(width, n, width + 600, cuda_device)
+    tiles = unpack.pack_device_kernel(values, width).tiles
+    for lo, k in ((0, 8), (5, 33)):
+        _same(scan.interval_scan_tiles(tiles, lo, k, width, n),
+              scan.interval_scan_tiles_plain(tiles, lo, k, width, n))
+    for keys in ([0, int(values[7]), 1 << width], [int(values[3])]):
+        kt = _keys(keys, cuda_device)
+        _same(_compare_launch(tiles, kt, width, n, 1),
+              scan.shared_scan_tiles_plain(tiles, kt, width, n, 1))
+
+
+def test_refused_interval_and_compare_launches_raise(cuda_device):
+    tiles = torch.zeros((9, 8, 128), dtype=torch.int32, device=cuda_device)
+    bits = torch.empty((1025, 8, 128), dtype=torch.int32, device=cuda_device)
+    counts = torch.zeros(1025, dtype=torch.int64, device=cuda_device)
+    keys = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    for k, w in ((0, 9), (1025, 9), (8, 0), (8, 32)):
+        # no keys, more than a launch's counters hold, widths outside 1-31
+        with pytest.raises(RuntimeError, match="sss_interval_scan"):
+            _cuda.launch("sss_interval_scan", cuda_device, tiles.data_ptr(), 0, k,
+                         bits.data_ptr(), counts.data_ptr(), 8 * 128, w, 100, 0, 1)
+    for w in (0, 32):
+        with pytest.raises(RuntimeError, match="sss_shared_scan"):
+            _cuda.launch("sss_shared_scan", cuda_device, tiles.data_ptr(), keys.data_ptr(), 8,
+                         bits.data_ptr(), counts.data_ptr(), 8 * 128, w, 100, 0)
+    # rows the bulk copies cannot take: not 16-byte aligned
+    with pytest.raises(RuntimeError, match="sss_interval_scan"):
+        _cuda.launch("sss_interval_scan", cuda_device, tiles.data_ptr() + 4, 0, 8,
+                     bits.data_ptr(), counts.data_ptr(), 8 * 128, 9, 100, 0, 1)
+    with pytest.raises(RuntimeError, match="sss_shared_scan"):
+        _cuda.launch("sss_shared_scan", cuda_device, tiles.data_ptr() + 4, keys.data_ptr(), 8,
+                     bits.data_ptr(), counts.data_ptr(), 8 * 128, 9, 100, 0)
+    for k in (0, 1025):
+        with pytest.raises(ValueError, match="interval scan supports"):
+            scan.interval_scan_tiles(tiles, 0, k, 9, 100)
 
 
 def test_shift_canary_matches_plain(cuda_device):
