@@ -9,7 +9,9 @@ from the sources in the checkout and then:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. runs the shift canary and prints what PTX ``shl.b32`` and C++ ``<<`` do
-   with amounts >= 32;
+   with amounts >= 32, and holds its verdict kernel (one warp's ballot of
+   the 16 amounts, ``scan.shift_verdict``) against the plain verdict and
+   the elementwise canary's;
 3. holds every kernel bit-exact against its plain torch version on the card
    at small ragged sizes (widths 1-31, padding, spread, clustered,
    duplicate and out-of-domain keys, k up to 1024; for the aggregates
@@ -112,7 +114,9 @@ from the sources in the checkout and then:
    before and read just after each call; checks that each call ran the
    kernel its rule names and equals plain torch on the raw values
    (``bincount``, per-zone ``amin``/``amax``, the full range scan,
-   ``evaluate`` without zone maps);
+   ``evaluate`` without zone maps), the zoned scan also in its count form
+   (``full_bits=False``); the zoned kernel launched on rows filled with -1
+   first at every width 1-31 and at full size (every word written);
 9. holds the linear export's kernels against their plain versions at small
    ragged sizes (the interleave at k 1-1024 and the stream interleave with
    ragged M; the fused interval, static and runtime-key kernels at every k
@@ -179,7 +183,13 @@ from the sources in the checkout and then:
     each with its launches by kernel, its counts against the closed form
     and its bits against the plain version, beside its bound and the
     staged fold on the same keys, with both kernels' registers and spills;
-14. prints a JSON line with one entry per kernel, and as its last line
+14. times the shift canary's verdict (CUDA events, its first call on a
+    cleared cache on the host clock, its device time by ``torch.profiler``),
+    the elementwise canary and ``torch.bitwise_left_shift`` on the same
+    inputs (held against the plain shift first), and the zoned scan Z3:
+    the row form, the count form, the row form's device time and
+    ``zoned_eq_scan``'s wall time;
+15. prints a JSON line with one entry per kernel, and as its last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check or error exits non-zero and prints no result; so does a
@@ -221,7 +231,8 @@ KERNELS = {  # name -> (source, its C entry point, TPU kernel it replaces)
                     "shared_simd_scan_tpu/ops/scan.py:70"),
     "interval_scan": ("shared_simd_scan_tpu_torch/csrc/interval_scan.cu", "sss_interval_scan",
                       "shared_simd_scan_tpu/ops/scan.py:1266"),
-    "shift_canary": ("shared_simd_scan_tpu_torch/csrc/interval_scan.cu", "sss_shift_canary",
+    # the verdict (one launch, one sync); its elementwise form, CANARY_ELEMENTWISE
+    "shift_canary": ("shared_simd_scan_tpu_torch/csrc/interval_scan.cu", "sss_shift_verdict",
                      "shared_simd_scan_tpu/ops/scan.py:1336"),
     # the runtime keys through the static fold's body (RUNTIME_LOOKUP where
     # scan._runtime_lookup_wins picks it)
@@ -292,6 +303,9 @@ KERNELS = {  # name -> (source, its C entry point, TPU kernel it replaces)
     "shared_scan_dynamic": ("shared_simd_scan_tpu_torch/csrc/shared_scan.cu",
                             "sss_shared_scan_dynamic", "shared_simd_scan_tpu/ops/scan.py:2089"),
 }
+# the canary's elementwise kernel, held against its plain version and timed
+# beside the verdict: (source, C entry point)
+CANARY_ELEMENTWISE = ("shared_simd_scan_tpu_torch/csrc/interval_scan.cu", "sss_shift_canary")
 # the other kernel of the histogram_dag entry: (source, C entry point)
 FOLD_KERNEL = ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu", "sss_histogram_fold")
 # the kernel the runtime tier launches where scan._runtime_lookup_wins says so
@@ -404,7 +418,7 @@ def wrappers() -> dict:
     return {
         "unpack": unpack.unpack_tiles, "pack": unpack.pack_tiles,
         "shared_scan": scan.shared_scan_tiles, "interval_scan": scan.interval_scan_tiles,
-        "shift_canary": scan.run_shift_canary,
+        "shift_canary": scan.shift_verdict,
         "bitsliced_scan": scan.shared_scan_bitsliced_tiles,
         "bitsliced_static_scan": scan.shared_scan_bitsliced_static_tiles,
         "windowed_scan": scan.windowed_scan_tiles,
@@ -487,7 +501,7 @@ def build_phase() -> float:
     print(f"build: {seconds:.1f} s ({_cuda.library_path().name})")
     for name, (_, c_entry, _) in KERNELS.items():
         check(c_entry in _cuda._SIGNATURES, f"{name}: its entry point {c_entry} is in the library")
-    for other in (FOLD_KERNEL, RUNTIME_LOOKUP, WINDOW_FOLD, COMPARE_ROUTE):
+    for other in (FOLD_KERNEL, RUNTIME_LOOKUP, WINDOW_FOLD, COMPARE_ROUTE, CANARY_ELEMENTWISE):
         check(other[1] in _cuda._SIGNATURES, f"{other[1]} is in the library")
     log_path = _cuda.BUILD_DIR / "ptxas.log"
     log_path.write_text(_cuda.build_log)
@@ -531,6 +545,12 @@ def canary_phase(device, errs: dict) -> bool:
     print(f"shift canary: C++ << gives 0 for all amounts >= 32: {cxx_ok}"
           + ("" if cxx_ok else f" (nonzero for amounts {nonzero})"))
     check(errs["shift_canary"] == 0, "shift canary (PTX form) equals its plain version")
+    before = scan.shift_verdict.launches
+    verdict = scan.shift_verdict(device)
+    plain_verdict = scan.shift_verdict_plain(device)
+    errs["shift_canary"] = max(errs["shift_canary"], int(verdict != plain_verdict))
+    check(verdict == plain_verdict == ptx_ok and scan.shift_verdict.launches == before + 1,
+          f"shift verdict ({verdict}, one launch) == the plain verdict == the elementwise canary's")
     return ptx_ok
 
 
@@ -936,7 +956,6 @@ def timing_phase(device, n: int, dev, arb, errs: dict) -> dict:
     tile_bytes = tiles.numel() * 4
     vals_layout = unpack.unpack_tiles(tiles, WIDTH)
     key1 = torch.tensor([SCAN_KEY], dtype=torch.int32, device=device)
-    base, amounts = scan.canary_inputs(device)
     atiles = arb.tiles
     sets = {"k=8": S8, "k=64": s64(), "k=8 clustered": W8}
     ktens = {k: torch.tensor(keys, dtype=torch.int32, device=device) for k, keys in sets.items()}
@@ -951,8 +970,6 @@ def timing_phase(device, n: int, dev, arb, errs: dict) -> dict:
                           lambda: scan.interval_scan_tiles_plain(tiles, 0, K, WIDTH, n)),
         "shared_scan": (lambda: scan.shared_scan_tiles(tiles, key1, WIDTH, n),
                         lambda: scan.shared_scan_tiles_plain(tiles, key1, WIDTH, n)),
-        "shift_canary": (lambda: scan.run_shift_canary(base, amounts)[0],
-                         lambda: scan.shift_canary_plain(base, amounts)),
     }
     nkeys = {}
     for label, keys in sets.items():
@@ -1002,7 +1019,6 @@ def timing_phase(device, n: int, dev, arb, errs: dict) -> dict:
         "pack": 32 * nblocks * 4 + tile_bytes,
         "interval_scan": scan_bytes(K) - 4 * K,  # lo is an argument, not a key array
         "shared_scan": scan_bytes(1),
-        "shift_canary": 3 * base.numel() * 4,
     }
     for name, k in nkeys.items():
         traffic[name] = scan_bytes(k)
@@ -1029,6 +1045,60 @@ def timing_phase(device, n: int, dev, arb, errs: dict) -> dict:
                    "windowed_lookup_kernelILb1E": "window lookup, direct table",
                    "windowed_lookup_kernelILb0E": "window lookup, search"})
     return results
+
+
+def canary_timing_phase(device, errs: dict) -> dict:
+    """The shift canary's verdict (``scan.shift_verdict``, one launch and
+    one sync a call: CUDA events over calls, its first call on a cleared
+    cache on the host clock, its device time by ``torch.profiler``) beside
+    the plain verdict, the elementwise canary and
+    ``torch.bitwise_left_shift`` on the same inputs, each shift held
+    against the plain one first."""
+    import torch
+    from shared_simd_scan_tpu_torch.ops import scan
+
+    from shared_simd_scan_tpu_torch.bench.timing import device_ms
+
+    base, amounts = scan.canary_inputs(device)
+    plain = scan.shift_canary_plain(base, amounts)
+    errs["shift_canary"] = max(errs["shift_canary"],
+                               max_abs_err(scan.run_shift_canary(base, amounts)[0], plain))
+    check(errs["shift_canary"] == 0, "elementwise shift canary equals its plain version")
+    same = torch.equal(torch.bitwise_left_shift(base, amounts), plain)
+    print(f"torch.bitwise_left_shift on the canary inputs equals the plain shift: {same}")
+    firsts = []
+    for _ in range(11):
+        scan._SHIFT_SEMANTICS.clear()
+        t0 = time.monotonic()
+        scan.shift_saturates(device)
+        firsts.append((time.monotonic() - t0) * 1e3)
+    dev = device_ms(lambda: scan.shift_verdict(device))
+    out = {
+        "ms": time_ms(lambda: scan.shift_verdict(device), batches=5, calls=10),
+        "plain_ms": time_ms(lambda: scan.shift_verdict_plain(device), batches=5, calls=10),
+        # the amounts in, the word out
+        "bound_ms": (len(scan.CANARY_AMOUNTS) + 1) * 4 / HBM_BYTES_PER_S * 1e3,
+        "first_call_ms": statistics.median(firsts),
+        "device_ms": sum(dev.values()) if dev else None,
+        "ms_elementwise": time_ms(lambda: scan.run_shift_canary(base, amounts), batches=5,
+                                  calls=10),
+        "plain_ms_elementwise": time_ms(lambda: scan.shift_canary_plain(base, amounts),
+                                        batches=5, calls=10),
+        "bound_ms_elementwise": 3 * base.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+        "library_ms": time_ms(lambda: torch.bitwise_left_shift(base, amounts), batches=5,
+                              calls=10) if same else None,
+        "library_equal": same,
+    }
+    print(f"time shift verdict: {out['ms']:.6f} ms a call (CUDA events, a launch and a sync), "
+          f"first call on a cleared cache {out['first_call_ms']:.6f} ms (host clock, median of "
+          f"{len(firsts)}), device time "
+          + (f"{out['device_ms']:.6f} ms ({dev})" if dev else "not measured (the profiler saw "
+             "no device time)")
+          + f"; plain verdict {out['plain_ms']:.6f} ms; elementwise canary "
+          f"{out['ms_elementwise']:.6f} ms, plain {out['plain_ms_elementwise']:.6f} ms, "
+          + (f"torch.bitwise_left_shift {out['library_ms']:.6f} ms" if same else
+             "torch.bitwise_left_shift differs from the plain shift: no library time"))
+    return out
 
 
 def width20_phase(device, errs: dict) -> dict:
@@ -2192,7 +2262,7 @@ def small_stats_phase(device, errs: dict) -> None:
     import torch
     from shared_simd_scan_tpu_torch.layout import LANES
     from shared_simd_scan_tpu_torch import zonemap
-    from shared_simd_scan_tpu_torch.ops import scan, unpack
+    from shared_simd_scan_tpu_torch.ops import _cuda, scan, unpack
 
     rng = np.random.default_rng(SEED + 3)
 
@@ -2271,11 +2341,32 @@ def small_stats_phase(device, errs: dict) -> None:
                 note("histogram_domain",
                      scan._histogram_domain_tiles(tiles, width, vals.size, bo),
                      scan._histogram_domain_tiles_plain(tiles, width, vals.size, bo))
+    # the zoned kernel launched on rows filled with -1 at every width: every
+    # word written (unsorted steps, a step listed twice with flag 1, a flag-0
+    # repeat, a step past the column), and its count form
+    idx, flag = t32([8, 0, 4, 4, 0, 9]), t32([1, 1, 1, 1, 0, 1])
+    for width in range(1, 32):
+        dom = 1 << width
+        vals = rng.integers(0, dom, size=n_steps)
+        tiles = unpack.pack_device_kernel(t32(vals), width).tiles
+        lows, highs = t32([0, dom // 3, 0xFFFFFFF0]), t32([dom, dom // 2, 0])
+        pbits, pcounts = zonemap.zoned_range_tiles_plain(tiles, idx, flag, lows, highs, width,
+                                                         n_steps, 8)
+        bits = torch.full_like(pbits, -1)
+        counts = torch.empty_like(pcounts)
+        for out in (bits, None):
+            counts.fill_(-1)  # the C entry zeroes them in both forms
+            _cuda.launch("sss_zoned_range_scan", device, tiles.data_ptr(), idx.data_ptr(),
+                         flag.data_ptr(), idx.numel(), lows.data_ptr(), highs.data_ptr(), 3,
+                         None if out is None else out.data_ptr(), counts.data_ptr(),
+                         tiles.shape[1] * LANES, 8 * LANES, width, n_steps)
+            note("zoned_range_scan", (bits, counts), (pbits, pcounts))
     torch.cuda.synchronize()
     for name in (*HISTOGRAM, *ZONED, "range_scan"):
         check(errs[name] == 0, f"{name} kernel exact against its plain version (widths "
               f"{HIST_WIDTHS}, n {SMALL_NS} and {n_steps}, k {HIST_KS}; widths 1-31 at n "
-              f"{n_steps}; the domain histogram at widths 13, 16 and 20)")
+              f"{n_steps}, the zoned kernel on rows filled with -1 and in its count form; the "
+              f"domain histogram at widths 13, 16 and 20)")
 
 
 def stats_phase(device, arb, cols, rev) -> tuple[dict, dict]:
@@ -2429,6 +2520,7 @@ def zone_phase(device, cols) -> tuple[dict, dict]:
     zmaps = {name: outs[f"Z1 {name}"] for name in zcols}
     run("Z2", lambda: zonemap.pruned_eq_scan(zcols["clustered"], zmaps["clustered"], 100))
     run("Z3", lambda: zonemap.zoned_eq_scan(zcols["ends"], zmaps["ends"], 7))
+    run("Z3c", lambda: zonemap.zoned_eq_scan(zcols["ends"], zmaps["ends"], 7, full_bits=False))
     run("Z4", lambda: zonemap.zoned_eq_scan(zcols["price"], zmaps["price"], 7))
     z5 = query.And(query.Range(zcols["clustered"], 100, 120),
                    query.Not(query.Eq(zcols["price"], 7)))
@@ -2459,7 +2551,8 @@ def zone_phase(device, cols) -> tuple[dict, dict]:
     check(0 < int(live.sum()) <= 3 and live.shape[0] == 456,
           f"Z3: {int(live.sum())} of {live.shape[0]} steps of 256 rows live (steps "
           f"{live.nonzero()[0].tolist()})")
-    want = {"Z2": {"range_scan": 1}, "Z3": {"zoned_range_scan": 1}, "Z4": {"range_scan": 1},
+    want = {"Z2": {"range_scan": 1}, "Z3": {"zoned_range_scan": 1},
+            "Z3c": {"zoned_range_scan": 1}, "Z4": {"range_scan": 1},
             "Z5": {"range_scan": 1, "conj_range_scan": 1}}
     for name, w in want.items():
         check(ran[name] == w, f"{name}: ran {ran[name]}, the kernel its rule names")
@@ -2471,6 +2564,9 @@ def zone_phase(device, cols) -> tuple[dict, dict]:
               and torch.equal(bits, bitvector.from_bool(truth)),
               f"{name}: every word and the count ({int(count)}) equal the full range scan's and "
               f"the raw values' {col} == {key}")
+    bits, count = outs["Z3c"]
+    check(bits is None and int(count) == int(outs["Z3"][1]),
+          f"Z3c: the count form gives no row and Z3's count ({int(count)})")
     bits, count = outs["Z5"]
     pbits, pcount = query.evaluate(z5)
     check(torch.equal(bits, pbits) and int(count) == int(pcount),
@@ -2491,7 +2587,8 @@ def stats_timing_phase(device, arb, rev, zdata, stats_cols, cols, errs: dict) ->
     import torch
     from shared_simd_scan_tpu_torch.layout import LANES
     from shared_simd_scan_tpu_torch import stats, zonemap
-    from shared_simd_scan_tpu_torch.ops import scan, unpack
+    from shared_simd_scan_tpu_torch.bench.timing import device_ms
+    from shared_simd_scan_tpu_torch.ops import _cuda, scan, unpack
 
     tiles, n = arb.tiles, arb.n
     tile_bytes = tiles.numel() * 4
@@ -2509,6 +2606,11 @@ def stats_timing_phase(device, arb, rev, zdata, stats_cols, cols, errs: dict) ->
 
     def rows_bytes(rows):  # the rows' words read, their bitvector words written, the count
         return rows * LANES * (WIDTH + 1) * 4 + 8
+
+    # Z3: the live steps' words read, idx and flag, the bounds and the count;
+    # the row form also writes every word of the row
+    z3_counts_bytes = live_rows * LANES * WIDTH * 4 + 8 * idx.numel() + 8 + 8
+    z3_bytes = z3_counts_bytes + et.shape[1] * LANES * 4
 
     pairs = {  # "kernel set" -> (kernel, plain, bytes it must move)
         "histogram_span H1": (lambda: scan._histogram_span_tiles(tiles, 0, DOMAIN, WIDTH, n),
@@ -2534,12 +2636,19 @@ def stats_timing_phase(device, arb, rev, zdata, stats_cols, cols, errs: dict) ->
         "zoned_range_scan Z3": (
             lambda: zonemap.zoned_range_tiles(et, idx, flag, lo7, hi8, WIDTH, n, tb),
             lambda: zonemap.zoned_range_tiles_plain(et, idx, flag, lo7, hi8, WIDTH, n, tb),
-            rows_bytes(live_rows) + 8 * idx.numel() + 8),
+            z3_bytes),
+        "zoned_range_scan Z3 counts": (
+            lambda: zonemap.zoned_range_tiles(et, idx, flag, lo7, hi8, WIDTH, n, tb, False),
+            lambda: (None, zonemap.zoned_range_tiles_plain(et, idx, flag, lo7, hi8, WIDTH, n,
+                                                           tb)[1]),
+            z3_counts_bytes),
     }
     for name, (kern, plain, _) in pairs.items():
         kernel = name.split()[0]
         a, b = kern(), plain()
-        if isinstance(a, tuple):
+        if isinstance(a, tuple) and a[0] is None:  # the zoned count form
+            e = int((a[1] - b[1]).abs().max())
+        elif isinstance(a, tuple):
             e = max(max_abs_err(a[0], b[0]), int((a[1] - b[1]).abs().max()))
         else:
             e = max_err(a, b)
@@ -2607,7 +2716,41 @@ def stats_timing_phase(device, arb, rev, zdata, stats_cols, cols, errs: dict) ->
           f"{full:.6f} ms; the zeroed full-length row alone {zero:.6f} ms")
     full = time_ms(lambda: scan.range_scan_tiles(et, lo7, hi8, WIDTH, n), batches=5, calls=10)
     print(f"time Z3 zoned ({int(live.sum())} of {live.shape[0]} steps): "
-          f"{results['zoned_range_scan Z3'][0]:.6f} ms, full-column range scan {full:.6f} ms")
+          f"{results['zoned_range_scan Z3'][0]:.6f} ms, its count form "
+          f"{results['zoned_range_scan Z3 counts'][0]:.6f} ms, full-column range scan "
+          f"{full:.6f} ms")
+    # every word of the full-size row written: the kernel on a row of -1
+    pbits, pcounts = pairs["zoned_range_scan Z3"][1]()
+    bits, counts = torch.full_like(pbits, -1), torch.full_like(pcounts, -1)
+    _cuda.launch("sss_zoned_range_scan", device, et.data_ptr(), idx.data_ptr(), flag.data_ptr(),
+                 idx.numel(), lo7.data_ptr(), hi8.data_ptr(), 1, bits.data_ptr(),
+                 counts.data_ptr(), et.shape[1] * LANES, tb * LANES, WIDTH, n)
+    errs["zoned_range_scan"] = max(errs["zoned_range_scan"], max_abs_err(bits, pbits),
+                                   int((counts - pcounts).abs().max()))
+    check(errs["zoned_range_scan"] == 0, "Z3: the zoned call on a row of -1 writes every word, "
+          "each equal to the plain version's")
+    del pbits, bits
+    walls = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        zonemap.zoned_eq_scan(zcols["ends"], zmaps["ends"], 7)
+        torch.cuda.synchronize()
+        walls.append((time.monotonic() - t0) * 1e3)
+    results["zoned_range_scan Z3 wall"] = (statistics.median(walls), None, None)
+    # 256 MiB written before each profiled call: the row's writes reach
+    # device memory within the call, not left dirty in the 50 MB L2
+    z3 = device_ms(pairs["zoned_range_scan Z3"][0], flush_bytes=256 * 1024 * 1024)
+    zoned_dev = sum(v for k, v in z3.items() if "zoned" in k)
+    results["zoned_range_scan Z3 device"] = (sum(z3.values()) if z3 else None,
+                                             zoned_dev if z3 else None, z3_bytes)
+    print(f"time Z3 device (torch.profiler): "
+          + (f"{sum(z3.values()):.6f} ms a call in all (the memsets and the kernel), "
+             f"{z3_bytes / HBM_BYTES_PER_S * 1e3 / sum(z3.values()):.4f} of the bound; "
+             f"{zoned_dev:.6f} ms the zoned kernel ({z3})"
+             if z3 else "not measured (the profiler saw no device time)")
+          + f"; zoned_eq_scan wall time (host clock, synchronized, median of {len(walls)}) "
+          f"{results['zoned_range_scan Z3 wall'][0]:.6f} ms")
     del copy_dst
     return results
 
@@ -3307,6 +3450,8 @@ def main() -> int:
     small_linear_phase(device, errs)
     launches.update(linear_phase(device, dev, arb))
     times = timing_phase(device, n, dev, arb, errs)
+    canary = canary_timing_phase(device, errs)
+    times["shift_canary"] = (canary["ms"], canary["plain_ms"], canary["bound_ms"])
     times.update(query_timing_phase(device, cols, arb, errs))
     times.update(aggregate_timing_phase(device, cols, agg_data, errs))
     times.update(stats_timing_phase(device, arb, agg_data["rev"], zdata, stats_cols, cols, errs))
@@ -3398,6 +3543,16 @@ def main() -> int:
         if name in WIDTH20:
             e["ms_w20_s64"], e["plain_ms_w20_s64"], e["bound_ms_w20_s64"] = \
                 times[f"{name} w20 S64"]
+        if name == "shift_canary":  # the verdict; beside it the elementwise canary
+            e.update({k: v for k, v in canary.items() if k not in ("ms", "plain_ms", "bound_ms")})
+            e["elementwise_kernel"], e["elementwise_source"] = (CANARY_ELEMENTWISE[1],
+                                                                CANARY_ELEMENTWISE[0])
+            e["library_call"] = "torch.bitwise_left_shift"
+        if name == "zoned_range_scan":  # Z3's count form, device time and wall time
+            e["ms_counts"], e["plain_ms_counts"], e["bound_ms_counts"] = \
+                times["zoned_range_scan Z3 counts"]
+            e["device_ms"], e["device_ms_kernel"], _ = times["zoned_range_scan Z3 device"]
+            e["wall_ms_zoned_eq_scan"] = times["zoned_range_scan Z3 wall"][0]
         if name == "histogram_dag":  # H8 runs the fold's counts form
             e["fold_kernel"], e["fold_source"] = FOLD_KERNEL[1], FOLD_KERNEL[0]
         if name in AGGREGATE or name == "histogram_dag":

@@ -4,10 +4,11 @@
 
 SECTION is any of copy, chunked, dynamic, bins, domain, fold, static,
 ortree, histdag, aggstatic, minmax, windowed, runtime, member, interval,
-compare (default: all).
+compare, zoned (default: all).
 Builds
 ``redesign_sweep.cu`` (copy, chunked, dynamic),
 ``redesign_sweep_scan.cu`` (interval, compare),
+``redesign_sweep_zoned.cu`` (zoned),
 ``redesign_sweep_bins_fold.cu`` (bins, domain, fold),
 ``redesign_sweep_static_member.cu`` (static, ortree) and
 ``redesign_sweep_hist_agg.cu`` (histdag, aggstatic, minmax) and
@@ -188,6 +189,23 @@ and then in the reverse one):
   of 256 MiB packed (less where the k rows would pass 16 GiB), and the
   table of ``scan._COMPARE_FOLD_KS``: by width, the k where the launch is
   more than 5% faster.
+- zoned: the zoned range scan (k = 1, steps of 256 block rows, the listed
+  steps in random order) on uniform columns of 477,218,588 values (456
+  steps) at widths 9 and 31, with 1, 3, 50 and 227 of the 456 steps
+  listed: the package's C entry (the rows and counts zeroed by memsets on
+  the stream, then a flat grid of (entry, tile of its step)) against
+  three designs that write the whole row in one launch: 1, 2, 4 or 8
+  zero-filling CTAs a multiprocessor, each over a span of the rows, beside
+  the flat grid, storing zeros by bulk copies or 16-byte stores; CTAs that
+  walk the rows a run of 2-16 tiles each, reading the entries themselves,
+  their listed tiles loaded by each thread or through the TMA ring; and
+  that walk on a step table built on the card first; beside them the
+  package's ``zoned_range_tiles``, its count form, the full-column
+  ``range_scan_tiles`` and ``zero_`` of the row; then each one's device
+  time by ``torch.profiler``, with 256 MiB written before each call so the
+  L2 holds none of the row.  Every variant's words (written over a row
+  filled with -1) equal to the package's entry's and its count to the
+  plain version's first.
 
 The bins and fold sections also print, from ``cuobjdump -sass`` of the
 sweep's library, the instructions of each width-9 kernel's basic blocks
@@ -214,6 +232,7 @@ import numpy as np
 import torch
 
 from shared_simd_scan_tpu_torch.bench import harness
+from shared_simd_scan_tpu_torch.bench.timing import device_ms
 from shared_simd_scan_tpu_torch.layout import LANES
 from shared_simd_scan_tpu_torch.ops import _cuda, aggregate, member, scan
 from shared_simd_scan_tpu_torch.ops.unpack import pack_device_kernel
@@ -224,9 +243,10 @@ BINS_FOLD_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_bins_fold.cu
 STATIC_MEMBER_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_static_member.cu")
 WINDOWED_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_windowed.cu")
 SCAN_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_scan.cu")
+ZONED_SOURCE = pathlib.Path(__file__).with_name("redesign_sweep_zoned.cu")
 SECTIONS = ("copy", "chunked", "dynamic", "bins", "domain", "fold", "static", "ortree",
             "histdag", "aggstatic", "minmax", "windowed", "runtime", "member", "interval",
-            "compare")
+            "compare", "zoned")
 COPY_BYTES = 512 * 1024 * 1024
 COPY_NAMES = {0: "batch (8 loads, then 8 stores)", 1: "pipelined 4", 2: "pipelined 8",
               3: "ring 16 KB x 4, resident grid", 4: "ring 32 KB x 4, resident grid",
@@ -356,6 +376,8 @@ def _libraries(sources: list) -> dict:
                           "sweep_minmax": [i, vp, vp, vp, i, vp, vp, vp, ll, i, i, ll, vp]},
         WINDOWED_SOURCE: {"sweep_window_key_index": [vp, vp, i, i, i, vp, vp, ll, i, ll, vp]},
         SCAN_SOURCE: {"sweep_scan": [i, i, vp, vp, ctypes.c_uint32, i, vp, vp, ll, i, ll, vp]},
+        ZONED_SOURCE: {"sweep_zoned": [i, i, vp, vp, vp, i, vp, vp, i, vp, vp, vp, ll, ll, i, ll,
+                                       vp]},
     }
     libs = {}
     for source, (path, log) in built.items():
@@ -376,7 +398,7 @@ def _resources(log: str) -> list[str]:
         elif entry and ("Used" in line or "spill" in line) and any(
                 w in entry for w in ("copy", "chunked", "dynamic", "bins", "histogram", "domain",
                                      "fold", "static_linear", "interpreter", "lookup", "window",
-                                     "interval", "compare", "shared_scan_kernel")):
+                                     "interval", "compare", "shared_scan_kernel", "zoned")):
             lines.append(f"  {entry}: {line.split(':', 1)[-1].strip()}")
     return lines
 
@@ -1610,6 +1632,97 @@ def member_sweep(device) -> None:
           f"{sorted({r for (_, _, r), g in wins.items() if g <= 0})}")
 
 
+ZONED_LIVE = (1, 3, 50, 227)  # listed steps of the 456
+ZONED_TB = 256
+ZONED_RUNS = (2, 4, 8, 16)
+ZONED_TABLE_RUNS = (4, 16)
+ZONED_FILLS = (1, 2, 4, 8)
+ZONED_FLUSH_BYTES = 256 * 1024 * 1024  # written before each profiled call: past the L2
+
+
+def zoned_sweep(lib, device) -> None:
+    """The zoned range scan's designs on a uniform column of the reference
+    benchmark's n at widths 9 and 31 (b1 = 116,736: 456 steps of 256 block
+    rows), k = 1, with ZONED_LIVE of the steps listed in random order."""
+    from shared_simd_scan_tpu_torch import zonemap
+
+    stream = torch.cuda.current_stream().cuda_stream
+    n = harness.values_for(N_BYTES_FULL, WIDTH)
+    names = {(0, 1): "the package's entry: memsets of the rows and counts, the flat grid"}
+    names.update({(5, f): f"one launch: {f} zero-filling CTAs a multiprocessor, bulk stores, "
+                  "beside the flat grid" for f in ZONED_FILLS})
+    names.update({(4, f): f"one launch: {f} zero-filling CTAs a multiprocessor, 16-byte "
+                  "stores, beside the flat grid" for f in ZONED_FILLS})
+    names.update({(1, r): f"walk in runs of {r} tiles, loads by its threads" for r in ZONED_RUNS})
+    names.update({(2, r): f"walk in runs of {r} tiles, the TMA ring" for r in ZONED_RUNS})
+    names.update({(3, r): f"walk in runs of {r} tiles on a step table built first"
+                  for r in ZONED_TABLE_RUNS})
+    for width in (9, 31):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(width)
+        vals = torch.randint(0, 1 << width, (n,), generator=gen, device=device, dtype=torch.int32)
+        tiles = pack_device_kernel(vals, width).tiles
+        del vals
+        b1 = tiles.shape[1]
+        nblocks, step_blocks = b1 * LANES, ZONED_TB * LANES
+        steps = b1 // ZONED_TB
+        lows = torch.tensor([0], dtype=torch.int32, device=device)
+        highs = torch.tensor([1 << (width - 3)], dtype=torch.int32, device=device)
+        table = torch.empty(steps, dtype=torch.int64, device=device)
+        for live in ZONED_LIVE:
+            rng = np.random.default_rng(live)
+            idx = torch.from_numpy(rng.choice(steps, live, replace=False).astype(np.int32)).to(
+                device)
+            flag = torch.ones_like(idx)
+
+            bits = torch.empty((1, b1, LANES), dtype=torch.int32, device=device)
+            counts = torch.empty(1, dtype=torch.int64, device=device)
+
+            def variant(v, r):  # into the same rows every call: each variant writes every word
+                rc = lib.sweep_zoned(v, r, tiles.data_ptr(), idx.data_ptr(), flag.data_ptr(),
+                                     live, lows.data_ptr(), highs.data_ptr(), 1, bits.data_ptr(),
+                                     counts.data_ptr(), table.data_ptr(), nblocks, step_blocks,
+                                     width, n, stream)
+                if rc:
+                    raise RuntimeError(f"sweep_zoned variant {v}, run {r}: CUDA error {rc}")
+                return bits, counts
+
+            _, want = zonemap.zoned_range_tiles_plain(tiles, idx, flag, lows, highs, width, n,
+                                                      ZONED_TB)
+            ref = variant(0, 1)[0].clone()
+            _check(torch.equal(counts, want),
+                   f"zoned w{width} {live}: the package's entry's count")
+            for (v, r), name in names.items():
+                bits.fill_(-1)
+                counts.fill_(-1)
+                variant(v, r)
+                _check(torch.equal(bits, ref) and torch.equal(counts, want),
+                       f"zoned w{width} {live}: {name} differs from the package's entry")
+            del ref
+            calls = {name: functools.partial(variant, v, r) for (v, r), name in names.items()}
+            calls["the package's zoned_range_tiles"] = lambda: zonemap.zoned_range_tiles(
+                tiles, idx, flag, lows, highs, width, n, ZONED_TB)
+            calls["the package's count form (full_bits=False)"] = lambda: zonemap.zoned_range_tiles(
+                tiles, idx, flag, lows, highs, width, n, ZONED_TB, False)
+            calls["the full-column range_scan_tiles"] = lambda: scan.range_scan_tiles(
+                tiles, lows, highs, width, n)
+            calls["the row's zeros alone (zero_)"] = bits.zero_
+            nbytes = live * step_blocks * width * 4 + nblocks * 4 + 8 * live + 16
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            _report(f"zoned w{width}, {live} of {steps} steps listed, k = 1 (row bound "
+                    f"{nbytes} bytes; the count form's {nbytes - nblocks * 4})", _in_turns(calls),
+                    bound)
+            print("  device time a call (torch.profiler, every device operation; 256 MiB "
+                  "written before each call):")
+            for name, fn in calls.items():
+                ms = sum(device_ms(fn, flush_bytes=ZONED_FLUSH_BYTES).values())
+                print(f"    {name}: " + (f"{ms:.6f} ms ({bound / ms:.3f} of the row bound)"
+                                         if ms else "not measured"))
+            torch.cuda.empty_cache()
+        del tiles, table
+        torch.cuda.empty_cache()
+
+
 def main(sections) -> None:
     unknown = set(sections) - set(SECTIONS)
     if unknown:
@@ -1626,7 +1739,8 @@ def main(sections) -> None:
                                       (STATIC_MEMBER_SOURCE, ("static", "ortree")),
                                       (HIST_AGG_SOURCE, ("histdag", "aggstatic", "minmax")),
                                       (WINDOWED_SOURCE, ("windowed",)),
-                                      (SCAN_SOURCE, ("interval", "compare")))
+                                      (SCAN_SOURCE, ("interval", "compare")),
+                                      (ZONED_SOURCE, ("zoned",)))
                if set(names) & set(sections)]
     libs = _libraries(sources) if sources else {}
     print("ptxas:")
@@ -1676,6 +1790,8 @@ def main(sections) -> None:
             interval_sweep(lib, device)
         if "compare" in sections:
             compare_sweep(lib, device)
+    if "zoned" in sections:
+        zoned_sweep(libs[ZONED_SOURCE][0], device)
     if "copy" in sections:
         copy_sweep(libs[SOURCE][0], device)
     if {"chunked", "dynamic", "fold", "static", "ortree"} & set(sections):

@@ -45,13 +45,28 @@ reference benchmark's n = 477,218,588
 (H6: 357,913,941; the member sets 138,547,332 and 214,748,364); and, on the host clock, ``stats.describe``,
 ``quantiles`` and ``topk_values`` of the ``i % 512`` column together
 (three span histograms), ``stats.histogram_full`` of the 20-bit column
-(H5 wall) and of H6's and H7's columns (medians of five).  Run it on two checkouts in
+(H5 wall) and of H6's and H7's columns (medians of five).  Z3, the zoned
+equality scan of ``chip_smoke.py`` (key 7 on a column of 100..199 with 7
+in its first and last 64 block rows, zone maps of 64 rows: 3 of 456
+steps of 256 rows live): ``zoned_range_tiles`` on the live steps (the row
+form), the count form where the checkout has it, ``zoned_eq_scan(...,
+full_bits=False)`` on CUDA events, the row form's device time by
+``torch.profiler`` (every device operation of a call, and the zoned
+kernel alone, with 256 MiB written before each call so the L2 holds none
+of the row), and ``zoned_eq_scan``'s wall time (host clock,
+synchronized, median of ten).  The shift canary: the verdict's first
+call on each of eleven cleared caches (``shift_saturates``, host clock,
+median), the elementwise canary and ``torch.bitwise_left_shift`` on its
+inputs.  Every host-clock set runs before the profiler session; after
+it, the w31 list's ``member_scan_device`` is timed again on the host
+clock, to show what the session leaves behind.  Run it on two checkouts in
 turns (parent, change, change, parent) within one call to compare them on
 one card.  Needs a CUDA card; prints the card's name and power limit and
 one line of medians.
 """
 from __future__ import annotations
 
+import inspect
 import pathlib
 import statistics
 import subprocess
@@ -59,6 +74,7 @@ import sys
 import time
 
 N_BYTES = 512 * 1024 * 1024
+L2_FLUSH_BYTES = 256 * 1024 * 1024  # five times the H100's 50 MB L2
 S8 = [3, 70, 141, 200, 262, 333, 400, 511]
 MEMBER_K4 = [5, 77, 300, 411]
 CHUNKED_WINDOWS = [32 * i + i % 7 for i in range(40)]
@@ -85,12 +101,65 @@ def time_ms(fn, batches: int = 7, calls: int = 10) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int = 20, flush_bytes: int = 0) -> dict:
+    """Kernel or device operation name -> its device time per call (ms),
+    from ``torch.profiler`` over ``calls`` calls after a warm-up; empty
+    where the profiler saw no device time.  With ``flush_bytes``, a buffer
+    of that many bytes is written before each call and its kernel left out,
+    so a call writing the same rows each time pays for evicting dirty L2
+    lines.  (``bench/timing.py`` has the same helper; this script keeps its
+    own, as it keeps ``time_ms``, because it runs against a parent checkout
+    whose package may lack it.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(body) -> dict:
+        body()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                body()
+            torch.cuda.synchronize()
+        times = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+            if us and str(getattr(e, "device_type", "")).endswith("CUDA"):
+                times[e.key] = us / 1e3 / calls
+        return times
+
+    if not flush_bytes:
+        return profiled(fn)
+    flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    skip = set(profiled(flush.bitwise_not_))
+
+    def flushed():
+        flush.bitwise_not_()
+        fn()
+
+    return {name: ms for name, ms in profiled(flushed).items() if name not in skip}
+
+
+def host_ms(fn, runs: int, skip: int = 0) -> float:
+    """Median host-clock time of ``fn`` (synchronized before and after)
+    over ``runs`` calls, the first ``skip`` left out."""
+    import torch
+
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.monotonic() - t1) * 1e3)
+    return statistics.median(walls[skip:])
+
+
 def main(root: pathlib.Path) -> None:
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
 
-    from shared_simd_scan_tpu_torch import layout, stats
+    from shared_simd_scan_tpu_torch import layout, stats, zonemap
     from shared_simd_scan_tpu_torch.bench import harness
     from shared_simd_scan_tpu_torch.ops import _cuda, aggregate, member, scan, unpack
 
@@ -225,12 +294,40 @@ def main(root: pathlib.Path) -> None:
             lambda kt=kt: scan.shared_scan_tiles(col31.tiles, kt, 31, n31))
     for k in (1, 33, 64):
         cases[f"interval k={k}"] = lambda k=k: scan.interval_scan_tiles(tiles, 0, k, 9, n)
+    # Z3: the zone-map phase's ends column, its zone map and live steps
+    ends = torch.randint(100, 200, (n,), generator=gen, device=device, dtype=torch.int32)
+    edge = 64 * 128 * 32
+    ends[:edge] = 7
+    ends[-edge:] = 7
+    ecol = unpack.pack_device_kernel(ends, 9)
+    del ends
+    zmap = zonemap.build_zonemap(ecol, zone_b1=64)
+    tb = zonemap._pick_tb(ecol.tiles.shape[1], 256)
+    live = zonemap.zone_step_mask(zmap, 7, 8, tb)
+    zidx = torch.from_numpy(np.nonzero(live)[0].astype(np.int32)).to(device)
+    zflag = torch.ones_like(zidx)
+    lo7, hi8 = t32([7]), t32([8])
+
+    def z3_rows():
+        return zonemap.zoned_range_tiles(ecol.tiles, zidx, zflag, lo7, hi8, 9, n, tb)
+
+    cases["zoned Z3 rows"] = z3_rows
+    if "full_bits" in inspect.signature(zonemap.zoned_range_tiles).parameters:
+        cases["zoned Z3 count form"] = lambda: zonemap.zoned_range_tiles(
+            ecol.tiles, zidx, zflag, lo7, hi8, 9, n, tb, False)
+    cases["zoned_eq_scan Z3 full_bits=False"] = lambda: zonemap.zoned_eq_scan(
+        ecol, zmap, 7, full_bits=False)
+    base, amounts = scan.canary_inputs(device)
+    cases["shift canary elementwise"] = lambda: scan.run_shift_canary(base, amounts)
+    cases["torch.bitwise_left_shift on the canary inputs"] = (
+        lambda: torch.bitwise_left_shift(base, amounts))
     times = {name: time_ms(fn) for name, fn in cases.items()}
-    # last, alone: its 1024 rows take 61 GB
+    # last of the event sets, alone: its 1024 rows take 61 GB
     torch.cuda.empty_cache()
     times["interval k=1024"] = time_ms(lambda: scan.interval_scan_tiles(tiles, 0, 1024, 9, n),
                                        batches=5, calls=4)
     torch.cuda.empty_cache()
+    # the host-clock sets, before anything that opens a profiler session
     col = layout.DeviceColumn(9, n, atiles)
     walls = []
     for _ in range(6):
@@ -254,20 +351,42 @@ def main(root: pathlib.Path) -> None:
             t1 = time.monotonic()
             stats.histogram_full(col)
             walls_full[name].append((time.monotonic() - t1) * 1e3)
-    walls31 = []
-    for _ in range(6):
-        torch.cuda.synchronize()
+
+    def w31_list_wall():  # median of five after a warm-up
+        return host_ms(lambda: member.member_scan_device(col31, w31_list), 6, skip=1)
+
+    walls31 = w31_list_wall()
+    z3_wall = host_ms(lambda: zonemap.zoned_eq_scan(ecol, zmap, 7), 11)
+    firsts = []
+    for _ in range(11):
+        scan._SHIFT_SEMANTICS.clear()
         t1 = time.monotonic()
-        member.member_scan_device(col31, w31_list)
-        torch.cuda.synchronize()
-        walls31.append((time.monotonic() - t1) * 1e3)
+        scan.shift_saturates(device)
+        firsts.append((time.monotonic() - t1) * 1e3)
+    same = bool(torch.equal(torch.bitwise_left_shift(base, amounts),
+                            scan.shift_canary_plain(base, amounts)))
+    # then the profiler, and the w31 list's host clock once more after it
+    z3_device = device_ms(z3_rows, flush_bytes=L2_FLUSH_BYTES)
+    walls31_after = w31_list_wall()
+    del ecol
     print(f"{smi}; {root}: build {build:.1f} s; "
           + "; ".join(f"{name} {ms:.6f} ms" for name, ms in times.items())
           + f"; stats trio (host clock) {statistics.median(walls[1:]):.6f} ms"
           + f"; H5 histogram_full (host clock) {statistics.median(walls20[1:]):.6f} ms"
           + "".join(f"; {name} histogram_full (host clock) {statistics.median(w[1:]):.6f} ms"
                     for name, w in walls_full.items())
-          + f"; member_scan_device w31 list (host clock) {statistics.median(walls31[1:]):.6f} ms",
+          + f"; member_scan_device w31 list (host clock) {walls31:.6f} ms"
+          + f"; Z3 {int(live.sum())} of {live.shape[0]} steps live, zoned_range_tiles device time "
+          + (f"(torch.profiler) {sum(z3_device.values()):.6f} ms in all, "
+             f"{sum(v for k, v in z3_device.items() if 'zoned' in k):.6f} ms the zoned kernel "
+             f"({'; '.join(f'{k} {v:.6f}' for k, v in z3_device.items())})"
+             if z3_device else "not measured (the profiler saw no device time)")
+          + f"; zoned_eq_scan Z3 (host clock) {z3_wall:.6f} ms"
+          + f"; member_scan_device w31 list after torch.profiler (host clock) "
+          + f"{walls31_after:.6f} ms"
+          + f"; shift verdict first call (host clock, median of {len(firsts)}) "
+          + f"{statistics.median(firsts):.6f} ms"
+          + f"; torch.bitwise_left_shift equals shift_canary_plain on the canary inputs: {same}",
           flush=True)
 
 

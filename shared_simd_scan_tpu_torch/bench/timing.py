@@ -105,3 +105,48 @@ def measure_loop(
     per = [_run_seconds(chain, args, iters, device) / iters for _ in range(trials)]
     clock = "cuda events" if device.type == "cuda" else "host"
     return Measurement(seconds=statistics.median(per), per_trial=per, iters=iters, clock=clock)
+
+
+def device_ms(fn: Callable, calls: int = 20, flush_bytes: int = 0) -> dict[str, float]:
+    """Device operation name (kernel or memset) -> its device time per call
+    in ms, from ``torch.profiler`` over ``calls`` calls of ``fn`` after a
+    warm-up call; empty where the profiler saw no device time (a CPU-only
+    run, or a machine whose profiler cannot trace the card).
+
+    With ``flush_bytes`` (on a card), a buffer of that many bytes, more
+    than the L2 holds, is written before each call, and its kernel is left
+    out of the result: a call that writes into the same buffer each time
+    then pays for evicting dirty lines, as a call with a cold L2 does,
+    instead of writing over its own lines left in the L2 by the last call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda") if cuda and flush_bytes \
+        else None
+
+    def profiled(body) -> dict[str, float]:
+        body()
+        if cuda:
+            torch.cuda.synchronize()
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        with profile(activities=activities) as prof:
+            for _ in range(calls):
+                body()
+            if cuda:
+                torch.cuda.synchronize()
+        times = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+            if us and str(getattr(e, "device_type", "")).endswith("CUDA"):
+                times[e.key] = us / 1e3 / calls
+        return times
+
+    if flush is None:
+        return profiled(fn)
+    skip = set(profiled(flush.bitwise_not_))
+
+    def flushed():
+        flush.bitwise_not_()
+        fn()
+
+    return {name: ms for name, ms in profiled(flushed).items() if name not in skip}

@@ -14,7 +14,14 @@
 // The one-hot needs 1 << d == 0 for every d >= 32.  PTX shl.b32 clamps the
 // amount (PTX ISA), C++ << leaves it undefined; the canary kernel measures
 // both on the card, and the scan takes the gateless PTX shift only when the
-// canary saw it saturate, else the gated d < 32 ? 1 << (d & 31) : 0.
+// canary saw it saturate, else the gated d < 32 ? 1 << (d & 31) : 0.  The
+// verdict (TPU _run_shift_canary's one bool) is its own launch: one warp
+// shifts all-ones by each amount, passed by value, through shl_ptx, gathers
+// the lanes left nonzero with __ballot_sync and writes that word to mapped
+// pinned host memory; the C entry syncs the stream once and hands the word
+// back.  Bound: a launch and a sync (68 bytes of amounts and word).  Before
+// it the verdict took a host-to-device copy of the amounts, a fill, the
+// elementwise canary on 1024 words, a compare, a reduction and a copy back.
 //
 // Bound on the H100: device memory bytes (reads W words, writes k words per
 // 32 values); the arithmetic is ~3 integer ops per value per round of 8
@@ -173,6 +180,36 @@ __global__ void shift_canary_kernel(const uint32_t* __restrict__ base,
   out_cxx[i] = a << d;
 }
 
+// Bit i of *out: all-ones << amounts.d[i] through PTX shl.b32 is not 0.
+struct ShiftAmounts {
+  uint32_t d[32];
+};
+
+__global__ void shift_verdict_kernel(const ShiftAmounts amounts, int count,
+                                     uint32_t* __restrict__ out) {
+  const int lane = threadIdx.x;
+  const bool kept = lane < count && shl_ptx(0xFFFFFFFFu, amounts.d[lane]) != 0u;
+  const uint32_t word = __ballot_sync(0xFFFFFFFFu, kept);
+  if (lane == 0) *out = word;
+}
+
+// Mapped pinned words, one a device, for each calling thread: allocated at
+// the thread's first verdict, and tried again on its next call after a
+// failed allocation.  Threads verdicting on one device at once do not
+// share a word.
+constexpr int kVerdictDevices = 64;
+
+inline uint32_t* verdict_words() {
+  thread_local uint32_t* words = nullptr;
+  if (words == nullptr) {
+    void* p = nullptr;
+    if (cudaHostAlloc(&p, kVerdictDevices * sizeof(uint32_t),
+                      cudaHostAllocMapped | cudaHostAllocPortable) == cudaSuccess)
+      words = static_cast<uint32_t*>(p);
+  }
+  return words;
+}
+
 }  // namespace sss
 
 extern "C" int sss_interval_scan(const uint32_t* tiles, uint32_t lo, int k, uint32_t* bits,
@@ -230,4 +267,27 @@ extern "C" int sss_shift_canary(const uint32_t* base, const uint32_t* amounts, u
   sss::shift_canary_kernel<<<(count + 255) / 256, 256, 0, stream>>>(base, amounts, out_ptx,
                                                                      out_cxx, count);
   return (int)cudaGetLastError();
+}
+
+// The canary's verdict: *word gets bit i set where all-ones << amounts[i]
+// (count <= 32 amounts, a host array) is not 0 through PTX shl.b32; one
+// launch of one warp, then one sync of the stream.
+extern "C" int sss_shift_verdict(const uint32_t* amounts, int count, uint32_t* word,
+                                 cudaStream_t stream) {
+  if (count < 1 || count > 32) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  uint32_t* host = sss::verdict_words();
+  if (host == nullptr || dev >= sss::kVerdictDevices) return (int)cudaErrorMemoryAllocation;
+  uint32_t* out = nullptr;
+  err = cudaHostGetDevicePointer(reinterpret_cast<void**>(&out), host + dev, 0);
+  if (err != cudaSuccess) return (int)err;
+  sss::ShiftAmounts a{};
+  for (int i = 0; i < count; ++i) a.d[i] = amounts[i];
+  sss::shift_verdict_kernel<<<1, 32, 0, stream>>>(a, count, out);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = cudaStreamSynchronize(stream);
+  if (err == cudaSuccess) *word = *static_cast<volatile uint32_t*>(host + dev);
+  return (int)err;
 }

@@ -61,6 +61,8 @@ _SIGNATURES = {
                                  ctypes.c_int, _ll, _ll, ctypes.c_int, _vp],
     # base, amounts, out_ptx, out_cxx, count, stream
     "sss_shift_canary": [_vp, _vp, _vp, _vp, ctypes.c_int, _vp],
+    # amounts (a host array of count uint32), count, word (host uint32), stream
+    "sss_shift_verdict": [_vp, ctypes.c_int, _vp, _vp],
     # tiles, keys (device: the runtime keys, or the host keys copied once), k, bits, counts,
     # nblocks, width, n, block_offset, stream
     "sss_bitsliced_static_fold": [_vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, _ll, _ll,
@@ -76,7 +78,8 @@ _SIGNATURES = {
     # tiles, lows, highs, k, bits, counts, nblocks, ld, width, n, block_offset, stream
     "sss_range_scan": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, _ll, ctypes.c_int, _ll, _ll,
                        _vp],
-    # tiles, idx, flag, g, lows, highs, k, bits, counts, nblocks, step_blocks, width, n, stream
+    # tiles, idx, flag, g, lows, highs, k, bits (NULL: the count form), counts, nblocks,
+    # step_blocks, width, n, stream
     "sss_zoned_range_scan": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, ctypes.c_int, _vp, _vp, _ll,
                              _ll, ctypes.c_int, _ll, _vp],
     # tiles, lo (device pointer), k, counts, nblocks, width, n, block_offset, stream

@@ -392,18 +392,49 @@ def run_shift_canary(
 run_shift_canary.launches = 0
 
 
+_CANARY_WORDS = np.array(CANARY_AMOUNTS, np.uint32)
+
+
+def shift_verdict_plain(device="cpu") -> bool:
+    """Plain version of :func:`shift_verdict`: the plain shift of all-ones
+    by every canary amount, on ``device``, is 0."""
+    return bool((shift_canary_plain(*canary_inputs(device)) == 0).all())
+
+
+def shift_verdict(device) -> bool:
+    """True iff the shift of all-ones by every canary amount gives 0.
+
+    Kernel ``sss_shift_verdict`` (``csrc/interval_scan.cu``) on a CUDA
+    device: one warp shifts through PTX ``shl.b32`` with the amounts passed
+    by value and writes the ballot of nonzero results to pinned host
+    memory, read after one sync (no host-to-device copy).  The plain
+    version on the CPU."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return shift_verdict_plain()
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}: only CUDA devices launch kernels")
+    word = np.zeros(1, np.uint32)
+    _cuda.launch("sss_shift_verdict", device, _CANARY_WORDS.ctypes.data, _CANARY_WORDS.size,
+                 word.ctypes.data)
+    shift_verdict.launches += 1
+    return int(word[0]) == 0
+
+
+shift_verdict.launches = 0
+
+
 def shift_saturates(device) -> bool:
     """True iff the device's shift (PTX ``shl.b32`` on a CUDA device) yields
-    0 for every canary amount >= 32.  Measured once per device and cached;
-    the interval and windowed kernels take the gateless one-hot only when
-    this holds."""
+    0 for every canary amount >= 32 (:func:`shift_verdict`).  Measured once
+    per device and cached; the interval and windowed kernels take the
+    gateless one-hot only when this holds, else the gated one."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     hit = _SHIFT_SEMANTICS.get(str(device))
     if hit is None:
-        out_ptx, _ = run_shift_canary(*canary_inputs(device))
-        hit = _SHIFT_SEMANTICS[str(device)] = bool((out_ptx == 0).all())
+        hit = _SHIFT_SEMANTICS[str(device)] = shift_verdict(device)
     return hit
 
 

@@ -13,8 +13,10 @@ zones, as Netezza zone maps and Parquet column-chunk statistics do.
   :func:`prune_span` finds, in place (``ops.scan.range_scan_tiles`` with
   ``rows``), or the whole column when the span exceeds half of it.
 - :func:`zoned_range_scan` scans the live steps of :func:`zone_step_mask`
-  only (:func:`zoned_range_tiles`, kernel ``sss_zoned_range_scan``), or the
-  whole column when half the steps or more are live.
+  only (:func:`zoned_range_tiles`, kernel ``sss_zoned_range_scan``: one
+  call that writes the whole row, or with ``full_bits=False`` counts the
+  live steps and writes no row), or the whole column when half the steps
+  or more are live.
 
 Padding positions are left out of the zone statistics (the scan kernels
 mask them out of results the same way), so an all-padding zone reports
@@ -211,19 +213,19 @@ def _pick_tb(b1: int, tb: int | None) -> int:
 
 def zone_step_mask(zmap: ZoneMap, lo: int, hi: int, tb: int) -> np.ndarray:
     """Per-tb-step liveness: step s (block rows [s*tb, (s+1)*tb)) is live
-    iff any overlapping zone intersects [lo, hi)."""
+    iff any overlapping zone intersects [lo, hi).  A prefix sum of the zone
+    hits, read at each step's first and last zone (clipped to the zones
+    there are, as a slice is)."""
     hit = _zone_hits(zmap, lo, hi)
     if zmap.b1 % tb:
         # floor division would silently drop the tail block rows from the
         # mask and prune live data
         raise ValueError(f"tb={tb} must divide b1={zmap.b1}")
-    steps = zmap.b1 // tb
-    live = np.zeros(steps, bool)
-    for s in range(steps):
-        zf = (s * tb) // zmap.zone_b1
-        zl = ((s + 1) * tb - 1) // zmap.zone_b1
-        live[s] = bool(hit[zf : zl + 1].any())
-    return live
+    starts = np.arange(zmap.b1 // tb, dtype=np.int64) * tb
+    zf = np.minimum(starts // zmap.zone_b1, hit.size)
+    zl = np.minimum((starts + tb - 1) // zmap.zone_b1 + 1, hit.size)
+    seen = np.concatenate([[0], np.cumsum(hit, dtype=np.int64)])
+    return seen[zl] > seen[zf]
 
 
 def _check_steps(idx: torch.Tensor, flag: torch.Tensor, tb: int, b1: int) -> int:
@@ -257,17 +259,22 @@ def zoned_range_tiles_plain(
 
 def zoned_range_tiles(
     tiles: torch.Tensor, idx: torch.Tensor, flag: torch.Tensor, lows: torch.Tensor,
-    highs: torch.Tensor, width: int, n: int, tb: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    highs: torch.Tensor, width: int, n: int, tb: int, full_bits: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor]:
     """k range predicates over the listed steps of tb block rows only ->
-    (bits int32[k, B1, 128], counts int64[k]): idx and flag int32[g] on the
-    tiles' device; entry s scans step idx[s] and counts it iff flag[s] is 1
-    (the JAX package pads its list with flag-0 repeats of a live step; the
-    port's own caller lists live steps only).  Blocks of unlisted steps are
-    not read and their bits are zero.
+    (bits int32[k, B1, 128], or None when not ``full_bits``; counts
+    int64[k]): idx and flag int32[g] on the tiles' device; entry s scans
+    step idx[s] and counts it iff flag[s] is 1 (the JAX package pads its
+    list with flag-0 repeats of a live step; the port's own caller lists
+    live steps only).  Blocks of unlisted steps are not read and their bits
+    are zero.
 
-    Kernel ``sss_zoned_range_scan`` (``csrc/zoned.cu``) on CUDA tensors;
-    the plain version on CPU tensors."""
+    Kernel ``sss_zoned_range_scan`` (``csrc/zoned.cu``) on CUDA tensors:
+    one call that writes every word of the rows (allocated with
+    ``torch.empty``; the C entry zeroes them and the counts on the stream,
+    then launches the listed steps' grid), or without ``full_bits`` its
+    count form, which reads the listed steps and writes no row.  The plain
+    version on CPU tensors."""
     b1 = _check_tiles(tiles, width)
     _check_key_tensor(lows)
     _cuda.check_int32("highs", highs, tuple(lows.shape))
@@ -277,13 +284,14 @@ def zoned_range_tiles(
         raise ValueError(f"zoned range scan takes at most {MAX_LAUNCH_KEYS} ranges, got {k}")
     device = _cuda.kernel_device(tiles, idx, flag, lows, highs)
     if device is None:
-        return zoned_range_tiles_plain(tiles, idx, flag, lows, highs, width, n, tb)
-    bits = torch.zeros((k, b1, LANES), dtype=torch.int32, device=device)
-    counts = torch.zeros(k, dtype=torch.int64, device=device)
+        bits, counts = zoned_range_tiles_plain(tiles, idx, flag, lows, highs, width, n, tb)
+        return (bits if full_bits else None), counts
+    bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device) if full_bits else None
+    counts = torch.empty(k, dtype=torch.int64, device=device)  # zeroed by the C entry
     _cuda.launch(
         "sss_zoned_range_scan", device, tiles.data_ptr(), idx.data_ptr(), flag.data_ptr(), g,
-        lows.data_ptr(), highs.data_ptr(), k, bits.data_ptr(), counts.data_ptr(), b1 * LANES,
-        tb * LANES, width, n,
+        lows.data_ptr(), highs.data_ptr(), k, None if bits is None else bits.data_ptr(),
+        counts.data_ptr(), b1 * LANES, tb * LANES, width, n,
     )
     zoned_range_tiles.launches += 1
     return bits, counts
@@ -304,7 +312,8 @@ def zoned_range_scan(
     own, so a clustered but unsorted column keeps its skipping.  Dispatch,
     as the JAX package's: no live step -> an all-zero result and no
     launch; half the steps or more live -> the full-column range kernel;
-    else :func:`zoned_range_tiles` on the live steps."""
+    else :func:`zoned_range_tiles` on the live steps (its count form when
+    not ``full_bits``)."""
     b1 = dev.tiles.shape[1]
     tb = _pick_tb(b1, tb if tb is not None else 256)
     live = zone_step_mask(zmap, lo, hi, tb)
@@ -318,7 +327,8 @@ def zoned_range_scan(
     else:
         idx = torch.from_numpy(np.nonzero(live)[0].astype(np.int32)).to(device)
         flag = torch.ones(nlive, dtype=torch.int32, device=device)
-        bits, counts = zoned_range_tiles(dev.tiles, idx, flag, lows, highs, dev.width, dev.n, tb)
+        bits, counts = zoned_range_tiles(dev.tiles, idx, flag, lows, highs, dev.width, dev.n, tb,
+                                         full_bits)
     return (bits_to_canonical(bits, dev.n)[0] if full_bits else None), counts[0]
 
 

@@ -239,3 +239,20 @@ def test_cli_exits_non_zero_without_a_card():
                           timeout=300)
     assert proc.returncode != 0
     assert not any(line.startswith("* ") for line in proc.stdout.splitlines())
+
+
+def test_device_ms_reads_no_device_time_on_the_cpu():
+    # the profiler helper names device operations only: a CPU run has none,
+    # and its callers then write "not measured"
+    calls = []
+    assert timing.device_ms(lambda: calls.append(torch.ones(4) + 1), calls=3) == {}
+    assert len(calls) == 4  # a warm-up call, then the profiled ones
+
+
+def test_device_ms_writes_no_flush_buffer_on_the_cpu():
+    # the L2 flush is a card's: on the CPU the helper still calls fn once to
+    # warm up and then `calls` times, and reads no device time
+    calls = []
+    got = timing.device_ms(lambda: calls.append(torch.ones(4) + 1), calls=2,
+                           flush_bytes=1 << 20)
+    assert got == {} and len(calls) == 3

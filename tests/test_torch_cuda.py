@@ -1391,6 +1391,88 @@ def test_zoned_kernel_matches_plain(cuda_device, width):
         assert port.zonemap.zoned_range_tiles.launches == before + 1
 
 
+# (idx, flag, tb) on b1 = 72: unsorted steps, a step listed twice with flag
+# 1, a flag-0 repeat and a step past the column; every step; one step of 72
+# rows
+ZONED_CASES = {"unsorted": ([8, 0, 4, 4, 0, 9], [1, 1, 1, 1, 0, 1], 8),
+               "every step": (list(range(8, -1, -1)), [1] * 9, 8),
+               "one step": ([0], [1], 72)}
+
+
+@pytest.mark.parametrize("width", range(1, 32))
+def test_zoned_kernel_writes_every_word(cuda_device, width):
+    # the kernel launched directly on rows and counts filled with -1: every
+    # word of the rows written, the counts zeroed by the C entry; then the
+    # wrapper's count form (one launch, no row)
+    n = 9 * 8 * 128 * 32 - 77  # b1 = 72, the ragged tail in the last step
+    tiles = unpack.pack_device_kernel(_values(width, n, width + 300, cuda_device), width).tiles
+    dom = 1 << width
+    rng = np.random.default_rng(width)
+    for k in (1, 4, scan.MAX_LAUNCH_KEYS) if width in (1, 9, 17, 31) else (1, 4):
+        lo = rng.integers(0, dom, size=k)
+        hi = lo + rng.integers(0, dom, size=k)
+        lo[0], hi[0] = 0, dom  # the whole domain
+        lows, highs = _keys(lo, cuda_device), _keys(hi % (1 << 32), cuda_device)
+        for name, (idx, flag, tb) in ZONED_CASES.items():
+            i, f = (torch.tensor(x, dtype=torch.int32, device=cuda_device) for x in (idx, flag))
+            pbits, pcounts = port.zonemap.zoned_range_tiles_plain(tiles, i, f, lows, highs, width,
+                                                                  n, tb)
+            bits, counts = torch.full_like(pbits, -1), torch.full_like(pcounts, -1)
+            _cuda.launch("sss_zoned_range_scan", cuda_device, tiles.data_ptr(), i.data_ptr(),
+                         f.data_ptr(), len(idx), lows.data_ptr(), highs.data_ptr(), k,
+                         bits.data_ptr(), counts.data_ptr(), 72 * 128, tb * 128, width, n)
+            _same(bits, pbits)
+            _same(counts, pcounts)
+            before = port.zonemap.zoned_range_tiles.launches
+            none, counts = port.zonemap.zoned_range_tiles(tiles, i, f, lows, highs, width, n, tb,
+                                                          False)
+            assert none is None and port.zonemap.zoned_range_tiles.launches == before + 1
+            _same(counts, pcounts)
+
+
+def test_shift_verdict_is_one_launch(cuda_device):
+    base, amounts = scan.canary_inputs(cuda_device)
+    want = bool((scan.run_shift_canary(base, amounts)[0] == 0).all())
+    torch.cuda.synchronize()
+    scan._SHIFT_SEMANTICS.clear()
+    before = (scan.shift_verdict.launches, scan.run_shift_canary.launches)
+    allocated = torch.cuda.memory_stats(cuda_device).get("allocation.all.allocated", 0)
+    got = scan.shift_saturates(cuda_device)
+    # one launch of the verdict kernel, nothing elementwise, no tensor on the card
+    assert torch.cuda.memory_stats(cuda_device).get("allocation.all.allocated", 0) == allocated
+    assert (scan.shift_verdict.launches, scan.run_shift_canary.launches) == (before[0] + 1,
+                                                                            before[1])
+    assert got == want == scan.shift_verdict_plain(cuda_device)
+    assert scan.shift_saturates(cuda_device) == want  # cached
+    assert scan.shift_verdict.launches == before[0] + 1
+
+
+def test_refused_zoned_and_verdict_launches_raise(cuda_device):
+    tiles = torch.zeros((9, 8, 128), dtype=torch.int32, device=cuda_device)
+    idx = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    lo = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    bits = torch.zeros((2, 8, 128), dtype=torch.int32, device=cuda_device)
+    counts = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    # (g, k, bits, nblocks, step_blocks, width): a negative list, no keys,
+    # past the shared counters, a column or a step that is no whole block
+    # row, widths 0 and 32
+    for g, k, ptr, nblocks, step, width in (
+            (-1, 1, bits.data_ptr(), 1024, 1024, 9), (1, 0, bits.data_ptr(), 1024, 1024, 9),
+            (1, 1025, bits.data_ptr(), 1024, 1024, 9),
+            (1, 1, bits.data_ptr(), 1000, 1024, 9), (1, 1, bits.data_ptr(), 1024, 64, 9),
+            (1, 1, bits.data_ptr(), 1024, 1024, 0), (1, 1, bits.data_ptr(), 1024, 1024, 32)):
+        with pytest.raises(RuntimeError, match="sss_zoned_range_scan"):
+            _cuda.launch("sss_zoned_range_scan", cuda_device, tiles.data_ptr(), idx.data_ptr(),
+                         idx.data_ptr(), g, lo.data_ptr(), lo.data_ptr(), k, ptr,
+                         counts.data_ptr(), nblocks, step, width, 100)
+    amounts = np.zeros(33, np.uint32)
+    word = np.zeros(1, np.uint32)
+    for count in (0, 33):
+        with pytest.raises(RuntimeError, match="sss_shift_verdict"):
+            _cuda.launch("sss_shift_verdict", cuda_device, amounts.ctypes.data, count,
+                         word.ctypes.data)
+
+
 def test_zone_maps_on_the_card_equal_the_cpu(cuda_device):
     zm_mod = port.zonemap
     width, n = 9, 9 * 8 * 128 * 32

@@ -6,6 +6,8 @@ side runs its Pallas kernels in interpret mode, as its own tests do.  Both
 get the same inputs from a numpy seed and must agree bit for bit.  The
 CUDA kernels are held against the plain versions in test_torch_cuda.py.
 """
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -170,6 +172,36 @@ def test_shift_canary_plain_saturates():
 
 def test_shift_saturates_matches_jax_verdict():
     assert tscan.shift_saturates("cpu") == jscan.shift_saturates(interpret=True)
+
+
+def test_shift_verdict_plain_matches_jax_verdict():
+    before = tscan.shift_verdict.launches
+    assert tscan.shift_verdict("cpu") == tscan.shift_verdict_plain() == jscan.shift_saturates(
+        interpret=True)
+    assert tscan.shift_verdict.launches == before  # the plain version launches nothing
+
+
+@pytest.mark.parametrize("ballot", [0, 0x10, 0xFFFF])
+def test_shift_verdict_launch_arguments(ballot, monkeypatch):
+    # the CUDA branch with the launch recorded: one launch, the 16 amounts
+    # by value from a host array, the ballot word read back from the host
+    calls = []
+
+    def launch(fn, device, amounts, count, word):
+        calls.append((fn, device, count))
+        sent = np.frombuffer((ctypes.c_uint32 * count).from_address(amounts), np.uint32)
+        assert sent.tolist() == list(tscan.CANARY_AMOUNTS)
+        ctypes.c_uint32.from_address(word).value = ballot
+
+    monkeypatch.setattr(tscan._cuda, "launch", launch)
+    monkeypatch.setattr(tscan, "_SHIFT_SEMANTICS", {})
+    before = tscan.shift_verdict.launches
+    assert tscan.shift_verdict("cuda:0") == (ballot == 0)
+    assert tscan.shift_saturates("cuda:0") == (ballot == 0)
+    assert calls == [("sss_shift_verdict", torch.device("cuda", 0), 16)] * 2
+    assert tscan.shift_verdict.launches == before + 2
+    with pytest.raises(ValueError, match="only CUDA devices"):
+        tscan.shift_verdict("meta")
 
 
 # ---------------------------------------------------------------------------

@@ -234,3 +234,95 @@ def test_eq_scan_at_the_top_of_uint32_is_a_standing_difference(monkeypatch):
         assert calls.take() == [path]
         assert int(count) == int(mask.sum()) > 0
         np.testing.assert_array_equal(tbitvector.to_bool(bits, values.size).numpy(), mask)
+
+
+def _zone_map(cls, zone_b1, b1, nz=None):
+    """Zone z holds [10 z, 10 z + 9]; the last two zones are all padding."""
+    nz = b1 // zone_b1 if nz is None else nz
+    zmin = (np.arange(nz) * 10).astype(np.uint32)
+    zmax = zmin + 9
+    zmin[-2:], zmax[-2:] = 0xFFFFFFFF, 0
+    return cls(zone_b1=zone_b1, b1=b1, zmin=zmin, zmax=zmax)
+
+
+@pytest.mark.parametrize("zone_b1", [8, 64])
+@pytest.mark.parametrize("tb", [8, 16, 72, 256])
+def test_zone_step_mask_matches_jax(tb, zone_b1):
+    # b1 = 2304 takes every tb and zone_b1 here: steps cover part of a zone,
+    # a zone, or several, and straddle zone edges at tb = 72
+    b1 = 2304
+    nz = b1 // zone_b1
+    last = 10 * (nz - 3)  # the last zone that holds values
+    ranges = [(0, 1), (last + 9, last + 10), (10 * nz, 10 * nz + 5), (0, 1 << 32), (55, 310),
+              (7, 8), (last, 1 << 32), (5, 6)]
+    for tmap, jmap in ((_zone_map(tzm.ZoneMap, zone_b1, b1), _zone_map(jzm.ZoneMap, zone_b1, b1)),
+                       # fewer zones than b1 holds: both clip to the zones there are
+                       (_zone_map(tzm.ZoneMap, zone_b1, b1, nz - 5),
+                        _zone_map(jzm.ZoneMap, zone_b1, b1, nz - 5))):
+        for lo, hi in ranges:
+            got = tzm.zone_step_mask(tmap, lo, hi, tb)
+            want = jzm.zone_step_mask(jmap, lo, hi, tb)
+            assert got.dtype == want.dtype == np.bool_
+            np.testing.assert_array_equal(got, want)
+        assert tzm.zone_step_mask(tmap, 0, 1, tb)[0]
+        assert not tzm.zone_step_mask(tmap, 10 * nz, 10 * nz + 5, tb).any()
+        assert tzm.zone_step_mask(tmap, 0, 1 << 32, tb)[: (nz - 5) * zone_b1 // tb].all()
+
+
+def test_zoned_count_form_matches_jax():
+    values = _ends(9 * 8 * 128 * 32, 5)
+    jdev, tdev = _column(values)
+    zmap = jzm.build_zonemap(jdev, zone_b1=8, interpret=True)
+    for lo, hi in ((7, 8), (150, 160), (300, 400), (100, 108)):
+        tbits, tcount = tzm.zoned_range_scan(tdev, zmap, lo, hi, tb=8, full_bits=False)
+        jbits, jcount = jzm.zoned_range_scan(jdev, zmap, lo, hi, tb=8, interpret=True,
+                                             full_bits=False)
+        assert tbits is None and jbits is None
+        assert int(tcount) == int(jcount) == int(((values >= lo) & (values < hi)).sum()), (lo, hi)
+
+
+def test_zoned_wrapper_launch_arguments(monkeypatch):
+    # the CUDA branch with the launch recorded: one launch a call, the row
+    # from torch.empty (the C entry writes every word; no torch.zeros), the
+    # count form with no bits pointer
+    calls = []
+    monkeypatch.setattr(tzm._cuda, "kernel_device", lambda *ts: torch.device("cpu"))
+    monkeypatch.setattr(tzm._cuda, "launch", lambda fn, device, *args: calls.append((fn, args)))
+    b1, tb, width, n = 72, 8, 9, 9 * 8 * 128 * 32 - 77
+    tiles = torch.zeros((width, b1, 128), dtype=torch.int32)
+    idx = torch.tensor([8, 0, 4, 4], dtype=torch.int32)
+    flag = torch.tensor([1, 1, 1, 0], dtype=torch.int32)
+    lows = torch.tensor([7, 100], dtype=torch.int32)
+    highs = torch.tensor([8, 120], dtype=torch.int32)
+
+    def no_zeros(*args, **kwargs):
+        raise AssertionError("torch.zeros on the kernel's path")
+
+    for full_bits in (True, False):
+        calls.clear()
+        before = tzm.zoned_range_tiles.launches
+        with monkeypatch.context() as m:
+            m.setattr(torch, "zeros", no_zeros)
+            bits, counts = tzm.zoned_range_tiles(tiles, idx, flag, lows, highs, width, n, tb,
+                                                 full_bits)
+        assert tzm.zoned_range_tiles.launches == before + 1
+        assert counts.shape == (2,) and counts.dtype == torch.int64
+        ((fn, args),) = calls
+        assert fn == "sss_zoned_range_scan"
+        want = (tiles.data_ptr(), idx.data_ptr(), flag.data_ptr(), 4, lows.data_ptr(),
+                highs.data_ptr(), 2, bits.data_ptr() if full_bits else None, counts.data_ptr(),
+                b1 * 128, tb * 128, width, n)
+        assert args == want
+        assert (bits is None) == (not full_bits)
+        if full_bits:
+            assert bits.shape == (2, b1, 128) and bits.dtype == torch.int32
+    # zoned_range_scan takes the count form when it needs no bits
+    values = _ends(n, 5)
+    zmap = tzm.build_zonemap_from_values(values, b1, zone_b1=8)
+    tdev = tlayout.pack_device(values, width, device="cpu")
+    for full_bits in (True, False):
+        calls.clear()
+        tzm.zoned_range_scan(tdev, zmap, 7, 8, tb=tb, full_bits=full_bits)
+        ((fn, args),) = calls
+        assert fn == "sss_zoned_range_scan" and (args[3], args[6]) == (3, 1)  # steps 0, 7, 8; k 1
+        assert (args[7] is None) == (not full_bits)
