@@ -71,7 +71,34 @@ from the sources in the checkout and then:
    against the predicate
    computed with plain torch on the raw values, and each member set's
    kernel, closed-form count and words;
-7. drives the aggregate path at full size — the query phase's table plus
+7. drives the encodings, NULLs, persistence and utilities at full size
+   (``encodings_phase``), each set with the launch counters set to 0 just
+   before it and read just after: a day of timestamps from 1,700,000,000
+   drawn on the card at the main path's n, FOR-encoded at 17 bits
+   (``forcol.pack_for``: 1,014,089,500 bytes packed), ``forcol.evaluate``
+   on a Range, an Eq and an In of 40 keys, ``describe``, ``quantiles`` and
+   ``unpack_for``; a ``NullableColumn`` of the query table's ``price``
+   with 10% NULLs, ``nullable.evaluate`` on a leaf, its ``Not``, an ``And``
+   with two plain ranges (whose pure siblings must run as one fused
+   conjunction launch) and an ``Or`` with an ``In`` on ``status``, and
+   ``forcol.masked_aggregate`` of the timestamps over the ``And``; the
+   NULL-aware WHERE and that sum once more inside ``utils.profiling.trace``
+   under ``ProfileSample(sync=True)`` (the trace must name the ``sss_``
+   entry points; the kernels' summed device time is printed beside the
+   host clock), and ``dump_memory`` of a CUDA tensor against its CPU copy;
+   ``io`` saving the main path's column, the query table and the NULL-aware
+   result (each file exactly the header and the payload) and loading each
+   back onto the card (the loaded column's ``shared_scan_device`` keys
+   0..7 equal to the original's); and 40-bit SKUs of 150 distinct values at
+   n = 2^27 (cut from the main path's n: the host ``np.unique`` encode),
+   dictionary-encoded at 8 bits, ``dictcol.evaluate`` on an Eq, a Range,
+   an In with absent keys and a tree with a FOR column, ``topk_values``,
+   ``describe`` and ``unpack_dict``; checks each result against plain
+   torch (or numpy) on the raw values and the NULL mask, prints one
+   ``{"encodings": ...}`` line (each set's host-clock ms beside the card's
+   name and power limit, the launches by kernel, the bytes packed, the
+   dictionary's cut) and frees what it drew;
+8. drives the aggregate path at full size — the query phase's table plus
    the analytics demo's 20-bit ``revenue`` column, drawn on the card from
    the same seed: ``masked_aggregate_device`` over ``query.evaluate`` of
    the demo's WHERE clause, ``aggregate_scan_device`` with host keys
@@ -93,7 +120,7 @@ from the sources in the checkout and then:
    domain, host keys and keys in device memory, k = 1 to 32, keys whose
    16-bit windows meet at every shift, a block_offset, one CTA's sum past
    2^32);
-8. holds the histogram and zone-map kernels against their plain versions
+9. holds the histogram and zone-map kernels against their plain versions
    at small ragged sizes (widths 1-31, k 1-4096, key 0 over padding, keys
    past the domain, a lo within k of 2^32 -- wrapping for a runtime lo,
    counting nothing for the span tier --, a ``block_offset``, a padded
@@ -117,7 +144,7 @@ from the sources in the checkout and then:
    ``evaluate`` without zone maps), the zoned scan also in its count form
    (``full_bits=False``); the zoned kernel launched on rows filled with -1
    first at every width 1-31 and at full size (every word written);
-9. holds the linear export's kernels against their plain versions at small
+10. holds the linear export's kernels against their plain versions at small
    ragged sizes (the interleave at k 1-1024 and the stream interleave with
    ragged M; the fused interval, static and runtime-key kernels at every k
    their tiers admit, widths 1-31 (the static and runtime-key folds at
@@ -133,7 +160,7 @@ from the sources in the checkout and then:
    checks that each set ran the kernel its rule names, its counts against
    their closed form, every word against the plain twin and the linear
    bytes, de-interleaved, against ``shared_scan_device``'s bits;
-10. times each kernel and its plain version at the full-size shapes with
+11. times each kernel and its plain version at the full-size shapes with
     CUDA events, beside a ``copy_`` of the packed column, and computes each
     kernel's bound: its bytes over the card's 3.35 TB/s; each fused linear
     kernel also beside its two-pass composition (scan kernel, then the
@@ -151,7 +178,7 @@ from the sources in the checkout and then:
     per value or per row (``cuobjdump -sass``) of the bins kernel, the
     domain histogram, the static fold (linear and in tile order) and the
     member lookup (bitmap and search);
-11. holds the benchmark's kernels against their plain versions at small
+12. holds the benchmark's kernels against their plain versions at small
     ragged sizes (``memcpy`` at byte counts that are not multiples of 16,
     one stage of its ring +- 16 bytes, several stages plus a 7-byte tail,
     and enough stages to wrap every CTA's ring; the chunked and dynamic
@@ -161,7 +188,7 @@ from the sources in the checkout and then:
     boundary, across groups of rows and across the dynamic kernel's launch
     boundary, a chunk of equal keys, keys all past the domain, a
     ``block_offset``);
-12. times the memcpy kernel beside its plain version and ``copy_`` on 512
+13. times the memcpy kernel beside its plain version and ``copy_`` on 512
     MiB (random words, and zeros), and the chunked and dynamic scans and
     the general compare kernel on S64 and a 256-key set of the ``i % 512``
     column, each checked against its plain twin and the closed-form
@@ -176,20 +203,20 @@ from the sources in the checkout and then:
     every run returns 0, every verification reads ok, every row parses with
     the sweep script's regexes and none is above 105% of the card's
     data-sheet memory rate;
-13. times the compare wrapper on k = 1 and on S8, S64 and S256 of the
+14. times the compare wrapper on k = 1 and on S8, S64 and S256 of the
     ``i % 512`` column as CUDA keys (the compare kernel, or from
     ``scan._compare_fold_wins`` the bit-sliced tier's launch) and the
     interval kernel on keys 0..63 and 0..1023 of the main path's column,
     each with its launches by kernel, its counts against the closed form
     and its bits against the plain version, beside its bound and the
     staged fold on the same keys, with both kernels' registers and spills;
-14. times the shift canary's verdict (CUDA events, its first call on a
+15. times the shift canary's verdict (CUDA events, its first call on a
     cleared cache on the host clock, its device time by ``torch.profiler``),
     the elementwise canary and ``torch.bitwise_left_shift`` on the same
     inputs (held against the plain shift first), and the zoned scan Z3:
     the row form, the count form, the row form's device time and
     ``zoned_eq_scan``'s wall time;
-15. prints a JSON line with one entry per kernel, and as its last line
+16. prints a JSON line with one entry per kernel, and as its last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check or error exits non-zero and prints no result; so does a
@@ -1650,6 +1677,279 @@ def query_phase(device, arb) -> tuple[dict, dict]:
         check(bool((bits == pbits.reshape(-1)[: bits.numel()]).all()),
               f"{name}: every word equals the plain compare version's")
     return cols, launches
+
+
+TS0, DAY = 1_700_000_000, 86_400  # a day of timestamps from 1,700,000,000, as the demo draws
+TS_IN = [TS0 + 2159 * i + 11 for i in range(40)]  # 40 keys spread over the day
+NULL_SHARE = 0.1
+DICT_N = 1 << 27  # cut from the main path's n: the host np.unique encode
+SKUS = 150  # the demo's 40-bit SKUs: 150 distinct values
+SKU_MULT = 982_451_653
+
+
+_GENERIC = {"AUnaryFunctor", "BUnaryFunctor", "BinaryFunctor", "func_wrapper_t"}
+
+
+def kernel_label(name: str) -> str:
+    """A trace's kernel name, short: ``sss::<kernel>`` for the port's, else
+    ``torch:<functor>`` for the PyTorch operation's."""
+    m = re.search(r"sss::\w+", name)
+    if m:
+        return m.group(0)
+    for token in re.findall(r"\w*Functor\w*|\w+_kernel_cuda|\w+_functor|CatArray\w+", name):
+        if token not in _GENERIC:
+            return f"torch:{token}"
+    return f"torch:{name.split('(')[0][-60:]}"
+
+
+def trace_kernels(log_dir: str) -> tuple[dict, dict]:
+    """The Chrome trace in ``log_dir`` -> (kernel label -> summed device ms,
+    ``sss_`` entry point -> summed ms of its ranges, on the card where the
+    trace spans the entry point's kernels there, else on the host)."""
+    (path,) = pathlib.Path(log_dir).glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels, gpu, cpu = {}, {}, {}
+    for e in events:
+        name, cat = str(e.get("name", "")), e.get("cat")
+        if cat == "kernel":
+            label = kernel_label(name)
+            kernels[label] = kernels.get(label, 0.0) + e["dur"] / 1e3
+        elif name.startswith("sss_"):
+            side = gpu if cat == "gpu_user_annotation" else cpu
+            side[name] = side.get(name, 0.0) + e.get("dur", 0) / 1e3
+    return kernels, gpu or cpu
+
+
+def encodings_phase(device, n: int, dev, cols) -> None:
+    """The FOR, dictionary and NULL-aware columns, persistence and the
+    utilities at full size, each set with the launch counters set to 0
+    just before it and read just after, checked against plain torch (or
+    numpy) on the raw values; prints one ``{"encodings": ...}`` line."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch import bitvector, dictcol, forcol, layout, nullable
+    from shared_simd_scan_tpu_torch import io as sio
+    from shared_simd_scan_tpu_torch import query as q
+    from shared_simd_scan_tpu_torch import shared_scan_device, utils
+
+    t_phase = time.monotonic()
+    kernels = wrappers()
+    ms, ran = {}, {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        ran[name] = {k: f.launches for k, f in kernels.items() if f.launches}
+        return out
+
+    def same_bits(name, got, truth):
+        bits, count = got
+        check(bool((bits == bitvector.from_bool(truth)).all())
+              and int(count) == int(truth.sum()),
+              f"{name}: every word and the count ({int(count)}) equal plain torch on the raw values")
+
+    # FOR: a day of timestamps at 17 bits
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    ts = torch.randint(TS0, TS0 + DAY, (n,), generator=gen, device=device, dtype=torch.int32)
+    null_mask = torch.rand(n, generator=gen, device=device) < NULL_SHARE
+    fts = run("F0 pack_for", lambda: forcol.pack_for(ts))
+    base = int(ts.min())
+    packed = {"ts FOR": layout.packed_nbytes(fts.width, n)}
+    check(fts.width == 17 and fts.base == base,
+          f"F0: timestamps FOR-encoded at 17 bits from base {base}, {packed['ts FOR']} bytes packed")
+    trees = {"F1 Range": (q.Range(fts, TS0 + 40_000, TS0 + 50_000),
+                          lambda: (ts >= TS0 + 40_000) & (ts < TS0 + 50_000)),
+             "F2 Eq": (q.Eq(fts, TS0 + 12_345), lambda: ts == TS0 + 12_345),
+             "F3 In 40 keys": (q.In(fts, TS_IN), lambda: torch.isin(
+                 ts, torch.tensor(TS_IN, dtype=torch.int32, device=device)))}
+    for name, (expr, truth) in trees.items():
+        same_bits(name, run(name, lambda expr=expr: forcol.evaluate(expr)), truth())
+    d = run("F4 describe", lambda: forcol.describe(fts))
+    got_q = run("F5 quantiles", lambda: forcol.quantiles(fts, QS))
+    srt = torch.sort(ts).values
+    idx = [max(1, int(np.ceil(f * n))) - 1 for f in QS]
+    want = {"n": n, "min": int(srt[0]), "max": int(srt[-1]),
+            "mean": int((ts - base).sum(dtype=torch.int64)) / n + base,
+            "median": int(srt[(n + 1) // 2 - 1]),
+            "distinct": int((srt[1:] != srt[:-1]).sum()) + 1}
+    check(d == want, f"F4: describe {d} equals the sorted raw values'")
+    check(got_q.dtype == np.uint64 and got_q.tolist() == srt[idx].tolist(),
+          f"F5: quantiles {QS} -> {got_q.tolist()} (uint64) equal the sorted raw values'")
+    del srt
+    back = run("F6 unpack_for", lambda: forcol.unpack_for(fts))
+    check(back.dtype == np.uint64 and np.array_equal(back, ts.cpu().numpy().astype(np.uint64)),
+          "F6: unpack_for gives back every timestamp (host uint64)")
+    del back
+
+    # NULLs: the query phase's 9-bit price with 10% NULLs
+    raw = draw_columns(device, n, TABLE)
+    nc = run("N0 pack_nullable", lambda: nullable.pack_nullable(raw["price"], null_mask, 9))
+    packed["price nullable"] = layout.packed_nbytes(9, n)
+    packed["nulls"] = nc.nulls.numel() * 4
+    check(bool((nc.nulls == bitvector.from_bool(null_mask)).all()),
+          f"N0: {int(null_mask.sum())} NULLs, {packed['nulls']} bytes of NULL words")
+    p, g, s = raw["price"], raw["region"], raw["status"]
+    known = ~null_mask
+    leaf = q.Range(nc, 100, 400)
+    in_leaf = (p >= 100) & (p < 400)
+    st = torch.tensor([1, 4, 9], dtype=torch.int32, device=device)
+    ntrees = {"N1 leaf": (leaf, lambda: in_leaf & known),
+              "N2 Not(leaf)": (q.Not(leaf), lambda: ~in_leaf & known),
+              "N3 And": (q.And(leaf, q.Range(cols["price"], 200, 500),
+                               q.Range(cols["region"], 2, 10)),
+                         lambda: in_leaf & known & (p >= 200) & (p < 500) & (g >= 2) & (g < 10)),
+              "N4 Or": (q.Or(leaf, q.In(cols["status"], [1, 4, 9])),
+                        lambda: (in_leaf & known) | torch.isin(s, st))}
+    outs = {}
+    for name, (expr, truth) in ntrees.items():
+        outs[name] = run(name, lambda expr=expr: nullable.evaluate(expr))
+        same_bits(name, outs[name], truth())
+    conj = {name: ran[name].get("conj_range_scan", 0) for name in ("N1 leaf", "N3 And")}
+    check(conj == {"N1 leaf": 1, "N3 And": 2},
+          f"N3: the And's pure siblings ran as one conj_range_scan launch (the And {conj['N3 And']}"
+          f" launches, its nullable leaf alone {conj['N1 leaf']})")
+    where = ntrees["N3 And"][0]
+    mask = ntrees["N3 And"][1]()
+    want_sum, want_count = int(ts[mask].sum(dtype=torch.int64)), int(mask.sum())
+    del mask
+    total, count = run("N5 FOR sum", lambda: forcol.masked_aggregate(fts, outs["N3 And"][0]))
+    check(total == want_sum and int(count) == want_count,
+          f"N5: SUM(ts), COUNT(*) WHERE the And = {total}, {int(count)}: exact against Python ints")
+
+    # utils: the NULL-aware WHERE and the FOR aggregate under the trace
+    utils.reset_samples()
+    with tempfile.TemporaryDirectory() as log_dir:
+        with utils.trace(log_dir):
+            torch.cuda.synchronize()
+            with utils.ProfileSample("U0 where+sum", sync=True):
+                bits_u, _ = nullable.evaluate(where)
+                total_u, _ = forcol.masked_aggregate(fts, bits_u)
+        traced, named = trace_kernels(log_dir)
+    sample = utils.get_sample("U0 where+sum")
+    device_ms = sum(traced.values())
+    port_ms = sum(v for k, v in traced.items() if k.startswith("sss::"))
+    host_ms = sample.total_ns / 1e6
+    print(f"U0 trace: {device_ms:.6f} ms of device time ({port_ms:.6f} ms in the port's "
+          f"kernels, {device_ms - port_ms:.6f} ms in PyTorch's) in {host_ms:.6f} ms of host "
+          f"clock: the card idle {1 - device_ms / host_ms:.1%} of it; by kernel {traced}; the "
+          f"sss_ entry points' ranges {named}")
+    check(total_u == total and bool((bits_u == outs["N3 And"][0]).all()),
+          "U0: the traced WHERE and sum equal the untraced ones")
+    check(any(name.startswith("sss_") for name in named) and bool(traced),
+          f"U0: the exported trace names sss_ entry points ({len(named)}) and their kernels")
+    check(sample.count == 1 and host_ms >= device_ms,
+          f"U0: ProfileSample(sync=True) took one sample, {host_ms:.6f} ms >= the kernels' "
+          f"{device_ms:.6f} ms")
+    check(utils.dump_memory(nc.nulls) == utils.dump_memory(nc.nulls.cpu()),
+          "U1: dump_memory of the CUDA NULL words equals that of their CPU copy")
+
+    # io: the main path's column, the query table and the NULL-aware result
+    header = sio._HEADER.size
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        canon = layout.to_canonical(dev)
+        run("I0 save_column", lambda: sio.save_column(canon, tmp / "main.sss"))
+        table = {name: layout.to_canonical(c) for name, c in cols.items()}
+        run("I1 save_table", lambda: sio.save_table(table, tmp / "table"))
+        run("I2 save_bitvector", lambda: sio.save_bitvector(outs["N3 And"][0], n,
+                                                            tmp / "where.sss"))
+        files = {tmp / "main.sss": (sio.KIND_COLUMN, canon),
+                 **{tmp / "table" / f"{name}.sss": (sio.KIND_COLUMN, c)
+                    for name, c in table.items()},
+                 tmp / "where.sss": (sio.KIND_BITVECTOR, None)}
+        for path, (kind, col) in files.items():
+            data = path.read_bytes()
+            if col is None:
+                width, nbytes, words = 0, (n + 7) // 8, outs["N3 And"][0]
+            else:
+                width, nbytes, words = col.width, col.nbytes_payload, col.words
+            head = sio._HEADER.pack(sio.MAGIC, kind, width, 0, n)
+            payload = words.cpu().numpy().view(np.uint8)[:nbytes]
+            check(len(data) == header + nbytes and data[:header] == head
+                  and np.array_equal(np.frombuffer(data, np.uint8, offset=header), payload),
+                  f"{path.name}: {len(data)} bytes, exactly the header and the payload")
+        manifest = json.loads((tmp / "table" / "MANIFEST.json").read_text())
+        check(manifest == {name: {"width": c.width, "n": n} for name, c in table.items()},
+              f"MANIFEST.json {manifest}")
+        del table, canon
+        loaded = run("I3 load_column", lambda: sio.load_column(tmp / "main.sss"))
+        ltable = run("I4 load_table", lambda: sio.load_table(tmp / "table"))
+        lbits, ln = run("I5 load_bitvector", lambda: sio.load_bitvector(tmp / "where.sss"))
+    ldev = layout.to_device(loaded)
+    check(loaded.words.is_cuda and bool((ldev.tiles == dev.tiles).all()),
+          "I3: the loaded main-path column lies on the card, its tiles the original's")
+    bits_l, counts_l = shared_scan_device(ldev, list(range(K)))
+    bits_o, counts_o = shared_scan_device(dev, list(range(K)))
+    check(bool((bits_l == bits_o).all()) and counts_l.tolist() == counts_o.tolist(),
+          f"I3: shared_scan_device keys 0..7 of the loaded column equals the original's "
+          f"({counts_l.tolist()})")
+    del ldev, loaded, bits_l, bits_o
+    check(list(ltable) == list(cols) and all(
+        bool((layout.to_device(c).tiles == cols[name].tiles).all()) for name, c in ltable.items()),
+        "I4: every loaded table column's tiles equal the original's")
+    check(ln == n and lbits.is_cuda and bool((lbits == outs["N3 And"][0]).all()),
+          "I5: the loaded NULL-aware result equals the one saved")
+    del ltable, lbits, outs, raw, p, g, s, known, in_leaf, null_mask
+
+    # dictionary: 40-bit SKUs of 150 distinct values at 2^27 rows
+    print(f"dictionary: n = {DICT_N}, cut from the main path's {n}: the encode is the host's "
+          "np.unique(..., return_inverse=True)")
+    rng = np.random.default_rng(SEED)
+    skus = (rng.integers(0, SKUS, DICT_N).astype(np.uint64) * np.uint64(SKU_MULT)) % (1 << 40)
+    dc = run("D0 pack_dict", lambda: dictcol.pack_dict(skus))
+    packed["sku dict"] = layout.packed_nbytes(dc.width, DICT_N)
+    check(dc.width == 8 and dc.values.size == SKUS and dc.n == DICT_N,
+          f"D0: SKUs dictionary-encoded at 8 bits ({dc.values.size} distinct), "
+          f"{packed['sku dict']} bytes packed; encoded on the host in {ms['D0 pack_dict']:.1f} ms")
+    sk = torch.from_numpy(skus.view(np.int64)).to(device)
+    v = [int(x) for x in dc.values]
+    fts2 = forcol.pack_for(ts[:DICT_N])
+    t2 = ts[:DICT_N]
+    absent = [v[3], v[3] + 1, v[140], 7, (1 << 40) + 5]  # three keys not in the dictionary
+    dtrees = {"D1 Eq": (q.Eq(dc, v[17]), lambda: sk == v[17]),
+              "D2 Range": (q.Range(dc, v[20], v[90]), lambda: (sk >= v[20]) & (sk < v[90])),
+              "D3 In, absent keys": (q.In(dc, absent), lambda: torch.isin(
+                  sk, torch.tensor(absent, dtype=torch.int64, device=device))),
+              "D4 dict and FOR": (
+                  q.And(q.Range(dc, v[10], v[120]), q.Range(fts2, TS0 + 10_000, TS0 + 60_000)),
+                  lambda: (sk >= v[10]) & (sk < v[120]) & (t2 >= TS0 + 10_000)
+                  & (t2 < TS0 + 60_000))}
+    for name, (expr, truth) in dtrees.items():
+        same_bits(name, run(name, lambda expr=expr: dictcol.evaluate(expr)), truth())
+    uniq, counts = torch.unique(sk, return_counts=True)  # sorted ascending
+    order = torch.sort(-counts, stable=True).indices[:5]
+    top, top_counts = run("D5 topk_values", lambda: dictcol.topk_values(dc, 5))
+    check(top.tolist() == uniq[order].tolist() and top_counts.tolist() == counts[order].tolist(),
+          f"D5: top-5 SKUs {top.tolist()} and counts equal torch.unique's")
+    d = run("D6 describe", lambda: dictcol.describe(dc))
+    uv, uc = uniq.tolist(), counts.tolist()
+    cum = np.cumsum(uc)
+    want = {"n": DICT_N, "min": uv[0], "max": uv[-1],
+            "mean": sum(a * b for a, b in zip(uv, uc)) / DICT_N,
+            "median": uv[int(np.searchsorted(cum, (DICT_N + 1) // 2))], "distinct": len(uv)}
+    check(d == want, f"D6: describe {d} equals torch.unique's counts")
+    back = run("D7 unpack_dict", lambda: dictcol.unpack_dict(dc))
+    check(back.dtype == np.uint64 and np.array_equal(back, skus),
+          "D7: unpack_dict gives back every SKU (host uint64)")
+    del back, sk, skus, t2, fts2, dc, fts, ts
+    torch.cuda.empty_cache()
+
+    seconds = time.monotonic() - t_phase
+    print(json.dumps({"encodings": {
+        "card": nvidia_smi(), "n": n, "dict_n": DICT_N, "dict_cut_from": n,
+        "dict_encode_ms": ms["D0 pack_dict"], "packed_bytes": packed, "ms": ms,
+        "launches": ran, "trace": {"device_ms": device_ms, "port_kernels_ms": port_ms, "host_ms": host_ms,
+                                   "kernels": traced, "entry_points": named},
+        "seconds": seconds}}))
+    print(f"encodings phase ran in {seconds:.1f} s")
 
 
 def query_timing_phase(device, cols, arb, errs: dict) -> dict:
@@ -3438,6 +3738,7 @@ def main() -> int:
     launches.update({name: arb_launches[name] for name in ARBITRARY})
     cols, query_launches = query_phase(device, arb)
     launches.update({name: query_launches[name] for name in QUERY})
+    encodings_phase(device, n, dev, cols)
     small_aggregate_phase(device, errs)
     small_lookup_phase(device, errs)
     agg_data, agg_launches = aggregate_phase(device, cols)

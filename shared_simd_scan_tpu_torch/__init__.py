@@ -8,9 +8,11 @@ multi-column conjunction, the IN-list member scan, the predicate-tree
 query layer (``query.evaluate``, with zone-map pruning), the linear
 (interleaved) export (``shared_scan_linear_device``), the aggregates:
 keyed SUM/COUNT and MIN/MAX, and SUM/COUNT under a bitvector; the value
-histogram and the statistics drawn from it (``stats``), and zone maps
-(``zonemap``).  Module names mirror the JAX package; the port imports
-torch and numpy and never jax.
+histogram and the statistics drawn from it (``stats``), zone maps
+(``zonemap``), the FOR and dictionary encodings (``forcol``, ``dictcol``),
+NULL-aware evaluation (``nullable``), persistence (``io``) and the
+profiling and debug utilities (``utils``).  Module names mirror the JAX
+package; the port imports torch and numpy and never jax.
 """
 
 from shared_simd_scan_tpu_torch.layout import (  # noqa: F401
@@ -25,8 +27,12 @@ from shared_simd_scan_tpu_torch.layout import (  # noqa: F401
     unpack_schedule,
 )
 from shared_simd_scan_tpu_torch import bitvector  # noqa: F401
+from shared_simd_scan_tpu_torch import io  # noqa: F401
 from shared_simd_scan_tpu_torch import query  # noqa: F401
 from shared_simd_scan_tpu_torch import stats  # noqa: F401
+from shared_simd_scan_tpu_torch import forcol  # noqa: F401
+from shared_simd_scan_tpu_torch import dictcol  # noqa: F401
+from shared_simd_scan_tpu_torch import nullable  # noqa: F401
 from shared_simd_scan_tpu_torch import zonemap  # noqa: F401
 from shared_simd_scan_tpu_torch.ops.scan import (  # noqa: F401
     scan_device,

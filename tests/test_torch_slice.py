@@ -124,7 +124,9 @@ def test_port_never_imports_jax():
     code = (
         "import sys\n"
         "import shared_simd_scan_tpu_torch\n"
-        "from shared_simd_scan_tpu_torch import bitvector, layout\n"
+        "from shared_simd_scan_tpu_torch import bitvector, dictcol, forcol, io, layout, nullable\n"
+        "from shared_simd_scan_tpu_torch import utils\n"
+        "from shared_simd_scan_tpu_torch.utils import debug, profiling\n"
         "from shared_simd_scan_tpu_torch.ops import _cuda, oracle, scan, unpack\n"
         "from shared_simd_scan_tpu_torch.bench import cli, harness, timing\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
@@ -146,3 +148,13 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
     proc = _run([str(tmp_path / "chip_smoke.py")], cwd=tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_analytics_demo_runs_on_the_cpu():
+    # the port's demo asserts the JAX demo's counts on the same table
+    proc = _run([str(REPO / "examples" / "analytics_demo_torch.py"), "--cpu"], cwd=REPO,
+                env_extra={"PYTHONPATH": str(REPO)})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "demo OK"
+    assert "timestamps FOR-encoded at 17 bits" in proc.stdout
+    assert "dictionary-encoded at 8 bits (150 distinct)" in proc.stdout
