@@ -197,8 +197,9 @@ from the sources in the checkout and then:
     drives the benchmark CLI in process, ``cli.main`` with 3 reps: the
     default suite with ``all`` (memory with the memcpy and ``copy_`` rows,
     decompression, scan, sharedscan at data_size/8, pack), sharedscan k=64
-    at 512 MiB (the chunked and dynamic scans at full size), and
-    linear, member, conj, aggregate and histogram at 64 MiB, with the
+    at 512 MiB (the chunked and dynamic scans at full size), linear,
+    member, conj, aggregate and histogram at 64 MiB and ``scaling 8`` (the
+    one-card mesh's row), with the
     launch counters set to 0 just before and read just after; checks that
     every run returns 0, every verification reads ok, every row parses with
     the sweep script's regexes and none is above 105% of the card's
@@ -216,7 +217,24 @@ from the sources in the checkout and then:
     inputs (held against the plain shift first), and the zoned scan Z3:
     the row form, the count form, the row form's device time and
     ``zoned_eq_scan``'s wall time;
-16. prints a JSON line with one entry per kernel, and as its last line
+16. drives the sharded surface at full size (``sharded_phase``, after the
+    statistics timing phase): ``parallel.dist`` on meshes of card 0 with
+    one shard, four shards (B1 a multiple of 32, block offsets inside the
+    column) and a process group of one over NCCL (``dist.initialize``
+    through a ``file://`` rendezvous; the backend printed and checked):
+    ``sharded_shared_scan`` on keys 0..7 (interval), key 3 (compare) and
+    S64 of the ``i % 512`` column, ``sharded_unpack``, ``evaluate_sharded``
+    on Q1-Q4, ``sharded_aggregate_scan`` on A3 and A2,
+    ``sharded_minmax_scan`` on A6, ``sharded_masked_aggregate`` on Q1's
+    bits, ``stats.describe(mesh=)`` on the 12-bit column,
+    ``sharded_linear_scan`` on L1 and ``sharded_member_scan`` on
+    ``w31_list`` (a 31-bit ``i % 512`` column of 512 MiB packed); each set
+    held bit for bit against its unsharded call (bits and the linear
+    stream through ``fetch_global``), its launches counted (S=4 four a
+    kernel), its host-clock ms printed for the unsharded call and each
+    mesh, in one ``{"sharded": ...}`` line; the CLI phase also runs
+    ``scaling 8``;
+17. prints a JSON line with one entry per kernel, and as its last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check or error exits non-zero and prints no result; so does a
@@ -233,6 +251,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 WIDTH = 9
@@ -402,7 +421,8 @@ COPY_BYTES = (1, 15, 17, 4097, 65_539, 1_000_003)  # and sizes around the copy's
 # the CLI runs of the bench phase, and the verification lines each prints
 CLI_RUNS = ((["_", "3", "all"], 4), (["512m", "3", "sharedscan", "64"], 1),
             (["64m", "3", "linear"], 1), (["64m", "3", "member"], 1), (["64m", "3", "conj"], 1),
-            (["64m", "3", "aggregate"], 1), (["64m", "3", "histogram"], 1))
+            (["64m", "3", "aggregate"], 1), (["64m", "3", "histogram"], 1),
+            (["_", "3", "scaling", "8"], 1))
 PEAK_SHARE = 1.05  # no CLI row may claim more than this share of the data-sheet rate
 # the edges of the interval and compare kernels at every width 1-31 (the
 # card tests' sets): k around a round of 8 keys and a chunk of 32, and
@@ -3055,6 +3075,229 @@ def stats_timing_phase(device, arb, rev, zdata, stats_cols, cols, errs: dict) ->
     return results
 
 
+# the sharded phase's meshes, all of card 0: one shard, four shards (B1 a
+# multiple of 32, block offsets inside the column) and a process group of
+# one over NCCL
+SHARDED_MESHES = ("S=1", "S=4", "NCCL-1")
+SHARDED_REPS = 10  # timed calls a set and mesh, after the one whose launches are counted
+
+
+@contextlib.contextmanager
+def sharded_mesh(label: str, device):
+    """The mesh called ``label``; NCCL-1 joins a process group of one over
+    NCCL (``dist.initialize`` on a CUDA device; a file:// rendezvous in a
+    temporary directory) and leaves it on exit."""
+    import torch
+    from shared_simd_scan_tpu_torch.parallel import dist
+
+    if label != "NCCL-1":
+        yield dist.Mesh((device,) * (4 if label == "S=4" else 1))
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.initialize(init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0,
+                        device=device)
+        try:
+            backend = torch.distributed.get_backend()
+            print(f"NCCL-1: a process group of one, backend {backend}")
+            check(backend == ("nccl" if device.type == "cuda" else "gloo"),
+                  f"the process group of one runs on {backend}, the backend dist.initialize "
+                  "names for the card")
+            yield dist.make_mesh([device])
+        finally:
+            torch.distributed.destroy_process_group()
+
+
+def sharded_sets(n: int, n31: int) -> dict:
+    """Set -> (what, the unsharded call on the columns ``c``, the sharded
+    call on the sharded columns ``c`` over mesh ``m`` (with ``q1``, this
+    mesh's Q1 bits), whether a sharded result ``s`` equals the unsharded
+    ``u``)."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch import query, stats
+    from shared_simd_scan_tpu_torch.ops import aggregate, member, scan, unpack
+    from shared_simd_scan_tpu_torch.parallel import dist
+
+    def canon(bits, m, nn=n):
+        return scan.bits_to_canonical(dist.fetch_global(bits, m), nn)
+
+    def same_scan(u, s, m, nn=n):
+        return torch.equal(canon(s[0], m, nn), u[0]) and torch.equal(s[1], u[1])
+
+    def same_sums(u, s, m):
+        return np.array_equal(s[0], u[0].cpu().numpy().astype(np.uint64)) and \
+            torch.equal(s[1], u[1])
+
+    nwords = (n + 7) // 8 * K // 4
+    sets = {
+        "X1": ("sharded_shared_scan(main, keys 0..7): the interval kernel",
+               lambda c: scan.shared_scan_device(c["main"], list(range(K))),
+               lambda c, m, q1: dist.sharded_shared_scan(c["main"], list(range(K)), m),
+               same_scan),
+        "X2": (f"sharded_shared_scan(main, [{SCAN_KEY}]): the compare kernel",
+               lambda c: scan.shared_scan_device(c["main"], [SCAN_KEY]),
+               lambda c, m, q1: dist.sharded_shared_scan(c["main"], [SCAN_KEY], m), same_scan),
+        "X3": ("sharded_shared_scan(i % 512, S64): the static tier",
+               lambda c: scan.shared_scan_device(c["arb"], s64()),
+               lambda c, m, q1: dist.sharded_shared_scan(c["arb"], s64(), m), same_scan),
+        "X4": ("sharded_unpack(main)",
+               lambda c: unpack.unpack_tiles(c["main"].tiles, WIDTH),
+               lambda c, m, q1: dist.sharded_unpack(c["main"], m),
+               lambda u, s, m: torch.equal(unpack.values_to_flat(dist.fetch_global(s, m), n),
+                                           unpack.values_to_flat(u, n))),
+    }
+    for name in ("Q1", "Q2", "Q3", "Q4"):
+        sets[name] = (f"evaluate_sharded({name})",
+                      lambda c, name=name: query.evaluate(query_trees(query, c)[name]),
+                      lambda c, m, q1, name=name: query.evaluate_sharded(
+                          query_trees(query, c)[name], m),
+                      lambda u, s, m: torch.equal(canon(s[0], m), u[0])
+                      and int(s[1]) == int(u[1]))
+    sets.update({
+        "A3": ("sharded_aggregate_scan(price, revenue, [3]): the compare kernel",
+               lambda c: aggregate.aggregate_scan_device(c["price"], c["revenue"],
+                                                         AGG_KEYS["A3"]),
+               lambda c, m, q1: dist.sharded_aggregate_scan(c["price"], c["revenue"],
+                                                            AGG_KEYS["A3"], m), same_sums),
+        "A2": ("sharded_aggregate_scan(region, revenue, 0..31): the static bit-plane kernel",
+               lambda c: aggregate.aggregate_scan_device(c["region"], c["revenue"],
+                                                         AGG_KEYS["A2"]),
+               lambda c, m, q1: dist.sharded_aggregate_scan(c["region"], c["revenue"],
+                                                            AGG_KEYS["A2"], m), same_sums),
+        "A6": ("sharded_minmax_scan(region, revenue, 0..7)",
+               lambda c: aggregate.minmax_scan_device(c["region"], c["revenue"],
+                                                      AGG_KEYS["A6"]),
+               lambda c, m, q1: dist.sharded_minmax_scan(c["region"], c["revenue"],
+                                                         AGG_KEYS["A6"], m),
+               lambda u, s, m: all(torch.equal(a, b) for a, b in zip(s, u))),
+        "A1": ("sharded_masked_aggregate(revenue, Q1's bits)",
+               lambda c: aggregate.masked_aggregate_device(c["revenue"], c["q1"]),
+               lambda c, m, q1: dist.sharded_masked_aggregate(c["revenue"], q1, m),
+               lambda u, s, m: int(s[0]) == int(u[0]) and int(s[1]) == int(u[1])),
+        "H6": ("stats.describe(12-bit column, mesh=)",
+               lambda c: stats.describe(c["h6"]),
+               lambda c, m, q1: stats.describe(c["h6"], mesh=m),
+               lambda u, s, m: s == u),
+        "L1": ("sharded_linear_scan(main, keys 0..7): the fused interval kernel",
+               lambda c: scan.interval_scan_linear_words_tiles(c["main"].tiles, 0, K, WIDTH, n),
+               lambda c, m, q1: dist.sharded_linear_scan(c["main"], 0, K, m),
+               lambda u, s, m: torch.equal(
+                   dist.fetch_global(s[0], m).reshape(-1)[:nwords], u[0])
+               and torch.equal(s[1], u[1])),
+        "M1": ("sharded_member_scan(31-bit i % 512, w31_list): the chunked window body",
+               lambda c: member.member_scan_device(c["w31"], w31_window_list()),
+               lambda c, m, q1: dist.sharded_member_scan(c["w31"], w31_window_list(), m),
+               lambda u, s, m: same_scan(u, s, m, n31)),
+    })
+    return sets
+
+
+def sharded_phase(device, dev, arb, cols, rev, h6) -> None:
+    """The sharded surface at full size (``parallel.dist``,
+    ``query.evaluate_sharded``, ``stats``' ``mesh=``) on the main path's
+    9-bit column, the ``i % 512`` column, the query table with the 20-bit
+    ``revenue``, the 12-bit statistics column and a 31-bit ``i % 512``
+    column of 512 MiB packed, on the three SHARDED_MESHES.  Each set runs
+    unsharded and then on each mesh: once to warm up, once with the launch
+    counters set to 0 just before and read just after, then SHARDED_REPS
+    more times on the host clock (synchronized, median); each result is
+    held bit for bit against the unsharded one (bits and the linear stream
+    through ``fetch_global``).  Each sharded call launches its kernels once a
+    shard: S=1 and NCCL-1 as the unsharded call, S=4 four times.  Frees
+    the shards after each mesh."""
+    import numpy as np
+    import torch
+    from shared_simd_scan_tpu_torch import stats
+    from shared_simd_scan_tpu_torch.parallel import dist
+
+    t0 = time.monotonic()
+    kernels = wrappers()
+    n = dev.n
+    _, w31 = wide_member_column(device, 31)
+    columns = {"main": dev, "arb": arb, **cols, "revenue": rev, "h6": h6, "w31": w31}
+    sets = sharded_sets(n, w31.n)
+    smi = nvidia_smi()
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def run(call):
+        """(result, launches by kernel, host-clock ms: median of the timed
+        calls), after one warm-up call (a first interval scan in a process
+        also runs the shift verdict)."""
+        call()
+        sync()
+        for fn in kernels.values():
+            fn.launches = 0
+        out = call()
+        sync()
+        launches = {name: fn.launches for name, fn in kernels.items() if fn.launches}
+        times = []
+        for _ in range(SHARDED_REPS):
+            t1 = time.perf_counter()
+            call()
+            sync()
+            times.append((time.perf_counter() - t1) * 1e3)
+        return out, launches, statistics.median(times)
+
+    report = {name: {"what": spec[0], "ms": {}, "launches": {}} for name, spec in sets.items()}
+    unsharded = {}
+    for name, (_, call, _, _) in sets.items():
+        if name == "A1":  # Q1's bits, as the unsharded evaluate gave them
+            columns["q1"] = unsharded["Q1"][0]
+        out, launches, ms = run(lambda call=call: call(columns))
+        unsharded[name] = out
+        report[name]["launches"]["unsharded"], report[name]["ms"]["unsharded"] = launches, ms
+    del columns["q1"]
+    torch.cuda.empty_cache()
+    print(f"sharded phase: unsharded calls in {time.monotonic() - t0:.1f} s")
+
+    for label in SHARDED_MESHES:
+        with sharded_mesh(label, device) as mesh:
+            t1 = time.monotonic()
+            shards = {name: dist.shard_column(col, mesh) for name, col in columns.items()}
+            sync()
+            main = shards["main"]
+            offsets = [main.block_offset(i) for i in range(len(mesh.devices))]
+            print(f"{label}: {mesh.size} shard(s) of B1 {main.local_b1} (main), block offsets "
+                  f"{offsets}, sharded in {time.monotonic() - t1:.2f} s")
+            if mesh.group is not None:
+                backend = torch.distributed.get_backend(mesh.group)
+            q1 = None
+            for name, (what, _, call, same) in sets.items():
+                out, launches, ms = run(lambda call=call: call(shards, mesh, q1))
+                if name == "Q1":
+                    q1 = out[0]
+                report[name]["launches"][label] = launches
+                report[name]["ms"][label] = ms
+                check(bool(launches), f"{name} {label}: the sharded call launched {launches}")
+                check(same(unsharded[name], out, mesh),
+                      f"{name} {label}: {what} equals the unsharded result bit for bit")
+                del out
+            check(np.array_equal(stats.histogram_full(shards["h6"], mesh=mesh),
+                                 stats.histogram_full(columns["h6"])),
+                  f"H6 {label}: histogram_full(mesh=) equals the unsharded counts")
+            del shards, main, q1
+            torch.cuda.empty_cache()
+    del unsharded, w31
+    torch.cuda.empty_cache()
+
+    for name, r in report.items():
+        base = r["launches"]["unsharded"]
+        check(r["launches"]["S=1"] == base and r["launches"]["NCCL-1"] == base
+              and r["launches"]["S=4"] == {k: 4 * c for k, c in base.items()},
+              f"{name}: S=1 and NCCL-1 launch as the unsharded call ({base}), S=4 four times")
+        ms = ", ".join(f"{label} {r['ms'][label]:.6f}"
+                       for label in ("unsharded", *SHARDED_MESHES))
+        print(f"sharded {name} {r['what']}: host-clock ms {ms}; launches "
+              f"{r['launches']['unsharded']} a call, S=4 {r['launches']['S=4']} ({smi})")
+    seconds = time.monotonic() - t0
+    print(json.dumps({"sharded": {"card": smi, "backend": backend, "n": n, "seconds": seconds,
+                                  "sets": report}}))
+    print(f"sharded phase ran in {seconds:.1f} s")
+
+
 def small_linear_phase(device, errs: dict) -> None:
     """The linear export's kernels against their plain versions at small
     ragged sizes: the interleave at k 1-1024 on random words (ragged byte
@@ -3756,6 +3999,7 @@ def main() -> int:
     times.update(query_timing_phase(device, cols, arb, errs))
     times.update(aggregate_timing_phase(device, cols, agg_data, errs))
     times.update(stats_timing_phase(device, arb, agg_data["rev"], zdata, stats_cols, cols, errs))
+    sharded_phase(device, dev, arb, cols, agg_data["rev"], stats_cols["h6"])
     # the linear timing phase's plain twins hold int64 words of 64 keys
     # (7.1 GiB): free the query, aggregate and zone-map data before it
     del cols, agg_data, zdata, stats_cols

@@ -7,15 +7,16 @@ Usage (the reference's positional convention, ``_`` = default):
     data_size    packed payload bytes (suffixes k/m/g), default 500m
     repetitions  timing trials, default 5
     bench        memory | decompression | scan | sharedscan | pack |
-                 linear | member | conj | aggregate | histogram | all
-    args         sharedscan/linear/member/aggregate: predicate count k
-                 (default 8); conj: column count m (default 2);
+                 linear | member | conj | aggregate | histogram |
+                 scaling | all
+    args         sharedscan/linear/member/aggregate/scaling: predicate
+                 count k (default 8); conj: column count m (default 2);
                  histogram: key count k (default: full domain, <= 4096)
 
 With no arguments the default suite runs, with sharedscan at data_size/8,
 as the reference does with none (main.cpp:75-102).  ``--width=W`` (default
-9) sets the packed width.  The JAX package's ``scaling`` bench is not here
-yet: it needs ``parallel.dist`` (ROADMAP Queue 1 item 12).
+9) sets the packed width.  ``scaling`` runs the sharded shared scan at
+data_size/8 a device over meshes of 1, 2, 4, ... of the machine's cards.
 
 Every bench runs on the CUDA card; without one the CLI exits with 1.
 """
@@ -29,7 +30,7 @@ import torch
 from shared_simd_scan_tpu_torch.bench import harness
 
 BENCHES = ("memory", "decompression", "scan", "sharedscan", "pack", "linear", "member", "conj",
-           "aggregate", "histogram", "all")
+           "aggregate", "histogram", "scaling", "all")
 
 
 def parse_size(s: str) -> int:
@@ -111,6 +112,10 @@ def _run(bench: str, bench_args: list[str], data_size: int, reps: int, width: in
         harness.bench_conj(data_size, reps, arg(2), width)
     elif bench == "aggregate":
         harness.bench_aggregate(data_size, reps, arg(8), width)
+    elif bench == "scaling":
+        from shared_simd_scan_tpu_torch.bench.scaling import bench_scaling
+
+        bench_scaling(data_size // 8, reps, arg(8), width)
     else:
         harness.bench_histogram(data_size, reps, arg(None), width)
 
@@ -122,11 +127,6 @@ def main(argv: list[str] | None = None) -> int:
     except ValueError as e:
         print(_usage())
         print(f"error: {e}", file=sys.stderr)
-        return 1
-    if bench == "scaling":
-        print(_usage())
-        print("error: the scaling bench needs parallel.dist, which the port does not have yet "
-              "(ROADMAP Queue 1 item 12)", file=sys.stderr)
         return 1
     if bench is not None and bench not in BENCHES:
         print(_usage())

@@ -20,7 +20,7 @@ counterpart of the reference benchmark harness:
 Every ``bench_*`` runs on ``device`` (default: the card).  The JAX
 package's tile-size sweeps collapse to one row per kernel, and its "xla
 fused" rows become "torch plain" rows: the plain twins, named as such.
-The scaling driver waits for ``parallel.dist`` (ROADMAP Queue 1 item 12).
+The scaling driver is ``bench/scaling.py``.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Predicate-tree query layer: compose column predicates, evaluate fused.
 
-PyTorch counterpart of ``shared_simd_scan_tpu/query.py`` (its unsharded
-part).  A small algebra of predicates over same-table packed columns:
+PyTorch counterpart of ``shared_simd_scan_tpu/query.py``.  A small
+algebra of predicates over same-table packed columns:
 
     Eq(col, key)        column == key
     Range(col, lo, hi)  lo <= column < hi        (half-open)
@@ -26,8 +26,13 @@ evaluating it leaf by leaf:
 Predicate constants are host values, which is what lets the planner pick
 tiers statically; columns are DeviceColumns of the same n.  Returns
 (canonical bitvector words int32[ceil(n/32)], int64 count) with bits at
-i >= n zero.  The sharded evaluation of the JAX package is not in the
-port yet.
+i >= n zero.
+
+``evaluate_sharded(expr, mesh)`` plans the same tree over columns sharded
+along the block axis (``parallel.dist.shard_column``): the leaves run the
+sharded scans, the bitvectors stay one int32[B1/S, 128] tensor a shard,
+the boolean structure composes them shard by shard, and only the final
+count is all-reduced over the mesh.
 """
 from __future__ import annotations
 
@@ -265,6 +270,116 @@ def evaluate(expr, zonemaps: dict | None = None) -> tuple[torch.Tensor, torch.Te
     return bits, bitvector.popcount(bits)
 
 
+# ---------------------------------------------------------------------------
+# Sharded evaluation
+# ---------------------------------------------------------------------------
+#
+# The same planning over columns sharded along the block axis: the leaves
+# run the sharded kernel wrappers and return their bits as one
+# device-layout int32[B1/S, 128] tensor a shard; the boolean composition
+# is word-wise torch on each shard, with no collective at all; only the
+# final count is all-reduced.  NOT re-zeroes the padding blocks (zero in
+# every kernel output, but the complement would set them) at each shard's
+# block offset.
+
+
+def _complement(bits: list[torch.Tensor], col) -> list[torch.Tensor]:
+    """NOT of sharded bits: each shard's words complemented, then its words
+    at or past n zeroed and the tail word masked (``bitvector.logical_not``
+    on each shard at its block offset), so padding blocks stay zero."""
+    full, rem = divmod(col.n, 32)
+    out = []
+    for i, b in enumerate(bits):
+        words = (~b).reshape(-1)
+        first = full - col.block_offset(i)  # this shard's first word not wholly valid
+        if first < words.shape[0]:
+            if rem and first >= 0:
+                words[first] &= (1 << rem) - 1  # < 2^31: a valid int32 mask
+                first += 1
+            words[max(first, 0) :] = 0
+        out.append(words.reshape(b.shape))
+    return out
+
+
+def _eval_sharded(expr, col, mesh) -> list[torch.Tensor]:
+    """-> the subtree's bits, a list of int32[B1/S, 128] per shard; ``col``
+    is any column of the query (for its shards' shape)."""
+    from shared_simd_scan_tpu_torch.parallel import dist
+
+    def zeros():
+        return [torch.zeros((col.local_b1, 128), dtype=torch.int32, device=d)
+                for d in mesh.devices]
+
+    if isinstance(expr, Range):
+        return _eval_sharded(And(expr), col, mesh)
+    if isinstance(expr, In):
+        if not expr.keys:
+            return zeros()
+        bits, _ = dist.sharded_member_scan(expr.col, np.asarray(expr.keys, np.uint32), mesh)
+        return bits
+    if isinstance(expr, Not):
+        return _complement(_eval_sharded(expr.term, col, mesh), col)
+    if isinstance(expr, Or):
+        if not expr.terms:
+            return zeros()
+        spans_by_col, keys_by_col, others = _group_or_terms(expr.terms)
+        rows = [_eval_sharded(t, col, mesh) for t in others]
+        for c, keys in keys_by_col.values():
+            rows.append(_eval_sharded(In(c, keys), col, mesh))
+        for c, spans in spans_by_col.values():
+            if len(spans) == 1:
+                rows.append(_eval_sharded(And(Range(c, *spans[0])), col, mesh))
+                continue
+            for at in range(0, len(spans), 32):
+                g = spans[at : at + 32]
+                kbits, _ = dist.sharded_range_scan(
+                    c, np.asarray([lo for lo, _ in g], np.uint32),
+                    np.asarray([hi for _, hi in g], np.uint32), mesh)
+                rows.append([bitvector.logical_or(*b) for b in kbits])
+        if not rows:
+            return zeros()
+        return [bitvector.logical_or(*shard) for shard in zip(*rows)]
+    if isinstance(expr, And):
+        if not expr.terms:
+            return _complement(zeros(), col)
+        chunks, others, empty = _group_and_terms(expr.terms)
+        if empty:
+            return zeros()
+        rows = []
+        for g in chunks:
+            bits, _ = dist.sharded_conj_range_scan(
+                [c for c, _, _ in g], np.asarray([lo for _, lo, _ in g], np.uint32),
+                np.asarray([hi for _, _, hi in g], np.uint32), mesh)
+            rows.append(bits)
+        rows.extend(_eval_sharded(t, col, mesh) for t in others)
+        return [bitvector.logical_and(*shard) for shard in zip(*rows)]
+    raise TypeError(f"not a query expression: {expr!r}")
+
+
+def evaluate_sharded(expr, mesh) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """Evaluate a predicate tree over block-axis-sharded columns -> (bits,
+    a list of device-layout int32[B1/S, 128] per shard, still sharded;
+    int64 count, all-reduced).  Columns must be sharded identically (the
+    same ``dist.shard_column(., mesh)``); ``dist.fetch_global(bits, mesh)``
+    gathers the [B1, 128] words, whose first ceil(n/32) are the canonical
+    bitvector."""
+    from shared_simd_scan_tpu_torch.parallel import dist
+
+    cols = _columns(expr)
+    if not cols:
+        raise ValueError("query references no columns")
+    for c in cols:
+        dist._check_column(c, mesh)
+    n, b1 = cols[0].n, cols[0].b1
+    for c in cols:
+        if c.n != n:
+            raise ValueError(f"query columns must share n, got {c.n} != {n}")
+        if c.b1 != b1:
+            raise ValueError("query columns must be sharded identically")
+    bits = _eval_sharded(expr, cols[0], mesh)
+    return bits, dist._reduce([bitvector.popcount(b) for b in bits], mesh)
+
+
 def _member_tier_name(keys: tuple, width: int) -> str:
     """The tier :func:`ops.member.member_scan_tiles` dispatches, from the
     dispatcher's own cost rule (:func:`ops.member.member_dispatch_tier`)."""
@@ -326,4 +441,4 @@ def explain(expr, indent: str = "") -> str:
     raise TypeError(f"not a query expression: {expr!r}")
 
 
-__all__ = ["Eq", "Range", "In", "And", "Or", "Not", "evaluate", "explain"]
+__all__ = ["Eq", "Range", "In", "And", "Or", "Not", "evaluate", "evaluate_sharded", "explain"]

@@ -1,9 +1,9 @@
 """Column statistics from one histogram pass: quantiles, top-k, describe.
 
-PyTorch counterpart of ``shared_simd_scan_tpu/stats.py`` (its unsharded
-part).  The value domain of a width-w column is small (2^w), so order
-statistics over billions of rows reduce to one histogram pass plus
-O(domain) numpy on the host: no sort, no second pass over n.
+PyTorch counterpart of ``shared_simd_scan_tpu/stats.py``.  The value
+domain of a width-w column is small (2^w), so order statistics over
+billions of rows reduce to one histogram pass plus O(domain) numpy on the
+host: no sort, no second pass over n.
 
 A domain of at most 4096 values is one pass of
 :func:`ops.scan.histogram_dag_tiles`.  A wider one (widths 13-20) is one
@@ -11,6 +11,11 @@ pass of the domain histogram, whose counts are those of the JAX package's
 one ``histogram_tiles`` pass per 4096-value window laid end to end.  The
 counts are copied to the host once.  Results are the JAX package's: uint64
 counts and uint32 values, as numpy arrays.
+
+With ``mesh``, the column is a ``parallel.dist.shard_column`` of it: each
+shard takes the same pass at its block offset, and the shards' counts
+are summed and all-reduced over the mesh (where the JAX package makes its
+256 window passes past 4096 values; the counts are the same).
 """
 from __future__ import annotations
 
@@ -24,19 +29,24 @@ _WINDOW = 4096
 
 def histogram_full(dev: DeviceColumn, mesh=None) -> np.ndarray:
     """Exact counts over the FULL domain (2^width,) as host numpy uint64,
-    in one kernel pass.  ``mesh`` (the JAX package's sharded statistics) is
-    not ported yet: given one, this raises."""
+    in one kernel pass.  With ``mesh`` the column must be block-axis
+    sharded over it (``dist.shard_column``): one pass a shard, the counts
+    all-reduced."""
     if dev.width > 20:
         raise ValueError(
             f"histogram statistics need 2^width buckets; width {dev.width} "
             "would take 2^(w-12) kernel passes — supported up to width 20 "
             "(256 passes)"
         )
-    if mesh is not None:
-        raise NotImplementedError("sharded statistics are not ported yet (ROADMAP Queue 1 "
-                                  "item 12); call without mesh")
     dom = 1 << dev.width
-    if dom <= _WINDOW:
+    if mesh is not None:
+        from shared_simd_scan_tpu_torch.parallel import dist
+
+        if dom <= _WINDOW:
+            counts = dist.sharded_histogram(dev, mesh, lo=0, k=dom)
+        else:
+            counts = dist._sharded_domain_histogram(dev, mesh)
+    elif dom <= _WINDOW:
         counts = histogram_dag_tiles(dev.tiles, 0, dom, dev.width, dev.n)
     else:
         counts = _histogram_domain_tiles(dev.tiles, dev.width, dev.n)

@@ -18,6 +18,7 @@ from shared_simd_scan_tpu import stats as jstats
 from shared_simd_scan_tpu_torch import layout as tlayout
 from shared_simd_scan_tpu_torch import stats as tstats
 from shared_simd_scan_tpu_torch.ops import scan as tscan
+from shared_simd_scan_tpu_torch.parallel import dist as tdist
 
 torch.set_num_threads(1)
 
@@ -117,7 +118,8 @@ def test_refusals_match_jax():
         tstats.histogram_full(tdev)
     assert str(terr.value) == str(jerr.value)
     object.__setattr__(tdev, "width", 9)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tstats.describe(tdev, mesh=object())
+    # with a mesh, the column must be sharded over it (dist.shard_column)
+    with pytest.raises(TypeError, match="ShardedColumn"):
+        tstats.describe(tdev, mesh=tdist.make_mesh(["cpu"]))
     with pytest.raises(ValueError, match="quantile out of range"):
         tstats.quantiles(tdev, [0.5, 1.5])
