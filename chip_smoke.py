@@ -222,11 +222,13 @@ from the sources in the checkout and then:
     one shard, four shards (B1 a multiple of 32, block offsets inside the
     column) and a process group of one over NCCL (``dist.initialize``
     through a ``file://`` rendezvous; the backend printed and checked):
+    the multi-process demo's sets (``multiproc_demo.sets``:
     ``sharded_shared_scan`` on keys 0..7 (interval), key 3 (compare) and
-    S64 of the ``i % 512`` column, ``sharded_unpack``, ``evaluate_sharded``
-    on Q1-Q4, ``sharded_aggregate_scan`` on A3 and A2,
-    ``sharded_minmax_scan`` on A6, ``sharded_masked_aggregate`` on Q1's
-    bits, ``stats.describe(mesh=)`` on the 12-bit column,
+    eight spread keys of ``price``, ``sharded_member_scan`` on those keys,
+    ``evaluate_sharded`` on Q1-Q4, ``sharded_masked_aggregate`` on Q1's
+    bits, ``sharded_aggregate_scan`` on A2 and A3, ``sharded_minmax_scan``
+    on A6), then ``sharded_shared_scan`` on S64 of the ``i % 512`` column,
+    ``sharded_unpack``, ``stats.describe(mesh=)`` on the 12-bit column,
     ``sharded_linear_scan`` on L1 and ``sharded_member_scan`` on
     ``w31_list`` (a 31-bit ``i % 512`` column of 512 MiB packed); each set
     held bit for bit against its unsharded call (bits and the linear
@@ -234,7 +236,18 @@ from the sources in the checkout and then:
     kernel), its host-clock ms printed for the unsharded call and each
     mesh, in one ``{"sharded": ...}`` line; the CLI phase also runs
     ``scaling 8``;
-17. prints a JSON line with one entry per kernel, and as its last line
+17. launches the multi-process demo through the real launcher
+    (``ranks_phase``: ``python -m torch.distributed.run --standalone
+    --nproc_per_node=1`` at the main path's n), which loads the kernels
+    this process built; checks that its rank reports ``LOCAL_RANK`` 0,
+    current device 0, the mesh ``["cuda:0"]`` (``make_mesh()`` bound to the
+    rank's card), NCCL and every set equal to its unsharded call; checks
+    that a child given ``LOCAL_RANK=1`` on this one-card machine is refused
+    by ``dist.initialize()`` with its ValueError; the rank also runs
+    ``bench_scaling`` over its NCCL group (one row, ``verification:
+    ok``); prints the rank's host-clock ms a set beside the sharded
+    phase's NCCL-1 ms in one ``{"ranks": ...}`` line;
+18. prints a JSON line with one entry per kernel, and as its last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check or error exits non-zero and prints no result; so does a
@@ -246,6 +259,7 @@ import contextlib
 import importlib.util
 import io
 import json
+import os
 import pathlib
 import re
 import statistics
@@ -1489,39 +1503,6 @@ def draw_columns(device, n: int, widths: dict) -> dict:
             for name, w in widths.items()}
 
 
-def query_trees(q, c) -> dict:
-    """The query phase's WHERE clauses over the table's columns ``c``."""
-    return {
-        # the analytics demo's WHERE: conj m=2 and the member window tier
-        "Q1": q.And(q.Range(c["price"], 100, 400), q.Range(c["region"], 2, 10),
-                    q.Or(q.In(c["status"], [1, 4, 9]), q.Eq(c["status"], 0))),
-        # the range scan at k=3 and the member interval tier (one range)
-        "Q2": q.Or(q.Range(c["price"], 0, 50), q.Range(c["price"], 300, 350),
-                   q.Range(c["price"], 500, 512), q.Eq(c["region"], 7)),
-        # conj m=3 under a complement that re-masks the tail
-        "Q3": q.Not(q.And(q.Eq(c["price"], 3), q.Eq(c["region"], 4), q.Eq(c["status"], 5))),
-        # two windows of a 4-bit column cost more than its table: the domain tier
-        "Q4": q.In(c["status"], [1, 4, 9, 0, 40]),
-    }
-
-
-def query_truth(name: str, r: dict):
-    """The same predicate, computed with plain torch on the raw values."""
-    import torch
-
-    p, g, s = r["price"], r["region"], r["status"]
-    if name == "Q1":
-        st = torch.tensor([1, 4, 9], dtype=s.dtype, device=s.device)
-        return ((p >= 100) & (p < 400) & (g >= 2) & (g < 10)
-                & (torch.isin(s, st) | (s == 0)))
-    if name == "Q2":
-        return (p < 50) | ((p >= 300) & (p < 350)) | (p >= 500) | (g == 7)
-    if name == "Q3":
-        return ~((p == 3) & (g == 4) & (s == 5))
-    st = torch.tensor([1, 4, 9, 0, 40], dtype=s.dtype, device=s.device)
-    return torch.isin(s, st)
-
-
 MEMBER_HOST = {  # name -> (keys, the tier member_dispatch_tier names at width 9)
     "interval k=64": (list(range(100, 164)), "interval"),
     "window W4": (W4, "window"),
@@ -1572,6 +1553,7 @@ def query_phase(device, arb) -> tuple[dict, dict]:
     from shared_simd_scan_tpu_torch import bitvector, pack_device_kernel, query
     from shared_simd_scan_tpu_torch.bench import harness
     from shared_simd_scan_tpu_torch.ops import member
+    from shared_simd_scan_tpu_torch.parallel import multiproc_demo
 
     kernels = wrappers()
     n = harness.values_for(DATA_SIZE, WIDTH)
@@ -1580,7 +1562,7 @@ def query_phase(device, arb) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     packed = sum(c.tiles.numel() * 4 for c in cols.values())
     print(f"query path: table of {n} rows, columns {TABLE}, {packed} bytes of tiles")
-    trees = query_trees(query, cols)
+    trees = multiproc_demo.query_trees(query, cols)
     for name, expr in trees.items():
         print(f"explain {name}:\n{query.explain(expr)}")
 
@@ -1672,7 +1654,7 @@ def query_phase(device, arb) -> tuple[dict, dict]:
         check(ran[name] == want, f"{name}: ran {ran[name]}, the kernel of its tier")
 
     for name in trees:
-        truth = query_truth(name, raw)
+        truth = multiproc_demo.query_truth(name, raw)
         bits, count = outs[name]
         check(bool((bits == bitvector.from_bool(truth)).all()) and int(count) == int(truth.sum()),
               f"{name}: every word and the count ({int(count)}) equal the plain-torch predicate "
@@ -1982,6 +1964,7 @@ def query_timing_phase(device, cols, arb, errs: dict) -> dict:
     from shared_simd_scan_tpu_torch import query
     from shared_simd_scan_tpu_torch.layout import LANES
     from shared_simd_scan_tpu_torch.ops import conj, member, scan
+    from shared_simd_scan_tpu_torch.parallel import multiproc_demo
 
     n = cols["price"].n
     nblocks = arb.tiles.shape[1] * LANES
@@ -2113,7 +2096,7 @@ def query_timing_phase(device, cols, arb, errs: dict) -> dict:
     kernel_report({"member_lookup_kernelILi9ELi0E": "member lookup, bitmap, width 9",
                    "member_lookup_kernelILi9ELi3ENS_7KeyRows": "member compare, the bitmap each "
                    "CTA builds from the keys, width 9"})
-    q1 = query_trees(query, cols)["Q1"]
+    q1 = multiproc_demo.query_trees(query, cols)["Q1"]
     walls = []
     for _ in range(6):
         torch.cuda.synchronize()
@@ -2325,6 +2308,7 @@ def aggregate_phase(device, cols) -> tuple[dict, dict]:
     from shared_simd_scan_tpu_torch import aggregate_scan_device, masked_aggregate_device
     from shared_simd_scan_tpu_torch import minmax_scan_device, pack_device_kernel, query
     from shared_simd_scan_tpu_torch.ops import aggregate
+    from shared_simd_scan_tpu_torch.parallel import multiproc_demo
 
     kernels = {name: fn for name, fn in wrappers().items() if name in AGGREGATE}
     n = cols["price"].n
@@ -2334,7 +2318,7 @@ def aggregate_phase(device, cols) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     print(f"aggregate path: measure revenue {REVENUE_WIDTH}-bit, n {n}, tiles "
           f"{tuple(rev.tiles.shape)} ({rev.tiles.numel() * 4} bytes)")
-    q1 = query_trees(query, cols)["Q1"]
+    q1 = multiproc_demo.query_trees(query, cols)["Q1"]
     runtime = {name: torch.tensor(AGG_KEYS[name], dtype=torch.int32, device=device)
                for name in ("A4", "A5", "A8", "A9")}
     calls = {
@@ -2410,7 +2394,7 @@ def aggregate_phase(device, cols) -> tuple[dict, dict]:
         torch.full((dom,), -1, dtype=torch.int32, device=device).scatter_reduce_(
             0, g, raw["price"], "amax"))
     del g
-    mask = query_truth("Q1", raw)
+    mask = multiproc_demo.query_truth("Q1", raw)
     total, count = outs["A1"]
     want_total = int(torch.where(mask, r64, 0).sum())
     check(int(count) == int(mask.sum()) and int(total) == want_total,
@@ -2456,6 +2440,7 @@ def aggregate_timing_phase(device, cols, agg_data, errs: dict) -> dict:
     import torch
     from shared_simd_scan_tpu_torch import masked_aggregate_device, query
     from shared_simd_scan_tpu_torch.ops import aggregate as agg
+    from shared_simd_scan_tpu_torch.parallel import multiproc_demo
 
     n = cols["price"].n
     rev, row, runtime = agg_data["rev"], agg_data["row"], agg_data["runtime"]
@@ -2557,7 +2542,7 @@ def aggregate_timing_phase(device, cols, agg_data, errs: dict) -> dict:
     kernel_report({"minmax_lookup_kernelILi0E": "MIN/MAX lookup, byte table (wp <= 16, A6)",
                    "minmax_lookup_kernelILi3E": "MIN/MAX lookup, the CTA's window or search "
                                                 "(wp > 16, A8)"})
-    q1 = query_trees(query, cols)["Q1"]
+    q1 = multiproc_demo.query_trees(query, cols)["Q1"]
     walls = []
     for _ in range(6):
         torch.cuda.synchronize()
@@ -3111,32 +3096,16 @@ def sharded_sets(n: int, n31: int) -> dict:
     """Set -> (what, the unsharded call on the columns ``c``, the sharded
     call on the sharded columns ``c`` over mesh ``m`` (with ``q1``, this
     mesh's Q1 bits), whether a sharded result ``s`` equals the unsharded
-    ``u``)."""
-    import numpy as np
+    ``u``): the multi-process demo's sets, then X3, X4, H6, L1 and M1."""
     import torch
-    from shared_simd_scan_tpu_torch import query, stats
-    from shared_simd_scan_tpu_torch.ops import aggregate, member, scan, unpack
-    from shared_simd_scan_tpu_torch.parallel import dist
+    from shared_simd_scan_tpu_torch import stats
+    from shared_simd_scan_tpu_torch.ops import member, scan, unpack
+    from shared_simd_scan_tpu_torch.parallel import dist, multiproc_demo
 
-    def canon(bits, m, nn=n):
-        return scan.bits_to_canonical(dist.fetch_global(bits, m), nn)
-
-    def same_scan(u, s, m, nn=n):
-        return torch.equal(canon(s[0], m, nn), u[0]) and torch.equal(s[1], u[1])
-
-    def same_sums(u, s, m):
-        return np.array_equal(s[0], u[0].cpu().numpy().astype(np.uint64)) and \
-            torch.equal(s[1], u[1])
-
+    same_scan = multiproc_demo.same_scan(n)
     nwords = (n + 7) // 8 * K // 4
-    sets = {
-        "X1": ("sharded_shared_scan(main, keys 0..7): the interval kernel",
-               lambda c: scan.shared_scan_device(c["main"], list(range(K))),
-               lambda c, m, q1: dist.sharded_shared_scan(c["main"], list(range(K)), m),
-               same_scan),
-        "X2": (f"sharded_shared_scan(main, [{SCAN_KEY}]): the compare kernel",
-               lambda c: scan.shared_scan_device(c["main"], [SCAN_KEY]),
-               lambda c, m, q1: dist.sharded_shared_scan(c["main"], [SCAN_KEY], m), same_scan),
+    sets = {name: spec[:4] for name, spec in multiproc_demo.sets(n).items()}
+    sets.update({
         "X3": ("sharded_shared_scan(i % 512, S64): the static tier",
                lambda c: scan.shared_scan_device(c["arb"], s64()),
                lambda c, m, q1: dist.sharded_shared_scan(c["arb"], s64(), m), same_scan),
@@ -3145,35 +3114,6 @@ def sharded_sets(n: int, n31: int) -> dict:
                lambda c, m, q1: dist.sharded_unpack(c["main"], m),
                lambda u, s, m: torch.equal(unpack.values_to_flat(dist.fetch_global(s, m), n),
                                            unpack.values_to_flat(u, n))),
-    }
-    for name in ("Q1", "Q2", "Q3", "Q4"):
-        sets[name] = (f"evaluate_sharded({name})",
-                      lambda c, name=name: query.evaluate(query_trees(query, c)[name]),
-                      lambda c, m, q1, name=name: query.evaluate_sharded(
-                          query_trees(query, c)[name], m),
-                      lambda u, s, m: torch.equal(canon(s[0], m), u[0])
-                      and int(s[1]) == int(u[1]))
-    sets.update({
-        "A3": ("sharded_aggregate_scan(price, revenue, [3]): the compare kernel",
-               lambda c: aggregate.aggregate_scan_device(c["price"], c["revenue"],
-                                                         AGG_KEYS["A3"]),
-               lambda c, m, q1: dist.sharded_aggregate_scan(c["price"], c["revenue"],
-                                                            AGG_KEYS["A3"], m), same_sums),
-        "A2": ("sharded_aggregate_scan(region, revenue, 0..31): the static bit-plane kernel",
-               lambda c: aggregate.aggregate_scan_device(c["region"], c["revenue"],
-                                                         AGG_KEYS["A2"]),
-               lambda c, m, q1: dist.sharded_aggregate_scan(c["region"], c["revenue"],
-                                                            AGG_KEYS["A2"], m), same_sums),
-        "A6": ("sharded_minmax_scan(region, revenue, 0..7)",
-               lambda c: aggregate.minmax_scan_device(c["region"], c["revenue"],
-                                                      AGG_KEYS["A6"]),
-               lambda c, m, q1: dist.sharded_minmax_scan(c["region"], c["revenue"],
-                                                         AGG_KEYS["A6"], m),
-               lambda u, s, m: all(torch.equal(a, b) for a, b in zip(s, u))),
-        "A1": ("sharded_masked_aggregate(revenue, Q1's bits)",
-               lambda c: aggregate.masked_aggregate_device(c["revenue"], c["q1"]),
-               lambda c, m, q1: dist.sharded_masked_aggregate(c["revenue"], q1, m),
-               lambda u, s, m: int(s[0]) == int(u[0]) and int(s[1]) == int(u[1])),
         "H6": ("stats.describe(12-bit column, mesh=)",
                lambda c: stats.describe(c["h6"]),
                lambda c, m, q1: stats.describe(c["h6"], mesh=m),
@@ -3187,12 +3127,12 @@ def sharded_sets(n: int, n31: int) -> dict:
         "M1": ("sharded_member_scan(31-bit i % 512, w31_list): the chunked window body",
                lambda c: member.member_scan_device(c["w31"], w31_window_list()),
                lambda c, m, q1: dist.sharded_member_scan(c["w31"], w31_window_list(), m),
-               lambda u, s, m: same_scan(u, s, m, n31)),
+               multiproc_demo.same_scan(n31)),
     })
     return sets
 
 
-def sharded_phase(device, dev, arb, cols, rev, h6) -> None:
+def sharded_phase(device, dev, arb, cols, rev, h6) -> dict:
     """The sharded surface at full size (``parallel.dist``,
     ``query.evaluate_sharded``, ``stats``' ``mesh=``) on the main path's
     9-bit column, the ``i % 512`` column, the query table with the 20-bit
@@ -3204,7 +3144,8 @@ def sharded_phase(device, dev, arb, cols, rev, h6) -> None:
     held bit for bit against the unsharded one (bits and the linear stream
     through ``fetch_global``).  Each sharded call launches its kernels once a
     shard: S=1 and NCCL-1 as the unsharded call, S=4 four times.  Frees
-    the shards after each mesh."""
+    the shards after each mesh.  Returns each set's report (ms and
+    launches by mesh)."""
     import numpy as np
     import torch
     from shared_simd_scan_tpu_torch import stats
@@ -3296,6 +3237,82 @@ def sharded_phase(device, dev, arb, cols, rev, h6) -> None:
     print(json.dumps({"sharded": {"card": smi, "backend": backend, "n": n, "seconds": seconds,
                                   "sets": report}}))
     print(f"sharded phase ran in {seconds:.1f} s")
+    return report
+
+
+# the ranks phase: the demo's torchrun form, one rank on card 0, at the main
+# path's n; and the child given LOCAL_RANK 1, which dist.initialize() refuses
+RANKS_LAUNCH = ("-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1")
+RANKS_DEMO = ("-m", "shared_simd_scan_tpu_torch.parallel.multiproc_demo")
+RANKS_TIMEOUT = 240  # seconds a child may take
+RANKS_SCALING = 8 << 20  # bench_scaling's bytes a slot in the rank
+
+
+def ranks_phase(n: int, sharded: dict) -> None:
+    """The demo launched through ``torch.distributed.run`` as one rank on
+    the card (``dist.initialize()`` bound by ``LOCAL_RANK``, ``make_mesh()``
+    that card alone, NCCL) at the main path's n, reusing this process's
+    built kernels: its line must report LOCAL_RANK 0 on card 0, the mesh
+    ``["cuda:0"]``, NCCL, every set equal to its unsharded call, and
+    ``bench_scaling`` over the NCCL group its one row, verified.  Then a
+    child given ``LOCAL_RANK=1`` on this one-card machine, which
+    ``dist.initialize()`` must refuse with its ValueError.  Prints the
+    child's host-clock ms a set beside the sharded phase's NCCL-1 ms."""
+    import torch
+    from shared_simd_scan_tpu_torch.parallel import multiproc_demo
+
+    t0 = time.monotonic()
+    root = pathlib.Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("LOCAL_RANK", "RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = str(root)
+    out = subprocess.run([sys.executable, *RANKS_LAUNCH, *RANKS_DEMO, f"--values={n}",
+                          f"--scaling={RANKS_SCALING}"], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=RANKS_TIMEOUT)
+    if out.returncode != 0:
+        print(out.stdout[-4000:], out.stderr[-4000:], sep="\n")
+    check(out.returncode == 0, f"the torchrun child exits 0 (got {out.returncode})")
+    tag = "multiproc rank "  # a launcher may prefix a worker's lines
+    lines = [json.loads(line.split(tag, 1)[1]) for line in out.stdout.splitlines() if tag in line]
+    check(len(lines) == 1, f"the torchrun child printed one rank line (got {len(lines)})")
+    r = lines[0]
+    print(f"ranks: the rank's line {json.dumps(r)}")
+    check(r["local_rank"] == "0" and r["current_device"] == 0 and r["rank"] == 0,
+          "the rank reports LOCAL_RANK 0 and current device 0")
+    check(r["mesh"] == ["cuda:0"] and r["mesh_size"] == r["world_size"] == 1,
+          "make_mesh() under torchrun is the rank's card alone: ['cuda:0'], size 1")
+    check(r["backend"] == "nccl", f"dist.initialize() under torchrun runs on {r['backend']}")
+    names = set(multiproc_demo.sets(n))
+    check(r["ok"] and r["n"] == n and set(r["ms"]) == names and names <= set(sharded),
+          f"every set of the rank at n {n} equals its unsharded call")
+    row = [line for line in out.stdout.splitlines() if "sharded shared scan k=8 on" in line]
+    print(f"ranks: bench_scaling in the rank: {row}")
+    check(r["scaling_rows"] == [1] and "verification: ok" in out.stdout
+          and len(row) == 1 and "on 1 device(s)" in row[0],
+          "bench_scaling over the rank's NCCL group gives its one row, verified")
+    check(r["prebuilt_kernels"] is True, "the child loaded this process's built kernels")
+
+    refused = subprocess.run(
+        [sys.executable, *RANKS_DEMO, f"--values={n}"], cwd=root, capture_output=True, text=True,
+        env={**env, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "1"},
+        timeout=RANKS_TIMEOUT)
+    last = (refused.stderr.strip().splitlines() or [""])[-1]
+    print(f"ranks: the LOCAL_RANK=1 child exits {refused.returncode}: {last}")
+    count = torch.cuda.device_count()
+    check(refused.returncode != 0 and last.startswith("ValueError: LOCAL_RANK=1 ")
+          and f"torch.cuda.device_count() is {count}" in last,
+          f"dist.initialize() refuses LOCAL_RANK=1 on {count} card(s) with its ValueError")
+    seconds = time.monotonic() - t0
+    smi = nvidia_smi()
+    sets = {name: {"ms": ms, "nccl1_ms": sharded[name]["ms"]["NCCL-1"]}
+            for name, ms in r["ms"].items()}
+    for name, v in sets.items():
+        print(f"ranks {name}: host-clock ms torchrun rank {v['ms']:.6f}, sharded phase NCCL-1 "
+              f"{v['nccl1_ms']:.6f} ({smi})")
+    print(json.dumps({"ranks": {"card": smi, "launcher": " ".join(RANKS_LAUNCH[1:]),
+                                "n": n, "rank": r, "refused": last, "seconds": seconds,
+                                "sets": sets}}))
+    print(f"ranks phase ran in {seconds:.1f} s")
 
 
 def small_linear_phase(device, errs: dict) -> None:
@@ -3999,11 +4016,13 @@ def main() -> int:
     times.update(query_timing_phase(device, cols, arb, errs))
     times.update(aggregate_timing_phase(device, cols, agg_data, errs))
     times.update(stats_timing_phase(device, arb, agg_data["rev"], zdata, stats_cols, cols, errs))
-    sharded_phase(device, dev, arb, cols, agg_data["rev"], stats_cols["h6"])
+    sharded = sharded_phase(device, dev, arb, cols, agg_data["rev"], stats_cols["h6"])
     # the linear timing phase's plain twins hold int64 words of 64 keys
-    # (7.1 GiB): free the query, aggregate and zone-map data before it
+    # (7.1 GiB): free the query, aggregate and zone-map data before it (and
+    # before the ranks phase's child draws its own)
     del cols, agg_data, zdata, stats_cols
     torch.cuda.empty_cache()
+    ranks_phase(n, sharded)
     times.update(width20_phase(device, errs))
     wide = width31_phase(device, errs)
     print(f"before the linear timing phase: {torch.cuda.memory_allocated()} bytes allocated, "

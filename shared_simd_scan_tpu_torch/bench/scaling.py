@@ -12,14 +12,23 @@ then the verification: every mesh's counts against their closed form.
 The keys are a CUDA tensor, the counterpart of the JAX chain's traced
 keys: the sharded scan takes the runtime tier, the bit-sliced kernel
 where ``_bitsliced_wins`` (k >= 5 at width 9), else the compare kernel.
-Multi-process meshes run under ``dist.initialize`` in every process; this
-module sees only the local devices it is given.  A 1-device machine
-prints the single 1-device row.  The JAX package's ``tier="xla"`` form is
-not here: the port has no plain-XLA tier.
+
+Under ``dist.initialize`` every process of the group calls it: the rows
+walk the group's global slots (rank-major, each process's devices in
+order), as the JAX bench walks ``jax.devices()`` across processes.  Each
+row's mesh carries a subgroup of the processes that hold its slots
+(``torch.distributed.new_group``, made in every process in the same
+order, destroyed after the row), so its all-reduce is timed; the other
+processes wait at a barrier.
+A size at which those processes would hold unequal numbers of slots is
+skipped.  Process 0 prints.  A 1-device machine prints the single
+1-device row.  The JAX package's ``tier="xla"`` form is not here: the port
+has no plain-XLA tier.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as tdist
 
 from shared_simd_scan_tpu_torch import layout
 from shared_simd_scan_tpu_torch.bench import harness
@@ -44,6 +53,30 @@ def _expected_counts(n: int, k: int, width: int) -> list[int]:
             for j in range(k)]
 
 
+def _rows(devices: list) -> list:
+    """[(mesh size, this process's devices in the row, the ranks holding
+    the row's slots)] for the sizes 1, 2, 4, ... up to every slot: without
+    a process group this process's devices (and no ranks); under one every
+    process's, rank-major (no devices in the processes outside the row)."""
+    if not tdist.is_initialized():
+        counts, rank = [len(devices)], 0
+    else:
+        counts, rank = [None] * tdist.get_world_size(), tdist.get_rank()
+        tdist.all_gather_object(counts, len(devices))
+    rows, nd = [], 1
+    while nd <= sum(counts):
+        held, first = [], 0
+        for c in counts:
+            held.append(min(max(nd - first, 0), c))
+            first += c
+        members = [r for r, h in enumerate(held) if h]
+        if len({held[r] for r in members}) == 1:
+            rows.append((nd, devices[:held[rank]],
+                         members if tdist.is_initialized() else None))
+        nd *= 2
+    return rows
+
+
 def bench_scaling(
     per_device_data_size: int = 64 * 1024 * 1024,
     reps: int = 3,
@@ -53,44 +86,55 @@ def bench_scaling(
     devices=None,
 ):
     """Weak scaling of the sharded shared scan over the first 1, 2, 4, ...
-    of ``devices`` (default: every CUDA device; CPU devices time the plain
-    versions on the host clock, for the tests) -> [(devices, bytes/s,
-    efficiency)]."""
+    slots of ``devices`` (default: ``dist.make_mesh()``'s; CPU devices time
+    the plain versions on the host clock, for the tests), across every
+    process of the group under ``dist.initialize`` -> [(devices, bytes/s,
+    efficiency)] of the rows this process took part in."""
     if devices is None:
         devices = dist.make_mesh().devices
     devices = [torch.device(d) for d in devices]
     roof1 = harness._roof(devices[0])
-    sizes = []
-    d = 1
-    while d <= len(devices):
-        sizes.append(d)
-        d *= 2
+    grouped = tdist.is_initialized()
+    lead = not grouped or tdist.get_rank() == 0  # a member of every row
 
     base_bps = None
     results, verified = [], True
-    for nd in sizes:
-        mesh = dist.Mesh(tuple(devices[:nd]))
-        n = harness.values_for(per_device_data_size * nd, width)
-        # set-up (not timed): packed on the first device, then sharded
-        dev = unpack_ops.pack_device_kernel(
-            harness.synth_modk(n, k, width, device=devices[0]), width)
-        sdev = dist.shard_column(dev, mesh)
-        del dev
-        keys = torch.arange(k, dtype=torch.int32, device=devices[0])
-        traffic = layout.packed_nbytes(width, n) + k * layout.bitvector_words(n) * 4
-        meas = measure_loop(
-            lambda keys, iters: chain_sharded_shared_scan(keys, iters, sdev=sdev, mesh=mesh),
-            (keys,), trials=max(2, reps))
-        bps = traffic / meas.seconds
-        if base_bps is None:
-            base_bps = bps
-        eff = bps / (base_bps * nd)
-        res = harness.BenchResult(f"sharded shared scan k={k} on {nd} device(s)", meas, traffic)
-        harness.print_result(res, roof1 * nd if roof1 else None)
-        print(f"    scaling efficiency vs 1 device: {100 * eff:.1f}%")
-        results.append((nd, bps, eff))
-        _, counts = dist.sharded_shared_scan(sdev, keys, mesh)
-        verified &= counts.tolist() == _expected_counts(n, k, width)
-        del sdev
-    print("    verification:", "ok" if verified else "FAILED")
+    for nd, local, members in _rows(devices):
+        # every process makes the row's subgroup, in the same order
+        group = tdist.new_group(members) if grouped else None
+        if local:
+            mesh = dist.Mesh(tuple(local), group)
+            n = harness.values_for(per_device_data_size * nd, width)
+            # set-up (not timed): packed on the first device, then sharded
+            dev = unpack_ops.pack_device_kernel(
+                harness.synth_modk(n, k, width, device=local[0]), width)
+            sdev = dist.shard_column(dev, mesh)
+            del dev
+            keys = torch.arange(k, dtype=torch.int32, device=local[0])
+            traffic = layout.packed_nbytes(width, n) + k * layout.bitvector_words(n) * 4
+            meas = measure_loop(
+                lambda keys, iters: chain_sharded_shared_scan(keys, iters, sdev=sdev, mesh=mesh),
+                (keys,), trials=max(2, reps),
+                # the most launches any process of the row asks for
+                agree=lambda iters: int(dist._reduce(
+                    [torch.tensor([iters], device=local[0])], mesh, "max")))
+            bps = traffic / meas.seconds
+            if base_bps is None:
+                base_bps = bps
+            eff = bps / (base_bps * nd)
+            if lead:
+                res = harness.BenchResult(f"sharded shared scan k={k} on {nd} device(s)", meas,
+                                          traffic)
+                harness.print_result(res, roof1 * nd if roof1 else None)
+                print(f"    scaling efficiency vs 1 device: {100 * eff:.1f}%")
+            results.append((nd, bps, eff))
+            _, counts = dist.sharded_shared_scan(sdev, keys, mesh)
+            verified &= counts.tolist() == _expected_counts(n, k, width)
+            del sdev
+        if grouped:
+            tdist.barrier()
+            # a subgroup holds a communicator (under NCCL, on the card): one a row
+            tdist.destroy_process_group(group)
+    if lead:
+        print("    verification:", "ok" if verified else "FAILED")
     return results

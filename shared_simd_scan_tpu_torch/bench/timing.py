@@ -89,6 +89,7 @@ def measure_loop(
     trials: int = 3,
     target_s: float = 0.1,
     max_iters: int = 1000,
+    agree: Callable[[int], int] | None = None,
 ) -> Measurement:
     """Time ``chain(*args, k)`` per launch.
 
@@ -97,11 +98,17 @@ def measure_loop(
     chains of ``iters`` launches, ``iters`` chosen so a trial lasts about
     ``target_s`` seconds (at most ``max_iters``): many back-to-back
     launches per event pair, so a short kernel is not timed as the host's
-    launch overhead.  Returns the median per-launch time."""
+    launch overhead.  Returns the median per-launch time.
+
+    A chain of collective calls must make as many calls in every process
+    of its group: ``agree`` maps this process's ``iters`` to the count
+    every process uses."""
     device = _device_of(args)
     chain(*args, 1)
     est = max(_run_seconds(chain, args, 1, device), 1e-7)
     iters = max(1, min(max_iters, int(target_s / est)))
+    if agree is not None:
+        iters = agree(iters)
     per = [_run_seconds(chain, args, iters, device) / iters for _ in range(trials)]
     clock = "cuda events" if device.type == "cuda" else "host"
     return Measurement(seconds=statistics.median(per), per_trial=per, iters=iters, clock=clock)

@@ -23,6 +23,14 @@ shard ``s = rank * len(devices) + i``.  Under :func:`initialize` the same
 code runs in every process of the group; counts, sums, minima and maxima
 come back equal in every process.
 
+A process started by a launcher that sets ``LOCAL_RANK`` (``torchrun``,
+one process a card) is bound to card ``LOCAL_RANK``: :func:`initialize`
+makes it the current device before the group forms, and :func:`make_mesh`
+gives that card alone, so the mesh spans every card of every process once
+(``mesh.size`` is the world size, as the JAX mesh after
+``jax.distributed.initialize`` spans each device of every process once).
+Without ``LOCAL_RANK`` one process drives every local card.
+
 Where the JAX package finalizes per-grid-step partials on the host
 (``finalize_sums``, ``finalize_minmax``), the port's kernels return final
 int64 values: counts and sums are summed, minima and maxima reduced with
@@ -40,6 +48,7 @@ counterpart: the port has no plain-XLA tier.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -53,18 +62,38 @@ from shared_simd_scan_tpu_torch.ops import scan as scan_ops
 from shared_simd_scan_tpu_torch.ops import unpack as unpack_ops
 
 
+def _rank_card() -> torch.device | None:
+    """The card of this process under a launcher that sets ``LOCAL_RANK``
+    (torchrun: one process a card), else None.  Raises where there is no
+    card or ``LOCAL_RANK`` names none of them; nothing falls back to card 0
+    or to the CPU."""
+    local_rank = os.environ.get("LOCAL_RANK")
+    if local_rank is None:
+        return None
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"LOCAL_RANK={local_rank} but no CUDA device: pass device='cpu' "
+                           "(devices=['cpu']) for a CPU process")
+    index, count = int(local_rank), torch.cuda.device_count()
+    if not 0 <= index < count:
+        raise ValueError(f"LOCAL_RANK={index} names no card: torch.cuda.device_count() is {count}")
+    return torch.device("cuda", index)
+
+
 def initialize(init_method: str | None = None, world_size: int | None = None,
                rank: int | None = None, device=None) -> None:
     """Join this process to the default process group (wraps
     ``torch.distributed.init_process_group``); afterwards :func:`make_mesh`
     spans every process of the group.
 
-    The backend is NCCL for a CUDA ``device`` (default: the card) and gloo
-    for the CPU.  The no-argument form reads the standard environment
-    (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``); pass
-    ``init_method`` (``tcp://host:port`` or ``file://path``), ``world_size``
-    and ``rank`` to give them yourself."""
-    device = resolve_device(device)
+    The backend is NCCL for a CUDA ``device`` and gloo for the CPU.  With no
+    ``device`` the card is ``LOCAL_RANK``'s where the launcher sets it (it
+    raises where that card does not exist), else the current card.  A card
+    with an index is made the current device before the group forms, so
+    NCCL binds this process to it.  The no-argument form reads the standard
+    environment (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``,
+    as torchrun sets them); pass ``init_method`` (``tcp://host:port`` or
+    ``file://path``), ``world_size`` and ``rank`` to give them yourself."""
+    device = resolve_device(_rank_card() if device is None else device)
     if device.type == "cuda" and device.index is not None:
         torch.cuda.set_device(device)
     backend = "nccl" if device.type == "cuda" else "gloo"
@@ -106,13 +135,19 @@ class Mesh:
 
 
 def make_mesh(devices=None) -> Mesh:
-    """1-D data-parallel mesh over ``devices`` (default: every local CUDA
-    device; raises where there is none), spanning every process of the
-    default process group when :func:`initialize` has run."""
+    """1-D data-parallel mesh over ``devices``, spanning every process of
+    the default process group when :func:`initialize` has run.  With no
+    ``devices``: ``LOCAL_RANK``'s card alone where the launcher sets it (one
+    process a card), else every local CUDA device (one process a host);
+    raises where there is no card."""
     if devices is None:
-        if not torch.cuda.is_available():
+        card = _rank_card()
+        if card is not None:
+            devices = [card]
+        elif not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass devices, e.g. ['cpu'] * 8, for a CPU mesh")
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     return Mesh(tuple(devices), tdist.group.WORLD if tdist.is_initialized() else None)
 
 
