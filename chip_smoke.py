@@ -471,7 +471,7 @@ def s256() -> list[int]:
 
 
 def wrappers() -> dict:
-    """Kernel name -> the wrapper whose ``launches`` counts its launches."""
+    """Kernel name -> the wrapper that counts its launches (:func:`launched`)."""
     from shared_simd_scan_tpu_torch import zonemap
     from shared_simd_scan_tpu_torch.bench import harness
     from shared_simd_scan_tpu_torch.ops import aggregate, conj, linear, member, scan, unpack
@@ -606,11 +606,11 @@ def canary_phase(device, errs: dict) -> bool:
     print(f"shift canary: C++ << gives 0 for all amounts >= 32: {cxx_ok}"
           + ("" if cxx_ok else f" (nonzero for amounts {nonzero})"))
     check(errs["shift_canary"] == 0, "shift canary (PTX form) equals its plain version")
-    before = scan.shift_verdict.launches
+    before = launched(scan.shift_verdict)
     verdict = scan.shift_verdict(device)
     plain_verdict = scan.shift_verdict_plain(device)
     errs["shift_canary"] = max(errs["shift_canary"], int(verdict != plain_verdict))
-    check(verdict == plain_verdict == ptx_ok and scan.shift_verdict.launches == before + 1,
+    check(verdict == plain_verdict == ptx_ok and launched(scan.shift_verdict) == before + 1,
           f"shift verdict ({verdict}, one launch) == the plain verdict == the elementwise canary's")
     return ptx_ok
 
@@ -713,11 +713,30 @@ def compare_launches(width: int, k: int) -> dict:
     return out
 
 
+_LAUNCH_ZERO: dict[str, int] = {}  # wrapper name -> its count at its last zero_launched
+
+
+def launched(fn) -> int:
+    """The launches wrapper ``fn`` has counted since ``zero_launched``:
+    ``launches.<its name>`` in the port's counter set (``utils.profiling``)."""
+    from shared_simd_scan_tpu_torch.utils import profiling
+
+    return profiling.launch_count(fn) - _LAUNCH_ZERO.get(fn.__name__, 0)
+
+
+def zero_launched(fns) -> None:
+    """Count the launches of the wrappers ``fns`` from 0 again."""
+    from shared_simd_scan_tpu_torch.utils import profiling
+
+    for fn in fns:
+        _LAUNCH_ZERO[fn.__name__] = profiling.launch_count(fn)
+
+
 def ran_kernels(before: dict) -> dict:
     """Kernel name -> launches since ``before`` (name -> launches), the
     kernels that ran."""
-    return {name: fn.launches - before[name] for name, fn in wrappers().items()
-            if fn.launches != before[name]}
+    return {name: launched(fn) - before[name] for name, fn in wrappers().items()
+            if launched(fn) != before[name]}
 
 
 def small_scan_edge_phase(device, errs: dict) -> None:
@@ -770,7 +789,7 @@ def small_scan_edge_phase(device, errs: dict) -> None:
             kt = torch.from_numpy(keys.astype(np.uint32).view(np.int32)).to(device)
             for bo in (0, 3):
                 p = scan.shared_scan_tiles_plain(tiles, kt, width, n, bo)
-                before = {name: fn.launches for name, fn in wrappers().items()}
+                before = {name: launched(fn) for name, fn in wrappers().items()}
                 a = scan.shared_scan_tiles(tiles, kt, width, n, bo)
                 if ran_kernels(before) != compare_launches(width, k):
                     check(False, f"compare w={width} k={k}: ran {ran_kernels(before)}, not "
@@ -834,13 +853,13 @@ def small_window_phase(device, errs: dict) -> None:
                     p = scan.shared_scan_tiles_plain(tiles, kt, width, n, bo)
                     # the window lookup at every k, and the tier (the fold below
                     # WINDOW_LOOKUP_KEYS keys); each wrapper counts in its launch loop
-                    before = [f.launches for f in fns]
+                    before = [launched(f) for f in fns]
                     a = scan._window_lookup(tiles, arr, width, n, bo, device)
-                    mid = [f.launches for f in fns]
+                    mid = [launched(f) for f in fns]
                     t = scan.windowed_scan_tiles(tiles, keys, width, n, bo)
                     tier = (-(-k // 1024), 0) if k >= scan.WINDOW_LOOKUP_KEYS else (0, 1)
                     if [m - b for m, b in zip(mid, before)] != [-(-k // 1024), 0] or \
-                            tuple(f.launches - m for f, m in zip(fns, mid)) != tier:
+                            tuple(launched(f) - m for f, m in zip(fns, mid)) != tier:
                         check(False, f"windowed w={width} k={k} {layout}: one launch of the "
                               f"lookup per 1024 rows, or one of the fold below "
                               f"{scan.WINDOW_LOOKUP_KEYS} keys")
@@ -862,11 +881,11 @@ def small_window_phase(device, errs: dict) -> None:
             keys = with_edges(values[rng.integers(0, n, size=k)], width)
             kt = torch.from_numpy(np.asarray(keys, np.uint32).view(np.int32)).to(device)
             rfns = (scan.shared_scan_bitsliced_tiles, scan.shared_scan_dynamic_tiles)
-            before = [f.launches for f in rfns]
+            before = [launched(f) for f in rfns]
             a = scan.shared_scan_bitsliced_tiles(tiles, kt, width, n, 2)
             lookups = sum(scan._runtime_lookup_wins(width, min(k - g0, 1024))
                           for g0 in range(0, k, 1024))
-            if [f.launches - b for f, b in zip(rfns, before)] != [-(-k // 1024) - lookups,
+            if [launched(f) - b for f, b in zip(rfns, before)] != [-(-k // 1024) - lookups,
                                                                    lookups]:
                 check(False, f"runtime tier w={width} k={k}: one launch per 1024 keys, of the "
                       f"lookup where scan._runtime_lookup_wins says so, else of the fold")
@@ -897,8 +916,7 @@ def main_path_phase(device) -> tuple[int, object, dict]:
 
     # a fresh process meets the canary on its first interval scan: so does this run
     scan._SHIFT_SEMANTICS.clear()
-    for fn in path.values():
-        fn.launches = 0
+    zero_launched(path.values())
     t0 = time.monotonic()
     dev = pack_device_kernel(vals, WIDTH)
     bits8, counts8 = shared_scan_device(dev, list(range(K)))
@@ -906,7 +924,7 @@ def main_path_phase(device) -> tuple[int, object, dict]:
     back = unpack_device(dev)
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
-    launches = {name: fn.launches for name, fn in path.items()}
+    launches = {name: launched(fn) for name, fn in path.items()}
     print(f"main path ran in {seconds:.3f} s (host clock, first calls); launches {launches}")
     print(f"tiles {tuple(dev.tiles.shape)}, interval gateless: {scan.shift_saturates(device)}")
 
@@ -949,20 +967,19 @@ def arbitrary_key_phase(device) -> tuple[object, dict]:
 
     sets = [("S8", S8), ("S64", s64()), ("W4", W4), ("W8", W8),
             ("S8 as CUDA keys", cuda_keys(S8)), ("S64 as CUDA keys", cuda_keys(s64()))]
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_launched(kernels.values())
     t0 = time.monotonic()
     ran, outs = {}, {}
     for name, keys in sets:
-        before = {k: fn.launches for k, fn in kernels.items()}
+        before = {k: launched(fn) for k, fn in kernels.items()}
         outs[name] = shared_scan_device(dev, keys)
-        ran[name] = [k for k, fn in kernels.items() if fn.launches > before[k]]
-    before = kernels["windowed_scan"].launches
+        ran[name] = [k for k, fn in kernels.items() if launched(fn) > before[k]]
+    before = launched(kernels["windowed_scan"])
     chunked = scan.windowed_scan_tiles(dev.tiles, s64(), WIDTH, n)  # (JAX: its chunked plan)
-    chunked_launches = kernels["windowed_scan"].launches - before
+    chunked_launches = launched(kernels["windowed_scan"]) - before
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = {name: launched(fn) for name, fn in kernels.items()}
     print(f"arbitrary-key path ran in {seconds:.3f} s (host clock, first calls); "
           f"launches {launches}")
 
@@ -1243,9 +1260,9 @@ def width31_phase(device, errs: dict) -> dict:
     keys = s256()
     kt = torch.tensor(keys, dtype=torch.int32, device=device)
     fns = (scan.shared_scan_bitsliced_tiles, scan.shared_scan_dynamic_tiles)
-    before = [f.launches for f in fns]
+    before = [launched(f) for f in fns]
     a = scan.shared_scan_bitsliced_tiles(tiles, kt, width, n)
-    ran = [f.launches - b for f, b in zip(fns, before)]
+    ran = [launched(f) - b for f, b in zip(fns, before)]
     kernel = RUNTIME_LOOKUP[1] if ran == [0, 1] else KERNELS["bitsliced_scan"][1]
     check(ran == ([0, 1] if scan._runtime_lookup_wins(width, 256) else [1, 0]),
           f"runtime tier w31 S256: one launch, the kernel scan._runtime_lookup_wins picks ({ran})")
@@ -1271,9 +1288,9 @@ def width31_phase(device, errs: dict) -> dict:
     keys = [32 * i + i % 32 for i in range(1024)]
     arr = np.asarray(keys, np.uint32)
     fns = (scan.windowed_scan_tiles, scan.shared_scan_bitsliced_static_tiles)
-    before = [f.launches for f in fns]
+    before = [launched(f) for f in fns]
     a = scan.windowed_scan_tiles(tiles, keys, width, n)
-    ran = [f.launches - b for f, b in zip(fns, before)]
+    ran = [launched(f) - b for f, b in zip(fns, before)]
     check(ran == [1, 0], f"windowed tier w31, 1024 windows: one launch of the lookup ({ran})")
     check(a[1].tolist() == closed(keys), "windowed tier w31, 1024 windows: counts == closed form")
     f = scan._static_fold(tiles, arr, width, n, 0, device)
@@ -1583,14 +1600,13 @@ def query_phase(device, arb) -> tuple[dict, dict]:
         wide[name] = (*wide_member_column(device, width), keys,
                       torch.tensor(keys, dtype=torch.int32, device=device) if on_card else keys)
     torch.cuda.synchronize()
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_launched(kernels.values())
     ran, outs = {}, {}
 
     def run(name, fn):
-        before = {k: f.launches for k, f in kernels.items()}
+        before = {k: launched(f) for k, f in kernels.items()}
         outs[name] = fn()
-        ran[name] = [k for k, f in kernels.items() if f.launches > before[k]]
+        ran[name] = [k for k, f in kernels.items() if launched(f) > before[k]]
 
     t0 = time.monotonic()
     for name, expr in trees.items():
@@ -1617,7 +1633,7 @@ def query_phase(device, arb) -> tuple[dict, dict]:
         arb.tiles, cwin, WIDTH, n, 32))
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = {name: launched(fn) for name, fn in kernels.items()}
     print(f"query path ran in {seconds:.3f} s (host clock, first calls); launches "
           f"{ {k: launches[k] for k in QUERY} }")
 
@@ -1716,9 +1732,10 @@ def trace_kernels(log_dir: str) -> tuple[dict, dict]:
         if cat == "kernel":
             label = kernel_label(name)
             kernels[label] = kernels.get(label, 0.0) + e["dur"] / 1e3
-        elif name.startswith("sss_"):
+        elif name.startswith("sss.launch."):  # the span utils.profiling opens a launch
+            entry = name[len("sss.launch."):]
             side = gpu if cat == "gpu_user_annotation" else cpu
-            side[name] = side.get(name, 0.0) + e.get("dur", 0) / 1e3
+            side[entry] = side.get(entry, 0.0) + e.get("dur", 0) / 1e3
     return kernels, gpu or cpu
 
 
@@ -1742,13 +1759,12 @@ def encodings_phase(device, n: int, dev, cols) -> None:
 
     def run(name, fn):
         torch.cuda.synchronize()
-        for f in kernels.values():
-            f.launches = 0
+        zero_launched(kernels.values())
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         ms[name] = (time.perf_counter() - t0) * 1e3
-        ran[name] = {k: f.launches for k, f in kernels.items() if f.launches}
+        ran[name] = {k: launched(f) for k, f in kernels.items() if launched(f)}
         return out
 
     def same_bits(name, got, truth):
@@ -2332,12 +2348,11 @@ def aggregate_phase(device, cols) -> tuple[dict, dict]:
         "A8": lambda: minmax_scan_device(rev, price, runtime["A8"]),
         "A9": lambda: aggregate_scan_device(rev, price, runtime["A9"]),
     }
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_launched(kernels.values())
     ran, outs = {}, {}
     t0 = time.monotonic()
     for name, call in calls.items():
-        before = {k: f.launches for k, f in kernels.items()}
+        before = {k: launched(f) for k, f in kernels.items()}
         if name in runtime:  # runtime keys: any device-to-host copy raises
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
@@ -2345,10 +2360,10 @@ def aggregate_phase(device, cols) -> tuple[dict, dict]:
             outs[name] = call()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        ran[name] = [k for k, f in kernels.items() if f.launches > before[k]]
+        ran[name] = [k for k, f in kernels.items() if launched(f) > before[k]]
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = {name: launched(fn) for name, fn in kernels.items()}
     print(f"aggregate path ran in {seconds:.3f} s (host clock, first calls); launches {launches}")
 
     for name in AGGREGATE:
@@ -2703,12 +2718,11 @@ def stats_phase(device, arb, cols, rev) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     print(f"statistics path: i % {DOMAIN} column and price (9-bit), revenue ({REVENUE_WIDTH}-bit), "
           f"n {n}")
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_launched(kernels.values())
     ran, outs, walls = {}, {}, {}
 
     def run(name, fn, strict=False):
-        before = {k: f.launches for k, f in kernels.items()}
+        before = {k: launched(f) for k, f in kernels.items()}
         torch.cuda.synchronize()
         t0 = time.monotonic()
         if strict:  # a CUDA-tensor lo: any device-to-host copy raises
@@ -2719,7 +2733,7 @@ def stats_phase(device, arb, cols, rev) -> tuple[dict, dict]:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         walls[name] = (time.monotonic() - t0) * 1e3
-        ran[name] = {k: f.launches - before[k] for k, f in kernels.items() if f.launches > before[k]}
+        ran[name] = {k: launched(f) - before[k] for k, f in kernels.items() if launched(f) > before[k]}
 
     run("H1", lambda: histogram_device(arb))
     run("H2", lambda: histogram_device(arb, 100, 40))
@@ -2729,7 +2743,7 @@ def stats_phase(device, arb, cols, rev) -> tuple[dict, dict]:
     run("H6", lambda: stats.histogram_full(h6))
     run("H7", lambda: stats.histogram_full(cols["status"]))
     run("H8", lambda: stats.histogram_full(flags))
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = {name: launched(fn) for name, fn in kernels.items()}
     print(f"statistics path launches {launches}; host clock per set (first calls, ms): "
           + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
 
@@ -2811,14 +2825,13 @@ def zone_phase(device, cols) -> tuple[dict, dict]:
     b1 = zcols["price"].tiles.shape[1]
     print(f"zone-map path: columns clustered (i * 512) // n, ends (7 in the first and last 64 block "
           f"rows, else 100..199), price; n {n}, zone_b1 {ZONE_B1} ({b1 // ZONE_B1} zones)")
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_launched(kernels.values())
     ran, outs = {}, {}
 
     def run(name, fn):
-        before = {k: f.launches for k, f in kernels.items()}
+        before = {k: launched(f) for k, f in kernels.items()}
         outs[name] = fn()
-        ran[name] = {k: f.launches - before[k] for k, f in kernels.items() if f.launches > before[k]}
+        ran[name] = {k: launched(f) - before[k] for k, f in kernels.items() if launched(f) > before[k]}
 
     for name, col in zcols.items():
         run(f"Z1 {name}", lambda col=col: zonemap.build_zonemap(col, zone_b1=ZONE_B1))
@@ -2831,7 +2844,7 @@ def zone_phase(device, cols) -> tuple[dict, dict]:
                    query.Not(query.Eq(zcols["price"], 7)))
     run("Z5", lambda: query.evaluate(z5, zonemaps={id(zcols["clustered"]): zmaps["clustered"]}))
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = {name: launched(fn) for name, fn in kernels.items()}
     print(f"zone-map path launches {launches}")
 
     per = ZONE_B1 * LANES * 32
@@ -3169,11 +3182,10 @@ def sharded_phase(device, dev, arb, cols, rev, h6) -> dict:
         also runs the shift verdict)."""
         call()
         sync()
-        for fn in kernels.values():
-            fn.launches = 0
+        zero_launched(kernels.values())
         out = call()
         sync()
-        launches = {name: fn.launches for name, fn in kernels.items() if fn.launches}
+        launches = {name: launched(fn) for name, fn in kernels.items() if launched(fn)}
         times = []
         for _ in range(SHARDED_REPS):
             t1 = time.perf_counter()
@@ -3447,8 +3459,7 @@ def linear_phase(device, dev, arb) -> dict:
     }
     launches = {name: 0 for name in LINEAR}
     for name, (call, keys, col, want, runtime) in sets.items():
-        for fn in (*kernels.values(), *others.values()):
-            fn.launches = 0
+        zero_launched((*kernels.values(), *others.values()))
         torch.cuda.synchronize()
         t0 = time.monotonic()
         if runtime:  # CUDA-tensor keys: any device-to-host copy raises
@@ -3459,9 +3470,9 @@ def linear_phase(device, dev, arb) -> dict:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         wall = (time.monotonic() - t0) * 1e3
-        ran = {k: fn.launches for k, fn in {**kernels, **others}.items() if fn.launches}
+        ran = {k: launched(fn) for k, fn in {**kernels, **others}.items() if launched(fn)}
         for k_name in LINEAR:
-            launches[k_name] += kernels[k_name].launches
+            launches[k_name] += launched(kernels[k_name])
         print(f"{name}: k={len(keys)}, {out.numel() * out.element_size()} bytes, ran {ran}, "
               f"{wall:.3f} ms host clock (first call)")
         if want is not None:
@@ -3746,8 +3757,7 @@ def cli_phase(device) -> dict:
     roof = harness.hbm_peak_bytes_per_s()
     check(roof is not None, f"the card's data-sheet memory rate is known ({roof} bytes/s)")
     kernels = wrappers()
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_launched(kernels.values())
     t0 = time.monotonic()
     runs = []
     for argv, verifications in CLI_RUNS:
@@ -3759,7 +3769,7 @@ def cli_phase(device) -> dict:
         print(f"cli.main({argv}) -> {rc} in {time.monotonic() - t1:.1f} s:")
         print(buf.getvalue(), end="")
         runs.append((argv, rc, buf.getvalue(), verifications))
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = {name: launched(fn) for name, fn in kernels.items()}
     torch.cuda.empty_cache()
     print(f"CLI phase ran in {time.monotonic() - t0:.1f} s; launches "
           f"{ {k: launches[k] for k in BENCH} }")
@@ -3887,7 +3897,7 @@ def scan_timing_phase(device, n: int, dev, arb, errs: dict) -> tuple[dict, dict]
         nblocks = tiles.shape[1] * LANES
         kt = torch.tensor(keys, dtype=torch.int32, device=device)
         expect = [(n - 1 - key) // modk + 1 if key < modk else 0 for key in keys]
-        before = {name: fn.launches for name, fn in wrappers().items()}
+        before = {name: launched(fn) for name, fn in wrappers().items()}
         bits, counts = scan.shared_scan_tiles(tiles, kt, WIDTH, n)
         torch.cuda.synchronize()
         check(ran_kernels(before) == compare_launches(WIDTH, len(keys)),
@@ -3923,7 +3933,7 @@ def scan_timing_phase(device, n: int, dev, arb, errs: dict) -> tuple[dict, dict]
     b1 = tiles.shape[1]
     for k in INTERVAL_TIMED:
         expect = [(n - 1 - j) // K + 1 if j < K else 0 for j in range(k)]
-        before = {name: fn.launches for name, fn in wrappers().items()}
+        before = {name: launched(fn) for name, fn in wrappers().items()}
         bits, counts = scan.interval_scan_tiles(tiles, 0, k, WIDTH, n)
         torch.cuda.synchronize()
         check(ran_kernels(before) == {"interval_scan": 1},

@@ -40,6 +40,7 @@ from shared_simd_scan_tpu_torch.ops import linear as linear_ops
 from shared_simd_scan_tpu_torch.ops import member as member_ops
 from shared_simd_scan_tpu_torch.ops import scan as scan_ops
 from shared_simd_scan_tpu_torch.ops import unpack as unpack_ops
+from shared_simd_scan_tpu_torch.utils import profiling
 
 # Default workload: 500 MiB packed payload, shared scan at 1/8 of that (the
 # reference defaults, src/benchmark.hpp:4-5, src/main.cpp:98).
@@ -207,11 +208,8 @@ def memcpy(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"memcpy: the kernel needs 16-byte aligned tensors, got addresses "
                          f"{a:#x} and {b:#x}")
     _cuda.launch("sss_copy", device, a, b, nbytes)
-    memcpy.launches += 1
+    profiling.count("launches.memcpy")
     return dst
-
-
-memcpy.launches = 0
 
 
 # ---------------------------------------------------------------------------

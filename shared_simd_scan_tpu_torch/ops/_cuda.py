@@ -25,6 +25,8 @@ import threading
 
 import torch
 
+from shared_simd_scan_tpu_torch.utils import profiling
+
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -160,13 +162,15 @@ def _compile(args: list[str]) -> str:
 
 
 def build() -> pathlib.Path:
-    """Compile the CUDA sources into the shared library unless it exists."""
+    """Compile the CUDA sources into the shared library unless it exists
+    (span ``cuda.build``; counter ``cuda.builds``, the libraries this
+    process compiled)."""
     global build_log
     lib_path = library_path()
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "build.lock", "w") as lock_file:
+    with profiling.span("cuda.build"), open(BUILD_DIR / "build.lock", "w") as lock_file:
         fcntl.flock(lock_file, fcntl.LOCK_EX)
         try:
             if lib_path.exists():  # another process built it meanwhile
@@ -187,6 +191,7 @@ def build() -> pathlib.Path:
             os.replace(out, lib_path)
             shutil.rmtree(tmp, ignore_errors=True)
             build_log = "".join(logs)
+            profiling.count("cuda.builds")
         finally:
             fcntl.flock(lock_file, fcntl.LOCK_UN)
     return lib_path
@@ -242,16 +247,13 @@ def check_int32(name: str, t: torch.Tensor, shape: tuple[int, ...]) -> None:
 
 def launch(fn: str, device: torch.device, *args) -> None:
     """Call entry point ``fn`` with ``args`` followed by the device's
-    current stream; raise if the launch reported a CUDA error.  Under a
-    profiler the call is a range named ``fn``, so a trace names the entry
-    point of each kernel (a range costs ~10 us: none is made otherwise)."""
+    current stream; raise if the launch reported a CUDA error.  The stream
+    lookup and the call are span ``launch.<fn>`` (under a profiler the
+    range ``sss.launch.<fn>``, so a trace names the entry point of each
+    kernel)."""
     handle = lib()
-    with torch.cuda.device(device):
+    with profiling.span("launch." + fn), torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if torch._C._autograd._profiler_enabled():
-            with torch.profiler.record_function(fn):
-                rc = getattr(handle, fn)(*args, stream)
-        else:
-            rc = getattr(handle, fn)(*args, stream)
+        rc = getattr(handle, fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA error {rc}: {handle.sss_error_string(rc).decode()}")

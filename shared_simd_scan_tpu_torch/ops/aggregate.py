@@ -9,11 +9,11 @@ in one pass over two packed columns of the same n (the predicate column
 ``query.evaluate``.
 
 Each of the JAX package's five kernels has a wrapper here that launches a
-CUDA kernel on CUDA tiles, counts the launch in its own ``launches``, and
-runs its plain torch version on CPU tiles:
+CUDA kernel on CUDA tiles, counts the launch in ``launches.<wrapper>``
+(``utils.profiling``), and runs its plain torch version on CPU tiles:
 
 ===================================  ===========================================
-wrapper (its ``launches``)           CUDA kernel
+wrapper (``launches.<wrapper>``)     CUDA kernel
 ===================================  ===========================================
 ``aggregate_scan_tiles``             ``sss_agg_compare`` (``csrc/aggregate.cu``)
 ``minmax_scan_tiles``                ``sss_minmax_lookup`` (``csrc/agg_lookup.cu``):
@@ -71,6 +71,7 @@ from shared_simd_scan_tpu_torch.ops.scan import (
     _valid_words,
 )
 from shared_simd_scan_tpu_torch.ops.unpack import _check_tiles, unpack_value_plain
+from shared_simd_scan_tpu_torch.utils import profiling
 
 MAX_KEYS = 32
 # MIN/MAX identities: measure values are < 2^31, so int32 order is exact.
@@ -129,6 +130,7 @@ def _agg_compare_cost(wp: int, wm: int, k: int) -> int:
     return -(-32 * per_value // 8)
 
 
+@profiling.watch_cache
 @functools.lru_cache(maxsize=64)
 def _transpose_ops(width: int) -> int:
     """Counted ops of the liveness-pruned SWAPMOVE transpose to ``width``
@@ -225,11 +227,8 @@ def aggregate_scan_tiles(
         "sss_agg_compare", device, ptiles.data_ptr(), mtiles.data_ptr(), keys.data_ptr(), k,
         counts.data_ptr(), sums.data_ptr(), b1 * LANES, wp, wm, n, block_offset,
     )
-    aggregate_scan_tiles.launches += 1
+    profiling.count("launches.aggregate_scan_tiles")
     return counts, sums
-
-
-aggregate_scan_tiles.launches = 0
 
 
 def _key_slots_plain(ptiles, mtiles, keys, wp, wm, n, block_offset):
@@ -296,11 +295,8 @@ def minmax_scan_tiles(
         "sss_minmax_lookup", device, ptiles.data_ptr(), mtiles.data_ptr(), keys.data_ptr(), k,
         counts.data_ptr(), mins.data_ptr(), maxs.data_ptr(), b1 * LANES, wp, wm, n, block_offset,
     )
-    minmax_scan_tiles.launches += 1
+    profiling.count("launches.minmax_scan_tiles")
     return (counts, *_empty_groups(counts, mins, maxs, wm))
-
-
-minmax_scan_tiles.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -361,11 +357,8 @@ def aggregate_bitplane_tiles(
         "sss_agg_device_lookup", device, ptiles.data_ptr(), mtiles.data_ptr(), keys.data_ptr(),
         k, counts.data_ptr(), sums.data_ptr(), b1 * LANES, wp, wm, n, block_offset,
     )
-    aggregate_bitplane_tiles.launches += 1
+    profiling.count("launches.aggregate_bitplane_tiles")
     return counts, sums
-
-
-aggregate_bitplane_tiles.launches = 0
 
 
 def _static_keys(keys) -> np.ndarray:
@@ -434,11 +427,8 @@ def aggregate_bitplane_static_tiles(
         "sss_agg_lookup", device, ptiles.data_ptr(), mtiles.data_ptr(), host.ctypes.data, k,
         counts.data_ptr(), sums.data_ptr(), b1 * LANES, wp, wm, n, block_offset,
     )
-    aggregate_bitplane_static_tiles.launches += 1
+    profiling.count("launches.aggregate_bitplane_static_tiles")
     return counts, sums
-
-
-aggregate_bitplane_static_tiles.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -478,11 +468,8 @@ def masked_aggregate_tiles(
     total = torch.zeros(1, dtype=torch.int64, device=device)
     _cuda.launch("sss_masked_agg", device, mtiles.data_ptr(), bits.data_ptr(), count.data_ptr(),
                  total.data_ptr(), b1 * LANES, wm)
-    masked_aggregate_tiles.launches += 1
+    profiling.count("launches.masked_aggregate_tiles")
     return count[0], total[0]
-
-
-masked_aggregate_tiles.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -555,10 +542,11 @@ def masked_aggregate_device(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """SUM and COUNT of a measure column over a match bitvector (canonical
     words, e.g. from ``query.evaluate``) -> (sum, count), int64 scalars on
-    the column's device."""
-    row = bits_from_canonical(bits, mdev.tiles.shape[1])
-    count, total = masked_aggregate_tiles(mdev.tiles, row, mdev.width, mdev.n)
-    return total, count
+    the column's device.  Span ``agg.masked_aggregate_device``."""
+    with profiling.span("agg.masked_aggregate_device"):
+        row = bits_from_canonical(bits, mdev.tiles.shape[1])
+        count, total = masked_aggregate_tiles(mdev.tiles, row, mdev.width, mdev.n)
+        return total, count
 
 
 __all__ = [

@@ -11,9 +11,10 @@ A column's range is ``(v - lo) < span`` in uint32 arithmetic with
 here, not a wrapped one (unlike :func:`ops.scan.range_scan_tiles`).
 
 :func:`conj_range_scan_tiles` launches ``sss_conj_range_scan``
-(``csrc/conj.cu``) on CUDA tiles and counts it in its ``launches``; on CPU
-tiles it runs :func:`conj_range_scan_tiles_plain`.  The bounds are host
-values: the kernel takes them in its by-value argument.
+(``csrc/conj.cu``) on CUDA tiles and counts it in
+``launches.conj_range_scan_tiles`` (``utils.profiling``); on CPU tiles
+it runs :func:`conj_range_scan_tiles_plain`.  The bounds are host values:
+the kernel takes them in its by-value argument.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from shared_simd_scan_tpu_torch.ops.scan import (
     bits_to_canonical,
 )
 from shared_simd_scan_tpu_torch.ops.unpack import _check_tiles
+from shared_simd_scan_tpu_torch.utils import profiling
 
 MAX_COLUMNS = 8
 
@@ -109,25 +111,24 @@ def conj_range_scan_tiles(
         hi.ctypes.data, len(widths), bits.data_ptr(), counts.data_ptr(), b1 * LANES, n,
         block_offset,
     )
-    conj_range_scan_tiles.launches += 1
+    profiling.count("launches.conj_range_scan_tiles")
     return bits, counts[0]
-
-
-conj_range_scan_tiles.launches = 0
 
 
 def conj_range_scan_device(devs, lows, highs) -> tuple[torch.Tensor, torch.Tensor]:
     """Conjunction of range predicates over same-table DeviceColumns ->
-    ((W,) canonical bitvector words, int64 match count)."""
-    devs = list(devs)
-    n = devs[0].n
-    for d in devs:
-        if d.n != n:
-            raise ValueError(f"conjunction columns must share n, got {d.n} != {n}")
-    bits, count = conj_range_scan_tiles(
-        tuple(d.tiles for d in devs), lows, highs, tuple(d.width for d in devs), n
-    )
-    return bits_to_canonical(bits, n), count
+    ((W,) canonical bitvector words, int64 match count).  Span
+    ``conj.conj_range_scan_device``."""
+    with profiling.span("conj.conj_range_scan_device"):
+        devs = list(devs)
+        n = devs[0].n
+        for d in devs:
+            if d.n != n:
+                raise ValueError(f"conjunction columns must share n, got {d.n} != {n}")
+        bits, count = conj_range_scan_tiles(
+            tuple(d.tiles for d in devs), lows, highs, tuple(d.width for d in devs), n
+        )
+        return bits_to_canonical(bits, n), count
 
 
 def conj_eq_scan_device(devs, keys) -> tuple[torch.Tensor, torch.Tensor]:

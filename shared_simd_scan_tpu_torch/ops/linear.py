@@ -35,6 +35,7 @@ import math
 import torch
 
 from shared_simd_scan_tpu_torch.ops import _cuda
+from shared_simd_scan_tpu_torch.utils import profiling
 
 
 def _mxu_supported(k: int) -> bool:
@@ -133,11 +134,8 @@ def interleave_words(bits: torch.Tensor, nwords: int) -> torch.Tensor:
     if device is None:
         return _interleave_plain(bits, 1, nwords)
     out = _interleave(bits, 1, nwords, device)
-    interleave_words.launches += 1
+    profiling.count("launches.interleave_words")
     return out
-
-
-interleave_words.launches = 0
 
 
 def interleave_tiles(bits: torch.Tensor, nbytes: int) -> torch.Tensor:
@@ -180,11 +178,8 @@ def interleave_streams_words(streams: torch.Tensor, g: int, nwords: int) -> torc
     if device is None:
         return _interleave_plain(streams, 4 * g, nwords)
     out = _interleave(streams, 4 * g, nwords, device)
-    interleave_streams_words.launches += 1
+    profiling.count("launches.interleave_streams_words")
     return out
-
-
-interleave_streams_words.launches = 0
 
 
 def interleave_device(bits: torch.Tensor, nbytes: int) -> torch.Tensor:

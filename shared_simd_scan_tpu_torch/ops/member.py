@@ -20,11 +20,11 @@ Dispatch (:func:`member_scan_tiles`), the JAX package's to the letter:
   both compare bodies are one kernel.
 
 Each of the JAX package's seven kernel bodies has a wrapper here that
-launches a CUDA kernel on CUDA tiles, counts the launch in its own
-``launches``, and runs its plain torch version on CPU tiles:
+launches a CUDA kernel on CUDA tiles, counts the launch in
+``launches.<wrapper>`` (``utils.profiling``), and runs its plain torch version on CPU tiles:
 
 =================================  ===========================================
-wrapper (its ``launches``)         CUDA kernel
+wrapper (``launches.<wrapper>``)   CUDA kernel
 =================================  ===========================================
 ``_member_compare_tiles``          ``sss_member_compare`` (``csrc/member.cu``):
                                    one lookup a value in the keys' table,
@@ -69,6 +69,7 @@ from shared_simd_scan_tpu_torch.ops.scan import (
     range_scan_tiles,
 )
 from shared_simd_scan_tpu_torch.ops.unpack import _check_tiles
+from shared_simd_scan_tpu_torch.utils import profiling
 
 # Keys per compare chunk and windows per window chunk of the JAX package's
 # kernels; the chunked wrappers keep its padding so their plain versions
@@ -413,11 +414,8 @@ def _member_compare_tiles(tiles, keys, width, n, block_offset=0):
     if _cuda.kernel_device(tiles, keys) is None:
         return _member_compare_tiles_plain(tiles, keys, width, n, block_offset)
     out = _launch_operand_scan("sss_member_compare", tiles, keys, width, n, block_offset)
-    _member_compare_tiles.launches += 1
+    profiling.count("launches._member_compare_tiles")
     return out
-
-
-_member_compare_tiles.launches = 0
 
 
 def _member_chunked_compare_tiles_plain(tiles, keys, width, n, krows, block_offset=0):
@@ -440,11 +438,8 @@ def _member_chunked_compare_tiles(tiles, keys, width, n, krows, block_offset=0):
     if _cuda.kernel_device(tiles, keys) is None:
         return _member_chunked_compare_tiles_plain(tiles, keys, width, n, krows, block_offset)
     out = _launch_operand_scan("sss_member_compare", tiles, keys, width, n, block_offset)
-    _member_chunked_compare_tiles.launches += 1
+    profiling.count("launches._member_chunked_compare_tiles")
     return out
-
-
-_member_chunked_compare_tiles.launches = 0
 
 
 def _member_window_tiles_plain(tiles, win, width, n, block_offset=0):
@@ -464,11 +459,8 @@ def _member_window_tiles(tiles, win, width, n, block_offset=0):
     if _cuda.kernel_device(tiles, win) is None:
         return _member_window_tiles_plain(tiles, win, width, n, block_offset)
     out = _launch_operand_scan("sss_member_window", tiles, win, width, n, block_offset)
-    _member_window_tiles.launches += 1
+    profiling.count("launches._member_window_tiles")
     return out
-
-
-_member_window_tiles.launches = 0
 
 
 def _member_chunked_window_tiles_plain(tiles, win, width, n, wrows, block_offset=0):
@@ -492,11 +484,8 @@ def _member_chunked_window_tiles(tiles, win, width, n, wrows, block_offset=0):
     if _cuda.kernel_device(tiles, win) is None:
         return _member_chunked_window_tiles_plain(tiles, win, width, n, wrows, block_offset)
     out = _launch_operand_scan("sss_member_window", tiles, win, width, n, block_offset)
-    _member_chunked_window_tiles.launches += 1
+    profiling.count("launches._member_chunked_window_tiles")
     return out
-
-
-_member_chunked_window_tiles.launches = 0
 
 
 def _bitmap_row_plain(vals, table: torch.Tensor) -> torch.Tensor:
@@ -530,11 +519,8 @@ def _member_domain_tiles(tiles, keys, width, n, block_offset=0):
         return _member_domain_tiles_plain(tiles, keys, width, n, block_offset)
     out = _launch_one_row("sss_member_domain", tiles, keys, keys.shape[0], width, n,
                           block_offset)
-    _member_domain_tiles.launches += 1
+    profiling.count("launches._member_domain_tiles")
     return out
-
-
-_member_domain_tiles.launches = 0
 
 
 def _ortree_patterns(width: int, patterns) -> tuple:
@@ -565,6 +551,7 @@ def _member_ortree_tiles_plain(tiles, width, n, patterns, block_offset=0):
     return _member_finish(row(vals, table), n, block_offset)
 
 
+@profiling.watch_cache
 @functools.lru_cache(maxsize=64)
 def _member_set_table_on(width: int, patterns: tuple, device: torch.device) -> torch.Tensor:
     """:func:`member_set_table` copied to ``device``, once per set."""
@@ -587,11 +574,8 @@ def _member_ortree_tiles(tiles, width, n, patterns, block_offset=0):
     table = _member_set_table_on(width, pats, device)
     out = _launch_one_row("sss_member_lookup", tiles, table, table.shape[-1], width, n,
                           block_offset)
-    _member_ortree_tiles.launches += 1
+    profiling.count("launches._member_ortree_tiles")
     return out
-
-
-_member_ortree_tiles.launches = 0
 
 
 def _member_bitsliced_tiles_plain(tiles, keys, width, n, krows, block_offset=0):
@@ -627,11 +611,8 @@ def _member_bitsliced_tiles(tiles, keys, width, n, krows, block_offset=0):
     if _cuda.kernel_device(tiles, keys) is None:
         return _member_bitsliced_tiles_plain(tiles, keys, width, n, krows, block_offset)
     out = _launch_operand_scan("sss_member_compare", tiles, keys, width, n, block_offset)
-    _member_bitsliced_tiles.launches += 1
+    profiling.count("launches._member_bitsliced_tiles")
     return out
-
-
-_member_bitsliced_tiles.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -718,9 +699,10 @@ def member_scan_tiles(
 
 def member_scan_device(dev: DeviceColumn, keys) -> tuple[torch.Tensor, torch.Tensor]:
     """IN-list scan on a DeviceColumn -> ((W,) canonical bitvector words,
-    int64 match count)."""
-    bits, count = member_scan_tiles(dev.tiles, keys, dev.width, dev.n)
-    return bits_to_canonical(bits, dev.n), count
+    int64 match count).  Span ``member.member_scan_device``."""
+    with profiling.span("member.member_scan_device"):
+        bits, count = member_scan_tiles(dev.tiles, keys, dev.width, dev.n)
+        return bits_to_canonical(bits, dev.n), count
 
 
 __all__ = [

@@ -68,6 +68,7 @@ from shared_simd_scan_tpu_torch.layout import (
 )
 from shared_simd_scan_tpu_torch.ops import _cuda
 from shared_simd_scan_tpu_torch.ops.unpack import _check_tiles, unpack_value_plain
+from shared_simd_scan_tpu_torch.utils import profiling
 
 MAX_INTERVAL_KEYS = 1024
 # Key rows per kernel launch: the size of the kernels' per-CTA shared
@@ -183,11 +184,8 @@ def shared_scan_tiles(
             bits.data_ptr() + 4 * g0 * b1 * LANES, counts.data_ptr() + 8 * g0, b1 * LANES, width,
             n, block_offset,
         )
-        shared_scan_tiles.launches += 1
+        profiling.count("launches.shared_scan_tiles")
     return bits, counts
-
-
-shared_scan_tiles.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -285,11 +283,8 @@ def shared_scan_chunked_tiles(
         "sss_shared_scan_chunked", device, tiles.data_ptr(), keys.data_ptr(), k, bits.data_ptr(),
         counts.data_ptr(), b1 * LANES, width, n, block_offset,
     )
-    shared_scan_chunked_tiles.launches += 1
+    profiling.count("launches.shared_scan_chunked_tiles")
     return bits, counts
-
-
-shared_scan_chunked_tiles.launches = 0
 
 
 def shared_scan_dynamic_tiles_plain(
@@ -326,11 +321,8 @@ def shared_scan_dynamic_tiles(
         "sss_shared_scan_dynamic", device, tiles.data_ptr(), keys.data_ptr(), k, bits.data_ptr(),
         counts.data_ptr(), b1 * LANES, width, n, block_offset,
     )
-    shared_scan_dynamic_tiles.launches += -(-k // MAX_LAUNCH_KEYS)
+    profiling.count("launches.shared_scan_dynamic_tiles", -(-k // MAX_LAUNCH_KEYS))
     return bits, counts
-
-
-shared_scan_dynamic_tiles.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -385,11 +377,8 @@ def run_shift_canary(
         "sss_shift_canary", device, base.data_ptr(), amounts.data_ptr(), out_ptx.data_ptr(),
         out_cxx.data_ptr(), base.numel(),
     )
-    run_shift_canary.launches += 1
+    profiling.count("launches.run_shift_canary")
     return out_ptx, out_cxx
-
-
-run_shift_canary.launches = 0
 
 
 _CANARY_WORDS = np.array(CANARY_AMOUNTS, np.uint32)
@@ -417,11 +406,8 @@ def shift_verdict(device) -> bool:
     word = np.zeros(1, np.uint32)
     _cuda.launch("sss_shift_verdict", device, _CANARY_WORDS.ctypes.data, _CANARY_WORDS.size,
                  word.ctypes.data)
-    shift_verdict.launches += 1
+    profiling.count("launches.shift_verdict")
     return int(word[0]) == 0
-
-
-shift_verdict.launches = 0
 
 
 def shift_saturates(device) -> bool:
@@ -534,11 +520,8 @@ def interval_scan_tiles(
         "sss_interval_scan", device, tiles.data_ptr(), lo, k, bits.data_ptr(),
         counts.data_ptr(), b1 * LANES, width, n, block_offset, int(gateless),
     )
-    interval_scan_tiles.launches += 1
+    profiling.count("launches.interval_scan_tiles")
     return bits, counts
-
-
-interval_scan_tiles.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -685,6 +668,7 @@ def _around(grid: tuple, x: int) -> tuple[int, int] | None:
     return (below[-1], above[0]) if below and above else None
 
 
+@profiling.watch_cache
 @functools.lru_cache(maxsize=None)
 def _compare_fold_wins(width: int, k: int) -> bool:
     """Whether one launch of k keys of a ``width``-bit column in
@@ -719,9 +703,9 @@ def _fold_route_launch(
         counts.data_ptr() + 8 * g0, nblocks, width, n, block_offset,
     )
     if lookup:
-        shared_scan_dynamic_tiles.launches += 1
+        profiling.count("launches.shared_scan_dynamic_tiles")
     else:
-        shared_scan_bitsliced_tiles.launches += 1
+        profiling.count("launches.shared_scan_bitsliced_tiles")
 
 
 def shared_scan_bitsliced_tiles(
@@ -749,9 +733,6 @@ def shared_scan_bitsliced_tiles(
         _fold_route_launch(tiles, keys, g0, min(k - g0, MAX_LAUNCH_KEYS), bits, counts, width, n,
                            block_offset, device)
     return bits, counts
-
-
-shared_scan_bitsliced_tiles.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1030,6 +1011,7 @@ class _ProgVec:
         self.ops.append((_OUT, row, (self.node, self.neg), None))
 
 
+@profiling.watch_cache
 @functools.lru_cache(maxsize=64)
 def _static_program(width: int, keys: tuple) -> tuple[np.ndarray, int]:
     """One launch's key rows (at most MAX_LAUNCH_KEYS) -> (program
@@ -1055,6 +1037,7 @@ def _static_program(width: int, keys: tuple) -> tuple[np.ndarray, int]:
     return _assign_slots(width, ops[1:])
 
 
+@profiling.watch_cache
 @functools.lru_cache(maxsize=64)
 def _member_program(width: int, patterns: tuple) -> tuple[np.ndarray, int]:
     """The member OR-tree of ``patterns`` (in-domain keys) as a one-row
@@ -1125,6 +1108,7 @@ def shared_scan_bitsliced_static_tiles_plain(
                                              block_offset)
 
 
+@profiling.watch_cache
 @functools.lru_cache(maxsize=64)
 def _static_keys_on(keys: tuple, device: torch.device) -> torch.Tensor:
     """One launch's host keys as int32 on ``device``, copied once per set."""
@@ -1143,13 +1127,14 @@ def _static_fold(
     bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
     counts = torch.zeros(k, dtype=torch.int64, device=device)
     for g0 in range(0, k, MAX_LAUNCH_KEYS):
-        group = _static_keys_on(tuple(arr[g0 : g0 + MAX_LAUNCH_KEYS].tolist()), device)
+        with profiling.span("scan.program"):
+            group = _static_keys_on(tuple(arr[g0 : g0 + MAX_LAUNCH_KEYS].tolist()), device)
         _cuda.launch(
             "sss_bitsliced_static_fold", device, tiles.data_ptr(), group.data_ptr(),
             group.shape[0], bits[g0].data_ptr(), counts[g0].data_ptr(), b1 * LANES, width, n,
             block_offset,
         )
-        shared_scan_bitsliced_static_tiles.launches += 1
+        profiling.count("launches.shared_scan_bitsliced_static_tiles")
     return bits, counts
 
 
@@ -1172,9 +1157,6 @@ def shared_scan_bitsliced_static_tiles(
     if device is None:
         return shared_scan_bitsliced_static_tiles_plain(tiles, arr, width, n, block_offset)
     return _static_fold(tiles, arr, width, n, block_offset, device)
-
-
-shared_scan_bitsliced_static_tiles.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1282,6 +1264,7 @@ def _window_tables(keys: np.ndarray, width: int) -> tuple[np.ndarray, int, int, 
     return plan.astype(np.uint32).view(np.int32), len(windows), len(distinct), len(dlist)
 
 
+@profiling.watch_cache
 @functools.lru_cache(maxsize=64)
 def _window_tables_on(keys: tuple, width: int, device: torch.device) -> list[tuple]:
     """(first row, rows, plan on ``device``, nwin, nd, ndup) per launch of
@@ -1332,13 +1315,14 @@ def _window_lookup(
     k, b1 = int(arr.shape[0]), tiles.shape[1]
     bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
     counts = torch.zeros(k, dtype=torch.int64, device=device)
-    launches = _window_tables_on(tuple(arr.tolist()), width, device)
+    with profiling.span("scan.program"):
+        launches = _window_tables_on(tuple(arr.tolist()), width, device)
     for r0, rows, plan, nwin, nd, ndup in launches:
         _cuda.launch(
             "sss_windowed_lookup", device, tiles.data_ptr(), plan.data_ptr(), rows, nwin, nd,
             ndup, bits[r0].data_ptr(), counts[r0].data_ptr(), b1 * LANES, width, n, block_offset,
         )
-        windowed_scan_tiles.launches += 1
+        profiling.count("launches.windowed_scan_tiles")
     return bits, counts
 
 
@@ -1363,9 +1347,6 @@ def windowed_scan_tiles(
         return windowed_scan_tiles_plain(tiles, arr, width, n, block_offset)
     run = _window_lookup if arr.shape[0] >= WINDOW_LOOKUP_KEYS else _static_fold
     return run(tiles, arr, width, n, block_offset, device)
-
-
-windowed_scan_tiles.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1454,21 +1435,20 @@ def range_scan_tiles(
         bits.data_ptr() + skip, counts.data_ptr(), count * LANES, b1 * LANES, width, n,
         block_offset + start * LANES,
     )
-    range_scan_tiles.launches += 1
+    profiling.count("launches.range_scan_tiles")
     return bits, counts
-
-
-range_scan_tiles.launches = 0
 
 
 def range_scan_device(dev: DeviceColumn, lows, highs) -> tuple[torch.Tensor, torch.Tensor]:
     """k range predicates on a DeviceColumn -> ((k, W) canonical
     bitvectors, (k,) int64 counts).  Bounds are host values in [0, 2^32]
-    or a CUDA tensor (read on the card only)."""
-    device = dev.tiles.device
-    bits, counts = range_scan_tiles(dev.tiles, _bounds_tensor(lows, device),
-                                    _bounds_tensor(highs, device), dev.width, dev.n)
-    return bits_to_canonical(bits, dev.n), counts
+    or a CUDA tensor (read on the card only).  Span
+    ``scan.range_scan_device``."""
+    with profiling.span("scan.range_scan_device"):
+        device = dev.tiles.device
+        bits, counts = range_scan_tiles(dev.tiles, _bounds_tensor(lows, device),
+                                        _bounds_tensor(highs, device), dev.width, dev.n)
+        return bits_to_canonical(bits, dev.n), counts
 
 
 # ---------------------------------------------------------------------------
@@ -1541,24 +1521,35 @@ def shared_scan_device(dev: DeviceColumn, keys) -> tuple[torch.Tensor, torch.Ten
     - keys given as a CUDA tensor are runtime keys (the counterpart of the
       JAX package's traced keys): they are never copied to the host, and
       take the bit-sliced kernel when :func:`_bitsliced_wins` (k >= 5 at
-      width 9), else the compare kernel."""
-    if isinstance(keys, torch.Tensor) and keys.is_cuda:
-        keys = _runtime_keys(keys)
-        fn = shared_scan_bitsliced_tiles if _bitsliced_wins(dev.width, keys.shape[0]) \
-            else shared_scan_tiles
-        bits, counts = fn(dev.tiles, keys, dev.width, dev.n)
+      width 9), else the compare kernel.
+
+    Span ``scan.shared_scan_device`` holds ``scan.pick_tier`` (the rule)
+    and ``scan.program`` (the tier's host-built keys or tables); each
+    decision counts ``tier.<tier>``, the runtime keys'
+    ``tier.runtime_bitsliced`` or ``tier.runtime_compare``."""
+    with profiling.span("scan.shared_scan_device"):
+        if isinstance(keys, torch.Tensor) and keys.is_cuda:
+            keys = _runtime_keys(keys)
+            with profiling.span("scan.pick_tier"):
+                bitsliced = _bitsliced_wins(dev.width, keys.shape[0])
+            profiling.count("tier.runtime_bitsliced" if bitsliced else "tier.runtime_compare")
+            fn = shared_scan_bitsliced_tiles if bitsliced else shared_scan_tiles
+            bits, counts = fn(dev.tiles, keys, dev.width, dev.n)
+            return bits_to_canonical(bits, dev.n), counts
+        keys = _host_keys(keys)
+        with profiling.span("scan.pick_tier"):
+            tier, lo = pick_concrete_tier(dev.width, keys)
+        profiling.count("tier." + tier)
+        if tier == "interval":
+            bits, counts = interval_scan_tiles(dev.tiles, lo, keys.shape[0], dev.width, dev.n)
+        elif tier == "compare":
+            with profiling.span("scan.program"):
+                keys_t = torch.from_numpy(keys.view(np.int32).copy()).to(dev.tiles.device)
+            bits, counts = shared_scan_tiles(dev.tiles, keys_t, dev.width, dev.n)
+        else:
+            fn = windowed_scan_tiles if tier == "windowed" else shared_scan_bitsliced_static_tiles
+            bits, counts = fn(dev.tiles, keys, dev.width, dev.n)
         return bits_to_canonical(bits, dev.n), counts
-    keys = _host_keys(keys)
-    tier, lo = pick_concrete_tier(dev.width, keys)
-    if tier == "interval":
-        bits, counts = interval_scan_tiles(dev.tiles, lo, keys.shape[0], dev.width, dev.n)
-    elif tier == "compare":
-        keys_t = torch.from_numpy(keys.view(np.int32).copy()).to(dev.tiles.device)
-        bits, counts = shared_scan_tiles(dev.tiles, keys_t, dev.width, dev.n)
-    else:
-        fn = windowed_scan_tiles if tier == "windowed" else shared_scan_bitsliced_static_tiles
-        bits, counts = fn(dev.tiles, keys, dev.width, dev.n)
-    return bits_to_canonical(bits, dev.n), counts
 
 
 def scan_device(dev: DeviceColumn, predicate_key) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1664,11 +1655,9 @@ def histogram_tiles(
     counts = torch.zeros(k, dtype=torch.int64, device=device)
     _cuda.launch("sss_histogram", device, tiles.data_ptr(), lo_t.data_ptr(), k, counts.data_ptr(),
                  b1 * LANES, width, n, block_offset)
-    histogram_tiles.launches += 1
+    profiling.count("launches.histogram_tiles")
     return counts
 
-
-histogram_tiles.launches = 0
 
 # Widths whose full-domain histogram takes one domain pass: past one
 # 4096-value window, up to the statistics' cap.
@@ -1705,11 +1694,8 @@ def _histogram_domain_tiles(
     counts = torch.zeros(1 << width, dtype=torch.int64, device=device)
     _cuda.launch("sss_histogram_domain", device, tiles.data_ptr(), counts.data_ptr(), b1 * LANES,
                  width, n, block_offset)
-    _histogram_domain_tiles.launches += 1
+    profiling.count("launches._histogram_domain_tiles")
     return counts
-
-
-_histogram_domain_tiles.launches = 0
 
 
 def _histogram_span_tiles_plain(
@@ -1772,11 +1758,8 @@ def _histogram_chunked_tiles(
     fold = _histogram_fold_keys(width, lo, k)
     _cuda.launch("sss_histogram_fold" if fold else "sss_histogram_span", device, tiles.data_ptr(),
                  lo, fold or k, counts.data_ptr(), b1 * LANES, width, n, block_offset)
-    _histogram_chunked_tiles.launches += 1
+    profiling.count("launches._histogram_chunked_tiles")
     return counts
-
-
-_histogram_chunked_tiles.launches = 0
 
 
 def _histogram_span_tiles(
@@ -1795,11 +1778,8 @@ def _histogram_span_tiles(
     counts = torch.zeros(k, dtype=torch.int64, device=device)
     _cuda.launch("sss_histogram_span", device, tiles.data_ptr(), lo, k, counts.data_ptr(),
                  b1 * LANES, width, n, block_offset)
-    _histogram_span_tiles.launches += 1
+    profiling.count("launches._histogram_span_tiles")
     return counts
-
-
-_histogram_span_tiles.launches = 0
 
 
 def histogram_dag_tiles(
@@ -1914,11 +1894,8 @@ def _interval_linear_tiles_impl(
         "sss_interval_scan_linear", device, tiles.data_ptr(), lo, k, out.data_ptr(),
         counts.data_ptr(), b1 * LANES, width, n, block_offset, int(gateless),
     )
-    _interval_linear_tiles_impl.launches += 1
+    profiling.count("launches._interval_linear_tiles_impl")
     return out, counts
-
-
-_interval_linear_tiles_impl.launches = 0
 
 
 def interval_scan_linear_words_tiles(
@@ -1993,11 +1970,8 @@ def _static_linear_tiles_impl(
         "sss_bitsliced_static_scan_linear", device, tiles.data_ptr(), host.ctypes.data, k,
         out.data_ptr(), counts.data_ptr(), b1 * LANES, width, n, block_offset,
     )
-    _static_linear_tiles_impl.launches += 1
+    profiling.count("launches._static_linear_tiles_impl")
     return out, counts
-
-
-_static_linear_tiles_impl.launches = 0
 
 
 def static_scan_linear_words_tiles(
@@ -2065,11 +2039,8 @@ def _bitsliced_linear_tiles_impl(
         "sss_bitsliced_scan_linear", device, tiles.data_ptr(), keys.data_ptr(), k,
         out.data_ptr(), counts.data_ptr(), b1 * LANES, width, n, block_offset,
     )
-    _bitsliced_linear_tiles_impl.launches += 1
+    profiling.count("launches._bitsliced_linear_tiles_impl")
     return out, counts
-
-
-_bitsliced_linear_tiles_impl.launches = 0
 
 
 def _is_runtime_keys(keys) -> bool:

@@ -28,6 +28,7 @@ from shared_simd_scan_tpu_torch.layout import (
     unpack_schedule,
 )
 from shared_simd_scan_tpu_torch.ops import _cuda
+from shared_simd_scan_tpu_torch.utils import profiling
 
 
 def unpack_value_plain(w: torch.Tensor, width: int, r: int) -> torch.Tensor:
@@ -80,11 +81,8 @@ def unpack_tiles(tiles: torch.Tensor, width: int) -> torch.Tensor:
         return unpack_tiles_plain(tiles, width)
     vals = torch.empty((BLOCK_VALUES, b1, LANES), dtype=torch.int32, device=device)
     _cuda.launch("sss_unpack", device, tiles.data_ptr(), vals.data_ptr(), b1 * LANES, width)
-    unpack_tiles.launches += 1
+    profiling.count("launches.unpack_tiles")
     return vals
-
-
-unpack_tiles.launches = 0
 
 
 def pack_tiles(vals: torch.Tensor, width: int) -> torch.Tensor:
@@ -103,11 +101,8 @@ def pack_tiles(vals: torch.Tensor, width: int) -> torch.Tensor:
         return pack_tiles_plain(vals, width)
     tiles = torch.empty((width, b1, LANES), dtype=torch.int32, device=device)
     _cuda.launch("sss_pack", device, vals.data_ptr(), tiles.data_ptr(), b1 * LANES, width)
-    pack_tiles.launches += 1
+    profiling.count("launches.pack_tiles")
     return tiles
-
-
-pack_tiles.launches = 0
 
 
 def values_to_flat(vals: torch.Tensor, n: int) -> torch.Tensor:

@@ -47,6 +47,7 @@ from shared_simd_scan_tpu_torch.layout import DeviceColumn
 from shared_simd_scan_tpu_torch.ops import conj as conj_ops
 from shared_simd_scan_tpu_torch.ops import member as member_ops
 from shared_simd_scan_tpu_torch.ops import scan as scan_ops
+from shared_simd_scan_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,13 +163,24 @@ def _group_and_terms(terms):
     return chunks, others, empty
 
 
+def _conj_bounds(group) -> tuple[list[DeviceColumn], np.ndarray, np.ndarray]:
+    """A conjunction group's (columns, lows, highs) as the conj kernel
+    takes them."""
+    return ([c for c, _, _ in group], np.asarray([lo for _, lo, _ in group], np.uint32),
+            np.asarray([hi for _, _, hi in group], np.uint32))
+
+
 def _eval(expr, n: int, device, zonemaps: dict | None = None) -> torch.Tensor:
     """-> canonical bitvector words of the subtree.
 
     ``zonemaps`` maps ``id(col)`` -> :class:`zonemap.ZoneMap`: a Range/Eq
     on a mapped column scans only its pruned block span.  An And's Range
     conjuncts merge per column first; a mapped column's merged range is
-    pruned on its own, the other columns stay in the fused conjunction."""
+    pruned on its own, the other columns stay in the fused conjunction.
+
+    Spans: ``query.plan`` around the grouping and the bound arrays,
+    ``query.compose`` around the word-wise combines; the leaves' operators
+    have their own."""
 
     def zeros():
         return torch.zeros((n + 31) // 32, dtype=torch.int32, device=device)
@@ -182,17 +194,22 @@ def _eval(expr, n: int, device, zonemaps: dict | None = None) -> torch.Tensor:
     if isinstance(expr, In):
         if not expr.keys:
             return zeros()
-        bits, _ = member_ops.member_scan_device(expr.col, np.asarray(expr.keys, np.uint32))
+        with profiling.span("query.plan"):
+            keys = np.asarray(expr.keys, np.uint32)
+        bits, _ = member_ops.member_scan_device(expr.col, keys)
         return bits
     if isinstance(expr, Not):
-        return bitvector.logical_not(_eval(expr.term, n, device, zonemaps), n)
+        term = _eval(expr.term, n, device, zonemaps)
+        with profiling.span("query.compose"):
+            return bitvector.logical_not(term, n)
     if isinstance(expr, Or):
         if not expr.terms:
             return zeros()
         # Eq and In disjuncts of one column merge into one member scan (the
         # union is the member semantics); its multi-value ranges share one
         # k-range pass per 32 ranges
-        spans_by_col, keys_by_col, others = _group_or_terms(expr.terms)
+        with profiling.span("query.plan"):
+            spans_by_col, keys_by_col, others = _group_or_terms(expr.terms)
         rows = [_eval(t, n, device, zonemaps) for t in others]
         for col, keys in keys_by_col.values():
             rows.append(_eval(In(col, keys), n, device, zonemaps))
@@ -202,20 +219,26 @@ def _eval(expr, n: int, device, zonemaps: dict | None = None) -> torch.Tensor:
                 rows.append(_eval(Range(col, *spans[0]), n, device, zonemaps))
                 continue
             for at in range(0, len(spans), 32):
-                g = spans[at : at + 32]
-                kbits, _ = scan_ops.range_scan_device(
-                    col, np.asarray([lo for lo, _ in g], np.uint32),
-                    np.asarray([hi for _, hi in g], np.uint32))
-                rows.append(bitvector.logical_or(*kbits))
+                with profiling.span("query.plan"):
+                    g = spans[at : at + 32]
+                    lows = np.asarray([lo for lo, _ in g], np.uint32)
+                    highs = np.asarray([hi for _, hi in g], np.uint32)
+                kbits, _ = scan_ops.range_scan_device(col, lows, highs)
+                with profiling.span("query.compose"):
+                    rows.append(bitvector.logical_or(*kbits))
         if not rows:
             return zeros()
-        return bitvector.logical_or(*rows)
+        with profiling.span("query.compose"):
+            return bitvector.logical_or(*rows)
     if isinstance(expr, And):
         if not expr.terms:
-            return bitvector.logical_not(zeros(), n)
+            with profiling.span("query.compose"):
+                return bitvector.logical_not(zeros(), n)
         # every Range conjunct merges per column: intersected bounds, one
         # fused multi-column pass per group
-        chunks, others, empty = _group_and_terms(expr.terms)
+        with profiling.span("query.plan"):
+            chunks, others, empty = _group_and_terms(expr.terms)
+            groups = [] if empty or zonemaps else [_conj_bounds(g) for g in chunks]
         if empty:
             return zeros()
         rows = []
@@ -231,24 +254,22 @@ def _eval(expr, n: int, device, zonemaps: dict | None = None) -> torch.Tensor:
                     else:
                         keep.append((col, lo, hi))
                 if keep:
-                    bits, _ = conj_ops.conj_range_scan_device(
-                        [c for c, _, _ in keep],
-                        np.asarray([lo for _, lo, _ in keep], np.uint32),
-                        np.asarray([hi for _, _, hi in keep], np.uint32),
-                    )
+                    with profiling.span("query.plan"):
+                        cols, lows, highs = _conj_bounds(keep)
+                    bits, _ = conj_ops.conj_range_scan_device(cols, lows, highs)
                     pruned.append(bits)
             rows.extend(pruned)
             rows.extend(_eval(t, n, device, zonemaps) for t in others)
-            return bitvector.logical_and(*rows) if rows else _eval(And(), n, device)
-        for g in chunks:
-            bits, _ = conj_ops.conj_range_scan_device(
-                [c for c, _, _ in g],
-                np.asarray([lo for _, lo, _ in g], np.uint32),
-                np.asarray([hi for _, _, hi in g], np.uint32),
-            )
+            if not rows:
+                return _eval(And(), n, device)
+            with profiling.span("query.compose"):
+                return bitvector.logical_and(*rows)
+        for cols, lows, highs in groups:
+            bits, _ = conj_ops.conj_range_scan_device(cols, lows, highs)
             rows.append(bits)
         rows.extend(_eval(t, n, device, zonemaps) for t in others)
-        return bitvector.logical_and(*rows)
+        with profiling.span("query.compose"):
+            return bitvector.logical_and(*rows)
     raise TypeError(f"not a query expression: {expr!r}")
 
 
@@ -258,16 +279,23 @@ def evaluate(expr, zonemaps: dict | None = None) -> tuple[torch.Tensor, torch.Te
 
     ``zonemaps``: optional ``{id(col): zonemap.ZoneMap}`` (built by either
     package): Range/Eq leaves on mapped columns scan only the pruned block
-    span.  Build with ``{id(col): zonemap.build_zonemap(col)}``."""
-    cols = _columns(expr)
-    if not cols:
-        raise ValueError("query references no columns")
-    n = cols[0].n
-    for c in cols:
-        if c.n != n:
-            raise ValueError(f"query columns must share n, got {c.n} != {n}")
-    bits = _eval(expr, n, cols[0].tiles.device, zonemaps)
-    return bits, bitvector.popcount(bits)
+    span.  Build with ``{id(col): zonemap.build_zonemap(col)}``.
+
+    Span ``query.evaluate`` holds ``query.plan`` (the columns' checks, the
+    grouping, the bound arrays), the leaves' operator spans,
+    ``query.compose`` (the word-wise combines) and ``query.popcount``."""
+    with profiling.span("query.evaluate"):
+        with profiling.span("query.plan"):
+            cols = _columns(expr)
+            if not cols:
+                raise ValueError("query references no columns")
+            n = cols[0].n
+            for c in cols:
+                if c.n != n:
+                    raise ValueError(f"query columns must share n, got {c.n} != {n}")
+        bits = _eval(expr, n, cols[0].tiles.device, zonemaps)
+        with profiling.span("query.popcount"):
+            return bits, bitvector.popcount(bits)
 
 
 # ---------------------------------------------------------------------------

@@ -47,6 +47,7 @@ from shared_simd_scan_tpu_torch.ops.scan import (
     range_scan_tiles_plain,
 )
 from shared_simd_scan_tpu_torch.ops.unpack import _check_tiles, unpack_tiles
+from shared_simd_scan_tpu_torch.utils import profiling
 
 _U32 = 0xFFFFFFFF
 
@@ -172,16 +173,18 @@ def pruned_range_scan(
 
     Dispatch, as the JAX package's: no overlapping zone -> an all-zero
     result and no launch; a span over half the column -> the full-column
-    range kernel; else the range kernel on the span's rows, in place."""
-    b1 = dev.tiles.shape[1]
-    sp = prune_span(zmap, lo, hi)
-    if sp is None:
-        return _no_match(dev, full_bits)
-    start, span = sp
-    rows = None if span * 2 > b1 else (start, span)
-    lows, highs = _range_bounds(lo, hi, dev.tiles.device)
-    bits, counts = range_scan_tiles(dev.tiles, lows, highs, dev.width, dev.n, rows=rows)
-    return (bits_to_canonical(bits, dev.n)[0] if full_bits else None), counts[0]
+    range kernel; else the range kernel on the span's rows, in place.
+    Span ``zonemap.pruned_range_scan``."""
+    with profiling.span("zonemap.pruned_range_scan"):
+        b1 = dev.tiles.shape[1]
+        sp = prune_span(zmap, lo, hi)
+        if sp is None:
+            return _no_match(dev, full_bits)
+        start, span = sp
+        rows = None if span * 2 > b1 else (start, span)
+        lows, highs = _range_bounds(lo, hi, dev.tiles.device)
+        bits, counts = range_scan_tiles(dev.tiles, lows, highs, dev.width, dev.n, rows=rows)
+        return (bits_to_canonical(bits, dev.n)[0] if full_bits else None), counts[0]
 
 
 def pruned_eq_scan(dev: DeviceColumn, zmap: ZoneMap, key: int, full_bits: bool = True):
@@ -293,11 +296,8 @@ def zoned_range_tiles(
         lows.data_ptr(), highs.data_ptr(), k, None if bits is None else bits.data_ptr(),
         counts.data_ptr(), b1 * LANES, tb * LANES, width, n,
     )
-    zoned_range_tiles.launches += 1
+    profiling.count("launches.zoned_range_tiles")
     return bits, counts
-
-
-zoned_range_tiles.launches = 0
 
 
 def zoned_range_scan(

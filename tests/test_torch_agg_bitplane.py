@@ -18,6 +18,7 @@ from shared_simd_scan_tpu import layout as jlayout
 from shared_simd_scan_tpu.ops import aggregate as jagg
 from shared_simd_scan_tpu_torch import layout as tlayout
 from shared_simd_scan_tpu_torch.ops import aggregate as tagg
+from shared_simd_scan_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -143,7 +144,7 @@ def test_block_offset_matches_jax():
 def test_aggregate_scan_device_matches_jax_on_both_tiers():
     wp, wm = 9, 16
     n, p, m, (jp, jm), (tp, tm) = _table(wp, wm, 70)
-    before = {f: f.launches for f in (tagg.aggregate_scan_tiles,
+    before = {f: profiling.launch_count(f) for f in (tagg.aggregate_scan_tiles,
                                       tagg.aggregate_bitplane_static_tiles)}
     for k, tier in ((2, "compare"), (24, "bitplane")):
         keys = np.random.default_rng(k).permutation(1 << wp)[:k].astype(np.uint32)
@@ -153,4 +154,4 @@ def test_aggregate_scan_device_matches_jax_on_both_tiers():
         np.testing.assert_array_equal(tsums.numpy(), jsums.astype(np.int64))
         np.testing.assert_array_equal(tcounts.numpy(), np.asarray(jcounts).astype(np.int64))
     # CPU tensors take the plain versions: nothing launches
-    assert all(f.launches == c for f, c in before.items())
+    assert all(profiling.launch_count(f) == c for f, c in before.items())

@@ -19,6 +19,7 @@ from shared_simd_scan_tpu.ops import oracle as joracle
 from shared_simd_scan_tpu.ops import scan as jscan
 from shared_simd_scan_tpu_torch import layout as tlayout
 from shared_simd_scan_tpu_torch.ops import scan as tscan
+from shared_simd_scan_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -324,8 +325,8 @@ def test_cpu_wrappers_launch_nothing():
     _, _, tdev = _columns(9, 1000, seed=2)
     fns = (tscan.shared_scan_bitsliced_tiles, tscan.shared_scan_bitsliced_static_tiles,
            tscan.windowed_scan_tiles)
-    before = [f.launches for f in fns]
+    before = [profiling.launch_count(f) for f in fns]
     tscan.shared_scan_bitsliced_tiles(tdev.tiles, _keys_t(SPREAD8), 9, 1000)
     tscan.shared_scan_bitsliced_static_tiles(tdev.tiles, SPREAD8, 9, 1000)
     tscan.windowed_scan_tiles(tdev.tiles, SPREAD8, 9, 1000)
-    assert [f.launches for f in fns] == before
+    assert [profiling.launch_count(f) for f in fns] == before

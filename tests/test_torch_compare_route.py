@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from shared_simd_scan_tpu_torch.ops import _cuda, scan, unpack
+from shared_simd_scan_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -97,7 +98,7 @@ def test_compare_wrapper_launches_the_kernel_the_rule_names(width, monkeypatch):
            scan.shared_scan_dynamic_tiles)
     for k in (1, 2, 4, 5, 8, 16, 64, 300, 1024, 1025, 2100):
         calls.clear()
-        before = [fn.launches for fn in fns]
+        before = [profiling.launch_count(fn) for fn in fns]
         bits, counts = scan.shared_scan_tiles(tiles, torch.zeros(k, dtype=torch.int32), width,
                                               100)
         assert bits.shape == (k, 2, 128) and counts.shape == (k,)
@@ -114,4 +115,4 @@ def test_compare_wrapper_launches_the_kernel_the_rule_names(width, monkeypatch):
                 want.append(("sss_bitsliced_static_fold", rows))
                 launches[1] += 1
         assert calls == want, (width, k)
-        assert [fn.launches - b for fn, b in zip(fns, before)] == launches
+        assert [profiling.launch_count(fn) - b for fn, b in zip(fns, before)] == launches

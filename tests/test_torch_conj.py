@@ -18,6 +18,7 @@ from shared_simd_scan_tpu.ops import scan as jscan
 from shared_simd_scan_tpu_torch import layout as tlayout
 from shared_simd_scan_tpu_torch.ops import conj as tconj
 from shared_simd_scan_tpu_torch.ops import scan as tscan
+from shared_simd_scan_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -161,7 +162,8 @@ def test_conj_refuses_what_the_kernel_cannot_take():
 
 def test_cpu_wrappers_launch_nothing():
     _, _, tdev = _column(9, 1000, seed=1)
-    before = (tscan.range_scan_tiles.launches, tconj.conj_range_scan_tiles.launches)
+    fns = (tscan.range_scan_tiles, tconj.conj_range_scan_tiles)
+    before = [profiling.launch_count(f) for f in fns]
     tscan.range_scan_tiles(tdev.tiles, _t32([1]), _t32([5]), 9, 1000)
     tconj.conj_range_scan_tiles((tdev.tiles,), [1], [5], (9,), 1000)
-    assert (tscan.range_scan_tiles.launches, tconj.conj_range_scan_tiles.launches) == before
+    assert [profiling.launch_count(f) for f in fns] == before

@@ -17,6 +17,7 @@ import shared_simd_scan_tpu_torch as port
 from shared_simd_scan_tpu_torch import bitvector, query
 from shared_simd_scan_tpu_torch.bench import harness
 from shared_simd_scan_tpu_torch.ops import _cuda, aggregate, conj, linear, member, oracle, scan, unpack
+from shared_simd_scan_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -92,10 +93,11 @@ def test_compare_kernel_past_1024_keys(cuda_device):
     kt = _keys((np.arange(1500) * 7) % 2048, cuda_device)
     fns = (scan.shared_scan_tiles, scan.shared_scan_bitsliced_tiles,
            scan.shared_scan_dynamic_tiles)
-    before = [fn.launches for fn in fns]
+    before = [profiling.launch_count(fn) for fn in fns]
     _same(scan.shared_scan_tiles(tiles, kt, width, N),
           scan.shared_scan_tiles_plain(tiles, kt, width, N))
-    assert [fn.launches - b for fn, b in zip(fns, before)] == _compare_launches(width, 1500)
+    assert [profiling.launch_count(fn) - b for fn, b in zip(fns, before)] == \
+        _compare_launches(width, 1500)
 
 
 def _compare_launches(width, k):
@@ -197,9 +199,9 @@ def test_compare_wrapper_every_width_both_sides_of_the_rule(cuda_device, width):
             kt = _keys(_compare_edge_keys(k, width, values, rng), cuda_device)
             for bo in (0, 3):
                 want = scan.shared_scan_tiles_plain(tiles, kt, width, n, bo)
-                before = [fn.launches for fn in fns]
+                before = [profiling.launch_count(fn) for fn in fns]
                 _same(scan.shared_scan_tiles(tiles, kt, width, n, bo), want)
-                assert [fn.launches - b for fn, b in zip(fns, before)] == \
+                assert [profiling.launch_count(fn) - b for fn, b in zip(fns, before)] == \
                     _compare_launches(width, k), (width, k)
                 _same(_compare_launch(tiles, kt, width, n, bo), want)
                 _same(scan.shared_scan_bitsliced_tiles(tiles, kt, width, n, bo), want)
@@ -257,7 +259,7 @@ def test_shift_canary_matches_plain(cuda_device):
 def test_slice_kernels_match_cpu_plain_path(cuda_device):
     width, n = 9, 32_000
     vals = harness.synth_modk(n, 8, width, device=cuda_device)
-    counts_before = {f: f.launches for f in (unpack.pack_tiles, unpack.unpack_tiles,
+    counts_before = {f: profiling.launch_count(f) for f in (unpack.pack_tiles, unpack.unpack_tiles,
                                              scan.interval_scan_tiles, scan.shared_scan_tiles)}
     gdev = port.pack_device_kernel(vals, width)
     cdev = port.pack_device_kernel(vals.cpu(), width)
@@ -269,7 +271,7 @@ def test_slice_kernels_match_cpu_plain_path(cuda_device):
         _same(gcounts.cpu(), ccounts)
     _same(port.unpack_device(gdev), vals)
     for f, before in counts_before.items():
-        assert f.launches > before, f.__name__
+        assert profiling.launch_count(f) > before, f.__name__
     assert harness.check_shared_scan(gdev, np.arange(8), vals)
 
 
@@ -351,16 +353,17 @@ def test_windowed_lookup_edges_match_plain(cuda_device, width):
             arr = np.asarray(keys, np.uint32)
             for bo in (0, 3):
                 want = scan.shared_scan_tiles_plain(tiles, kt, width, N, bo)
-                before = scan.windowed_scan_tiles.launches
+                before = profiling.launch_count(scan.windowed_scan_tiles)
                 _same(scan._window_lookup(tiles, arr, width, N, bo, cuda_device), want)
-                assert scan.windowed_scan_tiles.launches == before + -(-k // 1024), (k, name)
+                assert profiling.launch_count(scan.windowed_scan_tiles) == before + -(-k // 1024), \
+                    (k, name)
                 # the tier: the lookup from WINDOW_LOOKUP_KEYS keys, else the fold
                 fns = (scan.windowed_scan_tiles, scan.shared_scan_bitsliced_static_tiles)
-                before = [f.launches for f in fns]
+                before = [profiling.launch_count(f) for f in fns]
                 _same(scan.windowed_scan_tiles(tiles, keys, width, N, bo), want)
                 ran = -(-k // 1024) if k >= scan.WINDOW_LOOKUP_KEYS else 0
-                assert [f.launches - b for f, b in zip(fns, before)] == [ran, 1 - min(ran, 1)], \
-                    (k, name)
+                assert [profiling.launch_count(f) - b for f, b in zip(fns, before)] == \
+                    [ran, 1 - min(ran, 1)], (k, name)
 
 
 @pytest.mark.parametrize("width", range(1, 32))
@@ -375,12 +378,12 @@ def test_runtime_key_tier_edges_match_plain(cuda_device, width):
         keys = _with_edges(host[rng.integers(0, N, size=k)], width)
         kt = _keys(keys, cuda_device)
         fns = (scan.shared_scan_bitsliced_tiles, scan.shared_scan_dynamic_tiles)
-        before = [f.launches for f in fns]
+        before = [profiling.launch_count(f) for f in fns]
         got = scan.shared_scan_bitsliced_tiles(tiles, kt, width, N, 2)
         lookups = sum(scan._runtime_lookup_wins(width, min(k - g0, 1024))
                       for g0 in range(0, k, 1024))
-        assert [f.launches - b for f, b in zip(fns, before)] == [-(-k // 1024) - lookups,
-                                                                  lookups], k
+        assert [profiling.launch_count(f) - b for f, b in zip(fns, before)] == \
+            [-(-k // 1024) - lookups, lookups], k
         _same(got, scan.shared_scan_bitsliced_tiles_plain(tiles, kt, width, N, 2))
 
 
@@ -394,10 +397,10 @@ def test_static_fold_edges_match_plain(cuda_device, k):
         keys = np.random.default_rng(k + width).integers(0, 2 << width, size=k).tolist()
         keys[: min(k, 4)] = [int(values[3]), int(values[3]), 0xFFFFFFFF, 1 << width][: min(k, 4)]
         for bo in (0, 2):
-            before = scan.shared_scan_bitsliced_static_tiles.launches
+            before = profiling.launch_count(scan.shared_scan_bitsliced_static_tiles)
             _same(scan.shared_scan_bitsliced_static_tiles(tiles, keys, width, N, bo),
                   scan.shared_scan_bitsliced_static_tiles_plain(tiles, keys, width, N, bo))
-            assert scan.shared_scan_bitsliced_static_tiles.launches == before + 1
+            assert profiling.launch_count(scan.shared_scan_bitsliced_static_tiles) == before + 1
 
 
 @pytest.mark.parametrize("width", [9, 31])
@@ -460,9 +463,9 @@ def test_dispatcher_launches_each_tier(cuda_device):
     for keys, tier, fn in cases:
         if tier is not None:
             assert scan.pick_concrete_tier(width, keys)[0] == tier
-        before = fn.launches
+        before = profiling.launch_count(fn)
         bits, counts = port.shared_scan_device(dev, keys)
-        assert fn.launches == before + 1, (keys, fn.__name__)
+        assert profiling.launch_count(fn) == before + 1, (keys, fn.__name__)
         host = scan._host_keys(keys)
         assert counts.tolist() == [int((vals == int(key)).sum()) for key in host.view(np.int32)]
         assert harness.check_shared_scan(dev, keys, vals)
@@ -474,7 +477,7 @@ def test_cuda_keys_never_reach_the_host(cuda_device, monkeypatch):
     keys = torch.tensor([3, 70, 141, 200, 262, 333, 400, 511], dtype=torch.int32,
                         device=cuda_device)
     expect = port.shared_scan_device(dev, keys.cpu())
-    before = scan.shared_scan_bitsliced_tiles.launches
+    before = profiling.launch_count(scan.shared_scan_bitsliced_tiles)
 
     def no_host(_):
         raise AssertionError("runtime keys were read on the host")
@@ -487,7 +490,7 @@ def test_cuda_keys_never_reach_the_host(cuda_device, monkeypatch):
         bits1, count1 = port.scan_device(dev, keys[3:4])
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert scan.shared_scan_bitsliced_tiles.launches == before + 1
+    assert profiling.launch_count(scan.shared_scan_bitsliced_tiles) == before + 1
     _same(bits, expect[0])
     _same(counts, expect[1])
     _same(bits1, expect[0][3])
@@ -591,9 +594,9 @@ def test_member_kernels_match_plain(cuda_device, width):
         wrapper = getattr(member, f"_member_{name}_tiles")
         plain = getattr(member, f"_member_{name}_tiles_plain")
         for bo in (0, 2):
-            before = wrapper.launches
+            before = profiling.launch_count(wrapper)
             _same(call(wrapper, tiles, bo), call(plain, tiles, bo))
-            assert wrapper.launches == before + 1, name
+            assert profiling.launch_count(wrapper) == before + 1, name
 
 
 def _operand_rows(width, kind, rows, v):
@@ -668,10 +671,10 @@ def test_member_lookup_width_switch(cuda_device, width):
     spread = rng.integers(0, 1 << width, size=200).tolist() + v[:40].tolist()
     for keys in (spread + [v[0], 1 << width, 0xFFFFFFFF], [int(v[7])], [int(v[7]) | 31]):
         for bo in (0, 2):
-            before = member._member_ortree_tiles.launches
+            before = profiling.launch_count(member._member_ortree_tiles)
             bits, count = member._member_ortree_tiles(tiles, width, N, keys, bo)
             _same((bits, count), member._member_ortree_tiles_plain(tiles, width, N, keys, bo))
-            assert member._member_ortree_tiles.launches == before + 1
+            assert profiling.launch_count(member._member_ortree_tiles) == before + 1
             if bo == 0:
                 assert int(count) == int(np.isin(v, np.asarray(keys, np.uint32)).sum())
 
@@ -727,11 +730,12 @@ def test_member_bitsliced_body_is_the_keys_lookup(cuda_device, width):
         for krows in (min(k, 32), 8):
             padded = member._pad_keys(_keys(keys, cuda_device), krows)
             for bo in (0, 2):
-                before = (member._member_bitsliced_tiles.launches,
-                          member._member_compare_tiles.launches)
+                before = (profiling.launch_count(member._member_bitsliced_tiles),
+                          profiling.launch_count(member._member_compare_tiles))
                 got = member._member_bitsliced_tiles(tiles, padded, width, N, krows, bo)
-                assert (member._member_bitsliced_tiles.launches,
-                        member._member_compare_tiles.launches) == (before[0] + 1, before[1])
+                assert (profiling.launch_count(member._member_bitsliced_tiles),
+                        profiling.launch_count(member._member_compare_tiles)) == \
+                    (before[0] + 1, before[1])
                 _same(got, member._member_bitsliced_tiles_plain(tiles, padded, width, N, krows,
                                                                 bo))
         got = member._member_bitsliced_tiles(tiles, padded, width, N, krows)
@@ -752,7 +756,7 @@ def test_member_runtime_tiers_never_reach_the_host(cuda_device, monkeypatch):
         raise AssertionError("runtime keys were read on the host")
 
     monkeypatch.setattr(member, "_host_keys", no_host)
-    before = {fn: fn.launches for _, fn in cases}
+    before = {fn: profiling.launch_count(fn) for _, fn in cases}
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")  # any device-to-host copy raises
     try:
@@ -760,7 +764,7 @@ def test_member_runtime_tiers_never_reach_the_host(cuda_device, monkeypatch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     for k, fn in cases:
-        assert fn.launches == before[fn] + 1, fn.__name__
+        assert profiling.launch_count(fn) == before[fn] + 1, fn.__name__
         _same(got[k][0], expect[k][0])
         assert int(got[k][1]) == int(expect[k][1]) == int(torch.isin(
             vals.to(torch.int64), keys[k].to(torch.int64)).sum())
@@ -778,9 +782,9 @@ def test_member_dispatcher_launches_each_host_tier(cuda_device):
     ]
     for keys, tier, fn in cases:
         assert member.member_dispatch_tier(keys, width) == tier
-        before = fn.launches
+        before = profiling.launch_count(fn)
         bits, count = port.member_scan_device(dev, keys)
-        assert fn.launches == before + 1, tier
+        assert profiling.launch_count(fn) == before + 1, tier
         expect = torch.isin(vals.to(torch.int64), torch.tensor(keys, device=cuda_device))
         _same(bits, bitvector.from_bool(expect))
         assert int(count) == int(expect.sum())
@@ -861,10 +865,10 @@ def test_aggregate_kernels_match_plain(cuda_device, wp, wm):
         for bo in (0, 2):
             for fn in (aggregate.aggregate_scan_tiles, aggregate.aggregate_bitplane_tiles,
                        aggregate.minmax_scan_tiles):
-                before = fn.launches
+                before = profiling.launch_count(fn)
                 _same(fn(ptiles, mtiles, kt, wp, wm, N, bo),
                       getattr(aggregate, f"{fn.__name__}_plain")(ptiles, mtiles, kt, wp, wm, N, bo))
-                assert fn.launches == before + 1, fn.__name__
+                assert profiling.launch_count(fn) == before + 1, fn.__name__
             _same(aggregate.aggregate_bitplane_static_tiles(ptiles, mtiles, keys, wp, wm, N, bo),
                   aggregate.aggregate_bitplane_static_tiles_plain(ptiles, mtiles, keys, wp, wm, N,
                                                                   bo))
@@ -931,11 +935,12 @@ def test_agg_lookup_every_width_matches_plain(cuda_device, wp):
         mtiles = unpack.pack_device_kernel(_values(wm, n, wm + 401, cuda_device), wm).tiles
         for ks in (keys[:1], keys[:6], keys):
             for bo in (0, 2):
-                before = aggregate.aggregate_bitplane_static_tiles.launches
+                before = profiling.launch_count(aggregate.aggregate_bitplane_static_tiles)
                 _same(aggregate.aggregate_bitplane_static_tiles(ptiles, mtiles, ks, wp, wm, n, bo),
                       aggregate.aggregate_bitplane_static_tiles_plain(ptiles, mtiles, ks, wp, wm,
                                                                       n, bo))
-                assert aggregate.aggregate_bitplane_static_tiles.launches == before + 1
+                assert profiling.launch_count(aggregate.aggregate_bitplane_static_tiles) == \
+                    before + 1
 
 
 def test_agg_lookup_contention_columns(cuda_device):
@@ -983,9 +988,9 @@ def test_agg_device_lookup_every_width_matches_plain(cuda_device, wp):
             kt = _keys(ks, cuda_device)
             for wm, mt in mtiles.items():
                 for bo in (0, 2):
-                    before = aggregate.aggregate_bitplane_tiles.launches
+                    before = profiling.launch_count(aggregate.aggregate_bitplane_tiles)
                     got = aggregate.aggregate_bitplane_tiles(ptiles, mt, kt, wp, wm, n, bo)
-                    assert aggregate.aggregate_bitplane_tiles.launches == before + 1
+                    assert profiling.launch_count(aggregate.aggregate_bitplane_tiles) == before + 1
                     _same(got, aggregate.aggregate_bitplane_tiles_plain(ptiles, mt, kt, wp, wm,
                                                                         n, bo))
                     _same(got, aggregate.aggregate_bitplane_static_tiles(ptiles, mt, ks, wp, wm,
@@ -1060,9 +1065,9 @@ def test_minmax_lookup_every_width_matches_plain(cuda_device, wp):
             kt = _keys(ks, cuda_device)
             for wm, mt in mtiles.items():
                 for bo in (0, 2):
-                    before = aggregate.minmax_scan_tiles.launches
+                    before = profiling.launch_count(aggregate.minmax_scan_tiles)
                     got = aggregate.minmax_scan_tiles(ptiles, mt, kt, wp, wm, n, bo)
-                    assert aggregate.minmax_scan_tiles.launches == before + 1
+                    assert profiling.launch_count(aggregate.minmax_scan_tiles) == before + 1
                     _same(got, aggregate.minmax_scan_tiles_plain(ptiles, mt, kt, wp, wm, n, bo))
         # the whole column against numpy (wm 20, every key)
         counts, mins, maxs = aggregate.minmax_scan_tiles(ptiles, mtiles[20], _keys(keys,
@@ -1144,18 +1149,18 @@ def test_aggregate_dispatch_launches_each_tier(cuda_device):
     ]
     p64, m64 = pv.to(torch.int64), mv.to(torch.int64)
     for keys, fn in cases:
-        before = fn.launches
+        before = profiling.launch_count(fn)
         sums, counts = port.aggregate_scan_device(pdev, mdev, keys)
-        assert fn.launches == before + 1, fn.__name__
+        assert profiling.launch_count(fn) == before + 1, fn.__name__
         host = keys.cpu() if isinstance(keys, torch.Tensor) else torch.tensor(keys)
         csums, ccounts = port.aggregate_scan_device(cpdev, cmdev, host)
         _same(sums.cpu(), csums)
         _same(counts.cpu(), ccounts)
         assert counts.tolist() == [int((p64 == int(key)).sum()) for key in host]
         assert sums.tolist() == [int(m64[p64 == int(key)].sum()) for key in host]
-    before = aggregate.minmax_scan_tiles.launches
+    before = profiling.launch_count(aggregate.minmax_scan_tiles)
     mins, maxs, counts = port.minmax_scan_device(pdev, mdev, list(range(8)))
-    assert aggregate.minmax_scan_tiles.launches == before + 1
+    assert profiling.launch_count(aggregate.minmax_scan_tiles) == before + 1
     for key in range(8):
         sel = m64[p64 == key]
         assert int(mins[key]) == int(sel.min()) and int(maxs[key]) == int(sel.max())
@@ -1199,9 +1204,9 @@ def test_masked_aggregate_over_query_on_the_card(cuda_device):
                       query.Or(query.In(gcols["status"], [1, 4, 9]),
                                query.Eq(gcols["status"], 0)))
     bits, count = query.evaluate(where)
-    before = aggregate.masked_aggregate_tiles.launches
+    before = profiling.launch_count(aggregate.masked_aggregate_tiles)
     total, count2 = port.masked_aggregate_device(gcols["revenue"], bits)
-    assert aggregate.masked_aggregate_tiles.launches == before + 1
+    assert profiling.launch_count(aggregate.masked_aggregate_tiles) == before + 1
     v = host
     expect = ((v["price"] >= 100) & (v["price"] < 400) & (v["region"] >= 2) & (v["region"] < 10)
               & (np.isin(v["status"], [1, 4, 9]) | (v["status"] == 0)))
@@ -1236,15 +1241,15 @@ def test_histogram_kernels_match_plain(cuda_device, width):
              ((1 << 32) - 3, 40)]
     for lo, k in cases:
         for bo in (0, 2):
-            before = scan.histogram_tiles.launches
+            before = profiling.launch_count(scan.histogram_tiles)
             _same(scan.histogram_tiles(tiles, _lo(lo, cuda_device), k, width, N, bo),
                   scan.histogram_tiles_plain(tiles, lo, k, width, N, bo))
-            assert scan.histogram_tiles.launches == before + 1
+            assert profiling.launch_count(scan.histogram_tiles) == before + 1
             for fn in (scan._histogram_chunked_tiles, scan._histogram_span_tiles):
-                before = fn.launches
+                before = profiling.launch_count(fn)
                 _same(fn(tiles, lo, k, width, N, bo),
                       getattr(scan, f"{fn.__name__}_plain")(tiles, lo, k, width, N, bo))
-                assert fn.launches > before, fn.__name__
+                assert profiling.launch_count(fn) > before, fn.__name__
 
 
 def test_histogram_kernels_count_every_value(cuda_device):
@@ -1305,10 +1310,10 @@ def test_chunked_histogram_one_launch_every_width(cuda_device, width):
         tiles = unpack.pack_device_kernel(values, width).tiles
         for lo, k in cases:
             for bo in (0, 2):
-                before = scan._histogram_chunked_tiles.launches
+                before = profiling.launch_count(scan._histogram_chunked_tiles)
                 _same(scan._histogram_chunked_tiles(tiles, lo, k, width, n, bo),
                       scan._histogram_chunked_tiles_plain(tiles, lo, k, width, n, bo))
-                assert scan._histogram_chunked_tiles.launches == before + 1
+                assert profiling.launch_count(scan._histogram_chunked_tiles) == before + 1
 
 
 @pytest.mark.parametrize("width", [13, 16, 20])
@@ -1327,9 +1332,9 @@ def test_domain_histogram_matches_plain(cuda_device, width):
         values[-1] = dom - 1
         tiles = unpack.pack_device_kernel(values, width).tiles
         expect = torch.bincount(values.to(torch.int64), minlength=dom)
-        before = scan._histogram_domain_tiles.launches
+        before = profiling.launch_count(scan._histogram_domain_tiles)
         _same(scan._histogram_domain_tiles(tiles, width, n), expect)
-        assert scan._histogram_domain_tiles.launches == before + 1
+        assert profiling.launch_count(scan._histogram_domain_tiles) == before + 1
         for bo in (2, 1024):
             _same(scan._histogram_domain_tiles(tiles, width, n, bo),
                   scan._histogram_domain_tiles_plain(tiles, width, n, bo))
@@ -1347,7 +1352,7 @@ def test_histogram_dispatch_launches_each_kernel(cuda_device):
              ((100, 40), scan._histogram_chunked_tiles, expect[100:140]),
              ((lo, 40), scan.histogram_tiles, expect[100:140])]
     for (lo_, k), fn, want in cases:
-        before = fn.launches
+        before = profiling.launch_count(fn)
         torch.cuda.synchronize()
         if isinstance(lo_, torch.Tensor):  # runtime lo: nothing is read on the host
             torch.cuda.set_sync_debug_mode("error")
@@ -1355,7 +1360,7 @@ def test_histogram_dispatch_launches_each_kernel(cuda_device):
             got = port.histogram_device(dev, lo_, k)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        assert fn.launches == before + 1, fn.__name__
+        assert profiling.launch_count(fn) == before + 1, fn.__name__
         _same(got, want)
 
 
@@ -1364,9 +1369,9 @@ def test_stats_on_the_card_equal_the_cpu(cuda_device):
         host = np.random.default_rng(width).integers(0, 1 << width, n).astype(np.uint32)
         gdev = port.pack_device_kernel(torch.from_numpy(host.view(np.int32)).to(cuda_device), width)
         cdev = port.layout.pack_device(host, width, device="cpu")
-        before = scan._histogram_domain_tiles.launches
+        before = profiling.launch_count(scan._histogram_domain_tiles)
         counts = port.stats.histogram_full(gdev)
-        assert scan._histogram_domain_tiles.launches == before + (width > 12)
+        assert profiling.launch_count(scan._histogram_domain_tiles) == before + (width > 12)
         np.testing.assert_array_equal(counts, np.bincount(host, minlength=1 << width))
         np.testing.assert_array_equal(counts, port.stats.histogram_full(cdev))
         assert port.stats.describe(gdev) == port.stats.describe(cdev)
@@ -1385,10 +1390,10 @@ def test_zoned_kernel_matches_plain(cuda_device, width):
     flag = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=cuda_device)
     for tb in (8, 72):
         i, f = (idx, flag) if tb == 8 else (idx[:1], flag[:1])
-        before = port.zonemap.zoned_range_tiles.launches
+        before = profiling.launch_count(port.zonemap.zoned_range_tiles)
         _same(port.zonemap.zoned_range_tiles(tiles, i, f, lo_t, hi_t, width, n, tb),
               port.zonemap.zoned_range_tiles_plain(tiles, i, f, lo_t, hi_t, width, n, tb))
-        assert port.zonemap.zoned_range_tiles.launches == before + 1
+        assert profiling.launch_count(port.zonemap.zoned_range_tiles) == before + 1
 
 
 # (idx, flag, tb) on b1 = 72: unsorted steps, a step listed twice with flag
@@ -1423,10 +1428,11 @@ def test_zoned_kernel_writes_every_word(cuda_device, width):
                          bits.data_ptr(), counts.data_ptr(), 72 * 128, tb * 128, width, n)
             _same(bits, pbits)
             _same(counts, pcounts)
-            before = port.zonemap.zoned_range_tiles.launches
+            before = profiling.launch_count(port.zonemap.zoned_range_tiles)
             none, counts = port.zonemap.zoned_range_tiles(tiles, i, f, lows, highs, width, n, tb,
                                                           False)
-            assert none is None and port.zonemap.zoned_range_tiles.launches == before + 1
+            assert none is None
+            assert profiling.launch_count(port.zonemap.zoned_range_tiles) == before + 1
             _same(counts, pcounts)
 
 
@@ -1435,16 +1441,17 @@ def test_shift_verdict_is_one_launch(cuda_device):
     want = bool((scan.run_shift_canary(base, amounts)[0] == 0).all())
     torch.cuda.synchronize()
     scan._SHIFT_SEMANTICS.clear()
-    before = (scan.shift_verdict.launches, scan.run_shift_canary.launches)
+    before = (profiling.launch_count(scan.shift_verdict),
+              profiling.launch_count(scan.run_shift_canary))
     allocated = torch.cuda.memory_stats(cuda_device).get("allocation.all.allocated", 0)
     got = scan.shift_saturates(cuda_device)
     # one launch of the verdict kernel, nothing elementwise, no tensor on the card
     assert torch.cuda.memory_stats(cuda_device).get("allocation.all.allocated", 0) == allocated
-    assert (scan.shift_verdict.launches, scan.run_shift_canary.launches) == (before[0] + 1,
-                                                                            before[1])
+    assert (profiling.launch_count(scan.shift_verdict),
+            profiling.launch_count(scan.run_shift_canary)) == (before[0] + 1, before[1])
     assert got == want == scan.shift_verdict_plain(cuda_device)
     assert scan.shift_saturates(cuda_device) == want  # cached
-    assert scan.shift_verdict.launches == before[0] + 1
+    assert profiling.launch_count(scan.shift_verdict) == before[0] + 1
 
 
 def test_refused_zoned_and_verdict_launches_raise(cuda_device):
@@ -1497,9 +1504,9 @@ def test_zone_maps_on_the_card_equal_the_cpu(cuda_device):
     # the end clusters of `host` take the zoned kernel on 2 of 9 steps
     gdev = port.pack_device_kernel(torch.from_numpy(host.view(np.int32)).to(cuda_device), width)
     gz = zm_mod.build_zonemap(gdev, zone_b1=8)
-    before = zm_mod.zoned_range_tiles.launches
+    before = profiling.launch_count(zm_mod.zoned_range_tiles)
     bits, count = zm_mod.zoned_eq_scan(gdev, gz, 7, tb=8)
-    assert zm_mod.zoned_range_tiles.launches == before + 1
+    assert profiling.launch_count(zm_mod.zoned_range_tiles) == before + 1
     _same(bits, bitvector.from_bool(torch.from_numpy(host == 7).to(cuda_device)))
 
 
@@ -1512,9 +1519,9 @@ def test_query_with_zone_maps_on_the_card(cuda_device):
             for v in (a_vals, b_vals))
     zmaps = {id(a): port.zonemap.build_zonemap(a, zone_b1=8)}
     expr = query.And(query.Range(a, 100, 120), query.Not(query.Eq(b, 7)))
-    before = scan.range_scan_tiles.launches
+    before = profiling.launch_count(scan.range_scan_tiles)
     bits, count = query.evaluate(expr, zonemaps=zmaps)
-    assert scan.range_scan_tiles.launches == before + 1
+    assert profiling.launch_count(scan.range_scan_tiles) == before + 1
     plain_bits, plain_count = query.evaluate(expr)
     _same(bits, plain_bits)
     assert int(count) == int(plain_count) == int(
@@ -1563,9 +1570,9 @@ def test_interleave_kernel_matches_plain(cuda_device, k):
     for w in (1, 257, 9000):
         bits = _rand_words((k, w), k + w, cuda_device)
         for nwords in (w * k, -(-(4 * w - 3) * k // 4)):
-            before = linear.interleave_words.launches
+            before = profiling.launch_count(linear.interleave_words)
             _same(linear.interleave_words(bits, nwords), linear.interleave_words_plain(bits, nwords))
-            assert linear.interleave_words.launches == before + 1
+            assert profiling.launch_count(linear.interleave_words) == before + 1
         wide = torch.zeros((k, w + 77), dtype=torch.int32, device=cuda_device)
         wide[:, :w] = bits
         _same(linear.interleave_words(wide[:, :w], w * k), linear.interleave_words_plain(bits, w * k))
@@ -1616,9 +1623,9 @@ def test_static_linear_fold_every_fused_k(cuda_device, width):
         keys = rng.integers(0, dom, size=k).astype(np.uint32)
         keys[1], keys[2], keys[-1] = keys[0], min(dom, 0xFFFFFFFF), 0xFFFFFFFF
         for bo in (0, 2):
-            before = scan._static_linear_tiles_impl.launches
+            before = profiling.launch_count(scan._static_linear_tiles_impl)
             got = scan._static_linear_tiles_impl(tiles, keys, width, N, bo)
-            assert scan._static_linear_tiles_impl.launches == before + 1
+            assert profiling.launch_count(scan._static_linear_tiles_impl) == before + 1
             _same(got, scan._static_linear_tiles_plain(tiles, keys, width, N, bo))
 
 
@@ -1636,9 +1643,9 @@ def test_runtime_linear_fold_every_fused_k(cuda_device, width):
         keys[1], keys[2], keys[-1] = keys[0], min(dom, 0xFFFFFFFF), 0xFFFFFFFF
         kt = _keys(keys, cuda_device)
         for bo in (0, 2):
-            before = scan._bitsliced_linear_tiles_impl.launches
+            before = profiling.launch_count(scan._bitsliced_linear_tiles_impl)
             got = scan._bitsliced_linear_tiles_impl(tiles, kt, width, N, bo)
-            assert scan._bitsliced_linear_tiles_impl.launches == before + 1
+            assert profiling.launch_count(scan._bitsliced_linear_tiles_impl) == before + 1
             _same(got, scan._bitsliced_linear_tiles_plain(tiles, kt, width, N, bo))
             _same(got, scan._static_linear_tiles_impl(tiles, keys, width, N, bo))
 
@@ -1663,7 +1670,7 @@ def test_linear_dispatch_launches_each_kernel(cuda_device):
     for keys, on_card, fn in cases:
         want = oracle.shared_scan_linear(col, keys)
         kt = _keys(keys, cuda_device) if on_card else keys
-        before = fn.launches
+        before = profiling.launch_count(fn)
         torch.cuda.synchronize()
         if on_card:  # runtime keys: nothing is read on the host
             torch.cuda.set_sync_debug_mode("error")
@@ -1672,7 +1679,8 @@ def test_linear_dispatch_launches_each_kernel(cuda_device):
             words = scan.shared_scan_linear_words_device(dev, kt) if len(keys) % 4 == 0 else None
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        assert fn.launches == before + (1 if words is None else 2), (len(keys), fn.__name__)
+        assert profiling.launch_count(fn) == before + (1 if words is None else 2), \
+            (len(keys), fn.__name__)
         _same(got, want)
         if words is not None:
             _same(words.view(torch.uint8), want)
@@ -1717,9 +1725,9 @@ def test_copy_kernel_matches_plain(cuda_device, nbytes):
     rng = np.random.default_rng(nbytes)
     src = torch.from_numpy(rng.integers(0, 256, size=nbytes, dtype=np.uint8)).to(cuda_device)
     dst = torch.zeros_like(src)
-    before = harness.memcpy.launches
+    before = profiling.launch_count(harness.memcpy)
     harness.memcpy(src, dst)
-    assert harness.memcpy.launches == before + 1
+    assert profiling.launch_count(harness.memcpy) == before + 1
     _same(dst, harness.memcpy_plain(src, torch.zeros_like(src)))
 
 
@@ -1774,9 +1782,9 @@ def test_chunked_and_dynamic_kernels_past_1024_keys(cuda_device):
     kt = _keys(((np.arange(1500) * 7) % 2100).tolist() + [0xFFFFFFFF], cuda_device)
     ref = scan.shared_scan_tiles_plain(tiles, kt, width, N)
     for fn, launches in ((scan.shared_scan_chunked_tiles, 1), (scan.shared_scan_dynamic_tiles, 2)):
-        before = fn.launches
+        before = profiling.launch_count(fn)
         _same(fn(tiles, kt, width, N), ref)
-        assert fn.launches == before + launches
+        assert profiling.launch_count(fn) == before + launches
 
 
 def test_chunked_and_dynamic_keys_never_reach_the_host(cuda_device):

@@ -17,6 +17,7 @@ from shared_simd_scan_tpu.ops import scan as jscan
 from shared_simd_scan_tpu_torch import histogram_device
 from shared_simd_scan_tpu_torch import layout as tlayout
 from shared_simd_scan_tpu_torch.ops import scan as tscan
+from shared_simd_scan_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -157,12 +158,11 @@ def test_programs_and_dispatch():
         jcounts = jscan._histogram_span_tiles_impl(jdev.tiles, lo, k, 7, N, None, True, 0)
         _same(tscan._histogram_span_tiles(tdev.tiles, lo, k, 7, N), jcounts, values, lo)
     # on CPU tensors no kernel launches
-    before = [tscan.histogram_tiles.launches, tscan._histogram_span_tiles.launches,
-              tscan._histogram_chunked_tiles.launches]
+    fns = (tscan.histogram_tiles, tscan._histogram_span_tiles, tscan._histogram_chunked_tiles)
+    before = [profiling.launch_count(f) for f in fns]
     histogram_device(tlayout.DeviceColumn(width, n, tiles))
     histogram_device(tlayout.DeviceColumn(width, n, tiles), _lo(0), 40)
-    assert [tscan.histogram_tiles.launches, tscan._histogram_span_tiles.launches,
-            tscan._histogram_chunked_tiles.launches] == before
+    assert [profiling.launch_count(f) for f in fns] == before
 
 
 @pytest.mark.parametrize("width,lo,k", [(1, 0, 2), (4, 0, 16), (7, (1 << 32) - 3, 40)])

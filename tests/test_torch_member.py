@@ -23,6 +23,7 @@ from shared_simd_scan_tpu_torch import layout as tlayout
 from shared_simd_scan_tpu_torch.ops import member as tmember
 from shared_simd_scan_tpu_torch.ops import oracle as toracle
 from shared_simd_scan_tpu_torch.ops import scan as tscan
+from shared_simd_scan_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -519,12 +520,12 @@ def test_cpu_wrappers_launch_nothing():
     _, _, tdev = _column(9, 1000, seed=2)
     fns = [getattr(tmember, f"_member_{name}_tiles") for name in (
         "compare", "chunked_compare", "window", "chunked_window", "domain", "ortree", "bitsliced")]
-    before = [f.launches for f in fns]
+    before = [profiling.launch_count(f) for f in fns]
     for keys in ([3, 70, 141, 200, 262, 333, 400, 511], [0, 2, 4, 6], list(range(10, 20))):
         tmember.member_scan_device(tdev, keys)
     for k in (4, 16, 64):
         tmember._member_keys_tiles(tdev.tiles, _t32(np.arange(k) * 7 % 512), 9, 1000)
-    assert [f.launches for f in fns] == before
+    assert [profiling.launch_count(f) for f in fns] == before
 
 
 @pytest.mark.parametrize("width", [1, 9, 31])

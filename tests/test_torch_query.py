@@ -17,6 +17,7 @@ from shared_simd_scan_tpu_torch import layout as tlayout
 from shared_simd_scan_tpu_torch import query as tq
 from shared_simd_scan_tpu_torch import zonemap as tzonemap
 from shared_simd_scan_tpu_torch.ops import member as tmember
+from shared_simd_scan_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -178,6 +179,6 @@ def test_refusals(table):
 
 def test_query_launches_nothing_on_the_cpu(table):
     fns = [tmember._member_window_tiles, tmember._member_ortree_tiles]
-    before = [f.launches for f in fns]
+    before = [profiling.launch_count(f) for f in fns]
     _check(_demo, table)
-    assert [f.launches for f in fns] == before
+    assert [profiling.launch_count(f) for f in fns] == before

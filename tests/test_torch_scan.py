@@ -18,6 +18,7 @@ from shared_simd_scan_tpu.ops import oracle as joracle
 from shared_simd_scan_tpu.ops import scan as jscan
 from shared_simd_scan_tpu_torch import layout as tlayout
 from shared_simd_scan_tpu_torch.ops import scan as tscan
+from shared_simd_scan_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -175,10 +176,11 @@ def test_shift_saturates_matches_jax_verdict():
 
 
 def test_shift_verdict_plain_matches_jax_verdict():
-    before = tscan.shift_verdict.launches
+    before = profiling.launch_count(tscan.shift_verdict)
     assert tscan.shift_verdict("cpu") == tscan.shift_verdict_plain() == jscan.shift_saturates(
         interpret=True)
-    assert tscan.shift_verdict.launches == before  # the plain version launches nothing
+    # the plain version launches nothing
+    assert profiling.launch_count(tscan.shift_verdict) == before
 
 
 @pytest.mark.parametrize("ballot", [0, 0x10, 0xFFFF])
@@ -195,11 +197,11 @@ def test_shift_verdict_launch_arguments(ballot, monkeypatch):
 
     monkeypatch.setattr(tscan._cuda, "launch", launch)
     monkeypatch.setattr(tscan, "_SHIFT_SEMANTICS", {})
-    before = tscan.shift_verdict.launches
+    before = profiling.launch_count(tscan.shift_verdict)
     assert tscan.shift_verdict("cuda:0") == (ballot == 0)
     assert tscan.shift_saturates("cuda:0") == (ballot == 0)
     assert calls == [("sss_shift_verdict", torch.device("cuda", 0), 16)] * 2
-    assert tscan.shift_verdict.launches == before + 2
+    assert profiling.launch_count(tscan.shift_verdict) == before + 2
     with pytest.raises(ValueError, match="only CUDA devices"):
         tscan.shift_verdict("meta")
 
@@ -250,10 +252,10 @@ def test_sets_of_unported_tiers_fall_to_compare_with_same_bits(keys):
     assert tscan.pick_concrete_tier(width, keys) == ref
     fn = {"windowed": tscan.windowed_scan_tiles,
           "bitsliced_static": tscan.shared_scan_bitsliced_static_tiles}[ref[0]]
-    before = fn.launches
+    before = profiling.launch_count(fn)
     jbits, jcounts = jscan.shared_scan_device(jdev, np.asarray(keys, np.uint32), interpret=True)
     tbits, tcounts = tscan.shared_scan_device(tdev, keys)
-    assert fn.launches == before  # CPU tensors take the plain version
+    assert profiling.launch_count(fn) == before  # CPU tensors take the plain version
     np.testing.assert_array_equal(_u32(tbits), np.asarray(jbits))
     np.testing.assert_array_equal(tcounts.numpy(), np.asarray(jcounts))
     pbits, pcounts = fn(tdev.tiles, keys, width, n)

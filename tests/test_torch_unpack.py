@@ -14,6 +14,7 @@ from shared_simd_scan_tpu import layout as jlayout
 from shared_simd_scan_tpu.ops import unpack as junpack
 from shared_simd_scan_tpu_torch import layout as tlayout
 from shared_simd_scan_tpu_torch.ops import unpack as tunpack
+from shared_simd_scan_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -96,7 +97,8 @@ def test_wrappers_reject_bad_tensors():
 
 
 def test_cpu_wrappers_launch_nothing():
-    before = (tunpack.unpack_tiles.launches, tunpack.pack_tiles.launches)
+    fns = (tunpack.unpack_tiles, tunpack.pack_tiles)
+    before = [profiling.launch_count(f) for f in fns]
     dev = tunpack.pack_device_kernel(torch.arange(1000, dtype=torch.int32), 10)
     tunpack.unpack_device(dev)
-    assert (tunpack.unpack_tiles.launches, tunpack.pack_tiles.launches) == before
+    assert [profiling.launch_count(f) for f in fns] == before

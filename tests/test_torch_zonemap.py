@@ -19,6 +19,7 @@ from shared_simd_scan_tpu_torch import bitvector as tbitvector
 from shared_simd_scan_tpu_torch import layout as tlayout
 from shared_simd_scan_tpu_torch import query as tq
 from shared_simd_scan_tpu_torch import zonemap as tzm
+from shared_simd_scan_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -300,12 +301,12 @@ def test_zoned_wrapper_launch_arguments(monkeypatch):
 
     for full_bits in (True, False):
         calls.clear()
-        before = tzm.zoned_range_tiles.launches
+        before = profiling.launch_count(tzm.zoned_range_tiles)
         with monkeypatch.context() as m:
             m.setattr(torch, "zeros", no_zeros)
             bits, counts = tzm.zoned_range_tiles(tiles, idx, flag, lows, highs, width, n, tb,
                                                  full_bits)
-        assert tzm.zoned_range_tiles.launches == before + 1
+        assert profiling.launch_count(tzm.zoned_range_tiles) == before + 1
         assert counts.shape == (2,) and counts.dtype == torch.int64
         ((fn, args),) = calls
         assert fn == "sss_zoned_range_scan"
