@@ -170,8 +170,23 @@ def _conj_bounds(group) -> tuple[list[DeviceColumn], np.ndarray, np.ndarray]:
             np.asarray([hi for _, _, hi in group], np.uint32))
 
 
-def _eval(expr, n: int, device, zonemaps: dict | None = None) -> torch.Tensor:
-    """-> canonical bitvector words of the subtree.
+def _combine(op, rows):
+    """Word-wise ``op`` of (bits, count) rows -> (bits, count).  A lone
+    row is returned whole (``op`` of one row is that row) with its count;
+    a real combine has none.  Span ``query.compose``."""
+    with profiling.span("query.compose"):
+        bits = op(*(b for b, _ in rows))
+    return bits, rows[0][1] if len(rows) == 1 else None
+
+
+def _eval(expr, n: int, device, zonemaps: dict | None = None):
+    """-> (canonical bitvector words of the subtree, their int64 count or
+    None).
+
+    The count is the one the kernel that wrote the words returned (the
+    fused conjunction, the member scan, the zone-pruned range scan), as
+    long as no combine changed them since; None where the planner combined
+    rows (two or more, or a NOT) or made the words itself (zeros).
 
     ``zonemaps`` maps ``id(col)`` -> :class:`zonemap.ZoneMap`: a Range/Eq
     on a mapped column scans only its pruned block span.  An And's Range
@@ -183,25 +198,23 @@ def _eval(expr, n: int, device, zonemaps: dict | None = None) -> torch.Tensor:
     have their own."""
 
     def zeros():
-        return torch.zeros((n + 31) // 32, dtype=torch.int32, device=device)
+        return torch.zeros((n + 31) // 32, dtype=torch.int32, device=device), None
 
     if isinstance(expr, Range):
         zm = (zonemaps or {}).get(id(expr.col))
         if zm is not None:
-            bits, _ = zonemap.pruned_range_scan(expr.col, zm, int(expr.lo), int(expr.hi))
-            return bits
+            return zonemap.pruned_range_scan(expr.col, zm, int(expr.lo), int(expr.hi))
         return _eval(And(expr), n, device)
     if isinstance(expr, In):
         if not expr.keys:
             return zeros()
         with profiling.span("query.plan"):
             keys = np.asarray(expr.keys, np.uint32)
-        bits, _ = member_ops.member_scan_device(expr.col, keys)
-        return bits
+        return member_ops.member_scan_device(expr.col, keys)
     if isinstance(expr, Not):
-        term = _eval(expr.term, n, device, zonemaps)
+        term, _ = _eval(expr.term, n, device, zonemaps)
         with profiling.span("query.compose"):
-            return bitvector.logical_not(term, n)
+            return bitvector.logical_not(term, n), None
     if isinstance(expr, Or):
         if not expr.terms:
             return zeros()
@@ -225,15 +238,14 @@ def _eval(expr, n: int, device, zonemaps: dict | None = None) -> torch.Tensor:
                     highs = np.asarray([hi for _, hi in g], np.uint32)
                 kbits, _ = scan_ops.range_scan_device(col, lows, highs)
                 with profiling.span("query.compose"):
-                    rows.append(bitvector.logical_or(*kbits))
+                    rows.append((bitvector.logical_or(*kbits), None))
         if not rows:
             return zeros()
-        with profiling.span("query.compose"):
-            return bitvector.logical_or(*rows)
+        return _combine(bitvector.logical_or, rows)
     if isinstance(expr, And):
         if not expr.terms:
             with profiling.span("query.compose"):
-                return bitvector.logical_not(zeros(), n)
+                return bitvector.logical_not(zeros()[0], n), None
         # every Range conjunct merges per column: intersected bounds, one
         # fused multi-column pass per group
         with profiling.span("query.plan"):
@@ -245,31 +257,25 @@ def _eval(expr, n: int, device, zonemaps: dict | None = None) -> torch.Tensor:
         if zonemaps:
             # mapped columns take their pruned scan; the rest of each group
             # stays one fused pass
-            pruned = []
             for g in chunks:
                 keep = []
                 for col, lo, hi in g:
                     if id(col) in zonemaps:
-                        pruned.append(_eval(Range(col, lo, hi), n, device, zonemaps))
+                        rows.append(_eval(Range(col, lo, hi), n, device, zonemaps))
                     else:
                         keep.append((col, lo, hi))
                 if keep:
                     with profiling.span("query.plan"):
                         cols, lows, highs = _conj_bounds(keep)
-                    bits, _ = conj_ops.conj_range_scan_device(cols, lows, highs)
-                    pruned.append(bits)
-            rows.extend(pruned)
+                    rows.append(conj_ops.conj_range_scan_device(cols, lows, highs))
             rows.extend(_eval(t, n, device, zonemaps) for t in others)
             if not rows:
                 return _eval(And(), n, device)
-            with profiling.span("query.compose"):
-                return bitvector.logical_and(*rows)
+            return _combine(bitvector.logical_and, rows)
         for cols, lows, highs in groups:
-            bits, _ = conj_ops.conj_range_scan_device(cols, lows, highs)
-            rows.append(bits)
+            rows.append(conj_ops.conj_range_scan_device(cols, lows, highs))
         rows.extend(_eval(t, n, device, zonemaps) for t in others)
-        with profiling.span("query.compose"):
-            return bitvector.logical_and(*rows)
+        return _combine(bitvector.logical_and, rows)
     raise TypeError(f"not a query expression: {expr!r}")
 
 
@@ -281,9 +287,14 @@ def evaluate(expr, zonemaps: dict | None = None) -> tuple[torch.Tensor, torch.Te
     package): Range/Eq leaves on mapped columns scan only the pruned block
     span.  Build with ``{id(col): zonemap.build_zonemap(col)}``.
 
+    The count is the one the kernel that wrote the final words returned,
+    where no combine changed them since (counter ``query.count.kernel``),
+    else :func:`bitvector.popcount` of the words (``query.count.popcount``).
+
     Span ``query.evaluate`` holds ``query.plan`` (the columns' checks, the
     grouping, the bound arrays), the leaves' operator spans,
-    ``query.compose`` (the word-wise combines) and ``query.popcount``."""
+    ``query.compose`` (the word-wise combines) and ``query.popcount`` (the
+    count step, either way)."""
     with profiling.span("query.evaluate"):
         with profiling.span("query.plan"):
             cols = _columns(expr)
@@ -293,8 +304,12 @@ def evaluate(expr, zonemaps: dict | None = None) -> tuple[torch.Tensor, torch.Te
             for c in cols:
                 if c.n != n:
                     raise ValueError(f"query columns must share n, got {c.n} != {n}")
-        bits = _eval(expr, n, cols[0].tiles.device, zonemaps)
+        bits, count = _eval(expr, n, cols[0].tiles.device, zonemaps)
         with profiling.span("query.popcount"):
+            if count is not None:
+                profiling.count("query.count.kernel")
+                return bits, count
+            profiling.count("query.count.popcount")
             return bits, bitvector.popcount(bits)
 
 

@@ -16,6 +16,8 @@ port's one span-and-counter system:
   2. ``count(name, n)`` — one counter set, read by ``counters()``:
      ``launches.<wrapper>`` (kernel launches, as each wrapper counts them),
      ``tier.<tier>`` (the shared scan's dispatch decisions),
+     ``query.count.kernel`` / ``query.count.popcount`` (where each
+     ``query.evaluate`` took its count from),
      ``cuda.builds`` (kernel libraries compiled in this process) and, read
      from ``cache_info()`` when the set is read,
      ``cache.<function>.hits`` / ``.misses`` of the dispatcher's caches.

@@ -182,3 +182,112 @@ def test_query_launches_nothing_on_the_cpu(table):
     before = [profiling.launch_count(f) for f in fns]
     _check(_demo, table)
     assert [profiling.launch_count(f) for f in fns] == before
+
+
+SORTED_N = 16 * 4096  # 16 block rows: two zones of 8, so a range in one prunes in place
+WIDE_WIDTHS = [3, 4, 5, 6, 7, 8, 9, 10, 11, 12]  # ten columns: two conjunction groups
+
+
+@pytest.fixture(scope="module")
+def routed_table(table):
+    """The table's columns, ten more for a two-group conjunction (w0-w9) and
+    a sorted 9-bit column of SORTED_N values for the zone map."""
+    values, jcols, tcols = (dict(d) for d in table)
+    rng = np.random.default_rng(11)
+    cols = [(f"w{i}", w, N) for i, w in enumerate(WIDE_WIDTHS)] + [("sorted", 9, SORTED_N)]
+    for name, width, n in cols:
+        values[name] = rng.integers(0, 1 << width, n, dtype=np.uint64).astype(np.uint32)
+        if name == "sorted":
+            values[name] = np.sort(values[name])
+        jcols[name] = jlayout.pack_device(values[name], width)
+        tcols[name] = tlayout.from_jax_numpy(width, n, np.asarray(jcols[name].tiles), "cpu")
+    return values, jcols, tcols
+
+
+def _between(x, lo, hi):
+    return (x >= lo) & (x < hi)
+
+
+# (tree, its numpy predicate, where the count comes from: the kernel that
+# wrote the words, or the popcount after a combine)
+ROUTES = {
+    "range": (lambda q, c: q.Range(c["price"], 100, 400),
+              lambda v: _between(v["price"], 100, 400), "kernel"),
+    "eq": (lambda q, c: q.Eq(c["region"], 7), lambda v: v["region"] == 7, "kernel"),
+    "flight1_and": (
+        lambda q, c: q.And(q.Range(c["price"], 50, 300), q.Range(c["region"], 1, 25),
+                           q.Eq(c["status"], 3)),
+        lambda v: _between(v["price"], 50, 300) & _between(v["region"], 1, 25)
+        & (v["status"] == 3), "kernel"),
+    "and_one_column": (
+        lambda q, c: q.And(q.Range(c["price"], 50, 300), q.Range(c["price"], 200, 400)),
+        lambda v: _between(v["price"], 200, 300), "kernel"),
+    "in_interval": (lambda q, c: q.In(c["price"], [5, 6, 7, 8]),
+                    lambda v: np.isin(v["price"], [5, 6, 7, 8]), "kernel"),
+    "in_window": (lambda q, c: q.In(c["price"], [0, 2, 4, 6]),
+                  lambda v: np.isin(v["price"], [0, 2, 4, 6]), "kernel"),
+    "in_ortree": (lambda q, c: q.In(c["price"], [3, 70, 141, 200, 262, 333, 400, 511]),
+                  lambda v: np.isin(v["price"], [3, 70, 141, 200, 262, 333, 400, 511]), "kernel"),
+    "in_compare": (lambda q, c: q.In(c["price"], [7, 450]),
+                   lambda v: np.isin(v["price"], [7, 450]), "kernel"),
+    "in_domain": (lambda q, c: q.In(c["status"], [1, 4, 9, 0, 40]),
+                  lambda v: np.isin(v["status"], [1, 4, 9, 0, 40]), "kernel"),
+    "or_one_member": (lambda q, c: q.Or(q.Eq(c["status"], 1), q.In(c["status"], [4, 9])),
+                      lambda v: np.isin(v["status"], [1, 4, 9]), "kernel"),
+    "zoned_range": (lambda q, c: q.Range(c["sorted"], 0, 40),
+                    lambda v: v["sorted"] < 40, "kernel"),
+    "zoned_no_zone": (lambda q, c: q.Range(c["sorted"], 512, 1000),
+                      lambda v: np.zeros(SORTED_N, bool), "kernel"),
+    "or_of_ranges": (
+        lambda q, c: q.Or(q.Range(c["price"], 0, 50), q.Range(c["price"], 300, 350)),
+        lambda v: (v["price"] < 50) | _between(v["price"], 300, 350), "popcount"),
+    "or_of_two_rows": (lambda q, c: q.Or(q.Eq(c["price"], 9), q.Eq(c["region"], 7)),
+                       lambda v: (v["price"] == 9) | (v["region"] == 7), "popcount"),
+    "not_conj": (
+        lambda q, c: q.Not(q.And(q.Eq(c["price"], 3), q.Eq(c["region"], 4),
+                                 q.Eq(c["status"], 5))),
+        lambda v: ~((v["price"] == 3) & (v["region"] == 4) & (v["status"] == 5)), "popcount"),
+    "two_groups": (
+        lambda q, c: q.And(*[q.Range(c[f"w{i}"], 1, (1 << w) - 1)
+                             for i, w in enumerate(WIDE_WIDTHS)]),
+        lambda v: np.logical_and.reduce([_between(v[f"w{i}"], 1, (1 << w) - 1)
+                                         for i, w in enumerate(WIDE_WIDTHS)]), "popcount"),
+    "empty_in": (lambda q, c: q.In(c["price"], []), lambda v: np.zeros(N, bool), "popcount"),
+    "empty_or": (lambda q, c: q.Or(q.Or(), q.In(c["status"], [])),
+                 lambda v: np.zeros(N, bool), "popcount"),
+    "empty_intersection": (
+        lambda q, c: q.And(q.Range(c["price"], 10, 200), q.Range(c["price"], 300, 400),
+                           q.Eq(c["region"], 3)),
+        lambda v: np.zeros(N, bool), "popcount"),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(ROUTES))
+def test_count_from_the_kernel_that_wrote_the_bits(routed_table, shape):
+    """evaluate's count is the writing kernel's where the words reach it
+    unchanged, the popcount after a combine; either way it equals the
+    popcount of the words, the JAX package's count and numpy's."""
+    build, predicate, route = ROUTES[shape]
+    values, jcols, tcols = routed_table
+    texpr = build(tq, tcols)
+    zonemaps = None
+    if shape.startswith("zoned"):
+        col = tcols["sorted"]
+        zonemaps = {id(col): tzonemap.build_zonemap(col, zone_b1=8)}
+    before = profiling.counters()
+    tbits, tcount = tq.evaluate(texpr, zonemaps=zonemaps)
+    after = profiling.counters()
+    rose = {r: after.get(f"query.count.{r}", 0) - before.get(f"query.count.{r}", 0)
+            for r in ("kernel", "popcount")}
+    assert rose == {"kernel": int(route == "kernel"), "popcount": int(route == "popcount")}
+    assert tcount.dtype == torch.int64 and tcount.ndim == 0
+    jbits, jcount = jq.evaluate(build(jq, jcols), interpret=True)
+    np.testing.assert_array_equal(tbits.numpy().view(np.uint32), np.asarray(jbits))
+    expect = predicate(values)
+    n = expect.shape[0]
+    np.testing.assert_array_equal(tbitvector.to_bool(tbits, n).numpy(), expect)
+    assert int(tcount) == int(tbitvector.popcount(tbits)) == int(jcount) == int(expect.sum())
+    if shape == "zoned_range":
+        # the pruned scan ran on its block rows in place, not the whole column
+        _, span = tzonemap.prune_span(zonemaps[id(tcols["sorted"])], 0, 40)
+        assert span * 2 <= tcols["sorted"].tiles.shape[1]
