@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --spans    # the build and the span phase alone
 
 Run from the root of the repository on a machine with a CUDA card and the
 CUDA toolkit (nvcc).  It builds the kernels of ``shared_simd_scan_tpu_torch``
@@ -143,7 +144,16 @@ from the sources in the checkout and then:
    (``bincount``, per-zone ``amin``/``amax``, the full range scan,
    ``evaluate`` without zone maps), the zoned scan also in its count form
    (``full_bits=False``); the zoned kernel launched on rows filled with -1
-   first at every width 1-31 and at full size (every word written);
+   first at every width 1-31 and at full size (every word written); then
+   the span forms of the conjunction and the masked sum (``span_phase``)
+   on flight 1's four columns at 600M rows, the date sorted: for the
+   block-row spans ``zonemap.prune_span`` gives a year, a month, a week
+   and the table's last week (the padded end), ``conj_range_scan_tiles``
+   and ``masked_aggregate_tiles`` with ``rows=``, bit-exact against their
+   plain versions with the same span and against the whole-column kernel
+   inside the span (zeros outside), and ``query.evaluate_pruned`` with
+   ``masked_aggregate_device`` equal to them, with the launch counters set
+   to 0 just before each span and read just after;
 10. holds the linear export's kernels against their plain versions at small
    ragged sizes (the interleave at k 1-1024 and the stream interleave with
    ragged M; the fused interval, static and runtime-key kernels at every k
@@ -2871,7 +2881,7 @@ def zone_phase(device, cols) -> tuple[dict, dict]:
           f"{live.nonzero()[0].tolist()})")
     want = {"Z2": {"range_scan": 1}, "Z3": {"zoned_range_scan": 1},
             "Z3c": {"zoned_range_scan": 1}, "Z4": {"range_scan": 1},
-            "Z5": {"range_scan": 1, "conj_range_scan": 1}}
+            "Z5": {"conj_range_scan": 2}}
     for name, w in want.items():
         check(ran[name] == w, f"{name}: ran {ran[name]}, the kernel its rule names")
     for name, col, key in (("Z2", "clustered", 100), ("Z3", "ends", 7), ("Z4", "price", 7)):
@@ -2891,6 +2901,91 @@ def zone_phase(device, cols) -> tuple[dict, dict]:
           f"Z5: evaluate with zone maps == without, every word and the count ({int(count)})")
     del raw
     return {"zcols": zcols, "zmaps": zmaps, "spans": spans, "live": live}, launches
+
+
+# the span phase: flight 1's columns of the date-sorted table at the cell's
+# size, and the day ranges whose pruned spans it checks
+SPAN_ROWS = 600_000_000
+SPAN_WIDTHS = {"date": 12, "quantity": 6, "discount": 4, "price": 24}
+SPAN_DAYS = {"year 1994": (731, 1096), "month 1995-03": (1155, 1186),
+             "week 1996-10": (1735, 1742), "last week": (2399, 2406)}
+
+
+def span_phase(device) -> None:
+    """The conjunction and the masked sum over the block-row spans that a
+    zone map on a sorted date column gives flight 1's ranges, at the
+    date-sorted cell's 600M rows and widths, each launch held bit-exact
+    against its plain version with the same span."""
+    import torch
+    from shared_simd_scan_tpu_torch import pack_device_kernel, query, zonemap
+    from shared_simd_scan_tpu_torch.ops import aggregate, conj
+
+    n, days = SPAN_ROWS, SPAN_WIDTHS["date"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 26)
+    cols = {}
+    for name, width in SPAN_WIDTHS.items():
+        if name == "date":  # days 0..2405 in order, as the sorted table holds them
+            raw = ((torch.arange(n, device=device) * 2406) // n).to(torch.int32)
+        else:
+            raw = torch.randint(0, 1 << width, (n,), generator=gen, device=device,
+                                dtype=torch.int32)
+        cols[name] = pack_device_kernel(raw, width)
+        del raw
+    zmap = zonemap.build_zonemap(cols["date"], zone_b1=ZONE_B1)
+    b1 = cols["date"].tiles.shape[1]
+    tiles = [cols[c].tiles for c in ("date", "quantity", "discount")]
+    widths = [SPAN_WIDTHS[c] for c in ("date", "quantity", "discount")]
+    price = cols["price"]
+    kernels = {name: fn for name, fn in wrappers().items()
+               if name in ("conj_range_scan", "masked_aggregate")}
+    print(f"span path: date {days} bits sorted, quantity, discount, price 24 bits; n {n}, "
+          f"b1 {b1}, zone_b1 {ZONE_B1}")
+    for label, (d0, d1) in SPAN_DAYS.items():
+        start, count = zonemap.prune_span(zmap, d0, d1)
+        check(0 < start + count <= b1 and (start > 0 or count < b1),
+              f"span {label}: days [{d0}, {d1}) prune to block rows [{start}, {start + count})")
+        lows, highs = [d0, 1, 4], [d1, 25, 5]
+        zero_launched(kernels.values())
+        bits, total = conj.conj_range_scan_tiles(tiles, lows, highs, widths, n,
+                                                 rows=(start, count))
+        row = bits[start : start + count]
+        got_count, got_sum = aggregate.masked_aggregate_tiles(price.tiles, row, 24, n,
+                                                              rows=(start, count))
+        torch.cuda.synchronize()
+        ran = {name: launched(fn) for name, fn in kernels.items()}
+        check(ran == {"conj_range_scan": 1, "masked_aggregate": 1},
+              f"span {label}: launches {ran}, one of each span kernel")
+        pbits, ptotal = conj.conj_range_scan_tiles_plain(
+            tiles, torch.tensor(lows), torch.tensor(highs), widths, n, rows=(start, count))
+        check(max_abs_err(bits, pbits) == 0 and int(total) == int(ptotal),
+              f"span {label}: conjunction words and count ({int(total)}) == the plain "
+              "version's over the same span")
+        full, _ = conj.conj_range_scan_tiles(tiles, lows, highs, widths, n)
+        inside = torch.zeros_like(full)
+        inside[start : start + count] = full[start : start + count]
+        check(torch.equal(bits, inside),
+              f"span {label}: the span's words == the whole-column kernel's there, zeros "
+              "elsewhere")
+        pcount, psum = aggregate.masked_aggregate_tiles_plain(price.tiles, row, 24, n,
+                                                              rows=(start, count))
+        check(int(got_count) == int(pcount) == int(total) and int(got_sum) == int(psum),
+              f"span {label}: masked sum {int(got_sum)} and count {int(got_count)} == the plain "
+              "version's over the same span")
+        expr = query.And(query.Range(cols["date"], d0, d1), query.Range(cols["quantity"], 1, 25),
+                         query.Eq(cols["discount"], 4))
+        zero_launched(kernels.values())
+        words, qcount, rows = query.evaluate_pruned(expr, {id(cols["date"]): zmap})
+        qsum, qn = aggregate.masked_aggregate_device(price, words, rows=rows)
+        torch.cuda.synchronize()
+        ran = {name: launched(fn) for name, fn in kernels.items()}
+        check(rows == (start, count) and ran == {"conj_range_scan": 1, "masked_aggregate": 1}
+              and int(qcount) == int(qn) == int(total) and int(qsum) == int(got_sum),
+              f"span {label}: evaluate_pruned and masked_aggregate_device: span {rows}, "
+              f"launches {ran}, the same count and sum")
+        del bits, row, pbits, full, inside, words
+    del cols, tiles, price
+    torch.cuda.empty_cache()
 
 
 def stats_timing_phase(device, arb, rev, zdata, stats_cols, cols, errs: dict) -> dict:
@@ -3997,6 +4092,9 @@ def main() -> int:
     torch.cuda.set_device(device)
     errs = {name: 0 for name in KERNELS}
     build_phase()
+    if sys.argv[1:] == ["--spans"]:
+        span_phase(device)
+        return 0
     canary_phase(device, errs)
     small_phase(device, errs)
     small_scan_edge_phase(device, errs)
@@ -4018,6 +4116,7 @@ def main() -> int:
     launches.update(stats_launches)
     zdata, zone_launches = zone_phase(device, cols)
     launches.update({name: zone_launches[name] for name in ZONED})
+    span_phase(device)
     small_linear_phase(device, errs)
     launches.update(linear_phase(device, dev, arb))
     times = timing_phase(device, n, dev, arb, errs)

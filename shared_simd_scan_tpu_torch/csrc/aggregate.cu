@@ -61,14 +61,14 @@ agg_compare_kernel(const uint32_t* __restrict__ ptiles, const uint32_t* __restri
 __global__ void __launch_bounds__(kThreads)
 masked_agg_kernel(const uint32_t* __restrict__ mtiles, const uint32_t* __restrict__ bits, int wm,
                   unsigned long long* __restrict__ count, unsigned long long* __restrict__ sum,
-                  long long nblocks) {
+                  long long nblocks, long long ld) {
   __shared__ unsigned s_cnt[1], s_lo[1], s_hi[1];
   zero_sums(s_cnt, s_lo, s_hi, 1);
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = b < nblocks;
   const uint32_t bw = active ? __ldg(bits + b) : 0u;
   uint32_t vm[kBlockValues];
-  unpack_block_any(wm, mtiles, nblocks, b, active, vm);
+  unpack_block_any(wm, mtiles, ld, b, active, vm);
   count_row(0, bw, s_cnt);
   unsigned long long s = 0ull;
 #pragma unroll
@@ -93,13 +93,17 @@ extern "C" int sss_agg_compare(const uint32_t* ptiles, const uint32_t* mtiles, c
   return (int)cudaGetLastError();
 }
 
-// count and sum are int64[1], zeroed by the caller.
+// count and sum are int64[1], zeroed by the caller.  Sums blocks
+// 0..nblocks-1 of measure rows of `ld` words (ld >= nblocks; ld = nblocks for
+// a whole column) over bits 0..nblocks-1: a zone map's pruned span passes
+// its first block of the measure and of the bits, read in place.
 extern "C" int sss_masked_agg(const uint32_t* mtiles, const uint32_t* bits, long long* count,
-                              long long* sum, long long nblocks, int wm, cudaStream_t stream) {
-  if (!sss::width_ok(wm)) return (int)cudaErrorInvalidValue;
+                              long long* sum, long long nblocks, long long ld, int wm,
+                              cudaStream_t stream) {
+  if (!sss::width_ok(wm) || ld < nblocks) return (int)cudaErrorInvalidValue;
   if (nblocks <= 0) return (int)cudaSuccess;
   sss::masked_agg_kernel<<<sss::grid_for(nblocks), sss::kThreads, 0, stream>>>(
       mtiles, bits, wm, reinterpret_cast<unsigned long long*>(count),
-      reinterpret_cast<unsigned long long*>(sum), nblocks);
+      reinterpret_cast<unsigned long long*>(sum), nblocks, ld);
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,12 @@
 // switch on each column's width (uniform across the grid) picks a
 // template <int W> block matcher whose unpack schedule is constant.
 // Counts as in shared_scan.cu, with one row.
+//
+// A zone map's pruned span runs here too, as in range_scan.cu: the caller
+// passes pointers to the span's first block of each column and of the bits,
+// and the columns' row length `ld` as the stride of the tiles, so the kernel
+// reads the span in place and writes into the column's full-length row
+// (zeroed by the caller).
 #include "common.cuh"
 
 namespace sss {
@@ -43,12 +49,12 @@ __device__ __forceinline__ uint32_t range_match(const uint32_t* __restrict__ til
   return acc;
 }
 
-__device__ uint32_t column_match(int width, const uint32_t* __restrict__ tiles, long long nblocks,
+__device__ uint32_t column_match(int width, const uint32_t* __restrict__ tiles, long long ld,
                                  long long b, bool active, uint32_t lo, uint32_t span) {
   switch (width) {
 #define SSS_CASE(W) \
   case W:           \
-    return range_match<W>(tiles, nblocks, b, active, lo, span);
+    return range_match<W>(tiles, ld, b, active, lo, span);
     SSS_FOR_EACH_WIDTH(SSS_CASE)
 #undef SSS_CASE
   }
@@ -57,28 +63,30 @@ __device__ uint32_t column_match(int width, const uint32_t* __restrict__ tiles, 
 
 __global__ void __launch_bounds__(kThreads)
 conj_range_kernel(const ConjColumns cols, uint32_t* __restrict__ bits,
-                  unsigned long long* __restrict__ counts, long long nblocks, long long n,
-                  long long block_offset) {
+                  unsigned long long* __restrict__ counts, long long nblocks, long long ld,
+                  long long n, long long block_offset) {
   __shared__ unsigned s_cnt[1];
   zero_counts(s_cnt, 1);
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = b < nblocks;
   uint32_t acc = active ? valid_word(block_offset + b, n) : 0u;
   for (int c = 0; c < cols.m; ++c)
-    acc &= column_match(cols.width[c], cols.tiles[c], nblocks, b, active, cols.lo[c], cols.span[c]);
-  store_row(bits, nblocks, b, active, 0, acc, s_cnt);
+    acc &= column_match(cols.width[c], cols.tiles[c], ld, b, active, cols.lo[c], cols.span[c]);
+  store_row(bits, ld, b, active, 0, acc, s_cnt);
   flush_counts(s_cnt, 1, counts);
 }
 
 }  // namespace sss
 
 // tile_ptrs, widths, lows and highs are host arrays of m entries, copied
-// into the kernel's by-value argument; every column has nblocks blocks.
+// into the kernel's by-value argument.  Scans blocks 0..nblocks-1 of rows of
+// `ld` words (ld >= nblocks; ld = nblocks for whole columns).
 extern "C" int sss_conj_range_scan(const long long* tile_ptrs, const int* widths,
                                    const uint32_t* lows, const uint32_t* highs, int m,
                                    uint32_t* bits, unsigned long long* counts, long long nblocks,
-                                   long long n, long long block_offset, cudaStream_t stream) {
-  if (m < 1 || m > sss::kMaxColumns) return (int)cudaErrorInvalidValue;
+                                   long long ld, long long n, long long block_offset,
+                                   cudaStream_t stream) {
+  if (m < 1 || m > sss::kMaxColumns || ld < nblocks) return (int)cudaErrorInvalidValue;
   sss::ConjColumns cols = {};
   cols.m = m;
   for (int c = 0; c < m; ++c) {
@@ -90,6 +98,6 @@ extern "C" int sss_conj_range_scan(const long long* tile_ptrs, const int* widths
   }
   if (nblocks <= 0) return (int)cudaSuccess;
   sss::conj_range_kernel<<<sss::grid_for(nblocks), sss::kThreads, 0, stream>>>(
-      cols, bits, counts, nblocks, n, block_offset);
+      cols, bits, counts, nblocks, ld, n, block_offset);
   return (int)cudaGetLastError();
 }

@@ -94,9 +94,9 @@ _SIGNATURES = {
     # tiles, lo (host value), k, counts, nblocks, width, n, block_offset, stream
     "sss_histogram_fold": [_vp, ctypes.c_uint32, ctypes.c_int, _vp, _ll, ctypes.c_int, _ll, _ll,
                            _vp],
-    # tile_ptrs, widths, lows, highs (host arrays of m), m, bits, counts, nblocks, n,
+    # tile_ptrs, widths, lows, highs (host arrays of m), m, bits, counts, nblocks, ld, n,
     # block_offset, stream
-    "sss_conj_range_scan": [_vp, _vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, _ll, _ll, _vp],
+    "sss_conj_range_scan": [_vp, _vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, _ll, _ll, _ll, _vp],
     # tiles, keys (or win), k (or nwin), table, size, scratch, bits, counts, nblocks, width, n,
     # block_offset, fused, stream
     "sss_member_compare": [_vp, _vp, ctypes.c_int, _vp, ctypes.c_int, _vp, _vp, _vp, _ll,
@@ -113,8 +113,8 @@ _SIGNATURES = {
     # ptiles, mtiles, keys, k, counts, sums, nblocks, wp, wm, n, block_offset, stream
     "sss_agg_compare": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, ctypes.c_int,
                         _ll, _ll, _vp],
-    # mtiles, bits, count, sum, nblocks, wm, stream
-    "sss_masked_agg": [_vp, _vp, _vp, _vp, _ll, ctypes.c_int, _vp],
+    # mtiles, bits, count, sum, nblocks, ld, wm, stream
+    "sss_masked_agg": [_vp, _vp, _vp, _vp, _ll, _ll, ctypes.c_int, _vp],
     # ptiles, mtiles, keys (a host array of k uint32, passed by value), k, counts, sums,
     # nblocks, wp, wm, n, block_offset, stream
     "sss_agg_lookup": [_vp, _vp, _vp, ctypes.c_int, _vp, _vp, _ll, ctypes.c_int, ctypes.c_int,

@@ -63,6 +63,7 @@ from shared_simd_scan_tpu_torch.ops import _cuda
 from shared_simd_scan_tpu_torch.ops.scan import (
     _CountVec,
     _bounds_tensor,
+    _check_rows,
     _host_keys,
     _real_values_plain,
     _runtime_keys,
@@ -438,11 +439,15 @@ def aggregate_bitplane_static_tiles(
 
 
 def masked_aggregate_tiles_plain(
-    mtiles: torch.Tensor, bits: torch.Tensor, wm: int, n: int
+    mtiles: torch.Tensor, bits: torch.Tensor, wm: int, n: int,
+    rows: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of :func:`masked_aggregate_tiles`, same
     algorithm: the popcount of each bitvector word and the measure values
     at its set bits, trusting that bits of values at index >= n are zero."""
+    if rows is not None:
+        start, count = _check_rows(rows, mtiles.shape[1])
+        mtiles = mtiles[:, start : start + count]
     bw, wmw = u32(bits), u32(mtiles)
     total = sum(torch.where(((bw >> r) & 1) == 1, unpack_value_plain(wmw, wm, r), 0).sum()
                 for r in range(BLOCK_VALUES))
@@ -450,24 +455,32 @@ def masked_aggregate_tiles_plain(
 
 
 def masked_aggregate_tiles(
-    mtiles: torch.Tensor, bits: torch.Tensor, wm: int, n: int
+    mtiles: torch.Tensor, bits: torch.Tensor, wm: int, n: int,
+    rows: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """COUNT and SUM of the measure column over the set bits of a
     device-layout bitvector row ``bits`` int32[B1, 128] (one word per
     block, bits at index >= n zero, as every bitvector of the package has
     them) -> (count, sum), int64 scalars.
 
+    ``rows=(start, count)`` sums block rows start..start+count-1 only (a
+    zone map's pruned span, outside which the bits are zero), the measure
+    read in place; ``bits`` is then the span's own rows int32[count, 128]
+    (:func:`bits_from_canonical` with ``rows``).
+
     Kernel ``sss_masked_agg`` (``csrc/aggregate.cu``) on CUDA tensors; the
     plain version on CPU tensors."""
     b1 = _check_tiles(mtiles, wm)
-    _cuda.check_int32("bits", bits, (b1, LANES))
+    start, nrows = (0, b1) if rows is None else _check_rows(rows, b1)
+    _cuda.check_int32("bits", bits, (nrows, LANES))
     device = _cuda.kernel_device(mtiles, bits)
     if device is None:
-        return masked_aggregate_tiles_plain(mtiles, bits, wm, n)
+        return masked_aggregate_tiles_plain(mtiles, bits, wm, n, rows)
     count = torch.zeros(1, dtype=torch.int64, device=device)
     total = torch.zeros(1, dtype=torch.int64, device=device)
-    _cuda.launch("sss_masked_agg", device, mtiles.data_ptr(), bits.data_ptr(), count.data_ptr(),
-                 total.data_ptr(), b1 * LANES, wm)
+    _cuda.launch("sss_masked_agg", device, mtiles.data_ptr() + start * LANES * 4,
+                 bits.data_ptr(), count.data_ptr(), total.data_ptr(), nrows * LANES,
+                 b1 * LANES, wm)
     profiling.count("launches.masked_aggregate_tiles")
     return count[0], total[0]
 
@@ -523,29 +536,40 @@ def minmax_scan_device(
     return mins, maxs, counts
 
 
-def bits_from_canonical(words: torch.Tensor, b1: int) -> torch.Tensor:
+def bits_from_canonical(words: torch.Tensor, b1: int,
+                        rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Canonical bitvector words -> the device-layout row int32[b1, 128],
-    zero-padded (the inverse of scan.bits_to_canonical)."""
+    zero-padded (the inverse of scan.bits_to_canonical); with
+    ``rows=(start, count)`` the span's rows int32[count, 128] alone, from
+    its words only (a view where none is padding)."""
     w = words.reshape(-1)
     if w.dtype != torch.int32:
         w = i32(w.to(torch.int64))
-    pad = b1 * LANES - w.shape[0]
-    if pad < 0:
+    if w.shape[0] > b1 * LANES:
         raise ValueError(f"{w.shape[0]} bitvector words do not fit {b1} x {LANES} blocks")
+    start, count = (0, b1) if rows is None else _check_rows(rows, b1)
+    w = w[start * LANES : (start + count) * LANES]
+    pad = count * LANES - w.shape[0]
     if pad:
         w = torch.cat([w, torch.zeros(pad, dtype=torch.int32, device=w.device)])
-    return w.reshape(b1, LANES)
+    return w.reshape(count, LANES)
 
 
 def masked_aggregate_device(
-    mdev: DeviceColumn, bits: torch.Tensor
+    mdev: DeviceColumn, bits: torch.Tensor, rows: tuple[int, int] | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """SUM and COUNT of a measure column over a match bitvector (canonical
     words, e.g. from ``query.evaluate``) -> (sum, count), int64 scalars on
-    the column's device.  Span ``agg.masked_aggregate_device``."""
+    the column's device.  ``rows=(start, count)``: a block-row span outside
+    which the bits are zero (``query.evaluate_pruned``'s), the only rows
+    read; a span of no rows reads nothing and sums to zero.  Span
+    ``agg.masked_aggregate_device``."""
     with profiling.span("agg.masked_aggregate_device"):
-        row = bits_from_canonical(bits, mdev.tiles.shape[1])
-        count, total = masked_aggregate_tiles(mdev.tiles, row, mdev.width, mdev.n)
+        if rows is not None and rows[1] == 0:
+            zero = torch.zeros(2, dtype=torch.int64, device=mdev.tiles.device)
+            return zero[0], zero[1]
+        row = bits_from_canonical(bits, mdev.tiles.shape[1], rows)
+        count, total = masked_aggregate_tiles(mdev.tiles, row, mdev.width, mdev.n, rows)
         return total, count
 
 

@@ -26,6 +26,7 @@ from shared_simd_scan_tpu_torch.ops import _cuda
 from shared_simd_scan_tpu_torch.ops.scan import (
     _U32,
     _block_values_plain,
+    _check_rows,
     _finish,
     _valid_words,
     bits_to_canonical,
@@ -67,11 +68,20 @@ def _check_columns(tiles, widths) -> int:
 
 
 def conj_range_scan_tiles_plain(
-    tiles, lows, highs, widths, n: int, block_offset: int = 0
+    tiles, lows, highs, widths, n: int, block_offset: int = 0,
+    rows: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of :func:`conj_range_scan_tiles`, same
     algorithm: per column, bit r = ``(v_r - lo) < span`` (uint32), the
     columns' words ANDed."""
+    if rows is not None:
+        start, count = _check_rows(rows, tiles[0].shape[1])
+        sub, total = conj_range_scan_tiles_plain(
+            [t[:, start : start + count] for t in tiles], lows, highs, widths, n,
+            block_offset + start * LANES)
+        bits = torch.zeros(tuple(tiles[0].shape[1:]), dtype=torch.int32, device=sub.device)
+        bits[start : start + count] = sub
+        return bits, total
     acc = None
     for t, width, lo, hi in zip(tiles, widths, lows.tolist(), highs.tolist()):
         span = hi - lo if hi > lo else 0
@@ -84,7 +94,8 @@ def conj_range_scan_tiles_plain(
 
 
 def conj_range_scan_tiles(
-    tiles, lows, highs, widths, n: int, block_offset: int = 0
+    tiles, lows, highs, widths, n: int, block_offset: int = 0,
+    rows: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """AND of m half-open ranges [lo_c, hi_c), one per column, fused.
 
@@ -93,31 +104,41 @@ def conj_range_scan_tiles(
     int32[B1, 128], count int64) with the bitvector contract of
     :func:`ops.scan.shared_scan_tiles` (LSB-first, padding masked).
 
+    ``rows=(start, count)`` scans block rows start..start+count-1 only (a
+    zone map's pruned span), with the contract of
+    :func:`ops.scan.range_scan_tiles`: the span is read in place and its
+    bits land at their rows of an otherwise zero full-length row.
+
     Kernel ``sss_conj_range_scan`` (``csrc/conj.cu``) on CUDA tiles; the
     plain version on CPU tiles."""
     tiles, widths = tuple(tiles), tuple(int(w) for w in widths)
     b1 = _check_columns(tiles, widths)
+    start, count = (0, b1) if rows is None else _check_rows(rows, b1)
     lo = _host_bounds(lows, "lows", len(widths))
     hi = _host_bounds(highs, "highs", len(widths))
     device = _cuda.kernel_device(*tiles)
     if device is None:
-        return conj_range_scan_tiles_plain(tiles, lo, hi, widths, n, block_offset)
-    bits = torch.empty((b1, LANES), dtype=torch.int32, device=device)
+        return conj_range_scan_tiles_plain(tiles, lo, hi, widths, n, block_offset, rows)
+    alloc = torch.empty if count == b1 else torch.zeros
+    bits = alloc((b1, LANES), dtype=torch.int32, device=device)
     counts = torch.zeros(1, dtype=torch.int64, device=device)
-    ptrs = np.asarray([t.data_ptr() for t in tiles], dtype=np.int64)
+    skip = start * LANES * 4  # bytes before the first scanned block of a row
+    ptrs = np.asarray([t.data_ptr() + skip for t in tiles], dtype=np.int64)
     wid = np.asarray(widths, dtype=np.int32)
     _cuda.launch(
         "sss_conj_range_scan", device, ptrs.ctypes.data, wid.ctypes.data, lo.ctypes.data,
-        hi.ctypes.data, len(widths), bits.data_ptr(), counts.data_ptr(), b1 * LANES, n,
-        block_offset,
+        hi.ctypes.data, len(widths), bits.data_ptr() + skip, counts.data_ptr(), count * LANES,
+        b1 * LANES, n, block_offset + start * LANES,
     )
     profiling.count("launches.conj_range_scan_tiles")
     return bits, counts[0]
 
 
-def conj_range_scan_device(devs, lows, highs) -> tuple[torch.Tensor, torch.Tensor]:
+def conj_range_scan_device(devs, lows, highs, rows: tuple[int, int] | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Conjunction of range predicates over same-table DeviceColumns ->
-    ((W,) canonical bitvector words, int64 match count).  Span
+    ((W,) canonical bitvector words, int64 match count); ``rows`` as
+    :func:`conj_range_scan_tiles` takes it.  Span
     ``conj.conj_range_scan_device``."""
     with profiling.span("conj.conj_range_scan_device"):
         devs = list(devs)
@@ -126,7 +147,8 @@ def conj_range_scan_device(devs, lows, highs) -> tuple[torch.Tensor, torch.Tenso
             if d.n != n:
                 raise ValueError(f"conjunction columns must share n, got {d.n} != {n}")
         bits, count = conj_range_scan_tiles(
-            tuple(d.tiles for d in devs), lows, highs, tuple(d.width for d in devs), n
+            tuple(d.tiles for d in devs), lows, highs, tuple(d.width for d in devs), n,
+            rows=rows,
         )
         return bits_to_canonical(bits, n), count
 

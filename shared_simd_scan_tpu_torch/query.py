@@ -20,8 +20,10 @@ evaluating it leaf by leaf:
 - the remaining boolean structure composes the bitvectors word-wise
   (:mod:`bitvector`);
 - with ``zonemaps``, a Range/Eq on a mapped column scans only the blocks
-  its zones allow (:func:`zonemap.pruned_range_scan`), and an And's mapped
-  columns leave its fused conjunction for that scan.
+  its zones allow (:func:`zonemap.pruned_range_scan`), and an And whose
+  groups hold mapped columns runs each group once over the intersection
+  of their pruned spans; ``evaluate_pruned`` also hands that span back, for
+  the masked aggregate to read it alone.
 
 Predicate constants are host values, which is what lets the planner pick
 tiers statically; columns are DeviceColumns of the same n.  Returns
@@ -171,50 +173,66 @@ def _conj_bounds(group) -> tuple[list[DeviceColumn], np.ndarray, np.ndarray]:
 
 
 def _combine(op, rows):
-    """Word-wise ``op`` of (bits, count) rows -> (bits, count).  A lone
-    row is returned whole (``op`` of one row is that row) with its count;
-    a real combine has none.  Span ``query.compose``."""
+    """Word-wise ``op`` of (bits, count, span) rows -> (bits, count, span).
+    A lone row is returned whole (``op`` of one row is that row) with its
+    count and span; a real combine has neither.  Span ``query.compose``."""
     with profiling.span("query.compose"):
-        bits = op(*(b for b, _ in rows))
-    return bits, rows[0][1] if len(rows) == 1 else None
+        bits = op(*(r[0] for r in rows))
+    return (bits, *rows[0][1:]) if len(rows) == 1 else (bits, None, None)
+
+
+def _mapped_bounds(chunks, zonemaps) -> list:
+    """(ZoneMap, lo, hi) of each mapped column of an And's groups."""
+    return [(zonemaps[id(c)], lo, hi) for g in chunks for c, lo, hi in g
+            if id(c) in zonemaps] if zonemaps else []
 
 
 def _eval(expr, n: int, device, zonemaps: dict | None = None):
     """-> (canonical bitvector words of the subtree, their int64 count or
-    None).
+    None, the block-row span (start, count) outside which the words are
+    zero or None).
 
     The count is the one the kernel that wrote the words returned (the
     fused conjunction, the member scan, the zone-pruned range scan), as
     long as no combine changed them since; None where the planner combined
-    rows (two or more, or a NOT) or made the words itself (zeros).
+    rows (two or more, or a NOT) or made the words itself (zeros).  The
+    span is a pruned And's (count 0 for zeros the planner made); None
+    where any row may be set.
 
-    ``zonemaps`` maps ``id(col)`` -> :class:`zonemap.ZoneMap`: a Range/Eq
-    on a mapped column scans only its pruned block span.  An And's Range
-    conjuncts merge per column first; a mapped column's merged range is
-    pruned on its own, the other columns stay in the fused conjunction.
+    ``zonemaps`` maps ``id(col)`` -> :class:`zonemap.ZoneMap`: a lone
+    Range/Eq on a mapped column scans only its pruned block span
+    (:func:`zonemap.pruned_range_scan`).  An And's Range conjuncts merge
+    per column first; where its groups hold mapped columns, their pruned
+    spans intersect (:func:`zonemap.prune_conjunction`) and every group
+    runs as one fused pass over that span alone, its count kept; spans
+    that do not meet launch nothing: zeros, count 0.
 
     Spans: ``query.plan`` around the grouping and the bound arrays,
-    ``query.compose`` around the word-wise combines; the leaves' operators
-    have their own."""
+    ``query.prune`` around the zone lookups and the span intersection,
+    ``query.compose`` around the word-wise combines; the leaves'
+    operators have their own.  Counters ``zonemap.block_rows_scanned``
+    (block rows each pruned pass reads), ``zonemap.block_rows_admitted``
+    (those of the zones every mapped column admits) and
+    ``zonemap.pruned_empty`` (prunes that launched nothing)."""
 
     def zeros():
-        return torch.zeros((n + 31) // 32, dtype=torch.int32, device=device), None
+        return torch.zeros((n + 31) // 32, dtype=torch.int32, device=device), None, (0, 0)
 
     if isinstance(expr, Range):
         zm = (zonemaps or {}).get(id(expr.col))
         if zm is not None:
-            return zonemap.pruned_range_scan(expr.col, zm, int(expr.lo), int(expr.hi))
+            return *zonemap.pruned_range_scan(expr.col, zm, int(expr.lo), int(expr.hi)), None
         return _eval(And(expr), n, device)
     if isinstance(expr, In):
         if not expr.keys:
             return zeros()
         with profiling.span("query.plan"):
             keys = np.asarray(expr.keys, np.uint32)
-        return member_ops.member_scan_device(expr.col, keys)
+        return *member_ops.member_scan_device(expr.col, keys), None
     if isinstance(expr, Not):
-        term, _ = _eval(expr.term, n, device, zonemaps)
+        term = _eval(expr.term, n, device, zonemaps)[0]
         with profiling.span("query.compose"):
-            return bitvector.logical_not(term, n), None
+            return bitvector.logical_not(term, n), None, None
     if isinstance(expr, Or):
         if not expr.terms:
             return zeros()
@@ -238,44 +256,37 @@ def _eval(expr, n: int, device, zonemaps: dict | None = None):
                     highs = np.asarray([hi for _, hi in g], np.uint32)
                 kbits, _ = scan_ops.range_scan_device(col, lows, highs)
                 with profiling.span("query.compose"):
-                    rows.append((bitvector.logical_or(*kbits), None))
+                    rows.append((bitvector.logical_or(*kbits), None, None))
         if not rows:
             return zeros()
         return _combine(bitvector.logical_or, rows)
     if isinstance(expr, And):
         if not expr.terms:
             with profiling.span("query.compose"):
-                return bitvector.logical_not(zeros()[0], n), None
+                return bitvector.logical_not(zeros()[0], n), None, None
         # every Range conjunct merges per column: intersected bounds, one
         # fused multi-column pass per group
         with profiling.span("query.plan"):
             chunks, others, empty = _group_and_terms(expr.terms)
-            groups = [] if empty or zonemaps else [_conj_bounds(g) for g in chunks]
+            groups = [] if empty else [_conj_bounds(g) for g in chunks]
         if empty:
             return zeros()
-        rows = []
-        if zonemaps:
-            # mapped columns take their pruned scan; the rest of each group
-            # stays one fused pass
-            for g in chunks:
-                keep = []
-                for col, lo, hi in g:
-                    if id(col) in zonemaps:
-                        rows.append(_eval(Range(col, lo, hi), n, device, zonemaps))
-                    else:
-                        keep.append((col, lo, hi))
-                if keep:
-                    with profiling.span("query.plan"):
-                        cols, lows, highs = _conj_bounds(keep)
-                    rows.append(conj_ops.conj_range_scan_device(cols, lows, highs))
-            rows.extend(_eval(t, n, device, zonemaps) for t in others)
-            if not rows:
-                return _eval(And(), n, device)
-            return _combine(bitvector.logical_and, rows)
-        for cols, lows, highs in groups:
-            rows.append(conj_ops.conj_range_scan_device(cols, lows, highs))
+        span = None
+        mapped = _mapped_bounds(chunks, zonemaps)
+        if mapped:
+            # the mapped columns' spans meet in one span; every group scans it
+            with profiling.span("query.prune"):
+                span, admitted = zonemap.prune_conjunction(mapped)
+            if span is None:
+                profiling.count("zonemap.pruned_empty")
+                return zeros()[0], torch.zeros((), dtype=torch.int64, device=device), (0, 0)
+            profiling.count("zonemap.block_rows_admitted", admitted)
+            profiling.count("zonemap.block_rows_scanned", span[1] * len(groups))
+        rows = [(*conj_ops.conj_range_scan_device(cols, lows, highs, rows=span), span)
+                for cols, lows, highs in groups]
         rows.extend(_eval(t, n, device, zonemaps) for t in others)
-        return _combine(bitvector.logical_and, rows)
+        bits, count, sub = _combine(bitvector.logical_and, rows)
+        return bits, count, span if mapped else sub
     raise TypeError(f"not a query expression: {expr!r}")
 
 
@@ -285,16 +296,31 @@ def evaluate(expr, zonemaps: dict | None = None) -> tuple[torch.Tensor, torch.Te
 
     ``zonemaps``: optional ``{id(col): zonemap.ZoneMap}`` (built by either
     package): Range/Eq leaves on mapped columns scan only the pruned block
-    span.  Build with ``{id(col): zonemap.build_zonemap(col)}``.
+    span, and an And whose groups hold mapped columns runs them once over
+    the intersection of their spans.  Build with ``{id(col):
+    zonemap.build_zonemap(col)}``.
 
     The count is the one the kernel that wrote the final words returned,
     where no combine changed them since (counter ``query.count.kernel``),
     else :func:`bitvector.popcount` of the words (``query.count.popcount``).
 
     Span ``query.evaluate`` holds ``query.plan`` (the columns' checks, the
-    grouping, the bound arrays), the leaves' operator spans,
+    grouping, the bound arrays), ``query.prune`` (a mapped And's zone
+    lookups and span intersection), the leaves' operator spans,
     ``query.compose`` (the word-wise combines) and ``query.popcount`` (the
     count step, either way)."""
+    bits, count, _ = evaluate_pruned(expr, zonemaps)
+    return bits, count
+
+
+def evaluate_pruned(expr, zonemaps: dict | None) -> tuple[torch.Tensor, torch.Tensor,
+                                                           tuple[int, int] | None]:
+    """:func:`evaluate` -> (canonical bitvector words, int64 count, rows):
+    ``rows`` is the block-row span (start, count) outside which every bit
+    is zero -- a mapped And's pruned span, count 0 where nothing can match
+    -- or None where any row may be set.  Hand it to
+    ``ops.aggregate.masked_aggregate_device(..., rows=rows)``, which then
+    reads that span alone."""
     with profiling.span("query.evaluate"):
         with profiling.span("query.plan"):
             cols = _columns(expr)
@@ -304,13 +330,13 @@ def evaluate(expr, zonemaps: dict | None = None) -> tuple[torch.Tensor, torch.Te
             for c in cols:
                 if c.n != n:
                     raise ValueError(f"query columns must share n, got {c.n} != {n}")
-        bits, count = _eval(expr, n, cols[0].tiles.device, zonemaps)
+        bits, count, span = _eval(expr, n, cols[0].tiles.device, zonemaps)
         with profiling.span("query.popcount"):
             if count is not None:
                 profiling.count("query.count.kernel")
-                return bits, count
+                return bits, count, span
             profiling.count("query.count.popcount")
-            return bits, bitvector.popcount(bits)
+            return bits, bitvector.popcount(bits), span
 
 
 # ---------------------------------------------------------------------------
@@ -441,10 +467,13 @@ def _member_tier_name(keys: tuple, width: int) -> str:
     return f"member:{'bit-sliced' if tier == 'bitsliced' else 'compare'}"
 
 
-def explain(expr, indent: str = "") -> str:
+def explain(expr, indent: str = "", zonemaps: dict | None = None) -> str:
     """Human-readable evaluation plan: which kernel tier each leaf or group
     dispatches to and where bitvectors are combined.  Purely static:
-    nothing runs.  The same text as the JAX package's ``explain``."""
+    nothing runs.  The same text as the JAX package's ``explain``; with
+    ``zonemaps`` (as :func:`evaluate` takes them) a mapped And also names
+    the block rows its pruned pass scans, or its zeros where no zone can
+    match."""
     if isinstance(expr, Range):
         return explain(And(expr), indent)
     if isinstance(expr, In):
@@ -454,7 +483,7 @@ def explain(expr, indent: str = "") -> str:
                 f"k={len(expr.keys)} [one pass, one bitvector]")
     if isinstance(expr, Not):
         return (f"{indent}NOT (word-wise complement, tail re-masked)\n"
-                + explain(expr.term, indent + "  "))
+                + explain(expr.term, indent + "  ", zonemaps))
     if isinstance(expr, (And, Or)):
         op = "AND" if isinstance(expr, And) else "OR"
         lines = [f"{indent}{op} (word-wise combine)"]
@@ -462,11 +491,20 @@ def explain(expr, indent: str = "") -> str:
             chunks, others, empty = _group_and_terms(expr.terms)
             if empty:
                 return f"{indent}constant: statically empty range intersection -> zeros"
+            pruned = ""
+            mapped = _mapped_bounds(chunks, zonemaps)
+            if mapped:
+                span, _ = zonemap.prune_conjunction(mapped)
+                if span is None:
+                    return f"{indent}constant: no zone admits the mapped ranges -> zeros"
+                (start, count), maps = span, len(mapped)
+                pruned = (f" over block rows [{start},{start + count}) of {mapped[0][0].b1}, "
+                          f"pruned by {maps} zone map{'s' * (maps > 1)}")
             for g in chunks:
                 spans = ", ".join(f"[{lo},{hi})" for _, lo, hi in g)
                 lines.append(f"{indent}  conj:fused-range m={len(g)} {spans} "
-                             "[one pass over all columns, one bitvector]")
-            lines.extend(explain(t, indent + "  ") for t in others)
+                             f"[one pass over all columns, one bitvector]{pruned}")
+            lines.extend(explain(t, indent + "  ", zonemaps) for t in others)
         else:
             spans_by_col, keys_by_col, others = _group_or_terms(expr.terms)
             for col, keys in keys_by_col.values():
@@ -479,9 +517,10 @@ def explain(expr, indent: str = "") -> str:
                 else:
                     lines.append(f"{indent}  range-scan k={len(spans)} ranges on one "
                                  "column [one pass, rows OR'd]")
-            lines.extend(explain(t, indent + "  ") for t in others)
+            lines.extend(explain(t, indent + "  ", zonemaps) for t in others)
         return "\n".join(lines)
     raise TypeError(f"not a query expression: {expr!r}")
 
 
-__all__ = ["Eq", "Range", "In", "And", "Or", "Not", "evaluate", "evaluate_sharded", "explain"]
+__all__ = ["Eq", "Range", "In", "And", "Or", "Not", "evaluate", "evaluate_pruned",
+           "evaluate_sharded", "explain"]

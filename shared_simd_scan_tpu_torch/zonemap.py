@@ -12,6 +12,9 @@ zones, as Netezza zone maps and Parquet column-chunk statistics do.
 - :func:`pruned_range_scan` scans the one contiguous block-row span that
   :func:`prune_span` finds, in place (``ops.scan.range_scan_tiles`` with
   ``rows``), or the whole column when the span exceeds half of it.
+- :func:`prune_conjunction` intersects the spans of an AND's mapped
+  columns (:func:`intersect_spans`), for the planner's one fused pass over
+  the intersection (``query.evaluate_pruned``).
 - :func:`zoned_range_scan` scans the live steps of :func:`zone_step_mask`
   only (:func:`zoned_range_tiles`, kernel ``sss_zoned_range_scan``: one
   call that writes the whole row, or with ``full_bits=False`` counts the
@@ -136,11 +139,14 @@ def prune_span(zmap: ZoneMap, lo: int, hi: int) -> tuple[int, int] | None:
     contain a value in [lo, hi); None when no zone can match.  start is
     8-aligned and span is a power of two >= 8 (clamped to the column), as
     in the JAX package, whose span is a compiled shape."""
-    hit = _zone_hits(zmap, lo, hi)
-    if not bool(hit.any()):
+    return _hit_span(zmap, np.flatnonzero(_zone_hits(zmap, lo, hi)))
+
+
+def _hit_span(zmap: ZoneMap, zones: np.ndarray) -> tuple[int, int] | None:
+    """:func:`prune_span` of the zones listed in ``zones`` (ascending)."""
+    if not zones.size:
         return None
-    zf = int(np.argmax(hit))
-    zl = int(len(hit) - 1 - np.argmax(hit[::-1]))
+    zf, zl = int(zones[0]), int(zones[-1])
     s = (zf * zmap.zone_b1) // 8 * 8
     need = (zl + 1) * zmap.zone_b1 - s
     span = 8
@@ -151,6 +157,55 @@ def prune_span(zmap: ZoneMap, lo: int, hi: int) -> tuple[int, int] | None:
     if s + span > zmap.b1:
         s = zmap.b1 - span
     return (s, span)
+
+
+def _admitted_rows(hits: list[tuple[ZoneMap, np.ndarray]], start: int, stop: int) -> int:
+    """Block rows in [start, stop) of the zones that every (zone map, its
+    listed zones) admits; [start, stop) holds the spans' intersection,
+    so a lone map's span holds all its zones.  Spans and zones start at
+    multiples of 8 block rows."""
+    if len(hits) == 1:
+        zmap, zones = hits[0]
+        return zones.size * zmap.zone_b1
+    live = None
+    for zmap, zones in hits:
+        hit = np.zeros(zmap.nzones, bool)
+        hit[zones] = True
+        rows = np.repeat(hit, zmap.zone_b1 // 8)
+        live = rows if live is None else live & rows
+    return 8 * int(live[start // 8 : stop // 8].sum())
+
+
+def intersect_spans(spans) -> tuple[int, int] | None:
+    """The block rows that every span (start, count) holds, as one span;
+    None where they do not meet."""
+    start = max(s for s, _ in spans)
+    stop = min(s + c for s, c in spans)
+    return (start, stop - start) if stop > start else None
+
+
+def prune_conjunction(bounds) -> tuple[tuple[int, int] | None, int]:
+    """The AND of ranges on mapped columns of one table, ``bounds`` a list
+    of (ZoneMap, lo, hi) -> (the block-row span left to scan: the
+    intersection of every column's :func:`prune_span`, None where a column
+    has no zone that can match or the spans do not meet; the block rows,
+    inside that span, of the zones that every column admits, 0 with
+    None)."""
+    b1s = {zmap.b1 for zmap, _, _ in bounds}
+    if len(b1s) != 1:
+        raise ValueError(f"zone maps of one conjunction must share b1, got {sorted(b1s)}")
+    hits, spans = [], []
+    for zmap, lo, hi in bounds:
+        zones = np.flatnonzero(_zone_hits(zmap, lo, hi))
+        sp = _hit_span(zmap, zones)
+        if sp is None:
+            return None, 0
+        hits.append((zmap, zones))
+        spans.append(sp)
+    span = intersect_spans(spans)
+    if span is None:
+        return None, 0
+    return span, _admitted_rows(hits, span[0], span[0] + span[1])
 
 
 def _no_match(dev: DeviceColumn, full_bits: bool):
@@ -174,14 +229,21 @@ def pruned_range_scan(
     Dispatch, as the JAX package's: no overlapping zone -> an all-zero
     result and no launch; a span over half the column -> the full-column
     range kernel; else the range kernel on the span's rows, in place.
-    Span ``zonemap.pruned_range_scan``."""
+    Span ``zonemap.pruned_range_scan``; counters
+    ``zonemap.block_rows_scanned`` (block rows the kernel reads),
+    ``zonemap.block_rows_admitted`` (those of the zones the map admits) and
+    ``zonemap.pruned_empty`` (a prune that launched nothing)."""
     with profiling.span("zonemap.pruned_range_scan"):
         b1 = dev.tiles.shape[1]
-        sp = prune_span(zmap, lo, hi)
+        zones = np.flatnonzero(_zone_hits(zmap, lo, hi))
+        sp = _hit_span(zmap, zones)
         if sp is None:
+            profiling.count("zonemap.pruned_empty")
             return _no_match(dev, full_bits)
         start, span = sp
         rows = None if span * 2 > b1 else (start, span)
+        profiling.count("zonemap.block_rows_scanned", b1 if rows is None else span)
+        profiling.count("zonemap.block_rows_admitted", _admitted_rows([(zmap, zones)], 0, b1))
         lows, highs = _range_bounds(lo, hi, dev.tiles.device)
         bits, counts = range_scan_tiles(dev.tiles, lows, highs, dev.width, dev.n, rows=rows)
         return (bits_to_canonical(bits, dev.n)[0] if full_bits else None), counts[0]
@@ -343,6 +405,8 @@ __all__ = [
     "build_zonemap",
     "build_zonemap_from_values",
     "prune_span",
+    "intersect_spans",
+    "prune_conjunction",
     "zone_step_mask",
     "pruned_range_scan",
     "pruned_eq_scan",

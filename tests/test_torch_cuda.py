@@ -543,6 +543,31 @@ def test_conj_kernel_matches_plain(cuda_device, widths):
                                                np.asarray(hi, np.uint32), widths, N, bo))
 
 
+SPAN_N = 40 * 128 * 32 + 17  # 5121 blocks: 48 block rows, the last 7 padding
+SPANS = [(0, 8), (16, 8), (8, 32), (40, 8), (0, 48)]  # start, middle, the padded end, whole
+
+
+@pytest.mark.parametrize("widths", CONJ_WIDTHS[1:3])
+def test_conj_kernel_span_matches_plain_and_the_whole_column(cuda_device, widths):
+    tiles, lows, highs = [], [], []
+    for i, width in enumerate(widths):
+        tiles.append(unpack.pack_device_kernel(_values(width, SPAN_N, 80 + i, cuda_device),
+                                               width).tiles)
+        lows.append((1 << width) // 8)
+        highs.append((1 << width) - (1 << width) // 6)
+    full_bits, _ = conj.conj_range_scan_tiles(tiles, lows, highs, widths, SPAN_N)
+    lo, hi = np.asarray(lows, np.uint32), np.asarray(highs, np.uint32)
+    for start, count in SPANS:
+        bits, total = conj.conj_range_scan_tiles(tiles, lows, highs, widths, SPAN_N,
+                                                 rows=(start, count))
+        _same((bits, total), conj.conj_range_scan_tiles_plain(tiles, lo, hi, widths, SPAN_N,
+                                                              rows=(start, count)))
+        want = torch.zeros_like(full_bits)
+        want[start : start + count] = full_bits[start : start + count]
+        _same(bits, want)
+        assert int(total) == int(bitvector.popcount(want.reshape(-1)))
+
+
 def _member_cases(width, values):
     """(body name, call) for every member body: call(fn, tiles, bo) runs the
     body's wrapper or plain version ``fn``."""
@@ -835,7 +860,12 @@ def test_refused_query_path_launches_raise(cuda_device):
     with pytest.raises(RuntimeError, match="sss_conj_range_scan"):
         _cuda.launch("sss_conj_range_scan", cuda_device, ptrs.ctypes.data, w.ctypes.data,
                      lo.ctypes.data, lo.ctypes.data, 9, bits.data_ptr(), counts.data_ptr(),
-                     8 * 128, 100, 0)
+                     8 * 128, 8 * 128, 100, 0)
+    with pytest.raises(RuntimeError, match="sss_conj_range_scan"):
+        # a row stride shorter than the blocks scanned
+        _cuda.launch("sss_conj_range_scan", cuda_device, ptrs.ctypes.data, w.ctypes.data,
+                     lo.ctypes.data, lo.ctypes.data, 1, bits.data_ptr(), counts.data_ptr(),
+                     8 * 128, 4 * 128, 100, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -876,6 +906,29 @@ def test_aggregate_kernels_match_plain(cuda_device, wp, wm):
     row = aggregate.bits_from_canonical(bitvector.from_bool(mask), ptiles.shape[1])
     _same(aggregate.masked_aggregate_tiles(mtiles, row, wm, N),
           aggregate.masked_aggregate_tiles_plain(mtiles, row, wm, N))
+
+
+@pytest.mark.parametrize("wm", [9, 24, 31])
+def test_masked_aggregate_span_matches_plain_and_the_whole_column(cuda_device, wm):
+    mvals = _values(wm, SPAN_N, wm + 110, cuda_device)
+    mtiles = unpack.pack_device_kernel(mvals, wm).tiles
+    mask = (_values(5, SPAN_N, 111, cuda_device) % 3) == 1
+    rows = torch.arange(SPAN_N, device=cuda_device) // (128 * 32)
+    for start, count in SPANS:
+        inside = mask & (rows >= start) & (rows < start + count)
+        words = bitvector.from_bool(inside)
+        row = aggregate.bits_from_canonical(words, mtiles.shape[1])
+        span_row = aggregate.bits_from_canonical(words, mtiles.shape[1], (start, count))
+        _same(span_row, row[start : start + count])
+        whole = aggregate.masked_aggregate_tiles(mtiles, row, wm, SPAN_N)
+        _same(aggregate.masked_aggregate_tiles(mtiles, span_row, wm, SPAN_N, (start, count)),
+              whole)
+        _same(aggregate.masked_aggregate_tiles_plain(mtiles, span_row, wm, SPAN_N,
+                                                     (start, count)), whole)
+        total, n = aggregate.masked_aggregate_device(
+            port.DeviceColumn(wm, SPAN_N, mtiles), words, rows=(start, count))
+        assert int(n) == int(inside.sum())
+        assert int(total) == int((mvals.to(torch.int64) & 0xFFFFFFFF)[inside].sum())
 
 
 def test_aggregate_sums_past_32_bits(cuda_device):
@@ -1519,13 +1572,45 @@ def test_query_with_zone_maps_on_the_card(cuda_device):
             for v in (a_vals, b_vals))
     zmaps = {id(a): port.zonemap.build_zonemap(a, zone_b1=8)}
     expr = query.And(query.Range(a, 100, 120), query.Not(query.Eq(b, 7)))
-    before = profiling.launch_count(scan.range_scan_tiles)
+    fns = (scan.range_scan_tiles, conj.conj_range_scan_tiles)
+    before = [profiling.launch_count(f) for f in fns]
     bits, count = query.evaluate(expr, zonemaps=zmaps)
-    assert profiling.launch_count(scan.range_scan_tiles) == before + 1
+    # the mapped group one conjunction over its span, the NOT's Eq one over the column
+    assert [profiling.launch_count(f) - b for f, b in zip(fns, before)] == [0, 2]
     plain_bits, plain_count = query.evaluate(expr)
     _same(bits, plain_bits)
     assert int(count) == int(plain_count) == int(
         ((a_vals >= 100) & (a_vals < 120) & (b_vals != 7)).sum())
+
+
+def test_pruned_conjunction_and_masked_sum_on_the_card(cuda_device):
+    width, n = 12, 3_000_017
+    rng = np.random.default_rng(8)
+    vals = {"date": np.sort(rng.integers(0, 2406, n)), "qty": rng.integers(1, 51, n),
+            "disc": rng.integers(0, 11, n), "price": rng.integers(90000, 1 << 24, n)}
+    widths = {"date": width, "qty": 6, "disc": 4, "price": 24}
+    cols = {k: port.pack_device_kernel(torch.from_numpy(v.astype(np.int32)).to(cuda_device),
+                                       widths[k]) for k, v in vals.items()}
+    zmaps = {id(cols["date"]): port.zonemap.build_zonemap(cols["date"], zone_b1=64)}
+    for d0, d1 in ((0, 2406), (365, 730), (700, 731), (2400, 2406), (3000, 3100)):
+        expr = query.And(query.Range(cols["date"], d0, d1), query.Range(cols["qty"], 1, 25),
+                         query.Eq(cols["disc"], 4))
+        before = profiling.counters()
+        bits, count, rows = query.evaluate_pruned(expr, zmaps)
+        total, agg_count = aggregate.masked_aggregate_device(cols["price"], bits, rows=rows)
+        after = profiling.counters()
+        rose = {k: after.get(k, 0) - before.get(k, 0) for k in (
+            "launches.conj_range_scan_tiles", "launches.masked_aggregate_tiles",
+            "query.count.popcount", "zonemap.pruned_empty")}
+        empty = d0 >= 2406
+        assert rose == {"launches.conj_range_scan_tiles": int(not empty),
+                        "launches.masked_aggregate_tiles": int(not empty),
+                        "query.count.popcount": 0, "zonemap.pruned_empty": int(empty)}
+        want = ((vals["date"] >= d0) & (vals["date"] < d1) & (vals["qty"] < 25)
+                & (vals["disc"] == 4))
+        _same(bits, bitvector.from_bool(torch.from_numpy(want).to(cuda_device)))
+        assert int(count) == int(agg_count) == int(want.sum())
+        assert int(total) == int(vals["price"][want].sum())
 
 
 def test_refused_histogram_and_zoned_launches_raise(cuda_device):
