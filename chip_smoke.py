@@ -146,7 +146,11 @@ from the sources in the checkout and then:
    (``full_bits=False``); the zoned kernel launched on rows filled with -1
    first at every width 1-31 and at full size (every word written); then
    the span forms of the conjunction and the masked sum (``span_phase``)
-   on flight 1's four columns at 600M rows, the date sorted: for the
+   on flight 1's four columns at 600M rows, the date sorted: first the
+   conjunction over the whole columns (widths 12, 6, 4) with the dates in
+   random order, as ``flight1`` stores them, bit-exact against its plain
+   version and timed beside its bound and the plain version's time, then
+   over a year's, a month's and a week's block rows; then for the
    block-row spans ``zonemap.prune_span`` gives a year, a month, a week
    and the table's last week (the padded end), ``conj_range_scan_tiles``
    and ``masked_aggregate_tiles`` with ``rows=``, bit-exact against their
@@ -2909,15 +2913,22 @@ SPAN_ROWS = 600_000_000
 SPAN_WIDTHS = {"date": 12, "quantity": 6, "discount": 4, "price": 24}
 SPAN_DAYS = {"year 1994": (731, 1096), "month 1995-03": (1155, 1186),
              "week 1996-10": (1735, 1742), "last week": (2399, 2406)}
+# the block rows a year's, a month's and a week's pruned span take (the
+# date-sorted cell's zone map of 64 block rows), timed as spans at the end
+SPAN_TIMED = (("365", 32768), ("31", 2048), ("7", 512))
 
 
 def span_phase(device) -> None:
     """The conjunction and the masked sum over the block-row spans that a
     zone map on a sorted date column gives flight 1's ranges, at the
     date-sorted cell's 600M rows and widths, each launch held bit-exact
-    against its plain version with the same span."""
+    against its plain version with the same span; before them the
+    conjunction over the whole columns (``flight1``'s shape: widths 12, 6,
+    4, the dates in random order), held bit-exact to its plain version and
+    timed beside its bound (row 22 of PERF.md's kernel table)."""
     import torch
     from shared_simd_scan_tpu_torch import pack_device_kernel, query, zonemap
+    from shared_simd_scan_tpu_torch.layout import LANES
     from shared_simd_scan_tpu_torch.ops import aggregate, conj
 
     n, days = SPAN_ROWS, SPAN_WIDTHS["date"]
@@ -2941,6 +2952,43 @@ def span_phase(device) -> None:
                if name in ("conj_range_scan", "masked_aggregate")}
     print(f"span path: date {days} bits sorted, quantity, discount, price 24 bits; n {n}, "
           f"b1 {b1}, zone_b1 {ZONE_B1}")
+
+    # flight 1's own date column: days 0..2405 in random order, as the
+    # unsorted table stores them, so a block's 32 dates differ
+    raw = torch.randint(0, 2406, (n,), generator=gen, device=device, dtype=torch.int32)
+    shuffled = [pack_device_kernel(raw, days).tiles, *tiles[1:]]
+    del raw
+    lows, highs = [731, 1, 4], [1096, 25, 5]  # Q1.1: a year, quantity < 25, discount 4
+    zero_launched(kernels.values())
+    bits, total = conj.conj_range_scan_tiles(shuffled, lows, highs, widths, n)
+    torch.cuda.synchronize()
+    ran = launched(kernels["conj_range_scan"])
+    pbits, ptotal = conj.conj_range_scan_tiles_plain(shuffled, torch.tensor(lows),
+                                                     torch.tensor(highs), widths, n)
+    check(ran == 1 and max_abs_err(bits, pbits) == 0 and int(total) == int(ptotal),
+          f"flight 1's conjunction {widths} over all {n} rows, dates in random order: "
+          f"{ran} launch, words and count ({int(total)}) == the plain version's")
+    del bits, pbits
+    # timed: the whole columns as flight 1 stores them, then the sorted
+    # columns' spans of a year, a month and a week
+    for label, count in (("whole", b1), *((f"{d} days", c) for d, c in SPAN_TIMED)):
+        rows = None if count == b1 else (b1 - count, count)
+        cols_timed = shuffled if rows is None else tiles
+        ms = time_ms(lambda: conj.conj_range_scan_tiles(cols_timed, lows, highs, widths, n,
+                                                        rows=rows), batches=5, calls=10)
+        nbytes = (sum(widths) + 1) * count * LANES * 4 + 8
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        if rows is None:
+            plain_ms = time_ms(lambda: conj.conj_range_scan_tiles_plain(
+                shuffled, torch.tensor(lows), torch.tensor(highs), widths, n), batches=3, calls=1)
+            line = (f"kernel {ms:.6f} ms, bound {bound_ms:.6f} ms for {nbytes} bytes "
+                    f"({100 * bound_ms / ms:.1f}%); plain {plain_ms:.6f} ms")
+        else:  # the call zeroes the full-length row first
+            line = (f"call {ms:.6f} ms (the row's {b1 * LANES * 4} bytes zeroed, then the "
+                    f"kernel: bound {bound_ms:.6f} ms for {nbytes} bytes)")
+        print(f"time conj_range_scan flight1 {tuple(widths)} {label} ({count} block rows of "
+              f"{b1}): {line}")
+    del shuffled
     for label, (d0, d1) in SPAN_DAYS.items():
         start, count = zonemap.prune_span(zmap, d0, d1)
         check(0 < start + count <= b1 and (start > 0 or count < b1),

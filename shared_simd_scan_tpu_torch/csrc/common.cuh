@@ -10,6 +10,7 @@
 // block, so a warp's loads and stores of one row are 32 consecutive words.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -212,6 +213,23 @@ inline unsigned grid_for(long long nblocks) {
   return (unsigned)((nblocks + kThreads - 1) / kThreads);
 }
 
+// The current device's SMs, asked of the runtime once per device (a
+// launch's grid is sized from them on every call).
+inline cudaError_t sm_count(int* sms) {
+  constexpr int kDevices = 64;
+  static std::atomic<int> known[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool cached = dev >= 0 && dev < kDevices;
+  if (cached && (*sms = known[dev].load(std::memory_order_relaxed)) > 0) return cudaSuccess;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (*sms < 1) *sms = 1;
+  if (cached) known[dev].store(*sms, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
 // Grid of a kernel whose CTAs loop over its `ntiles` tiles of blockDim.x
 // blocks (tile t, t + gridDim.x, ...): as many CTAs as the card holds at
 // once, fewer when there are fewer tiles.  Each CTA then flushes its shared
@@ -219,9 +237,8 @@ inline unsigned grid_for(long long nblocks) {
 template <typename Kernel>
 inline cudaError_t resident_grid(Kernel kernel, int threads, size_t smem, long long ntiles,
                                  unsigned* grid) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0, per_sm = 0;
+  cudaError_t err = sm_count(&sms);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return err;
@@ -382,11 +399,13 @@ inline size_t tile_ring_bytes(int width, int threads, int stages) {
 
 // The tensor map of tiles uint32[width][nblocks] with a box of [width,
 // threads], built by libcuda's cuTensorMapEncodeTiled (its entry point
-// found once through the runtime, so the library needs no -lcuda).  The TMA wants the
-// tiles 16-byte aligned (row strides, 4 nblocks bytes, are multiples of
-// 512) and coordinates below 2^31; anything else is refused.
+// found once through the runtime, so the library needs no -lcuda); rows ld
+// words apart where ld > 0 (a span of longer rows), else nblocks.  The TMA
+// wants the tiles 16-byte aligned, row strides of a multiple of 16 bytes
+// (the port's, 4 nblocks bytes, are multiples of 512) and coordinates below
+// 2^31; anything else is refused.
 inline cudaError_t tile_map(CUtensorMap* map, const uint32_t* tiles, int width, long long nblocks,
-                            int threads) {
+                            int threads, long long ld = 0) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -409,7 +428,7 @@ inline cudaError_t tile_map(CUtensorMap* map, const uint32_t* tiles, int width, 
   if (reinterpret_cast<uintptr_t>(tiles) % 16) return cudaErrorMisalignedAddress;
   if (nblocks >= (1LL << 31)) return cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {(cuuint64_t)nblocks, (cuuint64_t)width};
-  const cuuint64_t strides[1] = {(cuuint64_t)nblocks * 4};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld > 0 ? ld : nblocks) * 4};
   const cuuint32_t box[2] = {(cuuint32_t)threads, (cuuint32_t)width};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 2, const_cast<uint32_t*>(tiles),

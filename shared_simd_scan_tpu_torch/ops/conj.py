@@ -14,7 +14,9 @@ here, not a wrapped one (unlike :func:`ops.scan.range_scan_tiles`).
 (``csrc/conj.cu``) on CUDA tiles and counts it in
 ``launches.conj_range_scan_tiles`` (``utils.profiling``); on CPU tiles
 it runs :func:`conj_range_scan_tiles_plain`.  The bounds are host values:
-the kernel takes them in its by-value argument.
+the kernel takes them in its by-value argument.  The kernel reads the
+columns through the TMA, so a CUDA column must start on 16 bytes (every
+column the port allocates does); the launch raises on one that does not.
 """
 from __future__ import annotations
 

@@ -7,6 +7,8 @@ get the same columns from a numpy seed and must agree bit for bit (words
 and counts, tolerance 0).  The CUDA kernels are held against the plain
 versions in test_torch_cuda.py.
 """
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -158,6 +160,77 @@ def test_conj_refuses_what_the_kernel_cannot_take():
     b = tlayout.pack_device(np.zeros(200, np.uint32), 9, device="cpu")
     with pytest.raises(ValueError, match="share n"):
         tconj.conj_range_scan_device([a, b], [0, 0], [1, 1])
+
+
+# The kernel's compare (csrc/conj.cu), modelled in numpy: the value at the
+# top of a word above bits of the values before it, the bounds clamped to
+# 2^W and shifted up the same way, and the carry of (lo - 1 - x) + span; a
+# range that holds every W-bit value is not compared.  It must give the
+# wrappers' semantics, (v - lo) mod 2^32 < span with span 0 for hi <= lo.
+COMPARE_WIDTHS = [1, 2, 4, 6, 9, 12, 16, 17, 24, 31]
+
+
+def _kernel_compare(values, width, lo, hi, below):
+    dom, k = 1 << width, 32 - width
+    lo_c, hi_c = min(lo, dom), min(hi, dom)
+    if lo_c == 0 and hi_c == dom:
+        return np.ones(values.shape, bool)
+    lo_t, span_t = (lo_c << k, (hi_c - lo_c) << k) if hi_c > lo_c else (0, 0)
+    x = (values.astype(np.uint64) << np.uint64(k)) | (below & np.uint64((1 << k) - 1))
+    a = (np.uint64(lo_t + 0xFFFFFFFF) - x) & np.uint64(0xFFFFFFFF)  # lo - 1 - x mod 2^32
+    return (a + np.uint64(span_t)) >> np.uint64(32) == 1
+
+
+@pytest.mark.parametrize("width", COMPARE_WIDTHS)
+def test_kernel_compare_gives_the_range_semantics(width):
+    rng = np.random.default_rng(width)
+    dom = 1 << width
+    if width <= 12:
+        values = np.arange(dom, dtype=np.uint64)
+    else:
+        values = np.concatenate([rng.integers(0, dom, 4000, dtype=np.uint64),
+                                 np.array([0, 1, dom - 2, dom - 1], np.uint64)])
+    below = rng.integers(0, 1 << 32, values.shape, dtype=np.uint64)
+    edges = [0, 1, dom // 3, dom - 1, dom, dom + 5, 0xFFFFFFFF]
+    bounds = [(lo, hi) for lo in edges for hi in edges]
+    bounds += [tuple(int(b) for b in rng.integers(0, dom, 2)) for _ in range(40)]
+    for lo, hi in bounds:
+        span = hi - lo if hi > lo else 0
+        want = ((values - np.uint64(lo)) & np.uint64(0xFFFFFFFF)) < np.uint64(span)
+        got = _kernel_compare(values, width, lo, hi, below)
+        np.testing.assert_array_equal(got, want, err_msg=f"width {width}, [{lo}, {hi})")
+
+
+def test_launch_reads_a_span_in_place_and_counts_one_launch(monkeypatch):
+    """The wrapper's launch arguments, with the launch recorded instead of
+    made: a whole column from its first block, a span from its first block
+    row with the columns' full row length as the stride and the bits row
+    zeroed around it; one launch counted either way."""
+    calls = []
+
+    def launch(fn, device, *args):  # the column pointers read while their array lives
+        calls.append((list(np.frombuffer(ctypes.string_at(args[0], 3 * 8), np.int64)), args))
+
+    monkeypatch.setattr(tconj._cuda, "kernel_device", lambda *ts: torch.device("cpu"))
+    monkeypatch.setattr(tconj._cuda, "launch", launch)
+    cols = [_column(w, N, seed=30 + w)[2] for w in (12, 6, 4)]
+    tiles = tuple(c.tiles for c in cols)
+    b1 = tiles[0].shape[1]
+
+    def run(rows=None):
+        before = profiling.counters().get("launches.conj_range_scan_tiles", 0)
+        bits, _ = tconj.conj_range_scan_tiles(tiles, [1, 2, 3], [900, 40, 9], (12, 6, 4), N,
+                                              rows=rows)
+        assert profiling.counters()["launches.conj_range_scan_tiles"] == before + 1
+        return bits, calls[-1]
+
+    _, (ptrs, args) = run()
+    assert ptrs == [t.data_ptr() for t in tiles] and args[4] == 3
+    assert args[7:11] == (b1 * tlayout.LANES, b1 * tlayout.LANES, N, 0)
+    bits, (ptrs, args) = run(rows=(1, 1))
+    assert ptrs == [t.data_ptr() + tlayout.LANES * 4 for t in tiles]
+    assert args[5] == bits.data_ptr() + tlayout.LANES * 4 and not bits.any()
+    assert args[7:11] == (tlayout.LANES, b1 * tlayout.LANES, N, tlayout.LANES)
 
 
 def test_cpu_wrappers_launch_nothing():

@@ -523,7 +523,12 @@ def test_range_scan_kernel_matches_plain(cuda_device, width):
     assert int(scan.range_scan_tiles(tiles, lo_t, hi_t, width, N)[1][1]) == int(ref.sum())
 
 
-CONJ_WIDTHS = [(9,), (1, 31), (2, 16, 17), (1, 2, 9, 16, 17, 31, 5, 12)]
+# a stage of the staged kernel's ring holds sum(widths) words a block: up to
+# 56 in tiles of 256 blocks (flight 1's 22), up to 112 in tiles of 128 (the
+# eight mixed widths' 93), past that in tiles of 64 (113, and 248 for eight
+# 31-bit columns)
+CONJ_WIDTHS = [(9,), (1, 31), (2, 16, 17), (1, 2, 9, 16, 17, 31, 5, 12), (12, 6, 4),
+               (31,) * 8, (31, 31, 31, 20)]
 
 
 @pytest.mark.parametrize("widths", CONJ_WIDTHS)
@@ -545,9 +550,12 @@ def test_conj_kernel_matches_plain(cuda_device, widths):
 
 SPAN_N = 40 * 128 * 32 + 17  # 5121 blocks: 48 block rows, the last 7 padding
 SPANS = [(0, 8), (16, 8), (8, 32), (40, 8), (0, 48)]  # start, middle, the padded end, whole
+# one block row: fewer blocks than one tile of the staged conjunction, so
+# less than one run; in the middle and at the padded end
+SMALL_SPANS = [(21, 1), (47, 1)]
 
 
-@pytest.mark.parametrize("widths", CONJ_WIDTHS[1:3])
+@pytest.mark.parametrize("widths", CONJ_WIDTHS[1:3] + CONJ_WIDTHS[4:])
 def test_conj_kernel_span_matches_plain_and_the_whole_column(cuda_device, widths):
     tiles, lows, highs = [], [], []
     for i, width in enumerate(widths):
@@ -557,7 +565,7 @@ def test_conj_kernel_span_matches_plain_and_the_whole_column(cuda_device, widths
         highs.append((1 << width) - (1 << width) // 6)
     full_bits, _ = conj.conj_range_scan_tiles(tiles, lows, highs, widths, SPAN_N)
     lo, hi = np.asarray(lows, np.uint32), np.asarray(highs, np.uint32)
-    for start, count in SPANS:
+    for start, count in SPANS + SMALL_SPANS:
         bits, total = conj.conj_range_scan_tiles(tiles, lows, highs, widths, SPAN_N,
                                                  rows=(start, count))
         _same((bits, total), conj.conj_range_scan_tiles_plain(tiles, lo, hi, widths, SPAN_N,
@@ -566,6 +574,38 @@ def test_conj_kernel_span_matches_plain_and_the_whole_column(cuda_device, widths
         want[start : start + count] = full_bits[start : start + count]
         _same(bits, want)
         assert int(total) == int(bitvector.popcount(want.reshape(-1)))
+
+
+def _conj_columns(widths, n, seed, device):
+    tiles, lows, highs = [], [], []
+    for i, width in enumerate(widths):
+        tiles.append(unpack.pack_device_kernel(_values(width, n, seed + i, device), width).tiles)
+        dom = 1 << width
+        lows.append(dom // 7)
+        highs.append(dom - dom // 3)
+    return tiles, lows, highs
+
+
+def _conj_launches(fn):
+    """fn()'s result, and how many conjunction launches it counted."""
+    before = profiling.counters().get("launches.conj_range_scan_tiles", 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, profiling.counters().get("launches.conj_range_scan_tiles", 0) - before
+
+
+def test_conj_kernel_runs_of_tiles_and_a_ragged_tile(cuda_device):
+    # flight 1's widths over 1171 block rows: 149,888 blocks, 585 tiles of
+    # 256 and one of 128, taken by CTAs in runs; the last 1000 values padding
+    widths, n = (12, 6, 4), 1171 * 128 * 32 - 1000
+    tiles, lows, highs = _conj_columns(widths, n, 120, cuda_device)
+    lo, hi = np.asarray(lows, np.uint32), np.asarray(highs, np.uint32)
+    for bo in (0, 3):
+        (bits, total), launches = _conj_launches(
+            lambda: conj.conj_range_scan_tiles(tiles, lows, highs, widths, n, bo))
+        assert launches == 1
+        _same((bits, total), conj.conj_range_scan_tiles_plain(tiles, lo, hi, widths, n, bo))
+        assert int(total) == int(bitvector.popcount(bits.reshape(-1)))
 
 
 def _member_cases(width, values):
@@ -866,6 +906,12 @@ def test_refused_query_path_launches_raise(cuda_device):
         _cuda.launch("sss_conj_range_scan", cuda_device, ptrs.ctypes.data, w.ctypes.data,
                      lo.ctypes.data, lo.ctypes.data, 1, bits.data_ptr(), counts.data_ptr(),
                      8 * 128, 4 * 128, 100, 0)
+    with pytest.raises(RuntimeError, match="sss_conj_range_scan"):
+        # a column off 16 bytes: the TMA's refusal
+        odd = np.full(1, tiles.data_ptr() + 4, np.int64)
+        _cuda.launch("sss_conj_range_scan", cuda_device, odd.ctypes.data, w.ctypes.data,
+                     lo.ctypes.data, lo.ctypes.data, 1, bits.data_ptr(), counts.data_ptr(),
+                     4 * 128, 8 * 128, 100, 0)
 
 
 # ---------------------------------------------------------------------------
