@@ -25,9 +25,9 @@ from the sources in the checkout and then:
    column of two and a half tiles (the interval kernel gateless and gated
    at k 1-1024 with lo 0, 2^w - 4 and 2^32 - 3; the compare wrapper at k
    1-1025 with key 0 over the padding, duplicates, 2^w, 2^31 and
-   0xFFFFFFFF, and on both sides of ``scan._compare_fold_wins`` the
-   compare kernel and the bit-sliced tier's launch; block_offset 0 and 3;
-   the wrapper's launches by kernel);
+   0xFFFFFFFF, and on both sides of the route ``scan.pick_route`` the
+   compare kernel and the plane fold; block_offset 0 and 3; the wrapper's
+   launches by kernel);
 4. drives the main path at full size — a 9-bit column of 512 MiB packed:
    ``pack_device_kernel`` -> ``shared_scan_device`` keys 0..7 (interval
    kernel) -> ``scan_device(3)`` (compare kernel) -> ``unpack_device`` —
@@ -37,15 +37,14 @@ from the sources in the checkout and then:
    the unpacked values against the input;
 5. drives the arbitrary-key path at full size — a second 9-bit column of
    512 MiB packed with values ``i % 512``: ``shared_scan_device`` on spread
-   sets (static tier: the plane fold), clustered sets (windowed tier: the
-   plane fold below 64 keys, else a window lookup a value) and the spread
-   sets as CUDA tensors (runtime tier: the plane fold on the key tensor),
-   then ``windowed_scan_tiles`` on 64 keys (one launch of the window
-   lookup) — with the launch counters set to 0 just before and
-   read just after (each wrapper counts in its launch loop: the windowed
-   tier's fold under the static tier's counter, the runtime tier's lookup
-   under the dynamic scan's), and checks that each tier
-   ``pick_concrete_tier`` names is the kernel that ran, the counts against their closed form, and
+   and clustered host key sets and the spread sets as CUDA tensors (each
+   the kernel ``scan.pick_route`` names for its k: the plane fold at these
+   k), then ``shared_scan_bitsliced_static_tiles`` on 8 keys and
+   ``windowed_scan_tiles`` on 64 keys (one launch each of the fold and the
+   window lookup) — with the launch counters set to 0 just before and
+   read just after (each wrapper counts in its launch loop, the route's
+   fold under the bit-sliced tier's counter), and checks that each set ran
+   the kernel the route names, the counts against their closed form, and
    ``check_shared_scan`` for every set; before it, the windowed and runtime
    tiers' edges at small ragged sizes (the window lookup at widths 1, 5,
    12, 13, 17, 18 and 31, each side of its direct table and its search, k
@@ -220,7 +219,7 @@ from the sources in the checkout and then:
     data-sheet memory rate;
 14. times the compare wrapper on k = 1 and on S8, S64 and S256 of the
     ``i % 512`` column as CUDA keys (the compare kernel, or from
-    ``scan._compare_fold_wins`` the bit-sliced tier's launch) and the
+    the kernel ``scan.pick_route`` names) and the
     interval kernel on keys 0..63 and 0..1023 of the main path's column,
     each with its launches by kernel, its counts against the closed form
     and its bits against the plain version, beside its bound and the
@@ -308,8 +307,7 @@ KERNELS = {  # name -> (source, its C entry point, TPU kernel it replaces)
     # the verdict (one launch, one sync); its elementwise form, CANARY_ELEMENTWISE
     "shift_canary": ("shared_simd_scan_tpu_torch/csrc/interval_scan.cu", "sss_shift_verdict",
                      "shared_simd_scan_tpu/ops/scan.py:1336"),
-    # the runtime keys through the static fold's body (RUNTIME_LOOKUP where
-    # scan._runtime_lookup_wins picks it)
+    # the runtime keys through the static fold's body
     "bitsliced_scan": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu", "sss_bitsliced_static_fold",
                        "shared_simd_scan_tpu/ops/scan.py:2357"),
     "bitsliced_static_scan": ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu",
@@ -382,18 +380,15 @@ KERNELS = {  # name -> (source, its C entry point, TPU kernel it replaces)
 CANARY_ELEMENTWISE = ("shared_simd_scan_tpu_torch/csrc/interval_scan.cu", "sss_shift_canary")
 # the other kernel of the histogram_dag entry: (source, C entry point)
 FOLD_KERNEL = ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu", "sss_histogram_fold")
-# the kernel the runtime tier launches where scan._runtime_lookup_wins says so
-# (counted by the shared_scan_dynamic entry), and the one the windowed tier
-# runs below scan.WINDOW_LOOKUP_KEYS host keys (counted by the
-# bitsliced_static_scan entry): (source, C entry point)
+# the kernel the route launches where scan.pick_route names the lookup
+# (counted by the shared_scan_dynamic entry): (source, C entry point)
 RUNTIME_LOOKUP = ("shared_simd_scan_tpu_torch/csrc/shared_scan.cu", "sss_shared_scan_dynamic")
-WINDOW_FOLD = ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu", "sss_bitsliced_static_fold")
 # the kernels also timed on S64 of a 20-bit i % 512 column (the lookup's
 # search past width 16; the static fold's 20 planes)
 WIDTH20 = ("bitsliced_static_scan", "member_ortree")
-# the kernels of the arbitrary-key path, and the tier each one serves
-ARBITRARY = {"bitsliced_static_scan": "bitsliced_static", "windowed_scan": "windowed",
-             "bitsliced_scan": None}
+# the kernels of the arbitrary-key path: the fold on host keys, the window
+# lookup, and the fold on a key tensor (the route's "fold")
+ARBITRARY = ("bitsliced_static_scan", "windowed_scan", "bitsliced_scan")
 # the edges of the window lookup (its direct window table up to width 17, the
 # search past it; k around a pass of 64 rows and a launch of 1024 rows) and
 # of the runtime tier
@@ -460,9 +455,9 @@ SCAN_EDGE_N = 5 * 128 * 32 - 7  # two and a half tiles of 256 blocks
 INTERVAL_EDGE_KS = (1, 7, 8, 9, 31, 32, 33, 1024)
 COMPARE_EDGE_KS = (1, 2, 3, 4, 5, 8, 32, 33, 64, 1024, 1025)
 # the timing of the two scan kernels: the compare wrapper on CUDA keys of
-# the i % 512 column (the compare kernel, or from scan._compare_fold_wins
-# the bit-sliced tier's launch, COMPARE_ROUTE), the interval kernel on keys
-# 0..k-1 of the main path's column; each beside the staged fold
+# the i % 512 column (the kernel scan.pick_route names: the compare kernel,
+# or COMPARE_ROUTE, the fold), the interval kernel on keys 0..k-1 of the
+# main path's column; each beside the staged fold
 COMPARE_TIMED = ("S8", "S64", "S256")
 INTERVAL_TIMED = (64, 1024)
 COMPARE_ROUTE = ("shared_simd_scan_tpu_torch/csrc/bitsliced.cu", "sss_bitsliced_static_fold")
@@ -576,7 +571,7 @@ def build_phase() -> float:
     print(f"build: {seconds:.1f} s ({_cuda.library_path().name})")
     for name, (_, c_entry, _) in KERNELS.items():
         check(c_entry in _cuda._SIGNATURES, f"{name}: its entry point {c_entry} is in the library")
-    for other in (FOLD_KERNEL, RUNTIME_LOOKUP, WINDOW_FOLD, COMPARE_ROUTE, CANARY_ELEMENTWISE):
+    for other in (FOLD_KERNEL, RUNTIME_LOOKUP, COMPARE_ROUTE, CANARY_ELEMENTWISE):
         check(other[1] in _cuda._SIGNATURES, f"{other[1]} is in the library")
     log_path = _cuda.BUILD_DIR / "ptxas.log"
     log_path.write_text(_cuda.build_log)
@@ -712,17 +707,15 @@ def small_phase(device, errs: dict) -> None:
 
 def compare_launches(width: int, k: int) -> dict:
     """The launches of ``shared_scan_tiles`` on k keys, by kernel entry: one
-    a group of 1024 keys, the compare kernel where scan._compare_fold_wins
-    keeps it, else the bit-sliced tier's launch (the fold under
-    bitsliced_scan, the dynamic scan's lookup under shared_scan_dynamic)."""
+    a group of 1024 keys, of the kernel scan.pick_route names (the compare
+    kernel under shared_scan, the fold under bitsliced_scan, the dynamic
+    scan's lookup under shared_scan_dynamic)."""
     from shared_simd_scan_tpu_torch.ops import scan
 
+    entry = {"compare": "shared_scan", "fold": "bitsliced_scan", "lookup": "shared_scan_dynamic"}
     out = {}
     for g0 in range(0, k, scan.MAX_LAUNCH_KEYS):
-        rows = min(k - g0, scan.MAX_LAUNCH_KEYS)
-        name = ("shared_scan" if not scan._compare_fold_wins(width, rows) else
-                "shared_scan_dynamic" if scan._runtime_lookup_wins(width, rows) else
-                "bitsliced_scan")
+        name = entry[scan.pick_route(width, min(k - g0, scan.MAX_LAUNCH_KEYS))]
         out[name] = out.get(name, 0) + 1
     return out
 
@@ -759,9 +752,9 @@ def small_scan_edge_phase(device, errs: dict) -> None:
     interval kernel (its C entry, gateless and gated, and the wrapper) at k
     INTERVAL_EDGE_KS with lo 0, 2^w - 4 and 2^32 - 3; the compare wrapper
     at k COMPARE_EDGE_KS with key 0 over the padding, a duplicate, 2^w,
-    2^31 and 0xFFFFFFFF, and on both sides of scan._compare_fold_wins the
-    compare kernel's C entry and the bit-sliced tier's launch; each with
-    block_offset 0 and 3, and the wrapper's launches by kernel."""
+    2^31 and 0xFFFFFFFF, and on both sides of scan.pick_route the compare
+    kernel's C entry and the fold; each with block_offset 0 and 3, and the
+    wrapper's launches by kernel."""
     import numpy as np
     import torch
     from shared_simd_scan_tpu_torch.layout import LANES
@@ -807,7 +800,7 @@ def small_scan_edge_phase(device, errs: dict) -> None:
                 a = scan.shared_scan_tiles(tiles, kt, width, n, bo)
                 if ran_kernels(before) != compare_launches(width, k):
                     check(False, f"compare w={width} k={k}: ran {ran_kernels(before)}, not "
-                          f"{compare_launches(width, k)} as scan._compare_fold_wins names")
+                          f"{compare_launches(width, k)} as scan.pick_route names")
                 e = max(err(a, p), err(entry("sss_shared_scan", tiles, kt.data_ptr(), k, width, bo),
                                        p),
                         err(scan.shared_scan_bitsliced_tiles(tiles, kt, width, n, bo), p))
@@ -817,9 +810,9 @@ def small_scan_edge_phase(device, errs: dict) -> None:
           f"widths 1-31, k {INTERVAL_EDGE_KS}, lo 0, 2^w - 4 and 2^32 - 3, gateless and gated, "
           f"n {n}, block_offset 0 and 3")
     check(errs["shared_scan"] == 0, f"shared_scan (the wrapper, the compare kernel and the "
-          f"bit-sliced launch) bit-exact against the plain compare at widths 1-31, k "
+          f"fold) bit-exact against the plain compare at widths 1-31, k "
           f"{COMPARE_EDGE_KS}, key 0 over padding, duplicates, 2^w, 2^31, 0xFFFFFFFF, "
-          f"block_offset 0 and 3; each launch the kernel scan._compare_fold_wins names")
+          f"block_offset 0 and 3; each launch the kernel scan.pick_route names")
     print(f"interval and compare edge phase ran in {time.monotonic() - t0:.1f} s")
 
 
@@ -865,24 +858,16 @@ def small_window_phase(device, errs: dict) -> None:
                 arr = np.asarray(keys, np.uint32)
                 for bo in (0, 3):
                     p = scan.shared_scan_tiles_plain(tiles, kt, width, n, bo)
-                    # the window lookup at every k, and the tier (the fold below
-                    # WINDOW_LOOKUP_KEYS keys); each wrapper counts in its launch loop
+                    # the window lookup at every k; each wrapper counts in its launch loop
                     before = [launched(f) for f in fns]
-                    a = scan._window_lookup(tiles, arr, width, n, bo, device)
-                    mid = [launched(f) for f in fns]
-                    t = scan.windowed_scan_tiles(tiles, keys, width, n, bo)
-                    tier = (-(-k // 1024), 0) if k >= scan.WINDOW_LOOKUP_KEYS else (0, 1)
-                    if [m - b for m, b in zip(mid, before)] != [-(-k // 1024), 0] or \
-                            tuple(launched(f) - m for f, m in zip(fns, mid)) != tier:
+                    a = scan.windowed_scan_tiles(tiles, arr, width, n, bo)
+                    if [launched(f) - b for f, b in zip(fns, before)] != [-(-k // 1024), 0]:
                         check(False, f"windowed w={width} k={k} {layout}: one launch of the "
-                              f"lookup per 1024 rows, or one of the fold below "
-                              f"{scan.WINDOW_LOOKUP_KEYS} keys")
+                              f"lookup per 1024 rows")
                     errs["windowed_scan"] = max(errs["windowed_scan"], max_abs_err(a[0], p[0]),
-                                                int((a[1] - p[1]).abs().max()),
-                                                max_abs_err(t[0], p[0]),
-                                                int((t[1] - p[1]).abs().max()))
+                                                int((a[1] - p[1]).abs().max()))
     torch.cuda.synchronize()
-    check(errs["windowed_scan"] == 0, f"windowed_scan (the window lookup, and the tier) bit-exact "
+    check(errs["windowed_scan"] == 0, f"windowed_scan (the window lookup) bit-exact "
           f"against the plain compare at widths {WINDOW_EDGE_WIDTHS}, k {WINDOW_EDGE_KS}, four key "
           f"layouts, every set with duplicates across passes and launches and keys past the "
           f"domain")
@@ -897,12 +882,9 @@ def small_window_phase(device, errs: dict) -> None:
             rfns = (scan.shared_scan_bitsliced_tiles, scan.shared_scan_dynamic_tiles)
             before = [launched(f) for f in rfns]
             a = scan.shared_scan_bitsliced_tiles(tiles, kt, width, n, 2)
-            lookups = sum(scan._runtime_lookup_wins(width, min(k - g0, 1024))
-                          for g0 in range(0, k, 1024))
-            if [launched(f) - b for f, b in zip(rfns, before)] != [-(-k // 1024) - lookups,
-                                                                   lookups]:
-                check(False, f"runtime tier w={width} k={k}: one launch per 1024 keys, of the "
-                      f"lookup where scan._runtime_lookup_wins says so, else of the fold")
+            if [launched(f) - b for f, b in zip(rfns, before)] != [-(-k // 1024), 0]:
+                check(False, f"runtime tier w={width} k={k}: one launch of the fold per 1024 "
+                      f"keys")
             p = scan.shared_scan_bitsliced_tiles_plain(tiles, kt, width, n, 2)
             errs["bitsliced_scan"] = max(errs["bitsliced_scan"], max_abs_err(a[0], p[0]),
                                          int((a[1] - p[1]).abs().max()))
@@ -988,6 +970,9 @@ def arbitrary_key_phase(device) -> tuple[object, dict]:
         before = {k: launched(fn) for k, fn in kernels.items()}
         outs[name] = shared_scan_device(dev, keys)
         ran[name] = [k for k, fn in kernels.items() if launched(fn) > before[k]]
+    before = launched(kernels["bitsliced_static_scan"])
+    static8 = scan.shared_scan_bitsliced_static_tiles(dev.tiles, S8, WIDTH, n)
+    static_launches = launched(kernels["bitsliced_static_scan"]) - before
     before = launched(kernels["windowed_scan"])
     chunked = scan.windowed_scan_tiles(dev.tiles, s64(), WIDTH, n)  # (JAX: its chunked plan)
     chunked_launches = launched(kernels["windowed_scan"]) - before
@@ -1000,21 +985,14 @@ def arbitrary_key_phase(device) -> tuple[object, dict]:
     for name in ARBITRARY:
         check(launches[name] > 0, f"arbitrary-key path launched the {name} kernel "
               f"({launches[name]}x)")
-    tier_kernel = {"interval": "interval_scan", "compare": "shared_scan",
-                   "bitsliced_static": "bitsliced_static_scan", "windowed": "windowed_scan"}
+    route_kernel = {"compare": "shared_scan", "fold": "bitsliced_scan",
+                    "lookup": "shared_scan_dynamic", "window": "windowed_scan"}
     for name, keys in sets:
-        if isinstance(keys, torch.Tensor):
-            k = keys.shape[0]
-            want = "bitsliced_scan" if scan._bitsliced_wins(WIDTH, k) else "shared_scan"
-            why = f"runtime keys, k={k}"
-        else:
-            tier, _ = scan.pick_concrete_tier(WIDTH, keys)
-            want, why = tier_kernel[tier], f"pick_concrete_tier: {tier}"
-            if tier == "windowed" and len(keys) < scan.WINDOW_LOOKUP_KEYS:
-                want, why = "bitsliced_static_scan", f"{why}, the fold below " \
-                    f"{scan.WINDOW_LOOKUP_KEYS} keys"
-        check(ran[name] == [want], f"{name}: ran {ran[name]}, the kernel of its tier ({why})")
-    check(chunked_launches == 1 and len(s64()) >= scan.WINDOW_LOOKUP_KEYS,
+        route = scan.pick_route(WIDTH, len(keys), not isinstance(keys, torch.Tensor))
+        check(ran[name] == [route_kernel[route]],
+              f"{name}: ran {ran[name]}, the kernel of its route (pick_route: {route})")
+    check(static_launches == 1, "shared_scan_bitsliced_static_tiles(S8): one launch of the fold")
+    check(chunked_launches == 1,
           "windowed_scan_tiles(S64): one launch of the window lookup for 64 keys")
 
     for name, keys in sets:
@@ -1024,8 +1002,11 @@ def arbitrary_key_phase(device) -> tuple[object, dict]:
     bits_s64 = outs["S64"][0]
     check(bool((scan.bits_to_canonical(chunked[0], n) == bits_s64).all())
           and bool((chunked[1] == outs["S64"][1]).all()),
-          "chunked windowed S64 == static fold S64, every word")
-    del outs, chunked, bits_s64
+          "chunked windowed S64 == the route's fold S64, every word")
+    check(bool((scan.bits_to_canonical(static8[0], n) == outs["S8"][0]).all())
+          and bool((static8[1] == outs["S8"][1]).all()),
+          "shared_scan_bitsliced_static_tiles S8 == the route's fold S8, every word")
+    del outs, chunked, static8, bits_s64
     for name, keys in sets:
         check(harness.check_shared_scan(dev, keys, vals),
               f"{name}: counts vs direct compare, all words vs plain compare, 2M prefix vs oracle")
@@ -1084,12 +1065,15 @@ def timing_phase(device, n: int, dev, arb, errs: dict) -> dict:
             lambda kt=kt: scan.shared_scan_tiles(atiles, kt, WIDTH, n), None)
         for kernel in ("bitsliced_scan", "bitsliced_static_scan", "windowed_scan", "shared_scan"):
             nkeys[f"{kernel} {label}"] = len(keys)
-    # the windowed tier on W4, and on keys 0..7 of the main path's column
-    # beside the interval kernel
+    # the windowed tier on W4, and the windowed and static tiers on keys 0..7
+    # of the main path's column beside the interval kernel
     for label, cols, keys in (("W4", atiles, W4), ("keys 0..7", tiles, list(range(K)))):
         pairs[f"windowed_scan {label}"] = (
             lambda cols=cols, keys=keys: scan.windowed_scan_tiles(cols, keys, WIDTH, n), None)
         nkeys[f"windowed_scan {label}"] = len(keys)
+    pairs["bitsliced_static_scan keys 0..7"] = (
+        lambda: scan.shared_scan_bitsliced_static_tiles(tiles, list(range(K)), WIDTH, n), None)
+    nkeys["bitsliced_static_scan keys 0..7"] = K
     for name, (kern, plain) in pairs.items():
         if plain is None:
             continue
@@ -1129,9 +1113,10 @@ def timing_phase(device, n: int, dev, arb, errs: dict) -> dict:
         print(f"time {name}: kernel {ms:.6f} ms ({rate:.6e} bytes/s, {rate / copy_rate:.4f} of copy"
               f", bound {bound_ms:.6f} ms for {traffic[name]} bytes)"
               + (f"; plain {plain_ms:.6f} ms" if plain_ms is not None else ""))
-    print(f"keys 0..7 of the main path: the windowed tier (the plane fold below "
-          f"{scan.WINDOW_LOOKUP_KEYS} keys) {results['windowed_scan keys 0..7'][0]:.6f} ms beside "
-          f"the interval kernel's {results['interval_scan'][0]:.6f} ms")
+    print(f"keys 0..7 of the main path: the window lookup "
+          f"{results['windowed_scan keys 0..7'][0]:.6f} ms and the static fold "
+          f"{results['bitsliced_static_scan keys 0..7'][0]:.6f} ms beside the interval kernel's "
+          f"{results['interval_scan'][0]:.6f} ms")
     print("library: no PyTorch call scans a bit-packed column, so library_ms is null")
     kernel_report({"static_fold_kernelILi9ENS_10DeviceKeysELi1E": "static fold, width 9",
                    "windowed_lookup_kernelILb1E": "window lookup, direct table",
@@ -1246,13 +1231,15 @@ def width20_phase(device, errs: dict) -> dict:
 
 def width31_phase(device, errs: dict) -> dict:
     """A 31-bit ``i % 512`` column of 512 MiB packed, where the lookups win:
-    the runtime tier on S256 as CUDA keys (the dynamic scan's lookup where
-    ``scan._runtime_lookup_wins`` says so) held against its plain version,
-    and the windowed tier on 1024 keys, a window each (one launch of the
-    window lookup) held against the static fold, every word; both timed
-    beside the fold on the same keys."""
+    the route on S256 as CUDA keys (``shared_scan_tiles``: the kernel
+    ``scan.pick_route`` names, the dynamic scan's lookup) held against the
+    fold's plain version, and the windowed tier on 1024 keys, a window each
+    (one launch of the window lookup) held against the static fold, every
+    word; both timed beside the fold on the same keys; then those 1024
+    host keys through ``shared_scan_device`` (the route's window lookup)."""
     import numpy as np
     import torch
+    from shared_simd_scan_tpu_torch import layout, shared_scan_device
     from shared_simd_scan_tpu_torch.bench import harness
     from shared_simd_scan_tpu_torch.layout import LANES
     from shared_simd_scan_tpu_torch.ops import scan, unpack
@@ -1275,19 +1262,19 @@ def width31_phase(device, errs: dict) -> dict:
     kt = torch.tensor(keys, dtype=torch.int32, device=device)
     fns = (scan.shared_scan_bitsliced_tiles, scan.shared_scan_dynamic_tiles)
     before = [launched(f) for f in fns]
-    a = scan.shared_scan_bitsliced_tiles(tiles, kt, width, n)
+    a = scan.shared_scan_tiles(tiles, kt, width, n)
     ran = [launched(f) - b for f, b in zip(fns, before)]
     kernel = RUNTIME_LOOKUP[1] if ran == [0, 1] else KERNELS["bitsliced_scan"][1]
-    check(ran == ([0, 1] if scan._runtime_lookup_wins(width, 256) else [1, 0]),
-          f"runtime tier w31 S256: one launch, the kernel scan._runtime_lookup_wins picks ({ran})")
-    check(a[1].tolist() == closed(keys), "runtime tier w31 S256: counts == closed form")
+    check(ran == ([0, 1] if scan.pick_route(width, 256) == "lookup" else [1, 0]),
+          f"the route w31 S256: one launch, the kernel scan.pick_route names ({ran})")
+    check(a[1].tolist() == closed(keys), "the route w31 S256: counts == closed form")
     p = scan.shared_scan_bitsliced_tiles_plain(tiles, kt, width, n)
     errs["bitsliced_scan"] = max(errs["bitsliced_scan"], max_err(a, p))
     del a, p
     check(errs["bitsliced_scan"] == 0,
           "runtime tier w31 S256 bit-exact against its plain version at full size")
-    fold = (lambda: scan._static_fold(tiles, np.asarray(keys, np.uint32), width, n, 0, device))
-    times = {"tier": time_ms(lambda: scan.shared_scan_bitsliced_tiles(tiles, kt, width, n),
+    fold = (lambda: scan.shared_scan_bitsliced_tiles(tiles, kt, width, n))
+    times = {"tier": time_ms(lambda: scan.shared_scan_tiles(tiles, kt, width, n),
                              batches=5, calls=10),
              "plain": time_ms(lambda: scan.shared_scan_bitsliced_tiles_plain(
                  tiles, kt, width, n), batches=3, calls=2),
@@ -1307,7 +1294,7 @@ def width31_phase(device, errs: dict) -> dict:
     ran = [launched(f) - b for f, b in zip(fns, before)]
     check(ran == [1, 0], f"windowed tier w31, 1024 windows: one launch of the lookup ({ran})")
     check(a[1].tolist() == closed(keys), "windowed tier w31, 1024 windows: counts == closed form")
-    f = scan._static_fold(tiles, arr, width, n, 0, device)
+    f = scan.shared_scan_bitsliced_static_tiles(tiles, arr, width, n)
     for r0 in range(0, 1024, 64):  # rows of 17 MB: compare 64 at a time
         errs["windowed_scan"] = max(errs["windowed_scan"],
                                     max_abs_err(a[0][r0 : r0 + 64], f[0][r0 : r0 + 64]))
@@ -1317,7 +1304,7 @@ def width31_phase(device, errs: dict) -> dict:
     check(errs["windowed_scan"] == 0,
           "windowed tier w31, 1024 windows == the static fold, every word and count")
     ms = time_ms(lambda: scan.windowed_scan_tiles(tiles, keys, width, n), batches=5, calls=10)
-    fold_ms = time_ms(lambda: scan._static_fold(tiles, arr, width, n, 0, device),
+    fold_ms = time_ms(lambda: scan.shared_scan_bitsliced_static_tiles(tiles, arr, width, n),
                       batches=5, calls=10)
     bound_ms = nbytes(1024) / HBM_BYTES_PER_S * 1e3
     results["windowed_scan w31 k=1024"] = (ms, None, bound_ms, KERNELS["windowed_scan"][1],
@@ -1325,6 +1312,15 @@ def width31_phase(device, errs: dict) -> dict:
     print(f"time windowed_scan w31, 1024 keys a window each (the window lookup, search): "
           f"{ms:.6f} ms (bound {bound_ms:.6f} ms, {bound_ms / ms:.4f} of it); the static fold "
           f"on the same keys {fold_ms:.6f} ms")
+    # the same host keys through the dispatcher: the route's window lookup
+    before = {name: launched(fn) for name, fn in wrappers().items()}
+    _, counts = shared_scan_device(layout.DeviceColumn(width=width, n=n, tiles=tiles), keys)
+    ran = ran_kernels(before)
+    check(ran == {"windowed_scan": 1} and scan.pick_route(width, 1024, True) == "window",
+          f"shared_scan_device w31, 1024 host keys a window each: ran {ran}, the window lookup "
+          f"scan.pick_route names for host keys")
+    check(counts.tolist() == closed(keys), "shared_scan_device w31, 1024 windows: counts == "
+          "closed form")
     del tiles
     torch.cuda.empty_cache()
     return results
@@ -4020,8 +4016,8 @@ def scan_timing_phase(device, n: int, dev, arb, errs: dict) -> tuple[dict, dict]
     """The compare wrapper on k = 1 (key 3 of the main path's column) and on
     S8, S64 and S256 of the i % 512 column as CUDA keys, and the interval
     kernel on keys 0..k-1 of the main path's column for k = 64 and 1024,
-    each checked -- the launches by kernel (the compare kernel, or from
-    scan._compare_fold_wins the bit-sliced tier's), the counts against the
+    each checked -- the launches by kernel (the kernel scan.pick_route
+    names: the compare kernel, or the fold), the counts against the
     closed form, the bits against the plain version (32 keys at a time; k =
     1024 on three slices of the column with their block_offset) -- and
     timed beside its bound and the staged fold on the same keys (the
@@ -4045,7 +4041,7 @@ def scan_timing_phase(device, n: int, dev, arb, errs: dict) -> tuple[dict, dict]
         torch.cuda.synchronize()
         check(ran_kernels(before) == compare_launches(WIDTH, len(keys)),
               f"shared_scan {label}: ran {ran_kernels(before)}, the kernels "
-              f"scan._compare_fold_wins({WIDTH}, {len(keys)}) names")
+              f"scan.pick_route({WIDTH}, {len(keys)}) names")
         check(counts.tolist() == expect, f"shared_scan {label}: counts == closed form")
         e = 0
         for j0 in range(0, len(keys), 32):
@@ -4216,20 +4212,19 @@ def main() -> int:
              "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
              "library_ms": library.get(name)}
-        if name == "windowed_scan":  # k = 8 and its W4, keys 0..7: the plane fold
+        if name == "windowed_scan":  # k = 64, and beside it k = 8, W4 and keys 0..7
             e["k"] = 64
             e["ms"], e["plain_ms"], e["bound_ms"] = times[f"{name} k=64"]
             e["ms_k8"], e["plain_ms_k8"], e["bound_ms_k8"] = times[f"{name} k=8"]
             for label in ("W4", "keys 0..7"):
                 e[f"ms_{label}"], _, e[f"bound_ms_{label}"] = times[f"{name} {label}"]
-            e["fold_kernel"], e["fold_source"] = WINDOW_FOLD[1], WINDOW_FOLD[0]
             ms_o, _, bound_o, _, fold_o = wide["windowed_scan w31 k=1024"]
             e.update({"ms_w31_k1024": ms_o, "bound_ms_w31_k1024": bound_o,
                       "fold_ms_w31_k1024": fold_o})
         elif name in ARBITRARY:
             e["k"] = 8
             e["ms_k64"], e["plain_ms_k64"], e["bound_ms_k64"] = times[f"{name} k=64"]
-            if name == "bitsliced_scan":  # S256 of a 31-bit column, and the fold on it
+            if name == "bitsliced_scan":  # the route on S256 of a 31-bit column, and the fold
                 ms_o, plain_o, bound_o, kernel_o, fold_o = wide["bitsliced_scan w31 S256"]
                 e.update({"ms_w31_S256": ms_o, "plain_ms_w31_S256": plain_o,
                           "bound_ms_w31_S256": bound_o, "kernel_w31_S256": kernel_o,
@@ -4247,15 +4242,15 @@ def main() -> int:
         for label in EXTRA_SETS.get(name, ()):
             e[f"ms_{label}"], e[f"plain_ms_{label}"], e[f"bound_ms_{label}"] = \
                 times[f"{name} {label}"]
-        if name == "shared_scan":  # from scan._compare_fold_wins: the bit-sliced tier's launch
+        if name == "shared_scan":  # past the compare kernel's k: the route's fold
             e["route_kernel"], e["route_source"] = COMPARE_ROUTE[1], COMPARE_ROUTE[0]
-            e["route_rule"] = "shared_simd_scan_tpu_torch/ops/scan.py _compare_fold_wins"
+            e["route_rule"] = "shared_simd_scan_tpu_torch/ops/scan.py pick_route"
             e["fold_ms"] = folds["shared_scan k=1"]
             for label in COMPARE_TIMED:
                 e[f"fold_ms_{label}"] = folds[f"shared_scan {label}"]
         if name == "interval_scan":  # k = 8 and beside it k = 64 and 1024, and the static fold
             e["k"] = K
-            e["fold_ms"] = times["windowed_scan keys 0..7"][0]
+            e["fold_ms"] = times["bitsliced_static_scan keys 0..7"][0]
             for k in INTERVAL_TIMED:
                 e[f"ms_k{k}"], _, e[f"bound_ms_k{k}"] = times[f"interval_scan k={k}"]
                 e[f"fold_ms_k{k}"] = folds[f"interval_scan k={k}"]

@@ -60,63 +60,59 @@ and then in the reverse one):
   ``_histogram_domain_tiles``; every count equal to ``torch.bincount``
   first;
 - fold: the linear export on the ``i % 512`` column at k = 8 (S8), 64
-  (S64) and 128: the static DAG interpreter it replaced against the
-  package's static entry, its plane masks in shared memory at 256 and 128
-  threads a CTA, the fold with its masks computed from the keys in the
-  loop (keys as kernel parameters at 256 and 128 threads, in constant
-  memory, read from device memory: the runtime entry before its
-  redesign), the package's runtime entry and the masks of keys in device
-  memory staged in shared memory at 256 and 128 threads, and the
-  package's ``_static_linear_tiles_impl`` and runtime-key
+  (S64) and 128: the package's static entry, its plane masks in shared
+  memory at 256 and 128 threads a CTA, the fold with its masks computed
+  from the keys in the loop (keys as kernel parameters at 256 and 128
+  threads, in constant memory, read from device memory: the runtime entry
+  before its redesign), the package's runtime entry and the masks of keys
+  in device memory staged in shared memory at 256 and 128 threads, and
+  the package's ``_static_linear_tiles_impl`` and runtime-key
   ``_bitsliced_linear_tiles_impl``; every variant's words equal to the
-  interpreter's and its counts to the closed form first;
+  static entry's and its counts to the closed form first;
 - static: the static tier (one row per host key, in tile order) on
   ``i % 512`` columns of 512 MiB packed at widths 9 (S8, 16 and 32 keys,
   S64, S256), 20 (S8, S64) and 31 (S8, S64, and 1024 keys of 0..511 with
-  duplicates): the DAG
-  interpreter it replaced against the plane fold with its masks in shared
-  memory at 128 and 256 threads a CTA (at 1024 keys and width 31 also with
-  its masks staged in chunks of 16, 32, 64 KB or all at once), the
-  package's ``shared_scan_bitsliced_static_tiles``, row 14's lookup
-  ``shared_scan_chunked_tiles`` and row 15's runtime fold
+  duplicates): the plane fold with its masks in shared memory at 128 and
+  256 threads a CTA (at 1024 keys and width 31 also with its masks staged
+  in chunks of 16, 32, 64 KB or all at once), row 14's lookup
+  ``shared_scan_chunked_tiles``, the package's
+  ``shared_scan_bitsliced_static_tiles`` and row 15's runtime fold
   ``shared_scan_bitsliced_tiles`` on the same keys as a CUDA tensor; every
-  variant's bits equal to the interpreter's and its counts to the closed
-  form first;
+  variant's bits equal to row 14's and its counts to the closed form
+  first;
 - ortree: the member OR-tree tier's one row on the same columns: at width
   9 S8, S64, S256 and the whole domain, at width 20 S64 and the OR-tree
   tier's largest set of a sweep of host key sets (widths 9-31, k 33-3000,
   spread and clustered, through ``member_dispatch_tier``; its tiers and
-  largest sets printed): the DAG interpreter on the OR-tree program it
-  replaced, the set as a plane fold (masks in shared memory, rows ORed) at
-  128 and 256 threads, the package's ``_member_ortree_tiles`` (the lookup:
-  the bitmap, or the search in shared memory), the search read from device
-  memory, and ``_member_domain_tiles`` (width 9); every variant's words
-  equal to the interpreter's and its count to the closed form first;
+  largest sets printed): the set as a plane fold (masks in shared memory,
+  rows ORed) at 128 and 256 threads, the package's
+  ``_member_ortree_tiles`` (the lookup: the bitmap, or the search in
+  shared memory), the search read from device memory, and
+  ``_member_domain_tiles`` (width 9); every variant's words equal to the
+  package's lookup's and its count to the closed form first;
 - histdag: the host-lo histogram of keys lo..lo+k-1 (the tier of the
   JAX package's chunked AND-DAG programs) on uniform columns of 512 MiB
   packed at widths 1-6, 8, 9 and 12 (k from 1 to 4096: the whole domain and
   windows at lo 0, and 1000 keys at lo 100 at width 12) and on the
-  ``i % 512`` column (H2: lo 100, k 40; and lo 0, k 40): the DAG
-  interpreter it replaced (one launch per ``_static_group_sizes`` group)
-  against (a) the bins kernel with lo by value and one spare counter, (b)
-  with a spare counter a lane, (c) the static fold's counts form at 256
-  and 128 threads a CTA (k <= 64), and the package's
-  ``_histogram_chunked_tiles``; every count equal to the interpreter's
-  (and on ``i % 512`` to the closed form) first;
+  ``i % 512`` column (H2: lo 100, k 40; and lo 0, k 40): (a) the bins
+  kernel with lo by value and one spare counter, (b) with a spare counter
+  a lane, (c) the static fold's counts form at 256 and 128 threads a CTA
+  (k <= 64), and the package's ``_histogram_chunked_tiles``; every count
+  equal to (a)'s, and (a)'s on ``i % 512`` to the closed form and over a
+  whole domain summing to n, first;
 - aggstatic: the static bit-plane aggregate (host keys) at the query
   table's n (477,218,588): A2 (a uniform 5-bit predicate, a 20-bit
   measure, keys 0..31), A7 (a uniform 20-bit predicate, a 9-bit measure,
   16 spread keys), a constant predicate and one 90% on a single key, and
-  A2's predicate with 8- and 31-bit measures: the DAG interpreter it
-  replaced against the key lookup (past 16 bits a byte table on a 16-bit
-  window of the value, or the binary search) with its sums as a 32-bit
-  word and its carries, with 64-bit shared atomics, with counters per
-  warp, with the lanes of one slot merged, with a warp's hot slot summed
-  in registers (always, or for the tiles where half a warp shares it),
-  with values that have no slot skipped and carries checked after eight
-  atomics, and the package's
+  A2's predicate with 8- and 31-bit measures: the key lookup (past 16
+  bits a byte table on a 16-bit window of the value, or the binary
+  search) with its sums as a 32-bit word and its carries, with 64-bit
+  shared atomics, with counters per warp, with the lanes of one slot
+  merged, with a warp's hot slot summed in registers (always, or for the
+  tiles where half a warp shares it), with values that have no slot
+  skipped and carries checked after eight atomics, and the package's
   ``aggregate_bitplane_static_tiles``; every count and sum equal to the
-  interpreter's first;
+  compare kernel's (``aggregate_scan_tiles``) first;
 - minmax: keyed MIN/MAX (keys in device memory) at the query table's n: A6
   (a uniform 5-bit predicate, a 20-bit measure, keys 0..7), A8 (a uniform
   20-bit predicate, a 9-bit measure, A7's 16 spread keys), a constant
@@ -133,14 +129,13 @@ and then in the reverse one):
 - windowed: the windowed tier's host keys on ``i % 512`` columns of 512
   MiB packed at widths 9, 17, 20 and 31 (W4, W8, S8, S16, S32, S64, 64
   keys in two windows; and on columns of 64 MiB, 1024 keys in a window
-  each): the window lookup (``sss_windowed_lookup``: one lookup a value in
-  the keys' window tables, rows by the first caller row holding each key)
-  against the same lookup with its rows by key index (one table load a
-  value), the static tier's fold (``shared_scan_bitsliced_static_tiles``),
-  rows 13 and 14's lookups (``shared_scan_dynamic_tiles``,
-  ``shared_scan_chunked_tiles``) on the keys copied to the card once, and
-  the package's ``windowed_scan_tiles`` (the fold below
-  ``WINDOW_LOOKUP_KEYS`` keys); every result equal to the window lookup's
+  each): the package's window lookup (``windowed_scan_tiles``, kernel
+  ``sss_windowed_lookup``: one lookup a value in the keys' window tables,
+  rows by the first caller row holding each key) against the same lookup with its
+  rows by key index (one table load a value), the static tier's fold
+  (``shared_scan_bitsliced_static_tiles``) and rows 13 and 14's lookups
+  (``shared_scan_dynamic_tiles``, ``shared_scan_chunked_tiles``) on the
+  keys copied to the card once; every result equal to the window lookup's
   and its counts to the closed form first; then the largest ratio of the
   dynamic scan's time to the window lookup's, and the fold's time over the
   window lookup's at every shape;
@@ -153,7 +148,8 @@ and then in the reverse one):
   package's ``shared_scan_bitsliced_tiles``' too, equal to the fold's and
   its counts to the closed form first; then, per shape, the lookup's gain
   over the fold, and per width the k where it exceeds 5% (the table of
-  ``scan._RUNTIME_LOOKUP_KS``);
+  ``scan._RUNTIME_LOOKUP_KS``, the route's choice between the fold and the
+  lookup);
 - member: the member compare and window kernels (``sss_member_compare``,
   ``sss_member_window``) on ``i % 512`` columns of 512 MiB packed at widths
   9, 16, 17, 20 and 31, k keys or windows 1, 4, 8, 32, 64, 200, 4096 and
@@ -182,13 +178,14 @@ and then in the reverse one):
   32 shifted operands built for every key of every block) on ``i % 512``
   at width 9 (k 1, 2, 4, 8), 17 and 25 (k 1, 4) and 31 (k 1, 4, 10)
   beside the package's
-  ``shared_scan_tiles`` and the bit-sliced tier's launch; then the
-  compare kernel (``sss_shared_scan``) against the bit-sliced tier's
-  launch (``shared_scan_bitsliced_tiles``, one launch) at widths 1, 5, 9,
-  12, 16, 17, 20, 25 and 31 and k 1-1024 on ``i % min(2^w, 512)`` columns
-  of 256 MiB packed (less where the k rows would pass 16 GiB), and the
-  table of ``scan._COMPARE_FOLD_KS``: by width, the k where the launch is
-  more than 5% faster.
+  ``shared_scan_tiles`` and the plane fold; then the compare kernel
+  (``sss_shared_scan``) against the plane fold
+  (``shared_scan_bitsliced_tiles``) and the dynamic scan's lookup
+  (``shared_scan_dynamic_tiles``), one launch each, at widths 1, 5, 9, 12,
+  16, 17, 20, 25 and 31 and k 1-1024 on ``i % min(2^w, 512)`` columns of
+  256 MiB packed (less where the k rows would pass 16 GiB), and the table
+  of ``scan._COMPARE_FOLD_KS`` (the route's choice of the compare kernel):
+  by width, the k where the faster of the two is more than 5% faster.
 - zoned: the zoned range scan (k = 1, steps of 256 block rows, the listed
   steps in random order) on uniform columns of 477,218,588 values (456
   steps) at widths 9 and 31, with 1, 3, 50 and 227 of the 456 steps
@@ -273,15 +270,13 @@ SASS_KERNELS = {"bins_baseline_kernelILi9E": "bins before the redesign",
                 "histogram_kernelILi9ELb1ELb0E": "bins, a branch around the atomic",
                 "histogram_domain_kernelILi20EyLb1E": "domain (width 20), the package's",
                 "histogram_domain_kernelILi20EyLb0E": "domain (width 20) without merging",
-                "static_linear_baseline_kernelILi9E": "fold before the redesign",
                 "static_fold_kernelILi9ENS_10LinearKeysELi0E": "fold, the package's",
                 "fold_linear_kernelILi9ENS_10LinearKeys": "fold, parameter keys",
                 "fold_linear_kernelILi9ENS_10DeviceKeys": "fold, device keys, before the redesign",
                 "static_fold_kernelILi9ENS_10DeviceKeysELi0E": "fold, device keys, the package's",
                 "fold_linear_kernelILi9ENS_9ConstKeys": "fold, constant-memory keys",
 }
-STATIC_NAMES = {0: "the DAG interpreter before the redesign",
-                1: "fold, 128 threads, masks up to 48 KB (the package's)",
+STATIC_NAMES = {1: "fold, 128 threads, masks up to 48 KB (the package's)",
                 2: "fold, 256 threads, masks up to 48 KB"}
 CHUNK_NAMES = {3: "fold, 128 threads, masks in chunks of 16 KB",
                4: "fold, 128 threads, masks in chunks of 32 KB",
@@ -291,12 +286,11 @@ CHUNK_NAMES = {3: "fold, 128 threads, masks in chunks of 16 KB",
                8: "fold, 256 threads, masks in chunks of 32 KB",
                9: "fold, 256 threads, masks in chunks of 64 KB",
                10: "fold, 256 threads, all masks at once (128 KB)"}
-MEMBER_NAMES = {0: "the DAG interpreter on the OR-tree program, before the redesign",
-                1: "the set as a plane fold, 128 threads", 2: "the set as a plane fold, 256 threads",
+MEMBER_NAMES = {1: "the set as a plane fold, 128 threads",
+                2: "the set as a plane fold, 256 threads",
                 3: "the lookup, its search table in device memory"}
 STATIC_MEMBER_SASS = {
     "static_fold_kernelILi9ENS_10DeviceKeysELi1E": "static fold in tile order (width 9)",
-    "interpreter_baseline_kernelILi9E": "the interpreter before the redesign (width 9)",
     "member_lookup_kernelILi9ELi0E": "member lookup, bitmap (width 9)",
     "member_lookup_kernelILi20ELi1E": "member lookup, search in shared memory (width 20)",
     "member_fold_kernelILi9E": "member as a plane fold (width 9)",
@@ -305,8 +299,7 @@ HIST_NAMES = {1: "(a) the bins kernel, one spare counter",
               2: "(b) the bins kernel, a spare counter a lane",
               3: "(c) the fold's counts form, 256 threads",
               4: "(c) the fold's counts form, 128 threads"}
-AGG_NAMES = {0: "the DAG interpreter before the redesign",
-             1: "the package's entry (the warp's choice per tile; the window past 16 bits)",
+AGG_NAMES = {1: "the package's entry (the warp's choice per tile; the window past 16 bits)",
              2: "lookup, 64-bit shared atomics", 3: "lookup, carries, counters per warp",
              4: "lookup, the lanes of one slot merged", 5: "lookup, a warp's hot slot in registers",
              6: "lookup, the sum's word and its carries", 7: "lookup, no-slot values skipped, "
@@ -366,13 +359,11 @@ def _libraries(sources: list) -> dict:
                  "sweep_dynamic_ctas": [i, i]},
         BINS_FOLD_SOURCE: {"sweep_bins": [i, vp, vp, i, vp, ll, i, ll, vp],
                            "sweep_domain": [i, vp, vp, ll, i, ll, vp],
-                           "sweep_fold": [i, vp, vp, vp, vp, i, i, i, i, vp, vp, ll, i, ll, vp]},
-        STATIC_MEMBER_SOURCE: {"sweep_static": [i, i, vp, vp, i, vp, i, i, vp, vp, ll, ll, vp],
-                               "sweep_member": [i, i, vp, vp, i, vp, i, i, vp, i, vp, vp, ll, ll,
-                                                vp]},
-        HIST_AGG_SOURCE: {"sweep_hist_dag": [i, vp, vp, i, i, vp, ll, ll, i, i, vp],
-                          "sweep_hist": [i, i, vp, ctypes.c_uint32, i, vp, ll, ll, vp],
-                          "sweep_agg": [i, vp, vp, vp, i, vp, i, i, i, vp, vp, ll, i, i, ll, vp],
+                           "sweep_fold": [i, vp, vp, vp, i, vp, vp, ll, i, ll, vp]},
+        STATIC_MEMBER_SOURCE: {"sweep_static": [i, i, vp, vp, i, vp, vp, ll, ll, vp],
+                               "sweep_member": [i, i, vp, vp, i, vp, i, vp, vp, ll, ll, vp]},
+        HIST_AGG_SOURCE: {"sweep_hist": [i, i, vp, ctypes.c_uint32, i, vp, ll, ll, vp],
+                          "sweep_agg": [i, vp, vp, vp, i, vp, vp, ll, i, i, ll, vp],
                           "sweep_minmax": [i, vp, vp, vp, i, vp, vp, vp, ll, i, i, ll, vp]},
         WINDOWED_SOURCE: {"sweep_window_key_index": [vp, vp, i, i, i, vp, vp, ll, i, ll, vp]},
         SCAN_SOURCE: {"sweep_scan": [i, i, vp, vp, ctypes.c_uint32, i, vp, vp, ll, i, ll, vp]},
@@ -397,7 +388,7 @@ def _resources(log: str) -> list[str]:
             entry = m.group(1)
         elif entry and ("Used" in line or "spill" in line) and any(
                 w in entry for w in ("copy", "chunked", "dynamic", "bins", "histogram", "domain",
-                                     "fold", "static_linear", "interpreter", "lookup", "window",
+                                     "fold", "lookup", "window",
                                      "interval", "compare", "shared_scan_kernel", "zoned")):
             lines.append(f"  {entry}: {line.split(':', 1)[-1].strip()}")
     return lines
@@ -732,12 +723,6 @@ def domain_sweep(lib, device, n: int) -> None:
         torch.cuda.empty_cache()
 
 
-def _old_static_linear_threads(slots: int, k: int) -> int:
-    """Threads a CTA of the interpreter's linear form: its node slots and
-    its stage (k + 1 words a thread) within 200 KB."""
-    return next(t for t in (128, 64, 32) if (slots + k + 1) * t * 4 <= 200 * 1024)
-
-
 def fold_sweep(lib, device, tiles, n: int) -> None:
     """The static linear export at k = 8, 64 and 128 on the i % 512 column."""
     stream = torch.cuda.current_stream().cuda_stream
@@ -745,7 +730,7 @@ def fold_sweep(lib, device, tiles, n: int) -> None:
     sets = {"S8": [3, 70, 141, 200, 262, 333, 400, 511],
             "S64": sorted(np.random.default_rng(3).choice(DOMAIN, 64, replace=False).tolist()),
             "k=128": sorted(np.random.default_rng(5).choice(DOMAIN, 128, replace=False).tolist())}
-    names = {0: "the DAG interpreter before the redesign", 1: "the package's static entry",
+    names = {1: "the package's static entry",
              2: "masks in shared memory, 256 threads", 3: "masks in shared memory, 128 threads",
              4: "parameter keys, 256 threads", 5: "parameter keys, 128 threads",
              6: "constant-memory keys",
@@ -757,29 +742,25 @@ def fold_sweep(lib, device, tiles, n: int) -> None:
         k = len(keys)
         host = np.asarray(keys, np.uint32)
         kt = torch.from_numpy(host.view(np.int32).copy()).to(device)
-        prog_np, slots = scan._static_program(WIDTH, tuple(keys))
-        prog = torch.from_numpy(prog_np).to(device)
-        threads = _old_static_linear_threads(slots, k)
         out = torch.empty(nblocks * k, dtype=torch.int32, device=device)
         counts = torch.zeros(k, dtype=torch.int64, device=device)
         expect = torch.tensor([(n - 1 - key) // DOMAIN + 1 for key in keys], device=device)
 
         def variant(v):
             counts.zero_()
-            rc = lib.sweep_fold(v, tiles.data_ptr(), host.ctypes.data, kt.data_ptr(),
-                                prog.data_ptr(), prog.shape[0], slots, threads, k, out.data_ptr(),
-                                counts.data_ptr(), nblocks, WIDTH, n, stream)
+            rc = lib.sweep_fold(v, tiles.data_ptr(), host.ctypes.data, kt.data_ptr(), k,
+                                out.data_ptr(), counts.data_ptr(), nblocks, WIDTH, n, stream)
             if rc:
                 raise RuntimeError(f"fold variant {v}: CUDA error {rc}")
 
-        variant(0)
+        variant(1)
         ref = out.clone()
-        _check(torch.equal(counts, expect), f"fold {label}: {names[0]}'s counts")
+        _check(torch.equal(counts, expect), f"fold {label}: {names[1]}'s counts")
         for v in list(names)[1:]:
             out.zero_()
             variant(v)
             _check(torch.equal(out, ref) and torch.equal(counts, expect),
-                   f"fold {label}: {names[v]} differs from {names[0]}")
+                   f"fold {label}: {names[v]} differs from {names[1]}")
         packaged = {
             "_static_linear_tiles_impl": lambda: scan._static_linear_tiles_impl(tiles, host, WIDTH, n),
             "_bitsliced_linear_tiles_impl (runtime keys)":
@@ -787,11 +768,9 @@ def fold_sweep(lib, device, tiles, n: int) -> None:
         for name, fn in packaged.items():
             got = fn()
             _check(torch.equal(got[0].reshape(-1), ref) and torch.equal(got[1], expect),
-                   f"fold {label}: {name} differs from {names[0]}")
+                   f"fold {label}: {name} differs from {names[1]}")
             del got
         del ref
-        print(f"fold {label}: the interpreter's program has {prog.shape[0]} instructions "
-              f"({prog.shape[0] / k:.2f} a row), {slots} slots, {threads} threads a CTA")
         calls = {names[v]: (lambda v=v: variant(v)) for v in names}
         calls.update(packaged)
         bound = (tiles.numel() * 4 + nblocks * k * 4 + k * 8) / HBM_BYTES_PER_S * 1e3
@@ -828,8 +807,6 @@ def static_sweep(lib, device, columns: dict) -> None:
         nblocks = tiles.shape[1] * LANES
         k = len(keys)
         kt = torch.tensor(keys, dtype=torch.int32, device=device)
-        prog_np, slots = scan._static_program(width, tuple(keys))
-        prog = torch.from_numpy(prog_np).to(device)
         expect = torch.tensor(_closed_counts(keys, n), device=device)
         bits = torch.empty((k, tiles.shape[1], LANES), dtype=torch.int32, device=device)
         counts = torch.zeros(k, dtype=torch.int64, device=device)
@@ -837,48 +814,37 @@ def static_sweep(lib, device, columns: dict) -> None:
 
         def variant(v):
             counts.zero_()
-            rc = lib.sweep_static(v, width, tiles.data_ptr(), kt.data_ptr(), k, prog.data_ptr(),
-                                  prog.shape[0], slots, bits.data_ptr(), counts.data_ptr(), nblocks,
-                                  n, stream)
+            rc = lib.sweep_static(v, width, tiles.data_ptr(), kt.data_ptr(), k, bits.data_ptr(),
+                                  counts.data_ptr(), nblocks, n, stream)
             if rc:
                 raise RuntimeError(f"static variant {v}: CUDA error {rc}")
 
-        variant(0)
-        ref = bits.clone()
-        _check(torch.equal(counts, expect), f"static {label} w={width}: {names[0]}'s counts")
-        for v in list(names)[1:]:
+        packaged = {
+            "row 14: shared_scan_chunked_tiles (CUDA keys)":
+                lambda: scan.shared_scan_chunked_tiles(tiles, kt, width, n),
+            "shared_scan_bitsliced_static_tiles": lambda: scan.shared_scan_bitsliced_static_tiles(
+                tiles, keys, width, n),
+            "row 15: shared_scan_bitsliced_tiles (CUDA keys)":
+                lambda: scan.shared_scan_bitsliced_tiles(tiles, kt, width, n)}
+        ref, ref_counts = packaged["row 14: shared_scan_chunked_tiles (CUDA keys)"]()
+        _check(torch.equal(ref_counts, expect), f"static {label} w={width}: row 14's counts")
+        for v in names:
             bits.zero_()
             variant(v)
             _check(torch.equal(bits, ref) and torch.equal(counts, expect),
-                   f"static {label} w={width}: {names[v]} differs from {names[0]}")
-        packaged = {
-            "shared_scan_bitsliced_static_tiles": lambda: scan.shared_scan_bitsliced_static_tiles(
-                tiles, keys, width, n),
-            "row 14: shared_scan_chunked_tiles (CUDA keys)":
-                lambda: scan.shared_scan_chunked_tiles(tiles, kt, width, n),
-            "row 15: shared_scan_bitsliced_tiles (CUDA keys)":
-                lambda: scan.shared_scan_bitsliced_tiles(tiles, kt, width, n)}
+                   f"static {label} w={width}: {names[v]} differs from row 14's lookup")
         for name, fn in packaged.items():
             got = fn()
             _check(torch.equal(got[0], ref) and torch.equal(got[1], expect),
-                   f"static {label} w={width}: {name} differs from {names[0]}")
+                   f"static {label} w={width}: {name} differs from row 14's lookup")
             del got
         del ref
-        print(f"static {label} at width {width}: the interpreter's program has {prog.shape[0]} "
-              f"instructions ({prog.shape[0] / k:.2f} a row), {slots} slots")
         calls = {names[v]: (lambda v=v: variant(v)) for v in names}
         calls.update(packaged)
         bound = (tiles.numel() * 4 + k * (nblocks * 4 + 8 + 4)) / HBM_BYTES_PER_S * 1e3
         _report(f"static {label} at width {width} (k={k})", _in_turns(calls), bound)
         del bits
         torch.cuda.empty_cache()
-
-
-@functools.lru_cache(maxsize=64)
-def _static_program_on(width: int, keys: tuple, device: torch.device) -> tuple[torch.Tensor, int]:
-    """``scan._static_program`` with its program copied to ``device``."""
-    prog, slots = scan._static_program(width, keys)
-    return torch.from_numpy(prog).to(device), slots
 
 
 def _random_tiles(device, width: int, b1: int, seed: int) -> torch.Tensor:
@@ -893,7 +859,6 @@ def histdag_sweep(lib, device) -> None:
     """The host-lo histogram's designs on uniform columns of 512 MiB packed
     at widths 1, 4, 9 and 12, and on the i % 512 column."""
     stream = torch.cuda.current_stream().cuda_stream
-    u32 = (1 << 32) - 1
     cases = {1: [(0, 2), (0, 1)], 2: [(0, 4), (0, 1), (0, 2)], 3: [(0, 8), (0, 2), (0, 4)],
              4: [(0, 16), (0, 2), (0, 8), (0, 32)], 5: [(0, 32), (0, 2), (0, 8)],
              6: [(0, 64), (0, 2), (0, 8)], 8: [(0, 256), (0, 2)],
@@ -914,19 +879,6 @@ def histdag_sweep(lib, device) -> None:
         for lo, k in sets:
             counts = torch.zeros(k, dtype=torch.int64, device=device)
 
-            def before():
-                counts.zero_()
-                g0 = 0
-                for g in scan._static_group_sizes(k):
-                    keys = tuple(min(lo + g0 + j, u32) for j in range(g))
-                    prog, slots = _static_program_on(width, keys, device)
-                    rc = lib.sweep_hist_dag(width, tiles.data_ptr(), prog.data_ptr(),
-                                            prog.shape[0], g, counts[g0:].data_ptr(), nblocks, n,
-                                            scan._static_threads(slots), slots, stream)
-                    if rc:
-                        raise RuntimeError(f"histogram interpreter: CUDA error {rc}")
-                    g0 += g
-
             def variant(v):
                 counts.zero_()
                 rc = lib.sweep_hist(v, width, tiles.data_ptr(), lo, k, counts.data_ptr(), nblocks,
@@ -934,27 +886,25 @@ def histdag_sweep(lib, device) -> None:
                 if rc:
                     raise RuntimeError(f"histogram variant {v}: CUDA error {rc}")
 
-            before()
+            names = {v: name for v, name in HIST_NAMES.items() if v < 3 or k <= 64}
+            variant(1)
             ref = counts.clone()
             if label == "i % 512":
                 _check(ref.tolist() == _closed_counts(range(lo, lo + k), n),
-                       f"histdag {label} lo {lo} k {k}: the interpreter's counts")
+                       f"histdag {label} lo {lo} k {k}: {names[1]}'s counts")
             elif lo == 0 and k >= 1 << width:
-                _check(int(ref.sum()) == n, f"histdag {label}: the interpreter's counts sum to n")
-            names = {v: name for v, name in HIST_NAMES.items() if v < 3 or k <= 64}
-            for v in names:
+                _check(int(ref.sum()) == n, f"histdag {label}: {names[1]}'s counts sum to n")
+            for v in list(names)[1:]:
                 variant(v)
                 _check(torch.equal(counts, ref),
-                       f"histdag {label} lo {lo} k {k}: {names[v]} differs from the interpreter")
+                       f"histdag {label} lo {lo} k {k}: {names[v]} differs from {names[1]}")
             _check(torch.equal(scan._histogram_chunked_tiles(tiles, lo, k, width, n), ref),
                    f"histdag {label} lo {lo} k {k}: _histogram_chunked_tiles differs")
-            calls = {"the DAG interpreter before the redesign": before}
-            calls.update({name: (lambda v=v: variant(v)) for v, name in names.items()})
+            calls = {name: (lambda v=v: variant(v)) for v, name in names.items()}
             calls["_histogram_chunked_tiles"] = lambda: scan._histogram_chunked_tiles(
                 tiles, lo, k, width, n)
             bound = (tiles.numel() * 4 + k * 8) / HBM_BYTES_PER_S * 1e3
-            _report(f"histdag {label} (n {n}) lo {lo} k {k} ({len(scan._static_group_sizes(k))} "
-                    "interpreter launches)", _in_turns(calls), bound)
+            _report(f"histdag {label} (n {n}) lo {lo} k {k}", _in_turns(calls), bound)
         del tiles
         torch.cuda.empty_cache()
 
@@ -996,8 +946,6 @@ def aggstatic_sweep(lib, device) -> None:
         (wp, pt), (wm, mt) = cols[pname], cols[mname]
         k = len(keys)
         host = np.asarray(keys, np.uint32)
-        prog, slots = _static_program_on(wp, tuple(keys), device)
-        threads = scan._static_threads(slots + k)
         counts = torch.zeros(k, dtype=torch.int64, device=device)
         sums = torch.zeros(k, dtype=torch.int64, device=device)
 
@@ -1005,19 +953,21 @@ def aggstatic_sweep(lib, device) -> None:
             counts.zero_()
             sums.zero_()
             rc = lib.sweep_agg(v, pt.data_ptr(), mt.data_ptr(), host.ctypes.data, k,
-                               prog.data_ptr(), prog.shape[0], slots, threads, counts.data_ptr(),
-                               sums.data_ptr(), nblocks, wp, wm, n, stream)
+                               counts.data_ptr(), sums.data_ptr(), nblocks, wp, wm, n, stream)
             if rc:
                 raise RuntimeError(f"aggregate variant {v}: CUDA error {rc}")
 
-        variant(0)
-        ref = (counts.clone(), sums.clone())
+        # the reference: the compare kernel (sss_agg_compare), a select-add
+        # per key and value, on the keys in device memory
+        ref = aggregate.aggregate_scan_tiles(pt, mt, torch.tensor(keys, dtype=torch.int32,
+                                                                  device=device), wp, wm, n)
         if k == 32 and wp == 5:
-            _check(int(ref[0].sum()) == n, f"aggstatic {label}: the interpreter's counts sum to n")
-        for v in list(AGG_NAMES)[1:]:
+            _check(int(ref[0].sum()) == n, f"aggstatic {label}: the compare kernel's counts sum "
+                   "to n")
+        for v in AGG_NAMES:
             variant(v)
             _check(torch.equal(counts, ref[0]) and torch.equal(sums, ref[1]),
-                   f"aggstatic {label}: {AGG_NAMES[v]} differs from the interpreter")
+                   f"aggstatic {label}: {AGG_NAMES[v]} differs from the compare kernel")
         got = aggregate.aggregate_bitplane_static_tiles(pt, mt, keys, wp, wm, n)
         _check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
                f"aggstatic {label}: aggregate_bitplane_static_tiles differs")
@@ -1025,8 +975,7 @@ def aggstatic_sweep(lib, device) -> None:
         calls["aggregate_bitplane_static_tiles"] = (
             lambda: aggregate.aggregate_bitplane_static_tiles(pt, mt, keys, wp, wm, n))
         bound = (pt.numel() * 4 + mt.numel() * 4 + 4 * k + 16 * k) / HBM_BYTES_PER_S * 1e3
-        print(f"aggstatic {label}: sums[:4] {ref[1][:4].tolist()}; the interpreter's program has "
-              f"{prog.shape[0]} instructions, {slots} slots, {threads} threads a CTA")
+        print(f"aggstatic {label}: sums[:4] {ref[1][:4].tolist()}")
         _report(f"aggstatic {label} (n {n}, wp {wp}, wm {wm}, k {k})", _in_turns(calls), bound)
     del cols
     torch.cuda.empty_cache()
@@ -1155,8 +1104,6 @@ def ortree_sweep(lib, device, columns: dict) -> None:
         nblocks = tiles.shape[1] * LANES
         pats = tuple(sorted(set(keys)))
         kt = torch.tensor(pats, dtype=torch.int32, device=device)
-        prog_np, slots = scan._member_program(width, pats)
-        prog = torch.from_numpy(prog_np).to(device)
         table = member.member_set_table(width, pats).to(device)
         expect = sum(_closed_counts(pats, n))
         bits = torch.empty((1, tiles.shape[1], LANES), dtype=torch.int32, device=device)
@@ -1166,32 +1113,28 @@ def ortree_sweep(lib, device, columns: dict) -> None:
         def variant(v):
             counts.zero_()
             rc = lib.sweep_member(v, width, tiles.data_ptr(), kt.data_ptr(), len(pats),
-                                  prog.data_ptr(), prog.shape[0], slots, table.data_ptr(),
-                                  table.shape[-1], bits.data_ptr(), counts.data_ptr(), nblocks, n,
-                                  stream)
+                                  table.data_ptr(), table.shape[-1], bits.data_ptr(),
+                                  counts.data_ptr(), nblocks, n, stream)
             if rc:
                 raise RuntimeError(f"member variant {v}: CUDA error {rc}")
 
-        variant(0)
-        ref = bits[0].clone()
-        _check(int(counts[0]) == expect, f"ortree {label} w={width}: {names[0]}'s count")
-        for v in list(names)[1:]:
-            bits.zero_()
-            variant(v)
-            _check(torch.equal(bits[0], ref) and int(counts[0]) == expect,
-                   f"ortree {label} w={width}: {names[v]} differs from {names[0]}")
         packaged = {"_member_ortree_tiles (the lookup)":
                     lambda: member._member_ortree_tiles(tiles, width, n, pats)}
         if width <= member.MAX_DOMAIN_WIDTH:
             packaged["_member_domain_tiles"] = lambda: member._member_domain_tiles(
                 tiles, kt, width, n)
+        ref, count = packaged["_member_ortree_tiles (the lookup)"]()
+        _check(int(count) == expect, f"ortree {label} w={width}: the lookup's count")
+        for v in names:
+            bits.zero_()
+            variant(v)
+            _check(torch.equal(bits[0], ref) and int(counts[0]) == expect,
+                   f"ortree {label} w={width}: {names[v]} differs from the lookup")
         for name, fn in packaged.items():
             got = fn()
             _check(torch.equal(got[0], ref) and int(got[1]) == expect,
-                   f"ortree {label} w={width}: {name} differs from {names[0]}")
-        print(f"ortree {label} at width {width}: the interpreter's program has "
-              f"{prog.shape[0]} instructions, {slots} slots; the lookup's table "
-              f"{tuple(table.shape)}")
+                   f"ortree {label} w={width}: {name} differs from the lookup")
+        print(f"ortree {label} at width {width}: the lookup's table {tuple(table.shape)}")
         calls = {names[v]: (lambda v=v: variant(v)) for v in names}
         calls.update(packaged)
         bound = (tiles.numel() * 4 + nblocks * 4 + 8) / HBM_BYTES_PER_S * 1e3
@@ -1264,17 +1207,15 @@ def windowed_sweep(lib, device, column) -> None:
                 return bits, counts
 
             calls = {
-                "the window lookup (sss_windowed_lookup)":
-                    lambda: scan._window_lookup(tiles, arr, width, n, 0, device),
+                "the window lookup (windowed_scan_tiles)":
+                    lambda: scan.windowed_scan_tiles(tiles, arr, width, n),
                 "row 13: shared_scan_dynamic_tiles (keys copied once)":
                     lambda: scan.shared_scan_dynamic_tiles(tiles, kt, width, n),
                 "row 14: shared_scan_chunked_tiles (keys copied once)":
                     lambda: scan.shared_scan_chunked_tiles(tiles, kt, width, n),
                 "rows by key index (one table load a value)": key_index,
                 "row 16: the static fold (shared_scan_bitsliced_static_tiles)":
-                    lambda: scan.shared_scan_bitsliced_static_tiles(tiles, keys, width, n),
-                "the package's windowed_scan_tiles":
-                    lambda: scan.windowed_scan_tiles(tiles, keys, width, n)}
+                    lambda: scan.shared_scan_bitsliced_static_tiles(tiles, keys, width, n)}
             ref = None
             for name, fn in calls.items():
                 got = fn()
@@ -1288,7 +1229,7 @@ def windowed_sweep(lib, device, column) -> None:
             torch.cuda.empty_cache()
             report = _in_turns(calls)
             times = {name: sum(t) / 2 for name, t in report.items()}
-            window = times["the window lookup (sss_windowed_lookup)"]
+            window = times["the window lookup (windowed_scan_tiles)"]
             worst = max(worst, times["row 13: shared_scan_dynamic_tiles (keys copied once)"] / window)
             fold_over[(width, label)] = (
                 times["row 16: the static fold (shared_scan_bitsliced_static_tiles)"] / window)
@@ -1468,10 +1409,9 @@ def _compare_keys(k: int, width: int) -> list:
 def compare_sweep(lib, device) -> None:
     """The compare kernel's designs at width 9 (i % 512, 512 MiB packed, k
     1, 2, 4, 8), 17 and 25 (k 1, 4) and 31 (k 1, 4, 10), beside the
-    package's wrapper and the
-    bit-sliced tier's launch; then the compare kernel against that launch
-    (``shared_scan_bitsliced_tiles``, one launch) at every swept width and
-    k, and the table of ``scan._COMPARE_FOLD_KS``."""
+    package's wrapper and the plane fold; then the compare kernel against
+    the fold and the dynamic scan's lookup at every swept width and k, and
+    the table of ``scan._COMPARE_FOLD_KS``."""
     for width, ks in ((9, (1, 2, 4, 8)), (17, (1, 4)), (25, (1, 4)), (31, (1, 4, 10))):
         n = harness.values_for(N_BYTES_FULL, width)
         tiles = pack_device_kernel(harness.synth_modk(n, DOMAIN, width, device=device),
@@ -1483,7 +1423,7 @@ def compare_sweep(lib, device) -> None:
             calls = _scan_variants(lib, device, False, tiles, width, n, kt)
             calls["the package's shared_scan_tiles"] = (
                 lambda: scan.shared_scan_tiles(tiles, kt, width, n))
-            calls["the bit-sliced tier's launch (shared_scan_bitsliced_tiles)"] = (
+            calls["the plane fold (shared_scan_bitsliced_tiles)"] = (
                 lambda: scan.shared_scan_bitsliced_tiles(tiles, kt, width, n))
             bound = (width * nblocks * 4 + k * (nblocks * 4 + 12)) / HBM_BYTES_PER_S * 1e3
             _checked_turns(f"compare k={k} at width {width}, i % {DOMAIN}, n {n}", calls,
@@ -1494,8 +1434,10 @@ def compare_sweep(lib, device) -> None:
 
 
 def compare_rule_sweep(device) -> None:
-    """The compare kernel against the bit-sliced tier's launch at every
-    swept width and k, and the table of ``scan._COMPARE_FOLD_KS``."""
+    """The compare kernel against the route's other kernels, the plane fold
+    and the dynamic scan's lookup (one launch each), at every swept width
+    and k, and the table of ``scan._COMPARE_FOLD_KS``: the k where the
+    faster of the two beats the compare kernel by more than 5%."""
     gains = {}
     for width in COMPARE_WIDTHS:
         m = min(1 << width, DOMAIN)
@@ -1522,20 +1464,24 @@ def compare_rule_sweep(device) -> None:
                 return bits, counts
 
             calls = {"the compare kernel": compare,
-                     "the bit-sliced tier's launch":
+                     "the plane fold":
                          lambda tiles=tiles, kt=kt, n=n: scan.shared_scan_bitsliced_tiles(
+                             tiles, kt, width, n),
+                     "the dynamic scan's lookup":
+                         lambda tiles=tiles, kt=kt, n=n: scan.shared_scan_dynamic_tiles(
                              tiles, kt, width, n)}
             bound = (width * nblocks * 4 + k * (nblocks * 4 + 12)) / HBM_BYTES_PER_S * 1e3
             times = _checked_turns(f"compare k={k} at width {width}, i % {m}, n {n}", calls,
                                    _modk_counts(keys, n, m), bound)
-            compare_ms, route_ms = (sum(t) / 2 for t in times.values())
-            gains[(width, k)] = compare_ms / route_ms - 1
+            compare_ms, fold_ms, lookup_ms = (sum(t) / 2 for t in times.values())
+            gains[(width, k)] = compare_ms / min(fold_ms, lookup_ms) - 1
         del cache
         torch.cuda.empty_cache()
-    print("compare: the bit-sliced launch's gain over the compare kernel (compare / launch - 1): "
+    print("compare: the faster of the fold and the lookup over the compare kernel "
+          "(compare / min(fold, lookup) - 1): "
           + "; ".join(f"w{w} k{k} {g:+.4f}" for (w, k), g in gains.items()))
     wins = {w: tuple(k for k in COMPARE_KS if gains[(w, k)] > 0.05) for w in COMPARE_WIDTHS}
-    print(f"compare: k where the bit-sliced launch is more than 5% faster, by width "
+    print(f"compare: k where the fold or the lookup is more than 5% faster, by width "
           f"(scan._COMPARE_FOLD_KS): { {w: ks for w, ks in wins.items() if ks} }")
 
 

@@ -14,15 +14,11 @@
 //     memory: the CTAs of a window group side by side in launch order, so
 //     the groups read each tile at about the same time (once from device
 //     memory, the rest from the L2);
-//   - the static linear export as it was before its redesign: the
-//     host-compiled AND-DAG program interpreted over node slots in shared
-//     memory, each row staged a byte at a time beside the slots;
 //   - the runtime keys' linear fold as it was before its redesign (the
 //     library's sss_bitsliced_scan_linear until then): each key's masks
 //     computed from the key in the loop, about three instructions a plane
 //     a key, on keys read from device memory, passed by value or in
 //     constant memory.
-#include "dag_program.cuh"
 #include "../csrc/histogram.cu"
 #include "../csrc/bitsliced.cu"
 
@@ -132,60 +128,6 @@ cudaError_t launch_domain_windows(const uint32_t* tiles, int g, unsigned long lo
   kernel<<<(unsigned)(lanes * groups), kThreads, smem, stream>>>(tiles, g, groups, counts,
                                                                  nblocks, n, 0);
   return cudaGetLastError();
-}
-
-// --- the static linear export before its redesign --------------------------
-
-__device__ __forceinline__ void stage_byte_row(uint8_t* stage, int k, int j, uint32_t word) {
-  uint8_t* p = stage + (size_t)threadIdx.x * (k + 1) * 4 + j;
-  p[0] = (uint8_t)word;
-  p[k] = (uint8_t)(word >> 8);
-  p[2 * k] = (uint8_t)(word >> 16);
-  p[3 * k] = (uint8_t)(word >> 24);
-}
-
-template <int W>
-__global__ void __launch_bounds__(kStaticThreadsMax)
-static_linear_baseline_kernel(const uint32_t* __restrict__ tiles, const uint2* __restrict__ prog,
-                              int nops, int k, uint32_t* __restrict__ out,
-                              unsigned long long* __restrict__ counts, long long nblocks,
-                              long long n, long long block_offset, int slots) {
-  extern __shared__ uint32_t s_val[];  // [slot][threadIdx.x], then the linear stage
-  __shared__ unsigned s_cnt[kMaxLinearKeys];
-  zero_counts(s_cnt, k);
-  uint8_t* stage = reinterpret_cast<uint8_t*>(s_val + (size_t)slots * blockDim.x);
-  const int stride = blockDim.x;
-  const long long ntiles = (nblocks + blockDim.x - 1) / blockDim.x;
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const long long first = t * stride;
-    const long long b = first + threadIdx.x;
-    const bool active = b < nblocks;
-    uint32_t w[W];
-    load_block<W>(tiles, nblocks, b, active, w);
-    const uint32_t valid = active ? valid_word(block_offset + b, n) : 0u;
-    uint32_t x[kBlockValues];
-    unpack_values<W>(w, x);
-    transpose_bitplanes<W>(x);
-#pragma unroll
-    for (int p = 0; p < W; ++p) s_val[p * stride + threadIdx.x] = x[p];
-    for (int i = 0; i < nops; ++i) {
-      const uint2 op = __ldg(prog + i);
-      const uint32_t kind = op.x >> 30, target = op.x & 0x3FFFFFFFu;
-      const uint32_t a = dag_operand(s_val, op.y & 0xFFFFu, stride);
-      if (kind == kAnd || kind == kOr) {
-        const uint32_t c = dag_operand(s_val, op.y >> 16, stride);
-        s_val[target * stride + threadIdx.x] = kind == kAnd ? a & c : a | c;
-      } else {
-        const uint32_t row = kind == kOut ? a & valid : 0u;
-        count_row((int)target, row, s_cnt);
-        stage_byte_row(stage, k, (int)target, row);
-      }
-    }
-    const long long left = nblocks - first;
-    flush_linear(reinterpret_cast<uint32_t*>(stage), k, out, first,
-                 left < blockDim.x ? (int)left : (int)blockDim.x);
-  }
-  flush_counts(s_cnt, k, counts);
 }
 
 // --- the runtime keys' linear fold before its redesign ---------------------
@@ -302,40 +244,23 @@ extern "C" int sweep_domain(int variant, const uint32_t* tiles, void* counts, lo
 }
 
 // Variants of the linear export at width 9 (keys a host array of k uint32,
-// dev_keys the same keys in device memory, prog / nops / slots the key
-// set's program for variant 0; out uint32[nblocks * k], counts int64[k]
-// zeroed by the caller): 0 the static kernel before its redesign
-// (`threads` threads a CTA), 1 the library's static entry, its plane masks
-// in shared memory at 2 256 and 3 128 threads a CTA, and the fold with its
-// masks computed from the keys in the loop: 4 keys as kernel parameters at
-// 256 and 5 at 128 threads, 6 keys in constant memory, 7 keys read from
-// device memory at linear_threads(k) threads (the runtime entry before its
-// redesign); 8 the library's runtime entry, and the masks of the keys in
-// device memory staged in shared memory at 9 256 and 10 128 threads.
+// dev_keys the same keys in device memory; out uint32[nblocks * k], counts
+// int64[k] zeroed by the caller): 1 the library's static entry, its plane
+// masks in shared memory at 2 256 and 3 128 threads a CTA, and the fold
+// with its masks computed from the keys in the loop: 4 keys as kernel
+// parameters at 256 and 5 at 128 threads, 6 keys in constant memory, 7
+// keys read from device memory at linear_threads(k) threads (the runtime
+// entry before its redesign); 8 the library's runtime entry, and the masks
+// of the keys in device memory staged in shared memory at 9 256 and 10 128
+// threads.
 extern "C" int sweep_fold(int variant, const uint32_t* tiles, const uint32_t* keys,
-                          const uint32_t* dev_keys, const int* prog, int nops, int slots,
-                          int threads, int k, uint32_t* out, unsigned long long* counts,
-                          long long nblocks, int width, long long n, cudaStream_t stream) {
+                          const uint32_t* dev_keys, int k, uint32_t* out,
+                          unsigned long long* counts, long long nblocks, int width, long long n,
+                          cudaStream_t stream) {
   if (width != 9 || !sss::linear_k_ok(k) || nblocks <= 0) return (int)cudaErrorInvalidValue;
   sss::LinearKeys hk{};
   for (int j = 0; j < k; ++j) hk.key[j] = keys[j];
   switch (variant) {
-    case 0: {
-      const auto kernel = sss::static_linear_baseline_kernel<9>;
-      const size_t smem = ((size_t)slots + k + 1) * threads * sizeof(uint32_t);
-      unsigned grid = 0;
-      cudaError_t err =
-          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err == cudaSuccess)
-        err = sss::resident_grid(kernel, threads, smem, (nblocks + threads - 1) / threads, &grid);
-      if (err != cudaSuccess) {
-        cudaGetLastError();
-        return (int)err;
-      }
-      kernel<<<grid, threads, smem, stream>>>(tiles, reinterpret_cast<const uint2*>(prog), nops,
-                                              k, out, counts, nblocks, n, 0, slots);
-      return (int)cudaGetLastError();
-    }
     case 1:
       return sss_bitsliced_static_scan_linear(tiles, keys, k, out, counts, nblocks, 9, n, 0,
                                               stream);

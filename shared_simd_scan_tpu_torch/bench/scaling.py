@@ -10,8 +10,8 @@ summed data-sheet rate) and the efficiency against the 1-device row;
 then the verification: every mesh's counts against their closed form.
 
 The keys are a CUDA tensor, the counterpart of the JAX chain's traced
-keys: the sharded scan takes the runtime tier, the bit-sliced kernel
-where ``_bitsliced_wins`` (k >= 5 at width 9), else the compare kernel.
+keys: each shard's launches take the kernel ``scan.pick_route`` names (at
+width 9 the compare kernel below 4 keys, the plane fold from 4).
 
 Under ``dist.initialize`` every process of the group calls it: the rows
 walk the group's global slots (rank-major, each process's devices in

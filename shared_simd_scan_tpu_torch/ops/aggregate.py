@@ -118,7 +118,7 @@ def _empty_groups(counts, mins, maxs, wm: int):
 # ---------------------------------------------------------------------------
 #
 # Costs are in the dispatch's quarter-ops-per-value units (ops per 32-value
-# word / 8), the convention of scan.bitsliced_cost.  The constants are the
+# word / 8), the JAX package's scan.bitsliced_cost convention.  The constants are the
 # JAX package's per-32-value vector-op counts of its kernel bodies: unpack
 # ~2.5 ops per value per column, select-accumulate ~(1 compare + 2 or 3
 # select-add pairs) per key per value, bit-plane ~4 ops per key per measure

@@ -1,36 +1,26 @@
-"""Fused shared scans on the tile layout: every tier of the dispatcher.
+"""Fused shared scans on the tile layout, and the shared scan's route.
 
 PyTorch counterpart of the shared-scan part of
-``shared_simd_scan_tpu/ops/scan.py``:
+``shared_simd_scan_tpu/ops/scan.py``.  One wrapper a row of the JAX
+package's kernels:
 
-- the general compare kernel (:func:`shared_scan_tiles`);
-- the chunked scan (a key lookup per value) and the dynamic compare for
-  any k, which only the benchmark drivers run
+- the compare kernel (:func:`shared_scan_tiles`, the route's entry);
+- the chunked scan and the dynamic scan, a key lookup per value for any k
   (:func:`shared_scan_chunked_tiles`, :func:`shared_scan_dynamic_tiles`);
 - the interval kernel for consecutive keys (:func:`interval_scan_tiles`)
   with its shift canary (:func:`shift_saturates`);
-- the bit-sliced tier for runtime keys, on this card the plane fold in tile
-  order on the key tensor (:func:`shared_scan_bitsliced_tiles`);
-- the static bit-sliced tier for host keys, on this card the plane fold
-  with the keys' plane masks in shared memory
-  (:func:`shared_scan_bitsliced_static_tiles`; its AND-DAG stays for the
-  cost rule and the histogram's programs);
-- the windowed tier for clustered host keys, on this card one lookup a
-  value in the keys' window tables, the plane fold for a few keys
+- the bit-sliced rows as the plane fold in tile order: on a key tensor
+  (:func:`shared_scan_bitsliced_tiles`) and on host keys copied to the
+  card (:func:`shared_scan_bitsliced_static_tiles`);
+- the windowed row as one lookup a value in the host keys' window tables
   (:func:`windowed_scan_tiles`);
 - the range scan, k half-open ranges in one pass (:func:`range_scan_tiles`);
-- their planners, copied from the JAX package (:func:`pick_concrete_tier`
-  and the cost functions it calls), and the dispatcher
-  (:func:`shared_scan_device` / :func:`scan_device`);
-- the member OR-tree DAG (:func:`_member_or_tree`), its cost and liveness
-  counters, which ``ops/member.py`` dispatches on, and its one-row program
-  (:func:`_member_program`), which no kernel of the package runs since the
-  OR-tree body became a set lookup (``bench/redesign_sweep.py`` times it);
+- the member OR-tree DAG (:func:`_member_or_tree`) and its cost and
+  liveness counters, which ``ops/member.py`` dispatches on;
 - the value histogram without bitvectors: the runtime-lo bins kernel
-  (:func:`histogram_tiles`); for a host lo the static AND-DAG in its
-  counts-only form on chunked programs, or the bins kernel's span form
-  (:func:`histogram_dag_tiles`); and their dispatcher
-  :func:`histogram_device`.
+  (:func:`histogram_tiles`); for a host lo the static fold's counts form or
+  the bins kernel's span form (:func:`histogram_dag_tiles`); and their
+  dispatcher :func:`histogram_device`.
 - the linear export: the interval, static and runtime-key scans fused
   with the byte interleave (:func:`interval_scan_linear_words_tiles`,
   :func:`static_scan_linear_words_tiles`,
@@ -38,6 +28,22 @@ PyTorch counterpart of the shared-scan part of
   the dispatchers :func:`shared_scan_linear_words_device` and
   :func:`shared_scan_linear_device` (the interleave itself is in
   ``ops/linear.py``).
+
+The shared scan's route (:func:`shared_scan_device`, and
+``parallel/dist.py`` ``sharded_shared_scan``): a host run of 2..1024
+consecutive keys takes the interval kernel; every other key set, host keys
+copied to the card once a set or keys given as a CUDA tensor, goes to
+:func:`_routed_scan` (:func:`shared_scan_tiles` for a key tensor), which
+launches each MAX_LAUNCH_KEYS keys on the kernel :func:`pick_route` reads
+from H100 sweeps of ``bench/redesign_sweep.py``.  By ``compare``, the
+compare kernel for fewer than 4 keys at widths 9 and 12 (2 at width 5, 8
+at widths 16-20, 16 at 25 and 31; none at width 1), else the plane fold;
+by ``runtime``, in place of the fold the dynamic scan's lookup at widths
+10-12 from 192 or 256 keys and at widths 20-31 from 128 to 1024 keys, by
+width; by ``windowed``, for host keys in place of that lookup the window
+lookup on the keys' tables at widths 20-31 and 1024 keys.  The wrappers of
+the bit-sliced and windowed rows launch their own kernel and no
+dispatcher picks them.
 
 Output contract (the JAX package's): ``bits[k, B1, 128]`` holds one
 LSB-first uint32 word per block and key, with bits of values at index
@@ -51,7 +57,6 @@ tensors and runs the plain torch version beside it on CPU tensors.
 from __future__ import annotations
 
 import functools
-import heapq
 
 import numpy as np
 import torch
@@ -160,32 +165,187 @@ def shared_scan_tiles(
     ``block_offset`` is the global index of the tiles' first block, for a
     shard of a longer column of ``n`` values.
 
-    On CUDA tensors, in launches of MAX_LAUNCH_KEYS keys: kernel
-    ``sss_shared_scan`` (``csrc/shared_scan.cu``), counted here, or where
-    :func:`_compare_fold_wins` the bit-sliced tier's launch on the same
-    keys (:func:`_fold_route_launch`: the plane fold, or the dynamic scan's
-    lookup), counted by the wrapper of the kernel that ran; the keys are
-    never read on the host.  The plain version on CPU tensors."""
+    The route's entry (:func:`_routed_scan`): each launch of
+    MAX_LAUNCH_KEYS keys takes the kernel :func:`pick_route` names for its
+    k; the keys are never read on the host.  The plain compare on CPU
+    tensors."""
+    return _routed_scan(tiles, keys, None, width, n, block_offset)
+
+
+def _routed_scan(
+    tiles: torch.Tensor, keys: torch.Tensor, host: np.ndarray | None, width: int, n: int,
+    block_offset: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The route on ``keys`` (int32[k] on the tiles' device) -> (bits,
+    counts): each launch of MAX_LAUNCH_KEYS keys on the kernel
+    :func:`pick_route` names, each decision counted ``tier.<route>`` in
+    span ``scan.pick_tier``.  ``host`` holds the same keys as a host uint32
+    array where they came from the host (their "window" launches build
+    window tables from it), else None.  On CUDA tensors each launch is
+    counted under the wrapper of its kernel (``_ROUTE_KERNELS``); the
+    plain compare on CPU tensors."""
     b1 = _check_tiles(tiles, width)
     _check_key_tensor(keys)
+    k = int(keys.shape[0])
+    with profiling.span("scan.pick_tier"):
+        routes = [pick_route(width, min(k - g0, MAX_LAUNCH_KEYS), host is not None)
+                  for g0 in range(0, k, MAX_LAUNCH_KEYS)]
+    for route in routes:
+        profiling.count("tier." + route)
     device = _cuda.kernel_device(tiles, keys)
     if device is None:
         return shared_scan_tiles_plain(tiles, keys, width, n, block_offset)
-    k = int(keys.shape[0])
-    bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
-    counts = torch.zeros(k, dtype=torch.int64, device=device)
-    for g0 in range(0, k, MAX_LAUNCH_KEYS):
+    bits, counts = _rows_out(k, b1, device)
+    for g0, route in zip(range(0, k, MAX_LAUNCH_KEYS), routes):
         rows = min(k - g0, MAX_LAUNCH_KEYS)
-        if _compare_fold_wins(width, rows):
-            _fold_route_launch(tiles, keys, g0, rows, bits, counts, width, n, block_offset, device)
-            continue
-        _cuda.launch(
-            "sss_shared_scan", device, tiles.data_ptr(), keys.data_ptr() + 4 * g0, rows,
-            bits.data_ptr() + 4 * g0 * b1 * LANES, counts.data_ptr() + 8 * g0, b1 * LANES, width,
-            n, block_offset,
-        )
-        profiling.count("launches.shared_scan_tiles")
+        if route == "window":
+            _window_launches(tiles, host[g0 : g0 + rows], g0, bits, counts, width, n,
+                             block_offset, device)
+        else:
+            _launch_route(route, tiles, keys, g0, rows, bits, counts, width, n, block_offset,
+                          device)
+        profiling.count("launches." + _ROUTE_KERNELS[route][1])
     return bits, counts
+
+
+def _rows_out(k: int, b1: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(bits int32[k, B1, 128], zeroed counts int64[k]) on ``device``."""
+    return (torch.empty((k, b1, LANES), dtype=torch.int32, device=device),
+            torch.zeros(k, dtype=torch.int64, device=device))
+
+
+# ---------------------------------------------------------------------------
+# The route: the kernel of one launch of arbitrary keys
+# ---------------------------------------------------------------------------
+
+
+# The widths and k of one launch that ``bench/redesign_sweep.py compare``
+# timed (CUDA keys on ``i % 2^min(width, 9)`` columns of 256 MiB packed,
+# less where the k rows would pass 16 GiB; NVIDIA H100 80GB HBM3, 700 W),
+# and by width the k where the plane fold on the key tensor (the dynamic
+# scan's lookup where ``_RUNTIME_LOOKUP_KS`` names the k) ran more than 5%
+# faster than the compare kernel.  The compare kernel's work grows with k
+# alone, the fold's with k x width, so the crossover moves from k = 1 at
+# width 1 to 16 at width 31.
+_COMPARE_SWEEP_WIDTHS = (1, 5, 9, 12, 16, 17, 20, 25, 31)
+_COMPARE_SWEEP_KS = (1, 2, 3, 4, 5, 8, 16, 32, 64, 256, 1024)
+_COMPARE_FOLD_KS = {
+    1: (1, 2, 3, 4, 5, 8, 16, 32, 64, 256, 1024), 5: (2, 3, 4, 5, 8, 16, 32, 64, 256, 1024),
+    **{w: (4, 5, 8, 16, 32, 64, 256, 1024) for w in (9, 12)},
+    **{w: (8, 16, 32, 64, 256, 1024) for w in (16, 17, 20)},
+    **{w: (16, 32, 64, 256, 1024) for w in (25, 31)},
+}
+
+
+def _around(grid: tuple, x: int) -> tuple[int, int] | None:
+    """The measured points of ``grid`` at or around x (both x where x is
+    one), or None outside the grid."""
+    below = [m for m in grid if m <= x]
+    above = [m for m in grid if m >= x]
+    return (below[-1], above[0]) if below and above else None
+
+
+def _won_around(sweep_widths: tuple, sweep_ks: tuple, wins: dict, width: int, k: int) -> bool:
+    """Whether every measured point around (width, k) -- the swept widths
+    and k at or on each side -- is a win in ``wins`` (width -> k)."""
+    widths, ks = _around(sweep_widths, width), _around(sweep_ks, k)
+    if widths is None or ks is None:
+        return False
+    return all(m in wins.get(w, ()) for w in widths for m in ks)
+
+
+@profiling.watch_cache
+@functools.lru_cache(maxsize=None)
+def _compare_fold_wins(width: int, k: int) -> bool:
+    """Whether one launch of k keys of a ``width``-bit column leaves the
+    compare kernel for the plane fold's side of the route: where the
+    ``compare`` sweep measured the fold more than 5% faster, or where
+    every measured point around (width, k) did."""
+    return _won_around(_COMPARE_SWEEP_WIDTHS, _COMPARE_SWEEP_KS, _COMPARE_FOLD_KS, width, k)
+
+
+# The k of one launch that ``bench/redesign_sweep.py runtime`` timed (CUDA
+# keys, i % 512 columns of 128 MiB packed, widths 9-31; NVIDIA H100 80GB
+# HBM3, 700 W), and by width those where the dynamic scan's key lookup ran
+# more than 5% faster than the plane fold; at no other width did it.
+_RUNTIME_SWEEP_KS = (8, 64, 128, 192, 256, 384, 512, 768, 1024)
+_RUNTIME_LOOKUP_KS = {
+    10: (256, 384, 512, 768, 1024), 11: (192, 256, 384, 512, 768, 1024),
+    12: (192, 256, 384, 512, 768, 1024), 20: (384, 768, 1024), 21: (1024,),
+    22: (384, 768, 1024), 23: (384, 768, 1024), 24: (256, 384, 768, 1024),
+    25: (192, 256, 384, 768, 1024), 26: (192, 256, 384, 512, 768, 1024),
+    **{w: (128, 192, 256, 384, 512, 768, 1024) for w in range(27, 32)},
+}
+
+
+def _runtime_lookup_wins(width: int, k: int) -> bool:
+    """Whether one launch of k keys of a ``width``-bit column takes the
+    dynamic scan's key lookup in place of the plane fold: where the
+    ``runtime`` sweep measured it more than 5% faster at k, or at both
+    measured k around it.  The fold's work grows with k x width; past 12
+    bits the lookup is a search."""
+    wins = _RUNTIME_LOOKUP_KS.get(width, ())
+    below = [m for m in _RUNTIME_SWEEP_KS if m <= k]
+    above = [m for m in _RUNTIME_SWEEP_KS if m >= k]
+    return bool(below and above) and below[-1] in wins and above[0] in wins
+
+
+# The column of the lookup for host keys: the route's lookup points that
+# ``bench/redesign_sweep.py windowed`` timed on host keys (1024 keys, a
+# window each, on i % 512 columns of 64 MiB packed at widths 20 and 31;
+# NVIDIA H100 80GB HBM3, 700 W), and by width the k where the window lookup
+# on the keys' host-built tables (``sss_windowed_lookup``) ran more than 5%
+# faster than the dynamic scan's lookup: 10.2% at width 20, 15.2% at 31.
+_WINDOW_SWEEP_WIDTHS = (20, 31)
+_WINDOW_SWEEP_KS = (1024,)
+_WINDOW_LOOKUP_KS = {20: (1024,), 31: (1024,)}
+
+
+def pick_route(width: int, k: int, host_keys: bool = False) -> str:
+    """The kernel of one launch of k arbitrary keys (k <= MAX_LAUNCH_KEYS)
+    of a ``width``-bit column, read from the H100 sweeps alone:
+    ``"compare"`` (``sss_shared_scan``) unless :func:`_compare_fold_wins`,
+    else ``"fold"`` (``sss_bitsliced_static_fold``) unless
+    :func:`_runtime_lookup_wins`, else the lookup: ``"window"``
+    (``sss_windowed_lookup``) for keys that came from the host
+    (``host_keys``) where every measured point around (width, k) of
+    ``_WINDOW_LOOKUP_KS`` is a win, else ``"lookup"``
+    (``sss_shared_scan_dynamic``).  Every route sets bit r of row j iff
+    value r equals key j."""
+    if not _compare_fold_wins(width, k):
+        return "compare"
+    if not _runtime_lookup_wins(width, k):
+        return "fold"
+    if host_keys and _won_around(_WINDOW_SWEEP_WIDTHS, _WINDOW_SWEEP_KS, _WINDOW_LOOKUP_KS,
+                                 width, k):
+        return "window"
+    return "lookup"
+
+
+# route -> (C entry point, the wrapper whose ``launches.`` counter counts its
+# launches in the route)
+_ROUTE_KERNELS = {"compare": ("sss_shared_scan", "shared_scan_tiles"),
+                  "fold": ("sss_bitsliced_static_fold", "shared_scan_bitsliced_tiles"),
+                  "lookup": ("sss_shared_scan_dynamic", "shared_scan_dynamic_tiles"),
+                  "window": ("sss_windowed_lookup", "windowed_scan_tiles")}
+
+
+def _launch_route(
+    route: str, tiles: torch.Tensor, keys: torch.Tensor, g0: int, rows: int, bits: torch.Tensor,
+    counts: torch.Tensor, width: int, n: int, block_offset: int, device: torch.device,
+) -> None:
+    """The one launch site of the route's kernels on a key tensor:
+    ``route``'s kernel (not ``"window"``, :func:`_window_launches`) on keys
+    ``g0 .. g0 + rows - 1`` (in device memory) into the same rows
+    of ``bits`` and ``counts``.  The fold and the compare kernel take at
+    most MAX_LAUNCH_KEYS keys; the dynamic scan's entry splits more into
+    launches of that many.  The caller counts them."""
+    nblocks = tiles.shape[1] * LANES
+    _cuda.launch(
+        _ROUTE_KERNELS[route][0], device, tiles.data_ptr(), keys.data_ptr() + 4 * g0, rows,
+        bits.data_ptr() + 4 * g0 * nblocks, counts.data_ptr() + 8 * g0, nblocks, width, n,
+        block_offset,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -307,20 +467,17 @@ def shared_scan_dynamic_tiles(
     row, and the rows stored in groups of 64.
 
     Kernel ``sss_shared_scan_dynamic`` (``csrc/shared_scan.cu``) on CUDA
-    tensors, in launches of MAX_LAUNCH_KEYS keys (each counted); the plain
-    version on CPU tensors."""
+    tensors, the route's ``"lookup"`` (:func:`_launch_route`), in launches
+    of MAX_LAUNCH_KEYS keys (each counted); the plain version on CPU
+    tensors."""
     b1 = _check_tiles(tiles, width)
     _check_key_tensor(keys)
     device = _cuda.kernel_device(tiles, keys)
     if device is None:
         return shared_scan_dynamic_tiles_plain(tiles, keys, width, n, block_offset)
     k = int(keys.shape[0])
-    bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
-    counts = torch.zeros(k, dtype=torch.int64, device=device)
-    _cuda.launch(
-        "sss_shared_scan_dynamic", device, tiles.data_ptr(), keys.data_ptr(), k, bits.data_ptr(),
-        counts.data_ptr(), b1 * LANES, width, n, block_offset,
-    )
+    bits, counts = _rows_out(k, b1, device)
+    _launch_route("lookup", tiles, keys, 0, k, bits, counts, width, n, block_offset, device)
     profiling.count("launches.shared_scan_dynamic_tiles", -(-k // MAX_LAUNCH_KEYS))
     return bits, counts
 
@@ -525,31 +682,14 @@ def interval_scan_tiles(
 
 
 # ---------------------------------------------------------------------------
-# Bit-sliced tier: runtime keys through bit planes
+# Bit-sliced rows: the plane fold
 # ---------------------------------------------------------------------------
 #
 # The 32 values of a block are transposed into bit planes (plane p, bit r =
 # bit p of value r) by a 5-stage SWAPMOVE butterfly pruned to the width's
 # live planes; key j then matches where AND_p (plane_p ^ (bit_p(j) - 1)) is
-# set: ~2*width ops per 32 values per key instead of the compare tier's ~3
-# per value.  Nothing reads the key values on the host, so this tier takes
-# the runtime keys.
-
-
-def bitsliced_cost(width: int, k: int) -> int:
-    """Static cost of the bit-sliced kernel in the dispatch's
-    quarter-ops-per-value units: ~48 fixed (unpack + SWAPMOVE transpose +
-    plane stores, amortized over the key chunks of one block tile) plus
-    width/4 per key (2*width ops per 32-value word)."""
-    return 48 + width * k // 4
-
-
-def _bitsliced_wins(width: int, k: int) -> bool:
-    """Bit-sliced vs the general compare kernel (~12 per key + ~4 fixed
-    in quarter-ops-per-value units).  At width 9 this crosses at k=5.
-    The constants come from the JAX package's TPU measurements and are
-    kept for dispatch parity."""
-    return bitsliced_cost(width, k) < 4 + 12 * k
+# set.  The kernel reads the keys from device memory, so it takes keys
+# given as a CUDA tensor and host keys copied to the card alike.
 
 
 def _transpose_stages():
@@ -617,97 +757,6 @@ def shared_scan_bitsliced_tiles_plain(
     return _finish(acc, valid)
 
 
-# The k of one launch that ``bench/redesign_sweep.py runtime`` timed (CUDA
-# keys, i % 512 columns of 128 MiB packed, widths 9-31; NVIDIA H100 80GB
-# HBM3, 700 W), and by width those where the dynamic scan's key lookup ran
-# more than 5% faster than the plane fold; at no other width did it.
-_RUNTIME_SWEEP_KS = (8, 64, 128, 192, 256, 384, 512, 768, 1024)
-_RUNTIME_LOOKUP_KS = {
-    10: (256, 384, 512, 768, 1024), 11: (192, 256, 384, 512, 768, 1024),
-    12: (192, 256, 384, 512, 768, 1024), 20: (384, 768, 1024), 21: (1024,),
-    22: (384, 768, 1024), 23: (384, 768, 1024), 24: (256, 384, 768, 1024),
-    25: (192, 256, 384, 768, 1024), 26: (192, 256, 384, 512, 768, 1024),
-    **{w: (128, 192, 256, 384, 512, 768, 1024) for w in range(27, 32)},
-}
-
-
-def _runtime_lookup_wins(width: int, k: int) -> bool:
-    """Whether one launch of k runtime keys of a ``width``-bit column takes
-    the dynamic scan's key lookup in place of the plane fold: where the
-    sweep measured it more than 5% faster at k, or at both measured k
-    around it.  The fold's work grows with k x width; past 12 bits the
-    lookup is a search."""
-    wins = _RUNTIME_LOOKUP_KS.get(width, ())
-    below = [m for m in _RUNTIME_SWEEP_KS if m <= k]
-    above = [m for m in _RUNTIME_SWEEP_KS if m >= k]
-    return bool(below and above) and below[-1] in wins and above[0] in wins
-
-
-# The widths and k of one launch that ``bench/redesign_sweep.py compare``
-# timed (CUDA keys on ``i % 2^min(width, 9)`` columns of 256 MiB packed,
-# less where the k rows would pass 16 GiB; NVIDIA H100 80GB HBM3, 700 W),
-# and by width the k where the bit-sliced tier's launch on the key tensor
-# (:func:`_fold_route_launch`) ran more than 5% faster than the compare
-# kernel.  The compare kernel's work grows with k alone, the fold's with k
-# x width, so the crossover moves from k = 1 at width 1 to 16 at width 31.
-_COMPARE_SWEEP_WIDTHS = (1, 5, 9, 12, 16, 17, 20, 25, 31)
-_COMPARE_SWEEP_KS = (1, 2, 3, 4, 5, 8, 16, 32, 64, 256, 1024)
-_COMPARE_FOLD_KS = {
-    1: (1, 2, 3, 4, 5, 8, 16, 32, 64, 256, 1024), 5: (2, 3, 4, 5, 8, 16, 32, 64, 256, 1024),
-    **{w: (4, 5, 8, 16, 32, 64, 256, 1024) for w in (9, 12)},
-    **{w: (8, 16, 32, 64, 256, 1024) for w in (16, 17, 20)},
-    **{w: (16, 32, 64, 256, 1024) for w in (25, 31)},
-}
-
-
-def _around(grid: tuple, x: int) -> tuple[int, int] | None:
-    """The measured points of ``grid`` at or around x (both x where x is
-    one), or None outside the grid."""
-    below = [m for m in grid if m <= x]
-    above = [m for m in grid if m >= x]
-    return (below[-1], above[0]) if below and above else None
-
-
-@profiling.watch_cache
-@functools.lru_cache(maxsize=None)
-def _compare_fold_wins(width: int, k: int) -> bool:
-    """Whether one launch of k keys of a ``width``-bit column in
-    :func:`shared_scan_tiles` takes the bit-sliced tier's launch in place
-    of the compare kernel: where the sweep measured it more than 5%
-    faster, or where every measured point around (width, k) -- the swept
-    widths and k at or on each side -- did.  Same results either way: both
-    set bit r of row j iff value r equals key j."""
-    widths, ks = _around(_COMPARE_SWEEP_WIDTHS, width), _around(_COMPARE_SWEEP_KS, k)
-    if widths is None or ks is None:
-        return False
-    return all(m in _COMPARE_FOLD_KS.get(w, ()) for w in widths for m in ks)
-
-
-def _fold_route_launch(
-    tiles: torch.Tensor, keys: torch.Tensor, g0: int, rows: int, bits: torch.Tensor,
-    counts: torch.Tensor, width: int, n: int, block_offset: int, device: torch.device,
-) -> None:
-    """One launch of the bit-sliced tier on keys ``g0 .. g0 + rows - 1``
-    (rows <= MAX_LAUNCH_KEYS, in device memory), into the same rows of
-    ``bits`` and ``counts``: the plane fold in tile order
-    (``sss_bitsliced_static_fold``), counted by
-    :func:`shared_scan_bitsliced_tiles`, or where
-    :func:`_runtime_lookup_wins` the dynamic scan's key lookup
-    (``sss_shared_scan_dynamic``), counted by
-    :func:`shared_scan_dynamic_tiles`."""
-    lookup = _runtime_lookup_wins(width, rows)
-    nblocks = tiles.shape[1] * LANES
-    _cuda.launch(
-        "sss_shared_scan_dynamic" if lookup else "sss_bitsliced_static_fold", device,
-        tiles.data_ptr(), keys.data_ptr() + 4 * g0, rows, bits.data_ptr() + 4 * g0 * nblocks,
-        counts.data_ptr() + 8 * g0, nblocks, width, n, block_offset,
-    )
-    if lookup:
-        profiling.count("launches.shared_scan_dynamic_tiles")
-    else:
-        profiling.count("launches.shared_scan_bitsliced_tiles")
-
-
 def shared_scan_bitsliced_tiles(
     tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -716,36 +765,46 @@ def shared_scan_bitsliced_tiles(
 
     On CUDA tensors, one launch per MAX_LAUNCH_KEYS keys of the plane fold
     in tile order (``sss_bitsliced_static_fold``, ``csrc/bitsliced.cu``:
-    each CTA stages the keys' plane masks in shared memory once), counted
-    here, or where :func:`_runtime_lookup_wins` the dynamic scan's key
-    lookup (``sss_shared_scan_dynamic``, ``csrc/shared_scan.cu``), counted
-    by :func:`shared_scan_dynamic_tiles`; the plain version on CPU
-    tensors."""
-    b1 = _check_tiles(tiles, width)
+    each CTA stages the keys' plane masks in shared memory once), the
+    route's ``"fold"`` (:func:`_fold`), each launch counted here; the plain
+    version on CPU tensors."""
+    _check_tiles(tiles, width)
     _check_key_tensor(keys)
     device = _cuda.kernel_device(tiles, keys)
     if device is None:
         return shared_scan_bitsliced_tiles_plain(tiles, keys, width, n, block_offset)
+    out = _fold(tiles, keys, width, n, block_offset, device)
+    profiling.count("launches.shared_scan_bitsliced_tiles", -(-keys.shape[0] // MAX_LAUNCH_KEYS))
+    return out
+
+
+def _fold(
+    tiles: torch.Tensor, keys: torch.Tensor, width: int, n: int, block_offset: int,
+    device: torch.device
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plane fold on keys in device memory, one launch per
+    MAX_LAUNCH_KEYS keys (:func:`_launch_route`) -> (bits, counts)."""
     k = int(keys.shape[0])
-    bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
-    counts = torch.zeros(k, dtype=torch.int64, device=device)
+    bits, counts = _rows_out(k, tiles.shape[1], device)
     for g0 in range(0, k, MAX_LAUNCH_KEYS):
-        _fold_route_launch(tiles, keys, g0, min(k - g0, MAX_LAUNCH_KEYS), bits, counts, width, n,
-                           block_offset, device)
+        _launch_route("fold", tiles, keys, g0, min(k - g0, MAX_LAUNCH_KEYS), bits, counts, width,
+                      n, block_offset, device)
     return bits, counts
 
 
 # ---------------------------------------------------------------------------
-# Static bit-sliced tier: host keys through a shared AND-DAG
+# Static bit-sliced row: host keys, and the AND-DAG of the JAX package
 # ---------------------------------------------------------------------------
 #
-# With the key values known on the host, the per-key plane fold collapses
-# into an AND-DAG over the planes and their negations:
+# On the card the host keys take the plane fold, copied to device memory
+# once a key set.  The JAX package's kernel for them collapses the per-key
+# fold into an AND-DAG over the planes and their negations:
 #     match(key) = AND_p (bit_p(key) ? plane_p : ~plane_p)
 # built as a balanced binary tree over the bit span with every subtree
-# memoized, so keys sharing a sub-span pattern share its subtree.  The
-# cost functions count the exact DAG ops on a stand-in operand, so the
-# dispatch prices each key set's own DAG.
+# memoized, so keys sharing a sub-span pattern share its subtree.  Its
+# builders and counting stand-ins stay for ``ops/member.py``,
+# ``ops/aggregate.py`` and ``query.py``, which price the member and
+# aggregate tiers with them.
 
 
 def _combo(planes, lo, hi, pattern: int, memo: dict):
@@ -911,192 +970,6 @@ def _static_dag_liveness(width: int, keys, member: bool = False) -> int:
     return env.peak()
 
 
-# Fixed cost of the bit-sliced tiers in quarter-ops-per-value units:
-# unpack (~80 ops/32 values) + pruned transpose (196 at width 9) + plane
-# handling, /8 to convert ops-per-32-values to quarter-ops-per-value.
-_BITSLICED_FIXED = 40
-
-
-def _static_krows(k: int) -> int:
-    """Keys per memo chunk of the static AND-DAG tier: one exact chunk up
-    to 32 keys, one chunk rounded up to a multiple of 8 up to 48, else 32."""
-    if k <= 32:
-        return k
-    if k <= 48:
-        return ((k + 7) // 8) * 8
-    return 32
-
-
-def _static_group_sizes(k: int) -> list[int]:
-    """The JAX package's per-call key-group sizes of the static tier (at
-    most 8 chunks of 32 per call; exact multiples of 32, the sub-49 tail
-    on its own).  Only the cost function uses them here: the CUDA program
-    has no branch cap."""
-    sizes = []
-    rem = k
-    while rem > 0:
-        if rem >= 256:
-            g = 256
-        elif rem > 48 and rem % 32:
-            g = 32 * (rem // 32)
-        else:
-            g = rem
-        sizes.append(g)
-        rem -= g
-    return sizes
-
-
-def bitsliced_static_cost(width: int, keys) -> int:
-    """Static cost (quarter-ops-per-value) of the concrete-key bit-sliced
-    kernel for THIS key set: fixed unpack+transpose plus the exact counted
-    AND/NOT ops of the shared match DAG, summed over its key chunks
-    (grouped as the JAX package groups them)."""
-    arr = np.asarray(keys, dtype=np.uint32)
-    k = int(arr.shape[0])
-    ops = 0
-    g0 = 0
-    for g in _static_group_sizes(k):
-        sub = arr[g0 : g0 + g]
-        g0 += g
-        ks = int(sub.shape[0])
-        krows = _static_krows(ks)
-        ops += sum(
-            _static_dag_ops(width, sub[c0 : c0 + krows].tolist())
-            for c0 in range(0, ks, krows)
-        )
-    return _BITSLICED_FIXED + -(-ops // 8)
-
-
-def _static_chunks(keys: np.ndarray) -> list[tuple[int, list[int]]]:
-    """(first row, keys) of each memo chunk of one launch's key rows."""
-    krows = _static_krows(int(keys.shape[0]))
-    return [(c0, keys[c0 : c0 + krows].tolist()) for c0 in range(0, keys.shape[0], krows)]
-
-
-# Instruction kinds of the static DAG program (csrc/bitsliced.cu).
-_AND, _OUT, _ZERO, _OR = 0, 1, 2, 3
-_NEG = 1 << 15  # operand flag: read the slot's complement
-_MAX_SLOTS = _NEG
-# Dynamic shared memory one static-DAG CTA may use for its node slots
-# (the H100 gives a CTA up to 227 KB; the rest is headroom).
-STATIC_SMEM_BYTES = 200 * 1024
-
-
-class _ProgVec:
-    """Stand-in DAG operand that records the DAG as instructions: each AND
-    or OR appends one; NOT is free (a flag on the operand that reads it)."""
-
-    __slots__ = ("ops", "node", "neg")
-
-    def __init__(self, ops: list, node: int, neg: bool = False):
-        self.ops, self.node, self.neg = ops, node, neg
-
-    def _binary(self, kind: int, other: "_ProgVec") -> "_ProgVec":
-        node = self.ops[0]
-        self.ops[0] += 1
-        self.ops.append((kind, node, (self.node, self.neg), (other.node, other.neg)))
-        return _ProgVec(self.ops, node)
-
-    def __and__(self, other: "_ProgVec") -> "_ProgVec":
-        return self._binary(_AND, other)
-
-    def __or__(self, other: "_ProgVec") -> "_ProgVec":
-        return self._binary(_OR, other)
-
-    def __invert__(self) -> "_ProgVec":
-        return _ProgVec(self.ops, self.node, not self.neg)
-
-    def out(self, row: int) -> None:
-        """Store this node as output row ``row``."""
-        self.ops.append((_OUT, row, (self.node, self.neg), None))
-
-
-@profiling.watch_cache
-@functools.lru_cache(maxsize=64)
-def _static_program(width: int, keys: tuple) -> tuple[np.ndarray, int]:
-    """One launch's key rows (at most MAX_LAUNCH_KEYS) -> (program
-    int32[nops, 2], slots): the memoized ``_combo`` DAG of each chunk as
-    instructions for ``sss_bitsliced_static_scan``.
-
-    Word 0 is ``kind << 30 | target``: AND (OR) writes slot ``target``,
-    OUT stores operand a as row ``target``, ZERO stores a zero row (a key
-    >= 2^width).  Word 1 holds operands a and b (16 bits each: slot, and
-    ``_NEG`` for the complement).  Planes hold slots 0..width-1; every
-    other node gets a slot freed after its last use, so ``slots`` is
-    width plus the DAG's peak liveness."""
-    ops: list = [width]  # ops[0]: next node id; planes are nodes 0..width-1
-    planes = [_ProgVec(ops, p) for p in range(width)]
-    dom = 1 << width
-    for c0, chunk in _static_chunks(np.asarray(keys, dtype=np.uint32)):
-        memo: dict = {}
-        for j, key in enumerate(chunk):
-            if key < dom:
-                _combo(planes, 0, width, key, memo).out(c0 + j)
-            else:
-                ops.append((_ZERO, c0 + j, None, None))
-    return _assign_slots(width, ops[1:])
-
-
-@profiling.watch_cache
-@functools.lru_cache(maxsize=64)
-def _member_program(width: int, patterns: tuple) -> tuple[np.ndarray, int]:
-    """The member OR-tree of ``patterns`` (in-domain keys) as a one-row
-    program for ``sss_bitsliced_static_scan``, in the format of
-    :func:`_static_program`: ``_member_or_tree`` with OR instructions.  A
-    set holding the whole domain stores ``plane0 | ~plane0`` (all ones);
-    an empty set stores a zero row."""
-    ops: list = [width]
-    planes = [_ProgVec(ops, p) for p in range(width)]
-    if not patterns:
-        ops.append((_ZERO, 0, None, None))
-    else:
-        row = _member_or_tree(planes, 0, width, list(patterns), {})
-        (planes[0] | ~planes[0] if row is None else row).out(0)
-    return _assign_slots(width, ops[1:])
-
-
-def _assign_slots(width: int, ops: list) -> tuple[np.ndarray, int]:
-    """Instructions (kind, node or row, operand a, operand b) -> (program
-    int32[nops, 2], slots), each node in a slot freed after its last use."""
-    last = {}
-    for i, (_, _, a, b) in enumerate(ops):
-        for o in (a, b):
-            if o is not None:
-                last[o[0]] = i
-    slot = {p: p for p in range(width)}
-    free: list[int] = []
-    slots = width
-    prog = np.zeros((len(ops), 2), dtype=np.uint32)
-    for i, (kind, target, a, b) in enumerate(ops):
-        word1 = 0
-        for sh, o in ((0, a), (16, b)):
-            if o is not None:
-                word1 |= (slot[o[0]] | (_NEG if o[1] else 0)) << sh
-        for node in {o[0] for o in (a, b) if o is not None}:
-            if node >= width and last[node] == i:
-                heapq.heappush(free, slot.pop(node))
-        if kind in (_AND, _OR):
-            if free:
-                slot[target] = heapq.heappop(free)
-            else:
-                slot[target] = slots
-                slots += 1
-            target = slot[target]
-        prog[i] = (kind << 30 | target, word1)
-    if slots > _MAX_SLOTS:
-        raise ValueError(f"static AND-DAG needs {slots} live values, more than {_MAX_SLOTS}")
-    return prog.view(np.int32), slots
-
-
-def _static_threads(slots: int) -> int:
-    """Threads per CTA whose node slots fit STATIC_SMEM_BYTES."""
-    for threads in (128, 64, 32):
-        if slots * threads * 4 <= STATIC_SMEM_BYTES:
-            return threads
-    raise ValueError(f"static AND-DAG needs {slots} live values: more than the shared "
-                     f"memory of a 32-thread CTA ({STATIC_SMEM_BYTES} bytes)")
-
-
 def shared_scan_bitsliced_static_tiles_plain(
     tiles: torch.Tensor, keys, width: int, n: int, block_offset: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1111,31 +984,14 @@ def shared_scan_bitsliced_static_tiles_plain(
 @profiling.watch_cache
 @functools.lru_cache(maxsize=64)
 def _static_keys_on(keys: tuple, device: torch.device) -> torch.Tensor:
-    """One launch's host keys as int32 on ``device``, copied once per set."""
+    """Host keys as int32 on ``device``, copied once per key set."""
     return _key_tensor(np.asarray(keys, dtype=np.uint32), device)
 
 
-def _static_fold(
-    tiles: torch.Tensor, arr: np.ndarray, width: int, n: int, block_offset: int,
-    device: torch.device
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """``sss_bitsliced_static_fold`` on host keys, one launch per
-    MAX_LAUNCH_KEYS keys, each counted by
-    :func:`shared_scan_bitsliced_static_tiles` and its keys copied to the
-    card once and cached -> (bits, counts)."""
-    k, b1 = int(arr.shape[0]), tiles.shape[1]
-    bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
-    counts = torch.zeros(k, dtype=torch.int64, device=device)
-    for g0 in range(0, k, MAX_LAUNCH_KEYS):
-        with profiling.span("scan.program"):
-            group = _static_keys_on(tuple(arr[g0 : g0 + MAX_LAUNCH_KEYS].tolist()), device)
-        _cuda.launch(
-            "sss_bitsliced_static_fold", device, tiles.data_ptr(), group.data_ptr(),
-            group.shape[0], bits[g0].data_ptr(), counts[g0].data_ptr(), b1 * LANES, width, n,
-            block_offset,
-        )
-        profiling.count("launches.shared_scan_bitsliced_static_tiles")
-    return bits, counts
+def _host_keys_on(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """:func:`_static_keys_on` of host keys, in span ``scan.program``."""
+    with profiling.span("scan.program"):
+        return _static_keys_on(tuple(arr.tolist()), device)
 
 
 def shared_scan_bitsliced_static_tiles(
@@ -1145,18 +1001,19 @@ def shared_scan_bitsliced_static_tiles(
     numpy array or CPU tensor), one row per caller-order key, duplicates
     included.  Raises on CUDA-tensor keys.
 
-    Kernel ``sss_bitsliced_static_fold`` (``csrc/bitsliced.cu``: the plane
-    fold, the keys turned into plane masks in shared memory once a CTA,
-    rows stored in tile order) on CUDA tiles, one launch per
-    MAX_LAUNCH_KEYS keys (:func:`_static_fold`, each launch counted here),
-    each launch's keys copied to the card once and cached; the plain
-    version on CPU tiles."""
+    On CUDA tiles the keys are copied to the card once a key set
+    (:func:`_host_keys_on`) and take the plane fold of
+    :func:`shared_scan_bitsliced_tiles` (:func:`_fold`), each launch
+    counted here; the plain version on CPU tiles."""
     arr = _concrete_keys(keys, "shared_scan_bitsliced_static_tiles")
     _check_tiles(tiles, width)
     device = _cuda.kernel_device(tiles)
     if device is None:
         return shared_scan_bitsliced_static_tiles_plain(tiles, arr, width, n, block_offset)
-    return _static_fold(tiles, arr, width, n, block_offset, device)
+    out = _fold(tiles, _host_keys_on(arr, device), width, n, block_offset, device)
+    profiling.count("launches.shared_scan_bitsliced_static_tiles",
+                    -(-arr.shape[0] // MAX_LAUNCH_KEYS))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1168,10 +1025,9 @@ def shared_scan_bitsliced_static_tiles(
 # into 32-aligned windows of the value domain; one shift per (value, window)
 # gives the 32-bit match mask of every key in the window, and one 8x8
 # transpose per populated 8-key sub-window gives the bitvector words, stored
-# straight to each key's caller-order row.  Its planners stay for the
-# dispatch's cost.  On the card a value costs one lookup in the host's window
-# tables (:func:`_window_tables`) instead, whatever the windows; below
-# WINDOW_LOOKUP_KEYS keys the tier runs the static fold.
+# straight to each key's caller-order row.  On the card a value costs one
+# lookup in the host's window tables (:func:`_window_tables`) instead,
+# whatever the windows.
 
 
 def _window_plan(arr):
@@ -1192,38 +1048,6 @@ def _window_plan(arr):
         for b in bases
     )
     return bases, plan
-
-
-def _window_chunks(arr, krows: int = 32):
-    """Caller-order key rows in chunks of ``krows`` -> (bases, plans, woffs).
-
-    bases: all chunks' window bases concatenated; plans: per chunk, the
-    :func:`_window_plan` plan with rows relative to the chunk; woffs: per
-    chunk, its first window's index into bases."""
-    arr = np.asarray(arr, dtype=np.uint32)
-    bases_all: list[int] = []
-    plans = []
-    woffs = []
-    for c0 in range(0, arr.shape[0], krows):
-        bases, plan = _window_plan(arr[c0 : c0 + krows])
-        woffs.append(len(bases_all))
-        bases_all.extend(bases)
-        plans.append(plan)
-    return bases_all, tuple(plans), tuple(woffs)
-
-
-def windowed_cost(arr) -> int:
-    """Static vector-op cost estimate (per value, x4) of the windowed
-    kernel for this key set: 8*windows + 20*populated_subwindows, summed
-    over the 32-row chunks the kernel runs for k > 48 (windows shared
-    between chunks are re-masked per chunk and so counted per chunk)."""
-    arr = np.asarray(arr, dtype=np.uint32)
-    if arr.shape[0] <= 48:
-        chunks = [_window_plan(arr)]
-    else:
-        _, plans, _ = _window_chunks(arr)
-        chunks = [(None, p) for p in plans]
-    return sum(8 * len(plan) + 20 * sum(len(p) for p in plan) for _, plan in chunks)
 
 
 # Rows of one pass over a tile of the windowed and dynamic kernels
@@ -1298,32 +1122,23 @@ def windowed_scan_tiles_plain(
     return _finish(torch.stack(rows), valid)
 
 
-# The fewest keys for which the windowed tier's window lookup ties or beats
-# the static tier's plane fold, whose work grows with k x width, at widths
-# 9-31 (bench/redesign_sweep.py windowed, NVIDIA H100 80GB HBM3, 700 W);
-# fewer keys take the fold.
-WINDOW_LOOKUP_KEYS = 64
-
-
-def _window_lookup(
-    tiles: torch.Tensor, arr: np.ndarray, width: int, n: int, block_offset: int,
-    device: torch.device
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """``sss_windowed_lookup`` on host keys, one launch per MAX_LAUNCH_KEYS
-    keys, each counted by :func:`windowed_scan_tiles` and its tables built
-    and copied to the card once per key set and width -> (bits, counts)."""
-    k, b1 = int(arr.shape[0]), tiles.shape[1]
-    bits = torch.empty((k, b1, LANES), dtype=torch.int32, device=device)
-    counts = torch.zeros(k, dtype=torch.int64, device=device)
+def _window_launches(
+    tiles: torch.Tensor, arr: np.ndarray, r_base: int, bits: torch.Tensor, counts: torch.Tensor,
+    width: int, n: int, block_offset: int, device: torch.device,
+) -> int:
+    """The one launch site of ``sss_windowed_lookup``: host keys ``arr``
+    into rows ``r_base ..`` of ``bits`` and ``counts``, one launch per
+    MAX_LAUNCH_KEYS keys, its tables built and copied to the card once per
+    key set and width (span ``scan.program``) -> the launches."""
     with profiling.span("scan.program"):
         launches = _window_tables_on(tuple(arr.tolist()), width, device)
     for r0, rows, plan, nwin, nd, ndup in launches:
         _cuda.launch(
             "sss_windowed_lookup", device, tiles.data_ptr(), plan.data_ptr(), rows, nwin, nd,
-            ndup, bits[r0].data_ptr(), counts[r0].data_ptr(), b1 * LANES, width, n, block_offset,
+            ndup, bits[r_base + r0].data_ptr(), counts[r_base + r0].data_ptr(),
+            tiles.shape[1] * LANES, width, n, block_offset,
         )
-        profiling.count("launches.windowed_scan_tiles")
-    return bits, counts
+    return len(launches)
 
 
 def windowed_scan_tiles(
@@ -1335,18 +1150,18 @@ def windowed_scan_tiles(
 
     On CUDA tiles, ``sss_windowed_lookup`` (``csrc/shared_scan.cu``: one
     lookup a value in the keys' window tables, the rows in passes of 64;
-    :func:`_window_lookup`, each launch counted here), or below
-    WINDOW_LOOKUP_KEYS keys the static tier's plane fold
-    (``sss_bitsliced_static_fold``, :func:`_static_fold`, counted by
-    :func:`shared_scan_bitsliced_static_tiles`).  The plain version (the
-    JAX package's one-hot windows) on CPU tiles."""
+    :func:`_window_launches`), each launch counted here; the route's
+    ``"window"``.  The plain version (the JAX package's one-hot windows)
+    on CPU tiles."""
     arr = _concrete_keys(keys, "windowed_scan_tiles")
-    _check_tiles(tiles, width)
+    b1 = _check_tiles(tiles, width)
     device = _cuda.kernel_device(tiles)
     if device is None:
         return windowed_scan_tiles_plain(tiles, arr, width, n, block_offset)
-    run = _window_lookup if arr.shape[0] >= WINDOW_LOOKUP_KEYS else _static_fold
-    return run(tiles, arr, width, n, block_offset, device)
+    bits, counts = _rows_out(int(arr.shape[0]), b1, device)
+    launched = _window_launches(tiles, arr, 0, bits, counts, width, n, block_offset, device)
+    profiling.count("launches.windowed_scan_tiles", launched)
+    return bits, counts
 
 
 # ---------------------------------------------------------------------------
@@ -1477,28 +1292,6 @@ def _consecutive_lo(keys) -> int | None:
     return lo if (arr == lo + np.arange(k, dtype=arr.dtype)).all() else None
 
 
-def pick_concrete_tier(width: int, keys) -> tuple[str, int | None]:
-    """The dispatch rule for host keys, the JAX package's to the letter ->
-    (tier, lo): tier in {"interval", "windowed", "bitsliced_static",
-    "compare"}; lo is the interval base (None otherwise).  Consecutive runs
-    of 2..1024 keys take the interval tier; other sets the cheapest of
-    windowed, static AND-DAG and compare by counted static cost.  The cost
-    constants come from the JAX package's TPU measurements."""
-    keys = _host_keys(keys)
-    k = int(keys.shape[0])
-    lo = _consecutive_lo(keys)
-    if lo is not None:
-        return "interval", lo
-    cost_cmp = 4 + 12 * k
-    cost_dag = bitsliced_static_cost(width, keys)
-    cost_win = windowed_cost(keys) if k >= 2 else 1 << 30
-    if cost_win < min(cost_cmp, cost_dag):
-        return "windowed", None
-    if cost_dag < cost_cmp:
-        return "bitsliced_static", None
-    return "compare", None
-
-
 def _runtime_keys(keys: torch.Tensor) -> torch.Tensor:
     """CUDA-tensor keys as contiguous int32[k] (uint32 bits) on their own
     device; nothing is copied to or read on the host."""
@@ -1508,47 +1301,47 @@ def _runtime_keys(keys: torch.Tensor) -> torch.Tensor:
     return keys.contiguous()
 
 
+def interval_or_keys(keys) -> tuple[int | None, np.ndarray | torch.Tensor]:
+    """The shared scan's first decision -> (lo, keys): lo is the interval
+    base where host keys are the consecutive run lo..lo+k-1 with 2 <= k <=
+    1024 (counted ``tier.interval``), else None; keys come back as a host
+    uint32 array, or as int32 on their card when given as a CUDA tensor
+    (never read on the host, so never an interval).  The check runs in
+    span ``scan.pick_tier``."""
+    if _is_runtime_keys(keys):
+        return None, _runtime_keys(keys)
+    keys = _host_keys(keys)
+    with profiling.span("scan.pick_tier"):
+        lo = _consecutive_lo(keys)
+    if lo is not None:
+        profiling.count("tier.interval")
+    return lo, keys
+
+
 def shared_scan_device(dev: DeviceColumn, keys) -> tuple[torch.Tensor, torch.Tensor]:
     """Shared scan on a DeviceColumn -> ((k, W) canonical bitvectors,
     (k,) int64 counts).
 
-    Dispatch, as the JAX package's ``shared_scan_device``:
+    Keys are host values (a list, numpy array or CPU tensor) or a CUDA
+    tensor, the counterpart of the JAX package's traced keys, which is
+    never copied to the host.  A host run of consecutive keys takes the
+    interval kernel (:func:`interval_or_keys`); every other key set takes
+    the route (:func:`_routed_scan`), each launch on the kernel
+    :func:`pick_route` names, host keys copied to the card once a key set
+    (span ``scan.program``).
 
-    - host keys (a list, numpy array or CPU tensor) go through
-      :func:`pick_concrete_tier`: a consecutive run to the interval kernel,
-      other sets to the cheapest of the windowed, static AND-DAG and
-      compare kernels;
-    - keys given as a CUDA tensor are runtime keys (the counterpart of the
-      JAX package's traced keys): they are never copied to the host, and
-      take the bit-sliced kernel when :func:`_bitsliced_wins` (k >= 5 at
-      width 9), else the compare kernel.
-
-    Span ``scan.shared_scan_device`` holds ``scan.pick_tier`` (the rule)
-    and ``scan.program`` (the tier's host-built keys or tables); each
-    decision counts ``tier.<tier>``, the runtime keys'
-    ``tier.runtime_bitsliced`` or ``tier.runtime_compare``."""
+    Span ``scan.shared_scan_device`` holds ``scan.pick_tier`` (the
+    interval check and the route) and ``scan.program``; each decision
+    counts ``tier.interval`` or ``tier.<route>``."""
     with profiling.span("scan.shared_scan_device"):
-        if isinstance(keys, torch.Tensor) and keys.is_cuda:
-            keys = _runtime_keys(keys)
-            with profiling.span("scan.pick_tier"):
-                bitsliced = _bitsliced_wins(dev.width, keys.shape[0])
-            profiling.count("tier.runtime_bitsliced" if bitsliced else "tier.runtime_compare")
-            fn = shared_scan_bitsliced_tiles if bitsliced else shared_scan_tiles
-            bits, counts = fn(dev.tiles, keys, dev.width, dev.n)
-            return bits_to_canonical(bits, dev.n), counts
-        keys = _host_keys(keys)
-        with profiling.span("scan.pick_tier"):
-            tier, lo = pick_concrete_tier(dev.width, keys)
-        profiling.count("tier." + tier)
-        if tier == "interval":
+        lo, keys = interval_or_keys(keys)
+        if lo is not None:
             bits, counts = interval_scan_tiles(dev.tiles, lo, keys.shape[0], dev.width, dev.n)
-        elif tier == "compare":
-            with profiling.span("scan.program"):
-                keys_t = torch.from_numpy(keys.view(np.int32).copy()).to(dev.tiles.device)
-            bits, counts = shared_scan_tiles(dev.tiles, keys_t, dev.width, dev.n)
         else:
-            fn = windowed_scan_tiles if tier == "windowed" else shared_scan_bitsliced_static_tiles
-            bits, counts = fn(dev.tiles, keys, dev.width, dev.n)
+            host = keys if isinstance(keys, np.ndarray) else None
+            if host is not None:
+                keys = _host_keys_on(host, dev.tiles.device)
+            bits, counts = _routed_scan(dev.tiles, keys, host, dev.width, dev.n, 0)
         return bits_to_canonical(bits, dev.n), counts
 
 
@@ -1739,9 +1532,9 @@ def _histogram_chunked_tiles(
     """Counts of keys lo..lo+k-1 (host lo, any 1 <= k <= 4096) in one pass
     -> int64[k]: count j is the number of real values equal to lo + j, so
     a key past 2^width or past 2^32 - 1 counts 0 (no wrap).  The JAX
-    package runs one ``_histogram_dag_tiles_impl`` per
-    ``_static_group_sizes`` group, each reading the whole column; here one
-    launch counts all k.
+    package runs one ``_histogram_dag_tiles_impl`` per group of at most
+    256 keys, each reading the whole column; here one launch counts all
+    k.
 
     On CUDA tiles, by the committed sweep (:func:`_histogram_fold_keys`):
     at width 1 and for a few keys of a narrow column, kernel

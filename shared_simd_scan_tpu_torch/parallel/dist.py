@@ -38,12 +38,13 @@ MIN/MAX (an empty group's 2^wm / 0 survive both).  Sums come back as numpy
 uint64 (n < 2^32 values below 2^31 cannot reach 2^63 in int64), counts,
 minima and maxima as int64 tensors on the mesh's first device.
 
-Dispatch is the single-device dispatch: host keys go through
-``pick_concrete_tier``; the compare tier, and keys given as a CUDA tensor
-(the JAX package's traced keys, never read on the host), take
-``shared_scan_bitsliced_tiles`` where ``_bitsliced_wins`` and else
-``shared_scan_tiles``.  The JAX package's ``tier="xla"`` form has no
-counterpart: the port has no plain-XLA tier.
+The shared scan takes the single-device route
+(``ops/scan.py`` ``shared_scan_device``): a host run of 2..1024
+consecutive keys takes the interval kernel, every other key set each
+shard's route, whose launches run the kernel ``pick_route`` reads from the
+H100 sweeps (the compare kernel, the plane fold, the dynamic scan's lookup
+or, for host keys, the window lookup).  The JAX package's ``tier="xla"`` form
+has no counterpart: the port has no plain-XLA tier.
 """
 from __future__ import annotations
 
@@ -275,36 +276,23 @@ def sharded_shared_scan(dev: ShardedColumn, keys, mesh: Mesh):
     """k-predicate shared scan over a sharded column -> (bits, a list of
     int32[k, B1/S, 128] per shard; counts int64[k], all-reduced).
 
-    The single-device dispatch: host keys (a list, numpy array or CPU
-    tensor) go through ``pick_concrete_tier`` (interval, windowed, static
-    bit-sliced or compare); keys given as a CUDA tensor take the compare
-    tier.  On the compare tier ``_bitsliced_wins`` picks the bit-sliced or
-    the compare kernel."""
+    The single-device route: ``scan.interval_or_keys`` sends a host run of
+    consecutive keys to the interval kernel, every other key set (host
+    keys, or a CUDA tensor never read on the host) to each shard's
+    ``scan._routed_scan``."""
     _check_column(dev, mesh)
     w, n = dev.width, dev.n
-    if _is_runtime_keys(keys):
-        keys = scan_ops._runtime_keys(keys)
-        tier = "compare"
-    else:
-        keys = scan_ops._host_keys(keys)
-        tier, lo = scan_ops.pick_concrete_tier(w, keys)
+    lo, keys = scan_ops.interval_or_keys(keys)
     k = int(keys.shape[0])
-    if tier == "interval":
+    if lo is not None:
         def fn(t, off):
             return scan_ops.interval_scan_tiles(t, lo, k, w, n, off)
-    elif tier in ("windowed", "bitsliced_static"):
-        tile_fn = (scan_ops.windowed_scan_tiles if tier == "windowed"
-                   else scan_ops.shared_scan_bitsliced_static_tiles)
-
-        def fn(t, off):
-            return tile_fn(t, keys, w, n, off)
     else:
-        tile_fn = (scan_ops.shared_scan_bitsliced_tiles if scan_ops._bitsliced_wins(w, k)
-                   else scan_ops.shared_scan_tiles)
+        host = keys if isinstance(keys, np.ndarray) else None
         on = _KeysOn(keys)
 
         def fn(t, off):
-            return tile_fn(t, on(t.device), w, n, off)
+            return scan_ops._routed_scan(t, on(t.device), host, w, n, off)
     return _split(_run(dev, fn), mesh)
 
 

@@ -1,13 +1,13 @@
-"""The port's bit-sliced tiers (runtime keys, and host keys through the
-static AND-DAG) and their planners against the JAX package.
+"""The port's bit-sliced rows (runtime keys, and host keys), the AND-DAG
+counters the member and aggregate tiers price with, and the route's
+runtime-lookup table, against the JAX package.
 
 On CPU tensors the port's wrappers run their plain torch versions; the JAX
 side runs its Pallas kernels in interpret mode, as its own tests do.  Both
 get the same inputs from a numpy seed and must agree bit for bit (integer
-words and counts, tolerance 0).  The planners are pure Python and must make
-the same decision on every key set of the sweep.  Each interpret-mode call
-compiles per key set, so there are few of them.  The CUDA kernels are held
-against the plain versions in test_torch_cuda.py.
+words and counts, tolerance 0).  Each interpret-mode call compiles per key
+set, so there are few of them.  The CUDA kernels are held against the
+plain versions in test_torch_cuda.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -48,71 +48,14 @@ def _assert_same(tout, jout):
     np.testing.assert_array_equal(tcounts.numpy(), np.asarray(jcounts).astype(np.int64))
 
 
-def key_sets(width: int, k: int, rng) -> dict[str, np.ndarray]:
-    """Key sets of size k: spread, clustered, reversed run, gapped run,
-    duplicates, and a third out of domain (>= 2^width)."""
-    dom = 1 << width
-    lo = int(rng.integers(0, dom))
-    sets = {
-        "spread": rng.integers(0, dom, size=k),
-        "clustered": (lo + rng.integers(0, 48, size=k)) % dom,
-        "reversed": (lo + np.arange(k)[::-1]) % dom,
-        "gapped": (lo + 2 * np.arange(k)) % dom,
-        "duplicate": np.repeat(rng.integers(0, dom, size=(k + 1) // 2), 2)[:k],
-        "out_of_domain": np.where(rng.random(k) < 0.3, dom + rng.integers(0, 1 << 20, size=k),
-                                  rng.integers(0, dom, size=k)) % (1 << 32),
-    }
-    return {name: keys.astype(np.uint32) for name, keys in sets.items()}
-
-
 # ---------------------------------------------------------------------------
-# planners
+# the AND-DAG's counters
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("width", PLANNER_WIDTHS)
-def test_pick_concrete_tier_matches_jax(width):
-    rng = np.random.default_rng(width)
-    tiers = set()
-    for k in [*range(1, 65), *range(65, 301, 3)]:
-        for kind, keys in key_sets(width, k, rng).items():
-            got = tscan.pick_concrete_tier(width, keys)
-            assert got == jscan.pick_concrete_tier(width, keys), (k, kind)
-            assert tscan.bitsliced_static_cost(width, keys) == jscan.bitsliced_static_cost(width, keys)
-            tiers.add(got[0])
-    assert "bitsliced_static" in tiers or width == 1
-    # the planner also takes a CPU tensor of keys
-    keys = key_sets(width, 40, rng)["spread"]
-    assert tscan.pick_concrete_tier(width, torch.from_numpy(keys.view(np.int32))) \
-        == jscan.pick_concrete_tier(width, keys)
-
-
-def test_reference_key_sets_take_the_expected_tiers():
-    rng = np.random.default_rng(3)
-    s64 = sorted(rng.choice(512, 64, replace=False).tolist())
-    s256 = rng.choice(512, 256, replace=False).tolist()
-    for keys, tier in ((SPREAD8, "bitsliced_static"), (s64, "bitsliced_static"),
-                       (s256, "bitsliced_static"), ([0, 2, 4, 6], "windowed"),
-                       ([0, 1, 2, 4, 5, 6, 7], "windowed"), (list(range(7, -1, -1)), "windowed"),
-                       ([3], "compare"), ([1, 300], "compare"), (list(range(8)), "interval")):
-        assert tscan.pick_concrete_tier(9, keys)[0] == tier
-        assert tscan.pick_concrete_tier(9, keys) == jscan.pick_concrete_tier(9, keys)
-    assert tscan.bitsliced_static_cost(9, SPREAD8) == 47
-
-
-def test_bitsliced_wins_matches_jax():
-    for width in range(1, 32):
-        for k in range(0, 400):
-            assert tscan.bitsliced_cost(width, k) == jscan.bitsliced_cost(width, k)
-            assert tscan._bitsliced_wins(width, k) == jscan._bitsliced_wins(width, k)
-    assert [k for k in range(1, 10) if tscan._bitsliced_wins(9, k)][0] == 5
 
 
 def test_static_chunking_matches_jax():
-    for k in range(0, 2100):
-        assert tscan._static_group_sizes(k) == jscan._static_group_sizes(k)
-        if k:
-            assert tscan._static_krows(k) == jscan._static_krows(k)
+    # the counted ops of one chunk's AND-DAG, which the member and
+    # aggregate tiers price with
     rng = np.random.default_rng(9)
     for width in PLANNER_WIDTHS:
         for k in (1, 8, 32, 48):
@@ -233,65 +176,6 @@ def test_static_fold_matches_jax_oracle(width, k):
     obits, ocounts = joracle.shared_scan(jlayout.pack(values, width), keys)
     np.testing.assert_array_equal(_u32(tscan.bits_to_canonical(bits, n)), np.asarray(obits))
     np.testing.assert_array_equal(counts.numpy(), np.asarray(ocounts))
-
-
-def _run_program(planes, prog, k):
-    """What sss_bitsliced_static_scan does with a program, in torch."""
-    slots = {}
-    for p, plane in enumerate(planes):
-        slots[p] = plane
-    rows = [None] * k
-
-    def operand(o):
-        v = slots[o & 0x7FFF]
-        return (~v & 0xFFFFFFFF) if o & 0x8000 else v
-
-    for w0, w1 in prog.view(np.uint32).tolist():
-        kind, target = w0 >> 30, w0 & 0x3FFFFFFF
-        if kind == tscan._AND:
-            slots[target] = operand(w1 & 0xFFFF) & operand(w1 >> 16)
-        elif kind == tscan._OUT:
-            rows[target] = operand(w1 & 0xFFFF)
-        else:
-            rows[target] = torch.zeros_like(planes[0])
-    return rows
-
-
-@pytest.mark.parametrize("width", [1, 9, 31])
-def test_static_program_computes_the_plain_rows(width):
-    # the host-compiled program, run as the kernel runs it, with its slots
-    # reused after each node's last use, gives the plain version's words
-    n = 4241
-    values, _, tdev = _columns(width, n, seed=width + 77)
-    rng = np.random.default_rng(width)
-    keys = rng.integers(0, min(2 << width, 5000), size=1100).tolist()
-    keys[:3] = [int(values[0]), int(values[0]), 1 << width]
-    planes = tscan._bitplanes_plain(tdev.tiles, width)
-    valid = tscan._valid_words(tdev.tiles.shape[1], n, 0, "cpu")
-    rows = []
-    for g0 in range(0, len(keys), tscan.MAX_LAUNCH_KEYS):
-        group = tuple(keys[g0 : g0 + tscan.MAX_LAUNCH_KEYS])
-        prog, slots = tscan._static_program(width, group)
-        words = prog.view(np.uint32)
-        assert (words[words[:, 0] >> 30 == tscan._AND, 0] & 0x3FFFFFFF).max(initial=0) < slots
-        rows += _run_program(planes, prog, len(group))
-    got = tscan._finish(torch.stack(rows), valid)
-    want = tscan.shared_scan_bitsliced_static_tiles_plain(tdev.tiles, keys, width, n)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-
-
-def test_static_program_slots_follow_liveness():
-    keys = tuple(np.random.default_rng(1).integers(0, 1 << 31, size=32).tolist())
-    _, slots = tscan._static_program(31, keys)
-    # width planes plus the DAG's peak liveness, which the JAX package
-    # measures at about 134 values with complements counted; more than
-    # 48 KB at 128 threads, within the shared memory of a CTA
-    assert 31 < slots <= jscan._static_dag_liveness(31, list(keys))
-    assert slots * 128 * 4 > 48 * 1024
-    assert tscan._static_threads(slots) == 128
-    assert tscan._static_program(9, tuple(SPREAD8))[1] < 32
-    with pytest.raises(ValueError):
-        tscan._static_threads(2000)
 
 
 def test_static_and_windowed_tiers_refuse_no_keys():

@@ -1,21 +1,32 @@
-"""The compare tier's route to the bit-sliced tier's kernels, on the CPU.
+"""The shared scan's route, on the CPU.
 
-``shared_scan_tiles`` launches, for the k where ``_compare_fold_wins``
-says so, the bit-sliced tier's launch on the same key tensor (the plane
-fold ``sss_bitsliced_static_fold``, or the dynamic scan's lookup where
-``_runtime_lookup_wins``).  That is only sound if the three functions
-agree to the bit on every key: keys past the domain, 0xFFFFFFFF, slots
-that straddle two words, key 0 over the zero padding of a ragged n, a
+``pick_route`` names the kernel of each launch of ``shared_scan_tiles``
+from the committed H100 tables: the compare kernel (``sss_shared_scan``)
+where ``_compare_fold_wins`` says no, else the plane fold
+(``sss_bitsliced_static_fold``), or the dynamic scan's lookup where
+``_runtime_lookup_wins``, and for host keys there the window lookup
+(``sss_windowed_lookup``) where ``_WINDOW_LOOKUP_KS`` says so.  That is
+only sound if the kernels agree
+to the bit on every key: keys past the domain, 0xFFFFFFFF, slots that
+straddle two words, key 0 over the zero padding of a ragged n, a
 block_offset.  Their plain versions repeat the kernels' algorithms, so
 they are held to each other here; the wrapper's launches are recorded
-with the CUDA calls replaced.  No JAX: the plain compare is held against
-the JAX package in ``test_torch_scan.py``.
+with the CUDA calls replaced.  Host keys, CPU-tensor keys and the sharded
+scan take the same route, and the benchmark's shared-scan cells draw key
+sets that land on the interval kernel and the fold.  No JAX: the plain
+compare is held against the JAX package in ``test_torch_scan.py``.
 """
+import json
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
+from scanbench.generators import shared_scan as cell_keys
+from shared_simd_scan_tpu_torch import layout
 from shared_simd_scan_tpu_torch.ops import _cuda, scan, unpack
+from shared_simd_scan_tpu_torch.parallel import dist
 from shared_simd_scan_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -88,14 +99,15 @@ def test_compare_fold_rule_outside_the_sweep():
 @pytest.mark.parametrize("width", ROUTE_WIDTHS)
 def test_compare_wrapper_launches_the_kernel_the_rule_names(width, monkeypatch):
     # the CUDA branch with the launches recorded: one a group of 1024 keys,
-    # sss_shared_scan where the rule keeps the compare kernel, else the
-    # bit-sliced tier's kernel, each counted by its own wrapper
+    # on the kernel pick_route names, each counted by its own wrapper
     calls = []
     monkeypatch.setattr(_cuda, "kernel_device", lambda *ts: torch.device("cpu"))
     monkeypatch.setattr(_cuda, "launch", lambda fn, device, *args: calls.append((fn, args[2])))
     tiles = torch.zeros((width, 2, 128), dtype=torch.int32)
     fns = (scan.shared_scan_tiles, scan.shared_scan_bitsliced_tiles,
            scan.shared_scan_dynamic_tiles)
+    kernels = {"compare": "sss_shared_scan", "fold": "sss_bitsliced_static_fold",
+               "lookup": "sss_shared_scan_dynamic"}
     for k in (1, 2, 4, 5, 8, 16, 64, 300, 1024, 1025, 2100):
         calls.clear()
         before = [profiling.launch_count(fn) for fn in fns]
@@ -105,14 +117,122 @@ def test_compare_wrapper_launches_the_kernel_the_rule_names(width, monkeypatch):
         want, launches = [], [0, 0, 0]
         for g0 in range(0, k, scan.MAX_LAUNCH_KEYS):
             rows = min(k - g0, scan.MAX_LAUNCH_KEYS)
-            if not scan._compare_fold_wins(width, rows):
-                want.append(("sss_shared_scan", rows))
-                launches[0] += 1
-            elif scan._runtime_lookup_wins(width, rows):
-                want.append(("sss_shared_scan_dynamic", rows))
-                launches[2] += 1
-            else:
-                want.append(("sss_bitsliced_static_fold", rows))
-                launches[1] += 1
+            route = scan.pick_route(width, rows)
+            want.append((kernels[route], rows))
+            launches[list(kernels).index(route)] += 1
         assert calls == want, (width, k)
         assert [profiling.launch_count(fn) - b for fn, b in zip(fns, before)] == launches
+
+
+@pytest.mark.parametrize("width", scan._COMPARE_SWEEP_WIDTHS)
+def test_route_reads_the_committed_tables(width):
+    # at every swept width: the compare kernel exactly where the compare
+    # sweep measured no win for the fold, past it the lookup exactly where
+    # the runtime sweep measured one, and for host keys the window lookup
+    # there exactly where the windowed sweep did; between the points, the
+    # rules
+    fold_ks = scan._COMPARE_FOLD_KS.get(width, ())
+    lookup_ks = scan._RUNTIME_LOOKUP_KS.get(width, ())
+    for k in scan._COMPARE_SWEEP_KS:
+        assert (scan.pick_route(width, k) == "compare") == (k not in fold_ks), k
+    for k in scan._RUNTIME_SWEEP_KS:
+        if scan.pick_route(width, k) != "compare":
+            assert (scan.pick_route(width, k) == "lookup") == (k in lookup_ks), k
+    if width in scan._WINDOW_SWEEP_WIDTHS:
+        for k in scan._WINDOW_SWEEP_KS:
+            assert (scan.pick_route(width, k, True) == "window") == \
+                (k in scan._WINDOW_LOOKUP_KS[width]), k
+    for k in range(1, scan.MAX_LAUNCH_KEYS + 1):
+        want = ("compare" if not scan._compare_fold_wins(width, k) else
+                "lookup" if scan._runtime_lookup_wins(width, k) else "fold")
+        assert scan.pick_route(width, k) == want, k
+        window = want == "lookup" and scan._won_around(
+            scan._WINDOW_SWEEP_WIDTHS, scan._WINDOW_SWEEP_KS, scan._WINDOW_LOOKUP_KS, width, k)
+        assert scan.pick_route(width, k, True) == ("window" if window else want), k
+
+
+def _tiers(fn) -> dict:
+    """The ``tier.*`` counters that ``fn()`` moves, and by how much."""
+    before = {k: v for k, v in profiling.counters().items() if k.startswith("tier.")}
+    out = fn()
+    after = {k: v for k, v in profiling.counters().items() if k.startswith("tier.")}
+    moved = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+    return moved, out
+
+
+@pytest.mark.parametrize("width", (1, 9, 12, 17, 31))
+def test_host_cpu_and_sharded_keys_take_one_route(width):
+    # drawn sets of 3, 300 and 1030 keys (launches of 1024 and 6): the
+    # compare kernel, the fold, the lookup or the window lookup by width
+    # and k, the same decisions for a list, a CPU tensor and each shard of
+    # a sharded column, with the same bits and counts
+    values, tiles, rng = _column(width, width + 40)
+    dev = layout.DeviceColumn(tiles=tiles, n=N, width=width)
+    mesh = dist.make_mesh(["cpu"] * 2)
+    sharded = dist.shard_column(dev, mesh)
+    for k in (3, 300, 1030):
+        keys = rng.integers(0, 2 << width, size=k).astype(np.uint32)
+        keys[:2] = values[7]  # a duplicate: never a consecutive run
+        routes = {}
+        for g0 in range(0, k, scan.MAX_LAUNCH_KEYS):
+            tier = "tier." + scan.pick_route(width, min(k - g0, scan.MAX_LAUNCH_KEYS), True)
+            routes[tier] = routes.get(tier, 0) + 1
+        forms = {"list": lambda: scan.shared_scan_device(dev, keys.tolist()),
+                 "tensor": lambda: scan.shared_scan_device(
+                     dev, torch.from_numpy(keys.view(np.int32).copy())),
+                 "sharded": lambda: dist.sharded_shared_scan(sharded, keys, mesh)}
+        results = {}
+        for name, fn in forms.items():
+            moved, results[name] = _tiers(fn)
+            shards = mesh.size if name == "sharded" else 1
+            assert moved == {t: c * shards for t, c in routes.items()}, (name, k)
+        want = [int((values == key).sum()) for key in keys]
+        bits, counts = results["list"]
+        assert counts.tolist() == want
+        assert torch.equal(results["tensor"][0], bits) and torch.equal(results["tensor"][1], counts)
+        sbits, scounts = results["sharded"]
+        assert torch.equal(scan.bits_to_canonical(dist.fetch_global(sbits, mesh), N), bits)
+        assert scounts.tolist() == want
+
+
+@pytest.mark.parametrize("width", (20, 24, 31))
+def test_host_keys_take_the_window_lookup_at_its_points(width, monkeypatch):
+    # the launch path with the CUDA calls recorded: 1030 host keys, a
+    # window each, take one window lookup (the route's "window" at 1024
+    # keys) and one compare launch (6 keys); the same keys as a tensor on
+    # the card take the dynamic scan's lookup there
+    calls = []
+    monkeypatch.setattr(_cuda, "kernel_device", lambda *ts: torch.device("cpu"))
+    monkeypatch.setattr(_cuda, "launch", lambda fn, device, *args: calls.append(fn))
+    dev = layout.DeviceColumn(tiles=torch.zeros((width, 2, 128), dtype=torch.int32), n=100,
+                              width=width)
+    keys = [32 * i + i % 32 for i in range(1030)]
+    fns = (scan.windowed_scan_tiles, scan.shared_scan_dynamic_tiles, scan.shared_scan_tiles)
+    before = [profiling.launch_count(fn) for fn in fns]
+    scan.shared_scan_device(dev, keys)
+    assert calls == ["sss_windowed_lookup", "sss_shared_scan"]
+    assert [profiling.launch_count(fn) - b for fn, b in zip(fns, before)] == [1, 0, 1]
+    calls.clear()
+    scan.shared_scan_tiles(dev.tiles, torch.tensor(keys, dtype=torch.int32), width, 100)
+    assert calls == ["sss_shared_scan_dynamic", "sss_shared_scan"]
+
+
+ROOT = pathlib.Path(__file__).resolve().parents[1] / "scanbench"
+
+
+@pytest.mark.parametrize("cell, config, tier", [
+    ("interval8", "simdscan_9bit", "interval"),
+    ("any64", "simdscan_9bit", "fold"),
+    ("dates64", "ssb_sf100", "fold"),
+])
+def test_cells_key_shapes_take_their_kernels(cell, config, tier):
+    # the benchmark's shared-scan cells, their keys drawn by the cell's own
+    # generator: consecutive runs on the interval kernel, 64 keys of a 9- or
+    # 12-bit column on the fold, every batch
+    params = json.loads((ROOT / "traffic" / f"{cell}.json").read_text())
+    spec = json.loads((ROOT / "configs" / f"{config}.json").read_text())
+    width = spec["columns"][params["column"]]["bits"]
+    batches = cell_keys.ops(params, spec, np.random.default_rng(7))
+    for _ in range(20):
+        lo, keys = scan.interval_or_keys(next(batches))
+        assert tier == ("interval" if lo is not None else scan.pick_route(width, len(keys)))

@@ -86,8 +86,8 @@ def test_block_offset_matches_plain(cuda_device):
 
 def test_compare_kernel_past_1024_keys(cuda_device):
     # the wrapper launches keys in chunks of 1024, each counted under the
-    # kernel that ran: the compare kernel, or where _compare_fold_wins the
-    # bit-sliced tier's launch (the fold, or the dynamic scan's lookup)
+    # kernel pick_route names: the compare kernel, the fold or the dynamic
+    # scan's lookup
     width = 11
     tiles = unpack.pack_device_kernel(_values(width, N, 11, cuda_device), width).tiles
     kt = _keys((np.arange(1500) * 7) % 2048, cuda_device)
@@ -105,13 +105,8 @@ def _compare_launches(width, k):
     kernel, the fold, the dynamic scan."""
     out = [0, 0, 0]
     for g0 in range(0, k, scan.MAX_LAUNCH_KEYS):
-        rows = min(k - g0, scan.MAX_LAUNCH_KEYS)
-        if not scan._compare_fold_wins(width, rows):
-            out[0] += 1
-        elif scan._runtime_lookup_wins(width, rows):
-            out[2] += 1
-        else:
-            out[1] += 1
+        out[("compare", "fold", "lookup").index(
+            scan.pick_route(width, min(k - g0, scan.MAX_LAUNCH_KEYS)))] += 1
     return out
 
 
@@ -185,9 +180,8 @@ def _compare_launch(tiles, kt, width, n, bo):
 
 @pytest.mark.parametrize("width", range(1, 32))
 def test_compare_wrapper_every_width_both_sides_of_the_rule(cuda_device, width):
-    # the wrapper (the compare kernel, or the bit-sliced tier's launch where
-    # _compare_fold_wins), the compare kernel itself and the bit-sliced
-    # tier's launch itself, each against the plain compare
+    # the wrapper (the kernel pick_route names), the compare kernel itself
+    # and the fold itself, each against the plain compare
     rng = np.random.default_rng(width + 500)
     fns = (scan.shared_scan_tiles, scan.shared_scan_bitsliced_tiles,
            scan.shared_scan_dynamic_tiles)
@@ -354,22 +348,16 @@ def test_windowed_lookup_edges_match_plain(cuda_device, width):
             for bo in (0, 3):
                 want = scan.shared_scan_tiles_plain(tiles, kt, width, N, bo)
                 before = profiling.launch_count(scan.windowed_scan_tiles)
-                _same(scan._window_lookup(tiles, arr, width, N, bo, cuda_device), want)
+                _same(scan.windowed_scan_tiles(tiles, arr, width, N, bo), want)
                 assert profiling.launch_count(scan.windowed_scan_tiles) == before + -(-k // 1024), \
                     (k, name)
-                # the tier: the lookup from WINDOW_LOOKUP_KEYS keys, else the fold
-                fns = (scan.windowed_scan_tiles, scan.shared_scan_bitsliced_static_tiles)
-                before = [profiling.launch_count(f) for f in fns]
-                _same(scan.windowed_scan_tiles(tiles, keys, width, N, bo), want)
-                ran = -(-k // 1024) if k >= scan.WINDOW_LOOKUP_KEYS else 0
-                assert [profiling.launch_count(f) - b for f, b in zip(fns, before)] == \
-                    [ran, 1 - min(ran, 1)], (k, name)
 
 
 @pytest.mark.parametrize("width", range(1, 32))
 def test_runtime_key_tier_edges_match_plain(cuda_device, width):
-    # CUDA keys through the fold (or the lookup where the rule sends them):
-    # duplicates, keys past the domain, k around a launch
+    # CUDA keys through the fold, and through the route (the fold, or the
+    # lookup where pick_route sends them): duplicates, keys past the
+    # domain, k around a launch
     values = _values(width, N, width + 60, cuda_device)
     tiles = unpack.pack_device_kernel(values, width).tiles
     rng = np.random.default_rng(width)
@@ -377,14 +365,17 @@ def test_runtime_key_tier_edges_match_plain(cuda_device, width):
     for k in (5, 8, 64, 128, 1025) + ((1024,) if width == 31 else ()):
         keys = _with_edges(host[rng.integers(0, N, size=k)], width)
         kt = _keys(keys, cuda_device)
-        fns = (scan.shared_scan_bitsliced_tiles, scan.shared_scan_dynamic_tiles)
+        want = scan.shared_scan_bitsliced_tiles_plain(tiles, kt, width, N, 2)
+        fns = (scan.shared_scan_tiles, scan.shared_scan_bitsliced_tiles,
+               scan.shared_scan_dynamic_tiles)
         before = [profiling.launch_count(f) for f in fns]
-        got = scan.shared_scan_bitsliced_tiles(tiles, kt, width, N, 2)
-        lookups = sum(scan._runtime_lookup_wins(width, min(k - g0, 1024))
-                      for g0 in range(0, k, 1024))
+        _same(scan.shared_scan_bitsliced_tiles(tiles, kt, width, N, 2), want)
         assert [profiling.launch_count(f) - b for f, b in zip(fns, before)] == \
-            [-(-k // 1024) - lookups, lookups], k
-        _same(got, scan.shared_scan_bitsliced_tiles_plain(tiles, kt, width, N, 2))
+            [0, -(-k // 1024), 0], k
+        before = [profiling.launch_count(f) for f in fns]
+        _same(scan.shared_scan_tiles(tiles, kt, width, N, 2), want)
+        assert [profiling.launch_count(f) - b for f, b in zip(fns, before)] == \
+            _compare_launches(width, k), k
 
 
 @pytest.mark.parametrize("k", [1, 4, 5, 128, 129, 1024])
@@ -451,24 +442,45 @@ def test_dispatcher_launches_each_tier(cuda_device):
     spread8 = [3, 70, 141, 200, 262, 333, 400, 511]
     cases = [
         (list(range(8)), "interval", scan.interval_scan_tiles),
-        # the windowed tier below WINDOW_LOOKUP_KEYS keys: the static fold
-        ([0, 2, 4, 6], "windowed", scan.shared_scan_bitsliced_static_tiles),
-        (spread8, "bitsliced_static", scan.shared_scan_bitsliced_static_tiles),
+        ([0, 2, 4, 6], "fold", scan.shared_scan_bitsliced_tiles),
+        (spread8, "fold", scan.shared_scan_bitsliced_tiles),
         ([5, 300], "compare", scan.shared_scan_tiles),
-        (torch.tensor(spread8, dtype=torch.int32, device=cuda_device), None,
+        (torch.tensor(spread8, dtype=torch.int32, device=cuda_device), "fold",
          scan.shared_scan_bitsliced_tiles),
-        (torch.tensor([5, 300], dtype=torch.int32, device=cuda_device), None,
+        (torch.tensor([5, 300], dtype=torch.int32, device=cuda_device), "compare",
          scan.shared_scan_tiles),
     ]
     for keys, tier, fn in cases:
-        if tier is not None:
-            assert scan.pick_concrete_tier(width, keys)[0] == tier
+        lo, _ = scan.interval_or_keys(keys)
+        assert tier == ("interval" if lo is not None else scan.pick_route(width, len(keys)))
         before = profiling.launch_count(fn)
         bits, counts = port.shared_scan_device(dev, keys)
         assert profiling.launch_count(fn) == before + 1, (keys, fn.__name__)
         host = scan._host_keys(keys)
         assert counts.tolist() == [int((vals == int(key)).sum()) for key in host.view(np.int32)]
         assert harness.check_shared_scan(dev, keys, vals)
+
+
+@pytest.mark.parametrize("width", [20, 31])
+def test_dispatcher_host_keys_take_the_window_lookup(cuda_device, width):
+    # 1030 keys, a window each, with a duplicate and a key past the domain:
+    # as host keys the route's window lookup for the first 1024
+    # (pick_route(width, 1024, True)) and the compare kernel for the last
+    # 6; as a CUDA tensor the dynamic scan's lookup for the first 1024
+    vals = _values(width, N, width + 800, cuda_device)
+    dev = port.pack_device_kernel(vals, width)
+    keys = [32 * i + i % 32 for i in range(1030)]
+    keys[:3] = [int(vals[5]), int(vals[5]), 0xFFFFFFFF]
+    kt = _keys(keys, cuda_device)
+    want_bits, want_counts = scan.shared_scan_tiles_plain(dev.tiles, kt, width, N)
+    fns = (scan.windowed_scan_tiles, scan.shared_scan_dynamic_tiles, scan.shared_scan_tiles)
+    assert scan.pick_route(width, 1024, True) == "window"
+    for given, ran in ((keys, [1, 0, 1]), (kt, [0, 1, 1])):
+        before = [profiling.launch_count(f) for f in fns]
+        bits, counts = port.shared_scan_device(dev, given)
+        assert [profiling.launch_count(f) - b for f, b in zip(fns, before)] == ran
+        _same(bits, scan.bits_to_canonical(want_bits, N))
+        _same(counts, want_counts)
 
 
 def test_cuda_keys_never_reach_the_host(cuda_device, monkeypatch):

@@ -99,11 +99,12 @@ def test_shard_column_matches_the_jax_sharded_tiles(meshes, n):
 
 
 @pytest.mark.parametrize("keys,tier", [(np.arange(4, dtype=np.uint32), "interval"),
-                                       (SPREAD, "bitsliced_static")])
+                                       (SPREAD, "fold")])
 def test_sharded_shared_scan_matches_the_jax_mesh(meshes, col, keys, tier):
     jmesh, tmesh = meshes
     vals, jdev, tdev, jsd, tsd = col
-    assert tscan.pick_concrete_tier(WIDTH, keys)[0] == tier
+    lo, _ = tscan.interval_or_keys(keys)
+    assert tier == ("interval" if lo is not None else tscan.pick_route(WIDTH, len(keys)))
     jbits, jcounts = jdist.sharded_shared_scan(jsd, keys, jmesh, interpret=True)
     tbits, tcounts = tdist.sharded_shared_scan(tsd, keys, tmesh)
     assert len(tbits) == 8 and all(tuple(b.shape) == (len(keys), 8, 128) for b in tbits)

@@ -384,36 +384,6 @@ def test_ortree_liveness_cap_matches_jax():
     assert tmember.member_dispatch_tier(keys, 31) == jmember.member_dispatch_tier(keys, 31)
 
 
-def test_member_program_computes_the_plain_row():
-    # the one-row OR-tree program, run as sss_bitsliced_static_scan runs
-    # it, gives the plain OR-tree's words (full domain, empty set, spread)
-    values, _, tdev = _column(7, N, seed=12)
-    planes = tscan._bitplanes_plain(tdev.tiles, 7)
-    for pats in ((), tuple(range(128)), (3, 9, 64, 100, 127), (0,)):
-        prog, slots = tscan._member_program(7, pats)
-        slot = dict(enumerate(planes))
-        row = None
-        for w0, w1 in prog.view(np.uint32).tolist():
-            kind, target = w0 >> 30, w0 & 0x3FFFFFFF
-
-            def operand(o):
-                v = slot[o & 0x7FFF]
-                return (~v & 0xFFFFFFFF) if o & 0x8000 else v
-
-            if kind == tscan._AND:
-                slot[target] = operand(w1 & 0xFFFF) & operand(w1 >> 16)
-            elif kind == tscan._OR:
-                slot[target] = operand(w1 & 0xFFFF) | operand(w1 >> 16)
-            elif kind == tscan._OUT:
-                row = operand(w1 & 0xFFFF)
-            else:
-                row = torch.zeros_like(planes[0])
-        got = tmember._member_finish(row, N, 0)
-        want = tmember._member_ortree_tiles_plain(tdev.tiles, 7, N, pats)
-        assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
-        assert int(got[1]) == _expect_count(values, pats)
-
-
 # ---------------------------------------------------------------------------
 # the dispatcher
 # ---------------------------------------------------------------------------

@@ -210,17 +210,19 @@ def test_launch_spans_and_counters_on_the_launch_path(clean, monkeypatch):
 
 @pytest.mark.parametrize("keys, tier", [
     ([5, 6, 7, 8], "interval"),
-    ([3, 100, 200, 411, 6, 77, 300, 500], None),
-    (list(range(0, 512, 8)), None),
+    ([3, 100, 200, 411, 6, 77, 300, 500], "fold"),
+    (list(range(0, 512, 8)), "fold"),
+    ([3, 100], "compare"),
 ])
 def test_tier_counters_name_the_dispatch_decision(clean, keys, tier):
     dev = _column(9, n=2000)
-    want = tier or scan.pick_concrete_tier(9, keys)[0]
     scan.shared_scan_device(dev, keys)
     counts = profiling.counters()
-    assert {k: v for k, v in counts.items() if k.startswith("tier.")} == {f"tier.{want}": 1}
+    assert {k: v for k, v in counts.items() if k.startswith("tier.")} == {f"tier.{tier}": 1}
     totals = profiling.span_totals()
-    assert totals[("scan.shared_scan_device", "scan.pick_tier")][0] == 1
+    # the interval check, then (past it) the route of shared_scan_tiles
+    assert totals[("scan.shared_scan_device", "scan.pick_tier")][0] == \
+        (1 if tier == "interval" else 2)
     assert _reader("pricing_host_ms")(None) > 0 and _reader("dispatch_host_ms")(None) > 0
 
 

@@ -211,56 +211,41 @@ def test_shift_verdict_launch_arguments(ballot, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def _spread_sets(k, count, seed, width=9):
-    rng = np.random.default_rng(seed)
-    return [np.sort(rng.choice(1 << width, size=k, replace=False)).astype(np.uint32)
-            for _ in range(count)]
-
-
-def test_tier_matches_reference_for_single_keys():
-    for key in list(range(0, 512, 7)) + [511, 512, 1 << 31, 0xFFFFFFFF]:
-        assert tscan.pick_concrete_tier(9, [key]) == jscan.pick_concrete_tier(9, [key]) \
-            == ("compare", None)
-
-
 def test_tier_matches_reference_for_consecutive_runs():
     for k in range(2, 1025):
         lo = (k * 37) % 512
         keys = np.arange(lo, lo + k, dtype=np.uint32)
-        assert tscan.pick_concrete_tier(9, keys) == jscan.pick_concrete_tier(9, keys) \
-            == ("interval", lo)
+        assert tscan.interval_or_keys(keys)[0] == jscan._consecutive_lo(keys) == lo
     for k in (1025, 2000):  # past the interval tier's limit
         keys = np.arange(k, dtype=np.uint32)
-        assert jscan.pick_concrete_tier(9, keys)[0] != "interval"
-        assert tscan.pick_concrete_tier(9, keys) == jscan.pick_concrete_tier(9, keys)
-
-
-@pytest.mark.parametrize("k", [2, 3])
-def test_tier_matches_reference_for_spread_sets(k):
-    for keys in _spread_sets(k, 200, seed=k):
-        assert tscan.pick_concrete_tier(9, keys) == jscan.pick_concrete_tier(9, keys)
+        assert tscan.interval_or_keys(keys)[0] is jscan._consecutive_lo(keys) is None
 
 
 @pytest.mark.parametrize("keys", [[0, 2, 4], [1, 100, 300, 450], [5, 6, 7, 9, 200, 201]])
 def test_sets_of_unported_tiers_fall_to_compare_with_same_bits(keys):
-    # sets the reference sends to its windowed and static AND-DAG tiers take
-    # the same tier in the port, with the same bits and counts
+    # sets that are no consecutive run (the reference prices them to its
+    # windowed and static AND-DAG tiers) take the route's kernel in the
+    # port, with the same bits and counts, and so do the port's wrappers of
+    # those two rows
     width, n = 9, 4241
     values, jdev, tdev = _columns(width, n, seed=len(keys))
-    ref = jscan.pick_concrete_tier(width, keys)
-    assert ref[0] in ("windowed", "bitsliced_static")
-    assert tscan.pick_concrete_tier(width, keys) == ref
-    fn = {"windowed": tscan.windowed_scan_tiles,
-          "bitsliced_static": tscan.shared_scan_bitsliced_static_tiles}[ref[0]]
-    before = profiling.launch_count(fn)
+    assert jscan._consecutive_lo(np.asarray(keys, np.uint32)) is None
+    route = tscan.pick_route(width, len(keys))
+    assert route == ("compare" if len(keys) < 4 else "fold")
+    before = profiling.counters().get("tier." + route, 0)
+    wrappers = (tscan.shared_scan_tiles, tscan.shared_scan_bitsliced_tiles)
+    launched = [profiling.launch_count(fn) for fn in wrappers]
     jbits, jcounts = jscan.shared_scan_device(jdev, np.asarray(keys, np.uint32), interpret=True)
     tbits, tcounts = tscan.shared_scan_device(tdev, keys)
-    assert profiling.launch_count(fn) == before  # CPU tensors take the plain version
+    assert profiling.counters()["tier." + route] == before + 1
+    # CPU tensors take the plain version
+    assert [profiling.launch_count(fn) for fn in wrappers] == launched
     np.testing.assert_array_equal(_u32(tbits), np.asarray(jbits))
     np.testing.assert_array_equal(tcounts.numpy(), np.asarray(jcounts))
-    pbits, pcounts = fn(tdev.tiles, keys, width, n)
-    np.testing.assert_array_equal(_u32(tscan.bits_to_canonical(pbits, n)), np.asarray(jbits))
-    np.testing.assert_array_equal(pcounts.numpy(), np.asarray(jcounts))
+    for fn in (tscan.windowed_scan_tiles, tscan.shared_scan_bitsliced_static_tiles):
+        pbits, pcounts = fn(tdev.tiles, keys, width, n)
+        np.testing.assert_array_equal(_u32(tscan.bits_to_canonical(pbits, n)), np.asarray(jbits))
+        np.testing.assert_array_equal(pcounts.numpy(), np.asarray(jcounts))
 
 
 def test_consecutive_lo_matches_jax():

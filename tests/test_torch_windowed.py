@@ -1,5 +1,5 @@
-"""The port's windowed tier, its planners, and the full dispatcher against
-the JAX package.
+"""The port's windowed row, its window plan, and the shared scan's route
+against the JAX package.
 
 On CPU tensors the port's wrappers run their plain torch versions; the JAX
 side runs its Pallas kernels in interpret mode, as its own tests do.  Both
@@ -56,8 +56,6 @@ def test_window_planners_match_jax():
     for keys in _sweep_sets(rng):
         keys = keys.astype(np.uint32)
         assert tscan._window_plan(keys) == jscan._window_plan(keys)
-        assert tscan._window_chunks(keys) == jscan._window_chunks(keys)
-        assert tscan.windowed_cost(keys) == jscan.windowed_cost(keys)
 
 
 def _walk_tables(vals, valid, plan, k, nwin, nd, ndup, width):
@@ -179,13 +177,13 @@ def test_windowed_tiles_matches_jax(width, n, keys, offset):
 
 
 # ---------------------------------------------------------------------------
-# the full dispatcher
+# the route
 # ---------------------------------------------------------------------------
 
 DEVICE_SETS = [
     ("interval", list(range(100, 120))),
-    ("windowed", [0, 1, 2, 4, 5, 6, 7, 7]),                                    # duplicate
-    ("bitsliced_static", [3, 70, 141, 200, 262, 333, 400, 511, 70, 1 << 31]),  # out of domain
+    ("fold", [0, 1, 2, 4, 5, 6, 7, 7]),                                # duplicate
+    ("fold", [3, 70, 141, 200, 262, 333, 400, 511, 70, 1 << 31]),      # out of domain
     ("compare", [5, 300, 0xFFFFFFFF]),
 ]
 
@@ -195,8 +193,8 @@ def test_shared_scan_device_matches_jax_for_every_tier(tier, keys):
     width, n = 9, 20_001
     values, jdev, tdev = _columns(width, n, seed=len(keys))
     arr = np.asarray(keys, np.uint32)
-    assert tscan.pick_concrete_tier(width, arr) == jscan.pick_concrete_tier(width, arr)
-    assert tscan.pick_concrete_tier(width, arr)[0] == tier
+    lo, _ = tscan.interval_or_keys(arr)
+    assert tier == ("interval" if lo is not None else tscan.pick_route(width, len(keys)))
     jbits, jcounts = jscan.shared_scan_device(jdev, arr, interpret=True)
     for given in (keys, arr, torch.from_numpy(arr.view(np.int32))):  # every host form
         tbits, tcounts = tscan.shared_scan_device(tdev, given)
